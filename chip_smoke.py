@@ -13,31 +13,51 @@ never ``jax`` nor ``psfmc_tpu``, and:
    (one ``nvcc`` per source, all started together) and prints the build
    time and ``ptxas`` register/spill lines;
 3. kernel phase, at flagship shapes (B = 125 walkers, a half-ensemble;
-   2 Sersics; 128x128; float32): each kernel against its plain PyTorch
-   version on the card, with its tolerance, and its time (CUDA events)
-   beside the plain version's, the least time the card could take, and
-   for conv_lnl the ``torch.fft`` formulation as a yardstick;
-4. slice phase: the flagship model (synthetic 128x128 observation, 64x64
-   PSF, 18 free parameters), 250 walkers drawn from the priors,
-   ``init_state`` -> ``run_burn(20)`` -> ``reset`` ->
-   ``run_sampling(20)``; checks finiteness, acceptance, that the kernels
-   carried the path (launch counts), and the kernel-path lnpost against
-   the plain path on the CPU in float64;
-5. prints the kernel table as one JSON line, then the result line
+   2 Sersics, 1 point source; 128x128; float32): each kernel against its
+   plain PyTorch version on the card, with its tolerance, and its time
+   (CUDA events) beside the plain version's and the least time the card
+   could take (for conv_lnl and fused_lnl from the operations of FFT
+   convolutions, with the bound of the kernels' matmul-DFT formulation
+   beside it); for conv_lnl the ``torch.fft`` formulation as a
+   yardstick, for fused_lnl the unfused pair render + conv_lnl;
+4. slice phase (the posterior + sampler path, ``lnpost="batched"``): the
+   flagship model (synthetic 128x128 observation, 64x64 PSF, 18 free
+   parameters), 250 walkers drawn from the priors, ``init_state`` ->
+   ``run_burn(20)`` -> ``reset`` -> ``run_sampling(20)``; checks
+   finiteness, acceptance, that the kernels carried the path (launch
+   counts), and the kernel-path lnpost against the plain path on the
+   CPU in float64;
+5. driver phase (the model-file path, ``PSFMC_LNPOST=pallas``): the
+   flagship written as FITS files, a ds9 mask and a model file, then
+   ``model_galaxy_mcmc(model, chains=250, burn=20, iterations=20,
+   checkpoint_interval=10)``; checks the trace database's layout and
+   cards, the five image products and their header stats, the
+   acceptance, that the fused kernel carried the likelihood (launch
+   counts, with the rejuvenation between burn segments), the
+   checkpoints between segments, the fused-path lnpost against the plain
+   path on the CPU in float64, that a second call skips sampling and
+   writes the images again, and that a fit stopped after its first
+   (mid-burn) checkpoint and resumed is bit-identical to the
+   uninterrupted one;
+6. prints the kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler breakdown of
-device time by kernel over five retained sampler steps.
+device time by kernel over five retained sampler steps of each path.
 
 Any failure exits nonzero before the result line; so does a host
 without CUDA, or a directory without the port.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -56,11 +76,15 @@ FP32_FLOP_PER_S = 67e12
 
 RENDER_TOL = 5e-6  # max relative error per pixel, kernel vs plain
 CONV_LNL_TOL = 2e-5  # relative error of lnl per walker, kernel vs plain
+FUSED_TOL = 2e-5  # relative error of lnl per walker, fused kernel vs plain
 SLICE_RTOL = 1e-4  # kernel-path lnpost (f32, GPU) vs plain path (f64, CPU)
+IMAGE_TYPES = ("raw_model", "convolved_model", "composite_ivm", "residual",
+               "point_source_subtracted")
 # profile ops per pixel per Sersic (sersic_render.cu::profile, each
 # expf/logf counted as one op) and per-pixel ops of the lnL reduction
 RENDER_OPS_PER_PIXEL = 31
 LNL_OPS_PER_PIXEL = 10
+CHECKPOINT = 10  # driver segment: mid-phase checkpoints and rejuvenation
 
 
 def log(msg):
@@ -120,6 +144,26 @@ def bound(nbytes, nops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def conv_lnl_ops(b, h, w):
+    """Operations the conv + lnL function needs per launch: the two
+    circular convolutions by real FFTs (a real transform of N points
+    ~2.5 N log2 N, one forward and one inverse per convolution, times the
+    given half spectrum: 6 per complex bin), the squared image, and the
+    lnL reduction."""
+    n = h * w
+    fft_conv = 5 * n * math.log2(n) + 6 * h * (w // 2 + 1)
+    return b * (2 * fft_conv + n + LNL_OPS_PER_PIXEL * n)
+
+
+def dft_matmul_ops(b, h, w):
+    """Operations of the kernels' own formulation: each convolution as
+    the real half-spectrum matrix products of ``convolve_rdft``, plus the
+    lnL reduction; about 20x the FFT count at 128x128."""
+    w2 = w // 2 + 1
+    return b * (2 * (8 * h * w * w2 + 16 * h * h * w2 + 6 * h * w2)
+                + LNL_OPS_PER_PIXEL * h * w)
+
+
 def kernel_phase(post, spec):
     import torch
 
@@ -130,6 +174,8 @@ def kernel_phase(post, spec):
         batched_conv_lnl,
         batched_conv_lnl_plain,
     )
+    from psfmc_tpu_torch.ops.kernels.fused_lnl import fused_lnl, fused_lnl_plain
+    from psfmc_tpu_torch.ops.pointsource import pointsource_image
     from psfmc_tpu_torch.ops.kernels.sersic_render import (
         pick_tile,
         render_sersics,
@@ -192,14 +238,14 @@ def kernel_phase(post, spec):
 
     _, lib_rel, _ = compare(library(), want)
     log(f"conv_lnl: torch.fft yardstick rel diff to plain {lib_rel:.3e}")
-    w2 = w // 2 + 1
-    conv_ops = b * (2 * (8 * h * w * w2 + 16 * h * h * w2 + 6 * h * w2)
-                    + LNL_OPS_PER_PIXEL * h * w)
-    const_bytes = 4 * sum(t.numel() for t in (
-        consts.cw, consts.sw, consts.lf, consts.li, consts.ica, consts.isa,
+    # the bound counts what the function needs: FFT convolutions, and the
+    # bytes of the data it reads (the DFT operators are the kernels' own
+    # formulation, whose bound is recorded beside it as dft_bound_ms)
+    conv_ops = conv_lnl_ops(b, h, w)
+    data_bytes = 4 * sum(t.numel() for t in (
         consts.psf_r, consts.psf_i, consts.var_r, consts.var_i, consts.obs,
         consts.obs_var, consts.good_f))
-    bms, by = bound(4 * raws.numel() + const_bytes + 4 * b, conv_ops)
+    bms, by = bound(4 * raws.numel() + data_bytes + 4 * b, conv_ops)
     rows.append(dict(
         name="conv_lnl", route="cuda", source=_build.source_path("conv_lnl"),
         replaces="psfmc_tpu/ops/pallas/lnpost_batched.py:191", launches=0,
@@ -207,11 +253,48 @@ def kernel_phase(post, spec):
         ms=time_ms(lambda: batched_conv_lnl(raws, consts)),
         plain_ms=time_ms(lambda: batched_conv_lnl_plain(raws, consts)),
         bound_ms=bms, bound_by=by, library_ms=time_ms(library),
+        dft_bound_ms=bound(0, dft_matmul_ops(b, h, w))[0],
+    ))
+
+    # fused render + conv + lnL: the whole likelihood from the scalars
+    fky, kx = post.pointsource_inputs(thetas)
+    fky, kx = fky.contiguous(), kx.contiguous()
+    args = (params, sky, fky, kx, consts)
+    want = fused_lnl_plain(*args)
+    abs_err, rel, frac = compare(fused_lnl(*args), want)
+    log(f"fused_lnl: max rel err {rel:.3e} (tol {FUSED_TOL:g}), "
+        f"max abs err {abs_err:.3e}, finite share {frac:.4f}")
+    if frac < 0.5:
+        raise AssertionError("fused_lnl compared on too few finite walkers")
+    if not rel <= FUSED_TOL:
+        raise AssertionError("fused_lnl disagrees with its plain version")
+    npt = fky.shape[1]
+
+    def unfused():  # the render and conv_lnl kernels on the same inputs
+        raw = render_sersics(params, sky, (h, w)) + pointsource_image(fky, kx)
+        return batched_conv_lnl(raw, consts)
+
+    _, un_rel, _ = compare(unfused(), want)
+    log(f"fused_lnl: unfused render + conv_lnl rel diff to plain {un_rel:.3e}")
+    ps_render_ops = b * h * w * (s * RENDER_OPS_PER_PIXEL + 1 + 2 * npt)
+    in_bytes = 4 * (params.numel() + sky.numel() + fky.numel() + kx.numel())
+    bms, by = bound(in_bytes + data_bytes + 4 * b, conv_ops + ps_render_ops)
+    rows.append(dict(
+        name="fused_lnl", route="cuda", source=_build.source_path("fused_lnl"),
+        replaces="psfmc_tpu/ops/pallas/lnpost_pallas.py:183", launches=0,
+        max_abs_err=abs_err, max_rel_err=rel,
+        ms=time_ms(lambda: fused_lnl(*args)),
+        plain_ms=time_ms(lambda: fused_lnl_plain(*args)),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        dft_bound_ms=bound(0, dft_matmul_ops(b, h, w) + ps_render_ops)[0],
+        unfused_ms=time_ms(unfused),
     ))
     for r in rows:
         log(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
-            f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
-            f"library {r['library_ms']})")
+            f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}, "
+            f"{r['ms'] / r['bound_ms']:.1f}x the bound; matmul-DFT "
+            f"formulation's bound {r.get('dft_bound_ms')}, "
+            f"library {r['library_ms']}, unfused {r.get('unfused_ms')})")
     return rows
 
 
@@ -220,16 +303,11 @@ def slice_phase(post, spec):
 
     from psfmc_tpu_torch.flagship import prior_draws
     from psfmc_tpu_torch.models import build_posterior
-    from psfmc_tpu_torch.ops.kernels.conv_lnl import batched_conv_lnl
-    from psfmc_tpu_torch.ops.kernels.sersic_render import (
-        render_sersics,
-        render_sersics_tiled,
-    )
     from psfmc_tpu_torch.sampler import EnsembleSampler
 
     p0 = prior_draws(spec, NWALKERS, seed=SEED)
     sampler = EnsembleSampler(NWALKERS, spec.num_params, post, seed=SEED)
-    counted = (render_sersics, render_sersics_tiled, batched_conv_lnl)
+    counted = counted_kernels()
     torch.cuda.synchronize()
     for fn in counted:
         fn.launches = 0
@@ -260,7 +338,8 @@ def slice_phase(post, spec):
     # the posterior-mean images (ensemble_carry_means)
     want = {"render_sersics": 1 + 2 * steps + SAMPLE,
             "render_sersics_tiled": 0,
-            "batched_conv_lnl": 1 + 2 * steps}
+            "batched_conv_lnl": 1 + 2 * steps,
+            "fused_lnl": 0}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != expected {want}")
     if not all(np.all(np.isfinite(v)) for v in acc_imgs.values()):
@@ -290,6 +369,197 @@ def slice_phase(post, spec):
             f"({NWALKERS / ms * 1e3:.1f} posterior evaluations/s)")
     log(f"slice: peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     return launches, sampler
+
+
+def counted_kernels():
+    """Every kernel wrapper of the port (each keeps a ``launches`` count)."""
+    from psfmc_tpu_torch.ops.kernels.conv_lnl import batched_conv_lnl
+    from psfmc_tpu_torch.ops.kernels.fused_lnl import fused_lnl
+    from psfmc_tpu_torch.ops.kernels.sersic_render import (
+        render_sersics,
+        render_sersics_tiled,
+    )
+
+    return (render_sersics, render_sersics_tiled, batched_conv_lnl, fused_lnl)
+
+
+def driver_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
+    """The model-file driver at full width, on the fused kernel (the
+    arguments shrink it for a rehearsal on the CPU)."""
+    import torch
+
+    from psfmc_tpu_torch import fitting
+    from psfmc_tpu_torch.database import load_database
+    from psfmc_tpu_torch.flagship import write_flagship_files
+    from psfmc_tpu_torch.io import fits
+    from psfmc_tpu_torch.models import as_model, build_posterior
+
+    counted = counted_kernels()
+    steps = BURN + SAMPLE
+    # the driver's checkpoints and the rejuvenations, counted by wrapping
+    # the functions it calls (the wrappers change nothing they return)
+    saves, moved = [], []
+    save_database = fitting.save_database
+    rejuvenate_stuck = fitting.EnsembleSampler.rejuvenate_stuck
+
+    def counting_save(*a, **k):
+        saves.append(k.get("meta_dict", {}).get("MCITER"))
+        return save_database(*a, **k)
+
+    def counting_rejuvenate(self, *a, **k):
+        moved.append(rejuvenate_stuck(self, *a, **k))
+        return moved[-1]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        model_file = write_flagship_files(tmp, shape, psf_shape)
+        out = os.path.join(tmp, "out")
+        kwargs = dict(output_name=out, chains=NWALKERS, burn=BURN,
+                      iterations=SAMPLE, seed=SEED, device=device,
+                      checkpoint_interval=CHECKPOINT)
+        os.environ["PSFMC_LNPOST"] = "pallas"
+        fitting.save_database = counting_save
+        fitting.EnsembleSampler.rejuvenate_stuck = counting_rejuvenate
+        try:
+            torch.cuda.synchronize()
+            for fn in counted:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            db = fitting.model_galaxy_mcmc(model_file, **kwargs)
+            wall = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in counted}
+        finally:
+            fitting.save_database = save_database
+            fitting.EnsembleSampler.rejuvenate_stuck = rejuvenate_stuck
+        timings = dict(db.phase_seconds)
+        log(f"driver: model_galaxy_mcmc, {NWALKERS} walkers, burn {BURN} + "
+            f"sampling {SAMPLE} in segments of {CHECKPOINT}: {wall:.3f} s wall; "
+            "phases " + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items()))
+        log(f"driver: steady step {timings['burn'] / BURN * 1e3:.3f} ms (burn), "
+            f"{timings['sampling'] / SAMPLE * 1e3:.3f} ms (sampling, with the "
+            f"image accumulation); checkpoint writes and first-call overheads "
+            f"included")
+        log(f"driver: launches {launches}; {len(saves)} database writes "
+            f"(MCITER {saves}); walkers moved by each rejuvenation {moved}")
+        # a rejuvenation between burn segments, a checkpoint between
+        # segments of either phase, and the final write
+        burn_segs, sample_segs = -(-BURN // CHECKPOINT), -(-SAMPLE // CHECKPOINT)
+        want_saves = [0] * (burn_segs - 1) + [CHECKPOINT * (i + 1) for i in
+                                              range(sample_segs - 1)] + [SAMPLE]
+        if len(moved) != burn_segs - 1 or saves != want_saves:
+            raise AssertionError(f"driver: {len(moved)} rejuvenations, database "
+                                 f"writes {saves}; want {burn_segs - 1}, {want_saves}")
+        # init: one full-ensemble launch; every step: one per half-ensemble;
+        # every rejuvenation that moved walkers: one full-ensemble launch
+        want = 1 + 2 * steps + sum(n > 0 for n in moved)
+        if launches["fused_lnl"] != want or launches["batched_conv_lnl"] != 0:
+            raise AssertionError(
+                f"driver launches {launches}: want fused_lnl {want}, "
+                "batched_conv_lnl 0")
+        if launches["render_sersics"] == 0:
+            raise AssertionError("the render kernel never ran on the driver path")
+
+        db_file = out + "_db.fits"
+        db = load_database(db_file)
+        mc = as_model(model_file, device=device, lnpost="fused")
+        names = mc.param_names
+        if len(db) != NWALKERS * SAMPLE or db.colnames != names + [
+                "lnprobability", "walker", "sample"]:
+            raise AssertionError(f"trace table {len(db)} rows, {db.colnames}")
+        for name, ln in zip(names, mc.param_lens):
+            col = db[name]
+            if col.dtype != np.float64 or col.shape[1:] != ((ln,) if ln > 1 else ()):
+                raise AssertionError(f"column {name}: {col.dtype} {col.shape}")
+        for name in ("walker", "sample"):
+            if db[name].dtype != np.int64:
+                raise AssertionError(f"column {name}: {db[name].dtype}")
+        cards = {k: db.meta.get(k) for k in ("MCITER", "MCBURN", "MCCHAINS",
+                                             "MCACCEPT", "MCDATSUM", "MAPWLKR",
+                                             "MAPSAMP")}
+        log(f"driver: database {len(db)} rows, cards {cards}")
+        if (None in cards.values() or cards["MCITER"] != SAMPLE
+                or cards["MCBURN"] != BURN or cards["MCCHAINS"] != NWALKERS):
+            raise AssertionError(f"database cards {cards}")
+        acc = float(cards["MCACCEPT"])
+        if not 0.02 < acc < 0.9:
+            raise AssertionError(f"mean acceptance {acc} outside (0.02, 0.9)")
+
+        def check_images(base=out):
+            for ftype in IMAGE_TYPES:
+                img = fits.getdata(f"{base}_{ftype}.fits")
+                if img.shape != tuple(shape) or not np.all(np.isfinite(img)):
+                    raise AssertionError(f"image {ftype}: {img.shape}")
+                hdr = fits.getheader(f"{base}_{ftype}.fits")
+                if ("MCCHI2NU" not in hdr or "MCPPCP" not in hdr
+                        or not str(hdr.get("PSFIMG", "")).endswith("psf.fits")):
+                    raise AssertionError(f"image {ftype}: header stats missing")
+            return hdr
+        hdr = check_images()
+        log(f"driver: five image products {shape[0]}x{shape[1]}, finite; "
+            f"MCCHI2NU {hdr['MCCHI2NU']}, MCPPCP {hdr['MCPPCP']}, PSFIMG "
+            f"{hdr['PSFIMG']}; mean acceptance {acc:.4f}")
+
+        last = np.stack([np.concatenate([np.atleast_1d(np.asarray(v, float))
+                                         for v in row])
+                         for row in db[names][SAMPLE - 1::SAMPLE]])
+        got = mc.posterior_fns.log_posterior_batch(last[:16]).double().cpu().numpy()
+        ref = build_posterior(mc.spec, device="cpu", dtype=torch.float64,
+                              lnpost="batched")
+        want_lnp = ref.log_posterior_batch(last[:16]).numpy()
+        rel = np.max(np.abs(got - want_lnp) / np.abs(want_lnp))
+        log(f"driver: fused lnpost vs CPU float64 plain lnpost, 16 walkers: "
+            f"max rel diff {rel:.3e} (rtol {SLICE_RTOL:g})")
+        if not (np.all(np.isfinite(got)) and rel <= SLICE_RTOL):
+            raise AssertionError("fused-path lnpost disagrees with the f64 plain path")
+
+        for ftype in IMAGE_TYPES:
+            os.remove(f"{out}_{ftype}.fits")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            fitting.model_galaxy_mcmc(model_file, **kwargs)
+        if "already contains sampled chains" not in buf.getvalue():
+            raise AssertionError("the second call did not skip sampling:\n"
+                                 + buf.getvalue())
+        check_images()
+        log("driver: second call skipped sampling and wrote the five images again")
+
+        # a fit stopped right after its first checkpoint (mid-burn), then
+        # resumed from it, must reproduce the uninterrupted fit exactly
+        class Stop(Exception):
+            pass
+
+        def save_then_stop(*a, **k):
+            save_database(*a, **k)
+            raise Stop
+
+        resumed_out = os.path.join(tmp, "resumed")
+        resumed_kwargs = dict(kwargs, output_name=resumed_out)
+        fitting.save_database = save_then_stop
+        try:
+            fitting.model_galaxy_mcmc(model_file, **resumed_kwargs)
+            raise AssertionError("the interrupted fit was not stopped")
+        except Stop:
+            pass
+        finally:
+            fitting.save_database = save_database
+        meta = load_database(resumed_out + "_db.fits").meta
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            resumed = fitting.model_galaxy_mcmc(model_file, **resumed_kwargs)
+        if "Resuming from checkpoint" not in buf.getvalue():
+            raise AssertionError("the second call did not resume:\n" + buf.getvalue())
+        for name in db.colnames:
+            if not np.array_equal(resumed[name], db[name]):
+                raise AssertionError(f"resumed fit differs in column {name}")
+        check_images(resumed_out)
+        for ftype in IMAGE_TYPES:
+            if not np.array_equal(fits.getdata(f"{resumed_out}_{ftype}.fits"),
+                                  fits.getdata(f"{out}_{ftype}.fits")):
+                raise AssertionError(f"resumed fit differs in image {ftype}")
+        log(f"driver: a fit stopped after its checkpoint at burn "
+            f"{meta['MCBURNDN']}/{meta['MCBURN']} and resumed is bit-identical "
+            f"to the uninterrupted fit (database and five images)")
+        del os.environ["PSFMC_LNPOST"]
+        return launches, mc, last
 
 
 def profile_phase(sampler, steps=5):
@@ -351,16 +621,29 @@ def main():
                 log(f"  {name}: {line.strip()}")
 
     spec = build_model_spec(flagship_components())
-    post = build_posterior(spec)
+    post = build_posterior(spec, lnpost="batched")
     rows = kernel_phase(post, spec)
     launches, sampler = slice_phase(post, spec)
+    driver_launches, mc, last = driver_phase()
     if "--profile" in sys.argv[1:]:
+        log("profile: slice path (lnpost='batched')")
         profile_phase(sampler)
-    by_name = {"sersic_render": "render_sersics",
-               "sersic_render_tiled": "render_sersics_tiled",
-               "conv_lnl": "batched_conv_lnl"}
+        log("profile: driver path (lnpost='fused')")
+        from psfmc_tpu_torch.sampler import EnsembleSampler
+
+        fused = EnsembleSampler(NWALKERS, spec.num_params, mc.posterior_fns,
+                                seed=SEED)
+        fused.init_state(last)
+        fused.run_burn(3)
+        profile_phase(fused)
+    # each kernel's launches on its own path: the render and conv_lnl on
+    # the slice path, the fused kernel on the driver path
+    by_name = {"sersic_render": launches["render_sersics"],
+               "sersic_render_tiled": launches["render_sersics_tiled"],
+               "conv_lnl": launches["batched_conv_lnl"],
+               "fused_lnl": driver_launches["fused_lnl"]}
     for r in rows:
-        r["launches"] = launches[by_name[r["name"]]]
+        r["launches"] = by_name[r["name"]]
     for r in rows:
         for k, v in r.items():
             if isinstance(v, float) and not math.isfinite(v):

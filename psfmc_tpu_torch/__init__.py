@@ -1,7 +1,8 @@
 """psfmc_tpu_torch — the PyTorch + CUDA port of ``psfmc_tpu``.
 
 The port mirrors the JAX package's module names (``ops``, ``models``,
-``sampler``, ``io``, ``distributions``) so each function has an obvious
+``sampler``, ``io``, ``distributions``, ``database``, ``analysis``,
+``model_parser``, ``fitting``) so each function has an obvious
 counterpart, but it imports nothing from ``psfmc_tpu`` and never imports
 ``jax``: host-side helpers it needs are carried as its own copies.
 
@@ -10,12 +11,17 @@ host without CUDA they raise instead of falling back.  On the CPU every
 kernel wrapper uses its plain PyTorch version; on CUDA only the
 hand-written kernels in ``csrc/`` run (built with ``nvcc`` at first use).
 """
-from . import distributions, io, models, ops, sampler
+from . import analysis, database, distributions, io, model_parser, models, ops, sampler
 from ._device import resolve_device
+from .fitting import model_galaxy_mcmc
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "analysis",
+    "database",
+    "model_parser",
+    "model_galaxy_mcmc",
     "distributions",
     "io",
     "models",

@@ -26,43 +26,18 @@
 // pixel exactly once, coalesced along the row.  Pixel coordinates are
 // made from the thread index, never read.
 //
-// Numerics: no --use_fast_math, and no __expf/__logf: expf and logf are
-// the accurate library versions (within 2 ulp).  The profile is
-// evaluated as explicitly rounded single operations (__fmul_rn,
-// __fadd_rn, __fdiv_rn) in the order of the plain PyTorch version,
-// so the compiler cannot contract them into FMAs and the kernel agrees
-// with the plain version up to the library transcendentals.  The two
-// clamps (square radius >= 1e-30, square offset >= 0.125) are the JAX
-// package's documented divergences from the reference.
+// Numerics: the profile is sersic_profile.cuh's, shared with the fused
+// likelihood kernel: explicitly rounded single operations in the plain
+// PyTorch version's order, the accurate expf/logf, the NaN-keeping clamp.
 
 #include <cuda_runtime.h>
 
+#include "sersic_profile.cuh"
+
 namespace {
 
-constexpr int kParams = 9;
+constexpr int kParams = psfmc::kParamsPerSersic;
 constexpr int kThreads = 256;
-
-// max(x, lo) that keeps a NaN, like torch.clamp and jnp.maximum (fmaxf
-// would replace it by lo).
-__device__ __forceinline__ float clamp_min(float x, float lo) {
-  return x < lo ? lo : x;
-}
-
-__device__ __forceinline__ float profile(float dx, float dy, const float* q) {
-  // q = [x, y, m00, m01, m10, m11, kappa, rp, sbeff]
-  const float u = __fadd_rn(__fmul_rn(q[2], dx), __fmul_rn(q[3], dy));
-  const float v = __fadd_rn(__fmul_rn(q[4], dx), __fmul_rn(q[5], dy));
-  const float sq_r = clamp_min(__fadd_rn(__fmul_rn(u, u), __fmul_rn(v, v)), 1e-30f);
-  const float kappa = q[6];
-  const float rp = q[7];
-  const float p = expf(__fmul_rn(logf(sq_r), rp));
-  const float sb = expf(__fmul_rn(-kappa, __fsub_rn(p, 1.0f)));
-  const float sq_off = clamp_min(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), 0.125f);
-  const float krp_p = __fmul_rn(__fmul_rn(kappa, rp), p);
-  const float corr = __fadd_rn(
-      1.0f, __fdiv_rn(__fmul_rn(krp_p, krp_p), __fmul_rn(3.0f, sq_off)));
-  return __fmul_rn(__fmul_rn(q[8], sb), corr);
-}
 
 __global__ void __launch_bounds__(kThreads)
 sersic_render_kernel(const float* __restrict__ params,  // (B, S, 9)
@@ -89,13 +64,8 @@ sersic_render_kernel(const float* __restrict__ params,  // (B, S, 9)
   const float xg = (float)(pix % w);
   const float yg = (float)(pix / w);
   for (int t = 0; t < nb; ++t) {
-    const float* rows = smem + t * row_len;
-    float acc = s_sky[t];
-    for (int s = 0; s < num_sersic; ++s) {
-      const float* q = rows + s * kParams;
-      acc = __fadd_rn(acc, profile(__fsub_rn(xg, q[0]), __fsub_rn(yg, q[1]), q));
-    }
-    out[(size_t)(b0 + t) * npix + pix] = acc;
+    out[(size_t)(b0 + t) * npix + pix] =
+        psfmc::sky_plus_sersics(s_sky[t], smem + t * row_len, num_sersic, xg, yg);
   }
 }
 

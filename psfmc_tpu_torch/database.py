@@ -1,0 +1,214 @@
+"""MCMC trace database: FITS binary table + sampler checkpoint (port of ``database.py``).
+
+The TRACE table is the JAX package's, column for column and card for
+card, so either package reads a database the other wrote: one column per
+stochastic (``xy`` two wide), then ``lnprobability``, ``walker`` and
+``sample``; the sampler's metadata (``MCITER``, ``MCBURN``,
+``MCCHAINS``, ``MCACCEPT``, ``MCDATSUM``, ...) and the MAP indices
+(``MAPWLKR``, ``MAPSAMP``) ride in the table's header.
+
+The CHECKPOINT extension holds the resume state as in the JAX package
+(positions, lnp, accept counts per walker; CKPTVERS, CKPTSMPL,
+CKPTTEMP, CKPTACCN, CKPTSTEP cards) and CKPTIMGS the running image
+means.  Where the JAX package stores its PRNG key as a ``prng_key``
+column, the port writes its ``torch.Generator`` state to a CKPTRNG
+extension and names the generator's kind in the CKPTRNGK card
+(``torch-cuda`` / ``torch-cpu``).  :func:`load_checkpoint` reports a JAX
+checkpoint's generator as ``rng_kind = 'jax'``, which the port's sampler
+cannot restore.
+
+The port runs in one process: there is no primary-host barrier.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+
+import numpy as np
+
+from .io import fits
+from .io.table import Table
+
+__all__ = [
+    "save_database",
+    "load_database",
+    "load_checkpoint",
+    "row_to_param_vector",
+    "annotate_metadata",
+    "filter_lowp_walkers",
+]
+
+_HEADER_COMMENTS = {
+    "MCITER": "number of retained samples",
+    "MCBURN": "number of burn-in (discarded) samples",
+    "MCCHAINS": "number of walkers run",
+    "MCWALKRS": "number of walkers run",
+    "MCCONVRG": "Has MCMC sampler converged?",
+    "MCACCEPT": "Acceptance fraction (avg of all walkers)",
+    "MCDATSUM": "crc32 of obs+ivm data (resume identity check)",
+    "MCLNZ": "ln marginal likelihood (tempered-run estimate)",
+    "MCLNZERR": "ln evidence error (estimator spread)",
+    "MCPPCP": "posterior-predictive p-value (deviance)",
+    "MAPLNP": "Log-posterior of the MAP fit",
+    "MAPWLKR": "Walker index of maximum posterior model",
+    "MAPSAMP": "Sample index of maximum posterior model",
+    "PSFIMG": "PSF image of maximum posterior model",
+}
+
+
+def annotate_metadata(input_dict):
+    """Attach FITS comments to metadata keys (unknown => model param)."""
+    out = OrderedDict()
+    for key, value in input_dict.items():
+        if isinstance(value, tuple):
+            out[key] = value
+        else:
+            out[key] = (value, _HEADER_COMMENTS.get(key, "psfMC model parameter"))
+    return out
+
+
+def _chain_columns(chain, param_names, param_lens):
+    """Split a flat (nsamples, dim) chain into named columns."""
+    split_inds = np.cumsum(param_lens)[:-1]
+    cols = np.split(chain, split_inds, axis=1)
+    out = OrderedDict()
+    for name, col in zip(param_names, cols):
+        out[name] = col[:, 0] if col.shape[1] == 1 else col
+    return out
+
+
+def save_database(sampler, model, db_name, meta_dict=None):
+    """Write the trace database + checkpoint extensions; returns the
+    table as :func:`load_database` reads it.
+
+    A sampler with no recorded chain yet (mid-burn checkpoint) writes a
+    zero-row trace table whose CHECKPOINT extension still enables resume.
+    """
+    if sampler.chain is None:
+        chain = np.zeros((sampler.nwalkers, 0, sum(model.param_lens)))
+        lnprobability = np.zeros(chain.shape[:2])
+    else:
+        chain = np.asarray(sampler.chain, dtype=np.float64)
+        lnprobability = np.asarray(sampler.lnprobability, dtype=np.float64)
+    nwalkers, niter, dim = chain.shape
+
+    columns = _chain_columns(chain.reshape(nwalkers * niter, dim),
+                             model.param_names, model.param_lens)
+    walker_col = np.repeat(np.arange(nwalkers, dtype=np.int64), niter)
+    sample_col = np.tile(np.arange(niter, dtype=np.int64), nwalkers)
+    columns["lnprobability"] = lnprobability.reshape(-1)
+    columns["walker"] = walker_col
+    columns["sample"] = sample_col
+
+    meta = OrderedDict(meta_dict or {})
+    if niter > 0:
+        map_row = int(np.argmax(columns["lnprobability"]))
+        meta["MAPWLKR"] = int(walker_col[map_row])
+        meta["MAPSAMP"] = int(sample_col[map_row])
+    tbl = Table(columns, meta=annotate_metadata(meta))
+
+    extra_hdus = []
+    if sampler.state is not None:
+        payload = sampler.checkpoint_payload()
+        payload["sampler_kind"] = sampler.checkpoint_kind
+        extra_hdus = _checkpoint_hdus(payload)
+    tbl.write(db_name, format="fits", extname="TRACE", extra_hdus=extra_hdus)
+    return load_database(db_name)
+
+
+def _checkpoint_hdus(payload):
+    """CHECKPOINT (per-walker state), CKPTIMGS (image accumulators, one
+    (H, W) column per image) and CKPTRNG (the generator's state) HDUs."""
+    pos = np.asarray(payload["positions"], dtype=np.float64)
+    cols = OrderedDict([
+        ("position", pos),
+        ("log_prob", np.asarray(payload["log_prob"], np.float64).reshape(-1)),
+        ("naccept", np.asarray(payload["naccept"], np.int64).reshape(-1)),
+    ])
+    meta = [
+        ("CKPTVERS", (2, "checkpoint format version")),
+        ("CKPTSMPL", (str(payload.get("sampler_kind", "ensemble")),
+                      "sampler family that wrote this checkpoint")),
+        ("CKPTTEMP", (1, "parallel-tempering rungs in checkpoint")),
+        ("CKPTACCN", (int(payload.get("accum_count", 0)),
+                      "samples in image accumulators")),
+        ("CKPTSTEP", (int(payload.get("nsteps", 0)),
+                      "steps since last sampler reset")),
+        ("CKPTRNGK", (str(payload["rng_kind"]),
+                      "generator kind of the CKPTRNG state")),
+    ]
+    hdr, raw = fits.make_bintable_hdu(list(cols), cols, meta=meta,
+                                      extname="CHECKPOINT")
+    hdus = [(hdr, raw)]
+    accum = payload.get("accum")
+    if accum and int(payload.get("accum_count", 0)) > 0:
+        img_cols = OrderedDict((k, np.asarray(v, np.float64))
+                               for k, v in accum.items())
+        hdus.append(fits.make_bintable_hdu(list(img_cols), img_cols,
+                                           extname="CKPTIMGS"))
+    state = np.asarray(payload["rng_state"], np.uint8)[None, :]
+    hdus.append(fits.make_bintable_hdu(["rng_state"], {"rng_state": state},
+                                       extname="CKPTRNG"))
+    return hdus
+
+
+def load_database(db_name):
+    """Load the TRACE table from a database file."""
+    return Table.read(db_name, format="fits", extname="TRACE")
+
+
+def load_checkpoint(db_name):
+    """Resume state as a payload dict (see ``EnsembleSampler.
+    checkpoint_payload``), or None without a CHECKPOINT extension.
+
+    Reads the JAX package's checkpoints too: their generator is reported
+    as ``rng_kind = 'jax'`` (no ``rng_state``); a tempered one's rows
+    hold every rung (``ntemps > 1``).
+    """
+    try:
+        ckpt = Table.read(db_name, format="fits", extname="CHECKPOINT")
+    except IOError:
+        return None
+    payload = {
+        "version": int(ckpt.meta.get("CKPTVERS", 1)),
+        "ntemps": int(ckpt.meta.get("CKPTTEMP", 1)),
+        "positions": np.asarray(ckpt["position"], dtype=np.float64),
+        "log_prob": np.asarray(ckpt["log_prob"], dtype=np.float64),
+        "naccept": np.asarray(ckpt["naccept"], dtype=np.int64),
+        "accum": None,
+        "accum_count": int(ckpt.meta.get("CKPTACCN", 0)),
+        "nsteps": int(ckpt.meta.get("CKPTSTEP", 0)),
+        "sampler_kind": str(ckpt.meta.get(
+            "CKPTSMPL",
+            "nuts" if ckpt.meta.get("CKPTEPS") is not None else "ensemble")),
+        "rng_kind": str(ckpt.meta.get("CKPTRNGK", "jax")),
+        "rng_state": None,
+    }
+    if "CKPTRNGK" in ckpt.meta:
+        rng = Table.read(db_name, format="fits", extname="CKPTRNG")
+        payload["rng_state"] = np.asarray(rng["rng_state"][0]).astype(np.uint8)
+    if payload["accum_count"] > 0:
+        try:
+            imgs = Table.read(db_name, format="fits", extname="CKPTIMGS")
+        except IOError:
+            payload["accum_count"] = 0
+        else:
+            payload["accum"] = {name: np.asarray(imgs[name], np.float64)
+                                for name in imgs.colnames}
+    return payload
+
+
+def row_to_param_vector(table_row):
+    """Concatenate a table row (tuple of per-column values) to a vector."""
+    return np.concatenate(
+        [np.atleast_1d(np.asarray(v, dtype=np.float64)) for v in table_row]
+    )
+
+
+def filter_lowp_walkers(database, percentile=10):
+    """Drop walkers whose every sample is below the lnp percentile
+    (reference database.py:112-126)."""
+    pct_value = np.percentile(database["lnprobability"], percentile)
+    ok_walkers = np.unique(
+        database["walker"][database["lnprobability"] > pct_value]
+    )
+    return database[np.isin(database["walker"], ok_walkers)]

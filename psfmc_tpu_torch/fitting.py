@@ -1,0 +1,352 @@
+"""Top-level MCMC fitting driver (port of ``fitting.py::model_galaxy_mcmc``).
+
+The JAX package's fitting driver on the port: a model file (or component list,
+or prepared model) -> walkers drawn from the priors -> burn-in with
+stuck-walker rejuvenation -> retained sampling with the convergence
+retry loop -> the FITS trace database with its resume checkpoint after
+every segment -> the five posterior image products.  An existing
+database resumes from its checkpoint, or is skipped when it already
+holds the requested iterations.
+
+Deliberate divergences from the JAX driver:
+
+* the resume guards (walker count, data fingerprint ``MCDATSUM``, model
+  parameters) also run when the database already holds enough
+  iterations: a database sampled against other data or another model is
+  re-sampled instead of being turned into images of the current model
+  (the JAX driver skips them there);
+* a checkpoint whose generator the port cannot restore (one written by
+  the JAX package, or by the port on another device type) warns and
+  re-runs from scratch, like the other guards;
+* the driver runs on CUDA unless ``device="cpu"`` is given.
+
+This slice runs ``sampler="ensemble"`` with ``ntemps=1``,
+``moves="stretch"``, ``init="prior"``, ``criticism=False`` and
+``mesh=None``; every other choice raises ``NotImplementedError`` naming
+the ROADMAP item that brings it.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+import zlib
+from collections import OrderedDict
+from warnings import warn
+
+import numpy as np
+import torch
+
+from .analysis.images import default_filetypes, save_posterior_images
+from .analysis.statistics import check_convergence_autocorr
+from .database import (
+    load_checkpoint,
+    load_database,
+    row_to_param_vector,
+    save_database,
+)
+from .models.multicomponent import as_model
+from .sampler.ensemble import EnsembleSampler
+from .utils import print_progress
+
+__all__ = ["model_galaxy_mcmc"]
+
+
+def _not_in_slice(what, item):
+    raise NotImplementedError(
+        f"{what} is not in this slice of psfmc_tpu_torch's fitting driver; it comes "
+        f"with ROADMAP Queue 1 item {item}"
+    )
+
+
+@contextlib.contextmanager
+def _phase(name, device, timings):
+    """Time a phase on the host clock into ``timings[name]``, ending in a
+    device synchronize, under a ``torch.profiler`` range of that name."""
+    t0 = time.perf_counter()
+    with torch.profiler.record_function(name):
+        yield
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    timings[name] = timings.get(name, 0.0) + dt
+    print(f"[psfmc] {name}: {dt:.2f}s")
+
+
+def _data_fingerprint(mc_model):
+    """crc32 over the observation data + variance: identifies the data a
+    trace database was sampled against."""
+    h = 0
+    for arr in (mc_model.spec.obs_data, mc_model.spec.obs_var):
+        h = zlib.crc32(np.ascontiguousarray(arr).tobytes(), h)
+    return int(h)
+
+
+def _resume_refusal(database, ckpt, sampler, mc_model, restoring):
+    """Why the existing database cannot stand for this run, or None.
+
+    The walker-count, data and model guards always apply; the
+    checkpoint, sampler-family and generator guards only when the
+    sampler is to be restored from the checkpoint (``restoring``).
+    """
+    db_chains = int(database.meta.get("MCCHAINS", sampler.nwalkers))
+    datsum = database.meta.get("MCDATSUM")
+    if restoring and ckpt is None:
+        return "Existing database has no checkpoint"
+    if db_chains != sampler.nwalkers:
+        return (f"Existing database was sampled with {db_chains} walkers but "
+                f"chains={sampler.nwalkers} was requested")
+    if datsum is not None and int(datsum) != _data_fingerprint(mc_model):
+        return ("Existing database was sampled against different observation "
+                "data (MCDATSUM mismatch — obs/ivm files changed?)")
+    n_match = sum(n in database.colnames for n in mc_model.param_names)
+    ckpt_dim = (None if ckpt is None
+                else int(np.asarray(ckpt["positions"]).shape[-1]))
+    if n_match != len(mc_model.param_names) or (
+            ckpt_dim is not None and ckpt_dim != mc_model.num_params):
+        return (f"Existing database was written for another model "
+                f"({n_match}/{len(mc_model.param_names)} trace columns match, "
+                f"checkpoint dimension {ckpt_dim}, model dimension "
+                f"{mc_model.num_params}) — the model changed")
+    if not restoring:
+        return None
+    if ckpt["sampler_kind"] != sampler.checkpoint_kind:
+        return (f"Existing checkpoint was written by the "
+                f"{ckpt['sampler_kind']!r} sampler but "
+                f"sampler={sampler.checkpoint_kind!r} was requested")
+    if ckpt["rng_kind"] != sampler.rng_kind:
+        return (f"Existing checkpoint holds a {ckpt['rng_kind']!r} generator "
+                f"state, which a {sampler.rng_kind!r} sampler cannot restore")
+    return None
+
+
+def model_galaxy_mcmc(
+    model_file,
+    output_name=None,
+    write_fits=default_filetypes,
+    iterations=0,
+    burn=0,
+    chains=None,
+    max_iterations=1,
+    convergence_check=check_convergence_autocorr,
+    seed=0,
+    mesh=None,
+    ntemps=1,
+    betas=None,
+    checkpoint_interval=None,
+    sampler="ensemble",
+    init="prior",
+    moves="stretch",
+    max_depth=8,
+    criticism=False,
+    rejuvenate=True,
+    device=None,
+):
+    """Model the surface brightness of a galaxy or galaxies with
+    multi-component MCMC parameter estimation.
+
+    :param model_file: model definition file name, component list or
+        prepared :class:`~psfmc_tpu_torch.models.multicomponent.
+        MultiComponentModel`.
+    :param output_name: base name of the output files (default
+        ``out_<model file name>``).
+    :param write_fits: image types to write.
+    :param iterations: retained samples per round.
+    :param burn: discarded burn-in samples.
+    :param chains: walkers (default ``2 * num_params + 2``; rounded up to
+        an even count).
+    :param max_iterations: sampling rounds before convergence is enforced.
+    :param convergence_check: function of the sampler returning bool.
+    :param seed: seed of the walkers' prior draws and the sampler.
+    :param checkpoint_interval: steps between progress lines and
+        checkpoints (default: about a tenth of a phase longer than 50
+        steps, at least 25; 0 disables segmenting).
+    :param rejuvenate: move stranded walkers onto healthy ones between
+        burn segments.
+    :param device: the posterior's device, CUDA unless ``"cpu"``.
+    :returns: the trace table as ``load_database`` reads it; its
+        ``phase_seconds`` attribute holds the host-clock seconds of each
+        phase of this call (init, burn, sampling, images), each ending
+        in a device synchronize.
+
+    ``mesh``, ``ntemps``, ``betas``, ``sampler``, ``init``, ``moves``,
+    ``max_depth`` and ``criticism`` keep the JAX driver's names; values
+    outside this slice raise ``NotImplementedError``.  The likelihood
+    path follows ``PSFMC_LNPOST`` (``pallas`` runs the fused kernel), or
+    the ``lnpost`` of a prepared model.
+    """
+    if init not in ("prior", "map"):
+        raise ValueError(f"Unknown init {init!r}: expected 'prior' or 'map'")
+    if moves not in ("stretch", "de", "mixed"):
+        raise ValueError(
+            f"Unknown moves {moves!r}: expected 'stretch', 'de' or 'mixed'")
+    if sampler not in ("ensemble", "nuts"):
+        raise ValueError(
+            f"Unknown sampler {sampler!r}: expected 'ensemble' or 'nuts'")
+    if sampler == "nuts":
+        _not_in_slice("sampler='nuts'", "10 (other samplers)")
+    if ntemps != 1 or betas is not None:
+        _not_in_slice("parallel tempering (ntemps > 1, betas)",
+                      "10 (other samplers)")
+    if init == "map":
+        _not_in_slice("init='map'", "10 (optimiser)")
+    if moves != "stretch":
+        _not_in_slice(f"moves={moves!r}", "7 (DE / mixed moves)")
+    if criticism:
+        _not_in_slice("criticism=True", "13 (criticism and analysis)")
+    if mesh is not None:
+        _not_in_slice("a device mesh", "14 (multi-device)")
+    del max_depth  # a NUTS setting
+
+    if output_name is None:
+        name = model_file if isinstance(model_file, str) else "model"
+        output_name = "out_" + os.path.basename(name).replace(".py", "")
+    output_name += "_{}"
+    timings = OrderedDict()
+
+    mc_model = as_model(model_file, device=device)
+    fns = mc_model.posterior_fns
+    if chains is None:
+        chains = 2 * mc_model.num_params + 2
+    if chains % 2:
+        chains += 1
+    ens = EnsembleSampler(chains, mc_model.num_params, fns, seed=seed,
+                          device=fns.device)
+    db_name = output_name.format("db") + ".fits"
+    common = dict(max_iterations=max_iterations,
+                  convergence_check=convergence_check, db_name=db_name,
+                  checkpoint_interval=checkpoint_interval,
+                  rejuvenate=rejuvenate, seed=seed, timings=timings)
+
+    database = None
+    if os.path.exists(db_name):
+        database = load_database(db_name)
+        existing_iter = int(database.meta.get("MCITER", 0))
+        ckpt = load_checkpoint(db_name)
+        skip = existing_iter >= iterations and iterations > 0
+        refusal = _resume_refusal(database, ckpt, ens, mc_model,
+                                  restoring=not skip)
+        if refusal is not None:
+            warn(f"{refusal}; re-running sampling from scratch")
+            database = None
+        elif skip:
+            print("Database already contains sampled chains, skipping sampling")
+        else:
+            burn_total = max(burn, int(database.meta.get("MCBURN", 0)))
+            burn_done = int(database.meta.get("MCBURNDN", burn_total))
+            print(f"Resuming from checkpoint: {burn_done}/{burn_total} "
+                  f"burn-in + {existing_iter} retained iterations done")
+            database = _run_sampling(
+                ens, mc_model, None, burn=max(0, burn_total - burn_done),
+                iterations=iterations - existing_iter, burn_total=burn_total,
+                burn_done=burn_done, resume_payload=ckpt,
+                prior_db=database if existing_iter > 0 else None, **common)
+
+    if database is None:
+        rng = np.random.RandomState(seed)
+        p0 = mc_model.init_params_from_priors(chains, random_state=rng)
+        database = _run_sampling(ens, mc_model, p0, burn=burn,
+                                 iterations=iterations, burn_total=burn,
+                                 **common)
+
+    with _phase("images", fns.device, timings):
+        save_posterior_images(mc_model, database, output_name=output_name,
+                              filetypes=write_fits)
+    database.phase_seconds = timings
+    return database
+
+
+def _auto_segment(nsteps, checkpoint_interval):
+    """Segment length of a phase (None = one segment): about a tenth of
+    a phase longer than 50 steps, at least 25 steps."""
+    if checkpoint_interval is not None:
+        return None if checkpoint_interval <= 0 else int(checkpoint_interval)
+    if nsteps <= 50:
+        return None
+    return max(25, min(2500, nsteps // 10))
+
+
+def _run_sampling(sampler, mc_model, initial_positions, burn, iterations,
+                  max_iterations, convergence_check, db_name, burn_total,
+                  burn_done=0, resume_payload=None, prior_db=None,
+                  checkpoint_interval=None, rejuvenate=True, seed=0,
+                  timings=None):
+    """Burn + retained sampling with convergence retries; saves the
+    database (with its checkpoint) after every segment and round."""
+    device = sampler.device
+    timings = OrderedDict() if timings is None else timings
+    with _phase("init", device, timings):
+        if resume_payload is not None:
+            sampler.restore_state(resume_payload)
+        else:
+            sampler.init_state(initial_positions)
+
+    def checkpoint_meta(converged=False):
+        niter = 0 if sampler.chain is None else sampler.chain.shape[1]
+        burn_dn = (min(burn_done + sampler._nsteps_total, burn_total)
+                   if niter == 0 else burn_total)
+        return OrderedDict([
+            ("MCITER", niter),
+            ("MCBURN", burn_total),
+            ("MCBURNDN", burn_dn),
+            ("MCCHAINS", sampler.nwalkers),
+            ("MCCONVRG", bool(converged)),
+            ("MCACCEPT", float(sampler.acceptance_fraction.mean())),
+            ("MCDATSUM", _data_fingerprint(mc_model)),
+        ])
+
+    if burn > 0:
+        print(f"Burning: {burn} iterations x {sampler.nwalkers} walkers")
+        rejuv_rng = np.random.RandomState(np.uint32(seed) ^ 0x5EED)
+
+        def burn_cb(done, total):
+            if rejuvenate and done < total:
+                n_fix = sampler.rejuvenate_stuck(random_state=rejuv_rng)
+                if n_fix:
+                    print(f"  rejuvenated {n_fix} stuck walkers")
+            print_progress(burn_done + done - 1, burn_total, "Burning")
+            if done < total:  # the final state is saved by save_round
+                save_database(sampler, mc_model, db_name,
+                              meta_dict=checkpoint_meta())
+
+        with _phase("burn", device, timings):
+            sampler.run_burn(burn, segment=_auto_segment(burn, checkpoint_interval),
+                             callback=burn_cb)
+
+    if resume_payload is None or burn > 0 or prior_db is None:
+        # a fresh retained phase; a mid-sampling resume keeps the restored
+        # accumulators and counts streaming
+        sampler.reset()
+
+    if prior_db is not None:
+        # the saved database holds the whole concatenated run
+        cols = prior_db[list(mc_model.param_names)]
+        flat = np.stack([row_to_param_vector(r) for r in cols])
+        niter = len(prior_db) // sampler.nwalkers
+        sampler._chain = flat.reshape(sampler.nwalkers, niter, mc_model.num_params)
+        sampler._lnprob = np.asarray(prior_db["lnprobability"],
+                                     np.float64).reshape(sampler.nwalkers, niter)
+        sampler._nsteps_total = niter
+
+    def sample_cb(done, total):
+        print_progress(done - 1, total, "Sampling")
+        if done < total:
+            save_database(sampler, mc_model, db_name, meta_dict=checkpoint_meta())
+
+    database = None
+    for sampling_iter in range(max_iterations):
+        print(f"Sampling: {iterations} iterations x {sampler.nwalkers} walkers")
+        with _phase("sampling", device, timings):
+            sampler.run_sampling(
+                iterations, segment=_auto_segment(iterations, checkpoint_interval),
+                callback=sample_cb)
+        converged = bool(convergence_check(sampler))
+        mc_model.set_accumulated_from_sampler(sampler)
+        database = save_database(sampler, mc_model, db_name,
+                                 meta_dict=checkpoint_meta(converged))
+        if converged:
+            break
+        warn(f"Not yet converged after {(sampling_iter + 1) * iterations:d} "
+             "iterations:")
+        convergence_check(sampler, verbose=1)
+    return database

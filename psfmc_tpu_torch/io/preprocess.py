@@ -1,18 +1,21 @@
-"""Observation / PSF preprocessing (port of ``io/preprocess.py``, arrays only).
+"""Observation / PSF preprocessing (port of ``io/preprocess.py``).
 
 Host numpy, once per model build, with the reference's semantics:
 
-* :func:`preprocess_obs` — bad pixels are non-finite data or weight, or
-  weight <= 0; they get infinite variance.  An optional boolean mask
-  array (True = exclude) extends the bad-pixel map and leaves the
+* :func:`preprocess_obs` — read observation + weight (FITS file names,
+  ``(header, array)`` pairs or arrays); bad pixels are non-finite data or
+  weight, or weight <= 0; they get infinite variance.  An optional mask
+  (FITS file, nonzero = exclude; ds9 region file, outside = exclude; or a
+  boolean array, True = exclude) extends the bad-pixel map and leaves the
   variance untouched.
 * :func:`preprocess_psf` — bad PSF pixels are zeroed in data and weight,
   then the PSF is normalized to unit sum (``math.fsum``).
 * :func:`calculate_psf_variability` — inter-PSF mismatch variance.
 * :func:`pre_fft_psf` — center-padded ``rfft2`` of PSF and variance.
 
-FITS files and ds9 regions are read by the host-layer slice; here a
-string input raises ``NotImplementedError``.
+FITS files are read with the port's own codec (:mod:`.fits`) and ds9
+regions with its own parser (:mod:`.region`), copies of the JAX
+package's numpy modules.
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ from math import fsum
 import numpy as np
 
 from ..ops.fourier import pad_and_rfft_image
+from . import fits
+from .region import region_mask
 
 __all__ = [
     "norm_psf",
@@ -28,16 +33,20 @@ __all__ = [
     "preprocess_psf",
     "pre_fft_psf",
     "calculate_psf_variability",
+    "mask_from_file",
 ]
 
 
-def _as_array(data, what):
-    if isinstance(data, str):
-        raise NotImplementedError(
-            f"{what}: FITS input ({data!r}) comes with the host-layer "
-            "slice; pass a numpy array"
+def _get_image(file_or_array):
+    """(header, float64 data) from a filename, (header, data) pair or array."""
+    if isinstance(file_or_array, str):
+        return fits.getheader(file_or_array), np.asarray(
+            fits.getdata(file_or_array), dtype=np.float64
         )
-    return np.asarray(data, dtype=np.float64)
+    if isinstance(file_or_array, tuple):
+        header, data = file_or_array
+        return header, np.asarray(data, dtype=np.float64)
+    return fits.Header(), np.asarray(file_or_array, dtype=np.float64)
 
 
 def norm_psf(psf_data, psf_ivm):
@@ -46,36 +55,53 @@ def norm_psf(psf_data, psf_ivm):
     return psf_data / psf_sum, psf_ivm * psf_sum**2
 
 
-def preprocess_obs(obs_data, obs_ivm, mask=None):
-    """(data, variance, bad_px) from observation + weight arrays.
+def preprocess_obs(obs_data, obs_ivm, mask_file=None):
+    """(header, data, variance, bad_px) from observation + weight.
 
-    ``mask`` is an optional boolean array of the data's shape, True
-    where a pixel is excluded.
+    Bad pixels get infinite variance; the mask extends ``bad_px`` but
+    leaves the variance untouched (:func:`mask_from_file`).
     """
-    obs_data = _as_array(obs_data, "observation")
-    obs_ivm = _as_array(obs_ivm, "observation weight")
+    obs_hdr, obs_data = _get_image(obs_data)
+    _, obs_ivm = _get_image(obs_ivm)
     badpx = ~np.isfinite(obs_data) | ~np.isfinite(obs_ivm) | (obs_ivm <= 0)
     with np.errstate(divide="ignore"):
         obs_var = np.where(badpx, np.inf, 1.0 / np.where(badpx, 1.0, obs_ivm))
-    if mask is not None:
-        if isinstance(mask, str):
-            raise NotImplementedError(
-                "mask files (FITS, ds9 regions) come with the host-layer "
-                "slice; pass a boolean array"
-            )
-        mask = np.asarray(mask)
-        if mask.shape != obs_data.shape:
+    if mask_file is not None:
+        badpx = badpx | mask_from_file(mask_file, obs_hdr, obs_data.shape)
+    return obs_hdr, obs_data, obs_var, badpx
+
+
+def mask_from_file(mask_file, obs_hdr, shape):
+    """Exclusion mask (True = exclude) from a boolean array, a FITS file
+    (nonzero = exclude) or a ds9 region file (pixels outside the regions
+    are excluded).  A file that is neither FITS nor a usable region file
+    raises ``ValueError``: a degraded mask would silently change which
+    pixels constrain the fit."""
+    if not isinstance(mask_file, str):
+        mask = np.asarray(mask_file)
+        if mask.shape != tuple(shape):
             raise ValueError(
-                f"mask array shape {mask.shape} != data shape {obs_data.shape}"
+                f"mask array shape {mask.shape} != data shape {tuple(shape)}"
             )
-        badpx = badpx | mask.astype(bool)
-    return obs_data, obs_var, badpx
+        return mask.astype(bool)
+    try:
+        return np.asarray(fits.getdata(mask_file)).astype(bool)
+    except Exception:  # noqa: BLE001 - not FITS: try it as a ds9 region
+        pass
+    try:
+        inside = region_mask(mask_file, shape, header=obs_hdr)
+    except (ValueError, UnicodeDecodeError) as err:
+        raise ValueError(
+            f"mask file {mask_file!r} is neither FITS nor a usable ds9 "
+            f"region file: {err}"
+        ) from err
+    return ~inside
 
 
 def preprocess_psf(psf_data, psf_ivm):
     """Zero bad PSF pixels, normalize; returns (psf, variance)."""
-    psf_data = _as_array(psf_data, "PSF")
-    psf_ivm = _as_array(psf_ivm, "PSF weight")
+    _, psf_data = _get_image(psf_data)
+    _, psf_ivm = _get_image(psf_ivm)
     badpx = ~np.isfinite(psf_data) | ~np.isfinite(psf_ivm) | (psf_ivm <= 0)
     psf_data = np.where(badpx, 0.0, psf_data)
     psf_ivm = np.where(badpx, 0.0, psf_ivm)

@@ -7,6 +7,7 @@ from .components import (
     Sersic,
     Sky,
 )
+from .multicomponent import MultiComponentModel, as_model
 from .posterior import PosteriorFns, build_posterior
 from .spec import (
     CompSpec,
@@ -24,6 +25,8 @@ __all__ = [
     "PSFSelector",
     "Sersic",
     "Sky",
+    "MultiComponentModel",
+    "as_model",
     "PosteriorFns",
     "build_posterior",
     "CompSpec",

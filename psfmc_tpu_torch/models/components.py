@@ -8,8 +8,9 @@ abbreviations; ``xy`` spans two slots.  They are compiled into a static
 :class:`~psfmc_tpu_torch.models.spec.ModelSpec` by
 :func:`~psfmc_tpu_torch.models.spec.build_model_spec`.
 
-This slice has ``Configuration`` (arrays and an optional boolean mask
-array), ``PSFSelector`` (one PSF), ``Sky`` (``adu``), ``PointSource``
+This slice has ``Configuration`` (FITS file names, ``(header, array)``
+pairs or arrays, and an optional FITS, ds9-region or boolean-array
+mask), ``PSFSelector`` (one PSF), ``Sky`` (``adu``), ``PointSource``
 and the elliptical ``Sersic``.  The constructors accept the JAX
 package's other options so a model states them in the same words; the
 spec builder raises ``NotImplementedError`` for every one of them
@@ -61,6 +62,48 @@ class ComponentBase:
 
     def sorted_prior_items(self):
         return sorted(self._priors.items())
+
+    def stochastic_lens(self):
+        return [np.asarray(p.value).size for _k, p in self.sorted_prior_items()]
+
+    def _batch_constraints(self, vals):
+        """``(m,)`` validity of candidate draws ``{attr: (m, size)}``
+        under the component's joint constraints (none by default)."""
+        return np.ones(len(next(iter(vals.values()))), dtype=bool)
+
+    def draw_batch(self, n, random_state=None, max_tries=1000):
+        """``(n, num_stochastics)`` prior draws with the joint constraint
+        enforced: every still-invalid row is redrawn together (the JAX
+        package's vectorised rejection)."""
+        items = self.sorted_prior_items()
+        if not items:
+            return np.zeros((n, 0))
+        sizes = self.stochastic_lens()
+        out = np.empty((n, int(np.sum(sizes))))
+        need = np.arange(n)
+        for _try in range(max_tries):
+            m = len(need)
+            vals, cols = {}, []
+            valid = np.ones(m, dtype=bool)
+            for (name, prior), size in zip(items, sizes):
+                ev = np.shape(np.asarray(prior.value))
+                d = np.asarray(prior.random(random_state=random_state,
+                                            size=(m,) + ev),
+                               dtype=float).reshape(m, size)
+                vals[name] = d
+                cols.append(d)
+                with np.errstate(all="ignore"):
+                    lp = np.asarray(prior.logp(d.reshape((m,) + ev)))
+                valid &= np.isfinite(lp.reshape(m, -1)).all(axis=1)
+            valid &= self._batch_constraints(vals)
+            out[need] = np.concatenate(cols, axis=1)
+            need = need[~valid]
+            if need.size == 0:
+                return out
+        raise RuntimeError(
+            f"Could not draw valid prior sample for {type(self).__name__} "
+            f"after {max_tries} tries"
+        )
 
     def update_stochastic_names(self, count=None):
         comptype = type(self).__name__
@@ -140,6 +183,15 @@ class Sersic(ComponentBase):
             k: v for k, v in dict(c0=c0, **shape_kw).items() if v is not None
         }
 
+    def _batch_constraints(self, vals):
+        """``reff >= reff_b`` for every draw (constants count too)."""
+        m = len(next(iter(vals.values())))
+        reff = vals.get("reff", self._constants.get("reff"))
+        reff_b = vals.get("reff_b", self._constants.get("reff_b"))
+        if reff is None or reff_b is None:
+            return np.ones(m, dtype=bool)
+        return np.ravel(np.asarray(reff_b) <= np.asarray(reff)) & np.ones(m, bool)
+
 
 class PSFSelector(ComponentBase):
     """Preprocessed PSF(s) and their center-padded half spectra.
@@ -168,17 +220,29 @@ class PSFSelector(ComponentBase):
                 for p, v in zip(data_list, var_list)]
         self.psf_list = [f for f, _ in ffts]
         self.var_list = [v for _, v in ffts]
+        self.filenames = [p if isinstance(p, str) else f"<array {i}>"
+                          for i, p in enumerate(psf_list)]
+
+    @property
+    def filename(self):
+        """The PSF's file name, as the ``PSFIMG`` header card reports it."""
+        return self.filenames[int(self._constants.get("psf_index", 0))]
 
 
 class Configuration(ComponentBase):
     """Input arrays and control parameters.
 
-    :param obs_file: observed image (numpy array).
+    :param obs_file: observed image: FITS file name, ``(header, array)``
+        pair or array.
     :param obsivm_file: its inverse-variance map.
     :param psf_files: the PSF image (one in this slice).
     :param psfivm_files: the PSF's inverse-variance map.
-    :param mask_file: optional boolean array, True = exclude.
+    :param mask_file: optional FITS mask (nonzero = exclude), ds9 region
+        file (the fit region) or boolean array (True = exclude).
     :param mag_zeropoint: magnitude of 1 count/second.
+
+    The observation's FITS header is kept as ``obs_header``: the image
+    products start from it.
 
     ``likelihood``, ``psf_oversample``, ``conv_pad`` and
     ``render_oversample`` keep the JAX package's names; only their
@@ -194,9 +258,10 @@ class Configuration(ComponentBase):
         self.likelihood = likelihood
         self.conv_pad = int(conv_pad)
         self.render_oversample = int(render_oversample)
-        obs_data, obs_var, bad_px = preprocess_obs(
+        obs_hdr, obs_data, obs_var, bad_px = preprocess_obs(
             obs_file, obsivm_file, mask_file
         )
+        self.obs_header = obs_hdr
         self.obs_data = obs_data
         self.obs_var = obs_var
         self.bad_px = bad_px

@@ -1,0 +1,251 @@
+"""MultiComponentModel: the model the fitting driver fits (port of ``models/multicomponent.py``, single band).
+
+A thin host facade over a :class:`~.spec.ModelSpec` and its
+:class:`~.posterior.PosteriorFns`: parameter names and lengths, prior
+draws for the walkers' start, the five reference image types of a batch
+of parameter vectors, the posterior-mean images (adopted from the
+sampler's accumulators or replayed from a chain) and the
+posterior-predictive p-value of the ``MCPPCP`` header card.
+
+Joint multi-band models (several ``Configuration`` components) are not
+in this slice: :func:`as_model` raises ``NotImplementedError`` for them.
+"""
+from __future__ import annotations
+
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from .components import ComponentBase, Configuration
+from .posterior import build_posterior
+from .spec import build_model_spec
+
+__all__ = ["MultiComponentModel", "as_model", "replicate_noise", "IMAGE_TYPES"]
+
+IMAGE_TYPES = (
+    "raw_model",
+    "convolved_model",
+    "residual",
+    "composite_ivm",
+    "point_source_subtracted",
+)
+
+
+def replicate_noise(rng, conv, sigma):
+    """Replicated data: Gaussian noise at ``sigma`` around ``conv`` (the
+    JAX package's rule for the Gaussian likelihood, the slice's only
+    one)."""
+    return conv + rng.randn(*conv.shape) * sigma
+
+
+def carry_to_reference_images(imgs: Dict[str, np.ndarray], obs_data):
+    """The carry basis (raw, conv, var, ps_conv) -> the five image types."""
+    return {
+        "raw_model": imgs["raw"],
+        "convolved_model": imgs["conv"],
+        "residual": obs_data - imgs["conv"],
+        "composite_ivm": 1.0 / imgs["var"],
+        "point_source_subtracted": obs_data - imgs["ps_conv"],
+    }
+
+
+def as_model(model, device=None, lnpost=None):
+    """A :class:`MultiComponentModel` from a model file name, a component
+    list or a prepared model (which passes through unchanged)."""
+    if isinstance(model, MultiComponentModel):
+        return model
+    if isinstance(model, str):
+        from ..model_parser import component_list_from_file
+
+        try:
+            components = component_list_from_file(model)
+        except IOError as err:
+            raise IOError(
+                f"Unable to open model file {model}. Does it exist?"
+            ) from err
+    else:
+        components = list(model)
+    if sum(isinstance(c, Configuration) for c in components) > 1:
+        raise NotImplementedError(
+            "joint multi-band models (several Configuration components) "
+            "are not in this slice of psfmc_tpu_torch; they come with "
+            "ROADMAP Queue 1 item 11 (model layer)"
+        )
+    return MultiComponentModel(components, device=device, lnpost=lnpost)
+
+
+class MultiComponentModel:
+    """Composite 2-D surface-brightness model over a component list.
+
+    :param components: component list (with one ``Configuration``).
+    :param device: the posterior's device (CUDA unless ``"cpu"``).
+    :param dtype: its working dtype (float32 on CUDA).
+    :param lnpost: its likelihood path (``"batched"``, ``"fused"`` or
+        None for ``PSFMC_LNPOST``).
+    """
+
+    def __init__(self, components, device=None, dtype=torch.float32,
+                 lnpost=None):
+        configs = [c for c in components if isinstance(c, Configuration)]
+        if not configs:
+            raise ValueError(
+                "Unable to find the Configuration component, required for "
+                "setting up input images."
+            )
+        self.config = configs[0]
+        self.spec = build_model_spec(list(components), config=self.config)
+        self.posterior_fns = build_posterior(self.spec, device=device,
+                                             dtype=dtype, lnpost=lnpost)
+        comp_order: List[ComponentBase] = [
+            c for c in components if not isinstance(c, Configuration)
+        ]
+        comp_order.append(self.config.psf_selector)
+        self.components = comp_order
+        self.obs_header = self.config.obs_header
+        self.posterior_images: Dict[str, np.ndarray] = {}
+        self.accumulated_samples = 0
+        self.reset_images()
+
+    # -- parameter layout ---------------------------------------------------
+    @property
+    def num_params(self) -> int:
+        return self.spec.num_params
+
+    @property
+    def param_names(self) -> List[str]:
+        return self.spec.param_names
+
+    @property
+    def param_fits_abbrs(self) -> List[str]:
+        return self.spec.param_fits_abbrs
+
+    @property
+    def param_lens(self) -> List[int]:
+        return self.spec.param_lens
+
+    def init_params_from_priors(self, nwalkers, random_state=None,
+                                max_tries=1000):
+        """``(nwalkers, num_params)`` starting positions drawn from the
+        priors, each component's joint constraint enforced by vectorised
+        rejection (the JAX package's draws for the same RandomState)."""
+        if random_state is None:
+            random_state = np.random.RandomState()
+        cols = [c.draw_batch(nwalkers, random_state=random_state,
+                             max_tries=max_tries) for c in self.components]
+        return np.concatenate(cols, axis=1)
+
+    # -- images ---------------------------------------------------------------
+    def render_images_batch(self, thetas):
+        """``(n, num_params)`` -> the five image types, ``(n, H, W)`` float64
+        numpy each."""
+        imgs = self.posterior_fns.images_batch(thetas)
+        host = {k: v.to("cpu", torch.float64).numpy() for k, v in imgs.items()}
+        return carry_to_reference_images(host, np.asarray(self.spec.obs_data))
+
+    def _replicate(self, database, n, rng):
+        """Posterior draws, their images and replicated datasets (stuck
+        walkers dropped first, as the image writer does)."""
+        from ..database import filter_lowp_walkers
+
+        database = filter_lowp_walkers(database, percentile=10)
+        all_th = np.concatenate(
+            [np.asarray(database[name], np.float64).reshape(len(database), -1)
+             for name in self.param_names], axis=1)
+        thetas = all_th[rng.randint(0, len(all_th), size=n)]
+        imgs = self.render_images_batch(thetas)
+        conv = imgs["convolved_model"]
+        ivm = imgs["composite_ivm"]
+        sigma = np.sqrt(np.where(ivm > 0, 1.0 / np.where(ivm > 0, ivm, 1.0), 0.0))
+        return conv, ivm, replicate_noise(rng, conv, sigma)
+
+    def posterior_predictive_pvalue(self, database, n=200, random_state=None):
+        """Posterior-predictive p-value of the deviance statistic
+        ``T = sum_good (y - conv)^2 ivm``: ``(1 + #{T_rep >= T_obs}) / (n
+        + 2)``; ~0.5 is healthy, near 0 a misfit."""
+        rng = (random_state if isinstance(random_state, np.random.RandomState)
+               else np.random.RandomState(random_state))
+        conv, ivm, y_rep = self._replicate(database, n, rng)
+        good = (~np.asarray(self.spec.bad_px))[None]
+        obs = np.asarray(self.spec.obs_data, np.float64)[None]
+        t_obs = np.sum(np.where(good, (obs - conv) ** 2 * ivm, 0.0), axis=(1, 2))
+        t_rep = np.sum(np.where(good, (y_rep - conv) ** 2 * ivm, 0.0), axis=(1, 2))
+        return float((1 + np.sum(t_rep >= t_obs)) / (n + 2))
+
+    # -- posterior-mean images --------------------------------------------------
+    def reset_images(self):
+        shape = self.spec.shape
+        self.accumulated_samples = 0
+        self.posterior_images = {t: np.ones(shape, dtype=np.float64)
+                                 for t in IMAGE_TYPES}
+
+    def accumulate_images(self, sample_images):
+        """Running per-pixel means over a list of image dicts;
+        ``composite_ivm`` is averaged as a variance (reference
+        models.py:74-97)."""
+        post = self.posterior_images
+        post["composite_ivm"] = 1.0 / post["composite_ivm"]
+        for img_dict in sample_images:
+            self.accumulated_samples += 1
+            n = self.accumulated_samples
+            for img_type, img in img_dict.items():
+                img = np.asarray(img, dtype=np.float64)
+                if img_type == "composite_ivm":
+                    img = 1.0 / img
+                post[img_type] = post[img_type] * (n - 1) / n + img / n
+        post["composite_ivm"] = 1.0 / post["composite_ivm"]
+
+    def replay_posterior_means(self, thetas, chunk=2048):
+        """Posterior-mean images of ``thetas`` ``(N, num_params)``, each
+        chunk reduced to its carry means on the device
+        (``ensemble_carry_means``) and merged on the host in float64 (a
+        Chan merge for ``raw_m2``)."""
+        fns = self.posterior_fns
+        thetas = np.asarray(thetas, np.float64)
+        sums, total = None, 0
+        m2_run, mean_run = None, None
+        for start in range(0, len(thetas), chunk):
+            part = thetas[start:start + chunk]
+            m = {k: v.to("cpu", torch.float64).numpy()
+                 for k, v in fns.ensemble_carry_means(part).items()}
+            w = len(part)
+            m2_part = m.pop("raw_m2")
+            if m2_run is None:
+                m2_run, mean_run = m2_part, m["raw"]
+            else:
+                delta = m["raw"] - mean_run
+                m2_run = m2_run + m2_part + delta * delta * (total * w / (total + w))
+                mean_run = mean_run + delta * (w / (total + w))
+            part_sums = {k: v * w for k, v in m.items()}
+            sums = part_sums if sums is None else {k: sums[k] + part_sums[k]
+                                                   for k in sums}
+            total += w
+        carry = {k: v / total for k, v in sums.items()}
+        carry["raw_m2"] = m2_run
+        self.posterior_images = carry_to_reference_images(
+            carry, np.asarray(self.spec.obs_data))
+        self._add_raw_std(carry, total)
+        self.accumulated_samples = total
+        return self.posterior_images
+
+    def set_accumulated_from_sampler(self, sampler):
+        """Adopt the sampler's running means (IVM averaged as variance)."""
+        accum = sampler.accumulated_images
+        if accum is None or sampler.accumulated_samples == 0:
+            return
+        carry = {k: np.asarray(v, np.float64) for k, v in accum.items()}
+        self.posterior_images = carry_to_reference_images(
+            carry, np.asarray(self.spec.obs_data))
+        self._add_raw_std(carry, sampler.accumulated_samples)
+        self.accumulated_samples = sampler.accumulated_samples
+
+    def _add_raw_std(self, carry, count):
+        """``raw_model_std = sqrt(raw_m2 / n)``, the per-pixel posterior
+        standard deviation of the raw model, when it is available."""
+        m2 = carry.get("raw_m2")
+        if m2 is None or count < 2:
+            return
+        m2 = np.asarray(m2, np.float64)
+        if np.all(np.isfinite(m2)):
+            self.posterior_images["raw_model_std"] = np.sqrt(
+                np.maximum(m2 / count, 0.0))

@@ -16,6 +16,17 @@ package's ``PSFMC_LNPOST=pallas_batched`` path:
 On CUDA, steps 2 and 4 are the hand-written kernels of
 :mod:`psfmc_tpu_torch.ops.kernels`; on the CPU their plain versions.
 
+``lnpost="fused"`` is the shape of the JAX package's ``PSFMC_LNPOST=
+pallas`` path instead: the prior and the per-walker scalars (packed
+Sersic rows, sky, point-source factors ``fky``/``kx``) in torch, then
+the **fused kernel** renders, convolves and reduces each walker in one
+launch (:func:`~psfmc_tpu_torch.ops.kernels.fused_lnl.fused_lnl`).  With
+``lnpost=None`` the mode comes from ``PSFMC_LNPOST`` as in the JAX
+package: ``pallas`` selects ``fused``; ``pallas_batched``, ``xla`` or an
+unset variable select ``batched``.  Where the JAX package warns and
+falls back for a spec its fused kernel rejects, the port raises
+``ValueError``: it never hides the kernel.
+
 The image products (:meth:`images_batch`, :meth:`ensemble_carry_means`)
 use the same render and the plain ``convolve_rdft`` products; the
 ensemble means exploit linearity: the walker mean of ``conv(raw_w)`` is
@@ -25,6 +36,7 @@ walker.
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import fields
 from typing import Dict
 
@@ -39,17 +51,38 @@ from ..ops.kernels.conv_lnl import (
     batched_conv_lnl,
     make_conv_lnl_consts,
 )
+from ..ops.kernels.fused_lnl import fused_lnl, fused_lnl_supported
 from ..ops.kernels.sersic_render import (
     PARAMS_PER_SERSIC,
     pack_sersic_params,
     render_sersics,
 )
 from ..ops.likelihood import gaussian_lnlike
-from ..ops.pointsource import render_pointsource_dense
+from ..ops.pointsource import pointsource_factors, pointsource_image
 from ..ops.sersic import sersic_scalar_params
 from .spec import ModelSpec, check_in_slice
 
-__all__ = ["PosteriorFns", "build_posterior"]
+__all__ = ["PosteriorFns", "build_posterior", "lnpost_mode", "LNPOST_MODES"]
+
+LNPOST_MODES = ("batched", "fused")
+# PSFMC_LNPOST values of the JAX package -> the port's modes
+_ENV_MODES = {"": "batched", "xla": "batched", "pallas_batched": "batched",
+              "pallas": "fused"}
+
+
+def lnpost_mode(lnpost=None):
+    """The likelihood path: ``lnpost`` if given, else from
+    ``PSFMC_LNPOST`` (``pallas`` -> ``fused``; ``pallas_batched``,
+    ``xla`` or unset -> ``batched``)."""
+    if lnpost is None:
+        env = os.environ.get("PSFMC_LNPOST", "")
+        if env not in _ENV_MODES:
+            raise ValueError(
+                f"PSFMC_LNPOST={env!r}: expected one of {sorted(_ENV_MODES)}")
+        return _ENV_MODES[env]
+    if lnpost not in LNPOST_MODES:
+        raise ValueError(f"lnpost={lnpost!r}: expected one of {LNPOST_MODES}")
+    return lnpost
 
 
 class PosteriorFns(nn.Module):
@@ -58,11 +91,20 @@ class PosteriorFns(nn.Module):
     Every constant (observation, variance, mask, PSF spectra, DFT
     operators, prior hyperparameters, constant parameter values) is a
     buffer on the module's device.  ``forward`` is
-    :meth:`log_posterior_batch`.
+    :meth:`log_posterior_batch`; ``lnpost`` picks its likelihood path
+    (see :func:`lnpost_mode`).
     """
 
-    def __init__(self, spec: ModelSpec, device=None, dtype=torch.float32):
+    def __init__(self, spec: ModelSpec, device=None, dtype=torch.float32,
+                 lnpost=None):
         super().__init__()
+        self.lnpost = lnpost_mode(lnpost)
+        if self.lnpost == "fused":
+            ok, why = fused_lnl_supported(spec)
+            if not ok:
+                raise ValueError(
+                    f"lnpost='fused' (PSFMC_LNPOST=pallas) does not cover "
+                    f"{why}; use lnpost='batched'")
         device = resolve_device(device)
         check_in_slice(spec)
         if device.type == "cuda":
@@ -170,28 +212,52 @@ class PosteriorFns(nn.Module):
                                  device=self.device)
         return params, sky
 
+    def pointsource_inputs(self, thetas):
+        """Point-source factors ``fky`` ``(B, P, H)`` and ``kx`` ``(B, P,
+        W)`` (``P`` may be 0)."""
+        thetas = self.as_thetas(thetas)
+        fkys, kxs = [], []
+        for ci, cs in enumerate(self.spec.comp_specs):
+            if cs.kind == "pointsource":
+                fky, kx = pointsource_factors(
+                    self.shape, self._get(ci, "xy", thetas),
+                    self._get(ci, "mag", thetas), self.mag_zp,
+                    cs.static.get("shift_method", "lanczos3"),
+                )
+                fkys.append(fky)
+                kxs.append(kx)
+        b = thetas.shape[0]
+        h, w = self.shape
+        if not fkys:
+            kw = dict(dtype=self.dtype, device=self.device)
+            return torch.zeros((b, 0, h), **kw), torch.zeros((b, 0, w), **kw)
+        return torch.stack(fkys, dim=1), torch.stack(kxs, dim=1)
+
     def raw_and_ps(self, thetas):
         """Raw composite model ``(B, H, W)`` and its point-source part."""
         thetas = self.as_thetas(thetas)
         params, sky = self.render_inputs(thetas)
         raw = render_sersics(params.contiguous(), sky.contiguous(), self.shape)
-        ps = torch.zeros_like(raw)
-        for ci, cs in enumerate(self.spec.comp_specs):
-            if cs.kind == "pointsource":
-                ps = ps + render_pointsource_dense(
-                    self.shape, self._get(ci, "xy", thetas),
-                    self._get(ci, "mag", thetas), self.mag_zp,
-                    cs.static.get("shift_method", "lanczos3"),
-                )
+        ps = pointsource_image(*self.pointsource_inputs(thetas))
         return raw + ps, ps
 
     # -- posterior -------------------------------------------------------
+    def log_likelihood_batch(self, thetas):
+        """Gaussian lnL per walker on this posterior's path: the render
+        and conv+lnL kernels (``batched``) or the fused kernel."""
+        thetas = self.as_thetas(thetas)
+        if self.lnpost == "fused":
+            params, sky = self.render_inputs(thetas)
+            fky, kx = self.pointsource_inputs(thetas)
+            return fused_lnl(params, sky, fky, kx, self.consts)
+        raw, _ = self.raw_and_ps(thetas)
+        return batched_conv_lnl(raw, self.consts)
+
     def log_posterior_batch(self, thetas):
-        """lnpost per walker through the render and conv+lnL kernels."""
+        """lnpost per walker: prior, then :meth:`log_likelihood_batch`."""
         thetas = self.as_thetas(thetas)
         lp = self.log_prior_batch(thetas)
-        raw, _ = self.raw_and_ps(thetas)
-        lnl = batched_conv_lnl(raw, self.consts)
+        lnl = self.log_likelihood_batch(thetas)
         return torch.where(
             torch.isfinite(lp), lnl + lp, torch.full_like(lp, -math.inf)
         )
@@ -254,9 +320,9 @@ class PosteriorFns(nn.Module):
         }
 
 
-def build_posterior(spec: ModelSpec, device=None,
-                    dtype=torch.float32) -> PosteriorFns:
+def build_posterior(spec: ModelSpec, device=None, dtype=torch.float32,
+                    lnpost=None) -> PosteriorFns:
     """The posterior of ``spec`` on ``device`` (CUDA unless ``"cpu"`` is
     asked for; raises ``RuntimeError`` when CUDA is absent and no device
-    is given)."""
-    return PosteriorFns(spec, device=device, dtype=dtype)
+    is given), on the ``lnpost`` likelihood path (:func:`lnpost_mode`)."""
+    return PosteriorFns(spec, device=device, dtype=dtype, lnpost=lnpost)

@@ -98,6 +98,18 @@ class ModelSpec:
     conv_pad: int = 0
     render_oversample: int = 1
 
+    @property
+    def param_names(self) -> List[str]:
+        return [s.name for s in self.slots]
+
+    @property
+    def param_fits_abbrs(self) -> List[str]:
+        return [s.fitsname for s in self.slots]
+
+    @property
+    def param_lens(self) -> List[int]:
+        return [s.size for s in self.slots]
+
 
 def _not_in_slice(what):
     raise NotImplementedError(

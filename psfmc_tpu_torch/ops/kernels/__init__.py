@@ -4,8 +4,10 @@ Each module holds a wrapper that launches its kernel on CUDA tensors,
 counts its launches (``<wrapper>.launches``), and a plain PyTorch
 version of the same function that it uses for CPU tensors.  Sources are
 in ``psfmc_tpu_torch/csrc/`` and are built with ``nvcc`` on first use
-(:mod:`._build`).
+(:mod:`._build`).  The fused kernel's wrapper is reached through its
+module, ``psfmc_tpu_torch.ops.kernels.fused_lnl``, whose name it shares.
 """
+from . import fused_lnl
 from .conv_lnl import (
     ConvLnlConsts,
     batched_conv_lnl,

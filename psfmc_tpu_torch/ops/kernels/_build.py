@@ -6,8 +6,9 @@ first use into ``psfmc_tpu_torch/_build/<name>-<hash>.so``::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
          -shared -Xcompiler -fPIC -Xptxas=-v -o <so> <cu>
 
-The hash covers the source text and the flags, so an edited kernel is
-rebuilt and a stale library is never loaded.  ``--use_fast_math`` is
+The hash covers the source text, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited kernel or header is rebuilt and a stale
+library is never loaded.  ``--use_fast_math`` is
 deliberately absent: the kernels rely on the IEEE-accurate ``expf``,
 ``logf`` and division (within 2 ulp), which is why the port needs no
 counterpart of the JAX package's software transcendentals.
@@ -33,7 +34,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
 _CSRC = os.path.join(_PKG_DIR, "csrc")
 _BUILD = os.path.join(_PKG_DIR, "_build")
 
-SOURCES = ("sersic_render", "conv_lnl")
+SOURCES = ("sersic_render", "conv_lnl", "fused_lnl")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -68,8 +69,11 @@ def _nvcc():
 
 def _target(name):
     src = os.path.join(_CSRC, name + ".cu")
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(_CSRC, f) for f in headers]:
+        with open(path, "rb") as fh:
+            digest.update(fh.read())
     return src, os.path.join(_BUILD, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -137,15 +137,22 @@ def _kernel():
     )
 
 
+def check_launch_consts(consts: ConvLnlConsts, device):
+    """Raise unless every constant is a contiguous float32 tensor on
+    ``device`` (the mask ``good`` only needs the device), as the CUDA
+    kernels take them."""
+    for f in fields(consts):
+        t = getattr(consts, f.name)
+        if t.device != device:
+            raise ValueError(f"consts.{f.name} is on {t.device}, inputs on {device}")
+        if f.name != "good" and (t.dtype != torch.float32 or not t.is_contiguous()):
+            raise ValueError(f"consts.{f.name} must be contiguous float32")
+
+
 def _launch(raws, consts: ConvLnlConsts):
     if raws.dtype != torch.float32:
         raise TypeError(f"the CUDA conv_lnl takes float32, got {raws.dtype}")
-    for f in fields(consts):
-        t = getattr(consts, f.name)
-        if t.device != raws.device:
-            raise ValueError(f"consts.{f.name} is on {t.device}, raws on {raws.device}")
-        if f.name != "good" and (t.dtype != torch.float32 or not t.is_contiguous()):
-            raise ValueError(f"consts.{f.name} must be contiguous float32")
+    check_launch_consts(consts, raws.device)
     raws = raws.contiguous()
     b, h, w = raws.shape
     w2 = w // 2 + 1

@@ -1,0 +1,171 @@
+"""Fused render + convolution + Gaussian likelihood: CUDA kernel wrapper and plain version.
+
+Counterpart of ``psfmc_tpu/ops/pallas/lnpost_pallas.py``
+(``make_fused_lnl_batch``, gate ``fused_lnl_supported``): per walker,
+render ``raw = sky + sum of Sersics + sum of point sources``, convolve it
+with the PSF and its square with the PSF variance map, and reduce the
+masked Gaussian lnL, all in one kernel (``csrc/fused_lnl.cu``) that keeps
+the walker's images in shared memory and writes one float per walker.
+
+The per-walker scalar preparation stays in torch, as in the JAX wrapper:
+the packed Sersic rows (:func:`~psfmc_tpu_torch.ops.sersic.sersic_scalar_params`),
+the sky sum and the point sources' 1-D kernels ``fky = flux * ky`` and
+``kx`` (:func:`~psfmc_tpu_torch.ops.pointsource.pointsource_factors`).
+
+* :func:`fused_lnl` — ``(B, S, 9)``, ``(B,)``, ``(B, P, H)``, ``(B, P,
+  W)`` -> ``(B,)`` lnL; non-finite results are exactly ``-inf``;
+* :func:`fused_lnl_plain` — the same function in plain PyTorch: the
+  render, the dense point sources and :func:`batched_conv_lnl_plain`;
+* :func:`fused_lnl_supported` — which specs the kernel covers.
+
+On CPU tensors :func:`fused_lnl` returns the plain version; on CUDA
+tensors it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..pointsource import pointsource_image
+from . import _build
+from .conv_lnl import ConvLnlConsts, batched_conv_lnl_plain, check_launch_consts
+from .sersic_render import PARAMS_PER_SERSIC, render_sersics_plain
+
+__all__ = [
+    "FUSED_SMEM_LIMIT",
+    "fused_lnl",
+    "fused_lnl_plain",
+    "fused_lnl_smem_bytes",
+    "fused_lnl_supported",
+]
+
+# Shared memory a block may use on Hopper (232,448 bytes), less the
+# kernel's static reduction buffer (16 doubles).
+FUSED_SMEM_LIMIT = 232448 - 16 * 8
+
+_SHAPE_ATTRS = {"c0", "f1", "f2", "f3", "f4", "b1", "b2", "b3",
+                "rtrunc", "rtrunc_in", "rot_ang"}
+
+
+def fused_lnl_smem_bytes(shape, num_sersic, num_ps):
+    """Dynamic shared memory of one block: three ``(2, H, W//2+1)``
+    float buffers plus the walker's scalars (``csrc/fused_lnl.cu``)."""
+    h, w = shape
+    return 4 * (6 * h * (w // 2 + 1) + PARAMS_PER_SERSIC * num_sersic
+                + num_ps * (h + w))
+
+
+def fused_lnl_supported(spec):
+    """``(ok, reason)``: whether the fused kernel computes ``spec``'s
+    likelihood exactly.
+
+    The JAX package's gate (component kinds whitelisted, flat sky,
+    elliptical Sersics, one PSF, Gaussian likelihood, no padding, no
+    oversampling), plus the port's own limit: one walker's three image
+    buffers must fit in a block's shared memory (up to about 137x137).
+    """
+    specs = getattr(spec, "comp_specs", ())
+    known = {"sky", "pointsource", "sersic", "psfselector"}
+    checks = (
+        (all(cs.kind in known for cs in specs),
+         "a component kind other than sky, pointsource, sersic"),
+        (all(not ({"dx", "dy"} & set(cs.params))
+             for cs in specs if cs.kind == "sky"), "a sky gradient"),
+        (all(not (_SHAPE_ATTRS & set(cs.params))
+             for cs in specs if cs.kind == "sersic"),
+         "a non-elliptical Sersic shape"),
+        (getattr(spec, "num_psfs", 1) == 1, "several PSFs"),
+        (getattr(spec, "likelihood", "gaussian") == "gaussian",
+         "a non-Gaussian likelihood"),
+        (getattr(spec, "conv_pad", 0) == 0, "conv_pad > 0"),
+        (getattr(spec, "render_oversample", 1) == 1, "render_oversample > 1"),
+    )
+    for ok, what in checks:
+        if not ok:
+            return False, what
+    nser = sum(cs.kind == "sersic" for cs in specs)
+    nps = sum(cs.kind == "pointsource" for cs in specs)
+    need = fused_lnl_smem_bytes(tuple(spec.shape), nser, nps)
+    if need > FUSED_SMEM_LIMIT:
+        return False, (f"a {spec.shape[0]}x{spec.shape[1]} image: one walker "
+                       f"needs {need} bytes of shared memory, a block has "
+                       f"{FUSED_SMEM_LIMIT}")
+    return True, ""
+
+
+def fused_lnl_plain(packed, sky, fky, kx, consts: ConvLnlConsts):
+    """Plain PyTorch version: render, point sources, convolutions, lnL."""
+    raw = render_sersics_plain(packed, sky, consts.shape)
+    return batched_conv_lnl_plain(raw + pointsource_image(fky, kx), consts)
+
+
+# fused_lnl_launch(packed, sky, fky, kx, batch, num_sersic, num_ps, h, w,
+# <these constants>, out, stream)
+_CONST_ARGS = ("cw", "sw", "lf", "li", "ica", "isa", "psf_r", "psf_i",
+               "var_r", "var_i", "obs", "obs_var", "good_f")
+
+
+@functools.lru_cache(maxsize=1)
+def _kernel():
+    return _build.function(
+        "fused_lnl", "fused_lnl_launch",
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+        + [ctypes.c_void_p] * (len(_CONST_ARGS) + 2),
+    )
+
+
+def _check(packed, sky, fky, kx, consts):
+    shape = consts.shape
+    if packed.ndim != 3 or packed.shape[2] != PARAMS_PER_SERSIC:
+        raise ValueError(f"packed must be (B, S, 9), got {tuple(packed.shape)}")
+    b = packed.shape[0]
+    if tuple(sky.shape) != (b,):
+        raise ValueError(f"sky must be ({b},), got {tuple(sky.shape)}")
+    if fky.ndim != 3 or fky.shape[0] != b or fky.shape[2] != shape[0]:
+        raise ValueError(f"fky must be ({b}, P, {shape[0]}), got {tuple(fky.shape)}")
+    if tuple(kx.shape) != (b, fky.shape[1], shape[1]):
+        raise ValueError(
+            f"kx must be ({b}, {fky.shape[1]}, {shape[1]}), got {tuple(kx.shape)}")
+    for t in (sky, fky, kx):
+        if t.device != packed.device or t.dtype != packed.dtype:
+            raise ValueError("packed, sky, fky and kx must share device and dtype")
+
+
+def _launch(packed, sky, fky, kx, consts: ConvLnlConsts):
+    if packed.dtype != torch.float32:
+        raise TypeError(f"the CUDA fused_lnl takes float32, got {packed.dtype}")
+    check_launch_consts(consts, packed.device)
+    b, s, _ = packed.shape
+    p = fky.shape[1]
+    h, w = consts.shape
+    packed, sky, fky, kx = (t.contiguous() for t in (packed, sky, fky, kx))
+    out = torch.empty((b,), dtype=torch.float32, device=packed.device)
+    tensors = [getattr(consts, n) for n in _CONST_ARGS] + [out]
+    with torch.cuda.device(packed.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernel()(packed.data_ptr(), sky.data_ptr(), fky.data_ptr(),
+                        kx.data_ptr(), b, s, p, h, w,
+                        *(t.data_ptr() for t in tensors), stream)
+    if err != 0:  # e.g. a walker too large for a block's shared memory
+        raise RuntimeError(
+            f"fused_lnl launch failed: cudaError {err} ({h}x{w} walker, "
+            f"{fused_lnl_smem_bytes((h, w), s, p)} bytes of shared memory)")
+    return out
+
+
+def fused_lnl(packed, sky, fky, kx, consts: ConvLnlConsts):
+    """Per-walker Gaussian lnL of the rendered, convolved model (see
+    module doc); ``(B,)``."""
+    _check(packed, sky, fky, kx, consts)
+    if packed.device.type == "cpu":
+        return fused_lnl_plain(packed, sky, fky, kx, consts)
+    if packed.device.type != "cuda":
+        raise ValueError(f"unsupported device {packed.device}")
+    out = _launch(packed, sky, fky, kx, consts)
+    fused_lnl.launches += 1
+    return out
+
+
+fused_lnl.launches = 0

@@ -14,7 +14,8 @@ import torch
 
 from .coords import mag_to_flux
 
-__all__ = ["sinc", "lanczos", "render_pointsource_dense", "SHIFT_METHODS"]
+__all__ = ["sinc", "lanczos", "pointsource_factors", "pointsource_image",
+           "render_pointsource_dense", "SHIFT_METHODS"]
 
 SHIFT_METHODS = ("bilinear", "lanczos3")
 
@@ -42,12 +43,11 @@ def _kernel_1d(win_coords, center, method):
     raise ValueError(f"Unknown shift method: {method}")
 
 
-def render_pointsource_dense(shape, xy, mag, mag_zp, method="lanczos3"):
-    """Point sources as rank-1 outer products.
-
-    ``xy`` is ``(..., 2)`` in 0-based pixel coordinates, ``mag`` has the
-    batch shape ``(...)``; the result is ``(..., H, W)``.
-    """
+def pointsource_factors(shape, xy, mag, mag_zp, method="lanczos3"):
+    """The rank-1 factors ``(fky, kx)`` of point sources: ``fky = flux *
+    ky(j - y)`` ``(..., H)`` and ``kx(i - x)`` ``(..., W)``.  The fused
+    likelihood kernel takes them as they are; :func:`render_pointsource_dense`
+    forms their outer product."""
     if method not in SHIFT_METHODS:
         raise ValueError(f"Unknown shift method: {method}")
     h, w = shape
@@ -56,4 +56,20 @@ def render_pointsource_dense(shape, xy, mag, mag_zp, method="lanczos3"):
     ky = _kernel_1d(rows, xy[..., 1:2], method)  # (..., H)
     kx = _kernel_1d(cols, xy[..., 0:1], method)  # (..., W)
     flux = mag_to_flux(mag, mag_zp)
-    return (flux[..., None] * ky)[..., :, None] * kx[..., None, :]
+    return flux[..., None] * ky, kx
+
+
+def pointsource_image(fky, kx):
+    """The sum over point sources of ``fky_p ⊗ kx_p``: ``(..., P, H)``,
+    ``(..., P, W)`` -> ``(..., H, W)`` (zeros for ``P = 0``)."""
+    return (fky[..., :, :, None] * kx[..., :, None, :]).sum(dim=-3)
+
+
+def render_pointsource_dense(shape, xy, mag, mag_zp, method="lanczos3"):
+    """Point sources as rank-1 outer products.
+
+    ``xy`` is ``(..., 2)`` in 0-based pixel coordinates, ``mag`` has the
+    batch shape ``(...)``; the result is ``(..., H, W)``.
+    """
+    fky, kx = pointsource_factors(shape, xy, mag, mag_zp, method)
+    return fky[..., :, None] * kx[..., None, :]

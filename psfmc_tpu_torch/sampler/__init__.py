@@ -1,4 +1,5 @@
 """Samplers of the port (stretch-move ensemble in this slice)."""
+from .autocorr import AutocorrError, integrated_time
 from .ensemble import (
     EnsembleSampler,
     EnsembleState,
@@ -8,6 +9,8 @@ from .ensemble import (
 )
 
 __all__ = [
+    "AutocorrError",
+    "integrated_time",
     "EnsembleSampler",
     "EnsembleState",
     "merge_image_accumulators",

@@ -20,6 +20,16 @@ Differences of form from the JAX package:
 Posterior-image running means accumulate on the device (float32) after
 every retained step, from the posterior's ``ensemble_carry_means``
 (three convolutions per step) when it has one.
+
+For the fitting driver, as in the JAX package: ``run_burn`` and
+``run_sampling`` take ``segment=``/``callback=`` (progress and mid-phase
+checkpoints), :meth:`EnsembleSampler.rejuvenate_stuck` repairs stranded
+walkers between burn segments, and :meth:`~EnsembleSampler.
+checkpoint_payload` / :meth:`~EnsembleSampler.restore_state` carry the
+full resume state.  Where the JAX checkpoint holds a JAX PRNG key, the
+port's holds the state of its ``torch.Generator`` (``rng_state``) and
+the generator's kind (``rng_kind``: ``torch-cuda`` or ``torch-cpu``); a
+checkpoint with another kind cannot be restored into this sampler.
 """
 from __future__ import annotations
 
@@ -31,6 +41,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from .autocorr import integrated_time
 
 __all__ = [
     "EnsembleState",
@@ -168,6 +179,8 @@ class EnsembleSampler:
     also accumulates posterior-mean images during retained sampling.
     """
 
+    checkpoint_kind = "ensemble"
+
     def __init__(self, nwalkers: int, dim: int, posterior_fns, a: float = 2.0,
                  seed: int = 0, device=None):
         if nwalkers % 2 != 0:
@@ -220,6 +233,45 @@ class EnsembleSampler:
         )
         return self.state
 
+    @property
+    def rng_kind(self):
+        """Kind of generator whose state a checkpoint carries."""
+        return f"torch-{self.device.type}"
+
+    def rejuvenate_stuck(self, random_state=None, floor_sigmas=20.0,
+                         min_drop=50.0):
+        """Burn-phase rescue: copy stranded walkers onto healthy ones.
+
+        A walker whose lnp is not finite or lies below ``median -
+        max(min_drop, floor_sigmas * 1.4826 * MAD)`` takes the position
+        of a randomly chosen healthy walker (``random_state``, a numpy
+        RandomState or seed); the ensemble's lnp is then re-evaluated in
+        one batched call.  Refuses (returns 0) when half the ensemble or
+        more is below the floor.  Call between burn segments only.
+
+        :returns: the number of walkers moved.
+        """
+        rng = (random_state if isinstance(random_state, np.random.RandomState)
+               else np.random.RandomState(random_state))
+        lnp = self.state.log_prob.to("cpu", torch.float64).numpy()
+        finite = np.isfinite(lnp)
+        if not finite.any():
+            return 0
+        med = np.median(lnp[finite])
+        mad = np.median(np.abs(lnp[finite] - med))
+        floor = med - max(float(min_drop), float(floor_sigmas) * 1.4826 * mad)
+        stuck = ~finite | (lnp < floor)
+        n_stuck = int(stuck.sum())
+        if n_stuck == 0 or n_stuck >= self.nwalkers // 2:
+            return 0
+        donors = rng.choice(np.flatnonzero(~stuck), size=n_stuck)
+        pos = self.state.positions.to("cpu", torch.float64).numpy().copy()
+        pos[stuck] = pos[donors]
+        p0 = torch.as_tensor(pos, dtype=self.dtype, device=self.device)
+        self.state = replace(self.state, positions=p0,
+                             log_prob=self.fns.log_posterior_batch(p0))
+        return n_stuck
+
     def reset(self):
         """Clear the chain, acceptance counts, image accumulators and
         moments; keep the walker positions (emcee's ``reset()``)."""
@@ -271,15 +323,89 @@ class EnsembleSampler:
             self._chain = np.concatenate([self._chain, chain], axis=1)
             self._lnprob = np.concatenate([self._lnprob, lnprob], axis=1)
 
-    def run_burn(self, nsteps: int):
-        """Burn-in: no chain recording, no image accumulation."""
-        self._run(nsteps, accumulate=False, record=False)
+    @staticmethod
+    def _segments(nsteps: int, segment):
+        """Split ``nsteps`` into segment lengths (``None``: one segment)."""
+        if segment is None or segment >= nsteps:
+            return [nsteps]
+        segment = max(1, int(segment))
+        out = [segment] * (nsteps // segment)
+        if nsteps % segment:
+            out.append(nsteps % segment)
+        return out
+
+    def _phase(self, nsteps, segment, callback, accumulate, record):
+        done = 0
+        for n in self._segments(int(nsteps), segment):
+            self._run(n, accumulate=accumulate, record=record)
+            done += n
+            if callback is not None:
+                callback(done, nsteps)
         return self
 
-    def run_sampling(self, nsteps: int):
-        """Retained sampling: records the chain and accumulates images."""
-        self._run(nsteps, accumulate=True, record=True)
-        return self
+    def run_burn(self, nsteps: int, segment=None, callback=None):
+        """Burn-in: no chain recording, no image accumulation.
+
+        ``segment`` splits the phase so that ``callback(done, total)``
+        can report progress and write checkpoints between segments.
+        """
+        return self._phase(nsteps, segment, callback, False, False)
+
+    def run_sampling(self, nsteps: int, segment=None, callback=None):
+        """Retained sampling: records the chain and accumulates images
+        (``segment``/``callback`` as for :meth:`run_burn`)."""
+        return self._phase(nsteps, segment, callback, True, True)
+
+    # -- checkpoint / resume -----------------------------------------------
+    def checkpoint_payload(self):
+        """Full resume state as a dict of host arrays (checkpoint v2,
+        with the generator's state in place of a JAX PRNG key)."""
+        s = self.state
+        return {
+            "version": 2,
+            "ntemps": 1,
+            "positions": s.positions.to("cpu", torch.float64).numpy(),
+            "log_prob": s.log_prob.to("cpu", torch.float64).numpy(),
+            "naccept": s.naccept.cpu().numpy().astype(np.int64),
+            "nsteps": int(self._nsteps_total),
+            "rng_kind": self.rng_kind,
+            "rng_state": self.generator.get_state().numpy().copy(),
+            "accum": {k: v.cpu().numpy() for k, v in s.accum.items()},
+            "accum_count": int(s.accum_count),
+        }
+
+    def restore_state(self, payload):
+        """Rebuild the state from a :meth:`checkpoint_payload` dict.
+
+        Log-probabilities are recomputed (one batched evaluation);
+        positions, accumulators, accept counts and the generator state
+        are restored exactly.  Raises ``ValueError`` for a checkpoint
+        whose generator is not this sampler's kind.
+        """
+        kind = payload.get("rng_kind")
+        if kind != self.rng_kind:
+            raise ValueError(
+                f"checkpoint generator {kind!r} cannot be restored into a "
+                f"{self.rng_kind!r} sampler"
+            )
+        positions = np.asarray(payload["positions"], np.float64)
+        self.init_state(positions)
+        self.generator.set_state(torch.as_tensor(
+            np.asarray(payload["rng_state"], np.uint8)))
+        accum = payload.get("accum")
+        count = int(payload.get("accum_count", 0))
+        if accum and count > 0:
+            self.state = replace(self.state, accum_count=count, accum={
+                k: torch.as_tensor(np.asarray(v), dtype=torch.float32,
+                                   device=self.device)
+                for k, v in accum.items()})
+        naccept = np.asarray(payload.get("naccept", 0), np.int64)
+        if naccept.shape == (self.nwalkers,):
+            self.state = replace(self.state, naccept=torch.as_tensor(
+                naccept, dtype=torch.int64, device=self.device))
+            self._naccept = naccept.copy()
+            self._nsteps_total = int(payload.get("nsteps", 0))
+        return self.state
 
     # -- emcee-compatible accessors ----------------------------------------
     @property
@@ -312,6 +438,14 @@ class EnsembleSampler:
     @property
     def accumulated_samples(self):
         return 0 if self.state is None else int(self.state.accum_count)
+
+    def get_autocorr_time(self, c=1):
+        """Integrated autocorrelation time of the walker-averaged chain
+        (emcee 2.x); raises :class:`~.autocorr.AutocorrError` when the
+        chain is too short."""
+        if self._chain is None:
+            raise ValueError("No chain recorded yet")
+        return integrated_time(np.mean(self._chain, axis=0), axis=0, c=c)
 
     @property
     def posterior_moments(self):

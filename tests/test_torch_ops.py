@@ -231,7 +231,7 @@ def test_unported_prior_family_raises():
     assert TD.SCIPY_DIST_NAMES == JD.SCIPY_DIST_NAMES
 
 
-def test_preprocess_matches_jax():
+def test_preprocess_matches_jax(tmp_path):
     from psfmc_tpu.io import preprocess as jpre
     from psfmc_tpu_torch.io import preprocess as tpre
 
@@ -243,7 +243,7 @@ def test_preprocess_matches_jax():
     mask = np.zeros(obs.shape, bool)
     mask[0, :4] = True
     _, j_data, j_var, j_bad = jpre.preprocess_obs(obs, ivm, mask)
-    t_data, t_var, t_bad = tpre.preprocess_obs(obs, ivm, mask)
+    _, t_data, t_var, t_bad = tpre.preprocess_obs(obs, ivm, mask)
     np.testing.assert_array_equal(t_bad, j_bad)
     np.testing.assert_array_equal(t_var, j_var)  # inf at bad pixels
     np.testing.assert_array_equal(t_data[~t_bad], j_data[~j_bad])
@@ -263,7 +263,7 @@ def test_preprocess_matches_jax():
     for a, b in zip(tpre.pre_fft_psf(t_d[0], t_v[0], (16, 12)),
                     jpre.pre_fft_psf(j_d[0], j_v[0], (16, 12))):
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError):
-        tpre.preprocess_obs("obs.fits", ivm)
+    with pytest.raises(OSError):  # a string is a FITS file name
+        tpre.preprocess_obs(str(tmp_path / "missing.fits"), ivm)
     with pytest.raises(ValueError, match="mask array shape"):
         tpre.preprocess_obs(obs, ivm, mask[:4])

@@ -17,9 +17,16 @@ never ``jax`` nor ``psfmc_tpu``, and:
    plain PyTorch version on the card, with its tolerance, and its time
    (CUDA events) beside the plain version's and the least time the card
    could take (for conv_lnl and fused_lnl from the operations of FFT
-   convolutions, with the bound of the kernels' matmul-DFT formulation
-   beside it); for conv_lnl the ``torch.fft`` formulation as a
-   yardstick, for fused_lnl the unfused pair render + conv_lnl;
+   convolutions, with the bound of the matmul-DFT formulation beside
+   it); for conv_lnl the ``torch.fft`` formulation as a yardstick, for
+   fused_lnl the unfused pair render + conv_lnl.  Both likelihood
+   kernels have two routes picked by the shape: at 128x128 the FFT route
+   (asserted; the matmul-DFT route is timed beside it on the same
+   inputs), and the same checks run once more at 96x96, where the
+   matmul-DFT route carries them (rows ``conv_lnl_dft`` and
+   ``fused_lnl_dft``).  Each likelihood kernel, its plain version and
+   the ``torch.fft`` yardstick are also held against a float64
+   ``torch.fft`` convolution on the card;
 4. slice phase (the posterior + sampler path, ``lnpost="batched"``): the
    flagship model (synthetic 128x128 observation, 64x64 PSF, 18 free
    parameters), 250 walkers drawn from the priors, ``init_state`` ->
@@ -43,7 +50,9 @@ never ``jax`` nor ``psfmc_tpu``, and:
    ``{"ok": true, "device": {...}}`` last.
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler breakdown of
-device time by kernel over five retained sampler steps of each path.
+device time by kernel over five retained sampler steps of each path, and
+the SM clock cycles that one block of each FFT-route kernel spends in
+each of its phases (a second build of the two sources with phase stamps).
 
 Any failure exits nonzero before the result line; so does a host
 without CUDA, or a directory without the port.
@@ -68,6 +77,7 @@ BURN = 20
 SAMPLE = 20
 SEED = 0
 STEADY = 10  # steps timed after the checks, per phase
+SPIN_CYCLES = 5_000_000  # time_ms's head start; main() logs how long it lasts
 
 # H100 SXM published peaks (NVIDIA data sheet): memory rate and the fp32
 # rate outside the tensor cores.
@@ -85,6 +95,7 @@ IMAGE_TYPES = ("raw_model", "convolved_model", "composite_ivm", "residual",
 RENDER_OPS_PER_PIXEL = 31
 LNL_OPS_PER_PIXEL = 10
 CHECKPOINT = 10  # driver segment: mid-phase checkpoints and rejuvenation
+DFT_SHAPE, DFT_PSF_SHAPE = (96, 96), (48, 48)  # a shape on the matmul-DFT route
 
 
 def log(msg):
@@ -101,7 +112,14 @@ def card_identity():
 
 
 def time_ms(fn, reps=7, inner=10):
-    """Median per-call time of ``fn`` in ms, CUDA events, after warm-up."""
+    """Median per-call time of ``fn`` in ms, CUDA events, after warm-up.
+
+    Each timed batch is enqueued behind torch's spin kernel
+    (``SPIN_CYCLES`` clock cycles; :func:`spin_ms` measures it), so that
+    the launches of a short kernel are already queued when the first one
+    starts: the events then bracket the card's time, not the rate at
+    which this host enqueues (a kernel of 0.03 ms read 0.05 ms on a slow
+    host without it)."""
     import torch
 
     for _ in range(3):
@@ -111,6 +129,7 @@ def time_ms(fn, reps=7, inner=10):
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         for _ in range(inner):
             fn()
@@ -118,6 +137,21 @@ def time_ms(fn, reps=7, inner=10):
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return float(np.median(times))
+
+
+def spin_ms():
+    """How long :func:`time_ms`'s head start holds the card, in ms."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
 
 
 def compare(got, want):
@@ -167,15 +201,9 @@ def dft_matmul_ops(b, h, w):
 def kernel_phase(post, spec):
     import torch
 
-    from psfmc_tpu_torch.flagship import prior_draws
-    from psfmc_tpu_torch.ops import convolve, gaussian_lnlike
+    from psfmc_tpu_torch.flagship import flagship_components, prior_draws
+    from psfmc_tpu_torch.models import build_model_spec, build_posterior
     from psfmc_tpu_torch.ops.kernels import _build
-    from psfmc_tpu_torch.ops.kernels.conv_lnl import (
-        batched_conv_lnl,
-        batched_conv_lnl_plain,
-    )
-    from psfmc_tpu_torch.ops.kernels.fused_lnl import fused_lnl, fused_lnl_plain
-    from psfmc_tpu_torch.ops.pointsource import pointsource_image
     from psfmc_tpu_torch.ops.kernels.sersic_render import (
         pick_tile,
         render_sersics,
@@ -216,58 +244,144 @@ def kernel_phase(post, spec):
             bound_ms=bms, bound_by=by, library_ms=None,
         ))
 
+    rows += likelihood_rows(post, spec, thetas, "", "fft")
+    dft_spec = build_model_spec(flagship_components(DFT_SHAPE, DFT_PSF_SHAPE))
+    dft_post = build_posterior(dft_spec, device=post.device, lnpost="batched")
+    dft_thetas = torch.as_tensor(prior_draws(dft_spec, B_HALF, seed=1),
+                                 dtype=torch.float32, device=dft_post.device)
+    rows += likelihood_rows(dft_post, dft_spec, dft_thetas, "_dft", "dft")
+    for r in rows:
+        log(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}, "
+            f"{r['ms'] / r['bound_ms']:.1f}x the bound; matmul-DFT "
+            f"formulation's bound {r.get('dft_bound_ms')}, "
+            f"library {r['library_ms']}, unfused {r.get('unfused_ms')}, "
+            f"route {r.get('conv_route')}, matmul-DFT route on the same "
+            f"inputs {r.get('dft_route_ms')})")
+    return rows
+
+
+def likelihood_rows(post, spec, thetas, suffix, route):
+    """The conv_lnl and fused_lnl rows at ``spec``'s shape, which must
+    take ``route``: each kernel against its plain version, against the
+    float64 truth, and its times."""
+    import torch
+
+    from psfmc_tpu_torch.ops import convolve, gaussian_lnlike
+    from psfmc_tpu_torch.ops.kernels import _build
+    from psfmc_tpu_torch.ops.kernels import conv_lnl as CL
+    from psfmc_tpu_torch.ops.kernels import fused_lnl as FL
+    from psfmc_tpu_torch.ops.kernels.conv_lnl import (
+        batched_conv_lnl,
+        batched_conv_lnl_plain,
+        conv_route,
+    )
+    from psfmc_tpu_torch.ops.kernels.fused_lnl import fused_lnl, fused_lnl_plain
+    from psfmc_tpu_torch.ops.kernels.sersic_render import render_sersics
+    from psfmc_tpu_torch.ops.pointsource import pointsource_image
+
+    h, w = spec.shape
+    name = "conv_lnl" + suffix
+    if conv_route((h, w)) != route:
+        raise AssertionError(f"{h}x{w} takes the {conv_route((h, w))} route, "
+                             f"expected {route}")
+    log(f"{name}, fused_lnl{suffix}: {h}x{w} takes the {route} route")
+    params, sky = post.render_inputs(thetas)
+    params, sky = params.contiguous(), sky.contiguous()
+    b, s, _ = params.shape
+    rows = []
+
     raws = post.raw_and_ps(thetas)[0]
     consts = post.consts
     want = batched_conv_lnl_plain(raws, consts)
-    abs_err, rel, frac = compare(batched_conv_lnl(raws, consts), want)
-    log(f"conv_lnl: max rel err {rel:.3e} (tol {CONV_LNL_TOL:g}), "
+    counts = dict(batched_conv_lnl.route_launches)
+    got = batched_conv_lnl(raws, consts)
+    counts[route] += 1
+    if batched_conv_lnl.route_launches != counts:
+        raise AssertionError(f"{name} did not launch on the {route} route")
+    abs_err, rel, frac = compare(got, want)
+    log(f"{name}: max rel err {rel:.3e} (tol {CONV_LNL_TOL:g}), "
         f"max abs err {abs_err:.3e}, finite share {frac:.4f}")
     if frac < 0.5:
-        raise AssertionError("conv_lnl compared on too few finite walkers")
+        raise AssertionError(f"{name} compared on too few finite walkers")
     if not rel <= CONV_LNL_TOL:
-        raise AssertionError("conv_lnl disagrees with its plain version")
+        raise AssertionError(f"{name} disagrees with its plain version")
 
-    f_psf = torch.as_tensor(spec.f_psf_stack[0], device=post.device).to(torch.complex64)
-    f_var = torch.as_tensor(spec.f_var_stack[0], device=post.device).to(torch.complex64)
+    f_psf = torch.as_tensor(spec.f_psf_stack[0], device=post.device)
+    f_var = torch.as_tensor(spec.f_var_stack[0], device=post.device)
+    f_psf32, f_var32 = f_psf.to(torch.complex64), f_var.to(torch.complex64)
 
     def library():  # the torch.fft formulation, a yardstick only
-        conv = convolve(raws, f_psf)
-        mvar = convolve(raws * raws, f_var)
+        conv = convolve(raws, f_psf32)
+        mvar = convolve(raws * raws, f_var32)
         return gaussian_lnlike(consts.obs - conv, 1.0 / (mvar + consts.obs_var),
                                consts.good)
 
     _, lib_rel, _ = compare(library(), want)
-    log(f"conv_lnl: torch.fft yardstick rel diff to plain {lib_rel:.3e}")
+    log(f"{name}: torch.fft yardstick rel diff to plain {lib_rel:.3e}")
+
+    # the float64 truth of the same raw images, by torch.fft on the card
+    raws64 = raws.double()
+    truth = gaussian_lnlike(
+        consts.obs.double() - convolve(raws64, f_psf.to(torch.complex128)),
+        1.0 / (convolve(raws64 * raws64, f_var.to(torch.complex128))
+               + consts.obs_var.double()), consts.good)
+
+    def truth_err(v):
+        fin = torch.isfinite(truth) & torch.isfinite(v)
+        return ((v.double() - truth)[fin].abs() / truth[fin].abs()).max().item()
+
+    log(f"{name}: max rel err against the float64 torch.fft convolution: "
+        f"kernel {truth_err(got):.3e}, plain {truth_err(want):.3e}, "
+        f"torch.fft (float32) {truth_err(library()):.3e}")
     # the bound counts what the function needs: FFT convolutions, and the
-    # bytes of the data it reads (the DFT operators are the kernels' own
-    # formulation, whose bound is recorded beside it as dft_bound_ms)
+    # bytes of the data it reads (the DFT operators belong to the matmul-
+    # DFT formulation, whose bound is recorded beside it as dft_bound_ms)
     conv_ops = conv_lnl_ops(b, h, w)
     data_bytes = 4 * sum(t.numel() for t in (
         consts.psf_r, consts.psf_i, consts.var_r, consts.var_i, consts.obs,
         consts.obs_var, consts.good_f))
     bms, by = bound(4 * raws.numel() + data_bytes + 4 * b, conv_ops)
     rows.append(dict(
-        name="conv_lnl", route="cuda", source=_build.source_path("conv_lnl"),
+        name=name, route="cuda", source=_build.source_path("conv_lnl"),
         replaces="psfmc_tpu/ops/pallas/lnpost_batched.py:191", launches=0,
         max_abs_err=abs_err, max_rel_err=rel,
         ms=time_ms(lambda: batched_conv_lnl(raws, consts)),
         plain_ms=time_ms(lambda: batched_conv_lnl_plain(raws, consts)),
         bound_ms=bms, bound_by=by, library_ms=time_ms(library),
         dft_bound_ms=bound(0, dft_matmul_ops(b, h, w))[0],
+        conv_route=route, f64_rel_err=truth_err(got),
+        plain_f64_rel_err=truth_err(want),
     ))
+    if route == "fft":  # the other route on the same inputs, in this run
+        _, dft_rel, _ = compare(CL._launch(raws, consts, "dft"), want)
+        if not dft_rel <= CONV_LNL_TOL:
+            raise AssertionError("conv_lnl's matmul-DFT route disagrees "
+                                 "with the plain version")
+        rows[-1]["dft_route_ms"] = time_ms(
+            lambda: CL._launch(raws, consts, "dft"))
 
     # fused render + conv + lnL: the whole likelihood from the scalars
+    name = "fused_lnl" + suffix
     fky, kx = post.pointsource_inputs(thetas)
     fky, kx = fky.contiguous(), kx.contiguous()
     args = (params, sky, fky, kx, consts)
     want = fused_lnl_plain(*args)
-    abs_err, rel, frac = compare(fused_lnl(*args), want)
-    log(f"fused_lnl: max rel err {rel:.3e} (tol {FUSED_TOL:g}), "
+    counts = dict(fused_lnl.route_launches)
+    got = fused_lnl(*args)
+    counts[route] += 1
+    if fused_lnl.route_launches != counts:
+        raise AssertionError(f"{name} did not launch on the {route} route")
+    abs_err, rel, frac = compare(got, want)
+    log(f"{name}: max rel err {rel:.3e} (tol {FUSED_TOL:g}), "
         f"max abs err {abs_err:.3e}, finite share {frac:.4f}")
     if frac < 0.5:
-        raise AssertionError("fused_lnl compared on too few finite walkers")
+        raise AssertionError(f"{name} compared on too few finite walkers")
     if not rel <= FUSED_TOL:
-        raise AssertionError("fused_lnl disagrees with its plain version")
+        raise AssertionError(f"{name} disagrees with its plain version")
+    log(f"{name}: max rel err against the float64 torch.fft convolution of "
+        f"the plain render: kernel {truth_err(got):.3e}, plain "
+        f"{truth_err(want):.3e}, torch.fft (float32) {truth_err(library()):.3e}")
     npt = fky.shape[1]
 
     def unfused():  # the render and conv_lnl kernels on the same inputs
@@ -275,26 +389,27 @@ def kernel_phase(post, spec):
         return batched_conv_lnl(raw, consts)
 
     _, un_rel, _ = compare(unfused(), want)
-    log(f"fused_lnl: unfused render + conv_lnl rel diff to plain {un_rel:.3e}")
+    log(f"{name}: unfused render + conv_lnl rel diff to plain {un_rel:.3e}")
     ps_render_ops = b * h * w * (s * RENDER_OPS_PER_PIXEL + 1 + 2 * npt)
     in_bytes = 4 * (params.numel() + sky.numel() + fky.numel() + kx.numel())
     bms, by = bound(in_bytes + data_bytes + 4 * b, conv_ops + ps_render_ops)
     rows.append(dict(
-        name="fused_lnl", route="cuda", source=_build.source_path("fused_lnl"),
+        name=name, route="cuda", source=_build.source_path("fused_lnl"),
         replaces="psfmc_tpu/ops/pallas/lnpost_pallas.py:183", launches=0,
         max_abs_err=abs_err, max_rel_err=rel,
         ms=time_ms(lambda: fused_lnl(*args)),
         plain_ms=time_ms(lambda: fused_lnl_plain(*args)),
         bound_ms=bms, bound_by=by, library_ms=None,
         dft_bound_ms=bound(0, dft_matmul_ops(b, h, w) + ps_render_ops)[0],
-        unfused_ms=time_ms(unfused),
+        unfused_ms=time_ms(unfused), conv_route=route,
+        f64_rel_err=truth_err(got), plain_f64_rel_err=truth_err(want),
     ))
-    for r in rows:
-        log(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
-            f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}, "
-            f"{r['ms'] / r['bound_ms']:.1f}x the bound; matmul-DFT "
-            f"formulation's bound {r.get('dft_bound_ms')}, "
-            f"library {r['library_ms']}, unfused {r.get('unfused_ms')})")
+    if route == "fft":
+        _, dft_rel, _ = compare(FL._launch(*args, "dft"), want)
+        if not dft_rel <= FUSED_TOL:
+            raise AssertionError("fused_lnl's matmul-DFT route disagrees "
+                                 "with the plain version")
+        rows[-1]["dft_route_ms"] = time_ms(lambda: FL._launch(*args, "dft"))
     return rows
 
 
@@ -303,14 +418,14 @@ def slice_phase(post, spec):
 
     from psfmc_tpu_torch.flagship import prior_draws
     from psfmc_tpu_torch.models import build_posterior
+    from psfmc_tpu_torch.ops.kernels.conv_lnl import conv_route
     from psfmc_tpu_torch.sampler import EnsembleSampler
 
     p0 = prior_draws(spec, NWALKERS, seed=SEED)
     sampler = EnsembleSampler(NWALKERS, spec.num_params, post, seed=SEED)
     counted = counted_kernels()
     torch.cuda.synchronize()
-    for fn in counted:
-        fn.launches = 0
+    reset_counts(counted)
     t0 = time.perf_counter()
     sampler.init_state(p0)
     sampler.run_burn(BURN)
@@ -318,12 +433,12 @@ def slice_phase(post, spec):
     sampler.run_sampling(SAMPLE)
     acc_imgs = sampler.accumulated_images  # synchronizes with the card
     wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counted}
+    launches, by_route = read_counts(counted)
     evals = NWALKERS * (1 + BURN + SAMPLE)
     log(f"slice: {NWALKERS} walkers, burn {BURN} + sampling {SAMPLE} in "
         f"{wall:.3f} s wall, {evals / wall:.1f} posterior evaluations/s "
         f"(including the first-call overheads)")
-    log(f"slice: launches {launches}")
+    log(f"slice: launches {launches}, by route {by_route}")
 
     lnp = sampler.lnprobability
     if lnp.shape != (NWALKERS, SAMPLE) or not np.all(np.isfinite(lnp)):
@@ -342,6 +457,12 @@ def slice_phase(post, spec):
             "fused_lnl": 0}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != expected {want}")
+    route = conv_route(spec.shape)
+    other = "dft" if route == "fft" else "fft"
+    if (by_route[f"batched_conv_lnl:{route}"] != want["batched_conv_lnl"]
+            or by_route[f"batched_conv_lnl:{other}"] != 0):
+        raise AssertionError(f"launches by route {by_route}: every conv_lnl "
+                             f"launch should take the {route} route")
     if not all(np.all(np.isfinite(v)) for v in acc_imgs.values()):
         raise AssertionError("non-finite accumulated images")
     log(f"slice: accumulated images {sorted(acc_imgs)} finite, "
@@ -368,7 +489,24 @@ def slice_phase(post, spec):
         log(f"slice: steady {name} step {ms:.3f} ms "
             f"({NWALKERS / ms * 1e3:.1f} posterior evaluations/s)")
     log(f"slice: peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    launches.update(by_route)
     return launches, sampler
+
+
+def reset_counts(counted):
+    for fn in counted:
+        fn.launches = 0
+        if hasattr(fn, "route_launches"):
+            fn.route_launches.update(fft=0, dft=0)
+
+
+def read_counts(counted):
+    """Launches by wrapper, and by ``<wrapper>:<route>`` for the two
+    likelihood kernels."""
+    counts = {fn.__name__: fn.launches for fn in counted}
+    routes = {f"{fn.__name__}:{r}": n for fn in counted
+              for r, n in getattr(fn, "route_launches", {}).items()}
+    return counts, routes
 
 
 def counted_kernels():
@@ -393,6 +531,7 @@ def driver_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
     from psfmc_tpu_torch.flagship import write_flagship_files
     from psfmc_tpu_torch.io import fits
     from psfmc_tpu_torch.models import as_model, build_posterior
+    from psfmc_tpu_torch.ops.kernels.conv_lnl import conv_route
 
     counted = counted_kernels()
     steps = BURN + SAMPLE
@@ -421,12 +560,11 @@ def driver_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
         fitting.EnsembleSampler.rejuvenate_stuck = counting_rejuvenate
         try:
             torch.cuda.synchronize()
-            for fn in counted:
-                fn.launches = 0
+            reset_counts(counted)
             t0 = time.perf_counter()
             db = fitting.model_galaxy_mcmc(model_file, **kwargs)
             wall = time.perf_counter() - t0
-            launches = {fn.__name__: fn.launches for fn in counted}
+            launches, by_route = read_counts(counted)
         finally:
             fitting.save_database = save_database
             fitting.EnsembleSampler.rejuvenate_stuck = rejuvenate_stuck
@@ -438,7 +576,8 @@ def driver_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
             f"{timings['sampling'] / SAMPLE * 1e3:.3f} ms (sampling, with the "
             f"image accumulation); checkpoint writes and first-call overheads "
             f"included")
-        log(f"driver: launches {launches}; {len(saves)} database writes "
+        log(f"driver: launches {launches}, by route {by_route}; "
+            f"{len(saves)} database writes "
             f"(MCITER {saves}); walkers moved by each rejuvenation {moved}")
         # a rejuvenation between burn segments, a checkpoint between
         # segments of either phase, and the final write
@@ -457,6 +596,13 @@ def driver_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
                 "batched_conv_lnl 0")
         if launches["render_sersics"] == 0:
             raise AssertionError("the render kernel never ran on the driver path")
+        route = conv_route(shape)
+        other = "dft" if route == "fft" else "fft"
+        if (by_route[f"fused_lnl:{route}"] != want
+                or by_route[f"fused_lnl:{other}"] != 0):
+            raise AssertionError(f"launches by route {by_route}: every fused_lnl "
+                                 f"launch should take the {route} route")
+        launches.update(by_route)
 
         db_file = out + "_db.fits"
         db = load_database(db_file)
@@ -591,6 +737,79 @@ def profile_phase(sampler, steps=5):
         log("profile: the profiler recorded no device time")
 
 
+PHASES = ("load or render", "pack", "forward rows", "forward columns",
+          "pointwise step", "inverse columns", "inverse rows", "lnL readout",
+          "final reduction")
+
+
+def phase_clocks_phase(post, spec):
+    """Cycles per phase of block 0 of both FFT-route kernels, on the
+    kernel phase's inputs.  The two sources are built once more here with
+    ``-DPSFMC_FFT_STAMPS`` (``csrc/fft_conv.cuh``) into a temporary
+    directory and called through ctypes; the port never loads that build."""
+    import ctypes
+
+    import torch
+
+    from psfmc_tpu_torch.flagship import prior_draws
+    from psfmc_tpu_torch.ops.kernels import _build
+    from psfmc_tpu_torch.ops.kernels import conv_lnl as CL
+    from psfmc_tpu_torch.ops.kernels import fused_lnl as FL
+
+    thetas = torch.as_tensor(prior_draws(spec, B_HALF, seed=1),
+                             dtype=torch.float32, device=post.device)
+    raws = post.raw_and_ps(thetas)[0].contiguous()
+    scalars = [t.contiguous() for t in (*post.render_inputs(thetas),
+                                        *post.pointsource_inputs(thetas))]
+    consts = post.consts
+    b, h, w = raws.shape
+    out = torch.empty((b,), dtype=torch.float32, device=post.device)
+    ptrs = [getattr(consts, n).data_ptr() for n in CL.FFT_CONST_ARGS]
+    ptrs += [out.data_ptr(), torch.cuda.current_stream().cuda_stream]
+    void, integer = ctypes.c_void_p, ctypes.c_int
+    calls = {
+        "conv_lnl": ("conv_lnl_fft_launch", [void] + [integer] * 3,
+                     [raws.data_ptr(), b, h, w],
+                     CL.batched_conv_lnl(raws, consts)),
+        "fused_lnl": ("fused_lnl_fft_launch", [void] * 4 + [integer] * 5,
+                      [t.data_ptr() for t in scalars]
+                      + [b, scalars[0].shape[1], scalars[2].shape[1], h, w],
+                      FL.fused_lnl(*scalars, consts)),
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        builds = {name: subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-DPSFMC_FFT_STAMPS", "-o",
+             os.path.join(tmp, name + ".so"),
+             os.path.join(_build._CSRC, name + ".cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for name in calls}
+        for name, (symbol, argtypes, args, want) in calls.items():
+            nvcc_log, _ = builds[name].communicate()
+            if builds[name].returncode != 0:
+                raise RuntimeError(f"nvcc failed for the stamped {name}:\n"
+                                   + nvcc_log)
+            lib = ctypes.CDLL(os.path.join(tmp, name + ".so"))
+            launch = getattr(lib, symbol)
+            launch.argtypes = argtypes + [void] * len(ptrs)
+            launch.restype = integer
+            lib.fft_phase_clocks.argtypes = [void]
+            lib.fft_phase_clocks.restype = integer
+            for _ in range(3):  # warm: the last launch is the one read
+                if launch(*args, *ptrs) != 0:
+                    raise RuntimeError(f"the stamped {name} did not launch")
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                raise AssertionError(f"{name}: the stamped build disagrees")
+            stamps = (ctypes.c_longlong * (len(PHASES) + 1))()
+            if lib.fft_phase_clocks(ctypes.addressof(stamps)) != 0:
+                raise RuntimeError(f"{name}: the phase clocks were not read")
+            clocks = [stamps[i + 1] - stamps[i] for i in range(len(PHASES))]
+            total = sum(clocks)
+            log(f"phases: {name} FFT route, block 0, {total} SM cycles: "
+                + ", ".join(f"{k} {v} ({v / total:.3f})"
+                            for k, v in zip(PHASES, clocks)))
+
+
 def main():
     import torch
 
@@ -611,6 +830,9 @@ def main():
     log(identity)  # name, power limit: exactly as nvidia-smi prints them
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
+
+    log(f"timing: each timed batch starts behind a spin of {SPIN_CYCLES} "
+        f"cycles, {spin_ms():.3f} ms on this card")
 
     t0 = time.perf_counter()
     _build.build_all()
@@ -636,12 +858,16 @@ def main():
         fused.init_state(last)
         fused.run_burn(3)
         profile_phase(fused)
+        phase_clocks_phase(post, spec)
     # each kernel's launches on its own path: the render and conv_lnl on
     # the slice path, the fused kernel on the driver path
+    # (128x128: the FFT route; the matmul-DFT route is off the main path)
     by_name = {"sersic_render": launches["render_sersics"],
                "sersic_render_tiled": launches["render_sersics_tiled"],
-               "conv_lnl": launches["batched_conv_lnl"],
-               "fused_lnl": driver_launches["fused_lnl"]}
+               "conv_lnl": launches["batched_conv_lnl:fft"],
+               "conv_lnl_dft": launches["batched_conv_lnl:dft"],
+               "fused_lnl": driver_launches["fused_lnl:fft"],
+               "fused_lnl_dft": driver_launches["fused_lnl:dft"]}
     for r in rows:
         r["launches"] = by_name[r["name"]]
     for r in rows:

@@ -18,30 +18,43 @@
 //   out = S4r @ ica - S4i @ isa         2 products  (H,W2)@(W2,W)
 // with S1..S4 stored per walker as [real rows; imaginary rows].
 //
-// What bounds it on the H100: arithmetic.  At 128x128 (W2 = 65) the
-// products are 2 convolutions x 12 x 2*128*128*65 ~ 51 MFLOP per walker,
-// ~6.4 GFLOP for a 125-walker half-ensemble, ~0.1 ms at the 67 TFLOP/s
-// fp32 (non-tensor-core) peak, against 8 MB of images read (~2.5 us).
+// What bounds the function on the H100: arithmetic, by the count of real
+// FFTs: about 0.32 GFLOP for a 125-walker half-ensemble at 128x128, ~5 us
+// at the 67 TFLOP/s fp32 (non-tensor-core) peak, against 8 MB of images
+// read (~2.5 us).
 //
-// Design (first version: simple and right): one strided, batched,
-// shared-memory-tiled fp32 FMA GEMM kernel (64x64 output tile, 16-deep
-// k slices, 4x4 outputs per thread, walkers on gridDim.z) runs every
-// product; the squared image of the variance convolution is formed as A
-// is loaded, and the forward and inverse h-direction stages are single
-// products with the 2x2 block real operators.  Intermediates live in
-// global scratch that the caller allocates; a complex-multiply kernel and
-// a per-walker reduction kernel (one block per walker, float64
-// accumulation) finish the job.  No TF32 and no tensor cores: fp32 is the
-// contract (TF32's 10-bit mantissa collapses the sampler's acceptance,
-// as single-pass bf16 did on the TPU).  Not done yet: keeping a walker's
-// intermediates on chip, tensor-core 3xTF32 products, a W2 tile that
-// does not waste half of the last 64-column tile.
+// Two routes, chosen by the wrapper from the shape alone (conv_route in
+// psfmc_tpu_torch/ops/kernels/conv_lnl.py):
+//
+// FFT route (H and W powers of two, the walker fits in a block's shared
+// memory; conv_lnl_fft_launch): ONE launch, one block per walker.  The
+// block loads the walker's image into shared memory and runs fft_conv.cuh
+// on it: both convolutions as one complex FFT pair, then the lnL readout.
+// No global scratch; the only write is the walker's lnL.
+//
+// matmul-DFT route (every other shape; conv_lnl_launch): each convolution
+// as the twelve real half-spectrum products above, 20x the FFT count of
+// operations at 128x128 (W2 = 65: 2 convolutions x 12 x 2*128*128*65 ~ 51
+// MFLOP per walker, ~6.4 GFLOP per half-ensemble, ~0.1 ms at peak for the
+// formulation alone).  One strided, batched, shared-memory-tiled fp32 FMA
+// GEMM kernel (64x64 output tile, 16-deep k slices, 4x4 outputs per
+// thread, walkers on gridDim.z) runs every product; the squared image of
+// the variance convolution is formed as A is loaded, and the forward and
+// inverse h-direction stages are single products with the 2x2 block real
+// operators.  Intermediates live in global scratch that the caller
+// allocates; a complex-multiply kernel and a per-walker reduction kernel
+// (one block per walker, float64 accumulation) finish the job: 15
+// launches.  No TF32 and no tensor cores: fp32 is the contract (TF32's
+// 10-bit mantissa collapses the sampler's acceptance, as single-pass bf16
+// did on the TPU).
 //
 // Numerics: no --use_fast_math and no __logf: logf and the division are
 // IEEE-accurate.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "fft_conv.cuh"
 
 namespace {
 
@@ -253,5 +266,65 @@ extern "C" int conv_lnl_launch(
     return err;
   lnl_kernel<<<batch, kThreads, 0, stream>>>(conv, mvar, obs, obs_var, good,
                                              out, h * w);
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+namespace fc = psfmc::fftconv;
+
+// FFT route: one block per walker, the whole likelihood in one launch.
+__global__ void __launch_bounds__(fc::kThreads, 1)
+conv_lnl_fft_kernel(const float* __restrict__ raws, int h, int w,
+                    const float2* __restrict__ twiddle, int tw_log2,
+                    fc::Spectra k, fc::Data d, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* z = reinterpret_cast<float2*>(smem);
+  float2* tw = z + h * fc::pitch(w);
+  PSFMC_STAMP(0);
+  fc::load_twiddles(tw, twiddle, tw_log2);
+  const float* raw = raws + (size_t)blockIdx.x * h * w;
+  const int ld = fc::pitch(w), wb = fc::log2i(w);
+  float mx = 0.0f;
+#pragma unroll 4
+  for (int p = threadIdx.x; p < h * w; p += fc::kThreads) {
+    const float v = __ldg(raw + p);
+    z[(p >> wb) * ld + (p & (w - 1))].x = v;
+    mx = fmaxf(mx, fabsf(v));
+  }
+  PSFMC_STAMP(1);
+  fc::convolve_and_reduce(z, h, w, tw, tw_log2, mx, k, d, out + blockIdx.x);
+}
+
+}  // namespace
+
+// C interface of the FFT route.  h and w are powers of two; twiddle is
+// the (max(h, w) / 2, 2) float32 table of exp(-2 pi i k / max(h, w)),
+// var_gain one float, the power of two applied to the variance spectrum.
+// Launches on `stream` and returns the first nonzero cudaError of the
+// attribute call or the launch, or 0.
+extern "C" int conv_lnl_fft_launch(
+    const float* raws, int batch, int h, int w, const float* twiddle,
+    const float* var_gain, const float* psf_r, const float* psf_i,
+    const float* var_r, const float* var_i,
+    const float* obs, const float* obs_var, const float* good,
+    float* out, void* stream) {
+  if (batch <= 0) return 0;
+  if (!fc::power_of_two(h) || !fc::power_of_two(w))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = fc::image_bytes(h, w);
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_lnl_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it, so that no later launch reports it
+    return (int)err;
+  }
+  int tw_log2 = 0;
+  while ((1 << tw_log2) < (h > w ? h : w)) ++tw_log2;
+  conv_lnl_fft_kernel<<<batch, fc::kThreads, smem, (cudaStream_t)stream>>>(
+      raws, h, w, reinterpret_cast<const float2*>(twiddle), tw_log2,
+      fc::Spectra{psf_r, psf_i, var_r, var_i, var_gain}, fc::Data{obs, obs_var, good},
+      out);
   return (int)cudaGetLastError();
 }

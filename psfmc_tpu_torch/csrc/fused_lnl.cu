@@ -21,18 +21,31 @@
 //   S4 = [[ich, -ish], [ish, ich]] @ S3        (2H,2H) @ (2H,W2)
 //   out = S4r @ ica - S4i @ isa                (H,W2) @ (W2,W), twice
 //
-// What bounds it on the H100: arithmetic.  At 128x128 (W2 = 65) the
-// products are 2 convolutions x 2 x (2*128*128*65 + 2*256*256*65 +
-// 2*128*65*128) ~ 51 MFLOP per walker, ~6.4 GFLOP for a 125-walker
-// half-ensemble: ~0.1 ms at the 67 TFLOP/s fp32 (non-tensor-core) peak.
-// The bytes are the walker's scalars in and one float out, plus the
-// shared operators (~0.8 MB, resident in the 50 MB L2).
+// What bounds the function on the H100: arithmetic, by the count of real
+// FFTs plus the render: about 0.45 GFLOP for a 125-walker half-ensemble
+// at 128x128, ~7 us at the 67 TFLOP/s fp32 (non-tensor-core) peak.  The
+// bytes are the walker's scalars in and one float out, plus the shared
+// spectra and data (~0.4 MB, resident in the 50 MB L2).
 //
-// Design (first version: simple and right).  One block of 512 threads
-// per walker; 125 walkers fill 125 of the 132 SMs in one wave.  The
-// walker's whole working set stays in dynamic shared memory: three
-// buffers X, Y, Z of (2, H, W2) floats (66,560 B each at 128x128, 199,680
-// B in all, under the 227 KB a block may have), used in this order:
+// Two routes, chosen by the wrapper from the shape alone (conv_route in
+// psfmc_tpu_torch/ops/kernels/conv_lnl.py), each one block of 512 threads
+// per walker, 125 walkers on 125 of the 132 SMs in one wave, the only
+// write to global memory the walker's lnL:
+//
+// FFT route (H and W powers of two, the walker fits in a block;
+// fused_lnl_fft_launch): the render goes into the real parts of one
+// float2 image in shared memory, and fft_conv.cuh does the rest: both
+// convolutions as one complex FFT pair, then the lnL readout.
+//
+// matmul-DFT route (every other shape; fused_lnl_launch): the products
+// above, 2 convolutions x 2 x (2*128*128*65 + 2*256*256*65 + 2*128*65*128)
+// ~ 51 MFLOP per walker at 128x128 (W2 = 65), 20x the FFT count: ~0.1 ms
+// at peak for the formulation alone.
+//
+// Design of the matmul-DFT route.  The walker's whole working set stays
+// in dynamic shared memory: three buffers X, Y, Z of (2, H, W2) floats
+// (66,560 B each at 128x128, 199,680 B in all, under the 227 KB a block
+// may have), used in this order:
 //   render raw -> X;
 //   variance convolution X^2 -> Y -> Z -> Y, ending with mvar in Z;
 //   PSF convolution X -> Y -> X -> Y (raw is dead after its first product);
@@ -57,6 +70,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "fft_conv.cuh"
 #include "sersic_profile.cuh"
 
 namespace {
@@ -311,5 +325,102 @@ extern "C" int fused_lnl_launch(
          cw, sw, lf, li, ica, isa, psf_r, psf_i, var_r, var_i,
          obs, obs_var, good, out};
   fused_lnl_kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+namespace fc = psfmc::fftconv;
+
+struct FftArgs {
+  const float* packed;  // (B, S, 9)
+  const float* sky;     // (B,)
+  const float* fky;     // (B, P, H)
+  const float* kx;      // (B, P, W)
+  int num_sersic, num_ps, h, w;
+  const float2* twiddle;  // (max(H, W) / 2,)
+  int tw_log2;
+  fc::Spectra k;
+  fc::Data d;
+  float* out;  // (B,)
+};
+
+// FFT route: render into the real parts of the float2 image, then
+// fft_conv.cuh.  The render is the matmul-DFT route's, line for line.
+__global__ void __launch_bounds__(fc::kThreads, 1) fused_lnl_fft_kernel(FftArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_fft[];
+  const int h = a.h, w = a.w, ld = fc::pitch(w);
+  const int s_n = a.num_sersic, p_n = a.num_ps;
+  const int b = blockIdx.x;
+  float2* z = reinterpret_cast<float2*>(smem_fft);
+  float2* tw = z + h * ld;
+  float* rows = reinterpret_cast<float*>(tw + (1 << a.tw_log2) / 2);  // S x 9
+  float* fky = rows + s_n * psfmc::kParamsPerSersic;                  // P x H
+  float* kx = fky + p_n * h;                                          // P x W
+
+  PSFMC_STAMP(0);
+  fc::load_twiddles(tw, a.twiddle, a.tw_log2);
+  const int row_len = s_n * psfmc::kParamsPerSersic;
+  for (int t = threadIdx.x; t < row_len; t += fc::kThreads)
+    rows[t] = a.packed[(size_t)b * row_len + t];
+  for (int t = threadIdx.x; t < p_n * h; t += fc::kThreads)
+    fky[t] = a.fky[(size_t)b * p_n * h + t];
+  for (int t = threadIdx.x; t < p_n * w; t += fc::kThreads)
+    kx[t] = a.kx[(size_t)b * p_n * w + t];
+  const float sky = a.sky[b];
+  __syncthreads();
+
+  float mx = 0.0f;
+  for (int p = threadIdx.x; p < h * w; p += fc::kThreads) {
+    const int yi = p / w, xi = p % w;
+    float acc = psfmc::sky_plus_sersics(sky, rows, s_n, (float)xi, (float)yi);
+    if (p_n > 0) {
+      float ps = 0.0f;
+      for (int q = 0; q < p_n; ++q)
+        ps = __fadd_rn(ps, __fmul_rn(fky[q * h + yi], kx[q * w + xi]));
+      acc = __fadd_rn(acc, ps);
+    }
+    z[yi * ld + xi].x = acc;
+    mx = fmaxf(mx, fabsf(acc));
+  }
+  PSFMC_STAMP(1);
+  fc::convolve_and_reduce(z, h, w, tw, a.tw_log2, mx, a.k, a.d, a.out + b);
+}
+
+}  // namespace
+
+// C interface of the FFT route.  h and w are powers of two; twiddle is
+// the (max(h, w) / 2, 2) float32 table of exp(-2 pi i k / max(h, w)),
+// var_gain one float, the power of two applied to the variance spectrum.
+// Launches on `stream` and returns the first nonzero cudaError of the
+// attribute call or the launch, or 0.
+extern "C" int fused_lnl_fft_launch(
+    const float* packed, const float* sky, const float* fky, const float* kx,
+    int batch, int num_sersic, int num_ps, int h, int w, const float* twiddle,
+    const float* var_gain, const float* psf_r, const float* psf_i,
+    const float* var_r, const float* var_i,
+    const float* obs, const float* obs_var, const float* good,
+    float* out, void* stream) {
+  if (batch <= 0) return 0;
+  if (!fc::power_of_two(h) || !fc::power_of_two(w))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      fc::image_bytes(h, w) +
+      sizeof(float) * ((size_t)num_sersic * psfmc::kParamsPerSersic +
+                       (size_t)num_ps * (h + w));
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_lnl_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it, so that no later launch reports it
+    return (int)err;
+  }
+  int tw_log2 = 0;
+  while ((1 << tw_log2) < (h > w ? h : w)) ++tw_log2;
+  FftArgs a{packed, sky, fky, kx, num_sersic, num_ps, h, w,
+            reinterpret_cast<const float2*>(twiddle), tw_log2,
+            fc::Spectra{psf_r, psf_i, var_r, var_i, var_gain},
+            fc::Data{obs, obs_var, good}, out};
+  fused_lnl_fft_kernel<<<batch, fc::kThreads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -2,7 +2,9 @@
 
 Each module holds a wrapper that launches its kernel on CUDA tensors,
 counts its launches (``<wrapper>.launches``), and a plain PyTorch
-version of the same function that it uses for CPU tensors.  Sources are
+version of the same function that it uses for CPU tensors.  The two
+likelihood kernels have an FFT route and a matmul-DFT route, picked from
+the image's shape alone (:func:`conv_route`).  Sources are
 in ``psfmc_tpu_torch/csrc/`` and are built with ``nvcc`` on first use
 (:mod:`._build`).  The fused kernel's wrapper is reached through its
 module, ``psfmc_tpu_torch.ops.kernels.fused_lnl``, whose name it shares.
@@ -12,6 +14,7 @@ from .conv_lnl import (
     ConvLnlConsts,
     batched_conv_lnl,
     batched_conv_lnl_plain,
+    conv_route,
     make_conv_lnl_consts,
 )
 from .sersic_render import (
@@ -25,6 +28,7 @@ __all__ = [
     "ConvLnlConsts",
     "batched_conv_lnl",
     "batched_conv_lnl_plain",
+    "conv_route",
     "make_conv_lnl_consts",
     "pack_sersic_params",
     "render_sersics",

@@ -8,16 +8,29 @@ map, then reduce the masked Gaussian lnL per walker:
     lnl_b = -1/2 sum_good [(obs - conv_b)^2 ivm_b - log(ivm_b / 2 pi)],
     ivm_b = 1 / (mvar_b + obs_var)
 
-with non-finite results mapped to ``-inf``.  The convolutions are the
-twelve real half-spectrum products of
-:func:`psfmc_tpu_torch.ops.fourier.convolve_rdft`; the CUDA kernel
-(``csrc/conv_lnl.cu``) runs them as fp32 FMA GEMMs of its own.  The
-Pallas kernel's emulated-precision dot modes (bf16x3) existed only
+with non-finite results mapped to ``-inf``.  The CUDA source
+(``csrc/conv_lnl.cu``) has two routes, and the shape alone picks one
+before the launch (:func:`conv_route`):
+
+* ``"fft"``, when ``H`` and ``W`` are powers of two and one walker fits
+  in a block's shared memory (64x64, 128x128, 64x256, ...): one launch,
+  one block per walker, both convolutions as one complex 2-D FFT pair
+  that never leaves shared memory (``csrc/fft_conv.cuh``).
+  :func:`packed_fft_conv_plain` is that scheme in plain PyTorch and
+  :func:`fft_stages_plain` its butterfly schedule, for the tests;
+* ``"dft"``, every other shape: each convolution as the twelve real
+  half-spectrum products of
+  :func:`psfmc_tpu_torch.ops.fourier.convolve_rdft`, run as fp32 FMA
+  GEMMs of the kernel's own through global scratch (15 launches).
+
+Neither route is a fallback for the other: a launch that fails raises.
+The Pallas kernel's emulated-precision dot modes (bf16x3) existed only
 because Mosaic lacks an fp32-accurate product; they are not ported:
 true fp32 is the contract.
 
-On CPU tensors :func:`batched_conv_lnl` returns the plain version; on
-CUDA tensors it launches the kernel or raises.
+On CPU tensors :func:`batched_conv_lnl` returns the plain version
+(:func:`batched_conv_lnl_plain`, the version of record that both routes
+are held to); on CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -37,7 +50,54 @@ __all__ = [
     "make_conv_lnl_consts",
     "batched_conv_lnl",
     "batched_conv_lnl_plain",
+    "conv_route",
+    "fft_smem_bytes",
+    "fft_twiddles",
+    "var_spectrum_gain",
+    "fft_stages_plain",
+    "bit_reversed",
+    "packed_fft_conv_plain",
 ]
+
+# Shared memory a block may use on Hopper.
+BLOCK_SMEM_LIMIT = 232448
+# Static shared memory of the FFT route (csrc/fft_conv.cuh): 16 doubles of
+# the lnL reduction and 16 floats of the max reduction.
+_FFT_STATIC_SMEM = 16 * 8 + 16 * 4
+# |log2| of the squared image's scale is clamped to this (kMaxScaleExp).
+_MAX_SCALE_EXP = 96
+
+
+def _power_of_two(n):
+    return n >= 2 and n & (n - 1) == 0
+
+
+def fft_smem_bytes(shape):
+    """Dynamic shared memory of the FFT route's image: ``H`` rows of
+    ``W + 1`` ``float2`` (the odd pitch keeps the row passes free of
+    bank conflicts) plus the ``max(H, W) / 2`` twiddles."""
+    h, w = shape
+    return 8 * (h * (w + 1) + max(h, w) // 2)
+
+
+def conv_route(shape):
+    """``"fft"`` or ``"dft"``: the route of ``csrc/conv_lnl.cu`` and
+    ``csrc/fused_lnl.cu`` for an ``(H, W)`` image, a pure function of the
+    shape.  ``"fft"`` needs both sizes to be powers of two (>= 2) and the
+    walker's image to fit in one block's shared memory."""
+    h, w = (int(n) for n in shape)
+    fits = fft_smem_bytes((h, w)) + _FFT_STATIC_SMEM <= BLOCK_SMEM_LIMIT
+    return "fft" if _power_of_two(h) and _power_of_two(w) and fits else "dft"
+
+
+def fft_twiddles(n, dtype=np.float32):
+    """``(n / 2, 2)`` table of ``exp(-2 pi i k / n)`` as ``(cos, -sin)``,
+    built in float64 and cast; ``n`` a power of two.  A line of length
+    ``n / 2^j`` reads every ``2^j``-th entry."""
+    if not _power_of_two(n):
+        raise ValueError(f"the twiddle table needs a power of two, got {n}")
+    ang = 2.0 * np.pi * np.arange(n // 2) / n
+    return np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(dtype)
 
 
 @dataclass(frozen=True)
@@ -47,9 +107,12 @@ class ConvLnlConsts:
     The eight :func:`rdft_matrices` operators, the PSF and PSF-variance
     half spectra as real/imaginary planes ``(H, W2)``, the observation,
     its variance and the good-pixel mask ``(H, W)``, plus the two
-    ``(2H, 2H)`` block operators the kernel uses for the h-direction
-    stages: ``lf = [[ch, sh], [-sh, ch]]`` and ``li = [[ich, -ish],
-    [ish, ich]]``.
+    ``(2H, 2H)`` block operators the matmul-DFT route uses for the
+    h-direction stages: ``lf = [[ch, sh], [-sh, ch]]`` and ``li = [[ich,
+    -ish], [ish, ich]]``; and the FFT route's twiddle table
+    (:func:`fft_twiddles` of ``max(H, W)``; empty unless both sizes are
+    powers of two) and its gain on the variance spectrum
+    (:func:`var_spectrum_gain`).
     """
 
     cw: torch.Tensor
@@ -70,6 +133,8 @@ class ConvLnlConsts:
     lf: torch.Tensor
     li: torch.Tensor
     good_f: torch.Tensor  # good as {0, 1} in the working dtype
+    twiddle: torch.Tensor  # (max(H, W) / 2, 2), or (0, 2)
+    var_gain: torch.Tensor  # (1,): a power of two, see var_spectrum_gain
 
     @property
     def mats(self):
@@ -98,12 +163,17 @@ def make_conv_lnl_consts(f_psf, f_var, obs, obs_var, good, device,
     f_psf = np.asarray(f_psf)
     f_var = np.asarray(f_var)
     good = np.asarray(good, bool)
+    if all(_power_of_two(n) for n in shape):
+        twiddle = fft_twiddles(max(shape), np_dtype)
+    else:
+        twiddle = np.zeros((0, 2), np_dtype)
     arrays = dict(
         cw=cw, sw=sw, ch=ch, sh=sh, ich=ich, ish=ish, ica=ica, isa=isa,
         psf_r=f_psf.real, psf_i=f_psf.imag,
         var_r=f_var.real, var_i=f_var.imag,
         obs=obs, obs_var=np.asarray(obs_var), lf=lf, li=li,
-        good_f=good.astype(np_dtype),
+        good_f=good.astype(np_dtype), twiddle=twiddle,
+        var_gain=np.array([var_spectrum_gain(f_psf, f_var)]),
     )
     tensors = {
         k: torch.as_tensor(np.ascontiguousarray(v, np_dtype), device=device)
@@ -122,18 +192,154 @@ def batched_conv_lnl_plain(raws, consts: ConvLnlConsts):
     return gaussian_lnlike(c.obs - conv, ivm, c.good)
 
 
+def var_spectrum_gain(f_psf, f_var):
+    """The power of two nearest ``|Kpsf(0)| / |Kvar(0)|`` (within
+    ``2^±96``; 1 where the ratio is 0 or not finite).
+
+    The FFT route carries both convolutions in one complex image, ``conv
+    + i s g mvar``.  A PSF variance map is many orders of magnitude below
+    the PSF (sums of 4e-5 and 1 on the flagship), and in float32 the
+    smaller part of a complex product or transform is only as exact as
+    the larger part's rounding: the variance spectrum is multiplied by
+    ``g`` (exact) so that both parts have the same scale, and ``mvar`` is
+    divided by it at the readout."""
+    ratio = abs(complex(np.asarray(f_psf)[0, 0])) / max(
+        abs(complex(np.asarray(f_var)[0, 0])), 1e-300)
+    if not np.isfinite(ratio) or ratio <= 0.0:
+        return 1.0
+    exponent = int(np.clip(np.rint(np.log2(ratio)), -_MAX_SCALE_EXP,
+                           _MAX_SCALE_EXP))
+    return float(2.0 ** exponent)
+
+
+def bit_reversed(n):
+    """Indices ``0 .. n-1`` with their ``log2 n`` bits reversed."""
+    bits = n.bit_length() - 1
+    idx = np.arange(n)
+    out = np.zeros(n, np.int64)
+    for b in range(bits):
+        out |= ((idx >> b) & 1) << (bits - 1 - b)
+    return out
+
+
+def _stages_1d(z, tw, inverse):
+    """The radix-2 stages of the last axis (length ``n``, a power of
+    two).  Forward: decimation in frequency, natural order in,
+    bit-reversed out; stage ``s`` pairs elements ``n >> (s + 1)`` apart as
+    ``(a + b, (a - b) w)``.  Inverse: the stages undone in reverse order,
+    ``(a + b conj w, a - b conj w)``, bit-reversed in, natural out,
+    unnormalised."""
+    n = z.shape[-1]
+    m = n.bit_length() - 1
+    scale = 2 * tw.shape[0] // n  # the table serves max(H, W)
+    lead = z.shape[:-1]
+    for s in (range(m - 1, -1, -1) if inverse else range(m)):
+        half = n >> (s + 1)
+        w = tw[(torch.arange(half, device=z.device) << s) * scale]
+        z = z.reshape(*lead, n // (2 * half), 2, half)
+        a, b = z[..., 0, :], z[..., 1, :]
+        if inverse:
+            b = b * w.conj()
+            z = torch.stack([a + b, a - b], dim=-2)
+        else:
+            z = torch.stack([a + b, (a - b) * w], dim=-2)
+        z = z.reshape(*lead, n)
+    return z
+
+
+def fft_stages_plain(z, twiddles, inverse=False):
+    """The FFT route's butterfly schedule on a complex ``(..., H, W)``
+    tensor, stage by stage, from the same twiddle table.
+
+    Forward: rows then columns, decimation in frequency; the result holds
+    bin ``(ky, kx)`` at ``(bit_reversed(H)[ky], bit_reversed(W)[kx])``.
+    ``inverse=True`` takes that layout back: columns then rows,
+    decimation in time, unnormalised (``H W`` times ``ifft2``).  The
+    kernel runs up to four of these stages per trip through shared
+    memory on values held in registers; the arithmetic is the same.
+    """
+    tw = torch.complex(twiddles[:, 0], twiddles[:, 1])
+    if inverse:
+        z = _stages_1d(z.transpose(-1, -2), tw, True).transpose(-1, -2)
+        return _stages_1d(z, tw, True)
+    z = _stages_1d(z, tw, False)
+    return _stages_1d(z.transpose(-1, -2), tw, False).transpose(-1, -2)
+
+
+def _mirrored(z):
+    """``z[(-ky) mod H, (-kx) mod W]`` over the trailing axes."""
+    return torch.roll(torch.flip(z, dims=(-2, -1)), shifts=(1, 1), dims=(-2, -1))
+
+
+def _full_spectrum(k_r, k_i, w):
+    """The ``(H, W)`` spectrum of a real kernel from its half spectrum
+    ``(H, W//2+1)``: ``K(-k) = conj K(k)`` fills the columns above
+    ``W/2``."""
+    half = torch.complex(k_r, k_i)
+    rows_mirrored = torch.roll(torch.flip(half, dims=(-2,)), 1, dims=-2)
+    rest = rows_mirrored.conj()[..., 1:w - w // 2].flip(-1)
+    return torch.cat([half, rest], dim=-1)
+
+
+def packed_fft_conv_plain(raws, consts: ConvLnlConsts):
+    """``(conv, mvar)`` of ``(B, H, W)`` raw images by the FFT route's
+    scheme, in plain PyTorch.
+
+    Pack ``z = raw + i s raw^2`` with the per-walker power-of-two scale
+    ``s = 2^-floor(log2 max|raw|)`` (``1`` where the max is 0 or not
+    finite; NaNs do not count towards the max); one complex ``fft2``;
+    the Hermitian split with the mirrored index, ``A = (Z + conj Z~) /
+    2`` and ``B = (Z - conj Z~) / 2i``; ``Y = A Kpsf + i B (g Kvar)``
+    with the kernels' spectra completed from their half spectra and the
+    gain ``g`` of :func:`var_spectrum_gain`; one ``ifft2``; the ifftshift
+    as a shifted readout; ``mvar`` unscaled by ``1 / (s g)``.
+    ``raw * raw`` is formed before the scale is applied.
+    """
+    c = consts
+    h, w = c.shape
+    peak = torch.nan_to_num(raws.abs(), nan=0.0, posinf=float("inf"))
+    peak = peak.amax(dim=(-2, -1))
+    usable = torch.isfinite(peak) & (peak > 0)
+    exponent = torch.frexp(torch.where(usable, peak, torch.ones_like(peak)))[1] - 1
+    exponent = exponent.clamp(-_MAX_SCALE_EXP, _MAX_SCALE_EXP)
+    one = torch.ones_like(peak)
+    s = torch.ldexp(one, -exponent)[..., None, None]
+    inv_s = torch.ldexp(one, exponent)[..., None, None]
+    z = torch.fft.fft2(torch.complex(raws, (raws * raws) * s))
+    zm = _mirrored(z).conj()
+    a = 0.5 * (z + zm)
+    b = -0.5j * (z - zm)
+    y = a * _full_spectrum(c.psf_r, c.psf_i, w) \
+        + 1j * b * (_full_spectrum(c.var_r, c.var_i, w) * c.var_gain)
+    y = torch.roll(torch.fft.ifft2(y), shifts=(-(h // 2), -(w // 2)),
+                   dims=(-2, -1))
+    return y.real, y.imag * (inv_s / c.var_gain)
+
+
 # conv_lnl_launch(raws, batch, h, w, <these constants>, t1, t2, conv,
 # mvar, out, stream)
-_CONST_ARGS = ("cw", "sw", "lf", "li", "ica", "isa", "psf_r", "psf_i",
-               "var_r", "var_i", "obs", "obs_var", "good_f")
+_DFT_CONST_ARGS = ("cw", "sw", "lf", "li", "ica", "isa", "psf_r", "psf_i",
+                   "var_r", "var_i", "obs", "obs_var", "good_f")
+# conv_lnl_fft_launch(raws, batch, h, w, <these constants>, out, stream)
+FFT_CONST_ARGS = ("twiddle", "var_gain", "psf_r", "psf_i", "var_r", "var_i",
+                  "obs", "obs_var", "good_f")
 
 
 @functools.lru_cache(maxsize=1)
-def _kernel():
+def _dft_kernel():
     return _build.function(
         "conv_lnl", "conv_lnl_launch",
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
-        + [ctypes.c_void_p] * (len(_CONST_ARGS) + 6),
+        + [ctypes.c_void_p] * (len(_DFT_CONST_ARGS) + 6),
+    )
+
+
+@functools.lru_cache(maxsize=1)
+def _fft_kernel():
+    return _build.function(
+        "conv_lnl", "conv_lnl_fft_launch",
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_void_p] * (len(FFT_CONST_ARGS) + 2),
     )
 
 
@@ -149,11 +355,8 @@ def check_launch_consts(consts: ConvLnlConsts, device):
             raise ValueError(f"consts.{f.name} must be contiguous float32")
 
 
-def _launch(raws, consts: ConvLnlConsts):
-    if raws.dtype != torch.float32:
-        raise TypeError(f"the CUDA conv_lnl takes float32, got {raws.dtype}")
-    check_launch_consts(consts, raws.device)
-    raws = raws.contiguous()
+def _launch_dft(raws, consts: ConvLnlConsts):
+    """The matmul-DFT route: 15 launches through global scratch."""
     b, h, w = raws.shape
     w2 = w // 2 + 1
     dev = raws.device
@@ -162,14 +365,40 @@ def _launch(raws, consts: ConvLnlConsts):
     conv = torch.empty((b, h, w), dtype=torch.float32, device=dev)
     mvar = torch.empty_like(conv)
     out = torch.empty((b,), dtype=torch.float32, device=dev)
-    tensors = [getattr(consts, n) for n in _CONST_ARGS] + [t1, t2, conv, mvar, out]
+    tensors = [getattr(consts, n) for n in _DFT_CONST_ARGS] + [t1, t2, conv, mvar, out]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(raws.data_ptr(), b, h, w,
-                        *(t.data_ptr() for t in tensors), stream)
+        err = _dft_kernel()(raws.data_ptr(), b, h, w,
+                            *(t.data_ptr() for t in tensors), stream)
     if err != 0:
         raise RuntimeError(f"conv_lnl launch failed: cudaError {err}")
     return out
+
+
+def _launch_fft(raws, consts: ConvLnlConsts):
+    """The FFT route: one launch, no allocation but the output."""
+    b, h, w = raws.shape
+    out = torch.empty((b,), dtype=torch.float32, device=raws.device)
+    tensors = [getattr(consts, n) for n in FFT_CONST_ARGS] + [out]
+    with torch.cuda.device(raws.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _fft_kernel()(raws.data_ptr(), b, h, w,
+                            *(t.data_ptr() for t in tensors), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"conv_lnl (FFT route) launch failed: cudaError {err} ({h}x{w} "
+            f"walker, {fft_smem_bytes((h, w))} bytes of shared memory)")
+    return out
+
+
+def _launch(raws, consts: ConvLnlConsts, route):
+    if raws.dtype != torch.float32:
+        raise TypeError(f"the CUDA conv_lnl takes float32, got {raws.dtype}")
+    check_launch_consts(consts, raws.device)
+    raws = raws.contiguous()
+    if route == "fft":
+        return _launch_fft(raws, consts)
+    return _launch_dft(raws, consts)
 
 
 def batched_conv_lnl(raws, consts: ConvLnlConsts):
@@ -183,9 +412,12 @@ def batched_conv_lnl(raws, consts: ConvLnlConsts):
         return batched_conv_lnl_plain(raws, consts)
     if raws.device.type != "cuda":
         raise ValueError(f"unsupported device {raws.device}")
-    out = _launch(raws, consts)
+    route = conv_route(consts.shape)
+    out = _launch(raws, consts, route)
     batched_conv_lnl.launches += 1
+    batched_conv_lnl.route_launches[route] += 1
     return out
 
 
 batched_conv_lnl.launches = 0
+batched_conv_lnl.route_launches = {"fft": 0, "dft": 0}

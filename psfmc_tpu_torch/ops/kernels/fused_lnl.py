@@ -6,6 +6,11 @@ render ``raw = sky + sum of Sersics + sum of point sources``, convolve it
 with the PSF and its square with the PSF variance map, and reduce the
 masked Gaussian lnL, all in one kernel (``csrc/fused_lnl.cu``) that keeps
 the walker's images in shared memory and writes one float per walker.
+The source has the two routes of ``csrc/conv_lnl.cu``, picked from the
+shape alone by :func:`~psfmc_tpu_torch.ops.kernels.conv_lnl.conv_route`:
+``"fft"`` (both sizes powers of two; one complex FFT pair in shared
+memory, ``csrc/fft_conv.cuh``) or ``"dft"`` (the matmul-DFT products in
+three shared-memory buffers).
 
 The per-walker scalar preparation stays in torch, as in the JAX wrapper:
 the packed Sersic rows (:func:`~psfmc_tpu_torch.ops.sersic.sersic_scalar_params`),
@@ -30,31 +35,55 @@ import torch
 
 from ..pointsource import pointsource_image
 from . import _build
-from .conv_lnl import ConvLnlConsts, batched_conv_lnl_plain, check_launch_consts
+from .conv_lnl import (
+    _FFT_STATIC_SMEM,
+    BLOCK_SMEM_LIMIT,
+    FFT_CONST_ARGS,
+    ConvLnlConsts,
+    batched_conv_lnl_plain,
+    check_launch_consts,
+    conv_route,
+    fft_smem_bytes,
+)
 from .sersic_render import PARAMS_PER_SERSIC, render_sersics_plain
 
 __all__ = [
     "FUSED_SMEM_LIMIT",
+    "FUSED_FFT_SMEM_LIMIT",
     "fused_lnl",
     "fused_lnl_plain",
     "fused_lnl_smem_bytes",
+    "fused_lnl_fft_smem_bytes",
     "fused_lnl_supported",
 ]
 
-# Shared memory a block may use on Hopper (232,448 bytes), less the
-# kernel's static reduction buffer (16 doubles).
-FUSED_SMEM_LIMIT = 232448 - 16 * 8
+# Shared memory a block may use on Hopper, less the matmul-DFT route's
+# static reduction buffer (16 doubles).
+FUSED_SMEM_LIMIT = BLOCK_SMEM_LIMIT - 16 * 8
+# The same less the FFT route's static reduction buffers.
+FUSED_FFT_SMEM_LIMIT = BLOCK_SMEM_LIMIT - _FFT_STATIC_SMEM
 
 _SHAPE_ATTRS = {"c0", "f1", "f2", "f3", "f4", "b1", "b2", "b3",
                 "rtrunc", "rtrunc_in", "rot_ang"}
 
 
 def fused_lnl_smem_bytes(shape, num_sersic, num_ps):
-    """Dynamic shared memory of one block: three ``(2, H, W//2+1)``
-    float buffers plus the walker's scalars (``csrc/fused_lnl.cu``)."""
+    """Dynamic shared memory of one block on the matmul-DFT route: three
+    ``(2, H, W//2+1)`` float buffers plus the walker's scalars
+    (``csrc/fused_lnl.cu``); a block has :data:`FUSED_SMEM_LIMIT` for
+    them."""
     h, w = shape
     return 4 * (6 * h * (w // 2 + 1) + PARAMS_PER_SERSIC * num_sersic
                 + num_ps * (h + w))
+
+
+def fused_lnl_fft_smem_bytes(shape, num_sersic, num_ps):
+    """Dynamic shared memory of one block on the FFT route: the
+    ``float2`` image and twiddles plus the walker's scalars; a block has
+    :data:`FUSED_FFT_SMEM_LIMIT` for them."""
+    h, w = shape
+    return fft_smem_bytes(shape) + 4 * (PARAMS_PER_SERSIC * num_sersic
+                                        + num_ps * (h + w))
 
 
 def fused_lnl_supported(spec):
@@ -63,8 +92,11 @@ def fused_lnl_supported(spec):
 
     The JAX package's gate (component kinds whitelisted, flat sky,
     elliptical Sersics, one PSF, Gaussian likelihood, no padding, no
-    oversampling), plus the port's own limit: one walker's three image
-    buffers must fit in a block's shared memory (up to about 137x137).
+    oversampling), plus the port's own limit: one walker must fit in a
+    block's shared memory on the route its shape takes (``conv_route``):
+    the three image buffers of the matmul-DFT route (up to about
+    137x137), or the one complex image of the FFT route (128x128,
+    64x256, 2048x8, ...).
     """
     specs = getattr(spec, "comp_specs", ())
     known = {"sky", "pointsource", "sersic", "psfselector"}
@@ -87,11 +119,13 @@ def fused_lnl_supported(spec):
             return False, what
     nser = sum(cs.kind == "sersic" for cs in specs)
     nps = sum(cs.kind == "pointsource" for cs in specs)
-    need = fused_lnl_smem_bytes(tuple(spec.shape), nser, nps)
-    if need > FUSED_SMEM_LIMIT:
+    route = conv_route(spec.shape)
+    need = _ROUTES[route][2](tuple(spec.shape), nser, nps)
+    limit = FUSED_FFT_SMEM_LIMIT if route == "fft" else FUSED_SMEM_LIMIT
+    if need > limit:
         return False, (f"a {spec.shape[0]}x{spec.shape[1]} image: one walker "
-                       f"needs {need} bytes of shared memory, a block has "
-                       f"{FUSED_SMEM_LIMIT}")
+                       f"needs {need} bytes of shared memory on the {route} "
+                       f"route, a block has {limit}")
     return True, ""
 
 
@@ -102,17 +136,23 @@ def fused_lnl_plain(packed, sky, fky, kx, consts: ConvLnlConsts):
 
 
 # fused_lnl_launch(packed, sky, fky, kx, batch, num_sersic, num_ps, h, w,
-# <these constants>, out, stream)
-_CONST_ARGS = ("cw", "sw", "lf", "li", "ica", "isa", "psf_r", "psf_i",
-               "var_r", "var_i", "obs", "obs_var", "good_f")
+# <these constants>, out, stream); fused_lnl_fft_launch takes
+# conv_lnl.FFT_CONST_ARGS in their place
+_DFT_CONST_ARGS = ("cw", "sw", "lf", "li", "ica", "isa", "psf_r", "psf_i",
+                   "var_r", "var_i", "obs", "obs_var", "good_f")
+_ROUTES = {
+    "dft": ("fused_lnl_launch", _DFT_CONST_ARGS, fused_lnl_smem_bytes),
+    "fft": ("fused_lnl_fft_launch", FFT_CONST_ARGS, fused_lnl_fft_smem_bytes),
+}
 
 
-@functools.lru_cache(maxsize=1)
-def _kernel():
+@functools.lru_cache(maxsize=2)
+def _kernel(route):
+    symbol, const_args, _ = _ROUTES[route]
     return _build.function(
-        "fused_lnl", "fused_lnl_launch",
+        "fused_lnl", symbol,
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-        + [ctypes.c_void_p] * (len(_CONST_ARGS) + 2),
+        + [ctypes.c_void_p] * (len(const_args) + 2),
     )
 
 
@@ -133,7 +173,7 @@ def _check(packed, sky, fky, kx, consts):
             raise ValueError("packed, sky, fky and kx must share device and dtype")
 
 
-def _launch(packed, sky, fky, kx, consts: ConvLnlConsts):
+def _launch(packed, sky, fky, kx, consts: ConvLnlConsts, route):
     if packed.dtype != torch.float32:
         raise TypeError(f"the CUDA fused_lnl takes float32, got {packed.dtype}")
     check_launch_consts(consts, packed.device)
@@ -142,16 +182,17 @@ def _launch(packed, sky, fky, kx, consts: ConvLnlConsts):
     h, w = consts.shape
     packed, sky, fky, kx = (t.contiguous() for t in (packed, sky, fky, kx))
     out = torch.empty((b,), dtype=torch.float32, device=packed.device)
-    tensors = [getattr(consts, n) for n in _CONST_ARGS] + [out]
+    _, const_args, smem_bytes = _ROUTES[route]
+    tensors = [getattr(consts, n) for n in const_args] + [out]
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(packed.data_ptr(), sky.data_ptr(), fky.data_ptr(),
-                        kx.data_ptr(), b, s, p, h, w,
-                        *(t.data_ptr() for t in tensors), stream)
+        err = _kernel(route)(
+            packed.data_ptr(), sky.data_ptr(), fky.data_ptr(), kx.data_ptr(),
+            b, s, p, h, w, *(t.data_ptr() for t in tensors), stream)
     if err != 0:  # e.g. a walker too large for a block's shared memory
         raise RuntimeError(
-            f"fused_lnl launch failed: cudaError {err} ({h}x{w} walker, "
-            f"{fused_lnl_smem_bytes((h, w), s, p)} bytes of shared memory)")
+            f"fused_lnl launch failed: cudaError {err} ({h}x{w} walker on the "
+            f"{route} route, {smem_bytes((h, w), s, p)} bytes of shared memory)")
     return out
 
 
@@ -163,9 +204,12 @@ def fused_lnl(packed, sky, fky, kx, consts: ConvLnlConsts):
         return fused_lnl_plain(packed, sky, fky, kx, consts)
     if packed.device.type != "cuda":
         raise ValueError(f"unsupported device {packed.device}")
-    out = _launch(packed, sky, fky, kx, consts)
+    route = conv_route(consts.shape)
+    out = _launch(packed, sky, fky, kx, consts, route)
     fused_lnl.launches += 1
+    fused_lnl.route_launches[route] += 1
     return out
 
 
 fused_lnl.launches = 0
+fused_lnl.route_launches = {"fft": 0, "dft": 0}

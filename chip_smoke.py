@@ -16,9 +16,14 @@ never ``jax`` nor ``psfmc_tpu``, and:
    2 Sersics, 1 point source; 128x128; float32): each kernel against its
    plain PyTorch version on the card, with its tolerance, and its time
    (CUDA events) beside the plain version's and the least time the card
-   could take (for conv_lnl and fused_lnl from the operations of FFT
+   could take (the largest of bytes, fp32 operations and, for the
+   profile's transcendentals, special-function results at the SM clock
+   the run measures; for conv_lnl and fused_lnl the operations of FFT
    convolutions, with the bound of the matmul-DFT formulation beside
-   it); for conv_lnl the ``torch.fft`` formulation as a yardstick, for
+   it); both render wrappers also with 1 and 3 Sersics and at 45x37 (a
+   width that is not a multiple of four), and against a float64 render,
+   from which they may be no further than the float32 plain version; for
+   conv_lnl the ``torch.fft`` formulation as a yardstick, for
    fused_lnl the unfused pair render + conv_lnl.  Both likelihood
    kernels have two routes picked by the shape: at 128x128 the FFT route
    (asserted; the matmul-DFT route is timed beside it on the same
@@ -52,7 +57,9 @@ never ``jax`` nor ``psfmc_tpu``, and:
 ``python3 chip_smoke.py --profile`` adds a torch.profiler breakdown of
 device time by kernel over five retained sampler steps of each path, and
 the SM clock cycles that one block of each FFT-route kernel spends in
-each of its phases (a second build of the two sources with phase stamps).
+each of its phases (a second build of the two sources with phase stamps;
+the first phase of the fused kernel is its render), and the render kernel
+under other launch geometries than the wrapper picks.
 
 Any failure exits nonzero before the result line; so does a host
 without CUDA, or a directory without the port.
@@ -60,6 +67,7 @@ without CUDA, or a directory without the port.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import math
@@ -90,10 +98,18 @@ FUSED_TOL = 2e-5  # relative error of lnl per walker, fused kernel vs plain
 SLICE_RTOL = 1e-4  # kernel-path lnpost (f32, GPU) vs plain path (f64, CPU)
 IMAGE_TYPES = ("raw_model", "convolved_model", "composite_ivm", "residual",
                "point_source_subtracted")
-# profile ops per pixel per Sersic (sersic_render.cu::profile, each
-# expf/logf counted as one op) and per-pixel ops of the lnL reduction
+# One profile evaluation (a pixel of one Sersic; csrc/sersic_profile.cuh::
+# add_sersic, with the row's and the walker's terms counted per pixel as
+# the plain version computes them): 31 fp32 operations,
+# each expf, logf and division counted as one, and 3 results of the
+# special-function units, which run at an eighth of the fp32 lanes' rate:
+# the ex2 inside each of the two expf and the reciprocal inside the
+# division (the accurate logf is a polynomial and needs none).
 RENDER_OPS_PER_PIXEL = 31
-LNL_OPS_PER_PIXEL = 10
+RENDER_SFU_PER_PIXEL = 3
+SFU_RESULTS_PER_CLOCK_PER_SM = 16  # NVIDIA's throughput table, compute capability 9.0
+LNL_OPS_PER_PIXEL = 10  # per-pixel operations of the lnL reduction
+RAGGED_SHAPE, RAGGED_PSF_SHAPE = (45, 37), (16, 16)  # width not a multiple of 4
 CHECKPOINT = 10  # driver segment: mid-phase checkpoints and rejuvenation
 DFT_SHAPE, DFT_PSF_SHAPE = (96, 96), (48, 48)  # a shape on the matmul-DFT route
 
@@ -172,10 +188,31 @@ def compare(got, want):
     return abs_err.max().item(), rel.max().item(), fin.float().mean().item()
 
 
-def bound(nbytes, nops):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / FP32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+@functools.lru_cache(maxsize=1)
+def sfu_results_per_s():
+    """The card's special-function rate at the SM clock this run measures:
+    :func:`spin_ms` times ``SPIN_CYCLES`` clock cycles."""
+    import torch
+
+    clock_hz = SPIN_CYCLES / (spin_ms() * 1e-3)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"timing: SM clock {clock_hz / 1e9:.3f} GHz from the spin, {sms} SMs: "
+        f"{SFU_RESULTS_PER_CLOCK_PER_SM * sms * clock_hz / 1e12:.3f} T "
+        f"special-function results/s")
+    return SFU_RESULTS_PER_CLOCK_PER_SM * sms * clock_hz
+
+
+def bound(nbytes, nops, nsfu=0):
+    """(ms, "bytes" or "operations", which term): the least time the card
+    could take, the largest of the bytes over the memory rate, the fp32
+    operations over the fp32 peak and the special-function results over
+    their rate at the measured clock."""
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "fp32 operations": nops / FP32_FLOP_PER_S * 1e3}
+    if nsfu:
+        terms["special-function results"] = nsfu / sfu_results_per_s() * 1e3
+    term = max(terms, key=terms.get)
+    return terms[term], "bytes" if term == "bytes" else "operations", term
 
 
 def conv_lnl_ops(b, h, w):
@@ -219,29 +256,76 @@ def kernel_phase(post, spec):
     b, s, _ = params.shape
     rows = []
 
-    plain_img = render_sersics_plain(params, sky, (h, w))
-    render_bytes = 4 * (params.numel() + sky.numel() + b * h * w)
-    render_ops = b * h * w * (s * RENDER_OPS_PER_PIXEL + 1)
     tile = pick_tile(b)
-    for name, fn, replaces in (
-        ("sersic_render", lambda: render_sersics(params, sky, (h, w)),
+    wrappers = (
+        ("sersic_render", render_sersics,
          "psfmc_tpu/ops/pallas/sersic_pallas.py:102"),
         ("sersic_render_tiled",
-         lambda: render_sersics_tiled(params, sky, (h, w), tile=tile),
+         lambda p, k, shape: render_sersics_tiled(p, k, shape, tile=tile),
          "psfmc_tpu/ops/pallas/sersic_pallas.py:170"),
-    ):
-        abs_err, rel, frac = compare(fn(), plain_img)
-        log(f"{name}: max rel err {rel:.3e} (tol {RENDER_TOL:g}), "
-            f"max abs err {abs_err:.3e}, finite share {frac:.4f}")
+    )
+
+    def held(name, fn, p, k, shape, what):
+        """One render against the plain version in float32 (tolerance, same
+        non-finite entries) and in float64 (no further from it than the
+        float32 plain version is)."""
+        want = render_sersics_plain(p, k, shape)
+        got = fn(p, k, shape)
+        abs_err, rel, frac = compare(got, want)
+        truth = render_sersics_plain(p.double(), k.double(), shape)
+
+        def truth_err(img):
+            fin = torch.isfinite(truth) & torch.isfinite(img)
+            return ((img.double() - truth)[fin].abs()
+                    / truth[fin].abs().clamp(min=1e-300)).max().item()
+
+        err64, plain_err64 = truth_err(got), truth_err(want)
+        log(f"{name}, {what}: max rel err {rel:.3e} (tol {RENDER_TOL:g}), max "
+            f"abs err {abs_err:.3e}, finite share {frac:.4f}; against the "
+            f"float64 plain version: kernel {err64:.3e}, float32 plain "
+            f"version {plain_err64:.3e}")
         if not rel <= RENDER_TOL:
-            raise AssertionError(f"{name} disagrees with its plain version")
-        bms, by = bound(render_bytes, render_ops)
+            raise AssertionError(f"{name} disagrees with its plain version, {what}")
+        if not err64 <= plain_err64:
+            raise AssertionError(f"{name} is further from the float64 render "
+                                 f"than the float32 plain version, {what}")
+        return abs_err, rel, err64, plain_err64
+
+    # the main path's shape with 1, 2 (the flagship's) and 3 Sersics, and a
+    # width that is not a multiple of four: the scalar stores, a cut last run
+    ragged_spec = build_model_spec(flagship_components(RAGGED_SHAPE,
+                                                       RAGGED_PSF_SHAPE))
+    ragged_post = build_posterior(ragged_spec, device=post.device,
+                                  lnpost="batched")
+    ragged = ragged_post.render_inputs(torch.as_tensor(
+        prior_draws(ragged_spec, B_HALF, seed=1), dtype=torch.float32,
+        device=post.device))
+    by_count = {}
+    for shape, (p2, k) in (((h, w), (params, sky)), (RAGGED_SHAPE, ragged)):
+        p2 = p2.contiguous()
+        for p in (p2[:, :1].contiguous(), p2, torch.cat([p2, p2[:, :1]], 1)):
+            for name, fn, _ in wrappers:
+                by_count[name, shape, p.shape[1]] = held(
+                    name, fn, p, k.contiguous(), shape,
+                    f"{shape[0]}x{shape[1]}, {p.shape[1]} Sersics") + (
+                    time_ms(lambda: fn(p, k, shape)),)
+
+    render_bytes = 4 * (params.numel() + sky.numel() + b * h * w)
+    render_ops = b * h * w * (s * RENDER_OPS_PER_PIXEL + 1)
+    render_sfu = b * h * w * s * RENDER_SFU_PER_PIXEL
+    for name, fn, replaces in wrappers:
+        abs_err, rel, err64, plain_err64, ms = by_count[name, (h, w), s]
+        bms, by, term = bound(render_bytes, render_ops, render_sfu)
         rows.append(dict(
             name=name, route="cuda", source=_build.source_path("sersic_render"),
             replaces=replaces, launches=0, max_abs_err=abs_err,
-            max_rel_err=rel, ms=time_ms(fn),
+            max_rel_err=rel, ms=ms,
             plain_ms=time_ms(lambda: render_sersics_plain(params, sky, (h, w))),
-            bound_ms=bms, bound_by=by, library_ms=None,
+            bound_ms=bms, bound_by=by, bound_term=term, library_ms=None,
+            f64_rel_err=err64, plain_f64_rel_err=plain_err64,
+            ms_by_sersics={str(n): by_count[name, (h, w), n][4]
+                           for n in (1, 2, 3)},
+            ragged_ms=by_count[name, RAGGED_SHAPE, s][4],
         ))
 
     rows += likelihood_rows(post, spec, thetas, "", "fft")
@@ -252,7 +336,8 @@ def kernel_phase(post, spec):
     rows += likelihood_rows(dft_post, dft_spec, dft_thetas, "_dft", "dft")
     for r in rows:
         log(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
-            f"bound {r['bound_ms']:.5f} ms by {r['bound_by']}, "
+            f"bound {r['bound_ms']:.5f} ms by {r['bound_by']} "
+            f"({r['bound_term']}), "
             f"{r['ms'] / r['bound_ms']:.1f}x the bound; matmul-DFT "
             f"formulation's bound {r.get('dft_bound_ms')}, "
             f"library {r['library_ms']}, unfused {r.get('unfused_ms')}, "
@@ -341,14 +426,15 @@ def likelihood_rows(post, spec, thetas, suffix, route):
     data_bytes = 4 * sum(t.numel() for t in (
         consts.psf_r, consts.psf_i, consts.var_r, consts.var_i, consts.obs,
         consts.obs_var, consts.good_f))
-    bms, by = bound(4 * raws.numel() + data_bytes + 4 * b, conv_ops)
+    bms, by, term = bound(4 * raws.numel() + data_bytes + 4 * b, conv_ops)
     rows.append(dict(
         name=name, route="cuda", source=_build.source_path("conv_lnl"),
         replaces="psfmc_tpu/ops/pallas/lnpost_batched.py:191", launches=0,
         max_abs_err=abs_err, max_rel_err=rel,
         ms=time_ms(lambda: batched_conv_lnl(raws, consts)),
         plain_ms=time_ms(lambda: batched_conv_lnl_plain(raws, consts)),
-        bound_ms=bms, bound_by=by, library_ms=time_ms(library),
+        bound_ms=bms, bound_by=by, bound_term=term,
+        library_ms=time_ms(library),
         dft_bound_ms=bound(0, dft_matmul_ops(b, h, w))[0],
         conv_route=route, f64_rel_err=truth_err(got),
         plain_f64_rel_err=truth_err(want),
@@ -392,14 +478,16 @@ def likelihood_rows(post, spec, thetas, suffix, route):
     log(f"{name}: unfused render + conv_lnl rel diff to plain {un_rel:.3e}")
     ps_render_ops = b * h * w * (s * RENDER_OPS_PER_PIXEL + 1 + 2 * npt)
     in_bytes = 4 * (params.numel() + sky.numel() + fky.numel() + kx.numel())
-    bms, by = bound(in_bytes + data_bytes + 4 * b, conv_ops + ps_render_ops)
+    bms, by, term = bound(in_bytes + data_bytes + 4 * b,
+                          conv_ops + ps_render_ops,
+                          b * h * w * s * RENDER_SFU_PER_PIXEL)
     rows.append(dict(
         name=name, route="cuda", source=_build.source_path("fused_lnl"),
         replaces="psfmc_tpu/ops/pallas/lnpost_pallas.py:183", launches=0,
         max_abs_err=abs_err, max_rel_err=rel,
         ms=time_ms(lambda: fused_lnl(*args)),
         plain_ms=time_ms(lambda: fused_lnl_plain(*args)),
-        bound_ms=bms, bound_by=by, library_ms=None,
+        bound_ms=bms, bound_by=by, bound_term=term, library_ms=None,
         dft_bound_ms=bound(0, dft_matmul_ops(b, h, w) + ps_render_ops)[0],
         unfused_ms=time_ms(unfused), conv_route=route,
         f64_rel_err=truth_err(got), plain_f64_rel_err=truth_err(want),
@@ -737,6 +825,89 @@ def profile_phase(sampler, steps=5):
         log("profile: the profiler recorded no device time")
 
 
+def render_geometry_phase(post, spec):
+    """The render kernel at the main path's shape under other launch
+    geometries than ``launch_geometry`` picks (blocks that walk several
+    strips, larger blocks, a block's walkers one at a time), and with no
+    Sersic at all: the image's write alone."""
+    import torch
+
+    from psfmc_tpu_torch.flagship import prior_draws
+    from psfmc_tpu_torch.ops.kernels import sersic_render as SR
+
+    thetas = torch.as_tensor(prior_draws(spec, B_HALF, seed=1),
+                             dtype=torch.float32, device=post.device)
+    params, sky = (t.contiguous() for t in post.render_inputs(thetas))
+    shape = spec.shape
+    h = shape[0]
+    tile = SR.pick_tile(B_HALF)
+    for walkers, geometries in (
+            (1, [(32, 4, 1, h // 8), (32, 4, 1, h // 16), (32, 4, 1, h // 32),
+                 (32, 4, 1, 1), (32, 8, 1, h // 8), (32, 2, 1, h // 2)]),
+            (tile, [(32, 4, 1, h // 4), (32, 1, 8, h), (32, 2, 2, h // 2)])):
+        picked = SR.launch_geometry(shape, walkers)
+        want = SR._launch(params, sky, shape, walkers)
+        for g in [picked] + geometries:
+            got = SR._launch(params, sky, shape, walkers, g)
+            if not torch.equal(got.nan_to_num(nan=0.0), want.nan_to_num(nan=0.0)):
+                raise AssertionError(f"render geometry {g} changes the image")
+            ms = time_ms(lambda: SR._launch(params, sky, shape, walkers, g))
+            log(f"render: {walkers} walkers a block, block {g[:3]}, {g[3]} "
+                f"strips a walker block{' (picked)' if g is picked else ''}: "
+                f"{ms:.4f} ms")
+    none = params[:, :0].contiguous()
+    log(f"render: no Sersic (the sky written to {B_HALF} images): "
+        f"{time_ms(lambda: SR.render_sersics(none, sky, shape)):.4f} ms")
+    by_count = {}
+    for n in (1, 2, 3):
+        rows = torch.cat([params, params], 1)[:, :n].contiguous()
+        by_count[n] = time_ms(lambda: SR.render_sersics(rows, sky, shape))
+    slots = ((by_count[3] - by_count[1]) / 2 * 1e-3 * sfu_results_per_s()
+             / SFU_RESULTS_PER_CLOCK_PER_SM * 4 / (B_HALF * shape[0] * shape[1] / 32))
+    log("render: by Sersic count " + ", ".join(
+        f"{n}: {ms:.4f} ms" for n, ms in by_count.items())
+        + f"; one more Sersic costs {slots:.1f} scheduler slots per warp and "
+        f"evaluation (4 schedulers per SM, one instruction a clock each)")
+    render_sass_count(params.shape[1])
+
+
+def render_sass_count(num_sersic):
+    """Instructions per profile evaluation in the render kernel's inner
+    loop, read from the built library with ``cuobjdump -sass``: the loop
+    is the shortest backward branch around an ``ex2``, and every
+    evaluation has two of them (one per ``expf``)."""
+    import re
+
+    from psfmc_tpu_torch.ops.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        log("render: no cuobjdump beside nvcc; instructions not counted")
+        return
+    sass = subprocess.run([tool, "-sass", _build._target("sersic_render")[1]],
+                          capture_output=True, text=True, check=True).stdout
+    for body in sass.split("Function : ")[1:]:
+        if f"sersic_render_kernelILi{num_sersic}E" not in body.split("\n", 1)[0]:
+            continue
+        code = [(int(m.group(1), 16), m.group(2)) for m in re.finditer(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]+);", body)]
+        loops = []
+        for addr, text in code:
+            m = re.search(r"\bBRA\b.*\b0x([0-9a-f]+)", text)
+            if m and int(m.group(1), 16) < addr:
+                inside = [t for a, t in code if int(m.group(1), 16) <= a <= addr]
+                ex2 = sum("MUFU.EX2" in t for t in inside)
+                if ex2:
+                    loops.append((len(inside), ex2, sum("MUFU" in t for t in inside)))
+        n, ex2, mufu = min(loops)
+        log(f"render: the {num_sersic}-Sersic kernel's inner loop is {n} "
+            f"instructions for {ex2 // 2} evaluations ({mufu} of them on the "
+            f"special-function units): {2 * n / ex2:.1f} instructions per "
+            f"evaluation")
+        return
+    raise AssertionError("the render kernel was not found in the SASS listing")
+
+
 PHASES = ("load or render", "pack", "forward rows", "forward columns",
           "pointwise step", "inverse columns", "inverse rows", "lnL readout",
           "final reduction")
@@ -746,7 +917,10 @@ def phase_clocks_phase(post, spec):
     """Cycles per phase of block 0 of both FFT-route kernels, on the
     kernel phase's inputs.  The two sources are built once more here with
     ``-DPSFMC_FFT_STAMPS`` (``csrc/fft_conv.cuh``) into a temporary
-    directory and called through ctypes; the port never loads that build."""
+    directory and called through ctypes; the port never loads that build.
+    The fused kernel's first phase is its render; it is also built with
+    two and four pixels of a row side by side in a thread
+    (``-DPSFMC_FUSED_RUN``), to show what the choice of one costs or saves."""
     import ctypes
 
     import torch
@@ -776,19 +950,26 @@ def phase_clocks_phase(post, spec):
                       + [b, scalars[0].shape[1], scalars[2].shape[1], h, w],
                       FL.fused_lnl(*scalars, consts)),
     }
+    # (label, source, extra flags): the two kernels as the port builds them,
+    # then the fused kernel with more pixels of a row side by side in a
+    # thread than csrc/fused_lnl.cu's kFixedRun
+    variants = [("conv_lnl", "conv_lnl", ()), ("fused_lnl", "fused_lnl", ())]
+    variants += [(f"fused_lnl, {n} pixels a thread", "fused_lnl",
+                  (f"-DPSFMC_FUSED_RUN={n}",)) for n in (2, 4)]
     with tempfile.TemporaryDirectory() as tmp:
-        builds = {name: subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-DPSFMC_FFT_STAMPS", "-o",
-             os.path.join(tmp, name + ".so"),
+        builds = [subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-DPSFMC_FFT_STAMPS", *flags,
+             "-o", os.path.join(tmp, f"{i}.so"),
              os.path.join(_build._CSRC, name + ".cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for name in calls}
-        for name, (symbol, argtypes, args, want) in calls.items():
-            nvcc_log, _ = builds[name].communicate()
-            if builds[name].returncode != 0:
-                raise RuntimeError(f"nvcc failed for the stamped {name}:\n"
+            for i, (_, name, flags) in enumerate(variants)]
+        for i, (label, name, flags) in enumerate(variants):
+            symbol, argtypes, args, want = calls[name]
+            nvcc_log, _ = builds[i].communicate()
+            if builds[i].returncode != 0:
+                raise RuntimeError(f"nvcc failed for the stamped {label}:\n"
                                    + nvcc_log)
-            lib = ctypes.CDLL(os.path.join(tmp, name + ".so"))
+            lib = ctypes.CDLL(os.path.join(tmp, f"{i}.so"))
             launch = getattr(lib, symbol)
             launch.argtypes = argtypes + [void] * len(ptrs)
             launch.restype = integer
@@ -796,16 +977,16 @@ def phase_clocks_phase(post, spec):
             lib.fft_phase_clocks.restype = integer
             for _ in range(3):  # warm: the last launch is the one read
                 if launch(*args, *ptrs) != 0:
-                    raise RuntimeError(f"the stamped {name} did not launch")
+                    raise RuntimeError(f"the stamped {label} did not launch")
             torch.cuda.synchronize()
             if not torch.equal(out, want):
-                raise AssertionError(f"{name}: the stamped build disagrees")
+                raise AssertionError(f"{label}: the stamped build disagrees")
             stamps = (ctypes.c_longlong * (len(PHASES) + 1))()
             if lib.fft_phase_clocks(ctypes.addressof(stamps)) != 0:
-                raise RuntimeError(f"{name}: the phase clocks were not read")
-            clocks = [stamps[i + 1] - stamps[i] for i in range(len(PHASES))]
+                raise RuntimeError(f"{label}: the phase clocks were not read")
+            clocks = [stamps[j + 1] - stamps[j] for j in range(len(PHASES))]
             total = sum(clocks)
-            log(f"phases: {name} FFT route, block 0, {total} SM cycles: "
+            log(f"phases: {label} FFT route, block 0, {total} SM cycles: "
                 + ", ".join(f"{k} {v} ({v / total:.3f})"
                             for k, v in zip(PHASES, clocks)))
 
@@ -833,6 +1014,7 @@ def main():
 
     log(f"timing: each timed batch starts behind a spin of {SPIN_CYCLES} "
         f"cycles, {spin_ms():.3f} ms on this card")
+    sfu_results_per_s()
 
     t0 = time.perf_counter()
     _build.build_all()
@@ -859,6 +1041,7 @@ def main():
         fused.run_burn(3)
         profile_phase(fused)
         phase_clocks_phase(post, spec)
+        render_geometry_phase(post, spec)
     # each kernel's launches on its own path: the render and conv_lnl on
     # the slice path, the fused kernel on the driver path
     # (128x128: the FFT route; the matmul-DFT route is off the main path)

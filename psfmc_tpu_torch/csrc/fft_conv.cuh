@@ -251,9 +251,10 @@ __device__ void pair_step(float2* z, int h, int w, const Spectra& k) {
     pair_bins(z, h, w, ky, wh, ky * w2 + wh, k, gain);
 }
 
-// From the raw image in the real parts of z (each thread having written
-// the pixels it reads back here, with `local_max` the largest |raw| it
-// saw) to the walker's lnL in *out.  tw is the table in shared memory.
+// From the raw image in the real parts of z (written by the block's
+// threads before the call, `local_max` being the largest |raw| this thread
+// wrote; the barrier of the max reduction makes the image visible to all)
+// to the walker's lnL in *out.  tw is the table in shared memory.
 __device__ void convolve_and_reduce(float2* z, int h, int w, const float2* tw,
                                     int tw_log2, float local_max,
                                     const Spectra& k, const Data& d,

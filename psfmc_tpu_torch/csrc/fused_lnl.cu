@@ -37,6 +37,14 @@
 // float2 image in shared memory, and fft_conv.cuh does the rest: both
 // convolutions as one complex FFT pair, then the lnL readout.
 //
+// The render phase of both routes (render_raw) is sersic_profile.cuh's
+// SersicSet, the render kernel's code: the walker's and the row's constant
+// terms are hoisted, the threads lie over the image in two dimensions so
+// that no index is divided per pixel, and the chains of a walker's (one to
+// three) Sersics are unrolled side by side.  With one block of 16 warps on
+// an SM the phase is bound by the schedulers' rate, some 70 instructions
+// per profile evaluation, not by the chain's latency.
+//
 // matmul-DFT route (every other shape; fused_lnl_launch): the products
 // above, 2 convolutions x 2 x (2*128*128*65 + 2*256*256*65 + 2*128*65*128)
 // ~ 51 MFLOP per walker at 128x128 (W2 = 65), 20x the FFT count: ~0.1 ms
@@ -225,6 +233,71 @@ __device__ void half_spectrum_conv(const float* x, float* t1, float* t2,
   __syncthreads();
 }
 
+// raw = sky + Sersics (SersicSet: the render kernel's bits) + point
+// sources, the latter summed among themselves first, as the plain version
+// adds its point-source image; each pixel is handed to put(y, x, value).
+// The block's threads lie over the image as `lanes` (a power of two, at
+// most a warp) along x and THREADS / lanes rows, so no index is divided; a
+// thread renders N pixels of a row side by side, `lanes` apart, so that a
+// warp reads kx and writes the image at consecutive addresses.
+template <int S, int N, int THREADS, class Put>
+__device__ __forceinline__ void render_walker(const float* rows, int s_n,
+                                              float sky, const float* fky,
+                                              const float* kx, int p_n, int h,
+                                              int w, Put& put) {
+  const int runs = (w + N - 1) / N;
+  const int lanes_log2 = runs <= 1 ? 0 : min(5, 32 - __clz(runs - 1));
+  const int tx = threadIdx.x & ((1 << lanes_log2) - 1);
+  const int ty = threadIdx.x >> lanes_log2;
+  psfmc::SersicSet<S, false> sersics;
+  sersics.load(rows, s_n);
+  for (int yi = ty; yi < h; yi += THREADS >> lanes_log2) {
+    sersics.set_row((float)yi);
+    for (int x0 = tx; x0 < w; x0 += N << lanes_log2) {
+      float xg[N], acc[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) xg[i] = (float)(x0 + (i << lanes_log2));
+      sersics.render(sky, xg, acc);
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const int xi = x0 + (i << lanes_log2);
+        if (xi >= w) continue;
+        if (p_n > 0) {
+          float ps = 0.0f;
+          for (int q = 0; q < p_n; ++q)
+            ps = __fadd_rn(ps, __fmul_rn(fky[q * h + yi], kx[q * w + xi]));
+          acc[i] = __fadd_rn(acc[i], ps);
+        }
+        put(yi, xi, acc[i]);
+      }
+    }
+  }
+}
+
+// The same with the Sersic count a compile-time constant where it is 1, 2
+// or 3.  Their chains are then unrolled together and a thread takes
+// kFixedRun = 1 pixel at a time: with the four warps a scheduler has here,
+// more pixels side by side were measured slower (chip_smoke.py --profile
+// builds this file with -DPSFMC_FUSED_RUN=2 and =4 as well and prints the
+// phase's cycles for each; eight pixels spill registers).  Any other count
+// walks its Sersics in a loop and takes four pixels at a time.
+#ifndef PSFMC_FUSED_RUN
+#define PSFMC_FUSED_RUN 1
+#endif
+constexpr int kFixedRun = PSFMC_FUSED_RUN;
+
+template <int THREADS, class Put>
+__device__ __forceinline__ void render_raw(const float* rows, int s_n, float sky,
+                                           const float* fky, const float* kx,
+                                           int p_n, int h, int w, Put& put) {
+  switch (s_n) {
+    case 1: render_walker<1, kFixedRun, THREADS>(rows, s_n, sky, fky, kx, p_n, h, w, put); break;
+    case 2: render_walker<2, kFixedRun, THREADS>(rows, s_n, sky, fky, kx, p_n, h, w, put); break;
+    case 3: render_walker<3, kFixedRun, THREADS>(rows, s_n, sky, fky, kx, p_n, h, w, put); break;
+    default: render_walker<0, 4, THREADS>(rows, s_n, sky, fky, kx, p_n, h, w, put); break;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads, 1) fused_lnl_kernel(Args a) {
   extern __shared__ float smem[];
   __shared__ double partial[kWarps];
@@ -248,19 +321,8 @@ __global__ void __launch_bounds__(kThreads, 1) fused_lnl_kernel(Args a) {
   const float sky = a.sky[b];
   __syncthreads();
 
-  // raw = sky + Sersics (render kernel's order) + point sources, summed
-  // among themselves first, as the plain version adds its ps image
-  for (int p = threadIdx.x; p < h * w; p += kThreads) {
-    const int yi = p / w, xi = p % w;
-    float acc = psfmc::sky_plus_sersics(sky, rows, s_n, (float)xi, (float)yi);
-    if (p_n > 0) {
-      float ps = 0.0f;
-      for (int q = 0; q < p_n; ++q)
-        ps = __fadd_rn(ps, __fmul_rn(fky[q * h + yi], kx[q * w + xi]));
-      acc = __fadd_rn(acc, ps);
-    }
-    X[p] = acc;
-  }
+  auto put = [X, w](int yi, int xi, float v) { X[yi * w + xi] = v; };
+  render_raw<kThreads>(rows, s_n, sky, fky, kx, p_n, h, w, put);
   __syncthreads();
 
   // variance convolution: S4 in Y, then mvar = S4r @ ica - S4i @ isa -> Z
@@ -346,7 +408,9 @@ struct FftArgs {
 };
 
 // FFT route: render into the real parts of the float2 image, then
-// fft_conv.cuh.  The render is the matmul-DFT route's, line for line.
+// fft_conv.cuh.  The render is the matmul-DFT route's (render_raw); a
+// warp's 4-byte stores of consecutive real parts land on the 16 even banks,
+// two lanes each, which is the least such stores can do.
 __global__ void __launch_bounds__(fc::kThreads, 1) fused_lnl_fft_kernel(FftArgs a) {
   extern __shared__ __align__(16) unsigned char smem_fft[];
   const int h = a.h, w = a.w, ld = fc::pitch(w);
@@ -371,18 +435,11 @@ __global__ void __launch_bounds__(fc::kThreads, 1) fused_lnl_fft_kernel(FftArgs 
   __syncthreads();
 
   float mx = 0.0f;
-  for (int p = threadIdx.x; p < h * w; p += fc::kThreads) {
-    const int yi = p / w, xi = p % w;
-    float acc = psfmc::sky_plus_sersics(sky, rows, s_n, (float)xi, (float)yi);
-    if (p_n > 0) {
-      float ps = 0.0f;
-      for (int q = 0; q < p_n; ++q)
-        ps = __fadd_rn(ps, __fmul_rn(fky[q * h + yi], kx[q * w + xi]));
-      acc = __fadd_rn(acc, ps);
-    }
-    z[yi * ld + xi].x = acc;
-    mx = fmaxf(mx, fabsf(acc));
-  }
+  auto put = [z, ld, &mx](int yi, int xi, float v) {
+    z[yi * ld + xi].x = v;
+    mx = fmaxf(mx, fabsf(v));
+  };
+  render_raw<fc::kThreads>(rows, s_n, sky, fky, kx, p_n, h, w, put);
   PSFMC_STAMP(1);
   fc::convolve_and_reduce(z, h, w, tw, a.tw_log2, mx, a.k, a.d, a.out + b);
 }

@@ -11,7 +11,9 @@ as a launch parameter.
 * :func:`render_sersics_tiled` — the same with ``tile`` walkers per
   block; a tile that does not divide ``B`` raises ``ValueError`` (the
   Pallas kernel's contract);
-* :func:`render_sersics_plain` — the same function in plain PyTorch.
+* :func:`render_sersics_plain` — the same function in plain PyTorch;
+* :func:`render_sersics_runs_plain` — the same once more, in the order in
+  which the kernel evaluates it (bit-identical; the tests hold that).
 
 On CPU tensors the wrappers return the plain version; on CUDA tensors
 they launch the kernel or raise.  Point sources are not rendered here:
@@ -34,6 +36,8 @@ __all__ = [
     "render_sersics",
     "render_sersics_tiled",
     "render_sersics_plain",
+    "render_sersics_runs_plain",
+    "launch_geometry",
     "pick_tile",
 ]
 
@@ -79,27 +83,104 @@ def _check(params, sky, shape):
         raise ValueError(f"bad image shape {shape}")
 
 
+def render_sersics_runs_plain(params, sky, shape, run=4):
+    """The render in the CUDA kernel's order of evaluation, in plain PyTorch.
+
+    ``csrc/sersic_profile.cuh`` computes what no pixel changes once per
+    walker (``-kappa``, ``kappa * rp``), what no pixel of a row changes
+    once per row (``m01 * dy``, ``m11 * dy``, ``dy * dy``), and then
+    ``run`` pixels of a row at a time, the last run of a row cut short.
+    These are the rounded operations of :func:`render_sersics_plain` on
+    the same operands, so the two agree bit for bit; the tests hold that.
+    """
+    h, w = shape
+    xg = torch.arange(w, dtype=params.dtype, device=params.device)
+    yg = torch.arange(h, dtype=params.dtype, device=params.device)[:, None]
+    out = torch.empty((params.shape[0], h, w), dtype=params.dtype,
+                      device=params.device)
+    per_sersic = []
+    for s in range(params.shape[1]):
+        x, y, m00, m01, m10, m11, kappa, rp, sbeff = (
+            params[:, s, k, None, None] for k in range(PARAMS_PER_SERSIC))
+        dy = yg - y  # (B, H, 1): the row's terms
+        per_sersic.append((x, m00, m10, -kappa, rp, kappa * rp, sbeff,
+                           m01 * dy, m11 * dy, dy * dy))
+    for x0 in range(0, w, run):
+        cols = xg[..., x0:x0 + run]
+        acc = sky[:, None, None].expand(-1, h, cols.shape[-1])
+        for x, m00, m10, neg_kappa, rp, krp, sbeff, m01dy, m11dy, dy2 in per_sersic:
+            dx = cols - x
+            u = m00 * dx + m01dy
+            v = m10 * dx + m11dy
+            sq_r = torch.clamp(u * u + v * v, min=1e-30)
+            p = torch.exp(torch.log(sq_r) * rp)
+            sb = torch.exp(neg_kappa * (p - 1.0))
+            sq_off = torch.clamp(dx * dx + dy2, min=0.125)
+            krp_p = krp * p
+            corr = 1.0 + (krp_p * krp_p) / (3.0 * sq_off)
+            acc = acc + sbeff * sb * corr
+        out[..., x0:x0 + run] = acc
+    return out
+
+
+BLOCK_THREADS = 128  # csrc/sersic_render.cu takes up to 256
+RUN = 4  # pixels of one 128-bit store, csrc/sersic_render.cu's kRun
+MAX_STRIPS = 65535  # a grid's second dimension; a block walks the rest
+
+
+def launch_geometry(shape, walkers_per_block):
+    """``(block_x, block_y, block_z, strips)`` of a render launch.
+
+    A block is ``block_x`` threads along a row (``RUN`` pixels each) by
+    ``block_y`` rows by ``block_z`` of its walkers, powers of two and
+    ``BLOCK_THREADS`` together where the image allows; the image's strips
+    of ``block_y`` rows are dealt over ``strips`` blocks.  Measured at the
+    flagship's shape (``chip_smoke.py --profile``): many short blocks
+    (every strip its own block) beat fewer blocks that walk several
+    strips, and 128 threads beat 256.
+    """
+    h, w = shape
+    block_x = min(32, _pow2_ceil(-(-w // RUN)))
+    lanes = max(BLOCK_THREADS // block_x, 1)  # rows x walkers
+    block_z = min(lanes, _pow2_floor(walkers_per_block))
+    block_y = min(lanes // block_z, _pow2_ceil(h))
+    return block_x, block_y, block_z, min(-(-h // block_y), MAX_STRIPS)
+
+
+def _pow2_floor(n):
+    return 1 << (max(n, 1).bit_length() - 1)
+
+
+def _pow2_ceil(n):
+    return 1 << max(n - 1, 0).bit_length()
+
+
 @functools.lru_cache(maxsize=1)
 def _kernel():
-    # (params, sky, out, batch, num_sersic, h, w, walkers_per_block, stream)
+    # (params, sky, out, batch, num_sersic, h, w, walkers_per_block,
+    #  block_x, block_y, block_z, strips, stream)
     return _build.function(
         "sersic_render", "sersic_render_launch",
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
     )
 
 
-def _launch(params, sky, shape, walkers_per_block):
+def _launch(params, sky, shape, walkers_per_block, geometry=None):
+    """Launch the kernel; ``geometry`` overrides :func:`launch_geometry`
+    (``chip_smoke.py --profile`` times the alternatives with it)."""
     if params.dtype != torch.float32:
         raise TypeError(f"the CUDA render takes float32, got {params.dtype}")
     params = params.contiguous()
     sky = sky.contiguous()
     b, s, _ = params.shape
     h, w = shape
+    if geometry is None:
+        geometry = launch_geometry(shape, walkers_per_block)
     out = torch.empty((b, h, w), dtype=torch.float32, device=params.device)
     with torch.cuda.device(params.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel()(params.data_ptr(), sky.data_ptr(), out.data_ptr(),
-                        b, s, h, w, walkers_per_block, stream)
+                        b, s, h, w, walkers_per_block, *geometry, stream)
     if err != 0:
         raise RuntimeError(f"sersic_render launch failed: cudaError {err}")
     return out

@@ -57,6 +57,123 @@ def test_render_kernel_matches_plain(flagship, tiled):
     assert rel.max().item() <= 5e-6  # float32, same rounded op sequence
 
 
+def _synthetic_rows(seed, batch, count, shape, device):
+    """(B, S, 9) packed rows, (B,) sky: indices 0.5-8, radii 0.5-60 px,
+    walker 1 NaN, walker 2 centred on a pixel (both clamps)."""
+    rng = np.random.RandomState(seed)
+    h, w = shape
+    index = rng.uniform(0.5, 8.0, (batch, count))
+    reff = rng.uniform(0.5, 60.0, (batch, count))
+    reff_b = reff * rng.uniform(0.2, 1.0, (batch, count))
+    angle = rng.uniform(0.0, np.pi, (batch, count))
+    p = np.zeros((batch, count, 9))
+    p[..., 0] = rng.uniform(0, w, (batch, count))
+    p[..., 1] = rng.uniform(0, h, (batch, count))
+    p[..., 2], p[..., 3] = np.cos(angle) / reff, np.sin(angle) / reff
+    p[..., 4], p[..., 5] = -np.sin(angle) / reff_b, np.cos(angle) / reff_b
+    p[..., 6] = 2.0 * index - 1.0 / 3.0
+    p[..., 7] = 0.5 / index
+    p[..., 8] = rng.uniform(0.01, 2.0, (batch, count))
+    if count:
+        p[1] = np.nan
+        p[2, 0, :2] = (3.0, 2.0)
+    sky = rng.uniform(0.0, 0.1, batch)
+    return (torch.as_tensor(p, dtype=torch.float32, device=device),
+            torch.as_tensor(sky, dtype=torch.float32, device=device))
+
+
+def _assert_render_matches_plain(got, params, sky, shape):
+    want = SR.render_sersics_plain(params, sky, shape)
+    assert _same_nonfinite(got, want)
+    fin = torch.isfinite(want)
+    rel = (got[fin] - want[fin]).abs() / want[fin].abs().clamp(min=1e-12)
+    assert rel.max().item() <= 5e-6  # the gate of chip_smoke.py
+    assert torch.equal(got[fin], want[fin])  # the same rounded operations
+    # no further from the float64 render than the float32 plain version
+    truth = SR.render_sersics_plain(params.double(), sky.double(), shape)
+    fin &= torch.isfinite(truth)
+
+    def err(img):
+        return ((img.double() - truth)[fin].abs()
+                / truth[fin].abs().clamp(min=1e-300)).max().item()
+
+    assert err(got) <= err(want)
+
+
+def test_profile_log_and_division_are_the_library_functions(cuda, tmp_path):
+    """``csrc/sersic_profile.cuh`` writes out logf and the division for the
+    operands its clamps leave; they must give the library's bits: the
+    logarithm for every float from 1e-30 up, +inf and every NaN, the
+    quotient of every ``n >= 2**-100`` (below that its remainder is
+    subnormal), and ``1 + n / d`` wherever the quotient is finite (an
+    overflowed one stays non-finite)."""
+    import ctypes
+    import os
+    import subprocess
+
+    from psfmc_tpu_torch.ops.kernels import _build
+
+    lib = str(tmp_path / "sersic_profile_check.so")
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "sersic_profile_check.cu")
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build._CSRC,
+                    "-o", lib, src], check=True, capture_output=True)
+    check = ctypes.CDLL(lib).sersic_profile_check
+    check.argtypes = [ctypes.c_uint, ctypes.c_uint, ctypes.c_ulonglong,
+                      ctypes.c_void_p]
+    check.restype = ctypes.c_int
+    counts = (ctypes.c_ulonglong * 4)()
+    lo = int(np.float32(1e-30).view(np.uint32))
+    assert check(lo, 0x7FFFFFFF, 1 << 32, ctypes.addressof(counts)) == 0
+    assert list(counts) == [0, 0, 0, 0]
+
+
+# 128-bit stores (width a multiple of four), the scalar tail (45x37), a
+# thread walking many runs of a row (8x2048), rows shorter than a warp
+@pytest.mark.parametrize("shape", [(128, 128), (64, 128), (45, 37), (8, 2048),
+                                   (2048, 8)], ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("count", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("tile", [1, 5])
+def test_render_kernel_shapes_and_counts(cuda, shape, count, tile):
+    """1 to 3 Sersics are unrolled in the kernel, any other count loops."""
+    params, sky = _synthetic_rows(41 + count, 10, count, shape, cuda)
+    fn = SR.render_sersics if tile == 1 else SR.render_sersics_tiled
+    kwargs = {} if tile == 1 else {"tile": tile}
+    before = fn.launches
+    got = fn(params, sky, shape, **kwargs)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert count == 0 or torch.isnan(got[1]).all()
+    _assert_render_matches_plain(got, params, sky, shape)
+
+
+@pytest.mark.parametrize("geometry", [(32, 4, 1, 1), (32, 8, 1, 3), (8, 4, 8, 2),
+                                      (1, 1, 1, 1), (5, 3, 2, 7)])
+def test_render_kernel_any_geometry_gives_the_same_image(cuda, geometry):
+    """Blocks that walk several strips, walkers several at a time, and
+    shapes of block that are no power of two: the same bits."""
+    shape = (45, 37)
+    params, sky = _synthetic_rows(47, 7, 2, shape, cuda)
+    want = SR.render_sersics(params, sky, shape)
+    got = SR._launch(params, sky, shape, 3, geometry)
+    torch.cuda.synchronize()
+    assert torch.equal(got.nan_to_num(nan=-1.0), want.nan_to_num(nan=-1.0))
+
+
+def test_render_kernel_refuses_a_block_beyond_its_limit(cuda):
+    params, sky = _synthetic_rows(48, 4, 2, (16, 16), cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        SR._launch(params, sky, (16, 16), 1, (32, 16, 1, 1))  # 512 threads
+
+
+def test_render_tiled_raises_on_the_card_too(cuda):
+    params, sky = _synthetic_rows(49, 6, 1, (8, 8), cuda)
+    before = SR.render_sersics_tiled.launches
+    with pytest.raises(ValueError, match="does not divide"):
+        SR.render_sersics_tiled(params, sky, (8, 8), tile=4)
+    assert SR.render_sersics_tiled.launches == before
+
+
 # (shape, PSF shape, point sources, route): the FFT route where both sizes
 # are powers of two, the matmul-DFT route elsewhere
 LIKELIHOOD_CASES = [

@@ -36,9 +36,10 @@ never ``jax`` nor ``psfmc_tpu``, and:
    flagship model (synthetic 128x128 observation, 64x64 PSF, 18 free
    parameters), 250 walkers drawn from the priors, ``init_state`` ->
    ``run_burn(20)`` -> ``reset`` -> ``run_sampling(20)``; checks
-   finiteness, acceptance, that the kernels carried the path (launch
-   counts), and the kernel-path lnpost against the plain path on the
-   CPU in float64;
+   finiteness, acceptance, that every step was a replay of a captured
+   CUDA graph, that the kernels carried the path (launch counts), and
+   the kernel-path lnpost against the plain path on the CPU in float64;
+   then steady steps, graphed and eager;
 5. driver phase (the model-file path, ``PSFMC_LNPOST=pallas``): the
    flagship written as FITS files, a ds9 mask and a model file, then
    ``model_galaxy_mcmc(model, chains=250, burn=20, iterations=20,
@@ -47,15 +48,25 @@ never ``jax`` nor ``psfmc_tpu``, and:
    acceptance, that the fused kernel carried the likelihood (launch
    counts, with the rejuvenation between burn segments), the
    checkpoints between segments, the fused-path lnpost against the plain
-   path on the CPU in float64, that a second call skips sampling and
-   writes the images again, and that a fit stopped after its first
-   (mid-burn) checkpoint and resumed is bit-identical to the
-   uninterrupted one;
-6. prints the kernel table as one JSON line, then the result line
+   path on the CPU in float64, that every step was a graph replay, that a
+   second call skips sampling and writes the images again, and that a
+   fit stopped after its first (mid-burn) checkpoint and resumed is
+   bit-identical to the uninterrupted one;
+6. graph phase: for each of the moves ``stretch``, ``de`` and ``mixed``,
+   250 walkers on the slice path through 4 burn + 6 retained steps with
+   ``thin=2`` and ``track_moments``, once as graph replays and once
+   eagerly (the sampler's private eager loop, the yardstick): positions,
+   lnprob, chain, accept counts, image accumulators and their count,
+   moments and the generator's state must be bit-identical, and the
+   launch counts equal; then steady graphed and eager steps of the
+   driver's (fused) path;
+7. prints the kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler breakdown of
-device time by kernel over five retained sampler steps of each path, and
+device time by kernel over a segment of ten retained sampler steps of
+each path, graphed and eager, with the device's busy time and idle share
+(against the profiled and the unprofiled wall time), and
 the SM clock cycles that one block of each FFT-route kernel spends in
 each of its phases (a second build of the two sources with phase stamps;
 the first phase of the fused kernel is its render), and the render kernel
@@ -111,6 +122,7 @@ SFU_RESULTS_PER_CLOCK_PER_SM = 16  # NVIDIA's throughput table, compute capabili
 LNL_OPS_PER_PIXEL = 10  # per-pixel operations of the lnL reduction
 RAGGED_SHAPE, RAGGED_PSF_SHAPE = (45, 37), (16, 16)  # width not a multiple of 4
 CHECKPOINT = 10  # driver segment: mid-phase checkpoints and rejuvenation
+GRAPH_BURN, GRAPH_SAMPLE = 4, 6  # graph phase: graphed against eager
 DFT_SHAPE, DFT_PSF_SHAPE = (96, 96), (48, 48)  # a shape on the matmul-DFT route
 
 
@@ -545,6 +557,11 @@ def slice_phase(post, spec):
             "fused_lnl": 0}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != expected {want}")
+    if sampler.device.type == "cuda":  # (the CPU runs no graph)
+        if sampler.graph_replays != steps:
+            raise AssertionError(f"{sampler.graph_replays} of {steps} steps "
+                                 "were graph replays")
+        log(f"slice: every one of the {steps} steps was a CUDA graph replay")
     route = conv_route(spec.shape)
     other = "dft" if route == "fft" else "fft"
     if (by_route[f"batched_conv_lnl:{route}"] != want["batched_conv_lnl"]
@@ -566,19 +583,44 @@ def slice_phase(post, spec):
     if not (np.all(np.isfinite(got)) and rel <= SLICE_RTOL):
         raise AssertionError("kernel-path lnpost disagrees with the f64 plain path")
 
-    # steady state, after the checks (the launch counts are read above)
-    for name, run in (("burn", sampler.run_burn),
-                      ("sampling", sampler.run_sampling)):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run(STEADY)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) / STEADY * 1e3
-        log(f"slice: steady {name} step {ms:.3f} ms "
-            f"({NWALKERS / ms * 1e3:.1f} posterior evaluations/s)")
+    steady_phase(sampler, "slice")  # after the checks (counts are read above)
     log(f"slice: peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     launches.update(by_route)
     return launches, sampler
+
+
+def steady_phase(sampler, label):
+    """Steady steps of ``sampler`` as graph replays and eagerly (the
+    sampler's private eager loop), in turns graphed, eager, eager,
+    graphed, burn and retained (after one untimed round of each, so that
+    every graph is captured and every buffer allocated): host-clock ms
+    per step ending in a synchronize, and the posterior evaluations per
+    second; then the graphed retained step's replays back to back (CUDA
+    events), the card's time per step."""
+    import torch
+
+    from psfmc_tpu_torch.sampler.ensemble import _eager
+
+    out = {}
+    for mode in ("warm-up", "graphed", "eager", "eager", "graphed"):
+        for name, run in (("burn", sampler.run_burn),
+                          ("sampling", sampler.run_sampling)):
+            with _eager(sampler) if mode == "eager" else contextlib.nullcontext():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(STEADY)
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / STEADY * 1e3
+            if mode != "warm-up":
+                out.setdefault((mode, name), []).append(ms)
+    for (mode, name), times in out.items():
+        log(f"{label}: steady {name} step, {mode}: " + ", ".join(
+            f"{ms:.3f} ms ({NWALKERS / ms * 1e3:.1f} posterior evaluations/s)"
+            for ms in times))
+    replay_ms = time_ms(lambda: sampler._step("retain"), reps=5, inner=5)
+    log(f"{label}: retained-step graph replayed back to back: {replay_ms:.3f} ms "
+        f"per step on the card ({NWALKERS / replay_ms * 1e3:.1f} posterior "
+        f"evaluations/s)")
 
 
 def reset_counts(counted):
@@ -625,9 +667,10 @@ def driver_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
     steps = BURN + SAMPLE
     # the driver's checkpoints and the rejuvenations, counted by wrapping
     # the functions it calls (the wrappers change nothing they return)
-    saves, moved = [], []
+    saves, moved, samplers = [], [], []
     save_database = fitting.save_database
     rejuvenate_stuck = fitting.EnsembleSampler.rejuvenate_stuck
+    sampler_init = fitting.EnsembleSampler.__init__
 
     def counting_save(*a, **k):
         saves.append(k.get("meta_dict", {}).get("MCITER"))
@@ -636,6 +679,10 @@ def driver_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
     def counting_rejuvenate(self, *a, **k):
         moved.append(rejuvenate_stuck(self, *a, **k))
         return moved[-1]
+
+    def kept_init(self, *a, **k):
+        sampler_init(self, *a, **k)
+        samplers.append(self)
 
     with tempfile.TemporaryDirectory() as tmp:
         model_file = write_flagship_files(tmp, shape, psf_shape)
@@ -646,6 +693,7 @@ def driver_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
         os.environ["PSFMC_LNPOST"] = "pallas"
         fitting.save_database = counting_save
         fitting.EnsembleSampler.rejuvenate_stuck = counting_rejuvenate
+        fitting.EnsembleSampler.__init__ = kept_init
         try:
             torch.cuda.synchronize()
             reset_counts(counted)
@@ -656,6 +704,7 @@ def driver_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
         finally:
             fitting.save_database = save_database
             fitting.EnsembleSampler.rejuvenate_stuck = rejuvenate_stuck
+            fitting.EnsembleSampler.__init__ = sampler_init
         timings = dict(db.phase_seconds)
         log(f"driver: model_galaxy_mcmc, {NWALKERS} walkers, burn {BURN} + "
             f"sampling {SAMPLE} in segments of {CHECKPOINT}: {wall:.3f} s wall; "
@@ -684,6 +733,12 @@ def driver_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
                 "batched_conv_lnl 0")
         if launches["render_sersics"] == 0:
             raise AssertionError("the render kernel never ran on the driver path")
+        replays = [sm.graph_replays for sm in samplers]
+        if device != "cpu":  # (the CPU runs no graph)
+            if replays != [steps]:
+                raise AssertionError(f"driver: graph replays {replays}, want "
+                                     f"[{steps}]")
+            log(f"driver: every one of the {steps} steps was a CUDA graph replay")
         route = conv_route(shape)
         other = "dft" if route == "fft" else "fft"
         if (by_route[f"fused_lnl:{route}"] != want
@@ -796,13 +851,108 @@ def driver_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
         return launches, mc, last
 
 
-def profile_phase(sampler, steps=5):
-    """Device time by kernel over a few retained steps (torch.profiler)."""
+def graph_phase(post, spec):
+    """The graphed phase against the sampler's private eager loop, for
+    each move, on ``post``'s path at full width: 4 burn + 6 retained
+    steps from one state with ``thin=2`` and ``track_moments``; every
+    buffer, the chain and the generator's state bit-identical, the launch
+    counts equal."""
+    import torch
+
+    from psfmc_tpu_torch.flagship import prior_draws
+    from psfmc_tpu_torch.sampler import EnsembleSampler
+    from psfmc_tpu_torch.sampler.ensemble import MOVES, _eager
+
+    p0 = prior_draws(spec, NWALKERS, seed=SEED + 1)
+    counted = counted_kernels()
+    for moves in MOVES:
+        runs = {}
+        for mode in ("graphed", "eager"):
+            sm = EnsembleSampler(NWALKERS, spec.num_params, post, seed=SEED,
+                                 moves=moves, thin=2, track_moments=True)
+            torch.cuda.synchronize()
+            reset_counts(counted)
+            with _eager(sm) if mode == "eager" else contextlib.nullcontext():
+                sm.init_state(p0)
+                sm.run_burn(GRAPH_BURN)
+                sm.reset()
+                sm.run_sampling(GRAPH_SAMPLE)
+            torch.cuda.synchronize()
+            runs[mode] = sm, read_counts(counted)
+        (g, g_counts), (e, e_counts) = runs["graphed"], runs["eager"]
+        differ = differing_state(g, e)
+        if differ:
+            raise AssertionError(f"graph, moves={moves}: the graphed phase differs "
+                                 f"from the eager loop in {differ}")
+        if g_counts != e_counts:
+            raise AssertionError(f"graph, moves={moves}: launches {g_counts} "
+                                 f"graphed, {e_counts} eager")
+        replays = GRAPH_BURN + GRAPH_SAMPLE if post.device.type == "cuda" else 0
+        if (g.graph_replays, e.graph_replays) != (replays, 0):
+            raise AssertionError(f"graph, moves={moves}: replays "
+                                 f"{g.graph_replays} / {e.graph_replays}")
+        log(f"graph: moves={moves}, {NWALKERS} walkers, {GRAPH_BURN} burn + "
+            f"{GRAPH_SAMPLE} retained steps (thin 2, moments): graph replays "
+            f"and the eager loop bit-identical (positions, lnprob, chain, "
+            f"accept counts, image accumulators and count, moments, generator "
+            f"state); launches {g_counts[0]} both; mean acceptance "
+            f"{float(np.mean(g.acceptance_fraction)):.4f}")
+
+
+def same_bits(x, y):
+    """Equal bit for bit (NaN where the other has NaN)."""
+    import torch
+
+    x, y = torch.as_tensor(x).cpu(), torch.as_tensor(y).cpu()
+    if x.is_floating_point():
+        if not torch.equal(torch.isnan(x), torch.isnan(y)):
+            return False
+        x = torch.where(torch.isnan(x), torch.zeros_like(x), x)
+        y = torch.where(torch.isnan(y), torch.zeros_like(y), y)
+    return x.dtype == y.dtype and torch.equal(x, y)
+
+
+def differing_state(a, b):
+    """What differs between two samplers' states, chains and generators."""
+    sa, sb = a.state, b.state
+    pairs = {"positions": (sa.positions, sb.positions),
+             "log_prob": (sa.log_prob, sb.log_prob),
+             "naccept": (sa.naccept, sb.naccept),
+             "accum_count": (sa.accum_count, sb.accum_count),
+             "generator": (a.generator.get_state(), b.generator.get_state()),
+             "chain": (a.chain, b.chain),
+             "lnprobability": (a.lnprobability, b.lnprobability)}
+    pairs.update({f"accum.{k}": (v, sb.accum[k]) for k, v in sa.accum.items()})
+    pairs.update({f"moments.{k}": (v, sb.moments[k])
+                  for k, v in (sa.moments or {}).items()})
+    return [k for k, (x, y) in pairs.items() if not same_bits(x, y)]
+
+
+def profile_phase(sampler, label, steps=STEADY):
+    """Device time by kernel over a segment of retained steps
+    (torch.profiler), as graph replays and eagerly, with the device's
+    busy time and idle share."""
+    for mode in ("graphed", "eager"):
+        log(f"profile: {label}, {mode}")
+        profile_steps(sampler, steps, eager=mode == "eager")
+
+
+def profile_steps(sampler, steps, eager):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    from psfmc_tpu_torch.sampler.ensemble import _eager
+
+    walls = []
+    for _ in range(2):  # the first captures what the window replays
+        with _eager(sampler) if eager else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sampler.run_sampling(steps)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    with _eager(sampler) if eager else contextlib.nullcontext(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         sampler.run_sampling(steps)
         torch.cuda.synchronize()
@@ -817,7 +967,10 @@ def profile_phase(sampler, steps=5):
         rows.append((dev_us, e.count, e.key))
     busy = sum(r[0] for r in rows) * 1e-6
     log(f"profile: {steps} retained steps, {wall * 1e3:.3f} ms wall, device "
-        f"busy {busy * 1e3:.3f} ms, idle share {1.0 - busy / wall:.3f}")
+        f"busy {busy * 1e3:.3f} ms in {sum(r[1] for r in rows) / steps:.0f} "
+        f"kernels a step, idle share {1.0 - busy / wall:.3f}; the "
+        f"same steps unprofiled just before: {walls[1] * 1e3:.3f} ms wall, "
+        f"idle share {1.0 - busy / walls[1]:.3f}")
     for dev_us, count, key in sorted(rows, reverse=True)[:15]:
         log(f"profile:   {dev_us / steps / 1e3:9.4f} ms/step  {count // steps:4d} "
             f"launches/step  {key[:90]}")
@@ -1029,17 +1182,17 @@ def main():
     rows = kernel_phase(post, spec)
     launches, sampler = slice_phase(post, spec)
     driver_launches, mc, last = driver_phase()
-    if "--profile" in sys.argv[1:]:
-        log("profile: slice path (lnpost='batched')")
-        profile_phase(sampler)
-        log("profile: driver path (lnpost='fused')")
-        from psfmc_tpu_torch.sampler import EnsembleSampler
+    graph_phase(post, spec)
+    from psfmc_tpu_torch.sampler import EnsembleSampler
 
-        fused = EnsembleSampler(NWALKERS, spec.num_params, mc.posterior_fns,
-                                seed=SEED)
-        fused.init_state(last)
-        fused.run_burn(3)
-        profile_phase(fused)
+    fused = EnsembleSampler(NWALKERS, spec.num_params, mc.posterior_fns,
+                            seed=SEED)
+    fused.init_state(last)
+    fused.run_burn(3)
+    steady_phase(fused, "driver path (lnpost='fused')")
+    if "--profile" in sys.argv[1:]:
+        profile_phase(sampler, "slice path (lnpost='batched')")
+        profile_phase(fused, "driver path (lnpost='fused')")
         phase_clocks_phase(post, spec)
         render_geometry_phase(post, spec)
     # each kernel's launches on its own path: the render and conv_lnl on

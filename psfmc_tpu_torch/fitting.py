@@ -20,10 +20,12 @@ Deliberate divergences from the JAX driver:
   re-runs from scratch, like the other guards;
 * the driver runs on CUDA unless ``device="cpu"`` is given.
 
-This slice runs ``sampler="ensemble"`` with ``ntemps=1``,
-``moves="stretch"``, ``init="prior"``, ``criticism=False`` and
-``mesh=None``; every other choice raises ``NotImplementedError`` naming
-the ROADMAP item that brings it.
+This slice runs ``sampler="ensemble"`` with ``ntemps=1``, any
+``moves`` (``"stretch"``, ``"de"`` or ``"mixed"``), ``init="prior"``,
+``criticism=False`` and ``mesh=None``; every other choice raises
+``NotImplementedError`` naming the ROADMAP item that brings it.  On
+CUDA every sampler step is a replay of a captured CUDA graph
+(:class:`~psfmc_tpu_torch.sampler.ensemble.EnsembleSampler`).
 """
 from __future__ import annotations
 
@@ -161,6 +163,8 @@ def model_galaxy_mcmc(
     :param checkpoint_interval: steps between progress lines and
         checkpoints (default: about a tenth of a phase longer than 50
         steps, at least 25; 0 disables segmenting).
+    :param moves: proposal family of the ensemble sampler:
+        ``"stretch"``, ``"de"`` (differential evolution) or ``"mixed"``.
     :param rejuvenate: move stranded walkers onto healthy ones between
         burn segments.
     :param device: the posterior's device, CUDA unless ``"cpu"``.
@@ -169,7 +173,7 @@ def model_galaxy_mcmc(
         phase of this call (init, burn, sampling, images), each ending
         in a device synchronize.
 
-    ``mesh``, ``ntemps``, ``betas``, ``sampler``, ``init``, ``moves``,
+    ``mesh``, ``ntemps``, ``betas``, ``sampler``, ``init``,
     ``max_depth`` and ``criticism`` keep the JAX driver's names; values
     outside this slice raise ``NotImplementedError``.  The likelihood
     path follows ``PSFMC_LNPOST`` (``pallas`` runs the fused kernel), or
@@ -190,8 +194,6 @@ def model_galaxy_mcmc(
                       "10 (other samplers)")
     if init == "map":
         _not_in_slice("init='map'", "10 (optimiser)")
-    if moves != "stretch":
-        _not_in_slice(f"moves={moves!r}", "7 (DE / mixed moves)")
     if criticism:
         _not_in_slice("criticism=True", "13 (criticism and analysis)")
     if mesh is not None:
@@ -211,7 +213,7 @@ def model_galaxy_mcmc(
     if chains % 2:
         chains += 1
     ens = EnsembleSampler(chains, mc_model.num_params, fns, seed=seed,
-                          device=fns.device)
+                          device=fns.device, moves=moves)
     db_name = output_name.format("db") + ".fits"
     common = dict(max_iterations=max_iterations,
                   convergence_check=convergence_check, db_name=db_name,

@@ -296,6 +296,12 @@ class PosteriorFns(nn.Module):
         )
         return lnpost, imgs
 
+    def carry_image_shapes(self) -> Dict[str, tuple]:
+        """Keys and shapes of :meth:`ensemble_carry_means`, without
+        computing it (the sampler allocates its accumulators from them,
+        as the JAX package does from a shape-only trace)."""
+        return {k: self.shape for k in ("raw", "conv", "var", "ps_conv", "raw_m2")}
+
     def ensemble_carry_means(self, thetas) -> Dict[str, torch.Tensor]:
         """Walker-mean carry images, three convolutions per call.
 

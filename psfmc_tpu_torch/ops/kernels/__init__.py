@@ -1,8 +1,10 @@
 """Hand-written CUDA kernels of the port (counterpart of ``ops/pallas/``).
 
-Each module holds a wrapper that launches its kernel on CUDA tensors,
-counts its launches (``<wrapper>.launches``), and a plain PyTorch
-version of the same function that it uses for CPU tensors.  The two
+Each module holds a wrapper that launches its kernel on CUDA tensors and
+counts the launches executed (``<wrapper>.launches``, through
+:mod:`.counts`, which also counts the replays of a captured CUDA graph),
+and a plain PyTorch version of the same function that it uses for CPU
+tensors.  The two
 likelihood kernels have an FFT route and a matmul-DFT route, picked from
 the image's shape alone (:func:`conv_route`).  Sources are
 in ``psfmc_tpu_torch/csrc/`` and are built with ``nvcc`` on first use

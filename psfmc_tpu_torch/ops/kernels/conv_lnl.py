@@ -43,7 +43,7 @@ import torch
 
 from ..fourier import convolve_rdft, rdft_matrices
 from ..likelihood import gaussian_lnlike
-from . import _build
+from . import _build, counts
 
 __all__ = [
     "ConvLnlConsts",
@@ -414,8 +414,7 @@ def batched_conv_lnl(raws, consts: ConvLnlConsts):
         raise ValueError(f"unsupported device {raws.device}")
     route = conv_route(consts.shape)
     out = _launch(raws, consts, route)
-    batched_conv_lnl.launches += 1
-    batched_conv_lnl.route_launches[route] += 1
+    counts.count(batched_conv_lnl, route)
     return out
 
 

@@ -34,7 +34,7 @@ import functools
 import torch
 
 from ..pointsource import pointsource_image
-from . import _build
+from . import _build, counts
 from .conv_lnl import (
     _FFT_STATIC_SMEM,
     BLOCK_SMEM_LIMIT,
@@ -206,8 +206,7 @@ def fused_lnl(packed, sky, fky, kx, consts: ConvLnlConsts):
         raise ValueError(f"unsupported device {packed.device}")
     route = conv_route(consts.shape)
     out = _launch(packed, sky, fky, kx, consts, route)
-    fused_lnl.launches += 1
-    fused_lnl.route_launches[route] += 1
+    counts.count(fused_lnl, route)
     return out
 
 

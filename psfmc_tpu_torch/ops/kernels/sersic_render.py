@@ -28,7 +28,7 @@ import torch
 
 from ..sersic import sersic_profile_core
 from ..coords import coord_grids
-from . import _build
+from . import _build, counts
 
 __all__ = [
     "PARAMS_PER_SERSIC",
@@ -192,7 +192,7 @@ def _dispatch(params, sky, shape, walkers_per_block, counter_owner):
     if params.device.type != "cuda":
         raise ValueError(f"unsupported device {params.device}")
     out = _launch(params, sky, shape, walkers_per_block)
-    counter_owner.launches += 1
+    counts.count(counter_owner)
     return out
 
 

@@ -378,3 +378,143 @@ def test_kernel_posterior_matches_cpu_float64(flagship):
     fin = np.isfinite(want)
     assert np.array_equal(fin, np.isfinite(got)) and fin.sum() >= 8
     np.testing.assert_allclose(got[fin], want[fin], rtol=1e-4)
+
+
+# -- the sampler's phase as CUDA graph replays -------------------------------
+
+COUNTED = (SR.render_sersics, CL.batched_conv_lnl, FL.fused_lnl)
+
+
+def _same_bits(x, y):
+    x, y = torch.as_tensor(x).cpu(), torch.as_tensor(y).cpu()
+    torch.testing.assert_close(x, y, rtol=0.0, atol=0.0, equal_nan=True)
+
+
+def _assert_same_state(a, b, chain_from=0):
+    """Positions, lnprob, accept counts, accumulators and their count,
+    moments, the generator's state and the chain: bit for bit."""
+    sa, sb = a.state, b.state
+    for x, y in ((sa.positions, sb.positions), (sa.log_prob, sb.log_prob),
+                 (sa.naccept, sb.naccept), (sa.accum_count, sb.accum_count),
+                 (a.generator.get_state(), b.generator.get_state()),
+                 (a.chain[:, chain_from:], b.chain),
+                 (a.lnprobability[:, chain_from:], b.lnprobability)):
+        _same_bits(x, y)
+    assert sorted(sa.accum) == sorted(sb.accum) and sa.accum
+    for k in sa.accum:
+        _same_bits(sa.accum[k], sb.accum[k])
+    for k in sa.moments or {}:
+        _same_bits(sa.moments[k], sb.moments[k])
+
+
+def _phase(post, spec, moves, eager, walkers=40):
+    """4 burn + 6 retained steps, thin 2, moments; the launches made."""
+    import contextlib
+
+    from psfmc_tpu_torch.sampler import EnsembleSampler
+    from psfmc_tpu_torch.sampler.ensemble import _eager
+
+    s = EnsembleSampler(walkers, spec.num_params, post, seed=3, moves=moves,
+                        thin=2, track_moments=True)
+    before = [f.launches for f in COUNTED]
+    with _eager(s) if eager else contextlib.nullcontext():
+        s.init_state(prior_draws(spec, walkers, seed=3))
+        s.run_burn(4)
+        s.reset()
+        s.run_sampling(6)
+    torch.cuda.synchronize()
+    return s, [f.launches - n for f, n in zip(COUNTED, before)]
+
+
+@pytest.mark.parametrize("lnpost", ["batched", "fused"])
+@pytest.mark.parametrize("moves", ["stretch", "de", "mixed"])
+def test_graphed_phase_is_bit_identical_to_eager(cuda, lnpost, moves):
+    """Ten steps from one state as graph replays and through the private
+    eager loop; the counters read launches executed: the same for both,
+    and exactly one per kernel launch of the ten steps."""
+    spec = build_model_spec(flagship_components((64, 64), (32, 32)))
+    post = build_posterior(spec, device=cuda, lnpost=lnpost)
+    graphed, g_launches = _phase(post, spec, moves, eager=False)
+    eager, e_launches = _phase(post, spec, moves, eager=True)
+    assert graphed.graph_replays == 10 and eager.graph_replays == 0
+    _assert_same_state(graphed, eager)
+    assert graphed.chain.shape == (40, 3, spec.num_params)
+    assert int(graphed.state.moments["n"]) == 6 * 40
+    # init: one launch; a step: one per half; a retained step: one render
+    # for the image means
+    want = ([1 + 20 + 6, 1 + 20, 0] if lnpost == "batched" else [6, 0, 1 + 20])
+    assert g_launches == e_launches == want
+
+
+def test_graphed_resume_is_bit_identical(flagship):
+    """A checkpoint taken mid-run, restored into a new sampler and into the
+    sampler whose graphs are already captured, replays bit-identically."""
+    from psfmc_tpu_torch.sampler import EnsembleSampler
+
+    spec, post = flagship
+    s = EnsembleSampler(40, spec.num_params, post, seed=4, moves="mixed")
+    s.init_state(prior_draws(spec, 40, seed=4))
+    s.run_burn(3)
+    s.reset()
+    s.run_sampling(4)
+    payload = s.checkpoint_payload()
+    s.run_sampling(4)
+    fresh = EnsembleSampler(40, spec.num_params, post, seed=99, moves="mixed")
+    fresh.restore_state(payload)
+    fresh.run_sampling(4)
+    assert fresh.graph_replays == 4
+    _assert_same_state(s, fresh, chain_from=4)
+    replays = s.graph_replays
+    s.restore_state(payload)  # in place, under the captured graphs
+    s._chain, s._lnprob = s.chain[:, :4], s.lnprobability[:, :4]
+    s.run_sampling(4)
+    assert s.graph_replays == replays + 4
+    _assert_same_state(s, fresh, chain_from=4)
+
+
+def test_a_capture_counts_nothing_and_moves_nothing(flagship):
+    from psfmc_tpu_torch.sampler import EnsembleSampler
+
+    spec, post = flagship
+    s = EnsembleSampler(40, spec.num_params, post, seed=5, moves="de")
+    s.init_state(prior_draws(spec, 40, seed=5))
+    torch.cuda.synchronize()
+    before = [f.launches for f in COUNTED]
+    pos, rng = s.state.positions.clone(), s.generator.get_state()
+    graph = s._capture("burn")
+    torch.cuda.synchronize()
+    assert [f.launches for f in COUNTED] == before
+    assert torch.equal(s.state.positions, pos)
+    assert torch.equal(s.generator.get_state(), rng)
+    assert [f for f, _ in graph.launches] == [SR.render_sersics, CL.batched_conv_lnl] * 2
+    graph.replay()
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(COUNTED, before)] == [2, 2, 0]
+    assert not torch.equal(s.generator.get_state(), rng)
+
+
+def test_a_failing_capture_raises_and_nothing_falls_back(flagship):
+    """A step that copies from the host cannot be captured: the phase
+    raises, and neither the state nor the counts moved."""
+    from psfmc_tpu_torch.sampler import EnsembleSampler
+
+    spec, post = flagship
+
+    class HostCopy:
+        device, dtype = post.device, post.dtype
+
+        def log_posterior_batch(self, thetas):
+            host = torch.as_tensor(np.zeros(1, np.float32), device=self.device)
+            return post.log_posterior_batch(thetas) + host
+
+    s = EnsembleSampler(40, spec.num_params, HostCopy(), seed=6)
+    s.init_state(prior_draws(spec, 40, seed=6))
+    torch.cuda.synchronize()
+    pos = s.state.positions.clone()
+    before = [f.launches for f in COUNTED]
+    with pytest.raises(RuntimeError):
+        s.run_burn(2)
+    torch.cuda.synchronize()
+    assert s.graph_replays == 0 and not s._graphs
+    assert torch.equal(s.state.positions, pos)
+    assert [f.launches for f in COUNTED] == before

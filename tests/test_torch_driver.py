@@ -260,12 +260,21 @@ def test_jax_checkpoint_generator_is_refused(model_dir):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(sampler="nuts"), dict(ntemps=2), dict(init="map"), dict(moves="de"),
+    dict(sampler="nuts"), dict(ntemps=2), dict(init="map"),
     dict(criticism=True), dict(mesh=object()),
 ])
 def test_driver_raises_outside_the_slice(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         model_galaxy_mcmc("no_such_model.py", device="cpu", **kw)
+
+
+def test_driver_writes_a_de_database(model_dir):
+    """``moves="de"`` runs through the driver and writes its database."""
+    db = _run(model_dir, moves="de")
+    assert len(db) == 24 * 6 and db.meta["MCITER"] == 6
+    assert np.all(np.isfinite(db["lnprobability"]))
+    assert 0.0 < db.meta["MCACCEPT"] < 1.0
+    assert tdb.load_checkpoint(str(model_dir / "out_db.fits"))["rng_kind"] == "torch-cpu"
 
 
 def test_joint_model_file_raises(model_dir):
@@ -326,13 +335,14 @@ def test_convergence_check_matches_jax():
         assert check_convergence_autocorr(s, ratio) == jax_converged(fake, ratio)
 
 
-def test_posterior_moments_match_jax():
+@pytest.mark.parametrize("moves", ["stretch", "mixed"])
+def test_posterior_moments_match_jax(moves):
     """The moment-parity criterion of ``tests/test_moment_parity.py``
     (means within 5 Monte Carlo standard errors at tau = 25, stds within
     35%), the port's fused-path sampler against the JAX package's
     ensemble sampler on that file's Sersic + Sky workload, float64, the
-    same starting positions; two independent chains of 32 walkers x
-    (120 burn + 360 retained) steps."""
+    same starting positions and moves; two independent chains of 32
+    walkers x (120 burn + 360 retained) steps."""
     import jax.numpy as jnp
 
     import test_moment_parity as M
@@ -373,10 +383,12 @@ def test_posterior_moments_match_jax():
 
     flats = []
     for sampler in (
-        JaxSampler(32, 8, jax_posterior(spec, dtype=jnp.float64), seed=3),
+        JaxSampler(32, 8, jax_posterior(spec, dtype=jnp.float64), seed=3,
+                   moves=moves),
         EnsembleSampler(32, 8, build_posterior(
             spec_from_numpy(**_numpy_fields(spec)), device="cpu",
-            dtype=torch.float64, lnpost="fused"), seed=3, device="cpu"),
+            dtype=torch.float64, lnpost="fused"), seed=3, device="cpu",
+            moves=moves),
     ):
         sampler.init_state(p0)
         sampler.run_burn(120)

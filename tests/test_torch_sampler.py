@@ -65,8 +65,10 @@ def test_stretch_update_with_injected_draws():
 def test_welford_batch_update_matches_jax():
     rng = np.random.RandomState(32)
     dim = 5
+    # the port keeps n on the device, as the JAX package does
     t_m = {"mean": torch.zeros(dim, dtype=torch.float64),
-           "m2": torch.zeros(dim, dtype=torch.float64), "n": 0}
+           "m2": torch.zeros(dim, dtype=torch.float64),
+           "n": torch.zeros((), dtype=torch.int64)}
     j_m = {"mean": jnp.zeros(dim), "m2": jnp.zeros(dim), "n": jnp.int32(0)}
     batches = [rng.randn(8, dim) * 3 + 10 for _ in range(4)]
     for b in batches:
@@ -78,9 +80,9 @@ def test_welford_batch_update_matches_jax():
     np.testing.assert_allclose(t_m["m2"].numpy(), np.asarray(j_m["m2"]),
                                rtol=1e-12)
     allb = np.concatenate(batches)
-    np.testing.assert_allclose(t_m["m2"].numpy() / (t_m["n"] - 1),
+    np.testing.assert_allclose(t_m["m2"].numpy() / (int(t_m["n"]) - 1),
                                allb.var(axis=0, ddof=1), rtol=1e-12)
-    assert t_m["n"] == int(j_m["n"]) == 32
+    assert int(t_m["n"]) == int(j_m["n"]) == 32
 
 
 def test_merge_image_accumulators_matches_jax():
@@ -89,7 +91,7 @@ def test_merge_image_accumulators_matches_jax():
     t_acc = {k: torch.zeros((4, 5), dtype=torch.float64) for k in keys}
     t_acc["raw_m2"] = torch.zeros((4, 5), dtype=torch.float64)
     j_acc = {k: jnp.zeros((4, 5)) for k in t_acc}
-    t_n, j_n = 0, jnp.int32(0)
+    t_n, j_n = torch.zeros((), dtype=torch.int64), jnp.int32(0)  # on the device
     for _ in range(3):
         means = {k: rng.rand(4, 5) for k in t_acc}
         t_acc, t_n = tens.merge_image_accumulators(
@@ -100,7 +102,7 @@ def test_merge_image_accumulators_matches_jax():
         # float64: rtol 1e-12
         np.testing.assert_allclose(t_acc[k].numpy(), np.asarray(j_acc[k]),
                                    rtol=1e-12, err_msg=k)
-    assert t_n == int(j_n) == 18
+    assert int(t_n) == int(j_n) == 18
 
 
 class _Gaussian2D:
@@ -123,7 +125,7 @@ class _Gaussian2D:
 def test_sampler_recovers_a_correlated_gaussian():
     target = _Gaussian2D()
     rng = np.random.RandomState(34)
-    s = EnsembleSampler(32, 2, target, seed=5, device="cpu")
+    s = EnsembleSampler(32, 2, target, seed=5, device="cpu", track_moments=True)
     s.init_state(rng.randn(32, 2) * 0.1)
     s.run_burn(300)
     s.reset()
@@ -137,7 +139,7 @@ def test_sampler_recovers_a_correlated_gaussian():
     np.testing.assert_allclose(np.cov(flat.T), target.cov, atol=0.15)
     acc = s.acceptance_fraction
     assert acc.shape == (32,) and 0.3 < acc.mean() < 0.9
-    # float64 host moments over every retained step = the chain's
+    # float64 device moments over every retained step = the chain's
     mean, std = s.posterior_moments
     np.testing.assert_allclose(mean, flat.mean(axis=0), rtol=1e-10)
     np.testing.assert_allclose(std, flat.std(axis=0, ddof=1), rtol=1e-10)

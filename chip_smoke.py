@@ -60,12 +60,29 @@ never ``jax`` nor ``psfmc_tpu``, and:
    moments and the generator's state must be bit-identical, and the
    launch counts equal; then steady graphed and eager steps of the
    driver's (fused) path;
-7. prints the kernel table as one JSON line, then the result line
+7. general phase (the JAX package's default likelihood path, ``lnpost=
+   "general"``): the general flagship (two 64x64 PSF stars and a sampled
+   ``PSF_Index``, a sky with ``dx``/``dy``, a ``NoiseScale``) written as
+   FITS files and a model file with a ``psf_files`` list, then
+   ``model_galaxy_mcmc`` with ``PSFMC_LNPOST`` unset (250 walkers, 20 burn
+   + 20 retained steps); checks that the spec took the general path, the
+   chain, acceptance, the ``PSF_Index`` column, that ``PSFIMG`` names the
+   MAP sample's PSF, finite images, every step a graph replay, the render
+   kernel's exact launches (sampling and image writer), and the card's
+   lnpost against the CPU's float64 general path; then graphed against
+   eager bit for bit, once more with a walker stranded between burn
+   segments and moved by ``rejuvenate_stuck``, and the steady steps; then
+   the variants Student-t, Poisson (non-negative counts), ``conv_pad=8``
+   (with the render kernel on the padded grid against its plain
+   version), ``render_oversample=4`` with ``psf_oversample=2``,
+   ``PSFMC_RENDER=pallas_tiled`` and ``PSFMC_KAPPA=newton``, each with a
+   lnpost check and a graphed/eager segment of 2 + 2 steps;
+8. prints the kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler breakdown of
 device time by kernel over a segment of ten retained sampler steps of
-each path, graphed and eager, with the device's busy time and idle share
+each path (slice, driver and general), graphed and eager, with the device's busy time and idle share
 (against the profiled and the unprofiled wall time), and
 the SM clock cycles that one block of each FFT-route kernel spends in
 each of its phases (a second build of the two sources with phase stamps;
@@ -851,52 +868,303 @@ def driver_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
         return launches, mc, last
 
 
-def graph_phase(post, spec):
-    """The graphed phase against the sampler's private eager loop, for
-    each move, on ``post``'s path at full width: 4 burn + 6 retained
-    steps from one state with ``thin=2`` and ``track_moments``; every
-    buffer, the chain and the generator's state bit-identical, the launch
-    counts equal."""
+GENERAL_RTOL = 1e-4  # general-path lnpost (f32, GPU) vs the CPU's f64 general path
+GENERAL_FLOOR = 1e-5  # ... with this share of the batch's largest |lnpost| as a floor
+GENERAL_VARIANT_STEPS = 2  # burn and retained steps of each variant's segment
+# the variants of the general phase: (label, general_components keywords,
+# environment)
+GENERAL_VARIANTS = (
+    ("student", dict(likelihood="student", likelihood_df=4.0), {}),
+    ("poisson", dict(likelihood="poisson", counts=True, noise_scale=False), {}),
+    ("conv_pad=8", dict(conv_pad=8), {}),
+    ("render_oversample=4, psf_oversample=2",
+     dict(render_oversample=4, psf_oversample=2), {}),
+    ("PSFMC_RENDER=pallas_tiled", {}, {"PSFMC_RENDER": "pallas_tiled"}),
+    ("PSFMC_KAPPA=newton", {}, {"PSFMC_KAPPA": "newton"}),
+)
+
+
+def general_lnpost_check(post, spec, thetas, label):
+    """The card's lnpost of ``thetas`` against the CPU's float64 general
+    path: the same non-finite entries, rtol :data:`GENERAL_RTOL` with a
+    floor of :data:`GENERAL_FLOOR` of the batch's largest |lnpost| (a sum
+    of pixel terms of both signs can cancel near 0 for one walker)."""
+    import torch
+
+    from psfmc_tpu_torch.models import build_posterior
+
+    got = post.log_posterior_batch(thetas).double().cpu().numpy()
+    ref = build_posterior(spec, device="cpu", dtype=torch.float64, lnpost="general")
+    want = ref.log_posterior_batch(torch.as_tensor(thetas).cpu().double()).numpy()
+    fin = np.isfinite(want)
+    if not np.array_equal(fin, np.isfinite(got)) or fin.sum() < len(want) // 2:
+        raise AssertionError(f"{label}: the card and the CPU differ in which "
+                             f"walkers are finite ({fin.sum()} finite on the CPU)")
+    diff = np.abs(got[fin] - want[fin])
+    scale = np.maximum(np.abs(want[fin]), GENERAL_FLOOR / GENERAL_RTOL
+                       * np.abs(want[fin]).max())
+    err = float(np.max(diff / scale))
+    log(f"{label}: general lnpost on the card vs CPU float64, {len(want)} walkers "
+        f"({fin.sum()} finite): max rel diff {np.max(diff / np.abs(want[fin])):.3e}, "
+        f"with the floor {err:.3e} (rtol {GENERAL_RTOL:g}, floor "
+        f"{GENERAL_FLOOR:g} of the largest |lnpost|)")
+    if not err <= GENERAL_RTOL:
+        raise AssertionError(f"{label}: general-path lnpost disagrees with the "
+                             "CPU float64 general path")
+
+
+def graphed_against_eager(post, spec, label, burn, sample, moves="stretch",
+                          thin=1, track_moments=False, strand=False):
+    """One segment from one state as graph replays and through the
+    sampler's private eager loop: every buffer, the chain and the
+    generator's state bit-identical, the launch counts equal.  With
+    ``strand``, a walker is stranded between two burn segments (moved
+    outside its prior) and ``rejuvenate_stuck`` must move it back in both
+    runs.  Returns the launches (by wrapper) of one run."""
     import torch
 
     from psfmc_tpu_torch.flagship import prior_draws
     from psfmc_tpu_torch.sampler import EnsembleSampler
-    from psfmc_tpu_torch.sampler.ensemble import MOVES, _eager
+    from psfmc_tpu_torch.sampler.ensemble import _eager
 
     p0 = prior_draws(spec, NWALKERS, seed=SEED + 1)
+    mag = next(s.offset for s in spec.slots if s.name.endswith("_Sersic_mag"))
     counted = counted_kernels()
-    for moves in MOVES:
-        runs = {}
-        for mode in ("graphed", "eager"):
-            sm = EnsembleSampler(NWALKERS, spec.num_params, post, seed=SEED,
-                                 moves=moves, thin=2, track_moments=True)
+    runs = {}
+    for mode in ("graphed", "eager"):
+        sm = EnsembleSampler(NWALKERS, spec.num_params, post, seed=SEED, moves=moves,
+                             thin=thin, track_moments=track_moments)
+        torch.cuda.synchronize()
+        reset_counts(counted)
+        with _eager(sm) if mode == "eager" else contextlib.nullcontext():
+            sm.init_state(p0)
+            sm.run_burn(burn)
+            if strand:
+                pos = sm.state.positions.cpu().numpy()
+                pos[7, mag] = 99.0  # outside its prior: lnp -inf
+                sm._reseat(pos)
+                moved = sm.rejuvenate_stuck(random_state=SEED)
+                if moved != 1 or not bool(torch.isfinite(sm.state.log_prob).all()):
+                    raise AssertionError(f"{label}: rejuvenate_stuck moved {moved} "
+                                         "walkers, want the 1 stranded")
+                sm.run_burn(burn)
+            sm.reset()
+            sm.run_sampling(sample)
+        torch.cuda.synchronize()
+        runs[mode] = sm, read_counts(counted)[0]
+    (g, g_counts), (e, e_counts) = runs["graphed"], runs["eager"]
+    differ = differing_state(g, e)
+    if differ:
+        raise AssertionError(f"{label}: the graphed phase differs from the eager "
+                             f"loop in {differ}")
+    if g_counts != e_counts:
+        raise AssertionError(f"{label}: launches {g_counts} graphed, {e_counts} eager")
+    steps = burn * (2 if strand else 1) + sample
+    replays = steps if post.device.type == "cuda" else 0
+    if (g.graph_replays, e.graph_replays) != (replays, 0):
+        raise AssertionError(f"{label}: replays {g.graph_replays} / {e.graph_replays}")
+    extras = [f"thin {thin}"] + (["moments"] if track_moments else []) + (
+        ["a walker stranded and rejuvenated between burn segments"] if strand else [])
+    log(f"{label}: {NWALKERS} walkers, {steps} steps ({', '.join(extras)}): graph "
+        f"replays and the eager loop bit-identical (positions, lnprob, chain, "
+        f"accept counts, image accumulators and count, moments, generator "
+        f"state); launches {g_counts} both; mean acceptance "
+        f"{float(np.mean(g.acceptance_fraction)):.4f}")
+    return g_counts
+
+
+def general_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
+    """The general likelihood path at full width: the general flagship (two
+    PSF stars and a sampled PSF_Index, a sky gradient, a NoiseScale) as
+    files and a model file with a ``psf_files`` list, through
+    ``model_galaxy_mcmc`` with ``PSFMC_LNPOST`` unset; then graphed against
+    eager (and once with a walker rejuvenated), the steady steps, and the
+    variants at small depth (the arguments shrink it for a rehearsal on
+    the CPU).  Returns the render wrappers' launches of the fit's sampling
+    and of the variants, and the general path's sampler."""
+    import torch
+
+    from psfmc_tpu_torch import fitting
+    from psfmc_tpu_torch.database import filter_lowp_walkers, load_database
+    from psfmc_tpu_torch.flagship import general_components, write_general_files
+    from psfmc_tpu_torch.io import fits
+    from psfmc_tpu_torch.models import build_model_spec, build_posterior
+    from psfmc_tpu_torch.ops.kernels.sersic_render import (
+        render_sersics,
+        render_sersics_plain,
+    )
+    from psfmc_tpu_torch.sampler import EnsembleSampler
+
+    counted = counted_kernels()
+    steps = BURN + SAMPLE
+    moved, samplers, at_images = [], [], []
+    rejuvenate_stuck = fitting.EnsembleSampler.rejuvenate_stuck
+    sampler_init = fitting.EnsembleSampler.__init__
+    save_images = fitting.save_posterior_images
+
+    def counting_rejuvenate(self, *a, **k):
+        moved.append(rejuvenate_stuck(self, *a, **k))
+        return moved[-1]
+
+    def kept_init(self, *a, **k):
+        sampler_init(self, *a, **k)
+        samplers.append(self)
+
+    def counted_images(*a, **k):  # the launches of sampling end here
+        torch.cuda.synchronize()
+        at_images.append(read_counts(counted)[0])
+        return save_images(*a, **k)
+
+    env = {k: os.environ.pop(k) for k in ("PSFMC_LNPOST", "PSFMC_RENDER",
+                                          "PSFMC_KAPPA") if k in os.environ}
+    with tempfile.TemporaryDirectory() as tmp:
+        model_file = write_general_files(tmp, shape, psf_shape)
+        out = os.path.join(tmp, "out")
+        fitting.EnsembleSampler.rejuvenate_stuck = counting_rejuvenate
+        fitting.EnsembleSampler.__init__ = kept_init
+        fitting.save_posterior_images = counted_images
+        try:
             torch.cuda.synchronize()
             reset_counts(counted)
-            with _eager(sm) if mode == "eager" else contextlib.nullcontext():
-                sm.init_state(p0)
-                sm.run_burn(GRAPH_BURN)
-                sm.reset()
-                sm.run_sampling(GRAPH_SAMPLE)
-            torch.cuda.synchronize()
-            runs[mode] = sm, read_counts(counted)
-        (g, g_counts), (e, e_counts) = runs["graphed"], runs["eager"]
-        differ = differing_state(g, e)
-        if differ:
-            raise AssertionError(f"graph, moves={moves}: the graphed phase differs "
-                                 f"from the eager loop in {differ}")
-        if g_counts != e_counts:
-            raise AssertionError(f"graph, moves={moves}: launches {g_counts} "
-                                 f"graphed, {e_counts} eager")
-        replays = GRAPH_BURN + GRAPH_SAMPLE if post.device.type == "cuda" else 0
-        if (g.graph_replays, e.graph_replays) != (replays, 0):
-            raise AssertionError(f"graph, moves={moves}: replays "
-                                 f"{g.graph_replays} / {e.graph_replays}")
-        log(f"graph: moves={moves}, {NWALKERS} walkers, {GRAPH_BURN} burn + "
-            f"{GRAPH_SAMPLE} retained steps (thin 2, moments): graph replays "
-            f"and the eager loop bit-identical (positions, lnprob, chain, "
-            f"accept counts, image accumulators and count, moments, generator "
-            f"state); launches {g_counts[0]} both; mean acceptance "
-            f"{float(np.mean(g.acceptance_fraction)):.4f}")
+            t0 = time.perf_counter()
+            db = fitting.model_galaxy_mcmc(
+                model_file, output_name=out, chains=NWALKERS, burn=BURN,
+                iterations=SAMPLE, seed=SEED, device=device,
+                checkpoint_interval=CHECKPOINT)
+            wall = time.perf_counter() - t0
+            launches = read_counts(counted)[0]
+        finally:
+            fitting.EnsembleSampler.rejuvenate_stuck = rejuvenate_stuck
+            fitting.EnsembleSampler.__init__ = sampler_init
+            fitting.save_posterior_images = save_images
+        (sm,) = samplers
+        mc_post = sm.fns
+        spec = mc_post.spec
+        timings = dict(db.phase_seconds)
+        log(f"general: model_galaxy_mcmc on the general flagship ({spec.num_psfs} "
+            f"PSFs, sky gradient, NoiseScale; {spec.num_params} parameters), "
+            f"{NWALKERS} walkers, burn {BURN} + sampling {SAMPLE} in segments of "
+            f"{CHECKPOINT}: {wall:.3f} s wall; phases " + ", ".join(
+                f"{k} {v:.3f} s" for k, v in timings.items()))
+        if mc_post.lnpost != "general":
+            raise AssertionError(f"the general flagship took lnpost="
+                                 f"{mc_post.lnpost!r} with PSFMC_LNPOST unset")
+        # init: one full-ensemble render; every step: one per half-ensemble;
+        # every retained step: one for the image means; every rejuvenation
+        # that moved walkers: one full-ensemble render
+        sampling = at_images[0]
+        want = {"render_sersics": 1 + 2 * steps + SAMPLE + sum(n > 0 for n in moved),
+                "render_sersics_tiled": 0, "batched_conv_lnl": 0, "fused_lnl": 0}
+        # the image writer: the MAP sample, the MCPPCP draws (one batch
+        # each) and, where the stuck-walker filter dropped rows, the
+        # replayed means in chunks of 2048 rows
+        kept = len(filter_lowp_walkers(db, percentile=10))
+        replay = 0 if kept == NWALKERS * SAMPLE else -(-kept // 2048)
+        images = {k: launches[k] - sampling[k] for k in launches}
+        want_images = dict(want, render_sersics=2 + replay)
+        log(f"general: launches of the sampling {sampling}, of the image writer "
+            f"{images}; walkers moved by each rejuvenation {moved}")
+        if sampling != want or images != want_images:
+            raise AssertionError(f"general launches {sampling} / {images}: want "
+                                 f"{want} / {want_images}")
+        if device != "cpu" and sm.graph_replays != steps:
+            raise AssertionError(f"general: {sm.graph_replays} of {steps} steps "
+                                 "were graph replays")
+        lnp = sm.lnprobability
+        acc = float(np.mean(sm.acceptance_fraction))
+        if lnp.shape != (NWALKERS, SAMPLE) or not np.all(np.isfinite(lnp)) \
+                or not np.all(np.isfinite(sm.chain)):
+            raise AssertionError("general: non-finite or misshapen chain")
+        if not 0.02 < acc < 0.9:
+            raise AssertionError(f"general: mean acceptance {acc} outside (0.02, 0.9)")
+        table = load_database(out + "_db.fits")
+        if "PSF_Index" not in table.colnames or table["PSF_Index"].dtype != np.float64:
+            raise AssertionError(f"general: no float64 PSF_Index column in "
+                                 f"{table.colnames}")
+        best = int(np.argmax(table["lnprobability"]))
+        map_psf = f"psf{int(np.rint(table['PSF_Index'][best]))}.fits"
+        used = np.bincount(np.clip(np.rint(table["PSF_Index"]).astype(int), 0, 1),
+                           minlength=2)
+        for ftype in IMAGE_TYPES:
+            img = fits.getdata(f"{out}_{ftype}.fits")
+            hdr = fits.getheader(f"{out}_{ftype}.fits")
+            if img.shape != tuple(shape) or not np.all(np.isfinite(img)):
+                raise AssertionError(f"general: image {ftype}: {img.shape}")
+            if hdr.get("PSFIMG") != map_psf or "MCCHI2NU" not in hdr:
+                raise AssertionError(f"general: image {ftype} names PSF "
+                                     f"{hdr.get('PSFIMG')}, the MAP sample's is "
+                                     f"{map_psf}")
+        log(f"general: every one of the {steps} steps was a CUDA graph replay; "
+            f"mean acceptance {acc:.4f}; PSF_Index column, samples on PSF 0 / 1: "
+            f"{used.tolist()}; five images finite, PSFIMG {map_psf} (the MAP "
+            f"sample's), MCCHI2NU {hdr['MCCHI2NU']}, MCPPCP {hdr.get('MCPPCP')}")
+        general_lnpost_check(mc_post, spec, sm.state.positions[:16], "general")
+    for k, v in env.items():
+        os.environ[k] = v
+
+    graphed_against_eager(mc_post, spec, "general graph", GRAPH_BURN, GRAPH_SAMPLE)
+    graphed_against_eager(mc_post, spec, "general rejuvenation", GRAPH_BURN // 2,
+                          GRAPH_SAMPLE // 2, strand=True)
+    fresh = EnsembleSampler(NWALKERS, spec.num_params, mc_post, seed=SEED)
+    fresh.init_state(sm.state.positions)
+    steady_phase(fresh, "general path (lnpost='general')")
+
+    variant_launches = {}
+    for label, kw, variant_env in GENERAL_VARIANTS:
+        os.environ.update(variant_env)
+        try:
+            vspec = build_model_spec(general_components(shape, psf_shape, **kw))
+            vpost = build_posterior(vspec, device=device, lnpost="general")
+            th = prior_draws_general(vspec, 16)
+            general_lnpost_check(vpost, vspec, th, f"general variant {label}")
+            if vpost.pad:  # the render kernel on the padded grid
+                params, sky = vpost.render_inputs(th)
+                got = render_sersics(params.contiguous(), sky.contiguous(),
+                                     vpost.render_shape)
+                _, rel, _ = compare(got, render_sersics_plain(
+                    params.contiguous(), sky.contiguous(), vpost.render_shape))
+                log(f"general variant {label}: render kernel on the padded "
+                    f"{vpost.render_shape[0]}x{vpost.render_shape[1]} grid vs "
+                    f"plain: max rel err {rel:.3e} (tol {RENDER_TOL:g})")
+                if not rel <= RENDER_TOL:
+                    raise AssertionError("the padded-grid render disagrees")
+            got = graphed_against_eager(vpost, vspec, f"general variant {label}",
+                                        GENERAL_VARIANT_STEPS, GENERAL_VARIANT_STEPS)
+        finally:
+            for k in variant_env:
+                del os.environ[k]
+        tiled = "PSFMC_RENDER" in variant_env
+        name = "render_sersics_tiled" if tiled else "render_sersics"
+        want = {"render_sersics": 0, "render_sersics_tiled": 0,
+                "batched_conv_lnl": 0, "fused_lnl": 0}
+        want[name] = 1 + 2 * 2 * GENERAL_VARIANT_STEPS + GENERAL_VARIANT_STEPS
+        if got != want:
+            raise AssertionError(f"general variant {label}: launches {got}, want {want}")
+        for k, v in got.items():
+            variant_launches[k] = variant_launches.get(k, 0) + v
+    return sampling, variant_launches, fresh
+
+
+def prior_draws_general(spec, n):
+    """Prior draws with the PSF index on and beside its .5 points."""
+    from psfmc_tpu_torch.flagship import prior_draws
+
+    th = prior_draws(spec, n, seed=SEED + 3)
+    if "PSF_Index" in spec.param_names:
+        off = next(s.offset for s in spec.slots if s.name == "PSF_Index")
+        th[:, off] = np.resize([0.5, 1.5, 0.49, 1.0, 0.0, 0.51], n)
+    return th
+
+
+def graph_phase(post, spec):
+    """The graphed phase against the sampler's private eager loop, for
+    each move, on ``post``'s path at full width: 4 burn + 6 retained
+    steps from one state with ``thin=2`` and ``track_moments``."""
+    from psfmc_tpu_torch.sampler.ensemble import MOVES
+
+    for moves in MOVES:
+        graphed_against_eager(post, spec, f"graph, moves={moves}", GRAPH_BURN,
+                              GRAPH_SAMPLE, moves=moves, thin=2, track_moments=True)
 
 
 def same_bits(x, y):
@@ -1183,6 +1451,7 @@ def main():
     launches, sampler = slice_phase(post, spec)
     driver_launches, mc, last = driver_phase()
     graph_phase(post, spec)
+    general_launches, variant_launches, general = general_phase()
     from psfmc_tpu_torch.sampler import EnsembleSampler
 
     fused = EnsembleSampler(NWALKERS, spec.num_params, mc.posterior_fns,
@@ -1193,13 +1462,18 @@ def main():
     if "--profile" in sys.argv[1:]:
         profile_phase(sampler, "slice path (lnpost='batched')")
         profile_phase(fused, "driver path (lnpost='fused')")
+        profile_phase(general, "general path (lnpost='general')")
         phase_clocks_phase(post, spec)
         render_geometry_phase(post, spec)
-    # each kernel's launches on its own path: the render and conv_lnl on
-    # the slice path, the fused kernel on the driver path
-    # (128x128: the FFT route; the matmul-DFT route is off the main path)
-    by_name = {"sersic_render": launches["render_sersics"],
-               "sersic_render_tiled": launches["render_sersics_tiled"],
+    # each kernel's launches on its own paths: the render on the slice path
+    # and the general fit's sampling, the tiled render on the general
+    # variant that selects it, conv_lnl on the slice path, the fused kernel
+    # on the driver path (128x128: the FFT route; the matmul-DFT route is
+    # off the main path)
+    by_name = {"sersic_render": launches["render_sersics"]
+               + general_launches["render_sersics"],
+               "sersic_render_tiled": launches["render_sersics_tiled"]
+               + variant_launches["render_sersics_tiled"],
                "conv_lnl": launches["batched_conv_lnl:fft"],
                "conv_lnl_dft": launches["batched_conv_lnl:dft"],
                "fused_lnl": driver_launches["fused_lnl:fft"],

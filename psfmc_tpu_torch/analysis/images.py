@@ -10,9 +10,10 @@ Writes the five image types as FITS files, in two modes:
 
 Headers carry the observation's header, the sampler metadata, each
 parameter's posterior mean +/- std under its FITS abbreviation, the
-reduced chi-squared of the MAP model (``MCCHI2NU``), the
-posterior-predictive p-value (``MCPPCP``) and the PSF's file name
-(``PSFIMG``).
+reduced chi-squared of the MAP model (``MCCHI2NU``; the reduced Poisson
+deviance under the Poisson likelihood), the posterior-predictive
+p-value (``MCPPCP``) and the file name of the MAP sample's PSF
+(``PSFIMG``, from its ``PSF_Index`` when the model has several).
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import numpy as np
 
 from ..database import annotate_metadata, filter_lowp_walkers, row_to_param_vector
 from ..io import fits
-from ..models.multicomponent import IMAGE_TYPES
+from ..models.multicomponent import IMAGE_TYPES, poisson_deviance
 
 __all__ = ["save_posterior_images", "write_image_products", "default_filetypes"]
 
@@ -142,24 +143,40 @@ def _add_stats_to_header(header, model, database, ppc_draws=100):
     if len(database) == 0 or "lnprobability" not in database.colnames:
         warn("no sampled rows with lnprobability: MCCHI2NU and MCPPCP not computed")
     else:
-        # reduced chi^2 of the MAP sample over good pixels
+        # goodness of fit of the MAP sample over good pixels
         best = int(np.argmax(np.asarray(database["lnprobability"])))
         theta_map = row_to_param_vector(database[list(model.param_names)][best])
         imgs = model.render_images_batch(theta_map[None, :])
-        resid = imgs["residual"][0]
-        ivm = imgs["composite_ivm"][0]
         good = np.asarray(~model.spec.bad_px)
         dof = max(int(good.sum()) - model.num_params, 1)
-        chi2 = float(np.sum((resid * resid * ivm)[good]))
-        model_stats["MCCHI2NU"] = (round(chi2 / dof, 4),
-                                   "reduced chi-squared of the MAP model")
+        if model.spec.likelihood == "poisson":
+            # the IVM is only a mask under this likelihood: a chi^2
+            # against it would mean nothing
+            g = float(model.spec.likelihood_gain)
+            mu = np.maximum(imgs["convolved_model"][0], 0.0) * g
+            obs = np.asarray(model.spec.obs_data, np.float64) * g
+            dev = float(poisson_deviance(obs, mu, good))
+            model_stats["MCCHI2NU"] = (round(dev / dof, 4),
+                                       "reduced Poisson deviance of the MAP model")
+        else:
+            resid = imgs["residual"][0]
+            ivm = imgs["composite_ivm"][0]
+            chi2 = float(np.sum((resid * resid * ivm)[good]))
+            model_stats["MCCHI2NU"] = (round(chi2 / dof, 4),
+                                       "reduced chi-squared of the MAP model")
         if ppc_draws:
             p = model.posterior_predictive_pvalue(database, n=ppc_draws,
                                                   random_state=0)
             model_stats["MCPPCP"] = (round(p, 4),
                                      "posterior-predictive p-value (deviance)")
 
-    model_stats["PSFIMG"] = model.config.psf_selector.filename
+    # the PSF of the maximum-posterior sample
+    selector = model.config.psf_selector
+    if len(selector.spatial_psfs) > 1 and "PSF_Index" in database.colnames \
+            and len(database) > 0:
+        best = int(np.argmax(np.asarray(database["lnprobability"])))
+        selector.set_index(database["PSF_Index"][best])
+    model_stats["PSFIMG"] = selector.filename
     for key, value in annotate_metadata(model_stats).items():
         header.set(key, value[0], value[1])
 

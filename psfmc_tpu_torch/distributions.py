@@ -7,10 +7,17 @@ The declaration API is the JAX package's: a prior wraps a frozen
 :meth:`Distribution.torch_logp`, a PyTorch log-density with the frozen
 hyperparameters baked in.
 
-This slice ports the three families of the flagship model: ``Normal``,
-``Uniform`` and ``WeibullMinimum``.  Every other alias of the JAX
-package's name map raises ``NotImplementedError`` when it is looked up;
-its density comes with the later slice of the remaining priors.
+This slice ports the three families of the flagship model, ``Normal``,
+``Uniform`` and ``WeibullMinimum``, and ``DiscreteUniform`` (scipy
+``randint``), the prior of a sampled PSF index.  Every other alias of
+the JAX package's name map raises ``NotImplementedError`` when it is
+looked up; its density comes with the later slice of the remaining
+priors.
+
+A discrete family's density is that of ``round(x)`` (half to even, as
+``torch.round`` and ``jnp.round`` both round): the ensemble moves treat
+the parameter as continuous, and the posterior rounds the PSF index the
+same way, so a walker's density and its PSF always agree.
 """
 from __future__ import annotations
 
@@ -21,7 +28,7 @@ import scipy.stats as sps
 import torch
 
 __all__ = ["Distribution", "Normal", "Uniform", "WeibullMinimum",
-           "SCIPY_DIST_NAMES"]
+           "DiscreteUniform", "SCIPY_DIST_NAMES"]
 
 # Friendly alias -> scipy.stats name: the JAX package's map, so a model
 # that names a family gets a clear "not yet ported" instead of an
@@ -95,10 +102,18 @@ def _lp_weibull_min(z, c):
     return torch.where(z > 0, lp, torch.full_like(z, -math.inf))
 
 
+def _lp_randint(z, low, high):
+    k = torch.round(z)
+    inside = (k >= low) & (k <= high - 1)
+    return torch.where(inside, torch.full_like(z, -math.log(high - low)),
+                       torch.full_like(z, -math.inf))
+
+
 _TORCH_STD_LOGP = {
     "norm": _lp_norm,
     "uniform": _lp_uniform,
     "weibull_min": _lp_weibull_min,
+    "randint": _lp_randint,
 }
 
 
@@ -110,7 +125,8 @@ class Distribution:
     def __init__(self, *args, **kwargs):
         self.rv_class = getattr(sps, type(self).scipy_name)
         self.rv_frozen = self.rv_class(*args, **kwargs)
-        self.is_discrete = False
+        self.is_discrete = isinstance(self.rv_frozen.dist, sps.rv_discrete)
+        # a discrete family parses to (shapes, loc, 1)
         shapes, loc, scale = self.rv_frozen.dist._parse_args(
             *self.rv_frozen.args, **self.rv_frozen.kwds
         )
@@ -131,7 +147,9 @@ class Distribution:
         return self.rv_frozen.median()
 
     def logp(self, x):
-        """Host-side scipy log-density."""
+        """Host-side scipy log-density (a discrete family's of ``rint(x)``)."""
+        if self.is_discrete:
+            return self.rv_frozen.logpmf(np.rint(np.asarray(x)))
         return self.rv_frozen.logpdf(x)
 
     # -- sampling path -------------------------------------------------------
@@ -151,6 +169,8 @@ class Distribution:
         if params is None:
             params = self.torch_params(x.dtype, x.device)
         loc, scale = params
+        if self.is_discrete:
+            return fn(x - loc, *self._shapes)
         z = (x - loc) / scale
         return fn(z, *self._shapes) - torch.log(scale)
 
@@ -188,7 +208,14 @@ class WeibullMinimum(Distribution):
     scipy_name = "weibull_min"
 
 
-_PORTED = {"Normal": Normal, "Uniform": Uniform, "WeibullMinimum": WeibullMinimum}
+class DiscreteUniform(Distribution):
+    """Discrete uniform prior (scipy.stats.randint) on ``low, ..., high - 1``."""
+
+    scipy_name = "randint"
+
+
+_PORTED = {"Normal": Normal, "Uniform": Uniform, "WeibullMinimum": WeibullMinimum,
+           "DiscreteUniform": DiscreteUniform}
 
 
 def from_name(family, *args, **kwargs):
@@ -203,7 +230,7 @@ def __getattr__(name):
     if name in SCIPY_DIST_NAMES:
         raise NotImplementedError(
             f"prior family {name!r} is not ported yet: this slice has "
-            "Normal, Uniform and WeibullMinimum; the other densities come "
-            "with the remaining-priors slice (ROADMAP Queue 1)"
+            "Normal, Uniform, WeibullMinimum and DiscreteUniform; the other "
+            "densities come with the remaining-priors slice (ROADMAP Queue 1)"
         )
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

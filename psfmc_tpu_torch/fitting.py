@@ -176,8 +176,10 @@ def model_galaxy_mcmc(
     ``mesh``, ``ntemps``, ``betas``, ``sampler``, ``init``,
     ``max_depth`` and ``criticism`` keep the JAX driver's names; values
     outside this slice raise ``NotImplementedError``.  The likelihood
-    path follows ``PSFMC_LNPOST`` (``pallas`` runs the fused kernel), or
-    the ``lnpost`` of a prepared model.
+    path follows ``PSFMC_LNPOST`` and the model (``pallas`` runs the
+    fused kernel; unset, a model the conv+likelihood kernel covers runs
+    it and any other the general path), or the ``lnpost`` of a prepared
+    model.
     """
     if init not in ("prior", "map"):
         raise ValueError(f"Unknown init {init!r}: expected 'prior' or 'map'")
@@ -188,16 +190,16 @@ def model_galaxy_mcmc(
         raise ValueError(
             f"Unknown sampler {sampler!r}: expected 'ensemble' or 'nuts'")
     if sampler == "nuts":
-        _not_in_slice("sampler='nuts'", "10 (other samplers)")
+        _not_in_slice("sampler='nuts'", "15 (other samplers)")
     if ntemps != 1 or betas is not None:
         _not_in_slice("parallel tempering (ntemps > 1, betas)",
-                      "10 (other samplers)")
+                      "15 (other samplers)")
     if init == "map":
-        _not_in_slice("init='map'", "10 (optimiser)")
+        _not_in_slice("init='map'", "15 (optimiser)")
     if criticism:
-        _not_in_slice("criticism=True", "13 (criticism and analysis)")
+        _not_in_slice("criticism=True", "17 (criticism and analysis)")
     if mesh is not None:
-        _not_in_slice("a device mesh", "14 (multi-device)")
+        _not_in_slice("a device mesh", "18 (multi-device)")
     del max_depth  # a NUTS setting
 
     if output_name is None:

@@ -8,6 +8,14 @@ package's ``__graft_entry__._flagship_components``).  The default size
 is the flagship's 128x128 observation and 64x64 PSF; tests shrink it.
 :func:`write_flagship_files` writes the same inputs as FITS files, a
 ds9 mask and a model file, for the model-file driver.
+
+The general flagship (:func:`general_components`,
+:func:`write_general_files`) is the same model on the features that only
+the general likelihood path runs: several PSF stars with a sampled
+``PSF_Index``, a sky with a ``dx``/``dy`` gradient and a ``NoiseScale``,
+and, by keyword, the Configuration's likelihood, padding and
+oversampling options (with ``counts=True``, a Poisson observation of
+non-negative counts).
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ from . import distributions as D
 from .models.components import Configuration, PointSource, Sersic, Sky
 
 __all__ = ["flagship_arrays", "flagship_components", "write_flagship_files",
+           "general_arrays", "general_components", "write_general_files",
            "enforce_axis_order", "prior_draws"]
 
 MAG_ZP = 25.9463
@@ -46,11 +55,42 @@ def _prior_args(shape):
             "blob_center": np.array((0.36 * w, 0.67 * h))}
 
 
-def flagship_components(shape=(128, 128), psf_shape=(64, 64), seed=0):
-    """[Configuration, Sky, PointSource, Sersic, Sersic] of the flagship."""
-    arrays = flagship_arrays(shape, psf_shape, seed)
+def _sources(shape, C, Dist):
+    """The flagship's PointSource and two Sersics, built from the classes
+    of the modules ``C`` (components) and ``Dist`` (distributions)."""
     a = _prior_args(shape)
     center, max_shift, blob_center = a["center"], a["max_shift"], a["blob_center"]
+    return [
+        C.PointSource(
+            xy=Dist.Uniform(loc=center - max_shift, scale=2 * max_shift),
+            mag=Dist.Uniform(loc=TOTAL_MAG - 0.2, scale=0.2 + 1.5),
+        ),
+        C.Sersic(
+            xy=Dist.Uniform(loc=center - max_shift, scale=2 * max_shift),
+            mag=Dist.Uniform(loc=TOTAL_MAG, scale=27.5 - TOTAL_MAG),
+            reff=Dist.Uniform(loc=2.0, scale=10.0),
+            reff_b=Dist.Uniform(loc=2.0, scale=10.0),
+            index=Dist.WeibullMinimum(c=1.5, scale=4),
+            angle=Dist.Uniform(loc=0, scale=180),
+            angle_degrees=True,
+        ),
+        C.Sersic(
+            xy=Dist.Uniform(loc=blob_center - 5, scale=10),
+            mag=Dist.Uniform(loc=23.5, scale=2.0),
+            reff=Dist.Uniform(loc=2.0, scale=6.0),
+            reff_b=Dist.Uniform(loc=2.0, scale=6.0),
+            index=Dist.WeibullMinimum(c=1.5, scale=4),
+            angle=Dist.Uniform(loc=0, scale=180),
+            angle_degrees=True,
+        ),
+    ]
+
+
+def flagship_components(shape=(128, 128), psf_shape=(64, 64), seed=0):
+    """[Configuration, Sky, PointSource, Sersic, Sersic] of the flagship."""
+    from .models import components
+
+    arrays = flagship_arrays(shape, psf_shape, seed)
     config = Configuration(
         obs_file=arrays["obs"],
         obsivm_file=arrays["ivm"],
@@ -58,32 +98,8 @@ def flagship_components(shape=(128, 128), psf_shape=(64, 64), seed=0):
         psfivm_files=arrays["psf_ivm"],
         mag_zeropoint=MAG_ZP,
     )
-    return [
-        config,
-        Sky(adu=D.Normal(loc=0, scale=0.01)),
-        PointSource(
-            xy=D.Uniform(loc=center - max_shift, scale=2 * max_shift),
-            mag=D.Uniform(loc=TOTAL_MAG - 0.2, scale=0.2 + 1.5),
-        ),
-        Sersic(
-            xy=D.Uniform(loc=center - max_shift, scale=2 * max_shift),
-            mag=D.Uniform(loc=TOTAL_MAG, scale=27.5 - TOTAL_MAG),
-            reff=D.Uniform(loc=2.0, scale=10.0),
-            reff_b=D.Uniform(loc=2.0, scale=10.0),
-            index=D.WeibullMinimum(c=1.5, scale=4),
-            angle=D.Uniform(loc=0, scale=180),
-            angle_degrees=True,
-        ),
-        Sersic(
-            xy=D.Uniform(loc=blob_center - 5, scale=10),
-            mag=D.Uniform(loc=23.5, scale=2.0),
-            reff=D.Uniform(loc=2.0, scale=6.0),
-            reff_b=D.Uniform(loc=2.0, scale=6.0),
-            index=D.WeibullMinimum(c=1.5, scale=4),
-            angle=D.Uniform(loc=0, scale=180),
-            angle_degrees=True,
-        ),
-    ]
+    return [config, Sky(adu=D.Normal(loc=0, scale=0.01))] + _sources(
+        shape, components, D)
 
 
 _MODEL_FILE = """\
@@ -141,6 +157,112 @@ def write_flagship_files(directory, shape=(128, 128), psf_shape=(64, 64),
         max_shift=tuple(a["max_shift"].tolist()),
         blob_center=tuple(a["blob_center"].tolist()),
         mag_zp=MAG_ZP, total_mag=TOTAL_MAG)
+    path = os.path.join(directory, "model.py")
+    with open(path, "w") as fh:
+        fh.write(text)
+    return path
+
+
+PSF_SIGMAS = (2.0, 2.4, 1.7)  # the general flagship's PSF stars, in px
+COUNTS_SKY = 20.0  # counts per pixel of the Poisson observation
+
+
+def general_arrays(shape=(128, 128), psf_shape=(64, 64), num_psfs=2, seed=0,
+                   counts=False):
+    """The general flagship's observation, IVM, PSFs and PSF IVMs: the
+    flagship's arrays with ``num_psfs`` Gaussian PSF stars of the widths
+    :data:`PSF_SIGMAS`; with ``counts``, Poisson counts around
+    :data:`COUNTS_SKY` per pixel."""
+    arrays = flagship_arrays(shape, psf_shape, seed)
+    ph, pw = psf_shape
+    pyy, pxx = np.mgrid[0:ph, 0:pw].astype(float)
+    psfs = []
+    for sigma in PSF_SIGMAS[:num_psfs]:
+        psf = np.exp(-((pxx - pw / 2) ** 2 + (pyy - ph / 2) ** 2) / (2 * sigma**2))
+        psfs.append(psf / psf.sum())
+    if counts:
+        arrays["obs"] = np.random.RandomState(seed + 1).poisson(
+            COUNTS_SKY, size=shape).astype(float)
+    arrays["psfs"] = psfs
+    arrays["psf_ivms"] = [arrays["psf_ivm"]] * num_psfs
+    return arrays
+
+
+def general_components(shape=(128, 128), psf_shape=(64, 64), num_psfs=2,
+                       seed=0, gradient=True, noise_scale=True, counts=False,
+                       components=None, distributions=None, **config):
+    """[Configuration, Sky, PointSource, Sersic, Sersic, NoiseScale] of the
+    general flagship; ``config`` goes to the Configuration (``likelihood``,
+    ``conv_pad``, ...).  ``components`` and ``distributions`` are the
+    modules whose classes build it (by default the port's: every class
+    used here has the same name and arguments in the JAX package)."""
+    if components is None:
+        from .models import components
+    if distributions is None:
+        from . import distributions
+    C, Dist = components, distributions
+    arrays = general_arrays(shape, psf_shape, num_psfs, seed, counts)
+    sky = (Dist.Uniform(loc=COUNTS_SKY - 5.0, scale=10.0) if counts
+           else Dist.Normal(loc=0, scale=0.01))
+    slope = {}
+    if gradient:
+        slope = dict(dx=Dist.Normal(loc=0, scale=1e-4),
+                     dy=Dist.Normal(loc=0, scale=1e-4))
+    comps = [
+        C.Configuration(obs_file=arrays["obs"], obsivm_file=arrays["ivm"],
+                        psf_files=arrays["psfs"], psfivm_files=arrays["psf_ivms"],
+                        mag_zeropoint=MAG_ZP, **config),
+        C.Sky(adu=sky, **slope),
+    ] + _sources(shape, C, Dist)
+    if noise_scale:
+        comps.append(C.NoiseScale(scale=Dist.Uniform(loc=0.5, scale=1.0)))
+    return comps
+
+
+_GENERAL_MODEL_FILE = _MODEL_FILE.replace(
+    "Configuration(obs_file=\"sci.fits\", obsivm_file=\"ivm.fits\",\n"
+    "              psf_files=\"psf.fits\", psfivm_files=\"psf_ivm.fits\",",
+    "Configuration(obs_file=\"sci.fits\", obsivm_file=\"ivm.fits\",\n"
+    "              psf_files={psf_files}, psfivm_files={psf_ivm_files},",
+).replace(
+    "from psfMC.ModelComponents import Configuration, PointSource, Sersic, Sky",
+    "from psfMC.ModelComponents import (Configuration, NoiseScale, PointSource,\n"
+    "                                   Sersic, Sky)",
+).replace(
+    "Sky(adu=Normal(loc=0, scale=0.01))",
+    "Sky(adu=Normal(loc=0, scale=0.01), dx=Normal(loc=0, scale=1e-4),\n"
+    "    dy=Normal(loc=0, scale=1e-4))",
+).replace(
+    "# The flagship quasar + host model: Sky + PointSource + 2 Sersic.",
+    "# The general flagship: two PSF stars, a sky gradient and a NoiseScale.",
+) + "NoiseScale(scale=Uniform(loc=0.5, scale=1.0))\n"
+
+
+def write_general_files(directory, shape=(128, 128), psf_shape=(64, 64),
+                        num_psfs=2, seed=0):
+    """Write the general flagship's inputs to ``directory``: the
+    flagship's files with the PSF stars ``psf0.fits``, ``psf1.fits``, ...
+    (and their IVMs) in place of ``psf.fits``, and a model file whose
+    Configuration lists them, whose Sky has a ``dx``/``dy`` gradient and
+    which ends in a ``NoiseScale``.  Returns the model file's path."""
+    from .io import fits
+
+    write_flagship_files(directory, shape, psf_shape, seed)
+    for name in ("psf.fits", "psf_ivm.fits"):
+        os.remove(os.path.join(directory, name))
+    arrays = general_arrays(shape, psf_shape, num_psfs, seed)
+    names = [f"psf{i}.fits" for i in range(num_psfs)]
+    ivm_names = [f"psf{i}_ivm.fits" for i in range(num_psfs)]
+    for i in range(num_psfs):
+        fits.writeto(os.path.join(directory, names[i]), arrays["psfs"][i])
+        fits.writeto(os.path.join(directory, ivm_names[i]), arrays["psf_ivms"][i])
+    a = _prior_args(shape)
+    text = _GENERAL_MODEL_FILE.format(
+        center=tuple(a["center"].tolist()),
+        max_shift=tuple(a["max_shift"].tolist()),
+        blob_center=tuple(a["blob_center"].tolist()),
+        mag_zp=MAG_ZP, total_mag=TOTAL_MAG, psf_files=names,
+        psf_ivm_files=ivm_names)
     path = os.path.join(directory, "model.py")
     with open(path, "w") as fh:
         fh.write(text)

@@ -11,6 +11,7 @@ Host numpy, once per model build, with the reference's semantics:
 * :func:`preprocess_psf` — bad PSF pixels are zeroed in data and weight,
   then the PSF is normalized to unit sum (``math.fsum``).
 * :func:`calculate_psf_variability` — inter-PSF mismatch variance.
+* :func:`bin_psf` — flux-preserving block binning of an oversampled PSF.
 * :func:`pre_fft_psf` — center-padded ``rfft2`` of PSF and variance.
 
 FITS files are read with the port's own codec (:mod:`.fits`) and ds9
@@ -34,6 +35,7 @@ __all__ = [
     "pre_fft_psf",
     "calculate_psf_variability",
     "mask_from_file",
+    "bin_psf",
 ]
 
 
@@ -129,3 +131,18 @@ def calculate_psf_variability(psf_data, psf_vars):
         return psf_data, psf_vars
     mismatch_var = np.var(np.stack(psf_data), axis=0)
     return psf_data, [var + mismatch_var for var in psf_vars]
+
+
+def bin_psf(psf_data, psf_var, oversample):
+    """Flux-preserving block binning of a PSF sampled ``oversample`` times
+    finer than the data: each native pixel is the sum of its ``n x n``
+    block, and its variance the sum of the block's variances.  The blocks
+    start at sub-pixel (0, 0)."""
+    n = int(oversample)
+    h, w = psf_data.shape
+    if h % n or w % n:
+        raise ValueError(
+            f"psf_oversample={n} does not divide the PSF shape ({h}, {w})")
+    binned = psf_data.reshape(h // n, n, w // n, n).sum(axis=(1, 3))
+    var = psf_var.reshape(h // n, n, w // n, n).sum(axis=(1, 3))
+    return binned, var

@@ -2,6 +2,7 @@
 from .components import (
     ComponentBase,
     Configuration,
+    NoiseScale,
     PointSource,
     PSFSelector,
     Sersic,
@@ -15,12 +16,14 @@ from .spec import (
     ParamSlot,
     build_model_spec,
     check_in_slice,
+    psf_spectra_for,
     spec_from_numpy,
 )
 
 __all__ = [
     "ComponentBase",
     "Configuration",
+    "NoiseScale",
     "PointSource",
     "PSFSelector",
     "Sersic",
@@ -34,5 +37,6 @@ __all__ = [
     "ParamSlot",
     "build_model_spec",
     "check_in_slice",
+    "psf_spectra_for",
     "spec_from_numpy",
 ]

@@ -9,20 +9,22 @@ abbreviations; ``xy`` spans two slots.  They are compiled into a static
 :func:`~psfmc_tpu_torch.models.spec.build_model_spec`.
 
 This slice has ``Configuration`` (FITS file names, ``(header, array)``
-pairs or arrays, and an optional FITS, ds9-region or boolean-array
-mask), ``PSFSelector`` (one PSF), ``Sky`` (``adu``), ``PointSource``
-and the elliptical ``Sersic``.  The constructors accept the JAX
-package's other options so a model states them in the same words; the
-spec builder raises ``NotImplementedError`` for every one of them
-(gradient sky, isophote shapes and truncation, several PSFs, padding,
-oversampling, non-Gaussian likelihoods).
+pairs or arrays, an optional FITS, ds9-region or boolean-array mask,
+and the JAX package's likelihood, padding and oversampling options),
+``PSFSelector`` (one PSF, or several with a sampled ``DiscreteUniform``
+index), ``Sky`` (``adu`` and the tilted-plane ``dx``/``dy``),
+``NoiseScale``, ``PointSource`` and the elliptical ``Sersic``.  The
+Sersic constructor accepts the JAX package's isophote-shape and
+truncation keywords so a model states them in the same words; the spec
+builder raises ``NotImplementedError`` for them.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from ..distributions import Distribution
+from ..distributions import DiscreteUniform, Distribution
 from ..io.preprocess import (
+    bin_psf,
     calculate_psf_variability,
     pre_fft_psf,
     preprocess_obs,
@@ -32,6 +34,7 @@ from ..io.preprocess import (
 __all__ = [
     "ComponentBase",
     "Sky",
+    "NoiseScale",
     "PointSource",
     "Sersic",
     "Configuration",
@@ -90,6 +93,8 @@ class ComponentBase:
                 d = np.asarray(prior.random(random_state=random_state,
                                             size=(m,) + ev),
                                dtype=float).reshape(m, size)
+                if prior.is_discrete:
+                    d = np.rint(d)
                 vals[name] = d
                 cols.append(d)
                 with np.errstate(all="ignore"):
@@ -120,10 +125,12 @@ class ComponentBase:
 
 
 class Sky(ComponentBase):
-    """Flat sky background ``adu``.
+    """Sky background: ``adu + dx (x - (W-1)/2) + dy (y - (H-1)/2)``.
 
-    ``dx``/``dy`` (the JAX package's tilted-plane gradient) are accepted
-    and rejected by the spec builder: they wait for a later slice.
+    The flat ``adu`` is rendered into the raw model (a constant is
+    convolution-invariant); the optional gradient plane is a background
+    added after the PSF convolution, with no model variance.  Without
+    ``dx``/``dy`` the parameter layout is the flat sky's.
     """
 
     _stochastic_attrs = ("adu", "dx", "dy")
@@ -135,6 +142,24 @@ class Sky(ComponentBase):
             self.dx = dx
         if dy is not None:
             self.dy = dy
+
+
+class NoiseScale(ComponentBase):
+    """Sampled factor ``scale`` on the whole per-pixel variance budget
+    (observation + PSF-mismatch model variance) inside the likelihood;
+    ``scale <= 0`` has prior density 0."""
+
+    _fits_abbrs = (("NoiseScale", "NSC"), ("scale", "SCL"))
+    _stochastic_attrs = ("scale",)
+
+    def __init__(self, scale=None):
+        super().__init__()
+        self.scale = scale
+
+    def _batch_constraints(self, vals):
+        m = len(next(iter(vals.values())))
+        scale = vals.get("scale", self._constants.get("scale"))
+        return np.ravel(np.asarray(scale) > 0) & np.ones(m, bool)
 
 
 class PointSource(ComponentBase):
@@ -194,10 +219,15 @@ class Sersic(ComponentBase):
 
 
 class PSFSelector(ComponentBase):
-    """Preprocessed PSF(s) and their center-padded half spectra.
+    """Preprocessed PSF(s): with several, the index is a free
+    ``DiscreteUniform(0, n)`` parameter (``PSF_Index``).
 
-    Several PSFs (a free PSF index in the JAX package) are recorded and
-    rejected by the spec builder; ``oversample`` other than 1 too.
+    Each PSF is normalised, then binned when ``oversample > 1``
+    (:func:`~psfmc_tpu_torch.io.preprocess.bin_psf`), and the inter-PSF
+    mismatch variance is added to every variance map.  The spatial
+    kernels are kept (``spatial_psfs``, ``spatial_vars``): a ``conv_pad``
+    model transforms them at the padded size; the observation-size half
+    spectra ``psf_list``/``var_list`` are made on first use.
     """
 
     _stochastic_attrs = ("psf_index",)
@@ -210,23 +240,60 @@ class PSFSelector(ComponentBase):
             ivm_list = [ivm_list]
         if len(psf_list) != len(ivm_list):
             raise ValueError("PSF and IVM lists must be the same length")
-        self.psf_index = 0
-        self.oversample = oversample
+        if len(psf_list) > 1:
+            self.psf_index = DiscreteUniform(low=0, high=len(psf_list))
+        else:
+            self.psf_index = 0
+        if oversample != int(oversample) or int(oversample) < 1:
+            raise ValueError(
+                f"psf_oversample must be a positive integer, got {oversample!r}")
         pairs = [preprocess_psf(p, i) for p, i in zip(psf_list, ivm_list)]
-        data_list, var_list = calculate_psf_variability(
-            [d for d, _ in pairs], [v for _, v in pairs]
-        )
-        ffts = [pre_fft_psf(p, v, tuple(data_shape))
-                for p, v in zip(data_list, var_list)]
-        self.psf_list = [f for f, _ in ffts]
-        self.var_list = [v for _, v in ffts]
+        if int(oversample) != 1:
+            pairs = [bin_psf(d, v, oversample) for d, v in pairs]
+        self.spatial_psfs, self.spatial_vars = calculate_psf_variability(
+            [d for d, _ in pairs], [v for _, v in pairs])
         self.filenames = [p if isinstance(p, str) else f"<array {i}>"
                           for i, p in enumerate(psf_list)]
+        self._data_shape = tuple(data_shape)
+        self._ffts = None
+
+    def _spectra(self):
+        if self._ffts is None:
+            self._ffts = [pre_fft_psf(p, v, self._data_shape)
+                          for p, v in zip(self.spatial_psfs, self.spatial_vars)]
+        return self._ffts
+
+    @property
+    def psf_list(self):
+        return [f for f, _ in self._spectra()]
+
+    @property
+    def var_list(self):
+        return [v for _, v in self._spectra()]
+
+    def update_stochastic_names(self, count=None):
+        # one selector per model: no count prefix
+        if "psf_index" in self._priors:
+            self._priors["psf_index"].name = "PSF_Index"
+            self._priors["psf_index"].fitsname = "PSF_IDX"
+
+    def set_index(self, value):
+        """Set the index's current value (the image writer sets the MAP
+        sample's)."""
+        if "psf_index" in self._priors:
+            self._priors["psf_index"].value = value
+        else:
+            self.psf_index = value
+
+    def current_index(self):
+        prior = self._priors.get("psf_index")
+        value = prior.value if prior is not None else self._constants["psf_index"]
+        return int(np.rint(np.asarray(value)))
 
     @property
     def filename(self):
-        """The PSF's file name, as the ``PSFIMG`` header card reports it."""
-        return self.filenames[int(self._constants.get("psf_index", 0))]
+        """The current PSF's file name, as the ``PSFIMG`` card reports it."""
+        return self.filenames[self.current_index()]
 
 
 class Configuration(ComponentBase):
@@ -235,29 +302,51 @@ class Configuration(ComponentBase):
     :param obs_file: observed image: FITS file name, ``(header, array)``
         pair or array.
     :param obsivm_file: its inverse-variance map.
-    :param psf_files: the PSF image (one in this slice).
-    :param psfivm_files: the PSF's inverse-variance map.
+    :param psf_files: one PSF image or several (their index is then a
+        free parameter).
+    :param psfivm_files: the matching PSF inverse-variance maps.
     :param mask_file: optional FITS mask (nonzero = exclude), ds9 region
         file (the fit region) or boolean array (True = exclude).
     :param mag_zeropoint: magnitude of 1 count/second.
+    :param likelihood: ``'gaussian'`` (the reference's), ``'student'``
+        (Student-t with ``likelihood_df`` degrees of freedom) or
+        ``'poisson'`` (counts ``likelihood_gain * image``; the data must
+        be non-negative and the IVM only defines the mask).
+    :param likelihood_df: Student-t degrees of freedom.
+    :param likelihood_gain: Poisson counts per observation unit.
+    :param psf_oversample: the PSFs are sampled this many times finer
+        than the data and are block-binned to it.
+    :param conv_pad: render and convolve on a grid this many pixels
+        larger on every side, then crop.
+    :param render_oversample: sub-pixel factor of the window around each
+        Sersic's center (:mod:`psfmc_tpu_torch.ops.oversample`).
+    :param oversample_window: that window's side in pixels.
 
     The observation's FITS header is kept as ``obs_header``: the image
     products start from it.
-
-    ``likelihood``, ``psf_oversample``, ``conv_pad`` and
-    ``render_oversample`` keep the JAX package's names; only their
-    reference values (``'gaussian'``, 1, 0, 1) are in this slice, and the
-    spec builder rejects the others.
     """
 
     def __init__(self, obs_file, obsivm_file, psf_files, psfivm_files,
                  mask_file=None, mag_zeropoint=0, likelihood="gaussian",
-                 psf_oversample=1, conv_pad=0, render_oversample=1):
+                 likelihood_df=4.0, likelihood_gain=1.0, psf_oversample=1,
+                 conv_pad=0, render_oversample=1, oversample_window=16):
         super().__init__()
+        from ..ops.likelihood import make_lnlike
+
         self.mag_zeropoint = mag_zeropoint
+        make_lnlike(likelihood, likelihood_df, likelihood_gain)  # validates
         self.likelihood = likelihood
+        self.likelihood_df = float(likelihood_df)
+        self.likelihood_gain = float(likelihood_gain)
         self.conv_pad = int(conv_pad)
+        if self.conv_pad < 0:
+            raise ValueError(f"conv_pad must be >= 0, got {conv_pad}")
+        for name, v in (("render_oversample", render_oversample),
+                        ("oversample_window", oversample_window)):
+            if v != int(v) or int(v) < 1:
+                raise ValueError(f"{name} must be a positive integer, got {v!r}")
         self.render_oversample = int(render_oversample)
+        self.oversample_window = int(oversample_window)
         obs_hdr, obs_data, obs_var, bad_px = preprocess_obs(
             obs_file, obsivm_file, mask_file
         )

@@ -21,7 +21,8 @@ from .components import ComponentBase, Configuration
 from .posterior import build_posterior
 from .spec import build_model_spec
 
-__all__ = ["MultiComponentModel", "as_model", "replicate_noise", "IMAGE_TYPES"]
+__all__ = ["MultiComponentModel", "as_model", "replicate_noise",
+           "poisson_deviance", "IMAGE_TYPES"]
 
 IMAGE_TYPES = (
     "raw_model",
@@ -32,11 +33,30 @@ IMAGE_TYPES = (
 )
 
 
-def replicate_noise(rng, conv, sigma):
-    """Replicated data: Gaussian noise at ``sigma`` around ``conv`` (the
-    JAX package's rule for the Gaussian likelihood, the slice's only
-    one)."""
-    return conv + rng.randn(*conv.shape) * sigma
+def replicate_noise(rng, conv, spec, sigma):
+    """Replicated data under ``spec.likelihood``, the JAX package's one
+    rule: Gaussian or Student-t (static df) noise at ``sigma`` around
+    ``conv``, or Poisson counts at ``gain * conv`` (clipped at 0) scaled
+    back to observation units (``sigma`` unused)."""
+    if spec.likelihood == "poisson":
+        g = float(spec.likelihood_gain)
+        return rng.poisson(np.maximum(conv, 0.0) * g) / g
+    if spec.likelihood == "student":
+        noise = rng.standard_t(float(spec.likelihood_df), size=conv.shape)
+    else:
+        noise = rng.randn(*conv.shape)
+    return conv + noise * sigma
+
+
+def poisson_deviance(counts, mu, good):
+    """``2 sum_good (mu - k + k ln(k / mu))`` over the trailing image axes,
+    at good pixels with ``mu > 0`` (the ``k = 0`` term is ``2 mu``)."""
+    ok = good & (mu > 0)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        r = np.where(counts > 0,
+                     counts * np.log(np.where(counts > 0, counts, 1.0)
+                                     / np.where(mu > 0, mu, 1.0)), 0.0)
+    return 2.0 * np.sum(np.where(ok, mu - counts + r, 0.0), axis=(-2, -1))
 
 
 def carry_to_reference_images(imgs: Dict[str, np.ndarray], obs_data):
@@ -70,7 +90,7 @@ def as_model(model, device=None, lnpost=None):
         raise NotImplementedError(
             "joint multi-band models (several Configuration components) "
             "are not in this slice of psfmc_tpu_torch; they come with "
-            "ROADMAP Queue 1 item 11 (model layer)"
+            "ROADMAP Queue 1 item 14 (model layer)"
         )
     return MultiComponentModel(components, device=device, lnpost=lnpost)
 
@@ -81,8 +101,8 @@ class MultiComponentModel:
     :param components: component list (with one ``Configuration``).
     :param device: the posterior's device (CUDA unless ``"cpu"``).
     :param dtype: its working dtype (float32 on CUDA).
-    :param lnpost: its likelihood path (``"batched"``, ``"fused"`` or
-        None for ``PSFMC_LNPOST``).
+    :param lnpost: its likelihood path (``"batched"``, ``"fused"``,
+        ``"general"`` or None for ``PSFMC_LNPOST`` and the spec).
     """
 
     def __init__(self, components, device=None, dtype=torch.float32,
@@ -157,19 +177,26 @@ class MultiComponentModel:
         conv = imgs["convolved_model"]
         ivm = imgs["composite_ivm"]
         sigma = np.sqrt(np.where(ivm > 0, 1.0 / np.where(ivm > 0, ivm, 1.0), 0.0))
-        return conv, ivm, replicate_noise(rng, conv, sigma)
+        return conv, ivm, replicate_noise(rng, conv, self.spec, sigma)
 
     def posterior_predictive_pvalue(self, database, n=200, random_state=None):
-        """Posterior-predictive p-value of the deviance statistic
-        ``T = sum_good (y - conv)^2 ivm``: ``(1 + #{T_rep >= T_obs}) / (n
-        + 2)``; ~0.5 is healthy, near 0 a misfit."""
+        """Posterior-predictive p-value of the deviance statistic, ``(1 +
+        #{T_rep >= T_obs}) / (n + 2)``; ~0.5 is healthy, near 0 a misfit.
+        ``T = sum_good (y - conv)^2 ivm``, or under the Poisson likelihood
+        the Poisson deviance of the counts."""
         rng = (random_state if isinstance(random_state, np.random.RandomState)
                else np.random.RandomState(random_state))
         conv, ivm, y_rep = self._replicate(database, n, rng)
         good = (~np.asarray(self.spec.bad_px))[None]
         obs = np.asarray(self.spec.obs_data, np.float64)[None]
-        t_obs = np.sum(np.where(good, (obs - conv) ** 2 * ivm, 0.0), axis=(1, 2))
-        t_rep = np.sum(np.where(good, (y_rep - conv) ** 2 * ivm, 0.0), axis=(1, 2))
+        if self.spec.likelihood == "poisson":
+            g = float(self.spec.likelihood_gain)
+            mu = np.maximum(conv, 0.0) * g
+            t_obs = poisson_deviance(np.maximum(obs, 0.0) * g, mu, good)
+            t_rep = poisson_deviance(np.maximum(y_rep, 0.0) * g, mu, good)
+        else:
+            t_obs = np.sum(np.where(good, (obs - conv) ** 2 * ivm, 0.0), axis=(1, 2))
+            t_rep = np.sum(np.where(good, (y_rep - conv) ** 2 * ivm, 0.0), axis=(1, 2))
         return float((1 + np.sum(t_rep >= t_obs)) / (n + 2))
 
     # -- posterior-mean images --------------------------------------------------

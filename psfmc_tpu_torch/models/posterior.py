@@ -2,36 +2,47 @@
 
 The JAX package traces one walker's ``lnpost(theta)`` and lets ``vmap``
 add the walker axis; here every function takes a ``(B, num_params)``
-batch of thetas and works on the batch directly.  The sampling path,
-:meth:`PosteriorFns.log_posterior_batch`, has the shape of the JAX
-package's ``PSFMC_LNPOST=pallas_batched`` path:
+batch of thetas and works on the batch directly.  Three likelihood
+paths (``lnpost``), each the counterpart of one of the JAX package's:
 
-1. per-walker scalar prep in torch: the prior, the sky and the nine
-   packed scalars of each Sersic (:func:`sersic_scalar_params`);
-2. the **render kernel**: ``raw = sky + sum of Sersics``, ``(B, H, W)``;
-3. ``raw += sum of point sources``, rank-1 ``fky ⊗ kx`` outer products;
-4. the **conv+likelihood kernel**: the Gaussian lnL per walker;
-5. ``lnpost = lnl + prior`` where the prior is finite, else ``-inf``.
+* ``"batched"`` (``PSFMC_LNPOST=pallas_batched``): the per-walker
+  scalars in torch (prior, sky, the nine packed scalars of each Sersic),
+  the **render kernel** (``raw = sky + sum of Sersics``), the point
+  sources as rank-1 outer products, then the **conv+likelihood kernel**
+  (Gaussian lnL per walker);
+* ``"fused"`` (``PSFMC_LNPOST=pallas``): the same scalars, then the
+  **fused kernel** renders, convolves and reduces each walker in one
+  launch;
+* ``"general"`` (the JAX package's default XLA path, which runs every
+  spec): the render kernel on the render grid (padded by ``conv_pad``),
+  the sub-pixel windows of ``render_oversample``, then in plain PyTorch
+  on the device: each walker's PSF gathered by its rounded and clipped
+  index, the convolutions by ``torch.fft``, the crop, the tilted-plane
+  sky added after the convolution, the ``NoiseScale`` factor on the
+  variance, and the likelihood family of the spec (Gaussian, Student-t
+  or Poisson).  ``PSFMC_RENDER=pallas_tiled`` renders with the walker-
+  tiled kernel.
 
-On CUDA, steps 2 and 4 are the hand-written kernels of
-:mod:`psfmc_tpu_torch.ops.kernels`; on the CPU their plain versions.
+With ``lnpost=None`` the path comes from ``PSFMC_LNPOST`` as in the JAX
+package: ``pallas`` selects ``fused``, ``pallas_batched`` selects
+``batched``, and an unset variable, ``xla`` or any other value select
+``batched`` where the conv+likelihood kernel covers the spec
+(:func:`~psfmc_tpu_torch.ops.kernels.conv_lnl.batched_lnl_supported`)
+and ``general`` elsewhere.  Where the JAX package warns and falls back
+for a spec its kernel rejects, ``batched`` and ``fused`` raise
+``ValueError``: no path hides a kernel.  ``PSFMC_KAPPA``: ``table`` (the
+default) interpolates the Sersic ``b_n``, any other value solves it by
+Newton (``"exact"``), on every path.
 
-``lnpost="fused"`` is the shape of the JAX package's ``PSFMC_LNPOST=
-pallas`` path instead: the prior and the per-walker scalars (packed
-Sersic rows, sky, point-source factors ``fky``/``kx``) in torch, then
-the **fused kernel** renders, convolves and reduces each walker in one
-launch (:func:`~psfmc_tpu_torch.ops.kernels.fused_lnl.fused_lnl`).  With
-``lnpost=None`` the mode comes from ``PSFMC_LNPOST`` as in the JAX
-package: ``pallas`` selects ``fused``; ``pallas_batched``, ``xla`` or an
-unset variable select ``batched``.  Where the JAX package warns and
-falls back for a spec its fused kernel rejects, the port raises
-``ValueError``: it never hides the kernel.
+On CUDA the render and likelihood kernels are the hand-written kernels
+of :mod:`psfmc_tpu_torch.ops.kernels`; on the CPU their plain versions.
 
 The image products (:meth:`images_batch`, :meth:`ensemble_carry_means`)
-use the same render and the plain ``convolve_rdft`` products; the
-ensemble means exploit linearity: the walker mean of ``conv(raw_w)`` is
-``conv(mean raw)``, so a step costs three convolutions, not three per
-walker.
+use the same render; the kernel paths convolve with the plain
+``convolve_rdft``, the general path with ``torch.fft``.  The ensemble
+means exploit linearity: the walker mean of ``conv(raw_w)`` is
+``conv(mean raw)`` per PSF group, so a step costs three convolutions per
+PSF, not three per walker.
 """
 from __future__ import annotations
 
@@ -45,10 +56,11 @@ import torch
 from torch import nn
 
 from .._device import pin_fp32_matmul, resolve_device
-from ..ops.fourier import convolve_rdft
+from ..ops.fourier import convolve, convolve_rdft
 from ..ops.kernels.conv_lnl import (
     ConvLnlConsts,
     batched_conv_lnl,
+    batched_lnl_supported,
     make_conv_lnl_consts,
 )
 from ..ops.kernels.fused_lnl import fused_lnl, fused_lnl_supported
@@ -56,37 +68,46 @@ from ..ops.kernels.sersic_render import (
     PARAMS_PER_SERSIC,
     pack_sersic_params,
     render_sersics,
+    render_sersics_tiled,
 )
-from ..ops.likelihood import gaussian_lnlike
+from ..ops.likelihood import make_cdf_pointwise, make_lnlike, make_lnlike_pointwise
+from ..ops.oversample import (
+    apply_window_delta,
+    oversampled_window_delta,
+    window_origin,
+)
 from ..ops.pointsource import pointsource_factors, pointsource_image
-from ..ops.sersic import sersic_scalar_params
+from ..ops.sersic import sersic_profile_core, sersic_scalar_params
 from .spec import ModelSpec, check_in_slice
 
 __all__ = ["PosteriorFns", "build_posterior", "lnpost_mode", "LNPOST_MODES"]
 
-LNPOST_MODES = ("batched", "fused")
-# PSFMC_LNPOST values of the JAX package -> the port's modes
-_ENV_MODES = {"": "batched", "xla": "batched", "pallas_batched": "batched",
-              "pallas": "fused"}
+LNPOST_MODES = ("batched", "fused", "general")
+# PSFMC_LNPOST values of the JAX package that name a kernel path; every
+# other value (unset, xla, unknown) runs its XLA path, which runs any spec
+_ENV_MODES = {"pallas_batched": "batched", "pallas": "fused"}
 
 
-def lnpost_mode(lnpost=None):
+def lnpost_mode(lnpost=None, spec=None):
     """The likelihood path: ``lnpost`` if given, else from
-    ``PSFMC_LNPOST`` (``pallas`` -> ``fused``; ``pallas_batched``,
-    ``xla`` or unset -> ``batched``)."""
+    ``PSFMC_LNPOST``: ``pallas`` -> ``fused``, ``pallas_batched`` ->
+    ``batched``; unset, ``xla`` or another value -> ``batched`` where
+    :func:`batched_lnl_supported` holds for ``spec`` (or no spec is
+    given), else ``general``."""
     if lnpost is None:
-        env = os.environ.get("PSFMC_LNPOST", "")
-        if env not in _ENV_MODES:
-            raise ValueError(
-                f"PSFMC_LNPOST={env!r}: expected one of {sorted(_ENV_MODES)}")
-        return _ENV_MODES[env]
+        mode = _ENV_MODES.get(os.environ.get("PSFMC_LNPOST", ""))
+        if mode is not None:
+            return mode
+        if spec is None or batched_lnl_supported(spec)[0]:
+            return "batched"
+        return "general"
     if lnpost not in LNPOST_MODES:
         raise ValueError(f"lnpost={lnpost!r}: expected one of {LNPOST_MODES}")
     return lnpost
 
 
 class PosteriorFns(nn.Module):
-    """The flagship posterior on one device.
+    """The posterior of a spec on one device.
 
     Every constant (observation, variance, mask, PSF spectra, DFT
     operators, prior hyperparameters, constant parameter values) is a
@@ -98,13 +119,16 @@ class PosteriorFns(nn.Module):
     def __init__(self, spec: ModelSpec, device=None, dtype=torch.float32,
                  lnpost=None):
         super().__init__()
-        self.lnpost = lnpost_mode(lnpost)
-        if self.lnpost == "fused":
-            ok, why = fused_lnl_supported(spec)
+        self.lnpost = lnpost_mode(lnpost, spec)
+        gates = {"fused": (fused_lnl_supported, "PSFMC_LNPOST=pallas"),
+                 "batched": (batched_lnl_supported, "PSFMC_LNPOST=pallas_batched")}
+        if self.lnpost in gates:
+            gate, env = gates[self.lnpost]
+            ok, why = gate(spec)
             if not ok:
                 raise ValueError(
-                    f"lnpost='fused' (PSFMC_LNPOST=pallas) does not cover "
-                    f"{why}; use lnpost='batched'")
+                    f"lnpost={self.lnpost!r} ({env}) does not cover {why}; "
+                    "use lnpost='general'")
         device = resolve_device(device)
         check_in_slice(spec)
         if device.type == "cuda":
@@ -115,14 +139,54 @@ class PosteriorFns(nn.Module):
         self.dtype = dtype
         self.mag_zp = float(spec.mag_zeropoint)
         self.shape = tuple(spec.shape)
+        # PSFMC_KAPPA: ``table`` (the default), any other value Newton
+        self.kappa_mode = ("table" if os.environ.get("PSFMC_KAPPA", "table")
+                           == "table" else "exact")
+        self.pad = int(spec.conv_pad)
+        self.render_shape = tuple(n + 2 * self.pad for n in self.shape)
+        self.oversample = int(spec.render_oversample)
+        self.os_window = min(int(spec.oversample_window), min(self.render_shape))
+        tiled = (self.lnpost == "general"
+                 and os.environ.get("PSFMC_RENDER", "") == "pallas_tiled")
+        self._render = render_sersics_tiled if tiled else render_sersics
+        family = (spec.likelihood, spec.likelihood_df, spec.likelihood_gain)
+        self._lnlike = make_lnlike(*family)
+        self._lnlike_pointwise = make_lnlike_pointwise(*family)
+        self._cdf_pointwise = make_cdf_pointwise(*family)
+        kinds = [cs.kind for cs in spec.comp_specs]
+        self._noise_ci = kinds.index("noisescale") if "noisescale" in kinds else None
+        self._grad_skies = [ci for ci, cs in enumerate(spec.comp_specs)
+                            if cs.kind == "sky" and {"dx", "dy"} & set(cs.params)]
+        self._selector = spec.comp_specs[kinds.index("psfselector")]
 
-        consts = make_conv_lnl_consts(
-            spec.f_psf_stack[0], spec.f_var_stack[0], spec.obs_data,
-            spec.obs_var, ~np.asarray(spec.bad_px, bool), device, dtype,
-        )
-        for f in fields(ConvLnlConsts):
-            self.register_buffer("c_" + f.name, getattr(consts, f.name),
+        np_dtype = np.float32 if dtype == torch.float32 else np.float64
+
+        def buffer(name, array, dt=dtype):
+            self.register_buffer(name, torch.as_tensor(array, dtype=dt, device=device),
                                  persistent=False)
+
+        buffer("obs", np.ascontiguousarray(spec.obs_data, np_dtype))
+        buffer("obs_var", np.ascontiguousarray(spec.obs_var, np_dtype))
+        buffer("good", ~np.asarray(spec.bad_px, bool), torch.bool)
+        h, w = self.shape
+        # the tilted plane's coordinates, zero at the image center
+        buffer("x_centered", np.arange(w, dtype=np_dtype) - np_dtype((w - 1) / 2.0))
+        buffer("y_centered", (np.arange(h, dtype=np_dtype)
+                              - np_dtype((h - 1) / 2.0))[:, None])
+        if self.lnpost == "general":
+            # (num_psfs, 3, Hr, Wr//2+1): the PSF, its variance and the PSF
+            # again (the point sources' convolution), stacked for one FFT
+            cdtype = torch.complex64 if dtype == torch.float32 else torch.complex128
+            f_psf, f_var = np.asarray(spec.f_psf_stack), np.asarray(spec.f_var_stack)
+            buffer("f_stack", np.stack([f_psf, f_var, f_psf], axis=1), cdtype)
+        else:
+            consts = make_conv_lnl_consts(
+                spec.f_psf_stack[0], spec.f_var_stack[0], spec.obs_data,
+                spec.obs_var, ~np.asarray(spec.bad_px, bool), device, dtype,
+            )
+            for f in fields(ConvLnlConsts):
+                self.register_buffer("c_" + f.name, getattr(consts, f.name),
+                                     persistent=False)
         for i, slot in enumerate(spec.slots):
             loc, scale = slot.dist.torch_params(dtype, device)
             self.register_buffer(f"prior{i}_loc", loc, persistent=False)
@@ -131,20 +195,16 @@ class PosteriorFns(nn.Module):
         for ci, cs in enumerate(spec.comp_specs):
             for attr, (kind, payload) in cs.params.items():
                 if kind == "const" and cs.kind != "psfselector":
-                    self.register_buffer(
-                        f"const{ci}_{attr}",
-                        torch.as_tensor(np.asarray(payload, np.float64),
-                                        dtype=dtype, device=device),
-                        persistent=False,
-                    )
+                    buffer(f"const{ci}_{attr}", np.asarray(payload, np.float64))
 
     # -- constants -------------------------------------------------------
     @property
     def device(self) -> torch.device:
-        return self.c_obs.device
+        return self.obs.device
 
     @property
     def consts(self) -> ConvLnlConsts:
+        """The conv+likelihood constants of the kernel paths."""
         return ConvLnlConsts(
             **{f.name: getattr(self, "c_" + f.name) for f in fields(ConvLnlConsts)}
         )
@@ -173,7 +233,7 @@ class PosteriorFns(nn.Module):
     # -- prior -----------------------------------------------------------
     def log_prior_batch(self, thetas):
         """Joint log-prior per walker, with the Sersic ``reff >= reff_b``
-        constraint; NaN -> ``-inf``."""
+        and ``NoiseScale`` ``scale > 0`` constraints; NaN -> ``-inf``."""
         thetas = self.as_thetas(thetas)
         lp = torch.zeros(thetas.shape[0], dtype=self.dtype, device=self.device)
         for i, slot in enumerate(self.spec.slots):
@@ -187,71 +247,144 @@ class PosteriorFns(nn.Module):
                 a = self._get(ci, "reff", thetas)
                 b = self._get(ci, "reff_b", thetas)
                 lp = torch.where(b > a, neg_inf, lp)
+            elif cs.kind == "noisescale":
+                lp = torch.where(self._get(ci, "scale", thetas) <= 0.0, neg_inf, lp)
         return torch.where(torch.isnan(lp), neg_inf, lp)
 
     # -- renders ---------------------------------------------------------
-    def render_inputs(self, thetas):
-        """(packed Sersic rows ``(B, S, 9)``, sky ``(B,)``) for the render."""
-        thetas = self.as_thetas(thetas)
+    def _psf_index(self, thetas):
+        """Each walker's PSF: its index rounded half to even (as the
+        ``DiscreteUniform`` prior rounds it), then clipped to the stack."""
+        kind, payload = self._selector.params["psf_index"]
+        if kind == "const":
+            idx = torch.full((thetas.shape[0],), int(payload), dtype=torch.int64,
+                             device=self.device)
+        else:
+            idx = torch.round(thetas[:, payload[0]]).to(torch.int64)
+        return torch.clamp(idx, 0, self.spec.num_psfs - 1)
+
+    def _render_parts(self, thetas):
+        """(packed Sersic rows ``(B, S, 9)`` on the render grid, sky
+        ``(B,)``, and each Sersic's ``(xy, scalars)`` in observation
+        pixels)."""
         b = thetas.shape[0]
         sky = torch.zeros(b, dtype=self.dtype, device=self.device)
-        rows = []
+        sersics, rows = [], []
         for ci, cs in enumerate(self.spec.comp_specs):
             if cs.kind == "sky":
                 sky = sky + self._get(ci, "adu", thetas)
             elif cs.kind == "sersic":
                 g = [self._get(ci, n, thetas)
                      for n in ("xy", "mag", "reff", "reff_b", "index", "angle")]
-                rows.append(pack_sersic_params(sersic_scalar_params(
-                    *g, self.mag_zp, cs.static["angle_degrees"], "table",
-                )))
+                scalars = sersic_scalar_params(
+                    *g, self.mag_zp, cs.static["angle_degrees"], self.kappa_mode)
+                sersics.append((g[0], scalars))
+                if self.pad:  # the render grid's pixel 0 is -pad
+                    scalars = (scalars[0] + self.pad, scalars[1] + self.pad,
+                               *scalars[2:])
+                rows.append(pack_sersic_params(scalars))
         if rows:
             params = torch.stack(rows, dim=1)
         else:
             params = torch.zeros((b, 0, PARAMS_PER_SERSIC), dtype=self.dtype,
                                  device=self.device)
+        return params, sky, sersics
+
+    def render_inputs(self, thetas):
+        """(packed Sersic rows ``(B, S, 9)``, sky ``(B,)``) for the render
+        kernel, on the render grid."""
+        params, sky, _ = self._render_parts(self.as_thetas(thetas))
         return params, sky
 
     def pointsource_inputs(self, thetas):
-        """Point-source factors ``fky`` ``(B, P, H)`` and ``kx`` ``(B, P,
-        W)`` (``P`` may be 0)."""
+        """Point-source factors ``fky`` ``(B, P, Hr)`` and ``kx`` ``(B, P,
+        Wr)`` on the render grid (``P`` may be 0)."""
         thetas = self.as_thetas(thetas)
         fkys, kxs = [], []
         for ci, cs in enumerate(self.spec.comp_specs):
             if cs.kind == "pointsource":
+                xy = self._get(ci, "xy", thetas)
                 fky, kx = pointsource_factors(
-                    self.shape, self._get(ci, "xy", thetas),
+                    self.render_shape, xy + self.pad if self.pad else xy,
                     self._get(ci, "mag", thetas), self.mag_zp,
                     cs.static.get("shift_method", "lanczos3"),
                 )
                 fkys.append(fky)
                 kxs.append(kx)
         b = thetas.shape[0]
-        h, w = self.shape
+        h, w = self.render_shape
         if not fkys:
             kw = dict(dtype=self.dtype, device=self.device)
             return torch.zeros((b, 0, h), **kw), torch.zeros((b, 0, w), **kw)
         return torch.stack(fkys, dim=1), torch.stack(kxs, dim=1)
 
+    def _apply_oversample(self, raw, xy, scalars):
+        """One Sersic's sub-pixel window: the midpoint-integrated profile
+        minus the point-sampled one, added into the kernel's render.  The
+        point-sampled term is the plain profile, which differs from what
+        the kernel added by at most its 5e-6 relative per pixel."""
+        x, y, *rest = (t[:, None, None] for t in scalars)
+
+        def profile(correction):
+            return lambda xg, yg: sersic_profile_core(
+                xg - x, yg - y, *rest, correction=correction)
+
+        origin = window_origin(xy, self.os_window, self.render_shape, self.pad)
+        delta = oversampled_window_delta(profile(True), profile(False), origin,
+                                         self.os_window, self.oversample,
+                                         self.pad, self.dtype)
+        return apply_window_delta(raw, delta, origin)
+
     def raw_and_ps(self, thetas):
-        """Raw composite model ``(B, H, W)`` and its point-source part."""
+        """Raw composite model ``(B, Hr, Wr)`` on the render grid and its
+        point-source part."""
         thetas = self.as_thetas(thetas)
-        params, sky = self.render_inputs(thetas)
-        raw = render_sersics(params.contiguous(), sky.contiguous(), self.shape)
+        params, sky, sersics = self._render_parts(thetas)
+        raw = self._render(params.contiguous(), sky.contiguous(), self.render_shape)
+        if self.oversample > 1:
+            for xy, scalars in sersics:
+                raw = self._apply_oversample(raw, xy, scalars)
         ps = pointsource_image(*self.pointsource_inputs(thetas))
         return raw + ps, ps
 
+    def _crop(self, img):
+        """Crop render-grid images back to the observation frame."""
+        p = self.pad
+        return img[..., p:img.shape[-2] - p, p:img.shape[-1] - p] if p else img
+
+    def _sky_plane(self, thetas):
+        """``(B, H, W)`` tilted-plane background, added after the
+        convolution: a background never rode the PSF, and the circular
+        convolution would wrap a ramp at the frame's edges."""
+        plane = torch.zeros((thetas.shape[0],) + self.shape, dtype=self.dtype,
+                            device=self.device)
+        for ci in self._grad_skies:
+            params = self.spec.comp_specs[ci].params
+            if "dx" in params:
+                plane = plane + self._get(ci, "dx", thetas)[:, None, None] * self.x_centered
+            if "dy" in params:
+                plane = plane + self._get(ci, "dy", thetas)[:, None, None] * self.y_centered
+        return plane
+
+    def _noise_scale(self, thetas):
+        return self._get(self._noise_ci, "scale", thetas)
+
     # -- posterior -------------------------------------------------------
     def log_likelihood_batch(self, thetas):
-        """Gaussian lnL per walker on this posterior's path: the render
-        and conv+lnL kernels (``batched``) or the fused kernel."""
+        """lnL per walker on this posterior's path: the render and
+        conv+lnL kernels (``batched``), the fused kernel, or the general
+        path's images and likelihood family."""
         thetas = self.as_thetas(thetas)
         if self.lnpost == "fused":
             params, sky = self.render_inputs(thetas)
             fky, kx = self.pointsource_inputs(thetas)
             return fused_lnl(params, sky, fky, kx, self.consts)
-        raw, _ = self.raw_and_ps(thetas)
-        return batched_conv_lnl(raw, self.consts)
+        if self.lnpost == "batched":
+            raw, _ = self.raw_and_ps(thetas)
+            return batched_conv_lnl(raw, self.consts)
+        imgs = self._images(thetas, with_ps=False)
+        return self._lnlike(self.obs - imgs["conv"], 1.0 / imgs["var"], self.good,
+                            imgs["conv"])
 
     def log_posterior_batch(self, thetas):
         """lnpost per walker: prior, then :meth:`log_likelihood_batch`."""
@@ -274,27 +407,68 @@ class PosteriorFns(nn.Module):
         )
         return out[..., 0, :, :], out[..., 1, :, :], out[..., 2, :, :]
 
+    def _images(self, thetas, with_ps=True):
+        """The carry images per walker (``ps_conv`` only ``with_ps``):
+        render, convolutions (each walker with its PSF on the general
+        path), crop, ``NoiseScale`` on the variance, then the sky plane."""
+        raw, ps = self.raw_and_ps(thetas)
+        if self.lnpost == "general":
+            chans = (raw, raw * raw, ps) if with_ps else (raw, raw * raw)
+            kern = self.f_stack[:, :len(chans)].index_select(0, self._psf_index(thetas))
+            out = self._crop(convolve(torch.stack(chans, dim=1), kern))
+            conv, model_var = out[:, 0], out[:, 1]
+            ps_conv = out[:, 2] if with_ps else None
+        else:
+            conv, model_var, ps_conv = self._convolve3(raw, raw * raw, ps)
+        raw = self._crop(raw)
+        var = model_var + self.obs_var
+        if self._noise_ci is not None:
+            var = var * self._noise_scale(thetas)[:, None, None]
+        if self._grad_skies:
+            plane = self._sky_plane(thetas)
+            raw = raw + plane
+            conv = conv + plane
+        return {"raw": raw, "conv": conv, "var": var, "ps_conv": ps_conv}
+
     def images_batch(self, thetas) -> Dict[str, torch.Tensor]:
         """The four carry images per walker: raw, conv, var (model +
-        observation variance) and the convolved point sources."""
-        raw, ps = self.raw_and_ps(thetas)
-        conv, model_var, ps_conv = self._convolve3(raw, raw * raw, ps)
-        return {"raw": raw, "conv": conv, "var": model_var + self.c_obs_var,
-                "ps_conv": ps_conv}
+        observation variance, times the noise scale) and the convolved
+        point sources."""
+        return self._images(self.as_thetas(thetas))
 
     def lnpost_images_batch(self, thetas):
         """(lnpost, images) through :meth:`images_batch` and the plain
-        ``gaussian_lnlike`` — the same function as
-        :meth:`log_posterior_batch` without the conv+lnL kernel."""
+        likelihood of the spec's family — the same function as
+        :meth:`log_posterior_batch` without the likelihood kernels."""
         thetas = self.as_thetas(thetas)
         lp = self.log_prior_batch(thetas)
         imgs = self.images_batch(thetas)
-        lnl = gaussian_lnlike(self.c_obs - imgs["conv"], 1.0 / imgs["var"],
-                              self.c_good)
+        lnl = self._lnlike(self.obs - imgs["conv"], 1.0 / imgs["var"], self.good,
+                           imgs["conv"])
         lnpost = torch.where(
             torch.isfinite(lp), lnl + lp, torch.full_like(lp, -math.inf)
         )
         return lnpost, imgs
+
+    def _pointwise(self, thetas, fns):
+        imgs = self._images(self.as_thetas(thetas), with_ps=False)
+        resid = self.obs - imgs["conv"]
+        ivm = 1.0 / imgs["var"]
+        return tuple(fn(resid, ivm, self.good, imgs["conv"]) for fn in fns)
+
+    def pointwise_log_likelihood(self, thetas):
+        """Per-pixel log-density maps ``(B, H, W)``, 0 at masked pixels;
+        each sums to the walker's lnL."""
+        return self._pointwise(thetas, (self._lnlike_pointwise,))[0]
+
+    def pointwise_predictive_cdf(self, thetas):
+        """Per-pixel ``P(y_rep <= y_obs | theta)`` maps ``(B, H, W)``, 0.5
+        at masked pixels (LOO-PIT's per-draw ingredient)."""
+        return self._pointwise(thetas, (self._cdf_pointwise,))[0]
+
+    def pointwise_lnl_and_cdf(self, thetas):
+        """(log-density maps, predictive-CDF maps) from one render."""
+        return self._pointwise(thetas, (self._lnlike_pointwise, self._cdf_pointwise))
 
     def carry_image_shapes(self) -> Dict[str, tuple]:
         """Keys and shapes of :meth:`ensemble_carry_means`, without
@@ -302,25 +476,57 @@ class PosteriorFns(nn.Module):
         as the JAX package does from a shape-only trace)."""
         return {k: self.shape for k in ("raw", "conv", "var", "ps_conv", "raw_m2")}
 
+    def _convolve_groups(self, raw, sq, ps):
+        """(conv, model var, ps conv) of per-PSF-group images ``(K, Hr,
+        Wr)``, each group with its own PSF, cropped and summed over the
+        groups."""
+        if self.lnpost != "general":
+            return self._convolve3(raw[0], sq[0], ps[0])
+        out = self._crop(convolve(torch.stack([raw, sq, ps], dim=1), self.f_stack))
+        out = out.sum(dim=0)
+        return out[0], out[1], out[2]
+
     def ensemble_carry_means(self, thetas) -> Dict[str, torch.Tensor]:
-        """Walker-mean carry images, three convolutions per call.
+        """Walker-mean carry images, three convolutions per PSF group.
 
         Convolution is linear, so the mean of ``conv(raw_w)``,
-        ``conv(raw_w^2)`` and ``conv(ps_w)`` over walkers is the
-        convolution of the walker means.  ``raw_m2`` is the sum of
-        squared deviations of the raw images about this batch's mean
-        (deviation form: float32 never sees an O(mean^2) cancellation).
+        ``conv(raw_w^2)`` and ``conv(ps_w)`` over the walkers that use
+        one PSF is the convolution of their mean; the groups are summed
+        with a one-hot product in full fp32.  ``NoiseScale`` is a
+        per-walker weight on ``raw_w^2``, and the observation variance
+        takes the walkers' mean scale.  ``raw_m2`` is the sum of squared
+        deviations of the raw images about this batch's mean (deviation
+        form: float32 never sees an O(mean^2) cancellation).
         """
+        thetas = self.as_thetas(thetas)
         raws, pss = self.raw_and_ps(thetas)
         inv_n = 1.0 / raws.shape[0]
-        mean_raw = raws.sum(dim=0) * inv_n
-        mean_sq = (raws * raws).sum(dim=0) * inv_n
-        mean_ps = pss.sum(dim=0) * inv_n
-        conv, var, ps_conv = self._convolve3(mean_raw, mean_sq, mean_ps)
+        sq = raws * raws
+        mean_s = 1.0
+        if self._noise_ci is not None:
+            s = self._noise_scale(thetas)
+            mean_s = s.mean()
+            sq = sq * s[:, None, None]
+        if self.spec.num_psfs == 1:
+            groups = [t.sum(dim=0)[None] * inv_n for t in (raws, sq, pss)]
+        else:
+            psfs = torch.arange(self.spec.num_psfs, device=self.device)
+            onehot = (self._psf_index(thetas)[:, None] == psfs).to(self.dtype)
+            groups = [torch.einsum("wk,whx->khx", onehot, t) * inv_n
+                      for t in (raws, sq, pss)]
+        conv, model_var, ps_conv = self._convolve_groups(*groups)
+        mean_raw = self._crop(groups[0].sum(dim=0))
+        raws = self._crop(raws)
+        if self._grad_skies:
+            planes = self._sky_plane(thetas)
+            mean_plane = planes.sum(dim=0) * inv_n
+            mean_raw = mean_raw + mean_plane
+            conv = conv + mean_plane
+            raws = raws + planes
         return {
             "raw": mean_raw,
             "conv": conv,
-            "var": var + self.c_obs_var,
+            "var": model_var + mean_s * self.obs_var,
             "ps_conv": ps_conv,
             "raw_m2": ((raws - mean_raw) ** 2).sum(dim=0),
         }

@@ -16,7 +16,12 @@ Two ways to get one:
   from identical constants).
 
 Both end in :func:`check_in_slice`, which raises
-``NotImplementedError`` for what this slice of the port does not run.
+``NotImplementedError`` for what this slice of the port does not run:
+Sersic isophote shapes and truncation, the other profile families,
+``Tied`` parameters and the priors not yet ported.  Several PSFs with a
+sampled index, the tilted-plane sky, ``NoiseScale``, ``conv_pad``,
+``render_oversample``, ``psf_oversample`` and the Student-t and Poisson
+likelihoods are in.
 """
 from __future__ import annotations
 
@@ -26,10 +31,12 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 
 from .. import distributions as D
+from ..ops.fourier import pad_and_rfft_image
 from ..ops.pointsource import SHIFT_METHODS
 from .components import (
     ComponentBase,
     Configuration,
+    NoiseScale,
     PointSource,
     PSFSelector,
     Sersic,
@@ -44,13 +51,16 @@ __all__ = [
     "build_model_spec",
     "spec_from_numpy",
     "check_in_slice",
+    "psf_spectra_for",
+    "psf_spectra_for_selector",
 ]
 
 # attributes each component kind renders in this slice
 SLICE_PARAMS = {
-    "sky": ("adu",),
+    "sky": ("adu", "dx", "dy"),
     "pointsource": ("xy", "mag"),
     "sersic": ("xy", "mag", "reff", "reff_b", "index", "angle"),
+    "noisescale": ("scale",),
     "psfselector": ("psf_index",),
 }
 
@@ -76,7 +86,7 @@ class CompSpec:
     ``('theta', (offset, size))``.
     """
 
-    kind: str  # 'sky' | 'pointsource' | 'sersic' | 'psfselector'
+    kind: str  # 'sky' | 'pointsource' | 'sersic' | 'noisescale' | 'psfselector'
     params: Dict[str, Tuple[str, Any]]
     static: Dict[str, Any] = field(default_factory=dict)
 
@@ -91,12 +101,15 @@ class ModelSpec:
     obs_data: np.ndarray
     obs_var: np.ndarray
     bad_px: np.ndarray
-    f_psf_stack: np.ndarray  # (npsf, H, W//2+1) complex
+    f_psf_stack: np.ndarray  # (npsf, H + 2 pad, (W + 2 pad)//2+1) complex
     f_var_stack: np.ndarray
     num_psfs: int
-    likelihood: str = "gaussian"
-    conv_pad: int = 0
+    likelihood: str = "gaussian"  # 'gaussian' | 'student' | 'poisson'
+    likelihood_df: float = 4.0  # Student-t degrees of freedom
+    likelihood_gain: float = 1.0  # Poisson counts per observation unit
+    conv_pad: int = 0  # the spectra are sized to the padded grid
     render_oversample: int = 1
+    oversample_window: int = 16
 
     @property
     def param_names(self) -> List[str]:
@@ -113,22 +126,14 @@ class ModelSpec:
 
 def _not_in_slice(what):
     raise NotImplementedError(
-        f"{what} is not in this slice of psfmc_tpu_torch (the flagship "
-        "Sky + PointSource + elliptical Sersic model, one PSF, Gaussian "
-        "likelihood); see ROADMAP Queue 1 for the slice that brings it"
+        f"{what} is not in this slice of psfmc_tpu_torch (Sky, PointSource, "
+        "elliptical Sersic and NoiseScale components with their priors); "
+        "see ROADMAP Queue 1 for the slice that brings it"
     )
 
 
 def check_in_slice(spec: ModelSpec):
     """Raise ``NotImplementedError`` for anything this slice cannot run."""
-    if spec.num_psfs != 1:
-        _not_in_slice(f"a model with {spec.num_psfs} PSFs")
-    if spec.likelihood != "gaussian":
-        _not_in_slice(f"likelihood={spec.likelihood!r}")
-    if spec.conv_pad:
-        _not_in_slice(f"conv_pad={spec.conv_pad}")
-    if spec.render_oversample != 1:
-        _not_in_slice(f"render_oversample={spec.render_oversample}")
     for cs in spec.comp_specs:
         allowed = SLICE_PARAMS.get(cs.kind)
         if allowed is None:
@@ -143,8 +148,6 @@ def check_in_slice(spec: ModelSpec):
             method = cs.static.get("shift_method", "lanczos3")
             if method not in SHIFT_METHODS:
                 raise ValueError(f"Unknown shift method: {method}")
-        if cs.kind == "psfselector" and cs.params["psf_index"][0] != "const":
-            _not_in_slice("a sampled PSF index")
     for slot in spec.slots:
         if not isinstance(slot.dist, D.Distribution):
             _not_in_slice(f"prior {slot.dist!r} of {slot.name}")
@@ -194,9 +197,48 @@ def _comp_spec(comp, slot_map) -> CompSpec:
             _not_in_slice(f"Sersic shape option(s) {sorted(comp.shape_options)}")
         return CompSpec("sersic", rules(SLICE_PARAMS["sersic"]),
                         static={"angle_degrees": comp.angle_degrees})
+    if isinstance(comp, NoiseScale):
+        return CompSpec("noisescale", rules(("scale",)))
     if isinstance(comp, PSFSelector):
         return CompSpec("psfselector", rules(("psf_index",)))
     _not_in_slice(f"component {type(comp).__name__}")
+
+
+def psf_spectra_for_selector(sel, obs_shape, conv_pad=0):
+    """``(f_psf_stack, f_var_stack)`` of a PSFSelector: the observation-size
+    half spectra, or with ``conv_pad`` the spatial kernels re-padded and
+    transformed at the padded size ``obs + 2 pad``."""
+    conv_pad = int(conv_pad)
+    if conv_pad > 0:
+        padded = tuple(int(n) + 2 * conv_pad for n in obs_shape)
+        return (np.stack([pad_and_rfft_image(p, padded) for p in sel.spatial_psfs]),
+                np.stack([pad_and_rfft_image(v, padded) for v in sel.spatial_vars]))
+    return np.stack(sel.psf_list), np.stack(sel.var_list)
+
+
+def psf_spectra_for(config):
+    """``(f_psf_stack, f_var_stack)`` of a Configuration, honouring its
+    ``conv_pad``."""
+    return psf_spectra_for_selector(config.psf_selector, config.obs_data.shape,
+                                    config.conv_pad)
+
+
+def _check_poisson_inputs(config, comp_specs):
+    """A Poisson model needs non-negative data at every good pixel, and
+    refuses a NoiseScale (it has no variance plane to scale)."""
+    good = ~np.asarray(config.bad_px, bool)
+    obs = np.asarray(config.obs_data, np.float64)
+    if np.any(obs[good] < 0):
+        raise ValueError(
+            "likelihood='poisson' needs non-negative data at every good "
+            f"pixel (found min {obs[good].min():.4g}): Poisson counts cannot "
+            "be background-subtracted below zero — mask the offending pixels "
+            "or use the gaussian/student likelihood")
+    if any(cs.kind == "noisescale" for cs in comp_specs):
+        raise ValueError(
+            "NoiseScale cannot be combined with likelihood='poisson': the "
+            "Poisson likelihood has no variance plane to scale (the "
+            "parameter would be sampled but inert)")
 
 
 def build_model_spec(components: List[ComponentBase], config=None) -> ModelSpec:
@@ -217,13 +259,14 @@ def build_model_spec(components: List[ComponentBase], config=None) -> ModelSpec:
         config = configs[0]
     components = [c for c in components if not isinstance(c, Configuration)]
     sel = config.psf_selector
-    if sel.oversample != 1:
-        _not_in_slice(f"psf_oversample={sel.oversample}")
     components.append(sel)
     for count, component in enumerate(components):
         component.update_stochastic_names(count=count)
     slots, slot_map, num_params = build_param_slots(components)
     comp_specs = [_comp_spec(c, slot_map) for c in components]
+    if config.likelihood == "poisson":
+        _check_poisson_inputs(config, comp_specs)
+    f_psf_stack, f_var_stack = psf_spectra_for(config)
     spec = ModelSpec(
         comp_specs=comp_specs,
         slots=slots,
@@ -233,25 +276,30 @@ def build_model_spec(components: List[ComponentBase], config=None) -> ModelSpec:
         obs_data=np.asarray(config.obs_data, dtype=np.float64),
         obs_var=np.asarray(config.obs_var, dtype=np.float64),
         bad_px=np.asarray(config.bad_px, dtype=bool),
-        f_psf_stack=np.stack(sel.psf_list),
-        f_var_stack=np.stack(sel.var_list),
-        num_psfs=len(sel.psf_list),
+        f_psf_stack=f_psf_stack,
+        f_var_stack=f_var_stack,
+        num_psfs=len(sel.spatial_psfs),
         likelihood=config.likelihood,
+        likelihood_df=config.likelihood_df,
+        likelihood_gain=config.likelihood_gain,
         conv_pad=config.conv_pad,
         render_oversample=config.render_oversample,
+        oversample_window=config.oversample_window,
     )
     return check_in_slice(spec)
 
 
 def spec_from_numpy(obs_data, obs_var, bad_px, f_psf_stack, f_var_stack,
                     mag_zeropoint, slots, comp_params, likelihood="gaussian",
-                    conv_pad=0, render_oversample=1) -> ModelSpec:
+                    likelihood_df=4.0, likelihood_gain=1.0, conv_pad=0,
+                    render_oversample=1, oversample_window=16) -> ModelSpec:
     """Build a :class:`ModelSpec` from plain numpy arrays and tuples.
 
     :param obs_data, obs_var, bad_px: ``(H, W)`` observation, variance
         (inf at bad pixels) and bad-pixel map.
-    :param f_psf_stack, f_var_stack: ``(npsf, H, W//2+1)`` complex half
-        spectra of the center-padded PSF(s) and PSF variance map(s).
+    :param f_psf_stack, f_var_stack: ``(npsf, Hr, Wr//2+1)`` complex half
+        spectra of the center-padded PSF(s) and PSF variance map(s), at
+        the render grid's size ``(Hr, Wr) = (H + 2 pad, W + 2 pad)``.
     :param mag_zeropoint: magnitude of 1 count/second.
     :param slots: the slot table, one ``(name, offset, size, family,
         kwargs)`` or ``(name, offset, size, family, kwargs, fitsname)``
@@ -299,7 +347,10 @@ def spec_from_numpy(obs_data, obs_var, bad_px, f_psf_stack, f_var_stack,
         f_var_stack=np.asarray(f_var_stack),
         num_psfs=int(f_psf_stack.shape[0]),
         likelihood=str(likelihood),
+        likelihood_df=float(likelihood_df),
+        likelihood_gain=float(likelihood_gain),
         conv_pad=int(conv_pad),
         render_oversample=int(render_oversample),
+        oversample_window=int(oversample_window),
     )
     return check_in_slice(spec)

@@ -15,6 +15,7 @@ from . import fused_lnl
 from .conv_lnl import (
     ConvLnlConsts,
     batched_conv_lnl,
+    batched_lnl_supported,
     batched_conv_lnl_plain,
     conv_route,
     make_conv_lnl_consts,
@@ -29,6 +30,7 @@ from .sersic_render import (
 __all__ = [
     "ConvLnlConsts",
     "batched_conv_lnl",
+    "batched_lnl_supported",
     "batched_conv_lnl_plain",
     "conv_route",
     "make_conv_lnl_consts",

@@ -46,6 +46,7 @@ from ..likelihood import gaussian_lnlike
 from . import _build, counts
 
 __all__ = [
+    "batched_lnl_supported",
     "ConvLnlConsts",
     "make_conv_lnl_consts",
     "batched_conv_lnl",
@@ -98,6 +99,32 @@ def fft_twiddles(n, dtype=np.float32):
         raise ValueError(f"the twiddle table needs a power of two, got {n}")
     ang = 2.0 * np.pi * np.arange(n // 2) / n
     return np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(dtype)
+
+
+def batched_lnl_supported(spec):
+    """``(ok, reason)``: whether the conv+likelihood kernel computes
+    ``spec``'s likelihood (the JAX package's ``batched_lnl_supported``).
+
+    The kernel holds one PSF's spectra, reduces the Gaussian lnL of the
+    unscaled variance, and has no place for a background added after the
+    convolution or for a padded grid: several PSFs, another likelihood
+    family, a tilted-plane sky, a ``NoiseScale`` and ``conv_pad`` take
+    the general path instead.
+    """
+    specs = getattr(spec, "comp_specs", ())
+    checks = (
+        (getattr(spec, "num_psfs", 1) == 1, "several PSFs"),
+        (getattr(spec, "likelihood", "gaussian") == "gaussian",
+         "a non-Gaussian likelihood"),
+        (all(not ({"dx", "dy"} & set(cs.params))
+             for cs in specs if cs.kind == "sky"), "a sky gradient"),
+        (all(cs.kind != "noisescale" for cs in specs), "a NoiseScale"),
+        (getattr(spec, "conv_pad", 0) == 0, "conv_pad > 0"),
+    )
+    for ok, what in checks:
+        if not ok:
+            return False, what
+    return True, ""
 
 
 @dataclass(frozen=True)

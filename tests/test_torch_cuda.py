@@ -518,3 +518,131 @@ def test_a_failing_capture_raises_and_nothing_falls_back(flagship):
     assert s.graph_replays == 0 and not s._graphs
     assert torch.equal(s.state.positions, pos)
     assert [f.launches for f in COUNTED] == before
+
+
+# -- the general likelihood path ----------------------------------------------
+
+GENERAL = {
+    "two-psfs": dict(),
+    "conv-pad": dict(conv_pad=8),
+    "oversample": dict(render_oversample=4, psf_oversample=2),
+    "student": dict(likelihood="student"),
+    "poisson": dict(likelihood="poisson", counts=True, noise_scale=False),
+}
+
+
+def _general(device, variant, shape=(64, 64), psf_shape=(32, 32), **kw):
+    from psfmc_tpu_torch.flagship import general_components
+
+    spec = build_model_spec(general_components(shape, psf_shape,
+                                               **dict(GENERAL[variant], **kw)))
+    return spec, build_posterior(spec, device=device, lnpost="general")
+
+
+def _general_thetas(spec, n, seed):
+    """Prior draws; the PSF index on and beside its .5 points."""
+    th = prior_draws(spec, n, seed=seed)
+    if "PSF_Index" in spec.param_names:
+        off = next(s.offset for s in spec.slots if s.name == "PSF_Index")
+        th[:, off] = np.resize([0.5, 1.5, 0.49, 1.0, 0.0, -0.4], n)
+    return th
+
+
+@pytest.mark.parametrize("variant", sorted(GENERAL))
+def test_general_posterior_matches_cpu_float64(cuda, variant):
+    """lnpost (rtol 1e-4, with a floor of 1e-5 of the batch's largest
+    |lnpost|), per-walker images and ensemble means (1e-4 of their
+    peak) on the card against the CPU's float64 general path; one render
+    launch per evaluation."""
+    spec, post = _general(cuda, variant)
+    th = _general_thetas(spec, 16, seed=6)
+    before = SR.render_sersics.launches
+    got = post.log_posterior_batch(th).double().cpu().numpy()
+    torch.cuda.synchronize()
+    assert SR.render_sersics.launches == before + 1
+    ref = build_posterior(spec, device="cpu", dtype=torch.float64, lnpost="general")
+    want = ref.log_posterior_batch(th).numpy()
+    fin = np.isfinite(want)
+    assert np.array_equal(fin, np.isfinite(got)) and fin.sum() >= 8
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-4,
+                               atol=1e-5 * np.abs(want[fin]).max())
+    good = th[fin]
+    for fn in ("images_batch", "ensemble_carry_means"):
+        imgs, refs = getattr(post, fn)(good), getattr(ref, fn)(good)
+        for k, v in refs.items():
+            np.testing.assert_allclose(imgs[k].double().cpu().numpy(), v.numpy(),
+                                       rtol=0, atol=1e-4 * v.abs().max().item(),
+                                       err_msg=f"{fn}.{k}")
+
+
+@pytest.mark.parametrize("pad", [4, 8])
+def test_padded_grid_render_matches_plain(cuda, pad):
+    """The render kernel on the padded grid, each Sersic's center shifted
+    by +pad: the plain version's bits; and the JAX package's formulation
+    (the grid minus pad, the center as it is) on the same float32
+    scalars within 1e-5 at 99.9% of the pixels where both are finite (the
+    shifted center rounds in float32: a pixel beside a steep center may
+    differ by up to about 3e-3)."""
+    from psfmc_tpu_torch.ops.sersic import sersic_profile_core
+
+    spec, post = _general(cuda, "conv-pad", (128, 128), (64, 64), conv_pad=pad)
+    th = post.as_thetas(_general_thetas(spec, 30, seed=8))
+    params, sky, sersics = post._render_parts(th)
+    got = SR.render_sersics(params.contiguous(), sky.contiguous(), post.render_shape)
+    _assert_render_matches_plain(got, params, sky, post.render_shape)
+    hr, wr = post.render_shape
+    xg = torch.arange(wr, dtype=torch.float32, device=cuda) - pad
+    yg = (torch.arange(hr, dtype=torch.float32, device=cuda) - pad)[:, None]
+    want = sky[:, None, None].expand(-1, hr, wr)
+    for _xy, scalars in sersics:
+        q = [t[:, None, None] for t in scalars]
+        want = want + sersic_profile_core(xg - q[0], yg - q[1], *q[2:])
+    fin = torch.isfinite(want) & torch.isfinite(got)
+    assert fin.double().mean().item() >= 0.95
+    rel = ((got[fin] - want[fin]).abs() / want[fin].abs()).double().cpu()
+    assert torch.quantile(rel[:2**24], 0.999).item() <= 1e-5
+
+
+@pytest.mark.parametrize("variant", ["two-psfs", "oversample"])
+@pytest.mark.parametrize("moves", ["stretch", "mixed"])
+def test_general_graphed_phase_is_bit_identical_to_eager(cuda, variant, moves):
+    """The general path's ten steps as graph replays and eagerly: the same
+    state bit for bit; the render kernel's launches exact (init, one per
+    half-step, one per retained step for the image means)."""
+    spec, post = _general(cuda, variant)
+    graphed, g_launches = _phase(post, spec, moves, eager=False)
+    eager, e_launches = _phase(post, spec, moves, eager=True)
+    assert graphed.graph_replays == 10 and eager.graph_replays == 0
+    _assert_same_state(graphed, eager)
+    assert g_launches == e_launches == [1 + 20 + 6, 0, 0]
+
+
+def test_rejuvenation_between_graphed_segments_is_bit_identical(cuda):
+    """A walker stranded between two burn segments is moved by
+    ``rejuvenate_stuck``, whose writes land in the buffers the captured
+    graphs read: the graphed phase stays bit-identical to the eager one."""
+    import contextlib
+
+    from psfmc_tpu_torch.sampler import EnsembleSampler
+    from psfmc_tpu_torch.sampler.ensemble import _eager
+
+    spec, post = _general(cuda, "two-psfs")
+    mag = next(s.offset for s in spec.slots if s.name == "3_Sersic_mag")
+    runs = []
+    for eager in (False, True):
+        s = EnsembleSampler(40, spec.num_params, post, seed=7)
+        with _eager(s) if eager else contextlib.nullcontext():
+            s.init_state(prior_draws(spec, 40, seed=7))
+            s.run_burn(3)
+            pos = s.state.positions.cpu().numpy()
+            pos[5, mag] = 40.0  # outside its prior: lnp -inf
+            s._reseat(pos)
+            assert s.rejuvenate_stuck(random_state=0) == 1
+            assert torch.isfinite(s.state.log_prob).all()
+            s.run_burn(3)
+            s.reset()
+            s.run_sampling(4)
+        torch.cuda.synchronize()
+        runs.append(s)
+    assert runs[0].graph_replays == 10 and runs[1].graph_replays == 0
+    _assert_same_state(*runs)

@@ -21,6 +21,7 @@ from psfmc_tpu.models.posterior import build_posterior as jax_posterior
 from psfmc_tpu.models.spec import build_model_spec as jax_spec
 from psfmc_tpu_torch import distributions as TD
 from psfmc_tpu_torch.flagship import flagship_components, prior_draws
+from psfmc_tpu_torch.ops.kernels import batched_lnl_supported
 from psfmc_tpu_torch.models import (
     Configuration,
     Sersic,
@@ -186,21 +187,40 @@ def _sersic(**kw):
 
 
 @pytest.mark.parametrize("comps", [
-    lambda: [_small_config(), Sky(adu=TD.Normal(loc=0, scale=1),
-                                  dx=TD.Normal(loc=0, scale=1))],
     lambda: [_small_config(), _sersic(c0=TD.Uniform(loc=-0.5, scale=1.0))],
     lambda: [_small_config(), _sersic(rtrunc=5.0, rsoft=1.0)],
+    lambda: [_small_config(), _sersic(f1=0.1, f1_phi=0.3)],
+    lambda: [_small_config(), _sersic(b1=0.1)],
+    lambda: [_small_config(), _sersic(rot_ang=1.0, rot_out=3.0)],
+    lambda: [_small_config(), _sersic(rtrunc_in=1.0, rsoft_in=0.5)],
+], ids=["boxy-c0", "truncation", "fourier", "bending", "rotation",
+        "inner-truncation"])
+def test_spec_outside_the_slice_raises(comps):
+    with pytest.raises(NotImplementedError, match="not in this slice"):
+        build_model_spec(comps())
+
+
+@pytest.mark.parametrize("comps", [
+    lambda: [_small_config(), Sky(adu=TD.Normal(loc=0, scale=1),
+                                  dx=TD.Normal(loc=0, scale=1))],
     lambda: [_small_config(conv_pad=2), _sersic()],
     lambda: [_small_config(render_oversample=4), _sersic()],
     lambda: [_small_config(likelihood="student"), _sersic()],
     lambda: [_small_config(psf_files=[np.ones((4, 4)), np.eye(4) + 1],
                            psfivm_files=[np.ones((4, 4))] * 2), _sersic()],
     lambda: [_small_config(psf_oversample=2), _sersic()],
-], ids=["sky-gradient", "boxy-c0", "truncation", "conv-pad", "oversample",
-        "student", "two-psfs", "psf-oversample"])
-def test_spec_outside_the_slice_raises(comps):
-    with pytest.raises(NotImplementedError, match="not in this slice"):
-        build_model_spec(comps())
+], ids=["sky-gradient", "conv-pad", "oversample", "student", "two-psfs",
+        "psf-oversample"])
+def test_spec_of_the_general_slice_builds(comps, monkeypatch):
+    """What the slice of the general path brought in builds, and an unset
+    ``PSFMC_LNPOST`` picks the path that covers it."""
+    monkeypatch.delenv("PSFMC_LNPOST", raising=False)
+    spec = build_model_spec(comps())
+    post = build_posterior(spec, device="cpu")
+    covered = batched_lnl_supported(spec)[0]
+    assert post.lnpost == ("batched" if covered else "general")
+    th = post.as_thetas(prior_draws(spec, 3, seed=1))
+    assert torch.isfinite(post.log_posterior_batch(th)).all()
 
 
 def test_unported_prior_in_a_carried_spec_raises(specs):

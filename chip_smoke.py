@@ -77,12 +77,28 @@ never ``jax`` nor ``psfmc_tpu``, and:
    version), ``render_oversample=4`` with ``psf_oversample=2``,
    ``PSFMC_RENDER=pallas_tiled`` and ``PSFMC_KAPPA=newton``, each with a
    lnpost check and a graphed/eager segment of 2 + 2 steps;
-8. prints the kernel table as one JSON line, then the result line
+8. family phase (the render family and pixel-frame ``Tied``): the family
+   flagship (Sky + PointSource + a de Vaucouleurs bulge and a boxy,
+   truncated exponential disk, both ``Tied`` to the point source; 128x128,
+   one 64x64 PSF) written as FITS files and a model file, then
+   ``model_galaxy_mcmc`` with ``PSFMC_LNPOST`` unset (250 walkers, 20 burn
+   + 20 retained steps): the batched path (the bulge a row of the render
+   kernel, the disk plain PyTorch inside the step's graph, conv_lnl on
+   the FFT route) with exact launches, every step a replay, a finite
+   chain and images, the database's columns in the JAX layout, lnpost
+   against the CPU's float64; graphed against eager and the steady
+   steps; then each variant (Moffat, King, Ferrer, Nuker, EdgeDisk, a
+   Sersic with Fourier, bending and rotation modes, Gaussian, an offset
+   tie, ``render_oversample=4`` with a Nuker and a Moffat, the fused
+   kernel on an elliptical bulge + disk, the general path with two PSFs
+   and the tiled render) with a lnpost check and a graphed/eager segment
+   of 2 + 2 steps;
+9. prints the kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler breakdown of
 device time by kernel over a segment of ten retained sampler steps of
-each path (slice, driver and general), graphed and eager, with the device's busy time and idle share
+each path (slice, driver, general and family), graphed and eager, with the device's busy time and idle share
 (against the profiled and the unprofiled wall time), and
 the SM clock cycles that one block of each FFT-route kernel spends in
 each of its phases (a second build of the two sources with phase stamps;
@@ -884,17 +900,18 @@ GENERAL_VARIANTS = (
 )
 
 
-def general_lnpost_check(post, spec, thetas, label):
-    """The card's lnpost of ``thetas`` against the CPU's float64 general
-    path: the same non-finite entries, rtol :data:`GENERAL_RTOL` with a
-    floor of :data:`GENERAL_FLOOR` of the batch's largest |lnpost| (a sum
-    of pixel terms of both signs can cancel near 0 for one walker)."""
+def general_lnpost_check(post, spec, thetas, label, ref_lnpost="general"):
+    """The card's lnpost of ``thetas`` against the CPU's float64 path
+    ``ref_lnpost`` (the plain versions of its kernels): the same
+    non-finite entries, rtol :data:`GENERAL_RTOL` with a floor of
+    :data:`GENERAL_FLOOR` of the batch's largest |lnpost| (a sum of pixel
+    terms of both signs can cancel near 0 for one walker)."""
     import torch
 
     from psfmc_tpu_torch.models import build_posterior
 
     got = post.log_posterior_batch(thetas).double().cpu().numpy()
-    ref = build_posterior(spec, device="cpu", dtype=torch.float64, lnpost="general")
+    ref = build_posterior(spec, device="cpu", dtype=torch.float64, lnpost=ref_lnpost)
     want = ref.log_posterior_batch(torch.as_tensor(thetas).cpu().double()).numpy()
     fin = np.isfinite(want)
     if not np.array_equal(fin, np.isfinite(got)) or fin.sum() < len(want) // 2:
@@ -904,13 +921,14 @@ def general_lnpost_check(post, spec, thetas, label):
     scale = np.maximum(np.abs(want[fin]), GENERAL_FLOOR / GENERAL_RTOL
                        * np.abs(want[fin]).max())
     err = float(np.max(diff / scale))
-    log(f"{label}: general lnpost on the card vs CPU float64, {len(want)} walkers "
+    log(f"{label}: lnpost on the card vs the CPU's float64 {ref_lnpost} path, "
+        f"{len(want)} walkers "
         f"({fin.sum()} finite): max rel diff {np.max(diff / np.abs(want[fin])):.3e}, "
         f"with the floor {err:.3e} (rtol {GENERAL_RTOL:g}, floor "
         f"{GENERAL_FLOOR:g} of the largest |lnpost|)")
     if not err <= GENERAL_RTOL:
-        raise AssertionError(f"{label}: general-path lnpost disagrees with the "
-                             "CPU float64 general path")
+        raise AssertionError(f"{label}: lnpost disagrees with the CPU's float64 "
+                             f"{ref_lnpost} path")
 
 
 def graphed_against_eager(post, spec, label, burn, sample, moves="stretch",
@@ -928,7 +946,6 @@ def graphed_against_eager(post, spec, label, burn, sample, moves="stretch",
     from psfmc_tpu_torch.sampler.ensemble import _eager
 
     p0 = prior_draws(spec, NWALKERS, seed=SEED + 1)
-    mag = next(s.offset for s in spec.slots if s.name.endswith("_Sersic_mag"))
     counted = counted_kernels()
     runs = {}
     for mode in ("graphed", "eager"):
@@ -940,6 +957,8 @@ def graphed_against_eager(post, spec, label, burn, sample, moves="stretch",
             sm.init_state(p0)
             sm.run_burn(burn)
             if strand:
+                mag = next(s.offset for s in spec.slots
+                           if s.name.endswith("_Sersic_mag"))
                 pos = sm.state.positions.cpu().numpy()
                 pos[7, mag] = 99.0  # outside its prior: lnp -inf
                 sm._reseat(pos)
@@ -1142,6 +1161,193 @@ def general_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
             raise AssertionError(f"general variant {label}: launches {got}, want {want}")
         for k, v in got.items():
             variant_launches[k] = variant_launches.get(k, 0) + v
+    return sampling, variant_launches, fresh
+
+
+# the environment each family variant runs under: the fused kernel for the
+# elliptical bulge + disk, the tiled render on the general path
+FAMILY_ENV = {"fused": {"PSFMC_LNPOST": "pallas"},
+              "general": {"PSFMC_RENDER": "pallas_tiled"}}
+# the family flagship's trace columns in the JAX package's layout: the
+# bulge and the disk are centred on the point source, so neither has an
+# xy column
+FAMILY_COLUMNS = [
+    "0_Sky_adu", "1_PointSource_mag", "1_PointSource_xy", "2_DeVaucouleurs_angle",
+    "2_DeVaucouleurs_mag", "2_DeVaucouleurs_reff", "2_DeVaucouleurs_reff_b",
+    "3_ExpDisk_angle", "3_ExpDisk_c0", "3_ExpDisk_mag", "3_ExpDisk_reff",
+    "3_ExpDisk_reff_b", "3_ExpDisk_rsoft", "3_ExpDisk_rtrunc"]
+
+
+def family_launches(lnpost, burn, sample, moved=0, tiled=False):
+    """The launches of ``init_state`` + ``burn`` + ``sample`` steps on a
+    path: init one full-ensemble evaluation, every step one per
+    half-ensemble, every retained step one render for the image means,
+    every rejuvenation that moved walkers one full-ensemble evaluation."""
+    evals = 1 + 2 * (burn + sample) + moved
+    want = {"render_sersics": 0, "render_sersics_tiled": 0, "batched_conv_lnl": 0,
+            "fused_lnl": 0}
+    render = "render_sersics_tiled" if tiled else "render_sersics"
+    if lnpost == "fused":
+        want.update(fused_lnl=evals, render_sersics=sample)
+    else:
+        want[render] = evals + sample
+        if lnpost == "batched":
+            want["batched_conv_lnl"] = evals
+    return want
+
+
+def family_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
+    """The render family at full width: the family flagship (Sky +
+    PointSource + a de Vaucouleurs bulge and a boxy, truncated exponential
+    disk, both tied to the point source) written as FITS files and a model
+    file that imports ``DeVaucouleurs``, ``ExpDisk`` and ``Tied``, through
+    ``model_galaxy_mcmc`` with ``PSFMC_LNPOST`` unset (the batched path:
+    the bulge a row of the render kernel, the disk plain PyTorch inside
+    the step's graph, the likelihood on conv_lnl); then graphed against
+    eager, the steady steps, and each variant of
+    ``psfmc_tpu_torch.flagship.FAMILY_VARIANTS`` at 2 + 2 steps (the
+    arguments shrink it for a rehearsal on the CPU).  Returns the
+    launches of the fit's sampling and of the variants, and a sampler on
+    the family path."""
+    import torch
+
+    from psfmc_tpu_torch import fitting
+    from psfmc_tpu_torch.database import load_database
+    from psfmc_tpu_torch.flagship import (
+        FAMILY_VARIANTS,
+        family_components,
+        family_lnpost,
+        write_family_files,
+    )
+    from psfmc_tpu_torch.io import fits
+    from psfmc_tpu_torch.models import build_model_spec, build_posterior
+    from psfmc_tpu_torch.ops.kernels.conv_lnl import conv_route
+    from psfmc_tpu_torch.sampler import EnsembleSampler
+
+    t_phase = time.perf_counter()
+    counted = counted_kernels()
+    steps = BURN + SAMPLE
+    moved, samplers, at_images = [], [], []
+    rejuvenate_stuck = fitting.EnsembleSampler.rejuvenate_stuck
+    sampler_init = fitting.EnsembleSampler.__init__
+    save_images = fitting.save_posterior_images
+
+    def counting_rejuvenate(self, *a, **k):
+        moved.append(rejuvenate_stuck(self, *a, **k))
+        return moved[-1]
+
+    def kept_init(self, *a, **k):
+        sampler_init(self, *a, **k)
+        samplers.append(self)
+
+    def counted_images(*a, **k):  # the launches of sampling end here
+        torch.cuda.synchronize()
+        at_images.append(read_counts(counted))
+        return save_images(*a, **k)
+
+    env = {k: os.environ.pop(k) for k in ("PSFMC_LNPOST", "PSFMC_RENDER",
+                                          "PSFMC_KAPPA") if k in os.environ}
+    with tempfile.TemporaryDirectory() as tmp:
+        model_file = write_family_files(tmp, shape, psf_shape)
+        out = os.path.join(tmp, "out")
+        fitting.EnsembleSampler.rejuvenate_stuck = counting_rejuvenate
+        fitting.EnsembleSampler.__init__ = kept_init
+        fitting.save_posterior_images = counted_images
+        try:
+            torch.cuda.synchronize()
+            reset_counts(counted)
+            t0 = time.perf_counter()
+            db = fitting.model_galaxy_mcmc(
+                model_file, output_name=out, chains=NWALKERS, burn=BURN,
+                iterations=SAMPLE, seed=SEED, device=device,
+                checkpoint_interval=CHECKPOINT)
+            wall = time.perf_counter() - t0
+        finally:
+            fitting.EnsembleSampler.rejuvenate_stuck = rejuvenate_stuck
+            fitting.EnsembleSampler.__init__ = sampler_init
+            fitting.save_posterior_images = save_images
+        (sm,) = samplers
+        mc_post = sm.fns
+        spec = mc_post.spec
+        timings = dict(db.phase_seconds)
+        log(f"family: model_galaxy_mcmc on the family flagship (bulge + boxy "
+            f"truncated disk + AGN, {spec.num_params} parameters), {NWALKERS} "
+            f"walkers, burn {BURN} + sampling {SAMPLE} in segments of "
+            f"{CHECKPOINT}: {wall:.3f} s wall; phases " + ", ".join(
+                f"{k} {v:.3f} s" for k, v in timings.items()))
+        if mc_post.lnpost != "batched":
+            raise AssertionError(f"the family flagship took lnpost="
+                                 f"{mc_post.lnpost!r} with PSFMC_LNPOST unset")
+        sampling, by_route = at_images[0]
+        want = family_launches("batched", BURN, SAMPLE, sum(n > 0 for n in moved))
+        log(f"family: launches of the sampling {sampling}, by route {by_route}; "
+            f"walkers moved by each rejuvenation {moved}")
+        route = conv_route(shape)
+        other = "dft" if route == "fft" else "fft"
+        if sampling != want or by_route[f"batched_conv_lnl:{route}"] != want[
+                "batched_conv_lnl"] or by_route[f"batched_conv_lnl:{other}"] != 0:
+            raise AssertionError(f"family launches {sampling}, by route {by_route}: "
+                                 f"want {want}, every conv_lnl on the {route} route")
+        if device != "cpu" and sm.graph_replays != steps:
+            raise AssertionError(f"family: {sm.graph_replays} of {steps} steps "
+                                 "were graph replays")
+        lnp = sm.lnprobability
+        acc = float(np.mean(sm.acceptance_fraction))
+        if lnp.shape != (NWALKERS, SAMPLE) or not np.all(np.isfinite(lnp)) \
+                or not np.all(np.isfinite(sm.chain)):
+            raise AssertionError("family: non-finite or misshapen chain")
+        if not 0.02 < acc < 0.9:
+            raise AssertionError(f"family: mean acceptance {acc} outside (0.02, 0.9)")
+        table = load_database(out + "_db.fits")
+        if table.colnames != FAMILY_COLUMNS + ["lnprobability", "walker", "sample"] \
+                or spec.param_names != FAMILY_COLUMNS:
+            raise AssertionError(f"family: database columns {table.colnames}, want "
+                                 f"the JAX layout {FAMILY_COLUMNS}")
+        for ftype in IMAGE_TYPES:
+            img = fits.getdata(f"{out}_{ftype}.fits")
+            if img.shape != tuple(shape) or not np.all(np.isfinite(img)):
+                raise AssertionError(f"family: image {ftype}: {img.shape}")
+        log(f"family: every one of the {steps} steps was a CUDA graph replay; mean "
+            f"acceptance {acc:.4f}; database columns the JAX layout (no column for "
+            f"the tied xy of the bulge and the disk); five images "
+            f"{shape[0]}x{shape[1]} finite")
+        general_lnpost_check(mc_post, spec, sm.state.positions[:16], "family",
+                             ref_lnpost="batched")
+    for k, v in env.items():
+        os.environ[k] = v
+
+    graphed_against_eager(mc_post, spec, "family graph", GRAPH_BURN, GRAPH_SAMPLE)
+    fresh = EnsembleSampler(NWALKERS, spec.num_params, mc_post, seed=SEED)
+    fresh.init_state(sm.state.positions)
+    steady_phase(fresh, "family path (lnpost='batched')")
+
+    variant_launches = {}
+    for variant in FAMILY_VARIANTS[1:]:
+        lnpost = family_lnpost(variant)
+        variant_env = FAMILY_ENV.get(variant, {})
+        os.environ.update(variant_env)
+        try:
+            vspec = build_model_spec(family_components(shape, psf_shape, variant))
+            vpost = build_posterior(vspec, device=device)
+            if vpost.lnpost != lnpost:
+                raise AssertionError(f"family variant {variant} took lnpost="
+                                     f"{vpost.lnpost!r}, want {lnpost!r}")
+            th = prior_draws_general(vspec, 16)
+            general_lnpost_check(vpost, vspec, th, f"family variant {variant} "
+                                 f"(lnpost={lnpost!r})", ref_lnpost=lnpost)
+            got = graphed_against_eager(vpost, vspec, f"family variant {variant}",
+                                        GENERAL_VARIANT_STEPS, GENERAL_VARIANT_STEPS)
+        finally:
+            for k in variant_env:
+                del os.environ[k]
+        want = family_launches(lnpost, GENERAL_VARIANT_STEPS, GENERAL_VARIANT_STEPS,
+                               tiled="PSFMC_RENDER" in variant_env)
+        if got != want:
+            raise AssertionError(f"family variant {variant}: launches {got}, want {want}")
+        for k, v in got.items():
+            variant_launches[k] = variant_launches.get(k, 0) + v
+    log(f"family: the phase took {time.perf_counter() - t_phase:.1f} s")
+    sampling.update(by_route)
     return sampling, variant_launches, fresh
 
 
@@ -1452,6 +1658,7 @@ def main():
     driver_launches, mc, last = driver_phase()
     graph_phase(post, spec)
     general_launches, variant_launches, general = general_phase()
+    family_launches_, family_variant_launches, family = family_phase()
     from psfmc_tpu_torch.sampler import EnsembleSampler
 
     fused = EnsembleSampler(NWALKERS, spec.num_params, mc.posterior_fns,
@@ -1463,20 +1670,26 @@ def main():
         profile_phase(sampler, "slice path (lnpost='batched')")
         profile_phase(fused, "driver path (lnpost='fused')")
         profile_phase(general, "general path (lnpost='general')")
+        profile_phase(family, "family path (lnpost='batched')")
         phase_clocks_phase(post, spec)
         render_geometry_phase(post, spec)
-    # each kernel's launches on its own paths: the render on the slice path
-    # and the general fit's sampling, the tiled render on the general
-    # variant that selects it, conv_lnl on the slice path, the fused kernel
-    # on the driver path (128x128: the FFT route; the matmul-DFT route is
-    # off the main path)
+    # each kernel's launches on its own paths: the render on the slice path,
+    # the general fit's sampling and the family fit's and variants', the
+    # tiled render on the general and family variants that select it,
+    # conv_lnl on the slice path and the family fit and variants, the fused
+    # kernel on the driver path and the family's fused variant (128x128:
+    # the FFT route; the matmul-DFT route is off the main path)
+    fam, fam_var = family_launches_, family_variant_launches
     by_name = {"sersic_render": launches["render_sersics"]
-               + general_launches["render_sersics"],
+               + general_launches["render_sersics"] + fam["render_sersics"]
+               + fam_var["render_sersics"],
                "sersic_render_tiled": launches["render_sersics_tiled"]
-               + variant_launches["render_sersics_tiled"],
-               "conv_lnl": launches["batched_conv_lnl:fft"],
+               + variant_launches["render_sersics_tiled"]
+               + fam_var["render_sersics_tiled"],
+               "conv_lnl": launches["batched_conv_lnl:fft"]
+               + fam["batched_conv_lnl:fft"] + fam_var["batched_conv_lnl"],
                "conv_lnl_dft": launches["batched_conv_lnl:dft"],
-               "fused_lnl": driver_launches["fused_lnl:fft"],
+               "fused_lnl": driver_launches["fused_lnl:fft"] + fam_var["fused_lnl"],
                "fused_lnl_dft": driver_launches["fused_lnl:dft"]}
     for r in rows:
         r["launches"] = by_name[r["name"]]

@@ -146,6 +146,10 @@ class Distribution:
     def median(self):
         return self.rv_frozen.median()
 
+    def interval(self, confidence):
+        """The central interval holding ``confidence`` of the mass."""
+        return self.rv_frozen.interval(confidence)
+
     def logp(self, x):
         """Host-side scipy log-density (a discrete family's of ``rint(x)``)."""
         if self.is_discrete:

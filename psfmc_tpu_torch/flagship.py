@@ -16,6 +16,14 @@ the general likelihood path runs: several PSF stars with a sampled
 and, by keyword, the Configuration's likelihood, padding and
 oversampling options (with ``counts=True``, a Poisson observation of
 non-negative counts).
+
+The family flagship (:func:`family_components`,
+:func:`write_family_files`) is a GALFIT-style bulge + disk + AGN
+decomposition on the render family: Sky + PointSource + a de
+Vaucouleurs bulge and an exponential disk both centred on the point
+source (``Tied(ps, "xy")``), the disk boxy (a ``c0`` prior) and
+truncated (``rtrunc``/``rsoft``); its variants (:data:`FAMILY_VARIANTS`)
+swap the disk for each other profile family or shape.
 """
 from __future__ import annotations
 
@@ -28,7 +36,8 @@ from .models.components import Configuration, PointSource, Sersic, Sky
 
 __all__ = ["flagship_arrays", "flagship_components", "write_flagship_files",
            "general_arrays", "general_components", "write_general_files",
-           "enforce_axis_order", "prior_draws"]
+           "FAMILY_VARIANTS", "family_lnpost", "family_components",
+           "write_family_files", "enforce_axis_order", "prior_draws"]
 
 MAG_ZP = 25.9463
 TOTAL_MAG = 20.66
@@ -268,12 +277,187 @@ def write_general_files(directory, shape=(128, 128), psf_shape=(64, 64),
         fh.write(text)
     return path
 
+# the family flagship's variants: each keeps Sky + PointSource + the tied
+# bulge and swaps the disk for what its name says
+FAMILY_VARIANTS = ("flagship", "moffat", "king", "ferrer", "nuker", "edgedisk",
+                   "sersic-modes", "gaussian", "offset-tie", "oversample",
+                   "fused", "general")
+
+
+def family_lnpost(variant):
+    """The likelihood path a variant is fitted on: ``"fused"`` (under
+    ``PSFMC_LNPOST=pallas``) for the elliptical bulge + disk, ``"general"``
+    for the two-PSF variant, else ``"batched"`` (the default path)."""
+    return {"fused": "fused", "general": "general"}.get(variant, "batched")
+
+
+def _family_sources(shape, variant, C, Dist):
+    """The PointSource, the bulge tied to it and the variant's disk."""
+    a = _prior_args(shape)
+    center, max_shift, blob = a["center"], a["max_shift"], a["blob_center"]
+    ps = C.PointSource(
+        xy=Dist.Uniform(loc=center - max_shift, scale=2 * max_shift),
+        mag=Dist.Uniform(loc=TOTAL_MAG - 0.2, scale=0.2 + 1.5))
+    U = Dist.Uniform
+
+    # each component gets priors of its own: a prior names one trace column
+    def ang():
+        return dict(angle=U(loc=0, scale=180), angle_degrees=True)
+
+    def disk_axes():
+        return dict(mag=U(loc=21.0, scale=3.0), reff=U(loc=3.0, scale=9.0),
+                    reff_b=U(loc=2.0, scale=6.0), **ang())
+
+    def trunc():
+        return dict(rtrunc=U(loc=15.0, scale=15.0), rsoft=U(loc=1.0, scale=2.0))
+
+    def boxy():
+        return dict(c0=U(loc=0.0, scale=0.5))
+
+    def off_center():
+        return dict(xy=U(loc=blob - 5, scale=10), mag=U(loc=22.0, scale=3.0), **ang())
+
+    def moffat():
+        return C.Moffat(fwhm=U(loc=3.0, scale=5.0), fwhm_b=U(loc=2.0, scale=4.0),
+                        index=U(loc=1.5, scale=2.5), c0=U(loc=-0.3, scale=0.8),
+                        **trunc(), **off_center())
+
+    def nuker():
+        return C.Nuker(rb=U(loc=2.0, scale=4.0), rb_b=U(loc=1.5, scale=3.0),
+                       alpha=U(loc=1.0, scale=2.0), beta=U(loc=2.5, scale=2.0),
+                       gamma=U(loc=0.1, scale=0.8), c0=U(loc=-0.2, scale=0.5),
+                       **off_center())
+
+    bulge = C.DeVaucouleurs(xy=C.Tied(ps, "xy"), mag=U(loc=TOTAL_MAG, scale=2.5),
+                            reff=U(loc=1.0, scale=4.0), reff_b=U(loc=1.0, scale=4.0),
+                            **ang())
+    if variant in ("flagship", "offset-tie"):
+        xy = C.Tied(ps, "xy")
+        if variant == "offset-tie":
+            xy = C.Tied(ps, "xy", offset=Dist.Normal(loc=[0.0, 0.0], scale=0.5))
+        disk = [C.ExpDisk(xy=xy, **disk_axes(), **boxy(), **trunc())]
+    elif variant in ("fused", "general"):
+        # elliptical on the fused kernel; boxy beside two PSFs
+        disk = [C.ExpDisk(xy=C.Tied(ps, "xy"), **disk_axes(),
+                          **(boxy() if variant == "general" else {}))]
+    elif variant == "gaussian":
+        disk = [C.Gaussian(xy=C.Tied(ps, "xy"), **disk_axes())]
+    elif variant == "sersic-modes":
+        disk = [C.Sersic(
+            xy=C.Tied(ps, "xy"), index=U(loc=0.7, scale=1.5), **disk_axes(),
+            f1=U(loc=-0.2, scale=0.4), f1_phi=U(loc=0, scale=180),
+            f3=U(loc=-0.2, scale=0.4), f3_phi=U(loc=0, scale=120),
+            b2=U(loc=-0.1, scale=0.2), rot_ang=U(loc=30, scale=90),
+            rot_out=U(loc=6.0, scale=6.0), rot_in=1.0,
+            rot_pow=U(loc=0.5, scale=1.0))]
+    elif variant == "moffat":
+        disk = [moffat()]
+    elif variant == "king":
+        disk = [C.King(rc=U(loc=2.0, scale=3.0),
+                       rc_b=U(loc=1.5, scale=2.5),
+                       rt=U(loc=12.0, scale=10.0),
+                       alpha=U(loc=1.5, scale=1.0),
+                       c0=U(loc=-0.3, scale=0.6), **off_center())]
+    elif variant == "ferrer":
+        disk = [C.Ferrer(rout=U(loc=6.0, scale=6.0),
+                         rout_b=U(loc=3.0, scale=4.0),
+                         alpha=U(loc=1.0, scale=2.0),
+                         beta=U(loc=0.0, scale=1.5),
+                         f2=U(loc=-0.1, scale=0.2), **off_center())]
+    elif variant == "nuker":
+        disk = [nuker()]
+    elif variant == "edgedisk":
+        disk = [C.EdgeDisk(xy=C.Tied(ps, "xy"), mag=U(loc=21.0, scale=3.0),
+                           rs=U(loc=3.0, scale=6.0),
+                           hs=U(loc=0.5, scale=2.0), **ang())]
+    elif variant == "oversample":
+        disk = [nuker(), moffat()]
+    else:
+        raise ValueError(f"unknown family variant {variant!r}; one of "
+                         f"{FAMILY_VARIANTS}")
+    return [ps, bulge] + disk
+
+
+def family_components(shape=(128, 128), psf_shape=(64, 64), variant="flagship",
+                      seed=0, components=None, distributions=None, **config):
+    """[Configuration, Sky, PointSource, DeVaucouleurs, <disk>...] of the
+    family flagship or one of its :data:`FAMILY_VARIANTS`; ``config`` goes
+    to the Configuration.  The ``oversample`` variant renders with
+    ``render_oversample=4`` and the ``general`` one sees two PSF stars.
+    ``components`` and ``distributions`` are the modules whose classes
+    build it (by default the port's; the JAX package's have the same
+    names and arguments)."""
+    if components is None:
+        from .models import components
+    if distributions is None:
+        from . import distributions
+    C, Dist = components, distributions
+    num_psfs = 2 if variant == "general" else 1
+    arrays = general_arrays(shape, psf_shape, num_psfs, seed)
+    if variant == "oversample":
+        config = dict(dict(render_oversample=4), **config)
+    return [
+        C.Configuration(obs_file=arrays["obs"], obsivm_file=arrays["ivm"],
+                        psf_files=arrays["psfs"], psfivm_files=arrays["psf_ivms"],
+                        mag_zeropoint=MAG_ZP, **config),
+        C.Sky(adu=Dist.Normal(loc=0, scale=0.01)),
+    ] + _family_sources(shape, variant, C, Dist)
+
+
+_FAMILY_MODEL_FILE = """\
+# The family flagship: a bulge + disk + AGN decomposition.  The bulge and
+# the disk are centred on the point source; the disk is boxy and truncated.
+from numpy import array
+
+from psfMC.ModelComponents import (Configuration, DeVaucouleurs, ExpDisk,
+                                   PointSource, Sky, Tied)
+from psfMC.distributions import Normal, Uniform
+
+center = array({center})
+max_shift = array({max_shift})
+
+Configuration(obs_file="sci.fits", obsivm_file="ivm.fits",
+              psf_files="psf.fits", psfivm_files="psf_ivm.fits",
+              mask_file="mask.reg", mag_zeropoint={mag_zp!r})
+Sky(adu=Normal(loc=0, scale=0.01))
+agn = PointSource(xy=Uniform(loc=center - max_shift, scale=2 * max_shift),
+                  mag=Uniform(loc={total_mag!r} - 0.2, scale=0.2 + 1.5))
+agn
+DeVaucouleurs(xy=Tied(agn, "xy"), mag=Uniform(loc={total_mag!r}, scale=2.5),
+              reff=Uniform(loc=1.0, scale=4.0), reff_b=Uniform(loc=1.0, scale=4.0),
+              angle=Uniform(loc=0, scale=180), angle_degrees=True)
+ExpDisk(xy=Tied(agn, "xy"), mag=Uniform(loc=21.0, scale=3.0),
+        reff=Uniform(loc=3.0, scale=9.0), reff_b=Uniform(loc=2.0, scale=6.0),
+        angle=Uniform(loc=0, scale=180), angle_degrees=True,
+        c0=Uniform(loc=0.0, scale=0.5),
+        rtrunc=Uniform(loc=15.0, scale=15.0), rsoft=Uniform(loc=1.0, scale=2.0))
+"""
+
+
+def write_family_files(directory, shape=(128, 128), psf_shape=(64, 64), seed=0):
+    """Write the family flagship's inputs to ``directory``: the flagship's
+    FITS files and ds9 mask (:func:`write_flagship_files`) and a model
+    file ``model.py`` that imports ``ExpDisk``, ``DeVaucouleurs`` and
+    ``Tied`` from ``psfMC.ModelComponents`` and declares the components of
+    ``family_components(shape, psf_shape)``, with the mask.  Returns its
+    path."""
+    path = write_flagship_files(directory, shape, psf_shape, seed)
+    a = _prior_args(shape)
+    with open(path, "w") as fh:
+        fh.write(_FAMILY_MODEL_FILE.format(
+            center=tuple(a["center"].tolist()),
+            max_shift=tuple(a["max_shift"].tolist()),
+            mag_zp=MAG_ZP, total_mag=TOTAL_MAG))
+    return path
+
 
 def enforce_axis_order(p0, spec):
-    """Swap reff/reff_b draws so every Sersic has reff >= reff_b."""
+    """Swap the draws of each semi-major/semi-minor pair (``reff`` and
+    ``reff_b``, ``fwhm`` and ``fwhm_b``, ...) so that every profile has
+    its semi-major axis the longer."""
     by_name = {s.name: s for s in spec.slots}
     for name, slot in by_name.items():
-        b = by_name.get(name + "_b") if name.endswith("_reff") else None
+        b = by_name.get(name + "_b")
         if b is None:
             continue
         a_val = p0[:, slot.offset].copy()

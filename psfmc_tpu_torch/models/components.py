@@ -1,8 +1,9 @@
-"""Model components (port of ``models/components.py``, flagship subset).
+"""Model components (port of ``models/components.py``, single band).
 
 Declaration-time objects with the JAX package's conventions: an
-attribute is a prior :class:`~psfmc_tpu_torch.distributions.Distribution`
-or a constant; a component's parameters are ordered alphabetically by
+attribute is a prior :class:`~psfmc_tpu_torch.distributions.Distribution`,
+a constant or a :class:`Tied` reference to another component's
+attribute; a component's parameters are ordered alphabetically by
 attribute; trace names are ``{count}_{CompType}_{attr}`` with the FITS
 abbreviations; ``xy`` spans two slots.  They are compiled into a static
 :class:`~psfmc_tpu_torch.models.spec.ModelSpec` by
@@ -13,12 +14,17 @@ pairs or arrays, an optional FITS, ds9-region or boolean-array mask,
 and the JAX package's likelihood, padding and oversampling options),
 ``PSFSelector`` (one PSF, or several with a sampled ``DiscreteUniform``
 index), ``Sky`` (``adu`` and the tilted-plane ``dx``/``dy``),
-``NoiseScale``, ``PointSource`` and the elliptical ``Sersic``.  The
-Sersic constructor accepts the JAX package's isophote-shape and
-truncation keywords so a model states them in the same words; the spec
-builder raises ``NotImplementedError`` for them.
+``NoiseScale``, ``PointSource``, the render family (``Sersic`` with its
+isophote shapes and truncation; ``ExpDisk``, ``DeVaucouleurs`` and
+``Gaussian``; ``Moffat``; ``King``, ``Ferrer`` and ``Nuker``;
+``EdgeDisk``) and pixel-frame ``Tied`` parameters, offset ties
+included.  A ``frame="sky"`` tie belongs to joint multi-band models and
+:func:`~psfmc_tpu_torch.models.spec.build_model_spec` raises
+``NotImplementedError`` for it.
 """
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 
@@ -37,9 +43,58 @@ __all__ = [
     "NoiseScale",
     "PointSource",
     "Sersic",
+    "ExpDisk",
+    "DeVaucouleurs",
+    "Gaussian",
+    "Moffat",
+    "EdgeDisk",
+    "King",
+    "Ferrer",
+    "Nuker",
     "Configuration",
     "PSFSelector",
+    "Tied",
 ]
+
+
+class Tied:
+    """Share another component's stochastic attribute.
+
+    ``PointSource(xy=Tied(host, "xy"), ...)`` renders the point source
+    from the SAME slot of the parameter vector as its host: the tie is
+    exact, costs no parameter and adds no trace column.  A tie to a
+    constant resolves to that constant; chains resolve transitively and
+    cycles are rejected at spec build.  With ``offset=`` (a prior, ``xy``
+    only) the component renders at the tied position plus a free offset
+    that takes this attribute's slots and trace column.  ``frame="sky"``
+    (the same sky position in another band's pixel frame) is accepted
+    here and refused by ``build_model_spec``: it belongs to joint models.
+    """
+
+    def __init__(self, component, attr, frame="pixel", offset=None):
+        if not isinstance(component, ComponentBase):
+            raise TypeError(
+                "Tied(component, attr): component must be a model "
+                f"component, got {type(component).__name__}"
+            )
+        if not isinstance(attr, str):
+            raise TypeError("Tied(component, attr): attr must be a string")
+        if frame not in ("pixel", "sky"):
+            raise ValueError(f"Tied frame {frame!r}: expected 'pixel' or 'sky'")
+        if frame == "sky" and attr != "xy":
+            raise ValueError("frame='sky' ties apply only to 'xy'")
+        if offset is not None and not isinstance(offset, Distribution):
+            raise TypeError(
+                "Tied offset= must be a prior distribution (e.g. "
+                "Normal(loc=[0, 0], scale=0.1) for a sub-pixel "
+                "registration uncertainty)"
+            )
+        if offset is not None and attr != "xy":
+            raise ValueError("Tied offset= applies only to 'xy'")
+        self.component = component
+        self.attr = attr
+        self.frame = frame
+        self.offset = offset
 
 
 class ComponentBase:
@@ -51,10 +106,18 @@ class ComponentBase:
     def __init__(self):
         object.__setattr__(self, "_priors", {})
         object.__setattr__(self, "_constants", {})
+        object.__setattr__(self, "_tied_offsets", {})
 
     def __setattr__(self, name, value):
         if name in type(self)._stochastic_attrs:
-            if isinstance(value, Distribution):
+            self._tied_offsets.pop(name, None)
+            if isinstance(value, Tied) and value.offset is not None:
+                # the offset prior owns this attribute's slots and column;
+                # the tie is composed at spec build
+                self._priors[name] = value.offset
+                self._constants.pop(name, None)
+                self._tied_offsets[name] = value
+            elif isinstance(value, Distribution):
                 self._priors[name] = value
                 self._constants.pop(name, None)
             else:
@@ -62,6 +125,33 @@ class ComponentBase:
                 self._priors.pop(name, None)
         else:
             object.__setattr__(self, name, value)
+
+    def __getattr__(self, name):
+        """A stochastic attribute's current value; a (pixel-frame) tie
+        reads the component it names, through chains, and a cycle
+        raises ``ValueError``."""
+        if name.startswith("_"):
+            raise AttributeError(name)
+        priors = self.__dict__.get("_priors", {})
+        constants = self.__dict__.get("_constants", {})
+        if name in priors:
+            return priors[name].value
+        if name not in constants:
+            raise AttributeError(name)
+        val = constants[name]
+        seen = {(id(self), name)}
+        while isinstance(val, Tied):
+            comp, attr = val.component, val.attr
+            if (id(comp), attr) in seen:
+                raise ValueError(f"Tied cycle through {type(comp).__name__}.{attr}")
+            seen.add((id(comp), attr))
+            if attr in comp._priors:
+                return comp._priors[attr].value
+            val = comp._constants.get(attr)
+        return val
+
+    def _has(self, attr):
+        return attr in self._priors or attr in self._constants
 
     def sorted_prior_items(self):
         return sorted(self._priors.items())
@@ -157,9 +247,7 @@ class NoiseScale(ComponentBase):
         self.scale = scale
 
     def _batch_constraints(self, vals):
-        m = len(next(iter(vals.values())))
-        scale = vals.get("scale", self._constants.get("scale"))
-        return np.ravel(np.asarray(scale) > 0) & np.ones(m, bool)
+        return _positive(self, vals, super()._batch_constraints(vals), "scale")
 
 
 class PointSource(ComponentBase):
@@ -176,12 +264,137 @@ class PointSource(ComponentBase):
         self.shift_method = shift_method
 
 
-class Sersic(ComponentBase):
-    """Elliptical Sersic profile.
+_FOURIER_MODES = (1, 2, 3, 4)
+_BENDING_MODES = (1, 2, 3)
+_ROT_ATTRS = ("rot_ang", "rot_in", "rot_out", "rot_pow")
+_SHAPE_ATTRS = ("c0",) + tuple(
+    n for m in _FOURIER_MODES for n in (f"f{m}", f"f{m}_phi")
+) + tuple(f"b{m}" for m in _BENDING_MODES) + _ROT_ATTRS
+_TRUNC_ATTRS = ("rsoft", "rsoft_in", "rtrunc", "rtrunc_in")
 
-    ``c0`` and the other shape keywords of the JAX package (Fourier and
-    bending modes, rotation, truncation) are recorded and rejected by
-    the spec builder: they wait for the full render-family slice.
+
+def _c0_low(c0):
+    """The low end of a ``c0``: a constant, or its prior's 99.8% interval
+    (a mass-based bound: a Normal prior reaches -inf but rarely below
+    -1.5)."""
+    if isinstance(c0, Distribution):
+        return float(np.ravel(np.asarray(c0.interval(0.998)))[0])
+    if isinstance(c0, (int, float, np.floating)):
+        return float(c0)
+    return None
+
+
+def _register_shape_attrs(comp, c0, shape_kw, allow_trunc=False):
+    """Register the isophote-shape attributes given (``c0``, ``f1..f4`` and
+    their phases, ``b1..b3``, the rotation, and for the families that
+    support it the truncation): absent ones add no slot.  A phase without
+    its amplitude, a truncation radius without its softening length (or
+    the reverse) and a partial rotation are rejected, and a ``c0`` that
+    reaches below -1.5 warns, as in the JAX package."""
+    if c0 is not None:
+        comp.c0 = c0
+        low = _c0_low(c0)
+        if low is not None and low < -1.5:
+            warnings.warn(
+                f"c0 support reaches {low:.3g} < -1.5: extreme-disky "
+                "isophotes concentrate flux into axis ridges that "
+                "point sampling cannot integrate; total-flux "
+                "normalization errors grow to ~4x by c0=-1.8. Bound "
+                "the c0 prior at >= -1.2 for quantitative photometry."
+            )
+    names = {n for m in _FOURIER_MODES for n in (f"f{m}", f"f{m}_phi")}
+    names |= {f"b{m}" for m in _BENDING_MODES} | set(_ROT_ATTRS)
+    if allow_trunc:
+        names |= set(_TRUNC_ATTRS)
+    for name, val in shape_kw.items():
+        if name not in names:
+            raise TypeError(f"{type(comp).__name__}() got an unexpected keyword "
+                            f"argument {name!r}")
+        if val is not None:
+            setattr(comp, name, val)
+    for m in _FOURIER_MODES:
+        if comp._has(f"f{m}_phi") and not comp._has(f"f{m}"):
+            raise ValueError(f"f{m}_phi given without its amplitude f{m}")
+    for r, s in (("rtrunc", "rsoft"), ("rtrunc_in", "rsoft_in")):
+        if comp._has(r) != comp._has(s):
+            raise ValueError(f"truncation needs BOTH {r} (break radius, px) and "
+                             f"{s} (softening length, px)")
+    if comp._has("rot_ang") != comp._has("rot_out"):
+        raise ValueError("spiral rotation needs BOTH rot_ang (winding angle) and "
+                         "rot_out (radius where it is reached, px)")
+    for opt in ("rot_in", "rot_pow"):
+        if comp._has(opt) and not comp._has("rot_ang"):
+            raise ValueError(f"{opt} given without rot_ang/rot_out")
+
+
+def _value(comp, vals, name):
+    """A draw batch's values of ``name``, or the constant; None where the
+    attribute is absent or tied (another component draws it, and the
+    log-prior enforces the constraint while sampling)."""
+    v = vals.get(name, comp._constants.get(name))
+    return None if isinstance(v, Tied) else v
+
+
+def _positive(comp, vals, ok, *names):
+    for name in names:
+        v = _value(comp, vals, name)
+        if v is not None:
+            ok = ok & np.ravel(np.asarray(v, float) > 0.0)
+    return ok
+
+
+def _ordered(comp, vals, ok, a_name, b_name):
+    """``a >= b`` (semi-major at least semi-minor) for every draw."""
+    a, b = _value(comp, vals, a_name), _value(comp, vals, b_name)
+    if a is None or b is None:
+        return ok
+    return ok & np.ravel(np.asarray(b) <= np.asarray(a))
+
+
+def _shape_batch_ok(comp, vals, ok):
+    """The isophote-shape support for a draw batch: ``c0 > -1.95``, ``sum
+    |f_m| <= 0.9``, positive truncation radii, ``rot_out > rot_in >= 0``
+    and ``rot_pow > 0``."""
+    c0 = _value(comp, vals, "c0")
+    if c0 is not None:
+        ok = ok & np.ravel(np.asarray(c0) > -1.95)
+    amp_sum = None
+    for m in _FOURIER_MODES:
+        a = _value(comp, vals, f"f{m}")
+        if a is not None:
+            a = np.abs(np.ravel(np.asarray(a, float)))
+            amp_sum = a if amp_sum is None else amp_sum + a
+    if amp_sum is not None:
+        ok = ok & (amp_sum <= 0.9)
+    ok = _positive(comp, vals, ok, *_TRUNC_ATTRS)
+    rot_out = _value(comp, vals, "rot_out")
+    if rot_out is not None:
+        rot_out = np.ravel(np.asarray(rot_out, float))
+        rot_in = vals.get("rot_in", comp._constants.get("rot_in", 0.0))
+        if not isinstance(rot_in, Tied):
+            rot_in = np.ravel(np.asarray(rot_in, float))
+            ok = ok & (rot_out > rot_in) & (rot_in >= 0.0)
+        ok = _positive(comp, vals, ok, "rot_pow")
+    return ok
+
+
+class Sersic(ComponentBase):
+    """Sersic profile, with the JAX package's optional GALFIT-style shapes
+    (each adds no slot when omitted):
+
+    * ``c0`` boxiness (``r^c = |u|^c + |v|^c``, ``c = c0 + 2``; support
+      ``c0 > -1.95``);
+    * ``f1..f4`` (+ ``f1_phi..f4_phi``, in ``angle`` units, default 0)
+      azimuthal Fourier modes (support ``sum |f_m| <= 0.9``);
+    * ``b1..b3`` bending modes (flux exact for any amplitudes);
+    * ``rot_ang``/``rot_out`` (+ ``rot_in`` default 0, ``rot_pow``
+      default 1) spiral rotation (support ``rot_out > rot_in >= 0``,
+      ``rot_pow > 0``);
+    * ``rtrunc``/``rsoft`` and ``rtrunc_in``/``rsoft_in`` radial
+      truncation, in semi-major pixels (support: all positive).
+
+    ``mag`` stays the exact total flux for any shape
+    (:func:`psfmc_tpu_torch.ops.sersic.render_sersic_gen`).
     """
 
     _fits_abbrs = (
@@ -191,7 +404,9 @@ class Sersic(ComponentBase):
         ("index", "N"),
         ("angle", "ANG"),
     )
-    _stochastic_attrs = ("xy", "mag", "reff", "reff_b", "index", "angle")
+    _fourier_modes = _FOURIER_MODES
+    _stochastic_attrs = ("xy", "mag", "reff", "reff_b", "index", "angle") \
+        + _SHAPE_ATTRS + _TRUNC_ATTRS
 
     def __init__(self, xy=None, mag=None, reff=None, reff_b=None,
                  index=None, angle=None, angle_degrees=False, c0=None,
@@ -204,18 +419,217 @@ class Sersic(ComponentBase):
         self.index = index
         self.angle = angle
         self.angle_degrees = angle_degrees
-        self.shape_options = {
-            k: v for k, v in dict(c0=c0, **shape_kw).items() if v is not None
-        }
+        _register_shape_attrs(self, c0, shape_kw, allow_trunc=True)
 
     def _batch_constraints(self, vals):
-        """``reff >= reff_b`` for every draw (constants count too)."""
-        m = len(next(iter(vals.values())))
-        reff = vals.get("reff", self._constants.get("reff"))
-        reff_b = vals.get("reff_b", self._constants.get("reff_b"))
-        if reff is None or reff_b is None:
-            return np.ones(m, dtype=bool)
-        return np.ravel(np.asarray(reff_b) <= np.asarray(reff)) & np.ones(m, bool)
+        """``reff >= reff_b`` and the shape support for every draw."""
+        ok = super()._batch_constraints(vals)
+        return _shape_batch_ok(self, vals, _ordered(self, vals, ok, "reff", "reff_b"))
+
+
+def _fixed_index(cls, value, kw):
+    if "index" in kw:
+        raise TypeError(f"{cls} fixes index={value:g}; use Sersic for a free index")
+    return dict(kw, index=value)
+
+
+class ExpDisk(Sersic):
+    """Exponential disk: a Sersic with ``index`` fixed at 1 (GALFIT's
+    ``expdisk``); shapes and truncation as :class:`Sersic`."""
+
+    _fits_abbrs = (("ExpDisk", "EXP"), ("reff_b", "REB"), ("reff", "RE"),
+                   ("angle", "ANG"))
+
+    def __init__(self, **kw):
+        super().__init__(**_fixed_index("ExpDisk", 1.0, kw))
+
+
+class DeVaucouleurs(Sersic):
+    """de Vaucouleurs spheroid: a Sersic with ``index`` fixed at 4
+    (GALFIT's ``devauc``)."""
+
+    _fits_abbrs = (("DeVaucouleurs", "DEV"), ("reff_b", "REB"), ("reff", "RE"),
+                   ("angle", "ANG"))
+
+    def __init__(self, **kw):
+        super().__init__(**_fixed_index("DeVaucouleurs", 4.0, kw))
+
+
+class Gaussian(Sersic):
+    """Elliptical Gaussian: a Sersic with ``index`` fixed at 0.5, whose
+    half maximum falls at ``reff`` (``FWHM = 2 reff``)."""
+
+    _fits_abbrs = (("Gaussian", "GAU"), ("reff_b", "REB"), ("reff", "RE"),
+                   ("angle", "ANG"))
+
+    def __init__(self, **kw):
+        super().__init__(**_fixed_index("Gaussian", 0.5, kw))
+
+
+class King(ComponentBase):
+    """Generalized King profile (GALFIT's ``king``; King 1962 at ``alpha =
+    2``): ``I0 [(1+t^2)^(-1/alpha) - (1+(rt/rc)^2)^(-1/alpha)]^alpha`` inside
+    the tidal radius ``rt``, in total ``mag``; core radii ``rc >= rc_b``;
+    optional isophote shapes.  Support: ``rt > 0``, ``alpha > 0``."""
+
+    _fits_abbrs = (("King", "KNG"), ("rc_b", "RCB"), ("rc", "RC"), ("rt", "RT"),
+                   ("alpha", "AL"), ("angle", "ANG"))
+    _fourier_modes = _FOURIER_MODES
+    _stochastic_attrs = ("xy", "mag", "rc", "rc_b", "rt", "alpha", "angle") \
+        + _SHAPE_ATTRS
+
+    def __init__(self, xy=None, mag=None, rc=None, rc_b=None, rt=None,
+                 alpha=2.0, angle=None, angle_degrees=False, c0=None,
+                 **shape_kw):
+        super().__init__()
+        self.xy = xy
+        self.mag = mag
+        self.rc = rc
+        self.rc_b = rc_b
+        self.rt = rt
+        self.alpha = alpha
+        self.angle = angle
+        self.angle_degrees = angle_degrees
+        _register_shape_attrs(self, c0, shape_kw)
+
+    def _batch_constraints(self, vals):
+        ok = _ordered(self, vals, super()._batch_constraints(vals), "rc", "rc_b")
+        return _shape_batch_ok(self, vals, _positive(self, vals, ok, "rt", "alpha"))
+
+
+class Ferrer(ComponentBase):
+    """Modified Ferrer profile (GALFIT's ``ferrer``; bars and lenses):
+    ``I0 (1 - t^(2-beta))^alpha`` inside ``t < 1`` (``t`` in ``rout``
+    units), in total ``mag``; ``rout >= rout_b``; optional isophote
+    shapes.  Support: ``alpha > 0``, ``0 <= beta < 2``."""
+
+    _fits_abbrs = (("Ferrer", "FER"), ("rout_b", "ROB"), ("rout", "RO"),
+                   ("alpha", "AL"), ("beta", "BE"), ("angle", "ANG"))
+    _fourier_modes = _FOURIER_MODES
+    _stochastic_attrs = ("xy", "mag", "rout", "rout_b", "alpha", "beta",
+                         "angle") + _SHAPE_ATTRS
+
+    def __init__(self, xy=None, mag=None, rout=None, rout_b=None, alpha=None,
+                 beta=None, angle=None, angle_degrees=False, c0=None,
+                 **shape_kw):
+        super().__init__()
+        self.xy = xy
+        self.mag = mag
+        self.rout = rout
+        self.rout_b = rout_b
+        self.alpha = alpha
+        self.beta = beta
+        self.angle = angle
+        self.angle_degrees = angle_degrees
+        _register_shape_attrs(self, c0, shape_kw)
+
+    def _batch_constraints(self, vals):
+        ok = _ordered(self, vals, super()._batch_constraints(vals), "rout", "rout_b")
+        ok = _positive(self, vals, ok, "alpha")
+        beta = _value(self, vals, "beta")
+        if beta is not None:
+            b = np.ravel(np.asarray(beta))
+            ok = ok & (b >= 0.0) & (b < 2.0)
+        return _shape_batch_ok(self, vals, ok)
+
+
+class Nuker(ComponentBase):
+    """Nuker law (GALFIT's ``nuker``; Lauer et al. 1995): ``I_b
+    2^((beta-gamma)/alpha) t^(-gamma) [1 + t^alpha]^((gamma-beta)/alpha)``
+    (``t`` in break-radius units), in total ``mag``; ``rb >= rb_b``;
+    optional isophote shapes.  Support: ``alpha > 0``, ``beta > 2``,
+    ``gamma < 2``, ``gamma < beta``.  The cusp is point-sampled with a
+    half-pixel floor; ``Configuration(render_oversample=...)`` integrates
+    it."""
+
+    _fits_abbrs = (("Nuker", "NUK"), ("rb_b", "RBB"), ("rb", "RB"),
+                   ("alpha", "AL"), ("beta", "BE"), ("gamma", "GA"),
+                   ("angle", "ANG"))
+    _fourier_modes = _FOURIER_MODES
+    _stochastic_attrs = ("xy", "mag", "rb", "rb_b", "alpha", "beta", "gamma",
+                         "angle") + _SHAPE_ATTRS
+
+    def __init__(self, xy=None, mag=None, rb=None, rb_b=None, alpha=None,
+                 beta=None, gamma=None, angle=None, angle_degrees=False,
+                 c0=None, **shape_kw):
+        super().__init__()
+        self.xy = xy
+        self.mag = mag
+        self.rb = rb
+        self.rb_b = rb_b
+        self.alpha = alpha
+        self.beta = beta
+        self.gamma = gamma
+        self.angle = angle
+        self.angle_degrees = angle_degrees
+        _register_shape_attrs(self, c0, shape_kw)
+
+    def _batch_constraints(self, vals):
+        ok = _ordered(self, vals, super()._batch_constraints(vals), "rb", "rb_b")
+        ok = _positive(self, vals, ok, "alpha")
+        beta, gamma = _value(self, vals, "beta"), _value(self, vals, "gamma")
+        if beta is not None:
+            ok = ok & np.ravel(np.asarray(beta) > 2.0)
+        if gamma is not None:
+            ok = ok & np.ravel(np.asarray(gamma) < 2.0)
+        if beta is not None and gamma is not None:
+            ok = ok & np.ravel(np.asarray(gamma) < np.asarray(beta))
+        return _shape_batch_ok(self, vals, ok)
+
+
+class EdgeDisk(ComponentBase):
+    """Edge-on disk (GALFIT's ``edgedisk``; van der Kruit & Searle 1981):
+    ``I0 (|R|/rs) K1(|R|/rs) sech^2(z/hs)``, ``R`` along the ``angle``
+    major axis, in total ``mag``.  Support: ``rs > 0``, ``hs > 0`` (no
+    ordering).  No isophote shapes: the law is separable in (R, z)."""
+
+    _fits_abbrs = (("EdgeDisk", "EDG"), ("rs", "RS"), ("hs", "HS"),
+                   ("angle", "ANG"))
+    _stochastic_attrs = ("xy", "mag", "rs", "hs", "angle")
+
+    def __init__(self, xy=None, mag=None, rs=None, hs=None, angle=None,
+                 angle_degrees=False):
+        super().__init__()
+        self.xy = xy
+        self.mag = mag
+        self.rs = rs
+        self.hs = hs
+        self.angle = angle
+        self.angle_degrees = angle_degrees
+
+    def _batch_constraints(self, vals):
+        return _positive(self, vals, super()._batch_constraints(vals), "rs", "hs")
+
+
+class Moffat(ComponentBase):
+    """Moffat profile: total ``mag``, FWHMs ``fwhm >= fwhm_b``, position
+    ``angle`` and ``index`` = beta (> 1 for a finite flux); the isophote
+    shapes and truncation of :class:`Sersic`."""
+
+    _fits_abbrs = (("Moffat", "MOF"), ("fwhm_b", "FWB"), ("fwhm", "FW"),
+                   ("index", "B"), ("angle", "ANG"))
+    _fourier_modes = _FOURIER_MODES
+    _stochastic_attrs = ("xy", "mag", "fwhm", "fwhm_b", "index", "angle") \
+        + _SHAPE_ATTRS + _TRUNC_ATTRS
+
+    def __init__(self, xy=None, mag=None, fwhm=None, fwhm_b=None, index=None,
+                 angle=None, angle_degrees=False, c0=None, **shape_kw):
+        super().__init__()
+        self.xy = xy
+        self.mag = mag
+        self.fwhm = fwhm
+        self.fwhm_b = fwhm_b
+        self.index = index
+        self.angle = angle
+        self.angle_degrees = angle_degrees
+        _register_shape_attrs(self, c0, shape_kw, allow_trunc=True)
+
+    def _batch_constraints(self, vals):
+        ok = _ordered(self, vals, super()._batch_constraints(vals), "fwhm", "fwhm_b")
+        index = _value(self, vals, "index")
+        if index is not None:
+            ok = ok & np.ravel(np.asarray(index) > 1.0)
+        return _shape_batch_ok(self, vals, ok)
 
 
 class PSFSelector(ComponentBase):

@@ -6,16 +6,20 @@ batch of thetas and works on the batch directly.  Three likelihood
 paths (``lnpost``), each the counterpart of one of the JAX package's:
 
 * ``"batched"`` (``PSFMC_LNPOST=pallas_batched``): the per-walker
-  scalars in torch (prior, sky, the nine packed scalars of each Sersic),
-  the **render kernel** (``raw = sky + sum of Sersics``), the point
+  scalars in torch (prior, sky, the nine packed scalars of each
+  elliptical Sersic), the **render kernel** (``raw = sky + sum of
+  elliptical Sersics``), every other profile (shaped or truncated
+  Sersics, Moffat, King, Ferrer, Nuker, EdgeDisk) added in plain
+  PyTorch on the device as the JAX package adds them in XLA, the point
   sources as rank-1 outer products, then the **conv+likelihood kernel**
   (Gaussian lnL per walker);
 * ``"fused"`` (``PSFMC_LNPOST=pallas``): the same scalars, then the
   **fused kernel** renders, convolves and reduces each walker in one
   launch;
 * ``"general"`` (the JAX package's default XLA path, which runs every
-  spec): the render kernel on the render grid (padded by ``conv_pad``),
-  the sub-pixel windows of ``render_oversample``, then in plain PyTorch
+  spec): the render kernel and the other profiles on the render grid
+  (padded by ``conv_pad``), the sub-pixel windows of
+  ``render_oversample``, then in plain PyTorch
   on the device: each walker's PSF gathered by its rounded and clipped
   index, the convolutions by ``torch.fft``, the crop, the tilted-plane
   sky added after the convolution, the ``NoiseScale`` factor on the
@@ -70,15 +74,18 @@ from ..ops.kernels.sersic_render import (
     render_sersics,
     render_sersics_tiled,
 )
+from ..ops.isophote import quadrature_tables
 from ..ops.likelihood import make_cdf_pointwise, make_lnlike, make_lnlike_pointwise
+from ..ops.moffat import render_moffat, render_moffat_gen
 from ..ops.oversample import (
     apply_window_delta,
     oversampled_window_delta,
     window_origin,
 )
+from ..ops import profiles as P
 from ..ops.pointsource import pointsource_factors, pointsource_image
-from ..ops.sersic import sersic_profile_core, sersic_scalar_params
-from .spec import ModelSpec, check_in_slice
+from ..ops.sersic import render_sersic_gen, sersic_profile_core, sersic_scalar_params
+from .spec import BASE_PARAMS, ROT_PARAMS, SHAPE_PARAMS, TRUNC_PARAMS, ModelSpec, check_in_slice
 
 __all__ = ["PosteriorFns", "build_posterior", "lnpost_mode", "LNPOST_MODES"]
 
@@ -86,6 +93,24 @@ LNPOST_MODES = ("batched", "fused", "general")
 # PSFMC_LNPOST values of the JAX package that name a kernel path; every
 # other value (unset, xla, unknown) runs its XLA path, which runs any spec
 _ENV_MODES = {"pallas_batched": "batched", "pallas": "fused"}
+# each radial family's semi-major and semi-minor attributes
+_AXES = {"sersic": ("reff", "reff_b"), "moffat": ("fwhm", "fwhm_b"),
+         "king": ("rc", "rc_b"), "ferrer": ("rout", "rout_b"), "nuker": ("rb", "rb_b")}
+# the point-sampled and shaped renders of the King, Ferrer and Nuker laws
+_RADIAL = {"king": (P.render_king, P.render_king_gen),
+           "ferrer": (P.render_ferrer, P.render_ferrer_gen),
+           "nuker": (P.render_nuker, P.render_nuker_gen)}
+_SHAPED = frozenset(SHAPE_PARAMS + TRUNC_PARAMS + ROT_PARAMS)
+# the kinds a profile render draws (the sky, point sources, the noise
+# scale and the PSF selector are not profiles)
+_PROFILE_KINDS = frozenset(_AXES) | {"edgedisk"}
+
+
+def packs_into_the_kernel(cs):
+    """Whether component ``cs`` is a row of the render kernel: an
+    elliptical Sersic (its fixed-index subclasses included).  Every other
+    profile is rendered beside the kernel, as in the JAX package."""
+    return cs.kind == "sersic" and not (_SHAPED & set(cs.params))
 
 
 def lnpost_mode(lnpost=None, spec=None):
@@ -191,11 +216,23 @@ class PosteriorFns(nn.Module):
             loc, scale = slot.dist.torch_params(dtype, device)
             self.register_buffer(f"prior{i}_loc", loc, persistent=False)
             self.register_buffer(f"prior{i}_scale", scale, persistent=False)
-        # constant parameter values become buffers once, here
+        # constant parameter values and the tie maps become buffers once, here
         for ci, cs in enumerate(spec.comp_specs):
             for attr, (kind, payload) in cs.params.items():
                 if kind == "const" and cs.kind != "psfselector":
                     buffer(f"const{ci}_{attr}", np.asarray(payload, np.float64))
+                elif kind in ("theta_affine", "theta_affine_offset"):
+                    buffer(f"aff{ci}_{attr}_a", np.asarray(payload[2], np.float64))
+                    buffer(f"aff{ci}_{attr}_b", np.asarray(payload[3], np.float64))
+        # the render grid's pixel coordinates in observation pixels (``-pad``
+        # at the first column), as a row and a column that broadcast
+        hr, wr = self.render_shape
+        buffer("xg_r", (np.arange(wr, dtype=np_dtype) - self.pad)[None, :])
+        buffer("yg_r", (np.arange(hr, dtype=np_dtype) - self.pad)[:, None])
+        # the quadrature nodes of the shaped profiles, made on the device
+        # now rather than inside a captured step
+        quadrature_tables(device, dtype)
+        P.tanh_sinh_tables(device, dtype)
 
     # -- constants -------------------------------------------------------
     @property
@@ -216,7 +253,16 @@ class PosteriorFns(nn.Module):
         if kind == "const":
             t = getattr(self, f"const{ci}_{name}")
             return t.expand(thetas.shape[0], *t.shape)
-        offset, size = payload
+        offset, size = payload[:2]
+        if kind in ("theta_affine", "theta_affine_offset"):
+            # a tie: A @ theta[offset] + b (+ the own offset slots), as an
+            # fp32 product on the card (TF32 is off)
+            x = thetas[:, offset:offset + size]
+            out = (x @ getattr(self, f"aff{ci}_{name}_a").T
+                   + getattr(self, f"aff{ci}_{name}_b"))
+            if kind == "theta_affine_offset":
+                out = out + thetas[:, payload[4]:payload[4] + size]
+            return out[:, 0] if size == 1 else out
         if size == 1:
             return thetas[:, offset]
         return thetas[:, offset:offset + size]
@@ -232,8 +278,8 @@ class PosteriorFns(nn.Module):
 
     # -- prior -----------------------------------------------------------
     def log_prior_batch(self, thetas):
-        """Joint log-prior per walker, with the Sersic ``reff >= reff_b``
-        and ``NoiseScale`` ``scale > 0`` constraints; NaN -> ``-inf``."""
+        """Joint log-prior per walker with the JAX package's component
+        constraints (:meth:`_outside_support`); NaN -> ``-inf``."""
         thetas = self.as_thetas(thetas)
         lp = torch.zeros(thetas.shape[0], dtype=self.dtype, device=self.device)
         for i, slot in enumerate(self.spec.slots):
@@ -243,13 +289,57 @@ class PosteriorFns(nn.Module):
             lp = lp + slot.dist.torch_logp(x, params).sum(dim=-1)
         neg_inf = torch.full_like(lp, -math.inf)
         for ci, cs in enumerate(self.spec.comp_specs):
-            if cs.kind == "sersic":
-                a = self._get(ci, "reff", thetas)
-                b = self._get(ci, "reff_b", thetas)
-                lp = torch.where(b > a, neg_inf, lp)
-            elif cs.kind == "noisescale":
-                lp = torch.where(self._get(ci, "scale", thetas) <= 0.0, neg_inf, lp)
+            bad = self._outside_support(ci, cs, thetas)
+            if bad is not None:
+                lp = torch.where(bad, neg_inf, lp)
         return torch.where(torch.isnan(lp), neg_inf, lp)
+
+    def _outside_support(self, ci, cs, thetas):
+        """``(B,)`` where component ``ci``'s joint prior is 0, or None: the
+        axis order of every radial family (semi-major >= semi-minor), the
+        families' supports (Moffat beta > 1; King rt, alpha > 0; Ferrer
+        alpha > 0, 0 <= beta < 2; Nuker alpha > 0, beta > 2, gamma < 2,
+        gamma < beta; EdgeDisk rs, hs > 0; NoiseScale scale > 0) and the
+        isophote shapes' (c0 > -1.95, sum |f_m| <= 0.9, positive
+        truncation radii, rot_out > rot_in >= 0, rot_pow > 0)."""
+        def get(attr):
+            return self._get(ci, attr, thetas)
+
+        if cs.kind == "noisescale":
+            return get("scale") <= 0.0
+        if cs.kind == "edgedisk":
+            return (get("rs") <= 0.0) | (get("hs") <= 0.0)
+        if cs.kind not in _AXES:
+            return None
+        a_name, b_name = _AXES[cs.kind]
+        bad = get(b_name) > get(a_name)
+        if cs.kind == "moffat":
+            bad = bad | (get("index") <= 1.0)
+        elif cs.kind == "king":
+            bad = bad | (get("rt") <= 0.0) | (get("alpha") <= 0.0)
+        elif cs.kind == "ferrer":
+            beta = get("beta")
+            bad = bad | (get("alpha") <= 0.0) | (beta < 0.0) | (beta >= 2.0)
+        elif cs.kind == "nuker":
+            beta, gamma = get("beta"), get("gamma")
+            bad = (bad | (get("alpha") <= 0.0) | (beta <= 2.0) | (gamma >= 2.0)
+                   | (gamma >= beta))
+        if "c0" in cs.params:
+            bad = bad | (get("c0") <= -1.95)
+        amps = [get(f"f{m}").abs() for m in (1, 2, 3, 4) if f"f{m}" in cs.params]
+        if amps:
+            bad = bad | (sum(amps[1:], amps[0]) > 0.9)
+        for attr in TRUNC_PARAMS:
+            if attr in cs.params:
+                bad = bad | (get(attr) <= 0.0)
+        if "rot_ang" in cs.params:
+            rot_in = get("rot_in") if "rot_in" in cs.params else 0.0
+            bad = bad | (get("rot_out") <= rot_in)
+            if "rot_in" in cs.params:
+                bad = bad | (rot_in < 0.0)
+            if "rot_pow" in cs.params:
+                bad = bad | (get("rot_pow") <= 0.0)
+        return bad
 
     # -- renders ---------------------------------------------------------
     def _psf_index(self, thetas):
@@ -264,18 +354,17 @@ class PosteriorFns(nn.Module):
         return torch.clamp(idx, 0, self.spec.num_psfs - 1)
 
     def _render_parts(self, thetas):
-        """(packed Sersic rows ``(B, S, 9)`` on the render grid, sky
-        ``(B,)``, and each Sersic's ``(xy, scalars)`` in observation
-        pixels)."""
+        """(packed rows ``(B, S, 9)`` of the elliptical Sersics on the
+        render grid, sky ``(B,)``, and each packed Sersic's ``(xy,
+        scalars)`` in observation pixels)."""
         b = thetas.shape[0]
         sky = torch.zeros(b, dtype=self.dtype, device=self.device)
         sersics, rows = [], []
         for ci, cs in enumerate(self.spec.comp_specs):
             if cs.kind == "sky":
                 sky = sky + self._get(ci, "adu", thetas)
-            elif cs.kind == "sersic":
-                g = [self._get(ci, n, thetas)
-                     for n in ("xy", "mag", "reff", "reff_b", "index", "angle")]
+            elif packs_into_the_kernel(cs):
+                g = [self._get(ci, n, thetas) for n in BASE_PARAMS["sersic"]]
                 scalars = sersic_scalar_params(
                     *g, self.mag_zp, cs.static["angle_degrees"], self.kappa_mode)
                 sersics.append((g[0], scalars))
@@ -289,6 +378,90 @@ class PosteriorFns(nn.Module):
             params = torch.zeros((b, 0, PARAMS_PER_SERSIC), dtype=self.dtype,
                                  device=self.device)
         return params, sky, sersics
+
+    def _profiles(self, thetas):
+        """``(xy, coarse, fine)`` of every profile the render kernel does
+        not draw (the JAX package's per-family branches of
+        ``_raw_and_ps``): ``coarse(xg, yg)`` renders it as the full frame
+        does and ``fine`` as the sub-pixel window integrates it.  Every
+        parameter is ``(B, 1, 1)`` (``xy`` ``(B, 1, 1, 2)``) against grids
+        that broadcast with it."""
+        out = []
+        for ci, cs in enumerate(self.spec.comp_specs):
+            if cs.kind not in _PROFILE_KINDS or packs_into_the_kernel(cs):
+                continue
+
+            def get(attr, _ci=ci):
+                t = self._get(_ci, attr, thetas)
+                return t[:, None, None]
+
+            xy = self._get(ci, "xy", thetas)
+            args = (xy[:, None, None, :],) + tuple(
+                get(a) for a in BASE_PARAMS[cs.kind][1:])
+            tail = (self.mag_zp, cs.static["angle_degrees"])
+            if cs.kind == "edgedisk":
+                # finite center (x K1 -> 1): point sampling is the fine form
+                coarse = self._closure(P.render_edgedisk, args, tail, {})
+                out.append((xy, coarse, coarse))
+                continue
+            shaped = bool(set(SHAPE_PARAMS + ROT_PARAMS) & set(cs.params))
+            trunc = self._trunc_args(cs, get)
+            kw = {}
+            if shaped or trunc is not None:
+                c0 = get("c0") if "c0" in cs.params else torch.zeros_like(args[1])
+                args = args + (c0,)
+                kw = self._shape_args(cs, get)
+                if trunc is not None:
+                    kw["trunc"] = trunc
+            if cs.kind == "sersic":
+                kw["kappa_mode"] = self.kappa_mode
+                coarse = self._closure(render_sersic_gen, args, tail, kw)
+                fine = self._closure(render_sersic_gen, args, tail,
+                                     dict(kw, correction=False))
+            elif cs.kind == "moffat":
+                fn = render_moffat_gen if kw else render_moffat
+                coarse = fine = self._closure(fn, args, tail, kw)
+            else:
+                # no trapezoid term: the point sample is the fine form, but
+                # the Nuker cusp floor relaxes by 1/S^2 for the closer
+                # midpoints
+                fn = _RADIAL[cs.kind][1 if shaped else 0]
+                coarse = fine = self._closure(fn, args, tail, kw)
+                if cs.kind == "nuker":
+                    fine = self._closure(fn, args, tail, dict(
+                        kw, min_px_sq=0.125 / self.oversample**2))
+            out.append((xy, coarse, fine))
+        return out
+
+    @staticmethod
+    def _closure(fn, args, tail, kw):
+        return lambda xg, yg: fn(xg, yg, *args, *tail, **kw)
+
+    @staticmethod
+    def _shape_args(cs, get):
+        """The keyword arguments of a shaped render: ``fourier`` ``((m,
+        amplitude, phase), ...)``, ``bending`` ``((m, amplitude), ...)``
+        and ``rotation`` ``(rot_ang, rot_out, rot_in, rot_pow)`` (defaults
+        0 and 1), each present as the spec has it."""
+        kw = {"fourier": tuple((m, get(f"f{m}"), get(f"f{m}_phi"))
+                               for m in (1, 2, 3, 4) if f"f{m}" in cs.params),
+              "bending": tuple((m, get(f"b{m}")) for m in (1, 2, 3)
+                               if f"b{m}" in cs.params)}
+        if "rot_ang" in cs.params:
+            kw["rotation"] = (
+                get("rot_ang"), get("rot_out"),
+                get("rot_in") if "rot_in" in cs.params else 0.0,
+                get("rot_pow") if "rot_pow" in cs.params else 1.0)
+        return kw
+
+    @staticmethod
+    def _trunc_args(cs, get):
+        """``(outer, inner)`` truncation pairs (each ``(break, soft)`` or
+        None), or None without truncation."""
+        outer = ((get("rtrunc"), get("rsoft")) if "rtrunc" in cs.params else None)
+        inner = ((get("rtrunc_in"), get("rsoft_in")) if "rtrunc_in" in cs.params
+                 else None)
+        return None if outer is None and inner is None else (outer, inner)
 
     def render_inputs(self, thetas):
         """(packed Sersic rows ``(B, S, 9)``, sky ``(B,)``) for the render
@@ -318,32 +491,38 @@ class PosteriorFns(nn.Module):
             return torch.zeros((b, 0, h), **kw), torch.zeros((b, 0, w), **kw)
         return torch.stack(fkys, dim=1), torch.stack(kxs, dim=1)
 
-    def _apply_oversample(self, raw, xy, scalars):
-        """One Sersic's sub-pixel window: the midpoint-integrated profile
-        minus the point-sampled one, added into the kernel's render.  The
-        point-sampled term is the plain profile, which differs from what
-        the kernel added by at most its 5e-6 relative per pixel."""
-        x, y, *rest = (t[:, None, None] for t in scalars)
-
-        def profile(correction):
-            return lambda xg, yg: sersic_profile_core(
-                xg - x, yg - y, *rest, correction=correction)
-
+    def _apply_oversample(self, raw, xy, coarse, fine):
+        """One profile's sub-pixel window: ``fine`` integrated on the
+        midpoint grid minus ``coarse`` point-sampled, added into the
+        render.  For a packed Sersic ``coarse`` is the plain profile, which
+        differs from what the kernel added by at most its 5e-6 relative per
+        pixel."""
         origin = window_origin(xy, self.os_window, self.render_shape, self.pad)
-        delta = oversampled_window_delta(profile(True), profile(False), origin,
-                                         self.os_window, self.oversample,
-                                         self.pad, self.dtype)
+        delta = oversampled_window_delta(coarse, fine, origin, self.os_window,
+                                         self.oversample, self.pad, self.dtype)
         return apply_window_delta(raw, delta, origin)
 
     def raw_and_ps(self, thetas):
         """Raw composite model ``(B, Hr, Wr)`` on the render grid and its
-        point-source part."""
+        point-source part: the render kernel's sky and elliptical Sersics,
+        plus every other profile, plus the point sources."""
         thetas = self.as_thetas(thetas)
         params, sky, sersics = self._render_parts(thetas)
         raw = self._render(params.contiguous(), sky.contiguous(), self.render_shape)
+        profiles = self._profiles(thetas)
+        for _xy, coarse, _fine in profiles:
+            raw = raw + coarse(self.xg_r, self.yg_r)
         if self.oversample > 1:
             for xy, scalars in sersics:
-                raw = self._apply_oversample(raw, xy, scalars)
+                x, y, *rest = (t[:, None, None] for t in scalars)
+
+                def profile(correction, x=x, y=y, rest=rest):
+                    return lambda xg, yg: sersic_profile_core(
+                        xg - x, yg - y, *rest, correction=correction)
+
+                raw = self._apply_oversample(raw, xy, profile(True), profile(False))
+            for xy, coarse, fine in profiles:
+                raw = self._apply_oversample(raw, xy, coarse, fine)
         ps = pointsource_image(*self.pointsource_inputs(thetas))
         return raw + ps, ps
 

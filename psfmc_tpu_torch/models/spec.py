@@ -15,13 +15,23 @@ Two ways to get one:
   fields of the JAX package's ``ModelSpec``, so both packages compute
   from identical constants).
 
+A parameter rule is ``('theta', (offset, size))``, ``('const',
+value)``, or one of the JAX package's two tie kinds:
+``('theta_affine', (offset, size, A, b))`` renders ``A @ theta[offset]
++ b`` and ``('theta_affine_offset', (offset, size, A, b, own))`` renders
+``A @ theta[offset] + b + theta[own]``.  Pixel-frame ties resolve to a
+shared ``theta`` slot or a constant; an offset tie adds the component's
+own offset slots.
+
 Both end in :func:`check_in_slice`, which raises
 ``NotImplementedError`` for what this slice of the port does not run:
-Sersic isophote shapes and truncation, the other profile families,
-``Tied`` parameters and the priors not yet ported.  Several PSFs with a
-sampled index, the tilted-plane sky, ``NoiseScale``, ``conv_pad``,
-``render_oversample``, ``psf_oversample`` and the Student-t and Poisson
-likelihoods are in.
+the priors not yet ported (and, at build, ``frame="sky"`` ties, which
+belong to joint multi-band models).  Every single-band component of the
+JAX package is in: Sky (with its tilted plane), PointSource, the render
+family (shaped and truncated Sersics and their fixed-index subclasses,
+Moffat, King, Ferrer, Nuker, EdgeDisk), NoiseScale and several PSFs
+with a sampled index, with ``conv_pad``, ``render_oversample``,
+``psf_oversample`` and the Student-t and Poisson likelihoods.
 """
 from __future__ import annotations
 
@@ -36,11 +46,17 @@ from ..ops.pointsource import SHIFT_METHODS
 from .components import (
     ComponentBase,
     Configuration,
+    EdgeDisk,
+    Ferrer,
+    King,
+    Moffat,
     NoiseScale,
+    Nuker,
     PointSource,
     PSFSelector,
     Sersic,
     Sky,
+    Tied,
 )
 
 __all__ = [
@@ -55,14 +71,32 @@ __all__ = [
     "psf_spectra_for_selector",
 ]
 
-# attributes each component kind renders in this slice
-SLICE_PARAMS = {
+# the isophote-shape, truncation and rotation rules of the radial
+# profiles, in the JAX package's order
+SHAPE_PARAMS = ("c0", "f1", "f1_phi", "f2", "f2_phi", "f3", "f3_phi", "f4",
+                "f4_phi", "b1", "b2", "b3")
+TRUNC_PARAMS = ("rtrunc", "rsoft", "rtrunc_in", "rsoft_in")
+ROT_PARAMS = ("rot_ang", "rot_out", "rot_in", "rot_pow")
+# each component kind's own attributes, in render order
+BASE_PARAMS = {
     "sky": ("adu", "dx", "dy"),
     "pointsource": ("xy", "mag"),
     "sersic": ("xy", "mag", "reff", "reff_b", "index", "angle"),
+    "moffat": ("xy", "mag", "fwhm", "fwhm_b", "index", "angle"),
+    "king": ("xy", "mag", "rc", "rc_b", "rt", "alpha", "angle"),
+    "ferrer": ("xy", "mag", "rout", "rout_b", "alpha", "beta", "angle"),
+    "nuker": ("xy", "mag", "rb", "rb_b", "alpha", "beta", "gamma", "angle"),
+    "edgedisk": ("xy", "mag", "rs", "hs", "angle"),
     "noisescale": ("scale",),
     "psfselector": ("psf_index",),
 }
+# the attributes a rule may name, per kind
+SLICE_PARAMS = dict(BASE_PARAMS)
+for _kind in ("sersic", "moffat"):
+    SLICE_PARAMS[_kind] += SHAPE_PARAMS + TRUNC_PARAMS + ROT_PARAMS
+for _kind in ("king", "ferrer", "nuker"):
+    SLICE_PARAMS[_kind] += SHAPE_PARAMS + ROT_PARAMS
+RULE_KINDS = ("theta", "const", "theta_affine", "theta_affine_offset")
 
 
 @dataclass(frozen=True)
@@ -86,7 +120,7 @@ class CompSpec:
     ``('theta', (offset, size))``.
     """
 
-    kind: str  # 'sky' | 'pointsource' | 'sersic' | 'noisescale' | 'psfselector'
+    kind: str  # a key of BASE_PARAMS
     params: Dict[str, Tuple[str, Any]]
     static: Dict[str, Any] = field(default_factory=dict)
 
@@ -126,9 +160,9 @@ class ModelSpec:
 
 def _not_in_slice(what):
     raise NotImplementedError(
-        f"{what} is not in this slice of psfmc_tpu_torch (Sky, PointSource, "
-        "elliptical Sersic and NoiseScale components with their priors); "
-        "see ROADMAP Queue 1 for the slice that brings it"
+        f"{what} is not in this slice of psfmc_tpu_torch (single-band "
+        "models: every component with pixel-frame ties and the ported "
+        "priors); see ROADMAP Queue 1 for the slice that brings it"
     )
 
 
@@ -142,7 +176,7 @@ def check_in_slice(spec: ModelSpec):
         if extra:
             _not_in_slice(f"{cs.kind} attribute(s) {extra}")
         for attr, (kind, _payload) in cs.params.items():
-            if kind not in ("theta", "const"):
+            if kind not in RULE_KINDS:
                 _not_in_slice(f"a {kind!r} parameter rule ({cs.kind}.{attr})")
         if cs.kind == "pointsource":
             method = cs.static.get("shift_method", "lanczos3")
@@ -176,32 +210,104 @@ def build_param_slots(components) -> tuple:
 
 
 def _resolve(comp, attr, slot_map):
-    slot = slot_map.get((id(comp), attr))
-    if slot is not None:
-        return ("theta", (slot.offset, slot.size))
-    return ("const", comp._constants[attr])
+    """The rule of ``comp.attr``: its slot, its constant, or a pixel-frame
+    tie resolved through its chain (the JAX package's ``_resolve``).  An
+    offset tie composes the tie's base with this component's own offset
+    slots: ``theta_affine_offset`` on a slot, ``theta_affine`` (identity
+    map of the own slots plus the constant) on a constant."""
+    tie = comp._tied_offsets.get(attr)
+    if tie is None:
+        return _resolve_tie(comp, attr, None, slot_map)
+    own = slot_map[(id(comp), attr)]
+    kind, payload = _resolve_tie(comp, attr, tie, slot_map)
+    eye, zero = np.eye(own.size), np.zeros(own.size)
+    if kind == "theta":
+        return ("theta_affine_offset", (payload[0], payload[1], eye, zero,
+                                        own.offset))
+    return ("theta_affine", (own.offset, own.size, eye,
+                             np.asarray(payload, float).reshape(own.size)))
+
+
+def _sky_tie():
+    raise NotImplementedError(
+        "a frame='sky' tie is not in this slice of psfmc_tpu_torch: it maps "
+        "a position through another band's WCS and comes with joint "
+        "multi-band models, ROADMAP Queue 1 item 14")
+
+
+def _resolve_tie(user, user_attr, first_tie, slot_map):
+    """Follow a pixel-frame tie chain to a slot or a constant.
+
+    ``first_tie`` is an offset tie's first hop (it lives in
+    ``_tied_offsets``, not in ``_constants``).  Raises ``ValueError`` for
+    a cycle, a tie onto an offset-tied attribute and a target with no
+    value, as the JAX package does.
+    """
+    component, attr = user, user_attr
+    seen = set()
+    if first_tie is not None:
+        seen.add((id(component), attr))
+        if first_tie.frame == "sky":
+            _sky_tie()
+        component, attr = first_tie.component, first_tie.attr
+    while True:
+        key = (id(component), attr)
+        if key in slot_map:
+            if component is user and first_tie is not None:
+                # an offset-tie chain back to its own offset slot
+                raise ValueError(
+                    f"Tied cycle through {type(component).__name__}.{attr}")
+            if component is not user and attr in component._tied_offsets:
+                raise ValueError(
+                    "tying onto an offset-tied attribute is not supported "
+                    "(chain the tie to its base instead)")
+            slot = slot_map[key]
+            return ("theta", (slot.offset, slot.size))
+        if key in seen:
+            raise ValueError(f"Tied cycle through {type(component).__name__}.{attr}")
+        seen.add(key)
+        try:
+            val = component._constants[attr]
+        except KeyError:
+            raise ValueError(
+                f"Tied target {type(component).__name__}.{attr} has no "
+                "value — is the referenced component part of the model?"
+            ) from None
+        if not isinstance(val, Tied):
+            return ("const", val)
+        if val.frame == "sky":
+            _sky_tie()
+        component, attr = val.component, val.attr
+
+
+# component class -> kind, most derived first (the Sersic subclasses are
+# Sersics)
+_KINDS = ((Sky, "sky"), (PointSource, "pointsource"), (Sersic, "sersic"),
+          (Moffat, "moffat"), (King, "king"), (Ferrer, "ferrer"),
+          (Nuker, "nuker"), (EdgeDisk, "edgedisk"), (NoiseScale, "noisescale"),
+          (PSFSelector, "psfselector"))
 
 
 def _comp_spec(comp, slot_map) -> CompSpec:
-    def rules(attrs):
-        return {a: _resolve(comp, a, slot_map) for a in attrs
-                if a in comp._priors or a in comp._constants}
-
-    if isinstance(comp, Sky):
-        return CompSpec("sky", rules(("adu", "dx", "dy")))
-    if isinstance(comp, PointSource):
-        return CompSpec("pointsource", rules(("xy", "mag")),
-                        static={"shift_method": comp.shift_method})
-    if isinstance(comp, Sersic):
-        if comp.shape_options:
-            _not_in_slice(f"Sersic shape option(s) {sorted(comp.shape_options)}")
-        return CompSpec("sersic", rules(SLICE_PARAMS["sersic"]),
-                        static={"angle_degrees": comp.angle_degrees})
-    if isinstance(comp, NoiseScale):
-        return CompSpec("noisescale", rules(("scale",)))
-    if isinstance(comp, PSFSelector):
-        return CompSpec("psfselector", rules(("psf_index",)))
-    _not_in_slice(f"component {type(comp).__name__}")
+    """The render rule of one component: its kind's attributes, then (the
+    JAX package's ``_add_shape_rules``) the shape attributes it has, an
+    amplitude without a phase taking a constant-zero phase."""
+    kind = next((k for cls, k in _KINDS if isinstance(comp, cls)), None)
+    if kind is None:
+        raise TypeError(f"Unknown component type: {type(comp).__name__}")
+    params = {a: _resolve(comp, a, slot_map) for a in BASE_PARAMS[kind]
+              if comp._has(a)}
+    for attr in SLICE_PARAMS[kind][len(BASE_PARAMS[kind]):]:
+        if comp._has(attr):
+            params[attr] = _resolve(comp, attr, slot_map)
+        elif attr.endswith("_phi") and comp._has(attr[:-4]):
+            params[attr] = ("const", 0.0)
+    static = {}
+    if kind == "pointsource":
+        static["shift_method"] = comp.shift_method
+    elif kind not in ("sky", "noisescale", "psfselector"):
+        static["angle_degrees"] = comp.angle_degrees
+    return CompSpec(kind, params, static=static)
 
 
 def psf_spectra_for_selector(sel, obs_shape, conv_pad=0):
@@ -315,17 +421,23 @@ def spec_from_numpy(obs_data, obs_var, bad_px, f_psf_stack, f_var_stack,
                  dict(static))
         for kind, params, static in comp_params
     ]
-    owner = {}
+    # the components whose rules read each slot: a tied slot is read by
+    # several, and its owner is the one whose count prefixes its name
+    readers = {}
     for ci, cs in enumerate(comp_specs):
         for attr, (kind, payload) in cs.params.items():
-            if kind == "theta":
-                owner[int(payload[0])] = (ci, attr)
+            if kind == "theta_affine_offset":
+                readers.setdefault(int(payload[4]), []).append((ci, attr))
+            elif kind in ("theta", "theta_affine"):
+                readers.setdefault(int(payload[0]), []).append((ci, attr))
     table = []
     num_params = 0
     for entry in slots:
         name, offset, size, family, kwargs = entry[:5]
         fitsname = entry[5] if len(entry) > 5 else ""
-        ci, attr = owner.get(int(offset), (-1, ""))
+        cands = readers.get(int(offset), [(-1, "")])
+        ci, attr = next((c for c in cands if str(name).startswith(f"{c[0]}_")),
+                        cands[0])
         table.append(ParamSlot(
             comp_index=ci, attr=attr, offset=int(offset), size=int(size),
             name=str(name), fitsname=str(fitsname),

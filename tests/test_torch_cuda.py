@@ -646,3 +646,57 @@ def test_rejuvenation_between_graphed_segments_is_bit_identical(cuda):
         runs.append(s)
     assert runs[0].graph_replays == 10 and runs[1].graph_replays == 0
     _assert_same_state(*runs)
+
+
+# -- the render family ---------------------------------------------------------
+
+FAMILY_SHAPED = ("flagship", "moffat", "king", "ferrer", "nuker", "edgedisk",
+                 "sersic-modes", "offset-tie", "oversample")
+
+
+def _family(device, variant, dtype=torch.float32):
+    from psfmc_tpu_torch.flagship import family_components, family_lnpost
+
+    spec = build_model_spec(family_components((64, 64), (32, 32), variant))
+    return spec, build_posterior(spec, device=device, dtype=dtype,
+                                 lnpost=family_lnpost(variant))
+
+
+@pytest.mark.parametrize("variant", ["flagship", "oversample", "offset-tie", "king"])
+def test_family_graphed_phase_is_bit_identical_to_eager(cuda, variant):
+    """The family flagship's ten steps (and three variants') as graph
+    replays and eagerly: the same state bit for bit, and the render and
+    conv_lnl kernels' launches exact; the shaped profiles run inside the
+    captured graph as plain PyTorch."""
+    spec, post = _family(cuda, variant)
+    assert post.lnpost == "batched"
+    graphed, g_launches = _phase(post, spec, "stretch", eager=False)
+    eager, e_launches = _phase(post, spec, "stretch", eager=True)
+    assert graphed.graph_replays == 10 and eager.graph_replays == 0
+    _assert_same_state(graphed, eager)
+    assert g_launches == e_launches == [1 + 20 + 6, 1 + 20, 0]
+
+
+@pytest.mark.parametrize("variant", FAMILY_SHAPED)
+def test_shaped_render_on_the_card_matches_the_cpu(cuda, variant):
+    """Each profile the render kernel does not draw, as the posterior
+    renders it on the full grid: float32 on the card against float32 and
+    float64 on the CPU, on the same walkers; the same non-finite pixels,
+    and the card no further from float64 than 1e-4 relative (with a floor
+    of 1e-6 of the image's peak)."""
+    _, post = _family(cuda, variant)
+    spec, ref32 = _family("cpu", variant)
+    _, ref64 = _family("cpu", variant, torch.float64)
+    th = prior_draws(spec, 24, seed=9)
+    outs = []
+    for p in (post, ref32, ref64):
+        t = p.as_thetas(th)
+        outs.append([coarse(p.xg_r, p.yg_r).double().cpu()
+                     for _xy, coarse, _fine in p._profiles(t)])
+    assert outs[0]
+    for card, cpu32, cpu64 in zip(*outs):
+        assert torch.equal(torch.isfinite(card), torch.isfinite(cpu64))
+        assert torch.equal(torch.isfinite(cpu32), torch.isfinite(cpu64))
+        fin = torch.isfinite(cpu64)
+        peak = cpu64[fin].abs().max().item()
+        torch.testing.assert_close(card[fin], cpu64[fin], rtol=1e-4, atol=1e-6 * peak)

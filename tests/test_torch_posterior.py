@@ -5,6 +5,7 @@ built once by each package from the same seeded arrays, at 64x64 with a
 32x32 PSF.  ``spec_from_numpy`` carries the JAX ``ModelSpec``'s fields
 into the port, so both posteriors compute from identical constants.
 """
+import functools
 import importlib.util
 import math
 import os
@@ -24,8 +25,10 @@ from psfmc_tpu_torch.flagship import flagship_components, prior_draws
 from psfmc_tpu_torch.ops.kernels import batched_lnl_supported
 from psfmc_tpu_torch.models import (
     Configuration,
+    PointSource,
     Sersic,
     Sky,
+    Tied,
     build_model_spec,
     build_posterior,
     spec_from_numpy,
@@ -186,18 +189,40 @@ def _sersic(**kw):
                   index=TD.Uniform(loc=1, scale=2), angle=0.0, **kw)
 
 
-@pytest.mark.parametrize("comps", [
-    lambda: [_small_config(), _sersic(c0=TD.Uniform(loc=-0.5, scale=1.0))],
-    lambda: [_small_config(), _sersic(rtrunc=5.0, rsoft=1.0)],
-    lambda: [_small_config(), _sersic(f1=0.1, f1_phi=0.3)],
-    lambda: [_small_config(), _sersic(b1=0.1)],
-    lambda: [_small_config(), _sersic(rot_ang=1.0, rot_out=3.0)],
-    lambda: [_small_config(), _sersic(rtrunc_in=1.0, rsoft_in=0.5)],
-], ids=["boxy-c0", "truncation", "fourier", "bending", "rotation",
-        "inner-truncation"])
+_SHAPES = [dict(c0=TD.Uniform(loc=-0.5, scale=1.0)), dict(rtrunc=5.0, rsoft=1.0),
+           dict(f1=0.1, f1_phi=0.3), dict(b1=0.1), dict(rot_ang=1.0, rot_out=3.0),
+           dict(rtrunc_in=1.0, rsoft_in=0.5)]
+_SHAPE_IDS = ["boxy-c0", "truncation", "fourier", "bending", "rotation",
+              "inner-truncation"]
+
+
+def _sky_tied(**kw):
+    """A shaped Sersic whose point source is tied to it in sky frame."""
+    host = _sersic(**kw)
+    return [_small_config(), host,
+            PointSource(xy=Tied(host, "xy", frame="sky"),
+                        mag=TD.Uniform(loc=20, scale=2))]
+
+
+@pytest.mark.parametrize("comps", [functools.partial(_sky_tied, **kw)
+                                   for kw in _SHAPES], ids=_SHAPE_IDS)
 def test_spec_outside_the_slice_raises(comps):
-    with pytest.raises(NotImplementedError, match="not in this slice"):
+    """A ``frame="sky"`` tie (joint multi-band models) is still outside the
+    slice, whatever the shape of the component it names."""
+    with pytest.raises(NotImplementedError, match="not in this slice.*item 14"):
         build_model_spec(comps())
+
+
+@pytest.mark.parametrize("kw", _SHAPES, ids=_SHAPE_IDS)
+def test_spec_with_an_isophote_shape_builds(kw, monkeypatch):
+    """The shapes the render-family slice brought in build, take the
+    batched path and give a finite lnpost."""
+    monkeypatch.delenv("PSFMC_LNPOST", raising=False)
+    spec = build_model_spec([_small_config(), _sersic(**kw)])
+    post = build_posterior(spec, device="cpu")
+    assert post.lnpost == "batched"
+    th = post.as_thetas(prior_draws(spec, 3, seed=1))
+    assert torch.isfinite(post.log_posterior_batch(th)).all()
 
 
 @pytest.mark.parametrize("comps", [

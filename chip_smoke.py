@@ -93,7 +93,31 @@ never ``jax`` nor ``psfmc_tpu``, and:
    kernel on an elliptical bulge + disk, the general path with two PSFs
    and the tiled render) with a lnpost check and a graphed/eager segment
    of 2 + 2 steps;
-9. prints the kernel table as one JSON line, then the result line
+9. prior family phase: every prior family of the port (all 105 aliases,
+   at the JAX package's test grids, :data:`PRIOR_CASES`, the supports'
+   edges and beyond, and vector hyperparameters) in float64 and float32
+   on the card against the CPU, then one CUDA graph of them all replayed
+   bit for bit against the eager call, and a host-callback prior (a
+   discrete family with vector hyperparameters) refused by
+   ``build_posterior`` on the card;
+10. priors phase: the priors flagship (truncated Normal positions with a
+   vector ``loc``, Reciprocal sizes, Gamma and truncated Normal indices,
+   Triangular and SkewNormal magnitudes) written as FITS files and a
+   model file, through ``model_galaxy_mcmc`` with ``PSFMC_LNPOST`` unset
+   (250 walkers, 20 burn + 20 retained steps): the batched path with
+   exact launches, every step a replay, acceptance, the database's
+   columns (the xy columns two wide), finite images, lnpost against the
+   CPU's float64; the API phase on its model file and database
+   (``MultiComponentModel(model_file)``, ``param_values``, ``log_priors``
+   against ``log_prior_batch`` on the card, ``log_posterior`` against the
+   CPU's float64, the five image methods, ``simulate``,
+   ``get_sampler_state``); graphed against eager, the steady steps; then
+   the variants at 2 + 2 steps: a stress prior set (Tukey-lambda
+   bisection, noncentral t quadrature, noncentral chi-square mixture, a
+   table, per-element tables of a vector hyperparameter, a Binomial), the
+   fused kernel, and the general path (two PSFs, a LogNormal
+   ``NoiseScale``);
+11. prints the kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler breakdown of
@@ -103,7 +127,8 @@ each path (slice, driver, general and family), graphed and eager, with the devic
 the SM clock cycles that one block of each FFT-route kernel spends in
 each of its phases (a second build of the two sources with phase stamps;
 the first phase of the fused kernel is its render), and the render kernel
-under other launch geometries than the wrapper picks.
+under other launch geometries than the wrapper picks.  The breakdown
+also covers the priors flagship and the priors' stress variant.
 
 Any failure exits nonzero before the result line; so does a host
 without CUDA, or a directory without the port.
@@ -1001,9 +1026,6 @@ def general_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
     variants at small depth (the arguments shrink it for a rehearsal on
     the CPU).  Returns the render wrappers' launches of the fit's sampling
     and of the variants, and the general path's sampler."""
-    import torch
-
-    from psfmc_tpu_torch import fitting
     from psfmc_tpu_torch.database import filter_lowp_walkers, load_database
     from psfmc_tpu_torch.flagship import general_components, write_general_files
     from psfmc_tpu_torch.io import fits
@@ -1014,49 +1036,14 @@ def general_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
     )
     from psfmc_tpu_torch.sampler import EnsembleSampler
 
-    counted = counted_kernels()
     steps = BURN + SAMPLE
-    moved, samplers, at_images = [], [], []
-    rejuvenate_stuck = fitting.EnsembleSampler.rejuvenate_stuck
-    sampler_init = fitting.EnsembleSampler.__init__
-    save_images = fitting.save_posterior_images
-
-    def counting_rejuvenate(self, *a, **k):
-        moved.append(rejuvenate_stuck(self, *a, **k))
-        return moved[-1]
-
-    def kept_init(self, *a, **k):
-        sampler_init(self, *a, **k)
-        samplers.append(self)
-
-    def counted_images(*a, **k):  # the launches of sampling end here
-        torch.cuda.synchronize()
-        at_images.append(read_counts(counted)[0])
-        return save_images(*a, **k)
-
     env = {k: os.environ.pop(k) for k in ("PSFMC_LNPOST", "PSFMC_RENDER",
                                           "PSFMC_KAPPA") if k in os.environ}
     with tempfile.TemporaryDirectory() as tmp:
         model_file = write_general_files(tmp, shape, psf_shape)
         out = os.path.join(tmp, "out")
-        fitting.EnsembleSampler.rejuvenate_stuck = counting_rejuvenate
-        fitting.EnsembleSampler.__init__ = kept_init
-        fitting.save_posterior_images = counted_images
-        try:
-            torch.cuda.synchronize()
-            reset_counts(counted)
-            t0 = time.perf_counter()
-            db = fitting.model_galaxy_mcmc(
-                model_file, output_name=out, chains=NWALKERS, burn=BURN,
-                iterations=SAMPLE, seed=SEED, device=device,
-                checkpoint_interval=CHECKPOINT)
-            wall = time.perf_counter() - t0
-            launches = read_counts(counted)[0]
-        finally:
-            fitting.EnsembleSampler.rejuvenate_stuck = rejuvenate_stuck
-            fitting.EnsembleSampler.__init__ = sampler_init
-            fitting.save_posterior_images = save_images
-        (sm,) = samplers
+        db, sm, (sampling, _), (launches, _), moved, wall = counted_fit(
+            model_file, out, device)
         mc_post = sm.fns
         spec = mc_post.spec
         timings = dict(db.phase_seconds)
@@ -1071,7 +1058,6 @@ def general_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
         # init: one full-ensemble render; every step: one per half-ensemble;
         # every retained step: one for the image means; every rejuvenation
         # that moved walkers: one full-ensemble render
-        sampling = at_images[0]
         want = {"render_sersics": 1 + 2 * steps + SAMPLE + sum(n > 0 for n in moved),
                 "render_sersics_tiled": 0, "batched_conv_lnl": 0, "fused_lnl": 0}
         # the image writer: the MAP sample, the MCPPCP draws (one batch
@@ -1209,9 +1195,6 @@ def family_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
     arguments shrink it for a rehearsal on the CPU).  Returns the
     launches of the fit's sampling and of the variants, and a sampler on
     the family path."""
-    import torch
-
-    from psfmc_tpu_torch import fitting
     from psfmc_tpu_torch.database import load_database
     from psfmc_tpu_torch.flagship import (
         FAMILY_VARIANTS,
@@ -1225,48 +1208,14 @@ def family_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
     from psfmc_tpu_torch.sampler import EnsembleSampler
 
     t_phase = time.perf_counter()
-    counted = counted_kernels()
     steps = BURN + SAMPLE
-    moved, samplers, at_images = [], [], []
-    rejuvenate_stuck = fitting.EnsembleSampler.rejuvenate_stuck
-    sampler_init = fitting.EnsembleSampler.__init__
-    save_images = fitting.save_posterior_images
-
-    def counting_rejuvenate(self, *a, **k):
-        moved.append(rejuvenate_stuck(self, *a, **k))
-        return moved[-1]
-
-    def kept_init(self, *a, **k):
-        sampler_init(self, *a, **k)
-        samplers.append(self)
-
-    def counted_images(*a, **k):  # the launches of sampling end here
-        torch.cuda.synchronize()
-        at_images.append(read_counts(counted))
-        return save_images(*a, **k)
-
     env = {k: os.environ.pop(k) for k in ("PSFMC_LNPOST", "PSFMC_RENDER",
                                           "PSFMC_KAPPA") if k in os.environ}
     with tempfile.TemporaryDirectory() as tmp:
         model_file = write_family_files(tmp, shape, psf_shape)
         out = os.path.join(tmp, "out")
-        fitting.EnsembleSampler.rejuvenate_stuck = counting_rejuvenate
-        fitting.EnsembleSampler.__init__ = kept_init
-        fitting.save_posterior_images = counted_images
-        try:
-            torch.cuda.synchronize()
-            reset_counts(counted)
-            t0 = time.perf_counter()
-            db = fitting.model_galaxy_mcmc(
-                model_file, output_name=out, chains=NWALKERS, burn=BURN,
-                iterations=SAMPLE, seed=SEED, device=device,
-                checkpoint_interval=CHECKPOINT)
-            wall = time.perf_counter() - t0
-        finally:
-            fitting.EnsembleSampler.rejuvenate_stuck = rejuvenate_stuck
-            fitting.EnsembleSampler.__init__ = sampler_init
-            fitting.save_posterior_images = save_images
-        (sm,) = samplers
+        db, sm, (sampling, by_route), _, moved, wall = counted_fit(model_file, out,
+                                                                  device)
         mc_post = sm.fns
         spec = mc_post.spec
         timings = dict(db.phase_seconds)
@@ -1278,7 +1227,6 @@ def family_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
         if mc_post.lnpost != "batched":
             raise AssertionError(f"the family flagship took lnpost="
                                  f"{mc_post.lnpost!r} with PSFMC_LNPOST unset")
-        sampling, by_route = at_images[0]
         want = family_launches("batched", BURN, SAMPLE, sum(n > 0 for n in moved))
         log(f"family: launches of the sampling {sampling}, by route {by_route}; "
             f"walkers moved by each rejuvenation {moved}")
@@ -1349,6 +1297,527 @@ def family_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
     log(f"family: the phase took {time.perf_counter() - t_phase:.1f} s")
     sampling.update(by_route)
     return sampling, variant_launches, fresh
+
+
+# every prior family of the port at the JAX package's test grids
+# (``tests/test_distributions.py``'s cases, in its order: alias, scipy
+# keyword arguments, grid as ("linspace", a, b, n), ("arange", a, b, step)
+# or the points), then the aliases those cases lack
+PRIOR_CASES = [
+    ("Uniform", dict(loc=2.0, scale=3.0), ("linspace", 1.5, 5.5, 31)),
+    ("Normal", dict(loc=0.0, scale=0.01), ("linspace", -0.05, 0.05, 21)),
+    ("WeibullMinimum", dict(c=1.5, scale=4), ("linspace", 0.01, 15.0, 31)),
+    ("WeibullMaximum", dict(c=2.0, scale=3.0), ("linspace", -10.0, 1.0, 23)),
+    ("DiscreteUniform", dict(low=0, high=3), (-1.0, 0.0, 1.0, 2.0, 2.4, 3.0,)),
+    ("Gamma", dict(a=2.5, scale=1.3), ("linspace", 0.01, 9.0, 17)),
+    ("Beta", dict(a=2.0, b=3.0), ("linspace", 0.01, 0.99, 17)),
+    ("LogNormal", dict(s=0.8, scale=2.0), ("linspace", 0.05, 9.0, 17)),
+    ("TruncatedNormal", dict(a=-1.0, b=2.0, loc=0.5, scale=2.0), ("linspace", -2.0, 5.0, 23)),
+    ("Cauchy", dict(loc=1.0, scale=2.0), ("arange", -5.0, 6.0, 1.0)),
+    ("T", dict(df=4.0), ("arange", -5.0, 6.0, 1.0)),
+    ("Poisson", dict(mu=3.0), ("arange", 0.0, 10.0, 1.0)),
+    ("GumbelRight", dict(loc=1.0, scale=2.0), ("arange", -4.0, 9.0, 1.0)),
+    ("GumbelLeft", dict(loc=1.0, scale=2.0), ("arange", -8.0, 5.0, 1.0)),
+    ("Logistic", dict(loc=0.0, scale=1.5), ("arange", -6.0, 7.0, 1.0)),
+    ("VonMises", dict(kappa=2.0), ("linspace", -3.0, 3.0, 13)),
+    ("Triangular", dict(c=0.3, loc=1.0, scale=4.0), ("linspace", 0.5, 5.5, 17)),
+    ("HalfNormal", dict(scale=2.0), ("linspace", -1.0, 5.0, 13)),
+    ("Exponential", dict(scale=3.0), ("arange", -1.0, 10.0, 1.0)),
+    ("Laplace", dict(loc=1.0, scale=0.5), ("linspace", -3.0, 5.0, 13)),
+    ("ChiSquared", dict(df=3.0), ("linspace", 0.1, 9.0, 11)),
+    ("InverseGamma", dict(a=3.0, scale=2.0), ("linspace", 0.1, 5.0, 11)),
+    ("Rayleigh", dict(scale=2.0), ("linspace", -1.0, 8.0, 11)),
+    ("Pareto", dict(b=2.5), ("linspace", 0.5, 6.0, 11)),
+    ("PowerLaw", dict(a=1.7), ("linspace", -0.2, 1.2, 11)),
+    ("Maxwell", dict(scale=1.5), ("linspace", -1.0, 6.0, 11)),
+    ("Wald", dict(), ("linspace", 0.05, 5.0, 11)),
+    ("Binomial", dict(n=10, p=0.3), ("arange", 0.0, 11.0, 1.0)),
+    ("Geometric", dict(p=0.4), ("arange", 0.0, 8.0, 1.0)),
+    ("Bernoulli", dict(p=0.7), ("arange", -1.0, 3.0, 1.0)),
+    ("Arcsine", dict(), ("linspace", -0.2, 1.2, 13)),
+    ("TruncatedExponential", dict(b=2.0, scale=1.5), ("linspace", -1.0, 4.0, 13)),
+    ("Alpha", dict(a=2.0), ("linspace", 0.05, 3.0, 17)),
+    ("Anglit", dict(loc=0.5, scale=2.0), ("linspace", -1.5, 2.5, 17)),
+    ("Bradford", dict(c=1.7), ("linspace", -0.2, 1.2, 17)),
+    ("Burr3", dict(c=2.0, d=1.5), ("linspace", 0.05, 4.0, 17)),
+    ("Burr12", dict(c=2.0, d=1.5), ("linspace", 0.05, 4.0, 17)),
+    ("Chi", dict(df=3.0), ("linspace", 0.05, 4.0, 17)),
+    ("Cosine", dict(), ("linspace", -4.0, 4.0, 17)),
+    ("DoubleGamma", dict(a=1.7), ("linspace", -4.0, 4.0, 17)),
+    ("DoubleGamma", dict(a=0.7), ("linspace", -4.0, 4.0, 16)),
+    ("DoubleWeibull", dict(c=2.0), ("linspace", -3.0, 3.0, 17)),
+    ("ExponentialNormal", dict(K=1.5), ("linspace", -4.0, 8.0, 17)),
+    ("ExponentialWeibull", dict(a=2.0, c=1.5), ("linspace", 0.05, 4.0, 17)),
+    ("ExponentialPower", dict(b=1.8), ("linspace", -0.2, 2.0, 17)),
+    ("F", dict(dfn=5.0, dfd=7.0), ("linspace", 0.05, 5.0, 17)),
+    ("FatigueLife", dict(c=0.8), ("linspace", 0.05, 5.0, 17)),
+    ("Fisk", dict(c=2.2), ("linspace", 0.05, 5.0, 17)),
+    ("FoldedCauchy", dict(c=1.5), ("linspace", -0.5, 6.0, 17)),
+    ("FoldedNormal", dict(c=1.5), ("linspace", -0.5, 6.0, 17)),
+    ("GeneralLogistic", dict(c=2.0), ("linspace", -5.0, 5.0, 17)),
+    ("GeneralNormal", dict(beta=1.5), ("linspace", -4.0, 4.0, 17)),
+    ("HalfGeneralNormal", dict(beta=1.5), ("linspace", -0.5, 4.0, 17)),
+    ("GeneralPareto", dict(c=0.5), ("linspace", -0.5, 5.0, 17)),
+    ("GeneralPareto", dict(c=-0.5), ("linspace", -0.5, 2.5, 17)),
+    ("GeneralPareto", dict(c=0.0), ("linspace", -0.5, 5.0, 17)),
+    ("GeneralExtreme", dict(c=0.3), ("linspace", -4.0, 3.0, 17)),
+    ("GeneralExtreme", dict(c=-0.3), ("linspace", -3.0, 6.0, 17)),
+    ("GeneralExtreme", dict(c=0.0), ("linspace", -3.0, 6.0, 17)),
+    ("GeneralExponential", dict(a=1.5, b=2.0, c=1.0), ("linspace", -0.5, 4.0, 17)),
+    ("GeneralGamma", dict(a=2.0, c=1.5), ("linspace", 0.05, 4.0, 17)),
+    ("GeneralGamma", dict(a=2.0, c=-1.5), ("linspace", 0.05, 4.0, 17)),
+    ("GeneralHalfLogistic", dict(c=0.7), ("linspace", -0.2, 1.6, 17)),
+    ("Gilbrat", dict(), ("linspace", 0.05, 6.0, 17)),
+    ("Gompertz", dict(c=1.2), ("linspace", -0.5, 3.0, 17)),
+    ("HalfLogistic", dict(), ("linspace", -0.5, 5.0, 17)),
+    ("HyperbolicSecant", dict(), ("linspace", -5.0, 5.0, 17)),
+    ("InverseGaussian", dict(mu=1.3), ("linspace", 0.05, 5.0, 17)),
+    ("InverseWeibull", dict(c=2.0), ("linspace", 0.05, 5.0, 17)),
+    ("JohnsonSB", dict(a=1.0, b=2.0), ("linspace", -0.2, 1.2, 17)),
+    ("JohnsonSU", dict(a=1.0, b=2.0), ("linspace", -5.0, 5.0, 17)),
+    ("Kappa3", dict(a=1.5), ("linspace", 0.05, 5.0, 17)),
+    ("Levy", dict(), ("linspace", 0.05, 8.0, 17)),
+    ("LevyLeft", dict(), ("linspace", -8.0, -0.05, 17)),
+    ("LogGamma", dict(c=1.5), ("linspace", -5.0, 2.0, 17)),
+    ("LogLaplace", dict(c=1.8), ("linspace", 0.05, 4.0, 17)),
+    ("Lomax", dict(c=2.0), ("linspace", -0.5, 5.0, 17)),
+    ("Mielke", dict(k=2.0, s=1.5), ("linspace", 0.05, 5.0, 17)),
+    ("Nakagami", dict(nu=1.5), ("linspace", 0.05, 3.0, 17)),
+    ("PearsonType3", dict(skew=0.8), ("linspace", -3.0, 5.0, 17)),
+    ("PearsonType3", dict(skew=-0.8), ("linspace", -5.0, 3.0, 17)),
+    ("PearsonType3", dict(skew=0.0), ("linspace", -4.0, 4.0, 17)),
+    ("PowerLogNormal", dict(c=2.0, s=0.8), ("linspace", 0.05, 4.0, 17)),
+    ("PowerNormal", dict(c=2.0), ("linspace", -4.0, 4.0, 17)),
+    ("RDistributed", dict(c=3.0), ("linspace", -1.2, 1.2, 17)),
+    ("ReciprocalInverseGaussian", dict(mu=1.3), ("linspace", 0.05, 5.0, 17)),
+    ("Rice", dict(b=2.0), ("linspace", -0.5, 6.0, 17)),
+    ("Semicircular", dict(), ("linspace", -1.3, 1.3, 17)),
+    ("SkewNormal", dict(a=3.0), ("linspace", -4.0, 4.0, 17)),
+    ("Trapezoidal", dict(c=0.2, d=0.7), ("linspace", -0.2, 1.2, 17)),
+    ("WrappedCauchy", dict(c=0.4), ("linspace", -1.0, 7.0, 17)),
+    ("GaussHypergeometric", dict(a=1.5, b=2.0, c=1.0, z=0.5), ("linspace", -0.2, 1.2, 17)),
+    ("NonCentralChiSquared", dict(df=3.0, nc=2.0), ("linspace", 0.05, 20.0, 23)),
+    ("NonCentralChiSquared", dict(df=7.0, nc=40.0), ("arange", 1.0, 146.3181818181818, 6.318181818181818)),
+    ("NonCentralF", dict(dfn=5.0, dfd=7.0, nc=2.0), ("linspace", 0.05, 8.0, 23)),
+    ("NonCentralF", dict(dfn=2.0, dfd=30.0, nc=15.0), ("arange", 0.05, 31.361363636363635, 1.3613636363636363)),
+    ("NonCentralT", dict(df=4.0, nc=1.5), ("linspace", -6.0, 10.0, 23)),
+    ("NonCentralT", dict(df=2.0, nc=-3.0), ("linspace", -12.0, 6.0, 23)),
+    ("Kappa4", dict(h=0.5, k=0.3), ("linspace", -3.0, 3.5, 23)),
+    ("Kappa4", dict(h=-0.5, k=-0.3), ("linspace", -3.0, 6.0, 23)),
+    ("Kappa4", dict(h=0.0, k=0.0), ("linspace", -3.0, 6.0, 23)),
+    ("Skellam", dict(mu1=3.0, mu2=2.0), ("arange", -12.0, 16.0, 1.0)),
+    ("Skellam", dict(mu1=40.0, mu2=10.0), ("arange", -10.0, 92.0, 3.0)),
+    ("Boltzmann", dict(lambda_=0.7, N=10), ("arange", -1.0, 12.0, 1.0)),
+    ("DiscreteLaplace", dict(a=0.8), ("arange", -6.0, 7.0, 1.0)),
+    ("Hypergeometric", dict(M=20, n=7, N=12), ("arange", -1.0, 14.0, 1.0)),
+    ("LogSeries", dict(p=0.6), ("arange", 0.0, 10.0, 1.0)),
+    ("Planck", dict(lambda_=0.5), ("arange", -1.0, 10.0, 1.0)),
+    ("Zipf", dict(a=2.5), ("arange", 0.0, 10.0, 1.0)),
+
+    ("BetaPrime", dict(a=2.0, b=3.0), ("linspace", -0.5, 8.0, 17)),
+    ("Erlang", dict(a=3, scale=1.5), ("linspace", -0.5, 9.0, 17)),
+    ("HalfCauchy", dict(scale=2.0), ("linspace", -1.0, 8.0, 17)),
+    ("KSOneSided", dict(n=20), ("linspace", -0.1, 1.1, 25)),
+    ("KSTwoSided", dict(), ("linspace", -0.2, 3.0, 17)),
+    ("LevyStable", dict(alpha=1.5, beta=0.3), ("linspace", -10.0, 10.0, 21)),
+    ("NegativeBinomial", dict(n=3, p=0.4), ("arange", -1.0, 12.0, 1.0)),
+    ("Reciprocal", dict(a=2.0, b=12.0), ("linspace", 1.0, 13.0, 17)),
+    ("TukeyLambda", dict(lam=0.5), ("linspace", -3.0, 3.0, 23)),
+    ("TukeyLambda", dict(lam=-0.5), ("linspace", -3.0, 3.0, 23)),
+    ("TukeyLambda", dict(lam=0.14), ("linspace", -3.0, 3.0, 23)),
+    ("TukeyLambda", dict(lam=0.0), ("linspace", -3.0, 3.0, 23)),
+    ("TukeyLambda", dict(lam=-2.0), ("linspace", -3.0, 3.0, 23)),
+    ("VonMisesLine", dict(kappa=2.0), ("linspace", -4.0, 4.0, 17)),
+]
+# vector hyperparameters: (alias, keyword arguments, rows of points); the
+# first two are per-element tables, the third a closed form that
+# broadcasts them
+PRIOR_VECTOR_CASES = [
+    ("KSOneSided", dict(n=np.array([20, 30])),
+     ((0.2, 0.3), (0.05, 0.11), (-0.1, 1.2))),
+    ("NonCentralChiSquared", dict(df=np.array([4.0, 6.0]), nc=np.array([2.0, 1.0])),
+     ((3.0, 5.0), (0.5, 12.0), (-1.0, 40.0))),
+    ("TruncatedNormal", dict(a=np.array([-1.0, -2.0]), b=np.array([2.0, 1.5]),
+                             loc=np.array([64.5, 60.0]), scale=4.0),
+     ((64.5, 60.0), (60.0, 52.0), (80.0, 65.0))),
+]
+PRIOR_F32_TOL = 1e-4  # |card float32 - CPU float64| / max(1, |CPU float64|)
+
+
+def prior_grid(grid):
+    """The points of a :data:`PRIOR_CASES` grid."""
+    if grid and grid[0] == "linspace":
+        return np.linspace(*grid[1:])
+    if grid and grid[0] == "arange":
+        return np.arange(*grid[1:])
+    return np.asarray(grid, dtype=np.float64)
+
+
+def prior_points(dist, grid):
+    """A grid's points, the support's finite edges and points just and
+    well outside them."""
+    a, b = (float(v) for v in dist.rv_frozen.support())
+    edges = [v for v in (a, b, a - 1e-9, b + 1e-9, a - 1.0, b + 1.0)
+             if np.isfinite(v)]
+    return np.concatenate([prior_grid(grid), edges])
+
+
+def prior_family_phase(device=None):
+    """Every prior family on the card: each :data:`PRIOR_CASES` entry (and
+    the vector cases) evaluated in float64 and float32 on the card against
+    the CPU (float64: rtol and atol 1e-8, the same infinite entries;
+    float32: the CPU's float32 infinite entries and :data:`PRIOR_F32_TOL`
+    of the CPU's float64); then one CUDA graph that evaluates all of them
+    in float32, replayed and held bit for bit to the eager call; and a
+    discrete family with vector hyperparameters refused by
+    ``build_posterior`` on the card."""
+    import torch
+
+    from psfmc_tpu_torch import distributions as D
+
+    device = torch.device(device or "cuda")
+    t0 = time.perf_counter()
+    cases, grids = [], []  # float32 runs on the grid: an edge point is
+    # ill-conditioned there (cos(2z) near 0 for Anglit, ...)
+    for alias, kw, grid in PRIOR_CASES:
+        dist = D.from_name(alias, **kw)
+        cases.append((f"{alias}{kw}", dist, prior_points(dist, grid)))
+        grids.append(len(prior_grid(grid)))
+    for alias, kw, rows in PRIOR_VECTOR_CASES:
+        cases.append((f"{alias}{kw}", D.from_name(alias, **kw), np.asarray(rows)))
+        grids.append(len(rows))
+    covered = {type(d).__name__ for _, d, _ in cases}
+    if covered != set(D.SCIPY_DIST_NAMES):
+        raise AssertionError(f"prior families not evaluated: "
+                             f"{sorted(set(D.SCIPY_DIST_NAMES) - covered)}")
+    worst64 = worst32 = 0.0
+    inputs = []
+    for (label, dist, x_all), n_grid in zip(cases, grids):
+        for dtype in (torch.float64, torch.float32):
+            x = x_all if dtype == torch.float64 else x_all[:n_grid]
+            ref = dist.torch_logp(torch.as_tensor(x, dtype=torch.float64)).numpy()
+            ref32 = dist.torch_logp(torch.as_tensor(x, dtype=torch.float32)).numpy()
+            xt = torch.as_tensor(x, dtype=dtype, device=device)
+            params = dist.torch_params(dtype, device)
+            got = dist.torch_logp(xt, params).double().cpu().numpy()
+            if dtype == torch.float64:
+                fin = np.isfinite(ref)
+                same = np.array_equal(got[~fin], ref[~fin]) and np.all(np.isfinite(got[fin]))
+                err = float(np.max(np.abs(got[fin] - ref[fin])
+                                   / (1e-8 + 1e-8 * np.abs(ref[fin])), initial=0.0))
+                worst64 = max(worst64, err)
+                ok = same and err <= 1.0
+            else:
+                # the infinite entries are the CPU's float32 ones, the values
+                # are held where both precisions are finite
+                fin = np.isfinite(ref32)
+                same = np.array_equal(got[~fin], ref32[~fin]) and np.all(np.isfinite(got[fin]))
+                both = fin & np.isfinite(ref)
+                err = float(np.max(np.abs(got[both] - ref[both])
+                                   / np.maximum(1.0, np.abs(ref[both])), initial=0.0))
+                worst32 = max(worst32, err)
+                ok = same and err <= PRIOR_F32_TOL
+                inputs.append((xt, params))
+            if not ok:
+                raise AssertionError(f"prior {label} on the card ({dtype}) differs "
+                                     f"from the CPU: {got} vs {ref}")
+    log(f"priors: {len(cases)} cases ({len(covered)} families, every alias) on the "
+        f"card against the CPU: float64 (grids, support edges and beyond) worst "
+        f"|diff| / (1e-8 + 1e-8 |ref|) {worst64:.3e} (<= 1), infinite entries "
+        f"identical; float32 (grids) worst |diff| / max(1, |float64 ref|) "
+        f"{worst32:.3e} (tol {PRIOR_F32_TOL:g}), infinite entries the CPU's float32")
+
+    # one graph for every family: capture, replay, hold to the eager call
+    def evaluate():
+        return [dist.torch_logp(xt, params)
+                for (_, dist, _), (xt, params) in zip(cases, inputs)]
+
+    if device.type != "cuda":  # a rehearsal on the CPU: no graph
+        log(f"priors: the family phase took {time.perf_counter() - t0:.1f} s")
+        return
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        eager = evaluate()  # the warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = evaluate()
+    for o in outs:
+        o.fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    differ = [label for (label, _, _), a, b in zip(cases, outs, eager)
+              if not same_bits(a, b)]
+    if differ:
+        raise AssertionError(f"the replayed graph differs from the eager call for "
+                             f"{differ}")
+    replay_ms = time_ms(graph.replay, reps=5, inner=5)
+    eager_ms = time_ms(evaluate, reps=3, inner=2)
+    log(f"priors: one CUDA graph evaluates all {len(cases)} cases in float32; its "
+        f"replay is bit-identical to the eager call; {replay_ms:.3f} ms a replay, "
+        f"{eager_ms:.3f} ms eager")
+
+    from psfmc_tpu_torch.flagship import priors_components
+    from psfmc_tpu_torch.models import build_model_spec, build_posterior
+
+    comps = priors_components((32, 32), (16, 16))
+    comps[2].xy = D.Skellam(mu1=np.array([16.0, 16.0]), mu2=np.array([1.0, 2.0]))
+    spec = build_model_spec(comps)
+    try:
+        build_posterior(spec, device=device)
+    except NotImplementedError as err:
+        log(f"priors: a discrete family with vector hyperparameters is refused on "
+            f"the card at build_posterior: {err}")
+    else:
+        raise AssertionError("build_posterior took a host-callback prior on the card")
+    log(f"priors: the family phase took {time.perf_counter() - t0:.1f} s")
+
+
+# the priors flagship's trace columns in the JAX package's layout (the xy
+# columns two wide)
+PRIORS_COLUMNS = [
+    "0_Sky_adu", "1_PointSource_mag", "1_PointSource_xy", "2_Sersic_angle",
+    "2_Sersic_index", "2_Sersic_mag", "2_Sersic_reff", "2_Sersic_reff_b",
+    "2_Sersic_xy", "3_Sersic_angle", "3_Sersic_index", "3_Sersic_mag",
+    "3_Sersic_reff", "3_Sersic_reff_b", "3_Sersic_xy"]
+# the priors phase's variants: (label, priors_components variant,
+# environment, likelihood path)
+PRIORS_VARIANTS = (
+    ("stress", "stress", {}, "batched"),
+    ("fused", "flagship", {"PSFMC_LNPOST": "pallas"}, "fused"),
+    ("general", "general", {}, "general"),
+)
+
+
+def counted_fit(model_file, out, device):
+    """``model_galaxy_mcmc`` on a model file with the kernels counted:
+    returns the database, the sampler, the launches (by wrapper, by route)
+    of the sampling (up to the image writer) and of the whole run, the
+    walkers moved by each rejuvenation and the wall time."""
+    import torch
+
+    from psfmc_tpu_torch import fitting
+
+    counted = counted_kernels()
+    moved, samplers, at_images = [], [], []
+    rejuvenate_stuck = fitting.EnsembleSampler.rejuvenate_stuck
+    sampler_init = fitting.EnsembleSampler.__init__
+    save_images = fitting.save_posterior_images
+
+    def counting_rejuvenate(self, *a, **k):
+        moved.append(rejuvenate_stuck(self, *a, **k))
+        return moved[-1]
+
+    def kept_init(self, *a, **k):
+        sampler_init(self, *a, **k)
+        samplers.append(self)
+
+    def counted_images(*a, **k):  # the launches of sampling end here
+        torch.cuda.synchronize()
+        at_images.append(read_counts(counted))
+        return save_images(*a, **k)
+
+    fitting.EnsembleSampler.rejuvenate_stuck = counting_rejuvenate
+    fitting.EnsembleSampler.__init__ = kept_init
+    fitting.save_posterior_images = counted_images
+    try:
+        torch.cuda.synchronize()
+        reset_counts(counted)
+        t0 = time.perf_counter()
+        db = fitting.model_galaxy_mcmc(
+            model_file, output_name=out, chains=NWALKERS, burn=BURN,
+            iterations=SAMPLE, seed=SEED, device=device,
+            checkpoint_interval=CHECKPOINT)
+        wall = time.perf_counter() - t0
+        total = read_counts(counted)
+    finally:
+        fitting.EnsembleSampler.rejuvenate_stuck = rejuvenate_stuck
+        fitting.EnsembleSampler.__init__ = sampler_init
+        fitting.save_posterior_images = save_images
+    (sm,) = samplers
+    return db, sm, at_images[0], total, moved, wall
+
+
+def priors_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
+    """The priors flagship at full width: written as FITS files and a model
+    file that imports its priors from ``psfMC.distributions``, through
+    ``model_galaxy_mcmc`` with ``PSFMC_LNPOST`` unset (the batched path,
+    the priors plain PyTorch inside the step's graph); the API phase on
+    its model file and database; graphed against eager, the steady steps;
+    then the variants (the stress priors, the fused kernel, the general
+    path) at 2 + 2 steps.  Returns the launches of the fit's sampling, of
+    the API phase and of the variants, the priors sampler and a stress
+    sampler."""
+    from psfmc_tpu_torch.database import load_database
+    from psfmc_tpu_torch.flagship import priors_components, write_priors_files
+    from psfmc_tpu_torch.io import fits
+    from psfmc_tpu_torch.models import build_model_spec, build_posterior
+    from psfmc_tpu_torch.ops.kernels.conv_lnl import conv_route
+    from psfmc_tpu_torch.sampler import EnsembleSampler
+
+    t_phase = time.perf_counter()
+    steps = BURN + SAMPLE
+    env = {k: os.environ.pop(k) for k in ("PSFMC_LNPOST", "PSFMC_RENDER",
+                                          "PSFMC_KAPPA") if k in os.environ}
+    with tempfile.TemporaryDirectory() as tmp:
+        model_file = write_priors_files(tmp, shape, psf_shape)
+        out = os.path.join(tmp, "out")
+        db, sm, (sampling, by_route), _, moved, wall = counted_fit(model_file, out,
+                                                                  device)
+        mc_post = sm.fns
+        spec = mc_post.spec
+        log(f"priors: model_galaxy_mcmc on the priors flagship (TruncatedNormal "
+            f"positions with a vector loc, Reciprocal sizes, Gamma and "
+            f"TruncatedNormal indices, Triangular and SkewNormal magnitudes; "
+            f"{spec.num_params} parameters), {NWALKERS} walkers, burn {BURN} + "
+            f"sampling {SAMPLE} in segments of {CHECKPOINT}: {wall:.3f} s wall; "
+            "phases " + ", ".join(f"{k} {v:.3f} s" for k, v in db.phase_seconds.items()))
+        if mc_post.lnpost != "batched":
+            raise AssertionError(f"the priors flagship took lnpost={mc_post.lnpost!r} "
+                                 "with PSFMC_LNPOST unset")
+        want = family_launches("batched", BURN, SAMPLE, sum(n > 0 for n in moved))
+        log(f"priors: launches of the sampling {sampling}, by route {by_route}; "
+            f"walkers moved by each rejuvenation {moved}")
+        route = conv_route(shape)
+        other = "dft" if route == "fft" else "fft"
+        if sampling != want or by_route[f"batched_conv_lnl:{route}"] != want[
+                "batched_conv_lnl"] or by_route[f"batched_conv_lnl:{other}"] != 0:
+            raise AssertionError(f"priors launches {sampling}, by route {by_route}: "
+                                 f"want {want}, every conv_lnl on the {route} route")
+        if device != "cpu" and sm.graph_replays != steps:
+            raise AssertionError(f"priors: {sm.graph_replays} of {steps} steps "
+                                 "were graph replays")
+        lnp = sm.lnprobability
+        acc = float(np.mean(sm.acceptance_fraction))
+        if lnp.shape != (NWALKERS, SAMPLE) or not np.all(np.isfinite(lnp)) \
+                or not np.all(np.isfinite(sm.chain)):
+            raise AssertionError("priors: non-finite or misshapen chain")
+        if not 0.02 < acc < 0.9:
+            raise AssertionError(f"priors: mean acceptance {acc} outside (0.02, 0.9)")
+        table = load_database(out + "_db.fits")
+        widths = [np.asarray(table[c]).reshape(len(table), -1).shape[1]
+                  for c in PRIORS_COLUMNS]
+        if table.colnames != PRIORS_COLUMNS + ["lnprobability", "walker", "sample"] \
+                or spec.param_names != PRIORS_COLUMNS or widths != spec.param_lens:
+            raise AssertionError(f"priors: database columns {table.colnames} "
+                                 f"(widths {widths}), want the JAX layout "
+                                 f"{PRIORS_COLUMNS} (widths {spec.param_lens})")
+        for ftype in IMAGE_TYPES:
+            img = fits.getdata(f"{out}_{ftype}.fits")
+            if img.shape != tuple(shape) or not np.all(np.isfinite(img)):
+                raise AssertionError(f"priors: image {ftype}: {img.shape}")
+        log(f"priors: every one of the {steps} steps was a CUDA graph replay; mean "
+            f"acceptance {acc:.4f}; database columns the JAX layout (the xy columns "
+            f"two wide); five images {shape[0]}x{shape[1]} finite")
+        general_lnpost_check(mc_post, spec, sm.state.positions[:16], "priors",
+                             ref_lnpost="batched")
+        api_launches = api_phase(model_file, table, sm, device)
+    for k, v in env.items():
+        os.environ[k] = v
+
+    graphed_against_eager(mc_post, spec, "priors graph", GRAPH_BURN, GRAPH_SAMPLE)
+    fresh = EnsembleSampler(NWALKERS, spec.num_params, mc_post, seed=SEED)
+    fresh.init_state(sm.state.positions)
+    steady_phase(fresh, "priors path (lnpost='batched')")
+
+    variant_launches, stress = {}, None
+    for label, variant, variant_env, lnpost in PRIORS_VARIANTS:
+        os.environ.update(variant_env)
+        try:
+            vspec = build_model_spec(priors_components(shape, psf_shape, variant))
+            vpost = build_posterior(vspec, device=device)
+            if vpost.lnpost != lnpost:
+                raise AssertionError(f"priors variant {label} took lnpost="
+                                     f"{vpost.lnpost!r}, want {lnpost!r}")
+            th = prior_draws_general(vspec, 16)
+            general_lnpost_check(vpost, vspec, th, f"priors variant {label} "
+                                 f"(lnpost={lnpost!r})", ref_lnpost=lnpost)
+            got = graphed_against_eager(vpost, vspec, f"priors variant {label}",
+                                        GENERAL_VARIANT_STEPS, GENERAL_VARIANT_STEPS)
+        finally:
+            for k in variant_env:
+                del os.environ[k]
+        want = family_launches(lnpost, GENERAL_VARIANT_STEPS, GENERAL_VARIANT_STEPS)
+        if got != want:
+            raise AssertionError(f"priors variant {label}: launches {got}, want {want}")
+        for k, v in got.items():
+            variant_launches[k] = variant_launches.get(k, 0) + v
+        if variant == "stress":
+            stress = EnsembleSampler(NWALKERS, vspec.num_params, vpost, seed=SEED)
+            stress.init_state(prior_draws_general(vspec, NWALKERS))
+    log(f"priors: the phase took {time.perf_counter() - t_phase:.1f} s")
+    sampling.update(by_route)
+    return sampling, api_launches, variant_launches, fresh, stress
+
+
+API_PRIOR_TOL = 1e-4  # |card float32 log-prior - host scipy| / max(1, |host|)
+
+
+def api_phase(model_file, table, sm, device):
+    """The reference's model API on the card: ``MultiComponentModel`` from
+    the model file, ``param_values`` set to a prior draw, the host's scipy
+    ``log_priors`` against ``log_prior_batch`` on the card,
+    ``log_posterior`` against the CPU's float64 model, the five image
+    methods (finite, and equal to ``render_images_batch``'s row),
+    ``simulate``, and ``get_sampler_state`` of the fit's database against
+    the sampler's last positions and lnprob.  Returns its launches."""
+    import torch
+
+    from psfmc_tpu_torch.database import get_sampler_state
+    from psfmc_tpu_torch.models import MultiComponentModel
+
+    counted = counted_kernels()
+    torch.cuda.synchronize()
+    reset_counts(counted)
+    mc = MultiComponentModel(model_file, device=device)
+    theta = mc.init_params_from_priors(1, random_state=SEED + 5)[0]
+    mc.param_values = theta
+    split = np.concatenate([np.ravel(v) for v in mc.param_values.values()])
+    if not np.array_equal(split, theta) or any(
+            not np.array_equal(np.ravel(c_.value), np.ravel(v)) for c_, v in (
+                (mc.get_distribution(n), v) for n, v in mc.param_values.items())):
+        raise AssertionError("api: param_values does not round-trip")
+    host = mc.log_priors()
+    card = float(mc.posterior_fns.log_prior_batch(theta[None])[0])
+    if not abs(card - host) <= API_PRIOR_TOL * max(1.0, abs(host)):
+        raise AssertionError(f"api: log_priors {host} on the host, {card} on the card")
+    lnp, imgs = mc.log_posterior(theta)
+    ref = MultiComponentModel(model_file, device="cpu", dtype=torch.float64)
+    lnp_ref, _ = ref.log_posterior(theta)
+    rel = abs(lnp - lnp_ref) / abs(lnp_ref)
+    if not rel <= GENERAL_RTOL:
+        raise AssertionError(f"api: log_posterior {lnp} on the card, {lnp_ref} on "
+                             "the CPU in float64")
+    row = {k: v[0] for k, v in mc.render_images_batch(theta[None]).items()}
+    for name in IMAGE_TYPES:
+        img = getattr(mc, name)()
+        if not (np.all(np.isfinite(img)) and np.array_equal(img, row[name])
+                and np.array_equal(imgs[name], row[name])):
+            raise AssertionError(f"api: {name}() is not render_images_batch's row")
+    mock, th = mc.simulate(theta, random_state=SEED)
+    clean, _ = mc.simulate(theta, add_noise=False)
+    if not (np.all(np.isfinite(mock)) and np.array_equal(th, theta)
+            and np.array_equal(clean, row["convolved_model"])):
+        raise AssertionError("api: simulate")
+    pos, lnprob = get_sampler_state(table)
+    if not (np.array_equal(pos, sm.chain[:, -1]) and
+            np.array_equal(lnprob, sm.lnprobability[:, -1])):
+        raise AssertionError("api: get_sampler_state is not the sampler's last state")
+    thetas = mc.thetas_from_database(table)
+    if thetas.shape != (len(table), mc.num_params):
+        raise AssertionError(f"api: thetas_from_database {thetas.shape}")
+    torch.cuda.synchronize()
+    launches = read_counts(counted)[0]
+    log(f"api: MultiComponentModel(model file) on the card: param_values "
+        f"round-trips; log_priors {host:.6f} (host scipy) vs {card:.6f} "
+        f"(log_prior_batch on the card, tol {API_PRIOR_TOL:g} relative); "
+        f"log_posterior {lnp:.6f} vs {lnp_ref:.6f} on the CPU in float64 (rel "
+        f"{rel:.3e}, tol {GENERAL_RTOL:g}); the five image methods finite and "
+        f"render_images_batch's row; simulate finite, noiseless = the convolved "
+        f"model; get_sampler_state = the sampler's last positions and lnprob; "
+        f"thetas_from_database {thetas.shape}; launches {launches}")
+    return launches
 
 
 def prior_draws_general(spec, n):
@@ -1659,6 +2128,9 @@ def main():
     graph_phase(post, spec)
     general_launches, variant_launches, general = general_phase()
     family_launches_, family_variant_launches, family = family_phase()
+    prior_family_phase()
+    priors_launches, api_launches, priors_variant_launches, priors, stress = \
+        priors_phase()
     from psfmc_tpu_torch.sampler import EnsembleSampler
 
     fused = EnsembleSampler(NWALKERS, spec.num_params, mc.posterior_fns,
@@ -1671,6 +2143,8 @@ def main():
         profile_phase(fused, "driver path (lnpost='fused')")
         profile_phase(general, "general path (lnpost='general')")
         profile_phase(family, "family path (lnpost='batched')")
+        profile_phase(priors, "priors path (lnpost='batched')")
+        profile_phase(stress, "priors stress variant (lnpost='batched')")
         phase_clocks_phase(post, spec)
         render_geometry_phase(post, spec)
     # each kernel's launches on its own paths: the render on the slice path,
@@ -1679,18 +2153,25 @@ def main():
     # conv_lnl on the slice path and the family fit and variants, the fused
     # kernel on the driver path and the family's fused variant (128x128:
     # the FFT route; the matmul-DFT route is off the main path)
+    # the priors fit's sampling, the API phase and the priors variants: the
+    # render on all of them, conv_lnl on the fit and the stress variant, the
+    # fused kernel on its variant
     fam, fam_var = family_launches_, family_variant_launches
+    pri, pri_var = priors_launches, priors_variant_launches
     by_name = {"sersic_render": launches["render_sersics"]
                + general_launches["render_sersics"] + fam["render_sersics"]
-               + fam_var["render_sersics"],
+               + fam_var["render_sersics"] + pri["render_sersics"]
+               + api_launches["render_sersics"] + pri_var["render_sersics"],
                "sersic_render_tiled": launches["render_sersics_tiled"]
                + variant_launches["render_sersics_tiled"]
                + fam_var["render_sersics_tiled"],
                "conv_lnl": launches["batched_conv_lnl:fft"]
-               + fam["batched_conv_lnl:fft"] + fam_var["batched_conv_lnl"],
+               + fam["batched_conv_lnl:fft"] + fam_var["batched_conv_lnl"]
+               + pri["batched_conv_lnl:fft"] + pri_var["batched_conv_lnl"],
                "conv_lnl_dft": launches["batched_conv_lnl:dft"],
                "fused_lnl": driver_launches["fused_lnl:fft"] + fam_var["fused_lnl"],
                "fused_lnl_dft": driver_launches["fused_lnl:dft"]}
+    by_name["fused_lnl"] += pri_var["fused_lnl"]
     for r in rows:
         r["launches"] = by_name[r["name"]]
     for r in rows:

@@ -13,7 +13,7 @@ hand-written kernels in ``csrc/`` run (built with ``nvcc`` at first use).
 """
 from . import analysis, database, distributions, io, model_parser, models, ops, sampler
 from ._device import resolve_device
-from .database import load_database
+from .database import get_sampler_state, load_database
 from .fitting import model_galaxy_mcmc
 from .models import MultiComponentModel
 
@@ -22,6 +22,7 @@ __version__ = "0.1.0"
 __all__ = [
     "MultiComponentModel",
     "load_database",
+    "get_sampler_state",
     "analysis",
     "database",
     "model_parser",

@@ -32,6 +32,7 @@ __all__ = [
     "save_database",
     "load_database",
     "load_checkpoint",
+    "get_sampler_state",
     "row_to_param_vector",
     "annotate_metadata",
     "filter_lowp_walkers",
@@ -195,6 +196,23 @@ def load_checkpoint(db_name):
             payload["accum"] = {name: np.asarray(imgs[name], np.float64)
                                 for name in imgs.colnames}
     return payload
+
+
+def get_sampler_state(database):
+    """``(positions (nwalkers, num_params), lnprob (nwalkers,))`` of the last
+    retained sample of every walker, from the trace table (the JAX
+    package's bug-fixed reading of the reference's).  The CHECKPOINT
+    extension (:func:`load_checkpoint`) holds the resume state itself."""
+    stochastic_cols = [c for c in database.colnames
+                       if c not in ("walker", "sample", "lnprobability")]
+    nwalkers = int(database["walker"].max()) + 1
+    niter = len(database) // nwalkers
+    last_rows = np.arange(nwalkers) * niter + (niter - 1)
+    flat = np.concatenate(
+        [np.asarray(database[c], dtype=np.float64).reshape(len(database), -1)
+         for c in stochastic_cols], axis=1)
+    ln_prob = np.asarray(database["lnprobability"], dtype=np.float64)[last_rows]
+    return flat[last_rows], ln_prob
 
 
 def row_to_param_vector(table_row):

@@ -24,6 +24,17 @@ Vaucouleurs bulge and an exponential disk both centred on the point
 source (``Tied(ps, "xy")``), the disk boxy (a ``c0`` prior) and
 truncated (``rtrunc``/``rsoft``); its variants (:data:`FAMILY_VARIANTS`)
 swap the disk for each other profile family or shape.
+
+The priors flagship (:func:`priors_components`, :func:`write_priors_files`)
+is the flagship's sources with priors as a user writes them:
+``TruncatedNormal`` positions with a vector ``loc``, ``Reciprocal``
+sizes, a ``Gamma`` and a ``TruncatedNormal`` index, ``Triangular`` and
+``SkewNormal`` magnitudes.  Its variants (:data:`PRIORS_VARIANTS`) are a
+stress set that reaches each mechanism of the prior densities (the
+Tukey-lambda bisection, the noncentral t's quadrature, the noncentral
+chi-square's Poisson mixture, a table, per-element tables of a vector
+hyperparameter, a discrete family) and a general-path model with two
+PSF stars and a ``LogNormal`` ``NoiseScale``.
 """
 from __future__ import annotations
 
@@ -37,7 +48,8 @@ from .models.components import Configuration, PointSource, Sersic, Sky
 __all__ = ["flagship_arrays", "flagship_components", "write_flagship_files",
            "general_arrays", "general_components", "write_general_files",
            "FAMILY_VARIANTS", "family_lnpost", "family_components",
-           "write_family_files", "enforce_axis_order", "prior_draws"]
+           "write_family_files", "PRIORS_VARIANTS", "priors_components",
+           "write_priors_files", "enforce_axis_order", "prior_draws"]
 
 MAG_ZP = 25.9463
 TOTAL_MAG = 20.66
@@ -447,6 +459,137 @@ def write_family_files(directory, shape=(128, 128), psf_shape=(64, 64), seed=0):
         fh.write(_FAMILY_MODEL_FILE.format(
             center=tuple(a["center"].tolist()),
             max_shift=tuple(a["max_shift"].tolist()),
+            mag_zp=MAG_ZP, total_mag=TOTAL_MAG))
+    return path
+
+
+PRIORS_VARIANTS = ("flagship", "stress", "general")
+
+
+def _priors_sources(shape, variant, C, Dist):
+    """The flagship's PointSource and two Sersics with the priors of a
+    :data:`PRIORS_VARIANTS` entry."""
+    a = _prior_args(shape)
+    center, max_shift, blob = a["center"], a["max_shift"], a["blob_center"]
+    U = Dist.Uniform
+
+    def tn_xy(loc, half):  # a truncated Normal of sigma half/2 within +-half
+        return Dist.TruncatedNormal(a=-2.0, b=2.0, loc=loc, scale=half / 2.0)
+
+    def angle():
+        return dict(angle=U(loc=0, scale=180), angle_degrees=True)
+
+    if variant == "stress":
+        return [
+            C.PointSource(xy=U(loc=center - max_shift, scale=2 * max_shift),
+                          mag=Dist.NonCentralT(df=5.0, nc=0.5, loc=TOTAL_MAG,
+                                               scale=0.3)),
+            C.Sersic(xy=U(loc=center - max_shift, scale=2 * max_shift),
+                     mag=U(loc=TOTAL_MAG, scale=27.5 - TOTAL_MAG),
+                     reff=Dist.NonCentralChiSquared(df=4.0, nc=2.0, loc=2.0,
+                                                    scale=1.0),
+                     reff_b=U(loc=2.0, scale=10.0),
+                     index=Dist.KSTwoSided(loc=0.5, scale=2.0), **angle()),
+            C.Sersic(xy=Dist.KSOneSided(n=np.array([20, 30]), loc=blob - 3.0,
+                                        scale=25.0),
+                     mag=U(loc=23.5, scale=2.0), reff=U(loc=2.0, scale=6.0),
+                     reff_b=U(loc=2.0, scale=6.0),
+                     index=Dist.Binomial(n=6, p=0.4, loc=1), **angle()),
+        ]
+    return [
+        C.PointSource(xy=tn_xy(center, max_shift),
+                      mag=Dist.Triangular(c=0.3, loc=TOTAL_MAG - 0.2, scale=1.7)),
+        C.Sersic(xy=tn_xy(center, max_shift),
+                 mag=Dist.SkewNormal(a=3.0, loc=TOTAL_MAG + 0.3, scale=1.5),
+                 reff=Dist.Reciprocal(a=2.0, b=12.0),
+                 reff_b=Dist.Reciprocal(a=2.0, b=12.0),
+                 index=Dist.Gamma(a=4.0, scale=0.75), **angle()),
+        C.Sersic(xy=tn_xy(blob, np.array((5.0, 5.0))),
+                 mag=Dist.Triangular(c=0.5, loc=23.5, scale=2.0),
+                 reff=Dist.Reciprocal(a=2.0, b=8.0),
+                 reff_b=Dist.Reciprocal(a=2.0, b=8.0),
+                 index=Dist.TruncatedNormal(a=-2.0, b=2.0, loc=2.5, scale=1.0),
+                 **angle()),
+    ]
+
+
+def priors_components(shape=(128, 128), psf_shape=(64, 64), variant="flagship",
+                      seed=0, components=None, distributions=None, **config):
+    """[Configuration, Sky, PointSource, Sersic, Sersic(, NoiseScale)] of the
+    priors flagship or one of its :data:`PRIORS_VARIANTS`: ``stress`` puts
+    a Tukey-lambda prior on the sky, ``general`` sees two PSF stars (a
+    sampled ``PSF_Index``) and adds a ``LogNormal`` ``NoiseScale``.
+    ``config`` goes to the Configuration; ``components`` and
+    ``distributions`` are the modules whose classes build it (by default
+    the port's; the JAX package's have the same names and arguments)."""
+    if components is None:
+        from .models import components
+    if distributions is None:
+        from . import distributions
+    C, Dist = components, distributions
+    if variant not in PRIORS_VARIANTS:
+        raise ValueError(f"unknown priors variant {variant!r}; one of "
+                         f"{PRIORS_VARIANTS}")
+    arrays = general_arrays(shape, psf_shape, 2 if variant == "general" else 1, seed)
+    sky = (Dist.TukeyLambda(lam=0.14, loc=0.0, scale=0.01) if variant == "stress"
+           else Dist.Normal(loc=0, scale=0.01))
+    comps = [
+        C.Configuration(obs_file=arrays["obs"], obsivm_file=arrays["ivm"],
+                        psf_files=arrays["psfs"], psfivm_files=arrays["psf_ivms"],
+                        mag_zeropoint=MAG_ZP, **config),
+        C.Sky(adu=sky),
+    ] + _priors_sources(shape, variant, C, Dist)
+    if variant == "general":
+        comps.append(C.NoiseScale(scale=Dist.LogNormal(s=0.3)))
+    return comps
+
+
+_PRIORS_MODEL_FILE = """\
+# The priors flagship: the quasar + host model with the priors a user
+# writes: truncated-Normal positions, log-uniform sizes, a Gamma and a
+# truncated-Normal Sersic index, skewed magnitudes.
+from numpy import array
+
+from psfMC.ModelComponents import Configuration, PointSource, Sersic, Sky
+from psfMC.distributions import (Gamma, Normal, Reciprocal, SkewNormal,
+                                 Triangular, TruncatedNormal, Uniform)
+
+center = array({center})
+max_shift = array({max_shift})
+blob_center = array({blob_center})
+
+Configuration(obs_file="sci.fits", obsivm_file="ivm.fits",
+              psf_files="psf.fits", psfivm_files="psf_ivm.fits",
+              mask_file="mask.reg", mag_zeropoint={mag_zp!r})
+Sky(adu=Normal(loc=0, scale=0.01))
+PointSource(xy=TruncatedNormal(a=-2.0, b=2.0, loc=center, scale=max_shift / 2.0),
+            mag=Triangular(c=0.3, loc={total_mag!r} - 0.2, scale=1.7))
+Sersic(xy=TruncatedNormal(a=-2.0, b=2.0, loc=center, scale=max_shift / 2.0),
+       mag=SkewNormal(a=3.0, loc={total_mag!r} + 0.3, scale=1.5),
+       reff=Reciprocal(a=2.0, b=12.0), reff_b=Reciprocal(a=2.0, b=12.0),
+       index=Gamma(a=4.0, scale=0.75), angle=Uniform(loc=0, scale=180),
+       angle_degrees=True)
+Sersic(xy=TruncatedNormal(a=-2.0, b=2.0, loc=blob_center, scale=2.5),
+       mag=Triangular(c=0.5, loc=23.5, scale=2.0),
+       reff=Reciprocal(a=2.0, b=8.0), reff_b=Reciprocal(a=2.0, b=8.0),
+       index=TruncatedNormal(a=-2.0, b=2.0, loc=2.5, scale=1.0),
+       angle=Uniform(loc=0, scale=180), angle_degrees=True)
+"""
+
+
+def write_priors_files(directory, shape=(128, 128), psf_shape=(64, 64), seed=0):
+    """Write the priors flagship's inputs to ``directory``: the flagship's
+    FITS files and ds9 mask (:func:`write_flagship_files`) and a model file
+    ``model.py`` that declares ``priors_components(shape, psf_shape)``'s
+    sources with the priors imported from ``psfMC.distributions``, with the
+    mask.  Returns its path."""
+    path = write_flagship_files(directory, shape, psf_shape, seed)
+    a = _prior_args(shape)
+    with open(path, "w") as fh:
+        fh.write(_PRIORS_MODEL_FILE.format(
+            center=tuple(a["center"].tolist()),
+            max_shift=tuple(a["max_shift"].tolist()),
+            blob_center=tuple(a["blob_center"].tolist()),
             mag_zp=MAG_ZP, total_mag=TOTAL_MAG))
     return path
 

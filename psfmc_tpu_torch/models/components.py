@@ -21,6 +21,12 @@ isophote shapes and truncation; ``ExpDisk``, ``DeVaucouleurs`` and
 included.  A ``frame="sky"`` tie belongs to joint multi-band models and
 :func:`~psfmc_tpu_torch.models.spec.build_model_spec` raises
 ``NotImplementedError`` for it.
+
+Each component has the reference's host API: ``get_distribution``,
+``num_stochastics``, ``stochastic_names``, ``set_stochastic_values``
+(a vector, ``"random"`` or ``"median"``) and ``log_priors`` (scipy at the
+current values, with the component's cross-attribute constraints, e.g.
+Sersic ``reff >= reff_b``).
 """
 from __future__ import annotations
 
@@ -156,8 +162,50 @@ class ComponentBase:
     def sorted_prior_items(self):
         return sorted(self._priors.items())
 
+    def get_distribution(self, stoch_name):
+        """The prior whose trace name is ``stoch_name`` (``KeyError`` unless
+        exactly one matches)."""
+        matching = [d for d in self._priors.values() if d.name == stoch_name]
+        if len(matching) != 1:
+            raise KeyError(f"Could not find unique prior with name: {stoch_name}")
+        return matching[0]
+
     def stochastic_lens(self):
         return [np.asarray(p.value).size for _k, p in self.sorted_prior_items()]
+
+    def num_stochastics(self):
+        return int(np.sum(self.stochastic_lens(), dtype=int)) if self._priors else 0
+
+    def stochastic_names(self, name_attr="name"):
+        return [getattr(p, name_attr) for _k, p in self.sorted_prior_items()]
+
+    def set_stochastic_values(self, param_values="random", random_state=None):
+        """Set the priors' current values from a vector (alphabetical
+        order, ``xy`` two wide), or draw them: ``"random"`` or
+        ``"median"``.  Returns the vector set."""
+        items = self.sorted_prior_items()
+        if isinstance(param_values, str):
+            if param_values not in ("random", "median"):
+                raise ValueError(f"Unknown draw mode: {param_values}")
+            vals = [np.ravel(p.random(random_state=random_state)
+                             if param_values == "random" else p.median())
+                    for _name, p in items]
+            param_values = np.concatenate(vals) if vals else np.array([], float)
+        start = 0
+        for (_name, prior), size in zip(items, self.stochastic_lens()):
+            prior.value = np.array(param_values[start:start + size])
+            start += size
+        return param_values
+
+    def log_priors(self):
+        """Joint host-side log-prior (scipy) at the current values:
+        ``-inf`` where the component's joint constraints
+        (:meth:`_batch_constraints`, the ones the draws enforce) fail."""
+        lp = float(sum(np.sum(p.logp(p.value)) for p in self._priors.values()))
+        current = {a: np.ravel(np.asarray(getattr(self, a), float))[None]
+                   for a in type(self)._stochastic_attrs
+                   if self._has(a) and getattr(self, a) is not None}
+        return lp if not current or self._batch_constraints(current).all() else -np.inf
 
     def _batch_constraints(self, vals):
         """``(m,)`` validity of candidate draws ``{attr: (m, size)}``

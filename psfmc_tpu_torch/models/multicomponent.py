@@ -1,10 +1,15 @@
 """MultiComponentModel: the model the fitting driver fits (port of ``models/multicomponent.py``, single band).
 
 A thin host facade over a :class:`~.spec.ModelSpec` and its
-:class:`~.posterior.PosteriorFns`: parameter names and lengths, prior
-draws for the walkers' start, the five reference image types of a batch
-of parameter vectors, the posterior-mean images (adopted from the
-sampler's accumulators or replayed from a chain) and the
+:class:`~.posterior.PosteriorFns`, with the reference's model API:
+construction from a component list or a model file, parameter names and
+lengths, the current parameter vector (``param_values``, which sets each
+component's prior values), ``get_distribution``, the host's scipy
+``log_priors``, ``log_posterior(theta)`` and the five image methods at
+the current vector, prior draws for the walkers' start, ``simulate``,
+the five reference image types of a batch of parameter vectors, the
+posterior-mean images (adopted from the sampler's accumulators or
+replayed from a chain), posterior-predictive mocks and the
 posterior-predictive p-value of the ``MCPPCP`` header card.
 
 Joint multi-band models (several ``Configuration`` components) are not
@@ -22,7 +27,7 @@ from .posterior import build_posterior
 from .spec import build_model_spec
 
 __all__ = ["MultiComponentModel", "as_model", "replicate_noise",
-           "poisson_deviance", "IMAGE_TYPES"]
+           "poisson_deviance", "trace_param_matrix", "IMAGE_TYPES"]
 
 IMAGE_TYPES = (
     "raw_model",
@@ -59,6 +64,19 @@ def poisson_deviance(counts, mu, good):
     return 2.0 * np.sum(np.where(ok, mu - counts + r, 0.0), axis=(-2, -1))
 
 
+def trace_param_matrix(database, param_names):
+    """``(N, num_params)`` parameter matrix of a trace database: its columns
+    in slot order (``xy`` two wide)."""
+    return np.concatenate(
+        [np.asarray(database[name], np.float64).reshape(len(database), -1)
+         for name in param_names], axis=1)
+
+
+def _random_state(random_state):
+    return (random_state if isinstance(random_state, np.random.RandomState)
+            else np.random.RandomState(random_state))
+
+
 def carry_to_reference_images(imgs: Dict[str, np.ndarray], obs_data):
     """The carry basis (raw, conv, var, ps_conv) -> the five image types."""
     return {
@@ -70,20 +88,22 @@ def carry_to_reference_images(imgs: Dict[str, np.ndarray], obs_data):
     }
 
 
+def _components_from_file(path):
+    from ..model_parser import component_list_from_file
+
+    try:
+        return component_list_from_file(path)
+    except IOError as err:
+        raise IOError(f"Unable to open model file {path}. Does it exist?") from err
+
+
 def as_model(model, device=None, lnpost=None):
     """A :class:`MultiComponentModel` from a model file name, a component
     list or a prepared model (which passes through unchanged)."""
     if isinstance(model, MultiComponentModel):
         return model
     if isinstance(model, str):
-        from ..model_parser import component_list_from_file
-
-        try:
-            components = component_list_from_file(model)
-        except IOError as err:
-            raise IOError(
-                f"Unable to open model file {model}. Does it exist?"
-            ) from err
+        components = _components_from_file(model)
     else:
         components = list(model)
     if sum(isinstance(c, Configuration) for c in components) > 1:
@@ -98,7 +118,8 @@ def as_model(model, device=None, lnpost=None):
 class MultiComponentModel:
     """Composite 2-D surface-brightness model over a component list.
 
-    :param components: component list (with one ``Configuration``).
+    :param components: component list (with one ``Configuration``), or
+        the file name of a model-definition file.
     :param device: the posterior's device (CUDA unless ``"cpu"``).
     :param dtype: its working dtype (float32 on CUDA).
     :param lnpost: its likelihood path (``"batched"``, ``"fused"``,
@@ -107,6 +128,8 @@ class MultiComponentModel:
 
     def __init__(self, components, device=None, dtype=torch.float32,
                  lnpost=None):
+        if isinstance(components, str):
+            components = _components_from_file(components)
         configs = [c for c in components if isinstance(c, Configuration)]
         if not configs:
             raise ValueError(
@@ -123,6 +146,7 @@ class MultiComponentModel:
         comp_order.append(self.config.psf_selector)
         self.components = comp_order
         self.obs_header = self.config.obs_header
+        self._param_vector = np.zeros(self.num_params)
         self.posterior_images: Dict[str, np.ndarray] = {}
         self.accumulated_samples = 0
         self.reset_images()
@@ -144,6 +168,52 @@ class MultiComponentModel:
     def param_lens(self) -> List[int]:
         return self.spec.param_lens
 
+    @property
+    def param_values(self):
+        """The current parameter vector, split by parameter name."""
+        split = np.split(self._param_vector, np.cumsum(self.param_lens)[:-1])
+        return dict(zip(self.param_names, split))
+
+    @param_values.setter
+    def param_values(self, value_vector):
+        value_vector = np.asarray(value_vector, dtype=np.float64).ravel()
+        if value_vector.size != self.num_params:
+            raise ValueError(
+                f"Expected {self.num_params} parameters, got {value_vector.size}")
+        self._param_vector = value_vector
+        start = 0
+        for comp in self.components:
+            n = comp.num_stochastics()
+            comp.set_stochastic_values(value_vector[start:start + n])
+            start += n
+
+    def get_distribution(self, param_name):
+        """The prior of trace name ``param_name``, or None."""
+        for comp in self.components:
+            try:
+                return comp.get_distribution(param_name)
+            except KeyError:
+                pass
+        return None
+
+    # -- priors and posterior ---------------------------------------------
+    def log_priors(self) -> float:
+        """Joint log-prior (host scipy) at the current parameter values."""
+        return float(np.sum([comp.log_priors() for comp in self.components]))
+
+    def log_posterior(self, param_values, **kwargs):
+        """``(lnp, images)`` at one parameter vector, through the
+        posterior's :meth:`~.posterior.PosteriorFns.lnpost_images_batch`
+        (the reference's signature: a ``model=`` keyword is accepted and
+        ignored); the vector becomes the current one."""
+        kwargs.pop("model", None)
+        theta = np.asarray(param_values, dtype=np.float64)
+        lnp, imgs = self.posterior_fns.lnpost_images_batch(theta[None])
+        self.param_values = theta
+        host = {k: v[0].to("cpu", torch.float64).numpy() for k, v in imgs.items()}
+        return float(lnp[0]), carry_to_reference_images(
+            host, np.asarray(self.spec.obs_data))
+
     def init_params_from_priors(self, nwalkers, random_state=None,
                                 max_tries=1000):
         """``(nwalkers, num_params)`` starting positions drawn from the
@@ -163,30 +233,85 @@ class MultiComponentModel:
         host = {k: v.to("cpu", torch.float64).numpy() for k, v in imgs.items()}
         return carry_to_reference_images(host, np.asarray(self.spec.obs_data))
 
+    # -- images at the current parameter vector -------------------------
+    def _current_images(self):
+        return {k: v[0] for k, v in
+                self.render_images_batch(self._param_vector[None]).items()}
+
+    def raw_model_std(self):
+        """Per-pixel posterior standard deviation of the raw model (after
+        sampling or a replay), else None."""
+        return self.posterior_images.get("raw_model_std")
+
+    def raw_model(self):
+        """Raw model image (before the PSF convolution)."""
+        return self._current_images()["raw_model"]
+
+    def convolved_model(self, raw_px=None):
+        """PSF-convolved model image."""
+        return self._current_images()["convolved_model"]
+
+    def composite_ivm(self, raw_px=None):
+        """Composite inverse-variance map (observation + model variance)."""
+        return self._current_images()["composite_ivm"]
+
+    def residual(self, convolved_px=None, raw_px=None):
+        """Observation minus the convolved model."""
+        return self._current_images()["residual"]
+
+    def point_source_subtracted(self):
+        """Observation minus the convolved point sources only."""
+        return self._current_images()["point_source_subtracted"]
+
+    def simulate(self, theta=None, random_state=None, add_noise=True):
+        """A mock observation: the convolved model at ``theta`` (drawn from
+        the priors when None) plus the observation's noise
+        (:func:`replicate_noise` at the observation's sigma, 0 at bad
+        pixels).  Returns ``(mock (H, W), theta)``."""
+        rng = _random_state(random_state)
+        if theta is None:
+            theta = self.init_params_from_priors(1, random_state=rng)[0]
+        theta = np.asarray(theta, np.float64)
+        mock = np.asarray(self.render_images_batch(theta[None])["convolved_model"][0],
+                          np.float64)
+        if add_noise:
+            sigma = np.sqrt(np.asarray(self.spec.obs_var, np.float64))
+            sigma = np.where(np.isfinite(sigma), sigma, 0.0)
+            mock = replicate_noise(rng, mock, self.spec, sigma)
+        return mock, theta
+
+    def thetas_from_database(self, database, rows=None):
+        """``(N, num_params)`` parameter matrix from a trace database."""
+        thetas = trace_param_matrix(database, self.param_names)
+        return thetas if rows is None else thetas[rows]
+
     def _replicate(self, database, n, rng):
         """Posterior draws, their images and replicated datasets (stuck
         walkers dropped first, as the image writer does)."""
         from ..database import filter_lowp_walkers
 
-        database = filter_lowp_walkers(database, percentile=10)
-        all_th = np.concatenate(
-            [np.asarray(database[name], np.float64).reshape(len(database), -1)
-             for name in self.param_names], axis=1)
+        all_th = self.thetas_from_database(filter_lowp_walkers(database, percentile=10))
         thetas = all_th[rng.randint(0, len(all_th), size=n)]
         imgs = self.render_images_batch(thetas)
         conv = imgs["convolved_model"]
         ivm = imgs["composite_ivm"]
         sigma = np.sqrt(np.where(ivm > 0, 1.0 / np.where(ivm > 0, ivm, 1.0), 0.0))
-        return conv, ivm, replicate_noise(rng, conv, self.spec, sigma)
+        return thetas, conv, ivm, replicate_noise(rng, conv, self.spec, sigma)
+
+    def posterior_predictive(self, database, n=100, random_state=None):
+        """``(mocks (n, H, W), thetas (n, num_params))``: replicated data at
+        ``n`` posterior draws, from each draw's own noise budget."""
+        thetas, _conv, _ivm, y_rep = self._replicate(
+            database, n, _random_state(random_state))
+        return y_rep, thetas
 
     def posterior_predictive_pvalue(self, database, n=200, random_state=None):
         """Posterior-predictive p-value of the deviance statistic, ``(1 +
         #{T_rep >= T_obs}) / (n + 2)``; ~0.5 is healthy, near 0 a misfit.
         ``T = sum_good (y - conv)^2 ivm``, or under the Poisson likelihood
         the Poisson deviance of the counts."""
-        rng = (random_state if isinstance(random_state, np.random.RandomState)
-               else np.random.RandomState(random_state))
-        conv, ivm, y_rep = self._replicate(database, n, rng)
+        _thetas, conv, ivm, y_rep = self._replicate(
+            database, n, _random_state(random_state))
         good = (~np.asarray(self.spec.bad_px))[None]
         obs = np.asarray(self.spec.obs_data, np.float64)[None]
         if self.spec.likelihood == "poisson":

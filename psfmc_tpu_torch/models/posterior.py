@@ -212,10 +212,21 @@ class PosteriorFns(nn.Module):
             for f in fields(ConvLnlConsts):
                 self.register_buffer("c_" + f.name, getattr(consts, f.name),
                                      persistent=False)
+        # each prior's device constants (loc, scale, vector hyperparameters,
+        # tables, quadrature rules, mixture terms) become buffers once, here:
+        # a density copies nothing from the host inside a captured step
+        self._prior_keys = []
         for i, slot in enumerate(spec.slots):
-            loc, scale = slot.dist.torch_params(dtype, device)
-            self.register_buffer(f"prior{i}_loc", loc, persistent=False)
-            self.register_buffer(f"prior{i}_scale", scale, persistent=False)
+            if device.type == "cuda" and slot.dist.needs_host(slot.size):
+                raise NotImplementedError(
+                    f"prior {type(slot.dist).__name__} of {slot.name} evaluates "
+                    "scipy on the host (a discrete family with vector "
+                    "hyperparameters): a CUDA graph cannot call the host; use "
+                    "device='cpu' or scalar hyperparameters")
+            params = slot.dist.torch_params(dtype, device, slot.size)
+            for key, tensor in params.items():
+                self.register_buffer(f"prior{i}_{key}", tensor, persistent=False)
+            self._prior_keys.append(tuple(params))
         # constant parameter values and the tie maps become buffers once, here
         for ci, cs in enumerate(spec.comp_specs):
             for attr, (kind, payload) in cs.params.items():
@@ -284,8 +295,7 @@ class PosteriorFns(nn.Module):
         lp = torch.zeros(thetas.shape[0], dtype=self.dtype, device=self.device)
         for i, slot in enumerate(self.spec.slots):
             x = thetas[:, slot.offset:slot.offset + slot.size]
-            params = (getattr(self, f"prior{i}_loc"),
-                      getattr(self, f"prior{i}_scale"))
+            params = {k: getattr(self, f"prior{i}_{k}") for k in self._prior_keys[i]}
             lp = lp + slot.dist.torch_logp(x, params).sum(dim=-1)
         neg_inf = torch.full_like(lp, -math.inf)
         for ci, cs in enumerate(self.spec.comp_specs):

@@ -24,10 +24,10 @@ shared ``theta`` slot or a constant; an offset tie adds the component's
 own offset slots.
 
 Both end in :func:`check_in_slice`, which raises
-``NotImplementedError`` for what this slice of the port does not run:
-the priors not yet ported (and, at build, ``frame="sky"`` ties, which
-belong to joint multi-band models).  Every single-band component of the
-JAX package is in: Sky (with its tilted plane), PointSource, the render
+``NotImplementedError`` for what this slice of the port does not run (at
+build, ``frame="sky"`` ties, which belong to joint multi-band models).
+Every prior family and every single-band component of the JAX package is
+in: Sky (with its tilted plane), PointSource, the render
 family (shaped and truncated Sersics and their fixed-index subclasses,
 Moffat, King, Ferrer, Nuker, EdgeDisk), NoiseScale and several PSFs
 with a sampled index, with ``conv_pad``, ``render_oversample``,
@@ -161,8 +161,8 @@ class ModelSpec:
 def _not_in_slice(what):
     raise NotImplementedError(
         f"{what} is not in this slice of psfmc_tpu_torch (single-band "
-        "models: every component with pixel-frame ties and the ported "
-        "priors); see ROADMAP Queue 1 for the slice that brings it"
+        "models: every component with pixel-frame ties, every prior); see "
+        "ROADMAP Queue 1 for the slice that brings it"
     )
 
 

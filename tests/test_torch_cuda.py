@@ -700,3 +700,43 @@ def test_shaped_render_on_the_card_matches_the_cpu(cuda, variant):
         fin = torch.isfinite(cpu64)
         peak = cpu64[fin].abs().max().item()
         torch.testing.assert_close(card[fin], cpu64[fin], rtol=1e-4, atol=1e-6 * peak)
+
+
+def test_every_prior_family_on_the_card_and_in_one_graph(cuda):
+    """Every case of ``chip_smoke.PRIOR_CASES`` (all 105 aliases) and the
+    vector cases in float64 and float32 on the card against the CPU, then
+    one captured graph of them all, replayed bit for bit against the eager
+    call; a host-callback prior is refused at ``build_posterior``."""
+    import chip_smoke
+
+    chip_smoke.prior_family_phase(device=cuda)
+
+
+def test_host_callback_prior_is_refused_on_the_card(cuda):
+    from psfmc_tpu_torch import distributions as D
+    from psfmc_tpu_torch.flagship import priors_components
+
+    comps = priors_components((32, 32), (16, 16))
+    comps[2].xy = D.Skellam(mu1=np.array([16.0, 16.0]), mu2=np.array([1.0, 2.0]))
+    spec = build_model_spec(comps)
+    with pytest.raises(NotImplementedError, match="Skellam"):
+        build_posterior(spec, device=cuda)
+    assert build_posterior(spec, device="cpu").lnpost == "batched"
+
+
+@pytest.mark.parametrize("variant", ["flagship", "stress"])
+def test_priors_graphed_phase_is_bit_identical_to_eager(cuda, variant):
+    """The priors flagship and its stress set (Tukey-lambda bisection,
+    noncentral t quadrature, noncentral chi-square mixture, tables,
+    per-element tables, a discrete family) inside the captured step: ten
+    steps as graph replays and eagerly, the same state bit for bit."""
+    from psfmc_tpu_torch.flagship import priors_components
+
+    spec = build_model_spec(priors_components((64, 64), (32, 32), variant))
+    post = build_posterior(spec, device=cuda)
+    assert post.lnpost == "batched"
+    graphed, g_launches = _phase(post, spec, "stretch", eager=False)
+    eager, e_launches = _phase(post, spec, "stretch", eager=True)
+    assert graphed.graph_replays == 10 and eager.graph_replays == 0
+    _assert_same_state(graphed, eager)
+    assert g_launches == e_launches == [1 + 20 + 6, 1 + 20, 0]

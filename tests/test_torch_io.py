@@ -191,7 +191,7 @@ def test_parser_runs_examples_model_example(tmp_path):
 
 @pytest.mark.parametrize("source,err", [
     ("import psfmc_tpu.fitting\n", ImportError),
-    ("from psfMC.distributions import Gamma\n", NotImplementedError),
+    ("from psfMC.distributions import NoSuchFamily\n", ImportError),
 ])
 def test_parser_refuses_what_the_port_lacks(source, err):
     with pytest.raises(err):

@@ -223,10 +223,16 @@ def test_prior_log_densities(family, kwargs, xs):
 
 
 def test_unported_prior_family_raises():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TD.Gamma(a=2.0)
-    with pytest.raises(NotImplementedError):
-        TD.from_name("LogNormal", s=1.0)
+    """Every family of the JAX package is ported now (the priors slice):
+    the two this test once refused agree with JAX, and only a name outside
+    the map raises."""
+    for tdist, jdist in ((TD.Gamma(a=2.0), JD.Gamma(a=2.0)),
+                         (TD.from_name("LogNormal", s=1.0), JD.LogNormal(s=1.0))):
+        xs = np.array([-1.0, 0.0, 0.5, 2.0])
+        got = tdist.torch_logp(torch.as_tensor(xs)).numpy()
+        np.testing.assert_array_equal(got, np.asarray(jdist.jax_logp(jnp.asarray(xs))))
+    with pytest.raises(ValueError, match="unknown prior family"):
+        TD.from_name("NoSuchFamily", s=1.0)
     assert sps.norm  # the scipy names stay the JAX package's
     assert TD.SCIPY_DIST_NAMES == JD.SCIPY_DIST_NAMES
 

@@ -249,9 +249,19 @@ def test_spec_of_the_general_slice_builds(comps, monkeypatch):
 
 
 def test_unported_prior_in_a_carried_spec_raises(specs):
+    """A carried slot of any family of the JAX package builds (Gamma was
+    refused before the priors slice) and its prior is JAX's; a family name
+    outside the map raises."""
     fields = _numpy_fields(specs[0])
     name, off, size, _, _, fits = fields["slots"][0]
     fields["slots"][0] = (name, off, size, "Gamma", {"a": 2.0}, fits)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    spec = spec_from_numpy(**fields)
+    assert type(spec.slots[0].dist).__name__ == "Gamma"
+    xs = np.array([-0.5, 0.5, 3.0])
+    got = spec.slots[0].dist.torch_logp(torch.as_tensor(xs)).numpy()
+    np.testing.assert_allclose(got, np.asarray(JD.Gamma(a=2.0).jax_logp(jnp.asarray(xs))),
+                               rtol=1e-12)
+    fields["slots"][0] = (name, off, size, "NoSuchFamily", {"a": 2.0}, fits)
+    with pytest.raises(ValueError, match="unknown prior family"):
         spec_from_numpy(**fields)
     assert math.isfinite(JD.Gamma(a=2.0).median())

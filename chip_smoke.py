@@ -117,12 +117,32 @@ never ``jax`` nor ``psfmc_tpu``, and:
    table, per-element tables of a vector hyperparameter, a Binomial), the
    fused kernel, and the general path (two PSFs, a LogNormal
    ``NoiseScale``);
-11. prints the kernel table as one JSON line, then the result line
+11. joint phase (joint multi-band fits): the joint flagship (band 0 the
+   flagship at 128x128 with a TAN WCS at 0.03"/px; band 1 a 96x96
+   observation with its own 64x64 PSF star and a WCS rotated by 20
+   degrees, its sources tied to band 0's in sky frame, its sizes and index
+   in pixel frame; 24 parameters) written as FITS files with WCS headers
+   and a model file with two Configurations, through ``model_galaxy_mcmc``
+   with ``PSFMC_LNPOST`` unset (250 walkers, 20 burn + 20 retained steps,
+   segments of 10): both bands on the batched path, band 0's conv_lnl on
+   the FFT route and band 1's on the matmul-DFT route inside one captured
+   step, with exact launches by route, every step a replay, a finite chain,
+   the database's 24 values under the JAX package's column names, the ten
+   image products (128x128 and 96x96), ``MCDATSUM`` over both bands, a
+   second call that skips sampling and writes the products from the
+   checkpoint's mixed-shape accumulators, lnpost against the CPU's float64
+   joint path; band 1's conv_lnl against its plain version and timed on
+   the fit's walkers; graphed against eager, the steady steps and the
+   device's busy time and kernels per retained step; then the variants
+   (both bands on the general path with two PSF stars each, a registration
+   offset on a sky tie, the general bands under the tiled render) with a
+   lnpost check and a graphed/eager segment of 2 + 2 steps;
+12. prints the kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler breakdown of
 device time by kernel over a segment of ten retained sampler steps of
-each path (slice, driver, general and family), graphed and eager, with the device's busy time and idle share
+each path (slice, driver, general, family and joint), graphed and eager, with the device's busy time and idle share
 (against the profiled and the unprofiled wall time), and
 the SM clock cycles that one block of each FFT-route kernel spends in
 each of its phases (a second build of the two sources with phase stamps;
@@ -927,16 +947,22 @@ GENERAL_VARIANTS = (
 
 def general_lnpost_check(post, spec, thetas, label, ref_lnpost="general"):
     """The card's lnpost of ``thetas`` against the CPU's float64 path
-    ``ref_lnpost`` (the plain versions of its kernels): the same
+    ``ref_lnpost`` (the plain versions of its kernels; a joint spec takes
+    each band's own path, and ``ref_lnpost`` must be None): the same
     non-finite entries, rtol :data:`GENERAL_RTOL` with a floor of
     :data:`GENERAL_FLOOR` of the batch's largest |lnpost| (a sum of pixel
     terms of both signs can cancel near 0 for one walker)."""
     import torch
 
-    from psfmc_tpu_torch.models import build_posterior
+    from psfmc_tpu_torch.models import JointPosteriorFns, build_posterior
 
     got = post.log_posterior_batch(thetas).double().cpu().numpy()
-    ref = build_posterior(spec, device="cpu", dtype=torch.float64, lnpost=ref_lnpost)
+    if hasattr(spec, "band_specs"):
+        ref = JointPosteriorFns(spec, device="cpu", dtype=torch.float64,
+                                lnpost=ref_lnpost)
+    else:
+        ref = build_posterior(spec, device="cpu", dtype=torch.float64,
+                              lnpost=ref_lnpost)
     want = ref.log_posterior_batch(torch.as_tensor(thetas).cpu().double()).numpy()
     fin = np.isfinite(want)
     if not np.array_equal(fin, np.isfinite(got)) or fin.sum() < len(want) // 2:
@@ -946,7 +972,8 @@ def general_lnpost_check(post, spec, thetas, label, ref_lnpost="general"):
     scale = np.maximum(np.abs(want[fin]), GENERAL_FLOOR / GENERAL_RTOL
                        * np.abs(want[fin]).max())
     err = float(np.max(diff / scale))
-    log(f"{label}: lnpost on the card vs the CPU's float64 {ref_lnpost} path, "
+    log(f"{label}: lnpost on the card vs the CPU's float64 "
+        f"{ref_lnpost or 'per-band'} path, "
         f"{len(want)} walkers "
         f"({fin.sum()} finite): max rel diff {np.max(diff / np.abs(want[fin])):.3e}, "
         f"with the floor {err:.3e} (rtol {GENERAL_RTOL:g}, floor "
@@ -957,13 +984,14 @@ def general_lnpost_check(post, spec, thetas, label, ref_lnpost="general"):
 
 
 def graphed_against_eager(post, spec, label, burn, sample, moves="stretch",
-                          thin=1, track_moments=False, strand=False):
+                          thin=1, track_moments=False, strand=False, routes=False):
     """One segment from one state as graph replays and through the
     sampler's private eager loop: every buffer, the chain and the
     generator's state bit-identical, the launch counts equal.  With
     ``strand``, a walker is stranded between two burn segments (moved
     outside its prior) and ``rejuvenate_stuck`` must move it back in both
-    runs.  Returns the launches (by wrapper) of one run."""
+    runs.  Returns the launches (by wrapper, and with ``routes`` by
+    ``<wrapper>:<route>`` too) of one run."""
     import torch
 
     from psfmc_tpu_torch.flagship import prior_draws
@@ -995,7 +1023,8 @@ def graphed_against_eager(post, spec, label, burn, sample, moves="stretch",
             sm.reset()
             sm.run_sampling(sample)
         torch.cuda.synchronize()
-        runs[mode] = sm, read_counts(counted)[0]
+        by_wrapper, by_route = read_counts(counted)
+        runs[mode] = sm, (dict(by_wrapper, **by_route) if routes else by_wrapper)
     (g, g_counts), (e, e_counts) = runs["graphed"], runs["eager"]
     differ = differing_state(g, e)
     if differ:
@@ -1604,6 +1633,7 @@ def counted_fit(model_file, out, device):
     rejuvenate_stuck = fitting.EnsembleSampler.rejuvenate_stuck
     sampler_init = fitting.EnsembleSampler.__init__
     save_images = fitting.save_posterior_images
+    save_joint_images = fitting._save_joint_images
 
     def counting_rejuvenate(self, *a, **k):
         moved.append(rejuvenate_stuck(self, *a, **k))
@@ -1613,14 +1643,17 @@ def counted_fit(model_file, out, device):
         sampler_init(self, *a, **k)
         samplers.append(self)
 
-    def counted_images(*a, **k):  # the launches of sampling end here
-        torch.cuda.synchronize()
-        at_images.append(read_counts(counted))
-        return save_images(*a, **k)
+    def counting_writer(writer):
+        def images(*a, **k):  # the launches of sampling end here
+            torch.cuda.synchronize()
+            at_images.append(read_counts(counted))
+            return writer(*a, **k)
+        return images
 
     fitting.EnsembleSampler.rejuvenate_stuck = counting_rejuvenate
     fitting.EnsembleSampler.__init__ = kept_init
-    fitting.save_posterior_images = counted_images
+    fitting.save_posterior_images = counting_writer(save_images)
+    fitting._save_joint_images = counting_writer(save_joint_images)
     try:
         torch.cuda.synchronize()
         reset_counts(counted)
@@ -1635,6 +1668,7 @@ def counted_fit(model_file, out, device):
         fitting.EnsembleSampler.rejuvenate_stuck = rejuvenate_stuck
         fitting.EnsembleSampler.__init__ = sampler_init
         fitting.save_posterior_images = save_images
+        fitting._save_joint_images = save_joint_images
     (sm,) = samplers
     return db, sm, at_images[0], total, moved, wall
 
@@ -1820,6 +1854,228 @@ def api_phase(model_file, table, sm, device):
     return launches
 
 
+JOINT_ENV = {"tiled": {"PSFMC_RENDER": "pallas_tiled"}}
+# the joint flagship's trace columns in the JAX package's layout: band 0's
+# flagship, then band 1's sky, point-source magnitude and the Sersics' free
+# angles and magnitudes (positions sky-tied, sizes and index pixel-tied)
+JOINT_COLUMNS = [
+    "0_Sky_adu", "1_PointSource_mag", "1_PointSource_xy", "2_Sersic_angle",
+    "2_Sersic_index", "2_Sersic_mag", "2_Sersic_reff", "2_Sersic_reff_b",
+    "2_Sersic_xy", "3_Sersic_angle", "3_Sersic_index", "3_Sersic_mag",
+    "3_Sersic_reff", "3_Sersic_reff_b", "3_Sersic_xy", "5_Sky_adu",
+    "6_PointSource_mag", "7_Sersic_angle", "7_Sersic_mag", "8_Sersic_angle",
+    "8_Sersic_mag"]
+
+
+def joint_launches(paths, burn, sample, moved=0, tiled=False):
+    """The launches of ``init_state`` + ``burn`` + ``sample`` steps on a
+    joint model whose bands take ``paths``: :func:`family_launches` of
+    each band, summed."""
+    want = {}
+    for path in paths:
+        band = family_launches(path, burn, sample, moved,
+                               tiled=tiled and path == "general")
+        want = {k: want.get(k, 0) + v for k, v in band.items()}
+    return want
+
+
+def joint_phase(shapes=None, psf_shape=(64, 64), device=None):
+    """Joint multi-band fits at full width: the joint flagship (band 0 the
+    flagship at 128x128 with a TAN WCS, band 1 a 96x96 observation with
+    its own PSF star and a WCS rotated by 20 degrees, its sources sky-tied
+    to band 0's; 24 parameters) written as FITS files and a model file with
+    two Configurations, through ``model_galaxy_mcmc`` with ``PSFMC_LNPOST``
+    unset: both bands on the batched path, band 0's conv_lnl on the FFT
+    route and band 1's on the matmul-DFT route, in one captured step.
+    Then a second call that skips sampling and writes the products from
+    the checkpoint, graphed against eager, the steady steps with the
+    device's busy time, and each variant of
+    ``psfmc_tpu_torch.flagship.JOINT_VARIANTS`` at 2 + 2 steps (the
+    arguments shrink it for a rehearsal on the CPU).  Returns the launches
+    of the fit's sampling and of the variants (by wrapper and route), band
+    1's conv_lnl timed on the fit's walkers, and a sampler on the joint
+    path."""
+    import zlib
+
+    import torch
+
+    from psfmc_tpu_torch import fitting
+    from psfmc_tpu_torch.database import load_database
+    from psfmc_tpu_torch.flagship import (
+        JOINT_SHAPES,
+        JOINT_VARIANTS,
+        joint_components,
+        write_joint_files,
+    )
+    from psfmc_tpu_torch.io import fits
+    from psfmc_tpu_torch.models import JointModel
+    from psfmc_tpu_torch.ops.kernels.conv_lnl import (
+        batched_conv_lnl,
+        batched_conv_lnl_plain,
+        conv_route,
+    )
+    from psfmc_tpu_torch.sampler import EnsembleSampler
+
+    shapes = JOINT_SHAPES if shapes is None else shapes
+    t_phase = time.perf_counter()
+    steps = BURN + SAMPLE
+    routes = [conv_route(shape) for shape in shapes]
+    if routes != ["fft", "dft"]:
+        raise AssertionError(f"joint bands {shapes} take the routes {routes}, "
+                             "want fft and dft")
+    env = {k: os.environ.pop(k) for k in ("PSFMC_LNPOST", "PSFMC_RENDER",
+                                          "PSFMC_KAPPA") if k in os.environ}
+    with tempfile.TemporaryDirectory() as tmp:
+        model_file = write_joint_files(tmp, shapes, psf_shape)
+        out = os.path.join(tmp, "out")
+        db, sm, (sampling, by_route), _, moved, wall = counted_fit(model_file, out,
+                                                                  device)
+        mc_post = sm.fns
+        spec = mc_post.spec
+        log(f"joint: model_galaxy_mcmc on the joint flagship (two bands, "
+            f"{shapes[0][0]}x{shapes[0][1]} and {shapes[1][0]}x{shapes[1][1]}, "
+            f"sky-tied sources; {spec.num_params} parameters), {NWALKERS} "
+            f"walkers, burn {BURN} + sampling {SAMPLE} in segments of "
+            f"{CHECKPOINT}: {wall:.3f} s wall; phases " + ", ".join(
+                f"{k} {v:.3f} s" for k, v in db.phase_seconds.items()))
+        if mc_post.lnpost != ("batched", "batched"):
+            raise AssertionError(f"the joint flagship's bands took {mc_post.lnpost} "
+                                 "with PSFMC_LNPOST unset")
+        evals = 1 + 2 * steps + sum(n > 0 for n in moved)
+        want = joint_launches(("batched", "batched"), BURN, SAMPLE,
+                              sum(n > 0 for n in moved))
+        log(f"joint: launches of the sampling {sampling}, by route {by_route}; "
+            f"walkers moved by each rejuvenation {moved}")
+        if sampling != want or by_route["batched_conv_lnl:fft"] != evals \
+                or by_route["batched_conv_lnl:dft"] != evals:
+            raise AssertionError(f"joint launches {sampling}, by route {by_route}: "
+                                 f"want {want}, {evals} conv_lnl launches on each "
+                                 "route")
+        if device != "cpu" and sm.graph_replays != steps:
+            raise AssertionError(f"joint: {sm.graph_replays} of {steps} steps "
+                                 "were graph replays")
+        lnp = sm.lnprobability
+        acc = float(np.mean(sm.acceptance_fraction))
+        if lnp.shape != (NWALKERS, SAMPLE) or not np.all(np.isfinite(lnp)) \
+                or not np.all(np.isfinite(sm.chain)):
+            raise AssertionError("joint: non-finite or misshapen chain")
+        if not 0.02 < acc < 0.9:
+            raise AssertionError(f"joint: mean acceptance {acc} outside (0.02, 0.9)")
+        table = load_database(out + "_db.fits")
+        if table.colnames != JOINT_COLUMNS + ["lnprobability", "walker", "sample"] \
+                or spec.param_names != JOINT_COLUMNS or spec.num_params != 24:
+            raise AssertionError(f"joint: database columns {table.colnames}, want "
+                                 f"the JAX layout {JOINT_COLUMNS} (24 values)")
+        products = {}
+        for band, shape in enumerate(shapes):
+            for ftype in IMAGE_TYPES:
+                name = f"{out}_b{band}_{ftype}.fits"
+                products[name] = fits.getdata(name)
+                if products[name].shape != tuple(shape) \
+                        or not np.all(np.isfinite(products[name])):
+                    raise AssertionError(f"joint: image {name}: "
+                                         f"{products[name].shape}")
+        datsum, first = 0, None
+        for bs in spec.band_specs:
+            for arr in (bs.obs_data, bs.obs_var):
+                datsum = zlib.crc32(np.ascontiguousarray(arr).tobytes(), datsum)
+            first = datsum if first is None else first
+        if int(table.meta["MCDATSUM"]) != datsum or datsum == first:
+            raise AssertionError(f"joint: MCDATSUM {table.meta['MCDATSUM']} is not "
+                                 f"the crc32 of both bands' data ({datsum})")
+        log(f"joint: every one of the {steps} steps was a CUDA graph replay; mean "
+            f"acceptance {acc:.4f}; database columns the JAX layout; MCDATSUM "
+            f"covers both bands; five images per band "
+            f"({shapes[0][0]}x{shapes[0][1]}, {shapes[1][0]}x{shapes[1][1]}) finite")
+        general_lnpost_check(mc_post, spec, sm.state.positions[:16], "joint",
+                             ref_lnpost=None)
+
+        # a second call: the database is complete, sampling is skipped and
+        # the products come from the checkpoint's mixed-shape accumulators
+        for name in products:
+            os.remove(name)
+        counted = counted_kernels()
+        reset_counts(counted)
+        again = fitting.model_galaxy_mcmc(
+            model_file, output_name=out, chains=NWALKERS, burn=BURN,
+            iterations=SAMPLE, seed=SEED, device=device,
+            checkpoint_interval=CHECKPOINT)
+        launched = read_counts(counted)[0]
+        if len(again) != len(table) or any(launched.values()):
+            raise AssertionError(f"joint: the second call ran {launched}")
+        for name, data in products.items():
+            if not np.array_equal(fits.getdata(name), data):
+                raise AssertionError(f"joint: {name} from the checkpoint differs")
+        log("joint: a second call skipped sampling (no launch) and wrote the ten "
+            "products from the checkpoint's mixed-shape accumulators, equal to "
+            "the first call's")
+    for k, v in env.items():
+        os.environ[k] = v
+
+    # band 1's conv_lnl on the matmul-DFT route at the fit's walkers
+    band = mc_post.band_fns[1]
+    raws = band.raw_and_ps(sm.state.positions[:B_HALF])[0].contiguous()
+    _, rel, frac = compare(batched_conv_lnl(raws, band.consts),
+                           batched_conv_lnl_plain(raws, band.consts))
+    if not rel <= CONV_LNL_TOL or frac < 0.5:
+        raise AssertionError(f"joint: band 1's conv_lnl disagrees with its plain "
+                             f"version ({rel:.3e}, finite share {frac})")
+    on_path = {"joint_ms": time_ms(lambda: batched_conv_lnl(raws, band.consts)),
+               "joint_plain_ms": time_ms(
+                   lambda: batched_conv_lnl_plain(raws, band.consts)),
+               "joint_max_rel_err": rel}
+    log(f"joint: band 1's conv_lnl ({shapes[1][0]}x{shapes[1][1]}, matmul-DFT "
+        f"route, {B_HALF} of the fit's walkers): {on_path['joint_ms']:.4f} ms, "
+        f"plain {on_path['joint_plain_ms']:.4f} ms, max rel err {rel:.3e}")
+
+    graphed_against_eager(mc_post, spec, "joint graph", GRAPH_BURN, GRAPH_SAMPLE)
+    fresh = EnsembleSampler(NWALKERS, spec.num_params, mc_post, seed=SEED)
+    fresh.init_state(sm.state.positions)
+    steady_phase(fresh, "joint path (bands 'batched', 'batched')")
+    if device != "cpu":
+        for mode in ("graphed", "eager"):
+            got = profile_steps(fresh, STEADY, eager=mode == "eager")
+            log(f"joint: retained step, {mode}: {got['wall_ms']:.3f} ms wall, "
+                f"device busy {got['busy_ms']:.3f} ms, {got['kernels']:.0f} kernels, "
+                f"idle share {got['idle_share']:.3f}")
+
+    variant_launches = {}
+    for variant in JOINT_VARIANTS[1:]:
+        variant_env = JOINT_ENV.get(variant, {})
+        paths = (("general", "general") if variant in ("general", "tiled")
+                 else ("batched", "batched"))
+        os.environ.update(variant_env)
+        try:
+            vmodel = JointModel(joint_components(shapes, psf_shape, variant),
+                                device=device)
+            vpost, vspec = vmodel.posterior_fns, vmodel.spec
+            if vpost.lnpost != paths:
+                raise AssertionError(f"joint variant {variant}: bands took "
+                                     f"{vpost.lnpost}, want {paths}")
+            th = prior_draws_general(vspec, 16)
+            general_lnpost_check(vpost, vspec, th, f"joint variant {variant} "
+                                 f"(bands {paths})", ref_lnpost=None)
+            got = graphed_against_eager(vpost, vspec, f"joint variant {variant}",
+                                        GENERAL_VARIANT_STEPS, GENERAL_VARIANT_STEPS,
+                                        routes=True)
+        finally:
+            for k in variant_env:
+                del os.environ[k]
+        want = joint_launches(paths, GENERAL_VARIANT_STEPS, GENERAL_VARIANT_STEPS,
+                              tiled="PSFMC_RENDER" in variant_env)
+        by_wrapper = {k: v for k, v in got.items() if ":" not in k}
+        per_route = (1 + 4 * GENERAL_VARIANT_STEPS) * (paths[0] == "batched")
+        if by_wrapper != want or got["batched_conv_lnl:fft"] != per_route \
+                or got["batched_conv_lnl:dft"] != per_route:
+            raise AssertionError(f"joint variant {variant}: launches {got}, want "
+                                 f"{want} and {per_route} on each route")
+        for k, v in got.items():
+            variant_launches[k] = variant_launches.get(k, 0) + v
+    log(f"joint: the phase took {time.perf_counter() - t_phase:.1f} s")
+    sampling.update(by_route)
+    return sampling, variant_launches, on_path, fresh
+
+
 def prior_draws_general(spec, n):
     """Prior draws with the PSF index on and beside its .5 points."""
     from psfmc_tpu_torch.flagship import prior_draws
@@ -1919,6 +2175,9 @@ def profile_steps(sampler, steps, eager):
             f"launches/step  {key[:90]}")
     if not rows:
         log("profile: the profiler recorded no device time")
+    return {"wall_ms": walls[1] * 1e3 / steps, "busy_ms": busy * 1e3 / steps,
+            "kernels": sum(r[1] for r in rows) / steps,
+            "idle_share": 1.0 - busy / walls[1]}
 
 
 def render_geometry_phase(post, spec):
@@ -2131,6 +2390,7 @@ def main():
     prior_family_phase()
     priors_launches, api_launches, priors_variant_launches, priors, stress = \
         priors_phase()
+    joint_launches_, joint_variant_launches, joint_on_path, joint = joint_phase()
     from psfmc_tpu_torch.sampler import EnsembleSampler
 
     fused = EnsembleSampler(NWALKERS, spec.num_params, mc.posterior_fns,
@@ -2145,6 +2405,7 @@ def main():
         profile_phase(family, "family path (lnpost='batched')")
         profile_phase(priors, "priors path (lnpost='batched')")
         profile_phase(stress, "priors stress variant (lnpost='batched')")
+        profile_phase(joint, "joint path (bands 'batched', 'batched')")
         phase_clocks_phase(post, spec)
         render_geometry_phase(post, spec)
     # each kernel's launches on its own paths: the render on the slice path,
@@ -2155,9 +2416,13 @@ def main():
     # the FFT route; the matmul-DFT route is off the main path)
     # the priors fit's sampling, the API phase and the priors variants: the
     # render on all of them, conv_lnl on the fit and the stress variant, the
-    # fused kernel on its variant
+    # fused kernel on its variant; the joint fit's sampling and its variants:
+    # the render on all of them (tiled on the tiled variant's general bands),
+    # conv_lnl on the fit and the offset variant, band 0 on the FFT route and
+    # band 1 (96x96) on the matmul-DFT route
     fam, fam_var = family_launches_, family_variant_launches
     pri, pri_var = priors_launches, priors_variant_launches
+    jnt, jnt_var = joint_launches_, joint_variant_launches
     by_name = {"sersic_render": launches["render_sersics"]
                + general_launches["render_sersics"] + fam["render_sersics"]
                + fam_var["render_sersics"] + pri["render_sersics"]
@@ -2168,12 +2433,18 @@ def main():
                "conv_lnl": launches["batched_conv_lnl:fft"]
                + fam["batched_conv_lnl:fft"] + fam_var["batched_conv_lnl"]
                + pri["batched_conv_lnl:fft"] + pri_var["batched_conv_lnl"],
-               "conv_lnl_dft": launches["batched_conv_lnl:dft"],
+               "conv_lnl_dft": launches["batched_conv_lnl:dft"]
+               + jnt["batched_conv_lnl:dft"] + jnt_var["batched_conv_lnl:dft"],
                "fused_lnl": driver_launches["fused_lnl:fft"] + fam_var["fused_lnl"],
                "fused_lnl_dft": driver_launches["fused_lnl:dft"]}
     by_name["fused_lnl"] += pri_var["fused_lnl"]
+    by_name["sersic_render"] += jnt["render_sersics"] + jnt_var["render_sersics"]
+    by_name["sersic_render_tiled"] += jnt_var["render_sersics_tiled"]
+    by_name["conv_lnl"] += jnt["batched_conv_lnl:fft"] + jnt_var["batched_conv_lnl:fft"]
     for r in rows:
         r["launches"] = by_name[r["name"]]
+        if r["name"] == "conv_lnl_dft":  # timed on the joint fit's band 1 too
+            r.update(joint_on_path)
     for r in rows:
         for k, v in r.items():
             if isinstance(v, float) and not math.isfinite(v):

@@ -10,10 +10,14 @@ stochastic (``xy`` two wide), then ``lnprobability``, ``walker`` and
 The CHECKPOINT extension holds the resume state as in the JAX package
 (positions, lnp, accept counts per walker; CKPTVERS, CKPTSMPL,
 CKPTTEMP, CKPTACCN, CKPTSTEP cards) and CKPTIMGS the running image
-means.  Where the JAX package stores its PRNG key as a ``prng_key``
-column, the port writes its ``torch.Generator`` state to a CKPTRNG
-extension and names the generator's kind in the CKPTRNGK card
-(``torch-cuda`` / ``torch-cpu``).  :func:`load_checkpoint` reports a JAX
+means: one ``(H, W)`` column per image when every image has one shape,
+and for a joint model's bands of several shapes one row of flattened
+cells with a ``CKIMSH{i}`` card (``"H,W"``) per column, the JAX
+package's two layouts.  The port's ``torch.Generator`` state rides a
+CKPTRNG extension and the CKPTRNGK card names its kind (``torch-cuda`` /
+``torch-cpu``); the ``prng_key`` column the JAX package's reader
+requires holds two words hashed from that state (a JAX resume from it
+draws a fresh stream).  :func:`load_checkpoint` reports a JAX
 checkpoint's generator as ``rng_kind = 'jax'``, which the port's sampler
 cannot restore.
 
@@ -21,6 +25,7 @@ The port runs in one process: there is no primary-host barrier.
 """
 from __future__ import annotations
 
+import hashlib
 from collections import OrderedDict
 
 import numpy as np
@@ -116,14 +121,39 @@ def save_database(sampler, model, db_name, meta_dict=None):
     return load_database(db_name)
 
 
+def _rng_key_words(rng_state):
+    """Two 32-bit words hashed from a generator's state: the ``prng_key``
+    column of a checkpoint the port writes."""
+    digest = hashlib.blake2b(np.asarray(rng_state, np.uint8).tobytes(),
+                             digest_size=8).digest()
+    return np.frombuffer(digest, np.uint32).astype(np.int64)
+
+
+def _image_hdu(accum):
+    """CKPTIMGS: one (H, W) column per image when all have one shape, else
+    one row of flattened cells with a ``CKIMSH{i}`` shape card each."""
+    shapes = {name: np.asarray(img).shape for name, img in accum.items()}
+    if len(set(shapes.values())) == 1:
+        img_cols = OrderedDict((k, np.asarray(v, np.float64)) for k, v in accum.items())
+        return fits.make_bintable_hdu(list(img_cols), img_cols, extname="CKPTIMGS")
+    img_cols = OrderedDict((k, np.asarray(v, np.float64).ravel()[None, :])
+                           for k, v in accum.items())
+    meta = [(f"CKIMSH{i}", ("%d,%d" % shapes[name], f"shape of column {i}"))
+            for i, name in enumerate(img_cols)]
+    return fits.make_bintable_hdu(list(img_cols), img_cols, meta=meta,
+                                  extname="CKPTIMGS")
+
+
 def _checkpoint_hdus(payload):
-    """CHECKPOINT (per-walker state), CKPTIMGS (image accumulators, one
-    (H, W) column per image) and CKPTRNG (the generator's state) HDUs."""
+    """CHECKPOINT (per-walker state), CKPTIMGS (image accumulators,
+    :func:`_image_hdu`) and CKPTRNG (the generator's state) HDUs."""
     pos = np.asarray(payload["positions"], dtype=np.float64)
+    key = _rng_key_words(payload["rng_state"])
     cols = OrderedDict([
         ("position", pos),
         ("log_prob", np.asarray(payload["log_prob"], np.float64).reshape(-1)),
         ("naccept", np.asarray(payload["naccept"], np.int64).reshape(-1)),
+        ("prng_key", np.tile(key[None, :], (pos.shape[0], 1))),
     ])
     meta = [
         ("CKPTVERS", (2, "checkpoint format version")),
@@ -142,10 +172,7 @@ def _checkpoint_hdus(payload):
     hdus = [(hdr, raw)]
     accum = payload.get("accum")
     if accum and int(payload.get("accum_count", 0)) > 0:
-        img_cols = OrderedDict((k, np.asarray(v, np.float64))
-                               for k, v in accum.items())
-        hdus.append(fits.make_bintable_hdu(list(img_cols), img_cols,
-                                           extname="CKPTIMGS"))
+        hdus.append(_image_hdu(accum))
     state = np.asarray(payload["rng_state"], np.uint8)[None, :]
     hdus.append(fits.make_bintable_hdu(["rng_state"], {"rng_state": state},
                                        extname="CKPTRNG"))
@@ -193,8 +220,13 @@ def load_checkpoint(db_name):
         except IOError:
             payload["accum_count"] = 0
         else:
-            payload["accum"] = {name: np.asarray(imgs[name], np.float64)
-                                for name in imgs.colnames}
+            payload["accum"] = {}
+            for i, name in enumerate(imgs.colnames):
+                col = np.asarray(imgs[name], np.float64)
+                shape = imgs.meta.get(f"CKIMSH{i}")
+                if shape is not None:  # the mixed-shape layout
+                    col = col.reshape(tuple(int(v) for v in str(shape).split(",")))
+                payload["accum"][name] = col
     return payload
 
 

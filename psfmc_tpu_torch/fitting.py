@@ -34,6 +34,7 @@ import os
 import time
 import zlib
 from collections import OrderedDict
+from types import SimpleNamespace
 from warnings import warn
 
 import numpy as np
@@ -76,11 +77,13 @@ def _phase(name, device, timings):
 
 
 def _data_fingerprint(mc_model):
-    """crc32 over the observation data + variance: identifies the data a
-    trace database was sampled against."""
+    """crc32 over the observation data + variance of every band:
+    identifies the data a trace database was sampled against."""
+    spec = mc_model.spec
     h = 0
-    for arr in (mc_model.spec.obs_data, mc_model.spec.obs_var):
-        h = zlib.crc32(np.ascontiguousarray(arr).tobytes(), h)
+    for s in getattr(spec, "band_specs", None) or [spec]:
+        for arr in (s.obs_data, s.obs_var):
+            h = zlib.crc32(np.ascontiguousarray(arr).tobytes(), h)
     return int(h)
 
 
@@ -149,7 +152,11 @@ def model_galaxy_mcmc(
 
     :param model_file: model definition file name, component list or
         prepared :class:`~psfmc_tpu_torch.models.multicomponent.
-        MultiComponentModel`.
+        MultiComponentModel` or :class:`~psfmc_tpu_torch.models.joint.
+        JointModel`; a file or list with several ``Configuration``
+        components is a joint multi-band model (one band per
+        ``Configuration``), whose products are written per band as
+        ``<output>_b{i}_<type>.fits``.
     :param output_name: base name of the output files (default
         ``out_<model file name>``).
     :param write_fits: image types to write.
@@ -178,8 +185,9 @@ def model_galaxy_mcmc(
     outside this slice raise ``NotImplementedError``.  The likelihood
     path follows ``PSFMC_LNPOST`` and the model (``pallas`` runs the
     fused kernel; unset, a model the conv+likelihood kernel covers runs
-    it and any other the general path), or the ``lnpost`` of a prepared
-    model.
+    it and any other the general path; each band of a joint model takes
+    the batched or the general path by the same rule, whatever
+    ``PSFMC_LNPOST`` says), or the ``lnpost`` of a prepared model.
     """
     if init not in ("prior", "map"):
         raise ValueError(f"Unknown init {init!r}: expected 'prior' or 'map'")
@@ -254,10 +262,34 @@ def model_galaxy_mcmc(
                                  **common)
 
     with _phase("images", fns.device, timings):
-        save_posterior_images(mc_model, database, output_name=output_name,
-                              filetypes=write_fits)
+        if hasattr(mc_model.spec, "band_specs"):
+            _save_joint_images(mc_model, ens, db_name, database,
+                               output_name[:-len("_{}")], write_fits)
+        else:
+            save_posterior_images(mc_model, database, output_name=output_name,
+                                  filetypes=write_fits)
     database.phase_seconds = timings
     return database
+
+
+def _save_joint_images(mc_model, sampler, db_name, database, output_name,
+                       filetypes):
+    """A joint model's products, one set of the five image types per band,
+    from the sampler's per-band accumulators; when sampling was skipped
+    (the database was complete), from the checkpoint's accumulators."""
+    accum_src = sampler
+    if sampler.accumulated_samples == 0:
+        ckpt = load_checkpoint(db_name)
+        if ckpt is not None and ckpt.get("accum") and int(ckpt["accum_count"]) > 0:
+            accum_src = SimpleNamespace(accumulated_images=ckpt["accum"],
+                                        accumulated_samples=int(ckpt["accum_count"]))
+    if accum_src.accumulated_samples > 0:
+        mc_model.save_posterior_images(accum_src, output_name, database=database,
+                                       filetypes=filetypes)
+    else:
+        warn("no accumulated images available for the joint model (no "
+             "retained sampling ran and the checkpoint has no accumulators); "
+             "skipping image products")
 
 
 def _auto_segment(nsteps, checkpoint_interval):

@@ -35,6 +35,19 @@ Tukey-lambda bisection, the noncentral t's quadrature, the noncentral
 chi-square's Poisson mixture, a table, per-element tables of a vector
 hyperparameter, a discrete family) and a general-path model with two
 PSF stars and a ``LogNormal`` ``NoiseScale``.
+
+The joint flagship (:func:`joint_components`, :func:`write_joint_files`)
+is a two-band quasar/host decomposition: band 0 is the flagship with a
+TAN WCS at 0.03"/px; band 1 a 96x96 observation with its own PSF star,
+the same pixel scale, its WCS rotated by 20 degrees about a shifted
+reference pixel, its own Sky, and the flagship's three sources seen
+again: each position tied to band 0's in sky frame, the Sersics' sizes
+and index tied to band 0's in pixel frame, the magnitudes and the
+Sersics' angles free (24 free parameters).  Its variants
+(:data:`JOINT_VARIANTS`) put both bands on the general path (two PSF
+stars each with a sampled index, a ``NoiseScale`` in band 1), add a
+registration offset to a sky tie, or run the general bands under the
+tiled render.
 """
 from __future__ import annotations
 
@@ -49,7 +62,9 @@ __all__ = ["flagship_arrays", "flagship_components", "write_flagship_files",
            "general_arrays", "general_components", "write_general_files",
            "FAMILY_VARIANTS", "family_lnpost", "family_components",
            "write_family_files", "PRIORS_VARIANTS", "priors_components",
-           "write_priors_files", "enforce_axis_order", "prior_draws"]
+           "write_priors_files", "JOINT_VARIANTS", "joint_headers",
+           "joint_components", "write_joint_files", "enforce_axis_order",
+           "prior_draws"]
 
 MAG_ZP = 25.9463
 TOTAL_MAG = 20.66
@@ -590,6 +605,180 @@ def write_priors_files(directory, shape=(128, 128), psf_shape=(64, 64), seed=0):
             center=tuple(a["center"].tolist()),
             max_shift=tuple(a["max_shift"].tolist()),
             blob_center=tuple(a["blob_center"].tolist()),
+            mag_zp=MAG_ZP, total_mag=TOTAL_MAG))
+    return path
+
+
+JOINT_VARIANTS = ("flagship", "general", "offset", "tiled")
+JOINT_SHAPES = ((128, 128), (96, 96))  # the two bands' observations
+PIXEL_SCALE = 0.03 / 3600.0  # degrees per pixel, both bands
+JOINT_CRVAL = (150.1163, 2.2058)
+JOINT_ROTATION = 20.0  # band 1's WCS against band 0's, in degrees
+JOINT_CRPIX_SHIFT = (3.0, -2.0)  # band 1's reference pixel off its center
+JOINT_PSF_SIGMAS = ((2.0, 2.4), (2.4, 2.9))  # each band's PSF stars, px
+
+
+def joint_headers(shapes=JOINT_SHAPES):
+    """The two bands' WCS cards (dicts of TAN cards): band 0 north up at
+    :data:`PIXEL_SCALE` with its reference pixel at the image center;
+    band 1 rotated by :data:`JOINT_ROTATION` about a reference pixel
+    :data:`JOINT_CRPIX_SHIFT` off its center, at the same sky position."""
+    out = []
+    for band, (h, w) in enumerate(shapes):
+        rot = np.deg2rad(JOINT_ROTATION * band)
+        dx, dy = JOINT_CRPIX_SHIFT if band else (0.0, 0.0)
+        c, s_ = np.cos(rot) * PIXEL_SCALE, np.sin(rot) * PIXEL_SCALE
+        out.append({"CTYPE1": "RA---TAN", "CTYPE2": "DEC--TAN",
+                    "CRPIX1": w / 2 + 0.5 + dx, "CRPIX2": h / 2 + 0.5 + dy,
+                    "CRVAL1": JOINT_CRVAL[0], "CRVAL2": JOINT_CRVAL[1],
+                    "CD1_1": -c, "CD1_2": s_, "CD2_1": s_, "CD2_2": c})
+    return out
+
+
+def _joint_arrays(shapes, psf_shape, num_psfs, seed):
+    """Each band's observation, IVM, PSF stars and PSF IVMs: the flagship's
+    noise model, band ``b`` from seed ``seed + b``, with the PSF widths of
+    :data:`JOINT_PSF_SIGMAS`."""
+    ph, pw = psf_shape
+    pyy, pxx = np.mgrid[0:ph, 0:pw].astype(float)
+    bands = []
+    for band, shape in enumerate(shapes):
+        arrays = flagship_arrays(shape, psf_shape, seed + band)
+        psfs = []
+        for sigma in JOINT_PSF_SIGMAS[band][:num_psfs]:
+            psf = np.exp(-((pxx - pw / 2) ** 2 + (pyy - ph / 2) ** 2) / (2 * sigma**2))
+            psfs.append(psf / psf.sum())
+        arrays["psfs"] = psfs
+        arrays["psf_ivms"] = [arrays["psf_ivm"]] * num_psfs
+        bands.append(arrays)
+    return bands
+
+
+def _joint_band1(sources, variant, C, Dist):
+    """Band 1's sources: the flagship's seen again through the sky."""
+    ps0, host0, blob0 = sources
+    U = Dist.Uniform
+    offset = ({"offset": Dist.Normal(loc=np.array([0.0, 0.0]), scale=0.3)}
+              if variant == "offset" else {})
+    out = [C.PointSource(xy=C.Tied(ps0, "xy", frame="sky", **offset),
+                         mag=U(loc=TOTAL_MAG - 0.2, scale=0.2 + 1.5))]
+    for s0, mag in ((host0, U(loc=TOTAL_MAG, scale=27.5 - TOTAL_MAG)),
+                    (blob0, U(loc=23.5, scale=2.0))):
+        out.append(C.Sersic(
+            xy=C.Tied(s0, "xy", frame="sky"), mag=mag,
+            reff=C.Tied(s0, "reff"), reff_b=C.Tied(s0, "reff_b"),
+            index=C.Tied(s0, "index"), angle=U(loc=0, scale=180),
+            angle_degrees=True))
+    return out
+
+
+def joint_components(shapes=JOINT_SHAPES, psf_shape=(64, 64), variant="flagship",
+                     seed=0, components=None, distributions=None):
+    """``[band 0 components, band 1 components]`` of the joint flagship or
+    one of its :data:`JOINT_VARIANTS` (``general`` and ``tiled`` give each
+    band two PSF stars, whose index is then sampled, and band 1 a
+    ``NoiseScale``; ``offset`` adds a registration offset to band 1's
+    point-source tie).  ``components`` and ``distributions`` are the
+    modules whose classes build it (by default the port's; the JAX
+    package's have the same names and arguments)."""
+    if components is None:
+        from .models import components
+    if distributions is None:
+        from . import distributions
+    C, Dist = components, distributions
+    if variant not in JOINT_VARIANTS:
+        raise ValueError(f"unknown joint variant {variant!r}; one of {JOINT_VARIANTS}")
+    general = variant in ("general", "tiled")
+    arrays = _joint_arrays(shapes, psf_shape, 2 if general else 1, seed)
+    configs = [C.Configuration(obs_file=(hdr, a["obs"]), obsivm_file=a["ivm"],
+                               psf_files=a["psfs"], psfivm_files=a["psf_ivms"],
+                               mag_zeropoint=MAG_ZP)
+               for hdr, a in zip(joint_headers(shapes), arrays)]
+    sources = _sources(shapes[0], C, Dist)
+    band0 = [configs[0], C.Sky(adu=Dist.Normal(loc=0, scale=0.01))] + sources
+    band1 = [configs[1], C.Sky(adu=Dist.Normal(loc=0, scale=0.01))] + _joint_band1(
+        sources, variant, C, Dist)
+    if general:
+        band1.append(C.NoiseScale(scale=Dist.Uniform(loc=0.5, scale=1.0)))
+    return [band0, band1]
+
+
+_JOINT_MODEL_FILE = """\
+# The joint flagship: the quasar + host model in two bands.  Band 1 sees
+# band 0's sources through its own WCS (frame="sky" ties), shares the
+# Sersics' sizes and index, and has magnitudes, angles and a sky of its own.
+from numpy import array
+
+from psfMC.ModelComponents import Configuration, PointSource, Sersic, Sky, Tied
+from psfMC.distributions import Normal, Uniform, WeibullMinimum
+
+center = array({center})
+max_shift = array({max_shift})
+blob_center = array({blob_center})
+
+Configuration(obs_file="sci0.fits", obsivm_file="ivm0.fits",
+              psf_files="psf0.fits", psfivm_files="psf_ivm0.fits",
+              mag_zeropoint={mag_zp!r})
+Sky(adu=Normal(loc=0, scale=0.01))
+agn = PointSource(xy=Uniform(loc=center - max_shift, scale=2 * max_shift),
+                  mag=Uniform(loc={total_mag!r} - 0.2, scale=0.2 + 1.5))
+agn
+host = Sersic(xy=Uniform(loc=center - max_shift, scale=2 * max_shift),
+              mag=Uniform(loc={total_mag!r}, scale=27.5 - {total_mag!r}),
+              reff=Uniform(loc=2.0, scale=10.0), reff_b=Uniform(loc=2.0, scale=10.0),
+              index=WeibullMinimum(c=1.5, scale=4), angle=Uniform(loc=0, scale=180),
+              angle_degrees=True)
+host
+blob = Sersic(xy=Uniform(loc=blob_center - 5, scale=10),
+              mag=Uniform(loc=23.5, scale=2.0),
+              reff=Uniform(loc=2.0, scale=6.0), reff_b=Uniform(loc=2.0, scale=6.0),
+              index=WeibullMinimum(c=1.5, scale=4), angle=Uniform(loc=0, scale=180),
+              angle_degrees=True)
+blob
+
+Configuration(obs_file="sci1.fits", obsivm_file="ivm1.fits",
+              psf_files="psf1.fits", psfivm_files="psf_ivm1.fits",
+              mag_zeropoint={mag_zp!r})
+Sky(adu=Normal(loc=0, scale=0.01))
+PointSource(xy=Tied(agn, "xy", frame="sky"),
+            mag=Uniform(loc={total_mag!r} - 0.2, scale=0.2 + 1.5))
+Sersic(xy=Tied(host, "xy", frame="sky"),
+       mag=Uniform(loc={total_mag!r}, scale=27.5 - {total_mag!r}),
+       reff=Tied(host, "reff"), reff_b=Tied(host, "reff_b"),
+       index=Tied(host, "index"), angle=Uniform(loc=0, scale=180),
+       angle_degrees=True)
+Sersic(xy=Tied(blob, "xy", frame="sky"), mag=Uniform(loc=23.5, scale=2.0),
+       reff=Tied(blob, "reff"), reff_b=Tied(blob, "reff_b"),
+       index=Tied(blob, "index"), angle=Uniform(loc=0, scale=180),
+       angle_degrees=True)
+"""
+
+
+def write_joint_files(directory, shapes=JOINT_SHAPES, psf_shape=(64, 64), seed=0):
+    """Write the joint flagship's inputs to ``directory``: per band ``b``
+    ``sci{b}.fits`` (with its WCS cards), ``ivm{b}.fits``, ``psf{b}.fits``
+    and ``psf_ivm{b}.fits`` (the port's FITS codec), and the model file
+    ``model.py`` with two ``Configuration`` components and the
+    ``frame="sky"`` ties of :func:`joint_components`.  Returns its path."""
+    from .io import fits
+
+    for band, (hdr, a) in enumerate(zip(joint_headers(shapes),
+                                        _joint_arrays(shapes, psf_shape, 1, seed))):
+        header = fits.Header()
+        for key, value in hdr.items():
+            header.set(key, value)
+        fits.writeto(os.path.join(directory, f"sci{band}.fits"), a["obs"],
+                     header=header)
+        for name, arr in (("ivm", a["ivm"]), ("psf", a["psfs"][0]),
+                          ("psf_ivm", a["psf_ivms"][0])):
+            fits.writeto(os.path.join(directory, f"{name}{band}.fits"), arr)
+    p = _prior_args(shapes[0])
+    path = os.path.join(directory, "model.py")
+    with open(path, "w") as fh:
+        fh.write(_JOINT_MODEL_FILE.format(
+            center=tuple(p["center"].tolist()),
+            max_shift=tuple(p["max_shift"].tolist()),
+            blob_center=tuple(p["blob_center"].tolist()),
             mag_zp=MAG_ZP, total_mag=TOTAL_MAG))
     return path
 

@@ -12,11 +12,14 @@ posterior-mean images (adopted from the sampler's accumulators or
 replayed from a chain), posterior-predictive mocks and the
 posterior-predictive p-value of the ``MCPPCP`` header card.
 
-Joint multi-band models (several ``Configuration`` components) are not
-in this slice: :func:`as_model` raises ``NotImplementedError`` for them.
+A component list or model file with several ``Configuration``
+components is a joint multi-band model: :func:`as_model` splits it at
+each ``Configuration`` into bands and builds a
+:class:`~psfmc_tpu_torch.models.joint.JointModel`.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Dict, List
 
 import numpy as np
@@ -98,21 +101,37 @@ def _components_from_file(path):
 
 
 def as_model(model, device=None, lnpost=None):
-    """A :class:`MultiComponentModel` from a model file name, a component
-    list or a prepared model (which passes through unchanged)."""
-    if isinstance(model, MultiComponentModel):
+    """A model from a model file name, a component list or a prepared
+    model (anything with ``posterior_fns`` and ``init_params_from_priors``
+    passes through unchanged).
+
+    A file or list with several ``Configuration`` components builds a
+    :class:`~psfmc_tpu_torch.models.joint.JointModel`: each
+    ``Configuration`` starts a band, and the components after it belong
+    to that band.  The one dispatch rule of the driver.
+    """
+    if hasattr(model, "posterior_fns") and hasattr(model, "init_params_from_priors"):
         return model
     if isinstance(model, str):
         components = _components_from_file(model)
     else:
         components = list(model)
-    if sum(isinstance(c, Configuration) for c in components) > 1:
-        raise NotImplementedError(
-            "joint multi-band models (several Configuration components) "
-            "are not in this slice of psfmc_tpu_torch; they come with "
-            "ROADMAP Queue 1 item 14 (model layer)"
-        )
-    return MultiComponentModel(components, device=device, lnpost=lnpost)
+    if sum(isinstance(c, Configuration) for c in components) <= 1:
+        return MultiComponentModel(components, device=device, lnpost=lnpost)
+    from .joint import JointModel
+
+    if not isinstance(components[0], Configuration):
+        raise ValueError(
+            "a multi-band model must start with its first band's "
+            "Configuration (components before the first Configuration "
+            "have no band to belong to)")
+    bands = []
+    for comp in components:
+        if isinstance(comp, Configuration):
+            bands.append([comp])
+        else:
+            bands[-1].append(comp)
+    return JointModel(bands, device=device, lnpost=lnpost)
 
 
 class MultiComponentModel:
@@ -136,6 +155,13 @@ class MultiComponentModel:
                 "Unable to find the Configuration component, required for "
                 "setting up input images."
             )
+        if len(configs) > 1:
+            warnings.warn(
+                f"{len(configs)} Configuration components given to the "
+                "single-observation MultiComponentModel — only the first is "
+                "used.  For a joint multi-band fit pass the components "
+                "through as_model()/model_galaxy_mcmc (each Configuration "
+                "starts a band) or build a JointModel.")
         self.config = configs[0]
         self.spec = build_model_spec(list(components), config=self.config)
         self.posterior_fns = build_posterior(self.spec, device=device,

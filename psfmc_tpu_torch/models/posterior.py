@@ -41,6 +41,12 @@ Newton (``"exact"``), on every path.
 On CUDA the render and likelihood kernels are the hand-written kernels
 of :mod:`psfmc_tpu_torch.ops.kernels`; on the CPU their plain versions.
 
+The prior is its own module, :class:`LogPrior` (the slots' densities
+and the components' constraints, the JAX package's ``make_log_prior``):
+a posterior holds one over its spec, a joint multi-band model
+(:mod:`.joint`) one over the union of its bands, whose band posteriors
+have no slots and read the global parameter vector.
+
 The image products (:meth:`images_batch`, :meth:`ensemble_carry_means`)
 use the same render; the kernel paths convolve with the plain
 ``convolve_rdft``, the general path with ``torch.fft``.  The ensemble
@@ -87,7 +93,8 @@ from ..ops.pointsource import pointsource_factors, pointsource_image
 from ..ops.sersic import render_sersic_gen, sersic_profile_core, sersic_scalar_params
 from .spec import BASE_PARAMS, ROT_PARAMS, SHAPE_PARAMS, TRUNC_PARAMS, ModelSpec, check_in_slice
 
-__all__ = ["PosteriorFns", "build_posterior", "lnpost_mode", "LNPOST_MODES"]
+__all__ = ["LogPrior", "PosteriorFns", "build_posterior", "lnpost_mode",
+           "LNPOST_MODES"]
 
 LNPOST_MODES = ("batched", "fused", "general")
 # PSFMC_LNPOST values of the JAX package that name a kernel path; every
@@ -129,6 +136,137 @@ def lnpost_mode(lnpost=None, spec=None):
     if lnpost not in LNPOST_MODES:
         raise ValueError(f"lnpost={lnpost!r}: expected one of {LNPOST_MODES}")
     return lnpost
+
+
+class LogPrior(nn.Module):
+    """The joint log-prior over parameter slots, with the component
+    constraints of the JAX package's ``make_log_prior``, and the
+    components' parameter rules (:meth:`param`).
+
+    Each prior's device constants (loc, scale, vector hyperparameters,
+    tables, quadrature rules, mixture terms) and the components' constant
+    values and tie maps are buffers, made once, so a captured step copies
+    nothing from the host.  A single-band posterior holds one over its
+    spec's slots and components and reads its parameters through it; a
+    joint model holds one over the union of the bands' slots and every
+    band's components, so the prior is counted once, and each band
+    posterior holds one over no slots for its own components' rules.
+    ``forward(thetas)`` takes a ``(B, num_params)`` batch in the working
+    dtype on the module's device.
+    """
+
+    def __init__(self, slots, comp_specs, device, dtype=torch.float32):
+        super().__init__()
+        device = torch.device(device)
+        self.slots = list(slots)
+        self._rule_specs = list(comp_specs)
+        for ci, cs in enumerate(self._rule_specs):
+            for attr, (kind, payload) in cs.params.items():
+                if kind == "const" and cs.kind != "psfselector":
+                    self._rule_buffer(f"const{ci}_{attr}", payload, device, dtype)
+                elif kind in ("theta_affine", "theta_affine_offset"):
+                    self._rule_buffer(f"aff{ci}_{attr}_a", payload[2], device, dtype)
+                    self._rule_buffer(f"aff{ci}_{attr}_b", payload[3], device, dtype)
+        self._prior_keys = []
+        for i, slot in enumerate(self.slots):
+            if device.type == "cuda" and slot.dist.needs_host(slot.size):
+                raise NotImplementedError(
+                    f"prior {type(slot.dist).__name__} of {slot.name} evaluates "
+                    "scipy on the host (a discrete family with vector "
+                    "hyperparameters): a CUDA graph cannot call the host; use "
+                    "device='cpu' or scalar hyperparameters")
+            params = slot.dist.torch_params(dtype, device, slot.size)
+            for key, tensor in params.items():
+                self.register_buffer(f"prior{i}_{key}", tensor, persistent=False)
+            self._prior_keys.append(tuple(params))
+
+    def forward(self, thetas):
+        """Log-prior per walker; outside a constraint ``-inf``, NaN ->
+        ``-inf``."""
+        lp = thetas.new_zeros(thetas.shape[0])
+        for i, slot in enumerate(self.slots):
+            x = thetas[:, slot.offset:slot.offset + slot.size]
+            params = {k: getattr(self, f"prior{i}_{k}") for k in self._prior_keys[i]}
+            lp = lp + slot.dist.torch_logp(x, params).sum(dim=-1)
+        neg_inf = torch.full_like(lp, -math.inf)
+        for ci, cs in enumerate(self._rule_specs):
+            bad = self._outside_support(ci, cs, thetas)
+            if bad is not None:
+                lp = torch.where(bad, neg_inf, lp)
+        return torch.where(torch.isnan(lp), neg_inf, lp)
+
+    def _rule_buffer(self, name, value, device, dtype):
+        self.register_buffer(name, torch.as_tensor(
+            np.asarray(value, np.float64), dtype=dtype, device=device),
+            persistent=False)
+
+    def param(self, ci, name, thetas):
+        """Parameter ``name`` of component ``ci`` for every walker:
+        ``(B,)`` for a scalar, ``(B, size)`` for a vector."""
+        kind, payload = self._rule_specs[ci].params[name]
+        if kind == "const":
+            t = getattr(self, f"const{ci}_{name}")
+            return t.expand(thetas.shape[0], *t.shape)
+        offset, size = payload[:2]
+        if kind in ("theta_affine", "theta_affine_offset"):
+            # a tie: A @ theta[offset] + b (+ the own offset slots), as an
+            # fp32 product on the card (TF32 is off)
+            x = thetas[:, offset:offset + size]
+            out = (x @ getattr(self, f"aff{ci}_{name}_a").T
+                   + getattr(self, f"aff{ci}_{name}_b"))
+            if kind == "theta_affine_offset":
+                out = out + thetas[:, payload[4]:payload[4] + size]
+            return out[:, 0] if size == 1 else out
+        if size == 1:
+            return thetas[:, offset]
+        return thetas[:, offset:offset + size]
+
+    def _outside_support(self, ci, cs, thetas):
+        """``(B,)`` where component ``ci``'s joint prior is 0, or None: the
+        axis order of every radial family (semi-major >= semi-minor), the
+        families' supports (Moffat beta > 1; King rt, alpha > 0; Ferrer
+        alpha > 0, 0 <= beta < 2; Nuker alpha > 0, beta > 2, gamma < 2,
+        gamma < beta; EdgeDisk rs, hs > 0; NoiseScale scale > 0) and the
+        isophote shapes' (c0 > -1.95, sum |f_m| <= 0.9, positive
+        truncation radii, rot_out > rot_in >= 0, rot_pow > 0)."""
+        def get(attr):
+            return self.param(ci, attr, thetas)
+
+        if cs.kind == "noisescale":
+            return get("scale") <= 0.0
+        if cs.kind == "edgedisk":
+            return (get("rs") <= 0.0) | (get("hs") <= 0.0)
+        if cs.kind not in _AXES:
+            return None
+        a_name, b_name = _AXES[cs.kind]
+        bad = get(b_name) > get(a_name)
+        if cs.kind == "moffat":
+            bad = bad | (get("index") <= 1.0)
+        elif cs.kind == "king":
+            bad = bad | (get("rt") <= 0.0) | (get("alpha") <= 0.0)
+        elif cs.kind == "ferrer":
+            beta = get("beta")
+            bad = bad | (get("alpha") <= 0.0) | (beta < 0.0) | (beta >= 2.0)
+        elif cs.kind == "nuker":
+            beta, gamma = get("beta"), get("gamma")
+            bad = (bad | (get("alpha") <= 0.0) | (beta <= 2.0) | (gamma >= 2.0)
+                   | (gamma >= beta))
+        if "c0" in cs.params:
+            bad = bad | (get("c0") <= -1.95)
+        amps = [get(f"f{m}").abs() for m in (1, 2, 3, 4) if f"f{m}" in cs.params]
+        if amps:
+            bad = bad | (sum(amps[1:], amps[0]) > 0.9)
+        for attr in TRUNC_PARAMS:
+            if attr in cs.params:
+                bad = bad | (get(attr) <= 0.0)
+        if "rot_ang" in cs.params:
+            rot_in = get("rot_in") if "rot_in" in cs.params else 0.0
+            bad = bad | (get("rot_out") <= rot_in)
+            if "rot_in" in cs.params:
+                bad = bad | (rot_in < 0.0)
+            if "rot_pow" in cs.params:
+                bad = bad | (get("rot_pow") <= 0.0)
+        return bad
 
 
 class PosteriorFns(nn.Module):
@@ -212,29 +350,7 @@ class PosteriorFns(nn.Module):
             for f in fields(ConvLnlConsts):
                 self.register_buffer("c_" + f.name, getattr(consts, f.name),
                                      persistent=False)
-        # each prior's device constants (loc, scale, vector hyperparameters,
-        # tables, quadrature rules, mixture terms) become buffers once, here:
-        # a density copies nothing from the host inside a captured step
-        self._prior_keys = []
-        for i, slot in enumerate(spec.slots):
-            if device.type == "cuda" and slot.dist.needs_host(slot.size):
-                raise NotImplementedError(
-                    f"prior {type(slot.dist).__name__} of {slot.name} evaluates "
-                    "scipy on the host (a discrete family with vector "
-                    "hyperparameters): a CUDA graph cannot call the host; use "
-                    "device='cpu' or scalar hyperparameters")
-            params = slot.dist.torch_params(dtype, device, slot.size)
-            for key, tensor in params.items():
-                self.register_buffer(f"prior{i}_{key}", tensor, persistent=False)
-            self._prior_keys.append(tuple(params))
-        # constant parameter values and the tie maps become buffers once, here
-        for ci, cs in enumerate(spec.comp_specs):
-            for attr, (kind, payload) in cs.params.items():
-                if kind == "const" and cs.kind != "psfselector":
-                    buffer(f"const{ci}_{attr}", np.asarray(payload, np.float64))
-                elif kind in ("theta_affine", "theta_affine_offset"):
-                    buffer(f"aff{ci}_{attr}_a", np.asarray(payload[2], np.float64))
-                    buffer(f"aff{ci}_{attr}_b", np.asarray(payload[3], np.float64))
+        self.prior = LogPrior(spec.slots, spec.comp_specs, device, dtype)
         # the render grid's pixel coordinates in observation pixels (``-pad``
         # at the first column), as a row and a column that broadcast
         hr, wr = self.render_shape
@@ -257,27 +373,6 @@ class PosteriorFns(nn.Module):
             **{f.name: getattr(self, "c_" + f.name) for f in fields(ConvLnlConsts)}
         )
 
-    def _get(self, ci, name, thetas):
-        """Parameter ``name`` of component ``ci`` for every walker:
-        ``(B,)`` for a scalar, ``(B, size)`` for a vector."""
-        kind, payload = self.spec.comp_specs[ci].params[name]
-        if kind == "const":
-            t = getattr(self, f"const{ci}_{name}")
-            return t.expand(thetas.shape[0], *t.shape)
-        offset, size = payload[:2]
-        if kind in ("theta_affine", "theta_affine_offset"):
-            # a tie: A @ theta[offset] + b (+ the own offset slots), as an
-            # fp32 product on the card (TF32 is off)
-            x = thetas[:, offset:offset + size]
-            out = (x @ getattr(self, f"aff{ci}_{name}_a").T
-                   + getattr(self, f"aff{ci}_{name}_b"))
-            if kind == "theta_affine_offset":
-                out = out + thetas[:, payload[4]:payload[4] + size]
-            return out[:, 0] if size == 1 else out
-        if size == 1:
-            return thetas[:, offset]
-        return thetas[:, offset:offset + size]
-
     def as_thetas(self, thetas):
         thetas = torch.as_tensor(thetas, dtype=self.dtype, device=self.device)
         if thetas.ndim != 2 or thetas.shape[1] != self.spec.num_params:
@@ -287,69 +382,15 @@ class PosteriorFns(nn.Module):
             )
         return thetas
 
+    def _get(self, ci, name, thetas):
+        """Parameter ``name`` of component ``ci`` for every walker."""
+        return self.prior.param(ci, name, thetas)
+
     # -- prior -----------------------------------------------------------
     def log_prior_batch(self, thetas):
         """Joint log-prior per walker with the JAX package's component
-        constraints (:meth:`_outside_support`); NaN -> ``-inf``."""
-        thetas = self.as_thetas(thetas)
-        lp = torch.zeros(thetas.shape[0], dtype=self.dtype, device=self.device)
-        for i, slot in enumerate(self.spec.slots):
-            x = thetas[:, slot.offset:slot.offset + slot.size]
-            params = {k: getattr(self, f"prior{i}_{k}") for k in self._prior_keys[i]}
-            lp = lp + slot.dist.torch_logp(x, params).sum(dim=-1)
-        neg_inf = torch.full_like(lp, -math.inf)
-        for ci, cs in enumerate(self.spec.comp_specs):
-            bad = self._outside_support(ci, cs, thetas)
-            if bad is not None:
-                lp = torch.where(bad, neg_inf, lp)
-        return torch.where(torch.isnan(lp), neg_inf, lp)
-
-    def _outside_support(self, ci, cs, thetas):
-        """``(B,)`` where component ``ci``'s joint prior is 0, or None: the
-        axis order of every radial family (semi-major >= semi-minor), the
-        families' supports (Moffat beta > 1; King rt, alpha > 0; Ferrer
-        alpha > 0, 0 <= beta < 2; Nuker alpha > 0, beta > 2, gamma < 2,
-        gamma < beta; EdgeDisk rs, hs > 0; NoiseScale scale > 0) and the
-        isophote shapes' (c0 > -1.95, sum |f_m| <= 0.9, positive
-        truncation radii, rot_out > rot_in >= 0, rot_pow > 0)."""
-        def get(attr):
-            return self._get(ci, attr, thetas)
-
-        if cs.kind == "noisescale":
-            return get("scale") <= 0.0
-        if cs.kind == "edgedisk":
-            return (get("rs") <= 0.0) | (get("hs") <= 0.0)
-        if cs.kind not in _AXES:
-            return None
-        a_name, b_name = _AXES[cs.kind]
-        bad = get(b_name) > get(a_name)
-        if cs.kind == "moffat":
-            bad = bad | (get("index") <= 1.0)
-        elif cs.kind == "king":
-            bad = bad | (get("rt") <= 0.0) | (get("alpha") <= 0.0)
-        elif cs.kind == "ferrer":
-            beta = get("beta")
-            bad = bad | (get("alpha") <= 0.0) | (beta < 0.0) | (beta >= 2.0)
-        elif cs.kind == "nuker":
-            beta, gamma = get("beta"), get("gamma")
-            bad = (bad | (get("alpha") <= 0.0) | (beta <= 2.0) | (gamma >= 2.0)
-                   | (gamma >= beta))
-        if "c0" in cs.params:
-            bad = bad | (get("c0") <= -1.95)
-        amps = [get(f"f{m}").abs() for m in (1, 2, 3, 4) if f"f{m}" in cs.params]
-        if amps:
-            bad = bad | (sum(amps[1:], amps[0]) > 0.9)
-        for attr in TRUNC_PARAMS:
-            if attr in cs.params:
-                bad = bad | (get(attr) <= 0.0)
-        if "rot_ang" in cs.params:
-            rot_in = get("rot_in") if "rot_in" in cs.params else 0.0
-            bad = bad | (get("rot_out") <= rot_in)
-            if "rot_in" in cs.params:
-                bad = bad | (rot_in < 0.0)
-            if "rot_pow" in cs.params:
-                bad = bad | (get("rot_pow") <= 0.0)
-        return bad
+        constraints (:class:`LogPrior`); NaN -> ``-inf``."""
+        return self.prior(self.as_thetas(thetas))
 
     # -- renders ---------------------------------------------------------
     def _psf_index(self, thetas):

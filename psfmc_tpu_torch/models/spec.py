@@ -21,17 +21,21 @@ value)``, or one of the JAX package's two tie kinds:
 + b`` and ``('theta_affine_offset', (offset, size, A, b, own))`` renders
 ``A @ theta[offset] + b + theta[own]``.  Pixel-frame ties resolve to a
 shared ``theta`` slot or a constant; an offset tie adds the component's
-own offset slots.
+own offset slots.  A ``frame="sky"`` tie maps the owner's pixel position
+through the owner band's WCS onto the user band's pixel grid
+(:func:`config_wcs_frame`, :func:`_pixel_affine`: a float64 affine on
+the host, linearised at the source band's image center), in one band
+as in a joint multi-band model (:mod:`.joint`).
 
 Both end in :func:`check_in_slice`, which raises
-``NotImplementedError`` for what this slice of the port does not run (at
-build, ``frame="sky"`` ties, which belong to joint multi-band models).
-Every prior family and every single-band component of the JAX package is
-in: Sky (with its tilted plane), PointSource, the render
+``NotImplementedError`` for a component kind, attribute or rule kind the
+port does not run.  Every prior family and every component of the JAX
+package is in: Sky (with its tilted plane), PointSource, the render
 family (shaped and truncated Sersics and their fixed-index subclasses,
 Moffat, King, Ferrer, Nuker, EdgeDisk), NoiseScale and several PSFs
 with a sampled index, with ``conv_pad``, ``render_oversample``,
-``psf_oversample`` and the Student-t and Poisson likelihoods.
+``psf_oversample``, the Student-t and Poisson likelihoods, and ties in
+pixel and sky frame.
 """
 from __future__ import annotations
 
@@ -69,6 +73,7 @@ __all__ = [
     "check_in_slice",
     "psf_spectra_for",
     "psf_spectra_for_selector",
+    "config_wcs_frame",
 ]
 
 # the isophote-shape, truncation and rotation rules of the radial
@@ -160,9 +165,8 @@ class ModelSpec:
 
 def _not_in_slice(what):
     raise NotImplementedError(
-        f"{what} is not in this slice of psfmc_tpu_torch (single-band "
-        "models: every component with pixel-frame ties, every prior); see "
-        "ROADMAP Queue 1 for the slice that brings it"
+        f"{what} is not in psfmc_tpu_torch (every component, tie and prior "
+        "of the JAX package's models is); see ROADMAP Queue 1"
     )
 
 
@@ -191,12 +195,18 @@ def check_in_slice(spec: ModelSpec):
 def build_param_slots(components) -> tuple:
     """Flat layout over a component list -> (slots, slot_map, dim).
 
-    File order, alphabetical within a component.
+    File order, alphabetical within a component; a component that
+    appears more than once (shared between the bands of a joint model)
+    contributes its slots once.
     """
     slots: List[ParamSlot] = []
     slot_map = {}
     offset = 0
+    seen = set()
     for ci, comp in enumerate(components):
+        if id(comp) in seen:
+            continue
+        seen.add(id(comp))
         for attr, prior in comp.sorted_prior_items():
             size = int(np.asarray(prior.value).size)
             slot = ParamSlot(
@@ -209,46 +219,112 @@ def build_param_slots(components) -> tuple:
     return slots, slot_map, offset
 
 
-def _resolve(comp, attr, slot_map):
-    """The rule of ``comp.attr``: its slot, its constant, or a pixel-frame
-    tie resolved through its chain (the JAX package's ``_resolve``).  An
+def _pixel_affine(frame_from, frame_to):
+    """``(A, b)`` mapping 0-based pixels of one band's frame to another's
+    through the sky (pixel -> world -> pixel), linearised by finite
+    differences at the source band's image center, in float64 on the
+    host.  ``frame_*`` are ``(MiniWCS, ref_xy)`` pairs."""
+    wcs_from, ref = frame_from
+    wcs_to, _ = frame_to
+
+    def fwd(p):
+        ra, dec = wcs_from.pixel_to_sky(p[0] + 1.0, p[1] + 1.0)
+        x, y = wcs_to.sky_to_pixel(ra, dec)
+        return np.array([float(x) - 1.0, float(y) - 1.0])
+
+    p0 = np.asarray(ref, float)
+    f0 = fwd(p0)
+    a = np.stack([fwd(p0 + np.array([1.0, 0.0])) - f0,
+                  fwd(p0 + np.array([0.0, 1.0])) - f0], axis=1)
+    return a, f0 - a @ p0
+
+
+def config_wcs_frame(config):
+    """``(MiniWCS, ref_xy)`` of a Configuration whose observation header
+    has a usable WCS (``CRVAL1`` and a CD, CDELT or PC scale), else None;
+    ``ref_xy`` is the image center, where :func:`_pixel_affine`
+    linearises."""
+    hdr = getattr(config, "obs_header", None)
+    if hdr is None:
+        return None
+    try:
+        keys = set(hdr.keys())
+    except Exception:
+        return None
+    if "CRVAL1" not in keys or not ({"CD1_1", "CDELT1", "PC1_1"} & keys):
+        return None
+    from ..io.wcs import MiniWCS
+
+    h, w = config.obs_data.shape
+    return (MiniWCS(hdr), (w / 2.0, h / 2.0))
+
+
+def _resolve(comp, attr, slot_map, wcs_map=None):
+    """The rule of ``comp.attr``: its slot, its constant, or a tie
+    resolved through its chain (the JAX package's ``_resolve``).  An
     offset tie composes the tie's base with this component's own offset
-    slots: ``theta_affine_offset`` on a slot, ``theta_affine`` (identity
-    map of the own slots plus the constant) on a constant."""
+    slots: ``theta_affine_offset`` on a slot (the base's sky map, or the
+    identity), ``theta_affine`` (identity map of the own slots plus the
+    constant) on a constant.  ``wcs_map`` maps ``id(component)`` to its
+    band's :func:`config_wcs_frame` (or ``"ambiguous"``)."""
     tie = comp._tied_offsets.get(attr)
     if tie is None:
-        return _resolve_tie(comp, attr, None, slot_map)
+        return _resolve_tie(comp, attr, None, slot_map, wcs_map)
     own = slot_map[(id(comp), attr)]
-    kind, payload = _resolve_tie(comp, attr, tie, slot_map)
+    kind, payload = _resolve_tie(comp, attr, tie, slot_map, wcs_map)
     eye, zero = np.eye(own.size), np.zeros(own.size)
     if kind == "theta":
         return ("theta_affine_offset", (payload[0], payload[1], eye, zero,
                                         own.offset))
+    if kind == "theta_affine":
+        return ("theta_affine_offset", payload + (own.offset,))
     return ("theta_affine", (own.offset, own.size, eye,
                              np.asarray(payload, float).reshape(own.size)))
 
 
-def _sky_tie():
-    raise NotImplementedError(
-        "a frame='sky' tie is not in this slice of psfmc_tpu_torch: it maps "
-        "a position through another band's WCS and comes with joint "
-        "multi-band models, ROADMAP Queue 1 item 14")
+def _sky_affine(user, frame_comp, slot, wcs_map):
+    """The ``theta_affine`` rule of a sky tie that ends on ``slot``: the
+    slot holds pixels of ``frame_comp``'s band, rendered in ``user``'s."""
+    if slot.size != 2:
+        raise ValueError("frame='sky' ties need a 2-vector xy")
+    if wcs_map is None:
+        raise ValueError("frame='sky' tie in a context without WCS frames")
+    f_owner = wcs_map.get(id(frame_comp))
+    f_user = wcs_map.get(id(user))
+    if f_owner is None or f_user is None:
+        raise ValueError(
+            "frame='sky' tie requires WCS headers (CRVAL + CD/CDELT/PC) on "
+            "every involved band's observation")
+    if isinstance(f_owner, str) or isinstance(f_user, str):
+        raise ValueError(
+            "frame='sky' tie involves a component shared between bands with "
+            "different WCS — its frame is ambiguous; give each band its own "
+            "component")
+    a, b = _pixel_affine(f_owner, f_user)
+    return ("theta_affine", (slot.offset, slot.size, a, b))
 
 
-def _resolve_tie(user, user_attr, first_tie, slot_map):
-    """Follow a pixel-frame tie chain to a slot or a constant.
+def _resolve_tie(user, user_attr, first_tie, slot_map, wcs_map=None):
+    """Follow a tie chain to a slot or a constant.
 
     ``first_tie`` is an offset tie's first hop (it lives in
-    ``_tied_offsets``, not in ``_constants``).  Raises ``ValueError`` for
-    a cycle, a tie onto an offset-tied attribute and a target with no
-    value, as the JAX package does.
+    ``_tied_offsets``, not in ``_constants``).  Each sky hop moves the
+    frame to its target (a sky hop means "shares the target's sky
+    position", which the target's band's WCS gives); pixel hops only
+    change which slot the value comes from.  Raises ``ValueError`` as
+    the JAX package does: a cycle, a tie onto an offset-tied attribute,
+    a target with no value, and for a sky tie a slot that is not a
+    2-vector, no WCS context, missing WCS headers, an ambiguous shared
+    component or a chain that ends on a constant.
     """
     component, attr = user, user_attr
+    sky = False
+    frame_comp = user
     seen = set()
     if first_tie is not None:
         seen.add((id(component), attr))
         if first_tie.frame == "sky":
-            _sky_tie()
+            sky, frame_comp = True, first_tie.component
         component, attr = first_tie.component, first_tie.attr
     while True:
         key = (id(component), attr)
@@ -262,6 +338,8 @@ def _resolve_tie(user, user_attr, first_tie, slot_map):
                     "tying onto an offset-tied attribute is not supported "
                     "(chain the tie to its base instead)")
             slot = slot_map[key]
+            if sky:
+                return _sky_affine(user, frame_comp, slot, wcs_map)
             return ("theta", (slot.offset, slot.size))
         if key in seen:
             raise ValueError(f"Tied cycle through {type(component).__name__}.{attr}")
@@ -274,9 +352,13 @@ def _resolve_tie(user, user_attr, first_tie, slot_map):
                 "value — is the referenced component part of the model?"
             ) from None
         if not isinstance(val, Tied):
+            if sky:
+                raise ValueError(
+                    "frame='sky' tie resolves to a constant — give the owner "
+                    "component a stochastic xy or tie in pixel frame")
             return ("const", val)
         if val.frame == "sky":
-            _sky_tie()
+            sky, frame_comp = True, val.component
         component, attr = val.component, val.attr
 
 
@@ -288,18 +370,18 @@ _KINDS = ((Sky, "sky"), (PointSource, "pointsource"), (Sersic, "sersic"),
           (PSFSelector, "psfselector"))
 
 
-def _comp_spec(comp, slot_map) -> CompSpec:
+def comp_spec_for(comp, slot_map, wcs_map=None) -> CompSpec:
     """The render rule of one component: its kind's attributes, then (the
     JAX package's ``_add_shape_rules``) the shape attributes it has, an
     amplitude without a phase taking a constant-zero phase."""
     kind = next((k for cls, k in _KINDS if isinstance(comp, cls)), None)
     if kind is None:
         raise TypeError(f"Unknown component type: {type(comp).__name__}")
-    params = {a: _resolve(comp, a, slot_map) for a in BASE_PARAMS[kind]
+    params = {a: _resolve(comp, a, slot_map, wcs_map) for a in BASE_PARAMS[kind]
               if comp._has(a)}
     for attr in SLICE_PARAMS[kind][len(BASE_PARAMS[kind]):]:
         if comp._has(attr):
-            params[attr] = _resolve(comp, attr, slot_map)
+            params[attr] = _resolve(comp, attr, slot_map, wcs_map)
         elif attr.endswith("_phi") and comp._has(attr[:-4]):
             params[attr] = ("const", 0.0)
     static = {}
@@ -369,7 +451,9 @@ def build_model_spec(components: List[ComponentBase], config=None) -> ModelSpec:
     for count, component in enumerate(components):
         component.update_stochastic_names(count=count)
     slots, slot_map, num_params = build_param_slots(components)
-    comp_specs = [_comp_spec(c, slot_map) for c in components]
+    frame = config_wcs_frame(config)
+    wcs_map = {id(c): frame for c in components} if frame else {}
+    comp_specs = [comp_spec_for(c, slot_map, wcs_map) for c in components]
     if config.likelihood == "poisson":
         _check_poisson_inputs(config, comp_specs)
     f_psf_stack, f_var_stack = psf_spectra_for(config)

@@ -740,3 +740,66 @@ def test_priors_graphed_phase_is_bit_identical_to_eager(cuda, variant):
     assert graphed.graph_replays == 10 and eager.graph_replays == 0
     _assert_same_state(graphed, eager)
     assert g_launches == e_launches == [1 + 20 + 6, 1 + 20, 0]
+
+
+def _joint(device, variant="flagship"):
+    from psfmc_tpu_torch.flagship import joint_components
+    from psfmc_tpu_torch.models import JointModel
+
+    model = JointModel(joint_components(((64, 64), (48, 48)), (32, 32), variant),
+                       device=device)
+    return model.spec, model.posterior_fns
+
+
+@pytest.mark.parametrize("variant", ["flagship", "general", "offset"])
+def test_joint_graphed_phase_is_bit_identical_to_eager(cuda, variant):
+    """The joint flagship's ten steps (band 0 at 64x64 on conv_lnl's FFT
+    route, band 1 at 48x48 on its matmul-DFT route, both in one captured
+    step) as graph replays and eagerly: the same state bit for bit, and
+    each kernel's launches exact, per band and route."""
+    spec, post = _joint(cuda, variant)
+    paths = {"flagship": ("batched", "batched"), "offset": ("batched", "batched"),
+             "general": ("general", "general")}[variant]
+    assert post.lnpost == paths
+    routes = dict(CL.batched_conv_lnl.route_launches)
+    graphed, g_launches = _phase(post, spec, "stretch", eager=False, walkers=56)
+    eager, e_launches = _phase(post, spec, "stretch", eager=True, walkers=56)
+    assert graphed.graph_replays == 10 and eager.graph_replays == 0
+    _assert_same_state(graphed, eager)
+    assert sorted(graphed.state.accum) == sorted(post.carry_image_shapes())
+    assert graphed.state.accum["b1_raw"].shape == (48, 48)
+    batched = paths[0] == "batched"
+    assert g_launches == e_launches == [2 * (1 + 20 + 6), 2 * (1 + 20) * batched, 0]
+    if batched:  # each band's conv_lnl on its route, in both runs
+        assert CL.batched_conv_lnl.route_launches == {
+            "fft": routes["fft"] + 2 * 21, "dft": routes["dft"] + 2 * 21}
+
+
+def test_dft_route_conv_lnl_inside_a_captured_graph(cuda):
+    """Band 1's conv_lnl on the matmul-DFT route (15 launches through
+    scratch) captured in a CUDA graph: the replay equals the eager launch
+    bit for bit and the plain version within 2e-5."""
+    spec, post = _joint(cuda)
+    band = post.band_fns[1]
+    assert CL.conv_route(band.shape) == "dft"
+    th = torch.as_tensor(prior_draws(spec, 30, seed=5), dtype=torch.float32,
+                         device=cuda)
+    raws = band.raw_and_ps(th)[0].contiguous()
+    eager = CL.batched_conv_lnl(raws, band.consts)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        CL.batched_conv_lnl(raws, band.consts)  # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = CL.batched_conv_lnl(raws, band.consts)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    want = CL.batched_conv_lnl_plain(raws, band.consts)
+    assert _same_nonfinite(out, want)
+    fin = torch.isfinite(want)
+    assert fin.sum() >= 15
+    rel = (out[fin] - want[fin]).abs() / want[fin].abs()
+    assert rel.max().item() <= 2e-5

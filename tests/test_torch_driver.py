@@ -277,11 +277,25 @@ def test_driver_writes_a_de_database(model_dir):
     assert tdb.load_checkpoint(str(model_dir / "out_db.fits"))["rng_kind"] == "torch-cpu"
 
 
-def test_joint_model_file_raises(model_dir):
+def test_joint_model_file_builds_as_jax(model_dir):
+    """A model file with two ``Configuration`` components builds a joint
+    model in both packages (the same layout, each band its own data), and
+    the single-band class given it warns that it uses only the first."""
+    from psfmc_tpu.models.joint import JointModel as JaxJoint
+    from psfmc_tpu.models.multicomponent import as_model as jax_as_model
+    from psfmc_tpu_torch.models import JointModel, MultiComponentModel
+
     text = MODEL + MODEL.split("\n", 3)[3].split("Sky(")[0]  # a 2nd Configuration
+    path = str(model_dir / "joint.py")
     (model_dir / "joint.py").write_text(text)
-    with pytest.raises(NotImplementedError, match="joint multi-band"):
-        as_model(str(model_dir / "joint.py"), device="cpu")
+    own, jm = as_model(path, device="cpu"), jax_as_model(path)
+    assert isinstance(own, JointModel) and isinstance(jm, JaxJoint)
+    assert own.param_names == list(jm.param_names)
+    assert [b.shape for b in own.spec.band_specs] == [b.shape for b in jm.spec.band_specs]
+    assert len(own.spec.band_specs) == 2 and own.spec.band_specs[1].comp_specs[0].kind \
+        == "psfselector"
+    with pytest.warns(UserWarning, match="only the first"):
+        MultiComponentModel(path, device="cpu")
 
 
 class _Gaussian2D:

@@ -18,10 +18,12 @@ import jax
 import jax.numpy as jnp
 
 from psfmc_tpu import distributions as JD
+from psfmc_tpu.models import components as JC
 from psfmc_tpu.models.posterior import build_posterior as jax_posterior
 from psfmc_tpu.models.spec import build_model_spec as jax_spec
 from psfmc_tpu_torch import distributions as TD
 from psfmc_tpu_torch.flagship import flagship_components, prior_draws
+from psfmc_tpu_torch.models import components as TC
 from psfmc_tpu_torch.ops.kernels import batched_lnl_supported
 from psfmc_tpu_torch.models import (
     Configuration,
@@ -175,18 +177,19 @@ def test_build_posterior_requires_cuda_or_explicit_cpu(specs):
         build_posterior(specs[1], device="cuda")
 
 
-def _small_config(**kw):
+def _small_config(C=None, **kw):
     psf = np.ones((4, 4))
     args = dict(obs_file=np.ones((8, 8)), obsivm_file=np.ones((8, 8)),
                 psf_files=psf, psfivm_files=psf, mag_zeropoint=25.0)
     args.update(kw)
-    return Configuration(**args)
+    return (C.Configuration if C is not None else Configuration)(**args)
 
 
-def _sersic(**kw):
-    return Sersic(xy=TD.Uniform(loc=np.array([2.0, 2.0]), scale=np.array([4.0, 4.0])),
-                  mag=TD.Uniform(loc=20, scale=2), reff=2.0, reff_b=1.0,
-                  index=TD.Uniform(loc=1, scale=2), angle=0.0, **kw)
+def _sersic(C=None, D=TD, **kw):
+    return (C.Sersic if C is not None else Sersic)(
+        xy=D.Uniform(loc=np.array([2.0, 2.0]), scale=np.array([4.0, 4.0])),
+        mag=D.Uniform(loc=20, scale=2), reff=2.0, reff_b=1.0,
+        index=D.Uniform(loc=1, scale=2), angle=0.0, **kw)
 
 
 _SHAPES = [dict(c0=TD.Uniform(loc=-0.5, scale=1.0)), dict(rtrunc=5.0, rsoft=1.0),
@@ -194,23 +197,51 @@ _SHAPES = [dict(c0=TD.Uniform(loc=-0.5, scale=1.0)), dict(rtrunc=5.0, rsoft=1.0)
            dict(rtrunc_in=1.0, rsoft_in=0.5)]
 _SHAPE_IDS = ["boxy-c0", "truncation", "fourier", "bending", "rotation",
               "inner-truncation"]
+# a TAN WCS of the 8x8 observation: 0.05"/px, north up
+_WCS = {"CTYPE1": "RA---TAN", "CTYPE2": "DEC--TAN", "CRPIX1": 4.5, "CRPIX2": 4.5,
+        "CRVAL1": 150.0, "CRVAL2": 2.0, "CD1_1": -0.05 / 3600, "CD1_2": 0.0,
+        "CD2_1": 0.0, "CD2_2": 0.05 / 3600}
 
 
-def _sky_tied(**kw):
-    """A shaped Sersic whose point source is tied to it in sky frame."""
-    host = _sersic(**kw)
-    return [_small_config(), host,
-            PointSource(xy=Tied(host, "xy", frame="sky"),
-                        mag=TD.Uniform(loc=20, scale=2))]
+def _sky_tied(C, D, wcs, **kw):
+    """A shaped Sersic whose point source is tied to it in sky frame, in
+    one band with or without a WCS."""
+    shape = {k: (D.Uniform(loc=-0.5, scale=1.0) if k == "c0" else v)
+             for k, v in kw.items()}
+    host = _sersic(C, D, **shape)
+    obs = (_WCS, np.ones((8, 8))) if wcs else np.ones((8, 8))
+    return [_small_config(C, obs_file=obs), host,
+            C.PointSource(xy=C.Tied(host, "xy", frame="sky"),
+                          mag=D.Uniform(loc=20, scale=2))]
 
 
 @pytest.mark.parametrize("comps", [functools.partial(_sky_tied, **kw)
                                    for kw in _SHAPES], ids=_SHAPE_IDS)
-def test_spec_outside_the_slice_raises(comps):
-    """A ``frame="sky"`` tie (joint multi-band models) is still outside the
-    slice, whatever the shape of the component it names."""
-    with pytest.raises(NotImplementedError, match="not in this slice.*item 14"):
-        build_model_spec(comps())
+def test_sky_tie_on_a_shaped_component_matches_jax(comps):
+    """A single-band ``frame="sky"`` tie, whatever the shape of the
+    component it names, is held to the JAX package: without a WCS on the
+    observation it raises the JAX package's ``ValueError``; with one it
+    builds the JAX package's spec (the tie a ``theta_affine`` through the
+    band's own WCS, A and b within 1e-12 of the JAX package's; the map is
+    the identity up to the finite differences' round-off, 1e-8)."""
+    errors = []
+    for C, D, build in ((JC, JD, jax_spec), (TC, TD, build_model_spec)):
+        with pytest.raises(ValueError, match="requires WCS headers") as err:
+            build(comps(C, D, wcs=False))
+        errors.append(str(err.value))
+    assert errors[0] == errors[1]
+    jspec, own = jax_spec(comps(JC, JD, wcs=True)), build_model_spec(comps(TC, TD, wcs=True))
+    assert own.param_names == list(jspec.param_names)
+    for a, b in zip(own.comp_specs, jspec.comp_specs):
+        assert a.kind == b.kind and sorted(a.params) == sorted(b.params)
+        for k, (rule, payload) in a.params.items():
+            assert rule == b.params[k][0]
+            if rule == "theta_affine":
+                assert payload[:2] == tuple(b.params[k][1][:2])
+                for x, y in zip(payload[2:], b.params[k][1][2:]):
+                    np.testing.assert_allclose(x, y, rtol=0, atol=1e-12)
+                np.testing.assert_allclose(payload[2], np.eye(2), atol=1e-8)
+                np.testing.assert_allclose(payload[3], np.zeros(2), atol=1e-8)
 
 
 @pytest.mark.parametrize("kw", _SHAPES, ids=_SHAPE_IDS)

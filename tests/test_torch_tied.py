@@ -8,8 +8,9 @@ slots and renders ``A @ theta[base] + b + theta[own]``
 Each case is built by both packages from the same seeded arrays at
 24x24; the specs (names, rules, tie maps) must be equal and lnpost
 must agree at rtol 1e-10 in float64.  The error cases raise the
-exception types the JAX package raises; a ``frame="sky"`` tie, which
-belongs to joint multi-band models, raises ``NotImplementedError``.
+exception types the JAX package raises; a ``frame="sky"`` tie maps
+through the band's WCS where the observation has one and raises the
+JAX package's ``ValueError`` where it has none.
 """
 import numpy as np
 import pytest
@@ -241,19 +242,70 @@ def test_tie_errors_raise_as_jax(case, err, match):
             build([_config(C)] + case(C, D))
 
 
-@pytest.mark.parametrize("where", ["direct", "end-of-chain", "offset"])
-def test_sky_frame_tie_raises_not_implemented(where):
-    host = _host(TC, TD)
+# a TAN WCS of the 24x24 observation: 0.05"/px, rotated by 30 degrees
+_C30, _S30 = np.cos(np.pi / 6) * 0.05 / 3600, np.sin(np.pi / 6) * 0.05 / 3600
+_WCS = {"CTYPE1": "RA---TAN", "CTYPE2": "DEC--TAN", "CRPIX1": 12.5, "CRPIX2": 12.5,
+        "CRVAL1": 150.0, "CRVAL2": 2.0, "CD1_1": -_C30, "CD1_2": _S30,
+        "CD2_1": _S30, "CD2_2": _C30}
+
+
+def _sky_comps(C, D, where):
+    host = _host(C, D)
     if where == "direct":
-        comps = [host, _ps(TC, TD, TC.Tied(host, "xy", frame="sky"))]
-    elif where == "end-of-chain":
-        mid = _ps(TC, TD, TC.Tied(host, "xy", frame="sky"))
-        comps = [host, mid, _ps(TC, TD, TC.Tied(mid, "xy"))]
-    else:
-        comps = [host, _ps(TC, TD, TC.Tied(host, "xy", frame="sky",
-                                           offset=TD.Normal(loc=np.zeros(2), scale=0.3)))]
-    with pytest.raises(NotImplementedError, match="frame='sky'.*item 14"):
-        build_model_spec([_config(TC)] + comps)
+        return [host, _ps(C, D, C.Tied(host, "xy", frame="sky"))]
+    if where == "end-of-chain":
+        mid = _ps(C, D, C.Tied(host, "xy", frame="sky"))
+        return [host, mid, _ps(C, D, C.Tied(mid, "xy"))]
+    return [host, _ps(C, D, C.Tied(host, "xy", frame="sky",
+                                   offset=D.Normal(loc=np.zeros(2), scale=0.3)))]
+
+
+@pytest.mark.parametrize("where", ["direct", "end-of-chain", "offset"])
+def test_sky_frame_tie_matches_jax(where):
+    """A single-band ``frame="sky"`` tie is held to the JAX package: with
+    no WCS on the observation both raise the JAX package's ``ValueError``;
+    with a WCS both build the same spec (the tie maps through the band's
+    own WCS: ``theta_affine``, or ``theta_affine_offset`` with an offset,
+    A and b within 1e-12) and the same lnpost (rtol 1e-10)."""
+    errors = []
+    for package in ("jax", "torch"):
+        C, D, build = PACKAGES[package]
+        with pytest.raises(ValueError, match="requires WCS headers") as err:
+            build([_config(C)] + _sky_comps(C, D, where))
+        errors.append(str(err.value))
+    assert errors[0] == errors[1]
+    specs = {}
+    for package in ("jax", "torch"):
+        C, D, build = PACKAGES[package]
+        cfg = _config(C)
+        wcs_cfg = C.Configuration(obs_file=(_WCS, cfg.obs_data),
+                                  obsivm_file=1.0 / cfg.obs_var,
+                                  psf_files=cfg.psf_selector.spatial_psfs[0],
+                                  psfivm_files=np.full((24, 24), 1e8),
+                                  mag_zeropoint=25.0)
+        specs[package] = build([wcs_cfg] + _sky_comps(C, D, where))
+    own, jspec = specs["torch"], specs["jax"]
+    assert own.param_names == list(jspec.param_names)
+    for a, b in zip(own.comp_specs, jspec.comp_specs):
+        assert a.kind == b.kind and sorted(a.params) == sorted(b.params)
+        for k, (rule, payload) in a.params.items():
+            jrule, jpayload = b.params[k]
+            assert rule == jrule
+            if rule.startswith("theta_affine"):
+                assert payload[:2] == tuple(jpayload[:2]) and payload[4:] == tuple(jpayload[4:])
+                for x, y in zip(payload[2:4], jpayload[2:4]):
+                    np.testing.assert_allclose(x, y, rtol=0, atol=1e-12)
+            else:
+                assert _plain(payload) == _plain(jpayload)
+    last = [cs for cs in own.comp_specs if cs.kind == "pointsource"][-1]
+    assert last.params["xy"][0] == {"direct": "theta_affine",
+                                    "end-of-chain": "theta_affine",
+                                    "offset": "theta_affine_offset"}[where]
+    th = prior_draws(own, 6, seed=2)
+    want = np.asarray(jax.vmap(jax_posterior(jspec, dtype=jnp.float64).log_posterior)(
+        jnp.asarray(th)))
+    got = build_posterior(own, device="cpu", dtype=torch.float64).log_posterior_batch(th)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-10)
 
 
 @pytest.mark.parametrize("args,err,match", [

@@ -137,14 +137,34 @@ never ``jax`` nor ``psfmc_tpu``, and:
    (both bands on the general path with two PSF stars each, a registration
    offset on a sky tie, the general bands under the tiled render) with a
    lnpost check and a graphed/eager segment of 2 + 2 steps;
-12. prints the kernel table as one JSON line, then the result line
+12. MAP phase (the gradient path): the MAP flagship (the flagship's
+   components and priors, its observation simulated from a truth inside
+   the priors) written as FITS files and a model file, through
+   ``model_galaxy_map`` (64 starts x 500 Adam steps, Laplace): every Adam
+   step a replay of one captured step that launches the render, its
+   backward, conv_lnl and its backward once each (FFT route), exact
+   launches over the run, the MAP beating every pool draw, the five
+   products with ``MAPLNP`` and each parameter's card, lnpost at the MAP
+   against the CPU's float64, the CPU's float64 fit from the card's best
+   start, the positions against the truth, the Laplace std against the
+   CPU's float64; the Adam step timed replayed and eager; five Adam steps
+   graphed against eager bit for bit; the card's gradient against the
+   CPU's float64 autograd at 64 points on the batched, the general and the
+   family flagship; ``model_galaxy_mcmc(init="map")`` on the same files
+   (20 burn + 20 retained steps); the joint MAP (64 starts x 500 steps,
+   band 1's conv_lnl backward on the matmul-DFT route inside the captured
+   step); then each backward kernel against its plain version at 125
+   walkers with its times (rows ``sersic_render_backward``,
+   ``conv_lnl_backward``, ``conv_lnl_backward_dft``);
+13. prints the kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler breakdown of
 device time by kernel over a segment of ten retained sampler steps of
 each path (slice, driver, general, family and joint), graphed and eager, with the device's busy time and idle share
 (against the profiled and the unprofiled wall time), and
-the SM clock cycles that one block of each FFT-route kernel spends in
+ten replayed Adam steps of the MAP path (busy time, kernels per step,
+idle share), the SM clock cycles that one block of each FFT-route kernel spends in
 each of its phases (a second build of the two sources with phase stamps;
 the first phase of the fused kernel is its render), and the render kernel
 under other launch geometries than the wrapper picks.  The breakdown
@@ -2076,6 +2096,560 @@ def joint_phase(shapes=None, psf_shape=(64, 64), device=None):
     return sampling, variant_launches, on_path, fresh
 
 
+# -- phase 12: the gradient path -------------------------------------------
+
+MAP_STARTS, MAP_STEPS = 64, 500  # fit_map's defaults, the MAP path's depth
+MAP_EQUAL_STEPS = 5  # graphed against eager
+GRAD_POINTS = 64
+GRAD_RTOL = 1e-3  # ||g_card - g_cpu|| / ||g_cpu|| per point, the CPU in float64
+MAP_LNP_RTOL = 1e-4  # lnpost at the MAP: the card's float32 against the CPU's float64
+MAP_FIT_ATOL = 0.5  # the card's best lnpost against the CPU's float64 fit from its start
+MAP_PS_XY_TOL = 0.1  # px: the point source's position against the truth
+MAP_HOST_XY_TOL = 0.5  # px: the host's, which shares the point source's centre
+LAPLACE_RTOL = 0.05  # the card's Laplace std against the CPU's float64, per parameter
+RENDER_BWD_TOL = 1e-4  # per walker and packed scalar, of its largest gradient,
+RENDER_BWD_PLAIN = 4  # ... or this many times the float32 plain version's error
+CONV_BWD_TOL = 1e-3  # per walker, of its largest pixel gradient
+# One pixel of one Sersic in the render's backward (csrc/
+# sersic_render_backward.cu): the forward's 31 operations again and 44 of
+# the vector-Jacobian product, each expf, logf and division counted as
+# one, and 6 special-function results (the two ex2 and four reciprocals);
+# ten float64 additions, counted at the fp32 rate.
+RENDER_BWD_OPS_PER_PIXEL = 31 + 44 + 10
+RENDER_BWD_SFU_PER_PIXEL = 6
+
+
+def grad_kernels():
+    """The wrappers the gradient path launches: the render and conv_lnl,
+    each with its backward kernel."""
+    from psfmc_tpu_torch.ops.kernels.conv_lnl import (
+        batched_conv_lnl,
+        batched_conv_lnl_backward,
+    )
+    from psfmc_tpu_torch.ops.kernels.sersic_render import (
+        render_sersics,
+        render_sersics_backward,
+    )
+
+    return (render_sersics, render_sersics_backward, batched_conv_lnl,
+            batched_conv_lnl_backward)
+
+
+def normalized_err(got, want, dims):
+    """max |got - want| over ``dims`` over max |want| there, the largest
+    over the rest (``want`` in float64)."""
+    num = (got.double() - want).abs().amax(dim=dims)
+    return (num / want.abs().amax(dim=dims).clamp(min=1e-300)).max().item()
+
+
+def render_backward_err(got, plain, want):
+    """(largest normalized error, largest error over its bound): per
+    walker and packed scalar, the largest error over the Sersics over the
+    largest gradient there; the bound is the larger of
+    :data:`RENDER_BWD_TOL` and :data:`RENDER_BWD_PLAIN` times the float32
+    plain version's own normalized error (``want`` in float64)."""
+    scale = want.abs().amax(dim=1).clamp(min=1e-300)
+    err = (got.double() - want).abs().amax(dim=1) / scale
+    plain_err = (plain.double() - want).abs().amax(dim=1) / scale
+    bound_ = (plain_err * RENDER_BWD_PLAIN).clamp(min=RENDER_BWD_TOL)
+    return err.max().item(), (err / bound_).max().item()
+
+
+def same_nonfinite(got, want):
+    import torch
+
+    if not (torch.equal(torch.isfinite(got), torch.isfinite(want))
+            and torch.equal(torch.isnan(got), torch.isnan(want))):
+        raise AssertionError("a backward kernel and its plain version differ "
+                             "in non-finite entries")
+
+
+def backward_rows(post, spec):
+    """Rows (a)-(c): each backward kernel against its plain version on the
+    card at 125 walkers, with its times and bound: the render's at the
+    flagship's 128x128 and at 45x37, conv_lnl's on the FFT route at
+    128x128 and on the matmul-DFT route at 96x96."""
+    import torch
+
+    from psfmc_tpu_torch.flagship import flagship_components, prior_draws
+    from psfmc_tpu_torch.models import build_model_spec, build_posterior
+    from psfmc_tpu_torch.ops import convolve, gaussian_lnlike
+    from psfmc_tpu_torch.ops.kernels import _build
+    from psfmc_tpu_torch.ops.kernels import conv_lnl as CL
+    from psfmc_tpu_torch.ops.kernels import sersic_render as SR
+
+    rows = []
+    rng = np.random.RandomState(SEED + 5)
+
+    def inputs(s):
+        p = build_posterior(s, device=post.device, lnpost="batched")
+        th = torch.as_tensor(prior_draws(s, B_HALF, seed=SEED + 6),
+                             dtype=torch.float32, device=post.device)
+        return p, th
+
+    # (a) the render's backward
+    ragged_spec = build_model_spec(flagship_components(RAGGED_SHAPE, RAGGED_PSF_SHAPE))
+    timed = {}
+    for s_, label in ((spec, "main"), (ragged_spec, "ragged")):
+        p, th = inputs(s_)
+        params, sky = (t.contiguous() for t in p.render_inputs(th))
+        grad = torch.as_tensor(rng.randn(B_HALF, *s_.shape), dtype=torch.float32,
+                               device=post.device)
+        got = SR.render_sersics_backward(params, sky, s_.shape, grad)
+        plain = SR.render_sersics_backward_plain(params, sky, s_.shape, grad)
+        for g, w in zip(got, plain):
+            same_nonfinite(g, w)
+        p64, s64 = SR.render_sersics_backward_plain(params.double(), sky.double(),
+                                                    s_.shape, grad.double())
+        # a float32 profile may overflow where float64's does not
+        keep = torch.isfinite(p64).all(dim=(1, 2)) & torch.isfinite(got[0]).all(dim=(1, 2))
+        abs_err = (got[0][keep].double() - p64[keep]).abs().max().item()
+        err, excess = render_backward_err(got[0][keep], plain[0][keep], p64[keep])
+        sky_err = normalized_err(got[1][keep][:, None], s64[keep][:, None], dims=(1,))
+        log(f"render backward, {s_.shape[0]}x{s_.shape[1]}: max normalized err "
+            f"{err:.3e}, at most {excess:.3f} of its bound (max({RENDER_BWD_TOL:g}, "
+            f"{RENDER_BWD_PLAIN}x the float32 plain version's)), sky {sky_err:.3e}, "
+            f"walkers compared {int(keep.sum())}")
+        if not (excess <= 1.0 and sky_err <= RENDER_BWD_TOL
+                and keep.sum().item() >= B_HALF // 2):
+            raise AssertionError("the render's backward kernel disagrees with "
+                                 f"its plain version at {s_.shape}")
+        timed[label] = (err, abs_err, time_ms(lambda: SR.render_sersics_backward(
+            params, sky, s_.shape, grad)), time_ms(
+            lambda: SR.render_sersics_backward_plain(params, sky, s_.shape, grad)),
+            (params, sky, grad))
+    err, abs_err, ms, plain_ms, (params, sky, grad) = timed["main"]
+    b, s, _ = params.shape
+    h, w = spec.shape
+    bms, by, term = bound(4 * (params.numel() + sky.numel() + grad.numel()
+                               + params.numel() + b),
+                          b * h * w * (s * RENDER_BWD_OPS_PER_PIXEL + 1),
+                          b * h * w * s * RENDER_BWD_SFU_PER_PIXEL)
+    rows.append(dict(
+        name="sersic_render_backward", route="cuda",
+        source=_build.source_path("sersic_render_backward"),
+        replaces="psfmc_tpu/ops/pallas/sersic_pallas.py:102 (its gradient)",
+        launches=0, max_abs_err=abs_err, max_normalized_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=bms, bound_by=by, bound_term=term,
+        library_ms=None, ragged_ms=timed["ragged"][2],
+        ragged_normalized_err=timed["ragged"][0]))
+
+    # (b), (c) conv_lnl's backward on both routes
+    dft_spec = build_model_spec(flagship_components(DFT_SHAPE, DFT_PSF_SHAPE))
+    for s_, route, name in ((spec, "fft", "conv_lnl_backward"),
+                            (dft_spec, "dft", "conv_lnl_backward_dft")):
+        p, th = inputs(s_)
+        raws = p.raw_and_ps(th)[0].contiguous()
+        consts = p.consts
+        lnl = CL.batched_conv_lnl(raws, consts)
+        grad = torch.as_tensor(rng.uniform(0.5, 2.0, B_HALF), dtype=torch.float32,
+                               device=post.device)
+        if CL.conv_route(s_.shape) != route:
+            raise AssertionError(f"{s_.shape} does not take the {route} route")
+        routes = dict(CL.batched_conv_lnl_backward.route_launches)
+        got = CL.batched_conv_lnl_backward(raws, consts, lnl, grad)
+        routes[route] += 1
+        if CL.batched_conv_lnl_backward.route_launches != routes:
+            raise AssertionError(f"{name} did not launch on the {route} route")
+        plain = CL.batched_conv_lnl_backward_plain(raws, consts, lnl, grad)
+        same_nonfinite(got, plain)
+        c64 = build_posterior(s_, device="cpu", dtype=torch.float64,
+                              lnpost="batched").consts
+        want = CL.batched_conv_lnl_backward_plain(
+            raws.double().cpu(), c64, lnl.double().cpu(),
+            grad.double().cpu()).to(post.device)
+        keep = torch.isfinite(lnl)
+        abs_err = (got[keep].double() - want[keep]).abs().max().item()
+        err = normalized_err(got[keep], want[keep], dims=(1, 2))
+        plain_err = normalized_err(plain[keep], want[keep], dims=(1, 2))
+        log(f"{name}: max normalized err {err:.3e} (tol {CONV_BWD_TOL:g}; float32 "
+            f"plain {plain_err:.3e}), walkers compared {int(keep.sum())}")
+        if not (err <= CONV_BWD_TOL and keep.sum().item() >= B_HALF // 2):
+            raise AssertionError(f"{name} disagrees with its plain version")
+        f_psf = torch.as_tensor(s_.f_psf_stack[0], device=post.device).to(torch.complex64)
+        f_var = torch.as_tensor(s_.f_var_stack[0], device=post.device).to(torch.complex64)
+
+        def library():  # autograd through the torch.fft formulation, a yardstick
+            x = raws.detach().requires_grad_(True)
+            with torch.enable_grad():
+                out = gaussian_lnlike(consts.obs - convolve(x, f_psf),
+                                      1.0 / (convolve(x * x, f_var) + consts.obs_var),
+                                      consts.good)
+                return torch.autograd.grad(out, x, grad)[0]
+
+        hh, ww = s_.shape
+        data_bytes = 4 * sum(t.numel() for t in (
+            consts.psf_r, consts.psf_i, consts.var_r, consts.var_i, consts.obs,
+            consts.obs_var, consts.good_f))
+        # the forward pair again, the adjoint pair, the weights and the combine
+        bms, by, term = bound(8 * raws.numel() + data_bytes + 8 * B_HALF,
+                              2 * conv_lnl_ops(B_HALF, hh, ww)
+                              + B_HALF * hh * ww * 12)
+        rows.append(dict(
+            name=name, route="cuda", source=_build.source_path("conv_lnl_backward"),
+            replaces="psfmc_tpu/ops/pallas/lnpost_batched.py:191 (its gradient)",
+            launches=0, max_abs_err=abs_err, max_normalized_err=err,
+            ms=time_ms(lambda: CL.batched_conv_lnl_backward(raws, consts, lnl, grad)),
+            plain_ms=time_ms(lambda: CL.batched_conv_lnl_backward_plain(
+                raws, consts, lnl, grad)),
+            bound_ms=bms, bound_by=by, bound_term=term, library_ms=time_ms(library),
+            library="torch.autograd through torch.fft convolutions of the forward",
+            conv_route=route))
+    for r in rows:
+        log(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.5f} ms by {r['bound_by']} ({r['bound_term']}), "
+            f"{r['ms'] / r['bound_ms']:.1f}x the bound; library {r['library_ms']})")
+    return rows
+
+
+def grad_against_cpu(post, spec, thetas, label):
+    """The card's ``log_posterior_and_grad`` against the CPU's float64
+    autograd at the same points: per point ``||g - g_cpu|| / ||g_cpu||``
+    within :data:`GRAD_RTOL`, lnpost within :data:`MAP_LNP_RTOL`."""
+    import torch
+
+    from psfmc_tpu_torch.models import build_posterior
+
+    lnp, g = post.log_posterior_and_grad(thetas)
+    lnp, g = lnp.cpu(), g.cpu()
+    ref = build_posterior(spec, device="cpu", dtype=torch.float64)
+    lnp64, g64 = ref.log_posterior_and_grad(thetas)
+    # a float32 profile may overflow where float64's does not: the card's
+    # non-finite entries are the CPU's float32 ones
+    lnp32 = build_posterior(spec, device="cpu").log_posterior_batch(thetas)
+    if not torch.equal(torch.isfinite(lnp32), torch.isfinite(lnp)):
+        raise AssertionError(f"gradient, {label}: non-finite lnpost differ from "
+                             "the CPU's float32")
+    fin = torch.isfinite(lnp64) & torch.isfinite(lnp)
+    rel = ((g.double() - g64).norm(dim=1) / g64.norm(dim=1))[fin]
+    lnp_rel = ((lnp.double() - lnp64).abs() / lnp64.abs())[fin]
+    log(f"gradient, {label} ({post.grad_mode} path): {int(fin.sum())} of "
+        f"{len(fin)} points finite; max ||g - g_cpu|| / ||g_cpu|| "
+        f"{rel.max().item():.3e} (tol {GRAD_RTOL:g}), median "
+        f"{rel.median().item():.3e}; lnpost max rel err {lnp_rel.max().item():.3e}")
+    if fin.sum().item() < len(fin) // 4 or not rel.max().item() <= GRAD_RTOL \
+            or not lnp_rel.max().item() <= MAP_LNP_RTOL:
+        raise AssertionError(f"gradient, {label}: the card disagrees with the CPU")
+    return rel.max().item()
+
+
+def map_program(fns):
+    """The captured Adam program of the last ``fit_map`` on ``fns``."""
+    programs = list(fns.__dict__.get("_map_programs", {}).values())
+    if not programs:
+        raise AssertionError("fit_map left no Adam program on the posterior")
+    return programs[-1]
+
+
+def check_step_tally(program, want, label):
+    """Every Adam step a replay whose tally is exactly ``want`` (a dict of
+    ``(wrapper name, route)`` -> launches)."""
+    got = {}
+    for fn, route in program.launches or []:
+        got[fn.__name__, route] = got.get((fn.__name__, route), 0) + 1
+    if got != want:
+        raise AssertionError(f"{label}: one Adam step launches {got}, want {want}")
+
+
+def map_phase(shape=(128, 128), psf_shape=(64, 64), joint_shapes=None, device=None):
+    """The gradient path at full width (the arguments shrink it for a
+    rehearsal on the CPU): the MAP flagship through ``model_galaxy_map``
+    (64 starts x 500 Adam steps, Laplace), ``model_galaxy_mcmc(init=
+    "map")`` on the same files, gradients against the CPU, five Adam steps
+    graphed against eager, and the joint MAP.  Returns the backward rows'
+    launches and the timings."""
+    import torch
+
+    from psfmc_tpu_torch import fitting, optimize
+    from psfmc_tpu_torch.flagship import (
+        JOINT_SHAPES,
+        family_components,
+        general_components,
+        joint_map_components,
+        prior_draws,
+        write_map_files,
+    )
+    from psfmc_tpu_torch.io import fits
+    from psfmc_tpu_torch.models import (
+        JointModel,
+        MultiComponentModel,
+        build_model_spec,
+        build_posterior,
+    )
+
+    joint_shapes = joint_shapes or JOINT_SHAPES
+    counted = grad_kernels()
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path, truth = write_map_files(tmp, shape, psf_shape, seed=SEED)
+        models = []
+        as_model = fitting.as_model
+
+        def kept(*a, **k):
+            models.append(as_model(*a, **k))
+            return models[-1]
+
+        fitting.as_model = kept
+        try:
+            torch.cuda.synchronize()
+            reset_counts(counted)
+            t0 = time.perf_counter()
+            res = fitting.model_galaxy_map(path, output_name=os.path.join(tmp, "map"),
+                                           n_starts=MAP_STARTS, steps=MAP_STEPS,
+                                           seed=SEED, laplace=True, device=device)
+            wall = time.perf_counter() - t0
+            launches, by_route = read_counts(counted)
+        finally:
+            fitting.as_model = as_model
+        (model,) = models
+        fns = model.posterior_fns
+        log(f"map: model_galaxy_map {MAP_STARTS} starts x {MAP_STEPS} steps in "
+            f"{wall:.2f} s, phases "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in res.phase_seconds.items())
+            + f"; lnpost {res.lnpost:.3f}; launches {launches}, by route {by_route}")
+        # the pool's evaluation, the steps and the final iterate, Laplace's two
+        # gradient calls, the images' render
+        evals = MAP_STEPS + 1
+        want = {"render_sersics": 1 + evals + 2 + 1, "render_sersics_backward": evals + 2,
+                "batched_conv_lnl": 1 + evals + 2, "batched_conv_lnl_backward": evals + 2}
+        if launches != want or by_route["batched_conv_lnl_backward:dft"] \
+                or by_route["batched_conv_lnl:dft"]:
+            raise AssertionError(f"map: launches {launches} {by_route}, want {want} "
+                                 "all on the FFT route")
+        program = map_program(fns)
+        graphed = fns.device.type == "cuda"  # a CPU rehearsal has no graphs
+        if graphed and program.replays != MAP_STEPS:
+            raise AssertionError(f"map: {program.replays} replays for {MAP_STEPS} steps")
+        if graphed:
+            check_step_tally(program, {("render_sersics", None): 1,
+                                       ("render_sersics_backward", None): 1,
+                                       ("batched_conv_lnl", "fft"): 1,
+                                       ("batched_conv_lnl_backward", "fft"): 1}, "map")
+        out["map"] = dict(launches, **by_route)
+        # the MAP beats every pool draw (the JAX package's own bar)
+        pool = model.init_params_from_priors(max(4 * MAP_STARTS, 128),
+                                             random_state=np.random.RandomState(SEED))
+        with torch.no_grad():
+            lnp_pool = fns.log_posterior_batch(pool).double().cpu().numpy()
+        best_pool = np.nanmax(np.where(np.isfinite(lnp_pool), lnp_pool, -np.inf))
+        if not res.lnpost > best_pool:
+            raise AssertionError(f"map: lnpost {res.lnpost} does not beat the pool's "
+                                 f"best {best_pool}")
+        # the five products and their cards
+        hdr = None
+        for ftype in IMAGE_TYPES:
+            fname = os.path.join(tmp, f"map_{ftype}.fits")
+            data = fits.getdata(fname)
+            if data.shape != tuple(shape) or not np.all(np.isfinite(data)):
+                raise AssertionError(f"map: {ftype} is not a finite {shape} image")
+            hdr = fits.getheader(fname)
+        if not math.isclose(hdr["MAPLNP"], res.lnpost, rel_tol=1e-6):
+            raise AssertionError("map: MAPLNP is not the fit's lnpost")
+        for abbr in model.param_fits_abbrs:
+            if "+/-" not in str(hdr[abbr]):
+                raise AssertionError(f"map: card {abbr} = {hdr[abbr]!r} has no error")
+        # against the CPU in float64: lnpost at the MAP, the fit from the card's
+        # best start, the Laplace std, the positions against the truth
+        cpu = MultiComponentModel(path, device="cpu", dtype=torch.float64)
+        cpu_fns = cpu.posterior_fns
+        lnp64 = float(cpu_fns.log_posterior_batch(res.theta[None])[0])
+        lnp_rel = abs(res.lnpost - lnp64) / abs(lnp64)
+        order = np.argsort(np.where(np.isfinite(lnp_pool), lnp_pool, -np.inf))[::-1]
+        i_best = int(np.nanargmax(res.all_lnpost))
+        start = pool[order[:MAP_STARTS]][i_best]
+        t0 = time.perf_counter()
+        cpu_res = optimize.fit_map(cpu_fns, n_starts=1, steps=MAP_STEPS, p0=start[None],
+                                   seed=SEED)
+        cpu_fit_s = time.perf_counter() - t0
+        _, cpu_std = optimize.laplace_covariance(cpu_fns, res.theta)
+        std_rel = np.abs(res.theta_std / cpu_std - 1.0)
+        names = model.param_names
+        off = dict(zip(names, np.cumsum([0] + model.param_lens)))
+        ps = slice(off["1_PointSource_xy"], off["1_PointSource_xy"] + 2)
+        host = slice(off["2_Sersic_xy"], off["2_Sersic_xy"] + 2)
+        ps_err = np.abs(res.theta[ps] - truth[ps]).max()
+        host_err = np.abs(res.theta[host] - truth[host]).max()
+        log(f"map: lnpost {res.lnpost:.4f} on the card, {lnp64:.4f} on the CPU in "
+            f"float64 at the same theta (rel {lnp_rel:.2e}, tol {MAP_LNP_RTOL:g}); the "
+            f"CPU's float64 fit from the card's best start {cpu_res.lnpost:.4f} "
+            f"({cpu_fit_s:.1f} s; |diff| {abs(res.lnpost - cpu_res.lnpost):.4f}, tol "
+            f"{MAP_FIT_ATOL:g}); truth {float(cpu_fns.log_posterior_batch(truth[None])[0]):.4f}; "
+            f"pool's best {best_pool:.4f}")
+        log(f"map: point source {res.theta[ps]} (truth {truth[ps]}, err {ps_err:.4f} px, "
+            f"tol {MAP_PS_XY_TOL:g}); host {res.theta[host]} (truth {truth[host]}, err "
+            f"{host_err:.4f} px, tol {MAP_HOST_XY_TOL:g})")
+        log(f"map: Laplace std on the card {np.array2string(res.theta_std, precision=4)}; "
+            f"|std / std_cpu - 1| {np.array2string(std_rel, precision=4)}, max "
+            f"{np.nanmax(std_rel):.3e} (tol {LAPLACE_RTOL:g})")
+        if not (lnp_rel <= MAP_LNP_RTOL and abs(res.lnpost - cpu_res.lnpost) <= MAP_FIT_ATOL
+                and ps_err <= MAP_PS_XY_TOL and host_err <= MAP_HOST_XY_TOL
+                and np.all(np.isfinite(res.theta_std)) and np.all(std_rel <= LAPLACE_RTOL)):
+            raise AssertionError("map: the fit misses one of its bars")
+        out["map_phase_seconds"] = dict(res.phase_seconds, wall=wall)
+
+        # the Adam step, replayed and eager (not counted: timing only)
+        z0 = program.z.clone()
+        for replay in (True, False):
+            program.reset(z0)
+            step = (program.graph.replay if replay and program.graph is not None
+                    else program.step)
+            step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(STEADY):
+                step()
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3 / STEADY
+            out["adam_step_ms_" + ("graphed" if replay else "eager")] = step_ms
+            log(f"map: Adam step ({MAP_STARTS} starts), "
+                f"{'graphed' if replay else 'eager'}: {step_ms:.3f} ms")
+
+        # graphed against eager, bit for bit, with equal launches
+        runs = []
+        for eager in (False, True):
+            reset_counts(counted)
+            with optimize._eager(fns) if eager else contextlib.nullcontext():
+                r = optimize.fit_map(fns, n_starts=MAP_STARTS, steps=MAP_EQUAL_STEPS,
+                                     p0=pool, seed=SEED)
+            torch.cuda.synchronize()
+            runs.append((r, read_counts(counted)))
+        (g, g_n), (e, e_n) = runs
+        same_bits(g.all_theta, e.all_theta)
+        same_bits(g.all_lnpost, e.all_lnpost)
+        if g_n != e_n:
+            raise AssertionError(f"map: launches {g_n} graphed, {e_n} eager")
+        log(f"map: {MAP_EQUAL_STEPS} Adam steps graphed = eager bit for bit, "
+            f"launches {g_n[0]} both")
+
+        # gradients against the CPU: the batched, the general and a family path
+        grad_against_cpu(fns, model.spec, prior_draws(model.spec, GRAD_POINTS,
+                                                      seed=SEED + 7), "MAP flagship")
+        gspec = build_model_spec(general_components(shape, psf_shape))
+        grad_against_cpu(build_posterior(gspec, device=device), gspec,
+                         prior_draws_general(gspec, GRAD_POINTS), "general flagship")
+        fspec = build_model_spec(family_components(shape, psf_shape, "flagship"))
+        grad_against_cpu(build_posterior(fspec, device=device), fspec,
+                         prior_draws(fspec, GRAD_POINTS, seed=SEED + 8),
+                         "family flagship")
+
+        # model_galaxy_mcmc(init="map") on the same files
+        starts = []
+        init_state = fitting.EnsembleSampler.init_state
+        sampler_init = fitting.EnsembleSampler.__init__
+        samplers = []
+
+        def kept_start(self, p0, *a, **k):
+            starts.append(np.array(p0, np.float64))
+            return init_state(self, p0, *a, **k)
+
+        def kept_sampler(self, *a, **k):
+            sampler_init(self, *a, **k)
+            samplers.append(self)
+
+        fitting.EnsembleSampler.init_state = kept_start
+        fitting.EnsembleSampler.__init__ = kept_sampler
+        try:
+            reset_counts(counted)
+            t0 = time.perf_counter()
+            db = fitting.model_galaxy_mcmc(path, output_name=os.path.join(tmp, "mapinit"),
+                                           chains=NWALKERS, burn=BURN, iterations=SAMPLE,
+                                           seed=SEED, init="map", device=device)
+            init_wall = time.perf_counter() - t0
+            init_launches, init_routes = read_counts(counted)
+        finally:
+            fitting.EnsembleSampler.init_state = init_state
+            fitting.EnsembleSampler.__init__ = sampler_init
+        (sm,) = samplers
+        lnp0 = fns.log_posterior_batch(starts[0]).cpu().numpy()
+        chain_lnp = np.asarray(db["lnprobability"], np.float64)
+        log(f"map: init='map' fit {init_wall:.2f} s, {len(db)} rows, start lnpost "
+            f"{lnp0.min():.3f}..{lnp0.max():.3f}, {sm.graph_replays} replays, "
+            f"launches {init_launches} {init_routes}")
+        checks = {"every start in support": bool(np.all(np.isfinite(lnp0))),
+                  "a finite chain": bool(np.all(np.isfinite(chain_lnp))),
+                  "the rows": len(db) == NWALKERS * SAMPLE,
+                  "every step a replay": sm.graph_replays == (BURN + SAMPLE) * graphed}
+        if not all(checks.values()):
+            raise AssertionError(f"map: init='map' failed {checks}; chain lnpost "
+                                 f"{chain_lnp.min()}..{chain_lnp.max()}, {len(db)} rows, "
+                                 f"{sm.graph_replays} replays")
+        out["init"] = dict(init_launches, **init_routes)
+
+        # the joint MAP: band 1's conv_lnl backward on the matmul-DFT route
+        bands, jtruth = joint_map_components(joint_shapes, psf_shape, seed=SEED)
+        jm = JointModel(bands, device=device)
+        reset_counts(counted)
+        t0 = time.perf_counter()
+        jres = optimize.fit_map(jm.posterior_fns, n_starts=MAP_STARTS, steps=MAP_STEPS,
+                                seed=SEED)
+        torch.cuda.synchronize()
+        joint_wall = time.perf_counter() - t0
+        j_launches, j_routes = read_counts(counted)
+        jprog = map_program(jm.posterior_fns)
+        if graphed:
+            check_step_tally(jprog, {("render_sersics", None): 2,
+                                     ("render_sersics_backward", None): 2,
+                                     ("batched_conv_lnl", "fft"): 1,
+                                     ("batched_conv_lnl", "dft"): 1,
+                                     ("batched_conv_lnl_backward", "fft"): 1,
+                                     ("batched_conv_lnl_backward", "dft"): 1},
+                             "joint map")
+        jwant = {"batched_conv_lnl_backward:fft": MAP_STEPS + 1,
+                 "batched_conv_lnl_backward:dft": MAP_STEPS + 1}
+        jlnp_truth = float(jm.posterior_fns.log_posterior_batch(jtruth[None])[0])
+        log(f"map: joint MAP {MAP_STARTS} starts x {MAP_STEPS} steps in "
+            f"{joint_wall:.2f} s, lnpost {jres.lnpost:.3f} (truth {jlnp_truth:.3f}), "
+            f"{jprog.replays} replays, launches {j_launches} {j_routes}")
+        if not (np.isfinite(jres.lnpost) and jprog.replays == MAP_STEPS * graphed
+                and all(j_routes[k] == v for k, v in jwant.items())):
+            raise AssertionError("map: the joint MAP missed its launches or replays")
+        out["joint"] = dict(j_launches, **j_routes)
+        out["joint_wall"] = joint_wall
+    if "--profile" in sys.argv[1:]:
+        profile_adam(program, z0)
+    log(f"map: the phase took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def profile_adam(program, z0, steps=STEADY):
+    """Device time by kernel over ten replays of the captured Adam step
+    (torch.profiler): busy time, kernels per step and idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def replays():  # the captured step only, uncounted: timing
+        program.reset(z0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            program.graph.replay()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    replays()
+    unprofiled = replays()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = replays()
+    rows = []
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        rows.append((dev_us, e.count, e.key))
+    busy = sum(r[0] for r in rows) * 1e-6
+    log(f"profile: {steps} replayed Adam steps ({program.z.shape[0]} starts), "
+        f"{wall * 1e3:.3f} ms wall, device busy {busy * 1e3:.3f} ms in "
+        f"{sum(r[1] for r in rows) / steps:.0f} kernels a step, idle share "
+        f"{1.0 - busy / wall:.3f}; unprofiled {unprofiled * 1e3:.3f} ms wall, idle "
+        f"share {1.0 - busy / unprofiled:.3f}")
+    for dev_us, count, key in sorted(rows, reverse=True)[:15]:
+        log(f"profile:   {dev_us / steps / 1e3:9.4f} ms/step  {count // steps:4d} "
+            f"launches/step  {key[:90]}")
+
+
 def prior_draws_general(spec, n):
     """Prior draws with the PSF index on and beside its .5 points."""
     from psfmc_tpu_torch.flagship import prior_draws
@@ -2391,6 +2965,8 @@ def main():
     priors_launches, api_launches, priors_variant_launches, priors, stress = \
         priors_phase()
     joint_launches_, joint_variant_launches, joint_on_path, joint = joint_phase()
+    grad = map_phase()
+    rows += backward_rows(post, spec)
     from psfmc_tpu_torch.sampler import EnsembleSampler
 
     fused = EnsembleSampler(NWALKERS, spec.num_params, mc.posterior_fns,
@@ -2441,6 +3017,18 @@ def main():
     by_name["sersic_render"] += jnt["render_sersics"] + jnt_var["render_sersics"]
     by_name["sersic_render_tiled"] += jnt_var["render_sersics_tiled"]
     by_name["conv_lnl"] += jnt["batched_conv_lnl:fft"] + jnt_var["batched_conv_lnl:fft"]
+    # the gradient path (phase 12): model_galaxy_map, the init="map" fit and
+    # the joint MAP, each kernel and backward kernel on its route
+    gm, gi, gj = grad["map"], grad["init"], grad["joint"]
+    by_name["sersic_render"] += sum(g["render_sersics"] for g in (gm, gi, gj))
+    by_name["conv_lnl"] += sum(g["batched_conv_lnl:fft"] for g in (gm, gi, gj))
+    by_name["conv_lnl_dft"] += sum(g["batched_conv_lnl:dft"] for g in (gm, gi, gj))
+    by_name["sersic_render_backward"] = sum(
+        g["render_sersics_backward"] for g in (gm, gi, gj))
+    by_name["conv_lnl_backward"] = sum(
+        g["batched_conv_lnl_backward:fft"] for g in (gm, gi, gj))
+    by_name["conv_lnl_backward_dft"] = sum(
+        g["batched_conv_lnl_backward:dft"] for g in (gm, gi, gj))
     for r in rows:
         r["launches"] = by_name[r["name"]]
         if r["name"] == "conv_lnl_dft":  # timed on the joint fit's band 1 too

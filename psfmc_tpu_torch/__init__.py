@@ -11,11 +11,12 @@ host without CUDA they raise instead of falling back.  On the CPU every
 kernel wrapper uses its plain PyTorch version; on CUDA only the
 hand-written kernels in ``csrc/`` run (built with ``nvcc`` at first use).
 """
-from . import analysis, database, distributions, io, model_parser, models, ops, sampler
+from . import analysis, database, distributions, io, model_parser, models, ops, optimize, sampler
 from ._device import resolve_device
 from .database import get_sampler_state, load_database
-from .fitting import model_galaxy_mcmc
-from .models import MultiComponentModel
+from .fitting import model_galaxy_map, model_galaxy_mcmc
+from .models import MultiComponentModel, UnconstrainingTransform, build_transform
+from .optimize import MAPResult, fit_map, laplace_covariance, scatter_around
 
 __version__ = "0.1.0"
 
@@ -27,6 +28,14 @@ __all__ = [
     "database",
     "model_parser",
     "model_galaxy_mcmc",
+    "model_galaxy_map",
+    "fit_map",
+    "scatter_around",
+    "laplace_covariance",
+    "MAPResult",
+    "build_transform",
+    "UnconstrainingTransform",
+    "optimize",
     "distributions",
     "io",
     "models",

@@ -21,11 +21,18 @@ Deliberate divergences from the JAX driver:
 * the driver runs on CUDA unless ``device="cpu"`` is given.
 
 This slice runs ``sampler="ensemble"`` with ``ntemps=1``, any
-``moves`` (``"stretch"``, ``"de"`` or ``"mixed"``), ``init="prior"``,
-``criticism=False`` and ``mesh=None``; every other choice raises
-``NotImplementedError`` naming the ROADMAP item that brings it.  On
-CUDA every sampler step is a replay of a captured CUDA graph
-(:class:`~psfmc_tpu_torch.sampler.ensemble.EnsembleSampler`).
+``moves`` (``"stretch"``, ``"de"`` or ``"mixed"``), ``init="prior"`` or
+``init="map"`` (a gradient MAP fit of a pool of prior draws, then a
+z-space cloud around it), ``criticism=False`` and ``mesh=None``; every
+other choice raises ``NotImplementedError`` naming the ROADMAP item that
+brings it.  On CUDA every sampler step and every Adam step is a replay
+of a captured CUDA graph
+(:class:`~psfmc_tpu_torch.sampler.ensemble.EnsembleSampler`,
+:func:`~psfmc_tpu_torch.optimize.fit_map`).
+
+:func:`model_galaxy_map` is the quick-look MAP fit: the five image
+products of the mode, with each parameter's value (and Laplace standard
+error) in the headers.
 """
 from __future__ import annotations
 
@@ -52,7 +59,7 @@ from .models.multicomponent import as_model
 from .sampler.ensemble import EnsembleSampler
 from .utils import print_progress
 
-__all__ = ["model_galaxy_mcmc"]
+__all__ = ["model_galaxy_mcmc", "model_galaxy_map"]
 
 
 def _not_in_slice(what, item):
@@ -198,12 +205,10 @@ def model_galaxy_mcmc(
         raise ValueError(
             f"Unknown sampler {sampler!r}: expected 'ensemble' or 'nuts'")
     if sampler == "nuts":
-        _not_in_slice("sampler='nuts'", "15 (other samplers)")
+        _not_in_slice("sampler='nuts'", "19 (other samplers)")
     if ntemps != 1 or betas is not None:
         _not_in_slice("parallel tempering (ntemps > 1, betas)",
-                      "15 (other samplers)")
-    if init == "map":
-        _not_in_slice("init='map'", "15 (optimiser)")
+                      "19 (other samplers)")
     if criticism:
         _not_in_slice("criticism=True", "17 (criticism and analysis)")
     if mesh is not None:
@@ -256,7 +261,17 @@ def model_galaxy_mcmc(
 
     if database is None:
         rng = np.random.RandomState(seed)
-        p0 = mc_model.init_params_from_priors(chains, random_state=rng)
+        if init == "map":
+            from .optimize import fit_map, scatter_around
+
+            with _phase("map", fns.device, timings):
+                pool = mc_model.init_params_from_priors(max(chains, 256),
+                                                        random_state=rng)
+                map_res = fit_map(fns, p0=pool, seed=seed)
+                print(f"MAP fit: lnpost = {map_res.lnpost:.2f}")
+                p0 = scatter_around(fns, map_res.theta, chains, seed=seed)
+        else:
+            p0 = mc_model.init_params_from_priors(chains, random_state=rng)
         database = _run_sampling(ens, mc_model, p0, burn=burn,
                                  iterations=iterations, burn_total=burn,
                                  **common)
@@ -270,6 +285,86 @@ def model_galaxy_mcmc(
                                   filetypes=write_fits)
     database.phase_seconds = timings
     return database
+
+
+def model_galaxy_map(model_file, output_name=None, write_fits=default_filetypes,
+                     n_starts=64, steps=500, seed=0, laplace=True, device=None):
+    """Quick-look gradient MAP fit: best-fit model images in seconds.
+
+    A multi-start Adam ascent of the log-posterior
+    (:func:`~psfmc_tpu_torch.optimize.fit_map`, from the best of
+    ``max(4 n_starts, 128)`` prior draws) followed by the five FITS image
+    products of a full MCMC run, rendered at the mode, with ``MAPLNP``
+    and each parameter's value (``+/-`` its Laplace standard error when
+    ``laplace``) under its FITS abbreviation in the headers.  No trace
+    database is written.
+
+    :param device: the posterior's device, CUDA unless ``"cpu"``.
+    :returns: the :class:`~psfmc_tpu_torch.optimize.MAPResult`; its
+        ``phase_seconds`` attribute holds the host-clock seconds of each
+        phase (pool, fit, laplace, images), each ending in a device
+        synchronize.
+    """
+    from .analysis.images import _fits_section_header, write_image_products
+    from .database import annotate_metadata
+    from .io import fits
+    from .optimize import fit_map, laplace_covariance
+
+    if output_name is None:
+        name = model_file if isinstance(model_file, str) else "model"
+        output_name = "out_" + os.path.basename(name).replace(".py", "")
+    if "{}" not in output_name:
+        output_name += "_{}"
+
+    mc_model = as_model(model_file, device=device)
+    fns = mc_model.posterior_fns
+    if hasattr(fns, "band_fns"):
+        raise NotImplementedError(
+            "model_galaxy_map's quick-look image products are single-band; "
+            "for joint models run psfmc_tpu_torch.fit_map on "
+            "model.posterior_fns directly and render per band with "
+            "posterior_fns.render_images")
+    timings = OrderedDict()
+    with _phase("pool", fns.device, timings):
+        rng = np.random.RandomState(seed)
+        pool = mc_model.init_params_from_priors(max(4 * n_starts, 128),
+                                                random_state=rng)
+    with _phase("fit", fns.device, timings):
+        res = fit_map(fns, n_starts=n_starts, steps=steps, seed=seed, p0=pool)
+    if laplace:
+        with _phase("laplace", fns.device, timings):
+            res.cov, res.theta_std = laplace_covariance(fns, res.theta)
+    print(f"MAP fit: lnpost = {res.lnpost:.2f}")
+
+    with _phase("images", fns.device, timings):
+        header = (mc_model.obs_header.copy() if mc_model.obs_header
+                  else fits.Header())
+        header.extend(_fits_section_header("psfMC MAP FIT PARAMETERS"))
+        stats = OrderedDict()
+        stats["MAPLNP"] = float(res.lnpost)
+        pos = 0
+        for ln, abbr in zip(mc_model.param_lens, mc_model.param_fits_abbrs):
+            val = res.theta[pos:pos + ln]
+            std = (res.theta_std[pos:pos + ln] if res.theta_std is not None
+                   else np.full(ln, np.nan))
+            if ln == 1:
+                text = f"{val[0]:0.4g}"
+                if np.isfinite(std[0]):
+                    text += f" +/- {std[0]:0.4g}"
+            else:
+                text = "(" + ",".join(f"{v:0.4g}" for v in val) + ")"
+                if np.all(np.isfinite(std)):
+                    text += " +/- (" + ",".join(f"{v:0.4g}" for v in std) + ")"
+            stats[abbr] = text
+            pos += ln
+        for key, value in annotate_metadata(stats).items():
+            header.set(key, value[0], value[1])
+        imgs = mc_model.render_images_batch(res.theta[None, :])
+        print("Saving MAP models")
+        write_image_products(output_name, {k: v[0] for k, v in imgs.items()},
+                             header, write_fits)
+    res.phase_seconds = timings
+    return res
 
 
 def _save_joint_images(mc_model, sampler, db_name, database, output_name,

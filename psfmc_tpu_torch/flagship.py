@@ -36,6 +36,13 @@ chi-square's Poisson mixture, a table, per-element tables of a vector
 hyperparameter, a discrete family) and a general-path model with two
 PSF stars and a ``LogNormal`` ``NoiseScale``.
 
+The MAP flagship (:func:`map_truth`, :func:`write_map_files`,
+:func:`joint_map_components`) is the flagship (and the joint flagship)
+with an observation simulated from a truth inside the priors
+(``simulate`` on the CPU in float64, seed 0, the flagship's noise of
+0.005 around a 0.01 sky): the flagship's own observation is pure noise,
+on which a MAP fit has nothing to find.
+
 The joint flagship (:func:`joint_components`, :func:`write_joint_files`)
 is a two-band quasar/host decomposition: band 0 is the flagship with a
 TAN WCS at 0.03"/px; band 1 a 96x96 observation with its own PSF star,
@@ -64,7 +71,7 @@ __all__ = ["flagship_arrays", "flagship_components", "write_flagship_files",
            "write_family_files", "PRIORS_VARIANTS", "priors_components",
            "write_priors_files", "JOINT_VARIANTS", "joint_headers",
            "joint_components", "write_joint_files", "enforce_axis_order",
-           "prior_draws"]
+           "prior_draws", "map_truth", "write_map_files", "joint_map_components"]
 
 MAG_ZP = 25.9463
 TOTAL_MAG = 20.66
@@ -810,3 +817,72 @@ def prior_draws(spec, nwalkers, seed=0):
         for s in spec.slots
     ]
     return enforce_axis_order(np.concatenate(cols, axis=1), spec)
+
+
+def _map_values(shape):
+    """The MAP flagship's truth by parameter name (the flagship's and the
+    joint flagship's component numbering), inside every prior: the point
+    source and the host a little off the centre, the blob off its prior's
+    centre, each Sersic elongated."""
+    a = _prior_args(shape)
+    c, blob = a["center"], a["blob_center"]
+    return {
+        "0_Sky_adu": [0.01],
+        "1_PointSource_mag": [TOTAL_MAG + 0.4], "1_PointSource_xy": c + (0.3, -0.2),
+        "2_Sersic_angle": [60.0], "2_Sersic_index": [2.5], "2_Sersic_mag": [21.6],
+        "2_Sersic_reff": [5.0], "2_Sersic_reff_b": [3.2], "2_Sersic_xy": c + (-0.4, 0.5),
+        "3_Sersic_angle": [130.0], "3_Sersic_index": [1.2], "3_Sersic_mag": [24.3],
+        "3_Sersic_reff": [3.5], "3_Sersic_reff_b": [2.4], "3_Sersic_xy": blob + (1.0, -1.5),
+        # band 1 of the joint flagship: its sky, magnitudes and angles
+        "5_Sky_adu": [0.012], "6_PointSource_mag": [TOTAL_MAG + 0.6],
+        "7_Sersic_angle": [80.0], "7_Sersic_mag": [21.9],
+        "8_Sersic_angle": [110.0], "8_Sersic_mag": [24.6],
+    }
+
+
+def map_truth(param_names, shape):
+    """The MAP flagship's truth as a vector in the layout of
+    ``param_names`` (a single-band or a joint flagship's); ``shape`` is
+    band 0's."""
+    values = _map_values(shape)
+    return np.concatenate([np.asarray(values[n], np.float64) for n in param_names])
+
+
+def write_map_files(directory, shape=(128, 128), psf_shape=(64, 64), seed=0):
+    """Write the MAP flagship's inputs to ``directory``: the flagship's
+    files (:func:`write_flagship_files`) with ``sci.fits`` replaced by the
+    model's simulation at :func:`map_truth` (the convolved model plus the
+    observation's noise, seed ``seed``, through the model file itself, so
+    that its mask is the fit's).  Returns ``(model file path, truth)``."""
+    import torch
+
+    from .io import fits
+    from .models import MultiComponentModel
+
+    path = write_flagship_files(directory, shape, psf_shape, seed)
+    model = MultiComponentModel(path, device="cpu", dtype=torch.float64)
+    truth = map_truth(model.param_names, shape)
+    mock, _ = model.simulate(theta=truth, random_state=seed)
+    fits.writeto(os.path.join(directory, "sci.fits"), mock, overwrite=True)
+    return path, truth
+
+
+def joint_map_components(shapes=JOINT_SHAPES, psf_shape=(64, 64), seed=0):
+    """The joint flagship's bands with each observation simulated at
+    :func:`map_truth` (``JointModel.simulate`` on the CPU in float64, seed
+    ``seed``), each band keeping its WCS.  Returns ``(bands, truth)``."""
+    import torch
+
+    from .models import JointModel
+
+    model = JointModel(joint_components(shapes, psf_shape, seed=seed), device="cpu",
+                       dtype=torch.float64)
+    truth = map_truth(model.param_names, shapes[0])
+    mocks, _ = model.simulate(theta=truth, random_state=seed)
+    bands = joint_components(shapes, psf_shape, seed=seed)
+    arrays = _joint_arrays(shapes, psf_shape, 1, seed)
+    for band, mock, hdr, a in zip(bands, mocks, joint_headers(shapes), arrays):
+        band[0] = Configuration(obs_file=(hdr, mock), obsivm_file=a["ivm"],
+                                psf_files=a["psfs"], psfivm_files=a["psf_ivms"],
+                                mag_zeropoint=MAG_ZP)
+    return bands, truth

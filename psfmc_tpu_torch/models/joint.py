@@ -58,7 +58,7 @@ from .multicomponent import (
     replicate_noise,
     trace_param_matrix,
 )
-from .posterior import LogPrior, PosteriorFns
+from .posterior import LogPrior, PosteriorFns, value_and_grad
 from .spec import (
     ModelSpec,
     _check_poisson_inputs,
@@ -259,6 +259,20 @@ class JointPosteriorFns(nn.Module):
                            self.log_likelihood_batch(thetas))
 
     forward = log_posterior_batch
+
+    def differentiable_log_posterior(self, thetas):
+        """lnpost per walker with every band on its gradient's path (its
+        own: the batched kernels where they cover the band, else the
+        general path), differentiable in ``thetas``."""
+        lnl = thetas.new_zeros(thetas.shape[0])
+        for f in self.band_fns:
+            lnl = lnl + f._log_likelihood(thetas, f.grad_mode)
+        return self._joint(self.prior(thetas), lnl)
+
+    def log_posterior_and_grad(self, thetas):
+        """``(lnpost (B,), dlnpost/dtheta (B, num_params))`` per walker."""
+        return value_and_grad(self.differentiable_log_posterior,
+                              self.as_thetas(thetas))
 
     def images_batch(self, thetas):
         """Every band's four carry images per walker, ``b{i}_<carry>``."""

@@ -94,7 +94,7 @@ from ..ops.sersic import render_sersic_gen, sersic_profile_core, sersic_scalar_p
 from .spec import BASE_PARAMS, ROT_PARAMS, SHAPE_PARAMS, TRUNC_PARAMS, ModelSpec, check_in_slice
 
 __all__ = ["LogPrior", "PosteriorFns", "build_posterior", "lnpost_mode",
-           "LNPOST_MODES"]
+           "LNPOST_MODES", "value_and_grad"]
 
 LNPOST_MODES = ("batched", "fused", "general")
 # PSFMC_LNPOST values of the JAX package that name a kernel path; every
@@ -336,13 +336,16 @@ class PosteriorFns(nn.Module):
         buffer("x_centered", np.arange(w, dtype=np_dtype) - np_dtype((w - 1) / 2.0))
         buffer("y_centered", (np.arange(h, dtype=np_dtype)
                               - np_dtype((h - 1) / 2.0))[:, None])
+        # the gradient's path: the kernels' where they cover the spec,
+        # whatever ``lnpost`` says (the JAX gradient runs its XLA path)
+        self.grad_mode = "batched" if batched_lnl_supported(spec)[0] else "general"
         if self.lnpost == "general":
             # (num_psfs, 3, Hr, Wr//2+1): the PSF, its variance and the PSF
             # again (the point sources' convolution), stacked for one FFT
             cdtype = torch.complex64 if dtype == torch.float32 else torch.complex128
             f_psf, f_var = np.asarray(spec.f_psf_stack), np.asarray(spec.f_var_stack)
             buffer("f_stack", np.stack([f_psf, f_var, f_psf], axis=1), cdtype)
-        else:
+        if self.lnpost != "general" or self.grad_mode == "batched":
             consts = make_conv_lnl_consts(
                 spec.f_psf_stack[0], spec.f_var_stack[0], spec.obs_data,
                 spec.obs_var, ~np.asarray(spec.bad_px, bool), device, dtype,
@@ -604,12 +607,14 @@ class PosteriorFns(nn.Module):
         """lnL per walker on this posterior's path: the render and
         conv+lnL kernels (``batched``), the fused kernel, or the general
         path's images and likelihood family."""
-        thetas = self.as_thetas(thetas)
-        if self.lnpost == "fused":
+        return self._log_likelihood(self.as_thetas(thetas), self.lnpost)
+
+    def _log_likelihood(self, thetas, mode):
+        if mode == "fused":
             params, sky = self.render_inputs(thetas)
             fky, kx = self.pointsource_inputs(thetas)
             return fused_lnl(params, sky, fky, kx, self.consts)
-        if self.lnpost == "batched":
+        if mode == "batched":
             raw, _ = self.raw_and_ps(thetas)
             return batched_conv_lnl(raw, self.consts)
         imgs = self._images(thetas, with_ps=False)
@@ -618,14 +623,28 @@ class PosteriorFns(nn.Module):
 
     def log_posterior_batch(self, thetas):
         """lnpost per walker: prior, then :meth:`log_likelihood_batch`."""
-        thetas = self.as_thetas(thetas)
-        lp = self.log_prior_batch(thetas)
-        lnl = self.log_likelihood_batch(thetas)
-        return torch.where(
-            torch.isfinite(lp), lnl + lp, torch.full_like(lp, -math.inf)
-        )
+        return self._log_posterior(self.as_thetas(thetas), self.lnpost)
 
     forward = log_posterior_batch
+
+    def differentiable_log_posterior(self, thetas):
+        """lnpost per walker on the gradient's path (``grad_mode``: the
+        render and conv+lnL kernels where they cover the spec, else the
+        general path, whatever ``lnpost`` is), differentiable in
+        ``thetas`` through the kernels' backward kernels."""
+        return self._log_posterior(thetas, self.grad_mode)
+
+    def _log_posterior(self, thetas, mode):
+        lp = self.prior(thetas)
+        lnl = self._log_likelihood(thetas, mode)
+        return torch.where(torch.isfinite(lp), lnl + lp, torch.full_like(lp, -math.inf))
+
+    def log_posterior_and_grad(self, thetas):
+        """``(lnpost (B,), dlnpost/dtheta (B, num_params))`` per walker:
+        the batched counterpart of the JAX package's
+        ``jax.vmap(jax.value_and_grad(fns.log_posterior))``."""
+        return value_and_grad(self.differentiable_log_posterior,
+                              self.as_thetas(thetas))
 
     def _convolve3(self, raw, sq, ps):
         c = self.consts
@@ -760,6 +779,17 @@ class PosteriorFns(nn.Module):
             "ps_conv": ps_conv,
             "raw_m2": ((raws - mean_raw) ** 2).sum(dim=0),
         }
+
+
+def value_and_grad(fn, thetas):
+    """``(fn(thetas), d sum(fn(thetas)) / d thetas)`` for a batched
+    ``fn`` whose walkers do not interact: each row of the gradient is
+    that walker's own."""
+    thetas = thetas.detach().requires_grad_(True)
+    with torch.enable_grad():
+        value = fn(thetas)
+        (grad,) = torch.autograd.grad(value.sum(), thetas)
+    return value.detach(), grad
 
 
 def build_posterior(spec: ModelSpec, device=None, dtype=torch.float32,

@@ -8,6 +8,16 @@ The Sersic constant ``kappa = gammaincinv(2n, 1/2)`` (Ciotti & Bertin
   [log 0.01, log 200], Catmull-Rom interpolated in torch;
 * :func:`gammaincinv_half` — log-space Newton on ``P(a, e^t) = 1/2``
   from the Wilson-Hilferty / small-``a`` initializers.
+
+The table differentiates as it is.  The Newton solve goes through
+``torch.special.gammainc``, which has no derivative in its first
+argument, so its gradient is the implicit one at the converged root,
+``dx/da = -(dP/da) / (dP/dx)``, with ``dP/dx = x^(a-1) e^-x / Gamma(a)``
+and ``dP/da`` in float64 from the series ``P = sum_k t_k``, ``t_k =
+x^(a+k) e^-x / Gamma(a+k+1)``: ``dP/da = sum_k t_k (log x - psi(a+k+1))``
+(a fixed number of terms, so it runs inside a captured graph).  The JAX
+package differentiates its unrolled Newton iterations, which converge to
+the same derivative.
 """
 from __future__ import annotations
 
@@ -25,10 +35,43 @@ _TABLE_RANGE = (0.01, 200.0)
 
 
 def gammaincinv_half(a, iters=_NEWTON_ITERS):
-    """Solve ``gammainc(a, x) == 0.5`` for ``x`` (elementwise, any device)."""
+    """Solve ``gammainc(a, x) == 0.5`` for ``x`` (elementwise, any device);
+    differentiable in ``a`` by the implicit derivative (see module doc)."""
     a = torch.as_tensor(a)
     if not a.is_floating_point():
         a = a.to(torch.get_default_dtype())
+    if torch.is_grad_enabled() and a.requires_grad:
+        return _NewtonKappa.apply(a, iters)
+    return _newton(a, iters)
+
+
+# terms of the dP/da series: enough for a up to 400 (index 200)
+_SERIES_TERMS = 400
+
+
+class _NewtonKappa(torch.autograd.Function):
+    """The Newton root with its implicit derivative in ``a``."""
+
+    @staticmethod
+    def forward(ctx, a, iters):
+        x = _newton(a, iters)
+        ctx.save_for_backward(a, x)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, x = ctx.saved_tensors
+        a64, x64 = a.double(), x.double()
+        dp_dx = torch.exp((a64 - 1.0) * torch.log(x64) - x64 - torch.lgamma(a64))
+        ak = a64[..., None] + torch.arange(_SERIES_TERMS, dtype=torch.float64,
+                                           device=a.device)
+        log_x = torch.log(x64)[..., None]
+        log_t = ak * log_x - x64[..., None] - torch.lgamma(ak + 1.0)
+        dp_da = (torch.exp(log_t) * (log_x - torch.digamma(ak + 1.0))).sum(-1)
+        return grad * (-dp_da / dp_dx).to(grad.dtype), None
+
+
+def _newton(a, iters):
     a_safe = torch.clamp(a, min=1e-6)
     # Wilson-Hilferty median approximation (good for a >~ 0.6)
     wh = a_safe * (1.0 - 1.0 / (9.0 * a_safe)) ** 3

@@ -34,7 +34,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
 _CSRC = os.path.join(_PKG_DIR, "csrc")
 _BUILD = os.path.join(_PKG_DIR, "_build")
 
-SOURCES = ("sersic_render", "conv_lnl", "fused_lnl")
+SOURCES = ("sersic_render", "conv_lnl", "fused_lnl", "sersic_render_backward",
+           "conv_lnl_backward")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -31,6 +31,24 @@ true fp32 is the contract.
 On CPU tensors :func:`batched_conv_lnl` returns the plain version
 (:func:`batched_conv_lnl_plain`, the version of record that both routes
 are held to); on CUDA tensors it launches the kernel or raises.
+
+The gradient: when the raw images require it, :func:`batched_conv_lnl`
+goes through a ``torch.autograd.Function`` whose backward maps ``dlnL
+(B,)`` to ``dlnL/draw (B, H, W)`` (:func:`batched_conv_lnl_backward`).
+With ``r = obs - conv`` and ``ivm = 1 / (mvar + obs_var)``::
+
+    a = good r ivm,   c = good (r^2 ivm^2 - ivm) / 2,
+    dlnL/draw = dlnL_b [a (x) psf + 2 raw (c (x) var)]
+
+where ``(x)`` is the adjoint of the forward convolution (a correlation:
+the conjugate spectrum, the shift undone); a walker whose lnL is not
+finite gets a zero gradient.  On CUDA the hand-written kernels of
+``csrc/conv_lnl_backward.cu`` on the route the shape takes (the FFT
+route: one launch that recomputes the pair and runs the packed pair ``a
++ i s c`` through the same in-shared-memory FFT with the conjugate
+spectra; the matmul-DFT route: the transposed GEMMs), on the CPU
+:func:`batched_conv_lnl_backward_plain`.  :func:`packed_fft_conv_backward_plain`
+is the FFT route's scheme in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -58,6 +76,10 @@ __all__ = [
     "fft_stages_plain",
     "bit_reversed",
     "packed_fft_conv_plain",
+    "batched_conv_lnl_backward",
+    "batched_conv_lnl_backward_plain",
+    "packed_fft_conv_backward_plain",
+    "convolve_rdft_adjoint",
 ]
 
 # Shared memory a block may use on Hopper.
@@ -139,7 +161,9 @@ class ConvLnlConsts:
     -ish], [ish, ich]]``; and the FFT route's twiddle table
     (:func:`fft_twiddles` of ``max(H, W)``; empty unless both sizes are
     powers of two) and its gain on the variance spectrum
-    (:func:`var_spectrum_gain`).
+    (:func:`var_spectrum_gain`).  The backward kernels also read the
+    conjugate spectra's imaginary planes (``psf_ic = -psf_i``, ``var_ic =
+    -var_i``) and the transposed operators (``*_t``).
     """
 
     cw: torch.Tensor
@@ -162,6 +186,16 @@ class ConvLnlConsts:
     good_f: torch.Tensor  # good as {0, 1} in the working dtype
     twiddle: torch.Tensor  # (max(H, W) / 2, 2), or (0, 2)
     var_gain: torch.Tensor  # (1,): a power of two, see var_spectrum_gain
+    # the backward's: the conjugate spectra's imaginary planes and the
+    # transposed operators, each contiguous
+    psf_ic: torch.Tensor
+    var_ic: torch.Tensor
+    ica_t: torch.Tensor
+    isa_t: torch.Tensor
+    li_t: torch.Tensor
+    lf_t: torch.Tensor
+    cw_t: torch.Tensor
+    sw_t: torch.Tensor
 
     @property
     def mats(self):
@@ -201,6 +235,8 @@ def make_conv_lnl_consts(f_psf, f_var, obs, obs_var, good, device,
         obs=obs, obs_var=np.asarray(obs_var), lf=lf, li=li,
         good_f=good.astype(np_dtype), twiddle=twiddle,
         var_gain=np.array([var_spectrum_gain(f_psf, f_var)]),
+        psf_ic=-f_psf.imag, var_ic=-f_var.imag, ica_t=ica.T, isa_t=isa.T,
+        li_t=li.T, lf_t=lf.T, cw_t=cw.T, sw_t=sw.T,
     )
     tensors = {
         k: torch.as_tensor(np.ascontiguousarray(v, np_dtype), device=device)
@@ -324,12 +360,9 @@ def packed_fft_conv_plain(raws, consts: ConvLnlConsts):
     """
     c = consts
     h, w = c.shape
-    peak = torch.nan_to_num(raws.abs(), nan=0.0, posinf=float("inf"))
-    peak = peak.amax(dim=(-2, -1))
-    usable = torch.isfinite(peak) & (peak > 0)
-    exponent = torch.frexp(torch.where(usable, peak, torch.ones_like(peak)))[1] - 1
+    exponent, _ = _peak_exponent(raws)
     exponent = exponent.clamp(-_MAX_SCALE_EXP, _MAX_SCALE_EXP)
-    one = torch.ones_like(peak)
+    one = torch.ones_like(raws[..., 0, 0])
     s = torch.ldexp(one, -exponent)[..., None, None]
     inv_s = torch.ldexp(one, exponent)[..., None, None]
     z = torch.fft.fft2(torch.complex(raws, (raws * raws) * s))
@@ -435,6 +468,12 @@ def batched_conv_lnl(raws, consts: ConvLnlConsts):
             f"raws must be (B, {consts.shape[0]}, {consts.shape[1]}), "
             f"got {tuple(raws.shape)}"
         )
+    if torch.is_grad_enabled() and raws.requires_grad:
+        return _ConvLnl.apply(raws, consts)
+    return _forward(raws, consts)
+
+
+def _forward(raws, consts):
     if raws.device.type == "cpu":
         return batched_conv_lnl_plain(raws, consts)
     if raws.device.type != "cuda":
@@ -447,3 +486,189 @@ def batched_conv_lnl(raws, consts: ConvLnlConsts):
 
 batched_conv_lnl.launches = 0
 batched_conv_lnl.route_launches = {"fft": 0, "dft": 0}
+
+
+class _ConvLnl(torch.autograd.Function):
+    """conv_lnl with its vector-Jacobian product: the forward is the
+    wrapper's own launch, the backward :func:`batched_conv_lnl_backward`."""
+
+    @staticmethod
+    def forward(ctx, raws, consts):
+        lnl = _forward(raws, consts)
+        ctx.consts = consts
+        ctx.save_for_backward(raws, lnl)
+        return lnl
+
+    @staticmethod
+    def backward(ctx, grad):
+        raws, lnl = ctx.saved_tensors
+        return batched_conv_lnl_backward(raws, ctx.consts, lnl, grad), None
+
+
+def convolve_rdft_adjoint(img, kernel_r, kernel_i, mats):
+    """The adjoint of :func:`~psfmc_tpu_torch.ops.fourier.convolve_rdft`:
+    its twelve products transposed and taken in reverse order, with the
+    conjugate spectrum (a circular correlation whose shift undoes the
+    forward's ifftshift)."""
+    cw, sw, ch, sh, ich, ish, ica, isa = mats
+    s4r = img @ ica.T
+    s4i = -(img @ isa.T)
+    s3r = ich.T @ s4r + ish.T @ s4i
+    s3i = ich.T @ s4i - ish.T @ s4r
+    s2r = s3r * kernel_r + s3i * kernel_i
+    s2i = s3i * kernel_r - s3r * kernel_i
+    s1r = ch.T @ s2r - sh.T @ s2i
+    s1i = sh.T @ s2r + ch.T @ s2i
+    return s1r @ cw.T - s1i @ sw.T
+
+
+def _adjoint_weights(conv, mvar, consts: ConvLnlConsts):
+    """``(a, c)``: dlnL/dconv and dlnL/dmvar per pixel, 0 at bad pixels."""
+    c = consts
+    ivm = 1.0 / (mvar + c.obs_var)
+    resid = c.obs - conv
+    zero = torch.zeros_like(resid)
+    a = torch.where(c.good, resid * ivm, zero)
+    cc = torch.where(c.good, 0.5 * (resid * resid * ivm * ivm - ivm), zero)
+    return a, cc
+
+
+def _combine(raws, ga, gc, lnl, grad):
+    out = grad[:, None, None] * (ga + 2.0 * raws * gc)
+    return torch.where(torch.isfinite(lnl)[:, None, None], out, torch.zeros_like(out))
+
+
+def batched_conv_lnl_backward_plain(raws, consts: ConvLnlConsts, lnl, grad):
+    """Plain PyTorch version of the backward (the version of record):
+    ``grad_b [a (x) psf + 2 raw (c (x) var)]``, 0 for a walker whose
+    ``lnl`` is not finite (see the module doc)."""
+    c = consts
+    conv = convolve_rdft(raws, c.psf_r, c.psf_i, c.mats)
+    mvar = convolve_rdft(raws * raws, c.var_r, c.var_i, c.mats)
+    a, cc = _adjoint_weights(conv, mvar, c)
+    ga = convolve_rdft_adjoint(a, c.psf_r, c.psf_i, c.mats)
+    gc = convolve_rdft_adjoint(cc, c.var_r, c.var_i, c.mats)
+    return _combine(raws, ga, gc, lnl, grad)
+
+
+def _peak_exponent(images):
+    """``(floor(log2 max|image|), usable)`` per image of ``(..., H, W)``:
+    NaNs do not count towards the max, and where the max is 0 or not
+    finite the exponent is 0 and ``usable`` False."""
+    peak = torch.nan_to_num(images.abs(), nan=0.0, posinf=float("inf"))
+    peak = peak.amax(dim=(-2, -1))
+    usable = torch.isfinite(peak) & (peak > 0)
+    exponent = torch.frexp(torch.where(usable, peak, torch.ones_like(peak)))[1] - 1
+    return exponent, usable
+
+
+def packed_fft_conv_backward_plain(raws, consts: ConvLnlConsts, lnl, grad):
+    """The FFT route's backward scheme in plain PyTorch.
+
+    Recompute ``(conv, mvar)`` by :func:`packed_fft_conv_plain`; form
+    ``a`` and ``c``; pack ``z = a + i s c`` at the shifted positions (the
+    forward's readout shift undone), with the power of two ``s =
+    2^(e_a - e_c)`` (``e`` the exponents of each part's peak, 1 where
+    either peak is 0 or not finite, within ``2^±96``) that gives both
+    parts one scale; one ``fft2``; the Hermitian split; ``Y = A conj
+    Kpsf + i B (g conj Kvar)``; one ``ifft2``; ``a (x) psf`` is the real
+    part and ``c (x) var`` the imaginary part over ``s g``.
+    """
+    c = consts
+    h, w = c.shape
+    conv, mvar = packed_fft_conv_plain(raws, c)
+    a, cc = _adjoint_weights(conv, mvar, c)
+    ea, oka = _peak_exponent(a)
+    ec, okc = _peak_exponent(cc)
+    exponent = torch.where(oka & okc, ea - ec, torch.zeros_like(ea))
+    exponent = exponent.clamp(-_MAX_SCALE_EXP, _MAX_SCALE_EXP)
+    one = torch.ones_like(lnl)
+    s = torch.ldexp(one, exponent)[:, None, None]
+    inv_s = torch.ldexp(one, -exponent)[:, None, None]
+    z = torch.roll(torch.complex(a, cc * s), shifts=(h // 2, w // 2), dims=(-2, -1))
+    z = torch.fft.fft2(z)
+    zm = _mirrored(z).conj()
+    za = 0.5 * (z + zm)
+    zb = -0.5j * (z - zm)
+    y = za * _full_spectrum(c.psf_r, c.psf_i, w).conj() \
+        + 1j * zb * (_full_spectrum(c.var_r, c.var_i, w).conj() * c.var_gain)
+    y = torch.fft.ifft2(y)
+    return _combine(raws, y.real, y.imag * (inv_s / c.var_gain), lnl, grad)
+
+
+@functools.lru_cache(maxsize=1)
+def _fft_backward_kernel():
+    return _build.function(
+        "conv_lnl_backward", "conv_lnl_fft_backward_launch",
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_void_p] * (len(FFT_BACKWARD_CONST_ARGS) + 4),
+    )
+
+
+@functools.lru_cache(maxsize=1)
+def _dft_backward_kernel():
+    return _build.function(
+        "conv_lnl_backward", "conv_lnl_dft_backward_launch",
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_void_p] * (len(DFT_BACKWARD_CONST_ARGS) + 9),
+    )
+
+
+# conv_lnl_fft_backward_launch(raws, batch, h, w, <these>, lnl, grad, out,
+# stream): the forward pair's spectra, then the conjugates'
+FFT_BACKWARD_CONST_ARGS = ("twiddle", "var_gain", "psf_r", "psf_i", "var_r",
+                           "var_i", "psf_ic", "var_ic", "obs", "obs_var",
+                           "good_f")
+# conv_lnl_dft_backward_launch(raws, batch, h, w, <these>, lnl, grad, t1,
+# t2, conv, mvar, ga, gc, out, stream): the forward's operators, the
+# adjoint's (the transposes, in the order the adjoint applies them)
+DFT_BACKWARD_CONST_ARGS = ("cw", "sw", "lf", "li", "ica", "isa", "ica_t",
+                           "isa_t", "li_t", "lf_t", "cw_t", "sw_t", "psf_r",
+                           "psf_i", "var_r", "var_i", "psf_ic", "var_ic",
+                           "obs", "obs_var", "good_f")
+
+
+def _launch_backward(raws, consts: ConvLnlConsts, lnl, grad, route):
+    if raws.dtype != torch.float32 or grad.dtype != torch.float32:
+        raise TypeError("the CUDA conv_lnl backward takes float32")
+    check_launch_consts(consts, raws.device)
+    raws, lnl, grad = raws.contiguous(), lnl.contiguous(), grad.contiguous()
+    b, h, w = raws.shape
+    dev = raws.device
+    out = torch.empty_like(raws)
+    if route == "fft":
+        fn, names, scratch = _fft_backward_kernel(), FFT_BACKWARD_CONST_ARGS, []
+    else:
+        t1 = torch.empty((b, 2, h, w // 2 + 1), dtype=torch.float32, device=dev)
+        scratch = [t1, torch.empty_like(t1)] + [torch.empty_like(raws)
+                                               for _ in range(4)]
+        fn, names = _dft_backward_kernel(), DFT_BACKWARD_CONST_ARGS
+    tensors = [getattr(consts, n) for n in names] + [lnl, grad] + scratch + [out]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(raws.data_ptr(), b, h, w, *(t.data_ptr() for t in tensors), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"conv_lnl backward ({route} route) launch failed: cudaError {err}")
+    return out
+
+
+def batched_conv_lnl_backward(raws, consts: ConvLnlConsts, lnl, grad):
+    """``dlnL/draw (B, H, W)`` of :func:`batched_conv_lnl` at ``raws``
+    (whose lnL was ``lnl``) for the output gradient ``grad (B,)``.  On
+    CUDA the backward kernel of the route :func:`conv_route` picks
+    (counted in ``batched_conv_lnl_backward.launches`` and
+    ``.route_launches``), on the CPU
+    :func:`batched_conv_lnl_backward_plain`."""
+    if raws.device.type == "cpu":
+        return batched_conv_lnl_backward_plain(raws, consts, lnl, grad)
+    if raws.device.type != "cuda":
+        raise ValueError(f"unsupported device {raws.device}")
+    route = conv_route(consts.shape)
+    out = _launch_backward(raws, consts, lnl, grad, route)
+    counts.count(batched_conv_lnl_backward, route)
+    return out
+
+
+batched_conv_lnl_backward.launches = 0
+batched_conv_lnl_backward.route_launches = {"fft": 0, "dft": 0}

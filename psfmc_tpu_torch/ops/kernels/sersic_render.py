@@ -18,6 +18,14 @@ as a launch parameter.
 On CPU tensors the wrappers return the plain version; on CUDA tensors
 they launch the kernel or raise.  Point sources are not rendered here:
 they are rank-1 outer products added in torch, as in the JAX path.
+
+The gradient: when the packed rows or the sky require it, both wrappers
+go through a ``torch.autograd.Function`` whose backward maps the image
+gradient ``G (B, H, W)`` to the rows' ``(B, S, 9)`` and the sky's
+``(B,)`` (:func:`render_sersics_backward`): on CUDA the hand-written
+kernel of ``csrc/sersic_render_backward.cu``, on the CPU
+:func:`render_sersics_backward_plain`, the same function written out as
+formulas.  The forward launch is the same either way.
 """
 from __future__ import annotations
 
@@ -37,6 +45,9 @@ __all__ = [
     "render_sersics_tiled",
     "render_sersics_plain",
     "render_sersics_runs_plain",
+    "render_sersics_backward",
+    "render_sersics_backward_plain",
+    "backward_strips",
     "launch_geometry",
     "pick_tile",
 ]
@@ -186,7 +197,7 @@ def _launch(params, sky, shape, walkers_per_block, geometry=None):
     return out
 
 
-def _dispatch(params, sky, shape, walkers_per_block, counter_owner):
+def _forward(params, sky, shape, walkers_per_block, counter_owner):
     if params.device.type == "cpu":
         return render_sersics_plain(params, sky, shape)
     if params.device.type != "cuda":
@@ -194,6 +205,29 @@ def _dispatch(params, sky, shape, walkers_per_block, counter_owner):
     out = _launch(params, sky, shape, walkers_per_block)
     counts.count(counter_owner)
     return out
+
+
+class _Render(torch.autograd.Function):
+    """The render with its vector-Jacobian product: the forward is the
+    wrapper's own launch, the backward :func:`render_sersics_backward`."""
+
+    @staticmethod
+    def forward(ctx, params, sky, shape, walkers_per_block, counter_owner):
+        ctx.shape = shape
+        ctx.save_for_backward(params, sky)
+        return _forward(params, sky, shape, walkers_per_block, counter_owner)
+
+    @staticmethod
+    def backward(ctx, grad):
+        params, sky = ctx.saved_tensors
+        g_params, g_sky = render_sersics_backward(params, sky, ctx.shape, grad)
+        return g_params, g_sky, None, None, None
+
+
+def _dispatch(params, sky, shape, walkers_per_block, counter_owner):
+    if torch.is_grad_enabled() and (params.requires_grad or sky.requires_grad):
+        return _Render.apply(params, sky, shape, walkers_per_block, counter_owner)
+    return _forward(params, sky, shape, walkers_per_block, counter_owner)
 
 
 def render_sersics(params, sky, shape):
@@ -217,3 +251,128 @@ def render_sersics_tiled(params, sky, shape, tile=None):
 
 render_sersics.launches = 0
 render_sersics_tiled.launches = 0
+
+
+def render_sersics_backward_plain(params, sky, shape, grad):
+    """The render's vector-Jacobian product in plain PyTorch: ``(g_params
+    (B, S, 9), g_sky (B,))`` for the image gradient ``grad (B, H, W)``.
+
+    ``g_sky[b] = sum_p G[b, p]`` and ``g_params[b, s, k] = sum_p G[b, p]
+    dI_s(p)/dq_k`` through :func:`~psfmc_tpu_torch.ops.sersic.
+    sersic_profile_core` as written, with ``p = (r^2)^rp``, ``sb =
+    exp(-kappa (p - 1))`` and ``corr = 1 + (kappa rp p)^2 / (3 off^2)``.
+    The two clamps (square radius at 1e-30, square offset at 0.125) have
+    zero slope below their floors and at a NaN, as autograd gives them.
+    """
+    xg, yg = coord_grids(shape, params.dtype, params.device)
+    g_sky = grad.sum(dim=(-2, -1))
+    rows = []
+    for s in range(params.shape[1]):
+        x, y, m00, m01, m10, m11, kappa, rp, sbeff = (
+            params[:, s, k, None, None] for k in range(PARAMS_PER_SERSIC))
+        dx, dy = xg - x, yg - y
+        u = m00 * dx + m01 * dy
+        v = m10 * dx + m11 * dy
+        sq = u * u + v * v
+        sq_r = torch.clamp(sq, min=1e-30)
+        log_sq = torch.log(sq_r)
+        p = torch.exp(log_sq * rp)
+        sb = torch.exp(-kappa * (p - 1.0))
+        off = dx * dx + dy * dy
+        three_off = 3.0 * torch.clamp(off, min=0.125)
+        krp = kappa * rp
+        krp_p = krp * p
+        corr = 1.0 + krp_p * krp_p / three_off
+        g_sb = grad * sbeff * corr  # d/d sb
+        g_corr = grad * sbeff * sb
+        g_krp_p = g_corr * 2.0 * krp_p / three_off
+        g_off = torch.where(off >= 0.125,
+                            -g_corr * krp_p * krp_p * 3.0 / (three_off * three_off),
+                            torch.zeros_like(off))
+        g_arg = g_sb * sb  # d/d[-kappa (p - 1)]
+        g_p = g_krp_p * krp - g_arg * kappa
+        g_lp = g_p * p  # d/d[log(sq) rp]
+        g_sq = torch.where(sq >= 1e-30, g_lp * rp / sq_r, torch.zeros_like(sq))
+        g_u, g_v = 2.0 * u * g_sq, 2.0 * v * g_sq
+        g_dx = g_u * m00 + g_v * m10 + 2.0 * dx * g_off
+        g_dy = g_u * m01 + g_v * m11 + 2.0 * dy * g_off
+        g_krp = (g_krp_p * p).sum(dim=(-2, -1))
+
+        def total(t):
+            return t.sum(dim=(-2, -1))
+
+        rows.append(torch.stack([
+            -total(g_dx), -total(g_dy),
+            total(g_u * dx), total(g_u * dy), total(g_v * dx), total(g_v * dy),
+            g_krp * rp[:, 0, 0] - total(g_arg * (p - 1.0)),
+            g_krp * kappa[:, 0, 0] + total(g_lp * log_sq),
+            total(grad * sb * corr),
+        ], dim=-1))
+    if rows:
+        g_params = torch.stack(rows, dim=1)
+    else:
+        g_params = torch.zeros_like(params)
+    return g_params, g_sky
+
+
+SM_COUNT = 132  # the H100 SXM's multiprocessors
+
+
+def backward_strips(batch, h):
+    """Row strips per walker of a backward launch: enough blocks for two
+    per SM of the H100 (``ceil(264 / B)``), at most one row each."""
+    return max(1, min(h, -(-2 * SM_COUNT // max(batch, 1))))
+
+
+@functools.lru_cache(maxsize=1)
+def _backward_kernel():
+    # (params, grad, partial, g_params, g_sky, batch, num_sersic, h, w,
+    #  strips, stream)
+    return _build.function(
+        "sersic_render_backward", "sersic_render_backward_launch",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    )
+
+
+def _launch_backward(params, grad, shape):
+    if params.dtype != torch.float32 or grad.dtype != torch.float32:
+        raise TypeError("the CUDA render backward takes float32")
+    params = params.contiguous()
+    grad = grad.contiguous()
+    b, s, _ = params.shape
+    h, w = shape
+    strips = backward_strips(b, h)
+    dev = params.device
+    partial = torch.empty((b, strips, s * PARAMS_PER_SERSIC + 1),
+                          dtype=torch.float64, device=dev)
+    g_params = torch.empty_like(params)
+    g_sky = torch.empty((b,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _backward_kernel()(params.data_ptr(), grad.data_ptr(),
+                                 partial.data_ptr(), g_params.data_ptr(),
+                                 g_sky.data_ptr(), b, s, h, w, strips, stream)
+    if err != 0:
+        raise RuntimeError(f"sersic_render backward launch failed: cudaError {err}")
+    return g_params, g_sky
+
+
+def render_sersics_backward(params, sky, shape, grad):
+    """``(g_params (B, S, 9), g_sky (B,))`` of the render at ``(params,
+    sky)`` for the image gradient ``grad (B, H, W)`` (the backward of
+    both render wrappers).  On CUDA the backward kernel (counted in
+    ``render_sersics_backward.launches``), on the CPU
+    :func:`render_sersics_backward_plain`."""
+    shape = tuple(shape)
+    if tuple(grad.shape) != (params.shape[0],) + shape:
+        raise ValueError(f"grad must be (B, H, W), got {tuple(grad.shape)}")
+    if params.device.type == "cpu":
+        return render_sersics_backward_plain(params, sky, shape, grad)
+    if params.device.type != "cuda":
+        raise ValueError(f"unsupported device {params.device}")
+    out = _launch_backward(params, grad, shape)
+    counts.count(render_sersics_backward)
+    return out
+
+
+render_sersics_backward.launches = 0

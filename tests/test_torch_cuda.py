@@ -803,3 +803,181 @@ def test_dft_route_conv_lnl_inside_a_captured_graph(cuda):
     assert fin.sum() >= 15
     rel = (out[fin] - want[fin]).abs() / want[fin].abs()
     assert rel.max().item() <= 2e-5
+
+
+# -- the gradient path: backward kernels, the Adam step as a graph -----------
+
+def _normalized_err(got, want, dims):
+    """max |got - want| over ``dims`` divided by max |want| there."""
+    num = (got.double() - want).abs().amax(dim=dims)
+    return (num / want.abs().amax(dim=dims).clamp(min=1e-300)).max().item()
+
+
+@pytest.mark.parametrize("shape", [(128, 128), (45, 37)], ids=["128", "45x37"])
+@pytest.mark.parametrize("count", [1, 2, 3])
+def test_render_backward_matches_plain(cuda, shape, count):
+    """The render's backward kernel at 125 walkers against the float64
+    plain backward: per walker and packed scalar, the largest error over
+    the Sersics within the larger of 1e-4 of the largest gradient there
+    and 4x the float32 plain version's error (float32 per pixel, float64
+    sums; a lone Sersic's scalar can cancel to a small sum); the same
+    non-finite entries as the float32 plain version (walker 1 is NaN); the
+    same bits on every launch."""
+    params, sky = _synthetic_rows(31, 125, count, shape, cuda)
+    grad = torch.as_tensor(np.random.RandomState(3).randn(125, *shape),
+                           dtype=torch.float32, device=cuda)
+    before = SR.render_sersics_backward.launches
+    g_params, g_sky = SR.render_sersics_backward(params, sky, shape, grad)
+    torch.cuda.synchronize()
+    assert SR.render_sersics_backward.launches == before + 1
+    p32, s32 = SR.render_sersics_backward_plain(params, sky, shape, grad)
+    assert _same_nonfinite(g_params, p32) and _same_nonfinite(g_sky, s32)
+    p64, s64 = SR.render_sersics_backward_plain(params.double(), sky.double(),
+                                                shape, grad.double())
+    keep = torch.isfinite(p64).all(dim=(1, 2)) & torch.isfinite(g_params).all(dim=(1, 2))
+    assert keep.sum().item() >= 120
+    scale = p64[keep].abs().amax(dim=1).clamp(min=1e-300)
+    err = (g_params[keep].double() - p64[keep]).abs().amax(dim=1) / scale
+    plain_err = (p32[keep].double() - p64[keep]).abs().amax(dim=1) / scale
+    assert torch.all(err <= (4 * plain_err).clamp(min=1e-4))
+    torch.testing.assert_close(g_sky.double(), s64, rtol=1e-6, atol=0.0)
+    again = SR.render_sersics_backward(params, sky, shape, grad)
+    _same_bits(again[0], g_params)
+    _same_bits(again[1], g_sky)
+
+
+@pytest.mark.parametrize("shape,psf_shape,route",
+                         [((128, 128), (64, 64), "fft"), ((96, 96), (48, 48), "dft"),
+                          ((45, 37), (16, 16), "dft")], ids=["128", "96", "45x37"])
+def test_conv_lnl_backward_matches_plain(cuda, shape, psf_shape, route):
+    """conv_lnl's backward kernel on both routes at 125 walkers against
+    the float64 plain backward: per walker within 1e-3 of its largest
+    pixel gradient (float32 residuals of a 0.005-noise image carry about
+    2e-5 of themselves; the FFT's and GEMMs' rounding come on top); the
+    same non-finite entries as the float32 plain version (NaN and
+    infinite pixels give a zero gradient); the same bits on every launch."""
+    spec = build_model_spec(flagship_components(shape, psf_shape))
+    post = build_posterior(spec, device=cuda, lnpost="batched")
+    th = torch.as_tensor(prior_draws(spec, 125, seed=7), dtype=torch.float32,
+                         device=cuda)
+    raws = post.raw_and_ps(th)[0].contiguous()
+    raws[2, 5, 7] = float("nan")
+    raws[11, 20, 3] = float("inf")
+    lnl = CL.batched_conv_lnl(raws, post.consts)
+    grad = torch.as_tensor(np.random.RandomState(4).uniform(0.5, 2.0, 125),
+                           dtype=torch.float32, device=cuda)
+    assert CL.conv_route(shape) == route
+    before = CL.batched_conv_lnl_backward.launches
+    routes = dict(CL.batched_conv_lnl_backward.route_launches)
+    got = CL.batched_conv_lnl_backward(raws, post.consts, lnl, grad)
+    torch.cuda.synchronize()
+    _assert_launched_on(CL.batched_conv_lnl_backward, route, before, routes)
+    want32 = CL.batched_conv_lnl_backward_plain(raws, post.consts, lnl, grad)
+    assert _same_nonfinite(got, want32)
+    assert torch.equal(got[2], torch.zeros_like(got[2]))
+    c64 = build_posterior(spec, device="cpu", dtype=torch.float64,
+                          lnpost="batched").consts
+    want = CL.batched_conv_lnl_backward_plain(
+        raws.double().cpu(), c64, lnl.double().cpu(), grad.double().cpu()).to(cuda)
+    keep = torch.isfinite(lnl)
+    assert keep.sum().item() >= 120
+    assert _normalized_err(got[keep], want[keep], dims=(1, 2)) <= 1e-3
+    assert torch.equal(got, CL.batched_conv_lnl_backward(raws, post.consts, lnl, grad))
+
+
+GRAD_COUNTED = (SR.render_sersics, SR.render_sersics_backward,
+                CL.batched_conv_lnl, CL.batched_conv_lnl_backward)
+
+
+@pytest.mark.parametrize("variant", ["batched", "general"])
+def test_log_posterior_and_grad_matches_cpu_float64(cuda, variant):
+    """The card's gradient (the kernels' backward kernels on the batched
+    path; the render kernel's backward and plain PyTorch on the general
+    path) against the CPU's float64 autograd: per point
+    ``||g - g_cpu|| / ||g_cpu|| <= 1e-3``, and lnpost within 1e-4."""
+    if variant == "batched":
+        spec = build_model_spec(flagship_components((64, 64), (32, 32)))
+        th = prior_draws(spec, 64, seed=12)
+    else:
+        spec, _ = _general(cuda, "two-psfs")
+        th = _general_thetas(spec, 64, seed=12)
+    post = build_posterior(spec, device=cuda)
+    assert post.grad_mode == variant
+    before = [fn.launches for fn in GRAD_COUNTED]
+    lnp, g = post.log_posterior_and_grad(th)
+    torch.cuda.synchronize()
+    launched = [fn.launches - b for fn, b in zip(GRAD_COUNTED, before)]
+    assert launched == ([1, 1, 1, 1] if variant == "batched" else [1, 1, 0, 0])
+    ref = build_posterior(spec, device="cpu", dtype=torch.float64)
+    lnp64, g64 = ref.log_posterior_and_grad(th)
+    fin = torch.isfinite(lnp64)
+    assert fin.sum().item() >= 32
+    assert torch.equal(fin, torch.isfinite(lnp.cpu()))
+    torch.testing.assert_close(lnp.cpu().double()[fin], lnp64[fin], rtol=1e-4, atol=0.0)
+    rel = (g.cpu().double() - g64).norm(dim=1) / g64.norm(dim=1)
+    assert rel[fin].max().item() <= 1e-3
+
+
+def _map_counts():
+    return [fn.launches for fn in GRAD_COUNTED] + [
+        dict(CL.batched_conv_lnl.route_launches),
+        dict(CL.batched_conv_lnl_backward.route_launches)]
+
+
+def test_map_adam_steps_graphed_are_bit_identical_to_eager(flagship):
+    """Five Adam steps of fit_map at 8 starts as replays of the captured
+    step and eagerly: the same optima bit for bit and the same launches,
+    one of each kernel and backward kernel per step, plus the pool's and
+    the final iterate's evaluations."""
+    from psfmc_tpu_torch import optimize
+
+    spec, post = flagship
+    pool = prior_draws(spec, 32, seed=13)
+    runs = []
+    for eager in (False, True):
+        before = _map_counts()
+        import contextlib
+
+        with optimize._eager(post) if eager else contextlib.nullcontext():
+            res = optimize.fit_map(post, n_starts=8, steps=5, p0=pool, seed=2)
+        torch.cuda.synchronize()
+        after = _map_counts()
+        runs.append((res, [a - b for a, b in zip(after[:4], before[:4])]))
+    (g, g_n), (e, e_n) = runs
+    _same_bits(g.all_theta, e.all_theta)
+    _same_bits(g.all_lnpost, e.all_lnpost)
+    assert g_n == e_n == [7, 6, 7, 6]
+    program = next(iter(post.__dict__["_map_programs"].values()))
+    assert program.replays == 5
+
+
+def test_joint_map_runs_the_dft_backward_inside_the_graph(cuda):
+    """fit_map on the joint flagship (band 0 at 64x64: FFT route; band 1
+    at 48x48: matmul-DFT route): each captured Adam step launches each
+    band's conv_lnl and its backward once on its route."""
+    from psfmc_tpu_torch.optimize import fit_map
+
+    spec, post = _joint(cuda)
+    before = _map_counts()
+    res = fit_map(post, n_starts=4, steps=3, seed=3)
+    torch.cuda.synchronize()
+    after = _map_counts()
+    assert np.isfinite(res.lnpost)
+    # the pool's evaluation, three replays and the final iterate's, per band
+    assert [a - b for a, b in zip(after[:4], before[:4])] == [10, 8, 10, 8]
+    for i, n in ((4, 5), (5, 4)):  # conv_lnl forward, backward: by route
+        assert {r: after[i][r] - before[i][r] for r in ("fft", "dft")} == \
+            {"fft": n, "dft": n}
+
+
+def test_a_failed_backward_build_raises(flagship, monkeypatch):
+    """A backward kernel that cannot be built raises through the gradient:
+    nothing falls back to the plain backward or to autograd."""
+    spec, post = flagship
+
+    def broken():
+        raise RuntimeError("nvcc failed for csrc/sersic_render_backward.cu")
+
+    monkeypatch.setattr(SR, "_backward_kernel", broken)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        post.log_posterior_and_grad(prior_draws(spec, 4, seed=1))

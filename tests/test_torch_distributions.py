@@ -173,6 +173,55 @@ def test_gradient_matches_jax(make, points):
         assert got.item() == pytest.approx(want, rel=1e-8, abs=1e-12), p
 
 
+_CONTINUOUS = [i for i, (alias, _kw, _grid) in enumerate(chip_smoke.PRIOR_CASES)
+               if not TD.from_name(alias, **_kw).is_discrete]
+
+
+@pytest.fixture()
+def one_thread():
+    """One torch thread for the test, restored after it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("i", _CONTINUOUS, ids=[_IDS[i] for i in _CONTINUOUS])
+def test_torch_logp_gradient_matches_jax(priors, i, one_thread):
+    """Every continuous family's ``torch_logp`` gradient (the MAP fit's
+    prior term) against ``jax.grad`` of ``jax_logp`` in float64.  At the
+    case's grid points strictly inside the support, within 1e-8 of the
+    largest (Laplace's location, a kink where the two frameworks take
+    different subgradients, is left out).  At every point, the support's
+    edges and points outside included, the port's gradient is finite
+    wherever JAX's is (outside the support the port's safe ``where``s give
+    0 where JAX's give NaN; at an edge the two may take different sides)."""
+    jd, td = priors(i)
+    alias, kw, grid = chip_smoke.PRIOR_CASES[i]
+    lo, hi = (float(v) for v in td.rv_frozen.support())
+
+    def grads(x):
+        want = np.asarray(jax.grad(lambda v: jnp.sum(jd.jax_logp(v)))(
+            jnp.asarray(x, jnp.float64)))
+        xt = torch.as_tensor(x, dtype=torch.float64).requires_grad_(True)
+        out = td.torch_logp(xt).sum()
+        got = (torch.autograd.grad(out, xt)[0].numpy() if out.requires_grad
+               else np.zeros_like(x))  # a constant density (Uniform)
+        return got, want
+
+    x = chip_smoke.prior_points(td, grid)
+    inside = (x > lo) & (x < hi) & (np.arange(len(x)) < len(chip_smoke.prior_grid(grid)))
+    if alias == "Laplace":
+        inside &= x != kw.get("loc", 0.0)
+    got, want = grads(x)
+    assert np.all(np.isfinite(got[np.isfinite(want)])), _IDS[i]
+    got, want = got[inside], want[inside]
+    assert np.all(np.isfinite(want)) and np.all(np.isfinite(got)), _IDS[i]
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-8 * max(np.abs(want).max(), 1e-300),
+                               err_msg=_IDS[i])
+
+
 def test_tukeylambda_matches_jax_over_its_interval():
     """The JAX test's grid (the 1 - 2e-6 interval, 41 points) and the
     bounded support's edge, for each of its lambdas."""

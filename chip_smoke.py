@@ -27,11 +27,13 @@ never ``jax`` nor ``psfmc_tpu``, and:
    fused_lnl the unfused pair render + conv_lnl.  Both likelihood
    kernels have two routes picked by the shape: at 128x128 the FFT route
    (asserted; the matmul-DFT route is timed beside it on the same
-   inputs), and the same checks run once more at 96x96, where the
-   matmul-DFT route carries them (rows ``conv_lnl_dft`` and
-   ``fused_lnl_dft``).  Each likelihood kernel, its plain version and
-   the ``torch.fft`` yardstick are also held against a float64
-   ``torch.fft`` convolution on the card;
+   inputs); the same checks run once more at 96x96, where conv_lnl takes
+   its FFT route's mixed-radix geometry (row ``conv_lnl_mixed``, the
+   matmul-DFT route timed beside it) and the fused kernel its matmul-DFT
+   route (row ``fused_lnl_dft``), and at 98x98 (a factor of 7), where
+   conv_lnl takes its matmul-DFT route (row ``conv_lnl_dft``).  Each
+   likelihood kernel, its plain version and the ``torch.fft`` yardstick
+   are also held against a float64 ``torch.fft`` convolution on the card;
 4. slice phase (the posterior + sampler path, ``lnpost="batched"``): the
    flagship model (synthetic 128x128 observation, 64x64 PSF, 18 free
    parameters), 250 walkers drawn from the priors, ``init_state`` ->
@@ -124,9 +126,10 @@ never ``jax`` nor ``psfmc_tpu``, and:
    in pixel frame; 24 parameters) written as FITS files with WCS headers
    and a model file with two Configurations, through ``model_galaxy_mcmc``
    with ``PSFMC_LNPOST`` unset (250 walkers, 20 burn + 20 retained steps,
-   segments of 10): both bands on the batched path, band 0's conv_lnl on
-   the FFT route and band 1's on the matmul-DFT route inside one captured
-   step, with exact launches by route, every step a replay, a finite chain,
+   segments of 10): both bands on the batched path and conv_lnl's FFT
+   route, band 0's on the radix-2 geometry and band 1's on the mixed-radix
+   one, inside one captured step, with exact launches by route, every step
+   a replay, a finite chain,
    the database's 24 values under the JAX package's column names, the ten
    image products (128x128 and 96x96), ``MCDATSUM`` over both bands, a
    second call that skips sampling and writes the products from the
@@ -135,8 +138,9 @@ never ``jax`` nor ``psfmc_tpu``, and:
    the fit's walkers; graphed against eager, the steady steps and the
    device's busy time and kernels per retained step; then the variants
    (both bands on the general path with two PSF stars each, a registration
-   offset on a sky tie, the general bands under the tiled render) with a
-   lnpost check and a graphed/eager segment of 2 + 2 steps;
+   offset on a sky tie with band 1 at 98x98 on conv_lnl's matmul-DFT
+   route, the general bands under the tiled render) with a lnpost check
+   and a graphed/eager segment of 2 + 2 steps;
 12. MAP phase (the gradient path): the MAP flagship (the flagship's
    components and priors, its observation simulated from a truth inside
    the priors) written as FITS files and a model file, through
@@ -152,10 +156,13 @@ never ``jax`` nor ``psfmc_tpu``, and:
    CPU's float64 autograd at 64 points on the batched, the general and the
    family flagship; ``model_galaxy_mcmc(init="map")`` on the same files
    (20 burn + 20 retained steps); the joint MAP (64 starts x 500 steps,
-   band 1's conv_lnl backward on the matmul-DFT route inside the captured
-   step); then each backward kernel against its plain version at 125
-   walkers with its times (rows ``sersic_render_backward``,
-   ``conv_lnl_backward``, ``conv_lnl_backward_dft``);
+   band 1's conv_lnl and backward on the FFT route's mixed-radix geometry
+   inside the captured step) and a joint MAP of 50 steps with band 1 at
+   98x98 (its backward on the matmul-DFT route); then each backward kernel
+   against its plain version at 125 walkers with its times (rows
+   ``sersic_render_backward``, ``conv_lnl_backward``,
+   ``conv_lnl_backward_mixed`` with the matmul-DFT route timed beside it,
+   ``conv_lnl_backward_dft``);
 13. prints the kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -165,7 +172,8 @@ each path (slice, driver, general, family and joint), graphed and eager, with th
 (against the profiled and the unprofiled wall time), and
 ten replayed Adam steps of the MAP path (busy time, kernels per step,
 idle share), the SM clock cycles that one block of each FFT-route kernel spends in
-each of its phases (a second build of the two sources with phase stamps;
+each of its phases (conv_lnl also at 96x96, its mixed-radix geometry; a
+second build of the two sources with phase stamps;
 the first phase of the fused kernel is its render), and the render kernel
 under other launch geometries than the wrapper picks.  The breakdown
 also covers the priors flagship and the priors' stress variant.
@@ -221,7 +229,10 @@ LNL_OPS_PER_PIXEL = 10  # per-pixel operations of the lnL reduction
 RAGGED_SHAPE, RAGGED_PSF_SHAPE = (45, 37), (16, 16)  # width not a multiple of 4
 CHECKPOINT = 10  # driver segment: mid-phase checkpoints and rejuvenation
 GRAPH_BURN, GRAPH_SAMPLE = 4, 6  # graph phase: graphed against eager
-DFT_SHAPE, DFT_PSF_SHAPE = (96, 96), (48, 48)  # a shape on the matmul-DFT route
+# 3 x 2^5: conv_lnl's FFT route on its mixed-radix geometry, and the fused
+# kernel's matmul-DFT route (its FFT route takes powers of two only)
+MIXED_SHAPE, MIXED_PSF_SHAPE = (96, 96), (48, 48)
+DFT_SHAPE, DFT_PSF_SHAPE = (98, 98), (48, 48)  # a factor of 7: conv_lnl's matmul-DFT route
 
 
 def log(msg):
@@ -345,6 +356,16 @@ def dft_matmul_ops(b, h, w):
                 + LNL_OPS_PER_PIXEL * h * w)
 
 
+def mixed_fft(shape):
+    """Whether conv_lnl takes its FFT route at ``shape`` on the mixed-radix
+    geometry (a side that is not a power of two)."""
+    from psfmc_tpu_torch.ops.kernels.conv_lnl import conv_route
+
+    h, w = shape
+    pow2 = all(n & (n - 1) == 0 for n in (h, w))
+    return conv_route(shape) == "fft" and not pow2
+
+
 def kernel_phase(post, spec):
     import torch
 
@@ -438,12 +459,18 @@ def kernel_phase(post, spec):
             ragged_ms=by_count[name, RAGGED_SHAPE, s][4],
         ))
 
-    rows += likelihood_rows(post, spec, thetas, "", "fft")
-    dft_spec = build_model_spec(flagship_components(DFT_SHAPE, DFT_PSF_SHAPE))
-    dft_post = build_posterior(dft_spec, device=post.device, lnpost="batched")
-    dft_thetas = torch.as_tensor(prior_draws(dft_spec, B_HALF, seed=1),
-                                 dtype=torch.float32, device=dft_post.device)
-    rows += likelihood_rows(dft_post, dft_spec, dft_thetas, "_dft", "dft")
+    rows += likelihood_rows(post, spec, thetas, ("conv_lnl", "fft"),
+                            ("fused_lnl", "fft"))
+    for shape, psf_shape, conv, fused in (
+            (MIXED_SHAPE, MIXED_PSF_SHAPE, ("conv_lnl_mixed", "fft"),
+             ("fused_lnl_dft", "dft")),
+            (DFT_SHAPE, DFT_PSF_SHAPE, ("conv_lnl_dft", "dft"), None)):
+        other_spec = build_model_spec(flagship_components(shape, psf_shape))
+        other_post = build_posterior(other_spec, device=post.device,
+                                     lnpost="batched")
+        other_thetas = torch.as_tensor(prior_draws(other_spec, B_HALF, seed=1),
+                                       dtype=torch.float32, device=post.device)
+        rows += likelihood_rows(other_post, other_spec, other_thetas, conv, fused)
     for r in rows:
         log(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.5f} ms by {r['bound_by']} "
@@ -456,10 +483,12 @@ def kernel_phase(post, spec):
     return rows
 
 
-def likelihood_rows(post, spec, thetas, suffix, route):
-    """The conv_lnl and fused_lnl rows at ``spec``'s shape, which must
-    take ``route``: each kernel against its plain version, against the
-    float64 truth, and its times."""
+def likelihood_rows(post, spec, thetas, conv, fused):
+    """The conv_lnl row and (unless ``fused`` is None) the fused_lnl row at
+    ``spec``'s shape, each ``(row name, the route the shape must take)``:
+    each kernel against its plain version, against the float64 truth, and
+    its times; on the FFT route, the matmul-DFT route on the same inputs
+    too."""
     import torch
 
     from psfmc_tpu_torch.ops import convolve, gaussian_lnlike
@@ -471,16 +500,21 @@ def likelihood_rows(post, spec, thetas, suffix, route):
         batched_conv_lnl_plain,
         conv_route,
     )
-    from psfmc_tpu_torch.ops.kernels.fused_lnl import fused_lnl, fused_lnl_plain
+    from psfmc_tpu_torch.ops.kernels.fused_lnl import (
+        fused_lnl,
+        fused_lnl_plain,
+        fused_route,
+    )
     from psfmc_tpu_torch.ops.kernels.sersic_render import render_sersics
     from psfmc_tpu_torch.ops.pointsource import pointsource_image
 
     h, w = spec.shape
-    name = "conv_lnl" + suffix
+    name, route = conv
     if conv_route((h, w)) != route:
         raise AssertionError(f"{h}x{w} takes the {conv_route((h, w))} route, "
                              f"expected {route}")
-    log(f"{name}, fused_lnl{suffix}: {h}x{w} takes the {route} route")
+    log(f"{name}: {h}x{w} takes conv_lnl's {route} route"
+        + (" (mixed radix)" if mixed_fft((h, w)) else ""))
     params, sky = post.render_inputs(thetas)
     params, sky = params.contiguous(), sky.contiguous()
     b, s, _ = params.shape
@@ -556,9 +590,14 @@ def likelihood_rows(post, spec, thetas, suffix, route):
                                  "with the plain version")
         rows[-1]["dft_route_ms"] = time_ms(
             lambda: CL._launch(raws, consts, "dft"))
+    if fused is None:
+        return rows
 
     # fused render + conv + lnL: the whole likelihood from the scalars
-    name = "fused_lnl" + suffix
+    name, route = fused
+    if fused_route((h, w)) != route:
+        raise AssertionError(f"{h}x{w} takes the fused kernel's "
+                             f"{fused_route((h, w))} route, expected {route}")
     fky, kx = post.pointsource_inputs(thetas)
     fky, kx = fky.contiguous(), kx.contiguous()
     args = (params, sky, fky, kx, consts)
@@ -726,14 +765,22 @@ def reset_counts(counted):
         fn.launches = 0
         if hasattr(fn, "route_launches"):
             fn.route_launches.update(fft=0, dft=0)
+        if hasattr(fn, "shape_launches"):
+            fn.shape_launches.clear()
 
 
 def read_counts(counted):
     """Launches by wrapper, and by ``<wrapper>:<route>`` for the two
-    likelihood kernels."""
+    likelihood kernels; for conv_lnl and its backward also
+    ``<wrapper>:mixed``, those of the FFT route's launches that ran on its
+    mixed-radix geometry (counted by shape)."""
     counts = {fn.__name__: fn.launches for fn in counted}
     routes = {f"{fn.__name__}:{r}": n for fn in counted
               for r, n in getattr(fn, "route_launches", {}).items()}
+    for fn in counted:
+        if hasattr(fn, "shape_launches"):
+            routes[f"{fn.__name__}:mixed"] = sum(
+                n for shape, n in fn.shape_launches.items() if mixed_fft(shape))
     return counts, routes
 
 
@@ -1899,18 +1946,20 @@ def joint_launches(paths, burn, sample, moved=0, tiled=False):
     return want
 
 
-def joint_phase(shapes=None, psf_shape=(64, 64), device=None):
+def joint_phase(shapes=None, psf_shape=(64, 64), device=None, dft_band=None):
     """Joint multi-band fits at full width: the joint flagship (band 0 the
     flagship at 128x128 with a TAN WCS, band 1 a 96x96 observation with
     its own PSF star and a WCS rotated by 20 degrees, its sources sky-tied
     to band 0's; 24 parameters) written as FITS files and a model file with
     two Configurations, through ``model_galaxy_mcmc`` with ``PSFMC_LNPOST``
-    unset: both bands on the batched path, band 0's conv_lnl on the FFT
-    route and band 1's on the matmul-DFT route, in one captured step.
-    Then a second call that skips sampling and writes the products from
-    the checkpoint, graphed against eager, the steady steps with the
-    device's busy time, and each variant of
-    ``psfmc_tpu_torch.flagship.JOINT_VARIANTS`` at 2 + 2 steps (the
+    unset: both bands on the batched path and on conv_lnl's FFT route,
+    band 0's on the radix-2 geometry and band 1's on the mixed-radix one,
+    in one captured step.  Then a second call that skips sampling and
+    writes the products from the checkpoint, graphed against eager, the
+    steady steps with the device's busy time, and each variant of
+    ``psfmc_tpu_torch.flagship.JOINT_VARIANTS`` at 2 + 2 steps, the
+    ``offset`` variant with band 1 at ``dft_band`` (98x98: a factor of 7),
+    so that conv_lnl's matmul-DFT route runs inside a captured step (the
     arguments shrink it for a rehearsal on the CPU).  Returns the launches
     of the fit's sampling and of the variants (by wrapper and route), band
     1's conv_lnl timed on the fit's walkers, and a sampler on the joint
@@ -1937,12 +1986,16 @@ def joint_phase(shapes=None, psf_shape=(64, 64), device=None):
     from psfmc_tpu_torch.sampler import EnsembleSampler
 
     shapes = JOINT_SHAPES if shapes is None else shapes
+    dft_band = DFT_SHAPE if dft_band is None else dft_band
     t_phase = time.perf_counter()
     steps = BURN + SAMPLE
     routes = [conv_route(shape) for shape in shapes]
-    if routes != ["fft", "dft"]:
+    if routes != ["fft", "fft"] or mixed_fft(shapes[0]) or not mixed_fft(shapes[1]) \
+            or conv_route(dft_band) != "dft":
         raise AssertionError(f"joint bands {shapes} take the routes {routes}, "
-                             "want fft and dft")
+                             "want fft (radix 2) and fft (mixed radix); the "
+                             f"offset variant's band 1 {dft_band} "
+                             f"{conv_route(dft_band)}, want dft")
     env = {k: os.environ.pop(k) for k in ("PSFMC_LNPOST", "PSFMC_RENDER",
                                           "PSFMC_KAPPA") if k in os.environ}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1966,11 +2019,13 @@ def joint_phase(shapes=None, psf_shape=(64, 64), device=None):
                               sum(n > 0 for n in moved))
         log(f"joint: launches of the sampling {sampling}, by route {by_route}; "
             f"walkers moved by each rejuvenation {moved}")
-        if sampling != want or by_route["batched_conv_lnl:fft"] != evals \
-                or by_route["batched_conv_lnl:dft"] != evals:
+        if sampling != want or by_route["batched_conv_lnl:fft"] != 2 * evals \
+                or by_route["batched_conv_lnl:mixed"] != evals \
+                or by_route["batched_conv_lnl:dft"] != 0:
             raise AssertionError(f"joint launches {sampling}, by route {by_route}: "
-                                 f"want {want}, {evals} conv_lnl launches on each "
-                                 "route")
+                                 f"want {want}, {2 * evals} conv_lnl launches on "
+                                 f"the FFT route, {evals} of them band 1's on the "
+                                 "mixed-radix geometry")
         if device != "cpu" and sm.graph_replays != steps:
             raise AssertionError(f"joint: {sm.graph_replays} of {steps} steps "
                                  "were graph replays")
@@ -2032,7 +2087,7 @@ def joint_phase(shapes=None, psf_shape=(64, 64), device=None):
     for k, v in env.items():
         os.environ[k] = v
 
-    # band 1's conv_lnl on the matmul-DFT route at the fit's walkers
+    # band 1's conv_lnl on the mixed-radix FFT route at the fit's walkers
     band = mc_post.band_fns[1]
     raws = band.raw_and_ps(sm.state.positions[:B_HALF])[0].contiguous()
     _, rel, frac = compare(batched_conv_lnl(raws, band.consts),
@@ -2044,8 +2099,8 @@ def joint_phase(shapes=None, psf_shape=(64, 64), device=None):
                "joint_plain_ms": time_ms(
                    lambda: batched_conv_lnl_plain(raws, band.consts)),
                "joint_max_rel_err": rel}
-    log(f"joint: band 1's conv_lnl ({shapes[1][0]}x{shapes[1][1]}, matmul-DFT "
-        f"route, {B_HALF} of the fit's walkers): {on_path['joint_ms']:.4f} ms, "
+    log(f"joint: band 1's conv_lnl ({shapes[1][0]}x{shapes[1][1]}, mixed-radix "
+        f"FFT route, {B_HALF} of the fit's walkers): {on_path['joint_ms']:.4f} ms, "
         f"plain {on_path['joint_plain_ms']:.4f} ms, max rel err {rel:.3e}")
 
     graphed_against_eager(mc_post, spec, "joint graph", GRAPH_BURN, GRAPH_SAMPLE)
@@ -2064,9 +2119,10 @@ def joint_phase(shapes=None, psf_shape=(64, 64), device=None):
         variant_env = JOINT_ENV.get(variant, {})
         paths = (("general", "general") if variant in ("general", "tiled")
                  else ("batched", "batched"))
+        vshapes = (shapes[0], dft_band) if variant == "offset" else shapes
         os.environ.update(variant_env)
         try:
-            vmodel = JointModel(joint_components(shapes, psf_shape, variant),
+            vmodel = JointModel(joint_components(vshapes, psf_shape, variant),
                                 device=device)
             vpost, vspec = vmodel.posterior_fns, vmodel.spec
             if vpost.lnpost != paths:
@@ -2084,11 +2140,14 @@ def joint_phase(shapes=None, psf_shape=(64, 64), device=None):
         want = joint_launches(paths, GENERAL_VARIANT_STEPS, GENERAL_VARIANT_STEPS,
                               tiled="PSFMC_RENDER" in variant_env)
         by_wrapper = {k: v for k, v in got.items() if ":" not in k}
+        # the offset variant: band 0 on the FFT route, band 1 on the
+        # matmul-DFT route
         per_route = (1 + 4 * GENERAL_VARIANT_STEPS) * (paths[0] == "batched")
         if by_wrapper != want or got["batched_conv_lnl:fft"] != per_route \
-                or got["batched_conv_lnl:dft"] != per_route:
-            raise AssertionError(f"joint variant {variant}: launches {got}, want "
-                                 f"{want} and {per_route} on each route")
+                or got["batched_conv_lnl:dft"] != per_route \
+                or got["batched_conv_lnl:mixed"] != 0:
+            raise AssertionError(f"joint variant {variant} ({vshapes}): launches "
+                                 f"{got}, want {want} and {per_route} on each route")
         for k, v in got.items():
             variant_launches[k] = variant_launches.get(k, 0) + v
     log(f"joint: the phase took {time.perf_counter() - t_phase:.1f} s")
@@ -2099,6 +2158,7 @@ def joint_phase(shapes=None, psf_shape=(64, 64), device=None):
 # -- phase 12: the gradient path -------------------------------------------
 
 MAP_STARTS, MAP_STEPS = 64, 500  # fit_map's defaults, the MAP path's depth
+MAP_DFT_STEPS = 50  # the joint MAP with band 1 on the matmul-DFT route
 MAP_EQUAL_STEPS = 5  # graphed against eager
 GRAD_POINTS = 64
 GRAD_RTOL = 1e-3  # ||g_card - g_cpu|| / ||g_cpu|| per point, the CPU in float64
@@ -2168,7 +2228,8 @@ def backward_rows(post, spec):
     """Rows (a)-(c): each backward kernel against its plain version on the
     card at 125 walkers, with its times and bound: the render's at the
     flagship's 128x128 and at 45x37, conv_lnl's on the FFT route at
-    128x128 and on the matmul-DFT route at 96x96."""
+    128x128 (radix 2) and 96x96 (mixed radix; the matmul-DFT route timed
+    on the same inputs) and on the matmul-DFT route at 98x98."""
     import torch
 
     from psfmc_tpu_torch.flagship import flagship_components, prior_draws
@@ -2235,8 +2296,10 @@ def backward_rows(post, spec):
         ragged_normalized_err=timed["ragged"][0]))
 
     # (b), (c) conv_lnl's backward on both routes
+    mixed_spec = build_model_spec(flagship_components(MIXED_SHAPE, MIXED_PSF_SHAPE))
     dft_spec = build_model_spec(flagship_components(DFT_SHAPE, DFT_PSF_SHAPE))
     for s_, route, name in ((spec, "fft", "conv_lnl_backward"),
+                            (mixed_spec, "fft", "conv_lnl_backward_mixed"),
                             (dft_spec, "dft", "conv_lnl_backward_dft")):
         p, th = inputs(s_)
         raws = p.raw_and_ps(th)[0].contiguous()
@@ -2295,10 +2358,19 @@ def backward_rows(post, spec):
             bound_ms=bms, bound_by=by, bound_term=term, library_ms=time_ms(library),
             library="torch.autograd through torch.fft convolutions of the forward",
             conv_route=route))
+        if route == "fft":  # the matmul-DFT route on the same inputs
+            dft = CL._launch_backward(raws, consts, lnl, grad, "dft")
+            dft_err = normalized_err(dft[keep], want[keep], dims=(1, 2))
+            if not dft_err <= CONV_BWD_TOL:
+                raise AssertionError(f"{name}: the matmul-DFT route disagrees "
+                                     f"({dft_err:.3e})")
+            rows[-1]["dft_route_ms"] = time_ms(
+                lambda: CL._launch_backward(raws, consts, lnl, grad, "dft"))
     for r in rows:
         log(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.5f} ms by {r['bound_by']} ({r['bound_term']}), "
-            f"{r['ms'] / r['bound_ms']:.1f}x the bound; library {r['library_ms']})")
+            f"{r['ms'] / r['bound_ms']:.1f}x the bound; library {r['library_ms']}, "
+            f"matmul-DFT route on the same inputs {r.get('dft_route_ms')})")
     return rows
 
 
@@ -2345,18 +2417,21 @@ def check_step_tally(program, want, label):
     """Every Adam step a replay whose tally is exactly ``want`` (a dict of
     ``(wrapper name, route)`` -> launches)."""
     got = {}
-    for fn, route in program.launches or []:
+    for fn, route, _ in program.launches or []:
         got[fn.__name__, route] = got.get((fn.__name__, route), 0) + 1
     if got != want:
         raise AssertionError(f"{label}: one Adam step launches {got}, want {want}")
 
 
-def map_phase(shape=(128, 128), psf_shape=(64, 64), joint_shapes=None, device=None):
+def map_phase(shape=(128, 128), psf_shape=(64, 64), joint_shapes=None, device=None,
+              dft_band=None):
     """The gradient path at full width (the arguments shrink it for a
     rehearsal on the CPU): the MAP flagship through ``model_galaxy_map``
     (64 starts x 500 Adam steps, Laplace), ``model_galaxy_mcmc(init=
     "map")`` on the same files, gradients against the CPU, five Adam steps
-    graphed against eager, and the joint MAP.  Returns the backward rows'
+    graphed against eager, and the joint MAP (band 1 at 96x96 on the FFT
+    route's mixed-radix geometry; then 50 steps with band 1 at
+    ``dft_band``, on the matmul-DFT route).  Returns the backward rows'
     launches and the timings."""
     import torch
 
@@ -2378,6 +2453,7 @@ def map_phase(shape=(128, 128), psf_shape=(64, 64), joint_shapes=None, device=No
     )
 
     joint_shapes = joint_shapes or JOINT_SHAPES
+    dft_band = dft_band or DFT_SHAPE
     counted = grad_kernels()
     t_phase = time.perf_counter()
     out = {}
@@ -2576,36 +2652,47 @@ def map_phase(shape=(128, 128), psf_shape=(64, 64), joint_shapes=None, device=No
                                  f"{sm.graph_replays} replays")
         out["init"] = dict(init_launches, **init_routes)
 
-        # the joint MAP: band 1's conv_lnl backward on the matmul-DFT route
-        bands, jtruth = joint_map_components(joint_shapes, psf_shape, seed=SEED)
-        jm = JointModel(bands, device=device)
-        reset_counts(counted)
-        t0 = time.perf_counter()
-        jres = optimize.fit_map(jm.posterior_fns, n_starts=MAP_STARTS, steps=MAP_STEPS,
-                                seed=SEED)
-        torch.cuda.synchronize()
-        joint_wall = time.perf_counter() - t0
-        j_launches, j_routes = read_counts(counted)
-        jprog = map_program(jm.posterior_fns)
-        if graphed:
-            check_step_tally(jprog, {("render_sersics", None): 2,
-                                     ("render_sersics_backward", None): 2,
-                                     ("batched_conv_lnl", "fft"): 1,
-                                     ("batched_conv_lnl", "dft"): 1,
-                                     ("batched_conv_lnl_backward", "fft"): 1,
-                                     ("batched_conv_lnl_backward", "dft"): 1},
-                             "joint map")
-        jwant = {"batched_conv_lnl_backward:fft": MAP_STEPS + 1,
-                 "batched_conv_lnl_backward:dft": MAP_STEPS + 1}
-        jlnp_truth = float(jm.posterior_fns.log_posterior_batch(jtruth[None])[0])
-        log(f"map: joint MAP {MAP_STARTS} starts x {MAP_STEPS} steps in "
-            f"{joint_wall:.2f} s, lnpost {jres.lnpost:.3f} (truth {jlnp_truth:.3f}), "
-            f"{jprog.replays} replays, launches {j_launches} {j_routes}")
-        if not (np.isfinite(jres.lnpost) and jprog.replays == MAP_STEPS * graphed
-                and all(j_routes[k] == v for k, v in jwant.items())):
-            raise AssertionError("map: the joint MAP missed its launches or replays")
-        out["joint"] = dict(j_launches, **j_routes)
-        out["joint_wall"] = joint_wall
+        # the joint MAP: band 1's conv_lnl and backward on the FFT route's
+        # mixed-radix geometry; then a shorter one with band 1 on the
+        # matmul-DFT route, so that its backward runs inside a captured step
+        for key, jshapes, steps in (("joint", joint_shapes, MAP_STEPS),
+                                    ("joint_dft", (joint_shapes[0], dft_band),
+                                     MAP_DFT_STEPS)):
+            band1 = "mixed" if key == "joint" else "dft"
+            bands, jtruth = joint_map_components(jshapes, psf_shape, seed=SEED)
+            jm = JointModel(bands, device=device)
+            reset_counts(counted)
+            t0 = time.perf_counter()
+            jres = optimize.fit_map(jm.posterior_fns, n_starts=MAP_STARTS,
+                                    steps=steps, seed=SEED)
+            torch.cuda.synchronize()
+            joint_wall = time.perf_counter() - t0
+            j_launches, j_routes = read_counts(counted)
+            jprog = map_program(jm.posterior_fns)
+            on_fft = 2 if band1 == "mixed" else 1
+            tally = {("render_sersics", None): 2, ("render_sersics_backward", None): 2,
+                     ("batched_conv_lnl", "fft"): on_fft,
+                     ("batched_conv_lnl_backward", "fft"): on_fft}
+            if band1 == "dft":
+                tally.update({("batched_conv_lnl", "dft"): 1,
+                              ("batched_conv_lnl_backward", "dft"): 1})
+            if graphed:
+                check_step_tally(jprog, tally, f"{key} map")
+            jwant = {"batched_conv_lnl_backward:fft": on_fft * (steps + 1),
+                     "batched_conv_lnl_backward:dft": (2 - on_fft) * (steps + 1),
+                     "batched_conv_lnl_backward:mixed": (on_fft - 1) * (steps + 1)}
+            jlnp_truth = float(jm.posterior_fns.log_posterior_batch(jtruth[None])[0])
+            log(f"map: joint MAP, band 1 {jshapes[1][0]}x{jshapes[1][1]} "
+                f"({band1}), {MAP_STARTS} starts x {steps} steps in "
+                f"{joint_wall:.2f} s, lnpost {jres.lnpost:.3f} (truth "
+                f"{jlnp_truth:.3f}), {jprog.replays} replays, launches "
+                f"{j_launches} {j_routes}")
+            if not (np.isfinite(jres.lnpost) and jprog.replays == steps * graphed
+                    and all(j_routes[k] == v for k, v in jwant.items())):
+                raise AssertionError(f"map: the {key} MAP missed its launches or "
+                                     "replays")
+            out[key] = dict(j_launches, **j_routes)
+            out[f"{key}_wall"] = joint_wall
     if "--profile" in sys.argv[1:]:
         profile_adam(program, z0)
     log(f"map: the phase took {time.perf_counter() - t_phase:.1f} s")
@@ -2844,7 +2931,8 @@ PHASES = ("load or render", "pack", "forward rows", "forward columns",
 
 def phase_clocks_phase(post, spec):
     """Cycles per phase of block 0 of both FFT-route kernels, on the
-    kernel phase's inputs.  The two sources are built once more here with
+    kernel phase's inputs, and of conv_lnl's mixed-radix geometry at
+    96x96.  The two sources are built once more here with
     ``-DPSFMC_FFT_STAMPS`` (``csrc/fft_conv.cuh``) into a temporary
     directory and called through ctypes; the port never loads that build.
     The fused kernel's first phase is its render; it is also built with
@@ -2854,58 +2942,79 @@ def phase_clocks_phase(post, spec):
 
     import torch
 
-    from psfmc_tpu_torch.flagship import prior_draws
+    from psfmc_tpu_torch.flagship import flagship_components, prior_draws
+    from psfmc_tpu_torch.models import build_model_spec, build_posterior
     from psfmc_tpu_torch.ops.kernels import _build
     from psfmc_tpu_torch.ops.kernels import conv_lnl as CL
     from psfmc_tpu_torch.ops.kernels import fused_lnl as FL
 
+    void, integer = ctypes.c_void_p, ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def conv_call(p, s):
+        th = torch.as_tensor(prior_draws(s, B_HALF, seed=1), dtype=torch.float32,
+                             device=p.device)
+        raws = p.raw_and_ps(th)[0].contiguous()
+        b, h, w = raws.shape
+        out = torch.empty((b,), dtype=torch.float32, device=p.device)
+        ptrs = [getattr(p.consts, n).data_ptr() for n in CL.CONV_FFT_CONST_ARGS]
+        # the posterior and raws stay referenced: the launch reads them by address
+        return ("conv_lnl_fft_launch", [void] + [integer] * 3,
+                [raws.data_ptr(), b, h, w] + ptrs + [out.data_ptr(), stream],
+                out, CL.batched_conv_lnl(raws, p.consts), (p, raws))
+
     thetas = torch.as_tensor(prior_draws(spec, B_HALF, seed=1),
                              dtype=torch.float32, device=post.device)
-    raws = post.raw_and_ps(thetas)[0].contiguous()
     scalars = [t.contiguous() for t in (*post.render_inputs(thetas),
                                         *post.pointsource_inputs(thetas))]
     consts = post.consts
-    b, h, w = raws.shape
+    h, w = spec.shape
+    b = scalars[0].shape[0]
     out = torch.empty((b,), dtype=torch.float32, device=post.device)
-    ptrs = [getattr(consts, n).data_ptr() for n in CL.FFT_CONST_ARGS]
-    ptrs += [out.data_ptr(), torch.cuda.current_stream().cuda_stream]
-    void, integer = ctypes.c_void_p, ctypes.c_int
+    fused_ptrs = [getattr(consts, n).data_ptr() for n in CL.FFT_CONST_ARGS]
+    mixed_spec = build_model_spec(flagship_components(MIXED_SHAPE, MIXED_PSF_SHAPE))
+    mixed_post = build_posterior(mixed_spec, device=post.device, lnpost="batched")
     calls = {
-        "conv_lnl": ("conv_lnl_fft_launch", [void] + [integer] * 3,
-                     [raws.data_ptr(), b, h, w],
-                     CL.batched_conv_lnl(raws, consts)),
+        "conv_lnl": conv_call(post, spec),
+        "conv_lnl_mixed": conv_call(mixed_post, mixed_spec),
         "fused_lnl": ("fused_lnl_fft_launch", [void] * 4 + [integer] * 5,
                       [t.data_ptr() for t in scalars]
-                      + [b, scalars[0].shape[1], scalars[2].shape[1], h, w],
-                      FL.fused_lnl(*scalars, consts)),
+                      + [b, scalars[0].shape[1], scalars[2].shape[1], h, w]
+                      + fused_ptrs + [out.data_ptr(), stream],
+                      out, FL.fused_lnl(*scalars, consts), scalars),
     }
-    # (label, source, extra flags): the two kernels as the port builds them,
-    # then the fused kernel with more pixels of a row side by side in a
-    # thread than csrc/fused_lnl.cu's kFixedRun
-    variants = [("conv_lnl", "conv_lnl", ()), ("fused_lnl", "fused_lnl", ())]
-    variants += [(f"fused_lnl, {n} pixels a thread", "fused_lnl",
+    # (label, source, call, extra flags): the two kernels as the port
+    # builds them, conv_lnl at 96x96, then the fused kernel with more pixels
+    # of a row side by side in a thread than csrc/fused_lnl.cu's kFixedRun
+    variants = [("conv_lnl", "conv_lnl", "conv_lnl", ()),
+                (f"conv_lnl {MIXED_SHAPE[0]}x{MIXED_SHAPE[1]} (mixed radix)",
+                 "conv_lnl", "conv_lnl_mixed", ()),
+                ("fused_lnl", "fused_lnl", "fused_lnl", ())]
+    variants += [(f"fused_lnl, {n} pixels a thread", "fused_lnl", "fused_lnl",
                   (f"-DPSFMC_FUSED_RUN={n}",)) for n in (2, 4)]
     with tempfile.TemporaryDirectory() as tmp:
+        sources = list(dict.fromkeys((name, flags) for _, name, _, flags in variants))
         builds = [subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-DPSFMC_FFT_STAMPS", *flags,
              "-o", os.path.join(tmp, f"{i}.so"),
              os.path.join(_build._CSRC, name + ".cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for i, (_, name, flags) in enumerate(variants)]
-        for i, (label, name, flags) in enumerate(variants):
-            symbol, argtypes, args, want = calls[name]
-            nvcc_log, _ = builds[i].communicate()
-            if builds[i].returncode != 0:
-                raise RuntimeError(f"nvcc failed for the stamped {label}:\n"
+            for i, (name, flags) in enumerate(sources)]
+        for i, build in enumerate(builds):
+            nvcc_log, _ = build.communicate()
+            if build.returncode != 0:
+                raise RuntimeError(f"nvcc failed for the stamped {sources[i]}:\n"
                                    + nvcc_log)
-            lib = ctypes.CDLL(os.path.join(tmp, f"{i}.so"))
+        for label, name, call, flags in variants:
+            symbol, argtypes, args, out, want, _ = calls[call]
+            lib = ctypes.CDLL(os.path.join(tmp, f"{sources.index((name, flags))}.so"))
             launch = getattr(lib, symbol)
-            launch.argtypes = argtypes + [void] * len(ptrs)
+            launch.argtypes = argtypes + [void] * (len(args) - len(argtypes))
             launch.restype = integer
             lib.fft_phase_clocks.argtypes = [void]
             lib.fft_phase_clocks.restype = integer
             for _ in range(3):  # warm: the last launch is the one read
-                if launch(*args, *ptrs) != 0:
+                if launch(*args) != 0:
                     raise RuntimeError(f"the stamped {label} did not launch")
             torch.cuda.synchronize()
             if not torch.equal(out, want):
@@ -2994,8 +3103,9 @@ def main():
     # render on all of them, conv_lnl on the fit and the stress variant, the
     # fused kernel on its variant; the joint fit's sampling and its variants:
     # the render on all of them (tiled on the tiled variant's general bands),
-    # conv_lnl on the fit and the offset variant, band 0 on the FFT route and
-    # band 1 (96x96) on the matmul-DFT route
+    # conv_lnl on the fit and the offset variant, band 0 on the FFT route's
+    # radix-2 geometry, band 1 on its mixed-radix geometry (the fit's 96x96)
+    # or on the matmul-DFT route (the offset variant's 98x98)
     fam, fam_var = family_launches_, family_variant_launches
     pri, pri_var = priors_launches, priors_variant_launches
     jnt, jnt_var = joint_launches_, joint_variant_launches
@@ -3009,6 +3119,8 @@ def main():
                "conv_lnl": launches["batched_conv_lnl:fft"]
                + fam["batched_conv_lnl:fft"] + fam_var["batched_conv_lnl"]
                + pri["batched_conv_lnl:fft"] + pri_var["batched_conv_lnl"],
+               "conv_lnl_mixed": jnt["batched_conv_lnl:mixed"]
+               + jnt_var["batched_conv_lnl:mixed"],
                "conv_lnl_dft": launches["batched_conv_lnl:dft"]
                + jnt["batched_conv_lnl:dft"] + jnt_var["batched_conv_lnl:dft"],
                "fused_lnl": driver_launches["fused_lnl:fft"] + fam_var["fused_lnl"],
@@ -3016,23 +3128,28 @@ def main():
     by_name["fused_lnl"] += pri_var["fused_lnl"]
     by_name["sersic_render"] += jnt["render_sersics"] + jnt_var["render_sersics"]
     by_name["sersic_render_tiled"] += jnt_var["render_sersics_tiled"]
-    by_name["conv_lnl"] += jnt["batched_conv_lnl:fft"] + jnt_var["batched_conv_lnl:fft"]
+    by_name["conv_lnl"] += (jnt["batched_conv_lnl:fft"] + jnt_var["batched_conv_lnl:fft"]
+                            - by_name["conv_lnl_mixed"])
     # the gradient path (phase 12): model_galaxy_map, the init="map" fit and
-    # the joint MAP, each kernel and backward kernel on its route
-    gm, gi, gj = grad["map"], grad["init"], grad["joint"]
-    by_name["sersic_render"] += sum(g["render_sersics"] for g in (gm, gi, gj))
-    by_name["conv_lnl"] += sum(g["batched_conv_lnl:fft"] for g in (gm, gi, gj))
-    by_name["conv_lnl_dft"] += sum(g["batched_conv_lnl:dft"] for g in (gm, gi, gj))
-    by_name["sersic_render_backward"] = sum(
-        g["render_sersics_backward"] for g in (gm, gi, gj))
-    by_name["conv_lnl_backward"] = sum(
-        g["batched_conv_lnl_backward:fft"] for g in (gm, gi, gj))
-    by_name["conv_lnl_backward_dft"] = sum(
-        g["batched_conv_lnl_backward:dft"] for g in (gm, gi, gj))
+    # the two joint MAPs, each kernel and backward kernel on its route (the
+    # FFT route's launches less those on its mixed-radix geometry)
+    grads = [grad[k] for k in ("map", "init", "joint", "joint_dft")]
+    by_name["sersic_render"] += sum(g["render_sersics"] for g in grads)
+    by_name["sersic_render_backward"] = sum(g["render_sersics_backward"] for g in grads)
+    for fn, row in (("batched_conv_lnl", "conv_lnl"),
+                    ("batched_conv_lnl_backward", "conv_lnl_backward")):
+        mixed = sum(g[f"{fn}:mixed"] for g in grads)
+        by_name[row] = by_name.get(row, 0) + sum(g[f"{fn}:fft"] for g in grads) - mixed
+        by_name[f"{row}_mixed"] = by_name.get(f"{row}_mixed", 0) + mixed
+        by_name[f"{row}_dft"] = by_name.get(f"{row}_dft", 0) + sum(
+            g[f"{fn}:dft"] for g in grads)
     for r in rows:
         r["launches"] = by_name[r["name"]]
-        if r["name"] == "conv_lnl_dft":  # timed on the joint fit's band 1 too
+        if r["name"] == "conv_lnl_mixed":  # timed on the joint fit's band 1 too
             r.update(joint_on_path)
+    for r in rows:
+        if r["name"].startswith("conv_lnl") and not r["launches"]:
+            raise AssertionError(f"{r['name']} was never launched on the main path")
     for r in rows:
         for k, v in r.items():
             if isinstance(v, float) and not math.isfinite(v):

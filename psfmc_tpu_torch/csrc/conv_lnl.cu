@@ -26,13 +26,16 @@
 // Two routes, chosen by the wrapper from the shape alone (conv_route in
 // psfmc_tpu_torch/ops/kernels/conv_lnl.py):
 //
-// FFT route (H and W powers of two, the walker fits in a block's shared
-// memory; conv_lnl_fft_launch): ONE launch, one block per walker.  The
-// block loads the walker's image into shared memory and runs fft_conv.cuh
-// on it: both convolutions as one complex FFT pair, then the lnL readout.
-// No global scratch; the only write is the walker's lnL.
+// FFT route (H and W even with no prime factor above 5, the walker fits
+// in a block's shared memory; conv_lnl_fft_launch): ONE launch, one block
+// per walker.  The block loads the walker's image into shared memory and
+// runs fft_conv.cuh on it: both convolutions as one complex FFT pair, then
+// the lnL readout; radix-2 stages when both sides are powers of two,
+// radix-2, -3 and -5 stages otherwise.  No global scratch; the only write
+// is the walker's lnL.
 //
-// matmul-DFT route (every other shape; conv_lnl_launch): each convolution
+// matmul-DFT route (every other shape, e.g. a side with a factor of 7 or
+// an odd side; conv_lnl_launch): each convolution
 // as the twelve real half-spectrum products above, 20x the FFT count of
 // operations at 128x128 (W2 = 65: 2 convolutions x 12 x 2*128*128*65 ~ 51
 // MFLOP per walker, ~6.4 GFLOP per half-ensemble, ~0.1 ms at peak for the
@@ -124,57 +127,66 @@ namespace {
 
 namespace fc = psfmc::fftconv;
 
-// FFT route: one block per walker, the whole likelihood in one launch.
+// FFT route: one block per walker, the whole likelihood in one launch, on
+// the power-of-two geometry or the mixed-radix one.
+template <bool MIXED>
 __global__ void __launch_bounds__(fc::kThreads, 1)
 conv_lnl_fft_kernel(const float* __restrict__ raws, int h, int w,
                     const float2* __restrict__ twiddle, int tw_log2,
-                    fc::Spectra k, fc::Data d, float* __restrict__ out) {
+                    const int* __restrict__ layout, fc::Spectra k, fc::Data d,
+                    float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   float2* z = reinterpret_cast<float2*>(smem);
   float2* tw = z + h * fc::pitch(w);
-  PSFMC_STAMP(0);
-  fc::load_twiddles(tw, twiddle, tw_log2);
   const float* raw = raws + (size_t)blockIdx.x * h * w;
-  const int ld = fc::pitch(w), wb = fc::log2i(w);
-  float mx = 0.0f;
-#pragma unroll 4
-  for (int p = threadIdx.x; p < h * w; p += fc::kThreads) {
-    const float v = __ldg(raw + p);
-    z[(p >> wb) * ld + (p & (w - 1))].x = v;
-    mx = fmaxf(mx, fabsf(v));
+  PSFMC_STAMP(0);
+  if constexpr (MIXED) {
+    const fc::MixedGeom g = fc::load_mixed(tw, twiddle, layout, h, w);
+    const float mx = fc::load_image(z, g, raw);
+    PSFMC_STAMP(1);
+    fc::convolve_and_reduce(z, g, mx, k, d, out + blockIdx.x);
+  } else {
+    fc::load_twiddles(tw, twiddle, tw_log2);
+    const fc::Pow2Geom g(h, w, tw, tw_log2);
+    const float mx = fc::load_image(z, g, raw);
+    PSFMC_STAMP(1);
+    fc::convolve_and_reduce(z, g, mx, k, d, out + blockIdx.x);
   }
-  PSFMC_STAMP(1);
-  fc::convolve_and_reduce(z, h, w, tw, tw_log2, mx, k, d, out + blockIdx.x);
 }
 
 }  // namespace
 
-// C interface of the FFT route.  h and w are powers of two; twiddle is
-// the (max(h, w) / 2, 2) float32 table of exp(-2 pi i k / max(h, w)),
-// var_gain one float, the power of two applied to the variance spectrum.
-// Launches on `stream` and returns the first nonzero cudaError of the
-// attribute call or the launch, or 0.
+// C interface of the FFT route.  h and w are both powers of two, or both
+// even with no prime factor above 5.  For powers of two, twiddle is the
+// (max(h, w) / 2, 2) float32 table of exp(-2 pi i k / max(h, w)) and
+// layout is not read; otherwise twiddle holds H's table, then W's (N
+// entries of exp(-2 pi i k / N) each, N / 2 for a power of two), and
+// layout the int32 tables of fft_conv.cuh's layout (conv_lnl.py's
+// fft_layout).  var_gain is one float, the power of two applied to the
+// variance spectrum.  Launches on `stream` and returns the first nonzero
+// cudaError of the attribute call or the launch, or 0.
 extern "C" int conv_lnl_fft_launch(
     const float* raws, int batch, int h, int w, const float* twiddle,
-    const float* var_gain, const float* psf_r, const float* psf_i,
-    const float* var_r, const float* var_i,
+    const int* layout, const float* var_gain, const float* psf_r,
+    const float* psf_i, const float* var_r, const float* var_i,
     const float* obs, const float* obs_var, const float* good,
     float* out, void* stream) {
   if (batch <= 0) return 0;
-  if (!fc::power_of_two(h) || !fc::power_of_two(w))
+  const bool pow2 = fc::power_of_two(h) && fc::power_of_two(w);
+  if (!pow2 && !(fc::five_smooth_even(h) && fc::five_smooth_even(w)))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = fc::image_bytes(h, w);
+  const size_t smem = pow2 ? fc::image_bytes(h, w) : fc::mixed_image_bytes(h, w);
+  auto kernel = pow2 ? &conv_lnl_fft_kernel<false> : &conv_lnl_fft_kernel<true>;
   cudaError_t err = cudaFuncSetAttribute(
-      conv_lnl_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it, so that no later launch reports it
     return (int)err;
   }
   int tw_log2 = 0;
   while ((1 << tw_log2) < (h > w ? h : w)) ++tw_log2;
-  conv_lnl_fft_kernel<<<batch, fc::kThreads, smem, (cudaStream_t)stream>>>(
-      raws, h, w, reinterpret_cast<const float2*>(twiddle), tw_log2,
+  kernel<<<batch, fc::kThreads, smem, (cudaStream_t)stream>>>(
+      raws, h, w, reinterpret_cast<const float2*>(twiddle), tw_log2, layout,
       fc::Spectra{psf_r, psf_i, var_r, var_i, var_gain}, fc::Data{obs, obs_var, good},
       out);
   return (int)cudaGetLastError();

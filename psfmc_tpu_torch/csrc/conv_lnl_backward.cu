@@ -18,8 +18,9 @@
 // psfmc_tpu_torch.ops.kernels.conv_lnl.batched_conv_lnl_backward_plain is
 // the function in plain PyTorch.
 //
-// FFT route (conv_lnl_fft_backward_launch; H and W powers of two, the
-// walker in one block's shared memory): one launch, one block of 512
+// FFT route (conv_lnl_fft_backward_launch; H and W even with no prime
+// factor above 5, the walker in one block's shared memory; fft_conv.cuh's
+// power-of-two or mixed-radix geometry): one launch, one block of 512
 // threads per walker, two FFT pairs of fft_conv.cuh in shared memory.
 //  1. the forward pair again: z = raw + i s raw^2, FFT2, the Hermitian
 //     split times (Kpsf, g Kvar), IFFT2: conv and s g mvar, unshifted;
@@ -88,55 +89,37 @@ __device__ __forceinline__ int peak_exponent(float m, bool* usable) {
   return *usable ? ilogbf(m) : 0;
 }
 
-__device__ void pair(float2* z, int h, int w, const float2* tw, int tw_log2,
-                     const fc::Spectra& k) {
-  fc::fft_lines<false, true>(z, h, w, tw, tw_log2);
-  fc::fft_lines<false, false>(z, h, w, tw, tw_log2);
-  fc::pair_step(z, h, w, k);
+template <class Geom>
+__device__ void pair(float2* z, const Geom& g, const fc::Spectra& k) {
+  g.template lines<false, true>(z);
+  g.template lines<false, false>(z);
+  g.pairs(z, k);
   __syncthreads();
-  fc::fft_lines<true, false>(z, h, w, tw, tw_log2);
-  fc::fft_lines<true, true>(z, h, w, tw, tw_log2);
+  g.template lines<true, false>(z);
+  g.template lines<true, true>(z);
 }
 
-__global__ void __launch_bounds__(fc::kThreads, 1)
-conv_lnl_fft_backward_kernel(const float* __restrict__ raws, int h, int w,
-                             const float2* __restrict__ twiddle, int tw_log2,
-                             fc::Spectra k, fc::Spectra kc, fc::Data d,
-                             const float* __restrict__ lnl,
-                             const float* __restrict__ grad,
-                             float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float maxes[fc::kWarps];
-  float2* z = reinterpret_cast<float2*>(smem);
-  float2* tw = z + h * fc::pitch(w);
-  const int hw = h * w, ld = fc::pitch(w), wb = fc::log2i(w);
-  const float* raw = raws + (size_t)blockIdx.x * hw;
-  float* o = out + (size_t)blockIdx.x * hw;
-  if (!isfinite(__ldg(lnl + blockIdx.x))) {  // the same for the whole block
-    for (int p = threadIdx.x; p < hw; p += fc::kThreads) o[p] = 0.0f;
-    return;
-  }
-  fc::load_twiddles(tw, twiddle, tw_log2);
+// The walker's backward on one geometry, from the twiddles (and layout)
+// already on their way into shared memory.
+template <class Geom>
+__device__ void backward_block(float2* z, const Geom& g, float* maxes,
+                               const float* raw, const fc::Spectra& k,
+                               const fc::Spectra& kc, const fc::Data& d,
+                               float gb, float* o) {
+  const int h = g.h, w = g.w, hw = h * w;
 
   // 1. the forward pair: conv + i s g mvar
-  float mx = 0.0f;
-#pragma unroll 4
-  for (int p = threadIdx.x; p < hw; p += fc::kThreads) {
-    const float v = __ldg(raw + p);
-    z[(p >> wb) * ld + (p & (w - 1))].x = v;
-    mx = fmaxf(mx, fabsf(v));
-  }
   bool ok;
-  int se = peak_exponent(block_max(mx, maxes), &ok);
+  int se = peak_exponent(block_max(fc::load_image(z, g, raw), maxes), &ok);
   se = max(-fc::kMaxScaleExp, min(fc::kMaxScaleExp, se));
   const float s = ldexpf(1.0f, -se);
   for (int p = threadIdx.x; p < hw; p += fc::kThreads) {
-    float2* q = z + (p >> wb) * ld + (p & (w - 1));
+    float2* q = z + g.at(p);
     const float x = q->x;
     q->y = s * (x * x);
   }
   __syncthreads();
-  pair(z, h, w, tw, tw_log2, k);
+  pair(z, g, k);
 
   // 2. a and c, each written to the slot its pixel was read from
   const float conv_scale = 1.0f / (float)hw;
@@ -145,15 +128,14 @@ conv_lnl_fft_backward_kernel(const float* __restrict__ raws, int h, int w,
   float amax = 0.0f, cmax = 0.0f;
 #pragma unroll 4
   for (int p = threadIdx.x; p < hw; p += fc::kThreads) {
-    const int y = p >> wb, x = p & (w - 1);
-    float2* q = z + ((y + h / 2) & (h - 1)) * ld + ((x + w / 2) & (w - 1));
+    float2* q = z + g.shifted(p);
     const float2 c = *q;
     const float conv = c.x * conv_scale, mvar = c.y * mvar_scale;
     const float ivm = 1.0f / (mvar + __ldg(d.obs_var + p));
     const float r = __ldg(d.obs + p) - conv;
-    const bool g = __ldg(d.good + p) > 0.0f;
-    const float av = g ? r * ivm : 0.0f;
-    const float cv = g ? 0.5f * (r * r * ivm * ivm - ivm) : 0.0f;
+    const bool good = __ldg(d.good + p) > 0.0f;
+    const float av = good ? r * ivm : 0.0f;
+    const float cv = good ? 0.5f * (r * r * ivm * ivm - ivm) : 0.0f;
     *q = make_float2(av, cv);
     amax = fmaxf(amax, fabsf(av));
     cmax = fmaxf(cmax, fabsf(cv));
@@ -164,21 +146,50 @@ conv_lnl_fft_backward_kernel(const float* __restrict__ raws, int h, int w,
   int se2 = ok_a && ok_c ? ea - ec : 0;
   se2 = max(-fc::kMaxScaleExp, min(fc::kMaxScaleExp, se2));
   const float s2 = ldexpf(1.0f, se2);
-  for (int p = threadIdx.x; p < hw; p += fc::kThreads)
-    z[(p >> wb) * ld + (p & (w - 1))].y *= s2;
+  for (int p = threadIdx.x; p < hw; p += fc::kThreads) z[g.at(p)].y *= s2;
   __syncthreads();
 
   // 3. the conjugate pair: a (x) psf + i s' g (c (x) var), natural order
-  pair(z, h, w, tw, tw_log2, kc);
+  pair(z, g, kc);
 
   // 4. grad_b [a (x) psf + 2 raw (c (x) var)]
-  const float gb = __ldg(grad + blockIdx.x);
   const float c_scale = ldexpf(conv_scale, -se2) / gain;
 #pragma unroll 4
   for (int p = threadIdx.x; p < hw; p += fc::kThreads) {
-    const float2 y = z[(p >> wb) * ld + (p & (w - 1))];
+    const float2 y = z[g.at(p)];
     const float ga = y.x * conv_scale, gc = y.y * c_scale;
     o[p] = gb * (ga + 2.0f * __ldg(raw + p) * gc);
+  }
+}
+
+template <bool MIXED>
+__global__ void __launch_bounds__(fc::kThreads, 1)
+conv_lnl_fft_backward_kernel(const float* __restrict__ raws, int h, int w,
+                             const float2* __restrict__ twiddle, int tw_log2,
+                             const int* __restrict__ layout, fc::Spectra k,
+                             fc::Spectra kc, fc::Data d,
+                             const float* __restrict__ lnl,
+                             const float* __restrict__ grad,
+                             float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float maxes[fc::kWarps];
+  float2* z = reinterpret_cast<float2*>(smem);
+  float2* tw = z + h * fc::pitch(w);
+  const int hw = h * w;
+  const float* raw = raws + (size_t)blockIdx.x * hw;
+  float* o = out + (size_t)blockIdx.x * hw;
+  if (!isfinite(__ldg(lnl + blockIdx.x))) {  // the same for the whole block
+    for (int p = threadIdx.x; p < hw; p += fc::kThreads) o[p] = 0.0f;
+    return;
+  }
+  const float gb = __ldg(grad + blockIdx.x);
+  if constexpr (MIXED) {
+    backward_block(z, fc::load_mixed(tw, twiddle, layout, h, w), maxes, raw,
+                   k, kc, d, gb, o);
+  } else {
+    fc::load_twiddles(tw, twiddle, tw_log2);
+    backward_block(z, fc::Pow2Geom(h, w, tw, tw_log2), maxes, raw, k, kc, d,
+                   gb, o);
   }
 }
 
@@ -215,35 +226,36 @@ __global__ void combine_kernel(const float* __restrict__ raws,
 
 }  // namespace
 
-// C interface of the FFT route.  h and w are powers of two; twiddle and
-// var_gain as conv_lnl_fft_launch takes them; psf_ic and var_ic are the
-// negated imaginary planes of the two half spectra; lnl (B,) the
-// forward's output, grad (B,) its gradient, out (B, H, W).  Launches on
-// `stream` and returns the first nonzero cudaError of the attribute call
-// or the launch, or 0.
+// C interface of the FFT route.  h, w, twiddle, layout and var_gain as
+// conv_lnl_fft_launch takes them; psf_ic and var_ic are the negated
+// imaginary planes of the two half spectra; lnl (B,) the forward's
+// output, grad (B,) its gradient, out (B, H, W).  Launches on `stream` and
+// returns the first nonzero cudaError of the attribute call or the
+// launch, or 0.
 extern "C" int conv_lnl_fft_backward_launch(
     const float* raws, int batch, int h, int w, const float* twiddle,
-    const float* var_gain, const float* psf_r, const float* psf_i,
-    const float* var_r, const float* var_i, const float* psf_ic,
-    const float* var_ic, const float* obs, const float* obs_var,
-    const float* good, const float* lnl, const float* grad, float* out,
-    void* stream) {
+    const int* layout, const float* var_gain, const float* psf_r,
+    const float* psf_i, const float* var_r, const float* var_i,
+    const float* psf_ic, const float* var_ic, const float* obs,
+    const float* obs_var, const float* good, const float* lnl,
+    const float* grad, float* out, void* stream) {
   if (batch <= 0) return 0;
-  if (!fc::power_of_two(h) || !fc::power_of_two(w))
+  const bool pow2 = fc::power_of_two(h) && fc::power_of_two(w);
+  if (!pow2 && !(fc::five_smooth_even(h) && fc::five_smooth_even(w)))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = fc::image_bytes(h, w);
+  const size_t smem = pow2 ? fc::image_bytes(h, w) : fc::mixed_image_bytes(h, w);
+  auto kernel = pow2 ? &conv_lnl_fft_backward_kernel<false>
+                     : &conv_lnl_fft_backward_kernel<true>;
   cudaError_t err = cudaFuncSetAttribute(
-      conv_lnl_fft_backward_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it, so that no later launch reports it
     return (int)err;
   }
   int tw_log2 = 0;
   while ((1 << tw_log2) < (h > w ? h : w)) ++tw_log2;
-  conv_lnl_fft_backward_kernel<<<batch, fc::kThreads, smem,
-                                 (cudaStream_t)stream>>>(
-      raws, h, w, reinterpret_cast<const float2*>(twiddle), tw_log2,
+  kernel<<<batch, fc::kThreads, smem, (cudaStream_t)stream>>>(
+      raws, h, w, reinterpret_cast<const float2*>(twiddle), tw_log2, layout,
       fc::Spectra{psf_r, psf_i, var_r, var_i, var_gain},
       fc::Spectra{psf_r, psf_ic, var_r, var_ic, var_gain},
       fc::Data{obs, obs_var, good}, lnl, grad, out);

@@ -1,7 +1,8 @@
 // The two circular convolutions of one walker as one complex 2-D FFT pair
 // held in the block's shared memory, and the masked Gaussian lnL read out
 // of it.  Shared by conv_lnl.cu and fused_lnl.cu (their FFT route, taken
-// when H and W are powers of two and the walker fits in a block).
+// when the walker fits in a block: conv_lnl's for sides that are even and
+// have no prime factor above 5, fused_lnl's for powers of two).
 //
 // What it computes, from the walker's raw image x already in shared
 // memory (psfmc_tpu_torch.ops.kernels.conv_lnl.packed_fft_conv_plain is
@@ -28,15 +29,43 @@
 // version's does.  fmaxf drops NaNs: the scale of a NaN walker does not
 // matter, its lnL is -inf either way.
 //
-// The FFT: radix-2 butterflies, forward as decimation in frequency
-// (natural order in, bit-reversed out), inverse as decimation in time
-// (bit-reversed in, natural out), so no permutation pass is needed; the
-// pointwise step addresses bin k at the bit-reversed index (__brev).  A
-// pass keeps 2^R elements (R <= 4) of one line in a thread's registers and
-// runs R consecutive stages on them, so a 128-point line costs two trips
-// through shared memory per direction, not seven.  Twiddles come from a
-// table exp(-2 pi i k / M), k < M/2, M = max(H, W), built on the host in
-// float64 and copied to shared memory.
+// Two geometries of the same scheme (the kernels are templates on it):
+//
+// Pow2Geom, both sides powers of two: radix-2 butterflies, forward as
+// decimation in frequency (natural order in, bit-reversed out), inverse
+// as decimation in time (bit-reversed in, natural out), so no permutation
+// pass is needed; the pointwise step addresses bin k at the bit-reversed
+// index (__brev).  A pass keeps 2^R elements (R <= 4) of one line in a
+// thread's registers and runs R consecutive stages on them, so a
+// 128-point line costs two trips through shared memory per direction,
+// not seven.  Twiddles come from a table exp(-2 pi i k / M), k < M/2, M =
+// max(H, W), built on the host in float64 and copied to shared memory.
+//
+// MixedGeom, every other even side with no prime factor above 5 (96 =
+// 3 x 2^5, 100 = 5^2 x 2^2, 120, 144, ...): the same two directions with
+// radix-2, -3 and -5 stages.  The host plans each axis (conv_lnl.py's
+// fft_plan): every radix-3 or -5 stage opens a register pass and takes up
+// to two (radix 3) or one (radix 5) radix-2 stages after it, at most 16
+// elements a thread; the radix-2 stages left over make passes of up to
+// four; the last stage is radix 2.  96 runs [3 2 2][2 2 2], 100 [5 2][5
+// 2], 144 [3 2 2][3 2 2]: two trips through shared memory per direction,
+// as at 128.  A stage of radix r on a sub-block of length L takes the
+// elements L/r apart, their r-point DFT, then the twiddle exp(-2 pi i p j
+// / L) on output p (the inverse: the conjugate twiddle, then the inverse
+// DFT), so the forward leaves bin k at the digit reversal of k over the
+// stage radices in the order they ran, and the inverse, running the
+// stages backwards, reads that same layout.  The host builds the layout
+// as small int tables (bin -> position and position -> bin, H + W ints
+// each, beside the pass codes) and one twiddle table per axis (N entries
+// of exp(-2 pi i k / N) for a side N that is not a power of two, N/2 for
+// one that is), in float64, cast; the kernel copies them to shared memory
+// next to the image.  Work items per pass are lines x N/P (P the pass's
+// elements); the loop over them is ragged at its end, and the divisions
+// by the line count and the stride are one multiply-high each (FastDiv).
+// Because the last stage is radix 2, a bin's kx < W/2 exactly when its
+// column position is even; the pointwise step walks positions (even
+// columns, consecutive lanes two float2 apart: the same 2-way bound as
+// the power-of-two step's swizzle) and looks the bins up in the tables.
 //
 // What bounds it on the H100 (cycles of one block by phase, from the
 // build with PSFMC_FFT_STAMPS, 128x128, NVIDIA H100 80GB HBM3 at 700 W):
@@ -108,7 +137,9 @@ struct Data {  // (H, W)
 
 __host__ __device__ inline int pitch(int w) { return w + 1; }
 
-inline bool power_of_two(int n) { return n >= 2 && (n & (n - 1)) == 0; }
+__host__ __device__ inline bool power_of_two(int n) {
+  return n >= 2 && (n & (n - 1)) == 0;
+}
 
 // Dynamic shared memory of the image and the twiddle table.
 inline size_t image_bytes(int h, int w) {
@@ -202,17 +233,12 @@ __device__ void fft_lines(float2* z, int h, int w, const float2* tw,
   }
 }
 
-// Z -> Y for the pair of bins k = (ky, kx) and -k, in place, on the
-// bit-reversed layout the forward passes leave; e = ky * (W/2+1) + kx
+// Z -> Y for the pair of bins k and -k at the positions p1 and p2 of
+// the layout the forward passes leave, in place; e = ky * (W/2+1) + kx
 // indexes the half spectra.  K(-k) = conj K(k) gives the kernels' other
 // half, so Y(-k) = conj P + i conj Q where Y(k) = P + i Q.
-__device__ __forceinline__ void pair_bins(float2* z, int h, int w, int ky,
-                                          int kx, int e, const Spectra& k,
-                                          float gain) {
-  const int ld = pitch(w), hb = log2i(h), wb = log2i(w);
-  const int nky = (h - ky) & (h - 1), nkx = (w - kx) & (w - 1);
-  const int p1 = bit_reverse(ky, hb) * ld + bit_reverse(kx, wb);
-  const int p2 = bit_reverse(nky, hb) * ld + bit_reverse(nkx, wb);
+__device__ __forceinline__ void pair_at(float2* z, int p1, int p2, int e,
+                                        const Spectra& k, float gain) {
   const float pr = __ldg(k.psf_r + e), pi = __ldg(k.psf_i + e);
   const float vr = gain * __ldg(k.var_r + e), vi = gain * __ldg(k.var_i + e);
   const float2 z1 = z[p1], z2 = z[p2];
@@ -222,6 +248,17 @@ __device__ __forceinline__ void pair_bins(float2* z, int h, int w, int ky,
   const float Qr = br * vr - bi * vi, Qi = br * vi + bi * vr;
   z[p1] = make_float2(Pr - Qi, Pi + Qr);                // P + i Q
   if (p2 != p1) z[p2] = make_float2(Pr + Qi, Qr - Pi);  // conj P + i conj Q
+}
+
+// pair_at for the bins (ky, kx) and -k on the bit-reversed layout.
+__device__ __forceinline__ void pair_bins(float2* z, int h, int w, int ky,
+                                          int kx, int e, const Spectra& k,
+                                          float gain) {
+  const int ld = pitch(w), hb = log2i(h), wb = log2i(w);
+  const int nky = (h - ky) & (h - 1), nkx = (w - kx) & (w - 1);
+  const int p1 = bit_reverse(ky, hb) * ld + bit_reverse(kx, wb);
+  const int p2 = bit_reverse(nky, hb) * ld + bit_reverse(nkx, wb);
+  pair_at(z, p1, p2, e, k, gain);
 }
 
 // The pointwise step over the whole image.  The thread that owns bin k
@@ -251,17 +288,343 @@ __device__ void pair_step(float2* z, int h, int w, const Spectra& k) {
     pair_bins(z, h, w, ky, wh, ky * w2 + wh, k, gain);
 }
 
+// ---- mixed radix: the geometry of sides with factors 2, 3 and 5 ----
+
+// The int tables of the layout (conv_lnl.py's fft_layout): [0] the first
+// entry of W's twiddle table; [1] the passes along H, [2, 2 + kMaxPasses)
+// their codes (16 x the odd radix + the radix-2 stages after it); [10]
+// and [11, 19) the same along W; then H's bin -> position and position ->
+// bin tables (H ints each), then W's (W each).
+constexpr int kMaxPasses = 8;
+constexpr int kLayoutHeader = 20;
+
+__host__ __device__ inline int layout_ints(int h, int w) {
+  return kLayoutHeader + 2 * (h + w);
+}
+
+__host__ __device__ inline int twiddle_entries(int n) {
+  return power_of_two(n) ? n / 2 : n;
+}
+
+// Even, and no prime factor above 5.
+inline bool five_smooth_even(int n) {
+  if (n < 2 || n % 2) return false;
+  const int factors[3] = {2, 3, 5};
+  for (int f : factors)
+    while (n % f == 0) n /= f;
+  return n == 1;
+}
+
+// Dynamic shared memory of the image, both twiddle tables and the layout.
+inline size_t mixed_image_bytes(int h, int w) {
+  return sizeof(float2) * ((size_t)h * pitch(w) + twiddle_entries(h) +
+                           twiddle_entries(w)) +
+         sizeof(int) * (size_t)layout_ints(h, w);
+}
+
+// x / d for 0 <= x, d < 2^16 as one multiply-high: m = floor(2^32 / d) + 1
+// is off by less than 1, so x m / 2^32 is off x / d by less than x / 2^32
+// < 1 / d, too little to cross an integer.
+struct FastDiv {
+  unsigned m;
+  int d;
+  __device__ explicit FastDiv(int d_)
+      : m(d_ > 1 ? 0xffffffffu / (unsigned)d_ + 1u : 0u), d(d_) {}
+  __device__ __forceinline__ int div(int x) const {
+    return d == 1 ? x : (int)__umulhi((unsigned)x, m);
+  }
+};
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+__device__ __forceinline__ float2 cmul_conj(float2 a, float2 b) {  // a conj b
+  return make_float2(a.x * b.x + a.y * b.y, a.y * b.x - a.x * b.y);
+}
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+
+__device__ __forceinline__ float2 cscale(float c, float2 a) {
+  return make_float2(c * a.x, c * a.y);
+}
+
+// a - i sgn b and a + i sgn b: the two outputs of a conjugate pair of
+// roots (sgn 1 forward, -1 inverse).
+template <bool INVERSE>
+__device__ __forceinline__ void rotate_pair(float2 a, float2 b, float2& lo,
+                                            float2& hi) {
+  const float bx = INVERSE ? -b.x : b.x, by = INVERSE ? -b.y : b.y;
+  lo = make_float2(a.x + by, a.y - bx);
+  hi = make_float2(a.x - by, a.y + bx);
+}
+
+// The R-point DFT in place, unnormalised: exp(-2 pi i p q / R) forward,
+// its conjugate inverse.
+template <int R, bool INVERSE>
+__device__ __forceinline__ void small_dft(float2 (&x)[R]) {
+  if constexpr (R == 2) {
+    const float2 a = x[0], b = x[1];
+    x[0] = cadd(a, b);
+    x[1] = csub(a, b);
+  } else if constexpr (R == 3) {
+    constexpr float kS = 0.86602540378443864676f;  // sin(2 pi / 3)
+    const float2 t = cadd(x[1], x[2]);
+    const float2 m = csub(x[0], cscale(0.5f, t));
+    x[0] = cadd(x[0], t);
+    rotate_pair<INVERSE>(m, cscale(kS, csub(x[1], x[2])), x[1], x[2]);
+  } else {
+    static_assert(R == 5, "radix 2, 3 or 5");
+    constexpr float kC1 = 0.30901699437494742410f;   // cos(2 pi / 5)
+    constexpr float kC2 = -0.80901699437494742410f;  // cos(4 pi / 5)
+    constexpr float kS1 = 0.95105651629515357212f;   // sin(2 pi / 5)
+    constexpr float kS2 = 0.58778525229247312917f;   // sin(4 pi / 5)
+    const float2 a1 = cadd(x[1], x[4]), b1 = csub(x[1], x[4]);
+    const float2 a2 = cadd(x[2], x[3]), b2 = csub(x[2], x[3]);
+    const float2 c1 = cadd(x[0], cadd(cscale(kC1, a1), cscale(kC2, a2)));
+    const float2 c2 = cadd(x[0], cadd(cscale(kC2, a1), cscale(kC1, a2)));
+    const float2 s1 = cadd(cscale(kS1, b1), cscale(kS2, b2));
+    const float2 s2 = csub(cscale(kS2, b1), cscale(kS1, b2));
+    x[0] = cadd(x[0], cadd(a1, a2));
+    rotate_pair<INVERSE>(c1, s1, x[1], x[4]);
+    rotate_pair<INVERSE>(c2, s2, x[2], x[3]);
+  }
+}
+
+// One stage of radix R on the P elements a thread holds, in blocks of T
+// (the sub-block of the line, in units of the pass's stride mp): element
+// i + q T/R of a block is digit q.  Forward: the DFT, then output p times
+// tw[p e]; inverse: input p times conj tw[p e], then the inverse DFT.  e
+// = (j + i mp) scale is the exponent of the stage's root exp(-2 pi i / L)
+// in table entries (j the item's offset within the stride).
+template <int R, int T, int P, bool INVERSE>
+__device__ __forceinline__ void radix_stage(float2 (&v)[P], const float2* tw,
+                                            int j, int mp, int scale) {
+  constexpr int hs = T / R;
+#pragma unroll
+  for (int blk = 0; blk < P; blk += T) {
+#pragma unroll
+    for (int i = 0; i < hs; ++i) {
+      const int e = (j + i * mp) * scale;
+      float2 x[R];
+#pragma unroll
+      for (int q = 0; q < R; ++q) x[q] = v[blk + i + q * hs];
+      if constexpr (INVERSE) {
+#pragma unroll
+        for (int p = 1; p < R; ++p) x[p] = cmul_conj(x[p], tw[p * e]);
+      }
+      small_dft<R, INVERSE>(x);
+      if constexpr (!INVERSE) {
+#pragma unroll
+        for (int p = 1; p < R; ++p) x[p] = cmul(x[p], tw[p * e]);
+      }
+#pragma unroll
+      for (int q = 0; q < R; ++q) v[blk + i + q * hs] = x[q];
+    }
+  }
+}
+
+// The pass's radix-2 stages U .. K-1 (forward) or K-1 .. U (inverse).
+template <int ODD, int K, int U, bool INVERSE>
+__device__ __forceinline__ void two_stages(float2 (&v)[ODD << K],
+                                           const float2* tw, int j, int mp,
+                                           int tws) {
+  if constexpr (U < K) {
+    constexpr int P = ODD << K, T = (P / ODD) >> U;
+    if constexpr (INVERSE) two_stages<ODD, K, U + 1, true>(v, tw, j, mp, tws);
+    radix_stage<2, T, P, INVERSE>(v, tw, j, mp, tws * (ODD << U));
+    if constexpr (!INVERSE) two_stages<ODD, K, U + 1, false>(v, tw, j, mp, tws);
+  }
+}
+
+// A register pass of one stage of radix ODD (none if 1) and K radix-2
+// stages after it; tws = N / L, L the sub-block length at its first stage.
+template <int ODD, int K, bool INVERSE>
+__device__ __forceinline__ void mixed_butterflies(float2 (&v)[ODD << K],
+                                                  const float2* tw, int j,
+                                                  int mp, int tws) {
+  constexpr int P = ODD << K;
+  if constexpr (!INVERSE && ODD > 1)
+    radix_stage<ODD, P, P, false>(v, tw, j, mp, tws);
+  two_stages<ODD, K, 0, INVERSE>(v, tw, j, mp, tws);
+  if constexpr (INVERSE && ODD > 1)
+    radix_stage<ODD, P, P, true>(v, tw, j, mp, tws);
+}
+
+// One register pass over every line (rows if ROWS) of length n.  Work items
+// are (line, block, j): consecutive lanes take consecutive lines; the item
+// holds the P elements block * len + j + r * mp of its line.
+template <int ODD, int K, bool INVERSE, bool ROWS>
+__device__ void mixed_pass(float2* z, int n, int lines, int ld, int len,
+                           const float2* tw) {
+  constexpr int P = ODD << K;
+  const int mp = len / P, tws = n / len;
+  const FastDiv by_lines(lines), by_mp(mp);
+  const int items = lines * (n / P);
+  const int step = ROWS ? mp : mp * ld;
+  for (int item = threadIdx.x; item < items; item += kThreads) {
+    const int q = by_lines.div(item), line = item - q * lines;
+    const int blk = by_mp.div(q), j = q - blk * mp;
+    const int base = blk * len + j;
+    float2* p = ROWS ? z + line * ld + base : z + base * ld + line;
+    float2 v[P];
+#pragma unroll
+    for (int r = 0; r < P; ++r) v[r] = p[r * step];
+    mixed_butterflies<ODD, K, INVERSE>(v, tw, j, mp, tws);
+#pragma unroll
+    for (int r = 0; r < P; ++r) p[r * step] = v[r];
+  }
+}
+
+// Every pass of one axis (its codes from the layout), each followed by a
+// block barrier.  The forward runs them in order, the inverse backwards.
+template <bool INVERSE, bool ROWS>
+__device__ void mixed_lines(float2* z, int h, int w, const float2* tw,
+                            const int* codes, int npass) {
+  const int n = ROWS ? w : h, lines = ROWS ? h : w, ld = pitch(w);
+  int len = INVERSE ? 1 : n;
+  for (int pp = 0; pp < npass; ++pp) {
+    const int code = codes[INVERSE ? npass - 1 - pp : pp];
+    const int elems = (code >> 4) << (code & 15);
+    if (INVERSE) len *= elems;
+    switch (code) {
+      case 0x11: mixed_pass<1, 1, INVERSE, ROWS>(z, n, lines, ld, len, tw); break;
+      case 0x12: mixed_pass<1, 2, INVERSE, ROWS>(z, n, lines, ld, len, tw); break;
+      case 0x13: mixed_pass<1, 3, INVERSE, ROWS>(z, n, lines, ld, len, tw); break;
+      case 0x14: mixed_pass<1, 4, INVERSE, ROWS>(z, n, lines, ld, len, tw); break;
+      case 0x30: mixed_pass<3, 0, INVERSE, ROWS>(z, n, lines, ld, len, tw); break;
+      case 0x31: mixed_pass<3, 1, INVERSE, ROWS>(z, n, lines, ld, len, tw); break;
+      case 0x32: mixed_pass<3, 2, INVERSE, ROWS>(z, n, lines, ld, len, tw); break;
+      case 0x50: mixed_pass<5, 0, INVERSE, ROWS>(z, n, lines, ld, len, tw); break;
+      default: mixed_pass<5, 1, INVERSE, ROWS>(z, n, lines, ld, len, tw); break;
+    }
+    if (!INVERSE) len /= elems;
+    __syncthreads();
+  }
+}
+
+// The pointwise step on the digit-reversed layout.  A bin's kx < W/2
+// exactly when its column position is even (the last stage is radix 2), so
+// the loop walks the even column positions of every row position and
+// reads the bins there from the position -> bin tables: consecutive lanes
+// two float2 apart, at most 2-way as the power-of-two step's swizzle;
+// the partners' reads are at most 2-way at 96x96 and 3-way at 100x100
+// (tests/test_torch_fft.py counts the ways).  Ownership as
+// in pair_step: kx = 0 owns the pair where ky <= H/2, and the column kx =
+// W/2 is walked once for ky <= H/2.
+__device__ void mixed_pair_step(float2* z, int h, int w, const int* lay,
+                                const FastDiv& by_wh, const Spectra& k) {
+  const int wh = w / 2, w2 = wh + 1, ld = pitch(w);
+  const int* pos_h = lay + kLayoutHeader;
+  const int* bin_h = pos_h + h;
+  const int* pos_w = bin_h + h;
+  const int* bin_w = pos_w + w;
+  const float gain = __ldg(k.var_gain);
+#pragma unroll 4
+  for (int t = threadIdx.x; t < h * wh; t += kThreads) {
+    const int r = by_wh.div(t), c = 2 * (t - r * wh);
+    const int ky = bin_h[r], kx = bin_w[c];
+    if (kx == 0 && ky > h / 2) continue;
+    const int nky = ky ? h - ky : 0, nkx = kx ? w - kx : 0;
+    pair_at(z, r * ld + c, pos_h[nky] * ld + pos_w[nkx], ky * w2 + kx, k, gain);
+  }
+  const int half = pos_w[wh];
+  for (int ky = threadIdx.x; ky <= h / 2; ky += kThreads)
+    pair_at(z, pos_h[ky] * ld + half, pos_h[ky ? h - ky : 0] * ld + half,
+            ky * w2 + wh, k, gain);
+}
+
+// ---- the two geometries ----
+
+// Both sides powers of two; tw the table of max(H, W) in shared memory.
+struct Pow2Geom {
+  int h, w, ld, wb, tw_log2;
+  const float2* tw;
+  __device__ Pow2Geom(int h_, int w_, const float2* tw_, int tw_log2_)
+      : h(h_), w(w_), ld(pitch(w_)), wb(log2i(w_)), tw_log2(tw_log2_),
+        tw(tw_) {}
+  // the shared-memory slot of pixel p = y W + x
+  __device__ __forceinline__ int at(int p) const {
+    return (p >> wb) * ld + (p & (w - 1));
+  }
+  // the slot of ((y + H/2) mod H, (x + W/2) mod W)
+  __device__ __forceinline__ int shifted(int p) const {
+    const int y = p >> wb, x = p & (w - 1);
+    return ((y + h / 2) & (h - 1)) * ld + ((x + w / 2) & (w - 1));
+  }
+  template <bool INVERSE, bool ROWS>
+  __device__ void lines(float2* z) const {
+    fft_lines<INVERSE, ROWS>(z, h, w, tw, tw_log2);
+  }
+  __device__ void pairs(float2* z, const Spectra& k) const {
+    pair_step(z, h, w, k);
+  }
+};
+
+// Even 5-smooth sides; tw both axes' tables and lay the layout, both in
+// shared memory.
+struct MixedGeom {
+  int h, w, ld;
+  FastDiv by_w, by_wh;
+  const float2* tw;
+  const int* lay;
+  __device__ MixedGeom(int h_, int w_, const float2* tw_, const int* lay_)
+      : h(h_), w(w_), ld(pitch(w_)), by_w(w_), by_wh(w_ / 2), tw(tw_),
+        lay(lay_) {}
+  __device__ __forceinline__ int at(int p) const {
+    const int y = by_w.div(p);
+    return y * ld + (p - y * w);
+  }
+  __device__ __forceinline__ int shifted(int p) const {
+    int y = by_w.div(p), x = p - y * w;
+    y += h / 2;
+    x += w / 2;
+    if (y >= h) y -= h;
+    if (x >= w) x -= w;
+    return y * ld + x;
+  }
+  template <bool INVERSE, bool ROWS>
+  __device__ void lines(float2* z) const {
+    const int* hdr = lay + (ROWS ? 2 + kMaxPasses : 1);
+    mixed_lines<INVERSE, ROWS>(z, h, w, ROWS ? tw + lay[0] : tw, hdr + 1,
+                               hdr[0]);
+  }
+  __device__ void pairs(float2* z, const Spectra& k) const {
+    mixed_pair_step(z, h, w, lay, by_wh, k);
+  }
+};
+
+// The raw image of one walker from global memory into the real parts of
+// z; returns the largest |raw| this thread read.
+template <class Geom>
+__device__ float load_image(float2* z, const Geom& g, const float* raw) {
+  float mx = 0.0f;
+#pragma unroll 4
+  for (int p = threadIdx.x; p < g.h * g.w; p += kThreads) {
+    const float v = __ldg(raw + p);
+    z[g.at(p)].x = v;
+    mx = fmaxf(mx, fabsf(v));
+  }
+  return mx;
+}
+
 // From the raw image in the real parts of z (written by the block's
 // threads before the call, `local_max` being the largest |raw| this thread
 // wrote; the barrier of the max reduction makes the image visible to all)
-// to the walker's lnL in *out.  tw is the table in shared memory.
-__device__ void convolve_and_reduce(float2* z, int h, int w, const float2* tw,
-                                    int tw_log2, float local_max,
+// to the walker's lnL in *out.
+template <class Geom>
+__device__ void convolve_and_reduce(float2* z, const Geom& g, float local_max,
                                     const Spectra& k, const Data& d,
                                     float* out) {
   __shared__ float maxes[kWarps];
   __shared__ double partial[kWarps];
-  const int ld = pitch(w), wb = log2i(w);
+  const int h = g.h, w = g.w;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   // the power-of-two scale of the squared image
@@ -277,23 +640,23 @@ __device__ void convolve_and_reduce(float2* z, int h, int w, const float2* tw,
     se = max(-kMaxScaleExp, min(kMaxScaleExp, ilogbf(mx)));
   const float s = ldexpf(1.0f, -se);
   for (int p = threadIdx.x; p < h * w; p += kThreads) {
-    float2* q = z + (p >> wb) * ld + (p & (w - 1));
+    float2* q = z + g.at(p);
     const float x = q->x;
     q->y = s * (x * x);
   }
   __syncthreads();
   PSFMC_STAMP(2);
 
-  fft_lines<false, true>(z, h, w, tw, tw_log2);
+  g.template lines<false, true>(z);
   PSFMC_STAMP(3);
-  fft_lines<false, false>(z, h, w, tw, tw_log2);
+  g.template lines<false, false>(z);
   PSFMC_STAMP(4);
-  pair_step(z, h, w, k);
+  g.pairs(z, k);
   __syncthreads();
   PSFMC_STAMP(5);
-  fft_lines<true, false>(z, h, w, tw, tw_log2);
+  g.template lines<true, false>(z);
   PSFMC_STAMP(6);
-  fft_lines<true, true>(z, h, w, tw, tw_log2);
+  g.template lines<true, true>(z);
   PSFMC_STAMP(7);
 
   // output pixel (y, x) reads ((y + H/2) mod H, (x + W/2) mod W)
@@ -302,15 +665,14 @@ __device__ void convolve_and_reduce(float2* z, int h, int w, const float2* tw,
   double sum = 0.0;
 #pragma unroll 4
   for (int p = threadIdx.x; p < h * w; p += kThreads) {
-    const int y = p >> wb, x = p & (w - 1);
-    const float2 c = z[((y + h / 2) & (h - 1)) * ld + ((x + w / 2) & (w - 1))];
+    const float2 c = z[g.shifted(p)];
     const float conv = c.x * conv_scale, mvar = c.y * mvar_scale;
     const float ivm = 1.0f / (mvar + __ldg(d.obs_var + p));
     const float resid = __ldg(d.obs + p) - conv;
-    const bool g = __ldg(d.good + p) > 0.0f;
-    const float safe_ivm = g ? ivm : 1.0f;
+    const bool good = __ldg(d.good + p) > 0.0f;
+    const float safe_ivm = good ? ivm : 1.0f;
     const float term = resid * resid * ivm - logf(kInv2Pi * safe_ivm);
-    if (g) sum += (double)(-0.5f * term);
+    if (good) sum += (double)(-0.5f * term);
   }
   PSFMC_STAMP(8);
   for (int off = 16; off > 0; off >>= 1)
@@ -326,12 +688,33 @@ __device__ void convolve_and_reduce(float2* z, int h, int w, const float2* tw,
   PSFMC_STAMP(9);
 }
 
+// The power-of-two route's call (the fused kernel's): tw is the table in
+// shared memory.
+__device__ inline void convolve_and_reduce(float2* z, int h, int w,
+                                           const float2* tw, int tw_log2,
+                                           float local_max, const Spectra& k,
+                                           const Data& d, float* out) {
+  convolve_and_reduce(z, Pow2Geom(h, w, tw, tw_log2), local_max, k, d, out);
+}
+
 // The table's M/2 entries from global into shared memory; a barrier
 // before the first pass (convolve_and_reduce has one) makes them visible.
 __device__ __forceinline__ void load_twiddles(float2* tw, const float2* table,
                                               int tw_log2) {
   for (int i = threadIdx.x; i < (1 << tw_log2) / 2; i += kThreads)
     tw[i] = table[i];
+}
+
+// Both axes' twiddle tables into tw and the layout right after them, in
+// shared memory; the same barrier makes them visible.
+__device__ inline MixedGeom load_mixed(float2* tw, const float2* table,
+                                       const int* layout, int h, int w) {
+  const int entries = twiddle_entries(h) + twiddle_entries(w);
+  int* lay = reinterpret_cast<int*>(tw + entries);
+  for (int i = threadIdx.x; i < entries; i += kThreads) tw[i] = table[i];
+  for (int i = threadIdx.x; i < layout_ints(h, w); i += kThreads)
+    lay[i] = layout[i];
+  return MixedGeom(h, w, tw, lay);
 }
 
 }  // namespace fftconv

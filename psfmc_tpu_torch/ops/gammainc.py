@@ -23,13 +23,16 @@ from __future__ import annotations
 
 import functools
 import math
+import os
 
 import numpy as np
 import torch
 
 __all__ = ["gammaincinv_half", "gammaincinv_half_table", "kappa_table"]
 
-_NEWTON_ITERS = 6
+# Newton iterations, as the JAX package reads them (default 6: ~1e-12 in
+# float64); read once, at import.
+_NEWTON_ITERS = int(os.environ.get("PSFMC_NEWTON_ITERS", "6"))
 _TABLE_SIZE = 4096
 _TABLE_RANGE = (0.01, 200.0)
 

@@ -12,13 +12,17 @@ with non-finite results mapped to ``-inf``.  The CUDA source
 (``csrc/conv_lnl.cu``) has two routes, and the shape alone picks one
 before the launch (:func:`conv_route`):
 
-* ``"fft"``, when ``H`` and ``W`` are powers of two and one walker fits
-  in a block's shared memory (64x64, 128x128, 64x256, ...): one launch,
-  one block per walker, both convolutions as one complex 2-D FFT pair
-  that never leaves shared memory (``csrc/fft_conv.cuh``).
-  :func:`packed_fft_conv_plain` is that scheme in plain PyTorch and
-  :func:`fft_stages_plain` its butterfly schedule, for the tests;
-* ``"dft"``, every other shape: each convolution as the twelve real
+* ``"fft"``, when ``H`` and ``W`` are even with no prime factor above
+  5 and one walker fits in a block's shared memory (64x64, 128x128,
+  64x256, 96x96, 100x100, 96x128, 144x144, ...): one launch, one block
+  per walker, both convolutions as one complex 2-D FFT pair that never
+  leaves shared memory (``csrc/fft_conv.cuh``; radix-2 stages when both
+  sides are powers of two, radix-2, -3 and -5 stages otherwise, planned
+  by :func:`fft_plan`).  :func:`packed_fft_conv_plain` is that scheme in
+  plain PyTorch and :func:`fft_stages_plain` its butterfly schedule, for
+  the tests;
+* ``"dft"``, every other shape (a side with a prime factor above 5, an
+  odd side, a walker too large for a block): each convolution as the twelve real
   half-spectrum products of
   :func:`psfmc_tpu_torch.ops.fourier.convolve_rdft`, run as fp32 FMA
   GEMMs of the kernel's own through global scratch (15 launches).
@@ -54,6 +58,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from dataclasses import dataclass, fields
 
 import numpy as np
@@ -72,9 +77,13 @@ __all__ = [
     "conv_route",
     "fft_smem_bytes",
     "fft_twiddles",
+    "fft_plan",
+    "fft_layout",
+    "fft_tables",
     "var_spectrum_gain",
     "fft_stages_plain",
     "bit_reversed",
+    "digit_reversed",
     "packed_fft_conv_plain",
     "batched_conv_lnl_backward",
     "batched_conv_lnl_backward_plain",
@@ -91,36 +100,167 @@ _FFT_STATIC_SMEM = 16 * 8 + 16 * 4
 _MAX_SCALE_EXP = 96
 
 
+# The FFT route's radices, and the fused kernel's (powers of two only).
+FFT_RADICES = (2, 3, 5)
+# The mixed-radix layout's int tables (csrc/fft_conv.cuh: kMaxPasses,
+# kLayoutHeader): passes per axis, and the header before the index tables.
+_MAX_PASSES = 8
+_LAYOUT_HEADER = 20
+# Radix-2 stages a radix-3 or -5 stage takes into its register pass (at
+# most 16 elements a thread).
+_TWOS_AFTER = {3: 2, 5: 1}
+
+
 def _power_of_two(n):
     return n >= 2 and n & (n - 1) == 0
+
+
+def _smooth_even(n, radices=FFT_RADICES):
+    """``n`` even, with no prime factor outside ``radices``."""
+    if n < 2 or n % 2:
+        return False
+    for r in radices:
+        while n % r == 0:
+            n //= r
+    return n == 1
+
+
+def _twiddle_entries(n):
+    return n // 2 if _power_of_two(n) else n
+
+
+def fft_plan(n):
+    """The register passes of an ``n``-point line on the FFT route, each a
+    tuple of stage radices in the order the forward runs them; ``n`` even
+    with no prime factor above 5.
+
+    Every radix-3 or -5 stage opens a pass and takes up to two (radix 3)
+    or one (radix 5) of the radix-2 stages after it, filled from the last
+    pass back, so that the last stage is radix 2; the radix-2 stages left
+    over make the last passes, up to four each and of nearly equal depth
+    (for a power of two: the radix-2 route's passes).  96 -> ((3, 2, 2),
+    (2, 2, 2)), 100 -> ((5, 2), (5, 2)), 128 -> ((2, 2, 2, 2), (2, 2, 2)).
+    """
+    n = int(n)
+    if not _smooth_even(n):
+        raise ValueError(f"the FFT route needs an even size with no prime "
+                         f"factor above 5 (5-smooth), got {n}")
+    twos = 0
+    while n % 2 == 0:
+        n //= 2
+        twos += 1
+    odds = []
+    for r in (5, 3):
+        while n % r == 0:
+            n //= r
+            odds.append(r)
+    passes = [[r] for r in odds]
+    for p in reversed(passes):
+        take = min(_TWOS_AFTER[p[0]], twos)
+        p += [2] * take
+        twos -= take
+    if twos:
+        npass = -(-twos // 4)
+        depth, extra = divmod(twos, npass)
+        passes += [[2] * (depth + (i < extra)) for i in range(npass)]
+    return tuple(tuple(p) for p in passes)
+
+
+def _stage_radices(n):
+    return [r for p in fft_plan(n) for r in p]
+
+
+def digit_reversed(n):
+    """Where the forward leaves bin ``k`` of an ``n``-point line: the
+    digits of ``k`` over the stage radices (:func:`fft_plan`, the first
+    stage's digit lowest) reversed, ``p_0 n / r_0 + p_1 n / (r_0 r_1) +
+    ...``; for a power of two, :func:`bit_reversed`."""
+    k = np.arange(n)
+    pos = np.zeros(n, np.int64)
+    rem, stride = k.copy(), n
+    for r in _stage_radices(n):
+        stride //= r
+        pos += (rem % r) * stride
+        rem //= r
+    return pos
+
+
+def fft_layout(shape):
+    """The FFT route's int32 layout tables of a shape that is not all
+    powers of two (``csrc/fft_conv.cuh``): the header (the first entry of
+    ``W``'s twiddle table; per axis the pass count and each pass's code,
+    16 x its radix-3 or -5 stage (1 if none) + its radix-2 stages), then
+    per axis, ``H`` first, bin -> position (:func:`digit_reversed`) and
+    position -> bin."""
+    h, w = (int(n) for n in shape)
+    header = np.zeros(_LAYOUT_HEADER, np.int64)
+    header[0] = _twiddle_entries(h)
+    tables = []
+    for at, n in ((1, h), (2 + _MAX_PASSES, w)):
+        plan = fft_plan(n)
+        if len(plan) > _MAX_PASSES:
+            raise ValueError(f"a {n}-point line needs {len(plan)} passes, "
+                             f"the kernel holds {_MAX_PASSES}")
+        header[at] = len(plan)
+        for i, p in enumerate(plan):
+            odd = p[0] if p[0] != 2 else 1
+            header[at + 1 + i] = 16 * odd + p.count(2)
+        pos = digit_reversed(n)
+        tables += [pos, np.argsort(pos)]
+    return np.concatenate([header] + tables).astype(np.int32)
 
 
 def fft_smem_bytes(shape):
     """Dynamic shared memory of the FFT route's image: ``H`` rows of
     ``W + 1`` ``float2`` (the odd pitch keeps the row passes free of
-    bank conflicts) plus the ``max(H, W) / 2`` twiddles."""
-    h, w = shape
-    return 8 * (h * (w + 1) + max(h, w) // 2)
-
-
-def conv_route(shape):
-    """``"fft"`` or ``"dft"``: the route of ``csrc/conv_lnl.cu`` and
-    ``csrc/fused_lnl.cu`` for an ``(H, W)`` image, a pure function of the
-    shape.  ``"fft"`` needs both sizes to be powers of two (>= 2) and the
-    walker's image to fit in one block's shared memory."""
+    bank conflicts) plus the twiddles (``max(H, W) / 2`` when both sides
+    are powers of two, else both axes' tables, :func:`fft_tables`) and
+    the mixed-radix layout's ints."""
     h, w = (int(n) for n in shape)
+    if _power_of_two(h) and _power_of_two(w):
+        return 8 * (h * (w + 1) + max(h, w) // 2)
+    return (8 * (h * (w + 1) + _twiddle_entries(h) + _twiddle_entries(w))
+            + 4 * (_LAYOUT_HEADER + 2 * (h + w)))
+
+
+def conv_route(shape, radices=FFT_RADICES):
+    """``"fft"`` or ``"dft"``: the route of ``csrc/conv_lnl.cu`` (and of
+    its backward) for an ``(H, W)`` image, a pure function of the shape.
+    ``"fft"`` needs both sides to be even with no prime factor outside
+    ``radices`` and the walker's image to fit in one block's shared
+    memory.  The fused kernel (``csrc/fused_lnl.cu``) asks with
+    ``radices=(2,)``: its FFT route takes powers of two only."""
+    h, w = (int(n) for n in shape)
+    if not (_smooth_even(h, radices) and _smooth_even(w, radices)):
+        return "dft"
     fits = fft_smem_bytes((h, w)) + _FFT_STATIC_SMEM <= BLOCK_SMEM_LIMIT
-    return "fft" if _power_of_two(h) and _power_of_two(w) and fits else "dft"
+    passes = max(len(fft_plan(h)), len(fft_plan(w)))
+    return "fft" if fits and passes <= _MAX_PASSES else "dft"
 
 
 def fft_twiddles(n, dtype=np.float32):
-    """``(n / 2, 2)`` table of ``exp(-2 pi i k / n)`` as ``(cos, -sin)``,
-    built in float64 and cast; ``n`` a power of two.  A line of length
-    ``n / 2^j`` reads every ``2^j``-th entry."""
-    if not _power_of_two(n):
-        raise ValueError(f"the twiddle table needs a power of two, got {n}")
-    ang = 2.0 * np.pi * np.arange(n // 2) / n
+    """The table of ``exp(-2 pi i k / n)`` as ``(cos, -sin)`` rows, built
+    in float64 and cast: ``k < n / 2`` for a power of two (radix-2
+    stages read no more; a line of length ``n / 2^j`` reads every
+    ``2^j``-th entry), ``k < n`` for any other even ``n`` with no prime
+    factor above 5 (a radix-3 or -5 stage's output ``p`` reads entry ``p
+    j``)."""
+    if not _smooth_even(n):
+        raise ValueError(f"the twiddle table needs an even size with no prime "
+                         f"factor above 5 (5-smooth), got {n}")
+    ang = 2.0 * np.pi * np.arange(_twiddle_entries(n)) / n
     return np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(dtype)
+
+
+def fft_tables(shape, dtype=np.float32):
+    """``(twiddle, layout)`` of the FFT route at ``shape``: both sides
+    powers of two, one table of ``max(H, W)`` serving both axes and no
+    layout; otherwise ``H``'s table then ``W``'s and :func:`fft_layout`."""
+    h, w = (int(n) for n in shape)
+    if _power_of_two(h) and _power_of_two(w):
+        return fft_twiddles(max(h, w), dtype), np.zeros(0, np.int32)
+    return (np.concatenate([fft_twiddles(h, dtype), fft_twiddles(w, dtype)]),
+            fft_layout((h, w)))
 
 
 def batched_lnl_supported(spec):
@@ -159,8 +299,9 @@ class ConvLnlConsts:
     ``(2H, 2H)`` block operators the matmul-DFT route uses for the
     h-direction stages: ``lf = [[ch, sh], [-sh, ch]]`` and ``li = [[ich,
     -ish], [ish, ich]]``; and the FFT route's twiddle table
-    (:func:`fft_twiddles` of ``max(H, W)``; empty unless both sizes are
-    powers of two) and its gain on the variance spectrum
+    and its int32 layout (:func:`fft_tables`: empty unless the shape is
+    on the FFT route, or both sizes are powers of two; the layout empty
+    then) and its gain on the variance spectrum
     (:func:`var_spectrum_gain`).  The backward kernels also read the
     conjugate spectra's imaginary planes (``psf_ic = -psf_i``, ``var_ic =
     -var_i``) and the transposed operators (``*_t``).
@@ -184,7 +325,8 @@ class ConvLnlConsts:
     lf: torch.Tensor
     li: torch.Tensor
     good_f: torch.Tensor  # good as {0, 1} in the working dtype
-    twiddle: torch.Tensor  # (max(H, W) / 2, 2), or (0, 2)
+    twiddle: torch.Tensor  # (max(H, W) / 2, 2), (H + W, 2) or less, or (0, 2)
+    fft_layout: torch.Tensor  # int32: fft_layout(shape), or (0,)
     var_gain: torch.Tensor  # (1,): a power of two, see var_spectrum_gain
     # the backward's: the conjugate spectra's imaginary planes and the
     # transposed operators, each contiguous
@@ -224,10 +366,10 @@ def make_conv_lnl_consts(f_psf, f_var, obs, obs_var, good, device,
     f_psf = np.asarray(f_psf)
     f_var = np.asarray(f_var)
     good = np.asarray(good, bool)
-    if all(_power_of_two(n) for n in shape):
-        twiddle = fft_twiddles(max(shape), np_dtype)
+    if all(_power_of_two(n) for n in shape) or conv_route(shape) == "fft":
+        twiddle, layout = fft_tables(shape, np_dtype)
     else:
-        twiddle = np.zeros((0, 2), np_dtype)
+        twiddle, layout = np.zeros((0, 2), np_dtype), np.zeros(0, np.int32)
     arrays = dict(
         cw=cw, sw=sw, ch=ch, sh=sh, ich=ich, ish=ish, ica=ica, isa=isa,
         psf_r=f_psf.real, psf_i=f_psf.imag,
@@ -243,6 +385,7 @@ def make_conv_lnl_consts(f_psf, f_var, obs, obs_var, good, device,
         for k, v in arrays.items()
     }
     tensors["good"] = torch.as_tensor(good, device=device)
+    tensors["fft_layout"] = torch.as_tensor(layout, device=device)
     return ConvLnlConsts(**tensors)
 
 
@@ -285,48 +428,100 @@ def bit_reversed(n):
     return out
 
 
+_COS = {3: (-0.5,), 5: (math.cos(2 * math.pi / 5), math.cos(4 * math.pi / 5))}
+_SIN = {3: (math.sin(2 * math.pi / 3),),
+        5: (math.sin(2 * math.pi / 5), math.sin(4 * math.pi / 5))}
+
+
+def _rotate_pair(a, b, inverse):
+    """``(a - i b, a + i b)``, the inverse's ``(a + i b, a - i b)``."""
+    ib = 1j * b
+    return (a + ib, a - ib) if inverse else (a - ib, a + ib)
+
+
+def _small_dft(x, inverse):
+    """The ``r``-point DFT of the list ``x`` (``r`` = 2, 3 or 5),
+    unnormalised, in ``csrc/fft_conv.cuh``'s (``small_dft``) order of
+    operations."""
+    r = len(x)
+    if r == 2:
+        return [x[0] + x[1], x[0] - x[1]]
+    if r == 3:
+        t = x[1] + x[2]
+        m = x[0] - 0.5 * t
+        y1, y2 = _rotate_pair(m, _SIN[3][0] * (x[1] - x[2]), inverse)
+        return [x[0] + t, y1, y2]
+    (c1, c2), (s1, s2) = _COS[5], _SIN[5]
+    a1, b1 = x[1] + x[4], x[1] - x[4]
+    a2, b2 = x[2] + x[3], x[2] - x[3]
+    y1, y4 = _rotate_pair(x[0] + (c1 * a1 + c2 * a2), s1 * b1 + s2 * b2, inverse)
+    y2, y3 = _rotate_pair(x[0] + (c2 * a1 + c1 * a2), s2 * b1 - s1 * b2, inverse)
+    return [x[0] + (a1 + a2), y1, y2, y3, y4]
+
+
 def _stages_1d(z, tw, inverse):
-    """The radix-2 stages of the last axis (length ``n``, a power of
-    two).  Forward: decimation in frequency, natural order in,
-    bit-reversed out; stage ``s`` pairs elements ``n >> (s + 1)`` apart as
-    ``(a + b, (a - b) w)``.  Inverse: the stages undone in reverse order,
-    ``(a + b conj w, a - b conj w)``, bit-reversed in, natural out,
-    unnormalised."""
+    """The stages of the last axis (length ``n``, :func:`fft_plan`'s
+    radices), from the table ``tw`` (period ``2 len(tw)`` when ``n`` is
+    a power of two, else ``len(tw)``).  Forward: decimation in frequency,
+    natural order in, digit-reversed out; a stage of radix ``r`` on
+    sub-blocks of length ``L`` takes the elements ``L / r`` apart, their
+    DFT, then output ``p`` times ``exp(-2 pi i p j / L)`` (``j`` the
+    offset within ``L / r``); for radix 2, ``(a + b, (a - b) w)``.
+    Inverse: the stages undone in reverse order, input ``p`` times the
+    conjugate twiddle then the inverse DFT (``(a + b conj w, a - b conj
+    w)``), digit-reversed in, natural out, unnormalised."""
     n = z.shape[-1]
-    m = n.bit_length() - 1
-    scale = 2 * tw.shape[0] // n  # the table serves max(H, W)
+    period = 2 * tw.shape[0] if _power_of_two(n) else tw.shape[0]
     lead = z.shape[:-1]
-    for s in (range(m - 1, -1, -1) if inverse else range(m)):
-        half = n >> (s + 1)
-        w = tw[(torch.arange(half, device=z.device) << s) * scale]
-        z = z.reshape(*lead, n // (2 * half), 2, half)
-        a, b = z[..., 0, :], z[..., 1, :]
+    stages, length = [], n
+    for r in _stage_radices(n):
+        stages.append((r, length))
+        length //= r
+    for r, length in (reversed(stages) if inverse else stages):
+        m = length // r
+        x = z.reshape(*lead, n // length, r, m)
+        x = [x[..., q, :] for q in range(r)]
+        j = torch.arange(m, device=z.device)
+        w = [tw[(p * j) * (period // length)] for p in range(r)]
         if inverse:
-            b = b * w.conj()
-            z = torch.stack([a + b, a - b], dim=-2)
+            x = _small_dft([x[0]] + [x[p] * w[p].conj() for p in range(1, r)],
+                           True)
         else:
-            z = torch.stack([a + b, (a - b) * w], dim=-2)
-        z = z.reshape(*lead, n)
+            x = _small_dft(x, False)
+            x = [x[0]] + [x[p] * w[p] for p in range(1, r)]
+        z = torch.stack(x, dim=-2).reshape(*lead, n)
     return z
+
+
+def _axis_tables(tw, h, w):
+    """The rows' and the columns' tables in a route's twiddle array."""
+    if _power_of_two(h) and _power_of_two(w):
+        return tw, tw
+    nh = _twiddle_entries(h)
+    return tw[:nh], tw[nh:nh + _twiddle_entries(w)]
 
 
 def fft_stages_plain(z, twiddles, inverse=False):
     """The FFT route's butterfly schedule on a complex ``(..., H, W)``
-    tensor, stage by stage, from the same twiddle table.
+    tensor, stage by stage, from the twiddles the kernel reads
+    (:func:`fft_tables` of the shape: one table of ``max(H, W)`` when
+    both sides are powers of two, else ``H``'s then ``W``'s).
 
     Forward: rows then columns, decimation in frequency; the result holds
-    bin ``(ky, kx)`` at ``(bit_reversed(H)[ky], bit_reversed(W)[kx])``.
-    ``inverse=True`` takes that layout back: columns then rows,
-    decimation in time, unnormalised (``H W`` times ``ifft2``).  The
-    kernel runs up to four of these stages per trip through shared
-    memory on values held in registers; the arithmetic is the same.
+    bin ``(ky, kx)`` at ``(digit_reversed(H)[ky], digit_reversed(W)[kx])``
+    (for powers of two, the bit reversal).  ``inverse=True`` takes that
+    layout back: columns then rows, decimation in time, unnormalised
+    (``H W`` times ``ifft2``).  The kernel runs the stages of one
+    :func:`fft_plan` pass per trip through shared memory on values held
+    in registers; the arithmetic is the same.
     """
     tw = torch.complex(twiddles[:, 0], twiddles[:, 1])
+    tw_h, tw_w = _axis_tables(tw, *z.shape[-2:])
     if inverse:
-        z = _stages_1d(z.transpose(-1, -2), tw, True).transpose(-1, -2)
-        return _stages_1d(z, tw, True)
-    z = _stages_1d(z, tw, False)
-    return _stages_1d(z.transpose(-1, -2), tw, False).transpose(-1, -2)
+        z = _stages_1d(z.transpose(-1, -2), tw_h, True).transpose(-1, -2)
+        return _stages_1d(z, tw_w, True)
+    z = _stages_1d(z, tw_w, False)
+    return _stages_1d(z.transpose(-1, -2), tw_h, False).transpose(-1, -2)
 
 
 def _mirrored(z):
@@ -380,9 +575,11 @@ def packed_fft_conv_plain(raws, consts: ConvLnlConsts):
 # mvar, out, stream)
 _DFT_CONST_ARGS = ("cw", "sw", "lf", "li", "ica", "isa", "psf_r", "psf_i",
                    "var_r", "var_i", "obs", "obs_var", "good_f")
-# conv_lnl_fft_launch(raws, batch, h, w, <these constants>, out, stream)
+# fused_lnl_fft_launch(..., <these constants>, out, stream)
 FFT_CONST_ARGS = ("twiddle", "var_gain", "psf_r", "psf_i", "var_r", "var_i",
                   "obs", "obs_var", "good_f")
+# conv_lnl_fft_launch(raws, batch, h, w, <these constants>, out, stream)
+CONV_FFT_CONST_ARGS = ("twiddle", "fft_layout") + FFT_CONST_ARGS[1:]
 
 
 @functools.lru_cache(maxsize=1)
@@ -399,20 +596,21 @@ def _fft_kernel():
     return _build.function(
         "conv_lnl", "conv_lnl_fft_launch",
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
-        + [ctypes.c_void_p] * (len(FFT_CONST_ARGS) + 2),
+        + [ctypes.c_void_p] * (len(CONV_FFT_CONST_ARGS) + 2),
     )
 
 
 def check_launch_consts(consts: ConvLnlConsts, device):
     """Raise unless every constant is a contiguous float32 tensor on
-    ``device`` (the mask ``good`` only needs the device), as the CUDA
-    kernels take them."""
+    ``device`` (the mask ``good`` only needs the device, the layout is
+    contiguous int32), as the CUDA kernels take them."""
     for f in fields(consts):
         t = getattr(consts, f.name)
         if t.device != device:
             raise ValueError(f"consts.{f.name} is on {t.device}, inputs on {device}")
-        if f.name != "good" and (t.dtype != torch.float32 or not t.is_contiguous()):
-            raise ValueError(f"consts.{f.name} must be contiguous float32")
+        want = torch.int32 if f.name == "fft_layout" else torch.float32
+        if f.name != "good" and (t.dtype != want or not t.is_contiguous()):
+            raise ValueError(f"consts.{f.name} must be contiguous {want}")
 
 
 def _launch_dft(raws, consts: ConvLnlConsts):
@@ -436,10 +634,11 @@ def _launch_dft(raws, consts: ConvLnlConsts):
 
 
 def _launch_fft(raws, consts: ConvLnlConsts):
-    """The FFT route: one launch, no allocation but the output."""
+    """The FFT route: one launch, no allocation but the output (radix-2
+    stages for powers of two, mixed radix otherwise: the launch picks)."""
     b, h, w = raws.shape
     out = torch.empty((b,), dtype=torch.float32, device=raws.device)
-    tensors = [getattr(consts, n) for n in FFT_CONST_ARGS] + [out]
+    tensors = [getattr(consts, n) for n in CONV_FFT_CONST_ARGS] + [out]
     with torch.cuda.device(raws.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _fft_kernel()(raws.data_ptr(), b, h, w,
@@ -480,12 +679,13 @@ def _forward(raws, consts):
         raise ValueError(f"unsupported device {raws.device}")
     route = conv_route(consts.shape)
     out = _launch(raws, consts, route)
-    counts.count(batched_conv_lnl, route)
+    counts.count(batched_conv_lnl, route, consts.shape)
     return out
 
 
 batched_conv_lnl.launches = 0
 batched_conv_lnl.route_launches = {"fft": 0, "dft": 0}
+batched_conv_lnl.shape_launches = {}
 
 
 class _ConvLnl(torch.autograd.Function):
@@ -616,9 +816,9 @@ def _dft_backward_kernel():
 
 # conv_lnl_fft_backward_launch(raws, batch, h, w, <these>, lnl, grad, out,
 # stream): the forward pair's spectra, then the conjugates'
-FFT_BACKWARD_CONST_ARGS = ("twiddle", "var_gain", "psf_r", "psf_i", "var_r",
-                           "var_i", "psf_ic", "var_ic", "obs", "obs_var",
-                           "good_f")
+FFT_BACKWARD_CONST_ARGS = ("twiddle", "fft_layout", "var_gain", "psf_r",
+                           "psf_i", "var_r", "var_i", "psf_ic", "var_ic",
+                           "obs", "obs_var", "good_f")
 # conv_lnl_dft_backward_launch(raws, batch, h, w, <these>, lnl, grad, t1,
 # t2, conv, mvar, ga, gc, out, stream): the forward's operators, the
 # adjoint's (the transposes, in the order the adjoint applies them)
@@ -657,8 +857,8 @@ def batched_conv_lnl_backward(raws, consts: ConvLnlConsts, lnl, grad):
     """``dlnL/draw (B, H, W)`` of :func:`batched_conv_lnl` at ``raws``
     (whose lnL was ``lnl``) for the output gradient ``grad (B,)``.  On
     CUDA the backward kernel of the route :func:`conv_route` picks
-    (counted in ``batched_conv_lnl_backward.launches`` and
-    ``.route_launches``), on the CPU
+    (counted in ``batched_conv_lnl_backward.launches``,
+    ``.route_launches`` and ``.shape_launches``), on the CPU
     :func:`batched_conv_lnl_backward_plain`."""
     if raws.device.type == "cpu":
         return batched_conv_lnl_backward_plain(raws, consts, lnl, grad)
@@ -666,9 +866,10 @@ def batched_conv_lnl_backward(raws, consts: ConvLnlConsts, lnl, grad):
         raise ValueError(f"unsupported device {raws.device}")
     route = conv_route(consts.shape)
     out = _launch_backward(raws, consts, lnl, grad, route)
-    counts.count(batched_conv_lnl_backward, route)
+    counts.count(batched_conv_lnl_backward, route, consts.shape)
     return out
 
 
 batched_conv_lnl_backward.launches = 0
 batched_conv_lnl_backward.route_launches = {"fft": 0, "dft": 0}
+batched_conv_lnl_backward.shape_launches = {}

@@ -1,8 +1,9 @@
 """Launch counts of the kernel wrappers that read launches executed.
 
-Every wrapper keeps ``<wrapper>.launches`` (and the likelihood kernels
-``<wrapper>.route_launches``) and calls :func:`count` right after its
-kernel launched.  Eagerly that adds one.  Inside :func:`tally` it adds
+Every wrapper keeps ``<wrapper>.launches`` (the likelihood kernels also
+``<wrapper>.route_launches``, and conv_lnl and its backward
+``<wrapper>.shape_launches`` by image shape) and calls :func:`count`
+right after its kernel launched.  Eagerly that adds one.  Inside :func:`tally` it adds
 nothing and appends the launch to the tally instead: the sampler
 captures its CUDA graphs inside one, so that a capture, which executes
 nothing, counts nothing, and each replay adds the tally it kept
@@ -21,22 +22,23 @@ __all__ = ["count", "tally", "add"]
 _tally = None
 
 
-def count(fn, route=None):
+def count(fn, route=None, shape=None):
     """One launch of the wrapper ``fn`` (on ``route``, a likelihood
-    kernel's): counted now, appended to the open tally, or, under a
-    capture without a tally, not counted."""
+    kernel's, at the image ``shape`` where the wrapper counts by shape):
+    counted now, appended to the open tally, or, under a capture without
+    a tally, not counted."""
     if _tally is not None:
-        _tally.append((fn, route))
+        _tally.append((fn, route, shape))
         return
     if torch.cuda.is_current_stream_capturing():
         return
-    add([(fn, route)])
+    add([(fn, route, shape)])
 
 
 @contextlib.contextmanager
 def tally():
-    """Collect the launches made inside (a list of ``(wrapper, route)``)
-    instead of counting them."""
+    """Collect the launches made inside (a list of ``(wrapper, route,
+    shape)``) instead of counting them."""
     global _tally
     outer, _tally = _tally, []
     try:
@@ -47,7 +49,9 @@ def tally():
 
 def add(launches):
     """Count a tally's launches: what one replay of its graph executed."""
-    for fn, route in launches:
+    for fn, route, shape in launches:
         fn.launches += 1
         if route is not None:
             fn.route_launches[route] += 1
+        if shape is not None:
+            fn.shape_launches[shape] = fn.shape_launches.get(shape, 0) + 1

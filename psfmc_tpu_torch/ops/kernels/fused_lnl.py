@@ -7,10 +7,12 @@ with the PSF and its square with the PSF variance map, and reduce the
 masked Gaussian lnL, all in one kernel (``csrc/fused_lnl.cu``) that keeps
 the walker's images in shared memory and writes one float per walker.
 The source has the two routes of ``csrc/conv_lnl.cu``, picked from the
-shape alone by :func:`~psfmc_tpu_torch.ops.kernels.conv_lnl.conv_route`:
-``"fft"`` (both sizes powers of two; one complex FFT pair in shared
-memory, ``csrc/fft_conv.cuh``) or ``"dft"`` (the matmul-DFT products in
-three shared-memory buffers).
+shape alone by :func:`fused_route`: ``"fft"`` (both sizes powers of
+two; one complex FFT pair in shared memory, ``csrc/fft_conv.cuh``'s
+radix-2 geometry) or ``"dft"`` (the matmul-DFT products in three
+shared-memory buffers).  conv_lnl's FFT route also takes sides with
+factors 3 and 5; the fused kernel's does not yet, so 96x96 stays on its
+matmul-DFT route.
 
 The per-walker scalar preparation stays in torch, as in the JAX wrapper:
 the packed Sersic rows (:func:`~psfmc_tpu_torch.ops.sersic.sersic_scalar_params`),
@@ -55,6 +57,7 @@ __all__ = [
     "fused_lnl_smem_bytes",
     "fused_lnl_fft_smem_bytes",
     "fused_lnl_supported",
+    "fused_route",
 ]
 
 # Shared memory a block may use on Hopper, less the matmul-DFT route's
@@ -65,6 +68,13 @@ FUSED_FFT_SMEM_LIMIT = BLOCK_SMEM_LIMIT - _FFT_STATIC_SMEM
 
 _SHAPE_ATTRS = {"c0", "f1", "f2", "f3", "f4", "b1", "b2", "b3",
                 "rtrunc", "rtrunc_in", "rot_ang"}
+
+
+def fused_route(shape):
+    """``"fft"`` or ``"dft"``: the fused kernel's route for an ``(H, W)``
+    image, :func:`~psfmc_tpu_torch.ops.kernels.conv_lnl.conv_route` with
+    radix 2 only (both sides powers of two)."""
+    return conv_route(shape, radices=(2,))
 
 
 def fused_lnl_smem_bytes(shape, num_sersic, num_ps):
@@ -93,7 +103,7 @@ def fused_lnl_supported(spec):
     The JAX package's gate (component kinds whitelisted, flat sky,
     elliptical Sersics, one PSF, Gaussian likelihood, no padding, no
     oversampling), plus the port's own limit: one walker must fit in a
-    block's shared memory on the route its shape takes (``conv_route``):
+    block's shared memory on the route its shape takes (:func:`fused_route`):
     the three image buffers of the matmul-DFT route (up to about
     137x137), or the one complex image of the FFT route (128x128,
     64x256, 2048x8, ...).
@@ -119,7 +129,7 @@ def fused_lnl_supported(spec):
             return False, what
     nser = sum(cs.kind == "sersic" for cs in specs)
     nps = sum(cs.kind == "pointsource" for cs in specs)
-    route = conv_route(spec.shape)
+    route = fused_route(spec.shape)
     need = _ROUTES[route][2](tuple(spec.shape), nser, nps)
     limit = FUSED_FFT_SMEM_LIMIT if route == "fft" else FUSED_SMEM_LIMIT
     if need > limit:
@@ -204,7 +214,7 @@ def fused_lnl(packed, sky, fky, kx, consts: ConvLnlConsts):
         return fused_lnl_plain(packed, sky, fky, kx, consts)
     if packed.device.type != "cuda":
         raise ValueError(f"unsupported device {packed.device}")
-    route = conv_route(consts.shape)
+    route = fused_route(consts.shape)
     out = _launch(packed, sky, fky, kx, consts, route)
     counts.count(fused_lnl, route)
     return out

@@ -176,15 +176,20 @@ def test_render_tiled_raises_on_the_card_too(cuda):
 
 # (shape, PSF shape, point sources, route): the FFT route where both sizes
 # are powers of two, the matmul-DFT route elsewhere
+# shape, PSF, point sources, conv_lnl's route, the fused kernel's route
 LIKELIHOOD_CASES = [
-    ((128, 128), (64, 64), True, "fft"),
-    ((64, 64), (32, 32), True, "fft"),
-    ((64, 64), (32, 32), False, "fft"),
-    ((64, 128), (32, 32), True, "fft"),  # non-square: two line lengths
-    ((45, 37), (16, 16), True, "dft"),  # odd sizes: W2 = 19, ragged warps
-    ((96, 96), (48, 48), True, "dft"),
+    ((128, 128), (64, 64), True, "fft", "fft"),
+    ((64, 64), (32, 32), True, "fft", "fft"),
+    ((64, 64), (32, 32), False, "fft", "fft"),
+    ((64, 128), (32, 32), True, "fft", "fft"),  # non-square: two line lengths
+    ((45, 37), (16, 16), True, "dft", "dft"),  # odd sizes: W2 = 19, ragged warps
+    # 3 x 2^5: conv_lnl's mixed-radix geometry; the fused kernel's FFT
+    # route takes powers of two only
+    ((96, 96), (48, 48), True, "fft", "dft"),
+    ((100, 100), (50, 50), True, "fft", "dft"),  # 5^2 x 2^2
+    ((98, 98), (48, 48), True, "dft", "dft"),  # a factor of 7
 ]
-LIKELIHOOD_IDS = ["128", "64", "64-no-ps", "64x128", "45x37", "96"]
+LIKELIHOOD_IDS = ["128", "64", "64-no-ps", "64x128", "45x37", "96", "100", "98"]
 
 
 def _likelihood_inputs(cuda, shape, psf_shape, point_sources, lnpost, seed):
@@ -205,10 +210,10 @@ def _assert_launched_on(fn, route, before, routes_before):
     assert fn.route_launches == routes_before
 
 
-@pytest.mark.parametrize("shape,psf_shape,point_sources,route",
+@pytest.mark.parametrize("shape,psf_shape,point_sources,route,fused_route",
                          LIKELIHOOD_CASES, ids=LIKELIHOOD_IDS)
 def test_conv_lnl_kernel_matches_plain(cuda, shape, psf_shape, point_sources,
-                                       route):
+                                       route, fused_route):
     post, params, sky, fky, kx = _likelihood_inputs(
         cuda, shape, psf_shape, point_sources, "batched", 5)
     raws = SR.render_sersics(params.contiguous(), sky.contiguous(), shape) \
@@ -251,12 +256,55 @@ def test_conv_lnl_fft_route_keeps_the_non_finite_walkers(cuda):
     torch.testing.assert_close(got[fin], want[fin], rtol=2e-5, atol=0.0)
 
 
+MIXED_CASES = [((96, 96), (48, 48)), ((100, 100), (50, 50)),
+               ((96, 128), (48, 64)), ((144, 144), (72, 72))]
+MIXED_IDS = ["96", "100", "96x128", "144"]
+
+
+@pytest.mark.parametrize("shape,psf_shape", MIXED_CASES, ids=MIXED_IDS)
+def test_conv_lnl_mixed_radix_matches_float64(cuda, shape, psf_shape):
+    """conv_lnl on the mixed-radix geometry of the FFT route at 125
+    walkers: one launch on the ``"fft"`` route per call (counted at its
+    shape), per walker within 2e-5 of the float64 plain version, a NaN
+    and an infinite walker -inf as in the float32 plain version, and the
+    same bits on every launch."""
+    spec = build_model_spec(flagship_components(shape, psf_shape))
+    post = build_posterior(spec, device=cuda, lnpost="batched")
+    th = torch.as_tensor(prior_draws(spec, 125, seed=8), dtype=torch.float32,
+                         device=cuda)
+    raws = post.raw_and_ps(th)[0].contiguous()
+    raws[3, 5, 7] = float("nan")
+    raws[40, 20, 3] = float("inf")
+    assert CL.conv_route(shape) == "fft" and post.consts.fft_layout.numel() > 0
+    before = CL.batched_conv_lnl.launches
+    routes = dict(CL.batched_conv_lnl.route_launches)
+    at_shape = CL.batched_conv_lnl.shape_launches.get(tuple(shape), 0)
+    got = CL.batched_conv_lnl(raws, post.consts)
+    torch.cuda.synchronize()
+    _assert_launched_on(CL.batched_conv_lnl, "fft", before, routes)
+    assert CL.batched_conv_lnl.shape_launches[tuple(shape)] == at_shape + 1
+    assert _same_nonfinite(got, CL.batched_conv_lnl_plain(raws, post.consts))
+    assert torch.isinf(got[3]) and torch.isinf(got[40])
+    c64 = build_posterior(spec, device="cpu", dtype=torch.float64,
+                          lnpost="batched").consts
+    want = CL.batched_conv_lnl_plain(raws.double().cpu(), c64).to(cuda)
+    fin = torch.isfinite(want)
+    assert fin.sum().item() >= 120
+    torch.testing.assert_close(got[fin].double(), want[fin], rtol=2e-5, atol=0.0)
+    assert torch.equal(got, CL.batched_conv_lnl(raws, post.consts))
+
+
 @pytest.mark.parametrize("shape", [(2, 2), (4, 8), (8, 4), (16, 16), (32, 512),
-                                   (512, 32), (256, 64), (64, 256)],
+                                   (512, 32), (256, 64), (64, 256),
+                                   (6, 10), (12, 48), (54, 50), (486, 2),
+                                   (24, 20), (250, 30), (96, 128)],
                          ids=lambda s: f"{s[0]}x{s[1]}")
 def test_conv_lnl_fft_route_at_every_depth_of_pass(cuda, shape):
     """Line lengths from 2 to 512: one to three register passes of one to
-    four stages each, and a twiddle table longer than the shorter line."""
+    four stages each, and a twiddle table longer than the shorter line;
+    then the mixed-radix geometry: every pass the plan makes (a radix-3
+    or -5 stage alone or with one or two radix-2 stages, one to four
+    radix-2 stages), up to five passes a line (486 = 2 x 3^5)."""
     h, w = shape
     rng = np.random.RandomState(h * 1000 + w)
     ph, pw = max(h // 2, 1), max(w // 2, 1)
@@ -289,12 +337,13 @@ def test_conv_lnl_fft_route_at_every_depth_of_pass(cuda, shape):
     torch.testing.assert_close(got, want, rtol=2e-5, atol=0.0)
 
 
-@pytest.mark.parametrize("shape,psf_shape,point_sources,route",
+@pytest.mark.parametrize("shape,psf_shape,point_sources,conv_route,route",
                          LIKELIHOOD_CASES, ids=LIKELIHOOD_IDS)
 def test_fused_lnl_kernel_matches_plain(cuda, shape, psf_shape, point_sources,
-                                        route):
+                                        conv_route, route):
     post, params, sky, fky, kx = _likelihood_inputs(
         cuda, shape, psf_shape, point_sources, "fused", 7)
+    assert FL.fused_route(shape) == route
     before = FL.fused_lnl.launches
     routes_before = dict(FL.fused_lnl.route_launches)
     got = FL.fused_lnl(params, sky, fky, kx, post.consts)
@@ -486,7 +535,7 @@ def test_a_capture_counts_nothing_and_moves_nothing(flagship):
     assert [f.launches for f in COUNTED] == before
     assert torch.equal(s.state.positions, pos)
     assert torch.equal(s.generator.get_state(), rng)
-    assert [f for f, _ in graph.launches] == [SR.render_sersics, CL.batched_conv_lnl] * 2
+    assert [f for f, *_ in graph.launches] == [SR.render_sersics, CL.batched_conv_lnl] * 2
     graph.replay()
     torch.cuda.synchronize()
     assert [f.launches - n for f, n in zip(COUNTED, before)] == [2, 2, 0]
@@ -742,11 +791,13 @@ def test_priors_graphed_phase_is_bit_identical_to_eager(cuda, variant):
     assert g_launches == e_launches == [1 + 20 + 6, 1 + 20, 0]
 
 
-def _joint(device, variant="flagship"):
+def _joint(device, variant="flagship", band1=(56, 56)):
+    """The joint flagship at 64x64 and ``band1``: by default 56x56, a
+    factor of 7, on conv_lnl's matmul-DFT route."""
     from psfmc_tpu_torch.flagship import joint_components
     from psfmc_tpu_torch.models import JointModel
 
-    model = JointModel(joint_components(((64, 64), (48, 48)), (32, 32), variant),
+    model = JointModel(joint_components(((64, 64), band1), (32, 32), variant),
                        device=device)
     return model.spec, model.posterior_fns
 
@@ -754,7 +805,7 @@ def _joint(device, variant="flagship"):
 @pytest.mark.parametrize("variant", ["flagship", "general", "offset"])
 def test_joint_graphed_phase_is_bit_identical_to_eager(cuda, variant):
     """The joint flagship's ten steps (band 0 at 64x64 on conv_lnl's FFT
-    route, band 1 at 48x48 on its matmul-DFT route, both in one captured
+    route, band 1 at 56x56 on its matmul-DFT route, both in one captured
     step) as graph replays and eagerly: the same state bit for bit, and
     each kernel's launches exact, per band and route."""
     spec, post = _joint(cuda, variant)
@@ -767,7 +818,7 @@ def test_joint_graphed_phase_is_bit_identical_to_eager(cuda, variant):
     assert graphed.graph_replays == 10 and eager.graph_replays == 0
     _assert_same_state(graphed, eager)
     assert sorted(graphed.state.accum) == sorted(post.carry_image_shapes())
-    assert graphed.state.accum["b1_raw"].shape == (48, 48)
+    assert graphed.state.accum["b1_raw"].shape == (56, 56)
     batched = paths[0] == "batched"
     assert g_launches == e_launches == [2 * (1 + 20 + 6), 2 * (1 + 20) * batched, 0]
     if batched:  # each band's conv_lnl on its route, in both runs
@@ -847,10 +898,14 @@ def test_render_backward_matches_plain(cuda, shape, count):
 
 
 @pytest.mark.parametrize("shape,psf_shape,route",
-                         [((128, 128), (64, 64), "fft"), ((96, 96), (48, 48), "dft"),
-                          ((45, 37), (16, 16), "dft")], ids=["128", "96", "45x37"])
+                         [((128, 128), (64, 64), "fft"), ((96, 96), (48, 48), "fft"),
+                          ((45, 37), (16, 16), "dft"), ((100, 100), (50, 50), "fft"),
+                          ((96, 128), (48, 64), "fft"), ((144, 144), (72, 72), "fft"),
+                          ((98, 98), (48, 48), "dft")],
+                         ids=["128", "96", "45x37", "100", "96x128", "144", "98"])
 def test_conv_lnl_backward_matches_plain(cuda, shape, psf_shape, route):
-    """conv_lnl's backward kernel on both routes at 125 walkers against
+    """conv_lnl's backward kernel on both routes (the FFT route's radix-2
+    and mixed-radix geometries) at 125 walkers against
     the float64 plain backward: per walker within 1e-3 of its largest
     pixel gradient (float32 residuals of a 0.005-noise image carry about
     2e-5 of themselves; the FFT's and GEMMs' rounding come on top); the
@@ -953,7 +1008,7 @@ def test_map_adam_steps_graphed_are_bit_identical_to_eager(flagship):
 
 def test_joint_map_runs_the_dft_backward_inside_the_graph(cuda):
     """fit_map on the joint flagship (band 0 at 64x64: FFT route; band 1
-    at 48x48: matmul-DFT route): each captured Adam step launches each
+    at 56x56: matmul-DFT route): each captured Adam step launches each
     band's conv_lnl and its backward once on its route."""
     from psfmc_tpu_torch.optimize import fit_map
 
@@ -968,6 +1023,38 @@ def test_joint_map_runs_the_dft_backward_inside_the_graph(cuda):
     for i, n in ((4, 5), (5, 4)):  # conv_lnl forward, backward: by route
         assert {r: after[i][r] - before[i][r] for r in ("fft", "dft")} == \
             {"fft": n, "dft": n}
+
+
+def test_joint_map_runs_the_mixed_radix_band_inside_the_graph(cuda):
+    """fit_map on the joint flagship with band 1 at 48x48 (3 x 2^4: the
+    FFT route's mixed-radix geometry): each captured Adam step launches
+    both bands' conv_lnl and backward on the FFT route, band 1's counted
+    at its shape; replayed and eager Adam steps agree bit for bit."""
+    import contextlib
+
+    from psfmc_tpu_torch import optimize
+
+    spec, post = _joint(cuda, band1=(48, 48))
+    assert CL.conv_route(post.band_fns[1].shape) == "fft"
+    runs = []
+    for eager in (False, True):
+        before = _map_counts()
+        at48 = [fn.shape_launches.get((48, 48), 0)
+                for fn in (CL.batched_conv_lnl, CL.batched_conv_lnl_backward)]
+        with optimize._eager(post) if eager else contextlib.nullcontext():
+            res = optimize.fit_map(post, n_starts=4, steps=3, seed=3)
+        torch.cuda.synchronize()
+        after = _map_counts()
+        assert np.isfinite(res.lnpost)
+        assert [a - b for a, b in zip(after[:4], before[:4])] == [10, 8, 10, 8]
+        for i, n in ((4, 10), (5, 8)):  # every launch on the FFT route
+            assert {r: after[i][r] - before[i][r] for r in ("fft", "dft")} == \
+                {"fft": n, "dft": 0}
+        assert [fn.shape_launches[(48, 48)] - b for fn, b in zip(
+            (CL.batched_conv_lnl, CL.batched_conv_lnl_backward), at48)] == [5, 4]
+        runs.append(res)
+    _same_bits(runs[0].all_theta, runs[1].all_theta)
+    _same_bits(runs[0].all_lnpost, runs[1].all_lnpost)
 
 
 def test_a_failed_backward_build_raises(flagship, monkeypatch):

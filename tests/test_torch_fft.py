@@ -3,9 +3,10 @@
 The CUDA kernels of ``csrc/fft_conv.cuh`` run only on the card; what runs
 here is their scheme written once more in plain PyTorch
 (``packed_fft_conv_plain``) and their butterfly schedule
-(``fft_stages_plain``), held against ``torch.fft``, against the JAX
-package's convolutions and against its batched conv+lnL Pallas kernel in
-interpret mode.  Inputs come from numpy seeds; every tolerance is stated
+(``fft_stages_plain``: radix-2 stages for powers of two, radix-2, -3 and
+-5 stages in ``fft_plan``'s order otherwise), held against ``torch.fft``,
+against the JAX package's convolutions and against its batched conv+lnL
+Pallas kernel in interpret mode.  Inputs come from numpy seeds; every tolerance is stated
 where it is asserted (``jax_enable_x64`` is on in this suite).
 """
 import numpy as np
@@ -24,6 +25,8 @@ from psfmc_tpu_torch.ops.likelihood import gaussian_lnlike
 from test_torch_kernels import _jax_flagship_spec
 
 SHAPES = [(16, 16), (32, 32), (16, 64), (64, 8)]
+# even sides with factors 3 and 5: the mixed-radix geometry of the route
+MIXED_SHAPES = [(96, 96), (100, 100), (96, 128), (144, 144), (24, 20)]
 DTYPES = {"f64": (np.float64, torch.float64, torch.complex128),
           "f32": (np.float32, torch.float32, torch.complex64)}
 
@@ -35,42 +38,56 @@ def _complex_images(seed, shape, cdt):
 
 
 def _twiddles(shape, np_dt):
-    return torch.as_tensor(CL.fft_twiddles(max(shape), np_dt))
+    """The twiddle array the kernel reads at ``shape``."""
+    return torch.as_tensor(CL.fft_tables(shape, np_dt)[0])
 
 
-@pytest.mark.parametrize("n", [2, 8, 128, 512])
+def _ids(shape):
+    return f"{shape[0]}x{shape[1]}"
+
+
+@pytest.mark.parametrize("n", [2, 8, 128, 512, 6, 20, 24, 96, 100, 144])
 def test_twiddle_table_is_float64_cos_sin(n):
-    k = np.arange(n // 2)
+    """Half the circle for a power of two; off powers of two all ``n``
+    roots (a radix-3 or -5 stage's output ``p`` reads entry ``p j``)."""
+    entries = n // 2 if n & (n - 1) == 0 else n
+    k = np.arange(entries)
     want = np.stack([np.cos(2 * np.pi * k / n), -np.sin(2 * np.pi * k / n)], 1)
     np.testing.assert_array_equal(CL.fft_twiddles(n, np.float64), want)
     # the float32 table is the float64 one, rounded once
     np.testing.assert_array_equal(CL.fft_twiddles(n), want.astype(np.float32))
-    assert CL.fft_twiddles(n).shape == (n // 2, 2)
+    assert CL.fft_twiddles(n).shape == (entries, 2)
 
 
 def test_twiddle_table_needs_a_power_of_two():
-    with pytest.raises(ValueError, match="power of two"):
-        CL.fft_twiddles(96)
+    """The table needs an even size with no prime factor above 5 (a
+    power of two, or 96, 100, ...); 98, 45 and 74 take the matmul-DFT
+    route and have none."""
+    for n in (98, 45, 74, 7):
+        with pytest.raises(ValueError, match="5-smooth"):
+            CL.fft_twiddles(n)
+    assert CL.fft_twiddles(96).shape == (96, 2)
 
 
-@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("shape", SHAPES + MIXED_SHAPES, ids=_ids)
 @pytest.mark.parametrize("dt", ["f64", "f32"])
 def test_fft_stages_forward_matches_fft2(shape, dt):
     np_dt, _, cdt = DTYPES[dt]
     z = _complex_images(31, shape, cdt)
     got = CL.fft_stages_plain(z, _twiddles(shape, np_dt))
-    # bin (ky, kx) sits at the bit-reversed row and column
-    rows, cols = CL.bit_reversed(shape[0]), CL.bit_reversed(shape[1])
+    # bin (ky, kx) sits at the digit-reversed row and column (for powers
+    # of two the bit reversal)
+    rows, cols = CL.digit_reversed(shape[0]), CL.digit_reversed(shape[1])
     got = got[..., rows, :][..., cols]
     want = torch.fft.fft2(z)
-    # float64: rtol 1e-12 of the spectrum's peak; float32: 2e-6 (log2 N
-    # stages of float32 rounding)
+    # float64: rtol 1e-12 of the spectrum's peak; float32: 2e-6 (a stage
+    # of float32 rounding per radix, log2 N stages at most)
     tol = 1e-12 if dt == "f64" else 2e-6
     peak = want.abs().max().item()
     torch.testing.assert_close(got, want, rtol=tol, atol=tol * peak)
 
 
-@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("shape", SHAPES + MIXED_SHAPES, ids=_ids)
 @pytest.mark.parametrize("dt", ["f64", "f32"])
 def test_fft_stages_inverse_undoes_forward(shape, dt):
     np_dt, _, cdt = DTYPES[dt]
@@ -80,9 +97,11 @@ def test_fft_stages_inverse_undoes_forward(shape, dt):
     back = CL.fft_stages_plain(spectrum, tw, inverse=True) / (shape[0] * shape[1])
     tol = 1e-12 if dt == "f64" else 4e-6
     torch.testing.assert_close(back, z, rtol=tol, atol=tol * z.abs().max().item())
-    # and on its own: the inverse of a bit-reversed fft2 is H W ifft2
-    rows, cols = CL.bit_reversed(shape[0]), CL.bit_reversed(shape[1])
-    permuted = torch.fft.fft2(z)[..., rows, :][..., cols]
+    # and on its own: the inverse of a digit-reversed fft2 is H W ifft2
+    rows, cols = CL.digit_reversed(shape[0]), CL.digit_reversed(shape[1])
+    layout = torch.fft.fft2(z)
+    permuted = torch.empty_like(layout)
+    permuted[..., rows[:, None], cols[None, :]] = layout
     back = CL.fft_stages_plain(permuted, tw, inverse=True) / (shape[0] * shape[1])
     torch.testing.assert_close(back, z, rtol=tol, atol=tol * z.abs().max().item())
 
@@ -104,6 +123,64 @@ def test_bit_reversed_is_an_involution():
     np.testing.assert_array_equal(CL.bit_reversed(8), [0, 4, 2, 6, 1, 5, 3, 7])
 
 
+@pytest.mark.parametrize("n,plan", [
+    (96, ((3, 2, 2), (2, 2, 2))), (100, ((5, 2), (5, 2))),
+    (144, ((3, 2, 2), (3, 2, 2))), (120, ((5, 2), (3, 2, 2))),
+    (24, ((3, 2, 2), (2,))), (20, ((5, 2), (2,))), (6, ((3, 2),)),
+    (128, ((2, 2, 2, 2), (2, 2, 2))), (2, ((2,),)),
+    (250, ((5,), (5,), (5, 2))),
+])
+def test_fft_plan_passes_end_in_radix_two(n, plan):
+    """Each radix-3 or -5 stage opens a register pass of at most 16
+    elements; the last stage is radix 2 (so that bins kx < W/2 are the
+    even column positions); a power of two keeps the radix-2 route's
+    passes."""
+    assert CL.fft_plan(n) == plan
+    assert plan[-1][-1] == 2
+    assert all(int(np.prod(p)) <= 16 for p in plan)
+    assert int(np.prod([r for p in plan for r in p])) == n
+
+
+def test_digit_reversed_is_the_layout():
+    """Bin k = p0 + r0 p1 + r0 r1 p2 + ... sits at p0 N/r0 + p1 N/(r0 r1)
+    + ...: at 12 (stages 3, 2, 2) bin 1 is at 4 and bin 3 at 2; a
+    permutation that is the bit reversal for powers of two, whose even
+    positions hold exactly the bins below N/2."""
+    np.testing.assert_array_equal(CL.digit_reversed(12),
+                                  [0, 4, 8, 2, 6, 10, 1, 5, 9, 3, 7, 11])
+    for n in (2, 6, 20, 24, 96, 100, 144, 128):
+        pos = CL.digit_reversed(n)
+        assert sorted(pos) == list(range(n))
+        assert set(np.arange(n)[pos % 2 == 0]) == set(range(n // 2))
+        assert pos[n // 2] == 1
+    for n in (2, 16, 128):
+        np.testing.assert_array_equal(CL.digit_reversed(n), CL.bit_reversed(n))
+
+
+@pytest.mark.parametrize("shape", MIXED_SHAPES, ids=_ids)
+def test_fft_layout_tables(shape):
+    """The kernel's int tables: the first entry of W's twiddles, each
+    axis's pass codes, and per axis bin -> position and its inverse."""
+    h, w = shape
+    lay = CL.fft_layout(shape)
+    assert lay.dtype == np.int32 and lay.shape == (20 + 2 * (h + w),)
+    assert lay[0] == CL.fft_twiddles(h).shape[0]
+    for at, n in ((1, h), (10, w)):
+        plan = CL.fft_plan(n)
+        codes = [16 * (p[0] if p[0] != 2 else 1) + p.count(2) for p in plan]
+        assert lay[at] == len(plan)
+        np.testing.assert_array_equal(lay[at + 1:at + 1 + len(plan)], codes)
+    tables = np.split(lay[20:], np.cumsum([h, h, w]))
+    for pos, bins, n in ((tables[0], tables[1], h), (tables[2], tables[3], w)):
+        np.testing.assert_array_equal(pos, CL.digit_reversed(n))
+        np.testing.assert_array_equal(bins[pos], np.arange(n))
+    twiddle, layout = CL.fft_tables(shape)
+    np.testing.assert_array_equal(layout, lay)
+    assert twiddle.shape == (lay[0] + CL.fft_twiddles(w).shape[0], 2)
+    assert CL.fft_smem_bytes(shape) == (8 * (h * (w + 1) + twiddle.shape[0])
+                                        + 4 * lay.size)
+
+
 def _consts(rng, shape, t_dt, psf_var_level=1e-8):
     h, w = shape
     psf = np.exp(-((np.mgrid[0:8, 0:8] - 4.0) ** 2).sum(0) / (2 * 1.5**2))
@@ -118,7 +195,7 @@ def _consts(rng, shape, t_dt, psf_var_level=1e-8):
     return consts, f_psf, f_var
 
 
-@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("shape", SHAPES + MIXED_SHAPES[:3], ids=_ids)
 @pytest.mark.parametrize("dt", ["f64", "f32"])
 def test_packed_fft_conv_matches_jax_convolutions(shape, dt):
     np_dt, t_dt, _ = DTYPES[dt]
@@ -226,6 +303,107 @@ def test_packed_fft_lnl_matches_pallas_batched(monkeypatch):
                                atol=1e-5 * raws.max())
 
 
+def _warp_ways(slots):
+    """Shared-memory wavefronts of one warp's float2 accesses at these
+    float2 slots (32 banks of 4 bytes; the most distinct words any bank
+    is asked for), over the 2 that 32 8-byte accesses need at least."""
+    words = np.concatenate([2 * slots, 2 * slots + 1])
+    return max(len(set(words[words % 32 == b])) for b in range(32)) / 2
+
+
+def _pair_step_ways(shape):
+    """(mean, worst) ways of each warp's bin read and partner read in
+    ``csrc/fft_conv.cuh``'s mixed_pair_step: lanes on consecutive even
+    column positions of the digit-reversed layout, row pitch W + 1."""
+    h, w = shape
+    lay = CL.fft_layout(shape).astype(np.int64)
+    pos_h, bin_h, pos_w, bin_w = np.split(lay[20:], np.cumsum([h, h, w]))
+    wh = w // 2
+    ways = []
+    for t0 in range(0, h * wh, 32):
+        t = np.arange(t0, min(t0 + 32, h * wh))
+        r, c = t // wh, 2 * (t % wh)
+        ky, kx = bin_h[r], bin_w[c]
+        own = ~((kx == 0) & (ky > h // 2))
+        mine = r * (w + 1) + c
+        partner = pos_h[(-ky) % h] * (w + 1) + pos_w[(-kx) % w]
+        ways.append((_warp_ways(mine[own]), _warp_ways(partner[own])))
+    ways = np.array(ways)
+    return ways.mean(0), ways.max(0)
+
+
+@pytest.mark.parametrize("shape,worst_partner", [
+    ((96, 96), 2.0), ((100, 100), 3.0), ((144, 144), 2.5), ((96, 128), 2.0)],
+    ids=lambda v: _ids(v) if isinstance(v, tuple) else str(v))
+def test_mixed_pair_step_keeps_the_two_way_bound(shape, worst_partner):
+    """The pointwise step on the digit-reversed layout reads each warp's
+    own bins at most 2-way (the power-of-two step's swizzle bound; 1.67
+    on average at 96x96, 1.79 at 100x100) and their partners at most
+    ``worst_partner``-way (1.67 and 2.09 on average)."""
+    mean, worst = _pair_step_ways(shape)
+    assert worst[0] <= 2.0 and mean[0] <= 2.0
+    assert worst[1] == worst_partner
+    if shape == (96, 96):
+        np.testing.assert_allclose(mean, [1.6667, 1.6701], atol=1e-4)
+    if shape == (100, 100):
+        np.testing.assert_allclose(mean, [1.7930, 2.0924], atol=1e-4)
+
+
+def _staged_conv(raws, consts):
+    """``(conv, mvar)`` by the kernel's own steps on the mixed-radix
+    geometry, in plain PyTorch: the pack, ``fft_stages_plain`` (the
+    digit-reversed layout), the pointwise step addressed through the
+    layout's tables (the bin at each position, its partner's position),
+    the inverse stages on that layout and the shifted readout."""
+    h, w = consts.shape
+    lay = consts.fft_layout.numpy().astype(np.int64)
+    pos_h, bin_h, pos_w, bin_w = np.split(lay[20:], np.cumsum([h, h, w]))
+    exponent, _ = CL._peak_exponent(raws)
+    s = torch.ldexp(torch.ones_like(raws[:, 0, 0]), -exponent)[:, None, None]
+    z = CL.fft_stages_plain(torch.complex(raws, (raws * raws) * s), consts.twiddle)
+    partner = z[..., pos_h[(-bin_h) % h], :][..., pos_w[(-bin_w) % w]].conj()
+    a = 0.5 * (z + partner)
+    b = -0.5j * (z - partner)
+    kpsf = CL._full_spectrum(consts.psf_r, consts.psf_i, w)[bin_h][:, bin_w]
+    kvar = CL._full_spectrum(consts.var_r, consts.var_i, w)[bin_h][:, bin_w]
+    y = CL.fft_stages_plain(a * kpsf + 1j * b * (kvar * consts.var_gain),
+                            consts.twiddle, inverse=True) / (h * w)
+    y = torch.roll(y, shifts=(-(h // 2), -(w // 2)), dims=(-2, -1))
+    return y.real, y.imag / (s * consts.var_gain)
+
+
+@pytest.mark.parametrize("shape", [(24, 20), (30, 36)], ids=_ids)
+def test_mixed_radix_lnl_matches_pallas_batched(monkeypatch, shape):
+    """The lnL through the mixed-radix schedule and layout (and through
+    the packed scheme) against the JAX package's batched conv+lnL Pallas
+    kernel (interpret mode, true-fp32 products), rtol 1e-5, float32 on
+    both sides."""
+    monkeypatch.setenv("PSFMC_LNPOST_DOT", "highest")
+    rng = np.random.RandomState(39)
+    spec = _jax_flagship_spec(rng, shape)
+    constants = jax_posterior(spec).constants
+    raws = (0.1 + np.abs(rng.randn(6, *spec.shape)) * 0.5).astype(np.float32)
+    lnl_jax = make_batched_conv_lnl(constants, spec, jnp.float32, tile=2)
+    want = np.asarray(lnl_jax(jnp.asarray(raws)))
+
+    consts = CL.make_conv_lnl_consts(
+        spec.f_psf_stack[0], spec.f_var_stack[0], spec.obs_data,
+        spec.obs_var, ~spec.bad_px, "cpu", torch.float32,
+    )
+    assert CL.conv_route(consts.shape) == "fft"
+    assert consts.fft_layout.numel() > 0
+    for conv, mvar in (_staged_conv(torch.as_tensor(raws), consts),
+                       CL.packed_fft_conv_plain(torch.as_tensor(raws), consts)):
+        got = gaussian_lnlike(consts.obs - conv, 1.0 / (mvar + consts.obs_var),
+                              consts.good).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+# even sides with factors 3 and 5 that fit a block: the FFT route of
+# conv_lnl (and its backward), not of the radix-2 rule
+MIXED_FFT = {(96, 96), (100, 100), (144, 144), (128, 96)}
+
+
 @pytest.mark.parametrize("shape,route", [
     ((128, 128), "fft"), ((64, 64), "fft"), ((64, 128), "fft"),
     ((64, 256), "fft"), ((256, 64), "fft"), ((16, 16), "fft"),
@@ -234,10 +412,18 @@ def test_packed_fft_lnl_matches_pallas_batched(monkeypatch):
     ((144, 144), "dft"), ((128, 96), "dft"), ((1, 64), "dft"),
     # powers of two, but one walker does not fit in a block
     ((128, 256), "dft"), ((256, 256), "dft"), ((512, 512), "dft"),
+    # a factor of 7 or 37, odd sides with factors 3 and 5, too large
+    ((98, 98), "dft"), ((45, 75), "dft"), ((74, 74), "dft"),
+    ((160, 180), "dft"),
 ], ids=lambda v: v if isinstance(v, str) else f"{v[0]}x{v[1]}")
 def test_conv_route_is_a_function_of_the_shape(shape, route):
-    assert CL.conv_route(shape) == route
-    if route == "fft":
+    """``route`` is the radix-2 rule's answer (``radices=(2,)``, the
+    fused kernel's); conv_lnl's own rule answers ``"fft"`` also for the
+    shapes of :data:`MIXED_FFT`, and the same elsewhere."""
+    assert CL.conv_route(shape, radices=(2,)) == route
+    want = "fft" if shape in MIXED_FFT else route
+    assert CL.conv_route(shape) == want
+    if want == "fft":
         assert CL.fft_smem_bytes(shape) <= CL.BLOCK_SMEM_LIMIT
 
 
@@ -272,7 +458,8 @@ def test_fused_gate_measures_the_route_the_shape_takes(shape, route, ok):
     spec = SimpleNamespace(
         shape=shape,
         comp_specs=[SimpleNamespace(kind=k, params=()) for k in kinds])
-    assert CL.conv_route(shape) == route
+    # the fused kernel's own route: powers of two only
+    assert FL.fused_route(shape) == route
     got, why = FL.fused_lnl_supported(spec)
     assert got == ok
     if not ok:
@@ -285,14 +472,27 @@ def test_fused_gate_measures_the_route_the_shape_takes(shape, route, ok):
 
 
 def test_consts_carry_the_twiddles_only_for_powers_of_two():
+    """The FFT route's tables ride on the constants where the shape takes
+    it: one table of max(H, W) and no layout for powers of two, both axes'
+    tables and the int32 layout for the mixed-radix geometry (24x20), none
+    on the matmul-DFT route (98x20: a factor of 7)."""
     rng = np.random.RandomState(38)
     consts, _, _ = _consts(rng, (16, 64), torch.float32)
     assert tuple(consts.twiddle.shape) == (32, 2)
     assert consts.twiddle.dtype == torch.float32
+    assert tuple(consts.fft_layout.shape) == (0,)
     consts, _, _ = _consts(rng, (24, 20), torch.float32)
-    assert tuple(consts.twiddle.shape) == (0, 2)
-    assert CL.conv_route(consts.shape) == "dft"
+    assert tuple(consts.twiddle.shape) == (24 + 20, 2)
+    assert consts.fft_layout.dtype == torch.int32
+    np.testing.assert_array_equal(consts.fft_layout.numpy(),
+                                  CL.fft_layout((24, 20)))
+    assert CL.conv_route(consts.shape) == "fft"
+    consts98, _, _ = _consts(rng, (98, 20), torch.float32)
+    assert tuple(consts98.twiddle.shape) == (0, 2)
+    assert tuple(consts98.fft_layout.shape) == (0,)
+    assert CL.conv_route(consts98.shape) == "dft"
     # a CPU tensor takes the plain version on either route, uncounted
     before = dict(CL.batched_conv_lnl.route_launches)
     CL.batched_conv_lnl(torch.ones((2, 24, 20)), consts)
+    CL.batched_conv_lnl(torch.ones((2, 98, 20)), consts98)
     assert CL.batched_conv_lnl.route_launches == before

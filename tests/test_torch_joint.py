@@ -489,10 +489,11 @@ def test_mixed_shape_checkpoint_is_read_across_packages(tmp_path, writer):
 def test_chip_smoke_joint_phase_rehearses_on_the_cpu(monkeypatch):
     """``chip_smoke.joint_phase`` (the joint fit by ``model_galaxy_mcmc``,
     the second call from the checkpoint, graphed against eager, the steady
-    steps and the three variants) at 32x32 + 24x24 with 60 walkers on the
-    CPU, where the kernel wrappers run their plain versions: each wrapper
-    is counted as the card counts its kernel, by route, so the phase's
-    exact launch checks hold here."""
+    steps and the three variants, the offset variant's band 1 at 28x28) at
+    32x32 + 24x24 with 60 walkers on the CPU, where the kernel wrappers run
+    their plain versions: each wrapper is counted as the card counts its
+    kernel, by route and by shape, so the phase's exact launch checks hold
+    here."""
     import functools
 
     import chip_smoke as cs
@@ -510,13 +511,20 @@ def test_chip_smoke_joint_phase_rehearses_on_the_cpu(monkeypatch):
         @functools.wraps(orig)
         def wrapped(*a, **k):
             wrapped.launches += 1
-            if hasattr(wrapped, "route_launches"):
-                wrapped.route_launches[CL.conv_route(a[-1].shape)] += 1
+            if hasattr(wrapped, "route_launches"):  # consts is the last argument
+                shape = a[-1].shape
+                route = FL.fused_route if name == "fused_lnl" else CL.conv_route
+                wrapped.route_launches[route(shape)] += 1
+                if name == "batched_conv_lnl":
+                    wrapped.shape_launches[shape] = wrapped.shape_launches.get(
+                        shape, 0) + 1
             return orig(*a, **k)
 
         wrapped.launches = 0
         if name in ("batched_conv_lnl", "fused_lnl"):
             wrapped.route_launches = {"fft": 0, "dft": 0}
+        if name == "batched_conv_lnl":
+            wrapped.shape_launches = {}
         monkeypatch.setattr(mod, name, wrapped)
         monkeypatch.setattr(P, name, wrapped)
 
@@ -534,8 +542,14 @@ def test_chip_smoke_joint_phase_rehearses_on_the_cpu(monkeypatch):
     monkeypatch.setattr(cs, "B_HALF", 30)
     assert M.JointModel is J.JointModel
     sampling, variants, on_path, joint = cs.joint_phase(
-        shapes=((32, 32), (24, 24)), psf_shape=(16, 16), device="cpu")
+        shapes=((32, 32), (24, 24)), psf_shape=(16, 16), device="cpu",
+        dft_band=(28, 28))
     assert sampling["render_sersics"] == 2 * (1 + 2 * 40 + 20)
-    assert sampling["batched_conv_lnl:fft"] == sampling["batched_conv_lnl:dft"] == 81
+    # both bands on the FFT route, band 1 (24 = 3 x 2^3) on its mixed-radix
+    # geometry; the offset variant's band 1 (28 = 7 x 2^2) on the
+    # matmul-DFT route
+    assert sampling["batched_conv_lnl:fft"] == 2 * 81
+    assert sampling["batched_conv_lnl:mixed"] == 81
+    assert sampling["batched_conv_lnl:dft"] == 0
     assert variants["render_sersics_tiled"] == 22 and variants["batched_conv_lnl:dft"] == 9
     assert on_path["joint_ms"] == 1.0 and joint.fns.lnpost == ("batched", "batched")

@@ -228,13 +228,20 @@ def test_chip_smoke_priors_phase_rehearses_on_the_cpu(monkeypatch):
         @functools.wraps(orig)
         def wrapped(*a, **k):
             wrapped.launches += 1
-            if hasattr(wrapped, "route_launches"):
-                wrapped.route_launches[CL.conv_route(a[-1].shape)] += 1
+            if hasattr(wrapped, "route_launches"):  # consts is the last argument
+                shape = a[-1].shape
+                route = FL.fused_route if name == "fused_lnl" else CL.conv_route
+                wrapped.route_launches[route(shape)] += 1
+                if name == "batched_conv_lnl":
+                    wrapped.shape_launches[shape] = wrapped.shape_launches.get(
+                        shape, 0) + 1
             return orig(*a, **k)
 
         wrapped.launches = 0
         if name in ("batched_conv_lnl", "fused_lnl"):
             wrapped.route_launches = {"fft": 0, "dft": 0}
+        if name == "batched_conv_lnl":
+            wrapped.shape_launches = {}
         monkeypatch.setattr(mod, name, wrapped)
         monkeypatch.setattr(P, name, wrapped)
 

@@ -70,6 +70,43 @@ def test_gammaincinv_half_newton_matches_jax_and_scipy():
     assert np.isnan(tgammainc.gammaincinv_half(torch.tensor([-1.0])).item())
 
 
+_NEWTON_ITERS_SCRIPT = """
+import jax
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_x64", True)
+import jax.numpy as jnp
+import numpy as np
+import torch
+from psfmc_tpu.ops import gammainc as jgammainc
+from psfmc_tpu_torch.ops import gammainc as tgammainc
+a = np.concatenate([[0.5], np.geomspace(0.2, 60.0, 31)])
+got = tgammainc.gammaincinv_half(torch.as_tensor(a)).numpy()
+want = np.asarray(jgammainc.gammaincinv_half(jnp.asarray(a)))
+np.testing.assert_allclose(got, want, rtol=1e-6)
+print("kappa", got[0], want[0])
+"""
+
+
+@pytest.mark.parametrize("iters", ["1", "2"])
+def test_newton_iters_follow_the_environment(iters):
+    """``PSFMC_NEWTON_ITERS`` sets the Newton iterations of both packages
+    (each reads it at import, hence a fresh interpreter): with 1 or 2
+    iterations the port's kappa is the JAX package's, rtol 1e-6 in
+    float64."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PSFMC_NEWTON_ITERS=iters, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join(
+                   [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    done = subprocess.run([sys.executable, "-c", _NEWTON_ITERS_SCRIPT],
+                          env=env, cwd=root, capture_output=True, text=True,
+                          timeout=300)
+    assert done.returncode == 0, done.stdout + done.stderr
+
+
 def _sersic_args(rng, n):
     return dict(
         xy=np.stack([20 + 20 * rng.rand(n), 20 + 20 * rng.rand(n)], axis=1),

@@ -146,8 +146,8 @@ never ``jax`` nor ``psfmc_tpu``, and:
    the priors) written as FITS files and a model file, through
    ``model_galaxy_map`` (64 starts x 500 Adam steps, Laplace): every Adam
    step a replay of one captured step that launches the render, its
-   backward, conv_lnl and its backward once each (FFT route), exact
-   launches over the run, the MAP beating every pool draw, the five
+   backward, conv_lnl's residual instantiation (route ``fft_res``) and its
+   backward once each (FFT route), exact launches over the run, the MAP beating every pool draw, the five
    products with ``MAPLNP`` and each parameter's card, lnpost at the MAP
    against the CPU's float64, the CPU's float64 fit from the card's best
    start, the positions against the truth, the Laplace std against the
@@ -162,7 +162,12 @@ never ``jax`` nor ``psfmc_tpu``, and:
    against its plain version at 125 walkers with its times (rows
    ``sersic_render_backward``, ``conv_lnl_backward``,
    ``conv_lnl_backward_mixed`` with the matmul-DFT route timed beside it,
-   ``conv_lnl_backward_dft``);
+   ``conv_lnl_backward_dft``), and the forward's residual instantiation
+   that the FFT route's backward reads (rows ``conv_lnl_res`` and
+   ``conv_lnl_res_mixed``: the same lnL bits as conv_lnl, the weights
+   against the float64 plain scheme, the forward without residuals timed
+   beside it), with the forward + backward pair of an Adam step timed
+   against its bound;
 13. prints the kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -336,15 +341,20 @@ def bound(nbytes, nops, nsfu=0):
     return terms[term], "bytes" if term == "bytes" else "operations", term
 
 
+def fft_conv_ops(h, w):
+    """Operations of one circular convolution by real FFTs: a real
+    transform of N points ~2.5 N log2 N, one forward and one inverse,
+    times the given half spectrum (6 per complex bin)."""
+    n = h * w
+    return 5 * n * math.log2(n) + 6 * h * (w // 2 + 1)
+
+
 def conv_lnl_ops(b, h, w):
     """Operations the conv + lnL function needs per launch: the two
-    circular convolutions by real FFTs (a real transform of N points
-    ~2.5 N log2 N, one forward and one inverse per convolution, times the
-    given half spectrum: 6 per complex bin), the squared image, and the
-    lnL reduction."""
+    circular convolutions by real FFTs, the squared image, and the lnL
+    reduction."""
     n = h * w
-    fft_conv = 5 * n * math.log2(n) + 6 * h * (w // 2 + 1)
-    return b * (2 * fft_conv + n + LNL_OPS_PER_PIXEL * n)
+    return b * (2 * fft_conv_ops(h, w) + n + LNL_OPS_PER_PIXEL * n)
 
 
 def dft_matmul_ops(b, h, w):
@@ -764,7 +774,7 @@ def reset_counts(counted):
     for fn in counted:
         fn.launches = 0
         if hasattr(fn, "route_launches"):
-            fn.route_launches.update(fft=0, dft=0)
+            fn.route_launches.update(dict.fromkeys(fn.route_launches, 0))
         if hasattr(fn, "shape_launches"):
             fn.shape_launches.clear()
 
@@ -772,15 +782,21 @@ def reset_counts(counted):
 def read_counts(counted):
     """Launches by wrapper, and by ``<wrapper>:<route>`` for the two
     likelihood kernels; for conv_lnl and its backward also
-    ``<wrapper>:mixed``, those of the FFT route's launches that ran on its
-    mixed-radix geometry (counted by shape)."""
+    ``<wrapper>:<route>:mixed``, those of a route's launches that ran on
+    the FFT route's mixed-radix geometry (counted by route and shape),
+    and ``<wrapper>:mixed``, their sum over the routes."""
     counts = {fn.__name__: fn.launches for fn in counted}
     routes = {f"{fn.__name__}:{r}": n for fn in counted
               for r, n in getattr(fn, "route_launches", {}).items()}
     for fn in counted:
         if hasattr(fn, "shape_launches"):
-            routes[f"{fn.__name__}:mixed"] = sum(
-                n for shape, n in fn.shape_launches.items() if mixed_fft(shape))
+            name = fn.__name__
+            routes[f"{name}:mixed"] = 0
+            routes.update({f"{name}:{r}:mixed": 0 for r in fn.route_launches})
+            for (route, shape), n in fn.shape_launches.items():
+                if mixed_fft(shape):
+                    routes[f"{name}:mixed"] += n
+                    routes[f"{name}:{route}:mixed"] += n
     return counts, routes
 
 
@@ -2170,13 +2186,21 @@ LAPLACE_RTOL = 0.05  # the card's Laplace std against the CPU's float64, per par
 RENDER_BWD_TOL = 1e-4  # per walker and packed scalar, of its largest gradient,
 RENDER_BWD_PLAIN = 4  # ... or this many times the float32 plain version's error
 CONV_BWD_TOL = 1e-3  # per walker, of its largest pixel gradient
+CONV_RES_TOL = 1e-6  # the residual forward's weights, per walker and part, of the
+CONV_RES_PLAIN = 4  # largest weight, or this many times the float32 plain scheme's
 # One pixel of one Sersic in the render's backward (csrc/
 # sersic_render_backward.cu): the forward's 31 operations again and 44 of
-# the vector-Jacobian product, each expf, logf and division counted as
-# one, and 6 special-function results (the two ex2 and four reciprocals);
-# ten float64 additions, counted at the fp32 rate.
+# the vector-Jacobian product, each expf, logf and reciprocal counted as
+# one, and ten accumulations; 4 special-function results (the two ex2 of
+# the expf and the two reciprocals; logf is a polynomial of FMAs).
 RENDER_BWD_OPS_PER_PIXEL = 31 + 44 + 10
-RENDER_BWD_SFU_PER_PIXEL = 6
+RENDER_BWD_SFU_PER_PIXEL = 4
+# The residual forward's weights a and c per pixel (csrc/fft_conv.cuh,
+# RESID): a multiply for a, four multiplies and a subtraction for c.
+RES_OPS_PER_PIXEL = 6
+# The FFT-route backward's combine per pixel: the two scales, 2 raw gc + ga
+# and the walker's gradient.
+BWD_COMBINE_OPS_PER_PIXEL = 5
 
 
 def grad_kernels():
@@ -2229,7 +2253,9 @@ def backward_rows(post, spec):
     card at 125 walkers, with its times and bound: the render's at the
     flagship's 128x128 and at 45x37, conv_lnl's on the FFT route at
     128x128 (radix 2) and 96x96 (mixed radix; the matmul-DFT route timed
-    on the same inputs) and on the matmul-DFT route at 98x98."""
+    on the same inputs), each after the row of the forward's residual
+    instantiation that it reads (:func:`residual_row`) and with the pair's
+    time, and on the matmul-DFT route at 98x98."""
     import torch
 
     from psfmc_tpu_torch.flagship import flagship_components, prior_draws
@@ -2275,6 +2301,9 @@ def backward_rows(post, spec):
                 and keep.sum().item() >= B_HALF // 2):
             raise AssertionError("the render's backward kernel disagrees with "
                                  f"its plain version at {s_.shape}")
+        again = SR.render_sersics_backward(params, sky, s_.shape, grad)
+        if not all(same_bits(x, y) for x, y in zip(again, got)):
+            raise AssertionError("the render's backward: two launches differ")
         timed[label] = (err, abs_err, time_ms(lambda: SR.render_sersics_backward(
             params, sky, s_.shape, grad)), time_ms(
             lambda: SR.render_sersics_backward_plain(params, sky, s_.shape, grad)),
@@ -2282,6 +2311,12 @@ def backward_rows(post, spec):
     err, abs_err, ms, plain_ms, (params, sky, grad) = timed["main"]
     b, s, _ = params.shape
     h, w = spec.shape
+    starts = MAP_STARTS  # the Adam step's batch
+    ms_starts = time_ms(lambda: SR.render_sersics_backward(
+        params[:starts], sky[:starts], spec.shape, grad[:starts]))
+    log(f"render backward: strips x pixels per strip {SR.backward_strips(b, spec.shape)} "
+        f"at {b} walkers, {SR.backward_strips(starts, spec.shape)} at {starts} "
+        f"({ms_starts:.4f} ms)")
     bms, by, term = bound(4 * (params.numel() + sky.numel() + grad.numel()
                                + params.numel() + b),
                           b * h * w * (s * RENDER_BWD_OPS_PER_PIXEL + 1),
@@ -2292,10 +2327,11 @@ def backward_rows(post, spec):
         replaces="psfmc_tpu/ops/pallas/sersic_pallas.py:102 (its gradient)",
         launches=0, max_abs_err=abs_err, max_normalized_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=bms, bound_by=by, bound_term=term,
-        library_ms=None, ragged_ms=timed["ragged"][2],
+        library_ms=None, ragged_ms=timed["ragged"][2], map_starts_ms=ms_starts,
         ragged_normalized_err=timed["ragged"][0]))
 
-    # (b), (c) conv_lnl's backward on both routes
+    # (b), (c) conv_lnl's backward on both routes; on the FFT route it reads
+    # what the forward's residual instantiation wrote (rows conv_lnl_res*)
     mixed_spec = build_model_spec(flagship_components(MIXED_SHAPE, MIXED_PSF_SHAPE))
     dft_spec = build_model_spec(flagship_components(DFT_SHAPE, DFT_PSF_SHAPE))
     for s_, route, name in ((spec, "fft", "conv_lnl_backward"),
@@ -2309,15 +2345,29 @@ def backward_rows(post, spec):
                                device=post.device)
         if CL.conv_route(s_.shape) != route:
             raise AssertionError(f"{s_.shape} does not take the {route} route")
+        c64 = build_posterior(s_, device="cpu", dtype=torch.float64,
+                              lnpost="batched").consts
+        hh, ww = s_.shape
+        n = B_HALF * hh * ww
+        spectra_bytes = 4 * sum(t.numel() for t in (
+            consts.psf_r, consts.psf_i, consts.var_r, consts.var_i))
+        data_bytes = spectra_bytes + 4 * sum(t.numel() for t in (
+            consts.obs, consts.obs_var, consts.good_f))
+        f_psf = torch.as_tensor(s_.f_psf_stack[0], device=post.device).to(torch.complex64)
+        f_var = torch.as_tensor(s_.f_var_stack[0], device=post.device).to(torch.complex64)
+        residuals = None
+        if route == "fft":
+            res_row, residuals = residual_row(
+                "conv_lnl_res" + ("_mixed" if mixed_fft(s_.shape) else ""),
+                raws, consts, c64, lnl, f_psf, f_var, data_bytes)
+            rows.append(res_row)
         routes = dict(CL.batched_conv_lnl_backward.route_launches)
-        got = CL.batched_conv_lnl_backward(raws, consts, lnl, grad)
+        got = CL.batched_conv_lnl_backward(raws, consts, lnl, grad, residuals)
         routes[route] += 1
         if CL.batched_conv_lnl_backward.route_launches != routes:
             raise AssertionError(f"{name} did not launch on the {route} route")
         plain = CL.batched_conv_lnl_backward_plain(raws, consts, lnl, grad)
         same_nonfinite(got, plain)
-        c64 = build_posterior(s_, device="cpu", dtype=torch.float64,
-                              lnpost="batched").consts
         want = CL.batched_conv_lnl_backward_plain(
             raws.double().cpu(), c64, lnl.double().cpu(),
             grad.double().cpu()).to(post.device)
@@ -2329,8 +2379,9 @@ def backward_rows(post, spec):
             f"plain {plain_err:.3e}), walkers compared {int(keep.sum())}")
         if not (err <= CONV_BWD_TOL and keep.sum().item() >= B_HALF // 2):
             raise AssertionError(f"{name} disagrees with its plain version")
-        f_psf = torch.as_tensor(s_.f_psf_stack[0], device=post.device).to(torch.complex64)
-        f_var = torch.as_tensor(s_.f_var_stack[0], device=post.device).to(torch.complex64)
+        if not same_bits(got, CL.batched_conv_lnl_backward(raws, consts, lnl, grad,
+                                                           residuals)):
+            raise AssertionError(f"{name}: two launches differ")
 
         def library():  # autograd through the torch.fft formulation, a yardstick
             x = raws.detach().requires_grad_(True)
@@ -2340,25 +2391,37 @@ def backward_rows(post, spec):
                                       consts.good)
                 return torch.autograd.grad(out, x, grad)[0]
 
-        hh, ww = s_.shape
-        data_bytes = 4 * sum(t.numel() for t in (
-            consts.psf_r, consts.psf_i, consts.var_r, consts.var_i, consts.obs,
-            consts.obs_var, consts.good_f))
-        # the forward pair again, the adjoint pair, the weights and the combine
-        bms, by, term = bound(8 * raws.numel() + data_bytes + 8 * B_HALF,
-                              2 * conv_lnl_ops(B_HALF, hh, ww)
-                              + B_HALF * hh * ww * 12)
+        if route == "fft":  # one pair: the weights, the raw image, the gradient
+            bms, by, term = bound(16 * n + spectra_bytes + 12 * B_HALF,
+                                  B_HALF * 2 * fft_conv_ops(hh, ww)
+                                  + BWD_COMBINE_OPS_PER_PIXEL * n)
+        else:  # the forward pair again, the adjoint pair, the weights, the combine
+            bms, by, term = bound(8 * raws.numel() + data_bytes + 8 * B_HALF,
+                                  2 * conv_lnl_ops(B_HALF, hh, ww) + 12 * n)
         rows.append(dict(
             name=name, route="cuda", source=_build.source_path("conv_lnl_backward"),
             replaces="psfmc_tpu/ops/pallas/lnpost_batched.py:191 (its gradient)",
             launches=0, max_abs_err=abs_err, max_normalized_err=err,
-            ms=time_ms(lambda: CL.batched_conv_lnl_backward(raws, consts, lnl, grad)),
+            ms=time_ms(lambda: CL.batched_conv_lnl_backward(raws, consts, lnl, grad,
+                                                            residuals)),
             plain_ms=time_ms(lambda: CL.batched_conv_lnl_backward_plain(
                 raws, consts, lnl, grad)),
             bound_ms=bms, bound_by=by, bound_term=term, library_ms=time_ms(library),
             library="torch.autograd through torch.fft convolutions of the forward",
             conv_route=route))
-        if route == "fft":  # the matmul-DFT route on the same inputs
+        if route == "fft":  # the Adam step's pair: the residual forward, the backward
+            def pair():
+                l_, *r_ = CL.batched_conv_lnl_residuals(raws, consts)
+                return CL.batched_conv_lnl_backward(raws, consts, l_, grad, r_)
+
+            if not same_bits(pair(), got):
+                raise AssertionError(f"{name}: the pair differs from the backward")
+            rows[-1]["pair_ms"] = time_ms(pair)
+            rows[-1]["pair_bound_ms"], _, rows[-1]["pair_bound_term"] = bound(
+                8 * n + data_bytes + 8 * B_HALF,
+                conv_lnl_ops(B_HALF, hh, ww) + RES_OPS_PER_PIXEL * n
+                + B_HALF * 2 * fft_conv_ops(hh, ww) + BWD_COMBINE_OPS_PER_PIXEL * n)
+            # the matmul-DFT route on the same inputs
             dft = CL._launch_backward(raws, consts, lnl, grad, "dft")
             dft_err = normalized_err(dft[keep], want[keep], dims=(1, 2))
             if not dft_err <= CONV_BWD_TOL:
@@ -2370,8 +2433,82 @@ def backward_rows(post, spec):
         log(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.5f} ms by {r['bound_by']} ({r['bound_term']}), "
             f"{r['ms'] / r['bound_ms']:.1f}x the bound; library {r['library_ms']}, "
-            f"matmul-DFT route on the same inputs {r.get('dft_route_ms')})")
+            f"matmul-DFT route on the same inputs {r.get('dft_route_ms')}"
+            + (f"; forward + backward (Adam pair) {r['pair_ms']:.4f} ms, bound "
+               f"{r['pair_bound_ms']:.5f} ms ({r['pair_bound_term']})"
+               if "pair_ms" in r else "")
+            + (f"; the forward without residuals {r['forward_ms']:.4f} ms"
+               if "forward_ms" in r else "") + ")")
     return rows
+
+
+def residual_row(name, raws, consts, c64, lnl, f_psf, f_var, data_bytes):
+    """The residual instantiation of conv_lnl's forward at ``raws``' shape
+    (FFT route): the same lnL bits as the forward kernel's ``lnl``; its
+    weights against the float64 plain scheme within the larger of
+    :data:`CONV_RES_TOL` of each walker's largest weight and
+    :data:`CONV_RES_PLAIN` times the float32 plain scheme's own error; each
+    walker's scale exponent within one of the float64 scheme's; the same
+    bits on every launch.  Returns the row and the residuals."""
+    import torch
+
+    from psfmc_tpu_torch.ops import convolve, gaussian_lnlike
+    from psfmc_tpu_torch.ops.kernels import _build
+    from psfmc_tpu_torch.ops.kernels import conv_lnl as CL
+
+    b, h, w = raws.shape
+    routes = dict(CL.batched_conv_lnl.route_launches)
+    got, weights, scale_exp = CL.batched_conv_lnl_residuals(raws, consts)
+    routes["fft_res"] += 1
+    if CL.batched_conv_lnl.route_launches != routes:
+        raise AssertionError(f"{name} did not launch on the route fft_res")
+    again = CL.batched_conv_lnl_residuals(raws, consts)
+    if not (same_bits(got, lnl) and all(
+            same_bits(x, y) for x, y in zip(again, (got, weights, scale_exp)))):
+        raise AssertionError(f"{name}: the lnL bits differ from conv_lnl's launch, "
+                             "or two launches differ")
+    _, w64, e64 = CL.packed_fft_conv_residuals_plain(raws.double().cpu(), c64)
+    _, w32, _ = CL.packed_fft_conv_residuals_plain(raws, consts)
+    keep = torch.isfinite(lnl)
+    want = w64.to(raws.device)[keep]
+    scale = want.abs().amax(dim=(1, 2)).clamp(min=1e-300)
+    err = (weights[keep].double() - want).abs().amax(dim=(1, 2)) / scale
+    plain_err = (w32[keep].double() - want).abs().amax(dim=(1, 2)) / scale
+    excess = (err / (CONV_RES_PLAIN * plain_err).clamp(min=CONV_RES_TOL)).max().item()
+    exp_diff = (scale_exp[keep].cpu() - e64[keep.cpu()]).abs().max().item()
+    log(f"{name}: lnL bits equal to conv_lnl's launch; weights max normalized err "
+        f"{err.max().item():.3e}, at most {excess:.3f} of its bound (max("
+        f"{CONV_RES_TOL:g}, {CONV_RES_PLAIN}x the float32 plain scheme's, at most "
+        f"{plain_err.max().item():.3e})); scale exponents within {exp_diff} of the "
+        f"float64 scheme's; walkers compared {int(keep.sum())}")
+    if not (excess <= 1.0 and exp_diff <= 1 and keep.sum().item() >= B_HALF // 2):
+        raise AssertionError(f"{name} disagrees with its plain scheme")
+
+    def library():  # the torch.fft formulation of the lnL and the weights
+        conv = convolve(raws, f_psf)
+        ivm = 1.0 / (convolve(raws * raws, f_var) + consts.obs_var)
+        r = consts.obs - conv
+        zero = torch.zeros_like(r)
+        return (gaussian_lnlike(r, ivm, consts.good),
+                torch.where(consts.good, r * ivm, zero),
+                torch.where(consts.good, 0.5 * (r * r * ivm * ivm - ivm), zero))
+
+    n = raws.numel()
+    bms, by, term = bound(12 * n + data_bytes + 8 * b,
+                          conv_lnl_ops(b, h, w) + RES_OPS_PER_PIXEL * n)
+    row = dict(
+        name=name, route="cuda", source=_build.source_path("conv_lnl"),
+        replaces="psfmc_tpu/ops/pallas/lnpost_batched.py:191 (its gradient's "
+                 "residuals)", launches=0,
+        max_abs_err=(weights[keep].double() - want).abs().max().item(),
+        max_normalized_err=err.max().item(),
+        ms=time_ms(lambda: CL.batched_conv_lnl_residuals(raws, consts)),
+        plain_ms=time_ms(lambda: CL.packed_fft_conv_residuals_plain(raws, consts)),
+        bound_ms=bms, bound_by=by, bound_term=term, library_ms=time_ms(library),
+        library="torch.fft convolutions, the lnL and the weights",
+        forward_ms=time_ms(lambda: CL.batched_conv_lnl(raws, consts)),
+        conv_route="fft")
+    return row, (weights, scale_exp)
 
 
 def grad_against_cpu(post, spec, thetas, label):
@@ -2486,13 +2623,16 @@ def map_phase(shape=(128, 128), psf_shape=(64, 64), joint_shapes=None, device=No
             + f"; lnpost {res.lnpost:.3f}; launches {launches}, by route {by_route}")
         # the pool's evaluation, the steps and the final iterate, Laplace's two
         # gradient calls, the images' render
+        # (conv_lnl's forward under autograd writes its residuals: the pool's
+        # evaluation is the one launch without them)
         evals = MAP_STEPS + 1
         want = {"render_sersics": 1 + evals + 2 + 1, "render_sersics_backward": evals + 2,
                 "batched_conv_lnl": 1 + evals + 2, "batched_conv_lnl_backward": evals + 2}
         if launches != want or by_route["batched_conv_lnl_backward:dft"] \
-                or by_route["batched_conv_lnl:dft"]:
+                or by_route["batched_conv_lnl:dft"] or by_route["batched_conv_lnl:fft"] != 1 \
+                or by_route["batched_conv_lnl:fft_res"] != evals + 2:
             raise AssertionError(f"map: launches {launches} {by_route}, want {want} "
-                                 "all on the FFT route")
+                                 "all on the FFT route, all but the pool's with residuals")
         program = map_program(fns)
         graphed = fns.device.type == "cuda"  # a CPU rehearsal has no graphs
         if graphed and program.replays != MAP_STEPS:
@@ -2500,7 +2640,7 @@ def map_phase(shape=(128, 128), psf_shape=(64, 64), joint_shapes=None, device=No
         if graphed:
             check_step_tally(program, {("render_sersics", None): 1,
                                        ("render_sersics_backward", None): 1,
-                                       ("batched_conv_lnl", "fft"): 1,
+                                       ("batched_conv_lnl", "fft_res"): 1,
                                        ("batched_conv_lnl_backward", "fft"): 1}, "map")
         out["map"] = dict(launches, **by_route)
         # the MAP beats every pool draw (the JAX package's own bar)
@@ -2591,8 +2731,9 @@ def map_phase(shape=(128, 128), psf_shape=(64, 64), joint_shapes=None, device=No
             torch.cuda.synchronize()
             runs.append((r, read_counts(counted)))
         (g, g_n), (e, e_n) = runs
-        same_bits(g.all_theta, e.all_theta)
-        same_bits(g.all_lnpost, e.all_lnpost)
+        if not (same_bits(g.all_theta, e.all_theta)
+                and same_bits(g.all_lnpost, e.all_lnpost)):
+            raise AssertionError("map: graphed and eager Adam steps differ")
         if g_n != e_n:
             raise AssertionError(f"map: launches {g_n} graphed, {e_n} eager")
         log(f"map: {MAP_EQUAL_STEPS} Adam steps graphed = eager bit for bit, "
@@ -2671,16 +2812,18 @@ def map_phase(shape=(128, 128), psf_shape=(64, 64), joint_shapes=None, device=No
             jprog = map_program(jm.posterior_fns)
             on_fft = 2 if band1 == "mixed" else 1
             tally = {("render_sersics", None): 2, ("render_sersics_backward", None): 2,
-                     ("batched_conv_lnl", "fft"): on_fft,
+                     ("batched_conv_lnl", "fft_res"): on_fft,
                      ("batched_conv_lnl_backward", "fft"): on_fft}
             if band1 == "dft":
                 tally.update({("batched_conv_lnl", "dft"): 1,
                               ("batched_conv_lnl_backward", "dft"): 1})
             if graphed:
                 check_step_tally(jprog, tally, f"{key} map")
-            jwant = {"batched_conv_lnl_backward:fft": on_fft * (steps + 1),
+            jwant = {"batched_conv_lnl:fft_res": on_fft * (steps + 1),
+                     "batched_conv_lnl_backward:fft": on_fft * (steps + 1),
                      "batched_conv_lnl_backward:dft": (2 - on_fft) * (steps + 1),
-                     "batched_conv_lnl_backward:mixed": (on_fft - 1) * (steps + 1)}
+                     "batched_conv_lnl:fft_res:mixed": (on_fft - 1) * (steps + 1),
+                     "batched_conv_lnl_backward:fft:mixed": (on_fft - 1) * (steps + 1)}
             jlnp_truth = float(jm.posterior_fns.log_posterior_batch(jtruth[None])[0])
             log(f"map: joint MAP, band 1 {jshapes[1][0]}x{jshapes[1][1]} "
                 f"({band1}), {MAP_STARTS} starts x {steps} steps in "
@@ -3057,9 +3200,10 @@ def main():
     t0 = time.perf_counter()
     _build.build_all()
     log(f"build: {len(_build.SOURCES)} kernels in {time.perf_counter() - t0:.2f} s")
-    for name in _build.SOURCES:
+    for name in _build.SOURCES:  # ptxas: each kernel, its registers and spills
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry function" in line or "registers" in line \
+                    or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
     spec = build_model_spec(flagship_components())
@@ -3119,8 +3263,8 @@ def main():
                "conv_lnl": launches["batched_conv_lnl:fft"]
                + fam["batched_conv_lnl:fft"] + fam_var["batched_conv_lnl"]
                + pri["batched_conv_lnl:fft"] + pri_var["batched_conv_lnl"],
-               "conv_lnl_mixed": jnt["batched_conv_lnl:mixed"]
-               + jnt_var["batched_conv_lnl:mixed"],
+               "conv_lnl_mixed": jnt["batched_conv_lnl:fft:mixed"]
+               + jnt_var["batched_conv_lnl:fft:mixed"],
                "conv_lnl_dft": launches["batched_conv_lnl:dft"]
                + jnt["batched_conv_lnl:dft"] + jnt_var["batched_conv_lnl:dft"],
                "fused_lnl": driver_launches["fused_lnl:fft"] + fam_var["fused_lnl"],
@@ -3131,16 +3275,27 @@ def main():
     by_name["conv_lnl"] += (jnt["batched_conv_lnl:fft"] + jnt_var["batched_conv_lnl:fft"]
                             - by_name["conv_lnl_mixed"])
     # the gradient path (phase 12): model_galaxy_map, the init="map" fit and
-    # the two joint MAPs, each kernel and backward kernel on its route (the
-    # FFT route's launches less those on its mixed-radix geometry)
+    # the two joint MAPs, each kernel and backward kernel on its route and,
+    # on the FFT routes, its geometry (a route's launches less those it
+    # counted at mixed-radix shapes).  Every forward under autograd on the
+    # FFT route is the residual instantiation and has its backward there,
+    # at its shape
     grads = [grad[k] for k in ("map", "init", "joint", "joint_dft")]
+    for g in grads:
+        for geo in ("", ":mixed"):
+            if g[f"batched_conv_lnl:fft_res{geo}"] != g[f"batched_conv_lnl_backward:fft{geo}"]:
+                raise AssertionError(f"residual forwards and FFT-route backwards differ: {g}")
     by_name["sersic_render"] += sum(g["render_sersics"] for g in grads)
     by_name["sersic_render_backward"] = sum(g["render_sersics_backward"] for g in grads)
+    for fn, route, row in (("batched_conv_lnl", "fft_res", "conv_lnl_res"),
+                           ("batched_conv_lnl", "fft", "conv_lnl"),
+                           ("batched_conv_lnl_backward", "fft", "conv_lnl_backward")):
+        mixed = sum(g[f"{fn}:{route}:mixed"] for g in grads)
+        by_name[row] = by_name.get(row, 0) + sum(
+            g[f"{fn}:{route}"] for g in grads) - mixed
+        by_name[f"{row}_mixed"] = by_name.get(f"{row}_mixed", 0) + mixed
     for fn, row in (("batched_conv_lnl", "conv_lnl"),
                     ("batched_conv_lnl_backward", "conv_lnl_backward")):
-        mixed = sum(g[f"{fn}:mixed"] for g in grads)
-        by_name[row] = by_name.get(row, 0) + sum(g[f"{fn}:fft"] for g in grads) - mixed
-        by_name[f"{row}_mixed"] = by_name.get(f"{row}_mixed", 0) + mixed
         by_name[f"{row}_dft"] = by_name.get(f"{row}_dft", 0) + sum(
             g[f"{fn}:dft"] for g in grads)
     for r in rows:

@@ -32,7 +32,11 @@
 // runs fft_conv.cuh on it: both convolutions as one complex FFT pair, then
 // the lnL readout; radix-2 stages when both sides are powers of two,
 // radix-2, -3 and -5 stages otherwise.  No global scratch; the only write
-// is the walker's lnL.
+// is the walker's lnL.  A second instantiation (conv_lnl_fft_residuals_
+// launch, taken only by the forward of conv_lnl's autograd Function) also
+// writes what its backward (conv_lnl_backward.cu) reads instead of
+// recomputing the pair: the two likelihood weights per pixel (a float2,
+// 8 bytes a pixel) and the walker's scale exponent; the same lnL bits.
 //
 // matmul-DFT route (every other shape, e.g. a side with a factor of 7 or
 // an odd side; conv_lnl_launch): each convolution
@@ -154,6 +158,56 @@ conv_lnl_fft_kernel(const float* __restrict__ raws, int h, int w,
   }
 }
 
+// The same with the residuals: weights (B, H, W) float2 and scale_exp (B,).
+template <bool MIXED>
+__global__ void __launch_bounds__(fc::kThreads, 1)
+conv_lnl_fft_residuals_kernel(const float* __restrict__ raws, int h, int w,
+                              const float2* __restrict__ twiddle, int tw_log2,
+                              const int* __restrict__ layout, fc::Spectra k,
+                              fc::Data d, float* __restrict__ out,
+                              float2* __restrict__ weights,
+                              int* __restrict__ scale_exp) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* z = reinterpret_cast<float2*>(smem);
+  float2* tw = z + h * fc::pitch(w);
+  const float* raw = raws + (size_t)blockIdx.x * h * w;
+  float2* wts = weights + (size_t)blockIdx.x * h * w;
+  if constexpr (MIXED) {
+    const fc::MixedGeom g = fc::load_mixed(tw, twiddle, layout, h, w);
+    const float mx = fc::load_image(z, g, raw);
+    fc::convolve_and_reduce<fc::MixedGeom, true>(z, g, mx, k, d, out + blockIdx.x,
+                                                 wts, scale_exp + blockIdx.x);
+  } else {
+    fc::load_twiddles(tw, twiddle, tw_log2);
+    const fc::Pow2Geom g(h, w, tw, tw_log2);
+    const float mx = fc::load_image(z, g, raw);
+    fc::convolve_and_reduce<fc::Pow2Geom, true>(z, g, mx, k, d, out + blockIdx.x,
+                                                wts, scale_exp + blockIdx.x);
+  }
+}
+
+// The FFT route's launch at (h, w): `pow2_kernel` or `mixed_kernel` by the
+// shape, with its dynamic shared memory set; returns 0 or the cudaError
+// of the shape check or the attribute call.
+template <class Kernel>
+int prepare_fft(Kernel pow2_kernel, Kernel mixed_kernel, int h, int w,
+                Kernel* kernel, size_t* smem, int* tw_log2) {
+  const bool pow2 = fc::power_of_two(h) && fc::power_of_two(w);
+  if (!pow2 && !(fc::five_smooth_even(h) && fc::five_smooth_even(w)))
+    return (int)cudaErrorInvalidValue;
+  *smem = pow2 ? fc::image_bytes(h, w) : fc::mixed_image_bytes(h, w);
+  *kernel = pow2 ? pow2_kernel : mixed_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      *kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it, so that no later launch reports it
+    return (int)err;
+  }
+  *tw_log2 = 0;
+  while ((1 << *tw_log2) < (h > w ? h : w)) ++*tw_log2;
+  return 0;
+}
+
 }  // namespace
 
 // C interface of the FFT route.  h and w are both powers of two, or both
@@ -172,22 +226,40 @@ extern "C" int conv_lnl_fft_launch(
     const float* obs, const float* obs_var, const float* good,
     float* out, void* stream) {
   if (batch <= 0) return 0;
-  const bool pow2 = fc::power_of_two(h) && fc::power_of_two(w);
-  if (!pow2 && !(fc::five_smooth_even(h) && fc::five_smooth_even(w)))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = pow2 ? fc::image_bytes(h, w) : fc::mixed_image_bytes(h, w);
-  auto kernel = pow2 ? &conv_lnl_fft_kernel<false> : &conv_lnl_fft_kernel<true>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it, so that no later launch reports it
-    return (int)err;
-  }
-  int tw_log2 = 0;
-  while ((1 << tw_log2) < (h > w ? h : w)) ++tw_log2;
+  auto kernel = &conv_lnl_fft_kernel<false>;
+  size_t smem;
+  int tw_log2;
+  if (int err = prepare_fft(&conv_lnl_fft_kernel<false>, &conv_lnl_fft_kernel<true>,
+                            h, w, &kernel, &smem, &tw_log2))
+    return err;
   kernel<<<batch, fc::kThreads, smem, (cudaStream_t)stream>>>(
       raws, h, w, reinterpret_cast<const float2*>(twiddle), tw_log2, layout,
       fc::Spectra{psf_r, psf_i, var_r, var_i, var_gain}, fc::Data{obs, obs_var, good},
       out);
+  return (int)cudaGetLastError();
+}
+
+// The FFT route with the residuals for the backward (conv_lnl.py's
+// batched_conv_lnl_residuals): conv_lnl_fft_launch's arguments, then
+// weights, (B, H, W, 2) float32 (a, c per pixel), and scale_exp, (B,)
+// int32.  Launches on `stream` and returns as conv_lnl_fft_launch.
+extern "C" int conv_lnl_fft_residuals_launch(
+    const float* raws, int batch, int h, int w, const float* twiddle,
+    const int* layout, const float* var_gain, const float* psf_r,
+    const float* psf_i, const float* var_r, const float* var_i,
+    const float* obs, const float* obs_var, const float* good,
+    float* out, float* weights, int* scale_exp, void* stream) {
+  if (batch <= 0) return 0;
+  auto kernel = &conv_lnl_fft_residuals_kernel<false>;
+  size_t smem;
+  int tw_log2;
+  if (int err = prepare_fft(&conv_lnl_fft_residuals_kernel<false>,
+                            &conv_lnl_fft_residuals_kernel<true>, h, w, &kernel,
+                            &smem, &tw_log2))
+    return err;
+  kernel<<<batch, fc::kThreads, smem, (cudaStream_t)stream>>>(
+      raws, h, w, reinterpret_cast<const float2*>(twiddle), tw_log2, layout,
+      fc::Spectra{psf_r, psf_i, var_r, var_i, var_gain}, fc::Data{obs, obs_var, good},
+      out, reinterpret_cast<float2*>(weights), scale_exp);
   return (int)cudaGetLastError();
 }

@@ -21,22 +21,27 @@
 // FFT route (conv_lnl_fft_backward_launch; H and W even with no prime
 // factor above 5, the walker in one block's shared memory; fft_conv.cuh's
 // power-of-two or mixed-radix geometry): one launch, one block of 512
-// threads per walker, two FFT pairs of fft_conv.cuh in shared memory.
-//  1. the forward pair again: z = raw + i s raw^2, FFT2, the Hermitian
-//     split times (Kpsf, g Kvar), IFFT2: conv and s g mvar, unshifted;
-//  2. a and c per pixel from the shifted readout, written back to the
-//     slot they were read from, which is where the adjoint of the
-//     readout's shift puts them; the power of two s' = 2^(e_a - e_c) from
-//     the two parts' peaks gives both one scale (the forward's reason:
-//     in a float32 complex image the smaller part is only as exact as the
-//     larger part's rounding); the variance spectrum keeps the forward's
-//     gain g for the same reason;
-//  3. the second pair with the conjugate spectra (the wrapper passes
-//     -Im K): FFT2, the split times (conj Kpsf, g conj Kvar), IFFT2 gives
-//     a (x) psf + i s' g (c (x) var) in natural order;
-//  4. the combine with the raw image, read again from global memory.
-// psfmc_tpu_torch.ops.kernels.conv_lnl.packed_fft_conv_backward_plain is
-// this scheme in plain PyTorch.
+// threads per walker, ONE FFT pair of fft_conv.cuh in shared memory.  The
+// forward under autograd (conv_lnl.cu's residual instantiation) has
+// already written each pixel's weights (a, c) and the walker's scale
+// exponent e = e_a - e_c (the difference of the exponents of the two
+// parts' peaks, clamped to +-96; 0 unless both peaks are finite and
+// positive); the backward loads them instead of running the forward's
+// pair again:
+//  1. the weights, 8 bytes a pixel, copied with cp.async straight into the
+//     slot each pixel was read from in the forward's shifted readout,
+//     which is where the adjoint of that shift puts them, while the
+//     twiddles and the layout tables come in; the shared image's row
+//     pitch W + 1 is odd, so each copy is one 8-byte float2;
+//  2. the pair with the conjugate spectra (the wrapper passes -Im K): the
+//     first row pass multiplies each imaginary part by s' = 2^e as it
+//     reads it, so that a + i s' c has one scale (the forward's reason: in
+//     a float32 complex image the smaller part is only as exact as the
+//     larger part's rounding); FFT2, the split times (conj Kpsf, g conj
+//     Kvar), IFFT2 gives a (x) psf + i s' g (c (x) var) in natural order;
+//  3. the combine with the raw image, read from global memory.
+// psfmc_tpu_torch.ops.kernels.conv_lnl.packed_fft_conv_backward_from_
+// residuals_plain is this scheme in plain PyTorch.
 //
 // matmul-DFT route (conv_lnl_dft_backward_launch; every other shape): the
 // forward's products recompute conv and mvar (dft_conv.cuh, 14 launches),
@@ -45,17 +50,20 @@
 // give the two adjoints (14 launches), and one elementwise kernel
 // combines them: 30 launches through global scratch.
 //
-// What bounds it on the H100: arithmetic, twice the forward's FFT count
-// (two complex FFT pairs per walker on the FFT route: about 4.6 MFLOP per
-// walker at 128x128), against the image gradient's 65 KB out and the raw
-// image's 65 KB in per walker.  As in the forward, the butterflies'
-// instruction issue through shared memory sets the pace with one block
-// of 16 warps on an SM.
+// What bounds it on the H100 (FFT route): arithmetic, the forward's FFT
+// count (one complex FFT pair per walker: about 2.3 MFLOP at 128x128),
+// against 16 bytes a pixel (the weights' 8 in, the raw image's 4 in, the
+// gradient's 4 out: 262 KB a walker at 128x128).  As in the forward, the
+// butterflies' instruction issue through shared memory sets the pace
+// with one block of 16 warps on an SM.  The weights cost the forward an
+// 8-byte store a pixel and 8 bytes a pixel of device memory between the
+// two launches (16.4 MB at 125 walkers x 128x128).
 //
 // Numerics: true fp32, no --use_fast_math, no tensor cores; the divisions
 // and logf are IEEE-accurate.  No atomics: every launch gives the same
 // bits.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -68,92 +76,32 @@ namespace fc = psfmc::fftconv;
 
 constexpr int kThreads = 256;
 
-// The largest value over the block (every thread passes its own); ends in
-// a barrier, so that what the threads wrote before is visible to all.
-__device__ float block_max(float v, float* maxes) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  __syncthreads();  // maxes may still be read by an earlier call
-  if (lane == 0) maxes[warp] = v;
-  __syncthreads();
-  float m = maxes[0];
-  for (int i = 1; i < fc::kWarps; ++i) m = fmaxf(m, maxes[i]);
-  return m;
-}
-
-// The exponent of a block peak, 0 where the peak is 0 or not finite, and
-// whether it was usable.
-__device__ __forceinline__ int peak_exponent(float m, bool* usable) {
-  *usable = m > 0.0f && isfinite(m);
-  return *usable ? ilogbf(m) : 0;
-}
-
+// The walker's weights from global memory into the slots the forward's
+// shifted readout read them from, as 8-byte cp.async copies, committed as
+// one group.
 template <class Geom>
-__device__ void pair(float2* z, const Geom& g, const fc::Spectra& k) {
-  g.template lines<false, true>(z);
+__device__ void copy_weights(float2* z, const Geom& g, const float2* src) {
+  for (int p = threadIdx.x; p < g.h * g.w; p += fc::kThreads)
+    __pipeline_memcpy_async(z + g.shifted(p), src + p, sizeof(float2));
+  __pipeline_commit();
+}
+
+// Steps 2 and 3 on the weights in shared memory (visible to every thread).
+template <class Geom>
+__device__ void backward_block(float2* z, const Geom& g, const float* raw,
+                               const fc::Spectra& kc, int se, float gb,
+                               float* o) {
+  const int hw = g.h * g.w;
+  g.template lines<false, true, true>(z, ldexpf(1.0f, se));
   g.template lines<false, false>(z);
-  g.pairs(z, k);
+  g.pairs(z, kc);
   __syncthreads();
   g.template lines<true, false>(z);
   g.template lines<true, true>(z);
-}
 
-// The walker's backward on one geometry, from the twiddles (and layout)
-// already on their way into shared memory.
-template <class Geom>
-__device__ void backward_block(float2* z, const Geom& g, float* maxes,
-                               const float* raw, const fc::Spectra& k,
-                               const fc::Spectra& kc, const fc::Data& d,
-                               float gb, float* o) {
-  const int h = g.h, w = g.w, hw = h * w;
-
-  // 1. the forward pair: conv + i s g mvar
-  bool ok;
-  int se = peak_exponent(block_max(fc::load_image(z, g, raw), maxes), &ok);
-  se = max(-fc::kMaxScaleExp, min(fc::kMaxScaleExp, se));
-  const float s = ldexpf(1.0f, -se);
-  for (int p = threadIdx.x; p < hw; p += fc::kThreads) {
-    float2* q = z + g.at(p);
-    const float x = q->x;
-    q->y = s * (x * x);
-  }
-  __syncthreads();
-  pair(z, g, k);
-
-  // 2. a and c, each written to the slot its pixel was read from
+  // grad_b [a (x) psf + 2 raw (c (x) var)]
   const float conv_scale = 1.0f / (float)hw;
-  const float gain = __ldg(k.var_gain);
-  const float mvar_scale = ldexpf(conv_scale, se) / gain;
-  float amax = 0.0f, cmax = 0.0f;
-#pragma unroll 4
-  for (int p = threadIdx.x; p < hw; p += fc::kThreads) {
-    float2* q = z + g.shifted(p);
-    const float2 c = *q;
-    const float conv = c.x * conv_scale, mvar = c.y * mvar_scale;
-    const float ivm = 1.0f / (mvar + __ldg(d.obs_var + p));
-    const float r = __ldg(d.obs + p) - conv;
-    const bool good = __ldg(d.good + p) > 0.0f;
-    const float av = good ? r * ivm : 0.0f;
-    const float cv = good ? 0.5f * (r * r * ivm * ivm - ivm) : 0.0f;
-    *q = make_float2(av, cv);
-    amax = fmaxf(amax, fabsf(av));
-    cmax = fmaxf(cmax, fabsf(cv));
-  }
-  bool ok_a, ok_c;
-  const int ea = peak_exponent(block_max(amax, maxes), &ok_a);
-  const int ec = peak_exponent(block_max(cmax, maxes), &ok_c);
-  int se2 = ok_a && ok_c ? ea - ec : 0;
-  se2 = max(-fc::kMaxScaleExp, min(fc::kMaxScaleExp, se2));
-  const float s2 = ldexpf(1.0f, se2);
-  for (int p = threadIdx.x; p < hw; p += fc::kThreads) z[g.at(p)].y *= s2;
-  __syncthreads();
-
-  // 3. the conjugate pair: a (x) psf + i s' g (c (x) var), natural order
-  pair(z, g, kc);
-
-  // 4. grad_b [a (x) psf + 2 raw (c (x) var)]
-  const float c_scale = ldexpf(conv_scale, -se2) / gain;
+  const float c_scale = ldexpf(conv_scale, -se) / __ldg(kc.var_gain);
 #pragma unroll 4
   for (int p = threadIdx.x; p < hw; p += fc::kThreads) {
     const float2 y = z[g.at(p)];
@@ -166,30 +114,38 @@ template <bool MIXED>
 __global__ void __launch_bounds__(fc::kThreads, 1)
 conv_lnl_fft_backward_kernel(const float* __restrict__ raws, int h, int w,
                              const float2* __restrict__ twiddle, int tw_log2,
-                             const int* __restrict__ layout, fc::Spectra k,
-                             fc::Spectra kc, fc::Data d,
+                             const int* __restrict__ layout, fc::Spectra kc,
+                             const float2* __restrict__ weights,
+                             const int* __restrict__ scale_exp,
                              const float* __restrict__ lnl,
                              const float* __restrict__ grad,
                              float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float maxes[fc::kWarps];
   float2* z = reinterpret_cast<float2*>(smem);
   float2* tw = z + h * fc::pitch(w);
   const int hw = h * w;
   const float* raw = raws + (size_t)blockIdx.x * hw;
+  const float2* wts = weights + (size_t)blockIdx.x * hw;
   float* o = out + (size_t)blockIdx.x * hw;
   if (!isfinite(__ldg(lnl + blockIdx.x))) {  // the same for the whole block
     for (int p = threadIdx.x; p < hw; p += fc::kThreads) o[p] = 0.0f;
     return;
   }
   const float gb = __ldg(grad + blockIdx.x);
+  const int se = __ldg(scale_exp + blockIdx.x);
   if constexpr (MIXED) {
-    backward_block(z, fc::load_mixed(tw, twiddle, layout, h, w), maxes, raw,
-                   k, kc, d, gb, o);
+    copy_weights(z, fc::MixedGeom(h, w, tw, nullptr), wts);  // shifted() reads no table
+    const fc::MixedGeom g = fc::load_mixed(tw, twiddle, layout, h, w);
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    backward_block(z, g, raw, kc, se, gb, o);
   } else {
+    const fc::Pow2Geom g(h, w, tw, tw_log2);
+    copy_weights(z, g, wts);
     fc::load_twiddles(tw, twiddle, tw_log2);
-    backward_block(z, fc::Pow2Geom(h, w, tw, tw_log2), maxes, raw, k, kc, d,
-                   gb, o);
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    backward_block(z, g, raw, kc, se, gb, o);
   }
 }
 
@@ -228,16 +184,16 @@ __global__ void combine_kernel(const float* __restrict__ raws,
 
 // C interface of the FFT route.  h, w, twiddle, layout and var_gain as
 // conv_lnl_fft_launch takes them; psf_ic and var_ic are the negated
-// imaginary planes of the two half spectra; lnl (B,) the forward's
-// output, grad (B,) its gradient, out (B, H, W).  Launches on `stream` and
-// returns the first nonzero cudaError of the attribute call or the
-// launch, or 0.
+// imaginary planes of the two half spectra; weights (B, H, W, 2) and
+// scale_exp (B,) int32 as conv_lnl_fft_residuals_launch wrote them; lnl
+// (B,) the forward's output, grad (B,) its gradient, out (B, H, W).
+// Launches on `stream` and returns the first nonzero cudaError of the
+// attribute call or the launch, or 0.
 extern "C" int conv_lnl_fft_backward_launch(
     const float* raws, int batch, int h, int w, const float* twiddle,
     const int* layout, const float* var_gain, const float* psf_r,
-    const float* psf_i, const float* var_r, const float* var_i,
-    const float* psf_ic, const float* var_ic, const float* obs,
-    const float* obs_var, const float* good, const float* lnl,
+    const float* psf_ic, const float* var_r, const float* var_ic,
+    const float* weights, const int* scale_exp, const float* lnl,
     const float* grad, float* out, void* stream) {
   if (batch <= 0) return 0;
   const bool pow2 = fc::power_of_two(h) && fc::power_of_two(w);
@@ -256,9 +212,8 @@ extern "C" int conv_lnl_fft_backward_launch(
   while ((1 << tw_log2) < (h > w ? h : w)) ++tw_log2;
   kernel<<<batch, fc::kThreads, smem, (cudaStream_t)stream>>>(
       raws, h, w, reinterpret_cast<const float2*>(twiddle), tw_log2, layout,
-      fc::Spectra{psf_r, psf_i, var_r, var_i, var_gain},
       fc::Spectra{psf_r, psf_ic, var_r, var_ic, var_gain},
-      fc::Data{obs, obs_var, good}, lnl, grad, out);
+      reinterpret_cast<const float2*>(weights), scale_exp, lnl, grad, out);
   return (int)cudaGetLastError();
 }
 

@@ -186,10 +186,11 @@ __device__ __forceinline__ void butterflies(float2 (&v)[1 << R],
 
 // One register pass over every line of the image: rows (ROWS, lines run
 // along x) or columns.  Work items are (line, base); consecutive lanes
-// take consecutive lines.
-template <int R, bool INVERSE, bool ROWS>
+// take consecutive lines.  With SCALE the imaginary parts are multiplied
+// by ys as they are read (the backward's scale of its second image).
+template <int R, bool INVERSE, bool ROWS, bool SCALE = false>
 __device__ void fft_pass(float2* z, int h, int w, int s0, const float2* tw,
-                         int tw_shift) {
+                         int tw_shift, float ys = 1.0f) {
   const int n = ROWS ? w : h, lines = ROWS ? h : w;
   const int m = log2i(n), lines_log2 = log2i(lines);
   const int stride_log2 = m - s0 - R;
@@ -205,17 +206,36 @@ __device__ void fft_pass(float2* z, int h, int w, int s0, const float2* tw,
     float2 v[1 << R];
 #pragma unroll
     for (int r = 0; r < (1 << R); ++r) v[r] = p[r * step];
+    if constexpr (SCALE) {
+#pragma unroll
+      for (int r = 0; r < (1 << R); ++r) v[r].y *= ys;
+    }
     butterflies<R, INVERSE>(v, tw, lo, stride_log2, s0, tw_shift);
 #pragma unroll
     for (int r = 0; r < (1 << R); ++r) p[r * step] = v[r];
   }
 }
 
+// fft_pass of `stages` radix-2 stages (1 to 4).
+template <bool INVERSE, bool ROWS, bool SCALE>
+__device__ __forceinline__ void fft_pass_of(int stages, float2* z, int h,
+                                            int w, int s0, const float2* tw,
+                                            int tw_shift, float ys) {
+  switch (stages) {
+    case 1: fft_pass<1, INVERSE, ROWS, SCALE>(z, h, w, s0, tw, tw_shift, ys); break;
+    case 2: fft_pass<2, INVERSE, ROWS, SCALE>(z, h, w, s0, tw, tw_shift, ys); break;
+    case 3: fft_pass<3, INVERSE, ROWS, SCALE>(z, h, w, s0, tw, tw_shift, ys); break;
+    default: fft_pass<4, INVERSE, ROWS, SCALE>(z, h, w, s0, tw, tw_shift, ys); break;
+  }
+}
+
 // All log2(N) stages of every row or every column, as ceil(log2 N / 4)
 // register passes of nearly equal depth, each followed by a block barrier.
-template <bool INVERSE, bool ROWS>
+// With SCALE the first pass multiplies the imaginary parts by ys as it
+// reads them.
+template <bool INVERSE, bool ROWS, bool SCALE = false>
 __device__ void fft_lines(float2* z, int h, int w, const float2* tw,
-                          int tw_log2) {
+                          int tw_log2, float ys = 1.0f) {
   const int m = log2i(ROWS ? w : h);
   const int tw_shift = tw_log2 - m;
   const int npass = (m + kMaxStages - 1) / kMaxStages;
@@ -223,12 +243,11 @@ __device__ void fft_lines(float2* z, int h, int w, const float2* tw,
   for (int pp = 0; pp < npass; ++pp) {
     const int p = INVERSE ? npass - 1 - pp : pp;
     const int s0 = p * depth + min(p, extra);
-    switch (depth + (p < extra ? 1 : 0)) {
-      case 1: fft_pass<1, INVERSE, ROWS>(z, h, w, s0, tw, tw_shift); break;
-      case 2: fft_pass<2, INVERSE, ROWS>(z, h, w, s0, tw, tw_shift); break;
-      case 3: fft_pass<3, INVERSE, ROWS>(z, h, w, s0, tw, tw_shift); break;
-      default: fft_pass<4, INVERSE, ROWS>(z, h, w, s0, tw, tw_shift); break;
-    }
+    const int stages = depth + (p < extra ? 1 : 0);
+    if (SCALE && pp == 0)
+      fft_pass_of<INVERSE, ROWS, SCALE>(stages, z, h, w, s0, tw, tw_shift, ys);
+    else
+      fft_pass_of<INVERSE, ROWS, false>(stages, z, h, w, s0, tw, tw_shift, 1.0f);
     __syncthreads();
   }
 }
@@ -460,9 +479,9 @@ __device__ __forceinline__ void mixed_butterflies(float2 (&v)[ODD << K],
 // One register pass over every line (rows if ROWS) of length n.  Work items
 // are (line, block, j): consecutive lanes take consecutive lines; the item
 // holds the P elements block * len + j + r * mp of its line.
-template <int ODD, int K, bool INVERSE, bool ROWS>
+template <int ODD, int K, bool INVERSE, bool ROWS, bool SCALE = false>
 __device__ void mixed_pass(float2* z, int n, int lines, int ld, int len,
-                           const float2* tw) {
+                           const float2* tw, float ys = 1.0f) {
   constexpr int P = ODD << K;
   const int mp = len / P, tws = n / len;
   const FastDiv by_lines(lines), by_mp(mp);
@@ -476,34 +495,51 @@ __device__ void mixed_pass(float2* z, int n, int lines, int ld, int len,
     float2 v[P];
 #pragma unroll
     for (int r = 0; r < P; ++r) v[r] = p[r * step];
+    if constexpr (SCALE) {
+#pragma unroll
+      for (int r = 0; r < P; ++r) v[r].y *= ys;
+    }
     mixed_butterflies<ODD, K, INVERSE>(v, tw, j, mp, tws);
 #pragma unroll
     for (int r = 0; r < P; ++r) p[r * step] = v[r];
   }
 }
 
+// mixed_pass of the pass code `code`.
+template <bool INVERSE, bool ROWS, bool SCALE>
+__device__ __forceinline__ void mixed_pass_of(int code, float2* z, int n,
+                                              int lines, int ld, int len,
+                                              const float2* tw, float ys) {
+  switch (code) {
+    case 0x11: mixed_pass<1, 1, INVERSE, ROWS, SCALE>(z, n, lines, ld, len, tw, ys); break;
+    case 0x12: mixed_pass<1, 2, INVERSE, ROWS, SCALE>(z, n, lines, ld, len, tw, ys); break;
+    case 0x13: mixed_pass<1, 3, INVERSE, ROWS, SCALE>(z, n, lines, ld, len, tw, ys); break;
+    case 0x14: mixed_pass<1, 4, INVERSE, ROWS, SCALE>(z, n, lines, ld, len, tw, ys); break;
+    case 0x30: mixed_pass<3, 0, INVERSE, ROWS, SCALE>(z, n, lines, ld, len, tw, ys); break;
+    case 0x31: mixed_pass<3, 1, INVERSE, ROWS, SCALE>(z, n, lines, ld, len, tw, ys); break;
+    case 0x32: mixed_pass<3, 2, INVERSE, ROWS, SCALE>(z, n, lines, ld, len, tw, ys); break;
+    case 0x50: mixed_pass<5, 0, INVERSE, ROWS, SCALE>(z, n, lines, ld, len, tw, ys); break;
+    default: mixed_pass<5, 1, INVERSE, ROWS, SCALE>(z, n, lines, ld, len, tw, ys); break;
+  }
+}
+
 // Every pass of one axis (its codes from the layout), each followed by a
 // block barrier.  The forward runs them in order, the inverse backwards.
-template <bool INVERSE, bool ROWS>
+// With SCALE the first pass multiplies the imaginary parts by ys as it
+// reads them.
+template <bool INVERSE, bool ROWS, bool SCALE = false>
 __device__ void mixed_lines(float2* z, int h, int w, const float2* tw,
-                            const int* codes, int npass) {
+                            const int* codes, int npass, float ys = 1.0f) {
   const int n = ROWS ? w : h, lines = ROWS ? h : w, ld = pitch(w);
   int len = INVERSE ? 1 : n;
   for (int pp = 0; pp < npass; ++pp) {
     const int code = codes[INVERSE ? npass - 1 - pp : pp];
     const int elems = (code >> 4) << (code & 15);
     if (INVERSE) len *= elems;
-    switch (code) {
-      case 0x11: mixed_pass<1, 1, INVERSE, ROWS>(z, n, lines, ld, len, tw); break;
-      case 0x12: mixed_pass<1, 2, INVERSE, ROWS>(z, n, lines, ld, len, tw); break;
-      case 0x13: mixed_pass<1, 3, INVERSE, ROWS>(z, n, lines, ld, len, tw); break;
-      case 0x14: mixed_pass<1, 4, INVERSE, ROWS>(z, n, lines, ld, len, tw); break;
-      case 0x30: mixed_pass<3, 0, INVERSE, ROWS>(z, n, lines, ld, len, tw); break;
-      case 0x31: mixed_pass<3, 1, INVERSE, ROWS>(z, n, lines, ld, len, tw); break;
-      case 0x32: mixed_pass<3, 2, INVERSE, ROWS>(z, n, lines, ld, len, tw); break;
-      case 0x50: mixed_pass<5, 0, INVERSE, ROWS>(z, n, lines, ld, len, tw); break;
-      default: mixed_pass<5, 1, INVERSE, ROWS>(z, n, lines, ld, len, tw); break;
-    }
+    if (SCALE && pp == 0)
+      mixed_pass_of<INVERSE, ROWS, SCALE>(code, z, n, lines, ld, len, tw, ys);
+    else
+      mixed_pass_of<INVERSE, ROWS, false>(code, z, n, lines, ld, len, tw, 1.0f);
     if (!INVERSE) len /= elems;
     __syncthreads();
   }
@@ -558,9 +594,9 @@ struct Pow2Geom {
     const int y = p >> wb, x = p & (w - 1);
     return ((y + h / 2) & (h - 1)) * ld + ((x + w / 2) & (w - 1));
   }
-  template <bool INVERSE, bool ROWS>
-  __device__ void lines(float2* z) const {
-    fft_lines<INVERSE, ROWS>(z, h, w, tw, tw_log2);
+  template <bool INVERSE, bool ROWS, bool SCALE = false>
+  __device__ void lines(float2* z, float ys = 1.0f) const {
+    fft_lines<INVERSE, ROWS, SCALE>(z, h, w, tw, tw_log2, ys);
   }
   __device__ void pairs(float2* z, const Spectra& k) const {
     pair_step(z, h, w, k);
@@ -589,11 +625,11 @@ struct MixedGeom {
     if (x >= w) x -= w;
     return y * ld + x;
   }
-  template <bool INVERSE, bool ROWS>
-  __device__ void lines(float2* z) const {
+  template <bool INVERSE, bool ROWS, bool SCALE = false>
+  __device__ void lines(float2* z, float ys = 1.0f) const {
     const int* hdr = lay + (ROWS ? 2 + kMaxPasses : 1);
-    mixed_lines<INVERSE, ROWS>(z, h, w, ROWS ? tw + lay[0] : tw, hdr + 1,
-                               hdr[0]);
+    mixed_lines<INVERSE, ROWS, SCALE>(z, h, w, ROWS ? tw + lay[0] : tw,
+                                      hdr + 1, hdr[0], ys);
   }
   __device__ void pairs(float2* z, const Spectra& k) const {
     mixed_pair_step(z, h, w, lay, by_wh, k);
@@ -618,11 +654,25 @@ __device__ float load_image(float2* z, const Geom& g, const float* raw) {
 // threads before the call, `local_max` being the largest |raw| this thread
 // wrote; the barrier of the max reduction makes the image visible to all)
 // to the walker's lnL in *out.
-template <class Geom>
+//
+// RESID (conv_lnl's forward under autograd, whose backward reads what it
+// writes): the readout also stores, in pixel order, the likelihood's two
+// weights w = (a, c), a = good r ivm = dlnL/dconv and c = good ((r ivm)^2
+// - ivm) / 2 = dlnL/dmvar, each operation rounded on its own (no
+// contraction), to weights[p] (8 bytes a pixel), and
+// to *scale_exp the clamped difference e_a - e_c of the exponents of
+// their block peaks (0 unless both are finite and positive): the power of
+// two that gives the backward's packed image a + i 2^(e_a - e_c) c one
+// scale.  The lnL is the same, bit for bit: the weights are formed before
+// the lnL's term and share no product with it, because the compiler fuses
+// the term's r^2 ivm - log(...) into one FMA only while ivm has no later
+// use.
+template <class Geom, bool RESID = false>
 __device__ void convolve_and_reduce(float2* z, const Geom& g, float local_max,
                                     const Spectra& k, const Data& d,
-                                    float* out) {
-  __shared__ float maxes[kWarps];
+                                    float* out, float2* weights = nullptr,
+                                    int* scale_exp = nullptr) {
+  __shared__ float maxes[RESID ? 3 * kWarps : kWarps];
   __shared__ double partial[kWarps];
   const int h = g.h, w = g.w;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -663,6 +713,7 @@ __device__ void convolve_and_reduce(float2* z, const Geom& g, float local_max,
   const float conv_scale = 1.0f / (float)(h * w);
   const float mvar_scale = ldexpf(conv_scale, se) / __ldg(k.var_gain);
   double sum = 0.0;
+  float amax = 0.0f, cmax = 0.0f;  // RESID: the weights' peaks (NaNs dropped)
 #pragma unroll 4
   for (int p = threadIdx.x; p < h * w; p += kThreads) {
     const float2 c = z[g.shifted(p)];
@@ -670,6 +721,14 @@ __device__ void convolve_and_reduce(float2* z, const Geom& g, float local_max,
     const float ivm = 1.0f / (mvar + __ldg(d.obs_var + p));
     const float resid = __ldg(d.obs + p) - conv;
     const bool good = __ldg(d.good + p) > 0.0f;
+    if constexpr (RESID) {  // before the term: see the note above
+      const float ri = __fmul_rn(resid, ivm);
+      const float a = good ? ri : 0.0f;
+      const float cw = good ? __fmul_rn(0.5f, __fsub_rn(__fmul_rn(ri, ri), ivm)) : 0.0f;
+      weights[p] = make_float2(a, cw);
+      amax = fmaxf(amax, fabsf(a));
+      cmax = fmaxf(cmax, fabsf(cw));
+    }
     const float safe_ivm = good ? ivm : 1.0f;
     const float term = resid * resid * ivm - logf(kInv2Pi * safe_ivm);
     if (good) sum += (double)(-0.5f * term);
@@ -678,12 +737,32 @@ __device__ void convolve_and_reduce(float2* z, const Geom& g, float local_max,
   for (int off = 16; off > 0; off >>= 1)
     sum += __shfl_down_sync(0xffffffffu, sum, off);
   if (lane == 0) partial[warp] = sum;
+  if constexpr (RESID) {
+    for (int off = 16; off > 0; off >>= 1) {
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+      cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, off));
+    }
+    if (lane == 0) {
+      maxes[kWarps + warp] = amax;
+      maxes[2 * kWarps + warp] = cmax;
+    }
+  }
   __syncthreads();
   if (threadIdx.x == 0) {
     double tot = 0.0;
     for (int i = 0; i < kWarps; ++i) tot += partial[i];
     const float r = (float)tot;
     *out = isfinite(r) ? r : -INFINITY;
+    if constexpr (RESID) {
+      float am = maxes[kWarps], cm = maxes[2 * kWarps];
+      for (int i = 1; i < kWarps; ++i) {
+        am = fmaxf(am, maxes[kWarps + i]);
+        cm = fmaxf(cm, maxes[2 * kWarps + i]);
+      }
+      const bool ok = am > 0.0f && isfinite(am) && cm > 0.0f && isfinite(cm);
+      const int e = ok ? ilogbf(am) - ilogbf(cm) : 0;
+      *scale_exp = max(-kMaxScaleExp, min(kMaxScaleExp, e));
+    }
   }
   PSFMC_STAMP(9);
 }

@@ -47,12 +47,19 @@ With ``r = obs - conv`` and ``ivm = 1 / (mvar + obs_var)``::
 where ``(x)`` is the adjoint of the forward convolution (a correlation:
 the conjugate spectrum, the shift undone); a walker whose lnL is not
 finite gets a zero gradient.  On CUDA the hand-written kernels of
-``csrc/conv_lnl_backward.cu`` on the route the shape takes (the FFT
-route: one launch that recomputes the pair and runs the packed pair ``a
-+ i s c`` through the same in-shared-memory FFT with the conjugate
-spectra; the matmul-DFT route: the transposed GEMMs), on the CPU
-:func:`batched_conv_lnl_backward_plain`.  :func:`packed_fft_conv_backward_plain`
-is the FFT route's scheme in plain PyTorch.
+``csrc/conv_lnl_backward.cu`` on the route the shape takes, on the CPU
+:func:`batched_conv_lnl_backward_plain`.  On the FFT route the forward
+under autograd is a second instantiation of the forward kernel
+(:func:`batched_conv_lnl_residuals`, counted on the route ``"fft_res"``):
+the same lnL bits, and it also writes ``(a, c)`` per pixel (8 bytes a
+pixel, kept for the backward: 16.4 MB at 125 walkers x 128x128) and
+each walker's scale exponent; the backward loads them and runs one
+packed pair ``a + i s c`` through the in-shared-memory FFT with the
+conjugate spectra.  The matmul-DFT route's backward recomputes the
+forward through the transposed GEMMs.  :func:`packed_fft_conv_residuals_plain`
+and :func:`packed_fft_conv_backward_from_residuals_plain` are the FFT
+route's scheme in plain PyTorch (:func:`packed_fft_conv_backward_plain`
+the two in turn).
 """
 from __future__ import annotations
 
@@ -85,8 +92,11 @@ __all__ = [
     "bit_reversed",
     "digit_reversed",
     "packed_fft_conv_plain",
+    "batched_conv_lnl_residuals",
     "batched_conv_lnl_backward",
     "batched_conv_lnl_backward_plain",
+    "packed_fft_conv_residuals_plain",
+    "packed_fft_conv_backward_from_residuals_plain",
     "packed_fft_conv_backward_plain",
     "convolve_rdft_adjoint",
 ]
@@ -600,6 +610,17 @@ def _fft_kernel():
     )
 
 
+@functools.lru_cache(maxsize=1)
+def _fft_residuals_kernel():
+    # conv_lnl_fft_residuals_launch(raws, batch, h, w, <CONV_FFT_CONST_ARGS>,
+    # out, weights, scale_exp, stream)
+    return _build.function(
+        "conv_lnl", "conv_lnl_fft_residuals_launch",
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_void_p] * (len(CONV_FFT_CONST_ARGS) + 4),
+    )
+
+
 def check_launch_consts(consts: ConvLnlConsts, device):
     """Raise unless every constant is a contiguous float32 tensor on
     ``device`` (the mask ``good`` only needs the device, the layout is
@@ -684,25 +705,81 @@ def _forward(raws, consts):
 
 
 batched_conv_lnl.launches = 0
-batched_conv_lnl.route_launches = {"fft": 0, "dft": 0}
+batched_conv_lnl.route_launches = {"fft": 0, "dft": 0, "fft_res": 0}
 batched_conv_lnl.shape_launches = {}
+
+
+def _launch_fft_residuals(raws, consts: ConvLnlConsts):
+    b, h, w = raws.shape
+    dev = raws.device
+    out = torch.empty((b,), dtype=torch.float32, device=dev)
+    weights = torch.empty((b, h, w, 2), dtype=torch.float32, device=dev)
+    scale_exp = torch.empty((b,), dtype=torch.int32, device=dev)
+    tensors = [getattr(consts, n) for n in CONV_FFT_CONST_ARGS] + [out, weights,
+                                                                   scale_exp]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _fft_residuals_kernel()(raws.data_ptr(), b, h, w,
+                                      *(t.data_ptr() for t in tensors), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"conv_lnl (FFT route, residuals) launch failed: cudaError {err} "
+            f"({h}x{w} walker)")
+    return out, weights, scale_exp
+
+
+def batched_conv_lnl_residuals(raws, consts: ConvLnlConsts):
+    """``(lnl (B,), weights (B, H, W, 2), scale_exp (B,) int32)``: the lnL
+    of :func:`batched_conv_lnl` with what its backward reads on the FFT
+    route, the weights ``(a, c)`` of every pixel (``a = good r ivm``,
+    ``c = good ((r ivm)^2 - ivm) / 2``) and each walker's scale exponent
+    (:func:`packed_fft_conv_residuals_plain`).  On CUDA the FFT route's
+    residual instantiation of the forward kernel (the same lnL bits as
+    :func:`batched_conv_lnl`'s launch; counted in
+    ``batched_conv_lnl.launches`` on the route ``"fft_res"`` and by
+    shape), on the CPU :func:`packed_fft_conv_residuals_plain`.  A shape
+    off the FFT route raises ``ValueError``."""
+    if raws.ndim != 3 or tuple(raws.shape[1:]) != consts.shape:
+        raise ValueError(
+            f"raws must be (B, {consts.shape[0]}, {consts.shape[1]}), "
+            f"got {tuple(raws.shape)}")
+    if conv_route(consts.shape) != "fft":
+        raise ValueError(f"{consts.shape} is off the FFT route: its backward "
+                         "recomputes the forward and reads no residuals")
+    if raws.device.type == "cpu":
+        return packed_fft_conv_residuals_plain(raws, consts)
+    if raws.device.type != "cuda":
+        raise ValueError(f"unsupported device {raws.device}")
+    if raws.dtype != torch.float32:
+        raise TypeError(f"the CUDA conv_lnl takes float32, got {raws.dtype}")
+    check_launch_consts(consts, raws.device)
+    out = _launch_fft_residuals(raws.contiguous(), consts)
+    counts.count(batched_conv_lnl, "fft_res", consts.shape)
+    return out
 
 
 class _ConvLnl(torch.autograd.Function):
     """conv_lnl with its vector-Jacobian product: the forward is the
-    wrapper's own launch, the backward :func:`batched_conv_lnl_backward`."""
+    wrapper's own launch (on CUDA and the FFT route, the residual
+    instantiation, whose weights and scale exponents it keeps for the
+    backward), the backward :func:`batched_conv_lnl_backward`."""
 
     @staticmethod
     def forward(ctx, raws, consts):
-        lnl = _forward(raws, consts)
         ctx.consts = consts
-        ctx.save_for_backward(raws, lnl)
+        if raws.device.type == "cuda" and conv_route(consts.shape) == "fft":
+            lnl, weights, scale_exp = batched_conv_lnl_residuals(raws, consts)
+            ctx.save_for_backward(raws, lnl, weights, scale_exp)
+        else:
+            lnl = _forward(raws, consts)
+            ctx.save_for_backward(raws, lnl)
         return lnl
 
     @staticmethod
     def backward(ctx, grad):
-        raws, lnl = ctx.saved_tensors
-        return batched_conv_lnl_backward(raws, ctx.consts, lnl, grad), None
+        raws, lnl, *residuals = ctx.saved_tensors
+        return batched_conv_lnl_backward(raws, ctx.consts, lnl, grad,
+                                         residuals or None), None
 
 
 def convolve_rdft_adjoint(img, kernel_r, kernel_i, mats):
@@ -762,30 +839,53 @@ def _peak_exponent(images):
     return exponent, usable
 
 
-def packed_fft_conv_backward_plain(raws, consts: ConvLnlConsts, lnl, grad):
-    """The FFT route's backward scheme in plain PyTorch.
+def packed_fft_conv_residuals_plain(raws, consts: ConvLnlConsts):
+    """The FFT route's forward with residuals in plain PyTorch: ``(lnl,
+    weights, scale_exp)`` of :func:`batched_conv_lnl_residuals`.
 
-    Recompute ``(conv, mvar)`` by :func:`packed_fft_conv_plain`; form
-    ``a`` and ``c``; pack ``z = a + i s c`` at the shifted positions (the
-    forward's readout shift undone), with the power of two ``s =
-    2^(e_a - e_c)`` (``e`` the exponents of each part's peak, 1 where
-    either peak is 0 or not finite, within ``2^±96``) that gives both
-    parts one scale; one ``fft2``; the Hermitian split; ``Y = A conj
-    Kpsf + i B (g conj Kvar)``; one ``ifft2``; ``a (x) psf`` is the real
-    part and ``c (x) var`` the imaginary part over ``s g``.
+    ``(conv, mvar)`` by :func:`packed_fft_conv_plain`, the lnL of them,
+    ``a = good r ivm`` and ``c = good ((r ivm)^2 - ivm) / 2`` per pixel (the
+    kernel's order of operations) as ``weights[..., 0]`` and
+    ``weights[..., 1]``, and the exponent ``e_a - e_c`` of the two parts' peaks (``e``
+    the exponent of each part's peak; 0 where either peak is 0 or not
+    finite; within ``+-96``): the power of two that gives the backward's
+    packed image ``a + i 2^(e_a - e_c) c`` one scale.
     """
     c = consts
-    h, w = c.shape
     conv, mvar = packed_fft_conv_plain(raws, c)
-    a, cc = _adjoint_weights(conv, mvar, c)
+    ivm = 1.0 / (mvar + c.obs_var)
+    lnl = gaussian_lnlike(c.obs - conv, ivm, c.good)
+    ri = (c.obs - conv) * ivm
+    zero = torch.zeros_like(ri)
+    a = torch.where(c.good, ri, zero)
+    cc = torch.where(c.good, 0.5 * (ri * ri - ivm), zero)
     ea, oka = _peak_exponent(a)
     ec, okc = _peak_exponent(cc)
     exponent = torch.where(oka & okc, ea - ec, torch.zeros_like(ea))
-    exponent = exponent.clamp(-_MAX_SCALE_EXP, _MAX_SCALE_EXP)
+    exponent = exponent.clamp(-_MAX_SCALE_EXP, _MAX_SCALE_EXP).to(torch.int32)
+    return lnl, torch.stack([a, cc], dim=-1), exponent
+
+
+def packed_fft_conv_backward_from_residuals_plain(raws, consts: ConvLnlConsts,
+                                                  lnl, grad, weights, scale_exp):
+    """The FFT route's backward from the forward's residuals in plain
+    PyTorch (``csrc/conv_lnl_backward.cu``'s scheme).
+
+    Pack ``z = a + i s c`` with ``s = 2^scale_exp`` at the shifted
+    positions (the forward's readout shift undone); one ``fft2``; the
+    Hermitian split; ``Y = A conj Kpsf + i B (g conj Kvar)``; one
+    ``ifft2``; ``a (x) psf`` is the real part and ``c (x) var`` the
+    imaginary part over ``s g``; then ``grad_b [a (x) psf + 2 raw (c (x)
+    var)]``, 0 for a walker whose ``lnl`` is not finite.
+    """
+    c = consts
+    h, w = c.shape
+    exponent = scale_exp.to(torch.int64)
     one = torch.ones_like(lnl)
     s = torch.ldexp(one, exponent)[:, None, None]
     inv_s = torch.ldexp(one, -exponent)[:, None, None]
-    z = torch.roll(torch.complex(a, cc * s), shifts=(h // 2, w // 2), dims=(-2, -1))
+    z = torch.roll(torch.complex(weights[..., 0], weights[..., 1] * s),
+                   shifts=(h // 2, w // 2), dims=(-2, -1))
     z = torch.fft.fft2(z)
     zm = _mirrored(z).conj()
     za = 0.5 * (z + zm)
@@ -796,12 +896,22 @@ def packed_fft_conv_backward_plain(raws, consts: ConvLnlConsts, lnl, grad):
     return _combine(raws, y.real, y.imag * (inv_s / c.var_gain), lnl, grad)
 
 
+def packed_fft_conv_backward_plain(raws, consts: ConvLnlConsts, lnl, grad):
+    """The FFT route's forward with residuals and its backward in turn, in
+    plain PyTorch: :func:`packed_fft_conv_residuals_plain`, then
+    :func:`packed_fft_conv_backward_from_residuals_plain` (the forward's
+    ``lnl`` is the caller's, as the backward kernel reads it)."""
+    _, weights, scale_exp = packed_fft_conv_residuals_plain(raws, consts)
+    return packed_fft_conv_backward_from_residuals_plain(raws, consts, lnl, grad,
+                                                         weights, scale_exp)
+
+
 @functools.lru_cache(maxsize=1)
 def _fft_backward_kernel():
     return _build.function(
         "conv_lnl_backward", "conv_lnl_fft_backward_launch",
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
-        + [ctypes.c_void_p] * (len(FFT_BACKWARD_CONST_ARGS) + 4),
+        + [ctypes.c_void_p] * (len(FFT_BACKWARD_CONST_ARGS) + 6),
     )
 
 
@@ -814,11 +924,10 @@ def _dft_backward_kernel():
     )
 
 
-# conv_lnl_fft_backward_launch(raws, batch, h, w, <these>, lnl, grad, out,
-# stream): the forward pair's spectra, then the conjugates'
+# conv_lnl_fft_backward_launch(raws, batch, h, w, <these>, weights,
+# scale_exp, lnl, grad, out, stream): the conjugate spectra
 FFT_BACKWARD_CONST_ARGS = ("twiddle", "fft_layout", "var_gain", "psf_r",
-                           "psf_i", "var_r", "var_i", "psf_ic", "var_ic",
-                           "obs", "obs_var", "good_f")
+                           "psf_ic", "var_r", "var_ic")
 # conv_lnl_dft_backward_launch(raws, batch, h, w, <these>, lnl, grad, t1,
 # t2, conv, mvar, ga, gc, out, stream): the forward's operators, the
 # adjoint's (the transposes, in the order the adjoint applies them)
@@ -828,7 +937,11 @@ DFT_BACKWARD_CONST_ARGS = ("cw", "sw", "lf", "li", "ica", "isa", "ica_t",
                            "obs", "obs_var", "good_f")
 
 
-def _launch_backward(raws, consts: ConvLnlConsts, lnl, grad, route):
+def _launch_backward(raws, consts: ConvLnlConsts, lnl, grad, route, residuals=None):
+    """The backward kernel on ``route``: on the FFT route from the
+    forward's ``residuals`` ``(weights, scale_exp)``, on the matmul-DFT
+    route recomputing the forward (``chip_smoke.py`` also times that route
+    on the FFT route's inputs)."""
     if raws.dtype != torch.float32 or grad.dtype != torch.float32:
         raise TypeError("the CUDA conv_lnl backward takes float32")
     check_launch_consts(consts, raws.device)
@@ -837,13 +950,21 @@ def _launch_backward(raws, consts: ConvLnlConsts, lnl, grad, route):
     dev = raws.device
     out = torch.empty_like(raws)
     if route == "fft":
-        fn, names, scratch = _fft_backward_kernel(), FFT_BACKWARD_CONST_ARGS, []
+        weights, scale_exp = residuals
+        if weights.shape != (b, h, w, 2) or weights.dtype != torch.float32 \
+                or scale_exp.shape != (b,) or scale_exp.dtype != torch.int32 \
+                or weights.device != dev or scale_exp.device != dev:
+            raise ValueError("residuals must be (B, H, W, 2) float32 weights and "
+                             "(B,) int32 scale exponents on the raws' device")
+        fn, names = _fft_backward_kernel(), FFT_BACKWARD_CONST_ARGS
+        scratch = [weights.contiguous(), scale_exp.contiguous()]
+        tensors = [getattr(consts, n) for n in names] + scratch + [lnl, grad, out]
     else:
         t1 = torch.empty((b, 2, h, w // 2 + 1), dtype=torch.float32, device=dev)
         scratch = [t1, torch.empty_like(t1)] + [torch.empty_like(raws)
                                                for _ in range(4)]
         fn, names = _dft_backward_kernel(), DFT_BACKWARD_CONST_ARGS
-    tensors = [getattr(consts, n) for n in names] + [lnl, grad] + scratch + [out]
+        tensors = [getattr(consts, n) for n in names] + [lnl, grad] + scratch + [out]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(raws.data_ptr(), b, h, w, *(t.data_ptr() for t in tensors), stream)
@@ -853,19 +974,25 @@ def _launch_backward(raws, consts: ConvLnlConsts, lnl, grad, route):
     return out
 
 
-def batched_conv_lnl_backward(raws, consts: ConvLnlConsts, lnl, grad):
+def batched_conv_lnl_backward(raws, consts: ConvLnlConsts, lnl, grad, residuals=None):
     """``dlnL/draw (B, H, W)`` of :func:`batched_conv_lnl` at ``raws``
     (whose lnL was ``lnl``) for the output gradient ``grad (B,)``.  On
     CUDA the backward kernel of the route :func:`conv_route` picks
     (counted in ``batched_conv_lnl_backward.launches``,
-    ``.route_launches`` and ``.shape_launches``), on the CPU
-    :func:`batched_conv_lnl_backward_plain`."""
+    ``.route_launches`` and ``.shape_launches``); the FFT route's reads
+    ``residuals``, the ``(weights, scale_exp)`` of
+    :func:`batched_conv_lnl_residuals` at the same ``raws``, and raises
+    ``ValueError`` without them.  On the CPU
+    :func:`batched_conv_lnl_backward_plain` (``residuals`` unused)."""
     if raws.device.type == "cpu":
         return batched_conv_lnl_backward_plain(raws, consts, lnl, grad)
     if raws.device.type != "cuda":
         raise ValueError(f"unsupported device {raws.device}")
     route = conv_route(consts.shape)
-    out = _launch_backward(raws, consts, lnl, grad, route)
+    if route == "fft" and residuals is None:
+        raise ValueError("the FFT route's backward reads the forward's residuals "
+                         "(batched_conv_lnl_residuals)")
+    out = _launch_backward(raws, consts, lnl, grad, route, residuals)
     counts.count(batched_conv_lnl_backward, route, consts.shape)
     return out
 

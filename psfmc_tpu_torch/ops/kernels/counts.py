@@ -2,7 +2,7 @@
 
 Every wrapper keeps ``<wrapper>.launches`` (the likelihood kernels also
 ``<wrapper>.route_launches``, and conv_lnl and its backward
-``<wrapper>.shape_launches`` by image shape) and calls :func:`count`
+``<wrapper>.shape_launches`` by ``(route, image shape)``) and calls :func:`count`
 right after its kernel launched.  Eagerly that adds one.  Inside :func:`tally` it adds
 nothing and appends the launch to the tally instead: the sampler
 captures its CUDA graphs inside one, so that a capture, which executes
@@ -54,4 +54,5 @@ def add(launches):
         if route is not None:
             fn.route_launches[route] += 1
         if shape is not None:
-            fn.shape_launches[shape] = fn.shape_launches.get(shape, 0) + 1
+            key = (route, shape)
+            fn.shape_launches[key] = fn.shape_launches.get(key, 0) + 1

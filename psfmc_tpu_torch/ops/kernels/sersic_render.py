@@ -23,9 +23,12 @@ The gradient: when the packed rows or the sky require it, both wrappers
 go through a ``torch.autograd.Function`` whose backward maps the image
 gradient ``G (B, H, W)`` to the rows' ``(B, S, 9)`` and the sky's
 ``(B,)`` (:func:`render_sersics_backward`): on CUDA the hand-written
-kernel of ``csrc/sersic_render_backward.cu``, on the CPU
-:func:`render_sersics_backward_plain`, the same function written out as
-formulas.  The forward launch is the same either way.
+kernel of ``csrc/sersic_render_backward.cu`` (one launch, a
+thread-block cluster of strips per walker, :func:`backward_strips`), on
+the CPU :func:`render_sersics_backward_plain`, the same function written
+out as formulas; :func:`render_sersics_backward_order_plain` is the
+kernel's formulas and order of summation, for the tests.  The forward
+launch is the same either way.
 """
 from __future__ import annotations
 
@@ -47,6 +50,7 @@ __all__ = [
     "render_sersics_runs_plain",
     "render_sersics_backward",
     "render_sersics_backward_plain",
+    "render_sersics_backward_order_plain",
     "backward_strips",
     "launch_geometry",
     "pick_tile",
@@ -316,21 +320,133 @@ def render_sersics_backward_plain(params, sky, shape, grad):
 
 
 SM_COUNT = 132  # the H100 SXM's multiprocessors
+BACKWARD_THREADS = 256  # csrc/sersic_render_backward.cu's kThreads
+BACKWARD_CHUNK = 32  # pixels a thread sums in float32 (kChunk)
+BACKWARD_MAX_STRIPS = 8  # the portable thread-block cluster size (kMaxStrips)
+BACKWARD_BLOCKS_PER_SM = 2  # the blocks one wave places on an SM
 
 
-def backward_strips(batch, h):
-    """Row strips per walker of a backward launch: enough blocks for two
-    per SM of the H100 (``ceil(264 / B)``), at most one row each."""
-    return max(1, min(h, -(-2 * SM_COUNT // max(batch, 1))))
+def backward_strips(batch, shape):
+    """``(strips, per_strip)`` of a backward launch: each walker's pixels
+    in ``strips`` contiguous ranges of ``per_strip`` pixels (a multiple of
+    the block's 256 threads), one block each, one thread-block cluster per
+    walker.
+
+    As many strips as fill one wave of the H100 at two blocks per SM
+    (``264 // B``: 2 at 125 walkers, 4 at 64), at least as many as keep a
+    thread's pixels within one float32 chunk of 32 (``H W / 8192``), at
+    most 8 (the portable cluster size) and no more than leave every strip
+    a pixel."""
+    h, w = (int(n) for n in shape)
+    hw = h * w
+    wave = max(1, BACKWARD_BLOCKS_PER_SM * SM_COUNT // max(int(batch), 1))
+    need = -(-hw // (BACKWARD_THREADS * BACKWARD_CHUNK))
+    strips = min(BACKWARD_MAX_STRIPS, max(wave, need), -(-hw // BACKWARD_THREADS))
+    per_strip = -(-hw // (strips * BACKWARD_THREADS)) * BACKWARD_THREADS
+    return -(-hw // per_strip), per_strip
+
+
+def _backward_terms(params, shape, grad):
+    """Each pixel's products, ``(B, H W)`` one at a time: the nine packed
+    scalars of every Sersic in turn, in the kernel's formulas (two
+    reciprocals, then multiplies) and in ``params``' dtype."""
+    xg, yg = coord_grids(shape, params.dtype, params.device)
+    b = params.shape[0]
+
+    def flat(t):
+        return t.expand(b, *shape).reshape(b, -1)
+
+    for s in range(params.shape[1]):
+        x, y, m00, m01, m10, m11, kappa, rp, sbeff = (
+            params[:, s, k, None, None] for k in range(PARAMS_PER_SERSIC))
+        krp = kappa * rp
+        dx, dy = xg - x, yg - y
+        u = m00 * dx + m01 * dy
+        v = m10 * dx + m11 * dy
+        sq = u * u + v * v
+        sq_r = torch.clamp(sq, min=1e-30)
+        log_sq = torch.log(sq_r)
+        pw = torch.exp(log_sq * rp)
+        sb = torch.exp(-kappa * (pw - 1.0))
+        off = dx * dx + dy * dy
+        inv3 = 1.0 / (3.0 * torch.clamp(off, min=0.125))
+        krp_p = krp * pw
+        kpp2 = krp_p * krp_p
+        corr = 1.0 + kpp2 * inv3
+        gs = grad * sbeff
+        t = gs * sb * inv3
+        g_krp_p = 2.0 * krp_p * t
+        g_off = torch.where(off >= 0.125, -3.0 * kpp2 * t * inv3, torch.zeros_like(off))
+        g_arg = gs * corr * sb
+        g_p = g_krp_p * krp - g_arg * kappa
+        g_lp = g_p * pw
+        g_sq = torch.where(sq >= 1e-30, g_lp * rp * (1.0 / sq_r), torch.zeros_like(sq))
+        g_u, g_v = 2.0 * u * g_sq, 2.0 * v * g_sq
+        g_krp = g_krp_p * pw
+        yield flat(-(g_u * m00 + g_v * m10 + 2.0 * dx * g_off))
+        yield flat(-(g_u * m01 + g_v * m11 + 2.0 * dy * g_off))
+        yield flat(g_u * dx)
+        yield flat(g_u * dy)
+        yield flat(g_v * dx)
+        yield flat(g_v * dy)
+        yield flat(g_krp * rp - g_arg * (pw - 1.0))
+        yield flat(g_krp * kappa + g_lp * log_sq)
+        yield flat(grad * sb * corr)
+
+
+def _thread_sums(term, strips, per_strip, kahan=False):
+    """``(B,)`` float64: one term's sum in the kernel's order, each
+    thread's pixels in ``term``'s dtype over chunks of at most 32 of its
+    steps (with Kahan's compensation if ``kahan``), each chunk widened to
+    float64."""
+    b = term.shape[0]
+    steps = per_strip // BACKWARD_THREADS
+    term = torch.nn.functional.pad(term, (0, strips * per_strip - term.shape[-1]))
+    term = term.reshape(b, strips, steps, BACKWARD_THREADS)
+    total = torch.zeros(b, dtype=torch.float64, device=term.device)
+    for c0 in range(0, steps, BACKWARD_CHUNK):
+        acc = torch.zeros_like(term[:, :, 0])
+        comp = torch.zeros_like(acc)
+        for i in range(c0, min(steps, c0 + BACKWARD_CHUNK)):
+            if kahan:
+                y = term[:, :, i] - comp
+                t = acc + y
+                comp = (t - acc) - y
+                acc = t
+            else:
+                acc = acc + term[:, :, i]
+        total = total + (acc.double() - comp.double()).sum(dim=(-2, -1))
+    return total
+
+
+def render_sersics_backward_order_plain(params, sky, shape, grad):
+    """The backward kernel's order of summation in plain PyTorch: the
+    kernel's formulas (:func:`_backward_terms`) in ``params``' dtype, each
+    thread's terms summed in that dtype over chunks of at most 32 of its
+    pixels in the kernel's pixel order (:func:`backward_strips`: thread
+    ``t`` of strip ``k`` adds pixel ``k per_strip + t + 256 i`` at step
+    ``i``), ``G``'s own sum with Kahan's compensation, each chunk then
+    widened to float64 and everything above it summed in float64; the
+    result cast back.  The tests hold it (in float32, as the kernel runs)
+    against :func:`render_sersics_backward_plain` in float64."""
+    shape = tuple(int(n) for n in shape)
+    b, s, _ = params.shape
+    geometry = backward_strips(b, shape)
+    sums = [_thread_sums(t, *geometry) for t in _backward_terms(params, shape, grad)]
+    g_params = torch.stack(sums, dim=-1) if sums else params.new_zeros(
+        (b, 0), dtype=torch.float64)
+    g_sky = _thread_sums(grad.reshape(b, -1), *geometry, kahan=True)
+    return (g_params.reshape(b, s, PARAMS_PER_SERSIC).to(params.dtype),
+            g_sky.to(params.dtype))
 
 
 @functools.lru_cache(maxsize=1)
 def _backward_kernel():
-    # (params, grad, partial, g_params, g_sky, batch, num_sersic, h, w,
-    #  strips, stream)
+    # (params, grad, g_params, g_sky, batch, num_sersic, h, w, strips,
+    #  per_strip, stream)
     return _build.function(
         "sersic_render_backward", "sersic_render_backward_launch",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     )
 
 
@@ -341,17 +457,15 @@ def _launch_backward(params, grad, shape):
     grad = grad.contiguous()
     b, s, _ = params.shape
     h, w = shape
-    strips = backward_strips(b, h)
+    strips, per_strip = backward_strips(b, shape)
     dev = params.device
-    partial = torch.empty((b, strips, s * PARAMS_PER_SERSIC + 1),
-                          dtype=torch.float64, device=dev)
     g_params = torch.empty_like(params)
     g_sky = torch.empty((b,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = _backward_kernel()(params.data_ptr(), grad.data_ptr(),
-                                 partial.data_ptr(), g_params.data_ptr(),
-                                 g_sky.data_ptr(), b, s, h, w, strips, stream)
+                                 g_params.data_ptr(), g_sky.data_ptr(), b, s, h, w,
+                                 strips, per_strip, stream)
     if err != 0:
         raise RuntimeError(f"sersic_render backward launch failed: cudaError {err}")
     return g_params, g_sky

@@ -278,11 +278,11 @@ def test_conv_lnl_mixed_radix_matches_float64(cuda, shape, psf_shape):
     assert CL.conv_route(shape) == "fft" and post.consts.fft_layout.numel() > 0
     before = CL.batched_conv_lnl.launches
     routes = dict(CL.batched_conv_lnl.route_launches)
-    at_shape = CL.batched_conv_lnl.shape_launches.get(tuple(shape), 0)
+    at_shape = CL.batched_conv_lnl.shape_launches.get(("fft", tuple(shape)), 0)
     got = CL.batched_conv_lnl(raws, post.consts)
     torch.cuda.synchronize()
     _assert_launched_on(CL.batched_conv_lnl, "fft", before, routes)
-    assert CL.batched_conv_lnl.shape_launches[tuple(shape)] == at_shape + 1
+    assert CL.batched_conv_lnl.shape_launches[("fft", tuple(shape))] == at_shape + 1
     assert _same_nonfinite(got, CL.batched_conv_lnl_plain(raws, post.consts))
     assert torch.isinf(got[3]) and torch.isinf(got[40])
     c64 = build_posterior(spec, device="cpu", dtype=torch.float64,
@@ -823,7 +823,8 @@ def test_joint_graphed_phase_is_bit_identical_to_eager(cuda, variant):
     assert g_launches == e_launches == [2 * (1 + 20 + 6), 2 * (1 + 20) * batched, 0]
     if batched:  # each band's conv_lnl on its route, in both runs
         assert CL.batched_conv_lnl.route_launches == {
-            "fft": routes["fft"] + 2 * 21, "dft": routes["dft"] + 2 * 21}
+            "fft": routes["fft"] + 2 * 21, "dft": routes["dft"] + 2 * 21,
+            "fft_res": routes["fft_res"]}
 
 
 def test_dft_route_conv_lnl_inside_a_captured_graph(cuda):
@@ -865,7 +866,7 @@ def _normalized_err(got, want, dims):
 
 
 @pytest.mark.parametrize("shape", [(128, 128), (45, 37)], ids=["128", "45x37"])
-@pytest.mark.parametrize("count", [1, 2, 3])
+@pytest.mark.parametrize("count", [0, 1, 2, 3, 4, 5, 6])
 def test_render_backward_matches_plain(cuda, shape, count):
     """The render's backward kernel at 125 walkers against the float64
     plain backward: per walker and packed scalar, the largest error over
@@ -873,7 +874,9 @@ def test_render_backward_matches_plain(cuda, shape, count):
     and 4x the float32 plain version's error (float32 per pixel, float64
     sums; a lone Sersic's scalar can cancel to a small sum); the same
     non-finite entries as the float32 plain version (walker 1 is NaN); the
-    same bits on every launch."""
+    same bits on every launch.  The counts cover each instantiation of
+    the kernel: none (the sky's sum alone), one to four, and 5 and 6 (the
+    one-Sersic instantiation in passes)."""
     params, sky = _synthetic_rows(31, 125, count, shape, cuda)
     grad = torch.as_tensor(np.random.RandomState(3).randn(125, *shape),
                            dtype=torch.float32, device=cuda)
@@ -885,12 +888,14 @@ def test_render_backward_matches_plain(cuda, shape, count):
     assert _same_nonfinite(g_params, p32) and _same_nonfinite(g_sky, s32)
     p64, s64 = SR.render_sersics_backward_plain(params.double(), sky.double(),
                                                 shape, grad.double())
+    assert g_params.shape == params.shape
     keep = torch.isfinite(p64).all(dim=(1, 2)) & torch.isfinite(g_params).all(dim=(1, 2))
     assert keep.sum().item() >= 120
-    scale = p64[keep].abs().amax(dim=1).clamp(min=1e-300)
-    err = (g_params[keep].double() - p64[keep]).abs().amax(dim=1) / scale
-    plain_err = (p32[keep].double() - p64[keep]).abs().amax(dim=1) / scale
-    assert torch.all(err <= (4 * plain_err).clamp(min=1e-4))
+    if count:
+        scale = p64[keep].abs().amax(dim=1).clamp(min=1e-300)
+        err = (g_params[keep].double() - p64[keep]).abs().amax(dim=1) / scale
+        plain_err = (p32[keep].double() - p64[keep]).abs().amax(dim=1) / scale
+        assert torch.all(err <= (4 * plain_err).clamp(min=1e-4))
     torch.testing.assert_close(g_sky.double(), s64, rtol=1e-6, atol=0.0)
     again = SR.render_sersics_backward(params, sky, shape, grad)
     _same_bits(again[0], g_params)
@@ -910,7 +915,9 @@ def test_conv_lnl_backward_matches_plain(cuda, shape, psf_shape, route):
     pixel gradient (float32 residuals of a 0.005-noise image carry about
     2e-5 of themselves; the FFT's and GEMMs' rounding come on top); the
     same non-finite entries as the float32 plain version (NaN and
-    infinite pixels give a zero gradient); the same bits on every launch."""
+    infinite pixels give a zero gradient); the same bits on every launch.
+    On the FFT route the backward reads the residuals that the forward's
+    residual instantiation wrote."""
     spec = build_model_spec(flagship_components(shape, psf_shape))
     post = build_posterior(spec, device=cuda, lnpost="batched")
     th = torch.as_tensor(prior_draws(spec, 125, seed=7), dtype=torch.float32,
@@ -918,13 +925,16 @@ def test_conv_lnl_backward_matches_plain(cuda, shape, psf_shape, route):
     raws = post.raw_and_ps(th)[0].contiguous()
     raws[2, 5, 7] = float("nan")
     raws[11, 20, 3] = float("inf")
-    lnl = CL.batched_conv_lnl(raws, post.consts)
+    lnl, residuals = CL.batched_conv_lnl(raws, post.consts), None
+    if route == "fft":
+        lnl_res, *residuals = CL.batched_conv_lnl_residuals(raws, post.consts)
+        _same_bits(lnl_res, lnl)
     grad = torch.as_tensor(np.random.RandomState(4).uniform(0.5, 2.0, 125),
                            dtype=torch.float32, device=cuda)
     assert CL.conv_route(shape) == route
     before = CL.batched_conv_lnl_backward.launches
     routes = dict(CL.batched_conv_lnl_backward.route_launches)
-    got = CL.batched_conv_lnl_backward(raws, post.consts, lnl, grad)
+    got = CL.batched_conv_lnl_backward(raws, post.consts, lnl, grad, residuals)
     torch.cuda.synchronize()
     _assert_launched_on(CL.batched_conv_lnl_backward, route, before, routes)
     want32 = CL.batched_conv_lnl_backward_plain(raws, post.consts, lnl, grad)
@@ -937,7 +947,53 @@ def test_conv_lnl_backward_matches_plain(cuda, shape, psf_shape, route):
     keep = torch.isfinite(lnl)
     assert keep.sum().item() >= 120
     assert _normalized_err(got[keep], want[keep], dims=(1, 2)) <= 1e-3
-    assert torch.equal(got, CL.batched_conv_lnl_backward(raws, post.consts, lnl, grad))
+    assert torch.equal(got, CL.batched_conv_lnl_backward(raws, post.consts, lnl, grad,
+                                                         residuals))
+
+
+@pytest.mark.parametrize("shape,psf_shape",
+                         [((128, 128), (64, 64)), ((96, 96), (48, 48)),
+                          ((100, 100), (50, 50)), ((96, 128), (48, 64))],
+                         ids=["128", "96", "100", "96x128"])
+def test_conv_lnl_residuals_match_plain(cuda, shape, psf_shape):
+    """The FFT route's residual instantiation of the forward at 125
+    walkers: the same lnL bits as the forward kernel's launch on the same
+    inputs, counted on the route ``"fft_res"``; its weights ``(a, c)``
+    against the float64 plain scheme within the larger of 1e-6 of each
+    walker's largest weight and 4x the float32 plain scheme's own error
+    there (float32 FFT rounding of ``conv`` moves the residual ``r = obs
+    - conv`` by a few 1e-6 of its peak; the plain scheme in float32 shows
+    2e-6 to 4e-6 at 96-128); each walker's scale exponent within one of
+    the float64 scheme's; the same bits on every launch."""
+    spec = build_model_spec(flagship_components(shape, psf_shape))
+    post = build_posterior(spec, device=cuda, lnpost="batched")
+    th = torch.as_tensor(prior_draws(spec, 125, seed=9), dtype=torch.float32,
+                         device=cuda)
+    raws = post.raw_and_ps(th)[0].contiguous()
+    raws[2, 5, 7] = float("nan")
+    lnl = CL.batched_conv_lnl(raws, post.consts)
+    before = CL.batched_conv_lnl.launches
+    routes = dict(CL.batched_conv_lnl.route_launches)
+    got, weights, scale_exp = CL.batched_conv_lnl_residuals(raws, post.consts)
+    torch.cuda.synchronize()
+    _assert_launched_on(CL.batched_conv_lnl, "fft_res", before, routes)
+    _same_bits(got, lnl)
+    assert weights.shape == (125, *shape, 2) and scale_exp.dtype == torch.int32
+    c64 = build_posterior(spec, device="cpu", dtype=torch.float64,
+                          lnpost="batched").consts
+    _, w64, e64 = CL.packed_fft_conv_residuals_plain(raws.double().cpu(), c64)
+    _, w32, _ = CL.packed_fft_conv_residuals_plain(raws, post.consts)
+    keep = torch.isfinite(lnl)
+    assert keep.sum().item() >= 120
+    want = w64.to(cuda)[keep]
+    scale = want.abs().amax(dim=(1, 2))  # (walkers, 2): a and c apart
+    err = (weights[keep].double() - want).abs().amax(dim=(1, 2)) / scale
+    plain_err = (w32[keep].double() - want).abs().amax(dim=(1, 2)) / scale
+    assert torch.all(err <= (4 * plain_err).clamp(min=1e-6))
+    assert (scale_exp[keep].cpu() - e64[keep.cpu()]).abs().max().item() <= 1
+    again = CL.batched_conv_lnl_residuals(raws, post.consts)
+    for x, y in zip(again, (got, weights, scale_exp)):
+        _same_bits(x, y)
 
 
 GRAD_COUNTED = (SR.render_sersics, SR.render_sersics_backward,
@@ -1020,9 +1076,10 @@ def test_joint_map_runs_the_dft_backward_inside_the_graph(cuda):
     assert np.isfinite(res.lnpost)
     # the pool's evaluation, three replays and the final iterate's, per band
     assert [a - b for a, b in zip(after[:4], before[:4])] == [10, 8, 10, 8]
-    for i, n in ((4, 5), (5, 4)):  # conv_lnl forward, backward: by route
-        assert {r: after[i][r] - before[i][r] for r in ("fft", "dft")} == \
-            {"fft": n, "dft": n}
+    # by route: band 0's forward under autograd writes its residuals
+    assert {r: after[4][r] - before[4][r] for r in after[4]} == \
+        {"fft": 1, "fft_res": 4, "dft": 5}
+    assert {r: after[5][r] - before[5][r] for r in after[5]} == {"fft": 4, "dft": 4}
 
 
 def test_joint_map_runs_the_mixed_radix_band_inside_the_graph(cuda):
@@ -1039,19 +1096,23 @@ def test_joint_map_runs_the_mixed_radix_band_inside_the_graph(cuda):
     runs = []
     for eager in (False, True):
         before = _map_counts()
-        at48 = [fn.shape_launches.get((48, 48), 0)
-                for fn in (CL.batched_conv_lnl, CL.batched_conv_lnl_backward)]
+        keys48 = [(CL.batched_conv_lnl, "fft"), (CL.batched_conv_lnl, "fft_res"),
+                  (CL.batched_conv_lnl_backward, "fft")]
+        at48 = [fn.shape_launches.get((r, (48, 48)), 0) for fn, r in keys48]
         with optimize._eager(post) if eager else contextlib.nullcontext():
             res = optimize.fit_map(post, n_starts=4, steps=3, seed=3)
         torch.cuda.synchronize()
         after = _map_counts()
         assert np.isfinite(res.lnpost)
         assert [a - b for a, b in zip(after[:4], before[:4])] == [10, 8, 10, 8]
-        for i, n in ((4, 10), (5, 8)):  # every launch on the FFT route
-            assert {r: after[i][r] - before[i][r] for r in ("fft", "dft")} == \
-                {"fft": n, "dft": 0}
-        assert [fn.shape_launches[(48, 48)] - b for fn, b in zip(
-            (CL.batched_conv_lnl, CL.batched_conv_lnl_backward), at48)] == [5, 4]
+        # every launch on the FFT route, the forward under autograd writing
+        # its residuals
+        assert {r: after[4][r] - before[4][r] for r in after[4]} == \
+            {"fft": 2, "fft_res": 8, "dft": 0}
+        assert {r: after[5][r] - before[5][r] for r in after[5]} == \
+            {"fft": 8, "dft": 0}
+        assert [fn.shape_launches.get((r, (48, 48)), 0) - b
+                for (fn, r), b in zip(keys48, at48)] == [1, 4, 4]
         runs.append(res)
     _same_bits(runs[0].all_theta, runs[1].all_theta)
     _same_bits(runs[0].all_lnpost, runs[1].all_lnpost)

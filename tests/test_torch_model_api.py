@@ -233,8 +233,9 @@ def test_chip_smoke_priors_phase_rehearses_on_the_cpu(monkeypatch):
                 route = FL.fused_route if name == "fused_lnl" else CL.conv_route
                 wrapped.route_launches[route(shape)] += 1
                 if name == "batched_conv_lnl":
-                    wrapped.shape_launches[shape] = wrapped.shape_launches.get(
-                        shape, 0) + 1
+                    key = (route(shape), shape)
+                    wrapped.shape_launches[key] = wrapped.shape_launches.get(
+                        key, 0) + 1
             return orig(*a, **k)
 
         wrapped.launches = 0

@@ -30,7 +30,9 @@ never ``jax`` nor ``psfmc_tpu``, and:
    inputs); the same checks run once more at 96x96, where conv_lnl takes
    its FFT route's mixed-radix geometry (row ``conv_lnl_mixed``, the
    matmul-DFT route timed beside it) and the fused kernel its matmul-DFT
-   route (row ``fused_lnl_dft``), and at 98x98 (a factor of 7), where
+   route (row ``fused_lnl_dft``), at 98x98 (7^2 x 2), where conv_lnl
+   takes the same geometry with radix-7 stages (row ``conv_lnl_radix7``,
+   the matmul-DFT route timed beside it), and at 74x74 (2 x 37), where
    conv_lnl takes its matmul-DFT route (row ``conv_lnl_dft``).  Each
    likelihood kernel, its plain version and the ``torch.fft`` yardstick
    are also held against a float64 ``torch.fft`` convolution on the card;
@@ -138,8 +140,8 @@ never ``jax`` nor ``psfmc_tpu``, and:
    the fit's walkers; graphed against eager, the steady steps and the
    device's busy time and kernels per retained step; then the variants
    (both bands on the general path with two PSF stars each, a registration
-   offset on a sky tie with band 1 at 98x98 on conv_lnl's matmul-DFT
-   route, the general bands under the tiled render) with a lnpost check
+   offset on a sky tie with band 1 at 98x98 on conv_lnl's FFT route with
+   radix-7 stages, the general bands under the tiled render) with a lnpost check
    and a graphed/eager segment of 2 + 2 steps;
 12. MAP phase (the gradient path): the MAP flagship (the flagship's
    components and priors, its observation simulated from a truth inside
@@ -157,14 +159,16 @@ never ``jax`` nor ``psfmc_tpu``, and:
    family flagship; ``model_galaxy_mcmc(init="map")`` on the same files
    (20 burn + 20 retained steps); the joint MAP (64 starts x 500 steps,
    band 1's conv_lnl and backward on the FFT route's mixed-radix geometry
-   inside the captured step) and a joint MAP of 50 steps with band 1 at
-   98x98 (its backward on the matmul-DFT route); then each backward kernel
+   inside the captured step) and two joint MAPs of 50 steps, band 1 at
+   98x98 (its conv_lnl and backward on the FFT route with radix-7 stages)
+   and at 74x74 (both on the matmul-DFT route); then each backward kernel
    against its plain version at 125 walkers with its times (rows
    ``sersic_render_backward``, ``conv_lnl_backward``,
-   ``conv_lnl_backward_mixed`` with the matmul-DFT route timed beside it,
-   ``conv_lnl_backward_dft``), and the forward's residual instantiation
-   that the FFT route's backward reads (rows ``conv_lnl_res`` and
-   ``conv_lnl_res_mixed``: the same lnL bits as conv_lnl, the weights
+   ``conv_lnl_backward_mixed`` and ``conv_lnl_backward_radix7`` with the
+   matmul-DFT route timed beside them, ``conv_lnl_backward_dft`` at
+   74x74), and the forward's residual instantiation that the FFT route's
+   backward reads (rows ``conv_lnl_res``, ``conv_lnl_res_mixed`` and
+   ``conv_lnl_res_radix7``: the same lnL bits as conv_lnl, the weights
    against the float64 plain scheme, the forward without residuals timed
    beside it), with the forward + backward pair of an Adam step timed
    against its bound;
@@ -177,11 +181,16 @@ each path (slice, driver, general, family and joint), graphed and eager, with th
 (against the profiled and the unprofiled wall time), and
 ten replayed Adam steps of the MAP path (busy time, kernels per step,
 idle share), the SM clock cycles that one block of each FFT-route kernel spends in
-each of its phases (conv_lnl also at 96x96, its mixed-radix geometry; a
+each of its phases (conv_lnl also at 96x96 and 98x98, its mixed-radix geometry; a
 second build of the two sources with phase stamps;
 the first phase of the fused kernel is its render), and the render kernel
 under other launch geometries than the wrapper picks.  The breakdown
 also covers the priors flagship and the priors' stress variant.
+
+``python3 chip_smoke.py --step-times`` runs only :func:`step_times_phase`
+(the joint offset variant's retained step and the joint MAP's Adam step
+with band 1 at 98x98, replayed back to back) and prints its times with a
+digest of every kernel's SASS, to set one tree of the port beside another.
 
 Any failure exits nonzero before the result line; so does a host
 without CUDA, or a directory without the port.
@@ -237,7 +246,9 @@ GRAPH_BURN, GRAPH_SAMPLE = 4, 6  # graph phase: graphed against eager
 # 3 x 2^5: conv_lnl's FFT route on its mixed-radix geometry, and the fused
 # kernel's matmul-DFT route (its FFT route takes powers of two only)
 MIXED_SHAPE, MIXED_PSF_SHAPE = (96, 96), (48, 48)
-DFT_SHAPE, DFT_PSF_SHAPE = (98, 98), (48, 48)  # a factor of 7: conv_lnl's matmul-DFT route
+# 7^2 x 2: conv_lnl's FFT route on its mixed-radix geometry with radix-7 stages
+RADIX7_SHAPE, RADIX7_PSF_SHAPE = (98, 98), (48, 48)
+DFT_SHAPE, DFT_PSF_SHAPE = (74, 74), (36, 36)  # 2 x 37: conv_lnl's matmul-DFT route
 
 
 def log(msg):
@@ -366,14 +377,22 @@ def dft_matmul_ops(b, h, w):
                 + LNL_OPS_PER_PIXEL * h * w)
 
 
-def mixed_fft(shape):
-    """Whether conv_lnl takes its FFT route at ``shape`` on the mixed-radix
-    geometry (a side that is not a power of two)."""
+def fft_geometry(shape):
+    """conv_lnl's geometry at ``shape``: ``"radix2"`` (both sides powers of
+    two), ``"mixed"`` (the mixed-radix geometry, stages of radix 2, 3 and
+    5), ``"radix7"`` (the same geometry with radix-7 stages: a side with a
+    factor of 7), or None off the FFT route."""
     from psfmc_tpu_torch.ops.kernels.conv_lnl import conv_route
 
-    h, w = shape
-    pow2 = all(n & (n - 1) == 0 for n in (h, w))
-    return conv_route(shape) == "fft" and not pow2
+    if conv_route(shape) != "fft":
+        return None
+    if all(n & (n - 1) == 0 for n in shape):
+        return "radix2"
+    return "radix7" if any(n % 7 == 0 for n in shape) else "mixed"
+
+
+# the geometries that read_counts and the rows split a route's launches by
+MIXED_GEOMETRIES = ("mixed", "radix7")
 
 
 def kernel_phase(post, spec):
@@ -474,6 +493,7 @@ def kernel_phase(post, spec):
     for shape, psf_shape, conv, fused in (
             (MIXED_SHAPE, MIXED_PSF_SHAPE, ("conv_lnl_mixed", "fft"),
              ("fused_lnl_dft", "dft")),
+            (RADIX7_SHAPE, RADIX7_PSF_SHAPE, ("conv_lnl_radix7", "fft"), None),
             (DFT_SHAPE, DFT_PSF_SHAPE, ("conv_lnl_dft", "dft"), None)):
         other_spec = build_model_spec(flagship_components(shape, psf_shape))
         other_post = build_posterior(other_spec, device=post.device,
@@ -523,8 +543,9 @@ def likelihood_rows(post, spec, thetas, conv, fused):
     if conv_route((h, w)) != route:
         raise AssertionError(f"{h}x{w} takes the {conv_route((h, w))} route, "
                              f"expected {route}")
+    geometry = fft_geometry((h, w))
     log(f"{name}: {h}x{w} takes conv_lnl's {route} route"
-        + (" (mixed radix)" if mixed_fft((h, w)) else ""))
+        + (f" ({geometry} geometry)" if geometry else ""))
     params, sky = post.render_inputs(thetas)
     params, sky = params.contiguous(), sky.contiguous()
     b, s, _ = params.shape
@@ -782,21 +803,24 @@ def reset_counts(counted):
 def read_counts(counted):
     """Launches by wrapper, and by ``<wrapper>:<route>`` for the two
     likelihood kernels; for conv_lnl and its backward also
-    ``<wrapper>:<route>:mixed``, those of a route's launches that ran on
-    the FFT route's mixed-radix geometry (counted by route and shape),
-    and ``<wrapper>:mixed``, their sum over the routes."""
+    ``<wrapper>:<route>:<geometry>``, those of a route's launches that ran
+    on the FFT route's mixed-radix geometry, without (``mixed``) or with
+    (``radix7``) radix-7 stages (counted by route and shape), and
+    ``<wrapper>:<geometry>``, their sum over the routes."""
     counts = {fn.__name__: fn.launches for fn in counted}
     routes = {f"{fn.__name__}:{r}": n for fn in counted
               for r, n in getattr(fn, "route_launches", {}).items()}
     for fn in counted:
         if hasattr(fn, "shape_launches"):
             name = fn.__name__
-            routes[f"{name}:mixed"] = 0
-            routes.update({f"{name}:{r}:mixed": 0 for r in fn.route_launches})
+            for geo in MIXED_GEOMETRIES:
+                routes[f"{name}:{geo}"] = 0
+                routes.update({f"{name}:{r}:{geo}": 0 for r in fn.route_launches})
             for (route, shape), n in fn.shape_launches.items():
-                if mixed_fft(shape):
-                    routes[f"{name}:mixed"] += n
-                    routes[f"{name}:{route}:mixed"] += n
+                geo = fft_geometry(shape)
+                if geo in MIXED_GEOMETRIES:
+                    routes[f"{name}:{geo}"] += n
+                    routes[f"{name}:{route}:{geo}"] += n
     return counts, routes
 
 
@@ -1962,7 +1986,7 @@ def joint_launches(paths, burn, sample, moved=0, tiled=False):
     return want
 
 
-def joint_phase(shapes=None, psf_shape=(64, 64), device=None, dft_band=None):
+def joint_phase(shapes=None, psf_shape=(64, 64), device=None, radix7_band=None):
     """Joint multi-band fits at full width: the joint flagship (band 0 the
     flagship at 128x128 with a TAN WCS, band 1 a 96x96 observation with
     its own PSF star and a WCS rotated by 20 degrees, its sources sky-tied
@@ -1974,9 +1998,9 @@ def joint_phase(shapes=None, psf_shape=(64, 64), device=None, dft_band=None):
     writes the products from the checkpoint, graphed against eager, the
     steady steps with the device's busy time, and each variant of
     ``psfmc_tpu_torch.flagship.JOINT_VARIANTS`` at 2 + 2 steps, the
-    ``offset`` variant with band 1 at ``dft_band`` (98x98: a factor of 7),
-    so that conv_lnl's matmul-DFT route runs inside a captured step (the
-    arguments shrink it for a rehearsal on the CPU).  Returns the launches
+    ``offset`` variant with band 1 at ``radix7_band`` (98x98 = 7^2 x 2), so
+    that conv_lnl's FFT route with radix-7 stages runs inside a captured
+    step (the arguments shrink it for a rehearsal on the CPU).  Returns the launches
     of the fit's sampling and of the variants (by wrapper and route), band
     1's conv_lnl timed on the fit's walkers, and a sampler on the joint
     path."""
@@ -2002,16 +2026,14 @@ def joint_phase(shapes=None, psf_shape=(64, 64), device=None, dft_band=None):
     from psfmc_tpu_torch.sampler import EnsembleSampler
 
     shapes = JOINT_SHAPES if shapes is None else shapes
-    dft_band = DFT_SHAPE if dft_band is None else dft_band
+    radix7_band = RADIX7_SHAPE if radix7_band is None else radix7_band
     t_phase = time.perf_counter()
     steps = BURN + SAMPLE
-    routes = [conv_route(shape) for shape in shapes]
-    if routes != ["fft", "fft"] or mixed_fft(shapes[0]) or not mixed_fft(shapes[1]) \
-            or conv_route(dft_band) != "dft":
-        raise AssertionError(f"joint bands {shapes} take the routes {routes}, "
-                             "want fft (radix 2) and fft (mixed radix); the "
-                             f"offset variant's band 1 {dft_band} "
-                             f"{conv_route(dft_band)}, want dft")
+    geometries = [fft_geometry(shape) for shape in (*shapes, radix7_band)]
+    if geometries != ["radix2", "mixed", "radix7"]:
+        raise AssertionError(f"joint bands {shapes} and the offset variant's band 1 "
+                             f"{radix7_band} take conv_lnl's {geometries}, want the "
+                             "FFT route's radix2, mixed and radix7 geometries")
     env = {k: os.environ.pop(k) for k in ("PSFMC_LNPOST", "PSFMC_RENDER",
                                           "PSFMC_KAPPA") if k in os.environ}
     with tempfile.TemporaryDirectory() as tmp:
@@ -2135,7 +2157,7 @@ def joint_phase(shapes=None, psf_shape=(64, 64), device=None, dft_band=None):
         variant_env = JOINT_ENV.get(variant, {})
         paths = (("general", "general") if variant in ("general", "tiled")
                  else ("batched", "batched"))
-        vshapes = (shapes[0], dft_band) if variant == "offset" else shapes
+        vshapes = (shapes[0], radix7_band) if variant == "offset" else shapes
         os.environ.update(variant_env)
         try:
             vmodel = JointModel(joint_components(vshapes, psf_shape, variant),
@@ -2156,14 +2178,16 @@ def joint_phase(shapes=None, psf_shape=(64, 64), device=None, dft_band=None):
         want = joint_launches(paths, GENERAL_VARIANT_STEPS, GENERAL_VARIANT_STEPS,
                               tiled="PSFMC_RENDER" in variant_env)
         by_wrapper = {k: v for k, v in got.items() if ":" not in k}
-        # the offset variant: band 0 on the FFT route, band 1 on the
-        # matmul-DFT route
-        per_route = (1 + 4 * GENERAL_VARIANT_STEPS) * (paths[0] == "batched")
-        if by_wrapper != want or got["batched_conv_lnl:fft"] != per_route \
-                or got["batched_conv_lnl:dft"] != per_route \
+        # the offset variant: both bands on the FFT route, band 1 with
+        # radix-7 stages
+        per_band = (1 + 4 * GENERAL_VARIANT_STEPS) * (paths[0] == "batched")
+        if by_wrapper != want or got["batched_conv_lnl:fft"] != 2 * per_band \
+                or got["batched_conv_lnl:fft:radix7"] != per_band \
+                or got["batched_conv_lnl:dft"] != 0 \
                 or got["batched_conv_lnl:mixed"] != 0:
             raise AssertionError(f"joint variant {variant} ({vshapes}): launches "
-                                 f"{got}, want {want} and {per_route} on each route")
+                                 f"{got}, want {want} and {per_band} a band on the "
+                                 "FFT route, band 1's with radix-7 stages")
         for k, v in got.items():
             variant_launches[k] = variant_launches.get(k, 0) + v
     log(f"joint: the phase took {time.perf_counter() - t_phase:.1f} s")
@@ -2174,7 +2198,7 @@ def joint_phase(shapes=None, psf_shape=(64, 64), device=None, dft_band=None):
 # -- phase 12: the gradient path -------------------------------------------
 
 MAP_STARTS, MAP_STEPS = 64, 500  # fit_map's defaults, the MAP path's depth
-MAP_DFT_STEPS = 50  # the joint MAP with band 1 on the matmul-DFT route
+MAP_SHORT_STEPS = 50  # the joint MAPs with band 1 at 98x98 and at 74x74
 MAP_EQUAL_STEPS = 5  # graphed against eager
 GRAD_POINTS = 64
 GRAD_RTOL = 1e-3  # ||g_card - g_cpu|| / ||g_cpu|| per point, the CPU in float64
@@ -2252,10 +2276,11 @@ def backward_rows(post, spec):
     """Rows (a)-(c): each backward kernel against its plain version on the
     card at 125 walkers, with its times and bound: the render's at the
     flagship's 128x128 and at 45x37, conv_lnl's on the FFT route at
-    128x128 (radix 2) and 96x96 (mixed radix; the matmul-DFT route timed
-    on the same inputs), each after the row of the forward's residual
-    instantiation that it reads (:func:`residual_row`) and with the pair's
-    time, and on the matmul-DFT route at 98x98."""
+    128x128 (radix 2), 96x96 (mixed radix) and 98x98 (the same with
+    radix-7 stages; the matmul-DFT route timed on the same inputs at both),
+    each after the row of the forward's residual instantiation that it
+    reads (:func:`residual_row`) and with the pair's time, and on the
+    matmul-DFT route at 74x74."""
     import torch
 
     from psfmc_tpu_torch.flagship import flagship_components, prior_draws
@@ -2333,9 +2358,11 @@ def backward_rows(post, spec):
     # (b), (c) conv_lnl's backward on both routes; on the FFT route it reads
     # what the forward's residual instantiation wrote (rows conv_lnl_res*)
     mixed_spec = build_model_spec(flagship_components(MIXED_SHAPE, MIXED_PSF_SHAPE))
+    radix7_spec = build_model_spec(flagship_components(RADIX7_SHAPE, RADIX7_PSF_SHAPE))
     dft_spec = build_model_spec(flagship_components(DFT_SHAPE, DFT_PSF_SHAPE))
     for s_, route, name in ((spec, "fft", "conv_lnl_backward"),
                             (mixed_spec, "fft", "conv_lnl_backward_mixed"),
+                            (radix7_spec, "fft", "conv_lnl_backward_radix7"),
                             (dft_spec, "dft", "conv_lnl_backward_dft")):
         p, th = inputs(s_)
         raws = p.raw_and_ps(th)[0].contiguous()
@@ -2357,8 +2384,9 @@ def backward_rows(post, spec):
         f_var = torch.as_tensor(s_.f_var_stack[0], device=post.device).to(torch.complex64)
         residuals = None
         if route == "fft":
+            geometry = fft_geometry(s_.shape)
             res_row, residuals = residual_row(
-                "conv_lnl_res" + ("_mixed" if mixed_fft(s_.shape) else ""),
+                "conv_lnl_res" + ("" if geometry == "radix2" else f"_{geometry}"),
                 raws, consts, c64, lnl, f_psf, f_var, data_bytes)
             rows.append(res_row)
         routes = dict(CL.batched_conv_lnl_backward.route_launches)
@@ -2561,15 +2589,16 @@ def check_step_tally(program, want, label):
 
 
 def map_phase(shape=(128, 128), psf_shape=(64, 64), joint_shapes=None, device=None,
-              dft_band=None):
+              radix7_band=None, dft_band=None):
     """The gradient path at full width (the arguments shrink it for a
     rehearsal on the CPU): the MAP flagship through ``model_galaxy_map``
     (64 starts x 500 Adam steps, Laplace), ``model_galaxy_mcmc(init=
     "map")`` on the same files, gradients against the CPU, five Adam steps
     graphed against eager, and the joint MAP (band 1 at 96x96 on the FFT
     route's mixed-radix geometry; then 50 steps with band 1 at
-    ``dft_band``, on the matmul-DFT route).  Returns the backward rows'
-    launches and the timings."""
+    ``radix7_band``, on the same geometry with radix-7 stages, and 50 with
+    band 1 at ``dft_band``, on the matmul-DFT route).  Returns the backward
+    rows' launches and the timings."""
     import torch
 
     from psfmc_tpu_torch import fitting, optimize
@@ -2590,6 +2619,7 @@ def map_phase(shape=(128, 128), psf_shape=(64, 64), joint_shapes=None, device=No
     )
 
     joint_shapes = joint_shapes or JOINT_SHAPES
+    radix7_band = radix7_band or RADIX7_SHAPE
     dft_band = dft_band or DFT_SHAPE
     counted = grad_kernels()
     t_phase = time.perf_counter()
@@ -2794,12 +2824,18 @@ def map_phase(shape=(128, 128), psf_shape=(64, 64), joint_shapes=None, device=No
         out["init"] = dict(init_launches, **init_routes)
 
         # the joint MAP: band 1's conv_lnl and backward on the FFT route's
-        # mixed-radix geometry; then a shorter one with band 1 on the
-        # matmul-DFT route, so that its backward runs inside a captured step
-        for key, jshapes, steps in (("joint", joint_shapes, MAP_STEPS),
-                                    ("joint_dft", (joint_shapes[0], dft_band),
-                                     MAP_DFT_STEPS)):
-            band1 = "mixed" if key == "joint" else "dft"
+        # mixed-radix geometry; then shorter ones with band 1 on that
+        # geometry's radix-7 stages and on the matmul-DFT route, so that
+        # each of their kernels runs inside a captured step
+        for key, jshapes, steps in (
+                ("joint", joint_shapes, MAP_STEPS),
+                ("joint_radix7", (joint_shapes[0], radix7_band), MAP_SHORT_STEPS),
+                ("joint_dft", (joint_shapes[0], dft_band), MAP_SHORT_STEPS)):
+            band1 = fft_geometry(jshapes[1]) or "dft"
+            if band1 != {"joint": "mixed", "joint_radix7": "radix7",
+                         "joint_dft": "dft"}[key]:
+                raise AssertionError(f"map: the {key} MAP's band 1 {jshapes[1]} "
+                                     f"takes conv_lnl's {band1}")
             bands, jtruth = joint_map_components(jshapes, psf_shape, seed=SEED)
             jm = JointModel(bands, device=device)
             reset_counts(counted)
@@ -2810,7 +2846,7 @@ def map_phase(shape=(128, 128), psf_shape=(64, 64), joint_shapes=None, device=No
             joint_wall = time.perf_counter() - t0
             j_launches, j_routes = read_counts(counted)
             jprog = map_program(jm.posterior_fns)
-            on_fft = 2 if band1 == "mixed" else 1
+            on_fft = 1 if band1 == "dft" else 2
             tally = {("render_sersics", None): 2, ("render_sersics_backward", None): 2,
                      ("batched_conv_lnl", "fft_res"): on_fft,
                      ("batched_conv_lnl_backward", "fft"): on_fft}
@@ -2821,9 +2857,11 @@ def map_phase(shape=(128, 128), psf_shape=(64, 64), joint_shapes=None, device=No
                 check_step_tally(jprog, tally, f"{key} map")
             jwant = {"batched_conv_lnl:fft_res": on_fft * (steps + 1),
                      "batched_conv_lnl_backward:fft": on_fft * (steps + 1),
-                     "batched_conv_lnl_backward:dft": (2 - on_fft) * (steps + 1),
-                     "batched_conv_lnl:fft_res:mixed": (on_fft - 1) * (steps + 1),
-                     "batched_conv_lnl_backward:fft:mixed": (on_fft - 1) * (steps + 1)}
+                     "batched_conv_lnl_backward:dft": (2 - on_fft) * (steps + 1)}
+            for geo in MIXED_GEOMETRIES:  # band 1's, at its geometry
+                n = (steps + 1) * (band1 == geo)
+                jwant.update({f"batched_conv_lnl:fft_res:{geo}": n,
+                              f"batched_conv_lnl_backward:fft:{geo}": n})
             jlnp_truth = float(jm.posterior_fns.log_posterior_batch(jtruth[None])[0])
             log(f"map: joint MAP, band 1 {jshapes[1][0]}x{jshapes[1][1]} "
                 f"({band1}), {MAP_STARTS} starts x {steps} steps in "
@@ -3067,6 +3105,79 @@ def render_sass_count(num_sersic):
     raise AssertionError("the render kernel was not found in the SASS listing")
 
 
+STEP_TIMES_STEPS = 5  # Adam steps that capture the joint MAP's step before it is timed
+
+
+def step_times_phase(psf_shape=(64, 64), band=None):
+    """The two captured steps that run conv_lnl at ``band`` (98x98 unless
+    given) inside the joint flagship, each replayed back to back and timed
+    by CUDA events (:func:`time_ms`): the offset variant's retained sampler
+    step at 250 walkers (band 1's conv_lnl twice a step, once per half
+    ensemble) and the joint MAP's Adam step at 64 starts; then a digest of
+    each built kernel's SASS (:func:`sass_digests`).  It calls only what the
+    port has had since its gradient path, so that it times an earlier tree
+    of the port too: copy this file to the root of that tree and run
+    ``python3 chip_smoke.py --step-times`` there.  Two trees compare only
+    within one call to the card, in turns (a, b, b, a)."""
+    from psfmc_tpu_torch import optimize
+    from psfmc_tpu_torch.flagship import (
+        JOINT_SHAPES,
+        joint_components,
+        joint_map_components,
+        prior_draws,
+    )
+    from psfmc_tpu_torch.models import JointModel
+    from psfmc_tpu_torch.ops.kernels.conv_lnl import conv_route
+    from psfmc_tpu_torch.sampler import EnsembleSampler
+
+    shapes = (JOINT_SHAPES[0], band or RADIX7_SHAPE)
+    out = {"band": list(shapes[1]), "route": conv_route(shapes[1])}
+    model = JointModel(joint_components(shapes, psf_shape, "offset"))
+    spec = model.spec
+    sm = EnsembleSampler(NWALKERS, spec.num_params, model.posterior_fns, seed=SEED)
+    sm.init_state(prior_draws(spec, NWALKERS, seed=SEED + 1))
+    sm.run_burn(2)
+    sm.reset()
+    sm.run_sampling(2)  # captures the retained step's graph
+    out["offset_retained_step_ms"] = time_ms(lambda: sm._step("retain"))
+    bands, _ = joint_map_components(shapes, psf_shape, seed=SEED)
+    jm = JointModel(bands)
+    optimize.fit_map(jm.posterior_fns, n_starts=MAP_STARTS, steps=STEP_TIMES_STEPS,
+                     seed=SEED)
+    program = map_program(jm.posterior_fns)
+    out["joint_map_adam_step_ms"] = time_ms(program.graph.replay)
+    log(f"step times, band 1 at {shapes[1][0]}x{shapes[1][1]} (conv_lnl's "
+        f"{out['route']} route): the offset variant's retained step "
+        f"{out['offset_retained_step_ms']:.4f} ms replayed ({NWALKERS} walkers), "
+        f"the joint MAP's Adam step {out['joint_map_adam_step_ms']:.4f} ms "
+        f"replayed ({MAP_STARTS} starts)")
+    return out
+
+
+def sass_digests():
+    """``{source: {kernel: digest}}``: the first 12 hex digits of the SHA-1
+    of each kernel's SASS in each built library (``cuobjdump -sass``), so
+    that two trees' runs show which kernels' binary code differs.  A
+    kernel's name drops its anonymous namespace's hash, which nvcc derives
+    from the source's path."""
+    import hashlib
+    import re
+
+    from psfmc_tpu_torch.ops.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = {}
+    for name in _build.SOURCES:
+        sass = subprocess.run([tool, "-sass", _build._target(name)[1]],
+                              capture_output=True, text=True, check=True).stdout
+        out[name] = {}
+        for body in sass.split("Function : ")[1:]:
+            head, code = body.split("\n", 1)
+            kernel = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", head.strip())
+            out[name][kernel] = hashlib.sha1(code.encode()).hexdigest()[:12]
+    return out
+
+
 PHASES = ("load or render", "pack", "forward rows", "forward columns",
           "pointwise step", "inverse columns", "inverse rows", "lnL readout",
           "final reduction")
@@ -3075,7 +3186,7 @@ PHASES = ("load or render", "pack", "forward rows", "forward columns",
 def phase_clocks_phase(post, spec):
     """Cycles per phase of block 0 of both FFT-route kernels, on the
     kernel phase's inputs, and of conv_lnl's mixed-radix geometry at
-    96x96.  The two sources are built once more here with
+    96x96 and, with radix-7 stages, at 98x98.  The two sources are built once more here with
     ``-DPSFMC_FFT_STAMPS`` (``csrc/fft_conv.cuh``) into a temporary
     directory and called through ctypes; the port never loads that build.
     The fused kernel's first phase is its render; it is also built with
@@ -3115,23 +3226,27 @@ def phase_clocks_phase(post, spec):
     b = scalars[0].shape[0]
     out = torch.empty((b,), dtype=torch.float32, device=post.device)
     fused_ptrs = [getattr(consts, n).data_ptr() for n in CL.FFT_CONST_ARGS]
-    mixed_spec = build_model_spec(flagship_components(MIXED_SHAPE, MIXED_PSF_SHAPE))
-    mixed_post = build_posterior(mixed_spec, device=post.device, lnpost="batched")
-    calls = {
-        "conv_lnl": conv_call(post, spec),
-        "conv_lnl_mixed": conv_call(mixed_post, mixed_spec),
+    calls = {"conv_lnl": conv_call(post, spec)}
+    for key, shape, psf_shape in (("conv_lnl_mixed", MIXED_SHAPE, MIXED_PSF_SHAPE),
+                                  ("conv_lnl_radix7", RADIX7_SHAPE, RADIX7_PSF_SHAPE)):
+        other = build_model_spec(flagship_components(shape, psf_shape))
+        calls[key] = conv_call(build_posterior(other, device=post.device,
+                                               lnpost="batched"), other)
+    calls.update({
         "fused_lnl": ("fused_lnl_fft_launch", [void] * 4 + [integer] * 5,
                       [t.data_ptr() for t in scalars]
                       + [b, scalars[0].shape[1], scalars[2].shape[1], h, w]
                       + fused_ptrs + [out.data_ptr(), stream],
                       out, FL.fused_lnl(*scalars, consts), scalars),
-    }
+    })
     # (label, source, call, extra flags): the two kernels as the port
-    # builds them, conv_lnl at 96x96, then the fused kernel with more pixels
+    # builds them, conv_lnl at 96x96 and 98x98, then the fused kernel with more pixels
     # of a row side by side in a thread than csrc/fused_lnl.cu's kFixedRun
     variants = [("conv_lnl", "conv_lnl", "conv_lnl", ()),
                 (f"conv_lnl {MIXED_SHAPE[0]}x{MIXED_SHAPE[1]} (mixed radix)",
                  "conv_lnl", "conv_lnl_mixed", ()),
+                (f"conv_lnl {RADIX7_SHAPE[0]}x{RADIX7_SHAPE[1]} (radix 7)",
+                 "conv_lnl", "conv_lnl_radix7", ()),
                 ("fused_lnl", "fused_lnl", "fused_lnl", ())]
     variants += [(f"fused_lnl, {n} pixels a thread", "fused_lnl", "fused_lnl",
                   (f"-DPSFMC_FUSED_RUN={n}",)) for n in (2, 4)]
@@ -3206,6 +3321,12 @@ def main():
                     or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
+    if "--step-times" in sys.argv[1:]:
+        times = step_times_phase()
+        log(json.dumps({"step_times": times, "sass": sass_digests(),
+                        "card": identity}))
+        return 0
+
     spec = build_model_spec(flagship_components())
     post = build_posterior(spec, lnpost="batched")
     rows = kernel_phase(post, spec)
@@ -3249,7 +3370,7 @@ def main():
     # the render on all of them (tiled on the tiled variant's general bands),
     # conv_lnl on the fit and the offset variant, band 0 on the FFT route's
     # radix-2 geometry, band 1 on its mixed-radix geometry (the fit's 96x96)
-    # or on the matmul-DFT route (the offset variant's 98x98)
+    # or on that geometry's radix-7 stages (the offset variant's 98x98)
     fam, fam_var = family_launches_, family_variant_launches
     pri, pri_var = priors_launches, priors_variant_launches
     jnt, jnt_var = joint_launches_, joint_variant_launches
@@ -3265,6 +3386,8 @@ def main():
                + pri["batched_conv_lnl:fft"] + pri_var["batched_conv_lnl"],
                "conv_lnl_mixed": jnt["batched_conv_lnl:fft:mixed"]
                + jnt_var["batched_conv_lnl:fft:mixed"],
+               "conv_lnl_radix7": jnt["batched_conv_lnl:fft:radix7"]
+               + jnt_var["batched_conv_lnl:fft:radix7"],
                "conv_lnl_dft": launches["batched_conv_lnl:dft"]
                + jnt["batched_conv_lnl:dft"] + jnt_var["batched_conv_lnl:dft"],
                "fused_lnl": driver_launches["fused_lnl:fft"] + fam_var["fused_lnl"],
@@ -3273,16 +3396,16 @@ def main():
     by_name["sersic_render"] += jnt["render_sersics"] + jnt_var["render_sersics"]
     by_name["sersic_render_tiled"] += jnt_var["render_sersics_tiled"]
     by_name["conv_lnl"] += (jnt["batched_conv_lnl:fft"] + jnt_var["batched_conv_lnl:fft"]
-                            - by_name["conv_lnl_mixed"])
+                            - by_name["conv_lnl_mixed"] - by_name["conv_lnl_radix7"])
     # the gradient path (phase 12): model_galaxy_map, the init="map" fit and
-    # the two joint MAPs, each kernel and backward kernel on its route and,
-    # on the FFT routes, its geometry (a route's launches less those it
-    # counted at mixed-radix shapes).  Every forward under autograd on the
-    # FFT route is the residual instantiation and has its backward there,
-    # at its shape
-    grads = [grad[k] for k in ("map", "init", "joint", "joint_dft")]
+    # the three joint MAPs, each kernel and backward kernel on its route
+    # and, on the FFT routes, its geometry (a route's launches less those
+    # it counted at mixed-radix shapes, with or without radix-7 stages).
+    # Every forward under autograd on the FFT route is the residual
+    # instantiation and has its backward there, at its shape
+    grads = [grad[k] for k in ("map", "init", "joint", "joint_radix7", "joint_dft")]
     for g in grads:
-        for geo in ("", ":mixed"):
+        for geo in ("",) + tuple(f":{m}" for m in MIXED_GEOMETRIES):
             if g[f"batched_conv_lnl:fft_res{geo}"] != g[f"batched_conv_lnl_backward:fft{geo}"]:
                 raise AssertionError(f"residual forwards and FFT-route backwards differ: {g}")
     by_name["sersic_render"] += sum(g["render_sersics"] for g in grads)
@@ -3290,10 +3413,11 @@ def main():
     for fn, route, row in (("batched_conv_lnl", "fft_res", "conv_lnl_res"),
                            ("batched_conv_lnl", "fft", "conv_lnl"),
                            ("batched_conv_lnl_backward", "fft", "conv_lnl_backward")):
-        mixed = sum(g[f"{fn}:{route}:mixed"] for g in grads)
-        by_name[row] = by_name.get(row, 0) + sum(
-            g[f"{fn}:{route}"] for g in grads) - mixed
-        by_name[f"{row}_mixed"] = by_name.get(f"{row}_mixed", 0) + mixed
+        by_name[row] = by_name.get(row, 0) + sum(g[f"{fn}:{route}"] for g in grads)
+        for geo in MIXED_GEOMETRIES:
+            n = sum(g[f"{fn}:{route}:{geo}"] for g in grads)
+            by_name[row] -= n
+            by_name[f"{row}_{geo}"] = by_name.get(f"{row}_{geo}", 0) + n
     for fn, row in (("batched_conv_lnl", "conv_lnl"),
                     ("batched_conv_lnl_backward", "conv_lnl_backward")):
         by_name[f"{row}_dft"] = by_name.get(f"{row}_dft", 0) + sum(

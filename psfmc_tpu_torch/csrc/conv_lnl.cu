@@ -26,20 +26,20 @@
 // Two routes, chosen by the wrapper from the shape alone (conv_route in
 // psfmc_tpu_torch/ops/kernels/conv_lnl.py):
 //
-// FFT route (H and W even with no prime factor above 5, the walker fits
+// FFT route (H and W even with no prime factor above 7, the walker fits
 // in a block's shared memory; conv_lnl_fft_launch): ONE launch, one block
 // per walker.  The block loads the walker's image into shared memory and
 // runs fft_conv.cuh on it: both convolutions as one complex FFT pair, then
 // the lnL readout; radix-2 stages when both sides are powers of two,
-// radix-2, -3 and -5 stages otherwise.  No global scratch; the only write
+// radix-2, -3, -5 and -7 stages otherwise.  No global scratch; the only write
 // is the walker's lnL.  A second instantiation (conv_lnl_fft_residuals_
 // launch, taken only by the forward of conv_lnl's autograd Function) also
 // writes what its backward (conv_lnl_backward.cu) reads instead of
 // recomputing the pair: the two likelihood weights per pixel (a float2,
 // 8 bytes a pixel) and the walker's scale exponent; the same lnL bits.
 //
-// matmul-DFT route (every other shape, e.g. a side with a factor of 7 or
-// an odd side; conv_lnl_launch): each convolution
+// matmul-DFT route (every other shape, e.g. a side with a factor of 11 or
+// more, or an odd side; conv_lnl_launch): each convolution
 // as the twelve real half-spectrum products above, 20x the FFT count of
 // operations at 128x128 (W2 = 65: 2 convolutions x 12 x 2*128*128*65 ~ 51
 // MFLOP per walker, ~6.4 GFLOP per half-ensemble, ~0.1 ms at peak for the
@@ -193,7 +193,7 @@ template <class Kernel>
 int prepare_fft(Kernel pow2_kernel, Kernel mixed_kernel, int h, int w,
                 Kernel* kernel, size_t* smem, int* tw_log2) {
   const bool pow2 = fc::power_of_two(h) && fc::power_of_two(w);
-  if (!pow2 && !(fc::five_smooth_even(h) && fc::five_smooth_even(w)))
+  if (!pow2 && !(fc::seven_smooth_even(h) && fc::seven_smooth_even(w)))
     return (int)cudaErrorInvalidValue;
   *smem = pow2 ? fc::image_bytes(h, w) : fc::mixed_image_bytes(h, w);
   *kernel = pow2 ? pow2_kernel : mixed_kernel;
@@ -211,7 +211,7 @@ int prepare_fft(Kernel pow2_kernel, Kernel mixed_kernel, int h, int w,
 }  // namespace
 
 // C interface of the FFT route.  h and w are both powers of two, or both
-// even with no prime factor above 5.  For powers of two, twiddle is the
+// even with no prime factor above 7.  For powers of two, twiddle is the
 // (max(h, w) / 2, 2) float32 table of exp(-2 pi i k / max(h, w)) and
 // layout is not read; otherwise twiddle holds H's table, then W's (N
 // entries of exp(-2 pi i k / N) each, N / 2 for a power of two), and

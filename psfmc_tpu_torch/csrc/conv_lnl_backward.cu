@@ -19,7 +19,7 @@
 // the function in plain PyTorch.
 //
 // FFT route (conv_lnl_fft_backward_launch; H and W even with no prime
-// factor above 5, the walker in one block's shared memory; fft_conv.cuh's
+// factor above 7, the walker in one block's shared memory; fft_conv.cuh's
 // power-of-two or mixed-radix geometry): one launch, one block of 512
 // threads per walker, ONE FFT pair of fft_conv.cuh in shared memory.  The
 // forward under autograd (conv_lnl.cu's residual instantiation) has
@@ -197,7 +197,7 @@ extern "C" int conv_lnl_fft_backward_launch(
     const float* grad, float* out, void* stream) {
   if (batch <= 0) return 0;
   const bool pow2 = fc::power_of_two(h) && fc::power_of_two(w);
-  if (!pow2 && !(fc::five_smooth_even(h) && fc::five_smooth_even(w)))
+  if (!pow2 && !(fc::seven_smooth_even(h) && fc::seven_smooth_even(w)))
     return (int)cudaErrorInvalidValue;
   const size_t smem = pow2 ? fc::image_bytes(h, w) : fc::mixed_image_bytes(h, w);
   auto kernel = pow2 ? &conv_lnl_fft_backward_kernel<false>

@@ -2,7 +2,7 @@
 // held in the block's shared memory, and the masked Gaussian lnL read out
 // of it.  Shared by conv_lnl.cu and fused_lnl.cu (their FFT route, taken
 // when the walker fits in a block: conv_lnl's for sides that are even and
-// have no prime factor above 5, fused_lnl's for powers of two).
+// have no prime factor above 7, fused_lnl's for powers of two).
 //
 // What it computes, from the walker's raw image x already in shared
 // memory (psfmc_tpu_torch.ops.kernels.conv_lnl.packed_fft_conv_plain is
@@ -41,18 +41,19 @@
 // not seven.  Twiddles come from a table exp(-2 pi i k / M), k < M/2, M =
 // max(H, W), built on the host in float64 and copied to shared memory.
 //
-// MixedGeom, every other even side with no prime factor above 5 (96 =
-// 3 x 2^5, 100 = 5^2 x 2^2, 120, 144, ...): the same two directions with
-// radix-2, -3 and -5 stages.  The host plans each axis (conv_lnl.py's
-// fft_plan): every radix-3 or -5 stage opens a register pass and takes up
-// to two (radix 3) or one (radix 5) radix-2 stages after it, at most 16
-// elements a thread; the radix-2 stages left over make passes of up to
-// four; the last stage is radix 2.  96 runs [3 2 2][2 2 2], 100 [5 2][5
-// 2], 144 [3 2 2][3 2 2]: two trips through shared memory per direction,
-// as at 128.  A stage of radix r on a sub-block of length L takes the
-// elements L/r apart, their r-point DFT, then the twiddle exp(-2 pi i p j
-// / L) on output p (the inverse: the conjugate twiddle, then the inverse
-// DFT), so the forward leaves bin k at the digit reversal of k over the
+// MixedGeom, every other even side with no prime factor above 7 (96 =
+// 3 x 2^5, 100 = 5^2 x 2^2, 98 = 7^2 x 2, 120, 144, ...): the same two
+// directions with radix-2, -3, -5 and -7 stages.  The host plans each axis
+// (conv_lnl.py's fft_plan): every radix-3, -5 or -7 stage opens a register
+// pass (the radix-7 stages first) and takes up to two (radix 3) or one
+// (radix 5 and 7) radix-2 stages after it, at most 16 elements a thread;
+// the radix-2 stages left over make passes of up to four; the last stage
+// is radix 2.  96 runs [3 2 2][2 2 2], 100 [5 2][5 2], 144 [3 2 2][3 2 2],
+// 98 [7][7 2]: two trips through shared memory per direction, as at 128.
+// A stage of radix r on a sub-block of length L takes the elements L/r
+// apart, their r-point DFT, then the twiddle exp(-2 pi i p j / L) on
+// output p (the inverse: the conjugate twiddle, then the inverse DFT), so
+// the forward leaves bin k at the digit reversal of k over the
 // stage radices in the order they ran, and the inverse, running the
 // stages backwards, reads that same layout.  The host builds the layout
 // as small int tables (bin -> position and position -> bin, H + W ints
@@ -307,7 +308,7 @@ __device__ void pair_step(float2* z, int h, int w, const Spectra& k) {
     pair_bins(z, h, w, ky, wh, ky * w2 + wh, k, gain);
 }
 
-// ---- mixed radix: the geometry of sides with factors 2, 3 and 5 ----
+// ---- mixed radix: the geometry of sides with factors 2, 3, 5 and 7 ----
 
 // The int tables of the layout (conv_lnl.py's fft_layout): [0] the first
 // entry of W's twiddle table; [1] the passes along H, [2, 2 + kMaxPasses)
@@ -325,10 +326,10 @@ __host__ __device__ inline int twiddle_entries(int n) {
   return power_of_two(n) ? n / 2 : n;
 }
 
-// Even, and no prime factor above 5.
-inline bool five_smooth_even(int n) {
+// Even, and no prime factor above 7.
+inline bool seven_smooth_even(int n) {
   if (n < 2 || n % 2) return false;
-  const int factors[3] = {2, 3, 5};
+  const int factors[4] = {2, 3, 5, 7};
   for (int f : factors)
     while (n % f == 0) n /= f;
   return n == 1;
@@ -398,8 +399,7 @@ __device__ __forceinline__ void small_dft(float2 (&x)[R]) {
     const float2 m = csub(x[0], cscale(0.5f, t));
     x[0] = cadd(x[0], t);
     rotate_pair<INVERSE>(m, cscale(kS, csub(x[1], x[2])), x[1], x[2]);
-  } else {
-    static_assert(R == 5, "radix 2, 3 or 5");
+  } else if constexpr (R == 5) {
     constexpr float kC1 = 0.30901699437494742410f;   // cos(2 pi / 5)
     constexpr float kC2 = -0.80901699437494742410f;  // cos(4 pi / 5)
     constexpr float kS1 = 0.95105651629515357212f;   // sin(2 pi / 5)
@@ -413,6 +413,30 @@ __device__ __forceinline__ void small_dft(float2 (&x)[R]) {
     x[0] = cadd(x[0], cadd(a1, a2));
     rotate_pair<INVERSE>(c1, s1, x[1], x[4]);
     rotate_pair<INVERSE>(c2, s2, x[2], x[3]);
+  } else {
+    static_assert(R == 7, "radix 2, 3, 5 or 7");
+    constexpr float kC1 = 0.62348980185873353053f;   // cos(2 pi / 7)
+    constexpr float kC2 = -0.22252093395631440429f;  // cos(4 pi / 7)
+    constexpr float kC3 = -0.90096886790241912624f;  // cos(6 pi / 7)
+    constexpr float kS1 = 0.78183148246802980871f;   // sin(2 pi / 7)
+    constexpr float kS2 = 0.97492791218182360702f;   // sin(4 pi / 7)
+    constexpr float kS3 = 0.43388373911755812048f;   // sin(6 pi / 7)
+    const float2 a1 = cadd(x[1], x[6]), b1 = csub(x[1], x[6]);
+    const float2 a2 = cadd(x[2], x[5]), b2 = csub(x[2], x[5]);
+    const float2 a3 = cadd(x[3], x[4]), b3 = csub(x[3], x[4]);
+    const float2 c1 = cadd(x[0], cadd(cadd(cscale(kC1, a1), cscale(kC2, a2)),
+                                      cscale(kC3, a3)));
+    const float2 c2 = cadd(x[0], cadd(cadd(cscale(kC2, a1), cscale(kC3, a2)),
+                                      cscale(kC1, a3)));
+    const float2 c3 = cadd(x[0], cadd(cadd(cscale(kC3, a1), cscale(kC1, a2)),
+                                      cscale(kC2, a3)));
+    const float2 s1 = cadd(cadd(cscale(kS1, b1), cscale(kS2, b2)), cscale(kS3, b3));
+    const float2 s2 = csub(csub(cscale(kS2, b1), cscale(kS3, b2)), cscale(kS1, b3));
+    const float2 s3 = cadd(csub(cscale(kS3, b1), cscale(kS1, b2)), cscale(kS2, b3));
+    x[0] = cadd(x[0], cadd(cadd(a1, a2), a3));
+    rotate_pair<INVERSE>(c1, s1, x[1], x[6]);
+    rotate_pair<INVERSE>(c2, s2, x[2], x[5]);
+    rotate_pair<INVERSE>(c3, s3, x[3], x[4]);
   }
 }
 
@@ -519,7 +543,10 @@ __device__ __forceinline__ void mixed_pass_of(int code, float2* z, int n,
     case 0x31: mixed_pass<3, 1, INVERSE, ROWS, SCALE>(z, n, lines, ld, len, tw, ys); break;
     case 0x32: mixed_pass<3, 2, INVERSE, ROWS, SCALE>(z, n, lines, ld, len, tw, ys); break;
     case 0x50: mixed_pass<5, 0, INVERSE, ROWS, SCALE>(z, n, lines, ld, len, tw, ys); break;
-    default: mixed_pass<5, 1, INVERSE, ROWS, SCALE>(z, n, lines, ld, len, tw, ys); break;
+    case 0x51: mixed_pass<5, 1, INVERSE, ROWS, SCALE>(z, n, lines, ld, len, tw, ys); break;
+    case 0x70: mixed_pass<7, 0, INVERSE, ROWS, SCALE>(z, n, lines, ld, len, tw, ys); break;
+    case 0x71: mixed_pass<7, 1, INVERSE, ROWS, SCALE>(z, n, lines, ld, len, tw, ys); break;
+    default: __trap();  // a code the host's planner never writes
   }
 }
 
@@ -550,8 +577,8 @@ __device__ void mixed_lines(float2* z, int h, int w, const float2* tw,
 // the loop walks the even column positions of every row position and
 // reads the bins there from the position -> bin tables: consecutive lanes
 // two float2 apart, at most 2-way as the power-of-two step's swizzle;
-// the partners' reads are at most 2-way at 96x96 and 3-way at 100x100
-// (tests/test_torch_fft.py counts the ways).  Ownership as
+// the partners' reads are at most 2-way at 96x96, 2.5-way at 98x98 and
+// 3-way at 100x100 (tests/test_torch_fft.py counts the ways).  Ownership as
 // in pair_step: kx = 0 owns the pair where ky <= H/2, and the column kx =
 // W/2 is walked once for ky <= H/2.
 __device__ void mixed_pair_step(float2* z, int h, int w, const int* lay,
@@ -603,7 +630,7 @@ struct Pow2Geom {
   }
 };
 
-// Even 5-smooth sides; tw both axes' tables and lay the layout, both in
+// Even 7-smooth sides; tw both axes' tables and lay the layout, both in
 // shared memory.
 struct MixedGeom {
   int h, w, ld;

@@ -13,15 +13,15 @@ with non-finite results mapped to ``-inf``.  The CUDA source
 before the launch (:func:`conv_route`):
 
 * ``"fft"``, when ``H`` and ``W`` are even with no prime factor above
-  5 and one walker fits in a block's shared memory (64x64, 128x128,
-  64x256, 96x96, 100x100, 96x128, 144x144, ...): one launch, one block
-  per walker, both convolutions as one complex 2-D FFT pair that never
-  leaves shared memory (``csrc/fft_conv.cuh``; radix-2 stages when both
-  sides are powers of two, radix-2, -3 and -5 stages otherwise, planned
-  by :func:`fft_plan`).  :func:`packed_fft_conv_plain` is that scheme in
+  7 and one walker fits in a block's shared memory (64x64, 128x128,
+  64x256, 96x96, 100x100, 98x98, 96x128, 144x144, ...): one launch, one
+  block per walker, both convolutions as one complex 2-D FFT pair that
+  never leaves shared memory (``csrc/fft_conv.cuh``; radix-2 stages when
+  both sides are powers of two, radix-2, -3, -5 and -7 stages otherwise,
+  planned by :func:`fft_plan`).  :func:`packed_fft_conv_plain` is that scheme in
   plain PyTorch and :func:`fft_stages_plain` its butterfly schedule, for
   the tests;
-* ``"dft"``, every other shape (a side with a prime factor above 5, an
+* ``"dft"``, every other shape (a side with a prime factor above 7, an
   odd side, a walker too large for a block): each convolution as the twelve real
   half-spectrum products of
   :func:`psfmc_tpu_torch.ops.fourier.convolve_rdft`, run as fp32 FMA
@@ -111,14 +111,14 @@ _MAX_SCALE_EXP = 96
 
 
 # The FFT route's radices, and the fused kernel's (powers of two only).
-FFT_RADICES = (2, 3, 5)
+FFT_RADICES = (2, 3, 5, 7)
 # The mixed-radix layout's int tables (csrc/fft_conv.cuh: kMaxPasses,
 # kLayoutHeader): passes per axis, and the header before the index tables.
 _MAX_PASSES = 8
 _LAYOUT_HEADER = 20
-# Radix-2 stages a radix-3 or -5 stage takes into its register pass (at
-# most 16 elements a thread).
-_TWOS_AFTER = {3: 2, 5: 1}
+# Radix-2 stages a radix-3, -5 or -7 stage takes into its register pass
+# (at most 16 elements a thread).
+_TWOS_AFTER = {3: 2, 5: 1, 7: 1}
 
 
 def _power_of_two(n):
@@ -142,25 +142,27 @@ def _twiddle_entries(n):
 def fft_plan(n):
     """The register passes of an ``n``-point line on the FFT route, each a
     tuple of stage radices in the order the forward runs them; ``n`` even
-    with no prime factor above 5.
+    with no prime factor above 7.
 
-    Every radix-3 or -5 stage opens a pass and takes up to two (radix 3)
-    or one (radix 5) of the radix-2 stages after it, filled from the last
-    pass back, so that the last stage is radix 2; the radix-2 stages left
-    over make the last passes, up to four each and of nearly equal depth
-    (for a power of two: the radix-2 route's passes).  96 -> ((3, 2, 2),
-    (2, 2, 2)), 100 -> ((5, 2), (5, 2)), 128 -> ((2, 2, 2, 2), (2, 2, 2)).
+    Every radix-3, -5 or -7 stage opens a pass (radix 7 first, then 5,
+    then 3) and takes up to two (radix 3) or one (radix 5 and 7) of the
+    radix-2 stages after it, filled from the last pass back, so that the
+    last stage is radix 2; the radix-2 stages left over make the last
+    passes, up to four each and of nearly equal depth (for a power of
+    two: the radix-2 route's passes).  96 -> ((3, 2, 2), (2, 2, 2)), 100
+    -> ((5, 2), (5, 2)), 98 -> ((7,), (7, 2)), 128 -> ((2, 2, 2, 2), (2,
+    2, 2)).
     """
     n = int(n)
     if not _smooth_even(n):
         raise ValueError(f"the FFT route needs an even size with no prime "
-                         f"factor above 5 (5-smooth), got {n}")
+                         f"factor above 7 (7-smooth), got {n}")
     twos = 0
     while n % 2 == 0:
         n //= 2
         twos += 1
     odds = []
-    for r in (5, 3):
+    for r in (7, 5, 3):
         while n % r == 0:
             n //= r
             odds.append(r)
@@ -199,7 +201,7 @@ def fft_layout(shape):
     """The FFT route's int32 layout tables of a shape that is not all
     powers of two (``csrc/fft_conv.cuh``): the header (the first entry of
     ``W``'s twiddle table; per axis the pass count and each pass's code,
-    16 x its radix-3 or -5 stage (1 if none) + its radix-2 stages), then
+    16 x its radix-3, -5 or -7 stage (1 if none) + its radix-2 stages), then
     per axis, ``H`` first, bin -> position (:func:`digit_reversed`) and
     position -> bin."""
     h, w = (int(n) for n in shape)
@@ -253,11 +255,11 @@ def fft_twiddles(n, dtype=np.float32):
     in float64 and cast: ``k < n / 2`` for a power of two (radix-2
     stages read no more; a line of length ``n / 2^j`` reads every
     ``2^j``-th entry), ``k < n`` for any other even ``n`` with no prime
-    factor above 5 (a radix-3 or -5 stage's output ``p`` reads entry ``p
-    j``)."""
+    factor above 7 (a radix-3, -5 or -7 stage's output ``p`` reads entry
+    ``p j``)."""
     if not _smooth_even(n):
         raise ValueError(f"the twiddle table needs an even size with no prime "
-                         f"factor above 5 (5-smooth), got {n}")
+                         f"factor above 7 (7-smooth), got {n}")
     ang = 2.0 * np.pi * np.arange(_twiddle_entries(n)) / n
     return np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(dtype)
 
@@ -438,9 +440,10 @@ def bit_reversed(n):
     return out
 
 
-_COS = {3: (-0.5,), 5: (math.cos(2 * math.pi / 5), math.cos(4 * math.pi / 5))}
-_SIN = {3: (math.sin(2 * math.pi / 3),),
-        5: (math.sin(2 * math.pi / 5), math.sin(4 * math.pi / 5))}
+_COS = {r: tuple(math.cos(2 * math.pi * k / r) for k in range(1, r // 2 + 1))
+        for r in (3, 5, 7)}
+_SIN = {r: tuple(math.sin(2 * math.pi * k / r) for k in range(1, r // 2 + 1))
+        for r in (3, 5, 7)}
 
 
 def _rotate_pair(a, b, inverse):
@@ -450,7 +453,7 @@ def _rotate_pair(a, b, inverse):
 
 
 def _small_dft(x, inverse):
-    """The ``r``-point DFT of the list ``x`` (``r`` = 2, 3 or 5),
+    """The ``r``-point DFT of the list ``x`` (``r`` = 2, 3, 5 or 7),
     unnormalised, in ``csrc/fft_conv.cuh``'s (``small_dft``) order of
     operations."""
     r = len(x)
@@ -461,12 +464,25 @@ def _small_dft(x, inverse):
         m = x[0] - 0.5 * t
         y1, y2 = _rotate_pair(m, _SIN[3][0] * (x[1] - x[2]), inverse)
         return [x[0] + t, y1, y2]
-    (c1, c2), (s1, s2) = _COS[5], _SIN[5]
-    a1, b1 = x[1] + x[4], x[1] - x[4]
-    a2, b2 = x[2] + x[3], x[2] - x[3]
-    y1, y4 = _rotate_pair(x[0] + (c1 * a1 + c2 * a2), s1 * b1 + s2 * b2, inverse)
-    y2, y3 = _rotate_pair(x[0] + (c2 * a1 + c1 * a2), s2 * b1 - s1 * b2, inverse)
-    return [x[0] + (a1 + a2), y1, y2, y3, y4]
+    if r == 5:
+        (c1, c2), (s1, s2) = _COS[5], _SIN[5]
+        a1, b1 = x[1] + x[4], x[1] - x[4]
+        a2, b2 = x[2] + x[3], x[2] - x[3]
+        y1, y4 = _rotate_pair(x[0] + (c1 * a1 + c2 * a2), s1 * b1 + s2 * b2, inverse)
+        y2, y3 = _rotate_pair(x[0] + (c2 * a1 + c1 * a2), s2 * b1 - s1 * b2, inverse)
+        return [x[0] + (a1 + a2), y1, y2, y3, y4]
+    # radix 7: the pairs k, 7 - k; output p reads cos and sin of 2 pi p k / 7
+    (c1, c2, c3), (s1, s2, s3) = _COS[7], _SIN[7]
+    a1, b1 = x[1] + x[6], x[1] - x[6]
+    a2, b2 = x[2] + x[5], x[2] - x[5]
+    a3, b3 = x[3] + x[4], x[3] - x[4]
+    y1, y6 = _rotate_pair(x[0] + (c1 * a1 + c2 * a2 + c3 * a3),
+                          s1 * b1 + s2 * b2 + s3 * b3, inverse)
+    y2, y5 = _rotate_pair(x[0] + (c2 * a1 + c3 * a2 + c1 * a3),
+                          s2 * b1 - s3 * b2 - s1 * b3, inverse)
+    y3, y4 = _rotate_pair(x[0] + (c3 * a1 + c1 * a2 + c2 * a3),
+                          s3 * b1 - s1 * b2 + s2 * b3, inverse)
+    return [x[0] + (a1 + a2 + a3), y1, y2, y3, y4, y5, y6]
 
 
 def _stages_1d(z, tw, inverse):

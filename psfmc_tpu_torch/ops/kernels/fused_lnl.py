@@ -11,7 +11,7 @@ shape alone by :func:`fused_route`: ``"fft"`` (both sizes powers of
 two; one complex FFT pair in shared memory, ``csrc/fft_conv.cuh``'s
 radix-2 geometry) or ``"dft"`` (the matmul-DFT products in three
 shared-memory buffers).  conv_lnl's FFT route also takes sides with
-factors 3 and 5; the fused kernel's does not yet, so 96x96 stays on its
+factors 3, 5 and 7; the fused kernel's does not yet, so 96x96 stays on its
 matmul-DFT route.
 
 The per-walker scalar preparation stays in torch, as in the JAX wrapper:

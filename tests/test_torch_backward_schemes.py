@@ -112,14 +112,15 @@ def test_backward_strips(batch, shape):
 @pytest.fixture(scope="module")
 def fft_posts():
     out = {}
-    for shape in ((16, 16), (24, 20)):
+    for shape in ((16, 16), (24, 20), (28, 42)):
         spec = build_model_spec(flagship_components(shape, (8, 8)))
         out[shape] = build_posterior(spec, device="cpu", dtype=torch.float64,
                                      lnpost="batched")
     return out
 
 
-@pytest.mark.parametrize("shape", [(16, 16), (24, 20)], ids=["radix2", "mixed"])
+@pytest.mark.parametrize("shape", [(16, 16), (24, 20), (28, 42)],
+                         ids=["radix2", "mixed", "radix7"])
 def test_residual_scheme_matches_the_backward_of_record(fft_posts, shape):
     """The FFT route's residual forward and its backward from the
     residuals, in float64: the lnL within 1e-10 of the version of record,

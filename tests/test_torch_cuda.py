@@ -174,8 +174,6 @@ def test_render_tiled_raises_on_the_card_too(cuda):
     assert SR.render_sersics_tiled.launches == before
 
 
-# (shape, PSF shape, point sources, route): the FFT route where both sizes
-# are powers of two, the matmul-DFT route elsewhere
 # shape, PSF, point sources, conv_lnl's route, the fused kernel's route
 LIKELIHOOD_CASES = [
     ((128, 128), (64, 64), True, "fft", "fft"),
@@ -187,9 +185,11 @@ LIKELIHOOD_CASES = [
     # route takes powers of two only
     ((96, 96), (48, 48), True, "fft", "dft"),
     ((100, 100), (50, 50), True, "fft", "dft"),  # 5^2 x 2^2
-    ((98, 98), (48, 48), True, "dft", "dft"),  # a factor of 7
+    ((98, 98), (48, 48), True, "fft", "dft"),  # 7^2 x 2: radix-7 stages
+    ((74, 74), (36, 36), True, "dft", "dft"),  # 2 x 37
 ]
-LIKELIHOOD_IDS = ["128", "64", "64-no-ps", "64x128", "45x37", "96", "100", "98"]
+LIKELIHOOD_IDS = ["128", "64", "64-no-ps", "64x128", "45x37", "96", "100", "98",
+                  "74"]
 
 
 def _likelihood_inputs(cuda, shape, psf_shape, point_sources, lnpost, seed):
@@ -257,8 +257,9 @@ def test_conv_lnl_fft_route_keeps_the_non_finite_walkers(cuda):
 
 
 MIXED_CASES = [((96, 96), (48, 48)), ((100, 100), (50, 50)),
-               ((96, 128), (48, 64)), ((144, 144), (72, 72))]
-MIXED_IDS = ["96", "100", "96x128", "144"]
+               ((96, 128), (48, 64)), ((144, 144), (72, 72)),
+               ((98, 98), (48, 48)), ((112, 140), (56, 64))]
+MIXED_IDS = ["96", "100", "96x128", "144", "98", "112x140"]
 
 
 @pytest.mark.parametrize("shape,psf_shape", MIXED_CASES, ids=MIXED_IDS)
@@ -297,14 +298,17 @@ def test_conv_lnl_mixed_radix_matches_float64(cuda, shape, psf_shape):
 @pytest.mark.parametrize("shape", [(2, 2), (4, 8), (8, 4), (16, 16), (32, 512),
                                    (512, 32), (256, 64), (64, 256),
                                    (6, 10), (12, 48), (54, 50), (486, 2),
-                                   (24, 20), (250, 30), (96, 128)],
+                                   (24, 20), (250, 30), (96, 128),
+                                   (14, 98), (42, 56), (490, 14)],
                          ids=lambda s: f"{s[0]}x{s[1]}")
 def test_conv_lnl_fft_route_at_every_depth_of_pass(cuda, shape):
     """Line lengths from 2 to 512: one to three register passes of one to
     four stages each, and a twiddle table longer than the shorter line;
-    then the mixed-radix geometry: every pass the plan makes (a radix-3
-    or -5 stage alone or with one or two radix-2 stages, one to four
-    radix-2 stages), up to five passes a line (486 = 2 x 3^5)."""
+    then the mixed-radix geometry: every pass the plan makes (a radix-3,
+    -5 or -7 stage alone or with one or two radix-2 stages, one to four
+    radix-2 stages), up to five passes a line (486 = 2 x 3^5); the radix-7
+    passes alone (0x70: 98, 42, 490) and with a radix-2 stage (0x71: 14,
+    98, 56)."""
     h, w = shape
     rng = np.random.RandomState(h * 1000 + w)
     ph, pw = max(h // 2, 1), max(w // 2, 1)
@@ -791,9 +795,9 @@ def test_priors_graphed_phase_is_bit_identical_to_eager(cuda, variant):
     assert g_launches == e_launches == [1 + 20 + 6, 1 + 20, 0]
 
 
-def _joint(device, variant="flagship", band1=(56, 56)):
-    """The joint flagship at 64x64 and ``band1``: by default 56x56, a
-    factor of 7, on conv_lnl's matmul-DFT route."""
+def _joint(device, variant="flagship", band1=(74, 74)):
+    """The joint flagship at 64x64 and ``band1``: by default 74x74, a
+    factor of 37, on conv_lnl's matmul-DFT route."""
     from psfmc_tpu_torch.flagship import joint_components
     from psfmc_tpu_torch.models import JointModel
 
@@ -805,7 +809,7 @@ def _joint(device, variant="flagship", band1=(56, 56)):
 @pytest.mark.parametrize("variant", ["flagship", "general", "offset"])
 def test_joint_graphed_phase_is_bit_identical_to_eager(cuda, variant):
     """The joint flagship's ten steps (band 0 at 64x64 on conv_lnl's FFT
-    route, band 1 at 56x56 on its matmul-DFT route, both in one captured
+    route, band 1 at 74x74 on its matmul-DFT route, both in one captured
     step) as graph replays and eagerly: the same state bit for bit, and
     each kernel's launches exact, per band and route."""
     spec, post = _joint(cuda, variant)
@@ -818,7 +822,7 @@ def test_joint_graphed_phase_is_bit_identical_to_eager(cuda, variant):
     assert graphed.graph_replays == 10 and eager.graph_replays == 0
     _assert_same_state(graphed, eager)
     assert sorted(graphed.state.accum) == sorted(post.carry_image_shapes())
-    assert graphed.state.accum["b1_raw"].shape == (56, 56)
+    assert graphed.state.accum["b1_raw"].shape == (74, 74)
     batched = paths[0] == "batched"
     assert g_launches == e_launches == [2 * (1 + 20 + 6), 2 * (1 + 20) * batched, 0]
     if batched:  # each band's conv_lnl on its route, in both runs
@@ -906,11 +910,11 @@ def test_render_backward_matches_plain(cuda, shape, count):
                          [((128, 128), (64, 64), "fft"), ((96, 96), (48, 48), "fft"),
                           ((45, 37), (16, 16), "dft"), ((100, 100), (50, 50), "fft"),
                           ((96, 128), (48, 64), "fft"), ((144, 144), (72, 72), "fft"),
-                          ((98, 98), (48, 48), "dft")],
-                         ids=["128", "96", "45x37", "100", "96x128", "144", "98"])
+                          ((98, 98), (48, 48), "fft"), ((74, 74), (36, 36), "dft")],
+                         ids=["128", "96", "45x37", "100", "96x128", "144", "98", "74"])
 def test_conv_lnl_backward_matches_plain(cuda, shape, psf_shape, route):
     """conv_lnl's backward kernel on both routes (the FFT route's radix-2
-    and mixed-radix geometries) at 125 walkers against
+    and mixed-radix geometries, radix-7 stages at 98x98) at 125 walkers against
     the float64 plain backward: per walker within 1e-3 of its largest
     pixel gradient (float32 residuals of a 0.005-noise image carry about
     2e-5 of themselves; the FFT's and GEMMs' rounding come on top); the
@@ -953,8 +957,9 @@ def test_conv_lnl_backward_matches_plain(cuda, shape, psf_shape, route):
 
 @pytest.mark.parametrize("shape,psf_shape",
                          [((128, 128), (64, 64)), ((96, 96), (48, 48)),
-                          ((100, 100), (50, 50)), ((96, 128), (48, 64))],
-                         ids=["128", "96", "100", "96x128"])
+                          ((100, 100), (50, 50)), ((96, 128), (48, 64)),
+                          ((98, 98), (48, 48))],
+                         ids=["128", "96", "100", "96x128", "98"])
 def test_conv_lnl_residuals_match_plain(cuda, shape, psf_shape):
     """The FFT route's residual instantiation of the forward at 125
     walkers: the same lnL bits as the forward kernel's launch on the same
@@ -1064,7 +1069,7 @@ def test_map_adam_steps_graphed_are_bit_identical_to_eager(flagship):
 
 def test_joint_map_runs_the_dft_backward_inside_the_graph(cuda):
     """fit_map on the joint flagship (band 0 at 64x64: FFT route; band 1
-    at 56x56: matmul-DFT route): each captured Adam step launches each
+    at 74x74: matmul-DFT route): each captured Adam step launches each
     band's conv_lnl and its backward once on its route."""
     from psfmc_tpu_torch.optimize import fit_map
 
@@ -1087,18 +1092,31 @@ def test_joint_map_runs_the_mixed_radix_band_inside_the_graph(cuda):
     FFT route's mixed-radix geometry): each captured Adam step launches
     both bands' conv_lnl and backward on the FFT route, band 1's counted
     at its shape; replayed and eager Adam steps agree bit for bit."""
+    _joint_map_on_the_fft_route(cuda, (48, 48))
+
+
+@pytest.mark.parametrize("band1", [(56, 56), (98, 98)], ids=["56", "98"])
+def test_joint_map_runs_the_radix7_band_inside_the_graph(cuda, band1):
+    """The same with band 1 at 56x56 (7 x 2^3: passes 0x71, 0x12) and at
+    98x98 (7^2 x 2: passes 0x70, 0x71), the mixed-radix geometry's
+    radix-7 stages inside the captured Adam step."""
+    assert CL.fft_plan(band1[0])[0][0] == 7
+    _joint_map_on_the_fft_route(cuda, band1)
+
+
+def _joint_map_on_the_fft_route(cuda, band1):
     import contextlib
 
     from psfmc_tpu_torch import optimize
 
-    spec, post = _joint(cuda, band1=(48, 48))
+    spec, post = _joint(cuda, band1=band1)
     assert CL.conv_route(post.band_fns[1].shape) == "fft"
     runs = []
     for eager in (False, True):
         before = _map_counts()
-        keys48 = [(CL.batched_conv_lnl, "fft"), (CL.batched_conv_lnl, "fft_res"),
-                  (CL.batched_conv_lnl_backward, "fft")]
-        at48 = [fn.shape_launches.get((r, (48, 48)), 0) for fn, r in keys48]
+        keys = [(CL.batched_conv_lnl, "fft"), (CL.batched_conv_lnl, "fft_res"),
+                (CL.batched_conv_lnl_backward, "fft")]
+        at_band1 = [fn.shape_launches.get((r, band1), 0) for fn, r in keys]
         with optimize._eager(post) if eager else contextlib.nullcontext():
             res = optimize.fit_map(post, n_starts=4, steps=3, seed=3)
         torch.cuda.synchronize()
@@ -1111,8 +1129,8 @@ def test_joint_map_runs_the_mixed_radix_band_inside_the_graph(cuda):
             {"fft": 2, "fft_res": 8, "dft": 0}
         assert {r: after[5][r] - before[5][r] for r in after[5]} == \
             {"fft": 8, "dft": 0}
-        assert [fn.shape_launches.get((r, (48, 48)), 0) - b
-                for (fn, r), b in zip(keys48, at48)] == [1, 4, 4]
+        assert [fn.shape_launches.get((r, band1), 0) - b
+                for (fn, r), b in zip(keys, at_band1)] == [1, 4, 4]
         runs.append(res)
     _same_bits(runs[0].all_theta, runs[1].all_theta)
     _same_bits(runs[0].all_lnpost, runs[1].all_lnpost)

@@ -3,8 +3,8 @@
 The CUDA kernels of ``csrc/fft_conv.cuh`` run only on the card; what runs
 here is their scheme written once more in plain PyTorch
 (``packed_fft_conv_plain``) and their butterfly schedule
-(``fft_stages_plain``: radix-2 stages for powers of two, radix-2, -3 and
--5 stages in ``fft_plan``'s order otherwise), held against ``torch.fft``,
+(``fft_stages_plain``: radix-2 stages for powers of two, radix-2, -3, -5
+and -7 stages in ``fft_plan``'s order otherwise), held against ``torch.fft``,
 against the JAX package's convolutions and against its batched conv+lnL
 Pallas kernel in interpret mode.  Inputs come from numpy seeds; every tolerance is stated
 where it is asserted (``jax_enable_x64`` is on in this suite).
@@ -25,8 +25,9 @@ from psfmc_tpu_torch.ops.likelihood import gaussian_lnlike
 from test_torch_kernels import _jax_flagship_spec
 
 SHAPES = [(16, 16), (32, 32), (16, 64), (64, 8)]
-# even sides with factors 3 and 5: the mixed-radix geometry of the route
-MIXED_SHAPES = [(96, 96), (100, 100), (96, 128), (144, 144), (24, 20)]
+# even sides with factors 3, 5 and 7: the mixed-radix geometry of the route
+MIXED_SHAPES = [(96, 96), (100, 100), (96, 128), (144, 144), (24, 20),
+                (14, 28), (98, 98)]
 DTYPES = {"f64": (np.float64, torch.float64, torch.complex128),
           "f32": (np.float32, torch.float32, torch.complex64)}
 
@@ -46,10 +47,10 @@ def _ids(shape):
     return f"{shape[0]}x{shape[1]}"
 
 
-@pytest.mark.parametrize("n", [2, 8, 128, 512, 6, 20, 24, 96, 100, 144])
+@pytest.mark.parametrize("n", [2, 8, 128, 512, 6, 20, 24, 96, 100, 144, 14, 98])
 def test_twiddle_table_is_float64_cos_sin(n):
     """Half the circle for a power of two; off powers of two all ``n``
-    roots (a radix-3 or -5 stage's output ``p`` reads entry ``p j``)."""
+    roots (a radix-3, -5 or -7 stage's output ``p`` reads entry ``p j``)."""
     entries = n // 2 if n & (n - 1) == 0 else n
     k = np.arange(entries)
     want = np.stack([np.cos(2 * np.pi * k / n), -np.sin(2 * np.pi * k / n)], 1)
@@ -60,13 +61,14 @@ def test_twiddle_table_is_float64_cos_sin(n):
 
 
 def test_twiddle_table_needs_a_power_of_two():
-    """The table needs an even size with no prime factor above 5 (a
-    power of two, or 96, 100, ...); 98, 45 and 74 take the matmul-DFT
+    """The table needs an even size with no prime factor above 7 (a
+    power of two, or 96, 100, 98, ...); 88, 45 and 74 take the matmul-DFT
     route and have none."""
-    for n in (98, 45, 74, 7):
-        with pytest.raises(ValueError, match="5-smooth"):
+    for n in (88, 45, 74, 7):
+        with pytest.raises(ValueError, match="7-smooth"):
             CL.fft_twiddles(n)
     assert CL.fft_twiddles(96).shape == (96, 2)
+    assert CL.fft_twiddles(98).shape == (98, 2)
 
 
 @pytest.mark.parametrize("shape", SHAPES + MIXED_SHAPES, ids=_ids)
@@ -129,12 +131,14 @@ def test_bit_reversed_is_an_involution():
     (24, ((3, 2, 2), (2,))), (20, ((5, 2), (2,))), (6, ((3, 2),)),
     (128, ((2, 2, 2, 2), (2, 2, 2))), (2, ((2,),)),
     (250, ((5,), (5,), (5, 2))),
+    (98, ((7,), (7, 2))), (112, ((7, 2), (2, 2, 2))), (42, ((7,), (3, 2))),
+    (14, ((7, 2),)), (140, ((7, 2), (5, 2))),
 ])
 def test_fft_plan_passes_end_in_radix_two(n, plan):
-    """Each radix-3 or -5 stage opens a register pass of at most 16
-    elements; the last stage is radix 2 (so that bins kx < W/2 are the
-    even column positions); a power of two keeps the radix-2 route's
-    passes."""
+    """Each radix-3, -5 or -7 stage opens a register pass of at most 16
+    elements (radix 7 first); the last stage is radix 2 (so that bins kx <
+    W/2 are the even column positions); a power of two keeps the radix-2
+    route's passes."""
     assert CL.fft_plan(n) == plan
     assert plan[-1][-1] == 2
     assert all(int(np.prod(p)) <= 16 for p in plan)
@@ -148,7 +152,14 @@ def test_digit_reversed_is_the_layout():
     positions hold exactly the bins below N/2."""
     np.testing.assert_array_equal(CL.digit_reversed(12),
                                   [0, 4, 8, 2, 6, 10, 1, 5, 9, 3, 7, 11])
-    for n in (2, 6, 20, 24, 96, 100, 144, 128):
+    # 14 (stages 7, 2): bin p0 + 7 p1 at 2 p0 + p1
+    np.testing.assert_array_equal(CL.digit_reversed(14),
+                                  [0, 2, 4, 6, 8, 10, 12, 1, 3, 5, 7, 9, 11, 13])
+    # 98 (stages 7, 7, 2): bin p0 + 7 p1 + 49 p2 at 14 p0 + 2 p1 + p2
+    k = np.arange(98)
+    np.testing.assert_array_equal(CL.digit_reversed(98),
+                                  14 * (k % 7) + 2 * (k // 7 % 7) + k // 49)
+    for n in (2, 6, 20, 24, 96, 100, 144, 128, 14, 42, 98, 112):
         pos = CL.digit_reversed(n)
         assert sorted(pos) == list(range(n))
         assert set(np.arange(n)[pos % 2 == 0]) == set(range(n // 2))
@@ -333,13 +344,15 @@ def _pair_step_ways(shape):
 
 
 @pytest.mark.parametrize("shape,worst_partner", [
-    ((96, 96), 2.0), ((100, 100), 3.0), ((144, 144), 2.5), ((96, 128), 2.0)],
+    ((96, 96), 2.0), ((100, 100), 3.0), ((144, 144), 2.5), ((96, 128), 2.0),
+    ((98, 98), 2.5), ((112, 112), 2.0)],
     ids=lambda v: _ids(v) if isinstance(v, tuple) else str(v))
 def test_mixed_pair_step_keeps_the_two_way_bound(shape, worst_partner):
     """The pointwise step on the digit-reversed layout reads each warp's
     own bins at most 2-way (the power-of-two step's swizzle bound; 1.67
-    on average at 96x96, 1.79 at 100x100) and their partners at most
-    ``worst_partner``-way (1.67 and 2.09 on average)."""
+    on average at 96x96, 1.79 at 100x100 and at 98x98, where W/2 = 49 is
+    odd) and their partners at most ``worst_partner``-way (1.67, 2.09
+    and 1.81 on average)."""
     mean, worst = _pair_step_ways(shape)
     assert worst[0] <= 2.0 and mean[0] <= 2.0
     assert worst[1] == worst_partner
@@ -347,6 +360,8 @@ def test_mixed_pair_step_keeps_the_two_way_bound(shape, worst_partner):
         np.testing.assert_allclose(mean, [1.6667, 1.6701], atol=1e-4)
     if shape == (100, 100):
         np.testing.assert_allclose(mean, [1.7930, 2.0924], atol=1e-4)
+    if shape == (98, 98):
+        np.testing.assert_allclose(mean, [1.7881, 1.8113], atol=1e-4)
 
 
 def _staged_conv(raws, consts):
@@ -372,7 +387,8 @@ def _staged_conv(raws, consts):
     return y.real, y.imag / (s * consts.var_gain)
 
 
-@pytest.mark.parametrize("shape", [(24, 20), (30, 36)], ids=_ids)
+@pytest.mark.parametrize("shape", [(24, 20), (30, 36), (28, 42), (14, 28)],
+                         ids=_ids)
 def test_mixed_radix_lnl_matches_pallas_batched(monkeypatch, shape):
     """The lnL through the mixed-radix schedule and layout (and through
     the packed scheme) against the JAX package's batched conv+lnL Pallas
@@ -380,7 +396,7 @@ def test_mixed_radix_lnl_matches_pallas_batched(monkeypatch, shape):
     both sides."""
     monkeypatch.setenv("PSFMC_LNPOST_DOT", "highest")
     rng = np.random.RandomState(39)
-    spec = _jax_flagship_spec(rng, shape)
+    spec = _jax_flagship_spec(rng, shape, psf_side=min(16, *shape))
     constants = jax_posterior(spec).constants
     raws = (0.1 + np.abs(rng.randn(6, *spec.shape)) * 0.5).astype(np.float32)
     lnl_jax = make_batched_conv_lnl(constants, spec, jnp.float32, tile=2)
@@ -399,9 +415,10 @@ def test_mixed_radix_lnl_matches_pallas_batched(monkeypatch, shape):
         np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
-# even sides with factors 3 and 5 that fit a block: the FFT route of
+# even sides with factors 3, 5 and 7 that fit a block: the FFT route of
 # conv_lnl (and its backward), not of the radix-2 rule
-MIXED_FFT = {(96, 96), (100, 100), (144, 144), (128, 96)}
+MIXED_FFT = {(96, 96), (100, 100), (144, 144), (128, 96), (98, 98), (56, 56),
+             (98, 128)}
 
 
 @pytest.mark.parametrize("shape,route", [
@@ -412,9 +429,11 @@ MIXED_FFT = {(96, 96), (100, 100), (144, 144), (128, 96)}
     ((144, 144), "dft"), ((128, 96), "dft"), ((1, 64), "dft"),
     # powers of two, but one walker does not fit in a block
     ((128, 256), "dft"), ((256, 256), "dft"), ((512, 512), "dft"),
-    # a factor of 7 or 37, odd sides with factors 3 and 5, too large
-    ((98, 98), "dft"), ((45, 75), "dft"), ((74, 74), "dft"),
-    ((160, 180), "dft"),
+    # factors of 7: conv_lnl's mixed-radix geometry, not the radix-2 rule's
+    ((98, 98), "dft"), ((56, 56), "dft"), ((98, 128), "dft"),
+    # a factor of 37 or 11, odd sides with factors 3, 5 and 7, too large
+    ((74, 74), "dft"), ((88, 88), "dft"), ((45, 75), "dft"), ((49, 98), "dft"),
+    ((160, 180), "dft"), ((196, 196), "dft"),
 ], ids=lambda v: v if isinstance(v, str) else f"{v[0]}x{v[1]}")
 def test_conv_route_is_a_function_of_the_shape(shape, route):
     """``route`` is the radix-2 rule's answer (``radices=(2,)``, the
@@ -474,8 +493,9 @@ def test_fused_gate_measures_the_route_the_shape_takes(shape, route, ok):
 def test_consts_carry_the_twiddles_only_for_powers_of_two():
     """The FFT route's tables ride on the constants where the shape takes
     it: one table of max(H, W) and no layout for powers of two, both axes'
-    tables and the int32 layout for the mixed-radix geometry (24x20), none
-    on the matmul-DFT route (98x20: a factor of 7)."""
+    tables and the int32 layout for the mixed-radix geometry (24x20, and
+    98x20: a factor of 7), none on the matmul-DFT route (74x20: a factor
+    of 37)."""
     rng = np.random.RandomState(38)
     consts, _, _ = _consts(rng, (16, 64), torch.float32)
     assert tuple(consts.twiddle.shape) == (32, 2)
@@ -488,11 +508,17 @@ def test_consts_carry_the_twiddles_only_for_powers_of_two():
                                   CL.fft_layout((24, 20)))
     assert CL.conv_route(consts.shape) == "fft"
     consts98, _, _ = _consts(rng, (98, 20), torch.float32)
-    assert tuple(consts98.twiddle.shape) == (0, 2)
-    assert tuple(consts98.fft_layout.shape) == (0,)
-    assert CL.conv_route(consts98.shape) == "dft"
+    assert tuple(consts98.twiddle.shape) == (98 + 20, 2)
+    np.testing.assert_array_equal(consts98.fft_layout.numpy(),
+                                  CL.fft_layout((98, 20)))
+    assert CL.conv_route(consts98.shape) == "fft"
+    consts74, _, _ = _consts(rng, (74, 20), torch.float32)
+    assert tuple(consts74.twiddle.shape) == (0, 2)
+    assert tuple(consts74.fft_layout.shape) == (0,)
+    assert CL.conv_route(consts74.shape) == "dft"
     # a CPU tensor takes the plain version on either route, uncounted
     before = dict(CL.batched_conv_lnl.route_launches)
     CL.batched_conv_lnl(torch.ones((2, 24, 20)), consts)
     CL.batched_conv_lnl(torch.ones((2, 98, 20)), consts98)
+    CL.batched_conv_lnl(torch.ones((2, 74, 20)), consts74)
     assert CL.batched_conv_lnl.route_launches == before

@@ -289,20 +289,21 @@ def _assert_directional(f, args, dirs, h=1e-6, rtol=1e-6):
 @pytest.fixture(scope="module")
 def conv_consts():
     out = {}
-    for shape, psf in (((16, 16), (8, 8)), ((15, 13), (8, 8)), ((24, 20), (8, 8))):
+    for shape, psf in (((16, 16), (8, 8)), ((15, 13), (8, 8)), ((24, 20), (8, 8)),
+                       ((28, 14), (8, 8))):
         spec = build_model_spec(flagship_components(shape, psf))
         post = build_posterior(spec, device="cpu", dtype=torch.float64, lnpost="batched")
         out[shape] = post
     return out
 
 
-@pytest.mark.parametrize("shape", [(16, 16), (15, 13), (24, 20)],
-                         ids=["fft", "dft", "mixed"])
+@pytest.mark.parametrize("shape", [(16, 16), (15, 13), (24, 20), (28, 14)],
+                         ids=["fft", "dft", "mixed", "radix7"])
 def test_conv_lnl_backward_plain_matches_autograd(conv_consts, shape):
     """The version of record against autograd through the plain forward
     at 1e-10 (a NaN walker gets a zero gradient, where the forward's -inf
     passes none); on a shape of the FFT route (powers of two, or the
-    mixed-radix 24x20), its scheme against the version of record;
+    mixed-radix 24x20 and 28x14), its scheme against the version of record;
     ``gradcheck`` through the autograd Function."""
     post = conv_consts[shape]
     th = prior_draws(post.spec, 6, seed=9)

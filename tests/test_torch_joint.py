@@ -489,7 +489,8 @@ def test_mixed_shape_checkpoint_is_read_across_packages(tmp_path, writer):
 def test_chip_smoke_joint_phase_rehearses_on_the_cpu(monkeypatch):
     """``chip_smoke.joint_phase`` (the joint fit by ``model_galaxy_mcmc``,
     the second call from the checkpoint, graphed against eager, the steady
-    steps and the three variants, the offset variant's band 1 at 28x28) at
+    steps and the three variants, the offset variant's band 1 at 28x28 = 7
+    x 2^2) at
     32x32 + 24x24 with 60 walkers on the CPU, where the kernel wrappers run
     their plain versions: each wrapper is counted as the card counts its
     kernel, by route and by shape, so the phase's exact launch checks hold
@@ -544,13 +545,15 @@ def test_chip_smoke_joint_phase_rehearses_on_the_cpu(monkeypatch):
     assert M.JointModel is J.JointModel
     sampling, variants, on_path, joint = cs.joint_phase(
         shapes=((32, 32), (24, 24)), psf_shape=(16, 16), device="cpu",
-        dft_band=(28, 28))
+        radix7_band=(28, 28))
     assert sampling["render_sersics"] == 2 * (1 + 2 * 40 + 20)
     # both bands on the FFT route, band 1 (24 = 3 x 2^3) on its mixed-radix
-    # geometry; the offset variant's band 1 (28 = 7 x 2^2) on the
-    # matmul-DFT route
+    # geometry; the offset variant's band 1 (28 = 7 x 2^2) on the same
+    # geometry's radix-7 stages
     assert sampling["batched_conv_lnl:fft"] == 2 * 81
     assert sampling["batched_conv_lnl:mixed"] == 81
     assert sampling["batched_conv_lnl:dft"] == 0
-    assert variants["render_sersics_tiled"] == 22 and variants["batched_conv_lnl:dft"] == 9
+    assert variants["render_sersics_tiled"] == 22
+    assert variants["batched_conv_lnl:fft:radix7"] == 9
+    assert variants["batched_conv_lnl:fft"] == 18 and variants["batched_conv_lnl:dft"] == 0
     assert on_path["joint_ms"] == 1.0 and joint.fns.lnpost == ("batched", "batched")

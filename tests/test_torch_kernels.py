@@ -111,9 +111,10 @@ def test_packed_scalars_match_jax():
     np.testing.assert_allclose(got, want, rtol=1e-12)  # float64
 
 
-def _jax_flagship_spec(rng, shape=(32, 32)):
+def _jax_flagship_spec(rng, shape=(32, 32), psf_side=16):
     h, w = shape
-    psf = np.exp(-((np.mgrid[0:16, 0:16] - 8.0) ** 2).sum(0) / (2 * 1.5**2))
+    psf = np.exp(-((np.mgrid[0:psf_side, 0:psf_side] - psf_side / 2) ** 2).sum(0)
+                 / (2 * 1.5**2))
     obs = 0.1 + rng.randn(h, w) * 0.01
     ivm = np.full(shape, 1e4)
     ivm[3, 5] = 0.0  # one bad pixel

@@ -32,8 +32,12 @@ never ``jax`` nor ``psfmc_tpu``, and:
    matmul-DFT route timed beside it) and the fused kernel its matmul-DFT
    route (row ``fused_lnl_dft``), at 98x98 (7^2 x 2), where conv_lnl
    takes the same geometry with radix-7 stages (row ``conv_lnl_radix7``,
-   the matmul-DFT route timed beside it), and at 74x74 (2 x 37), where
-   conv_lnl takes its matmul-DFT route (row ``conv_lnl_dft``).  Each
+   the matmul-DFT route timed beside it), at 74x74 (2 x 37), where
+   conv_lnl takes its padded route, the FFT route's geometry on the image
+   zero-padded to 150x150 (row ``conv_lnl_padded``, the matmul-DFT route
+   timed beside it; 45x75, odd sides, held on the same route), and at
+   94x94 (2 x 47, a transform of 192x192 that fits no block), where it
+   takes its matmul-DFT route (row ``conv_lnl_dft``).  Each
    likelihood kernel, its plain version and the ``torch.fft`` yardstick
    are also held against a float64 ``torch.fft`` convolution on the card;
 4. slice phase (the posterior + sampler path, ``lnpost="batched"``): the
@@ -160,15 +164,17 @@ never ``jax`` nor ``psfmc_tpu``, and:
    (20 burn + 20 retained steps); the joint MAP (64 starts x 500 steps,
    band 1's conv_lnl and backward on the FFT route's mixed-radix geometry
    inside the captured step) and two joint MAPs of 50 steps, band 1 at
-   98x98 (its conv_lnl and backward on the FFT route with radix-7 stages)
-   and at 74x74 (both on the matmul-DFT route); then each backward kernel
+   98x98 (its conv_lnl and backward on the FFT route with radix-7 stages),
+   at 74x74 (both on the padded route) and at 94x94 (both on the
+   matmul-DFT route); then each backward kernel
    against its plain version at 125 walkers with its times (rows
    ``sersic_render_backward``, ``conv_lnl_backward``,
-   ``conv_lnl_backward_mixed`` and ``conv_lnl_backward_radix7`` with the
-   matmul-DFT route timed beside them, ``conv_lnl_backward_dft`` at
-   74x74), and the forward's residual instantiation that the FFT route's
-   backward reads (rows ``conv_lnl_res``, ``conv_lnl_res_mixed`` and
-   ``conv_lnl_res_radix7``: the same lnL bits as conv_lnl, the weights
+   ``conv_lnl_backward_mixed``, ``conv_lnl_backward_radix7`` and
+   ``conv_lnl_backward_padded`` with the matmul-DFT route timed beside
+   them, ``conv_lnl_backward_dft`` at 94x94), and the forward's residual
+   instantiation that the FFT and padded routes' backward reads (rows
+   ``conv_lnl_res``, ``conv_lnl_res_mixed``, ``conv_lnl_res_radix7`` and
+   ``conv_lnl_res_padded``: the same lnL bits as conv_lnl, the weights
    against the float64 plain scheme, the forward without residuals timed
    beside it), with the forward + backward pair of an Adam step timed
    against its bound;
@@ -181,7 +187,8 @@ each path (slice, driver, general, family and joint), graphed and eager, with th
 (against the profiled and the unprofiled wall time), and
 ten replayed Adam steps of the MAP path (busy time, kernels per step,
 idle share), the SM clock cycles that one block of each FFT-route kernel spends in
-each of its phases (conv_lnl also at 96x96 and 98x98, its mixed-radix geometry; a
+each of its phases (conv_lnl also at 96x96 and 98x98, its mixed-radix geometry,
+and at 74x74, its padded route; a
 second build of the two sources with phase stamps;
 the first phase of the fused kernel is its render), and the render kernel
 under other launch geometries than the wrapper picks.  The breakdown
@@ -189,7 +196,7 @@ also covers the priors flagship and the priors' stress variant.
 
 ``python3 chip_smoke.py --step-times`` runs only :func:`step_times_phase`
 (the joint offset variant's retained step and the joint MAP's Adam step
-with band 1 at 98x98, replayed back to back) and prints its times with a
+with band 1 at 74x74 and at 98x98, replayed back to back) and prints its times with a
 digest of every kernel's SASS, to set one tree of the port beside another.
 
 Any failure exits nonzero before the result line; so does a host
@@ -248,7 +255,12 @@ GRAPH_BURN, GRAPH_SAMPLE = 4, 6  # graph phase: graphed against eager
 MIXED_SHAPE, MIXED_PSF_SHAPE = (96, 96), (48, 48)
 # 7^2 x 2: conv_lnl's FFT route on its mixed-radix geometry with radix-7 stages
 RADIX7_SHAPE, RADIX7_PSF_SHAPE = (98, 98), (48, 48)
-DFT_SHAPE, DFT_PSF_SHAPE = (74, 74), (36, 36)  # 2 x 37: conv_lnl's matmul-DFT route
+# 2 x 37: conv_lnl's padded route (a 150x150 transform); 45x75, odd sides
+# padded to 90x150, is held on the same route
+PADDED_SHAPE, PADDED_PSF_SHAPE = (74, 74), (36, 36)
+ODD_SHAPE, ODD_PSF_SHAPE = (45, 75), (24, 36)
+# 2 x 47: its 192x192 transform fits no block, conv_lnl's matmul-DFT route
+DFT_SHAPE, DFT_PSF_SHAPE = (94, 94), (48, 48)
 
 
 def log(msg):
@@ -381,17 +393,21 @@ def fft_geometry(shape):
     """conv_lnl's geometry at ``shape``: ``"radix2"`` (both sides powers of
     two), ``"mixed"`` (the mixed-radix geometry, stages of radix 2, 3 and
     5), ``"radix7"`` (the same geometry with radix-7 stages: a side with a
-    factor of 7), or None off the FFT route."""
+    factor of 7), ``"padded"`` (the padded route: the image zero-padded to
+    a transform on one of those geometries), or None on the matmul-DFT
+    route."""
     from psfmc_tpu_torch.ops.kernels.conv_lnl import conv_route
 
-    if conv_route(shape) != "fft":
-        return None
+    route = conv_route(shape)
+    if route != "fft":
+        return "padded" if route == "padded" else None
     if all(n & (n - 1) == 0 for n in shape):
         return "radix2"
     return "radix7" if any(n % 7 == 0 for n in shape) else "mixed"
 
 
-# the geometries that read_counts and the rows split a route's launches by
+# the FFT route's geometries that read_counts and the rows split its launches
+# by (the padded route's launches are its own route's counts)
 MIXED_GEOMETRIES = ("mixed", "radix7")
 
 
@@ -494,6 +510,7 @@ def kernel_phase(post, spec):
             (MIXED_SHAPE, MIXED_PSF_SHAPE, ("conv_lnl_mixed", "fft"),
              ("fused_lnl_dft", "dft")),
             (RADIX7_SHAPE, RADIX7_PSF_SHAPE, ("conv_lnl_radix7", "fft"), None),
+            (PADDED_SHAPE, PADDED_PSF_SHAPE, ("conv_lnl_padded", "padded"), None),
             (DFT_SHAPE, DFT_PSF_SHAPE, ("conv_lnl_dft", "dft"), None)):
         other_spec = build_model_spec(flagship_components(shape, psf_shape))
         other_post = build_posterior(other_spec, device=post.device,
@@ -501,6 +518,8 @@ def kernel_phase(post, spec):
         other_thetas = torch.as_tensor(prior_draws(other_spec, B_HALF, seed=1),
                                        dtype=torch.float32, device=post.device)
         rows += likelihood_rows(other_post, other_spec, other_thetas, conv, fused)
+    padded_row = next(r for r in rows if r["name"] == "conv_lnl_padded")
+    padded_row["odd_shape"] = odd_shape_check(post.device)
     for r in rows:
         log(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.5f} ms by {r['bound_by']} "
@@ -509,8 +528,62 @@ def kernel_phase(post, spec):
             f"formulation's bound {r.get('dft_bound_ms')}, "
             f"library {r['library_ms']}, unfused {r.get('unfused_ms')}, "
             f"route {r.get('conv_route')}, matmul-DFT route on the same "
-            f"inputs {r.get('dft_route_ms')})")
+            f"inputs {r.get('dft_route_ms')}"
+            + (f", the padded transform's own bound {r['transform_bound_ms']:.5f} ms"
+               if "transform_bound_ms" in r else "") + ")")
     return rows
+
+
+def odd_shape_check(device):
+    """conv_lnl's padded route at :data:`ODD_SHAPE` (45x75: odd sides, a
+    90x150 transform) at 125 walkers: the forward within
+    :data:`CONV_LNL_TOL` of its plain version per walker, the residual
+    instantiation's lnL bits the forward's, the backward from its
+    residuals within :data:`CONV_BWD_TOL` of each walker's largest
+    gradient of the float64 plain backward, and the same bits on a second
+    launch of each.  Returns the errors."""
+    import torch
+
+    from psfmc_tpu_torch.flagship import flagship_components, prior_draws
+    from psfmc_tpu_torch.models import build_model_spec, build_posterior
+    from psfmc_tpu_torch.ops.kernels import conv_lnl as CL
+
+    spec = build_model_spec(flagship_components(ODD_SHAPE, ODD_PSF_SHAPE))
+    post = build_posterior(spec, device=device, lnpost="batched")
+    if CL.conv_route(ODD_SHAPE) != "padded":
+        raise AssertionError(f"{ODD_SHAPE} does not take the padded route")
+    thetas = torch.as_tensor(prior_draws(spec, B_HALF, seed=1), dtype=torch.float32,
+                             device=device)
+    raws = post.raw_and_ps(thetas)[0].contiguous()
+    consts = post.consts
+    routes = dict(CL.batched_conv_lnl.route_launches)
+    got = CL.batched_conv_lnl(raws, consts)
+    lnl, *residuals = CL.batched_conv_lnl_residuals(raws, consts)
+    routes["padded"] += 1
+    routes["padded_res"] += 1
+    if CL.batched_conv_lnl.route_launches != routes:
+        raise AssertionError(f"{ODD_SHAPE}: conv_lnl did not launch on the padded route")
+    _, rel, frac = compare(got, CL.batched_conv_lnl_plain(raws, consts))
+    grad = torch.ones(B_HALF, dtype=torch.float32, device=device)
+    back = CL.batched_conv_lnl_backward(raws, consts, got, grad, residuals)
+    c64 = build_posterior(spec, device="cpu", dtype=torch.float64,
+                          lnpost="batched").consts
+    want = CL.batched_conv_lnl_backward_plain(
+        raws.double().cpu(), c64, got.double().cpu(), grad.double().cpu()).to(device)
+    keep = torch.isfinite(got)
+    back_err = normalized_err(back[keep], want[keep], dims=(1, 2))
+    again = (same_bits(got, CL.batched_conv_lnl(raws, consts)) and same_bits(lnl, got)
+             and same_bits(back, CL.batched_conv_lnl_backward(raws, consts, got, grad,
+                                                              residuals)))
+    log(f"conv_lnl at {ODD_SHAPE[0]}x{ODD_SHAPE[1]} (padded to "
+        f"{consts.padded_shape[0]}x{consts.padded_shape[1]}): max rel err {rel:.3e} "
+        f"(tol {CONV_LNL_TOL:g}), finite share {frac:.4f}; backward max normalized "
+        f"err {back_err:.3e} (tol {CONV_BWD_TOL:g}); residual lnL bits and repeat "
+        f"launches equal: {again}")
+    if not (rel <= CONV_LNL_TOL and frac >= 0.5 and back_err <= CONV_BWD_TOL and again):
+        raise AssertionError(f"conv_lnl at {ODD_SHAPE} disagrees on the padded route")
+    return {"shape": list(ODD_SHAPE), "max_rel_err": rel, "backward_normalized_err":
+            back_err}
 
 
 def likelihood_rows(post, spec, thetas, conv, fused):
@@ -614,7 +687,11 @@ def likelihood_rows(post, spec, thetas, conv, fused):
         conv_route=route, f64_rel_err=truth_err(got),
         plain_f64_rel_err=truth_err(want),
     ))
-    if route == "fft":  # the other route on the same inputs, in this run
+    if route == "padded":  # the extra work of the transform: its own bound
+        mh, mw = consts.padded_shape
+        rows[-1].update(transform_shape=[mh, mw], transform_bound_ms=bound(
+            0, conv_lnl_ops(b, mh, mw))[0])
+    if route in ("fft", "padded"):  # the matmul-DFT route on the same inputs
         _, dft_rel, _ = compare(CL._launch(raws, consts, "dft"), want)
         if not dft_rel <= CONV_LNL_TOL:
             raise AssertionError("conv_lnl's matmul-DFT route disagrees "
@@ -806,7 +883,9 @@ def read_counts(counted):
     ``<wrapper>:<route>:<geometry>``, those of a route's launches that ran
     on the FFT route's mixed-radix geometry, without (``mixed``) or with
     (``radix7``) radix-7 stages (counted by route and shape), and
-    ``<wrapper>:<geometry>``, their sum over the routes."""
+    ``<wrapper>:<geometry>``, their sum over the routes.  The padded
+    route's launches are ``<wrapper>:padded`` and
+    ``batched_conv_lnl:padded_res``."""
     counts = {fn.__name__: fn.launches for fn in counted}
     routes = {f"{fn.__name__}:{r}": n for fn in counted
               for r, n in getattr(fn, "route_launches", {}).items()}
@@ -2198,7 +2277,7 @@ def joint_phase(shapes=None, psf_shape=(64, 64), device=None, radix7_band=None):
 # -- phase 12: the gradient path -------------------------------------------
 
 MAP_STARTS, MAP_STEPS = 64, 500  # fit_map's defaults, the MAP path's depth
-MAP_SHORT_STEPS = 50  # the joint MAPs with band 1 at 98x98 and at 74x74
+MAP_SHORT_STEPS = 50  # the joint MAPs with band 1 at 98x98, 74x74 and 94x94
 MAP_EQUAL_STEPS = 5  # graphed against eager
 GRAD_POINTS = 64
 GRAD_RTOL = 1e-3  # ||g_card - g_cpu|| / ||g_cpu|| per point, the CPU in float64
@@ -2277,10 +2356,10 @@ def backward_rows(post, spec):
     card at 125 walkers, with its times and bound: the render's at the
     flagship's 128x128 and at 45x37, conv_lnl's on the FFT route at
     128x128 (radix 2), 96x96 (mixed radix) and 98x98 (the same with
-    radix-7 stages; the matmul-DFT route timed on the same inputs at both),
-    each after the row of the forward's residual instantiation that it
-    reads (:func:`residual_row`) and with the pair's time, and on the
-    matmul-DFT route at 74x74."""
+    radix-7 stages), on the padded route at 74x74 (the matmul-DFT route
+    timed on the same inputs at all three), each after the row of the
+    forward's residual instantiation that it reads (:func:`residual_row`)
+    and with the pair's time, and on the matmul-DFT route at 94x94."""
     import torch
 
     from psfmc_tpu_torch.flagship import flagship_components, prior_draws
@@ -2359,10 +2438,12 @@ def backward_rows(post, spec):
     # what the forward's residual instantiation wrote (rows conv_lnl_res*)
     mixed_spec = build_model_spec(flagship_components(MIXED_SHAPE, MIXED_PSF_SHAPE))
     radix7_spec = build_model_spec(flagship_components(RADIX7_SHAPE, RADIX7_PSF_SHAPE))
+    padded_spec = build_model_spec(flagship_components(PADDED_SHAPE, PADDED_PSF_SHAPE))
     dft_spec = build_model_spec(flagship_components(DFT_SHAPE, DFT_PSF_SHAPE))
     for s_, route, name in ((spec, "fft", "conv_lnl_backward"),
                             (mixed_spec, "fft", "conv_lnl_backward_mixed"),
                             (radix7_spec, "fft", "conv_lnl_backward_radix7"),
+                            (padded_spec, "padded", "conv_lnl_backward_padded"),
                             (dft_spec, "dft", "conv_lnl_backward_dft")):
         p, th = inputs(s_)
         raws = p.raw_and_ps(th)[0].contiguous()
@@ -2383,7 +2464,7 @@ def backward_rows(post, spec):
         f_psf = torch.as_tensor(s_.f_psf_stack[0], device=post.device).to(torch.complex64)
         f_var = torch.as_tensor(s_.f_var_stack[0], device=post.device).to(torch.complex64)
         residuals = None
-        if route == "fft":
+        if route in ("fft", "padded"):
             geometry = fft_geometry(s_.shape)
             res_row, residuals = residual_row(
                 "conv_lnl_res" + ("" if geometry == "radix2" else f"_{geometry}"),
@@ -2419,7 +2500,8 @@ def backward_rows(post, spec):
                                       consts.good)
                 return torch.autograd.grad(out, x, grad)[0]
 
-        if route == "fft":  # one pair: the weights, the raw image, the gradient
+        if route in ("fft", "padded"):  # one pair: the weights, the raw image,
+            # the gradient (the function's bound at the image's size)
             bms, by, term = bound(16 * n + spectra_bytes + 12 * B_HALF,
                                   B_HALF * 2 * fft_conv_ops(hh, ww)
                                   + BWD_COMBINE_OPS_PER_PIXEL * n)
@@ -2437,7 +2519,11 @@ def backward_rows(post, spec):
             bound_ms=bms, bound_by=by, bound_term=term, library_ms=time_ms(library),
             library="torch.autograd through torch.fft convolutions of the forward",
             conv_route=route))
-        if route == "fft":  # the Adam step's pair: the residual forward, the backward
+        if route == "padded":  # the transform's own pair
+            mh, mw = consts.padded_shape
+            rows[-1].update(transform_shape=[mh, mw], transform_bound_ms=bound(
+                0, B_HALF * 2 * fft_conv_ops(mh, mw))[0])
+        if route in ("fft", "padded"):  # the Adam step's pair: the residual forward, the backward
             def pair():
                 l_, *r_ = CL.batched_conv_lnl_residuals(raws, consts)
                 return CL.batched_conv_lnl_backward(raws, consts, l_, grad, r_)
@@ -2462,6 +2548,8 @@ def backward_rows(post, spec):
             f"{r['bound_ms']:.5f} ms by {r['bound_by']} ({r['bound_term']}), "
             f"{r['ms'] / r['bound_ms']:.1f}x the bound; library {r['library_ms']}, "
             f"matmul-DFT route on the same inputs {r.get('dft_route_ms')}"
+            + (f"; the padded transform's own bound {r['transform_bound_ms']:.5f} ms"
+               if "transform_bound_ms" in r else "")
             + (f"; forward + backward (Adam pair) {r['pair_ms']:.4f} ms, bound "
                f"{r['pair_bound_ms']:.5f} ms ({r['pair_bound_term']})"
                if "pair_ms" in r else "")
@@ -2472,7 +2560,7 @@ def backward_rows(post, spec):
 
 def residual_row(name, raws, consts, c64, lnl, f_psf, f_var, data_bytes):
     """The residual instantiation of conv_lnl's forward at ``raws``' shape
-    (FFT route): the same lnL bits as the forward kernel's ``lnl``; its
+    (FFT or padded route): the same lnL bits as the forward kernel's ``lnl``; its
     weights against the float64 plain scheme within the larger of
     :data:`CONV_RES_TOL` of each walker's largest weight and
     :data:`CONV_RES_PLAIN` times the float32 plain scheme's own error; each
@@ -2485,18 +2573,21 @@ def residual_row(name, raws, consts, c64, lnl, f_psf, f_var, data_bytes):
     from psfmc_tpu_torch.ops.kernels import conv_lnl as CL
 
     b, h, w = raws.shape
+    route = CL.conv_route((h, w))
+    plain = (CL.padded_fft_conv_residuals_plain if route == "padded"
+             else CL.packed_fft_conv_residuals_plain)
     routes = dict(CL.batched_conv_lnl.route_launches)
     got, weights, scale_exp = CL.batched_conv_lnl_residuals(raws, consts)
-    routes["fft_res"] += 1
+    routes[route + "_res"] += 1
     if CL.batched_conv_lnl.route_launches != routes:
-        raise AssertionError(f"{name} did not launch on the route fft_res")
+        raise AssertionError(f"{name} did not launch on the route {route}_res")
     again = CL.batched_conv_lnl_residuals(raws, consts)
     if not (same_bits(got, lnl) and all(
             same_bits(x, y) for x, y in zip(again, (got, weights, scale_exp)))):
         raise AssertionError(f"{name}: the lnL bits differ from conv_lnl's launch, "
                              "or two launches differ")
-    _, w64, e64 = CL.packed_fft_conv_residuals_plain(raws.double().cpu(), c64)
-    _, w32, _ = CL.packed_fft_conv_residuals_plain(raws, consts)
+    _, w64, e64 = plain(raws.double().cpu(), c64)
+    _, w32, _ = plain(raws, consts)
     keep = torch.isfinite(lnl)
     want = w64.to(raws.device)[keep]
     scale = want.abs().amax(dim=(1, 2)).clamp(min=1e-300)
@@ -2531,11 +2622,11 @@ def residual_row(name, raws, consts, c64, lnl, f_psf, f_var, data_bytes):
         max_abs_err=(weights[keep].double() - want).abs().max().item(),
         max_normalized_err=err.max().item(),
         ms=time_ms(lambda: CL.batched_conv_lnl_residuals(raws, consts)),
-        plain_ms=time_ms(lambda: CL.packed_fft_conv_residuals_plain(raws, consts)),
+        plain_ms=time_ms(lambda: plain(raws, consts)),
         bound_ms=bms, bound_by=by, bound_term=term, library_ms=time_ms(library),
         library="torch.fft convolutions, the lnL and the weights",
         forward_ms=time_ms(lambda: CL.batched_conv_lnl(raws, consts)),
-        conv_route="fft")
+        conv_route=route)
     return row, (weights, scale_exp)
 
 
@@ -2589,16 +2680,17 @@ def check_step_tally(program, want, label):
 
 
 def map_phase(shape=(128, 128), psf_shape=(64, 64), joint_shapes=None, device=None,
-              radix7_band=None, dft_band=None):
+              radix7_band=None, dft_band=None, padded_band=None):
     """The gradient path at full width (the arguments shrink it for a
     rehearsal on the CPU): the MAP flagship through ``model_galaxy_map``
     (64 starts x 500 Adam steps, Laplace), ``model_galaxy_mcmc(init=
     "map")`` on the same files, gradients against the CPU, five Adam steps
     graphed against eager, and the joint MAP (band 1 at 96x96 on the FFT
     route's mixed-radix geometry; then 50 steps with band 1 at
-    ``radix7_band``, on the same geometry with radix-7 stages, and 50 with
-    band 1 at ``dft_band``, on the matmul-DFT route).  Returns the backward
-    rows' launches and the timings."""
+    ``radix7_band``, on the same geometry with radix-7 stages, 50 with
+    band 1 at ``padded_band``, on the padded route, and 50 with band 1 at
+    ``dft_band``, on the matmul-DFT route).  Returns the backward rows'
+    launches and the timings."""
     import torch
 
     from psfmc_tpu_torch import fitting, optimize
@@ -2617,10 +2709,12 @@ def map_phase(shape=(128, 128), psf_shape=(64, 64), joint_shapes=None, device=No
         build_model_spec,
         build_posterior,
     )
+    from psfmc_tpu_torch.ops.kernels import conv_lnl as CL
 
     joint_shapes = joint_shapes or JOINT_SHAPES
     radix7_band = radix7_band or RADIX7_SHAPE
     dft_band = dft_band or DFT_SHAPE
+    padded_band = padded_band or PADDED_SHAPE
     counted = grad_kernels()
     t_phase = time.perf_counter()
     out = {}
@@ -2825,15 +2919,17 @@ def map_phase(shape=(128, 128), psf_shape=(64, 64), joint_shapes=None, device=No
 
         # the joint MAP: band 1's conv_lnl and backward on the FFT route's
         # mixed-radix geometry; then shorter ones with band 1 on that
-        # geometry's radix-7 stages and on the matmul-DFT route, so that
-        # each of their kernels runs inside a captured step
+        # geometry's radix-7 stages, on the padded route and on the
+        # matmul-DFT route, so that each of their kernels runs inside a
+        # captured step
         for key, jshapes, steps in (
                 ("joint", joint_shapes, MAP_STEPS),
                 ("joint_radix7", (joint_shapes[0], radix7_band), MAP_SHORT_STEPS),
+                ("joint_padded", (joint_shapes[0], padded_band), MAP_SHORT_STEPS),
                 ("joint_dft", (joint_shapes[0], dft_band), MAP_SHORT_STEPS)):
             band1 = fft_geometry(jshapes[1]) or "dft"
             if band1 != {"joint": "mixed", "joint_radix7": "radix7",
-                         "joint_dft": "dft"}[key]:
+                         "joint_padded": "padded", "joint_dft": "dft"}[key]:
                 raise AssertionError(f"map: the {key} MAP's band 1 {jshapes[1]} "
                                      f"takes conv_lnl's {band1}")
             bands, jtruth = joint_map_components(jshapes, psf_shape, seed=SEED)
@@ -2846,18 +2942,22 @@ def map_phase(shape=(128, 128), psf_shape=(64, 64), joint_shapes=None, device=No
             joint_wall = time.perf_counter() - t0
             j_launches, j_routes = read_counts(counted)
             jprog = map_program(jm.posterior_fns)
-            on_fft = 1 if band1 == "dft" else 2
-            tally = {("render_sersics", None): 2, ("render_sersics_backward", None): 2,
-                     ("batched_conv_lnl", "fft_res"): on_fft,
-                     ("batched_conv_lnl_backward", "fft"): on_fft}
-            if band1 == "dft":
-                tally.update({("batched_conv_lnl", "dft"): 1,
-                              ("batched_conv_lnl_backward", "dft"): 1})
+            # band 0 on the FFT route, band 1 on its own; a forward under
+            # autograd on the FFT or padded route writes its residuals
+            tally = {("render_sersics", None): 2, ("render_sersics_backward", None): 2}
+            jwant = dict.fromkeys(("batched_conv_lnl:fft_res", "batched_conv_lnl:padded_res",
+                                   "batched_conv_lnl_backward:fft",
+                                   "batched_conv_lnl_backward:padded",
+                                   "batched_conv_lnl_backward:dft"), 0)
+            for route in ("fft", CL.conv_route(jshapes[1])):
+                forward = route if route == "dft" else f"{route}_res"
+                for k in (("batched_conv_lnl", forward), ("batched_conv_lnl_backward", route)):
+                    tally[k] = tally.get(k, 0) + 1
+                jwant[f"batched_conv_lnl_backward:{route}"] += steps + 1
+                if route != "dft":
+                    jwant[f"batched_conv_lnl:{forward}"] += steps + 1
             if graphed:
                 check_step_tally(jprog, tally, f"{key} map")
-            jwant = {"batched_conv_lnl:fft_res": on_fft * (steps + 1),
-                     "batched_conv_lnl_backward:fft": on_fft * (steps + 1),
-                     "batched_conv_lnl_backward:dft": (2 - on_fft) * (steps + 1)}
             for geo in MIXED_GEOMETRIES:  # band 1's, at its geometry
                 n = (steps + 1) * (band1 == geo)
                 jwant.update({f"batched_conv_lnl:fft_res:{geo}": n,
@@ -3108,9 +3208,11 @@ def render_sass_count(num_sersic):
 STEP_TIMES_STEPS = 5  # Adam steps that capture the joint MAP's step before it is timed
 
 
-def step_times_phase(psf_shape=(64, 64), band=None):
-    """The two captured steps that run conv_lnl at ``band`` (98x98 unless
-    given) inside the joint flagship, each replayed back to back and timed
+def step_times_phase(psf_shape=(64, 64), bands=None):
+    """For each band 1 shape of ``bands`` (74x74, the padded route, and
+    98x98, the radix-7 geometry, unless given): the two captured steps
+    that run conv_lnl at that shape inside the joint flagship, each
+    replayed back to back and timed
     by CUDA events (:func:`time_ms`): the offset variant's retained sampler
     step at 250 walkers (band 1's conv_lnl twice a step, once per half
     ensemble) and the joint MAP's Adam step at 64 starts; then a digest of
@@ -3118,7 +3220,8 @@ def step_times_phase(psf_shape=(64, 64), band=None):
     port has had since its gradient path, so that it times an earlier tree
     of the port too: copy this file to the root of that tree and run
     ``python3 chip_smoke.py --step-times`` there.  Two trees compare only
-    within one call to the card, in turns (a, b, b, a)."""
+    within one call to the card, in turns (a, b, b, a).  Returns
+    ``{"<H>x<W>": times}``."""
     from psfmc_tpu_torch import optimize
     from psfmc_tpu_torch.flagship import (
         JOINT_SHAPES,
@@ -3130,28 +3233,31 @@ def step_times_phase(psf_shape=(64, 64), band=None):
     from psfmc_tpu_torch.ops.kernels.conv_lnl import conv_route
     from psfmc_tpu_torch.sampler import EnsembleSampler
 
-    shapes = (JOINT_SHAPES[0], band or RADIX7_SHAPE)
-    out = {"band": list(shapes[1]), "route": conv_route(shapes[1])}
-    model = JointModel(joint_components(shapes, psf_shape, "offset"))
-    spec = model.spec
-    sm = EnsembleSampler(NWALKERS, spec.num_params, model.posterior_fns, seed=SEED)
-    sm.init_state(prior_draws(spec, NWALKERS, seed=SEED + 1))
-    sm.run_burn(2)
-    sm.reset()
-    sm.run_sampling(2)  # captures the retained step's graph
-    out["offset_retained_step_ms"] = time_ms(lambda: sm._step("retain"))
-    bands, _ = joint_map_components(shapes, psf_shape, seed=SEED)
-    jm = JointModel(bands)
-    optimize.fit_map(jm.posterior_fns, n_starts=MAP_STARTS, steps=STEP_TIMES_STEPS,
-                     seed=SEED)
-    program = map_program(jm.posterior_fns)
-    out["joint_map_adam_step_ms"] = time_ms(program.graph.replay)
-    log(f"step times, band 1 at {shapes[1][0]}x{shapes[1][1]} (conv_lnl's "
-        f"{out['route']} route): the offset variant's retained step "
-        f"{out['offset_retained_step_ms']:.4f} ms replayed ({NWALKERS} walkers), "
-        f"the joint MAP's Adam step {out['joint_map_adam_step_ms']:.4f} ms "
-        f"replayed ({MAP_STARTS} starts)")
-    return out
+    result = {}
+    for band in bands or (PADDED_SHAPE, RADIX7_SHAPE):
+        shapes = (JOINT_SHAPES[0], tuple(band))
+        out = {"band": list(shapes[1]), "route": conv_route(shapes[1])}
+        model = JointModel(joint_components(shapes, psf_shape, "offset"))
+        spec = model.spec
+        sm = EnsembleSampler(NWALKERS, spec.num_params, model.posterior_fns, seed=SEED)
+        sm.init_state(prior_draws(spec, NWALKERS, seed=SEED + 1))
+        sm.run_burn(2)
+        sm.reset()
+        sm.run_sampling(2)  # captures the retained step's graph
+        out["offset_retained_step_ms"] = time_ms(lambda: sm._step("retain"))
+        map_bands, _ = joint_map_components(shapes, psf_shape, seed=SEED)
+        jm = JointModel(map_bands)
+        optimize.fit_map(jm.posterior_fns, n_starts=MAP_STARTS, steps=STEP_TIMES_STEPS,
+                         seed=SEED)
+        program = map_program(jm.posterior_fns)
+        out["joint_map_adam_step_ms"] = time_ms(program.graph.replay)
+        log(f"step times, band 1 at {shapes[1][0]}x{shapes[1][1]} (conv_lnl's "
+            f"{out['route']} route): the offset variant's retained step "
+            f"{out['offset_retained_step_ms']:.4f} ms replayed ({NWALKERS} walkers), "
+            f"the joint MAP's Adam step {out['joint_map_adam_step_ms']:.4f} ms "
+            f"replayed ({MAP_STARTS} starts)")
+        result[f"{band[0]}x{band[1]}"] = out
+    return result
 
 
 def sass_digests():
@@ -3186,7 +3292,8 @@ PHASES = ("load or render", "pack", "forward rows", "forward columns",
 def phase_clocks_phase(post, spec):
     """Cycles per phase of block 0 of both FFT-route kernels, on the
     kernel phase's inputs, and of conv_lnl's mixed-radix geometry at
-    96x96 and, with radix-7 stages, at 98x98.  The two sources are built once more here with
+    96x96 and, with radix-7 stages, at 98x98, and of its padded route at
+    74x74 (a 150x150 transform).  The two sources are built once more here with
     ``-DPSFMC_FFT_STAMPS`` (``csrc/fft_conv.cuh``) into a temporary
     directory and called through ctypes; the port never loads that build.
     The fused kernel's first phase is its render; it is also built with
@@ -3211,10 +3318,16 @@ def phase_clocks_phase(post, spec):
         raws = p.raw_and_ps(th)[0].contiguous()
         b, h, w = raws.shape
         out = torch.empty((b,), dtype=torch.float32, device=p.device)
-        ptrs = [getattr(p.consts, n).data_ptr() for n in CL.CONV_FFT_CONST_ARGS]
+        if CL.conv_route((h, w)) == "padded":
+            symbol, names = "conv_lnl_padded_launch", CL.PADDED_CONST_ARGS
+            ints = [b, h, w, *p.consts.padded_shape]
+        else:
+            symbol, names = "conv_lnl_fft_launch", CL.CONV_FFT_CONST_ARGS
+            ints = [b, h, w]
+        ptrs = [getattr(p.consts, n).data_ptr() for n in names]
         # the posterior and raws stay referenced: the launch reads them by address
-        return ("conv_lnl_fft_launch", [void] + [integer] * 3,
-                [raws.data_ptr(), b, h, w] + ptrs + [out.data_ptr(), stream],
+        return (symbol, [void] + [integer] * len(ints),
+                [raws.data_ptr()] + ints + ptrs + [out.data_ptr(), stream],
                 out, CL.batched_conv_lnl(raws, p.consts), (p, raws))
 
     thetas = torch.as_tensor(prior_draws(spec, B_HALF, seed=1),
@@ -3228,7 +3341,8 @@ def phase_clocks_phase(post, spec):
     fused_ptrs = [getattr(consts, n).data_ptr() for n in CL.FFT_CONST_ARGS]
     calls = {"conv_lnl": conv_call(post, spec)}
     for key, shape, psf_shape in (("conv_lnl_mixed", MIXED_SHAPE, MIXED_PSF_SHAPE),
-                                  ("conv_lnl_radix7", RADIX7_SHAPE, RADIX7_PSF_SHAPE)):
+                                  ("conv_lnl_radix7", RADIX7_SHAPE, RADIX7_PSF_SHAPE),
+                                  ("conv_lnl_padded", PADDED_SHAPE, PADDED_PSF_SHAPE)):
         other = build_model_spec(flagship_components(shape, psf_shape))
         calls[key] = conv_call(build_posterior(other, device=post.device,
                                                lnpost="batched"), other)
@@ -3240,13 +3354,15 @@ def phase_clocks_phase(post, spec):
                       out, FL.fused_lnl(*scalars, consts), scalars),
     })
     # (label, source, call, extra flags): the two kernels as the port
-    # builds them, conv_lnl at 96x96 and 98x98, then the fused kernel with more pixels
+    # builds them, conv_lnl at 96x96, 98x98 and 74x74, then the fused kernel with more pixels
     # of a row side by side in a thread than csrc/fused_lnl.cu's kFixedRun
     variants = [("conv_lnl", "conv_lnl", "conv_lnl", ()),
                 (f"conv_lnl {MIXED_SHAPE[0]}x{MIXED_SHAPE[1]} (mixed radix)",
                  "conv_lnl", "conv_lnl_mixed", ()),
                 (f"conv_lnl {RADIX7_SHAPE[0]}x{RADIX7_SHAPE[1]} (radix 7)",
                  "conv_lnl", "conv_lnl_radix7", ()),
+                (f"conv_lnl {PADDED_SHAPE[0]}x{PADDED_SHAPE[1]} (padded route)",
+                 "conv_lnl", "conv_lnl_padded", ()),
                 ("fused_lnl", "fused_lnl", "fused_lnl", ())]
     variants += [(f"fused_lnl, {n} pixels a thread", "fused_lnl", "fused_lnl",
                   (f"-DPSFMC_FUSED_RUN={n}",)) for n in (2, 4)]
@@ -3403,11 +3519,14 @@ def main():
     # it counted at mixed-radix shapes, with or without radix-7 stages).
     # Every forward under autograd on the FFT route is the residual
     # instantiation and has its backward there, at its shape
-    grads = [grad[k] for k in ("map", "init", "joint", "joint_radix7", "joint_dft")]
+    grads = [grad[k] for k in ("map", "init", "joint", "joint_radix7", "joint_padded",
+                               "joint_dft")]
     for g in grads:
         for geo in ("",) + tuple(f":{m}" for m in MIXED_GEOMETRIES):
             if g[f"batched_conv_lnl:fft_res{geo}"] != g[f"batched_conv_lnl_backward:fft{geo}"]:
                 raise AssertionError(f"residual forwards and FFT-route backwards differ: {g}")
+        if g["batched_conv_lnl:padded_res"] != g["batched_conv_lnl_backward:padded"]:
+            raise AssertionError(f"residual forwards and padded-route backwards differ: {g}")
     by_name["sersic_render"] += sum(g["render_sersics"] for g in grads)
     by_name["sersic_render_backward"] = sum(g["render_sersics_backward"] for g in grads)
     for fn, route, row in (("batched_conv_lnl", "fft_res", "conv_lnl_res"),
@@ -3422,6 +3541,13 @@ def main():
                     ("batched_conv_lnl_backward", "conv_lnl_backward")):
         by_name[f"{row}_dft"] = by_name.get(f"{row}_dft", 0) + sum(
             g[f"{fn}:dft"] for g in grads)
+    # the padded route: the 74x74 joint MAP's pool (the forward without
+    # residuals), its steps' residual forwards and backwards
+    for fn, route, row in (("batched_conv_lnl", "padded", "conv_lnl_padded"),
+                           ("batched_conv_lnl", "padded_res", "conv_lnl_res_padded"),
+                           ("batched_conv_lnl_backward", "padded",
+                            "conv_lnl_backward_padded")):
+        by_name[row] = sum(g[f"{fn}:{route}"] for g in grads)
     for r in rows:
         r["launches"] = by_name[r["name"]]
         if r["name"] == "conv_lnl_mixed":  # timed on the joint fit's band 1 too

@@ -23,7 +23,7 @@
 // at the 67 TFLOP/s fp32 (non-tensor-core) peak, against 8 MB of images
 // read (~2.5 us).
 //
-// Two routes, chosen by the wrapper from the shape alone (conv_route in
+// Three routes, chosen by the wrapper from the shape alone (conv_route in
 // psfmc_tpu_torch/ops/kernels/conv_lnl.py):
 //
 // FFT route (H and W even with no prime factor above 7, the walker fits
@@ -38,8 +38,23 @@
 // recomputing the pair: the two likelihood weights per pixel (a float2,
 // 8 bytes a pixel) and the walker's scale exponent; the same lnL bits.
 //
-// matmul-DFT route (every other shape, e.g. a side with a factor of 11 or
-// more, or an odd side; conv_lnl_launch): each convolution
+// Padded route (a side that is odd or has a prime factor above 7, and the
+// transform fits a block: every side up to 81; conv_lnl_padded_launch and
+// its residual instantiation): the FFT route's kernel on fft_conv.cuh's
+// PaddedGeom.  Each such side N is zero-padded to M, the smallest even
+// side with no prime factor above 7 of at least 2N - 1 (74 -> 150, 45 ->
+// 90, 37 -> 80); the host pads the PSF kernels the same way (placed at
+// [0, N), their M-point half spectra).  The M-point circular convolution
+// is then the linear one, and the readout folds it back, y[s] = z[s] +
+// z[s + N]: the N-point circular convolution exactly.  The block writes
+// the zeros of the pad itself (shared memory is not initialised), the
+// passes run at M, the inverse divides by M_h M_w, and everything else
+// (the scales, the pair step, the lnL, the residuals) is the FFT route's.
+// At 74x74 the transform is 150x150 ([5][5][3 2] per axis, 186,080 B of
+// shared memory), 4.1x the image's pixels.
+//
+// matmul-DFT route (every other shape: a side from 82 up that is off the
+// FFT route, a walker too large for a block, a side of 1; conv_lnl_launch): each convolution
 // as the twelve real half-spectrum products above, 20x the FFT count of
 // operations at 128x128 (W2 = 65: 2 convolutions x 12 x 2*128*128*65 ~ 51
 // MFLOP per walker, ~6.4 GFLOP per half-ensemble, ~0.1 ms at peak for the
@@ -186,29 +201,51 @@ conv_lnl_fft_residuals_kernel(const float* __restrict__ raws, int h, int w,
   }
 }
 
-// The FFT route's launch at (h, w): `pow2_kernel` or `mixed_kernel` by the
-// shape, with its dynamic shared memory set; returns 0 or the cudaError
-// of the shape check or the attribute call.
+// The padded route: the same on PaddedGeom, the image (h, w) in the corner
+// of the transform (mh, mw).
+template <bool MIXED, bool RESID>
+__global__ void __launch_bounds__(fc::kThreads, 1)
+conv_lnl_padded_kernel(const float* __restrict__ raws, int h, int w, int mh,
+                       int mw, const float2* __restrict__ twiddle, int tw_log2,
+                       const int* __restrict__ layout, fc::Spectra k, fc::Data d,
+                       float* __restrict__ out, float2* __restrict__ weights,
+                       int* __restrict__ scale_exp) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* z = reinterpret_cast<float2*>(smem);
+  float2* tw = z + mh * fc::pitch(mw);
+  const float* raw = raws + (size_t)blockIdx.x * h * w;
+  float2* wts = RESID ? weights + (size_t)blockIdx.x * h * w : nullptr;
+  int* se = RESID ? scale_exp + blockIdx.x : nullptr;
+  PSFMC_STAMP(0);
+  if constexpr (MIXED) {
+    using Geom = fc::PaddedGeom<fc::MixedGeom>;
+    const Geom g(h, w, fc::load_mixed(tw, twiddle, layout, mh, mw));
+    const float mx = fc::load_image(z, g, raw);
+    PSFMC_STAMP(1);
+    fc::convolve_and_reduce<Geom, RESID>(z, g, mx, k, d, out + blockIdx.x, wts, se);
+  } else {
+    using Geom = fc::PaddedGeom<fc::Pow2Geom>;
+    fc::load_twiddles(tw, twiddle, tw_log2);
+    const Geom g(h, w, fc::Pow2Geom(mh, mw, tw, tw_log2));
+    const float mx = fc::load_image(z, g, raw);
+    PSFMC_STAMP(1);
+    fc::convolve_and_reduce<Geom, RESID>(z, g, mx, k, d, out + blockIdx.x, wts, se);
+  }
+}
+
+// The FFT route's launch at (h, w); returns 0 or the cudaError of the shape
+// check or the attribute call.
 template <class Kernel>
 int prepare_fft(Kernel pow2_kernel, Kernel mixed_kernel, int h, int w,
                 Kernel* kernel, size_t* smem, int* tw_log2) {
   const bool pow2 = fc::power_of_two(h) && fc::power_of_two(w);
   if (!pow2 && !(fc::seven_smooth_even(h) && fc::seven_smooth_even(w)))
     return (int)cudaErrorInvalidValue;
-  *smem = pow2 ? fc::image_bytes(h, w) : fc::mixed_image_bytes(h, w);
-  *kernel = pow2 ? pow2_kernel : mixed_kernel;
-  cudaError_t err = cudaFuncSetAttribute(
-      *kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it, so that no later launch reports it
-    return (int)err;
-  }
-  *tw_log2 = 0;
-  while ((1 << *tw_log2) < (h > w ? h : w)) ++*tw_log2;
-  return 0;
+  return fc::prepare_geometry(pow2_kernel, mixed_kernel, h, w, kernel, smem, tw_log2);
 }
 
 }  // namespace
+
 
 // C interface of the FFT route.  h and w are both powers of two, or both
 // even with no prime factor above 7.  For powers of two, twiddle is the
@@ -261,5 +298,62 @@ extern "C" int conv_lnl_fft_residuals_launch(
       raws, h, w, reinterpret_cast<const float2*>(twiddle), tw_log2, layout,
       fc::Spectra{psf_r, psf_i, var_r, var_i, var_gain}, fc::Data{obs, obs_var, good},
       out, reinterpret_cast<float2*>(weights), scale_exp);
+  return (int)cudaGetLastError();
+}
+
+// C interface of the padded route: conv_lnl_fft_launch's arguments with the
+// transform's sides (mh, mw) after the image's, and twiddle, layout and the
+// four spectrum planes at the transform's sides (conv_lnl.py's
+// PADDED_CONST_ARGS: the padded kernels' (mh, mw/2+1) half spectra, the FFT
+// route's tables at (mh, mw)); var_gain, obs, obs_var and good at the
+// image's.  A shape the host would not plan (padded_plan) is refused with
+// cudaErrorInvalidValue.  Launches on `stream` and returns the first nonzero
+// cudaError of the attribute call or the launch, or 0.
+extern "C" int conv_lnl_padded_launch(
+    const float* raws, int batch, int h, int w, int mh, int mw,
+    const float* twiddle, const int* layout, const float* var_gain,
+    const float* psf_r, const float* psf_i, const float* var_r,
+    const float* var_i, const float* obs, const float* obs_var,
+    const float* good, float* out, void* stream) {
+  if (batch <= 0) return 0;
+  if (!fc::padded_plan(h, w, mh, mw)) return (int)cudaErrorInvalidValue;
+  auto kernel = &conv_lnl_padded_kernel<false, false>;
+  size_t smem;
+  int tw_log2;
+  if (int err = fc::prepare_geometry(&conv_lnl_padded_kernel<false, false>,
+                                     &conv_lnl_padded_kernel<true, false>, mh,
+                                     mw, &kernel, &smem, &tw_log2))
+    return err;
+  kernel<<<batch, fc::kThreads, smem, (cudaStream_t)stream>>>(
+      raws, h, w, mh, mw, reinterpret_cast<const float2*>(twiddle), tw_log2,
+      layout, fc::Spectra{psf_r, psf_i, var_r, var_i, var_gain},
+      fc::Data{obs, obs_var, good}, out, nullptr, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// The padded route with the residuals for the backward:
+// conv_lnl_padded_launch's arguments, then weights, (B, H, W, 2) float32,
+// and scale_exp, (B,) int32, as conv_lnl_fft_residuals_launch writes them.
+extern "C" int conv_lnl_padded_residuals_launch(
+    const float* raws, int batch, int h, int w, int mh, int mw,
+    const float* twiddle, const int* layout, const float* var_gain,
+    const float* psf_r, const float* psf_i, const float* var_r,
+    const float* var_i, const float* obs, const float* obs_var,
+    const float* good, float* out, float* weights, int* scale_exp,
+    void* stream) {
+  if (batch <= 0) return 0;
+  if (!fc::padded_plan(h, w, mh, mw)) return (int)cudaErrorInvalidValue;
+  auto kernel = &conv_lnl_padded_kernel<false, true>;
+  size_t smem;
+  int tw_log2;
+  if (int err = fc::prepare_geometry(&conv_lnl_padded_kernel<false, true>,
+                                     &conv_lnl_padded_kernel<true, true>, mh,
+                                     mw, &kernel, &smem, &tw_log2))
+    return err;
+  kernel<<<batch, fc::kThreads, smem, (cudaStream_t)stream>>>(
+      raws, h, w, mh, mw, reinterpret_cast<const float2*>(twiddle), tw_log2,
+      layout, fc::Spectra{psf_r, psf_i, var_r, var_i, var_gain},
+      fc::Data{obs, obs_var, good}, out, reinterpret_cast<float2*>(weights),
+      scale_exp);
   return (int)cudaGetLastError();
 }

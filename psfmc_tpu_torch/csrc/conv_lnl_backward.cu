@@ -43,6 +43,16 @@
 // psfmc_tpu_torch.ops.kernels.conv_lnl.packed_fft_conv_backward_from_
 // residuals_plain is this scheme in plain PyTorch.
 //
+// Padded route (conv_lnl_padded_backward_launch; the shapes of conv_lnl.cu's
+// padded route): the same launch on fft_conv.cuh's PaddedGeom.  The adjoint
+// of the forward's fold: each weight is copied to the slot s its pixel was
+// read from and, along a padded axis where s <= N - 2, also to s + N (up to
+// four cp.async copies of a weight), and every other slot of the M_h x M_w
+// transform gets zeros; the pair runs at M with the padded kernels'
+// conjugate spectra, and the combine reads [0, N) (the adjoint of the zero
+// pad).  psfmc_tpu_torch.ops.kernels.conv_lnl.padded_fft_conv_backward_
+// from_residuals_plain is this scheme in plain PyTorch.
+//
 // matmul-DFT route (conv_lnl_dft_backward_launch; every other shape): the
 // forward's products recompute conv and mvar (dft_conv.cuh, 14 launches),
 // one elementwise kernel forms a and c in place, the same products with
@@ -86,6 +96,31 @@ __device__ void copy_weights(float2* z, const Geom& g, const float2* src) {
   __pipeline_commit();
 }
 
+// The padded geometry's copy: slot t of an axis of image side n takes slot
+// s = t (t < n) or s = t - n (n <= t <= 2n - 2: the fold's second term) of
+// the shifted readout, the weight of pixel (s - n/2) mod n; every other
+// slot of the transform gets zeros.  Each slot is written once, by a
+// cp.async copy or a store, so no barrier is needed between the two.
+template <class Inner>
+__device__ void copy_weights(float2* z, const fc::PaddedGeom<Inner>& g,
+                             const float2* src) {
+  const int h = g.h, w = g.w, mw = g.t.w, ld = g.t.ld;
+  const fc::FastDiv by_mw(mw);
+  for (int q = threadIdx.x; q < g.t.h * mw; q += fc::kThreads) {
+    const int ty = by_mw.div(q), tx = q - ty * mw;
+    float2* dst = z + ty * ld + tx;
+    if (ty <= 2 * h - 2 && tx <= 2 * w - 2) {
+      int y = (ty < h ? ty : ty - h) - h / 2, x = (tx < w ? tx : tx - w) - w / 2;
+      if (y < 0) y += h;
+      if (x < 0) x += w;
+      __pipeline_memcpy_async(dst, src + y * w + x, sizeof(float2));
+    } else {
+      *dst = make_float2(0.0f, 0.0f);
+    }
+  }
+  __pipeline_commit();
+}
+
 // Steps 2 and 3 on the weights in shared memory (visible to every thread).
 template <class Geom>
 __device__ void backward_block(float2* z, const Geom& g, const float* raw,
@@ -99,8 +134,9 @@ __device__ void backward_block(float2* z, const Geom& g, const float* raw,
   g.template lines<true, false>(z);
   g.template lines<true, true>(z);
 
-  // grad_b [a (x) psf + 2 raw (c (x) var)]
-  const float conv_scale = 1.0f / (float)hw;
+  // grad_b [a (x) psf + 2 raw (c (x) var)], on the padded geometry from
+  // the image's corner of the transform
+  const float conv_scale = g.inv_size();
   const float c_scale = ldexpf(conv_scale, -se) / __ldg(kc.var_gain);
 #pragma unroll 4
   for (int p = threadIdx.x; p < hw; p += fc::kThreads) {
@@ -141,6 +177,47 @@ conv_lnl_fft_backward_kernel(const float* __restrict__ raws, int h, int w,
     backward_block(z, g, raw, kc, se, gb, o);
   } else {
     const fc::Pow2Geom g(h, w, tw, tw_log2);
+    copy_weights(z, g, wts);
+    fc::load_twiddles(tw, twiddle, tw_log2);
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    backward_block(z, g, raw, kc, se, gb, o);
+  }
+}
+
+// The padded route: the image (h, w) in the corner of the transform (mh, mw).
+template <bool MIXED>
+__global__ void __launch_bounds__(fc::kThreads, 1)
+conv_lnl_padded_backward_kernel(const float* __restrict__ raws, int h, int w,
+                                int mh, int mw, const float2* __restrict__ twiddle,
+                                int tw_log2, const int* __restrict__ layout,
+                                fc::Spectra kc, const float2* __restrict__ weights,
+                                const int* __restrict__ scale_exp,
+                                const float* __restrict__ lnl,
+                                const float* __restrict__ grad,
+                                float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* z = reinterpret_cast<float2*>(smem);
+  float2* tw = z + mh * fc::pitch(mw);
+  const int hw = h * w;
+  const float* raw = raws + (size_t)blockIdx.x * hw;
+  const float2* wts = weights + (size_t)blockIdx.x * hw;
+  float* o = out + (size_t)blockIdx.x * hw;
+  if (!isfinite(__ldg(lnl + blockIdx.x))) {  // the same for the whole block
+    for (int p = threadIdx.x; p < hw; p += fc::kThreads) o[p] = 0.0f;
+    return;
+  }
+  const float gb = __ldg(grad + blockIdx.x);
+  const int se = __ldg(scale_exp + blockIdx.x);
+  if constexpr (MIXED) {
+    using Geom = fc::PaddedGeom<fc::MixedGeom>;
+    copy_weights(z, Geom(h, w, fc::MixedGeom(mh, mw, tw, nullptr)), wts);  // no table read
+    const Geom g(h, w, fc::load_mixed(tw, twiddle, layout, mh, mw));
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    backward_block(z, g, raw, kc, se, gb, o);
+  } else {
+    const fc::PaddedGeom<fc::Pow2Geom> g(h, w, fc::Pow2Geom(mh, mw, tw, tw_log2));
     copy_weights(z, g, wts);
     fc::load_twiddles(tw, twiddle, tw_log2);
     __pipeline_wait_prior(0);
@@ -199,20 +276,45 @@ extern "C" int conv_lnl_fft_backward_launch(
   const bool pow2 = fc::power_of_two(h) && fc::power_of_two(w);
   if (!pow2 && !(fc::seven_smooth_even(h) && fc::seven_smooth_even(w)))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = pow2 ? fc::image_bytes(h, w) : fc::mixed_image_bytes(h, w);
-  auto kernel = pow2 ? &conv_lnl_fft_backward_kernel<false>
-                     : &conv_lnl_fft_backward_kernel<true>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it, so that no later launch reports it
-    return (int)err;
-  }
-  int tw_log2 = 0;
-  while ((1 << tw_log2) < (h > w ? h : w)) ++tw_log2;
+  auto kernel = &conv_lnl_fft_backward_kernel<false>;
+  size_t smem;
+  int tw_log2;
+  if (int err = fc::prepare_geometry(&conv_lnl_fft_backward_kernel<false>,
+                                     &conv_lnl_fft_backward_kernel<true>, h, w,
+                                     &kernel, &smem, &tw_log2))
+    return err;
   kernel<<<batch, fc::kThreads, smem, (cudaStream_t)stream>>>(
       raws, h, w, reinterpret_cast<const float2*>(twiddle), tw_log2, layout,
       fc::Spectra{psf_r, psf_ic, var_r, var_ic, var_gain},
+      reinterpret_cast<const float2*>(weights), scale_exp, lnl, grad, out);
+  return (int)cudaGetLastError();
+}
+
+// C interface of the padded route: conv_lnl_fft_backward_launch's arguments
+// with the transform's sides (mh, mw) after the image's, and twiddle,
+// layout and the four spectrum planes at the transform's sides
+// (conv_lnl.py's PADDED_BACKWARD_CONST_ARGS).  A shape the host would not
+// plan is refused with cudaErrorInvalidValue.  Launches on `stream` and
+// returns the first nonzero cudaError of the attribute call or the launch,
+// or 0.
+extern "C" int conv_lnl_padded_backward_launch(
+    const float* raws, int batch, int h, int w, int mh, int mw,
+    const float* twiddle, const int* layout, const float* var_gain,
+    const float* psf_r, const float* psf_ic, const float* var_r,
+    const float* var_ic, const float* weights, const int* scale_exp,
+    const float* lnl, const float* grad, float* out, void* stream) {
+  if (batch <= 0) return 0;
+  if (!fc::padded_plan(h, w, mh, mw)) return (int)cudaErrorInvalidValue;
+  auto kernel = &conv_lnl_padded_backward_kernel<false>;
+  size_t smem;
+  int tw_log2;
+  if (int err = fc::prepare_geometry(&conv_lnl_padded_backward_kernel<false>,
+                                     &conv_lnl_padded_backward_kernel<true>, mh,
+                                     mw, &kernel, &smem, &tw_log2))
+    return err;
+  kernel<<<batch, fc::kThreads, smem, (cudaStream_t)stream>>>(
+      raws, h, w, mh, mw, reinterpret_cast<const float2*>(twiddle), tw_log2,
+      layout, fc::Spectra{psf_r, psf_ic, var_r, var_ic, var_gain},
       reinterpret_cast<const float2*>(weights), scale_exp, lnl, grad, out);
   return (int)cudaGetLastError();
 }

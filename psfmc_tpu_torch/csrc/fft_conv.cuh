@@ -621,6 +621,13 @@ struct Pow2Geom {
     const int y = p >> wb, x = p & (w - 1);
     return ((y + h / 2) & (h - 1)) * ld + ((x + w / 2) & (w - 1));
   }
+  // what output pixel p reads, and the inverse's normalisation
+  __device__ __forceinline__ float2 read(const float2* z, int p) const {
+    return z[shifted(p)];
+  }
+  __device__ __forceinline__ float inv_size() const {
+    return 1.0f / (float)(h * w);
+  }
   template <bool INVERSE, bool ROWS, bool SCALE = false>
   __device__ void lines(float2* z, float ys = 1.0f) const {
     fft_lines<INVERSE, ROWS, SCALE>(z, h, w, tw, tw_log2, ys);
@@ -652,6 +659,12 @@ struct MixedGeom {
     if (x >= w) x -= w;
     return y * ld + x;
   }
+  __device__ __forceinline__ float2 read(const float2* z, int p) const {
+    return z[shifted(p)];
+  }
+  __device__ __forceinline__ float inv_size() const {
+    return 1.0f / (float)(h * w);
+  }
   template <bool INVERSE, bool ROWS, bool SCALE = false>
   __device__ void lines(float2* z, float ys = 1.0f) const {
     const int* hdr = lay + (ROWS ? 2 + kMaxPasses : 1);
@@ -663,6 +676,95 @@ struct MixedGeom {
   }
 };
 
+// The padded geometry: an image of h x w pixels in the corner [0, h) x
+// [0, w) of the transform t (t.h x t.w, Pow2Geom or MixedGeom; row pitch
+// t.w + 1), zeros elsewhere.  Each side is the image's own (on the FFT
+// route: no fold) or at least 2N - 1, where the transform's circular
+// convolution of the zero-padded image and kernel is the linear one z;
+// output pixel p reads its shifted slot s = (n + N/2) mod N per axis and,
+// along a padded axis where s <= N - 2, also z[s + N]: the N-point
+// circular convolution, up to four terms summed (z00 + z01) + (z10 + z11).
+template <class Inner>
+struct PaddedGeom {
+  int h, w;  // the image
+  Inner t;   // the transform
+  FastDiv by_w;
+  bool fold_h, fold_w;
+  __device__ PaddedGeom(int h_, int w_, const Inner& t_)
+      : h(h_), w(w_), t(t_), by_w(w_), fold_h(t_.h != h_), fold_w(t_.w != w_) {}
+  __device__ __forceinline__ int at(int p) const {
+    const int y = by_w.div(p);
+    return y * t.ld + (p - y * w);
+  }
+  __device__ __forceinline__ float2 read(const float2* z, int p) const {
+    int y = by_w.div(p), x = p - y * w;
+    y += h / 2;
+    x += w / 2;
+    if (y >= h) y -= h;
+    if (x >= w) x -= w;
+    const float2* q = z + y * t.ld + x;
+    const bool fx = fold_w && x < w - 1, fy = fold_h && y < h - 1;
+    float2 v = q[0];
+    if (fx) v = cadd(v, q[w]);
+    if (fy) {
+      float2 u = q[h * t.ld];
+      if (fx) u = cadd(u, q[h * t.ld + w]);
+      v = cadd(v, u);
+    }
+    return v;
+  }
+  __device__ __forceinline__ float inv_size() const {
+    return 1.0f / (float)(t.h * t.w);
+  }
+  template <bool INVERSE, bool ROWS, bool SCALE = false>
+  __device__ void lines(float2* z, float ys = 1.0f) const {
+    t.template lines<INVERSE, ROWS, SCALE>(z, ys);
+  }
+  __device__ void pairs(float2* z, const Spectra& k) const { t.pairs(z, k); }
+};
+
+// The padded route's transform side for an image side n >= 2 (conv_lnl.py's
+// padded_size): the smallest even 7-smooth side of at least 2n - 1; and a
+// side's transform, the side itself where the FFT route takes it.
+inline int padded_side(int n) {
+  int m = 2 * n;
+  while (!seven_smooth_even(m)) m += 2;
+  return m;
+}
+
+inline int transform_side(int n) {
+  return seven_smooth_even(n) ? n : padded_side(n);
+}
+
+// The padded route's plan as the host makes it (conv_lnl.py's padded_shape):
+// each side at least 2, each transform side the image's own where the FFT
+// route takes it and padded_side otherwise, at least one side padded.
+inline bool padded_plan(int h, int w, int mh, int mw) {
+  return h >= 2 && w >= 2 && mh == transform_side(h) && mw == transform_side(w) &&
+         (mh != h || mw != w);
+}
+
+// A launch on the geometry of the transform (mh, mw) (the image's own
+// sides on the FFT route): `pow2_kernel` or `mixed_kernel` by its sides,
+// with its dynamic shared memory set, and the log2 of the power-of-two
+// table's length; returns 0 or the cudaError of the attribute call.
+template <class Kernel>
+int prepare_geometry(Kernel pow2_kernel, Kernel mixed_kernel, int mh, int mw,
+                     Kernel* kernel, size_t* smem, int* tw_log2) {
+  const bool pow2 = power_of_two(mh) && power_of_two(mw);
+  *smem = pow2 ? image_bytes(mh, mw) : mixed_image_bytes(mh, mw);
+  *kernel = pow2 ? pow2_kernel : mixed_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      *kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it, so that no later launch reports it
+    return (int)err;
+  }
+  *tw_log2 = 0;
+  while ((1 << *tw_log2) < (mh > mw ? mh : mw)) ++*tw_log2;
+  return 0;
+}
+
 // The raw image of one walker from global memory into the real parts of
 // z; returns the largest |raw| this thread read.
 template <class Geom>
@@ -672,6 +774,25 @@ __device__ float load_image(float2* z, const Geom& g, const float* raw) {
   for (int p = threadIdx.x; p < g.h * g.w; p += kThreads) {
     const float v = __ldg(raw + p);
     z[g.at(p)].x = v;
+    mx = fmaxf(mx, fabsf(v));
+  }
+  return mx;
+}
+
+// The padded geometry's load: the raw image into [0, h) x [0, w) and zeros
+// into both parts of every other slot of the transform (shared memory is
+// not initialised; the square step then writes the image pixels'
+// imaginary parts only).
+template <class Inner>
+__device__ float load_image(float2* z, const PaddedGeom<Inner>& g, const float* raw) {
+  const int mw = g.t.w, ld = g.t.ld;
+  const FastDiv by_mw(mw);
+  float mx = 0.0f;
+#pragma unroll 4
+  for (int q = threadIdx.x; q < g.t.h * mw; q += kThreads) {
+    const int y = by_mw.div(q), x = q - y * mw;
+    const float v = (y < g.h && x < g.w) ? __ldg(raw + y * g.w + x) : 0.0f;
+    z[y * ld + x] = make_float2(v, 0.0f);
     mx = fmaxf(mx, fabsf(v));
   }
   return mx;
@@ -736,14 +857,15 @@ __device__ void convolve_and_reduce(float2* z, const Geom& g, float local_max,
   g.template lines<true, true>(z);
   PSFMC_STAMP(7);
 
-  // output pixel (y, x) reads ((y + H/2) mod H, (x + W/2) mod W)
-  const float conv_scale = 1.0f / (float)(h * w);
+  // output pixel (y, x) reads ((y + H/2) mod H, (x + W/2) mod W), and on
+  // the padded geometry the fold's terms beside it
+  const float conv_scale = g.inv_size();
   const float mvar_scale = ldexpf(conv_scale, se) / __ldg(k.var_gain);
   double sum = 0.0;
   float amax = 0.0f, cmax = 0.0f;  // RESID: the weights' peaks (NaNs dropped)
 #pragma unroll 4
   for (int p = threadIdx.x; p < h * w; p += kThreads) {
-    const float2 c = z[g.shifted(p)];
+    const float2 c = g.read(z, p);
     const float conv = c.x * conv_scale, mvar = c.y * mvar_scale;
     const float ivm = 1.0f / (mvar + __ldg(d.obs_var + p));
     const float resid = __ldg(d.obs + p) - conv;

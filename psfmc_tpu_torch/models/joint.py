@@ -17,7 +17,9 @@ path, as the JAX package sums each band's ``log_likelihood``:
   (:func:`~psfmc_tpu_torch.ops.kernels.conv_lnl.batched_lnl_supported`):
   the render kernel and the conv_lnl kernel with the band's own
   constants, on the FFT route for a cutout whose sides are even with no
-  prime factor above 7 and on the matmul-DFT route for any other;
+  prime factor above 7, on the padded route for the other cutouts whose
+  transform fits a block (every side up to 81) and on the matmul-DFT
+  route for any other;
 * ``"general"`` elsewhere (several PSFs, a NoiseScale, a sky gradient,
   ``conv_pad``, another likelihood family): the render kernel and plain
   PyTorch.

@@ -9,7 +9,7 @@ map, then reduce the masked Gaussian lnL per walker:
     ivm_b = 1 / (mvar_b + obs_var)
 
 with non-finite results mapped to ``-inf``.  The CUDA source
-(``csrc/conv_lnl.cu``) has two routes, and the shape alone picks one
+(``csrc/conv_lnl.cu``) has three routes, and the shape alone picks one
 before the launch (:func:`conv_route`):
 
 * ``"fft"``, when ``H`` and ``W`` are even with no prime factor above
@@ -21,9 +21,19 @@ before the launch (:func:`conv_route`):
   planned by :func:`fft_plan`).  :func:`packed_fft_conv_plain` is that scheme in
   plain PyTorch and :func:`fft_stages_plain` its butterfly schedule, for
   the tests;
-* ``"dft"``, every other shape (a side with a prime factor above 7, an
-  odd side, a walker too large for a block): each convolution as the twelve real
-  half-spectrum products of
+* ``"padded"``, when a side is odd or has a prime factor above 7 and
+  each such side ``N`` pads to ``M = padded_size(N)`` (the smallest even
+  7-smooth side of at least ``2N - 1``) with the ``M_h x M_w`` transform
+  in a block (74x74 -> 150x150, 45x75 -> 90x150, 64x74 -> 64x150; every
+  side up to 81): the same launch on the FFT route's geometry at ``M``.
+  The image and the kernel (the ``N``-periodic PSF, placed at ``[0, N)``)
+  are zero-padded, so the ``M``-point circular convolution is the linear
+  one, and the readout folds it back, ``y[s] = z[s] + z[s + N]``: exactly
+  the ``N``-point circular convolution.  :func:`padded_fft_conv_plain` is
+  that scheme in plain PyTorch;
+* ``"dft"``, every other shape (a side from 82 up that is off the FFT
+  route, a walker too large for a block, a side of 1): each convolution
+  as the twelve real half-spectrum products of
   :func:`psfmc_tpu_torch.ops.fourier.convolve_rdft`, run as fp32 FMA
   GEMMs of the kernel's own through global scratch (15 launches).
 
@@ -50,7 +60,8 @@ finite gets a zero gradient.  On CUDA the hand-written kernels of
 ``csrc/conv_lnl_backward.cu`` on the route the shape takes, on the CPU
 :func:`batched_conv_lnl_backward_plain`.  On the FFT route the forward
 under autograd is a second instantiation of the forward kernel
-(:func:`batched_conv_lnl_residuals`, counted on the route ``"fft_res"``):
+(:func:`batched_conv_lnl_residuals`, counted on the route ``"fft_res"``,
+``"padded_res"`` on the padded route):
 the same lnL bits, and it also writes ``(a, c)`` per pixel (8 bytes a
 pixel, kept for the backward: 16.4 MB at 125 walkers x 128x128) and
 each walker's scale exponent; the backward loads them and runs one
@@ -59,7 +70,11 @@ conjugate spectra.  The matmul-DFT route's backward recomputes the
 forward through the transposed GEMMs.  :func:`packed_fft_conv_residuals_plain`
 and :func:`packed_fft_conv_backward_from_residuals_plain` are the FFT
 route's scheme in plain PyTorch (:func:`packed_fft_conv_backward_plain`
-the two in turn).
+the two in turn); on the padded route the backward writes each weight
+to the slots its pixel was folded from (the adjoint of the fold), runs
+the same pair at ``M`` and crops ``[0, N)`` (the adjoint of the zero
+pad): :func:`padded_fft_conv_residuals_plain` and
+:func:`padded_fft_conv_backward_from_residuals_plain`.
 """
 from __future__ import annotations
 
@@ -82,6 +97,8 @@ __all__ = [
     "batched_conv_lnl",
     "batched_conv_lnl_plain",
     "conv_route",
+    "padded_size",
+    "padded_shape",
     "fft_smem_bytes",
     "fft_twiddles",
     "fft_plan",
@@ -92,6 +109,9 @@ __all__ = [
     "bit_reversed",
     "digit_reversed",
     "packed_fft_conv_plain",
+    "padded_fft_conv_plain",
+    "padded_fft_conv_residuals_plain",
+    "padded_fft_conv_backward_from_residuals_plain",
     "batched_conv_lnl_residuals",
     "batched_conv_lnl_backward",
     "batched_conv_lnl_backward_plain",
@@ -235,19 +255,52 @@ def fft_smem_bytes(shape):
             + 4 * (_LAYOUT_HEADER + 2 * (h + w)))
 
 
-def conv_route(shape, radices=FFT_RADICES):
-    """``"fft"`` or ``"dft"``: the route of ``csrc/conv_lnl.cu`` (and of
-    its backward) for an ``(H, W)`` image, a pure function of the shape.
-    ``"fft"`` needs both sides to be even with no prime factor outside
-    ``radices`` and the walker's image to fit in one block's shared
-    memory.  The fused kernel (``csrc/fused_lnl.cu``) asks with
-    ``radices=(2,)``: its FFT route takes powers of two only."""
-    h, w = (int(n) for n in shape)
-    if not (_smooth_even(h, radices) and _smooth_even(w, radices)):
-        return "dft"
+def padded_size(n):
+    """The padded route's transform side for an image side ``n >= 2``:
+    the smallest even integer of at least ``2n - 1`` with no prime factor
+    above 7 (74 -> 150, 45 -> 90, 37 -> 80, 31 -> 64).  At that side the
+    circular convolution of the zero-padded image and kernel (each held
+    on ``[0, n)``) wraps nothing around: it is the linear one."""
+    n = int(n)
+    if n < 2:
+        raise ValueError(f"the padded route needs a side of at least 2, got {n}")
+    m = 2 * n
+    while not _smooth_even(m):
+        m += 2
+    return m
+
+
+def padded_shape(shape):
+    """The transform's ``(M_h, M_w)`` on the padded route: a side the FFT
+    route takes keeps its size, any other pads to :func:`padded_size`."""
+    return tuple(n if _smooth_even(n) else padded_size(n)
+                 for n in (int(n) for n in shape))
+
+
+def _fits_a_block(shape):
+    """The FFT route's transform at ``shape`` fits one block's shared
+    memory and its passes fit the layout."""
+    h, w = shape
     fits = fft_smem_bytes((h, w)) + _FFT_STATIC_SMEM <= BLOCK_SMEM_LIMIT
-    passes = max(len(fft_plan(h)), len(fft_plan(w)))
-    return "fft" if fits and passes <= _MAX_PASSES else "dft"
+    return fits and max(len(fft_plan(h)), len(fft_plan(w))) <= _MAX_PASSES
+
+
+def conv_route(shape, radices=FFT_RADICES):
+    """``"fft"``, ``"padded"`` or ``"dft"``: the route of
+    ``csrc/conv_lnl.cu`` (and of its backward) for an ``(H, W)`` image, a
+    pure function of the shape.  ``"fft"`` needs both sides to be even
+    with no prime factor outside ``radices`` and the walker's image to
+    fit in one block's shared memory; ``"padded"`` takes the other shapes
+    whose :func:`padded_shape` fits a block (every side from 2 to 81);
+    ``"dft"`` the rest.  The fused kernel (``csrc/fused_lnl.cu``) asks
+    with ``radices=(2,)``: its FFT route takes powers of two only, and it
+    has no padded route, so it never hears ``"padded"``."""
+    h, w = (int(n) for n in shape)
+    if _smooth_even(h, radices) and _smooth_even(w, radices):
+        return "fft" if _fits_a_block((h, w)) else "dft"
+    if tuple(radices) != FFT_RADICES or min(h, w) < 2:
+        return "dft"
+    return "padded" if _fits_a_block(padded_shape((h, w))) else "dft"
 
 
 def fft_twiddles(n, dtype=np.float32):
@@ -317,6 +370,14 @@ class ConvLnlConsts:
     (:func:`var_spectrum_gain`).  The backward kernels also read the
     conjugate spectra's imaginary planes (``psf_ic = -psf_i``, ``var_ic =
     -var_i``) and the transposed operators (``*_t``).
+
+    The padded route's (``pad_*``, empty unless :func:`conv_route` answers
+    ``"padded"``): the PSF and PSF-variance kernels' half spectra at the
+    transform's :func:`padded_shape` ``(M_h, M_w/2+1)`` (real, imaginary
+    and the backward's conjugate imaginary planes; ``_padded_spectrum``),
+    and the FFT route's twiddle table and layout at ``(M_h, M_w)``.  The
+    variance gain is the ``N``-point spectra's: the zero-frequency bin is
+    the kernel's sum at either size.
     """
 
     cw: torch.Tensor
@@ -350,6 +411,15 @@ class ConvLnlConsts:
     lf_t: torch.Tensor
     cw_t: torch.Tensor
     sw_t: torch.Tensor
+    # the padded route's, (M_h, M_w/2+1) each, or (0, 0)
+    pad_psf_r: torch.Tensor
+    pad_psf_i: torch.Tensor
+    pad_var_r: torch.Tensor
+    pad_var_i: torch.Tensor
+    pad_psf_ic: torch.Tensor
+    pad_var_ic: torch.Tensor
+    pad_twiddle: torch.Tensor  # fft_tables(padded_shape)[0], or (0, 2)
+    pad_layout: torch.Tensor  # int32: fft_tables(padded_shape)[1], or (0,)
 
     @property
     def mats(self):
@@ -359,6 +429,22 @@ class ConvLnlConsts:
     @property
     def shape(self):
         return tuple(self.obs.shape)
+
+    @property
+    def padded_shape(self):
+        """The padded route's transform sides (:func:`padded_shape`)."""
+        return padded_shape(self.shape)
+
+
+def _padded_spectrum(f_half, shape, padded):
+    """The half spectrum ``(M_h, M_w//2+1)`` of the kernel whose
+    ``N``-point half spectrum is ``f_half``, placed at ``[0, N)`` of a
+    zero ``(M_h, M_w)`` image (host numpy, float64): ``irfft2`` at
+    ``shape``, the pad, ``rfft2``."""
+    kernel = np.fft.irfft2(np.asarray(f_half, np.complex128), s=tuple(shape))
+    out = np.zeros(tuple(padded))
+    out[:shape[0], :shape[1]] = kernel
+    return np.fft.rfft2(out)
 
 
 def make_conv_lnl_consts(f_psf, f_var, obs, obs_var, good, device,
@@ -378,10 +464,22 @@ def make_conv_lnl_consts(f_psf, f_var, obs, obs_var, good, device,
     f_psf = np.asarray(f_psf)
     f_var = np.asarray(f_var)
     good = np.asarray(good, bool)
-    if all(_power_of_two(n) for n in shape) or conv_route(shape) == "fft":
+    route = conv_route(shape)
+    empty = np.zeros((0, 2), np_dtype), np.zeros(0, np.int32)
+    if all(_power_of_two(n) for n in shape) or route == "fft":
         twiddle, layout = fft_tables(shape, np_dtype)
     else:
-        twiddle, layout = np.zeros((0, 2), np_dtype), np.zeros(0, np.int32)
+        twiddle, layout = empty
+    pad = dict.fromkeys(("pad_psf_r", "pad_psf_i", "pad_var_r", "pad_var_i",
+                         "pad_psf_ic", "pad_var_ic"), np.zeros((0, 0)))
+    pad_twiddle, pad_layout = empty
+    if route == "padded":
+        padded = padded_shape(shape)
+        p_psf = _padded_spectrum(f_psf, shape, padded)
+        p_var = _padded_spectrum(f_var, shape, padded)
+        pad = dict(pad_psf_r=p_psf.real, pad_psf_i=p_psf.imag, pad_var_r=p_var.real,
+                   pad_var_i=p_var.imag, pad_psf_ic=-p_psf.imag, pad_var_ic=-p_var.imag)
+        pad_twiddle, pad_layout = fft_tables(padded, np_dtype)
     arrays = dict(
         cw=cw, sw=sw, ch=ch, sh=sh, ich=ich, ish=ish, ica=ica, isa=isa,
         psf_r=f_psf.real, psf_i=f_psf.imag,
@@ -390,7 +488,7 @@ def make_conv_lnl_consts(f_psf, f_var, obs, obs_var, good, device,
         good_f=good.astype(np_dtype), twiddle=twiddle,
         var_gain=np.array([var_spectrum_gain(f_psf, f_var)]),
         psf_ic=-f_psf.imag, var_ic=-f_var.imag, ica_t=ica.T, isa_t=isa.T,
-        li_t=li.T, lf_t=lf.T, cw_t=cw.T, sw_t=sw.T,
+        li_t=li.T, lf_t=lf.T, cw_t=cw.T, sw_t=sw.T, pad_twiddle=pad_twiddle, **pad,
     )
     tensors = {
         k: torch.as_tensor(np.ascontiguousarray(v, np_dtype), device=device)
@@ -398,6 +496,7 @@ def make_conv_lnl_consts(f_psf, f_var, obs, obs_var, good, device,
     }
     tensors["good"] = torch.as_tensor(good, device=device)
     tensors["fft_layout"] = torch.as_tensor(layout, device=device)
+    tensors["pad_layout"] = torch.as_tensor(pad_layout, device=device)
     return ConvLnlConsts(**tensors)
 
 
@@ -565,6 +664,78 @@ def _full_spectrum(k_r, k_i, w):
     return torch.cat([half, rest], dim=-1)
 
 
+def _fold(y, shape):
+    """The padded route's readout of a ``(..., M_h, M_w)`` linear
+    convolution: along each padded axis of image side ``N``, slot ``s``
+    sums ``z[s] + z[s + N]`` for ``s <= N - 2`` and keeps ``z[N - 1]``
+    (the ``N``-point circular convolution), ``W`` first and then ``H``,
+    so that four terms sum as ``(z00 + z01) + (z10 + z11)``, the kernel's
+    order; then the ifftshift as a shifted readout (output pixel ``n``
+    reads slot ``(n + N//2) mod N``).  An axis that is not padded is only
+    shifted."""
+    h, w = shape
+    for axis, n in ((-1, w), (-2, h)):
+        if y.shape[axis] != n:
+            head = y.narrow(axis, 0, n)
+            tail = torch.cat([y.narrow(axis, n, n - 1),
+                              torch.zeros_like(head.narrow(axis, 0, 1))], dim=axis)
+            y = head + tail
+    return torch.roll(y, shifts=(-(h // 2), -(w // 2)), dims=(-2, -1))
+
+
+def _unfold(x, shape, padded):
+    """The adjoint of :func:`_fold`: the shift undone, then along each
+    padded axis each slot ``s`` also at ``s + N`` where ``s <= N - 2``, and
+    zeros up to ``M``."""
+    h, w = shape
+    z = torch.roll(x, shifts=(h // 2, w // 2), dims=(-2, -1))
+    for axis, n, m in ((-2, h, padded[0]), (-1, w, padded[1])):
+        if m != n:
+            zeros = list(z.shape)
+            zeros[axis] = m - (2 * n - 1)
+            z = torch.cat([z, z.narrow(axis, 0, n - 1), z.new_zeros(zeros)], dim=axis)
+    return z
+
+
+def _pad(x, padded):
+    """``(..., N_h, N_w)`` into the corner of zeros ``(..., M_h, M_w)``."""
+    h, w = x.shape[-2:]
+    return torch.nn.functional.pad(x, (0, padded[1] - w, 0, padded[0] - h))
+
+
+def _crop(y, shape):
+    """The adjoint of :func:`_pad`: ``[0, N_h) x [0, N_w)``."""
+    return y[..., :shape[0], :shape[1]]
+
+
+def _square_scale(images):
+    """``(s, 1 / s)`` per image: the power of two ``2^-e`` of the squared
+    image's scale, ``e = floor(log2 max|image|)`` within ``+-96`` (0 where
+    the max is 0 or not finite), shaped to broadcast over ``(H, W)``."""
+    exponent, _ = _peak_exponent(images)
+    exponent = exponent.clamp(-_MAX_SCALE_EXP, _MAX_SCALE_EXP)
+    one = torch.ones_like(images[..., 0, 0])
+    return (torch.ldexp(one, -exponent)[..., None, None],
+            torch.ldexp(one, exponent)[..., None, None])
+
+
+def _packed_pair(raws, c, spectra, padded):
+    """``(conv, mvar)`` by the packed pair at the transform's ``padded``
+    sides (the image's own on the FFT route) with the half spectra
+    ``spectra = (psf_r, psf_i, var_r, var_i)`` at those sides."""
+    psf_r, psf_i, var_r, var_i = spectra
+    s, inv_s = _square_scale(raws)
+    x = _pad(raws, padded)
+    z = torch.fft.fft2(torch.complex(x, (x * x) * s))
+    zm = _mirrored(z).conj()
+    a = 0.5 * (z + zm)
+    b = -0.5j * (z - zm)
+    y = a * _full_spectrum(psf_r, psf_i, padded[1]) \
+        + 1j * b * (_full_spectrum(var_r, var_i, padded[1]) * c.var_gain)
+    y = _fold(torch.fft.ifft2(y), c.shape)
+    return y.real, y.imag * (inv_s / c.var_gain)
+
+
 def packed_fft_conv_plain(raws, consts: ConvLnlConsts):
     """``(conv, mvar)`` of ``(B, H, W)`` raw images by the FFT route's
     scheme, in plain PyTorch.
@@ -580,21 +751,20 @@ def packed_fft_conv_plain(raws, consts: ConvLnlConsts):
     ``raw * raw`` is formed before the scale is applied.
     """
     c = consts
-    h, w = c.shape
-    exponent, _ = _peak_exponent(raws)
-    exponent = exponent.clamp(-_MAX_SCALE_EXP, _MAX_SCALE_EXP)
-    one = torch.ones_like(raws[..., 0, 0])
-    s = torch.ldexp(one, -exponent)[..., None, None]
-    inv_s = torch.ldexp(one, exponent)[..., None, None]
-    z = torch.fft.fft2(torch.complex(raws, (raws * raws) * s))
-    zm = _mirrored(z).conj()
-    a = 0.5 * (z + zm)
-    b = -0.5j * (z - zm)
-    y = a * _full_spectrum(c.psf_r, c.psf_i, w) \
-        + 1j * b * (_full_spectrum(c.var_r, c.var_i, w) * c.var_gain)
-    y = torch.roll(torch.fft.ifft2(y), shifts=(-(h // 2), -(w // 2)),
-                   dims=(-2, -1))
-    return y.real, y.imag * (inv_s / c.var_gain)
+    return _packed_pair(raws, c, (c.psf_r, c.psf_i, c.var_r, c.var_i), c.shape)
+
+
+def padded_fft_conv_plain(raws, consts: ConvLnlConsts):
+    """``(conv, mvar)`` of ``(B, H, W)`` raw images by the padded route's
+    scheme, in plain PyTorch: :func:`packed_fft_conv_plain`'s pack and
+    pair on the image zero-padded to :func:`padded_shape` ``(M_h, M_w)``
+    with the padded kernels' spectra (``consts.pad_*``), which gives the
+    linear convolution; the readout folds it back to the ``N``-point
+    circular one (``y[s] = z[s] + z[s + N]`` along each padded axis) and
+    shifts.  The inverse's normalisation is ``1 / (M_h M_w)``."""
+    c = consts
+    return _packed_pair(raws, c, (c.pad_psf_r, c.pad_psf_i, c.pad_var_r, c.pad_var_i),
+                        c.padded_shape)
 
 
 # conv_lnl_launch(raws, batch, h, w, <these constants>, t1, t2, conv,
@@ -606,6 +776,26 @@ FFT_CONST_ARGS = ("twiddle", "var_gain", "psf_r", "psf_i", "var_r", "var_i",
                   "obs", "obs_var", "good_f")
 # conv_lnl_fft_launch(raws, batch, h, w, <these constants>, out, stream)
 CONV_FFT_CONST_ARGS = ("twiddle", "fft_layout") + FFT_CONST_ARGS[1:]
+# conv_lnl_padded_launch(raws, batch, h, w, mh, mw, <these constants>, out,
+# stream): the FFT route's constants at the transform's sides
+PADDED_CONST_ARGS = ("pad_twiddle", "pad_layout", "var_gain", "pad_psf_r",
+                     "pad_psf_i", "pad_var_r", "pad_var_i", "obs", "obs_var",
+                     "good_f")
+# the routes that hold a walker in one block: the C symbols of the forward
+# and of its residual instantiation, and the constants they take (the
+# residual instantiation's outputs are out, weights, scale_exp)
+_BLOCK_ROUTES = {
+    "fft": (("conv_lnl_fft_launch", "conv_lnl_fft_residuals_launch"),
+            CONV_FFT_CONST_ARGS),
+    "padded": (("conv_lnl_padded_launch", "conv_lnl_padded_residuals_launch"),
+               PADDED_CONST_ARGS),
+}
+
+
+def _sides(route, shape):
+    """The int arguments after the batch: ``h, w``, and on the padded
+    route the transform's ``mh, mw`` too."""
+    return tuple(shape) + (padded_shape(shape) if route == "padded" else ())
 
 
 @functools.lru_cache(maxsize=1)
@@ -617,35 +807,26 @@ def _dft_kernel():
     )
 
 
-@functools.lru_cache(maxsize=1)
-def _fft_kernel():
+@functools.lru_cache(maxsize=None)
+def _block_kernel(route, residuals):
+    (symbols, names) = _BLOCK_ROUTES[route]
+    ints = 1 + (4 if route == "padded" else 2)
     return _build.function(
-        "conv_lnl", "conv_lnl_fft_launch",
-        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
-        + [ctypes.c_void_p] * (len(CONV_FFT_CONST_ARGS) + 2),
-    )
-
-
-@functools.lru_cache(maxsize=1)
-def _fft_residuals_kernel():
-    # conv_lnl_fft_residuals_launch(raws, batch, h, w, <CONV_FFT_CONST_ARGS>,
-    # out, weights, scale_exp, stream)
-    return _build.function(
-        "conv_lnl", "conv_lnl_fft_residuals_launch",
-        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
-        + [ctypes.c_void_p] * (len(CONV_FFT_CONST_ARGS) + 4),
+        "conv_lnl", symbols[residuals],
+        [ctypes.c_void_p] + [ctypes.c_int] * ints
+        + [ctypes.c_void_p] * (len(names) + (4 if residuals else 2)),
     )
 
 
 def check_launch_consts(consts: ConvLnlConsts, device):
     """Raise unless every constant is a contiguous float32 tensor on
-    ``device`` (the mask ``good`` only needs the device, the layout is
+    ``device`` (the mask ``good`` only needs the device, the layouts are
     contiguous int32), as the CUDA kernels take them."""
     for f in fields(consts):
         t = getattr(consts, f.name)
         if t.device != device:
             raise ValueError(f"consts.{f.name} is on {t.device}, inputs on {device}")
-        want = torch.int32 if f.name == "fft_layout" else torch.float32
+        want = torch.int32 if f.name in ("fft_layout", "pad_layout") else torch.float32
         if f.name != "good" and (t.dtype != want or not t.is_contiguous()):
             raise ValueError(f"consts.{f.name} must be contiguous {want}")
 
@@ -670,21 +851,30 @@ def _launch_dft(raws, consts: ConvLnlConsts):
     return out
 
 
-def _launch_fft(raws, consts: ConvLnlConsts):
-    """The FFT route: one launch, no allocation but the output (radix-2
-    stages for powers of two, mixed radix otherwise: the launch picks)."""
+def _launch_block(raws, consts: ConvLnlConsts, route, residuals=False):
+    """The FFT or the padded route: one launch, no allocation but the
+    outputs (radix-2 stages for powers of two, mixed radix otherwise: the
+    launch picks).  With ``residuals`` the residual instantiation, which
+    also returns the weights and the scale exponents."""
     b, h, w = raws.shape
-    out = torch.empty((b,), dtype=torch.float32, device=raws.device)
-    tensors = [getattr(consts, n) for n in CONV_FFT_CONST_ARGS] + [out]
-    with torch.cuda.device(raws.device):
+    dev = raws.device
+    outs = [torch.empty((b,), dtype=torch.float32, device=dev)]
+    if residuals:
+        outs += [torch.empty((b, h, w, 2), dtype=torch.float32, device=dev),
+                 torch.empty((b,), dtype=torch.int32, device=dev)]
+    tensors = [getattr(consts, n) for n in _BLOCK_ROUTES[route][1]] + outs
+    sides = _sides(route, (h, w))
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _fft_kernel()(raws.data_ptr(), b, h, w,
-                            *(t.data_ptr() for t in tensors), stream)
+        err = _block_kernel(route, residuals)(raws.data_ptr(), b, *sides,
+                                              *(t.data_ptr() for t in tensors), stream)
     if err != 0:
+        transform = sides[2:] or sides
         raise RuntimeError(
-            f"conv_lnl (FFT route) launch failed: cudaError {err} ({h}x{w} "
-            f"walker, {fft_smem_bytes((h, w))} bytes of shared memory)")
-    return out
+            f"conv_lnl ({route} route{', residuals' if residuals else ''}) launch "
+            f"failed: cudaError {err} ({h}x{w} walker, {fft_smem_bytes(transform)} "
+            f"bytes of shared memory)")
+    return tuple(outs) if residuals else outs[0]
 
 
 def _launch(raws, consts: ConvLnlConsts, route):
@@ -692,8 +882,8 @@ def _launch(raws, consts: ConvLnlConsts, route):
         raise TypeError(f"the CUDA conv_lnl takes float32, got {raws.dtype}")
     check_launch_consts(consts, raws.device)
     raws = raws.contiguous()
-    if route == "fft":
-        return _launch_fft(raws, consts)
+    if route in _BLOCK_ROUTES:
+        return _launch_block(raws, consts, route)
     return _launch_dft(raws, consts)
 
 
@@ -721,69 +911,56 @@ def _forward(raws, consts):
 
 
 batched_conv_lnl.launches = 0
-batched_conv_lnl.route_launches = {"fft": 0, "dft": 0, "fft_res": 0}
+batched_conv_lnl.route_launches = {"fft": 0, "dft": 0, "fft_res": 0, "padded": 0,
+                                   "padded_res": 0}
 batched_conv_lnl.shape_launches = {}
-
-
-def _launch_fft_residuals(raws, consts: ConvLnlConsts):
-    b, h, w = raws.shape
-    dev = raws.device
-    out = torch.empty((b,), dtype=torch.float32, device=dev)
-    weights = torch.empty((b, h, w, 2), dtype=torch.float32, device=dev)
-    scale_exp = torch.empty((b,), dtype=torch.int32, device=dev)
-    tensors = [getattr(consts, n) for n in CONV_FFT_CONST_ARGS] + [out, weights,
-                                                                   scale_exp]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _fft_residuals_kernel()(raws.data_ptr(), b, h, w,
-                                      *(t.data_ptr() for t in tensors), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"conv_lnl (FFT route, residuals) launch failed: cudaError {err} "
-            f"({h}x{w} walker)")
-    return out, weights, scale_exp
 
 
 def batched_conv_lnl_residuals(raws, consts: ConvLnlConsts):
     """``(lnl (B,), weights (B, H, W, 2), scale_exp (B,) int32)``: the lnL
     of :func:`batched_conv_lnl` with what its backward reads on the FFT
-    route, the weights ``(a, c)`` of every pixel (``a = good r ivm``,
-    ``c = good ((r ivm)^2 - ivm) / 2``) and each walker's scale exponent
-    (:func:`packed_fft_conv_residuals_plain`).  On CUDA the FFT route's
-    residual instantiation of the forward kernel (the same lnL bits as
-    :func:`batched_conv_lnl`'s launch; counted in
-    ``batched_conv_lnl.launches`` on the route ``"fft_res"`` and by
-    shape), on the CPU :func:`packed_fft_conv_residuals_plain`.  A shape
-    off the FFT route raises ``ValueError``."""
+    and the padded route, the weights ``(a, c)`` of every pixel (``a =
+    good r ivm``, ``c = good ((r ivm)^2 - ivm) / 2``) and each walker's
+    scale exponent (:func:`packed_fft_conv_residuals_plain`).  On CUDA the
+    route's residual instantiation of the forward kernel (the same lnL
+    bits as :func:`batched_conv_lnl`'s launch; counted in
+    ``batched_conv_lnl.launches`` on the route ``"fft_res"`` or
+    ``"padded_res"`` and by shape), on the CPU
+    :func:`packed_fft_conv_residuals_plain` or
+    :func:`padded_fft_conv_residuals_plain`.  A shape on the matmul-DFT
+    route raises ``ValueError``."""
     if raws.ndim != 3 or tuple(raws.shape[1:]) != consts.shape:
         raise ValueError(
             f"raws must be (B, {consts.shape[0]}, {consts.shape[1]}), "
             f"got {tuple(raws.shape)}")
-    if conv_route(consts.shape) != "fft":
-        raise ValueError(f"{consts.shape} is off the FFT route: its backward "
-                         "recomputes the forward and reads no residuals")
+    route = conv_route(consts.shape)
+    if route not in _BLOCK_ROUTES:
+        raise ValueError(f"{consts.shape} is off the FFT and padded routes: its "
+                         "backward recomputes the forward and reads no residuals")
     if raws.device.type == "cpu":
-        return packed_fft_conv_residuals_plain(raws, consts)
+        plain = (padded_fft_conv_residuals_plain if route == "padded"
+                 else packed_fft_conv_residuals_plain)
+        return plain(raws, consts)
     if raws.device.type != "cuda":
         raise ValueError(f"unsupported device {raws.device}")
     if raws.dtype != torch.float32:
         raise TypeError(f"the CUDA conv_lnl takes float32, got {raws.dtype}")
     check_launch_consts(consts, raws.device)
-    out = _launch_fft_residuals(raws.contiguous(), consts)
-    counts.count(batched_conv_lnl, "fft_res", consts.shape)
+    out = _launch_block(raws.contiguous(), consts, route, residuals=True)
+    counts.count(batched_conv_lnl, route + "_res", consts.shape)
     return out
 
 
 class _ConvLnl(torch.autograd.Function):
     """conv_lnl with its vector-Jacobian product: the forward is the
-    wrapper's own launch (on CUDA and the FFT route, the residual
-    instantiation, whose weights and scale exponents it keeps for the
-    backward), the backward :func:`batched_conv_lnl_backward`."""
+    wrapper's own launch (on CUDA and the FFT or the padded route, the
+    residual instantiation, whose weights and scale exponents it keeps for
+    the backward), the backward :func:`batched_conv_lnl_backward`."""
 
     @staticmethod
     def forward(ctx, raws, consts):
         ctx.consts = consts
-        if raws.device.type == "cuda" and conv_route(consts.shape) == "fft":
+        if raws.device.type == "cuda" and conv_route(consts.shape) in _BLOCK_ROUTES:
             lnl, weights, scale_exp = batched_conv_lnl_residuals(raws, consts)
             ctx.save_for_backward(raws, lnl, weights, scale_exp)
         else:
@@ -855,6 +1032,22 @@ def _peak_exponent(images):
     return exponent, usable
 
 
+def _residuals(conv, mvar, c):
+    """``(lnl, weights, scale_exp)`` of :func:`packed_fft_conv_residuals_plain`
+    from ``(conv, mvar)``."""
+    ivm = 1.0 / (mvar + c.obs_var)
+    lnl = gaussian_lnlike(c.obs - conv, ivm, c.good)
+    ri = (c.obs - conv) * ivm
+    zero = torch.zeros_like(ri)
+    a = torch.where(c.good, ri, zero)
+    cc = torch.where(c.good, 0.5 * (ri * ri - ivm), zero)
+    ea, oka = _peak_exponent(a)
+    ec, okc = _peak_exponent(cc)
+    exponent = torch.where(oka & okc, ea - ec, torch.zeros_like(ea))
+    exponent = exponent.clamp(-_MAX_SCALE_EXP, _MAX_SCALE_EXP).to(torch.int32)
+    return lnl, torch.stack([a, cc], dim=-1), exponent
+
+
 def packed_fft_conv_residuals_plain(raws, consts: ConvLnlConsts):
     """The FFT route's forward with residuals in plain PyTorch: ``(lnl,
     weights, scale_exp)`` of :func:`batched_conv_lnl_residuals`.
@@ -867,19 +1060,35 @@ def packed_fft_conv_residuals_plain(raws, consts: ConvLnlConsts):
     finite; within ``+-96``): the power of two that gives the backward's
     packed image ``a + i 2^(e_a - e_c) c`` one scale.
     """
-    c = consts
-    conv, mvar = packed_fft_conv_plain(raws, c)
-    ivm = 1.0 / (mvar + c.obs_var)
-    lnl = gaussian_lnlike(c.obs - conv, ivm, c.good)
-    ri = (c.obs - conv) * ivm
-    zero = torch.zeros_like(ri)
-    a = torch.where(c.good, ri, zero)
-    cc = torch.where(c.good, 0.5 * (ri * ri - ivm), zero)
-    ea, oka = _peak_exponent(a)
-    ec, okc = _peak_exponent(cc)
-    exponent = torch.where(oka & okc, ea - ec, torch.zeros_like(ea))
-    exponent = exponent.clamp(-_MAX_SCALE_EXP, _MAX_SCALE_EXP).to(torch.int32)
-    return lnl, torch.stack([a, cc], dim=-1), exponent
+    return _residuals(*packed_fft_conv_plain(raws, consts), consts)
+
+
+def padded_fft_conv_residuals_plain(raws, consts: ConvLnlConsts):
+    """The padded route's forward with residuals in plain PyTorch: as
+    :func:`packed_fft_conv_residuals_plain`, from
+    :func:`padded_fft_conv_plain`'s ``(conv, mvar)``."""
+    return _residuals(*padded_fft_conv_plain(raws, consts), consts)
+
+
+def _backward_pair(raws, c, lnl, grad, weights, scale_exp, spectra, padded):
+    """The backward from residuals at the transform's ``padded`` sides
+    with the half spectra ``spectra`` there: the weights packed, unfolded
+    (:func:`_unfold`; on the FFT route only the shift undone), the pair
+    with the conjugate spectra, the crop, the combine."""
+    psf_r, psf_i, var_r, var_i = spectra
+    exponent = scale_exp.to(torch.int64)
+    one = torch.ones_like(lnl)
+    s = torch.ldexp(one, exponent)[:, None, None]
+    inv_s = torch.ldexp(one, -exponent)[:, None, None]
+    z = _unfold(torch.complex(weights[..., 0], weights[..., 1] * s), c.shape, padded)
+    z = torch.fft.fft2(z)
+    zm = _mirrored(z).conj()
+    za = 0.5 * (z + zm)
+    zb = -0.5j * (z - zm)
+    y = za * _full_spectrum(psf_r, psf_i, padded[1]).conj() \
+        + 1j * zb * (_full_spectrum(var_r, var_i, padded[1]).conj() * c.var_gain)
+    y = _crop(torch.fft.ifft2(y), c.shape)
+    return _combine(raws, y.real, y.imag * (inv_s / c.var_gain), lnl, grad)
 
 
 def packed_fft_conv_backward_from_residuals_plain(raws, consts: ConvLnlConsts,
@@ -895,21 +1104,22 @@ def packed_fft_conv_backward_from_residuals_plain(raws, consts: ConvLnlConsts,
     var)]``, 0 for a walker whose ``lnl`` is not finite.
     """
     c = consts
-    h, w = c.shape
-    exponent = scale_exp.to(torch.int64)
-    one = torch.ones_like(lnl)
-    s = torch.ldexp(one, exponent)[:, None, None]
-    inv_s = torch.ldexp(one, -exponent)[:, None, None]
-    z = torch.roll(torch.complex(weights[..., 0], weights[..., 1] * s),
-                   shifts=(h // 2, w // 2), dims=(-2, -1))
-    z = torch.fft.fft2(z)
-    zm = _mirrored(z).conj()
-    za = 0.5 * (z + zm)
-    zb = -0.5j * (z - zm)
-    y = za * _full_spectrum(c.psf_r, c.psf_i, w).conj() \
-        + 1j * zb * (_full_spectrum(c.var_r, c.var_i, w).conj() * c.var_gain)
-    y = torch.fft.ifft2(y)
-    return _combine(raws, y.real, y.imag * (inv_s / c.var_gain), lnl, grad)
+    return _backward_pair(raws, c, lnl, grad, weights, scale_exp,
+                          (c.psf_r, c.psf_i, c.var_r, c.var_i), c.shape)
+
+
+def padded_fft_conv_backward_from_residuals_plain(raws, consts: ConvLnlConsts,
+                                                  lnl, grad, weights, scale_exp):
+    """The padded route's backward from the forward's residuals in plain
+    PyTorch: as :func:`packed_fft_conv_backward_from_residuals_plain`,
+    with each packed weight also at the slot ``s + N`` that the forward's
+    fold read (the adjoint of the fold) and zeros up to ``M``, the pair at
+    :func:`padded_shape` with the padded kernels' conjugate spectra, and
+    the ``[0, N)`` crop (the adjoint of the zero pad)."""
+    c = consts
+    return _backward_pair(raws, c, lnl, grad, weights, scale_exp,
+                          (c.pad_psf_r, c.pad_psf_i, c.pad_var_r, c.pad_var_i),
+                          c.padded_shape)
 
 
 def packed_fft_conv_backward_plain(raws, consts: ConvLnlConsts, lnl, grad):
@@ -922,11 +1132,14 @@ def packed_fft_conv_backward_plain(raws, consts: ConvLnlConsts, lnl, grad):
                                                          weights, scale_exp)
 
 
-@functools.lru_cache(maxsize=1)
-def _fft_backward_kernel():
+@functools.lru_cache(maxsize=None)
+def _block_backward_kernel(route):
+    symbol = {"fft": "conv_lnl_fft_backward_launch",
+              "padded": "conv_lnl_padded_backward_launch"}[route]
+    ints = 1 + (4 if route == "padded" else 2)
     return _build.function(
-        "conv_lnl_backward", "conv_lnl_fft_backward_launch",
-        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        "conv_lnl_backward", symbol,
+        [ctypes.c_void_p] + [ctypes.c_int] * ints
         + [ctypes.c_void_p] * (len(FFT_BACKWARD_CONST_ARGS) + 6),
     )
 
@@ -944,6 +1157,11 @@ def _dft_backward_kernel():
 # scale_exp, lnl, grad, out, stream): the conjugate spectra
 FFT_BACKWARD_CONST_ARGS = ("twiddle", "fft_layout", "var_gain", "psf_r",
                            "psf_ic", "var_r", "var_ic")
+# conv_lnl_padded_backward_launch(raws, batch, h, w, mh, mw, <these>,
+# weights, scale_exp, lnl, grad, out, stream): the same at the transform's
+# sides
+PADDED_BACKWARD_CONST_ARGS = ("pad_twiddle", "pad_layout", "var_gain", "pad_psf_r",
+                              "pad_psf_ic", "pad_var_r", "pad_var_ic")
 # conv_lnl_dft_backward_launch(raws, batch, h, w, <these>, lnl, grad, t1,
 # t2, conv, mvar, ga, gc, out, stream): the forward's operators, the
 # adjoint's (the transposes, in the order the adjoint applies them)
@@ -954,10 +1172,10 @@ DFT_BACKWARD_CONST_ARGS = ("cw", "sw", "lf", "li", "ica", "isa", "ica_t",
 
 
 def _launch_backward(raws, consts: ConvLnlConsts, lnl, grad, route, residuals=None):
-    """The backward kernel on ``route``: on the FFT route from the
-    forward's ``residuals`` ``(weights, scale_exp)``, on the matmul-DFT
-    route recomputing the forward (``chip_smoke.py`` also times that route
-    on the FFT route's inputs)."""
+    """The backward kernel on ``route``: on the FFT and the padded route
+    from the forward's ``residuals`` ``(weights, scale_exp)``, on the
+    matmul-DFT route recomputing the forward (``chip_smoke.py`` also times
+    that route on the other routes' inputs)."""
     if raws.dtype != torch.float32 or grad.dtype != torch.float32:
         raise TypeError("the CUDA conv_lnl backward takes float32")
     check_launch_consts(consts, raws.device)
@@ -965,14 +1183,17 @@ def _launch_backward(raws, consts: ConvLnlConsts, lnl, grad, route, residuals=No
     b, h, w = raws.shape
     dev = raws.device
     out = torch.empty_like(raws)
-    if route == "fft":
+    sides = (h, w)
+    if route in _BLOCK_ROUTES:
         weights, scale_exp = residuals
         if weights.shape != (b, h, w, 2) or weights.dtype != torch.float32 \
                 or scale_exp.shape != (b,) or scale_exp.dtype != torch.int32 \
                 or weights.device != dev or scale_exp.device != dev:
             raise ValueError("residuals must be (B, H, W, 2) float32 weights and "
                              "(B,) int32 scale exponents on the raws' device")
-        fn, names = _fft_backward_kernel(), FFT_BACKWARD_CONST_ARGS
+        fn = _block_backward_kernel(route)
+        names = PADDED_BACKWARD_CONST_ARGS if route == "padded" else FFT_BACKWARD_CONST_ARGS
+        sides = _sides(route, (h, w))
         scratch = [weights.contiguous(), scale_exp.contiguous()]
         tensors = [getattr(consts, n) for n in names] + scratch + [lnl, grad, out]
     else:
@@ -983,7 +1204,7 @@ def _launch_backward(raws, consts: ConvLnlConsts, lnl, grad, route, residuals=No
         tensors = [getattr(consts, n) for n in names] + [lnl, grad] + scratch + [out]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(raws.data_ptr(), b, h, w, *(t.data_ptr() for t in tensors), stream)
+        err = fn(raws.data_ptr(), b, *sides, *(t.data_ptr() for t in tensors), stream)
     if err != 0:
         raise RuntimeError(
             f"conv_lnl backward ({route} route) launch failed: cudaError {err}")
@@ -995,9 +1216,9 @@ def batched_conv_lnl_backward(raws, consts: ConvLnlConsts, lnl, grad, residuals=
     (whose lnL was ``lnl``) for the output gradient ``grad (B,)``.  On
     CUDA the backward kernel of the route :func:`conv_route` picks
     (counted in ``batched_conv_lnl_backward.launches``,
-    ``.route_launches`` and ``.shape_launches``); the FFT route's reads
-    ``residuals``, the ``(weights, scale_exp)`` of
-    :func:`batched_conv_lnl_residuals` at the same ``raws``, and raises
+    ``.route_launches`` and ``.shape_launches``); the FFT and the padded
+    route's read ``residuals``, the ``(weights, scale_exp)`` of
+    :func:`batched_conv_lnl_residuals` at the same ``raws``, and raise
     ``ValueError`` without them.  On the CPU
     :func:`batched_conv_lnl_backward_plain` (``residuals`` unused)."""
     if raws.device.type == "cpu":
@@ -1005,14 +1226,14 @@ def batched_conv_lnl_backward(raws, consts: ConvLnlConsts, lnl, grad, residuals=
     if raws.device.type != "cuda":
         raise ValueError(f"unsupported device {raws.device}")
     route = conv_route(consts.shape)
-    if route == "fft" and residuals is None:
-        raise ValueError("the FFT route's backward reads the forward's residuals "
-                         "(batched_conv_lnl_residuals)")
+    if route in _BLOCK_ROUTES and residuals is None:
+        raise ValueError(f"the {route} route's backward reads the forward's "
+                         "residuals (batched_conv_lnl_residuals)")
     out = _launch_backward(raws, consts, lnl, grad, route, residuals)
     counts.count(batched_conv_lnl_backward, route, consts.shape)
     return out
 
 
 batched_conv_lnl_backward.launches = 0
-batched_conv_lnl_backward.route_launches = {"fft": 0, "dft": 0}
+batched_conv_lnl_backward.route_launches = {"fft": 0, "dft": 0, "padded": 0}
 batched_conv_lnl_backward.shape_launches = {}

@@ -8,7 +8,9 @@ of record.  ``csrc/conv_lnl_backward.cu`` reads the weights and scale
 exponents that the forward's residual instantiation wrote;
 ``packed_fft_conv_residuals_plain`` and
 ``packed_fft_conv_backward_from_residuals_plain`` are that scheme, held
-against ``batched_conv_lnl_backward_plain``.  The kernels themselves run
+against ``batched_conv_lnl_backward_plain`` (``padded_fft_conv_*`` on the
+padded route: the same pair at the zero-padded transform, the fold's
+adjoint and the crop).  The kernels themselves run
 only on the card (``tests/test_torch_cuda.py``).
 """
 import numpy as np
@@ -176,10 +178,52 @@ def test_residual_weights_and_exponent(fft_posts):
     assert torch.equal(torch.frexp(peak_a)[1], torch.frexp(peak_c)[1])
 
 
-def test_residual_wrapper_on_the_cpu(fft_posts):
-    """On the CPU ``batched_conv_lnl_residuals`` is the plain scheme and
-    ``batched_conv_lnl_backward`` the version of record whatever
-    residuals it is given; a shape off the FFT route raises."""
+@pytest.fixture(scope="module")
+def padded_posts():
+    out = {}
+    for shape in ((15, 21), (13, 37), (24, 37), (15, 13)):
+        spec = build_model_spec(flagship_components(shape, (8, 8)))
+        out[shape] = build_posterior(spec, device="cpu", dtype=torch.float64,
+                                     lnpost="batched")
+    return out
+
+
+@pytest.mark.parametrize("shape", [(15, 21), (13, 37), (24, 37)],
+                         ids=["odd", "prime", "one-side"])
+def test_padded_residual_scheme_matches_the_backward_of_record(padded_posts, shape):
+    """The padded route's residual forward and its backward from the
+    residuals, in float64: the lnL within 1e-10 of the version of record,
+    the backward within rtol 1e-10 of ``batched_conv_lnl_backward_plain``
+    (normalized by the batch's largest gradient), a NaN walker's lnL
+    ``-inf`` and its gradient zero, int32 scale exponents within +-96:
+    odd sides (15x21 -> 30x42), a prime side (13x37 -> 28x80) and one side
+    padded (24x37 -> 24x80)."""
+    post = padded_posts[shape]
+    assert CL.conv_route(shape) == "padded"
+    th = prior_draws(post.spec, 6, seed=9)
+    raws = post.raw_and_ps(th)[0].detach()
+    raws[1, 3, 4] = float("nan")
+    grad = torch.as_tensor(np.random.RandomState(3).uniform(0.5, 2.0, 6))
+    want_lnl = CL.batched_conv_lnl_plain(raws, post.consts)
+    lnl, weights, scale_exp = CL.padded_fft_conv_residuals_plain(raws, post.consts)
+    assert weights.shape == (6, *shape, 2) and scale_exp.dtype == torch.int32
+    assert torch.isneginf(lnl[1]) and torch.isneginf(want_lnl[1])
+    assert scale_exp.abs().max().item() <= 96 and scale_exp[1].item() == 0
+    keep = [0, 2, 3, 4, 5]
+    torch.testing.assert_close(lnl[keep], want_lnl[keep], rtol=1e-10, atol=0.0)
+    got = CL.padded_fft_conv_backward_from_residuals_plain(
+        raws, post.consts, lnl, grad, weights, scale_exp)
+    want = CL.batched_conv_lnl_backward_plain(raws, post.consts, want_lnl, grad)
+    assert torch.equal(got[1], torch.zeros_like(got[1]))
+    torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-10 * want.abs().max().item())
+
+
+def test_residual_wrapper_on_the_cpu(fft_posts, padded_posts):
+    """On the CPU ``batched_conv_lnl_residuals`` is the plain scheme of
+    the route (the FFT route's at 24x20, the padded route's at 15x13) and
+    ``batched_conv_lnl_backward`` the version of record whatever residuals
+    it is given; a shape on the matmul-DFT route (94x94: a factor of 47,
+    whose 192x192 transform fits no block) raises."""
     post = fft_posts[(24, 20)]
     raws = post.raw_and_ps(prior_draws(post.spec, 3, seed=4))[0].detach()
     out = CL.batched_conv_lnl_residuals(raws, post.consts)
@@ -190,9 +234,15 @@ def test_residual_wrapper_on_the_cpu(fft_posts):
     assert torch.equal(
         CL.batched_conv_lnl_backward(raws, post.consts, lnl, grad, out[1:]),
         CL.batched_conv_lnl_backward_plain(raws, post.consts, lnl, grad))
-    spec = build_model_spec(flagship_components((15, 13), (8, 8)))
+    padded = padded_posts[(15, 13)]
+    raws = padded.raw_and_ps(prior_draws(padded.spec, 3, seed=4))[0].detach()
+    assert CL.conv_route((15, 13)) == "padded"
+    for x, y in zip(CL.batched_conv_lnl_residuals(raws, padded.consts),
+                    CL.padded_fft_conv_residuals_plain(raws, padded.consts)):
+        assert torch.equal(x, y)
+    spec = build_model_spec(flagship_components((94, 94), (8, 8)))
     dft = build_posterior(spec, device="cpu", dtype=torch.float64, lnpost="batched")
-    assert CL.conv_route((15, 13)) == "dft"
-    with pytest.raises(ValueError, match="off the FFT route"):
+    assert CL.conv_route((94, 94)) == "dft"
+    with pytest.raises(ValueError, match="off the FFT and padded routes"):
         CL.batched_conv_lnl_residuals(
             dft.raw_and_ps(prior_draws(spec, 2, seed=1))[0].detach(), dft.consts)

@@ -180,16 +180,18 @@ LIKELIHOOD_CASES = [
     ((64, 64), (32, 32), True, "fft", "fft"),
     ((64, 64), (32, 32), False, "fft", "fft"),
     ((64, 128), (32, 32), True, "fft", "fft"),  # non-square: two line lengths
-    ((45, 37), (16, 16), True, "dft", "dft"),  # odd sizes: W2 = 19, ragged warps
+    # odd sizes (W2 = 19, ragged warps): conv_lnl's padded route (90x80)
+    ((45, 37), (16, 16), True, "padded", "dft"),
     # 3 x 2^5: conv_lnl's mixed-radix geometry; the fused kernel's FFT
     # route takes powers of two only
     ((96, 96), (48, 48), True, "fft", "dft"),
     ((100, 100), (50, 50), True, "fft", "dft"),  # 5^2 x 2^2
     ((98, 98), (48, 48), True, "fft", "dft"),  # 7^2 x 2: radix-7 stages
-    ((74, 74), (36, 36), True, "dft", "dft"),  # 2 x 37
+    ((74, 74), (36, 36), True, "padded", "dft"),  # 2 x 37: padded to 150x150
+    ((94, 94), (48, 48), True, "dft", "dft"),  # 2 x 47: 192x192 fits no block
 ]
 LIKELIHOOD_IDS = ["128", "64", "64-no-ps", "64x128", "45x37", "96", "100", "98",
-                  "74"]
+                  "74", "94"]
 
 
 def _likelihood_inputs(cuda, shape, psf_shape, point_sources, lnpost, seed):
@@ -295,6 +297,34 @@ def test_conv_lnl_mixed_radix_matches_float64(cuda, shape, psf_shape):
     assert torch.equal(got, CL.batched_conv_lnl(raws, post.consts))
 
 
+def _synthetic_consts(shape, device, seed):
+    """conv_lnl's constants of a Gaussian PSF half the image's size
+    (centre-padded, as ``pad_and_rfft_image`` does), a 5% mask and a flat
+    observation, with 40 walkers of noise plus a bright point source."""
+    h, w = shape
+    rng = np.random.RandomState(seed)
+    ph, pw = max(h // 2, 1), max(w // 2, 1)
+    yy, xx = np.mgrid[0:ph, 0:pw]
+    psf = np.exp(-((yy - ph // 2) ** 2 + (xx - pw // 2) ** 2) / 4.5) + 1e-3
+    psf /= psf.sum()
+
+    def spectrum(img):
+        pad = np.zeros(shape)
+        oy, ox = h // 2 - ph // 2, w // 2 - pw // 2
+        pad[oy:oy + ph, ox:ox + pw] = img
+        return np.fft.rfft2(pad)
+
+    good = rng.rand(h, w) > 0.05
+    good[0, 0] = True
+    args = (spectrum(psf), spectrum(np.full_like(psf, 1e-8)),
+            0.1 + 0.01 * rng.randn(h, w), np.full(shape, 2.5e-5), good)
+    raws = (0.05 + np.abs(rng.randn(40, h, w)) * 0.1).astype(np.float32)
+    raws[:, h // 2, w // 2] += 5.0
+    return (CL.make_conv_lnl_consts(*args, device),
+            CL.make_conv_lnl_consts(*args, "cpu", torch.float64),
+            torch.as_tensor(raws, device=device))
+
+
 @pytest.mark.parametrize("shape", [(2, 2), (4, 8), (8, 4), (16, 16), (32, 512),
                                    (512, 32), (256, 64), (64, 256),
                                    (6, 10), (12, 48), (54, 50), (486, 2),
@@ -309,28 +339,8 @@ def test_conv_lnl_fft_route_at_every_depth_of_pass(cuda, shape):
     radix-2 stages), up to five passes a line (486 = 2 x 3^5); the radix-7
     passes alone (0x70: 98, 42, 490) and with a radix-2 stage (0x71: 14,
     98, 56)."""
-    h, w = shape
-    rng = np.random.RandomState(h * 1000 + w)
-    ph, pw = max(h // 2, 1), max(w // 2, 1)
-    yy, xx = np.mgrid[0:ph, 0:pw]
-    psf = np.exp(-((yy - ph // 2) ** 2 + (xx - pw // 2) ** 2) / 4.5) + 1e-3
-    psf /= psf.sum()
-
-    def spectrum(img):  # centre-padded, as pad_and_rfft_image does
-        pad = np.zeros(shape)
-        oy, ox = h // 2 - ph // 2, w // 2 - pw // 2
-        pad[oy:oy + ph, ox:ox + pw] = img
-        return np.fft.rfft2(pad)
-
-    good = rng.rand(h, w) > 0.05
-    good[0, 0] = True
-    consts = CL.make_conv_lnl_consts(
-        spectrum(psf), spectrum(np.full_like(psf, 1e-8)),
-        0.1 + 0.01 * rng.randn(h, w), np.full(shape, 2.5e-5), good, cuda)
+    consts, _, raws = _synthetic_consts(shape, cuda, shape[0] * 1000 + shape[1])
     assert CL.conv_route(shape) == "fft"
-    raws = torch.as_tensor((0.05 + np.abs(rng.randn(40, h, w)) * 0.1)
-                           .astype(np.float32), device=cuda)
-    raws[:, h // 2, w // 2] += 5.0  # a bright point source
     routes_before = dict(CL.batched_conv_lnl.route_launches)
     got = CL.batched_conv_lnl(raws, consts)
     torch.cuda.synchronize()
@@ -795,9 +805,10 @@ def test_priors_graphed_phase_is_bit_identical_to_eager(cuda, variant):
     assert g_launches == e_launches == [1 + 20 + 6, 1 + 20, 0]
 
 
-def _joint(device, variant="flagship", band1=(74, 74)):
-    """The joint flagship at 64x64 and ``band1``: by default 74x74, a
-    factor of 37, on conv_lnl's matmul-DFT route."""
+def _joint(device, variant="flagship", band1=(94, 94)):
+    """The joint flagship at 64x64 and ``band1``: by default 94x94, a
+    factor of 47 whose padded transform (192x192) fits no block, on
+    conv_lnl's matmul-DFT route."""
     from psfmc_tpu_torch.flagship import joint_components
     from psfmc_tpu_torch.models import JointModel
 
@@ -809,7 +820,7 @@ def _joint(device, variant="flagship", band1=(74, 74)):
 @pytest.mark.parametrize("variant", ["flagship", "general", "offset"])
 def test_joint_graphed_phase_is_bit_identical_to_eager(cuda, variant):
     """The joint flagship's ten steps (band 0 at 64x64 on conv_lnl's FFT
-    route, band 1 at 74x74 on its matmul-DFT route, both in one captured
+    route, band 1 at 94x94 on its matmul-DFT route, both in one captured
     step) as graph replays and eagerly: the same state bit for bit, and
     each kernel's launches exact, per band and route."""
     spec, post = _joint(cuda, variant)
@@ -822,13 +833,14 @@ def test_joint_graphed_phase_is_bit_identical_to_eager(cuda, variant):
     assert graphed.graph_replays == 10 and eager.graph_replays == 0
     _assert_same_state(graphed, eager)
     assert sorted(graphed.state.accum) == sorted(post.carry_image_shapes())
-    assert graphed.state.accum["b1_raw"].shape == (74, 74)
+    assert graphed.state.accum["b1_raw"].shape == (94, 94)
     batched = paths[0] == "batched"
     assert g_launches == e_launches == [2 * (1 + 20 + 6), 2 * (1 + 20) * batched, 0]
     if batched:  # each band's conv_lnl on its route, in both runs
         assert CL.batched_conv_lnl.route_launches == {
             "fft": routes["fft"] + 2 * 21, "dft": routes["dft"] + 2 * 21,
-            "fft_res": routes["fft_res"]}
+            "fft_res": routes["fft_res"], "padded": routes["padded"],
+            "padded_res": routes["padded_res"]}
 
 
 def test_dft_route_conv_lnl_inside_a_captured_graph(cuda):
@@ -908,20 +920,25 @@ def test_render_backward_matches_plain(cuda, shape, count):
 
 @pytest.mark.parametrize("shape,psf_shape,route",
                          [((128, 128), (64, 64), "fft"), ((96, 96), (48, 48), "fft"),
-                          ((45, 37), (16, 16), "dft"), ((100, 100), (50, 50), "fft"),
+                          ((45, 37), (16, 16), "padded"), ((100, 100), (50, 50), "fft"),
                           ((96, 128), (48, 64), "fft"), ((144, 144), (72, 72), "fft"),
-                          ((98, 98), (48, 48), "fft"), ((74, 74), (36, 36), "dft")],
-                         ids=["128", "96", "45x37", "100", "96x128", "144", "98", "74"])
+                          ((98, 98), (48, 48), "fft"), ((74, 74), (36, 36), "padded"),
+                          ((45, 75), (24, 36), "padded"), ((64, 74), (32, 36), "padded"),
+                          ((94, 94), (48, 48), "dft")],
+                         ids=["128", "96", "45x37", "100", "96x128", "144", "98", "74",
+                              "45x75", "64x74", "94"])
 def test_conv_lnl_backward_matches_plain(cuda, shape, psf_shape, route):
-    """conv_lnl's backward kernel on both routes (the FFT route's radix-2
-    and mixed-radix geometries, radix-7 stages at 98x98) at 125 walkers against
+    """conv_lnl's backward kernel on its three routes (the FFT route's
+    radix-2 and mixed-radix geometries, radix-7 stages at 98x98; the padded
+    route at odd sides and at a factor of 37, 45x37, 74x74, 45x75 and 64x74,
+    one side padded; the matmul-DFT route at 94x94) at 125 walkers against
     the float64 plain backward: per walker within 1e-3 of its largest
     pixel gradient (float32 residuals of a 0.005-noise image carry about
     2e-5 of themselves; the FFT's and GEMMs' rounding come on top); the
     same non-finite entries as the float32 plain version (NaN and
     infinite pixels give a zero gradient); the same bits on every launch.
     On the FFT route the backward reads the residuals that the forward's
-    residual instantiation wrote."""
+    residual instantiation wrote (on the padded route too)."""
     spec = build_model_spec(flagship_components(shape, psf_shape))
     post = build_posterior(spec, device=cuda, lnpost="batched")
     th = torch.as_tensor(prior_draws(spec, 125, seed=7), dtype=torch.float32,
@@ -930,7 +947,7 @@ def test_conv_lnl_backward_matches_plain(cuda, shape, psf_shape, route):
     raws[2, 5, 7] = float("nan")
     raws[11, 20, 3] = float("inf")
     lnl, residuals = CL.batched_conv_lnl(raws, post.consts), None
-    if route == "fft":
+    if route in ("fft", "padded"):
         lnl_res, *residuals = CL.batched_conv_lnl_residuals(raws, post.consts)
         _same_bits(lnl_res, lnl)
     grad = torch.as_tensor(np.random.RandomState(4).uniform(0.5, 2.0, 125),
@@ -958,12 +975,14 @@ def test_conv_lnl_backward_matches_plain(cuda, shape, psf_shape, route):
 @pytest.mark.parametrize("shape,psf_shape",
                          [((128, 128), (64, 64)), ((96, 96), (48, 48)),
                           ((100, 100), (50, 50)), ((96, 128), (48, 64)),
-                          ((98, 98), (48, 48))],
-                         ids=["128", "96", "100", "96x128", "98"])
+                          ((98, 98), (48, 48)), ((74, 74), (36, 36)),
+                          ((45, 75), (24, 36)), ((64, 74), (32, 36))],
+                         ids=["128", "96", "100", "96x128", "98", "74", "45x75", "64x74"])
 def test_conv_lnl_residuals_match_plain(cuda, shape, psf_shape):
-    """The FFT route's residual instantiation of the forward at 125
-    walkers: the same lnL bits as the forward kernel's launch on the same
-    inputs, counted on the route ``"fft_res"``; its weights ``(a, c)``
+    """The FFT and the padded route's residual instantiation of the
+    forward at 125 walkers: the same lnL bits as the forward kernel's
+    launch on the same inputs, counted on the route ``"fft_res"`` or
+    ``"padded_res"``; its weights ``(a, c)``
     against the float64 plain scheme within the larger of 1e-6 of each
     walker's largest weight and 4x the float32 plain scheme's own error
     there (float32 FFT rounding of ``conv`` moves the residual ``r = obs
@@ -977,17 +996,20 @@ def test_conv_lnl_residuals_match_plain(cuda, shape, psf_shape):
     raws = post.raw_and_ps(th)[0].contiguous()
     raws[2, 5, 7] = float("nan")
     lnl = CL.batched_conv_lnl(raws, post.consts)
+    route = CL.conv_route(shape)
+    plain = (CL.padded_fft_conv_residuals_plain if route == "padded"
+             else CL.packed_fft_conv_residuals_plain)
     before = CL.batched_conv_lnl.launches
     routes = dict(CL.batched_conv_lnl.route_launches)
     got, weights, scale_exp = CL.batched_conv_lnl_residuals(raws, post.consts)
     torch.cuda.synchronize()
-    _assert_launched_on(CL.batched_conv_lnl, "fft_res", before, routes)
+    _assert_launched_on(CL.batched_conv_lnl, route + "_res", before, routes)
     _same_bits(got, lnl)
     assert weights.shape == (125, *shape, 2) and scale_exp.dtype == torch.int32
     c64 = build_posterior(spec, device="cpu", dtype=torch.float64,
                           lnpost="batched").consts
-    _, w64, e64 = CL.packed_fft_conv_residuals_plain(raws.double().cpu(), c64)
-    _, w32, _ = CL.packed_fft_conv_residuals_plain(raws, post.consts)
+    _, w64, e64 = plain(raws.double().cpu(), c64)
+    _, w32, _ = plain(raws, post.consts)
     keep = torch.isfinite(lnl)
     assert keep.sum().item() >= 120
     want = w64.to(cuda)[keep]
@@ -1069,7 +1091,7 @@ def test_map_adam_steps_graphed_are_bit_identical_to_eager(flagship):
 
 def test_joint_map_runs_the_dft_backward_inside_the_graph(cuda):
     """fit_map on the joint flagship (band 0 at 64x64: FFT route; band 1
-    at 74x74: matmul-DFT route): each captured Adam step launches each
+    at 94x94: matmul-DFT route): each captured Adam step launches each
     band's conv_lnl and its backward once on its route."""
     from psfmc_tpu_torch.optimize import fit_map
 
@@ -1083,8 +1105,9 @@ def test_joint_map_runs_the_dft_backward_inside_the_graph(cuda):
     assert [a - b for a, b in zip(after[:4], before[:4])] == [10, 8, 10, 8]
     # by route: band 0's forward under autograd writes its residuals
     assert {r: after[4][r] - before[4][r] for r in after[4]} == \
-        {"fft": 1, "fft_res": 4, "dft": 5}
-    assert {r: after[5][r] - before[5][r] for r in after[5]} == {"fft": 4, "dft": 4}
+        {"fft": 1, "fft_res": 4, "dft": 5, "padded": 0, "padded_res": 0}
+    assert {r: after[5][r] - before[5][r] for r in after[5]} == \
+        {"fft": 4, "dft": 4, "padded": 0}
 
 
 def test_joint_map_runs_the_mixed_radix_band_inside_the_graph(cuda):
@@ -1126,14 +1149,102 @@ def _joint_map_on_the_fft_route(cuda, band1):
         # every launch on the FFT route, the forward under autograd writing
         # its residuals
         assert {r: after[4][r] - before[4][r] for r in after[4]} == \
-            {"fft": 2, "fft_res": 8, "dft": 0}
+            {"fft": 2, "fft_res": 8, "dft": 0, "padded": 0, "padded_res": 0}
         assert {r: after[5][r] - before[5][r] for r in after[5]} == \
-            {"fft": 8, "dft": 0}
+            {"fft": 8, "dft": 0, "padded": 0}
         assert [fn.shape_launches.get((r, band1), 0) - b
                 for (fn, r), b in zip(keys, at_band1)] == [1, 4, 4]
         runs.append(res)
     _same_bits(runs[0].all_theta, runs[1].all_theta)
     _same_bits(runs[0].all_lnpost, runs[1].all_lnpost)
+
+
+def test_joint_map_runs_the_padded_band_inside_the_graph(cuda):
+    """fit_map on the joint flagship with band 1 at 74x74 (2 x 37: the
+    padded route, a 150x150 transform): each captured Adam step launches
+    band 1's residual forward and backward on the padded route, counted at
+    its shape, band 0's on the FFT route; replayed and eager Adam steps
+    agree bit for bit."""
+    import contextlib
+
+    from psfmc_tpu_torch import optimize
+
+    band1 = (74, 74)
+    spec, post = _joint(cuda, band1=band1)
+    assert CL.conv_route(post.band_fns[1].shape) == "padded"
+    runs = []
+    for eager in (False, True):
+        before = _map_counts()
+        keys = [(CL.batched_conv_lnl, "padded"), (CL.batched_conv_lnl, "padded_res"),
+                (CL.batched_conv_lnl_backward, "padded")]
+        at_band1 = [fn.shape_launches.get((r, band1), 0) for fn, r in keys]
+        with optimize._eager(post) if eager else contextlib.nullcontext():
+            res = optimize.fit_map(post, n_starts=4, steps=3, seed=3)
+        torch.cuda.synchronize()
+        after = _map_counts()
+        assert np.isfinite(res.lnpost)
+        assert [a - b for a, b in zip(after[:4], before[:4])] == [10, 8, 10, 8]
+        assert {r: after[4][r] - before[4][r] for r in after[4]} == \
+            {"fft": 1, "fft_res": 4, "dft": 0, "padded": 1, "padded_res": 4}
+        assert {r: after[5][r] - before[5][r] for r in after[5]} == \
+            {"fft": 4, "dft": 0, "padded": 4}
+        assert [fn.shape_launches.get((r, band1), 0) - b
+                for (fn, r), b in zip(keys, at_band1)] == [1, 4, 4]
+        runs.append(res)
+    _same_bits(runs[0].all_theta, runs[1].all_theta)
+    _same_bits(runs[0].all_lnpost, runs[1].all_lnpost)
+
+
+@pytest.mark.parametrize("shape", [(74, 74), (45, 75), (64, 74), (81, 81), (31, 31),
+                                   (3, 5), (2, 37), (37, 2), (13, 128), (15, 21)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_conv_lnl_padded_route_at_every_transform(cuda, shape):
+    """The padded route's forward, residual forward and backward at odd
+    sides, prime sides, one side padded and the other not, the largest
+    side (81 -> 162), a transform of powers of two (31 -> 64) and sides
+    of 2 and 3: one launch each on the routes ``"padded"`` and
+    ``"padded_res"``; the lnL within 2e-5 of the float64 plain version per
+    walker, the residual instantiation's lnL bits the forward's, the
+    backward within 1e-3 of each walker's largest gradient of the float64
+    plain backward, and the same bits on a second launch."""
+    consts, c64, raws = _synthetic_consts(shape, cuda, shape[0] * 1000 + shape[1])
+    assert CL.conv_route(shape) == "padded"
+    routes = dict(CL.batched_conv_lnl.route_launches)
+    got = CL.batched_conv_lnl(raws, consts)
+    lnl, *residuals = CL.batched_conv_lnl_residuals(raws, consts)
+    torch.cuda.synchronize()
+    routes["padded"] += 1
+    routes["padded_res"] += 1
+    assert CL.batched_conv_lnl.route_launches == routes
+    _same_bits(lnl, got)
+    want = CL.batched_conv_lnl_plain(raws.double().cpu(), c64).to(cuda)
+    assert torch.isfinite(want).all() and torch.isfinite(got).all()
+    torch.testing.assert_close(got.double(), want, rtol=2e-5, atol=0.0)
+    assert torch.equal(got, CL.batched_conv_lnl(raws, consts))
+    grad = torch.as_tensor(np.random.RandomState(4).uniform(0.5, 2.0, len(raws)),
+                           dtype=torch.float32, device=cuda)
+    back = CL.batched_conv_lnl_backward(raws, consts, got, grad, residuals)
+    want_back = CL.batched_conv_lnl_backward_plain(
+        raws.double().cpu(), c64, want.cpu(), grad.double().cpu()).to(cuda)
+    assert _normalized_err(back, want_back, dims=(1, 2)) <= 1e-3
+    assert torch.equal(back, CL.batched_conv_lnl_backward(raws, consts, got, grad,
+                                                          residuals))
+
+
+def test_padded_launch_refuses_a_shape_the_host_did_not_plan(cuda):
+    """The padded launch checks the transform's sides against the plan:
+    a transform the host would not make is refused and the wrapper
+    raises, with nothing counted."""
+    consts, _, raws = _synthetic_consts((74, 74), cuda, 5)
+    fn = CL._block_kernel("padded", False)
+    out = torch.empty(len(raws), device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [getattr(consts, n).data_ptr() for n in CL.PADDED_CONST_ARGS]
+    for mh, mw in ((148, 150), (150, 152), (74, 74)):
+        assert fn(raws.data_ptr(), len(raws), 74, 74, mh, mw, *ptrs,
+                  out.data_ptr(), stream) != 0
+    assert fn(raws.data_ptr(), len(raws), 74, 74, 150, 150, *ptrs,
+              out.data_ptr(), stream) == 0
 
 
 def test_a_failed_backward_build_raises(flagship, monkeypatch):

@@ -2,7 +2,9 @@
 
 The CUDA kernels of ``csrc/fft_conv.cuh`` run only on the card; what runs
 here is their scheme written once more in plain PyTorch
-(``packed_fft_conv_plain``) and their butterfly schedule
+(``packed_fft_conv_plain``; ``padded_fft_conv_plain`` on the padded
+route, the same pair on the zero-padded image with the fold at the
+readout) and their butterfly schedule
 (``fft_stages_plain``: radix-2 stages for powers of two, radix-2, -3, -5
 and -7 stages in ``fft_plan``'s order otherwise), held against ``torch.fft``,
 against the JAX package's convolutions and against its batched conv+lnL
@@ -62,8 +64,8 @@ def test_twiddle_table_is_float64_cos_sin(n):
 
 def test_twiddle_table_needs_a_power_of_two():
     """The table needs an even size with no prime factor above 7 (a
-    power of two, or 96, 100, 98, ...); 88, 45 and 74 take the matmul-DFT
-    route and have none."""
+    power of two, or 96, 100, 98, ...); 88, 45 and 74 have none (the
+    padded route builds the table of the side it pads them to)."""
     for n in (88, 45, 74, 7):
         with pytest.raises(ValueError, match="7-smooth"):
             CL.fft_twiddles(n)
@@ -345,14 +347,15 @@ def _pair_step_ways(shape):
 
 @pytest.mark.parametrize("shape,worst_partner", [
     ((96, 96), 2.0), ((100, 100), 3.0), ((144, 144), 2.5), ((96, 128), 2.0),
-    ((98, 98), 2.5), ((112, 112), 2.0)],
+    ((98, 98), 2.5), ((112, 112), 2.0), ((150, 150), 2.5)],
     ids=lambda v: _ids(v) if isinstance(v, tuple) else str(v))
 def test_mixed_pair_step_keeps_the_two_way_bound(shape, worst_partner):
     """The pointwise step on the digit-reversed layout reads each warp's
     own bins at most 2-way (the power-of-two step's swizzle bound; 1.67
     on average at 96x96, 1.79 at 100x100 and at 98x98, where W/2 = 49 is
     odd) and their partners at most ``worst_partner``-way (1.67, 2.09
-    and 1.81 on average)."""
+    and 1.81 on average).  150x150 is the padded route's transform of
+    74x74 (1.87 and 1.93 on average)."""
     mean, worst = _pair_step_ways(shape)
     assert worst[0] <= 2.0 and mean[0] <= 2.0
     assert worst[1] == worst_partner
@@ -362,6 +365,8 @@ def test_mixed_pair_step_keeps_the_two_way_bound(shape, worst_partner):
         np.testing.assert_allclose(mean, [1.7930, 2.0924], atol=1e-4)
     if shape == (98, 98):
         np.testing.assert_allclose(mean, [1.7881, 1.8113], atol=1e-4)
+    if shape == (150, 150):
+        np.testing.assert_allclose(mean, [1.8665, 1.9332], atol=1e-4)
 
 
 def _staged_conv(raws, consts):
@@ -419,6 +424,9 @@ def test_mixed_radix_lnl_matches_pallas_batched(monkeypatch, shape):
 # conv_lnl (and its backward), not of the radix-2 rule
 MIXED_FFT = {(96, 96), (100, 100), (144, 144), (128, 96), (98, 98), (56, 56),
              (98, 128)}
+# an odd side or a prime factor above 7, padded to a transform that fits a
+# block: conv_lnl's padded route (the radix-2 rule has none)
+PADDED = {(45, 37), (74, 74), (45, 75), (49, 98), (64, 74)}
 
 
 @pytest.mark.parametrize("shape,route", [
@@ -434,16 +442,29 @@ MIXED_FFT = {(96, 96), (100, 100), (144, 144), (128, 96), (98, 98), (56, 56),
     # a factor of 37 or 11, odd sides with factors 3, 5 and 7, too large
     ((74, 74), "dft"), ((88, 88), "dft"), ((45, 75), "dft"), ((49, 98), "dft"),
     ((160, 180), "dft"), ((196, 196), "dft"),
+    # factors of 47 and 101: padded to 192 and 210, no block holds them
+    ((94, 94), "dft"), ((101, 101), "dft"), ((64, 74), "dft"),
 ], ids=lambda v: v if isinstance(v, str) else f"{v[0]}x{v[1]}")
 def test_conv_route_is_a_function_of_the_shape(shape, route):
     """``route`` is the radix-2 rule's answer (``radices=(2,)``, the
-    fused kernel's); conv_lnl's own rule answers ``"fft"`` also for the
-    shapes of :data:`MIXED_FFT`, and the same elsewhere."""
+    fused kernel's, which never answers ``"padded"``); conv_lnl's own rule
+    answers ``"fft"`` also for the shapes of :data:`MIXED_FFT`,
+    ``"padded"`` for those of :data:`PADDED` (74x74 -> 150x150, 45x75 ->
+    90x150, 49x98 -> 98x98, 45x37 -> 90x80, 64x74 -> 64x150: one side
+    padded), and the same elsewhere: 88x88 (180x180), 94x94 (192x192) and
+    101x101 (210x210) need more shared memory than a block has, 160x180
+    and 196x196 are on the FFT route's sides but too large, and a side of
+    1 (1x64) stays on the matmul-DFT route."""
     assert CL.conv_route(shape, radices=(2,)) == route
-    want = "fft" if shape in MIXED_FFT else route
+    want = "fft" if shape in MIXED_FFT else "padded" if shape in PADDED else route
     assert CL.conv_route(shape) == want
     if want == "fft":
         assert CL.fft_smem_bytes(shape) <= CL.BLOCK_SMEM_LIMIT
+    if want == "padded":
+        padded = CL.padded_shape(shape)
+        assert padded != shape and all(m >= 2 * n - 1 or m == n
+                                       for n, m in zip(shape, padded))
+        assert CL.fft_smem_bytes(padded) <= CL.BLOCK_SMEM_LIMIT
 
 
 def test_fft_route_needs_less_shared_memory_than_the_three_buffers():
@@ -494,8 +515,9 @@ def test_consts_carry_the_twiddles_only_for_powers_of_two():
     """The FFT route's tables ride on the constants where the shape takes
     it: one table of max(H, W) and no layout for powers of two, both axes'
     tables and the int32 layout for the mixed-radix geometry (24x20, and
-    98x20: a factor of 7), none on the matmul-DFT route (74x20: a factor
-    of 37)."""
+    98x20: a factor of 7), none at 74x20 (a factor of 37), which takes the
+    padded route and carries the tables and the padded kernels' spectra
+    of its 150x20 transform instead."""
     rng = np.random.RandomState(38)
     consts, _, _ = _consts(rng, (16, 64), torch.float32)
     assert tuple(consts.twiddle.shape) == (32, 2)
@@ -515,10 +537,112 @@ def test_consts_carry_the_twiddles_only_for_powers_of_two():
     consts74, _, _ = _consts(rng, (74, 20), torch.float32)
     assert tuple(consts74.twiddle.shape) == (0, 2)
     assert tuple(consts74.fft_layout.shape) == (0,)
-    assert CL.conv_route(consts74.shape) == "dft"
+    assert CL.conv_route(consts74.shape) == "padded"
+    assert consts74.padded_shape == (150, 20)
+    assert tuple(consts74.pad_twiddle.shape) == (150 + 20, 2)
+    np.testing.assert_array_equal(consts74.pad_layout.numpy(),
+                                  CL.fft_layout((150, 20)))
+    for name in ("pad_psf_r", "pad_psf_i", "pad_var_r", "pad_var_i", "pad_psf_ic",
+                 "pad_var_ic"):
+        assert tuple(getattr(consts74, name).shape) == (150, 11)
+    assert tuple(consts.pad_psf_r.shape) == (0, 0)  # 24x20: the FFT route
     # a CPU tensor takes the plain version on either route, uncounted
     before = dict(CL.batched_conv_lnl.route_launches)
     CL.batched_conv_lnl(torch.ones((2, 24, 20)), consts)
     CL.batched_conv_lnl(torch.ones((2, 98, 20)), consts98)
     CL.batched_conv_lnl(torch.ones((2, 74, 20)), consts74)
     assert CL.batched_conv_lnl.route_launches == before
+
+
+@pytest.mark.parametrize("n", [2, 3, 5, 7, 11, 13, 17, 31, 37, 41, 45, 47, 49, 74,
+                               75, 81, 82, 94, 101])
+def test_padded_size_is_the_smallest_even_seven_smooth_side(n):
+    """``padded_size(n)`` is at least ``2n - 1``, even, has no prime factor
+    above 7, and no smaller side has all three (74 -> 150, 31 -> 64)."""
+    m = CL.padded_size(n)
+    assert m >= 2 * n - 1 and m % 2 == 0 and CL._smooth_even(m)
+    assert not any(CL._smooth_even(k) for k in range(2 * n - 1, m))
+    assert CL.padded_size(74) == 150 and CL.padded_size(31) == 64
+    with pytest.raises(ValueError, match="at least 2"):
+        CL.padded_size(1)
+
+
+@pytest.mark.parametrize("shape", [(15, 21), (13, 37), (24, 37), (7, 2)], ids=_ids)
+def test_pad_fold_and_crop_are_adjoints(shape):
+    """The padded route's readout (the fold and the shift) and the
+    backward's placement of the weights (:func:`_unfold`) are adjoints,
+    and so are the zero pad and the crop: ``<fold y, x> = <y, unfold x>``
+    and ``<pad x, y> = <x, crop y>`` in float64, to 1e-12 of the terms'
+    size."""
+    rng = np.random.RandomState(41)
+    padded = CL.padded_shape(shape)
+    x = torch.as_tensor(rng.randn(2, *shape))
+    y = torch.as_tensor(rng.randn(2, *padded))
+    for a, b in (((CL._fold(y, shape) * x).sum(), (y * CL._unfold(x, shape, padded)).sum()),
+                 ((CL._pad(x, padded) * y).sum(), (x * CL._crop(y, shape)).sum())):
+        assert abs(a.item() - b.item()) <= 1e-12 * (x.abs().sum() * y.abs().sum()).item()
+    # the fold is the N-point circular convolution: a linear one of length
+    # 2N - 1, folded, equals the circular one
+    h, w = shape
+    k = torch.as_tensor(rng.randn(h, w))
+    lin = torch.fft.irfft2(torch.fft.rfft2(CL._pad(x, padded))
+                           * torch.fft.rfft2(CL._pad(k, padded)), s=padded)
+    circ = torch.fft.irfft2(torch.fft.rfft2(x) * torch.fft.rfft2(k), s=shape)
+    want = torch.roll(circ, shifts=(-(h // 2), -(w // 2)), dims=(-2, -1))
+    torch.testing.assert_close(CL._fold(lin, shape), want, rtol=1e-12, atol=1e-12)
+
+
+def _staged_padded_conv(raws, consts):
+    """``(conv, mvar)`` by the padded route's own steps in plain PyTorch:
+    the zero pad to the transform's sides, the pack, ``fft_stages_plain``
+    at those sides (the digit-reversed layout of ``consts.pad_layout``),
+    the pointwise step addressed through the layout's tables with the
+    padded kernels' spectra, the inverse stages, ``1 / (M_h M_w)``, the
+    fold and the shifted readout."""
+    h, w = consts.shape
+    mh, mw = consts.padded_shape
+    lay = consts.pad_layout.numpy().astype(np.int64)
+    pos_h, bin_h, pos_w, bin_w = np.split(lay[20:], np.cumsum([mh, mh, mw]))
+    exponent, _ = CL._peak_exponent(raws)
+    s = torch.ldexp(torch.ones_like(raws[:, 0, 0]), -exponent)[:, None, None]
+    x = CL._pad(raws, (mh, mw))
+    z = CL.fft_stages_plain(torch.complex(x, (x * x) * s), consts.pad_twiddle)
+    partner = z[..., pos_h[(-bin_h) % mh], :][..., pos_w[(-bin_w) % mw]].conj()
+    a = 0.5 * (z + partner)
+    b = -0.5j * (z - partner)
+    kpsf = CL._full_spectrum(consts.pad_psf_r, consts.pad_psf_i, mw)[bin_h][:, bin_w]
+    kvar = CL._full_spectrum(consts.pad_var_r, consts.pad_var_i, mw)[bin_h][:, bin_w]
+    y = CL.fft_stages_plain(a * kpsf + 1j * b * (kvar * consts.var_gain),
+                            consts.pad_twiddle, inverse=True) / (mh * mw)
+    y = CL._fold(y, (h, w))
+    return y.real, y.imag / (s * consts.var_gain)
+
+
+@pytest.mark.parametrize("shape", [(22, 26), (15, 21), (13, 37), (24, 37)], ids=_ids)
+def test_padded_lnl_matches_pallas_batched(monkeypatch, shape):
+    """The lnL through the padded scheme (``padded_fft_conv_plain``) and
+    through the kernel's own steps at the transform's sides against the
+    JAX package's batched conv+lnL Pallas kernel (interpret mode,
+    true-fp32 products), rtol 1e-5, float32 on both sides: even sides
+    with a prime factor above 7 (22x26 -> 48x54), odd sides (15x21 ->
+    30x42), a prime side (13x37 -> 28x80) and one side padded while the
+    other is not (24x37 -> 24x80)."""
+    monkeypatch.setenv("PSFMC_LNPOST_DOT", "highest")
+    rng = np.random.RandomState(43)
+    spec = _jax_flagship_spec(rng, shape, psf_side=min(16, *shape))
+    constants = jax_posterior(spec).constants
+    raws = (0.1 + np.abs(rng.randn(6, *spec.shape)) * 0.5).astype(np.float32)
+    lnl_jax = make_batched_conv_lnl(constants, spec, jnp.float32, tile=2)
+    want = np.asarray(lnl_jax(jnp.asarray(raws)))
+
+    consts = CL.make_conv_lnl_consts(
+        spec.f_psf_stack[0], spec.f_var_stack[0], spec.obs_data,
+        spec.obs_var, ~spec.bad_px, "cpu", torch.float32,
+    )
+    assert CL.conv_route(consts.shape) == "padded"
+    assert consts.pad_layout.numel() > 0
+    for conv, mvar in (CL.padded_fft_conv_plain(torch.as_tensor(raws), consts),
+                       _staged_padded_conv(torch.as_tensor(raws), consts)):
+        got = gaussian_lnlike(consts.obs - conv, 1.0 / (mvar + consts.obs_var),
+                              consts.good).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5)

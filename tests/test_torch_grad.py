@@ -303,7 +303,8 @@ def test_conv_lnl_backward_plain_matches_autograd(conv_consts, shape):
     """The version of record against autograd through the plain forward
     at 1e-10 (a NaN walker gets a zero gradient, where the forward's -inf
     passes none); on a shape of the FFT route (powers of two, or the
-    mixed-radix 24x20 and 28x14), its scheme against the version of record;
+    mixed-radix 24x20 and 28x14) or of the padded route (15x13, odd sides
+    padded to 30x28), its scheme against the version of record;
     ``gradcheck`` through the autograd Function."""
     post = conv_consts[shape]
     th = prior_draws(post.spec, 6, seed=9)
@@ -320,6 +321,12 @@ def test_conv_lnl_backward_plain_matches_autograd(conv_consts, shape):
                                atol=1e-10 * want[keep].abs().max().item())
     if CL.conv_route(shape) == "fft":
         scheme = CL.packed_fft_conv_backward_plain(raws, post.consts, lnl.detach(), grad)
+        torch.testing.assert_close(scheme, got, rtol=1e-10,
+                                   atol=1e-10 * got.abs().max().item())
+    if CL.conv_route(shape) == "padded":
+        _, weights, scale_exp = CL.padded_fft_conv_residuals_plain(raws, post.consts)
+        scheme = CL.padded_fft_conv_backward_from_residuals_plain(
+            raws, post.consts, lnl.detach(), grad, weights, scale_exp)
         torch.testing.assert_close(scheme, got, rtol=1e-10,
                                    atol=1e-10 * got.abs().max().item())
     # through the autograd Function, against a central difference

@@ -68,7 +68,32 @@ never ``jax`` nor ``psfmc_tpu``, and:
    moments and the generator's state must be bit-identical, and the
    launch counts equal; then steady graphed and eager steps of the
    driver's (fused) path;
-7. general phase (the JAX package's default likelihood path, ``lnpost=
+7. tempered phase (parallel tempering on the slice path): the flagship,
+   250 walkers on 4 rungs (500 walkers a half-step), ``init_state`` ->
+   ``run_burn(60)`` (12 adaptation windows of 5 steps) -> ``reset`` ->
+   ``run_sampling(40)``; checks every step a graph replay and no capture
+   after the first window (the ladder is written into its buffer in
+   place), the render and conv_lnl launches (two a step, each carrying
+   every rung), swap acceptance in (0, 1], the cold rung's lnpost against
+   the CPU's float64 plain path; then 10 + 6 steps graphed against eager
+   bit for bit across an adaptation, the render and conv_lnl kernels at
+   500 and 1000 walkers against their plain versions, the replayed step's
+   time, and 8 rungs on ``evidence_beta_ladder(8)`` (1000 walkers a
+   half-step) with both evidence estimators and its step's time;
+8. evidence phase: the flagship as FITS files and a model file through
+   ``model_galaxy_mcmc(chains=250, ntemps=4, burn=60, iterations=40,
+   checkpoint_interval=20)`` under ``PSFMC_LNPOST=pallas`` (the fused
+   kernel): launches, a rejuvenation and a checkpoint after every
+   adaptation window, every step a replay, finite ``MCLNZ`` /
+   ``MCLNZERR``, ``CKPTTEMP = 4`` with the ``beta``, ``nswap`` and
+   ``evid_*`` columns; a second call with 60 iterations resumes every
+   rung and its evidence accumulators; then ``model_galaxy_evidence`` at
+   the JAX defaults (512 walkers in 4 groups, 3000 steps of 2 sweeps,
+   mixed moves; every anneal step a replay, 256 walkers a launch) on the
+   flagship model file and on a point-source-plus-sky model file of the
+   same data, with both lnZ, their errors, the ln Bayes factor and the
+   phase's time;
+9. general phase (the JAX package's default likelihood path, ``lnpost=
    "general"``): the general flagship (two 64x64 PSF stars and a sampled
    ``PSF_Index``, a sky with ``dx``/``dy``, a ``NoiseScale``) written as
    FITS files and a model file with a ``psf_files`` list, then
@@ -85,7 +110,7 @@ never ``jax`` nor ``psfmc_tpu``, and:
    version), ``render_oversample=4`` with ``psf_oversample=2``,
    ``PSFMC_RENDER=pallas_tiled`` and ``PSFMC_KAPPA=newton``, each with a
    lnpost check and a graphed/eager segment of 2 + 2 steps;
-8. family phase (the render family and pixel-frame ``Tied``): the family
+10. family phase (the render family and pixel-frame ``Tied``): the family
    flagship (Sky + PointSource + a de Vaucouleurs bulge and a boxy,
    truncated exponential disk, both ``Tied`` to the point source; 128x128,
    one 64x64 PSF) written as FITS files and a model file, then
@@ -101,14 +126,14 @@ never ``jax`` nor ``psfmc_tpu``, and:
    kernel on an elliptical bulge + disk, the general path with two PSFs
    and the tiled render) with a lnpost check and a graphed/eager segment
    of 2 + 2 steps;
-9. prior family phase: every prior family of the port (all 105 aliases,
+11. prior family phase: every prior family of the port (all 105 aliases,
    at the JAX package's test grids, :data:`PRIOR_CASES`, the supports'
    edges and beyond, and vector hyperparameters) in float64 and float32
    on the card against the CPU, then one CUDA graph of them all replayed
    bit for bit against the eager call, and a host-callback prior (a
    discrete family with vector hyperparameters) refused by
    ``build_posterior`` on the card;
-10. priors phase: the priors flagship (truncated Normal positions with a
+12. priors phase: the priors flagship (truncated Normal positions with a
    vector ``loc``, Reciprocal sizes, Gamma and truncated Normal indices,
    Triangular and SkewNormal magnitudes) written as FITS files and a
    model file, through ``model_galaxy_mcmc`` with ``PSFMC_LNPOST`` unset
@@ -125,7 +150,7 @@ never ``jax`` nor ``psfmc_tpu``, and:
    table, per-element tables of a vector hyperparameter, a Binomial), the
    fused kernel, and the general path (two PSFs, a LogNormal
    ``NoiseScale``);
-11. joint phase (joint multi-band fits): the joint flagship (band 0 the
+13. joint phase (joint multi-band fits): the joint flagship (band 0 the
    flagship at 128x128 with a TAN WCS at 0.03"/px; band 1 a 96x96
    observation with its own 64x64 PSF star and a WCS rotated by 20
    degrees, its sources tied to band 0's in sky frame, its sizes and index
@@ -147,7 +172,7 @@ never ``jax`` nor ``psfmc_tpu``, and:
    offset on a sky tie with band 1 at 98x98 on conv_lnl's FFT route with
    radix-7 stages, the general bands under the tiled render) with a lnpost check
    and a graphed/eager segment of 2 + 2 steps;
-12. MAP phase (the gradient path): the MAP flagship (the flagship's
+14. MAP phase (the gradient path): the MAP flagship (the flagship's
    components and priors, its observation simulated from a truth inside
    the priors) written as FITS files and a model file, through
    ``model_galaxy_map`` (64 starts x 500 Adam steps, Laplace): every Adam
@@ -178,12 +203,13 @@ never ``jax`` nor ``psfmc_tpu``, and:
    against the float64 plain scheme, the forward without residuals timed
    beside it), with the forward + backward pair of an Adam step timed
    against its bound;
-13. prints the kernel table as one JSON line, then the result line
-   ``{"ok": true, "device": {...}}`` last.
+15. prints the tempered and evidence phases' numbers and the kernel table
+   as one JSON line each, then the result line ``{"ok": true, "device":
+   {...}}`` last.
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler breakdown of
 device time by kernel over a segment of ten retained sampler steps of
-each path (slice, driver, general, family and joint), graphed and eager, with the device's busy time and idle share
+each path (slice, tempered, driver, general, family and joint), graphed and eager, with the device's busy time and idle share
 (against the profiled and the unprofiled wall time), and
 ten replayed Adam steps of the MAP path (busy time, kernels per step,
 idle share), the SM clock cycles that one block of each FFT-route kernel spends in
@@ -214,6 +240,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -249,6 +276,7 @@ SFU_RESULTS_PER_CLOCK_PER_SM = 16  # NVIDIA's throughput table, compute capabili
 LNL_OPS_PER_PIXEL = 10  # per-pixel operations of the lnL reduction
 RAGGED_SHAPE, RAGGED_PSF_SHAPE = (45, 37), (16, 16)  # width not a multiple of 4
 CHECKPOINT = 10  # driver segment: mid-phase checkpoints and rejuvenation
+CARD = "the card's name and power limit, read by main()"  # beside each time
 GRAPH_BURN, GRAPH_SAMPLE = 4, 6  # graph phase: graphed against eager
 # 3 x 2^5: conv_lnl's FFT route on its mixed-radix geometry, and the fused
 # kernel's matmul-DFT route (its FFT route takes powers of two only)
@@ -1113,6 +1141,391 @@ def driver_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
             f"to the uninterrupted fit (database and five images)")
         del os.environ["PSFMC_LNPOST"]
         return launches, mc, last
+
+
+PT_NTEMPS = 4  # the tempered phase: rungs of the flagship fit's ladder
+PT_BURN, PT_SAMPLE = 60, 40  # 12 adaptation windows of 5 steps, then retained
+PT_EVID_NTEMPS, PT_EVID_BURN, PT_EVID_SAMPLE = 8, 20, 40  # evidence_beta_ladder(8)
+PT_EQUAL_BURN, PT_EQUAL_SAMPLE = 10, 6  # graphed against eager (2 windows of 5)
+PT_RESUMED = 60  # the driver's second call: iterations, resuming after 40
+AIS_NWALKERS, AIS_STEPS, AIS_GROUPS, AIS_SWEEPS = 512, 3000, 4, 2  # the JAX defaults
+
+
+def pt_state_differs(a, b):
+    """What differs between two tempered samplers' states, chains and
+    generators (bit for bit)."""
+    sa, sb = a.state, b.state
+    names = ("positions", "log_like", "log_prior", "betas", "naccept", "nswap",
+             "accum_count", "lnl_sum", "lnl_sum_c", "lnl_sq_sum", "lnl_sq_sum_c",
+             "evid_steps", "ss_max", "ss_sum")
+    pairs = {k: (getattr(sa, k), getattr(sb, k)) for k in names}
+    pairs.update({"generator": (a.generator.get_state(), b.generator.get_state()),
+                  "chain": (a.chain, b.chain),
+                  "lnprobability": (a.lnprobability, b.lnprobability)})
+    pairs.update({f"accum.{k}": (v, sb.accum[k]) for k, v in sa.accum.items()})
+    return [k for k, (x, y) in pairs.items() if not same_bits(x, y)]
+
+
+def batch_kernel_check(post, thetas, label):
+    """The render and conv_lnl kernels at the batch ``thetas`` gives them
+    (a tempered half-step's), each against its plain version."""
+    import torch
+
+    from psfmc_tpu_torch.ops.kernels.conv_lnl import (
+        batched_conv_lnl,
+        batched_conv_lnl_plain,
+    )
+    from psfmc_tpu_torch.ops.kernels.sersic_render import (
+        render_sersics,
+        render_sersics_plain,
+    )
+
+    params, sky = post.render_inputs(thetas)
+    params, sky = params.contiguous(), sky.contiguous()
+    _, render_rel, _ = compare(render_sersics(params, sky, post.shape),
+                               render_sersics_plain(params, sky, post.shape))
+    raws = post.raw_and_ps(thetas)[0].contiguous()
+    _, conv_rel, frac = compare(batched_conv_lnl(raws, post.consts),
+                                batched_conv_lnl_plain(raws, post.consts))
+    b = thetas.shape[0]
+    log(f"{label}: render at B = {b}: max rel err {render_rel:.3e} (tol "
+        f"{RENDER_TOL:g}); conv_lnl at B = {b}: max rel err {conv_rel:.3e} (tol "
+        f"{CONV_LNL_TOL:g}), finite share {frac:.4f}")
+    if not (render_rel <= RENDER_TOL and conv_rel <= CONV_LNL_TOL):
+        raise AssertionError(f"{label}: a kernel disagrees with its plain version "
+                             f"at B = {b}")
+    return {"batch": b, "render_max_rel_err": render_rel,
+            "conv_lnl_max_rel_err": conv_rel}
+
+
+def tempered_phase(post, spec):
+    """Parallel tempering at full width on the slice path: the flagship,
+    250 walkers on 4 rungs (500 walkers a half-step), ``init_state`` ->
+    ``run_burn(60)`` (12 adaptation windows) -> ``reset`` ->
+    ``run_sampling(40)``; then graphed against eager, the kernels at the
+    tempered batches, and 8 rungs on ``evidence_beta_ladder(8)`` with
+    both evidence estimators.  Returns the launches of the 4-rung run, the
+    sampler, and the numbers it measured."""
+    import torch
+
+    from psfmc_tpu_torch.flagship import prior_draws
+    from psfmc_tpu_torch.models import build_posterior
+    from psfmc_tpu_torch.ops.kernels.conv_lnl import conv_route
+    from psfmc_tpu_torch.sampler import (
+        PTEnsembleSampler,
+        default_beta_ladder,
+        evidence_beta_ladder,
+    )
+    from psfmc_tpu_torch.sampler.ensemble import _eager
+
+    out = {}
+    p0 = prior_draws(spec, NWALKERS, seed=SEED)
+    sampler = PTEnsembleSampler(NWALKERS, spec.num_params, post, ntemps=PT_NTEMPS,
+                                seed=SEED)
+    counted = counted_kernels()
+    graphs = []  # graphs captured after each adaptation window
+    torch.cuda.synchronize()
+    reset_counts(counted)
+    t0 = time.perf_counter()
+    sampler.init_state(p0)
+    sampler.run_burn(PT_BURN, callback=lambda done, total: graphs.append(
+        len(sampler._graphs)))
+    adapted = sampler.betas.copy()
+    sampler.reset()
+    sampler.run_sampling(PT_SAMPLE)
+    acc_imgs = sampler.accumulated_images  # synchronizes with the card
+    wall = time.perf_counter() - t0
+    launches, by_route = read_counts(counted)
+    steps = PT_BURN + PT_SAMPLE
+    half = PT_NTEMPS * NWALKERS // 2
+    log(f"tempered: {NWALKERS} walkers x {PT_NTEMPS} rungs ({half} walkers a "
+        f"half-step), burn {PT_BURN} + sampling {PT_SAMPLE} in {wall:.3f} s wall "
+        f"(including the first-call overheads); launches {launches}, by route "
+        f"{by_route}")
+    log(f"tempered: ladder {np.array2string(default_beta_ladder(PT_NTEMPS), precision=4)}"
+        f" adapted over {len(graphs)} windows to "
+        f"{np.array2string(adapted, precision=4)}; swap acceptance per pair "
+        f"{np.array2string(sampler.swap_acceptance_fraction, precision=4)}; cold-rung "
+        f"acceptance {float(np.mean(sampler.acceptance_fraction)):.4f}")
+    # init_state: one launch of every rung; every step: one per half-step,
+    # every rung in it; every retained step renders the cold rung once more
+    want = {"render_sersics": 1 + 2 * steps + PT_SAMPLE, "render_sersics_tiled": 0,
+            "batched_conv_lnl": 1 + 2 * steps, "fused_lnl": 0}
+    if launches != want:
+        raise AssertionError(f"tempered launch counts {launches} != expected {want}")
+    route = conv_route(spec.shape)
+    if by_route[f"batched_conv_lnl:{route}"] != want["batched_conv_lnl"]:
+        raise AssertionError(f"tempered launches by route {by_route}")
+    if len(graphs) != 12 or np.array_equal(adapted, default_beta_ladder(PT_NTEMPS)):
+        raise AssertionError(f"tempered: {len(graphs)} windows, ladder {adapted}")
+    if post.device.type == "cuda":
+        if sampler.graph_replays != steps:
+            raise AssertionError(f"tempered: {sampler.graph_replays} of {steps} steps "
+                                 "were graph replays")
+        if graphs[0] != graphs[-1] or len(sampler._graphs) != 2:
+            raise AssertionError(f"tempered: graphs after each window {graphs}, "
+                                 f"{len(sampler._graphs)} in all: adaptation captured")
+        log(f"tempered: every one of the {steps} steps was a CUDA graph replay; "
+            f"graphs after the first window {graphs[0]}, after the last "
+            f"{graphs[-1]} (the ladder written in place)")
+    swaps = sampler.swap_acceptance_fraction
+    if not np.all((swaps > 0) & (swaps <= 1)):
+        raise AssertionError(f"tempered: swap acceptance {swaps} outside (0, 1]")
+    lnp = sampler.lnprobability
+    if lnp.shape != (NWALKERS, PT_SAMPLE) or not np.all(np.isfinite(lnp)):
+        raise AssertionError("tempered: non-finite or misshapen lnprobability")
+    if not all(np.all(np.isfinite(v)) for v in acc_imgs.values()):
+        raise AssertionError("tempered: non-finite accumulated images")
+    cold = sampler.chain[:16, -1]
+    ref = build_posterior(spec, device="cpu", dtype=torch.float64)
+    want_lnp = ref.log_posterior_batch(cold).numpy()
+    got = post.log_posterior_batch(cold).double().cpu().numpy()
+    rel = max(np.max(np.abs(got - want_lnp) / np.abs(want_lnp)),
+              np.max(np.abs(lnp[:16, -1] - want_lnp) / np.abs(want_lnp)))
+    log(f"tempered: cold-rung lnpost (recorded, and the kernel path's) vs CPU "
+        f"float64 plain lnpost, 16 walkers: max rel diff {rel:.3e} "
+        f"(rtol {SLICE_RTOL:g})")
+    if not rel <= SLICE_RTOL:
+        raise AssertionError("tempered: cold-rung lnpost disagrees with the f64 plain path")
+    out["launches"] = dict(launches, **by_route)
+    out["swap_acceptance"] = swaps.tolist()
+    out["ladder"] = adapted.tolist()
+
+    # graphed against eager, bit for bit, across an adaptation
+    runs = {}
+    for mode in ("graphed", "eager"):
+        sm = PTEnsembleSampler(NWALKERS, spec.num_params, post, ntemps=PT_NTEMPS,
+                               seed=SEED)
+        torch.cuda.synchronize()
+        reset_counts(counted)
+        with _eager(sm) if mode == "eager" else contextlib.nullcontext():
+            sm.init_state(prior_draws(spec, NWALKERS, seed=SEED + 1))
+            sm.run_burn(PT_EQUAL_BURN)
+            sm.reset()
+            sm.run_sampling(PT_EQUAL_SAMPLE)
+        torch.cuda.synchronize()
+        runs[mode] = sm, read_counts(counted)[0]
+    (g, g_counts), (e, e_counts) = runs["graphed"], runs["eager"]
+    differ = pt_state_differs(g, e)
+    if differ or g_counts != e_counts:
+        raise AssertionError(f"tempered: graphed differs from eager in {differ}; "
+                             f"launches {g_counts} / {e_counts}")
+    equal_steps = PT_EQUAL_BURN + PT_EQUAL_SAMPLE
+    if post.device.type == "cuda" and (g.graph_replays, e.graph_replays) != (
+            equal_steps, 0):
+        raise AssertionError(f"tempered: replays {g.graph_replays} / {e.graph_replays}")
+    log(f"tempered: {equal_steps} steps (an adaptation between two windows) as graph "
+        f"replays and eagerly bit-identical (every rung's positions, lnL and "
+        f"log-prior, the ladder, accept and swap counts, evidence accumulators, "
+        f"image accumulators, chain, generator); launches {g_counts} both")
+
+    # the kernels at the tempered batches (a half-step of 4 and of 8 rungs)
+    flat = sampler.state.positions.reshape(-1, spec.num_params)
+    out["kernel_checks"] = [batch_kernel_check(post, flat[:half].contiguous(), "tempered"),
+                            batch_kernel_check(post, flat.contiguous(), "tempered")]
+    out["step_ms"] = time_ms(lambda: sampler._step("retain"), reps=5, inner=5)
+    log(f"tempered: retained step at {PT_NTEMPS} rungs replayed back to back: "
+        f"{out['step_ms']:.3f} ms on the card ({CARD})")
+
+    # 8 rungs on the evidence ladder, 1000 walkers a half-step
+    evid = PTEnsembleSampler(NWALKERS, spec.num_params, post, ntemps=PT_EVID_NTEMPS,
+                             betas=evidence_beta_ladder(PT_EVID_NTEMPS), seed=SEED)
+    evid.init_state(p0)
+    evid.run_burn(PT_EVID_BURN)
+    evid.reset()
+    evid.run_sampling(PT_EVID_SAMPLE)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        ss, ti = evid.log_evidence("stepping-stone"), evid.log_evidence("ti")
+    for w in {str(w.message) for w in caught}:
+        log(f"tempered: {PT_EVID_NTEMPS} rungs: log_evidence warns: {w}")
+    log(f"tempered: {PT_EVID_NTEMPS} rungs on evidence_beta_ladder"
+        f"({PT_EVID_NTEMPS}), burn {PT_EVID_BURN} + sampling {PT_EVID_SAMPLE}: "
+        f"stepping-stone lnZ {ss[0]:.3f} +/- {ss[1]:.3f}, TI lnZ {ti[0]:.3f} "
+        f"+/- {ti[1]:.3f}; swap acceptance "
+        f"{np.array2string(evid.swap_acceptance_fraction, precision=4)}")
+    if not np.all(np.isfinite(ss + ti)):
+        raise AssertionError(f"tempered: evidence not finite: {ss}, {ti}")
+    if post.device.type == "cuda" and evid.graph_replays != PT_EVID_BURN + PT_EVID_SAMPLE:
+        raise AssertionError(f"tempered: {evid.graph_replays} replays at 8 rungs")
+    out["evidence_8"] = {"ss": list(ss), "ti": list(ti)}
+    out["step8_ms"] = time_ms(lambda: evid._step("retain"), reps=5, inner=5)
+    log(f"tempered: retained step at {PT_EVID_NTEMPS} rungs replayed back to back: "
+        f"{out['step8_ms']:.3f} ms on the card ({CARD})")
+    log(f"tempered: peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    return launches, by_route, sampler, out
+
+
+PS_MODEL_CUT = "Sersic(xy="  # the flagship model file without its Sersics
+
+
+def evidence_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
+    """The driver's tempered fit and the evidence at full width: the
+    flagship as FITS files and a model file, ``model_galaxy_mcmc(ntemps=4,
+    burn=60, iterations=40, checkpoint_interval=20)`` under
+    ``PSFMC_LNPOST=pallas`` (the fused kernel), a second call with more
+    iterations resuming every rung, then ``model_galaxy_evidence`` at the
+    JAX defaults on the flagship model file and on a point-source-plus-sky
+    model file of the same data.  Returns the launches of each part and
+    the numbers measured."""
+    import torch
+
+    from psfmc_tpu_torch import fitting
+    from psfmc_tpu_torch.database import load_checkpoint, load_database
+    from psfmc_tpu_torch.flagship import write_flagship_files
+    from psfmc_tpu_torch.io.table import Table
+
+    counted = counted_kernels()
+    out = {}
+    samplers, saves, moved = [], [], []
+    init = fitting.PTEnsembleSampler.__init__
+    save_database = fitting.save_database
+    rejuvenate = fitting.PTEnsembleSampler.rejuvenate_stuck
+
+    def kept_init(self, *a, **k):
+        init(self, *a, **k)
+        samplers.append(self)
+
+    def counting_save(*a, **k):
+        saves.append(k.get("meta_dict", {}).get("MCITER"))
+        return save_database(*a, **k)
+
+    def counting_rejuvenate(self, *a, **k):
+        moved.append(rejuvenate(self, *a, **k))
+        return moved[-1]
+
+    steps = PT_BURN + PT_SAMPLE
+    with tempfile.TemporaryDirectory() as tmp:
+        model_file = write_flagship_files(tmp, shape, psf_shape)
+        out_name = os.path.join(tmp, "out")
+        kwargs = dict(output_name=out_name, chains=NWALKERS, ntemps=PT_NTEMPS,
+                      burn=PT_BURN, iterations=PT_SAMPLE, checkpoint_interval=20,
+                      seed=SEED, device=device)
+        os.environ["PSFMC_LNPOST"] = "pallas"
+        fitting.PTEnsembleSampler.__init__ = kept_init
+        fitting.save_database = counting_save
+        fitting.PTEnsembleSampler.rejuvenate_stuck = counting_rejuvenate
+        try:
+            torch.cuda.synchronize()
+            reset_counts(counted)
+            t0 = time.perf_counter()
+            db = fitting.model_galaxy_mcmc(model_file, **kwargs)
+            wall = time.perf_counter() - t0
+            launches, by_route = read_counts(counted)
+            first = dict(launches, **by_route)
+            log(f"evidence: model_galaxy_mcmc(ntemps={PT_NTEMPS}), {NWALKERS} walkers, "
+                f"burn {PT_BURN} + sampling {PT_SAMPLE}: {wall:.3f} s wall; phases "
+                + ", ".join(f"{k} {v:.3f} s" for k, v in db.phase_seconds.items())
+                + f"; launches {launches}, by route {by_route}; database writes "
+                f"(MCITER) {saves}; walkers moved by each rejuvenation {moved}")
+            # a rejuvenation and a checkpoint after every adaptation window
+            # but the last, a checkpoint between sampling segments, the final
+            if len(moved) != 11 or saves != [0] * 11 + [20, PT_SAMPLE]:
+                raise AssertionError(f"evidence: rejuvenations {moved}, writes {saves}")
+            want = 1 + 2 * steps + sum(n > 0 for n in moved)
+            if launches["fused_lnl"] != want or launches["batched_conv_lnl"] != 0 \
+                    or by_route["fused_lnl:fft"] != want:
+                raise AssertionError(f"evidence: launches {launches} {by_route}; want "
+                                     f"fused_lnl {want} on the FFT route")
+            if device != "cpu" and [s.graph_replays for s in samplers] != [steps]:
+                raise AssertionError(f"evidence: replays "
+                                     f"{[s.graph_replays for s in samplers]}")
+            db_file = out_name + "_db.fits"
+            cards = {k: db.meta.get(k) for k in ("MCITER", "MCLNZ", "MCLNZERR",
+                                                 "MCACCEPT")}
+            ck = Table.read(db_file, format="fits", extname="CHECKPOINT")
+            pay = load_checkpoint(db_file)
+            log(f"evidence: cards {cards}; CHECKPOINT CKPTTEMP {ck.meta.get('CKPTTEMP')}, "
+                f"CKPTEVID {ck.meta.get('CKPTEVID')}, columns {ck.colnames}; ladder "
+                f"{np.array2string(pay['betas'], precision=4)}")
+            if not (np.isfinite(cards["MCLNZ"]) and np.isfinite(cards["MCLNZERR"])
+                    and ck.meta.get("CKPTTEMP") == PT_NTEMPS
+                    and ck.meta.get("CKPTEVID") == PT_SAMPLE
+                    and {"beta", "nswap", "evid_lnl_sum", "evid_lnl_sq_sum",
+                         "evid_ss_max", "evid_ss_sum"} <= set(ck.colnames)
+                    and pay["positions"].shape == (PT_NTEMPS, NWALKERS, 18)):
+                raise AssertionError("evidence: the tempered database or checkpoint")
+            # more iterations: the second call resumes every rung
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                db2 = fitting.model_galaxy_mcmc(model_file,
+                                                **dict(kwargs, iterations=PT_RESUMED))
+            pay2 = load_checkpoint(db_file)
+            first_rows = np.arange(len(db2)).reshape(NWALKERS, PT_RESUMED)[:, :PT_SAMPLE]
+            same = all(np.array_equal(np.asarray(db2[c])[first_rows.ravel()],
+                                      np.asarray(db[c])) for c in db.colnames)
+            log(f"evidence: a second call with iterations={PT_RESUMED} resumed "
+                f"('Resuming from checkpoint' printed: "
+                f"{'Resuming from checkpoint' in buf.getvalue()}), the first "
+                f"{PT_SAMPLE} samples kept: {same}; CKPTEVID {pay2['evid_steps']}, "
+                f"MCLNZ {db2.meta['MCLNZ']:.3f} +/- {db2.meta['MCLNZERR']:.3f}; "
+                f"ladder kept: {np.array_equal(pay2['betas'], pay['betas'])}")
+            if not ("Resuming from checkpoint" in buf.getvalue() and same
+                    and pay2["evid_steps"] == PT_RESUMED and len(db2) == NWALKERS * PT_RESUMED
+                    and np.array_equal(pay2["betas"], pay["betas"])
+                    and np.isfinite(db2.meta["MCLNZ"])):
+                raise AssertionError("evidence: the resumed tempered fit")
+            if device != "cpu" and samplers[-1].graph_replays != PT_RESUMED - PT_SAMPLE:
+                raise AssertionError(f"evidence: resumed replays {samplers[-1].graph_replays}")
+            out["fit"] = {"wall_s": wall, "MCLNZ": cards["MCLNZ"],
+                          "MCLNZERR": cards["MCLNZERR"]}
+            out["fit_launches"] = first
+        finally:
+            fitting.PTEnsembleSampler.__init__ = init
+            fitting.save_database = save_database
+            fitting.PTEnsembleSampler.rejuvenate_stuck = rejuvenate
+            del os.environ["PSFMC_LNPOST"]
+
+        # the evidence of two model files of the same data (batched path)
+        with open(model_file) as fh:
+            text = fh.read()
+        ps_file = os.path.join(tmp, "ps_model.py")
+        with open(ps_file, "w") as fh:
+            fh.write(text[:text.index(PS_MODEL_CUT)])
+        results = {}
+        for name, path in (("flagship", model_file), ("point source + sky", ps_file)):
+            torch.cuda.synchronize()
+            reset_counts(counted)
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                res = fitting.model_galaxy_evidence(
+                    path, nwalkers=AIS_NWALKERS, nsteps=AIS_STEPS, groups=AIS_GROUPS,
+                    sweeps=AIS_SWEEPS, seed=SEED, device=device)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches, by_route = read_counts(counted)
+            for w in {str(w.message) for w in caught}:
+                log(f"evidence: {name}: warns: {w}")
+            log(f"evidence: model_galaxy_evidence({name}), {res.nwalkers} walkers in "
+                f"{AIS_GROUPS} groups, {res.nsteps} steps x {AIS_SWEEPS} sweeps: lnZ "
+                f"{res.lnz:.3f} +/- {res.err:.3f} (groups "
+                f"{np.array2string(res.lnz_groups, precision=3)}), ESS {res.ess:.1f}, "
+                f"acceptance {res.accept_fraction:.4f}, {res.nresample} resamplings; "
+                f"{wall:.3f} s wall on the card ({CARD}); launches {launches}")
+            half = AIS_NWALKERS // 2
+            want = 1 + 2 * AIS_SWEEPS * res.nsteps
+            if launches["batched_conv_lnl"] != want or by_route["batched_conv_lnl:fft"] != want:
+                raise AssertionError(f"evidence: {name}: conv_lnl launches {by_route}, "
+                                     f"want {want} at B = {half}")
+            if name == "flagship" and launches["render_sersics"] != want:
+                raise AssertionError(f"evidence: render launches {launches}")
+            if device != "cpu" and res.graph_replays != res.nsteps:
+                raise AssertionError(f"evidence: {res.graph_replays} of {res.nsteps} "
+                                     "anneal steps were graph replays")
+            if not (np.isfinite(res.lnz) and np.isfinite(res.err)):
+                raise AssertionError(f"evidence: {name}: lnZ {res.lnz} +/- {res.err}")
+            results[name] = {"lnz": res.lnz, "err": res.err, "wall_s": wall,
+                             "launches": dict(launches, **by_route)}
+        ln_b = results["flagship"]["lnz"] - results["point source + sky"]["lnz"]
+        err_b = math.hypot(results["flagship"]["err"], results["point source + sky"]["err"])
+        log(f"evidence: ln Bayes factor (flagship over point source + sky) "
+            f"{ln_b:.3f} +/- {err_b:.3f}; the two anneals "
+            f"{sum(r['wall_s'] for r in results.values()):.3f} s wall on the card "
+            f"({CARD})")
+        out["ais"] = results
+        out["ln_bayes"] = [ln_b, err_b]
+    return out
 
 
 GENERAL_RTOL = 1e-4  # general-path lnpost (f32, GPU) vs the CPU's f64 general path
@@ -2274,7 +2687,7 @@ def joint_phase(shapes=None, psf_shape=(64, 64), device=None, radix7_band=None):
     return sampling, variant_launches, on_path, fresh
 
 
-# -- phase 12: the gradient path -------------------------------------------
+# -- phase 14: the gradient path -------------------------------------------
 
 MAP_STARTS, MAP_STEPS = 64, 500  # fit_map's defaults, the MAP path's depth
 MAP_SHORT_STEPS = 50  # the joint MAPs with band 1 at 98x98, 74x74 and 94x94
@@ -3419,7 +3832,8 @@ def main():
     from psfmc_tpu_torch.models import build_model_spec, build_posterior
     from psfmc_tpu_torch.ops.kernels import _build
 
-    identity = card_identity()
+    global CARD
+    identity = CARD = card_identity()
     log(identity)  # name, power limit: exactly as nvidia-smi prints them
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
@@ -3449,6 +3863,8 @@ def main():
     launches, sampler = slice_phase(post, spec)
     driver_launches, mc, last = driver_phase()
     graph_phase(post, spec)
+    pt_launches, pt_routes, tempered, pt_out = tempered_phase(post, spec)
+    evid_out = evidence_phase()
     general_launches, variant_launches, general = general_phase()
     family_launches_, family_variant_launches, family = family_phase()
     prior_family_phase()
@@ -3466,6 +3882,7 @@ def main():
     steady_phase(fused, "driver path (lnpost='fused')")
     if "--profile" in sys.argv[1:]:
         profile_phase(sampler, "slice path (lnpost='batched')")
+        profile_phase(tempered, f"tempered path ({PT_NTEMPS} rungs, lnpost='batched')")
         profile_phase(fused, "driver path (lnpost='fused')")
         profile_phase(general, "general path (lnpost='general')")
         profile_phase(family, "family path (lnpost='batched')")
@@ -3509,11 +3926,20 @@ def main():
                "fused_lnl": driver_launches["fused_lnl:fft"] + fam_var["fused_lnl"],
                "fused_lnl_dft": driver_launches["fused_lnl:dft"]}
     by_name["fused_lnl"] += pri_var["fused_lnl"]
+    # the tempered phase's fit (4 rungs: 500 walkers a launch) and the
+    # evidence phase: the driver's tempered fit on the fused kernel, the two
+    # anneals on the render and conv_lnl (256 walkers a launch)
+    ais = evid_out["ais"].values()
+    by_name["sersic_render"] += pt_launches["render_sersics"] + sum(
+        a["launches"]["render_sersics"] for a in ais)
+    by_name["conv_lnl"] += pt_routes["batched_conv_lnl:fft"] + sum(
+        a["launches"]["batched_conv_lnl:fft"] for a in ais)
+    by_name["fused_lnl"] += evid_out["fit_launches"]["fused_lnl:fft"]
     by_name["sersic_render"] += jnt["render_sersics"] + jnt_var["render_sersics"]
     by_name["sersic_render_tiled"] += jnt_var["render_sersics_tiled"]
     by_name["conv_lnl"] += (jnt["batched_conv_lnl:fft"] + jnt_var["batched_conv_lnl:fft"]
                             - by_name["conv_lnl_mixed"] - by_name["conv_lnl_radix7"])
-    # the gradient path (phase 12): model_galaxy_map, the init="map" fit and
+    # the gradient path (phase 14): model_galaxy_map, the init="map" fit and
     # the three joint MAPs, each kernel and backward kernel on its route
     # and, on the FFT routes, its geometry (a route's launches less those
     # it counted at mixed-radix shapes, with or without radix-7 stages).
@@ -3552,6 +3978,8 @@ def main():
         r["launches"] = by_name[r["name"]]
         if r["name"] == "conv_lnl_mixed":  # timed on the joint fit's band 1 too
             r.update(joint_on_path)
+        if r["name"] in ("sersic_render", "conv_lnl"):  # at the tempered batches
+            r["tempered_checks"] = pt_out["kernel_checks"]
     for r in rows:
         if r["name"].startswith("conv_lnl") and not r["launches"]:
             raise AssertionError(f"{r['name']} was never launched on the main path")
@@ -3559,6 +3987,13 @@ def main():
         for k, v in r.items():
             if isinstance(v, float) and not math.isfinite(v):
                 raise AssertionError(f"{r['name']}.{k} is not finite")
+    log(json.dumps({"tempered": {k: pt_out[k] for k in ("step_ms", "step8_ms",
+                                                        "swap_acceptance", "ladder",
+                                                        "evidence_8")},
+                    "evidence": {k: evid_out[k] for k in ("fit", "ln_bayes")},
+                    "ais": {k: {f: v[f] for f in ("lnz", "err", "wall_s")}
+                            for k, v in evid_out["ais"].items()},
+                    "card": identity}))
     log(json.dumps({"kernels": rows, "card": identity}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -14,7 +14,7 @@ hand-written kernels in ``csrc/`` run (built with ``nvcc`` at first use).
 from . import analysis, database, distributions, io, model_parser, models, ops, optimize, sampler
 from ._device import resolve_device
 from .database import get_sampler_state, load_database
-from .fitting import model_galaxy_map, model_galaxy_mcmc
+from .fitting import model_galaxy_evidence, model_galaxy_map, model_galaxy_mcmc
 from .models import MultiComponentModel, UnconstrainingTransform, build_transform
 from .optimize import MAPResult, fit_map, laplace_covariance, scatter_around
 
@@ -29,6 +29,7 @@ __all__ = [
     "model_parser",
     "model_galaxy_mcmc",
     "model_galaxy_map",
+    "model_galaxy_evidence",
     "fit_map",
     "scatter_around",
     "laplace_covariance",

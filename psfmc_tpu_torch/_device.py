@@ -1,9 +1,12 @@
 """Device policy shared by every entry point of the port."""
 from __future__ import annotations
 
+import contextlib
+import gc
+
 import torch
 
-__all__ = ["resolve_device", "pin_fp32_matmul"]
+__all__ = ["resolve_device", "pin_fp32_matmul", "gc_paused"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -44,3 +47,20 @@ def pin_fp32_matmul():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+
+
+@contextlib.contextmanager
+def gc_paused():
+    """Collect Python's garbage, then pause the collector until the block
+    ends: a CUDA graph capture runs inside.  A dead reference cycle can
+    hold a captured graph (a posterior and the programs it caches); its
+    destruction inside another capture frees memory, which invalidates
+    that capture, and the collector may run at any allocation."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()

@@ -8,8 +8,10 @@ stochastic (``xy`` two wide), then ``lnprobability``, ``walker`` and
 (``MAPWLKR``, ``MAPSAMP``) ride in the table's header.
 
 The CHECKPOINT extension holds the resume state as in the JAX package
-(positions, lnp, accept counts per walker; CKPTVERS, CKPTSMPL,
-CKPTTEMP, CKPTACCN, CKPTSTEP cards) and CKPTIMGS the running image
+(positions, lnp, accept counts per walker, for a tempered sampler of
+every rung with the ladder, swap counts and evidence accumulators;
+CKPTVERS, CKPTSMPL, CKPTTEMP, CKPTACCN, CKPTSTEP and CKPTEVID cards) and
+CKPTIMGS the running image
 means: one ``(H, W)`` column per image when every image has one shape,
 and for a joint model's bands of several shapes one row of flattened
 cells with a ``CKIMSH{i}`` card (``"H,W"``) per column, the JAX
@@ -146,20 +148,36 @@ def _image_hdu(accum):
 
 def _checkpoint_hdus(payload):
     """CHECKPOINT (per-walker state), CKPTIMGS (image accumulators,
-    :func:`_image_hdu`) and CKPTRNG (the generator's state) HDUs."""
+    :func:`_image_hdu`) and CKPTRNG (the generator's state) HDUs.
+
+    A tempered payload's rows hold every rung, row-major ``(ntemps *
+    nwalkers)``, the cold rung's lnp padded with zeros, a per-row
+    ``beta``, the swap counts in a ``nswap`` column padded with -1, and
+    the evidence accumulators in padded ``evid_*`` columns with the
+    CKPTEVID card, as the JAX package writes them."""
+    ntemps = int(payload.get("ntemps", 1))
     pos = np.asarray(payload["positions"], dtype=np.float64)
+    pos = pos.reshape(-1, pos.shape[-1])
+    nrows = pos.shape[0]
     key = _rng_key_words(payload["rng_state"])
+
+    def padded(values, fill=0.0):
+        out = np.full(nrows, fill, np.float64)
+        v = np.ravel(np.asarray(values, np.float64))
+        out[:len(v)] = v
+        return out
+
     cols = OrderedDict([
         ("position", pos),
-        ("log_prob", np.asarray(payload["log_prob"], np.float64).reshape(-1)),
+        ("log_prob", padded(payload["log_prob"])),
         ("naccept", np.asarray(payload["naccept"], np.int64).reshape(-1)),
-        ("prng_key", np.tile(key[None, :], (pos.shape[0], 1))),
+        ("prng_key", np.tile(key[None, :], (nrows, 1))),
     ])
     meta = [
         ("CKPTVERS", (2, "checkpoint format version")),
         ("CKPTSMPL", (str(payload.get("sampler_kind", "ensemble")),
                       "sampler family that wrote this checkpoint")),
-        ("CKPTTEMP", (1, "parallel-tempering rungs in checkpoint")),
+        ("CKPTTEMP", (ntemps, "parallel-tempering rungs in checkpoint")),
         ("CKPTACCN", (int(payload.get("accum_count", 0)),
                       "samples in image accumulators")),
         ("CKPTSTEP", (int(payload.get("nsteps", 0)),
@@ -167,6 +185,16 @@ def _checkpoint_hdus(payload):
         ("CKPTRNGK", (str(payload["rng_kind"]),
                       "generator kind of the CKPTRNG state")),
     ]
+    if payload.get("nswap") is not None:
+        cols["nswap"] = padded(payload["nswap"], fill=-1.0)
+    if payload.get("betas") is not None and ntemps > 1:
+        cols["beta"] = np.repeat(np.asarray(payload["betas"], np.float64),
+                                 nrows // ntemps)
+    if payload.get("lnl_sum") is not None:
+        for name in ("lnl_sum", "lnl_sq_sum", "ss_max", "ss_sum"):
+            cols[f"evid_{name}"] = padded(payload[name])
+        meta.append(("CKPTEVID", (int(payload.get("evid_steps", 0)),
+                                  "retained steps in evidence accumulators")))
     hdr, raw = fits.make_bintable_hdu(list(cols), cols, meta=meta,
                                       extname="CHECKPOINT")
     hdus = [(hdr, raw)]
@@ -189,8 +217,11 @@ def load_checkpoint(db_name):
     checkpoint_payload``), or None without a CHECKPOINT extension.
 
     Reads the JAX package's checkpoints too: their generator is reported
-    as ``rng_kind = 'jax'`` (no ``rng_state``); a tempered one's rows
-    hold every rung (``ntemps > 1``).
+    as ``rng_kind = 'jax'`` (no ``rng_state``).  A tempered checkpoint
+    (``ntemps > 1``) reads as the JAX loader reads it: positions
+    ``(ntemps, nwalkers, dim)``, accept counts ``(ntemps, nwalkers)``, the
+    cold rung's lnp, ``nswap``, ``betas`` and the evidence accumulators
+    (``lnl_sum``, ``lnl_sq_sum``, ``ss_max``, ``ss_sum``, ``evid_steps``).
     """
     try:
         ckpt = Table.read(db_name, format="fits", extname="CHECKPOINT")
@@ -211,6 +242,23 @@ def load_checkpoint(db_name):
         "rng_kind": str(ckpt.meta.get("CKPTRNGK", "jax")),
         "rng_state": None,
     }
+    ntemps = payload["ntemps"]
+    if ntemps > 1:
+        payload["positions"] = payload["positions"].reshape(
+            ntemps, -1, payload["positions"].shape[-1])
+        payload["naccept"] = payload["naccept"].reshape(ntemps, -1)
+        payload["log_prob"] = payload["log_prob"].reshape(ntemps, -1)[0]
+        if "nswap" in ckpt.colnames:
+            payload["nswap"] = np.asarray(
+                ckpt["nswap"], np.float64)[:ntemps - 1].astype(np.int64)
+        if "evid_lnl_sum" in ckpt.colnames:
+            for name, n in (("lnl_sum", ntemps), ("lnl_sq_sum", ntemps),
+                            ("ss_max", ntemps - 1), ("ss_sum", ntemps - 1)):
+                payload[name] = np.asarray(ckpt[f"evid_{name}"], np.float64)[:n]
+            payload["evid_steps"] = int(ckpt.meta.get("CKPTEVID", 0))
+        if "beta" in ckpt.colnames:
+            payload["betas"] = np.asarray(ckpt["beta"], np.float64).reshape(
+                ntemps, -1)[:, 0]
     if "CKPTRNGK" in ckpt.meta:
         rng = Table.read(db_name, format="fits", extname="CKPTRNG")
         payload["rng_state"] = np.asarray(rng["rng_state"][0]).astype(np.uint8)

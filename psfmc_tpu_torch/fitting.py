@@ -20,19 +20,24 @@ Deliberate divergences from the JAX driver:
   re-runs from scratch, like the other guards;
 * the driver runs on CUDA unless ``device="cpu"`` is given.
 
-This slice runs ``sampler="ensemble"`` with ``ntemps=1``, any
-``moves`` (``"stretch"``, ``"de"`` or ``"mixed"``), ``init="prior"`` or
-``init="map"`` (a gradient MAP fit of a pool of prior draws, then a
-z-space cloud around it), ``criticism=False`` and ``mesh=None``; every
-other choice raises ``NotImplementedError`` naming the ROADMAP item that
-brings it.  On CUDA every sampler step and every Adam step is a replay
-of a captured CUDA graph
+This slice runs ``sampler="ensemble"`` with any ``ntemps`` (parallel
+tempering above 1, :class:`~psfmc_tpu_torch.sampler.tempered.
+PTEnsembleSampler`, whose evidence goes into the ``MCLNZ`` / ``MCLNZERR``
+cards from 3 rungs up), any ``moves`` (``"stretch"``, ``"de"`` or
+``"mixed"``), ``init="prior"`` or ``init="map"`` (a gradient MAP fit of a
+pool of prior draws, then a z-space cloud around it), ``criticism=False``
+and ``mesh=None``; every other choice raises ``NotImplementedError``
+naming the ROADMAP item that brings it.  On CUDA every sampler step and
+every Adam step is a replay of a captured CUDA graph
 (:class:`~psfmc_tpu_torch.sampler.ensemble.EnsembleSampler`,
 :func:`~psfmc_tpu_torch.optimize.fit_map`).
 
 :func:`model_galaxy_map` is the quick-look MAP fit: the five image
 products of the mode, with each parameter's value (and Laplace standard
-error) in the headers.
+error) in the headers.  :func:`model_galaxy_evidence` is the marginal
+likelihood of a model file by annealed importance sampling
+(:func:`~psfmc_tpu_torch.sampler.ais.ais_evidence`), for Bayes factors
+between two model files of the same data.
 """
 from __future__ import annotations
 
@@ -57,9 +62,10 @@ from .database import (
 )
 from .models.multicomponent import as_model
 from .sampler.ensemble import EnsembleSampler
+from .sampler.tempered import PTEnsembleSampler
 from .utils import print_progress
 
-__all__ = ["model_galaxy_mcmc", "model_galaxy_map"]
+__all__ = ["model_galaxy_mcmc", "model_galaxy_map", "model_galaxy_evidence"]
 
 
 def _not_in_slice(what, item):
@@ -177,6 +183,11 @@ def model_galaxy_mcmc(
     :param checkpoint_interval: steps between progress lines and
         checkpoints (default: about a tenth of a phase longer than 50
         steps, at least 25; 0 disables segmenting).
+    :param ntemps: parallel-tempering rungs (1: the plain ensemble
+        sampler); from 3 rungs the database carries the evidence
+        (``MCLNZ``, ``MCLNZERR``).
+    :param betas: the tempering ladder (pins it; by default it is sized
+        during burn-in and frozen for the retained phase).
     :param moves: proposal family of the ensemble sampler:
         ``"stretch"``, ``"de"`` (differential evolution) or ``"mixed"``.
     :param rejuvenate: move stranded walkers onto healthy ones between
@@ -187,9 +198,9 @@ def model_galaxy_mcmc(
         phase of this call (init, burn, sampling, images), each ending
         in a device synchronize.
 
-    ``mesh``, ``ntemps``, ``betas``, ``sampler``, ``init``,
-    ``max_depth`` and ``criticism`` keep the JAX driver's names; values
-    outside this slice raise ``NotImplementedError``.  The likelihood
+    ``mesh``, ``sampler``, ``init``, ``max_depth`` and ``criticism``
+    keep the JAX driver's names; values outside this slice raise
+    ``NotImplementedError``.  The likelihood
     path follows ``PSFMC_LNPOST`` and the model (``pallas`` runs the
     fused kernel; unset, a model the conv+likelihood kernel covers runs
     it and any other the general path; each band of a joint model takes
@@ -205,10 +216,7 @@ def model_galaxy_mcmc(
         raise ValueError(
             f"Unknown sampler {sampler!r}: expected 'ensemble' or 'nuts'")
     if sampler == "nuts":
-        _not_in_slice("sampler='nuts'", "19 (other samplers)")
-    if ntemps != 1 or betas is not None:
-        _not_in_slice("parallel tempering (ntemps > 1, betas)",
-                      "19 (other samplers)")
+        _not_in_slice("sampler='nuts'", "19 (other samplers: NUTS)")
     if criticism:
         _not_in_slice("criticism=True", "17 (criticism and analysis)")
     if mesh is not None:
@@ -227,8 +235,13 @@ def model_galaxy_mcmc(
         chains = 2 * mc_model.num_params + 2
     if chains % 2:
         chains += 1
-    ens = EnsembleSampler(chains, mc_model.num_params, fns, seed=seed,
-                          device=fns.device, moves=moves)
+    if ntemps > 1:
+        ens = PTEnsembleSampler(chains, mc_model.num_params, fns, ntemps=ntemps,
+                                betas=betas, seed=seed, device=fns.device,
+                                moves=moves)
+    else:
+        ens = EnsembleSampler(chains, mc_model.num_params, fns, seed=seed,
+                              device=fns.device, moves=moves)
     db_name = output_name.format("db") + ".fits"
     common = dict(max_iterations=max_iterations,
                   convergence_check=convergence_check, db_name=db_name,
@@ -367,6 +380,45 @@ def model_galaxy_map(model_file, output_name=None, write_fits=default_filetypes,
     return res
 
 
+def model_galaxy_evidence(model_file, nwalkers=512, nsteps=3000, groups=4,
+                          sweeps=2, seed=0, mesh=None, moves="mixed", device=None,
+                          **ais_kwargs):
+    """Marginal likelihood of a model file (Bayesian model comparison).
+
+    Builds the model and runs the SMC/AIS evidence estimator
+    (:func:`~psfmc_tpu_torch.sampler.ais.ais_evidence`) from
+    ``nwalkers`` draws of its priors.  Two model files of the same data
+    compare by their log Bayes factor::
+
+        r1 = model_galaxy_evidence('model_ps_only.py')
+        r2 = model_galaxy_evidence('model_ps_host.py')
+        ln_bayes = r2.lnz - r1.lnz   # > 0 favors the host model
+
+    :param model_file: model definition file name, component list or
+        prepared model (as for :func:`model_galaxy_mcmc`).
+    :param nwalkers: total walkers; walkers per group (``nwalkers //
+        groups``) must be enough to find the posterior's modes from prior
+        draws: keep 64 or more for imaging models.
+    :param nsteps: annealing steps (many more than std(lnL), about
+        ``sqrt(n_good_pixels / 2)``).
+    :param device: the posterior's device, CUDA unless ``"cpu"``.
+    :returns: :class:`~psfmc_tpu_torch.sampler.ais.AISResult`.
+
+    ``mesh`` keeps the JAX function's name; a mesh raises
+    ``NotImplementedError``.
+    """
+    from .sampler.ais import ais_evidence
+
+    if mesh is not None:
+        _not_in_slice("a device mesh", "18 (multi-device)")
+    mc_model = as_model(model_file, device=device)
+    rng = np.random.RandomState(seed)
+    p0 = mc_model.init_params_from_priors(nwalkers, random_state=rng)
+    return ais_evidence(mc_model.posterior_fns, nwalkers=nwalkers, nsteps=nsteps,
+                        groups=groups, sweeps=sweeps, seed=seed, p0=p0,
+                        moves=moves, **ais_kwargs)
+
+
 def _save_joint_images(mc_model, sampler, db_name, database, output_name,
                        filetypes):
     """A joint model's products, one set of the five image types per band,
@@ -416,7 +468,7 @@ def _run_sampling(sampler, mc_model, initial_positions, burn, iterations,
         niter = 0 if sampler.chain is None else sampler.chain.shape[1]
         burn_dn = (min(burn_done + sampler._nsteps_total, burn_total)
                    if niter == 0 else burn_total)
-        return OrderedDict([
+        meta = OrderedDict([
             ("MCITER", niter),
             ("MCBURN", burn_total),
             ("MCBURNDN", burn_dn),
@@ -425,6 +477,16 @@ def _run_sampling(sampler, mc_model, initial_positions, burn, iterations,
             ("MCACCEPT", float(sampler.acceptance_fraction.mean())),
             ("MCDATSUM", _data_fingerprint(mc_model)),
         ])
+        if niter > 0 and getattr(sampler, "ntemps", 1) >= 3:
+            # a tempered run's marginal-likelihood estimate
+            try:
+                lnz, dlnz = sampler.log_evidence()
+            except (RuntimeError, ValueError):
+                pass
+            else:
+                meta["MCLNZ"] = float(lnz)
+                meta["MCLNZERR"] = float(dlnz)
+        return meta
 
     if burn > 0:
         print(f"Burning: {burn} iterations x {sampler.nwalkers} walkers")

@@ -260,6 +260,16 @@ class JointPosteriorFns(nn.Module):
         return self._joint(self.log_prior_batch(thetas),
                            self.log_likelihood_batch(thetas))
 
+    def log_likelihood_prior_batch(self, thetas):
+        """``(lnL, lnprior)`` per walker for the tempered samplers, as the
+        JAX package splits its joint posterior: ``lnpost - lnprior`` where
+        the prior is finite, ``-inf`` elsewhere."""
+        thetas = self.as_thetas(thetas)
+        lp = self.log_prior_batch(thetas)
+        post = self._joint(lp, self.log_likelihood_batch(thetas))
+        return torch.where(torch.isfinite(lp), post - lp,
+                           torch.full_like(lp, -math.inf)), lp
+
     forward = log_posterior_batch
 
     def differentiable_log_posterior(self, thetas):

@@ -283,6 +283,12 @@ class PosteriorFns(nn.Module):
                  lnpost=None):
         super().__init__()
         self.lnpost = lnpost_mode(lnpost, spec)
+        # whether the JAX package runs this path as a Pallas kernel, whose
+        # own lnL its tempered samplers take (fused: PSFMC_LNPOST=pallas;
+        # batched when PSFMC_LNPOST=pallas_batched picked it)
+        self.kernel_lnl = self.lnpost == "fused" or (
+            lnpost is None and self.lnpost == "batched"
+            and os.environ.get("PSFMC_LNPOST") == "pallas_batched")
         gates = {"fused": (fused_lnl_supported, "PSFMC_LNPOST=pallas"),
                  "batched": (batched_lnl_supported, "PSFMC_LNPOST=pallas_batched")}
         if self.lnpost in gates:
@@ -624,6 +630,21 @@ class PosteriorFns(nn.Module):
     def log_posterior_batch(self, thetas):
         """lnpost per walker: prior, then :meth:`log_likelihood_batch`."""
         return self._log_posterior(self.as_thetas(thetas), self.lnpost)
+
+    def log_likelihood_prior_batch(self, thetas):
+        """``(lnL, lnprior)`` per walker, the split the tempered samplers
+        temper, with one evaluation of each: the likelihood kernel's own
+        lnL where the JAX package's path is a Pallas kernel
+        (``kernel_lnl``), else, as its XLA path recovers it, ``lnpost -
+        lnprior`` where the prior is finite and ``-inf`` elsewhere."""
+        thetas = self.as_thetas(thetas)
+        lp = self.prior(thetas)
+        lnl = self._log_likelihood(thetas, self.lnpost)
+        if self.kernel_lnl:
+            return lnl, lp
+        inf = torch.full_like(lp, -math.inf)
+        post = torch.where(torch.isfinite(lp), lnl + lp, inf)
+        return torch.where(torch.isfinite(lp), post - lp, inf), lp
 
     forward = log_posterior_batch
 

@@ -37,6 +37,7 @@ from warnings import warn
 import numpy as np
 import torch
 
+from ._device import gc_paused
 from .models.posterior import value_and_grad
 from .models.transforms import build_transform, transform_token
 from .ops.kernels import counts
@@ -185,7 +186,8 @@ class _AdamProgram:
         """Capture one step.  The warm-up that capture needs (the kernels'
         builds, cuBLAS's workspace, lazily made constants) runs one step
         on a side stream with its launches uncounted; the state is
-        restored after it."""
+        restored after it.  Python's collector is paused over the capture
+        (:func:`~psfmc_tpu_torch._device.gc_paused`)."""
         saved = [t.clone() for t in self._state()]
         side = torch.cuda.Stream(self.fns.device)
         side.wait_stream(torch.cuda.current_stream(self.fns.device))
@@ -193,7 +195,7 @@ class _AdamProgram:
             self.step()
         torch.cuda.current_stream(self.fns.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with counts.tally() as launches:
+        with counts.tally() as launches, gc_paused():
             with torch.cuda.graph(graph, stream=side):
                 self.step()
         for t, s in zip(self._state(), saved):

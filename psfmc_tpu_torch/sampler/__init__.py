@@ -1,4 +1,7 @@
-"""Samplers of the port (the ensemble sampler: stretch, DE and mixed moves)."""
+"""Samplers of the port: the ensemble sampler (stretch, DE and mixed
+moves), its parallel-tempered counterpart with the evidence estimators,
+and annealed importance sampling."""
+from .ais import AISResult, ais_beta_schedule, ais_evidence
 from .autocorr import AutocorrError, integrated_time
 from .ensemble import (
     MOVES,
@@ -11,6 +14,11 @@ from .ensemble import (
     stretch_update,
     welford_batch_update,
 )
+from .tempered import (
+    PTEnsembleSampler,
+    default_beta_ladder,
+    evidence_beta_ladder,
+)
 
 __all__ = [
     "AutocorrError",
@@ -18,6 +26,12 @@ __all__ = [
     "MOVES",
     "EnsembleSampler",
     "EnsembleState",
+    "PTEnsembleSampler",
+    "default_beta_ladder",
+    "evidence_beta_ladder",
+    "AISResult",
+    "ais_beta_schedule",
+    "ais_evidence",
     "de_update",
     "fresh_image_accumulators",
     "merge_image_accumulators",

@@ -71,7 +71,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import gc_paused, resolve_device
 from ..ops.kernels import counts
 from .autocorr import integrated_time
 
@@ -86,6 +86,7 @@ __all__ = [
     "de_update",
     "mixed_update",
     "make_step_fn",
+    "capture_step",
 ]
 
 MOVES = ("stretch", "de", "mixed")
@@ -176,19 +177,26 @@ def _metropolis(active_pos, active_lnp, proposal, log_extra, lnpost_batch,
     return new_pos, new_lnp, accept.to(torch.int64)
 
 
+def _take(comp_pos, partner):
+    """``comp_pos[partner]`` along the walker axis, with or without a
+    leading rung axis (``(m, dim)`` and ``(k,)``, or ``(T, m, dim)`` and
+    ``(T, k)``)."""
+    return torch.take_along_dim(comp_pos, partner[..., None], dim=-2)
+
+
 def _stretch_proposal(active_pos, comp_pos, a, dim, u, partner):
     z = ((a - 1.0) * u + 1.0) ** 2 / a
-    c = comp_pos[partner]
-    return c + z[:, None] * (active_pos - c), (dim - 1.0) * torch.log(z)
+    c = _take(comp_pos, partner)
+    return c + z[..., None] * (active_pos - c), (dim - 1.0) * torch.log(z)
 
 
 def _de_proposal(active_pos, comp_pos, gamma0, partner, shift, u_jump, normal):
-    partner2 = torch.remainder(partner + 1 + shift, comp_pos.shape[0])
+    partner2 = torch.remainder(partner + 1 + shift, comp_pos.shape[-2])
     gamma = torch.where(u_jump < 0.1, torch.ones_like(u_jump),
                         torch.full_like(u_jump, gamma0))
     gamma = gamma * (1.0 + 1e-5 * normal)
-    diff = comp_pos[partner] - comp_pos[partner2]
-    return active_pos + gamma[:, None] * diff, torch.zeros_like(u_jump)
+    diff = _take(comp_pos, partner) - _take(comp_pos, partner2)
+    return active_pos + gamma[..., None] * diff, torch.zeros_like(u_jump)
 
 
 def stretch_update(active_pos, active_lnp, comp_pos, lnpost_batch, a, dim,
@@ -330,6 +338,31 @@ class _StepGraph:
     def replay(self):
         self.graph.replay()
         counts.add(self.launches)
+
+
+def capture_step(step, live, scratch, generator, stream, pool):
+    """Capture ``step(*live)`` into a CUDA graph on ``stream`` in ``pool``.
+
+    The warm-up that capture needs (the kernels' builds, cuBLAS's handle
+    and workspace, the lazily copied constants) runs ``step(*scratch)``,
+    on scratch copies of the buffers, with its launches left uncounted
+    and ``generator``'s state restored after it: the buffers, the
+    generator and the counts move only by replays.  Python's collector is
+    paused over the capture (:func:`~psfmc_tpu_torch._device.gc_paused`).
+    """
+    current = torch.cuda.current_stream(stream.device)
+    rng_state = generator.get_state()
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream), counts.tally():
+        step(*scratch)
+    current.wait_stream(stream)
+    generator.set_state(rng_state)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(generator)
+    with counts.tally() as launches, gc_paused():
+        with torch.cuda.graph(graph, pool=pool, stream=stream):
+            step(*live)
+    return _StepGraph(graph, launches)
 
 
 @contextlib.contextmanager
@@ -535,34 +568,19 @@ class EnsembleSampler:
         self.graph_replays += 1
 
     def _capture(self, variant):
-        """Capture one step of ``variant`` into a CUDA graph.
-
-        The warm-up that capture needs (the kernels' builds, cuBLAS's
-        handle and workspace, the lazily copied constants) runs the step
-        on scratch copies of the buffers, with its launches left
-        uncounted and the generator's state restored after it: the
-        chain, the generator and the counts move only by replays.
-        """
+        """Capture one step of ``variant`` into a CUDA graph
+        (:func:`capture_step`, warmed up on scratch copies of the
+        buffers): the chain, the generator and the counts move only by
+        replays."""
         step = self._step_fn(variant != "burn")
         record = self._record if variant == "record" else None
-        current = torch.cuda.current_stream(self.device)
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
             self._pool = torch.cuda.graph_pool_handle()
-        scratch = self.state.clone()
         scratch_record = None if record is None else tuple(t.clone() for t in record)
-        rng_state = self.generator.get_state()
-        self._stream.wait_stream(current)
-        with torch.cuda.stream(self._stream), counts.tally():
-            step(scratch, scratch_record)
-        current.wait_stream(self._stream)
-        self.generator.set_state(rng_state)
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.generator)
-        with counts.tally() as launches:
-            with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
-                step(self.state, record)
-        return _StepGraph(graph, launches)
+        return capture_step(step, (self.state, record),
+                            (self.state.clone(), scratch_record),
+                            self.generator, self._stream, self._pool)
 
     def _use_record(self, nrec):
         """Chain buffers of at least ``nrec`` rows, the slot at row 0; a
@@ -575,6 +593,10 @@ class EnsembleSampler:
                 torch.zeros(1, dtype=torch.int64, device=self.device))
             self._graphs.pop("record", None)
         self._record[2].zero_()
+
+    def _cold_naccept(self):
+        """Accept counts of the walkers the chain records."""
+        return self.state.naccept
 
     # -- phases ----------------------------------------------------------
     @staticmethod
@@ -600,13 +622,13 @@ class EnsembleSampler:
         nrec = 0 if burn else n // thin
         if nrec:
             self._use_record(nrec)
-        start_accept = self.state.naccept.clone()
+        start_accept = self._cold_naccept().clone()
         for i in range(int(n)):
             if burn:
                 self._step("burn")
             else:
                 self._step("record" if (i + 1) % thin == 0 else "retain")
-        self._naccept += (self.state.naccept - start_accept).cpu().numpy()
+        self._naccept += (self._cold_naccept() - start_accept).cpu().numpy()
         self._nsteps_total += int(n)
         if not nrec:
             return None, None
@@ -716,25 +738,34 @@ class EnsembleSampler:
 
         Log-probabilities are recomputed (one batched evaluation);
         positions, accumulators, accept counts and the generator state
-        are restored exactly.  Raises ``ValueError`` for a checkpoint
-        whose generator is not this sampler's kind.
+        are restored exactly; a tempered checkpoint gives its cold rung.
+        Raises ``ValueError`` for a checkpoint whose generator is not
+        this sampler's kind.
         """
+        self._check_rng_kind(payload)
+        positions = np.asarray(payload["positions"], np.float64)
+        if positions.ndim == 3:  # a tempered checkpoint: its cold rung
+            positions = positions[0]
+        self.init_state(positions)
+        self.generator.set_state(torch.as_tensor(
+            np.asarray(payload["rng_state"], np.uint8)))
+        self._restore_accum(payload)
+        naccept = np.asarray(payload.get("naccept", 0), np.int64)
+        if naccept.ndim == 2:
+            naccept = naccept[0]
+        if naccept.shape == (self.nwalkers,):
+            self.state.naccept.copy_(torch.as_tensor(naccept))
+            self._naccept = naccept.copy()
+            self._nsteps_total = int(payload.get("nsteps", 0))
+        return self.state
+
+    def _check_rng_kind(self, payload):
         kind = payload.get("rng_kind")
         if kind != self.rng_kind:
             raise ValueError(
                 f"checkpoint generator {kind!r} cannot be restored into a "
                 f"{self.rng_kind!r} sampler"
             )
-        self.init_state(np.asarray(payload["positions"], np.float64))
-        self.generator.set_state(torch.as_tensor(
-            np.asarray(payload["rng_state"], np.uint8)))
-        self._restore_accum(payload)
-        naccept = np.asarray(payload.get("naccept", 0), np.int64)
-        if naccept.shape == (self.nwalkers,):
-            self.state.naccept.copy_(torch.as_tensor(naccept))
-            self._naccept = naccept.copy()
-            self._nsteps_total = int(payload.get("nsteps", 0))
-        return self.state
 
     def _restore_accum(self, payload):
         accum = payload.get("accum")

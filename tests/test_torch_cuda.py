@@ -1258,3 +1258,129 @@ def test_a_failed_backward_build_raises(flagship, monkeypatch):
     monkeypatch.setattr(SR, "_backward_kernel", broken)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         post.log_posterior_and_grad(prior_draws(spec, 4, seed=1))
+
+
+# -- parallel tempering and annealed importance sampling -------------------------
+
+PT_STATE = ("positions", "log_like", "log_prior", "betas", "naccept", "nswap",
+            "accum_count", "lnl_sum", "lnl_sum_c", "lnl_sq_sum", "lnl_sq_sum_c",
+            "evid_steps", "ss_max", "ss_sum")
+
+
+def _tempered(post, spec, moves, eager, ntemps=4, walkers=40, betas=None):
+    """10 burn steps (two adaptation windows of 5) + 6 retained steps of a
+    tempered sampler; the launches made and the graphs after each window."""
+    import contextlib
+
+    from psfmc_tpu_torch.sampler import PTEnsembleSampler
+    from psfmc_tpu_torch.sampler.ensemble import _eager
+
+    s = PTEnsembleSampler(walkers, spec.num_params, post, ntemps=ntemps, seed=5,
+                          moves=moves, betas=betas, track_moments=True)
+    before = [f.launches for f in COUNTED]
+    graphs = []
+    with _eager(s) if eager else contextlib.nullcontext():
+        s.init_state(prior_draws(spec, walkers, seed=5))
+        s.run_burn(10, callback=lambda done, total: graphs.append(len(s._graphs)))
+        s.reset()
+        s.run_sampling(6)
+    torch.cuda.synchronize()
+    return s, [f.launches - n for f, n in zip(COUNTED, before)], graphs
+
+
+@pytest.mark.parametrize("lnpost", ["batched", "fused"])
+@pytest.mark.parametrize("moves", ["stretch", "mixed"])
+def test_tempered_phase_graphed_is_bit_identical_to_eager(cuda, lnpost, moves):
+    """Sixteen tempered steps (4 rungs, an adaptation of the ladder between
+    two burn windows) as graph replays and eagerly: every buffer, the
+    chain and the generator bit for bit, equal launches, two a step, each
+    carrying every rung; the adaptation captures nothing new."""
+    spec = build_model_spec(flagship_components((64, 64), (32, 32)))
+    post = build_posterior(spec, device=cuda, lnpost=lnpost)
+    graphed, g_launches, graphs = _tempered(post, spec, moves, eager=False)
+    eager, e_launches, _ = _tempered(post, spec, moves, eager=True)
+    assert graphed.graph_replays == 16 and eager.graph_replays == 0
+    assert graphs == [1, 1] and len(graphed._graphs) == 2
+    assert not np.array_equal(graphed.betas, [1.0, 0.25, 0.0625, 0.015625])
+    for name in PT_STATE:
+        _same_bits(getattr(graphed.state, name), getattr(eager.state, name))
+    for k in graphed.state.accum:
+        _same_bits(graphed.state.accum[k], eager.state.accum[k])
+    for k in graphed.state.moments:
+        _same_bits(graphed.state.moments[k], eager.state.moments[k])
+    _same_bits(graphed.generator.get_state(), eager.generator.get_state())
+    _same_bits(graphed.chain, eager.chain)
+    _same_bits(graphed.lnprobability, eager.lnprobability)
+    want = ([1 + 32 + 6, 1 + 32, 0] if lnpost == "batched" else [6, 0, 1 + 32])
+    assert g_launches == e_launches == want
+
+
+def test_tempered_ladder_written_in_place_needs_no_capture(flagship):
+    """Setting ``betas`` writes the device buffer the captured step reads:
+    the next replays use the new ladder without a new graph."""
+    from psfmc_tpu_torch.sampler import PTEnsembleSampler, evidence_beta_ladder
+
+    spec, post = flagship
+    s = PTEnsembleSampler(40, spec.num_params, post, ntemps=4, seed=6)
+    s.init_state(prior_draws(spec, 40, seed=6))
+    s.run_burn(3)
+    graph = s._graphs["burn"]
+    buf = s.state.betas
+    s.betas = evidence_beta_ladder(4)
+    s.run_burn(3)
+    assert s._graphs["burn"] is graph and s.state.betas is buf
+    np.testing.assert_array_equal(buf.cpu().numpy(), evidence_beta_ladder(4))
+    assert s.graph_replays == 6
+
+
+def test_ais_graphed_is_bit_identical_to_eager(flagship):
+    """Twelve anneal steps (2 sweeps of mixed moves, 4 groups of 16) as
+    graph replays and eagerly: the same state bit for bit, and the
+    render and conv_lnl launches exact (4 a step at 32 walkers each)."""
+    from psfmc_tpu_torch.sampler.ais import ais_beta_schedule, run_ais
+    from psfmc_tpu_torch.sampler.tempered import batched_like_prior
+
+    spec, post = flagship
+    p0 = torch.as_tensor(prior_draws(spec, 64, seed=7).reshape(4, 16, -1),
+                         dtype=torch.float32, device=post.device)
+    out = []
+    for graphed in (True, False):
+        gen = torch.Generator(device=post.device)
+        gen.manual_seed(8)
+        before = [f.launches for f in COUNTED]
+        state, replays = run_ais(batched_like_prior(post), p0, ais_beta_schedule(12),
+                                 gen, sweeps=2, moves="mixed", graphed=graphed)
+        torch.cuda.synchronize()
+        out.append((state, replays, gen.get_state(),
+                    [f.launches - n for f, n in zip(COUNTED, before)]))
+    (g, g_rep, g_gen, g_launch), (e, e_rep, e_gen, e_launch) = out
+    assert (g_rep, e_rep) == (12, 0)
+    for name in vars(g):
+        _same_bits(getattr(g, name), getattr(e, name))
+    _same_bits(g_gen, e_gen)
+    assert g_launch == e_launch == [1 + 4 * 12, 1 + 4 * 12, 0]
+    assert int(g.t) == 12 and torch.isfinite(g.lnz).all()
+
+
+@pytest.mark.parametrize("batch", [500, 1000])
+def test_kernels_at_tempered_batches_match_plain(cuda, batch):
+    """The render and conv_lnl kernels at a tempered half-step's batch (4
+    and 8 rungs of 250 walkers) at 128x128, against their plain versions."""
+    spec = build_model_spec(flagship_components((128, 128), (64, 64)))
+    post = build_posterior(spec, device=cuda, lnpost="batched")
+    th = torch.as_tensor(prior_draws(spec, batch, seed=9), dtype=torch.float32,
+                         device=cuda)
+    params, sky = post.render_inputs(th)
+    params, sky = params.contiguous(), sky.contiguous()
+    got = SR.render_sersics(params, sky, spec.shape)
+    want = SR.render_sersics_plain(params, sky, spec.shape)
+    assert _same_nonfinite(got, want)
+    fin = torch.isfinite(want)
+    assert ((got[fin] - want[fin]).abs() / want[fin].abs().clamp(min=1e-12)).max() <= 5e-6
+    raws = post.raw_and_ps(th)[0].contiguous()
+    lnl = CL.batched_conv_lnl(raws, post.consts)
+    ref = CL.batched_conv_lnl_plain(raws, post.consts)
+    assert _same_nonfinite(lnl, ref)
+    fin = torch.isfinite(ref)
+    assert fin.float().mean() > 0.5
+    assert ((lnl[fin] - ref[fin]).abs() / ref[fin].abs()).max() <= 2e-5

@@ -260,8 +260,8 @@ def test_jax_checkpoint_generator_is_refused(model_dir):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(sampler="nuts"), dict(ntemps=2), dict(betas=(1.0, 0.5)),
-    dict(criticism=True), dict(mesh=object()),
+    dict(sampler="nuts"), dict(sampler="nuts", ntemps=2),
+    dict(ntemps=3, criticism=True), dict(criticism=True), dict(mesh=object()),
 ])
 def test_driver_raises_outside_the_slice(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):

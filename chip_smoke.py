@@ -203,9 +203,25 @@ never ``jax`` nor ``psfmc_tpu``, and:
    against the float64 plain scheme, the forward without residuals timed
    beside it), with the forward + backward pair of an Adam step timed
    against its bound;
-15. prints the tempered and evidence phases' numbers and the kernel table
-   as one JSON line each, then the result line ``{"ok": true, "device":
-   {...}}`` last.
+15. NUTS phase (the gradient sampler): the MAP flagship's files through
+   ``model_galaxy_mcmc(sampler="nuts", chains=8, max_depth=8, burn=100,
+   iterations=40, checkpoint_interval=20)``: every piece of every warmup
+   and retained step (begin step, begin doubling, leaf, end doubling, the
+   end of the step, the window switch) a replay, all captured before the
+   first step; the launches exact (one render, conv_lnl residual forward
+   and both backward kernels per leaf, plus the start's and the records'
+   evaluations); finite step size and metric, the accept statistic in (0,
+   1], the divergences, the ``CKPTEPS`` / ``CKPTNUTS`` / ``CKPTACCS``
+   cards, the five products, the chain's lnpost against the CPU's float64,
+   the retained chains' rank-normalized R-hat and bulk ESS; a second call
+   with 60 iterations resumes; the leaf's replay time, the leaves per step,
+   the host flag's idle share and the kernels' share of a leaf; 3 + 3
+   steps graphed against eager bit for bit; the general flagship (two
+   PSFs, the index marginalized in the potential and Gibbs-sampled) at 10
+   + 5 steps of depth 4 with its lnpost against the CPU's float64;
+16. prints the tempered, evidence and NUTS phases' numbers and the kernel
+   table as one JSON line each, then the result line ``{"ok": true,
+   "device": {...}}`` last.
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler breakdown of
 device time by kernel over a segment of ten retained sampler steps of
@@ -1167,10 +1183,9 @@ def pt_state_differs(a, b):
 
 
 def batch_kernel_check(post, thetas, label):
-    """The render and conv_lnl kernels at the batch ``thetas`` gives them
-    (a tempered half-step's), each against its plain version."""
-    import torch
-
+    """The render and, on the batched path, the conv_lnl kernel at the
+    batch ``thetas`` gives them (a tempered half-step's, a NUTS leaf's),
+    each against its plain version."""
     from psfmc_tpu_torch.ops.kernels.conv_lnl import (
         batched_conv_lnl,
         batched_conv_lnl_plain,
@@ -1182,20 +1197,24 @@ def batch_kernel_check(post, thetas, label):
 
     params, sky = post.render_inputs(thetas)
     params, sky = params.contiguous(), sky.contiguous()
-    _, render_rel, _ = compare(render_sersics(params, sky, post.shape),
-                               render_sersics_plain(params, sky, post.shape))
-    raws = post.raw_and_ps(thetas)[0].contiguous()
-    _, conv_rel, frac = compare(batched_conv_lnl(raws, post.consts),
-                                batched_conv_lnl_plain(raws, post.consts))
+    _, render_rel, _ = compare(render_sersics(params, sky, post.render_shape),
+                               render_sersics_plain(params, sky, post.render_shape))
     b = thetas.shape[0]
-    log(f"{label}: render at B = {b}: max rel err {render_rel:.3e} (tol "
-        f"{RENDER_TOL:g}); conv_lnl at B = {b}: max rel err {conv_rel:.3e} (tol "
-        f"{CONV_LNL_TOL:g}), finite share {frac:.4f}")
+    out = {"batch": b, "render_max_rel_err": render_rel}
+    msg = f"{label}: render at B = {b}: max rel err {render_rel:.3e} (tol {RENDER_TOL:g})"
+    conv_rel = 0.0
+    if post.grad_mode == "batched":
+        raws = post.raw_and_ps(thetas)[0].contiguous()
+        _, conv_rel, frac = compare(batched_conv_lnl(raws, post.consts),
+                                    batched_conv_lnl_plain(raws, post.consts))
+        out["conv_lnl_max_rel_err"] = conv_rel
+        msg += (f"; conv_lnl at B = {b}: max rel err {conv_rel:.3e} (tol "
+                f"{CONV_LNL_TOL:g}), finite share {frac:.4f}")
+    log(msg)
     if not (render_rel <= RENDER_TOL and conv_rel <= CONV_LNL_TOL):
         raise AssertionError(f"{label}: a kernel disagrees with its plain version "
                              f"at B = {b}")
-    return {"batch": b, "render_max_rel_err": render_rel,
-            "conv_lnl_max_rel_err": conv_rel}
+    return out
 
 
 def tempered_phase(post, spec):
@@ -2764,6 +2783,96 @@ def same_nonfinite(got, want):
                              "in non-finite entries")
 
 
+def render_backward_check(params, sky, shape, grad, label):
+    """The render's backward kernel at ``params``' batch (its cluster
+    layout, ``backward_strips``) against its plain version: the same
+    non-finite entries; per walker and packed scalar within its bound of
+    the float64 scheme (:func:`render_backward_err`), the sky's within
+    :data:`RENDER_BWD_TOL`; at least half the walkers compared (a float32
+    profile may overflow where float64's does not); the same bits on two
+    launches.  Returns the kernel's output, the float32 plain version's
+    and the errors."""
+    import torch
+
+    from psfmc_tpu_torch.ops.kernels import sersic_render as SR
+
+    b = params.shape[0]
+    got = SR.render_sersics_backward(params, sky, shape, grad)
+    plain = SR.render_sersics_backward_plain(params, sky, shape, grad)
+    for g, w in zip(got, plain):
+        same_nonfinite(g, w)
+    p64, s64 = SR.render_sersics_backward_plain(params.double(), sky.double(), shape,
+                                                grad.double())
+    keep = torch.isfinite(p64).all(dim=(1, 2)) & torch.isfinite(got[0]).all(dim=(1, 2))
+    abs_err = (got[0][keep].double() - p64[keep]).abs().max().item()
+    err, excess = render_backward_err(got[0][keep], plain[0][keep], p64[keep])
+    sky_err = normalized_err(got[1][keep][:, None], s64[keep][:, None], dims=(1,))
+    strips = SR.backward_strips(b, shape)
+    log(f"{label}: {b} walkers, strips x pixels per strip {strips}: max normalized err "
+        f"{err:.3e}, at most {excess:.3f} of its bound (max({RENDER_BWD_TOL:g}, "
+        f"{RENDER_BWD_PLAIN}x the float32 plain version's)), sky {sky_err:.3e}, "
+        f"walkers compared {int(keep.sum())}")
+    if not (excess <= 1.0 and sky_err <= RENDER_BWD_TOL and keep.sum().item() >= b // 2):
+        raise AssertionError(f"{label}: the render's backward kernel disagrees with "
+                             "its plain version")
+    again = SR.render_sersics_backward(params, sky, shape, grad)
+    if not all(same_bits(x, y) for x, y in zip(again, got)):
+        raise AssertionError(f"{label}: the render's backward: two launches differ")
+    return got, plain, dict(max_abs_err=abs_err, max_normalized_err=err,
+                            bound_share=excess, sky_normalized_err=sky_err,
+                            strips=list(strips))
+
+
+def grad_batch_check(post, thetas, label, seed):
+    """The gradient path's kernels at the batch ``thetas`` gives them (a
+    NUTS leaf's: 8 chains, or 16 rows of the marginalized potential), each
+    against its plain version: the forwards (:func:`batch_kernel_check`;
+    the render alone off the batched path); on the batched path conv_lnl's
+    residual forward (:func:`residual_check`) and its backward from those
+    residuals at the leaf's upstream gradient (dU/dlnL = -1), within
+    :data:`CONV_BWD_TOL` of the float64 scheme; the render's backward
+    (:func:`render_backward_check`) in this batch's cluster layout, at the
+    conv_lnl backward's image gradient (the leaf's), else at a normal one."""
+    import torch
+
+    from psfmc_tpu_torch.models import build_posterior
+    from psfmc_tpu_torch.ops.kernels import conv_lnl as CL
+
+    b = thetas.shape[0]
+    shape = post.render_shape
+    params, sky = (t.contiguous() for t in post.render_inputs(thetas))
+    out = batch_kernel_check(post, thetas, label)
+    if post.grad_mode == "batched":
+        raws = post.raw_and_ps(thetas)[0].contiguous()
+        consts = post.consts
+        lnl = CL.batched_conv_lnl(raws, consts)
+        c64 = build_posterior(post.spec, device="cpu", dtype=torch.float64,
+                              lnpost="batched").consts
+        residuals, keep, out["conv_lnl_res"] = residual_check(
+            raws, consts, c64, lnl, f"{label}: conv_lnl's residual forward at B = {b}")
+        up = torch.full((b,), -1.0, dtype=torch.float32, device=raws.device)
+        got = CL.batched_conv_lnl_backward(raws, consts, lnl, up, residuals)
+        same_nonfinite(got, CL.batched_conv_lnl_backward_plain(raws, consts, lnl, up))
+        want = CL.batched_conv_lnl_backward_plain(
+            raws.double().cpu(), c64, lnl.double().cpu(), up.double().cpu()).to(raws.device)
+        err = normalized_err(got[keep], want[keep], dims=(1, 2))
+        log(f"{label}: conv_lnl's backward at B = {b}: max normalized err {err:.3e} "
+            f"(tol {CONV_BWD_TOL:g}), walkers compared {int(keep.sum())}")
+        if not err <= CONV_BWD_TOL:
+            raise AssertionError(f"{label}: conv_lnl's backward disagrees with its "
+                                 f"plain version at B = {b}")
+        out["conv_lnl_backward"] = dict(
+            max_abs_err=(got[keep].double() - want[keep]).abs().max().item(),
+            max_normalized_err=err)
+        grad = got.contiguous()
+    else:
+        grad = torch.as_tensor(np.random.RandomState(seed).randn(b, *shape),
+                               dtype=torch.float32, device=params.device)
+    out["render_backward"] = render_backward_check(
+        params, sky, shape, grad, f"{label}: render backward at B = {b}")[2]
+    return out
+
+
 def backward_rows(post, spec):
     """Rows (a)-(c): each backward kernel against its plain version on the
     card at 125 walkers, with its times and bound: the render's at the
@@ -2799,36 +2908,19 @@ def backward_rows(post, spec):
         params, sky = (t.contiguous() for t in p.render_inputs(th))
         grad = torch.as_tensor(rng.randn(B_HALF, *s_.shape), dtype=torch.float32,
                                device=post.device)
-        got = SR.render_sersics_backward(params, sky, s_.shape, grad)
-        plain = SR.render_sersics_backward_plain(params, sky, s_.shape, grad)
-        for g, w in zip(got, plain):
-            same_nonfinite(g, w)
-        p64, s64 = SR.render_sersics_backward_plain(params.double(), sky.double(),
-                                                    s_.shape, grad.double())
-        # a float32 profile may overflow where float64's does not
-        keep = torch.isfinite(p64).all(dim=(1, 2)) & torch.isfinite(got[0]).all(dim=(1, 2))
-        abs_err = (got[0][keep].double() - p64[keep]).abs().max().item()
-        err, excess = render_backward_err(got[0][keep], plain[0][keep], p64[keep])
-        sky_err = normalized_err(got[1][keep][:, None], s64[keep][:, None], dims=(1,))
-        log(f"render backward, {s_.shape[0]}x{s_.shape[1]}: max normalized err "
-            f"{err:.3e}, at most {excess:.3f} of its bound (max({RENDER_BWD_TOL:g}, "
-            f"{RENDER_BWD_PLAIN}x the float32 plain version's)), sky {sky_err:.3e}, "
-            f"walkers compared {int(keep.sum())}")
-        if not (excess <= 1.0 and sky_err <= RENDER_BWD_TOL
-                and keep.sum().item() >= B_HALF // 2):
-            raise AssertionError("the render's backward kernel disagrees with "
-                                 f"its plain version at {s_.shape}")
-        again = SR.render_sersics_backward(params, sky, s_.shape, grad)
-        if not all(same_bits(x, y) for x, y in zip(again, got)):
-            raise AssertionError("the render's backward: two launches differ")
-        timed[label] = (err, abs_err, time_ms(lambda: SR.render_sersics_backward(
-            params, sky, s_.shape, grad)), time_ms(
-            lambda: SR.render_sersics_backward_plain(params, sky, s_.shape, grad)),
-            (params, sky, grad))
+        errs = render_backward_check(params, sky, s_.shape, grad,
+                                     f"render backward, {s_.shape[0]}x{s_.shape[1]}")[2]
+        timed[label] = (errs["max_normalized_err"], errs["max_abs_err"],
+                        time_ms(lambda: SR.render_sersics_backward(
+                            params, sky, s_.shape, grad)),
+                        time_ms(lambda: SR.render_sersics_backward_plain(
+                            params, sky, s_.shape, grad)), (params, sky, grad))
     err, abs_err, ms, plain_ms, (params, sky, grad) = timed["main"]
     b, s, _ = params.shape
     h, w = spec.shape
-    starts = MAP_STARTS  # the Adam step's batch
+    starts = MAP_STARTS  # the Adam step's batch, checked and timed
+    at_starts = render_backward_check(params[:starts], sky[:starts], spec.shape,
+                                      grad[:starts], "render backward at the MAP starts")[2]
     ms_starts = time_ms(lambda: SR.render_sersics_backward(
         params[:starts], sky[:starts], spec.shape, grad[:starts]))
     log(f"render backward: strips x pixels per strip {SR.backward_strips(b, spec.shape)} "
@@ -2845,6 +2937,7 @@ def backward_rows(post, spec):
         launches=0, max_abs_err=abs_err, max_normalized_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=bms, bound_by=by, bound_term=term,
         library_ms=None, ragged_ms=timed["ragged"][2], map_starts_ms=ms_starts,
+        map_starts_normalized_err=at_starts["max_normalized_err"],
         ragged_normalized_err=timed["ragged"][0]))
 
     # (b), (c) conv_lnl's backward on both routes; on the FFT route it reads
@@ -2971,31 +3064,29 @@ def backward_rows(post, spec):
     return rows
 
 
-def residual_row(name, raws, consts, c64, lnl, f_psf, f_var, data_bytes):
-    """The residual instantiation of conv_lnl's forward at ``raws``' shape
-    (FFT or padded route): the same lnL bits as the forward kernel's ``lnl``; its
-    weights against the float64 plain scheme within the larger of
-    :data:`CONV_RES_TOL` of each walker's largest weight and
-    :data:`CONV_RES_PLAIN` times the float32 plain scheme's own error; each
-    walker's scale exponent within one of the float64 scheme's; the same
-    bits on every launch.  Returns the row and the residuals."""
+def residual_check(raws, consts, c64, lnl, name):
+    """The residual instantiation of conv_lnl's forward at ``raws`` (FFT or
+    padded route) against its plain scheme: the same lnL bits as the
+    forward kernel's ``lnl``; its weights against the float64 plain scheme
+    within the larger of :data:`CONV_RES_TOL` of each walker's largest
+    weight and :data:`CONV_RES_PLAIN` times the float32 plain scheme's own
+    error; each walker's scale exponent within one of the float64
+    scheme's; the same bits on two launches.  Returns ``(weights,
+    scale_exp)``, the walkers compared and their errors."""
     import torch
 
-    from psfmc_tpu_torch.ops import convolve, gaussian_lnlike
-    from psfmc_tpu_torch.ops.kernels import _build
     from psfmc_tpu_torch.ops.kernels import conv_lnl as CL
 
     b, h, w = raws.shape
-    route = CL.conv_route((h, w))
-    plain = (CL.padded_fft_conv_residuals_plain if route == "padded"
+    plain = (CL.padded_fft_conv_residuals_plain if CL.conv_route((h, w)) == "padded"
              else CL.packed_fft_conv_residuals_plain)
-    routes = dict(CL.batched_conv_lnl.route_launches)
     got, weights, scale_exp = CL.batched_conv_lnl_residuals(raws, consts)
-    routes[route + "_res"] += 1
-    if CL.batched_conv_lnl.route_launches != routes:
-        raise AssertionError(f"{name} did not launch on the route {route}_res")
     again = CL.batched_conv_lnl_residuals(raws, consts)
-    if not (same_bits(got, lnl) and all(
+    # on the card one kernel's two instantiations; on the CPU (a rehearsal)
+    # two plain schemes of different form
+    same_lnl = (same_bits(got, lnl) if raws.is_cuda
+                else compare(got, lnl)[1] <= CONV_LNL_TOL)
+    if not (same_lnl and all(
             same_bits(x, y) for x, y in zip(again, (got, weights, scale_exp)))):
         raise AssertionError(f"{name}: the lnL bits differ from conv_lnl's launch, "
                              "or two launches differ")
@@ -3008,13 +3099,39 @@ def residual_row(name, raws, consts, c64, lnl, f_psf, f_var, data_bytes):
     plain_err = (w32[keep].double() - want).abs().amax(dim=(1, 2)) / scale
     excess = (err / (CONV_RES_PLAIN * plain_err).clamp(min=CONV_RES_TOL)).max().item()
     exp_diff = (scale_exp[keep].cpu() - e64[keep.cpu()]).abs().max().item()
-    log(f"{name}: lnL bits equal to conv_lnl's launch; weights max normalized err "
+    log(f"{name}: lnL " + ("bits equal to" if raws.is_cuda else f"within {CONV_LNL_TOL:g} of")
+        + f" conv_lnl's launch; weights max normalized err "
         f"{err.max().item():.3e}, at most {excess:.3f} of its bound (max("
         f"{CONV_RES_TOL:g}, {CONV_RES_PLAIN}x the float32 plain scheme's, at most "
         f"{plain_err.max().item():.3e})); scale exponents within {exp_diff} of the "
         f"float64 scheme's; walkers compared {int(keep.sum())}")
-    if not (excess <= 1.0 and exp_diff <= 1 and keep.sum().item() >= B_HALF // 2):
+    if not (excess <= 1.0 and exp_diff <= 1 and keep.sum().item() >= b // 2):
         raise AssertionError(f"{name} disagrees with its plain scheme")
+    return (weights, scale_exp), keep, dict(
+        max_abs_err=(weights[keep].double() - want).abs().max().item(),
+        max_normalized_err=err.max().item(), bound_share=excess)
+
+
+def residual_row(name, raws, consts, c64, lnl, f_psf, f_var, data_bytes):
+    """The residual instantiation of conv_lnl's forward at ``raws``' shape
+    (FFT or padded route), checked by :func:`residual_check` on its
+    route's launches, with its times.  Returns the row and the
+    residuals."""
+    import torch
+
+    from psfmc_tpu_torch.ops import convolve, gaussian_lnlike
+    from psfmc_tpu_torch.ops.kernels import _build
+    from psfmc_tpu_torch.ops.kernels import conv_lnl as CL
+
+    b, h, w = raws.shape
+    route = CL.conv_route((h, w))
+    plain = (CL.padded_fft_conv_residuals_plain if route == "padded"
+             else CL.packed_fft_conv_residuals_plain)
+    routes = dict(CL.batched_conv_lnl.route_launches)
+    residuals, _, errs = residual_check(raws, consts, c64, lnl, name)
+    routes[route + "_res"] += 2
+    if CL.batched_conv_lnl.route_launches != routes:
+        raise AssertionError(f"{name} did not launch on the route {route}_res")
 
     def library():  # the torch.fft formulation of the lnL and the weights
         conv = convolve(raws, f_psf)
@@ -3031,16 +3148,15 @@ def residual_row(name, raws, consts, c64, lnl, f_psf, f_var, data_bytes):
     row = dict(
         name=name, route="cuda", source=_build.source_path("conv_lnl"),
         replaces="psfmc_tpu/ops/pallas/lnpost_batched.py:191 (its gradient's "
-                 "residuals)", launches=0,
-        max_abs_err=(weights[keep].double() - want).abs().max().item(),
-        max_normalized_err=err.max().item(),
+                 "residuals)", launches=0, max_abs_err=errs["max_abs_err"],
+        max_normalized_err=errs["max_normalized_err"],
         ms=time_ms(lambda: CL.batched_conv_lnl_residuals(raws, consts)),
         plain_ms=time_ms(lambda: plain(raws, consts)),
         bound_ms=bms, bound_by=by, bound_term=term, library_ms=time_ms(library),
         library="torch.fft convolutions, the lnL and the weights",
         forward_ms=time_ms(lambda: CL.batched_conv_lnl(raws, consts)),
         conv_route=route)
-    return row, (weights, scale_exp)
+    return row, residuals
 
 
 def grad_against_cpu(post, spec, thetas, label):
@@ -3390,6 +3506,435 @@ def map_phase(shape=(128, 128), psf_shape=(64, 64), joint_shapes=None, device=No
     if "--profile" in sys.argv[1:]:
         profile_adam(program, z0)
     log(f"map: the phase took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+NUTS_CHAINS = 8  # the fitting driver's default: independent chains, one batch
+NUTS_DEPTH = 8
+NUTS_BURN = 100  # warmup steps (15% step size only, one mass window, 10% step size)
+NUTS_SAMPLE = 40
+NUTS_CHECKPOINT = 20
+NUTS_RESUMED = 60  # the second call: iterations, resuming after NUTS_SAMPLE
+NUTS_EQUAL = 3  # graphed against eager: warmup and retained steps
+NUTS_EQUAL_DEPTH = 5  # ... at this depth (an eager leaf is some 700 launches)
+NUTS_MARGINAL = (10, 5, 4)  # the general flagship: warmup, retained steps, depth
+NUTS_PROFILED = 5  # retained steps timed for the idle share
+NUTS_PROFILED_LEAVES = 100  # leaf replays under the profiler, and a turn of the flag's
+NUTS_FLAG_TURNS = 3  # ... cost: replays with and without the read, in turns
+NUTS_LNP_RTOL = 1e-4  # the chain's lnpost (f32, GPU) against the CPU's float64,
+NUTS_LNP_FLOOR = 1e-5  # ... with this share of the chain's largest |lnpost| as a floor
+
+
+def nuts_leaf_tally(sampler):
+    """The leaf's captured launches: one each of the render, its backward,
+    conv_lnl's residual forward and its backward (the FFT route)."""
+    check_step_tally(sampler._graphs["leaf"], {("render_sersics", None): 1,
+                                               ("render_sersics_backward", None): 1,
+                                               ("batched_conv_lnl", "fft_res"): 1,
+                                               ("batched_conv_lnl_backward", "fft"): 1},
+                     "nuts leaf")
+
+
+def nuts_state_differs(a, b):
+    """What differs between two NUTS samplers' states, chains and generators."""
+    from dataclasses import fields
+
+    diff = []
+    for f in fields(a.state):
+        x, y = getattr(a.state, f.name), getattr(b.state, f.name)
+        pairs = ([(f"accum.{k}", v, y[k]) for k, v in x.items()]
+                 if f.name == "accum" else [(f.name, x, y)])
+        diff += [name for name, u, v in pairs if not same_bits(u, v)]
+    for name, x, y in (("generator", a.generator.get_state(), b.generator.get_state()),
+                       ("chain", a.chain, b.chain),
+                       ("lnprobability", a.lnprobability, b.lnprobability)):
+        if not same_bits(x, y):
+            diff.append(name)
+    return diff
+
+
+def nuts_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
+    """NUTS at full width (the arguments shrink it for a rehearsal on the
+    CPU): the MAP flagship's files through ``model_galaxy_mcmc(sampler=
+    "nuts", chains=8, max_depth=8, burn=100, iterations=40,
+    checkpoint_interval=20)`` and a second call with 60 iterations that
+    resumes; 3 + 3 steps graphed against eager bit for bit; the general
+    flagship (two PSFs, a sampled index) at 10 + 5 steps of depth 4; the
+    leaf's time, the leaves per step, the host flag's idle share and the
+    kernels' share of a leaf.  Returns the launches of the runs on the
+    main path and the numbers."""
+    import torch
+
+    from psfmc_tpu_torch import fitting
+    from psfmc_tpu_torch.analysis.statistics import ess_bulk, rhat_rank
+    from psfmc_tpu_torch.database import load_checkpoint
+    from psfmc_tpu_torch.flagship import general_components, prior_draws, write_map_files
+    from psfmc_tpu_torch.io import fits
+    from psfmc_tpu_torch.io.table import Table
+    from psfmc_tpu_torch.models import MultiComponentModel, build_model_spec, build_posterior
+    from psfmc_tpu_torch.optimize import psf_fan_out
+    from psfmc_tpu_torch.sampler import nuts as N
+
+    counted = grad_kernels()
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path, _ = write_map_files(tmp, shape, psf_shape, seed=SEED)
+        samplers, at_images = [], []
+        sampler_init = fitting.NUTSSampler.__init__
+        save_images = fitting.save_posterior_images
+
+        def kept(self, *a, **k):
+            sampler_init(self, *a, **k)
+            samplers.append(self)
+
+        def counting_writer(*a, **k):  # the launches of sampling end here
+            torch.cuda.synchronize()
+            at_images.append(read_counts(counted))
+            return save_images(*a, **k)
+
+        fitting.NUTSSampler.__init__ = kept
+        fitting.save_posterior_images = counting_writer
+        runs = []
+        try:
+            for iterations in (NUTS_SAMPLE, NUTS_RESUMED):
+                torch.cuda.synchronize()
+                reset_counts(counted)
+                text = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(text):
+                    db = fitting.model_galaxy_mcmc(
+                        path, output_name=os.path.join(tmp, "nuts"), sampler="nuts",
+                        chains=NUTS_CHAINS, max_depth=NUTS_DEPTH, burn=NUTS_BURN,
+                        iterations=iterations, checkpoint_interval=NUTS_CHECKPOINT,
+                        seed=SEED, device=device)
+                wall = time.perf_counter() - t0
+                runs.append(dict(db=db, wall=wall, total=read_counts(counted),
+                                 sampling=at_images[-1], text=text.getvalue(),
+                                 ckpt=load_checkpoint(os.path.join(tmp, "nuts_db.fits")),
+                                 cards=Table.read(os.path.join(tmp, "nuts_db.fits"),
+                                                  format="fits", extname="CHECKPOINT").meta))
+        finally:
+            fitting.NUTSSampler.__init__ = sampler_init
+            fitting.save_posterior_images = save_images
+        sm, sm2 = samplers
+        graphed = sm._graphed  # a CPU rehearsal has no graphs
+        first, second = runs
+        db = first["db"]
+        pieces = set(N.WARMUP_PIECES) | set(N.SAMPLE_PIECES)
+
+        # the main run: every piece a replay, captured before the first step
+        leaves, steps = sm.leaves_run, sm.steps_run
+        log(f"nuts: model_galaxy_mcmc(sampler='nuts') {NUTS_CHAINS} chains, depth "
+            f"{NUTS_DEPTH}, warmup {NUTS_BURN} + {NUTS_SAMPLE} retained in segments of "
+            f"{NUTS_CHECKPOINT}: {first['wall']:.2f} s wall, phases "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in db.phase_seconds.items())
+            + f"; {steps} steps, {leaves} leaves ({leaves / steps:.2f} a step), pieces "
+            f"{sm.piece_counts}, {sm.graph_replays} replays, {sm.captures} captures; "
+            f"divergences {sm.n_divergent}")
+        if steps != NUTS_BURN + NUTS_SAMPLE:
+            raise AssertionError(f"nuts: {steps} steps, want {NUTS_BURN + NUTS_SAMPLE}")
+        if graphed:
+            if sm.graph_replays != sum(sm.piece_counts.values()) or sm.captures != len(pieces):
+                raise AssertionError(f"nuts: {sm.graph_replays} replays of "
+                                     f"{sum(sm.piece_counts.values())} pieces, "
+                                     f"{sm.captures} captures (want {len(pieces)})")
+            nuts_leaf_tally(sm)
+        # the launches of the sampling: the pool's lnpost, the start's
+        # gradient, one of each kernel per leaf, and per retained step the
+        # record's lnpost and the image means' render
+        for label, run, s, pool in (("fit", first, sm, 1), ("resume", second, sm2, 0)):
+            n_leaf, n_keep = s.leaves_run, s.piece_counts.get("sample_end", 0)
+            want = {"render_sersics": pool + 1 + n_leaf + 2 * n_keep,
+                    "render_sersics_backward": 1 + n_leaf,
+                    "batched_conv_lnl": pool + 1 + n_leaf + n_keep,
+                    "batched_conv_lnl_backward": 1 + n_leaf}
+            launches, routes = run["sampling"]
+            want_routes = {"batched_conv_lnl:fft_res": 1 + n_leaf,
+                           "batched_conv_lnl:fft": pool + n_keep,
+                           "batched_conv_lnl_backward:fft": 1 + n_leaf}
+            log(f"nuts: {label}: launches of the sampling {launches}, by route "
+                f"{ {k: routes[k] for k in want_routes} }; of the image writer "
+                f"{ {k: run['total'][0][k] - launches[k] for k in launches} }")
+            if launches != want or any(routes[k] != v for k, v in want_routes.items()):
+                raise AssertionError(f"nuts: {label}: launches {launches} {routes}, want "
+                                     f"{want} {want_routes}")
+            out[f"nuts_{label}"] = dict(run["total"][0], **run["total"][1])
+
+        # the adaptation, the accept statistic, the cards
+        ck, cards = first["ckpt"], first["cards"]
+        eps, inv_mass = ck["nuts_eps"], np.asarray(ck["nuts_inv_mass"])
+        accept = float(db.meta["MCACCEPT"])
+        log(f"nuts: adapted eps {eps:.5g}, inv_mass {np.array2string(inv_mass, precision=3)}; "
+            f"accept statistic {accept:.4f}; cards CKPTSMPL {cards['CKPTSMPL']!r}, CKPTEPS "
+            f"{cards['CKPTEPS']:.6g}, CKPTACCS {cards['CKPTACCS']:.6g}, CKPTNUTS "
+            f"{inv_mass.shape}")
+        checks = {"finite eps": math.isfinite(eps) and eps > 0,
+                  "finite metric": bool(np.all(np.isfinite(inv_mass) & (inv_mass > 0))),
+                  "the metric's length": inv_mass.shape == (sm.zdim,),
+                  "accept in (0, 1]": 0.0 < accept <= 1.0,
+                  "CKPTSMPL": cards["CKPTSMPL"] == "nuts",
+                  "CKPTEPS": cards["CKPTEPS"] == eps,
+                  "CKPTACCS": math.isclose(cards["CKPTACCS"], accept * NUTS_SAMPLE,
+                                           rel_tol=1e-6),
+                  "the rows": len(db) == NUTS_CHAINS * NUTS_SAMPLE}
+        for ftype in IMAGE_TYPES:
+            data = fits.getdata(os.path.join(tmp, f"nuts_{ftype}.fits"))
+            checks[ftype] = data.shape == tuple(shape) and bool(np.all(np.isfinite(data)))
+        if not all(checks.values()):
+            raise AssertionError(f"nuts: failed {[k for k, v in checks.items() if not v]}")
+
+        # the chain's lnpost against the CPU's float64
+        cpu = MultiComponentModel(path, device="cpu", dtype=torch.float64)
+        thetas = cpu.thetas_from_database(db)
+        lnp64 = cpu.posterior_fns.log_posterior_batch(thetas).numpy()
+        lnp = np.asarray(db["lnprobability"], np.float64)
+        # the chain's lnpost crosses zero: an error relative to the larger
+        # of |lnpost| and the floor's share of the chain's largest
+        scale = np.maximum(np.abs(lnp64),
+                           NUTS_LNP_FLOOR / NUTS_LNP_RTOL * np.abs(lnp64).max())
+        rel = float(np.max(np.abs(lnp - lnp64) / scale))
+        log(f"nuts: the chain's lnpost {lnp.min():.3f}..{lnp.max():.3f} against the CPU's "
+            f"float64 at its {len(lnp)} samples: max rel diff with the floor {rel:.3e} "
+            f"(rtol {NUTS_LNP_RTOL:g}, floor {NUTS_LNP_FLOOR:g} of the largest |lnpost|); "
+            f"without the floor {float(np.max(np.abs(lnp - lnp64) / np.abs(lnp64))):.3e}")
+        if not (np.all(np.isfinite(lnp)) and rel <= NUTS_LNP_RTOL):
+            raise AssertionError("nuts: the chain's lnpost disagrees with the CPU")
+        out["nuts_lnp_rel_err"] = rel
+
+        # the multi-chain diagnostics of the retained chains
+        order = np.lexsort((np.asarray(db["sample"]), np.asarray(db["walker"])))
+        chains = thetas[order].reshape(NUTS_CHAINS, NUTS_SAMPLE, -1)
+        rhat = [rhat_rank(chains[:, :, j]) for j in range(chains.shape[2])]
+        ess = [ess_bulk(chains[:, :, j]) for j in range(chains.shape[2])]
+        log(f"nuts: rank-normalized split R-hat by parameter "
+            f"{np.array2string(np.asarray(rhat), precision=3)}, bulk ESS "
+            f"{np.array2string(np.asarray(ess), precision=1)}")
+        out["nuts_rhat_max"], out["nuts_ess_bulk_min"] = float(np.nanmax(rhat)), float(
+            np.nanmin(ess))
+
+        # the gradient path's kernels at the leaf's batch (one row a chain),
+        # at each chain's last retained position, against their plain versions
+        last = torch.as_tensor(np.asarray(chains[:, -1]), dtype=torch.float32,
+                               device=sm.fns.device)
+        checks = [grad_batch_check(sm.fns, last, "nuts", SEED + 7)]
+
+        # the second call resumes from the checkpoint: no warmup, the first
+        # samples kept, the adaptation carried
+        db2 = second["db"]
+        resumed = (f"Resuming from checkpoint: {NUTS_BURN}/{NUTS_BURN} burn-in + "
+                   f"{NUTS_SAMPLE} retained iterations done")
+        kept_rows = all(np.array_equal(
+            np.asarray(db2[c]).reshape(NUTS_CHAINS, NUTS_RESUMED, -1)[:, :NUTS_SAMPLE],
+            np.asarray(db[c]).reshape(NUTS_CHAINS, NUTS_SAMPLE, -1)) for c in db.colnames)
+        log(f"nuts: the second call ({NUTS_RESUMED} iterations) {second['wall']:.2f} s, "
+            f"{sm2.steps_run} steps, {sm2.captures} captures, {len(db2)} rows, eps "
+            f"{second['ckpt']['nuts_eps']:.5g}")
+        if not (resumed in second["text"] and len(db2) == NUTS_CHAINS * NUTS_RESUMED
+                and kept_rows and sm2.steps_run == NUTS_RESUMED - NUTS_SAMPLE
+                and second["ckpt"]["nuts_eps"] == eps
+                and (not graphed or sm2.captures == len(N.SAMPLE_PIECES))):
+            raise AssertionError("nuts: the second call did not resume the first")
+
+        # the times, on the resumed sampler: a retained segment timed on the
+        # host clock, every piece replayed back to back (CUDA events), the
+        # host flag's idle share, the kernels' share of a leaf
+        if graphed:
+            t_part = time.perf_counter()
+            out.update(nuts_times(sm2))
+            log(f"nuts: the times took {time.perf_counter() - t_part:.1f} s")
+        out["nuts_fit_wall_s"] = first["wall"]
+        out["nuts_leaves_per_step"] = leaves / steps
+        out["nuts_divergent"] = sm.n_divergent
+        fns = sm.fns
+
+    # graphed against eager, bit for bit: from the fit's checkpoint (its
+    # positions, step size, metric and generator), a warmup of 3 steps
+    # (its window switch after the third) and 3 retained steps
+    t_part = time.perf_counter()
+    pair = []
+    for eager in (False, True):
+        s = N.NUTSSampler(NUTS_CHAINS, fns.spec.num_params, fns, seed=SEED + 1,
+                          max_depth=NUTS_EQUAL_DEPTH)
+        reset_counts(counted)
+        with N._eager(s) if eager else contextlib.nullcontext():
+            s.restore_state(ck)
+            s.run_burn(NUTS_EQUAL)
+            s.reset()
+            s.run_sampling(NUTS_EQUAL)
+        torch.cuda.synchronize()
+        pair.append((s, read_counts(counted)))
+    (g, g_n), (e, e_n) = pair
+    differs = nuts_state_differs(g, e)
+    log(f"nuts: {NUTS_EQUAL} + {NUTS_EQUAL} steps graphed ({g.graph_replays} replays, "
+        f"{g.leaves_run} leaves, pieces {g.piece_counts}) against eager ({e.graph_replays} replays): "
+        f"{'bit for bit' if not differs else 'differ in ' + str(differs)}; launches "
+        f"{g_n[0]} and {e_n[0]}; {time.perf_counter() - t_part:.1f} s")
+    if differs or g_n != e_n or g.piece_counts != e.piece_counts or e.graph_replays:
+        raise AssertionError("nuts: graphed and eager steps differ")
+
+    # the marginalization on the card: two PSFs, the index sampled
+    t_part = time.perf_counter()
+    burn, keep, depth = NUTS_MARGINAL
+    gspec = build_model_spec(general_components(shape, psf_shape))
+    gpost = build_posterior(gspec, device=device)
+    s = N.NUTSSampler(NUTS_CHAINS, gspec.num_params, gpost, seed=SEED + 2, max_depth=depth)
+    reset_counts(counted)
+    s.init_state(prior_draws(gspec, max(32 * NUTS_CHAINS, 256), seed=SEED + 6))
+    s.run_burn(burn)
+    s.reset()
+    s.run_sampling(keep)
+    torch.cuda.synchronize()
+    m_launches, m_routes = read_counts(counted)
+    off = int(s.transform.discrete_offsets[0])
+    flat, lnp = s.flatchain, s.lnprobability.reshape(-1)
+    log(f"nuts: the general flagship ({gspec.num_psfs} PSFs, grad_mode "
+        f"{gpost.grad_mode!r}), {burn} + {keep} steps of depth {depth}: {s.leaves_run} "
+        f"leaves, {s.graph_replays} replays; PSF index drawn {np.bincount(flat[:, off].astype(int), minlength=2)}; "
+        f"launches {m_launches}")
+    want = {"render_sersics": 2 + s.leaves_run + 2 * keep,
+            "render_sersics_backward": 1 + s.leaves_run,
+            "batched_conv_lnl": 0, "batched_conv_lnl_backward": 0}
+    if not (set(np.unique(flat[:, off])) <= {0.0, 1.0} and np.all(np.isfinite(lnp))
+            and m_launches == want
+            and (not graphed or s.graph_replays == sum(s.piece_counts.values()))):
+        raise AssertionError(f"nuts: the marginalized run failed (launches want {want})")
+    cpu_post = build_posterior(gspec, device="cpu", dtype=torch.float64)
+    want_lnp = cpu_post.log_posterior_batch(torch.as_tensor(flat)).numpy()
+    scale = np.maximum(np.abs(want_lnp), GENERAL_FLOOR / GENERAL_RTOL * np.abs(want_lnp).max())
+    err = float(np.max(np.abs(lnp - want_lnp) / scale))
+    log(f"nuts: the marginalized chain's lnpost against the CPU's float64: max rel "
+        f"diff with the floor {err:.3e} (rtol {GENERAL_RTOL:g}); "
+        f"{time.perf_counter() - t_part:.1f} s")
+    if not err <= GENERAL_RTOL:
+        raise AssertionError("nuts: the marginalized chain's lnpost disagrees with the CPU")
+    # the render and its backward at the marginalized leaf's batch: each
+    # chain's last position once per PSF
+    last = torch.as_tensor(s.chain[:, -1], dtype=torch.float32, device=gpost.device)
+    checks.append(grad_batch_check(gpost, psf_fan_out(last, off, gspec.num_psfs),
+                                   "nuts, marginalized", SEED + 8))
+    out["nuts_kernel_checks"] = checks
+    out["nuts_marginal"] = dict(m_launches, **m_routes)
+    out["nuts_wall_s"] = time.perf_counter() - t_phase
+    log(f"nuts: the phase took {out['nuts_wall_s']:.1f} s ({CARD})")
+    return out
+
+
+def nuts_times(sampler, steps=NUTS_PROFILED):
+    """A retained segment of ``steps`` steps on the host clock, every piece
+    replayed back to back (CUDA events, :func:`time_ms`; the retained
+    step's end with the record's slot rewound before each replay, one
+    small kernel more), the step's idle share (1 - the pieces' busy time
+    over the wall time), the host flag's own (leaf replays with the
+    sampler's read of the flag after each against the same replays back
+    to back, in turns), the potential alone, and under torch.profiler the
+    kernels' share of a leaf."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from psfmc_tpu_torch.sampler.ensemble import capture_step
+
+    before = dict(sampler.piece_counts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sampler.run_sampling(steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ran = {k: v - before.get(k, 0) for k, v in sampler.piece_counts.items()}
+    slot = sampler._record[2]
+
+    def replay(name):  # the record's slot rewound: the chain buffer holds a segment
+        graph = sampler._graphs[name].graph
+        if name != "sample_end":
+            return graph.replay
+        return lambda: (slot.zero_(), graph.replay())
+
+    piece_ms = {k: time_ms(replay(k)) for k in ran}
+    busy = sum(ran[k] * piece_ms[k] for k in ran) * 1e-3
+    # the potential and its gradient alone, captured apart (uncounted): the
+    # leaf less it is the tree's bookkeeping
+    z = sampler.state.z.clone()
+    potential = capture_step(lambda zz: sampler._u_vg(zz), (z,), (z.clone(),),
+                             sampler.generator, torch.cuda.Stream(),
+                             torch.cuda.graph_pool_handle())
+    potential_ms = time_ms(potential.graph.replay)
+    # the host flag alone, in turns: leaf replays back to back, and each
+    # followed by the sampler's read of the flag (the host waits, then
+    # queues the next)
+    graph = sampler._graphs["leaf"].graph
+
+    def after():
+        graph.replay()
+        sampler._flag()
+
+    modes = {"back to back": graph.replay, "read after": after}
+    turns = {mode: [] for mode in modes}
+    for _ in range(NUTS_FLAG_TURNS):
+        for mode, fn in modes.items():
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(NUTS_PROFILED_LEAVES):
+                fn()
+            torch.cuda.synchronize()
+            turns[mode].append(time.perf_counter() - t1)
+    flag_idle = [1.0 - b / w for w, b in zip(turns["read after"], turns["back to back"])]
+    flag_us = [(w - b) * 1e6 / NUTS_PROFILED_LEAVES
+               for w, b in zip(turns["read after"], turns["back to back"])]
+    leaves = min(ran["leaf"], NUTS_PROFILED_LEAVES)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(leaves):
+            sampler._graphs["leaf"].graph.replay()
+        torch.cuda.synchronize()
+    kernel_us, all_us, launched = 0.0, 0.0, 0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        all_us += us
+        launched += e.count if us else 0
+        if any(name in e.key for name in ("sersic_render_kernel", "render_backward_kernel",
+                                          "conv_lnl_")):
+            kernel_us += us
+    kernel_ms = kernel_us * 1e-3 / leaves if all_us else None
+    out = {"nuts_leaf_ms": piece_ms["leaf"], "nuts_piece_ms": piece_ms,
+           "nuts_potential_ms": potential_ms,
+           "nuts_bookkeeping_ms": piece_ms["leaf"] - potential_ms,
+           "nuts_segment_ms_per_step": wall * 1e3 / steps,
+           "nuts_segment_leaves_per_step": ran["leaf"] / steps,
+           "nuts_idle_share": 1.0 - busy / wall,
+           "nuts_flag_idle_share": flag_idle,
+           "nuts_flag_us_per_leaf": flag_us,
+           "nuts_leaf_kernels_ms": kernel_ms,
+           "nuts_leaf_device_ms": all_us * 1e-3 / leaves if all_us else None,
+           "nuts_leaf_launches": launched / leaves if all_us else None,
+           "nuts_leaf_kernel_share": (kernel_ms / piece_ms["leaf"]
+                                      if kernel_ms is not None else None)}
+    log(f"nuts: {steps} retained steps at {NUTS_CHAINS} chains: {wall * 1e3:.3f} ms wall "
+        f"({wall * 1e3 / steps:.3f} ms a step, {ran['leaf'] / steps:.2f} leaves a step); "
+        f"the potential and its gradient alone {potential_ms:.4f} ms, the leaf's "
+        f"bookkeeping {piece_ms['leaf'] - potential_ms:.4f} ms; pieces "
+        f"replayed back to back (ms) "
+        + ", ".join(f"{k} {v:.4f}" for k, v in piece_ms.items())
+        + f"; busy {busy * 1e3:.3f} ms, idle share {out['nuts_idle_share']:.3f}; "
+        f"{NUTS_PROFILED_LEAVES} leaf replays each followed by the flag's read "
+        f"against back to back, {NUTS_FLAG_TURNS} turns: the flag's idle share "
+        + ", ".join(f"{v:.4f}" for v in flag_idle) + " ("
+        + ", ".join(f"{v:.1f}" for v in flag_us) + f" us a leaf) ({CARD})")
+    if kernel_ms is None:
+        log("nuts: the profiler recorded no device time: the kernels' share of a leaf "
+            "is not measured")
+    else:
+        log(f"nuts: a leaf's device time {out['nuts_leaf_device_ms']:.4f} ms in "
+            f"{out['nuts_leaf_launches']:.0f} kernels, of it the "
+            f"render, conv_lnl and their backward kernels {kernel_ms:.4f} ms: "
+            f"{out['nuts_leaf_kernel_share']:.3f} of the leaf's replay "
+            f"({piece_ms['leaf']:.4f} ms; {NUTS_CHAINS} chains: one block a walker "
+            f"fills {NUTS_CHAINS} of the card's SMs)")
+        for e in sorted(prof.key_averages(), key=lambda e: -getattr(
+                e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)))[:12]:
+            us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+            log(f"nuts:   {us / leaves * 1e-3:9.4f} ms/leaf  {e.count // leaves:4d} "
+                f"launches/leaf  {e.key[:90]}")
     return out
 
 
@@ -3872,6 +4417,7 @@ def main():
         priors_phase()
     joint_launches_, joint_variant_launches, joint_on_path, joint = joint_phase()
     grad = map_phase()
+    nuts = nuts_phase()
     rows += backward_rows(post, spec)
     from psfmc_tpu_torch.sampler import EnsembleSampler
 
@@ -3947,6 +4493,10 @@ def main():
     # instantiation and has its backward there, at its shape
     grads = [grad[k] for k in ("map", "init", "joint", "joint_radix7", "joint_padded",
                                "joint_dft")]
+    # the NUTS phase (15): the fitting driver's fit and its resumed call, every leaf
+    # on the render, conv_lnl's residual forward and both backward kernels;
+    # the general flagship's marginalized run on the render and its backward
+    grads += [nuts[k] for k in ("nuts_fit", "nuts_resume", "nuts_marginal")]
     for g in grads:
         for geo in ("",) + tuple(f":{m}" for m in MIXED_GEOMETRIES):
             if g[f"batched_conv_lnl:fft_res{geo}"] != g[f"batched_conv_lnl_backward:fft{geo}"]:
@@ -3980,6 +4530,9 @@ def main():
             r.update(joint_on_path)
         if r["name"] in ("sersic_render", "conv_lnl"):  # at the tempered batches
             r["tempered_checks"] = pt_out["kernel_checks"]
+        if r["name"] in ("sersic_render", "sersic_render_backward", "conv_lnl",
+                         "conv_lnl_res", "conv_lnl_backward"):  # at NUTS's batches
+            r["nuts_checks"] = nuts["nuts_kernel_checks"]
     for r in rows:
         if r["name"].startswith("conv_lnl") and not r["launches"]:
             raise AssertionError(f"{r['name']} was never launched on the main path")
@@ -3993,6 +4546,10 @@ def main():
                     "evidence": {k: evid_out[k] for k in ("fit", "ln_bayes")},
                     "ais": {k: {f: v[f] for f in ("lnz", "err", "wall_s")}
                             for k, v in evid_out["ais"].items()},
+                    "card": identity}))
+    log(json.dumps({"nuts": {k: v for k, v in nuts.items()
+                             if k not in ("nuts_fit", "nuts_resume", "nuts_marginal",
+                                          "nuts_kernel_checks")},
                     "card": identity}))
     log(json.dumps({"kernels": rows, "card": identity}))
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,9 @@ stochastic (``xy`` two wide), then ``lnprobability``, ``walker`` and
 The CHECKPOINT extension holds the resume state as in the JAX package
 (positions, lnp, accept counts per walker, for a tempered sampler of
 every rung with the ladder, swap counts and evidence accumulators;
-CKPTVERS, CKPTSMPL, CKPTTEMP, CKPTACCN, CKPTSTEP and CKPTEVID cards) and
+CKPTVERS, CKPTSMPL, CKPTTEMP, CKPTACCN, CKPTSTEP and CKPTEVID cards; for
+NUTS the CKPTACCS (accept-statistic numerator) and CKPTEPS (step size)
+cards and a CKPTNUTS extension with the metric ``inv_mass``) and
 CKPTIMGS the running image
 means: one ``(H, W)`` column per image when every image has one shape,
 and for a joint model's bands of several shapes one row of flattened
@@ -195,12 +197,25 @@ def _checkpoint_hdus(payload):
             cols[f"evid_{name}"] = padded(payload[name])
         meta.append(("CKPTEVID", (int(payload.get("evid_steps", 0)),
                                   "retained steps in evidence accumulators")))
+    if payload.get("sum_accept") is not None:
+        meta.append(("CKPTACCS", (float(payload["sum_accept"]),
+                                  "acceptance-statistic numerator")))
+    if payload.get("nuts_eps") is not None:
+        meta.append(("CKPTEPS", (float(payload["nuts_eps"]),
+                                 "NUTS warmup-adapted step size")))
     hdr, raw = fits.make_bintable_hdu(list(cols), cols, meta=meta,
                                       extname="CHECKPOINT")
     hdus = [(hdr, raw)]
     accum = payload.get("accum")
     if accum and int(payload.get("accum_count", 0)) > 0:
         hdus.append(_image_hdu(accum))
+    inv_mass = payload.get("nuts_inv_mass")
+    if inv_mass is not None:
+        # NUTS's diagonal metric: its length (the unconstrained dimension)
+        # is not the walker-row count, so it gets its own extension
+        hdus.append(fits.make_bintable_hdu(
+            ["inv_mass"], {"inv_mass": np.asarray(inv_mass, np.float64)},
+            extname="CKPTNUTS"))
     state = np.asarray(payload["rng_state"], np.uint8)[None, :]
     hdus.append(fits.make_bintable_hdu(["rng_state"], {"rng_state": state},
                                        extname="CKPTRNG"))
@@ -222,6 +237,8 @@ def load_checkpoint(db_name):
     ``(ntemps, nwalkers, dim)``, accept counts ``(ntemps, nwalkers)``, the
     cold rung's lnp, ``nswap``, ``betas`` and the evidence accumulators
     (``lnl_sum``, ``lnl_sq_sum``, ``ss_max``, ``ss_sum``, ``evid_steps``).
+    A NUTS checkpoint adds ``sum_accept``, ``nuts_eps`` and
+    ``nuts_inv_mass``.
     """
     try:
         ckpt = Table.read(db_name, format="fits", extname="CHECKPOINT")
@@ -275,6 +292,18 @@ def load_checkpoint(db_name):
                 if shape is not None:  # the mixed-shape layout
                     col = col.reshape(tuple(int(v) for v in str(shape).split(",")))
                 payload["accum"][name] = col
+    accs = ckpt.meta.get("CKPTACCS")
+    if accs is not None:
+        payload["sum_accept"] = float(accs)
+    eps = ckpt.meta.get("CKPTEPS")
+    if eps is not None:
+        payload["nuts_eps"] = float(eps)
+        try:
+            metric = Table.read(db_name, format="fits", extname="CKPTNUTS")
+        except IOError:
+            pass
+        else:
+            payload["nuts_inv_mass"] = np.asarray(metric["inv_mass"], np.float64)
     return payload
 
 

@@ -23,14 +23,17 @@ Deliberate divergences from the JAX driver:
 This slice runs ``sampler="ensemble"`` with any ``ntemps`` (parallel
 tempering above 1, :class:`~psfmc_tpu_torch.sampler.tempered.
 PTEnsembleSampler`, whose evidence goes into the ``MCLNZ`` / ``MCLNZERR``
-cards from 3 rungs up), any ``moves`` (``"stretch"``, ``"de"`` or
-``"mixed"``), ``init="prior"`` or ``init="map"`` (a gradient MAP fit of a
-pool of prior draws, then a z-space cloud around it), ``criticism=False``
-and ``mesh=None``; every other choice raises ``NotImplementedError``
-naming the ROADMAP item that brings it.  On CUDA every sampler step and
-every Adam step is a replay of a captured CUDA graph
-(:class:`~psfmc_tpu_torch.sampler.ensemble.EnsembleSampler`,
-:func:`~psfmc_tpu_torch.optimize.fit_map`).
+cards from 3 rungs up) and any ``moves`` (``"stretch"``, ``"de"`` or
+``"mixed"``), and ``sampler="nuts"`` (:class:`~psfmc_tpu_torch.sampler.
+nuts.NUTSSampler`, ``max_depth`` its tree depth; ``ntemps`` and ``moves``
+warn and are ignored; 8 chains by default, from the best of a pool of
+``max(32 * chains, 256)`` starts), ``init="prior"`` or ``init="map"`` (a
+gradient MAP fit of a pool of prior draws, then a z-space cloud around
+it), ``criticism=False`` and ``mesh=None``; every other choice raises
+``NotImplementedError`` naming the ROADMAP item that brings it.  On CUDA
+every sampler step (for NUTS every piece of a step) and every Adam step
+is a replay of a captured CUDA graph (:class:`~psfmc_tpu_torch.sampler.
+ensemble.EnsembleSampler`, :func:`~psfmc_tpu_torch.optimize.fit_map`).
 
 :func:`model_galaxy_map` is the quick-look MAP fit: the five image
 products of the mode, with each parameter's value (and Laplace standard
@@ -62,6 +65,7 @@ from .database import (
 )
 from .models.multicomponent import as_model
 from .sampler.ensemble import EnsembleSampler
+from .sampler.nuts import NUTSSampler
 from .sampler.tempered import PTEnsembleSampler
 from .utils import print_progress
 
@@ -176,7 +180,8 @@ def model_galaxy_mcmc(
     :param iterations: retained samples per round.
     :param burn: discarded burn-in samples.
     :param chains: walkers (default ``2 * num_params + 2``; rounded up to
-        an even count).
+        an even count), or NUTS's independent chains (default 8; any
+        count).
     :param max_iterations: sampling rounds before convergence is enforced.
     :param convergence_check: function of the sampler returning bool.
     :param seed: seed of the walkers' prior draws and the sampler.
@@ -190,6 +195,9 @@ def model_galaxy_mcmc(
         during burn-in and frozen for the retained phase).
     :param moves: proposal family of the ensemble sampler:
         ``"stretch"``, ``"de"`` (differential evolution) or ``"mixed"``.
+    :param sampler: ``"ensemble"`` or ``"nuts"`` (the No-U-Turn sampler
+        over the posterior's gradient; ``max_depth`` caps its tree at
+        ``2^max_depth - 1`` leapfrogs a step; its burn-in is the warmup).
     :param rejuvenate: move stranded walkers onto healthy ones between
         burn segments.
     :param device: the posterior's device, CUDA unless ``"cpu"``.
@@ -198,9 +206,8 @@ def model_galaxy_mcmc(
         phase of this call (init, burn, sampling, images), each ending
         in a device synchronize.
 
-    ``mesh``, ``sampler``, ``init``, ``max_depth`` and ``criticism``
-    keep the JAX driver's names; values outside this slice raise
-    ``NotImplementedError``.  The likelihood
+    ``mesh`` and ``criticism`` keep the JAX driver's names; values
+    outside this slice raise ``NotImplementedError``.  The likelihood
     path follows ``PSFMC_LNPOST`` and the model (``pallas`` runs the
     fused kernel; unset, a model the conv+likelihood kernel covers runs
     it and any other the general path; each band of a joint model takes
@@ -215,13 +222,10 @@ def model_galaxy_mcmc(
     if sampler not in ("ensemble", "nuts"):
         raise ValueError(
             f"Unknown sampler {sampler!r}: expected 'ensemble' or 'nuts'")
-    if sampler == "nuts":
-        _not_in_slice("sampler='nuts'", "19 (other samplers: NUTS)")
     if criticism:
         _not_in_slice("criticism=True", "17 (criticism and analysis)")
     if mesh is not None:
         _not_in_slice("a device mesh", "18 (multi-device)")
-    del max_depth  # a NUTS setting
 
     if output_name is None:
         name = model_file if isinstance(model_file, str) else "model"
@@ -231,11 +235,20 @@ def model_galaxy_mcmc(
 
     mc_model = as_model(model_file, device=device)
     fns = mc_model.posterior_fns
+    nuts = sampler == "nuts"
     if chains is None:
-        chains = 2 * mc_model.num_params + 2
-    if chains % 2:
-        chains += 1
-    if ntemps > 1:
+        # NUTS's chains are independent: a handful suffices
+        chains = 8 if nuts else 2 * mc_model.num_params + 2
+    if not nuts and chains % 2:
+        chains += 1  # half-ensemble moves need an even walker count
+    if nuts:
+        if ntemps > 1:
+            warn("ntemps is ignored with sampler='nuts'")
+        if moves != "stretch":
+            warn("moves= is ignored with sampler='nuts'")
+        ens = NUTSSampler(chains, mc_model.num_params, fns, seed=seed,
+                          max_depth=max_depth, device=fns.device)
+    elif ntemps > 1:
         ens = PTEnsembleSampler(chains, mc_model.num_params, fns, ntemps=ntemps,
                                 betas=betas, seed=seed, device=fns.device,
                                 moves=moves)
@@ -274,17 +287,20 @@ def model_galaxy_mcmc(
 
     if database is None:
         rng = np.random.RandomState(seed)
+        # NUTS's chains start from the best of a larger pool
+        # (NUTSSampler.init_state); the ensemble takes one row per walker
+        n_init = max(32 * chains, 256) if nuts else chains
         if init == "map":
             from .optimize import fit_map, scatter_around
 
             with _phase("map", fns.device, timings):
-                pool = mc_model.init_params_from_priors(max(chains, 256),
+                pool = mc_model.init_params_from_priors(max(n_init, 256),
                                                         random_state=rng)
                 map_res = fit_map(fns, p0=pool, seed=seed)
                 print(f"MAP fit: lnpost = {map_res.lnpost:.2f}")
-                p0 = scatter_around(fns, map_res.theta, chains, seed=seed)
+                p0 = scatter_around(fns, map_res.theta, n_init, seed=seed)
         else:
-            p0 = mc_model.init_params_from_priors(chains, random_state=rng)
+            p0 = mc_model.init_params_from_priors(n_init, random_state=rng)
         database = _run_sampling(ens, mc_model, p0, burn=burn,
                                  iterations=iterations, burn_total=burn,
                                  **common)
@@ -493,7 +509,8 @@ def _run_sampling(sampler, mc_model, initial_positions, burn, iterations,
         rejuv_rng = np.random.RandomState(np.uint32(seed) ^ 0x5EED)
 
         def burn_cb(done, total):
-            if rejuvenate and done < total:
+            if rejuvenate and done < total and hasattr(sampler, "rejuvenate_stuck"):
+                # NUTS's chains are independent and never teleported
                 n_fix = sampler.rejuvenate_stuck(random_state=rejuv_rng)
                 if n_fix:
                     print(f"  rejuvenated {n_fix} stuck walkers")

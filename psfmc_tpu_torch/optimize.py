@@ -92,27 +92,44 @@ def _cache(fns):
     return cache
 
 
+def psf_fan_out(theta, offset, num_psfs):
+    """``(B * num_psfs, dim)``: each row of ``theta`` once per PSF index,
+    the index written at ``offset`` (row ``b * num_psfs + k`` takes PSF
+    ``k``)."""
+    b = theta.shape[0]
+    rep = theta.repeat_interleave(num_psfs, dim=0)
+    index = torch.arange(num_psfs, dtype=theta.dtype, device=theta.device).repeat(b)
+    return torch.cat([rep[:, :offset], index[:, None], rep[:, offset + 1:]], dim=1)
+
+
+def marginal_lnpost_theta(fns, transform):
+    """``theta (B, dim) -> lnpost (B,)`` on the gradient's path
+    (``differentiable_log_posterior``), the discrete PSF index
+    marginalized by a logsumexp over the PSFs."""
+    offsets = transform.discrete_offsets
+    num_psfs = getattr(fns.spec, "num_psfs", 1)
+    if len(offsets) == 0:
+        return fns.differentiable_log_posterior
+    off = int(offsets[0])
+
+    def lnpost(theta):
+        lps = fns.differentiable_log_posterior(psf_fan_out(theta, off, num_psfs))
+        return torch.logsumexp(lps.reshape(theta.shape[0], num_psfs), dim=1)
+
+    return lnpost
+
+
 def _marginal_lnpost_fn(fns, transform):
     """``z (B, m) -> lnpost(theta(z)) (B,)``, the discrete PSF index
     marginalized by a logsumexp over the PSFs; the MAP objective.
 
     No transform Jacobian: the mode users want is the argmax of the
     constrained posterior density."""
-    offsets = transform.discrete_offsets
-    num_psfs = getattr(fns.spec, "num_psfs", 1)
+    marginal = marginal_lnpost_theta(fns, transform)
 
     def lnpost(z):
         theta, _ = transform.to_constrained(z)
-        if len(offsets) == 0:
-            return fns.differentiable_log_posterior(theta)
-        off = int(offsets[0])
-        b = theta.shape[0]
-        rep = theta.repeat_interleave(num_psfs, dim=0)
-        index = torch.arange(num_psfs, dtype=theta.dtype,
-                             device=theta.device).repeat(b)
-        rep = torch.cat([rep[:, :off], index[:, None], rep[:, off + 1:]], dim=1)
-        lps = fns.differentiable_log_posterior(rep).reshape(b, num_psfs)
-        return torch.logsumexp(lps, dim=1)
+        return marginal(theta)
 
     return lnpost
 

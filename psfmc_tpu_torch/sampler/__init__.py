@@ -1,6 +1,6 @@
 """Samplers of the port: the ensemble sampler (stretch, DE and mixed
 moves), its parallel-tempered counterpart with the evidence estimators,
-and annealed importance sampling."""
+annealed importance sampling, and the No-U-Turn sampler."""
 from .ais import AISResult, ais_beta_schedule, ais_evidence
 from .autocorr import AutocorrError, integrated_time
 from .ensemble import (
@@ -14,6 +14,7 @@ from .ensemble import (
     stretch_update,
     welford_batch_update,
 )
+from .nuts import NUTSSampler
 from .tempered import (
     PTEnsembleSampler,
     default_beta_ladder,
@@ -27,6 +28,7 @@ __all__ = [
     "EnsembleSampler",
     "EnsembleState",
     "PTEnsembleSampler",
+    "NUTSSampler",
     "default_beta_ladder",
     "evidence_beta_ladder",
     "AISResult",

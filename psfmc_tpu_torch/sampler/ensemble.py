@@ -82,6 +82,7 @@ __all__ = [
     "welford_batch_update",
     "merge_image_accumulators",
     "fresh_image_accumulators",
+    "restore_image_accumulators",
     "stretch_update",
     "de_update",
     "mixed_update",
@@ -165,6 +166,25 @@ def fresh_image_accumulators(posterior_fns, device):
         return {}
     return {k: torch.zeros(s, dtype=torch.float32, device=device)
             for k, s in posterior_fns.carry_image_shapes().items()}
+
+
+def restore_image_accumulators(bufs, count_buf, payload):
+    """Write a checkpoint payload's image accumulators and their count
+    into the buffers ``bufs`` and ``count_buf``; nothing when the payload
+    has none or holds another image basis.  A payload without ``raw_m2``
+    fills it with NaN (the std product then reports unavailable)."""
+    accum = payload.get("accum")
+    count = int(payload.get("accum_count", 0))
+    if not accum or count <= 0 or not bufs:
+        return
+    if any(k not in accum and k != "raw_m2" for k in bufs):
+        return  # another image basis
+    for k, buf in bufs.items():
+        if k in accum:
+            buf.copy_(torch.as_tensor(np.asarray(accum[k]), dtype=buf.dtype))
+        else:
+            buf.fill_(math.nan)
+    count_buf.fill_(count)
 
 
 def _metropolis(active_pos, active_lnp, proposal, log_extra, lnpost_batch,
@@ -749,7 +769,7 @@ class EnsembleSampler:
         self.init_state(positions)
         self.generator.set_state(torch.as_tensor(
             np.asarray(payload["rng_state"], np.uint8)))
-        self._restore_accum(payload)
+        restore_image_accumulators(self.state.accum, self.state.accum_count, payload)
         naccept = np.asarray(payload.get("naccept", 0), np.int64)
         if naccept.ndim == 2:
             naccept = naccept[0]
@@ -766,21 +786,6 @@ class EnsembleSampler:
                 f"checkpoint generator {kind!r} cannot be restored into a "
                 f"{self.rng_kind!r} sampler"
             )
-
-    def _restore_accum(self, payload):
-        accum = payload.get("accum")
-        count = int(payload.get("accum_count", 0))
-        bufs = self.state.accum
-        if not accum or count <= 0 or not bufs:
-            return
-        if any(k not in accum and k != "raw_m2" for k in bufs):
-            return  # another image basis
-        for k, buf in bufs.items():
-            if k in accum:
-                buf.copy_(torch.as_tensor(np.asarray(accum[k]), dtype=buf.dtype))
-            else:  # no raw_m2: the std product reports unavailable
-                buf.fill_(math.nan)
-        self.state.accum_count.fill_(count)
 
     # -- emcee-compatible accessors ----------------------------------------
     @property

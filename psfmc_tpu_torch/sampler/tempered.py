@@ -52,6 +52,7 @@ from .ensemble import (
     _stretch_proposal,
     fresh_image_accumulators,
     merge_image_accumulators,
+    restore_image_accumulators,
     welford_batch_update,
 )
 
@@ -666,7 +667,7 @@ class PTEnsembleSampler(EnsembleSampler):
         self.init_state(positions)
         self.generator.set_state(torch.as_tensor(
             np.asarray(payload["rng_state"], np.uint8)))
-        self._restore_accum(payload)
+        restore_image_accumulators(self.state.accum, self.state.accum_count, payload)
         s = self.state
         naccept = np.asarray(payload.get("naccept", 0), np.int64)
         if naccept.shape == (self.ntemps, self.nwalkers):

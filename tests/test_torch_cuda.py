@@ -1384,3 +1384,117 @@ def test_kernels_at_tempered_batches_match_plain(cuda, batch):
     fin = torch.isfinite(ref)
     assert fin.float().mean() > 0.5
     assert ((lnl[fin] - ref[fin]).abs() / ref[fin].abs()).max() <= 2e-5
+
+
+# -- NUTS ------------------------------------------------------------------------
+class _NutsIdentity:
+    """The identity transform of a toy target."""
+
+    def __init__(self, m):
+        self.num_unconstrained = m
+        self.discrete_offsets = np.zeros(0, np.int64)
+
+    def to_constrained(self, z):
+        return z, torch.zeros(z.shape[:-1], dtype=z.dtype, device=z.device)
+
+    def to_unconstrained(self, theta):
+        return np.asarray(theta, np.float64)
+
+
+class _NutsGauss:
+    """A correlated 3-D Gaussian with a carry image (theta_0 everywhere):
+    the target of the JAX package's NUTS moments test."""
+
+    mean = np.array([1.0, -2.0, 0.5])
+    cov = np.array([[1.0, 0.5, 0.0], [0.5, 2.0, 0.3], [0.0, 0.3, 0.5]])
+
+    def __init__(self, device):
+        self.device, self.dtype = torch.device(device), torch.float64
+        self.spec = type("Spec", (), {"num_psfs": 1})()
+        self._mean = torch.as_tensor(self.mean, device=self.device)
+        self._prec = torch.as_tensor(np.linalg.inv(self.cov), device=self.device)
+
+    def log_posterior_batch(self, theta):
+        d = theta - self._mean
+        return -0.5 * ((d @ self._prec) * d).sum(-1)
+
+    differentiable_log_posterior = log_posterior_batch
+
+    def carry_image_shapes(self):
+        return {"img": (2, 2)}
+
+    def ensemble_carry_means(self, theta):
+        return {"img": theta[:, 0].mean().expand(2, 2).to(torch.float32)}
+
+
+def test_nuts_steps_graphed_are_bit_identical_to_eager(flagship):
+    """Three warmup steps (the window switch after the third) and one
+    retained step of NUTS at 8 chains, as replays of the captured pieces
+    and eagerly: every buffer, the chain and the generator bit for bit,
+    equal launches; the leaf's graph launches the render, conv_lnl's
+    residual forward and both backward kernels once each."""
+    import contextlib
+    from dataclasses import fields
+
+    from psfmc_tpu_torch.sampler.nuts import (
+        SAMPLE_PIECES,
+        WARMUP_PIECES,
+        NUTSSampler,
+        _eager,
+    )
+
+    spec, post = flagship
+    pool = prior_draws(spec, 64, seed=21)
+    runs = []
+    for eager in (False, True):
+        s = NUTSSampler(8, spec.num_params, post, seed=3, max_depth=5)
+        s.init_state(pool)
+        s.state.eps.fill_(2e-4)  # trees of several leaves from the prior's best
+        before = _map_counts()
+        with _eager(s) if eager else contextlib.nullcontext():
+            s.run_burn(3)
+            s.reset()
+            s.run_sampling(1)
+        torch.cuda.synchronize()
+        after = _map_counts()
+        runs.append((s, [a - b for a, b in zip(after[:4], before[:4])]))
+    (g, g_n), (e, e_n) = runs
+    for f in fields(g.state):
+        x, y = getattr(g.state, f.name), getattr(e.state, f.name)
+        for u, v in ([(x[k], y[k]) for k in x] if f.name == "accum" else [(x, y)]):
+            _same_bits(u, v)
+    _same_bits(g.generator.get_state(), e.generator.get_state())
+    _same_bits(g.chain, e.chain)
+    _same_bits(g.lnprobability, e.lnprobability)
+    assert g.piece_counts == e.piece_counts and g.piece_counts["switch"] == 1
+    assert g.graph_replays == sum(g.piece_counts.values()) and e.graph_replays == 0
+    assert g.captures == len(set(WARMUP_PIECES) | set(SAMPLE_PIECES))
+    tally = sorted((fn.__name__, route or "") for fn, route, _ in g._graphs["leaf"].launches)
+    assert tally == [("batched_conv_lnl", "fft_res"), ("batched_conv_lnl_backward", "fft"),
+                     ("render_sersics", ""), ("render_sersics_backward", "")]
+    leaves = g.leaves_run
+    assert leaves > g.steps_run  # trees of more than one leaf
+    assert g_n == e_n == [leaves + 2, leaves, leaves + 1, leaves]
+
+
+def test_nuts_gaussian_moments_on_the_card(cuda):
+    """The JAX package's NUTS moments test on the card: 8 chains, 300
+    warmup + 700 retained steps, the same bars."""
+    from psfmc_tpu_torch.sampler.nuts import NUTSSampler
+
+    post = _NutsGauss(cuda)
+    s = NUTSSampler(8, 3, post, seed=1, transform=_NutsIdentity(3), device=cuda)
+    s.init_state(np.random.RandomState(0).randn(8, 3) * 0.1 + post.mean)
+    s.run_burn(300)
+    s.reset()
+    s.run_sampling(700)
+    flat = np.asarray(s.flatchain, np.float64)
+    assert np.allclose(flat.mean(0), post.mean, atol=0.08)
+    assert np.allclose(np.cov(flat.T), post.cov, atol=0.2)
+    inv_mass = s.state.inv_mass.cpu().numpy()
+    assert np.all(inv_mass > 0.1) and np.all(inv_mass < 5.0)
+    assert 0.5 < s.acceptance_fraction.mean() <= 1.0
+    assert abs(float(s.accumulated_images["img"].mean()) - 1.0) < 0.15
+    assert s.accumulated_samples == 8 * 700
+    assert s.n_leapfrog_total > 0
+    assert s.graph_replays == sum(s.piece_counts.values())

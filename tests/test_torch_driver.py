@@ -260,7 +260,7 @@ def test_jax_checkpoint_generator_is_refused(model_dir):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(sampler="nuts"), dict(sampler="nuts", ntemps=2),
+    dict(sampler="nuts", criticism=True), dict(sampler="nuts", mesh=object()),
     dict(ntemps=3, criticism=True), dict(criticism=True), dict(mesh=object()),
 ])
 def test_driver_raises_outside_the_slice(kw):

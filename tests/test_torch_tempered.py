@@ -641,9 +641,21 @@ def test_driver_writes_the_evidence_cards(tmp_path):
             np.asarray(db[name]).reshape(24, 6, -1), err_msg=name)
 
 
-def test_driver_nuts_still_raises_naming_item_19():
-    with pytest.raises(NotImplementedError, match="item 19"):
-        model_galaxy_mcmc("no_such_model.py", device="cpu", sampler="nuts", ntemps=4)
+def test_driver_nuts_still_raises_naming_item_19(tmp_path):
+    """Item 19 brought NUTS: ``sampler="nuts"`` with ``ntemps`` now warns
+    that the rungs are ignored and runs NUTS (its checkpoint's kind); an
+    option outside the slice still raises naming its item."""
+    _write_inputs(str(tmp_path), shape=(16, 16), psf_shape=(8, 8))
+    (tmp_path / "model.py").write_text(MODEL)
+    with pytest.warns(UserWarning, match="ntemps is ignored with sampler='nuts'"):
+        db = model_galaxy_mcmc(str(tmp_path / "model.py"), output_name=str(tmp_path / "out"),
+                               chains=4, burn=12, iterations=6, device="cpu",
+                               sampler="nuts", ntemps=4, max_depth=2)
+    assert len(db) == 4 * 6
+    assert tdb.load_checkpoint(str(tmp_path / "out_db.fits"))["sampler_kind"] == "nuts"
+    with pytest.raises(NotImplementedError, match="item 18"):
+        model_galaxy_mcmc("no_such_model.py", device="cpu", sampler="nuts", ntemps=4,
+                          mesh=object())
 
 
 def test_adaptation_measures_finite_walkers_only():

@@ -219,9 +219,28 @@ never ``jax`` nor ``psfmc_tpu``, and:
    steps graphed against eager bit for bit; the general flagship (two
    PSFs, the index marginalized in the potential and Gibbs-sampled) at 10
    + 5 steps of depth 4 with its lnpost against the CPU's float64;
-16. prints the tempered, evidence and NUTS phases' numbers and the kernel
-   table as one JSON line each, then the result line ``{"ok": true,
-   "device": {...}}`` last.
+16. criticism phase (model criticism): the driver phase's flagship fit
+   (``PSFMC_LNPOST=pallas``, 250 walkers, 20 + 20 steps) and a joint
+   flagship fit (band 1 at 96x96, 10 + 10 steps) through
+   ``model_galaxy_mcmc(criticism=True)``: the seven criticism cards
+   (``MCLOOELP``, ``MCLOOSE``, ``MCLOOPEF``, ``MCLOOKBD``, ``MCPITKS``,
+   ``MCPITP``, ``MCPSFLAG``) in every product, each held to the CPU's
+   float64 recomputation from the same trace within tolerances derived
+   from float32's error in one pixel's term (:data:`CRIT_CONV_ETA`) or
+   four times the float32 CPU's own distance from float64, the 500 x N
+   pointwise matrices held to the CPU's entry by entry likewise, the
+   block's launches exact (the render once a replay chunk of 256 draws
+   and band; the fused kernel, or the render and conv_lnl once a band,
+   for the power-scaling replay of the 500 draws), each of those kernels
+   against its plain version at its own batch, and the block's wall time
+   split into the pointwise replay (and its device time), PSIS-LOO,
+   LOO-PIT and the power-scaling replay;
+17. prints the tempered, evidence, NUTS and criticism phases' numbers and
+   the kernel table as one JSON line each, then the result line ``{"ok":
+   true, "device": {...}}`` last.
+
+Each phase ends in a synchronize of the card (:func:`run_phase`), so an
+asynchronous CUDA error names the phase whose launches raised it.
 
 ``python3 chip_smoke.py --profile`` adds a torch.profiler breakdown of
 device time by kernel over a segment of ten retained sampler steps of
@@ -235,6 +254,12 @@ second build of the two sources with phase stamps;
 the first phase of the fused kernel is its render), and the render kernel
 under other launch geometries than the wrapper picks.  The breakdown
 also covers the priors flagship and the priors' stress variant.
+
+``python3 chip_smoke.py --only nuts,nuts,criticism`` runs only the named
+phases after the build (``nuts``, ``criticism``, and ``nuts-kernels``:
+the gradient path's four kernels at NUTS's batches, a short target for
+``compute-sanitizer``), each as often as it is named, and prints their
+numbers.
 
 ``python3 chip_smoke.py --step-times`` runs only :func:`step_times_phase`
 (the joint offset variant's retained step and the joint MAP's Adam step
@@ -3938,6 +3963,382 @@ def nuts_times(sampler, steps=NUTS_PROFILED):
     return out
 
 
+CRIT_JOINT_BURN, CRIT_JOINT_SAMPLE = 10, 10  # the short joint fit
+# The card's pointwise maps against the CPU's float64, entry by entry.  A
+# pixel's term is -z^2 / 2 + ln(ivm / 2 pi) / 2 with z = (obs - conv)
+# sqrt(ivm); on the card conv carries the render kernel's float32 error
+# (RENDER_TOL, 5e-6 of a pixel) and that of the convolution's DFT products
+# in float32 (about 2 sqrt(N) eps32 a pass, two passes at N = 128: 3e-6),
+# both of the draw's largest |raw| or |conv|: CRIT_CONV_ETA.  So a term may
+# move by |z| sqrt(ivm) d_conv, and by its own rounding, CRIT_TERM_EPS of
+# (|term| + 1) (16 eps32); the predictive CDF Phi(z) by phi(z) sqrt(ivm)
+# d_conv + CRIT_TERM_EPS.
+CRIT_CONV_ETA = 1e-5
+CRIT_TERM_EPS = 1e-6
+# A pixel's Pareto k may move this many times its largest term tolerance
+# (k is a smooth function of the log weights, which move by at most twice
+# it); a count card may differ by the CPU's pixels (or parameters) that
+# close to its threshold.  A prior power-scaling index may move by
+# CRIT_FLAG_BAND (the card's float32 log prior of the same draws).
+CRIT_K_BAND = 40
+CRIT_FLAG_BAND = 1e-3
+CRIT_PLAIN = 4  # ... or this many times the float32 plain version's own error
+CRIT_HALF_UNIT = {"MCLOOELP": 0.005, "MCLOOSE": 0.005, "MCLOOPEF": 0.005,
+                  "MCPITKS": 5e-5, "MCPITP": 5e-5}  # half the cards' rounding
+CRIT_CARDS = ("MCLOOELP", "MCLOOSE", "MCLOOPEF", "MCLOOKBD", "MCPITKS", "MCPITP",
+              "MCPSFLAG")
+
+
+def criticism_reference(model, thetas, chunk):
+    """The pointwise (loglike, cdf) maps of ``thetas`` on ``model`` (the
+    CPU's float64), good pixels of every band concatenated, and each
+    entry's tolerance on the card (see :data:`CRIT_CONV_ETA`)."""
+    import torch
+
+    from psfmc_tpu_torch.analysis.model_comparison import _band_fns
+
+    bands = []
+    for f in _band_fns(model):
+        good = f.good.reshape(-1)
+        parts = ([], [], [], [])
+        for lo in range(0, len(thetas), chunk):
+            with torch.no_grad():
+                imgs = f._images(f.as_thetas(thetas[lo:lo + chunk]), with_ps=False)
+                resid, ivm = f.obs - imgs["conv"], 1.0 / imgs["var"]
+                ll = f._lnlike_pointwise(resid, ivm, f.good, imgs["conv"])
+                cdf = f._cdf_pointwise(resid, ivm, f.good, imgs["conv"])
+                scale = torch.maximum(imgs["raw"].abs().amax(dim=(1, 2)),
+                                      imgs["conv"].abs().amax(dim=(1, 2)))
+                d_conv = CRIT_CONV_ETA * scale[:, None, None]
+                root = ivm.sqrt()
+                z = resid * root
+                t_ll = z.abs() * root * d_conv + CRIT_TERM_EPS * (ll.abs() + 1.0)
+                t_cdf = (torch.exp(-0.5 * z * z) / math.sqrt(2 * math.pi) * root * d_conv
+                         + CRIT_TERM_EPS)
+            for dst, m in zip(parts, (ll, cdf, t_ll, t_cdf)):
+                dst.append(m.reshape(m.shape[0], -1)[:, good].numpy())
+        bands.append([np.concatenate(p, axis=0) for p in parts])
+    return [np.concatenate(b, axis=1) for b in zip(*bands)]
+
+
+def criticism_fit(model_file, out, burn, sample, device):
+    """``model_galaxy_mcmc(criticism=True)`` with the kernels counted over
+    the whole call and over the criticism block alone, the block's pieces
+    timed on the host clock (each from a synchronize) and its pointwise
+    matrices and draws kept.  Returns the database and what was kept."""
+    import torch
+
+    from psfmc_tpu_torch import fitting
+    from psfmc_tpu_torch.analysis import model_comparison as MC
+    from psfmc_tpu_torch.analysis import sensitivity as SE
+
+    counted = counted_kernels()
+    kept = {"s": {}}
+    originals = {(MC, "criticism_values"): MC.criticism_values,
+                 (MC, "_pointwise_matrix_pair"): MC._pointwise_matrix_pair,
+                 (MC, "psis_loo"): MC.psis_loo, (MC, "loo_pit"): MC.loo_pit,
+                 (SE, "_replay_scalar"): SE._replay_scalar,
+                 (SE, "power_scale_from_logs"): SE.power_scale_from_logs}
+
+    def timed(key, fn):
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a, **k)
+            torch.cuda.synchronize()
+            kept["s"][key] = kept["s"].get(key, 0.0) + time.perf_counter() - t0
+            return res
+        return wrapped
+
+    def block(*a, **k):  # the criticism block's own launches
+        torch.cuda.synchronize()
+        before = read_counts(counted)
+        res = timed("block", originals[(MC, "criticism_values")])(*a, **k)
+        kept["before"], kept["after"] = before, read_counts(counted)
+        return res
+
+    def pair(model, thetas, chunk):
+        res = timed("replay", originals[(MC, "_pointwise_matrix_pair")])(model, thetas, chunk)
+        kept.update(thetas=thetas, ll=res[0], cdf=res[1], chunk=chunk)
+        return res
+
+    patches = {(MC, "criticism_values"): block, (MC, "_pointwise_matrix_pair"): pair,
+               (MC, "psis_loo"): timed("psis_loo", MC.psis_loo),
+               (MC, "loo_pit"): timed("loo_pit", MC.loo_pit),
+               (SE, "_replay_scalar"): timed("sensitivity_replay", SE._replay_scalar),
+               (SE, "power_scale_from_logs"): timed("sensitivity_host",
+                                                    SE.power_scale_from_logs)}
+    for (mod, name), fn in patches.items():
+        setattr(mod, name, fn)
+    try:
+        torch.cuda.synchronize()
+        reset_counts(counted)
+        t0 = time.perf_counter()
+        db = fitting.model_galaxy_mcmc(
+            model_file, output_name=out, chains=NWALKERS, burn=burn, iterations=sample,
+            seed=SEED, device=device, checkpoint_interval=CHECKPOINT, criticism=True)
+        kept["wall"] = time.perf_counter() - t0
+        kept["total"] = read_counts(counted)
+    finally:
+        for (mod, name), fn in originals.items():
+            setattr(mod, name, fn)
+    if "after" not in kept:
+        raise AssertionError("the criticism block did not run")
+    (b0, r0), (b1, r1) = kept["before"], kept["after"]
+    kept["launches"] = {k: b1[k] - b0[k] for k in b1}
+    kept["routes"] = {k: r1[k] - r0[k] for k in r1}
+    return db, kept
+
+
+def criticism_kernel_checks(model, thetas, chunk, label):
+    """Every kernel of the criticism path against its plain version at the
+    batch it launches there: the render at each chunk of the pointwise
+    replay (``chunk`` draws and the remainder), for every band; at the
+    power-scaling replay's batch (every draw in one launch), the fused
+    kernel on the fused path, else the render and conv_lnl."""
+    import torch
+
+    from psfmc_tpu_torch.analysis.model_comparison import _band_fns
+    from psfmc_tpu_torch.ops.kernels.fused_lnl import fused_lnl, fused_lnl_plain
+    from psfmc_tpu_torch.ops.kernels.sersic_render import (
+        render_sersics,
+        render_sersics_plain,
+    )
+
+    checks = []
+    for band, f in enumerate(_band_fns(model)):
+        th = f.as_thetas(thetas)
+        name = f"{label}, band {band}" if hasattr(model.posterior_fns, "band_fns") else label
+        for lo in range(0, len(th), chunk):
+            params, sky = (t.contiguous() for t in f.render_inputs(th[lo:lo + chunk]))
+            _, rel, _ = compare(render_sersics(params, sky, f.render_shape),
+                                render_sersics_plain(params, sky, f.render_shape))
+            log(f"{name}: render at the pointwise replay's B = {params.shape[0]}: max rel "
+                f"err {rel:.3e} (tol {RENDER_TOL:g})")
+            if not rel <= RENDER_TOL:
+                raise AssertionError(f"{name}: the render disagrees with its plain version")
+            checks.append({"band": band, "kernel": "render", "batch": params.shape[0],
+                           "max_rel_err": rel})
+        if f.lnpost == "fused":
+            params, sky = (t.contiguous() for t in f.render_inputs(th))
+            fky, kx = (t.contiguous() for t in f.pointsource_inputs(th))
+            args = (params, sky, fky, kx, f.consts)
+            _, rel, frac = compare(fused_lnl(*args), fused_lnl_plain(*args))
+            log(f"{name}: fused_lnl at the power-scaling replay's B = {len(th)}: max rel "
+                f"err {rel:.3e} (tol {FUSED_TOL:g}), finite share {frac:.4f}")
+            if not rel <= FUSED_TOL:
+                raise AssertionError(f"{name}: fused_lnl disagrees with its plain version")
+            checks.append({"band": band, "kernel": "fused_lnl", "batch": len(th),
+                           "max_rel_err": rel})
+        else:
+            out = batch_kernel_check(f, th, f"{name}, power-scaling replay")
+            checks.append({"band": band, "kernel": "render+conv_lnl", **out})
+    torch.cuda.synchronize()
+    return checks
+
+
+def criticism_values_check(label, headers, kept, cpu_models, db):
+    """The card's criticism cards (in every product's header) and its
+    pointwise matrices against the CPU's float64 on the same draws.
+
+    Each entry of the matrices within the larger of its tolerance from
+    :data:`CRIT_CONV_ETA` and :data:`CRIT_PLAIN` times the float32 plain
+    version's own distance from float64 (the same model on the CPU in
+    float32: a draw whose float32 evaluation is ill-conditioned, a Sersic
+    of extreme index or size in an unconverged chain, is as far from
+    float64 on the CPU as on the card).  Each card likewise: its
+    tolerance propagated from the entries' (ELPD, SE, p_eff, the PIT
+    values and so the KS statistic and p-value, the pixels or parameters
+    that close to a count's threshold) or :data:`CRIT_PLAIN` times the
+    float32 CPU's distance from float64, plus half the card's rounding.
+    ``cpu_models`` is the model on the CPU in (float64, float32)."""
+    from scipy.stats import kstwo
+
+    from psfmc_tpu_torch.analysis import model_comparison as MC
+    from psfmc_tpu_torch.fitting import CRITICISM_DRAWS
+
+    for hdr in headers:
+        missing = [k for k in CRIT_CARDS if k not in hdr]
+        if missing:
+            raise AssertionError(f"{label}: criticism cards missing: {missing}")
+        if any(hdr[k] != headers[0][k] for k in CRIT_CARDS):
+            raise AssertionError(f"{label}: the products' criticism cards differ")
+    cards = {k: headers[0][k] for k in CRIT_CARDS}
+    cpu64, cpu32 = cpu_models
+    thetas = kept["thetas"]
+    t0 = time.perf_counter()
+    if not np.array_equal(MC._resolve_thetas(cpu64, db, None, CRITICISM_DRAWS), thetas):
+        raise AssertionError(f"{label}: the CPU resolves other draws than the card")
+    ll, cdf, eta_ll, eta_cdf = criticism_reference(cpu64, thetas, kept["chunk"])
+    ll32, cdf32 = MC._pointwise_matrix_pair(cpu32, thetas, kept["chunk"])
+    tol_ll = np.maximum(eta_ll, CRIT_PLAIN * np.abs(ll32 - ll))
+    tol_cdf = np.maximum(eta_cdf, CRIT_PLAIN * np.abs(cdf32 - cdf))
+    err_ll, err_cdf = np.abs(kept["ll"] - ll), np.abs(kept["cdf"] - cdf)
+    ratio_ll = float(np.max(err_ll / tol_ll))
+    ratio_cdf = float(np.max(err_cdf / tol_cdf))
+    plain_draws = int(np.sum(np.any(CRIT_PLAIN * np.abs(ll32 - ll) > eta_ll, axis=1)))
+    log(f"{label}: pointwise matrices {kept['ll'].shape} on the card against the CPU's "
+        f"float64, entry by entry: loglike max |err| {float(err_ll.max()):.3e}, "
+        f"{ratio_ll:.3f} of its tolerance; cdf max |err| {float(err_cdf.max()):.3e}, "
+        f"{ratio_cdf:.3f} of its tolerance; the float32 CPU's own max |err| "
+        f"{float(np.max(np.abs(ll32 - ll))):.3e} and {float(np.max(np.abs(cdf32 - cdf))):.3e}"
+        f"; draws where {CRIT_PLAIN:g}x the float32 CPU's error sets a tolerance: "
+        f"{plain_draws} of {len(thetas)}")
+    if not (ratio_ll <= 1.0 and ratio_cdf <= 1.0):
+        raise AssertionError(f"{label}: the card's pointwise maps disagree with the CPU")
+
+    def values(model):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            loo, pit, sens = MC.criticism_values(model, db, draws=CRITICISM_DRAWS)
+        return {"MCLOOELP": loo.elpd, "MCLOOSE": loo.se, "MCLOOPEF": loo.p_eff,
+                "MCLOOKBD": int(np.sum(loo.pareto_k > 0.7)), "MCPITKS": pit.ks_stat,
+                "MCPITP": pit.ks_pvalue, "MCPSFLAG": len(sens.flagged())}, loo, pit, sens
+
+    want, loo, pit, sens = values(cpu64)
+    plain = values(cpu32)[0]
+    cpu_s = time.perf_counter() - t0
+    m = np.max(eta_ll, axis=0)  # each pixel's largest term tolerance
+    d_pit = np.max(eta_cdf, axis=0) + 4.0 * m
+    tols = {"MCLOOELP": 2.0 * m.sum(), "MCLOOSE": 2.0 * float(np.sqrt(np.sum(m * m))),
+            "MCLOOPEF": 3.0 * m.sum(), "MCPITKS": float(d_pit.max()),
+            "MCLOOKBD": int(np.sum(np.abs(loo.pareto_k - 0.7) <= CRIT_K_BAND * m)),
+            "MCPSFLAG": int(np.sum(np.abs(sens.prior - sens.threshold) <= CRIT_FLAG_BAND))}
+    n = pit.pit.size
+    tols["MCPITP"] = max(want["MCPITP"] - float(kstwo.sf(want["MCPITKS"] + tols["MCPITKS"], n)),
+                         float(kstwo.sf(max(want["MCPITKS"] - tols["MCPITKS"], 0.0), n))
+                         - want["MCPITP"])
+    for key in CRIT_CARDS:  # or the float32 plain version's own distance
+        tols[key] = max(tols[key], CRIT_PLAIN * abs(plain[key] - want[key]))
+    bad = [key for key in CRIT_CARDS
+           if not abs(cards[key] - want[key]) <= tols[key] + CRIT_HALF_UNIT.get(key, 0)]
+    log(f"{label}: criticism cards on the card {cards}; the CPU's float64 before "
+        f"rounding {want}, its float32 {plain}; tolerances {tols} (plus half the "
+        f"rounding); the CPU's recomputation {cpu_s:.1f} s")
+    if bad:
+        raise AssertionError(f"{label}: criticism cards {bad} disagree with the CPU")
+    return {"cards": cards, "cpu": want, "cpu_float32": plain, "tolerances": tols,
+            "ll_err_share_of_tol": ratio_ll, "cdf_err_share_of_tol": ratio_cdf,
+            "ll_max_abs_err": float(err_ll.max()), "plain_tolerance_draws": plain_draws}
+
+
+def criticism_phase(shape=(128, 128), psf_shape=(64, 64), joint_shapes=None,
+                    device=None):
+    """Model criticism on the card (the arguments shrink it for a rehearsal
+    on the CPU): the driver phase's flagship fit (``PSFMC_LNPOST=pallas``,
+    the fused kernel; 250 walkers, 20 + 20 steps) with ``criticism=True``,
+    then a short joint flagship fit (band 1 at 96x96, the mixed-radix
+    geometry; 10 + 10 steps) through ``JointModel.save_posterior_images``:
+    the seven cards in every product; the card's cards and pointwise
+    matrices against the CPU's float64 on the same draws
+    (:func:`criticism_values_check`); the block's launches exact (the
+    render once a replay chunk and band, the fused kernel or the render
+    and conv_lnl once a band for the power-scaling replay); every kernel
+    of the block against its plain version at its batch; the block's wall
+    time split into the pointwise replay, PSIS-LOO, LOO-PIT (its PSIS and
+    the KS test) and the power-scaling replay and host part.  Returns the
+    launches of both fits (whole calls) and the numbers."""
+    import torch
+
+    from psfmc_tpu_torch.analysis.model_comparison import REPLAY_CHUNK
+    from psfmc_tpu_torch.database import filter_lowp_walkers
+    from psfmc_tpu_torch.flagship import JOINT_SHAPES, write_flagship_files, write_joint_files
+    from psfmc_tpu_torch.io import fits
+    from psfmc_tpu_torch.models import as_model
+    from psfmc_tpu_torch.ops.kernels.conv_lnl import conv_route
+
+    joint_shapes = JOINT_SHAPES if joint_shapes is None else joint_shapes
+    t_phase = time.perf_counter()
+    out = {}
+    env = {k: os.environ.pop(k) for k in ("PSFMC_LNPOST", "PSFMC_RENDER", "PSFMC_KAPPA")
+           if k in os.environ}
+    runs = (("single", shape, BURN, SAMPLE), ("joint", joint_shapes, CRIT_JOINT_BURN,
+                                              CRIT_JOINT_SAMPLE))
+    try:
+        for kind, shapes, burn, sample in runs:
+            label = f"criticism, {kind}"
+            with tempfile.TemporaryDirectory() as tmp:
+                if kind == "single":
+                    model_file = write_flagship_files(tmp, shape, psf_shape)
+                    os.environ["PSFMC_LNPOST"] = "pallas"
+                    bases = [os.path.join(tmp, "out")]
+                else:
+                    model_file = write_joint_files(tmp, shapes, psf_shape)
+                    os.environ.pop("PSFMC_LNPOST", None)
+                    bases = [os.path.join(tmp, f"out_b{b}") for b in range(len(shapes))]
+                db, kept = criticism_fit(model_file, os.path.join(tmp, "out"), burn,
+                                         sample, device)
+                headers = [fits.getheader(f"{base}_{ftype}.fits") for base in bases
+                           for ftype in IMAGE_TYPES]
+                model = as_model(model_file, device=device)
+                cpu = [as_model(model_file, device="cpu", dtype=dt,
+                                lnpost="fused" if kind == "single" else None)
+                       for dt in (torch.float64, torch.float32)]
+                # the writer's stuck-walker filter (the block applies its own)
+                filtered = db if kind == "joint" else filter_lowp_walkers(db, 10)
+                res = criticism_values_check(label, headers, kept, cpu, filtered)
+                ndraws = len(kept["thetas"])
+                chunks = -(-ndraws // kept["chunk"])
+                if kind == "single":
+                    want = {"render_sersics": chunks, "fused_lnl": 1,
+                            "batched_conv_lnl": 0, "render_sersics_tiled": 0}
+                else:
+                    nb = len(shapes)
+                    want = {"render_sersics": nb * (chunks + 1), "fused_lnl": 0,
+                            "batched_conv_lnl": nb, "render_sersics_tiled": 0}
+                    routes = [conv_route(s) for s in shapes]
+                    geos = [fft_geometry(s) for s in shapes]
+                    if routes != ["fft", "fft"] or geos[1] != "mixed":
+                        raise AssertionError(f"{label}: bands {shapes} take {routes} {geos}")
+                    if (kept["routes"]["batched_conv_lnl:fft"] != nb
+                            or kept["routes"]["batched_conv_lnl:fft:mixed"] != 1):
+                        raise AssertionError(f"{label}: conv_lnl's routes {kept['routes']}")
+                log(f"{label}: model_galaxy_mcmc(criticism=True), {NWALKERS} walkers, "
+                    f"{burn} + {sample} steps: {kept['wall']:.2f} s; the block "
+                    f"({ndraws} draws, chunks of {kept['chunk']}) launched {kept['launches']}"
+                    f" (want {want}), routes {kept['routes']}; the call launched "
+                    f"{kept['total'][0]}")
+                if kept["launches"] != want:
+                    raise AssertionError(f"{label}: the block's launches {kept['launches']}, "
+                                         f"want {want}")
+                checks = criticism_kernel_checks(model, kept["thetas"], kept["chunk"], label)
+                secs = kept["s"]
+                res.update(
+                    draws=ndraws, pixels=int(kept["ll"].shape[1]),
+                    launches=kept["launches"], routes=kept["routes"],
+                    call_launches=dict(kept["total"][0], **kept["total"][1]),
+                    fit_wall_s=kept["wall"], block_s=secs["block"],
+                    replay_s=secs["replay"], psis_loo_s=secs["psis_loo"],
+                    loo_pit_s=secs["loo_pit"],
+                    sensitivity_replay_s=secs["sensitivity_replay"],
+                    sensitivity_host_s=secs["sensitivity_host"], kernel_checks=checks)
+                # the replay's device time alone: every band's chunks, events
+                fns = [f for f in getattr(model.posterior_fns, "band_fns",
+                                          [model.posterior_fns])]
+                th = [f.as_thetas(kept["thetas"]) for f in fns]
+
+                def replay():
+                    with torch.no_grad():
+                        for f, t in zip(fns, th):
+                            for lo in range(0, ndraws, kept["chunk"]):
+                                f.pointwise_lnl_and_cdf(t[lo:lo + kept["chunk"]])
+
+                res["replay_device_ms"] = time_ms(replay, reps=3, inner=1)
+                log(f"{label}: the block {secs['block']:.3f} s: pointwise replay "
+                    f"{secs['replay']:.3f} s (device {res['replay_device_ms']:.2f} ms; "
+                    f"{2 * 8 * ndraws * res['pixels'] / 1e6:.1f} MB to the host), PSIS-LOO "
+                    f"{secs['psis_loo']:.3f} s, LOO-PIT (PSIS + KS) {secs['loo_pit']:.3f} s, "
+                    f"power-scaling replay {secs['sensitivity_replay']:.3f} s and host "
+                    f"{secs['sensitivity_host']:.3f} s ({CARD})")
+                out[kind] = res
+    finally:
+        os.environ.pop("PSFMC_LNPOST", None)
+        os.environ.update(env)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"criticism: the phase took {out['wall_s']:.1f} s ({CARD})")
+    return out
+
+
 def profile_adam(program, z0, steps=STEADY):
     """Device time by kernel over ten replays of the captured Adam step
     (torch.profiler): busy time, kernels per step and idle share."""
@@ -4361,6 +4762,58 @@ def phase_clocks_phase(post, spec):
                             for k, v in zip(PHASES, clocks)))
 
 
+def run_phase(name, fn, *args, **kwargs):
+    """Run one phase, then synchronize the card, so that an asynchronous
+    CUDA error raised by the phase's launches names this phase before it
+    propagates (a failed phase fails the run)."""
+    import torch
+
+    t0 = time.perf_counter()
+    try:
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+    except BaseException as err:
+        log(f"phase {name}: FAILED after {time.perf_counter() - t0:.1f} s: "
+            f"{type(err).__name__}: {err}")
+        raise
+    log(f"phase {name}: done in {time.perf_counter() - t0:.1f} s, the card "
+        "synchronized without a CUDA error")
+    return out
+
+
+def nuts_kernel_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
+    """The gradient path's four kernels at NUTS's batches alone, each against
+    its plain version (:func:`grad_batch_check`): 8 chains of the flagship
+    and the 16 rows of the general flagship's marginalized leaf (8 chains
+    x 2 PSFs), at prior draws.  A short target for ``compute-sanitizer``:
+    ``compute-sanitizer --tool memcheck python3 chip_smoke.py --only
+    nuts-kernels``."""
+    import torch
+
+    from psfmc_tpu_torch.flagship import flagship_components, general_components, prior_draws
+    from psfmc_tpu_torch.models import build_model_spec, build_posterior
+    from psfmc_tpu_torch.optimize import psf_fan_out
+
+    spec = build_model_spec(flagship_components(shape, psf_shape))
+    post = build_posterior(spec, device=device, lnpost="batched")
+    thetas = torch.as_tensor(prior_draws(spec, NUTS_CHAINS, seed=SEED + 9),
+                             dtype=torch.float32, device=post.device)
+    checks = [grad_batch_check(post, thetas, "nuts kernels", SEED + 7)]
+    gspec = build_model_spec(general_components(shape, psf_shape))
+    gpost = build_posterior(gspec, device=device)
+    off = int(np.cumsum([0] + gspec.param_lens)[gspec.param_names.index("PSF_Index")])
+    gthetas = torch.as_tensor(prior_draws(gspec, NUTS_CHAINS, seed=SEED + 10),
+                              dtype=torch.float32, device=gpost.device)
+    checks.append(grad_batch_check(gpost, psf_fan_out(gthetas, off, gspec.num_psfs),
+                                   "nuts kernels, marginalized", SEED + 8))
+    return {"nuts_kernel_checks": checks}
+
+
+# the phases ``--only`` runs (after the build), each by its name
+ONLY_PHASES = {"nuts": lambda: nuts_phase(), "criticism": lambda: criticism_phase(),
+               "nuts-kernels": lambda: nuts_kernel_phase()}
+
+
 def main():
     import torch
 
@@ -4401,24 +4854,37 @@ def main():
         log(json.dumps({"step_times": times, "sass": sass_digests(),
                         "card": identity}))
         return 0
+    if "--only" in sys.argv[1:]:  # e.g. --only nuts,nuts,nuts,criticism
+        names = sys.argv[sys.argv.index("--only") + 1].split(",")
+        unknown = set(names) - set(ONLY_PHASES)
+        if unknown:
+            raise SystemExit(f"chip_smoke: unknown phases {sorted(unknown)}; "
+                             f"choose from {sorted(ONLY_PHASES)}")
+        for i, name in enumerate(names):
+            out = run_phase(f"{name} ({i + 1} of {len(names)})", ONLY_PHASES[name])
+            log(json.dumps({"phase": name, "out": out, "card": identity}, default=str))
+        return 0
 
     spec = build_model_spec(flagship_components())
     post = build_posterior(spec, lnpost="batched")
-    rows = kernel_phase(post, spec)
-    launches, sampler = slice_phase(post, spec)
-    driver_launches, mc, last = driver_phase()
-    graph_phase(post, spec)
-    pt_launches, pt_routes, tempered, pt_out = tempered_phase(post, spec)
-    evid_out = evidence_phase()
-    general_launches, variant_launches, general = general_phase()
-    family_launches_, family_variant_launches, family = family_phase()
-    prior_family_phase()
+    rows = run_phase("kernel", kernel_phase, post, spec)
+    launches, sampler = run_phase("slice", slice_phase, post, spec)
+    driver_launches, mc, last = run_phase("driver", driver_phase)
+    run_phase("graph", graph_phase, post, spec)
+    pt_launches, pt_routes, tempered, pt_out = run_phase("tempered", tempered_phase,
+                                                         post, spec)
+    evid_out = run_phase("evidence", evidence_phase)
+    general_launches, variant_launches, general = run_phase("general", general_phase)
+    family_launches_, family_variant_launches, family = run_phase("family", family_phase)
+    run_phase("prior family", prior_family_phase)
     priors_launches, api_launches, priors_variant_launches, priors, stress = \
-        priors_phase()
-    joint_launches_, joint_variant_launches, joint_on_path, joint = joint_phase()
-    grad = map_phase()
-    nuts = nuts_phase()
-    rows += backward_rows(post, spec)
+        run_phase("priors", priors_phase)
+    joint_launches_, joint_variant_launches, joint_on_path, joint = run_phase(
+        "joint", joint_phase)
+    grad = run_phase("map", map_phase)
+    nuts = run_phase("nuts", nuts_phase)
+    crit = run_phase("criticism", criticism_phase)
+    rows += run_phase("backward rows", backward_rows, post, spec)
     from psfmc_tpu_torch.sampler import EnsembleSampler
 
     fused = EnsembleSampler(NWALKERS, spec.num_params, mc.posterior_fns,
@@ -4524,8 +4990,24 @@ def main():
                            ("batched_conv_lnl_backward", "padded",
                             "conv_lnl_backward_padded")):
         by_name[row] = sum(g[f"{fn}:{route}"] for g in grads)
+    # the criticism phase (16): the fused flagship fit and the joint fit with
+    # criticism=True, whole calls (sampling, image writer, criticism block)
+    for kind in ("single", "joint"):
+        c = crit[kind]["call_launches"]
+        geo = {g: c[f"batched_conv_lnl:fft:{g}"] for g in MIXED_GEOMETRIES}
+        by_name["sersic_render"] += c["render_sersics"]
+        by_name["sersic_render_tiled"] += c["render_sersics_tiled"]
+        by_name["fused_lnl"] += c["fused_lnl:fft"]
+        by_name["fused_lnl_dft"] += c["fused_lnl:dft"]
+        by_name["conv_lnl"] += c["batched_conv_lnl:fft"] - sum(geo.values())
+        by_name["conv_lnl_mixed"] += geo["mixed"]
+        by_name["conv_lnl_radix7"] += geo["radix7"]
+        by_name["conv_lnl_dft"] += c["batched_conv_lnl:dft"]
+    crit_checks = {k: crit[k]["kernel_checks"] for k in ("single", "joint")}
     for r in rows:
         r["launches"] = by_name[r["name"]]
+        if r["name"] in ("sersic_render", "fused_lnl", "conv_lnl", "conv_lnl_mixed"):
+            r["criticism_checks"] = crit_checks  # at the criticism's batches
         if r["name"] == "conv_lnl_mixed":  # timed on the joint fit's band 1 too
             r.update(joint_on_path)
         if r["name"] in ("sersic_render", "conv_lnl"):  # at the tempered batches
@@ -4551,6 +5033,10 @@ def main():
                              if k not in ("nuts_fit", "nuts_resume", "nuts_marginal",
                                           "nuts_kernel_checks")},
                     "card": identity}))
+    log(json.dumps({"criticism": {k: {f: v for f, v in crit[k].items()
+                                      if f != "kernel_checks"}
+                                  for k in ("single", "joint")},
+                    "card": identity}, default=float))
     log(json.dumps({"kernels": rows, "card": identity}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

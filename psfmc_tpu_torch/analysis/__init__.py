@@ -1,5 +1,21 @@
-"""Analysis for the fitting driver: posterior image products and the convergence statistics."""
+"""Posterior analysis: image products, convergence statistics, model
+criticism (PSIS-LOO, WAIC, LOO-PIT, prior power-scaling) and plotting
+(the plots need matplotlib, imported only when one is drawn)."""
 from .images import default_filetypes, save_posterior_images, write_image_products
+from .model_comparison import (
+    ELPDResult,
+    LOOPITResult,
+    compare,
+    loo_pit,
+    pointwise_loglike,
+    psis_loo,
+    waic,
+)
+from .sensitivity import (
+    SensitivityResult,
+    cjs_distance,
+    power_scale_sensitivity,
+)
 from .statistics import (
     check_convergence_autocorr,
     check_convergence_psrf,
@@ -14,17 +30,50 @@ from .statistics import (
 )
 
 __all__ = [
+    "ELPDResult",
+    "LOOPITResult",
+    "SensitivityResult",
     "check_convergence_autocorr",
     "check_convergence_psrf",
+    "cjs_distance",
+    "compare",
     "convergence_summary",
     "default_filetypes",
     "ess_bulk",
     "ess_tail",
+    "loo_pit",
     "num_effective_samples",
+    "pointwise_loglike",
     "potential_scale_reduction",
+    "power_scale_sensitivity",
+    "psis_loo",
     "rhat_rank",
     "save_posterior_images",
     "summary",
     "to_inference_dict",
+    "waic",
     "write_image_products",
 ]
+
+try:  # matplotlib is optional at import time
+    from .plotting import (
+        corner_plot,
+        plot_autocorr,
+        plot_criticism,
+        plot_hist,
+        plot_profile,
+        plot_trace,
+        radial_profile,
+    )
+
+    __all__ += [
+        "corner_plot",
+        "plot_autocorr",
+        "plot_criticism",
+        "plot_hist",
+        "plot_profile",
+        "plot_trace",
+        "radial_profile",
+    ]
+except ImportError:  # pragma: no cover
+    pass

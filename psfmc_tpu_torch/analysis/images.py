@@ -12,8 +12,20 @@ Headers carry the observation's header, the sampler metadata, each
 parameter's posterior mean +/- std under its FITS abbreviation, the
 reduced chi-squared of the MAP model (``MCCHI2NU``; the reduced Poisson
 deviance under the Poisson likelihood), the posterior-predictive
-p-value (``MCPPCP``) and the file name of the MAP sample's PSF
-(``PSFIMG``, from its ``PSF_Index`` when the model has several).
+p-value (``MCPPCP``), the file name of the MAP sample's PSF
+(``PSFIMG``, from its ``PSF_Index`` when the model has several) and,
+given ``criticism_draws``, the criticism block (``MCLOOELP``,
+``MCLOOSE``, ``MCLOOPEF``, ``MCLOOKBD``, ``MCPITKS``, ``MCPITP``,
+``MCPSFLAG``; :func:`~psfmc_tpu_torch.analysis.model_comparison.
+criticism_header_stats`).
+
+Unlike the JAX writer, no exception is swallowed: a failing render (a
+kernel launch) must not pass as a missing header card.  The data
+conditions under which the JAX writer ends up without a card are tested
+for explicitly, each with a warning: no sampled rows (no ``MCCHI2NU``,
+no ``MCPPCP``), a trace that the posterior-predictive check's
+stuck-walker filter leaves empty (no ``MCPPCP``), and a trace with too
+few usable draws for the criticism replay (no criticism block).
 """
 from __future__ import annotations
 
@@ -43,7 +55,7 @@ _REPLAY_CHUNK = 2048  # rows per on-device batched mean
 def save_posterior_images(model, database, output_name="out_{}",
                           mode="weighted", filetypes=default_filetypes,
                           bad_px_value=0, walker_min_percentile=10,
-                          ppc_draws=100):
+                          ppc_draws=100, criticism_draws=0):
     """Write posterior model images as FITS files.
 
     :param model: the :class:`~psfmc_tpu_torch.models.multicomponent.
@@ -54,12 +66,20 @@ def save_posterior_images(model, database, output_name="out_{}",
     :param bad_px_value: replacement value for non-finite pixels.
     :param walker_min_percentile: stuck-walker filter threshold.
     :param ppc_draws: posterior draws for the MCPPCP card; 0 disables it.
+    :param criticism_draws: posterior draws replayed for the criticism
+        block (PSIS-LOO, LOO-PIT, prior power-scaling); 0 disables it.
     """
     header = model.obs_header.copy() if model.obs_header else fits.Header()
     if "{}" not in output_name:
         output_name += "_{}"
     database = filter_lowp_walkers(database, percentile=walker_min_percentile)
     _add_stats_to_header(header, model, database, ppc_draws=ppc_draws)
+    if criticism_draws:
+        from .model_comparison import criticism_cards_or_warn
+
+        for key, (value, comment) in criticism_cards_or_warn(
+                model, database, criticism_draws).items():
+            header.set(key, value, comment)
 
     print("Saving posterior models")
     unknown = set(filetypes) - _KNOWN_TYPES
@@ -137,9 +157,8 @@ def _add_stats_to_header(header, model, database, ppc_draws=100):
             val = f"({strmean}) +/- ({strstd})"
         model_stats[fits_abbr] = val
 
-    # The two model stats need sampled rows.  Unlike the JAX writer, no
-    # exception is swallowed here: a failing render (a kernel launch) must
-    # not pass as a missing header card.
+    # The two model stats need sampled rows (no exception is swallowed:
+    # see the module's docstring)
     if len(database) == 0 or "lnprobability" not in database.colnames:
         warn("no sampled rows with lnprobability: MCCHI2NU and MCPPCP not computed")
     else:
@@ -164,7 +183,12 @@ def _add_stats_to_header(header, model, database, ppc_draws=100):
             chi2 = float(np.sum((resid * resid * ivm)[good]))
             model_stats["MCCHI2NU"] = (round(chi2 / dof, 4),
                                        "reduced chi-squared of the MAP model")
-        if ppc_draws:
+        if ppc_draws and len(filter_lowp_walkers(database, percentile=10)) == 0:
+            # every row at one lnprobability (stuck chains): the check's
+            # own stuck-walker filter leaves nothing to draw from
+            warn("no trace rows left after the posterior-predictive check's "
+                 "stuck-walker filter: MCPPCP not computed")
+        elif ppc_draws:
             p = model.posterior_predictive_pvalue(database, n=ppc_draws,
                                                   random_state=0)
             model_stats["MCPPCP"] = (round(p, 4),

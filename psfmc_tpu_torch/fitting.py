@@ -29,8 +29,10 @@ nuts.NUTSSampler`, ``max_depth`` its tree depth; ``ntemps`` and ``moves``
 warn and are ignored; 8 chains by default, from the best of a pool of
 ``max(32 * chains, 256)`` starts), ``init="prior"`` or ``init="map"`` (a
 gradient MAP fit of a pool of prior draws, then a z-space cloud around
-it), ``criticism=False`` and ``mesh=None``; every other choice raises
-``NotImplementedError`` naming the ROADMAP item that brings it.  On CUDA
+it), ``criticism`` (the criticism block of every image product's header
+from 500 replayed draws: PSIS-LOO, LOO-PIT and prior power-scaling) and
+``mesh=None``; a mesh raises ``NotImplementedError`` naming the ROADMAP
+item that brings it.  On CUDA
 every sampler step (for NUTS every piece of a step) and every Adam step
 is a replay of a captured CUDA graph (:class:`~psfmc_tpu_torch.sampler.
 ensemble.EnsembleSampler`, :func:`~psfmc_tpu_torch.optimize.fit_map`).
@@ -70,6 +72,8 @@ from .sampler.tempered import PTEnsembleSampler
 from .utils import print_progress
 
 __all__ = ["model_galaxy_mcmc", "model_galaxy_map", "model_galaxy_evidence"]
+
+CRITICISM_DRAWS = 500  # draws the criticism block replays (criticism=True)
 
 
 def _not_in_slice(what, item):
@@ -198,6 +202,12 @@ def model_galaxy_mcmc(
     :param sampler: ``"ensemble"`` or ``"nuts"`` (the No-U-Turn sampler
         over the posterior's gradient; ``max_depth`` caps its tree at
         ``2^max_depth - 1`` leapfrogs a step; its burn-in is the warmup).
+    :param criticism: replay 500 thinned draws of the final chain for
+        the criticism block of every image product's header (PSIS-LOO
+        elpd / SE / p_eff and its Pareto-k census, the LOO-PIT KS test,
+        the count of prior power-scaling flags: the ``MCLOO*`` /
+        ``MCPIT*`` / ``MCPSFLAG`` cards), for every sampler; a joint
+        model's block covers every band's pixels.
     :param rejuvenate: move stranded walkers onto healthy ones between
         burn segments.
     :param device: the posterior's device, CUDA unless ``"cpu"``.
@@ -206,8 +216,8 @@ def model_galaxy_mcmc(
         phase of this call (init, burn, sampling, images), each ending
         in a device synchronize.
 
-    ``mesh`` and ``criticism`` keep the JAX driver's names; values
-    outside this slice raise ``NotImplementedError``.  The likelihood
+    ``mesh`` keeps the JAX driver's name; a mesh raises
+    ``NotImplementedError``.  The likelihood
     path follows ``PSFMC_LNPOST`` and the model (``pallas`` runs the
     fused kernel; unset, a model the conv+likelihood kernel covers runs
     it and any other the general path; each band of a joint model takes
@@ -222,8 +232,6 @@ def model_galaxy_mcmc(
     if sampler not in ("ensemble", "nuts"):
         raise ValueError(
             f"Unknown sampler {sampler!r}: expected 'ensemble' or 'nuts'")
-    if criticism:
-        _not_in_slice("criticism=True", "17 (criticism and analysis)")
     if mesh is not None:
         _not_in_slice("a device mesh", "18 (multi-device)")
 
@@ -232,6 +240,7 @@ def model_galaxy_mcmc(
         output_name = "out_" + os.path.basename(name).replace(".py", "")
     output_name += "_{}"
     timings = OrderedDict()
+    criticism_draws = CRITICISM_DRAWS if criticism else 0
 
     mc_model = as_model(model_file, device=device)
     fns = mc_model.posterior_fns
@@ -308,10 +317,12 @@ def model_galaxy_mcmc(
     with _phase("images", fns.device, timings):
         if hasattr(mc_model.spec, "band_specs"):
             _save_joint_images(mc_model, ens, db_name, database,
-                               output_name[:-len("_{}")], write_fits)
+                               output_name[:-len("_{}")], write_fits,
+                               criticism_draws)
         else:
             save_posterior_images(mc_model, database, output_name=output_name,
-                                  filetypes=write_fits)
+                                  filetypes=write_fits,
+                                  criticism_draws=criticism_draws)
     database.phase_seconds = timings
     return database
 
@@ -436,7 +447,7 @@ def model_galaxy_evidence(model_file, nwalkers=512, nsteps=3000, groups=4,
 
 
 def _save_joint_images(mc_model, sampler, db_name, database, output_name,
-                       filetypes):
+                       filetypes, criticism_draws=0):
     """A joint model's products, one set of the five image types per band,
     from the sampler's per-band accumulators; when sampling was skipped
     (the database was complete), from the checkpoint's accumulators."""
@@ -448,7 +459,8 @@ def _save_joint_images(mc_model, sampler, db_name, database, output_name,
                                         accumulated_samples=int(ckpt["accum_count"]))
     if accum_src.accumulated_samples > 0:
         mc_model.save_posterior_images(accum_src, output_name, database=database,
-                                       filetypes=filetypes)
+                                       filetypes=filetypes,
+                                       criticism_draws=criticism_draws)
     else:
         warn("no accumulated images available for the joint model (no "
              "retained sampling ran and the checkpoint has no accumulators); "

@@ -417,22 +417,26 @@ class JointModel:
         ``accumulated_samples`` (a sampler, or the accumulators of a
         checkpoint).  The means cover every walker's retained states (the
         single-band writer's stuck-walker filter is single-band only).
-        ``criticism_draws`` other than 0 raises ``NotImplementedError``.
+        ``criticism_draws`` other than 0, given the ``database``, adds the
+        criticism block (:func:`~psfmc_tpu_torch.analysis.
+        model_comparison.criticism_header_stats`), computed once over
+        every band's pixels, to every band's headers; a trace with too few
+        usable draws for it warns and leaves the block out.
         """
         from ..analysis.images import default_filetypes, write_image_products
+        from ..analysis.model_comparison import criticism_cards_or_warn
         from ..database import annotate_metadata
         from ..io import fits
 
-        if criticism_draws:
-            raise NotImplementedError(
-                "criticism header stats are not in psfmc_tpu_torch; they come "
-                "with ROADMAP Queue 1 item 17")
         accum = sampler.accumulated_images
         n = sampler.accumulated_samples
         if accum is None or n == 0:
             raise ValueError("sampler has no accumulated images: run retained "
                              "sampling first")
         filetypes = default_filetypes if filetypes is None else filetypes
+        criticism = {}
+        if criticism_draws and database is not None:
+            criticism = criticism_cards_or_warn(self, database, criticism_draws)
         for i, bs in enumerate(self.spec.band_specs):
             carries = {k: np.asarray(accum[f"b{i}_{k}"], np.float64)
                        for k in ("raw", "conv", "var", "ps_conv")}
@@ -453,4 +457,6 @@ class JointModel:
                                        + ",".join(f"{v:0.4g}" for v in sd) + ")")
                 for key, value in annotate_metadata(stats).items():
                     header.set(key, value[0], value[1])
+            for key, (value, comment) in criticism.items():
+                header.set(key, value, comment)
             write_image_products(f"{output_name}_b{i}", images, header, filetypes)

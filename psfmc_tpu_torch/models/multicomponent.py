@@ -30,7 +30,8 @@ from .posterior import build_posterior
 from .spec import build_model_spec
 
 __all__ = ["MultiComponentModel", "as_model", "replicate_noise",
-           "poisson_deviance", "trace_param_matrix", "IMAGE_TYPES"]
+           "poisson_deviance", "trace_param_matrix", "slot_param_names",
+           "IMAGE_TYPES"]
 
 IMAGE_TYPES = (
     "raw_model",
@@ -75,6 +76,22 @@ def trace_param_matrix(database, param_names):
          for name in param_names], axis=1)
 
 
+def slot_param_names(param_names, param_lens):
+    """One display name per slot: ``xy`` -> ``xy_x`` / ``xy_y``, a wider
+    vector ``name_0``, ``name_1``, ...  (the per-slot results tables, such
+    as the sensitivity indices, use it)."""
+    lens = param_lens or [1] * len(param_names)
+    out = []
+    for name, ln in zip(param_names, lens):
+        if ln == 1:
+            out.append(name)
+        elif ln == 2:
+            out.extend([f"{name}_x", f"{name}_y"])
+        else:
+            out.extend(f"{name}_{j}" for j in range(ln))
+    return out
+
+
 def _random_state(random_state):
     return (random_state if isinstance(random_state, np.random.RandomState)
             else np.random.RandomState(random_state))
@@ -100,10 +117,10 @@ def _components_from_file(path):
         raise IOError(f"Unable to open model file {path}. Does it exist?") from err
 
 
-def as_model(model, device=None, lnpost=None):
+def as_model(model, device=None, lnpost=None, dtype=torch.float32):
     """A model from a model file name, a component list or a prepared
     model (anything with ``posterior_fns`` and ``init_params_from_priors``
-    passes through unchanged).
+    passes through unchanged), on ``device`` in ``dtype``.
 
     A file or list with several ``Configuration`` components builds a
     :class:`~psfmc_tpu_torch.models.joint.JointModel`: each
@@ -117,7 +134,8 @@ def as_model(model, device=None, lnpost=None):
     else:
         components = list(model)
     if sum(isinstance(c, Configuration) for c in components) <= 1:
-        return MultiComponentModel(components, device=device, lnpost=lnpost)
+        return MultiComponentModel(components, device=device, dtype=dtype,
+                                   lnpost=lnpost)
     from .joint import JointModel
 
     if not isinstance(components[0], Configuration):
@@ -131,7 +149,7 @@ def as_model(model, device=None, lnpost=None):
             bands.append([comp])
         else:
             bands[-1].append(comp)
-    return JointModel(bands, device=device, lnpost=lnpost)
+    return JointModel(bands, device=device, dtype=dtype, lnpost=lnpost)
 
 
 class MultiComponentModel:
@@ -316,7 +334,12 @@ class MultiComponentModel:
         walkers dropped first, as the image writer does)."""
         from ..database import filter_lowp_walkers
 
-        all_th = self.thetas_from_database(filter_lowp_walkers(database, percentile=10))
+        kept = filter_lowp_walkers(database, percentile=10)
+        if len(kept) == 0:
+            raise ValueError(
+                "no trace rows left after the stuck-walker filter (every "
+                "retained row at or below the 10th lnprobability percentile)")
+        all_th = self.thetas_from_database(kept)
         thetas = all_th[rng.randint(0, len(all_th), size=n)]
         imgs = self.render_images_batch(thetas)
         conv = imgs["convolved_model"]

@@ -260,10 +260,13 @@ def test_jax_checkpoint_generator_is_refused(model_dir):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(sampler="nuts", criticism=True), dict(sampler="nuts", mesh=object()),
-    dict(ntemps=3, criticism=True), dict(criticism=True), dict(mesh=object()),
+    dict(sampler="nuts", criticism=True, mesh=object()), dict(sampler="nuts", mesh=object()),
+    dict(ntemps=3, criticism=True, mesh=object()), dict(criticism=True, mesh=object()),
+    dict(mesh=object()),
 ])
 def test_driver_raises_outside_the_slice(kw):
+    """A mesh is refused with every sampler, with or without criticism
+    (``criticism=True`` itself runs: tests/test_torch_criticism.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         model_galaxy_mcmc("no_such_model.py", device="cpu", **kw)
 

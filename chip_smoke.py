@@ -235,9 +235,22 @@ never ``jax`` nor ``psfmc_tpu``, and:
    against its plain version at its own batch, and the block's wall time
    split into the pointwise replay (and its device time), PSIS-LOO,
    LOO-PIT and the power-scaling replay;
-17. prints the tempered, evidence, NUTS and criticism phases' numbers and
-   the kernel table as one JSON line each, then the result line ``{"ok":
-   true, "device": {...}}`` last.
+17. batch fits (:func:`batch_phase`): ``simulate_stack`` of 32 flagship
+   mocks and ``fit_batch`` at 38 walkers a target (608 a half-step
+   launch, 20 + 20 steps), every step a CUDA graph replay with the render
+   and conv_lnl's per-target launches exact, each target's results
+   finite and the lnpost at 4 targets x 3 walkers against the CPU's
+   float64; the call's wall time, fits per second, the replayed step's
+   device time beside one single fit's; chunking (one capture a step
+   variant reused by three chunks, graphed equal to eager, each chunk
+   fitting its own data); conv_lnl with per-target planes on the radix-2,
+   mixed-radix, padded and matmul-DFT routes and with per-target spectra
+   at 608 walkers against its plain version, timed beside the
+   shared-constants launch and a ``torch.fft`` composite; survey mode
+   (a PSF star per target); the joint flagship's batch; ``run_sbc``;
+18. prints the tempered, evidence, NUTS, criticism and batch phases'
+   numbers and the kernel table as one JSON line each, then the result
+   line ``{"ok": true, "device": {...}}`` last.
 
 Each phase ends in a synchronize of the card (:func:`run_phase`), so an
 asynchronous CUDA error names the phase whose launches raised it.
@@ -256,10 +269,10 @@ under other launch geometries than the wrapper picks.  The breakdown
 also covers the priors flagship and the priors' stress variant.
 
 ``python3 chip_smoke.py --only nuts,nuts,criticism`` runs only the named
-phases after the build (``nuts``, ``criticism``, and ``nuts-kernels``:
-the gradient path's four kernels at NUTS's batches, a short target for
-``compute-sanitizer``), each as often as it is named, and prints their
-numbers.
+phases after the build (``nuts``, ``criticism``, ``batch``, and
+``nuts-kernels``: the gradient path's four kernels at NUTS's
+batches, a short target for ``compute-sanitizer``), each as often as it
+is named, and prints their numbers.
 
 ``python3 chip_smoke.py --step-times`` runs only :func:`step_times_phase`
 (the joint offset variant's retained step and the joint MAP's Adam step
@@ -321,6 +334,7 @@ CARD = "the card's name and power limit, read by main()"  # beside each time
 GRAPH_BURN, GRAPH_SAMPLE = 4, 6  # graph phase: graphed against eager
 # 3 x 2^5: conv_lnl's FFT route on its mixed-radix geometry, and the fused
 # kernel's matmul-DFT route (its FFT route takes powers of two only)
+FLAGSHIP_SHAPE = (128, 128)  # the flagship's observation (the batch phase's)
 MIXED_SHAPE, MIXED_PSF_SHAPE = (96, 96), (48, 48)
 # 7^2 x 2: conv_lnl's FFT route on its mixed-radix geometry with radix-7 stages
 RADIX7_SHAPE, RADIX7_PSF_SHAPE = (98, 98), (48, 48)
@@ -1207,10 +1221,14 @@ def pt_state_differs(a, b):
     return [k for k, (x, y) in pairs.items() if not same_bits(x, y)]
 
 
-def batch_kernel_check(post, thetas, label):
+def batch_kernel_check(post, thetas, label, stack=None):
     """The render and, on the batched path, the conv_lnl kernel at the
-    batch ``thetas`` gives them (a tempered half-step's, a NUTS leaf's),
-    each against its plain version."""
+    batch ``thetas`` gives them (a tempered half-step's, a NUTS leaf's, a
+    batch fit's), each against its plain version; with ``stack`` (a batch
+    fit's :class:`~psfmc_tpu_torch.models.posterior.ObsStack`), conv_lnl
+    with the stack's per-target constants where it takes the kernel path."""
+    import torch
+
     from psfmc_tpu_torch.ops.kernels.conv_lnl import (
         batched_conv_lnl,
         batched_conv_lnl_plain,
@@ -1228,13 +1246,38 @@ def batch_kernel_check(post, thetas, label):
     out = {"batch": b, "render_max_rel_err": render_rel}
     msg = f"{label}: render at B = {b}: max rel err {render_rel:.3e} (tol {RENDER_TOL:g})"
     conv_rel = 0.0
-    if post.grad_mode == "batched":
+    if stack is None:
+        consts = post.consts if post.grad_mode == "batched" else None
+    else:
+        consts = stack.consts
+        out["targets"] = stack.targets
+    if consts is not None:
         raws = post.raw_and_ps(thetas)[0].contiguous()
-        _, conv_rel, frac = compare(batched_conv_lnl(raws, post.consts),
-                                    batched_conv_lnl_plain(raws, post.consts))
+        got, want = batched_conv_lnl(raws, consts), batched_conv_lnl_plain(raws, consts)
+        abs_err, conv_rel, frac = compare(got, want)
         out["conv_lnl_max_rel_err"] = conv_rel
-        msg += (f"; conv_lnl at B = {b}: max rel err {conv_rel:.3e} (tol "
-                f"{CONV_LNL_TOL:g}), finite share {frac:.4f}")
+        if stack is None:
+            msg += (f"; conv_lnl at B = {b}: max rel err {conv_rel:.3e} (tol "
+                    f"{CONV_LNL_TOL:g}), finite share {frac:.4f}")
+        else:
+            # a fit's walkers pass lnL = 0 on their way up: the Gaussian's
+            # normalization (+0.5 log(1 / 2 pi var) a good pixel) cancels the
+            # chi-square half there, so the error is taken against the sum's
+            # own scale, the larger of |lnL| and |normalization| a walker
+            var = stack.obs_var.double()
+            norm = 0.5 * torch.where(stack.good, -torch.log(2 * math.pi * var),
+                                     torch.zeros_like(var)).sum((1, 2))
+            scale = torch.maximum(want.double().abs(),
+                                  norm.abs().repeat_interleave(b // stack.targets))
+            fin = torch.isfinite(want)
+            err = (got.double() - want.double()).abs()[fin] / scale[fin]
+            out["conv_lnl_per_walker_rel_err"] = conv_rel
+            out["conv_lnl_min_abs_lnl"] = want[fin].abs().min().item() if fin.any() else None
+            conv_rel = out["conv_lnl_max_rel_err"] = err.max().item() if fin.any() else 0.0
+            msg += (f"; conv_lnl at B = {b}: max err {conv_rel:.3e} of max(|lnL|, "
+                    f"|normalization|) (tol {CONV_LNL_TOL:g}), max abs err {abs_err:.3e}, "
+                    f"of |lnL| {out['conv_lnl_per_walker_rel_err']:.3e} (smallest |lnL| "
+                    f"{out['conv_lnl_min_abs_lnl']}), finite share {frac:.4f}")
     log(msg)
     if not (render_rel <= RENDER_TOL and conv_rel <= CONV_LNL_TOL):
         raise AssertionError(f"{label}: a kernel disagrees with its plain version "
@@ -4677,12 +4720,12 @@ def phase_clocks_phase(post, spec):
         raws = p.raw_and_ps(th)[0].contiguous()
         b, h, w = raws.shape
         out = torch.empty((b,), dtype=torch.float32, device=p.device)
-        if CL.conv_route((h, w)) == "padded":
+        if CL.conv_route((h, w)) == "padded":  # one target: 1 walker a target, strides 0
             symbol, names = "conv_lnl_padded_launch", CL.PADDED_CONST_ARGS
-            ints = [b, h, w, *p.consts.padded_shape]
+            ints = [b, h, w, *p.consts.padded_shape, 1, 0, 0]
         else:
             symbol, names = "conv_lnl_fft_launch", CL.CONV_FFT_CONST_ARGS
-            ints = [b, h, w]
+            ints = [b, h, w, 1, 0, 0]
         ptrs = [getattr(p.consts, n).data_ptr() for n in names]
         # the posterior and raws stay referenced: the launch reads them by address
         return (symbol, [void] + [integer] * len(ints),
@@ -4762,6 +4805,455 @@ def phase_clocks_phase(post, spec):
                             for k, v in zip(PHASES, clocks)))
 
 
+# the batch phase (17): K independent fits as one graphed ensemble
+BATCH_TARGETS = 32  # the flagship batch: 32 mocks, 2 dim + 2 = 38 walkers each
+BATCH_BURN, BATCH_SAMPLE, BATCH_RECORD = 20, 20, 5
+BATCH_CHECK = (4, 3)  # targets x walkers of the lnpost check against the CPU's float64
+BATCH_CHUNK_TARGETS, BATCH_CHUNK, BATCH_CHUNK_STEPS = 10, 4, 4  # 3 chunks, the last padded
+BATCH_SURVEY_TARGETS, BATCH_SURVEY_STEPS = 8, 5  # survey mode: a PSF star per target
+BATCH_STAR_SIGMAS = (1.6, 2.4)  # px, the survey targets' Gaussian PSF stars
+BATCH_JOINT_TARGETS, BATCH_JOINT_STEPS = 4, 10  # the joint flagship's batch
+BATCH_ROUTE_STEPS = 2  # joint batches with band 1 on the padded and matmul-DFT routes
+SBC_SIMS, SBC_BURN, SBC_SAMPLE, SBC_RECORD = 16, 10, 20, 5
+
+
+def psf_stars(n, psf_shape, seed):
+    """``n`` Gaussian PSF stars of widths in :data:`BATCH_STAR_SIGMAS` and
+    their IVMs."""
+    rng = np.random.RandomState(seed)
+    ph, pw = psf_shape
+    yy, xx = np.mgrid[0:ph, 0:pw].astype(float)
+    stars = []
+    for s in rng.uniform(*BATCH_STAR_SIGMAS, n):
+        p = np.exp(-((xx - pw / 2) ** 2 + (yy - ph / 2) ** 2) / (2 * s * s))
+        stars.append(p / p.sum())
+    return stars, [np.full(psf_shape, 1e8)] * n
+
+
+def target_row(name, post, spec, stack, raws, library_spectra):
+    """conv_lnl with a stacked consts (``stack``: each target's planes and,
+    in survey mode, spectra) on ``raws``, walker-major by target: held to
+    the plain version on the same inputs (:data:`CONV_LNL_TOL` per walker,
+    the same non-finite entries), timed beside the shared-constants launch
+    on the same walkers (``shared_ms``), the plain version and a
+    ``torch.fft`` composite (``library_spectra``: the complex half spectra
+    it convolves with, shared or ``(K, 1, H, W//2+1)``), with its bound."""
+    from psfmc_tpu_torch.ops import convolve, gaussian_lnlike
+    from psfmc_tpu_torch.ops.kernels import _build
+    from psfmc_tpu_torch.ops.kernels import conv_lnl as CL
+
+    b, h, w = raws.shape
+    nt = stack.targets
+    route = CL.conv_route((h, w))
+    got = CL.batched_conv_lnl(raws, stack)
+    want = CL.batched_conv_lnl_plain(raws, stack)
+    abs_err, rel, frac = compare(got, want)
+    log(f"{name}: {nt} targets x {b // nt} walkers at {h}x{w} ({route} route"
+        f"{', per-target spectra' if stack.target_spectra else ''}): max rel err "
+        f"{rel:.3e} (tol {CONV_LNL_TOL:g}), max abs err {abs_err:.3e}, finite share "
+        f"{frac:.4f}")
+    if frac < 0.5 or not rel <= CONV_LNL_TOL:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    f_psf, f_var = library_spectra
+
+    def library():  # the torch.fft formulation, a yardstick only
+        x = raws.reshape(nt, b // nt, h, w)
+        conv = convolve(x, f_psf)
+        mvar = convolve(x * x, f_var)
+        return gaussian_lnlike(stack.obs[:, None] - conv,
+                               1.0 / (mvar + stack.obs_var[:, None]),
+                               stack.good[:, None]).reshape(b)
+
+    _, lib_rel, _ = compare(library(), want)
+    data_bytes = 4 * sum(t.numel() for t in (
+        stack.psf_r, stack.psf_i, stack.var_r, stack.var_i, stack.obs, stack.obs_var,
+        stack.good_f))
+    bms, by, term = bound(4 * raws.numel() + data_bytes + 4 * b, conv_lnl_ops(b, h, w))
+    shared = post.consts
+    row = dict(
+        name=name, route="cuda", source=_build.source_path("conv_lnl"),
+        replaces="psfmc_tpu/ops/pallas/lnpost_batched.py:191", launches=0,
+        max_abs_err=abs_err, max_rel_err=rel,
+        ms=time_ms(lambda: CL.batched_conv_lnl(raws, stack)),
+        plain_ms=time_ms(lambda: CL.batched_conv_lnl_plain(raws, stack)),
+        bound_ms=bms, bound_by=by, bound_term=term, library_ms=time_ms(library),
+        shared_ms=time_ms(lambda: CL.batched_conv_lnl(raws, shared)),
+        conv_route=route, geometry=fft_geometry((h, w)), targets=nt, walkers=b,
+        target_spectra=stack.target_spectra, library_rel_diff=lib_rel)
+    log(f"{name}: {row['ms']:.4f} ms (shared constants {row['shared_ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, torch.fft {row['library_ms']:.4f} ms), bound "
+        f"{bms:.5f} ms by {by} ({term}), {row['ms'] / bms:.1f}x the bound ({CARD})")
+    return row
+
+
+def target_rows(nt, per, psf_shape, device):
+    """The per-target rows at ``nt`` targets x ``per`` walkers (the flagship
+    batch's half-step launch): conv_lnl with per-target planes on the
+    radix-2 FFT route (the flagship's shape), the mixed-radix geometry,
+    the padded and the matmul-DFT route, and with per-target spectra on
+    the FFT route (:func:`target_row`)."""
+    import torch
+
+    from psfmc_tpu_torch.batchfit import prepare_psf_stack
+    from psfmc_tpu_torch.flagship import flagship_components, prior_draws
+    from psfmc_tpu_torch.models import build_model_spec, build_posterior
+    from psfmc_tpu_torch.ops.kernels import conv_lnl as CL
+
+    rows = []
+    cases = (("conv_lnl_targets", FLAGSHIP_SHAPE, psf_shape, "fft", False),
+             ("conv_lnl_targets_spectra", FLAGSHIP_SHAPE, psf_shape, "fft", True),
+             ("conv_lnl_targets_mixed", MIXED_SHAPE, MIXED_PSF_SHAPE, "fft", False),
+             ("conv_lnl_targets_padded", PADDED_SHAPE, PADDED_PSF_SHAPE, "padded", False),
+             ("conv_lnl_targets_dft", DFT_SHAPE, DFT_PSF_SHAPE, "dft", False))
+    for i, (name, shape, pshape, route, spectra) in enumerate(cases):
+        if CL.conv_route(shape) != route:
+            raise AssertionError(f"{name}: {shape} takes {CL.conv_route(shape)}, not {route}")
+        spec = build_model_spec(flagship_components(shape, pshape))
+        post = build_posterior(spec, device=device, lnpost="batched")
+        thetas = torch.as_tensor(prior_draws(spec, nt * per, seed=1), dtype=torch.float32,
+                                 device=post.device)
+        raws = post.raw_and_ps(thetas)[0].contiguous()
+        rng = np.random.RandomState(SEED + 40 + i)
+        obs = np.asarray(spec.obs_data)[None] + rng.randn(nt, *shape) * 0.005
+        var = np.asarray(spec.obs_var)[None] * rng.uniform(0.5, 2.0, (nt, 1, 1))
+        good = rng.rand(nt, *shape) > 0.02
+        if spectra:
+            stars, ivms = psf_stars(nt, pshape, SEED + 41)
+            f = prepare_psf_stack(spec, stars, ivms, dtype=np.float64)
+            f_psf = (f["psf_f_re"] + 1j * f["psf_f_im"])[:, 0]
+            f_var = (f["var_f_re"] + 1j * f["var_f_im"])[:, 0]
+        else:
+            f_psf, f_var = spec.f_psf_stack[0], spec.f_var_stack[0]
+        stack = CL.make_conv_lnl_consts_stack(f_psf, f_var, obs, var, good, post.device)
+        lib = tuple(torch.as_tensor(np.asarray(f)[:, None] if spectra else f,
+                                    dtype=torch.complex64, device=post.device)
+                    for f in (f_psf, f_var))
+        rows.append(target_row(name, post, spec, stack, raws, lib))
+    return rows
+
+
+def batch_fit_checks(label, res, nt, dim, record):
+    """Per-target finite means and stds, acceptance in (0, 1), finite pulls
+    (against ``record``'s injected truth) and, with chains, finite PSRFs."""
+    injected = record.get("injected")
+    ok = (res.mean.shape == (nt, dim) and np.isfinite(res.mean).all()
+          and np.isfinite(res.std).all() and (res.std > 0).all()
+          and np.all((res.acceptance > 0) & (res.acceptance < 1)))
+    if injected is not None:
+        ok = ok and np.isfinite(res.pulls(injected)).all()
+    if res.chains is not None:
+        ok = ok and np.isfinite(res.psrf()).all()
+    if not ok:
+        raise AssertionError(f"{label}: a target's result is not finite or its "
+                             f"acceptance {res.acceptance} is outside (0, 1)")
+
+
+def batch_phase(shape=None, psf_shape=(64, 64), joint_shapes=None, device=None):
+    """Batch fits on the card (the arguments shrink it for a rehearsal on the
+    CPU).  The flagship model file; :func:`~psfmc_tpu_torch.batchfit.
+    simulate_stack` of :data:`BATCH_TARGETS` mocks; ``fit_batch`` at 38
+    walkers a target (608 a half-step launch), 20 + 20 steps, every fifth
+    recorded: every step a graph replay, the render and conv_lnl's
+    per-target launches exact, each target's results finite, the lnpost at
+    :data:`BATCH_CHECK` against the CPU's float64, the call's wall time,
+    the replayed step's device time and one single fit's beside it.  Then
+    chunking (10 targets in chunks of 4: one capture a step variant reused
+    by every chunk, the graphed fit equal to the eager one bit for bit,
+    and swapping two targets of different chunks changing exactly their
+    rows), conv_lnl with per-target planes (and spectra) on every route at
+    608 walkers (:func:`target_rows`), survey mode (a PSF star per target),
+    the joint flagship's batch (and two short ones with band 1 on the
+    padded and the matmul-DFT route), and ``run_sbc``.  After each fit the
+    render and conv_lnl are held against their plain versions at its
+    half-step batch, each band on its own shape and stack (608 walkers on
+    the flagship batch).  Returns the rows, each row's launches on these
+    paths, the render's, the numbers and those checks."""
+    import torch
+
+    from psfmc_tpu_torch import batchfit as BF
+    from psfmc_tpu_torch.analysis.sbc import run_sbc
+    from psfmc_tpu_torch.flagship import (
+        JOINT_SHAPES,
+        joint_components,
+        prior_draws,
+        write_flagship_files,
+    )
+    from psfmc_tpu_torch.models import JointModel, as_model
+    from psfmc_tpu_torch.ops.kernels.conv_lnl import conv_route
+    from psfmc_tpu_torch.sampler import EnsembleSampler
+
+    shape = FLAGSHIP_SHAPE if shape is None else shape
+    joint_shapes = JOINT_SHAPES if joint_shapes is None else joint_shapes
+    counted = counted_kernels()
+    t_phase = time.perf_counter()
+    out = {}
+    env = {k: os.environ.pop(k) for k in ("PSFMC_LNPOST", "PSFMC_RENDER", "PSFMC_KAPPA")
+           if k in os.environ}
+
+    def sync(dev):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def counted_fit(label, model, *args, **kwargs):
+        """``fit_batch`` with the counts set to 0 just before and read just
+        after; its wall time ending in a synchronize."""
+        sync(model.posterior_fns.device)
+        reset_counts(counted)
+        t0 = time.perf_counter()
+        res = BF.fit_batch(model, *args, **kwargs)
+        sync(model.posterior_fns.device)
+        wall = time.perf_counter() - t0
+        launches, routes = read_counts(counted)
+        log(f"{label}: {wall:.3f} s, launched {launches}, conv_lnl's routes "
+            f"{ {k: v for k, v in routes.items() if k.startswith('batched') and v} }")
+        return res, wall, launches, routes
+
+    checks = []  # the kernels against their plain versions at each fit's batch
+
+    def check_batch(label, fit_fns):
+        """The render and conv_lnl at the cached program's half-step batch
+        (the first half of each target's walkers where the fit ended), each
+        band on its own render shape and stack, against their plain
+        versions (:func:`batch_kernel_check`)."""
+        _, prog = fit_fns.__dict__["_batch_program"]
+        k, w, d = prog.state.positions.shape
+        thetas = prog.state.positions[:, : w // 2].reshape(k * (w // 2), d).contiguous()
+        bands = getattr(fit_fns, "band_fns", None) or [fit_fns]
+        for i, (f, stack) in enumerate(zip(bands, prog.stacks)):
+            out = batch_kernel_check(f, thetas, f"{label}, band {i}", stack)
+            out.update(fit=label, band=i, render_shape=list(f.render_shape),
+                       target_spectra=stack.consts is not None and stack.consts.target_spectra)
+            checks.append(out)
+
+    def want_launches(label, launches, routes, bands, steps, keys, mocks=0):
+        evals = 1 + 2 * steps  # the start, then two half-steps a step
+        # (and the mocks' render of ``simulate_stack``, once a band)
+        want = {"render_sersics": bands * (evals + mocks), "render_sersics_tiled": 0,
+                "batched_conv_lnl": bands * evals, "fused_lnl": 0}
+        want_routes = {f"batched_conv_lnl:{k}": n * evals for k, n in keys.items()}
+        got_routes = {k: routes[k] for k in want_routes}
+        if launches != want or got_routes != want_routes:
+            raise AssertionError(f"{label}: launched {launches} on {got_routes}, want "
+                                 f"{want} on {want_routes}")
+
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            model = as_model(write_flagship_files(tmp, shape, psf_shape), device=device)
+            cpu = as_model(os.path.join(tmp, "model.py"), device="cpu", dtype=torch.float64)
+        fns = model.posterior_fns
+        dev = fns.device
+        graphed = dev.type == "cuda"
+        dim = model.num_params
+        nw = 2 * dim + 2
+        route = conv_route(shape)
+        obs, ivm, injected = BF.simulate_stack(model, BATCH_TARGETS, seed=1)
+
+        # conv_lnl with per-target planes (and spectra) on every route at the
+        # flagship batch's half-step launch, against its plain version
+        rows = target_rows(BATCH_TARGETS, nw // 2, psf_shape, device=dev)
+
+        # the flagship batch: the main path
+        fns.__dict__.pop("_batch_program", None)
+        steps = BATCH_BURN + BATCH_SAMPLE
+        res, wall, launches, routes = counted_fit(
+            f"batch, {BATCH_TARGETS} flagship targets x {nw} walkers", model, obs, ivm,
+            burn=BATCH_BURN, iterations=BATCH_SAMPLE, record_every=BATCH_RECORD)
+        want_launches("batch", launches, routes, 1, steps, {f"{route}_targets": 1})
+        _, program = fns.__dict__["_batch_program"]
+        if graphed and (program.replays != steps or program.captures != 3):
+            raise AssertionError(f"batch: {program.replays} replays and "
+                                 f"{program.captures} captures for {steps} steps")
+        check_batch("batch", fns)
+        batch_fit_checks("batch", res, BATCH_TARGETS, dim, {"injected": injected})
+        if res.chains.shape != (BATCH_TARGETS, BATCH_SAMPLE // BATCH_RECORD, nw, dim):
+            raise AssertionError(f"batch: chains {res.chains.shape}")
+        out["fit"] = {"targets": BATCH_TARGETS, "walkers": nw,
+                      "half_step_walkers": BATCH_TARGETS * nw // 2, "burn": BATCH_BURN,
+                      "sample": BATCH_SAMPLE, "wall_s": wall,
+                      "fits_per_s": BATCH_TARGETS / wall, "launches": launches,
+                      "replays": program.replays, "captures": program.captures,
+                      "acceptance": [float(res.acceptance.min()),
+                                     float(res.acceptance.max())],
+                      "psrf_max": float(res.psrf().max())}
+        for variant in ("retain", "burn"):  # a step's graph replayed back to back
+            step = ((lambda: program.graphs[variant].graph.replay()) if graphed
+                    else (lambda: program._step(variant)))
+            out["fit"][f"{variant}_step_ms"] = time_ms(step)
+        render_launches = launches["render_sersics"]
+        row_launches = {"conv_lnl_targets": routes[f"batched_conv_lnl:{route}_targets"]}
+        # the same call again, its graphs captured: the host's part and the steps
+        again, warm, launches, routes = counted_fit(
+            "batch, again (captured)", model, obs, ivm, burn=BATCH_BURN,
+            iterations=BATCH_SAMPLE, record_every=BATCH_RECORD)
+        want_launches("batch, again", launches, routes, 1, steps, {f"{route}_targets": 1})
+        if (not np.array_equal(again.mean, res.mean) or fns.__dict__["_batch_program"][1]
+                is not program or (graphed and program.captures != 3)):
+            raise AssertionError("batch: the second call differs or captured again")
+        out["fit"]["warm_wall_s"] = warm
+        render_launches += launches["render_sersics"]
+        row_launches["conv_lnl_targets"] += routes[f"batched_conv_lnl:{route}_targets"]
+
+        # the lnpost of a few targets' walkers against the CPU's float64
+        nt, nwk = BATCH_CHECK
+        stack = BF.prepare_obs_stack(model.spec, obs[:nt], ivm[:nt])
+        stack64 = BF.prepare_obs_stack(cpu.spec, obs[:nt], ivm[:nt], np.float64)
+        th = prior_draws(model.spec, nt * nwk, seed=SEED + 42)
+        got = fns.log_posterior_obs(th, stack).double().cpu()
+        want = cpu.posterior_fns.log_posterior_obs(th, stack64)
+        _, rel, frac = compare(got, want)
+        log(f"batch: lnpost at {nt} targets x {nwk} walkers, card float32 against the "
+            f"CPU's float64: max rel err {rel:.3e} (tol {SLICE_RTOL:g}), finite share "
+            f"{frac:.3f}")
+        if not (rel <= SLICE_RTOL and frac > 0):
+            raise AssertionError("batch: the card's lnpost disagrees with the CPU's")
+        out["fit"]["lnpost_rel_err"] = rel
+
+        # one single fit of the same model and depth beside it: the
+        # sampler's graphed steps at one target's 38 walkers
+        single = EnsembleSampler(nw, dim, fns, seed=SEED, device=dev)
+        p0 = model.init_params_from_priors(nw, random_state=np.random.RandomState(5))
+        walls = []
+        for _ in range(2):  # the first captures its graphs
+            sync(dev)
+            t0 = time.perf_counter()
+            single.init_state(p0)
+            single.run_burn(BATCH_BURN)
+            single.run_sampling(BATCH_SAMPLE)
+            sync(dev)
+            walls.append(time.perf_counter() - t0)
+        # its burn step (a retained step there records, thin 1)
+        single_step = ((lambda: single._graphs["burn"].graph.replay()) if graphed
+                       else (lambda: single._step("burn")))
+        out["single"] = {"walkers": nw, "wall_s": walls,
+                         "burn_step_ms": time_ms(single_step),
+                         "serial_wall_s": BATCH_TARGETS * walls[1]}
+        log(f"batch: {BATCH_TARGETS} targets in {wall:.3f} s ({BATCH_TARGETS / wall:.1f} "
+            f"fits/s; again, captured, {warm:.3f} s; {steps} steps, a replayed retained step "
+            f"{out['fit']['retain_step_ms']:.3f} ms, burn step "
+            f"{out['fit']['burn_step_ms']:.3f} ms); one single fit {walls[0]:.3f} s "
+            f"(capturing) then {walls[1]:.3f} s (a replayed burn step "
+            f"{out['single']['burn_step_ms']:.3f} ms): {BATCH_TARGETS} single fits in "
+            f"series {BATCH_TARGETS * walls[1]:.3f} s ({CARD})")
+
+        # chunking: one capture a step variant, reused; each chunk its own data
+        fns.__dict__.pop("_batch_program", None)
+        cobs, civm, _ = BF.simulate_stack(model, BATCH_CHUNK_TARGETS, seed=2)
+        kw = dict(burn=BATCH_CHUNK_STEPS, iterations=BATCH_CHUNK_STEPS, record_every=2,
+                  chunk=BATCH_CHUNK, seed=3)
+        first, *_ = counted_fit("batch, chunked", model, cobs, civm, **kw)
+        _, chunked = fns.__dict__["_batch_program"]
+        nchunks = -(-BATCH_CHUNK_TARGETS // BATCH_CHUNK)
+        if graphed and (chunked.captures != 3
+                        or chunked.replays != nchunks * 2 * BATCH_CHUNK_STEPS):
+            raise AssertionError(f"batch, chunked: {chunked.captures} captures, "
+                                 f"{chunked.replays} replays for {nchunks} chunks")
+        if first.mean.shape != (BATCH_CHUNK_TARGETS, dim):
+            raise AssertionError(f"batch, chunked: {first.mean.shape} rows")
+        check_batch("batch, chunked", fns)
+        with BF._eager():
+            eager = BF.fit_batch(model, cobs, civm, **kw)
+        same = [same_bits(torch.as_tensor(getattr(first, k)), torch.as_tensor(getattr(eager, k)))
+                for k in ("mean", "std", "map_theta", "map_lnp", "acceptance", "chains")]
+        swapped = cobs.copy()
+        last = BATCH_CHUNK_TARGETS - 1
+        swapped[[0, last]] = swapped[[last, 0]]
+        other = BF.fit_batch(model, swapped, civm, **kw)
+        changed = [not np.array_equal(other.mean[i], first.mean[i])
+                   for i in range(BATCH_CHUNK_TARGETS)]
+        log(f"batch, chunked: {BATCH_CHUNK_TARGETS} targets in {nchunks} chunks of "
+            f"{BATCH_CHUNK}: {chunked.captures} captures, {chunked.replays} replays; "
+            f"graphed equal to eager bit for bit {same}; swapping targets 0 and {last} "
+            f"changed rows {[i for i, c in enumerate(changed) if c]}")
+        if not all(same):
+            raise AssertionError("batch, chunked: the graphed fit differs from the eager one")
+        if changed != [i in (0, last) for i in range(BATCH_CHUNK_TARGETS)]:
+            raise AssertionError("batch, chunked: the swap changed other rows than its own")
+        out["chunked"] = {"captures": chunked.captures, "replays": chunked.replays,
+                          "chunks": nchunks}
+
+        # survey mode: each target's own PSF star, per-target spectra
+        stars, star_ivms = psf_stars(BATCH_SURVEY_TARGETS, psf_shape, SEED + 43)
+        sres, swall, slaunch, sroutes = counted_fit(
+            "batch, survey", model, obs[:BATCH_SURVEY_TARGETS], ivm[:BATCH_SURVEY_TARGETS],
+            burn=BATCH_SURVEY_STEPS, iterations=BATCH_SURVEY_STEPS, psf_stack=stars,
+            psfivm_stack=star_ivms)
+        want_launches("batch, survey", slaunch, sroutes, 1, 2 * BATCH_SURVEY_STEPS,
+                      {f"{route}_targets": 1})
+        batch_fit_checks("batch, survey", sres, BATCH_SURVEY_TARGETS, dim, {})
+        survey_consts = fns.__dict__["_batch_program"][1].stacks[0].consts
+        if survey_consts is None or not survey_consts.target_spectra:
+            raise AssertionError("batch, survey: the program has no per-target spectra")
+        check_batch("batch, survey", fns)
+        render_launches += slaunch["render_sersics"]
+        row_launches["conv_lnl_targets_spectra"] = sroutes[
+            f"batched_conv_lnl:{route}_targets"]
+        out["survey"] = {"targets": BATCH_SURVEY_TARGETS, "wall_s": swall}
+
+        # the joint flagship's batch, then band 1 on the padded and DFT routes
+        for label, shapes, steps_j, row in (
+                ("joint", joint_shapes, BATCH_JOINT_STEPS, "conv_lnl_targets_mixed"),
+                ("joint, padded band", (joint_shapes[0], PADDED_SHAPE), BATCH_ROUTE_STEPS,
+                 "conv_lnl_targets_padded"),
+                ("joint, matmul-DFT band", (joint_shapes[0], DFT_SHAPE),
+                 BATCH_ROUTE_STEPS, "conv_lnl_targets_dft")):
+            joint = JointModel(joint_components(shapes, psf_shape), device=dev)
+            jobs, jivm, _ = BF.simulate_stack(joint, BATCH_JOINT_TARGETS, seed=4)
+            jres, jwall, jl, jr = counted_fit(
+                f"batch, {label}", joint, jobs, jivm, burn=steps_j, iterations=steps_j)
+            band_routes = [conv_route(s) for s in shapes]
+            keys = {}
+            for r in band_routes:
+                keys[f"{r}_targets"] = keys.get(f"{r}_targets", 0) + 1
+            want_launches(f"batch, {label}", jl, jr, len(shapes), 2 * steps_j, keys)
+            batch_fit_checks(f"batch, {label}", jres, BATCH_JOINT_TARGETS, joint.num_params,
+                             {})
+            check_batch(f"batch, {label}", joint.posterior_fns)
+            render_launches += jl["render_sersics"]
+            band1 = f"batched_conv_lnl:{band_routes[1]}_targets"
+            geo = fft_geometry(shapes[1])
+            if geo in MIXED_GEOMETRIES:  # band 1 on the mixed-radix geometry
+                band1_launches = jr[f"{band1}:{geo}"]
+            else:
+                band1_launches = jr[band1]
+            row_launches[row] = band1_launches
+            row_launches["conv_lnl_targets"] += jr[f"batched_conv_lnl:{band_routes[0]}_targets"] \
+                - (band1_launches if band_routes[0] == band_routes[1] else 0)
+            out[label] = {"shapes": [list(s) for s in shapes], "wall_s": jwall,
+                          "routes": band_routes}
+
+        # simulation-based calibration on the flagship
+        sync(dev)
+        reset_counts(counted)
+        t0 = time.perf_counter()
+        sbc = run_sbc(model, n_sims=SBC_SIMS, burn=SBC_BURN, iterations=SBC_SAMPLE,
+                      record_every=SBC_RECORD)
+        sync(dev)
+        sbc_wall = time.perf_counter() - t0
+        sl, sr = read_counts(counted)
+        pvals = sbc.uniformity_pvalues()
+        log(f"batch, sbc: {SBC_SIMS} simulations, {sbc.n_posterior} posterior draws "
+            f"each, {sbc_wall:.3f} s; ranks in [{sbc.ranks.min()}, {sbc.ranks.max()}], "
+            f"p-values in [{pvals.min():.3g}, {pvals.max():.3g}] ({CARD})")
+        if not (np.all((sbc.ranks >= 0) & (sbc.ranks <= sbc.n_posterior))
+                and np.isfinite(pvals).all() and sbc.ranks.shape == (SBC_SIMS, dim)):
+            raise AssertionError("batch, sbc: ranks or p-values out of range")
+        want_launches("batch, sbc", sl, sr, 1, SBC_BURN + SBC_SAMPLE, {f"{route}_targets": 1},
+                      mocks=1)
+        check_batch("batch, sbc", fns)
+        render_launches += sl["render_sersics"]
+        row_launches["conv_lnl_targets"] += sr[f"batched_conv_lnl:{route}_targets"]
+        out["sbc"] = {"sims": SBC_SIMS, "n_posterior": sbc.n_posterior, "wall_s": sbc_wall,
+                      "pvalue_min": float(pvals.min())}
+    finally:
+        os.environ.update(env)
+    for r in rows:
+        r["launches"] = row_launches[r["name"]]
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"batch: the phase took {out['wall_s']:.1f} s ({CARD})")
+    return {"rows": rows, "render_launches": render_launches, "out": out,
+            "kernel_checks": checks}
+
+
 def run_phase(name, fn, *args, **kwargs):
     """Run one phase, then synchronize the card, so that an asynchronous
     CUDA error raised by the phase's launches names this phase before it
@@ -4811,7 +5303,8 @@ def nuts_kernel_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
 
 # the phases ``--only`` runs (after the build), each by its name
 ONLY_PHASES = {"nuts": lambda: nuts_phase(), "criticism": lambda: criticism_phase(),
-               "nuts-kernels": lambda: nuts_kernel_phase()}
+               "nuts-kernels": lambda: nuts_kernel_phase(),
+               "batch": lambda: batch_phase()}
 
 
 def main():
@@ -4884,7 +5377,9 @@ def main():
     grad = run_phase("map", map_phase)
     nuts = run_phase("nuts", nuts_phase)
     crit = run_phase("criticism", criticism_phase)
+    batch = run_phase("batch", batch_phase)
     rows += run_phase("backward rows", backward_rows, post, spec)
+    rows += batch["rows"]
     from psfmc_tpu_torch.sampler import EnsembleSampler
 
     fused = EnsembleSampler(NWALKERS, spec.num_params, mc.posterior_fns,
@@ -5004,6 +5499,11 @@ def main():
         by_name["conv_lnl_radix7"] += geo["radix7"]
         by_name["conv_lnl_dft"] += c["batched_conv_lnl:dft"]
     crit_checks = {k: crit[k]["kernel_checks"] for k in ("single", "joint")}
+    # the batch phase (17): the render on every batch fit, conv_lnl with
+    # per-target planes on each route and with per-target spectra (the
+    # phase counts each row's launches on its own fits)
+    by_name["sersic_render"] += batch["render_launches"]
+    by_name.update({r["name"]: r["launches"] for r in batch["rows"]})
     for r in rows:
         r["launches"] = by_name[r["name"]]
         if r["name"] in ("sersic_render", "fused_lnl", "conv_lnl", "conv_lnl_mixed"):
@@ -5015,6 +5515,8 @@ def main():
         if r["name"] in ("sersic_render", "sersic_render_backward", "conv_lnl",
                          "conv_lnl_res", "conv_lnl_backward"):  # at NUTS's batches
             r["nuts_checks"] = nuts["nuts_kernel_checks"]
+        if r["name"] == "sersic_render" or r["name"].startswith("conv_lnl_targets"):
+            r["batch_checks"] = batch["kernel_checks"]  # at the batch fits' batches
     for r in rows:
         if r["name"].startswith("conv_lnl") and not r["launches"]:
             raise AssertionError(f"{r['name']} was never launched on the main path")
@@ -5037,6 +5539,7 @@ def main():
                                       if f != "kernel_checks"}
                                   for k in ("single", "joint")},
                     "card": identity}, default=float))
+    log(json.dumps({"batch": batch["out"], "card": identity}, default=float))
     log(json.dumps({"kernels": rows, "card": identity}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

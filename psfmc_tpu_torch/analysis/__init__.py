@@ -1,6 +1,7 @@
 """Posterior analysis: image products, convergence statistics, model
-criticism (PSIS-LOO, WAIC, LOO-PIT, prior power-scaling) and plotting
-(the plots need matplotlib, imported only when one is drawn)."""
+criticism (PSIS-LOO, WAIC, LOO-PIT, prior power-scaling), simulation-based
+calibration and plotting (the plots need matplotlib, imported only when
+one is drawn)."""
 from .images import default_filetypes, save_posterior_images, write_image_products
 from .model_comparison import (
     ELPDResult,
@@ -11,6 +12,7 @@ from .model_comparison import (
     psis_loo,
     waic,
 )
+from .sbc import SBCResult, run_sbc, sbc_ranks_from_chains
 from .sensitivity import (
     SensitivityResult,
     cjs_distance,
@@ -32,6 +34,7 @@ from .statistics import (
 __all__ = [
     "ELPDResult",
     "LOOPITResult",
+    "SBCResult",
     "SensitivityResult",
     "check_convergence_autocorr",
     "check_convergence_psrf",
@@ -48,7 +51,9 @@ __all__ = [
     "power_scale_sensitivity",
     "psis_loo",
     "rhat_rank",
+    "run_sbc",
     "save_posterior_images",
+    "sbc_ranks_from_chains",
     "summary",
     "to_inference_dict",
     "waic",

@@ -70,6 +70,19 @@
 // 10-bit mantissa collapses the sampler's acceptance, as single-pass bf16
 // did on the TPU).
 //
+// Targets (the batch fit, psfmc_tpu_torch/batchfit.py): one launch may
+// carry the walkers of K independent fits, each against its own
+// observation.  Walker b reads target t = b / per_target (the walkers of
+// a target are contiguous) and that target's observation, variance and
+// mask planes, data_stride floats apart (H * W; 0 shares one observation,
+// as every single-fit caller does).  On the FFT and padded routes each
+// target may also bring its own PSF: spectra_stride floats between two
+// targets' half-spectrum planes and one variance gain per target.  On the
+// matmul-DFT route the spectra are GEMM operands and stay shared (the
+// wrapper sends a batch with per-target spectra there to the general
+// path).  The residual instantiations and the backward kernels are shared
+// only.  A stride costs one division per block.
+//
 // Numerics: no --use_fast_math and no __logf: logf and the division are
 // IEEE-accurate.
 
@@ -86,13 +99,19 @@ using namespace psfmc::dftconv;
 constexpr int kThreads = 256;
 constexpr float kInv2Pi = 0.15915494309189535f;
 
-// One block per walker: the masked Gaussian lnL of conv/mvar against obs.
+// One block per walker: the masked Gaussian lnL of conv/mvar against its
+// target's obs (stride floats per target, 0: one observation).
 __global__ void __launch_bounds__(kThreads)
 lnl_kernel(const float* __restrict__ conv, const float* __restrict__ mvar,
            const float* __restrict__ obs, const float* __restrict__ obs_var,
-           const float* __restrict__ good, float* __restrict__ out, int hw) {
+           const float* __restrict__ good, float* __restrict__ out, int hw,
+           int per_target, size_t stride) {
   __shared__ double partial[kThreads / 32];
   const long long base = (long long)blockIdx.x * hw;
+  const size_t target = stride * (size_t)(blockIdx.x / per_target);
+  obs += target;
+  obs_var += target;
+  good += target;
   double s = 0.0;
   for (int p = threadIdx.x; p < hw; p += blockDim.x) {
     const float ivm = 1.0f / (mvar[base + p] + obs_var[p]);
@@ -117,10 +136,13 @@ lnl_kernel(const float* __restrict__ conv, const float* __restrict__ mvar,
 
 // C interface (loaded with ctypes).  All pointers are float32 device
 // memory; t1 and t2 are scratch of (B, 2, H, W/2+1) floats each, conv and
-// mvar of (B, H, W).  Launches on `stream` and returns the first nonzero
-// cudaGetLastError() of its launches, or 0.
+// mvar of (B, H, W).  Walker b reads obs, obs_var and good at target b /
+// per_target, data_stride floats per target (0: shared); the spectra are
+// shared.  Launches on `stream` and returns the first nonzero
+// cudaGetLastError() of its launches, or 0 (cudaErrorInvalidValue for
+// per_target < 1 or a negative stride).
 extern "C" int conv_lnl_launch(
-    const float* raws, int batch, int h, int w,
+    const float* raws, int batch, int h, int w, int per_target, int data_stride,
     const float* cw, const float* sw, const float* lf, const float* li,
     const float* ica, const float* isa,
     const float* psf_r, const float* psf_i,
@@ -129,6 +151,7 @@ extern "C" int conv_lnl_launch(
     float* t1, float* t2, float* conv, float* mvar, float* out,
     void* stream_ptr) {
   if (batch <= 0) return 0;
+  if (per_target < 1 || data_stride < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   int err;
   if ((err = convolve(raws, 0, batch, h, w, cw, sw, lf, li, ica, isa, psf_r,
@@ -138,7 +161,8 @@ extern "C" int conv_lnl_launch(
                       var_i, t1, t2, mvar, stream)))
     return err;
   lnl_kernel<<<batch, kThreads, 0, stream>>>(conv, mvar, obs, obs_var, good,
-                                             out, h * w);
+                                             out, h * w, per_target,
+                                             (size_t)data_stride);
   return (int)cudaGetLastError();
 }
 
@@ -147,17 +171,22 @@ namespace {
 namespace fc = psfmc::fftconv;
 
 // FFT route: one block per walker, the whole likelihood in one launch, on
-// the power-of-two geometry or the mixed-radix one.
+// the power-of-two geometry or the mixed-radix one; walker b against the
+// spectra and data of target b / per_target.
 template <bool MIXED>
 __global__ void __launch_bounds__(fc::kThreads, 1)
 conv_lnl_fft_kernel(const float* __restrict__ raws, int h, int w,
                     const float2* __restrict__ twiddle, int tw_log2,
-                    const int* __restrict__ layout, fc::Spectra k, fc::Data d,
+                    const int* __restrict__ layout, fc::Spectra ks, fc::Data ds,
+                    int per_target, size_t data_stride, size_t spectra_stride,
                     float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   float2* z = reinterpret_cast<float2*>(smem);
   float2* tw = z + h * fc::pitch(w);
   const float* raw = raws + (size_t)blockIdx.x * h * w;
+  const int t = blockIdx.x / per_target;
+  const fc::Spectra k = fc::target_spectra(ks, t, spectra_stride);
+  const fc::Data d = fc::target_data(ds, t, data_stride);
   PSFMC_STAMP(0);
   if constexpr (MIXED) {
     const fc::MixedGeom g = fc::load_mixed(tw, twiddle, layout, h, w);
@@ -202,18 +231,22 @@ conv_lnl_fft_residuals_kernel(const float* __restrict__ raws, int h, int w,
 }
 
 // The padded route: the same on PaddedGeom, the image (h, w) in the corner
-// of the transform (mh, mw).
+// of the transform (mh, mw); walker b against target b / per_target.
 template <bool MIXED, bool RESID>
 __global__ void __launch_bounds__(fc::kThreads, 1)
 conv_lnl_padded_kernel(const float* __restrict__ raws, int h, int w, int mh,
                        int mw, const float2* __restrict__ twiddle, int tw_log2,
-                       const int* __restrict__ layout, fc::Spectra k, fc::Data d,
-                       float* __restrict__ out, float2* __restrict__ weights,
-                       int* __restrict__ scale_exp) {
+                       const int* __restrict__ layout, fc::Spectra ks,
+                       fc::Data ds, int per_target, size_t data_stride,
+                       size_t spectra_stride, float* __restrict__ out,
+                       float2* __restrict__ weights, int* __restrict__ scale_exp) {
   extern __shared__ __align__(16) unsigned char smem[];
   float2* z = reinterpret_cast<float2*>(smem);
   float2* tw = z + mh * fc::pitch(mw);
   const float* raw = raws + (size_t)blockIdx.x * h * w;
+  const int t = blockIdx.x / per_target;
+  const fc::Spectra k = fc::target_spectra(ks, t, spectra_stride);
+  const fc::Data d = fc::target_data(ds, t, data_stride);
   float2* wts = RESID ? weights + (size_t)blockIdx.x * h * w : nullptr;
   int* se = RESID ? scale_exp + blockIdx.x : nullptr;
   PSFMC_STAMP(0);
@@ -248,7 +281,11 @@ int prepare_fft(Kernel pow2_kernel, Kernel mixed_kernel, int h, int w,
 
 
 // C interface of the FFT route.  h and w are both powers of two, or both
-// even with no prime factor above 7.  For powers of two, twiddle is the
+// even with no prime factor above 7.  Walker b fits target b / per_target:
+// obs, obs_var and good are data_stride floats per target, the four
+// spectrum planes spectra_stride floats and var_gain one float per target
+// where spectra_stride is not 0 (0 and 0: one observation and one PSF).
+// For powers of two, twiddle is the
 // (max(h, w) / 2, 2) float32 table of exp(-2 pi i k / max(h, w)) and
 // layout is not read; otherwise twiddle holds H's table, then W's (N
 // entries of exp(-2 pi i k / N) each, N / 2 for a power of two), and
@@ -257,12 +294,15 @@ int prepare_fft(Kernel pow2_kernel, Kernel mixed_kernel, int h, int w,
 // variance spectrum.  Launches on `stream` and returns the first nonzero
 // cudaError of the attribute call or the launch, or 0.
 extern "C" int conv_lnl_fft_launch(
-    const float* raws, int batch, int h, int w, const float* twiddle,
+    const float* raws, int batch, int h, int w, int per_target,
+    int data_stride, int spectra_stride, const float* twiddle,
     const int* layout, const float* var_gain, const float* psf_r,
     const float* psf_i, const float* var_r, const float* var_i,
     const float* obs, const float* obs_var, const float* good,
     float* out, void* stream) {
   if (batch <= 0) return 0;
+  if (per_target < 1 || data_stride < 0 || spectra_stride < 0)
+    return (int)cudaErrorInvalidValue;
   auto kernel = &conv_lnl_fft_kernel<false>;
   size_t smem;
   int tw_log2;
@@ -272,7 +312,7 @@ extern "C" int conv_lnl_fft_launch(
   kernel<<<batch, fc::kThreads, smem, (cudaStream_t)stream>>>(
       raws, h, w, reinterpret_cast<const float2*>(twiddle), tw_log2, layout,
       fc::Spectra{psf_r, psf_i, var_r, var_i, var_gain}, fc::Data{obs, obs_var, good},
-      out);
+      per_target, (size_t)data_stride, (size_t)spectra_stride, out);
   return (int)cudaGetLastError();
 }
 
@@ -302,7 +342,9 @@ extern "C" int conv_lnl_fft_residuals_launch(
 }
 
 // C interface of the padded route: conv_lnl_fft_launch's arguments with the
-// transform's sides (mh, mw) after the image's, and twiddle, layout and the
+// transform's sides (mh, mw) after the image's (then per_target and the
+// strides, spectra_stride counting the padded planes' floats), and
+// twiddle, layout and the
 // four spectrum planes at the transform's sides (conv_lnl.py's
 // PADDED_CONST_ARGS: the padded kernels' (mh, mw/2+1) half spectra, the FFT
 // route's tables at (mh, mw)); var_gain, obs, obs_var and good at the
@@ -310,13 +352,16 @@ extern "C" int conv_lnl_fft_residuals_launch(
 // cudaErrorInvalidValue.  Launches on `stream` and returns the first nonzero
 // cudaError of the attribute call or the launch, or 0.
 extern "C" int conv_lnl_padded_launch(
-    const float* raws, int batch, int h, int w, int mh, int mw,
-    const float* twiddle, const int* layout, const float* var_gain,
-    const float* psf_r, const float* psf_i, const float* var_r,
-    const float* var_i, const float* obs, const float* obs_var,
-    const float* good, float* out, void* stream) {
+    const float* raws, int batch, int h, int w, int mh, int mw, int per_target,
+    int data_stride, int spectra_stride, const float* twiddle,
+    const int* layout, const float* var_gain, const float* psf_r,
+    const float* psf_i, const float* var_r, const float* var_i,
+    const float* obs, const float* obs_var, const float* good, float* out,
+    void* stream) {
   if (batch <= 0) return 0;
   if (!fc::padded_plan(h, w, mh, mw)) return (int)cudaErrorInvalidValue;
+  if (per_target < 1 || data_stride < 0 || spectra_stride < 0)
+    return (int)cudaErrorInvalidValue;
   auto kernel = &conv_lnl_padded_kernel<false, false>;
   size_t smem;
   int tw_log2;
@@ -327,7 +372,8 @@ extern "C" int conv_lnl_padded_launch(
   kernel<<<batch, fc::kThreads, smem, (cudaStream_t)stream>>>(
       raws, h, w, mh, mw, reinterpret_cast<const float2*>(twiddle), tw_log2,
       layout, fc::Spectra{psf_r, psf_i, var_r, var_i, var_gain},
-      fc::Data{obs, obs_var, good}, out, nullptr, nullptr);
+      fc::Data{obs, obs_var, good}, per_target, (size_t)data_stride,
+      (size_t)spectra_stride, out, nullptr, nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -353,7 +399,7 @@ extern "C" int conv_lnl_padded_residuals_launch(
   kernel<<<batch, fc::kThreads, smem, (cudaStream_t)stream>>>(
       raws, h, w, mh, mw, reinterpret_cast<const float2*>(twiddle), tw_log2,
       layout, fc::Spectra{psf_r, psf_i, var_r, var_i, var_gain},
-      fc::Data{obs, obs_var, good}, out, reinterpret_cast<float2*>(weights),
+      fc::Data{obs, obs_var, good}, 1, 0, 0, out, reinterpret_cast<float2*>(weights),
       scale_exp);
   return (int)cudaGetLastError();
 }

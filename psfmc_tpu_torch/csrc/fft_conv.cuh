@@ -136,6 +136,24 @@ struct Data {  // (H, W)
   const float *obs, *obs_var, *good;
 };
 
+// A batch of walkers may fit several targets (conv_lnl.cu's forward): target
+// t's planes lie `stride` floats after target 0's, its spectra's variance
+// gain `stride ? t : 0` floats; a stride of 0 shares one plane among all
+// walkers.  The structs above stay the single-target ones, so the kernels
+// that take no target (the residual and backward instantiations, the fused
+// kernel) compile as before.
+__device__ __forceinline__ Spectra target_spectra(const Spectra& k, int t,
+                                                  size_t stride) {
+  const size_t o = stride * (size_t)t;
+  return Spectra{k.psf_r + o, k.psf_i + o, k.var_r + o, k.var_i + o,
+                 k.var_gain + (stride ? t : 0)};
+}
+
+__device__ __forceinline__ Data target_data(const Data& d, int t, size_t stride) {
+  const size_t o = stride * (size_t)t;
+  return Data{d.obs + o, d.obs_var + o, d.good + o};
+}
+
 __host__ __device__ inline int pitch(int w) { return w + 1; }
 
 __host__ __device__ inline bool power_of_two(int n) {

@@ -47,6 +47,17 @@ a posterior holds one over its spec, a joint multi-band model
 (:mod:`.joint`) one over the union of its bands, whose band posteriors
 have no slots and read the global parameter vector.
 
+Against a stack of observations (the batch fit,
+:mod:`psfmc_tpu_torch.batchfit`): :meth:`PosteriorFns.prepare_obs` puts
+``K`` observations (and, in survey mode, each target's own PSF spectra)
+on the device as an :class:`ObsStack`, and
+:meth:`~PosteriorFns.log_posterior_obs` /
+:meth:`~PosteriorFns.log_likelihood_obs` evaluate a batch whose walker
+``b`` fits target ``b // (B / K)``: the render kernel and conv_lnl with
+per-target planes where the kernels cover the spec (:meth:`PosteriorFns.obs_mode`),
+else the general path with each walker's PSF gathered from its target's
+spectra and its target's variance.
+
 The image products (:meth:`images_batch`, :meth:`ensemble_carry_means`)
 use the same render; the kernel paths convolve with the plain
 ``convolve_rdft``, the general path with ``torch.fft``.  The ensemble
@@ -58,8 +69,8 @@ from __future__ import annotations
 
 import math
 import os
-from dataclasses import fields
-from typing import Dict
+from dataclasses import dataclass, fields
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -71,7 +82,10 @@ from ..ops.kernels.conv_lnl import (
     ConvLnlConsts,
     batched_conv_lnl,
     batched_lnl_supported,
+    copy_target_consts_,
     make_conv_lnl_consts,
+    make_conv_lnl_consts_stack,
+    target_spectra_supported,
 )
 from ..ops.kernels.fused_lnl import fused_lnl, fused_lnl_supported
 from ..ops.kernels.sersic_render import (
@@ -93,7 +107,7 @@ from ..ops.pointsource import pointsource_factors, pointsource_image
 from ..ops.sersic import render_sersic_gen, sersic_profile_core, sersic_scalar_params
 from .spec import BASE_PARAMS, ROT_PARAMS, SHAPE_PARAMS, TRUNC_PARAMS, ModelSpec, check_in_slice
 
-__all__ = ["LogPrior", "PosteriorFns", "build_posterior", "lnpost_mode",
+__all__ = ["LogPrior", "ObsStack", "PosteriorFns", "build_posterior", "lnpost_mode",
            "LNPOST_MODES", "value_and_grad"]
 
 LNPOST_MODES = ("batched", "fused", "general")
@@ -267,6 +281,61 @@ class LogPrior(nn.Module):
             if "rot_pow" in cs.params:
                 bad = bad | (get("rot_pow") <= 0.0)
         return bad
+
+
+@dataclass
+class ObsStack:
+    """``K`` observations of one spec on the posterior's device (the JAX
+    package's traced obs dict, stacked): ``obs``, ``obs_var`` (inf at bad
+    pixels) and ``good`` ``(K, H, W)``; ``f_stack`` each target's PSF
+    spectra ``(K, num_psfs, 3, Hr, Wr//2+1)`` complex (the PSF, its
+    variance, the PSF) in survey mode, else None; ``consts`` the stacked
+    conv_lnl constants on the kernel path, else None.  ``mode`` is the
+    path, ``"batched"`` or ``"general"``."""
+
+    obs: torch.Tensor
+    obs_var: torch.Tensor
+    good: torch.Tensor
+    f_stack: Optional[torch.Tensor]
+    consts: Optional[ConvLnlConsts]
+    mode: str
+
+    @property
+    def targets(self) -> int:
+        return self.obs.shape[0]
+
+    def split(self, x):
+        """``(B, ...)`` walker-major -> ``(K, B/K, ...)``: each target's
+        walkers (contiguous)."""
+        return x.reshape(self.targets, x.shape[0] // self.targets, *x.shape[1:])
+
+    def copy_(self, other: "ObsStack"):
+        """Write ``other``'s observations into this stack's tensors in place
+        (a captured graph reads them by address)."""
+        if (self.mode, self.obs.shape, self.f_stack is None) != (
+                other.mode, other.obs.shape, other.f_stack is None):
+            raise ValueError("the two stacks differ in path, shape or PSF mode")
+        for name in ("obs", "obs_var", "good") + (() if self.f_stack is None
+                                                   else ("f_stack",)):
+            getattr(self, name).copy_(getattr(other, name))
+        if self.consts is not None:
+            copy_target_consts_(self.consts, other.consts)
+        return self
+
+
+def _obs_spectra(obs):
+    """``(psf_f, var_f)`` complex host arrays from an obs dict (``psf_f`` /
+    ``var_f``, or the ``*_re`` / ``*_im`` planes), or ``(None, None)``."""
+    out = []
+    for key in ("psf_f", "var_f"):
+        if key in obs:
+            out.append(np.asarray(obs[key]))
+        elif f"{key}_re" in obs:
+            out.append(np.asarray(obs[f"{key}_re"], np.float64)
+                       + 1j * np.asarray(obs[f"{key}_im"], np.float64))
+        else:
+            out.append(None)
+    return tuple(out)
 
 
 class PosteriorFns(nn.Module):
@@ -615,6 +684,87 @@ class PosteriorFns(nn.Module):
         path's images and likelihood family."""
         return self._log_likelihood(self.as_thetas(thetas), self.lnpost)
 
+    # -- against a stack of observations ------------------------------------
+    def obs_mode(self, target_psf=False):
+        """The path :meth:`log_posterior_obs` takes, with or without a PSF
+        per target: ``"batched"`` (the render and conv_lnl kernels) where
+        :func:`batched_lnl_supported` holds and, with a PSF per target,
+        :func:`target_spectra_supported` at this shape, else ``"general"``."""
+        ok = batched_lnl_supported(self.spec)[0] and (
+            not target_psf or target_spectra_supported(self.shape))
+        return "batched" if ok else "general"
+
+    def prepare_obs(self, obs) -> ObsStack:
+        """An :class:`ObsStack` on this posterior's device from the JAX
+        package's obs dict, stacked: ``obs_data``, ``obs_var`` and
+        ``good_px`` ``(K, H, W)`` and optionally each target's PSF spectra
+        (``psf_f`` / ``var_f`` complex ``(K, num_psfs, Hr, Wr//2+1)``, or
+        their ``*_re`` / ``*_im`` planes;
+        :func:`~psfmc_tpu_torch.batchfit.prepare_psf_stack`)."""
+        np_dtype = np.float32 if self.dtype == torch.float32 else np.float64
+        data = np.asarray(obs["obs_data"], np.float64)
+        var = np.asarray(obs["obs_var"], np.float64)
+        good = np.asarray(obs["good_px"], bool)
+        if data.ndim != 3 or data.shape[1:] != self.shape or var.shape != data.shape \
+                or good.shape != data.shape:
+            raise ValueError(f"obs_data, obs_var and good_px must be (K, {self.shape[0]}, "
+                             f"{self.shape[1]}), got {data.shape}, {var.shape}, {good.shape}")
+        f_psf, f_var = _obs_spectra(obs)
+        if f_psf is not None and f_psf.shape[:2] != (data.shape[0], self.spec.num_psfs):
+            raise ValueError(f"per-target spectra {f_psf.shape} for {data.shape[0]} "
+                             f"targets of {self.spec.num_psfs} PSF(s)")
+        mode = self.obs_mode(f_psf is not None)
+        dev = self.device
+
+        def tensor(a, dt=self.dtype):
+            return torch.as_tensor(np.ascontiguousarray(a, np_dtype), dtype=dt, device=dev)
+
+        f_stack = consts = None
+        if mode == "batched":
+            consts = make_conv_lnl_consts_stack(
+                self.spec.f_psf_stack[0] if f_psf is None else f_psf[:, 0],
+                self.spec.f_var_stack[0] if f_var is None else f_var[:, 0],
+                data, var, good, dev, self.dtype)
+        elif f_psf is not None:
+            cdtype = torch.complex64 if self.dtype == torch.float32 else torch.complex128
+            f_stack = torch.as_tensor(np.stack([f_psf, f_var, f_psf], axis=2),
+                                      dtype=cdtype, device=dev)
+        elif not hasattr(self, "f_stack"):
+            raise ValueError(f"lnpost={self.lnpost!r} holds no PSF spectra for the "
+                             "general path: pass each target's PSF")
+        return ObsStack(tensor(data), tensor(var),
+                        torch.as_tensor(good, device=dev), f_stack, consts, mode)
+
+    def _as_obs(self, obs):
+        return obs if isinstance(obs, ObsStack) else self.prepare_obs(obs)
+
+    def _obs_likelihood(self, thetas, obs: ObsStack):
+        if thetas.shape[0] % obs.targets:
+            raise ValueError(f"{thetas.shape[0]} walkers do not split evenly over "
+                             f"{obs.targets} targets")
+        if obs.mode == "batched":
+            raw, _ = self.raw_and_ps(thetas)
+            return batched_conv_lnl(raw, obs.consts)
+        imgs = self._images(thetas, with_ps=False, obs=obs)
+        conv = obs.split(imgs["conv"])
+        lnl = self._lnlike(obs.obs[:, None] - conv, 1.0 / obs.split(imgs["var"]),
+                           obs.good[:, None], conv)
+        return lnl.reshape(thetas.shape[0])
+
+    def log_likelihood_obs(self, thetas, obs):
+        """lnL per walker against a stack of observations (an
+        :class:`ObsStack` or the dict :meth:`prepare_obs` takes): walker
+        ``b`` of ``B`` fits target ``b // (B / K)``."""
+        return self._obs_likelihood(self.as_thetas(thetas), self._as_obs(obs))
+
+    def log_posterior_obs(self, thetas, obs):
+        """lnpost per walker against a stack of observations: the prior,
+        then :meth:`log_likelihood_obs` (``-inf`` outside the prior)."""
+        thetas = self.as_thetas(thetas)
+        lp = self.prior(thetas)
+        lnl = self._obs_likelihood(thetas, self._as_obs(obs))
+        return torch.where(torch.isfinite(lp), lnl + lp, torch.full_like(lp, -math.inf))
+
     def _log_likelihood(self, thetas, mode):
         if mode == "fused":
             params, sky = self.render_inputs(thetas)
@@ -677,21 +827,32 @@ class PosteriorFns(nn.Module):
         )
         return out[..., 0, :, :], out[..., 1, :, :], out[..., 2, :, :]
 
-    def _images(self, thetas, with_ps=True):
+    def _images(self, thetas, with_ps=True, obs: Optional[ObsStack] = None):
         """The carry images per walker (``ps_conv`` only ``with_ps``):
         render, convolutions (each walker with its PSF on the general
-        path), crop, ``NoiseScale`` on the variance, then the sky plane."""
+        path), crop, ``NoiseScale`` on the variance, then the sky plane.
+        Against a stack ``obs`` (its general path): each walker's PSF from
+        its target's spectra in survey mode, and its target's variance."""
         raw, ps = self.raw_and_ps(thetas)
-        if self.lnpost == "general":
+        if self.lnpost == "general" or obs is not None:
             chans = (raw, raw * raw, ps) if with_ps else (raw, raw * raw)
-            kern = self.f_stack[:, :len(chans)].index_select(0, self._psf_index(thetas))
+            idx = self._psf_index(thetas)
+            if obs is not None and obs.f_stack is not None:
+                b = thetas.shape[0]
+                target = torch.arange(b, device=self.device) // (b // obs.targets)
+                kern = obs.f_stack[target, idx, :len(chans)]
+            else:
+                kern = self.f_stack[:, :len(chans)].index_select(0, idx)
             out = self._crop(convolve(torch.stack(chans, dim=1), kern))
             conv, model_var = out[:, 0], out[:, 1]
             ps_conv = out[:, 2] if with_ps else None
         else:
             conv, model_var, ps_conv = self._convolve3(raw, raw * raw, ps)
         raw = self._crop(raw)
-        var = model_var + self.obs_var
+        if obs is None:
+            var = model_var + self.obs_var
+        else:
+            var = (obs.split(model_var) + obs.obs_var[:, None]).reshape(model_var.shape)
         if self._noise_ci is not None:
             var = var * self._noise_scale(thetas)[:, None, None]
         if self._grad_skies:

@@ -38,6 +38,19 @@ before the launch (:func:`conv_route`):
   GEMMs of the kernel's own through global scratch (15 launches).
 
 Neither route is a fallback for the other: a launch that fails raises.
+
+Targets (the batch fit, :mod:`psfmc_tpu_torch.batchfit`): one launch may
+carry the walkers of ``K`` independent fits.  A stacked
+:class:`ConvLnlConsts` (:func:`make_conv_lnl_consts_stack`) holds each
+target's observation, variance and mask planes ``(K, H, W)`` and, in
+survey mode, its own PSF's spectra ``(K, ...)`` and variance gain
+``(K,)``; walker ``b`` of a batch of ``B`` reads target ``b // (B / K)``.
+The planes run on every route, per-target spectra on the FFT and padded
+routes only: on the matmul-DFT route the spectra are GEMM operands, and
+the wrapper refuses them there (:func:`target_spectra_supported`; the
+posterior sends such a batch to its general path).  The plain versions
+take the same target axis.  The residual instantiation and the backward
+kernels hold one observation.
 The Pallas kernel's emulated-precision dot modes (bf16x3) existed only
 because Mosaic lacks an fp32-accurate product; they are not ported:
 true fp32 is the contract.
@@ -81,7 +94,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace
 
 import numpy as np
 import torch
@@ -92,8 +105,11 @@ from . import _build, counts
 
 __all__ = [
     "batched_lnl_supported",
+    "target_spectra_supported",
     "ConvLnlConsts",
     "make_conv_lnl_consts",
+    "make_conv_lnl_consts_stack",
+    "copy_target_consts_",
     "batched_conv_lnl",
     "batched_conv_lnl_plain",
     "conv_route",
@@ -354,6 +370,13 @@ def batched_lnl_supported(spec):
     return True, ""
 
 
+def target_spectra_supported(shape):
+    """Whether conv_lnl takes per-target PSF spectra at ``shape``: on the
+    FFT and the padded route (each target's spectra are planes the block
+    reads), not on the matmul-DFT route (there they are GEMM operands)."""
+    return conv_route(shape) != "dft"
+
+
 @dataclass(frozen=True)
 class ConvLnlConsts:
     """Device constants of the conv+likelihood stage.
@@ -370,6 +393,11 @@ class ConvLnlConsts:
     (:func:`var_spectrum_gain`).  The backward kernels also read the
     conjugate spectra's imaginary planes (``psf_ic = -psf_i``, ``var_ic =
     -var_i``) and the transposed operators (``*_t``).
+
+    A stacked consts (:func:`make_conv_lnl_consts_stack`) holds ``K``
+    targets: ``obs``, ``obs_var``, ``good`` and ``good_f`` are ``(K, H,
+    W)`` and, with per-target spectra, the spectrum planes (``psf_*``,
+    ``var_*``, ``pad_*``) ``(K, ...)`` and ``var_gain`` ``(K,)``.
 
     The padded route's (``pad_*``, empty unless :func:`conv_route` answers
     ``"padded"``): the PSF and PSF-variance kernels' half spectra at the
@@ -428,7 +456,17 @@ class ConvLnlConsts:
 
     @property
     def shape(self):
-        return tuple(self.obs.shape)
+        return tuple(self.obs.shape[-2:])
+
+    @property
+    def targets(self):
+        """``K`` for a stacked consts, 0 for one observation."""
+        return self.obs.shape[0] if self.obs.dim() == 3 else 0
+
+    @property
+    def target_spectra(self):
+        """Whether each target has its own PSF spectra."""
+        return self.psf_r.dim() == 3
 
     @property
     def padded_shape(self):
@@ -500,13 +538,95 @@ def make_conv_lnl_consts(f_psf, f_var, obs, obs_var, good, device,
     return ConvLnlConsts(**tensors)
 
 
+# the fields of a stacked consts that are each target's own: the planes,
+# and with per-target spectra the spectra and gains
+TARGET_FIELDS = ("obs", "obs_var", "good", "good_f")
+TARGET_SPECTRA_FIELDS = ("psf_r", "psf_i", "var_r", "var_i", "var_gain", "psf_ic",
+                         "var_ic", "pad_psf_r", "pad_psf_i", "pad_var_r", "pad_var_i",
+                         "pad_psf_ic", "pad_var_ic")
+
+
+def make_conv_lnl_consts_stack(f_psf, f_var, obs, obs_var, good, device,
+                               dtype=torch.float32):
+    """:class:`ConvLnlConsts` of ``K`` targets, from host numpy arrays.
+
+    ``obs``/``obs_var``/``good`` are ``(K, H, W)``; ``f_psf``/``f_var``
+    one PSF's half spectra ``(H, W//2+1)``, shared by every target, or
+    ``(K, H, W//2+1)``, one per target (survey mode: each target's own
+    spectra, padded spectra (:func:`_padded_spectrum`) and variance gain
+    (:func:`var_spectrum_gain`)).  The operators and tables are the
+    single observation's."""
+    obs = np.asarray(obs)
+    good = np.asarray(good, bool)
+    f_psf, f_var = np.asarray(f_psf), np.asarray(f_var)
+    if obs.ndim != 3 or obs.shape != np.shape(obs_var) or obs.shape != good.shape:
+        raise ValueError("obs, obs_var and good must be (K, H, W) each")
+    per = f_psf.ndim == 3
+    if per and (f_psf.shape[0] != obs.shape[0] or f_var.shape != f_psf.shape):
+        raise ValueError(f"per-target spectra {f_psf.shape} / {f_var.shape} "
+                         f"for {obs.shape[0]} targets")
+    base = make_conv_lnl_consts(f_psf[0] if per else f_psf, f_var[0] if per else f_var,
+                                obs[0], np.asarray(obs_var)[0], good[0], device, dtype)
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+
+    def tensor(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np_dtype), device=device)
+
+    over = dict(obs=tensor(obs), obs_var=tensor(obs_var),
+                good=torch.as_tensor(good, device=device),
+                good_f=tensor(good.astype(np_dtype)))
+    if per:
+        over.update(psf_r=tensor(f_psf.real), psf_i=tensor(f_psf.imag),
+                    var_r=tensor(f_var.real), var_i=tensor(f_var.imag),
+                    psf_ic=tensor(-f_psf.imag), var_ic=tensor(-f_var.imag),
+                    var_gain=tensor([var_spectrum_gain(p, v)
+                                     for p, v in zip(f_psf, f_var)]))
+        shape = obs.shape[1:]
+        if conv_route(shape) == "padded":
+            padded = padded_shape(shape)
+            p_psf = np.stack([_padded_spectrum(p, shape, padded) for p in f_psf])
+            p_var = np.stack([_padded_spectrum(v, shape, padded) for v in f_var])
+            over.update(pad_psf_r=tensor(p_psf.real), pad_psf_i=tensor(p_psf.imag),
+                        pad_var_r=tensor(p_var.real), pad_var_i=tensor(p_var.imag),
+                        pad_psf_ic=tensor(-p_psf.imag), pad_var_ic=tensor(-p_var.imag))
+    return replace(base, **over)
+
+
+def copy_target_consts_(dst: ConvLnlConsts, src: ConvLnlConsts):
+    """Write ``src``'s per-target fields into ``dst``'s tensors in place
+    (a captured graph reads ``dst`` by address); both stacked alike."""
+    if (dst.targets, dst.target_spectra, dst.shape) != (src.targets, src.target_spectra,
+                                                        src.shape):
+        raise ValueError("the two stacked consts differ in targets, spectra or shape")
+    names = TARGET_FIELDS + (TARGET_SPECTRA_FIELDS if dst.target_spectra else ())
+    for name in names:
+        getattr(dst, name).copy_(getattr(src, name))
+
+
+def _split_targets(raws, c: ConvLnlConsts):
+    """``(x, c)``: for a stacked consts, ``raws`` ``(B, H, W)`` as ``(K, B/K,
+    H, W)`` and every per-target field with an axis of 1 after the target
+    axis (``var_gain`` ``(K, 1, 1, 1)``), so that they broadcast; else
+    unchanged."""
+    k = c.targets
+    if not k:
+        return raws, c
+    x = raws.reshape(k, raws.shape[0] // k, *raws.shape[1:])
+    names = TARGET_FIELDS + (TARGET_SPECTRA_FIELDS if c.target_spectra else ())
+    over = {n: getattr(c, n)[:, None] for n in names if getattr(c, n).numel()}
+    if c.target_spectra:  # a scalar a target, against (K, B/K, H, W)
+        over["var_gain"] = c.var_gain[:, None, None, None]
+    return x, replace(c, **over)
+
+
 def batched_conv_lnl_plain(raws, consts: ConvLnlConsts):
-    """Plain PyTorch version: ``convolve_rdft`` twice + ``gaussian_lnlike``."""
-    c = consts
-    conv = convolve_rdft(raws, c.psf_r, c.psf_i, c.mats)
-    mvar = convolve_rdft(raws * raws, c.var_r, c.var_i, c.mats)
+    """Plain PyTorch version: ``convolve_rdft`` twice + ``gaussian_lnlike``
+    (a stacked consts: each walker against its target's constants)."""
+    x, c = _split_targets(raws, consts)
+    conv = convolve_rdft(x, c.psf_r, c.psf_i, c.mats)
+    mvar = convolve_rdft(x * x, c.var_r, c.var_i, c.mats)
     ivm = 1.0 / (mvar + c.obs_var)
-    return gaussian_lnlike(c.obs - conv, ivm, c.good)
+    return gaussian_lnlike(c.obs - conv, ivm, c.good).reshape(raws.shape[0])
 
 
 def var_spectrum_gain(f_psf, f_var):
@@ -748,10 +868,12 @@ def packed_fft_conv_plain(raws, consts: ConvLnlConsts):
     with the kernels' spectra completed from their half spectra and the
     gain ``g`` of :func:`var_spectrum_gain`; one ``ifft2``; the ifftshift
     as a shifted readout; ``mvar`` unscaled by ``1 / (s g)``.
-    ``raw * raw`` is formed before the scale is applied.
+    ``raw * raw`` is formed before the scale is applied.  A stacked
+    consts takes each walker's target's constants.
     """
-    c = consts
-    return _packed_pair(raws, c, (c.psf_r, c.psf_i, c.var_r, c.var_i), c.shape)
+    x, c = _split_targets(raws, consts)
+    conv, mvar = _packed_pair(x, c, (c.psf_r, c.psf_i, c.var_r, c.var_i), c.shape)
+    return conv.reshape(raws.shape), mvar.reshape(raws.shape)
 
 
 def padded_fft_conv_plain(raws, consts: ConvLnlConsts):
@@ -761,29 +883,34 @@ def padded_fft_conv_plain(raws, consts: ConvLnlConsts):
     with the padded kernels' spectra (``consts.pad_*``), which gives the
     linear convolution; the readout folds it back to the ``N``-point
     circular one (``y[s] = z[s] + z[s + N]`` along each padded axis) and
-    shifts.  The inverse's normalisation is ``1 / (M_h M_w)``."""
-    c = consts
-    return _packed_pair(raws, c, (c.pad_psf_r, c.pad_psf_i, c.pad_var_r, c.pad_var_i),
-                        c.padded_shape)
+    shifts.  The inverse's normalisation is ``1 / (M_h M_w)``.  A stacked
+    consts takes each walker's target's constants."""
+    x, c = _split_targets(raws, consts)
+    conv, mvar = _packed_pair(x, c, (c.pad_psf_r, c.pad_psf_i, c.pad_var_r,
+                                     c.pad_var_i), c.padded_shape)
+    return conv.reshape(raws.shape), mvar.reshape(raws.shape)
 
 
-# conv_lnl_launch(raws, batch, h, w, <these constants>, t1, t2, conv,
-# mvar, out, stream)
+# conv_lnl_launch(raws, batch, h, w, per_target, data_stride, <these
+# constants>, t1, t2, conv, mvar, out, stream)
 _DFT_CONST_ARGS = ("cw", "sw", "lf", "li", "ica", "isa", "psf_r", "psf_i",
                    "var_r", "var_i", "obs", "obs_var", "good_f")
 # fused_lnl_fft_launch(..., <these constants>, out, stream)
 FFT_CONST_ARGS = ("twiddle", "var_gain", "psf_r", "psf_i", "var_r", "var_i",
                   "obs", "obs_var", "good_f")
-# conv_lnl_fft_launch(raws, batch, h, w, <these constants>, out, stream)
+# conv_lnl_fft_launch(raws, batch, h, w, per_target, data_stride,
+# spectra_stride, <these constants>, out, stream)
 CONV_FFT_CONST_ARGS = ("twiddle", "fft_layout") + FFT_CONST_ARGS[1:]
-# conv_lnl_padded_launch(raws, batch, h, w, mh, mw, <these constants>, out,
-# stream): the FFT route's constants at the transform's sides
+# conv_lnl_padded_launch(raws, batch, h, w, mh, mw, per_target, data_stride,
+# spectra_stride, <these constants>, out, stream): the FFT route's
+# constants at the transform's sides
 PADDED_CONST_ARGS = ("pad_twiddle", "pad_layout", "var_gain", "pad_psf_r",
                      "pad_psf_i", "pad_var_r", "pad_var_i", "obs", "obs_var",
                      "good_f")
 # the routes that hold a walker in one block: the C symbols of the forward
 # and of its residual instantiation, and the constants they take (the
-# residual instantiation's outputs are out, weights, scale_exp)
+# residual instantiation's outputs are out, weights, scale_exp; it takes no
+# per_target and strides)
 _BLOCK_ROUTES = {
     "fft": (("conv_lnl_fft_launch", "conv_lnl_fft_residuals_launch"),
             CONV_FFT_CONST_ARGS),
@@ -798,11 +925,22 @@ def _sides(route, shape):
     return tuple(shape) + (padded_shape(shape) if route == "padded" else ())
 
 
+def _target_ints(batch, consts: ConvLnlConsts, route):
+    """The forward's ints after the sides: walkers per target and the
+    floats between two targets' planes, then (FFT and padded routes) their
+    spectra's; ``(1, 0, 0)`` for one observation and PSF."""
+    k = consts.targets
+    per, data, spectra = (batch // k, consts.obs[0].numel(), 0) if k else (1, 0, 0)
+    if k and consts.target_spectra:
+        spectra = (consts.pad_psf_r if route == "padded" else consts.psf_r)[0].numel()
+    return (per, data) if route == "dft" else (per, data, spectra)
+
+
 @functools.lru_cache(maxsize=1)
 def _dft_kernel():
     return _build.function(
         "conv_lnl", "conv_lnl_launch",
-        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        [ctypes.c_void_p] + [ctypes.c_int] * 5
         + [ctypes.c_void_p] * (len(_DFT_CONST_ARGS) + 6),
     )
 
@@ -810,7 +948,7 @@ def _dft_kernel():
 @functools.lru_cache(maxsize=None)
 def _block_kernel(route, residuals):
     (symbols, names) = _BLOCK_ROUTES[route]
-    ints = 1 + (4 if route == "padded" else 2)
+    ints = 1 + (4 if route == "padded" else 2) + (0 if residuals else 3)
     return _build.function(
         "conv_lnl", symbols[residuals],
         [ctypes.c_void_p] + [ctypes.c_int] * ints
@@ -844,7 +982,7 @@ def _launch_dft(raws, consts: ConvLnlConsts):
     tensors = [getattr(consts, n) for n in _DFT_CONST_ARGS] + [t1, t2, conv, mvar, out]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _dft_kernel()(raws.data_ptr(), b, h, w,
+        err = _dft_kernel()(raws.data_ptr(), b, h, w, *_target_ints(b, consts, "dft"),
                             *(t.data_ptr() for t in tensors), stream)
     if err != 0:
         raise RuntimeError(f"conv_lnl launch failed: cudaError {err}")
@@ -864,9 +1002,10 @@ def _launch_block(raws, consts: ConvLnlConsts, route, residuals=False):
                  torch.empty((b,), dtype=torch.int32, device=dev)]
     tensors = [getattr(consts, n) for n in _BLOCK_ROUTES[route][1]] + outs
     sides = _sides(route, (h, w))
+    ints = sides if residuals else sides + _target_ints(b, consts, route)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _block_kernel(route, residuals)(raws.data_ptr(), b, *sides,
+        err = _block_kernel(route, residuals)(raws.data_ptr(), b, *ints,
                                               *(t.data_ptr() for t in tensors), stream)
     if err != 0:
         transform = sides[2:] or sides
@@ -888,13 +1027,33 @@ def _launch(raws, consts: ConvLnlConsts, route):
 
 
 def batched_conv_lnl(raws, consts: ConvLnlConsts):
-    """``(B, H, W)`` raw images -> ``(B,)`` Gaussian lnL (see module doc)."""
+    """``(B, H, W)`` raw images -> ``(B,)`` Gaussian lnL (see module doc).
+
+    With a stacked consts of ``K`` targets, ``B`` is a multiple of ``K``
+    and walker ``b`` fits target ``b // (B / K)``; launches count on the
+    route's ``"<route>_targets"`` key (``"fft_targets"``,
+    ``"padded_targets"``, ``"dft_targets"``).  Per-target spectra off the
+    FFT and padded routes (:func:`target_spectra_supported`) and a stacked
+    consts under autograd raise ``ValueError``."""
     if raws.ndim != 3 or tuple(raws.shape[1:]) != consts.shape:
         raise ValueError(
             f"raws must be (B, {consts.shape[0]}, {consts.shape[1]}), "
             f"got {tuple(raws.shape)}"
         )
-    if torch.is_grad_enabled() and raws.requires_grad:
+    if consts.targets:
+        if raws.shape[0] % consts.targets:
+            raise ValueError(f"{raws.shape[0]} walkers do not split evenly over "
+                             f"{consts.targets} targets")
+        if consts.target_spectra and not target_spectra_supported(consts.shape):
+            raise ValueError(
+                f"per-target PSF spectra at {consts.shape} take the matmul-DFT "
+                "route, whose spectra are shared GEMM operands: such a batch "
+                "takes the posterior's general path")
+    grad = torch.is_grad_enabled() and raws.requires_grad
+    if grad and consts.targets:
+        raise ValueError("conv_lnl's backward holds one observation: a stacked "
+                         "consts has no gradient")
+    if grad:
         return _ConvLnl.apply(raws, consts)
     return _forward(raws, consts)
 
@@ -906,13 +1065,15 @@ def _forward(raws, consts):
         raise ValueError(f"unsupported device {raws.device}")
     route = conv_route(consts.shape)
     out = _launch(raws, consts, route)
-    counts.count(batched_conv_lnl, route, consts.shape)
+    counted = route + "_targets" if consts.targets else route
+    counts.count(batched_conv_lnl, counted, consts.shape)
     return out
 
 
 batched_conv_lnl.launches = 0
 batched_conv_lnl.route_launches = {"fft": 0, "dft": 0, "fft_res": 0, "padded": 0,
-                                   "padded_res": 0}
+                                   "padded_res": 0, "fft_targets": 0,
+                                   "padded_targets": 0, "dft_targets": 0}
 batched_conv_lnl.shape_launches = {}
 
 
@@ -937,6 +1098,8 @@ def batched_conv_lnl_residuals(raws, consts: ConvLnlConsts):
     if route not in _BLOCK_ROUTES:
         raise ValueError(f"{consts.shape} is off the FFT and padded routes: its "
                          "backward recomputes the forward and reads no residuals")
+    if consts.targets:
+        raise ValueError("the residual instantiation holds one observation")
     if raws.device.type == "cpu":
         plain = (padded_fft_conv_residuals_plain if route == "padded"
                  else packed_fft_conv_residuals_plain)

@@ -115,17 +115,19 @@ class EnsembleState:
                              self.naccept.clone(), copy(self.moments))
 
 
-def welford_batch_update(moments, batch):
+def welford_batch_update(moments, batch, axis=0):
     """Merge a ``(nbatch, dim)`` batch into Welford running moments.
 
     Chan et al. parallel merge, as the JAX package writes it: the batch's
     own mean and M2 first, then the merge into ``moments = {"mean",
     "m2", "n"}`` with ``n`` an integer tensor.  Works in the batch's
-    dtype; the sampler calls it in float64.
+    dtype; the sampler calls it in float64.  ``axis`` is the batch's
+    sample axis (the batch fit's ``(K, nwalkers, dim)`` merges over axis
+    1, one set of moments per target).
     """
-    nb = batch.shape[0]
-    bmean = batch.mean(dim=0)
-    bm2 = ((batch - bmean) ** 2).sum(dim=0)
+    nb = batch.shape[axis]
+    bmean = batch.mean(dim=axis)
+    bm2 = ((batch - bmean.unsqueeze(axis)) ** 2).sum(dim=axis)
     n = moments["n"]
     n_new = n + nb
     delta = bmean - moments["mean"]
@@ -192,7 +194,7 @@ def _metropolis(active_pos, active_lnp, proposal, log_extra, lnpost_batch,
     prop_lnp = lnpost_batch(proposal)
     log_ratio = log_extra + prop_lnp - active_lnp
     accept = torch.log(u_accept) < log_ratio
-    new_pos = torch.where(accept[:, None], proposal, active_pos)
+    new_pos = torch.where(accept[..., None], proposal, active_pos)
     new_lnp = torch.where(accept, prop_lnp, active_lnp)
     return new_pos, new_lnp, accept.to(torch.int64)
 

@@ -837,10 +837,8 @@ def test_joint_graphed_phase_is_bit_identical_to_eager(cuda, variant):
     batched = paths[0] == "batched"
     assert g_launches == e_launches == [2 * (1 + 20 + 6), 2 * (1 + 20) * batched, 0]
     if batched:  # each band's conv_lnl on its route, in both runs
-        assert CL.batched_conv_lnl.route_launches == {
-            "fft": routes["fft"] + 2 * 21, "dft": routes["dft"] + 2 * 21,
-            "fft_res": routes["fft_res"], "padded": routes["padded"],
-            "padded_res": routes["padded_res"]}
+        assert CL.batched_conv_lnl.route_launches == dict(
+            routes, fft=routes["fft"] + 2 * 21, dft=routes["dft"] + 2 * 21)
 
 
 def test_dft_route_conv_lnl_inside_a_captured_graph(cuda):
@@ -1056,6 +1054,10 @@ def test_log_posterior_and_grad_matches_cpu_float64(cuda, variant):
     assert rel[fin].max().item() <= 1e-3
 
 
+# a single fit's conv_lnl launches nothing on the stacked routes
+NO_TARGETS = {"fft_targets": 0, "padded_targets": 0, "dft_targets": 0}
+
+
 def _map_counts():
     return [fn.launches for fn in GRAD_COUNTED] + [
         dict(CL.batched_conv_lnl.route_launches),
@@ -1105,7 +1107,7 @@ def test_joint_map_runs_the_dft_backward_inside_the_graph(cuda):
     assert [a - b for a, b in zip(after[:4], before[:4])] == [10, 8, 10, 8]
     # by route: band 0's forward under autograd writes its residuals
     assert {r: after[4][r] - before[4][r] for r in after[4]} == \
-        {"fft": 1, "fft_res": 4, "dft": 5, "padded": 0, "padded_res": 0}
+        {"fft": 1, "fft_res": 4, "dft": 5, "padded": 0, "padded_res": 0, **NO_TARGETS}
     assert {r: after[5][r] - before[5][r] for r in after[5]} == \
         {"fft": 4, "dft": 4, "padded": 0}
 
@@ -1149,7 +1151,7 @@ def _joint_map_on_the_fft_route(cuda, band1):
         # every launch on the FFT route, the forward under autograd writing
         # its residuals
         assert {r: after[4][r] - before[4][r] for r in after[4]} == \
-            {"fft": 2, "fft_res": 8, "dft": 0, "padded": 0, "padded_res": 0}
+            {"fft": 2, "fft_res": 8, "dft": 0, "padded": 0, "padded_res": 0, **NO_TARGETS}
         assert {r: after[5][r] - before[5][r] for r in after[5]} == \
             {"fft": 8, "dft": 0, "padded": 0}
         assert [fn.shape_launches.get((r, band1), 0) - b
@@ -1185,7 +1187,7 @@ def test_joint_map_runs_the_padded_band_inside_the_graph(cuda):
         assert np.isfinite(res.lnpost)
         assert [a - b for a, b in zip(after[:4], before[:4])] == [10, 8, 10, 8]
         assert {r: after[4][r] - before[4][r] for r in after[4]} == \
-            {"fft": 1, "fft_res": 4, "dft": 0, "padded": 1, "padded_res": 4}
+            {"fft": 1, "fft_res": 4, "dft": 0, "padded": 1, "padded_res": 4, **NO_TARGETS}
         assert {r: after[5][r] - before[5][r] for r in after[5]} == \
             {"fft": 4, "dft": 0, "padded": 4}
         assert [fn.shape_launches.get((r, band1), 0) - b
@@ -1240,11 +1242,16 @@ def test_padded_launch_refuses_a_shape_the_host_did_not_plan(cuda):
     out = torch.empty(len(raws), device=cuda)
     stream = torch.cuda.current_stream().cuda_stream
     ptrs = [getattr(consts, n).data_ptr() for n in CL.PADDED_CONST_ARGS]
+    one = (1, 0, 0)  # one target: a walker a target, strides 0
     for mh, mw in ((148, 150), (150, 152), (74, 74)):
-        assert fn(raws.data_ptr(), len(raws), 74, 74, mh, mw, *ptrs,
+        assert fn(raws.data_ptr(), len(raws), 74, 74, mh, mw, *one, *ptrs,
                   out.data_ptr(), stream) != 0
-    assert fn(raws.data_ptr(), len(raws), 74, 74, 150, 150, *ptrs,
+    assert fn(raws.data_ptr(), len(raws), 74, 74, 150, 150, *one, *ptrs,
               out.data_ptr(), stream) == 0
+    # a target layout the kernel cannot read is refused too
+    for bad in ((0, 0, 0), (1, -1, 0), (1, 0, -1)):
+        assert fn(raws.data_ptr(), len(raws), 74, 74, 150, 150, *bad, *ptrs,
+                  out.data_ptr(), stream) != 0
 
 
 def test_a_failed_backward_build_raises(flagship, monkeypatch):
@@ -1498,3 +1505,193 @@ def test_nuts_gaussian_moments_on_the_card(cuda):
     assert s.accumulated_samples == 8 * 700
     assert s.n_leapfrog_total > 0
     assert s.graph_replays == sum(s.piece_counts.values())
+
+
+# -- conv_lnl with a target axis (the batch fit) ---------------------------------
+def _target_stack(shape, device, nt, spectra, seed=3):
+    """A stacked consts of ``nt`` targets around :func:`_synthetic_consts`'s
+    observation (each its own noise, variance scale and mask; with
+    ``spectra`` each its own PSF width), the float64 CPU twin, and
+    ``nt x 6`` walkers of raws (the same 6 for every target)."""
+    h, w = shape
+    rng = np.random.RandomState(seed)
+    base, _, raws = _synthetic_consts(shape, device, seed)
+    obs = base.obs.cpu().double().numpy()[None] + 0.001 * rng.randn(nt, h, w)
+    var = np.full((nt, h, w), 2.5e-5) * rng.uniform(0.8, 1.25, (nt, 1, 1))
+    good = rng.rand(nt, h, w) > 0.05
+    ph, pw = max(h // 2, 1), max(w // 2, 1)
+    yy, xx = np.mgrid[0:ph, 0:pw]
+    f_psf, f_var = [], []
+    for s in rng.uniform(1.2, 2.0, nt):
+        psf = np.exp(-((yy - ph // 2) ** 2 + (xx - pw // 2) ** 2) / (2 * s * s)) + 1e-3
+        psf /= psf.sum()
+        for out, img in ((f_psf, psf), (f_var, np.full_like(psf, 1e-8) * s)):
+            pad = np.zeros(shape)
+            oy, ox = h // 2 - ph // 2, w // 2 - pw // 2
+            pad[oy:oy + ph, ox:ox + pw] = img
+            out.append(np.fft.rfft2(pad))
+    shared = (base.psf_r.cpu().double().numpy() + 1j * base.psf_i.cpu().double().numpy(),
+              base.var_r.cpu().double().numpy() + 1j * base.var_i.cpu().double().numpy())
+    fp, fv = (np.stack(f_psf), np.stack(f_var)) if spectra else shared
+    args = (fp, fv, obs, var, good)
+    raws = torch.cat([raws[:6]] * nt)
+    return (CL.make_conv_lnl_consts_stack(*args, device),
+            CL.make_conv_lnl_consts_stack(*args, "cpu", torch.float64), raws)
+
+
+@pytest.mark.parametrize("shape", [(128, 128), (96, 96), (98, 98), (74, 74), (45, 75),
+                                   (94, 94)])
+@pytest.mark.parametrize("spectra", [False, True], ids=["planes", "spectra"])
+def test_conv_lnl_with_targets_matches_plain(cuda, shape, spectra):
+    """Per-target planes on every route (and per-target spectra on the FFT
+    and padded routes) against the plain version: within 2e-5 of the
+    float32 plain version per walker, as close to the float64 one as four
+    times the float32 plain version, the same non-finite entries, counted
+    on the route's ``_targets`` key; per-target spectra on the matmul-DFT
+    route raise before any launch."""
+    nt = 4
+    consts, c64, raws = _target_stack(shape, cuda, nt, spectra)
+    route = CL.conv_route(shape)
+    before = dict(CL.batched_conv_lnl.route_launches)
+    if spectra and route == "dft":
+        with pytest.raises(ValueError, match="general path"):
+            CL.batched_conv_lnl(raws, consts)
+        assert CL.batched_conv_lnl.route_launches == before
+        return
+    got = CL.batched_conv_lnl(raws, consts)
+    torch.cuda.synchronize()
+    before[route + "_targets"] += 1
+    assert CL.batched_conv_lnl.route_launches == before
+    want = CL.batched_conv_lnl_plain(raws, consts)
+    truth = CL.batched_conv_lnl_plain(raws.double().cpu(), c64)
+    assert _same_nonfinite(got, want) and torch.isfinite(got).all()
+    rel = ((got - want).abs() / want.abs()).max().item()
+    err = ((got.double().cpu() - truth).abs() / truth.abs()).max().item()
+    plain = ((want.double().cpu() - truth).abs() / truth.abs()).max().item()
+    assert rel <= 2e-5 and err <= max(4 * plain, 1e-6)
+    # each target against a launch of its own constants
+    for t in range(nt):
+        rows = slice(t * 6, (t + 1) * 6)
+        one = CL.make_conv_lnl_consts(
+            *(np.asarray(x) for x in (
+                (c64.psf_r[t] + 1j * c64.psf_i[t]).numpy() if spectra
+                else (c64.psf_r + 1j * c64.psf_i).numpy(),
+                (c64.var_r[t] + 1j * c64.var_i[t]).numpy() if spectra
+                else (c64.var_r + 1j * c64.var_i).numpy(),
+                c64.obs[t].numpy(), c64.obs_var[t].numpy(), c64.good[t].numpy())), cuda)
+        assert torch.equal(got[rows], CL.batched_conv_lnl(raws[rows], one))
+
+
+@pytest.mark.parametrize("shape", [(128, 128), (96, 96), (74, 74), (94, 94)])
+def test_conv_lnl_stacked_copies_equal_the_shared_launch(cuda, shape):
+    """A stack of K copies of one observation gives the shared-constants
+    launch's lnL bit for bit: the target stride only moves the pointers."""
+    consts, _, raws = _synthetic_consts(shape, cuda, 5)
+    # both from the same float64 inputs (the padded route's spectra are
+    # transformed from them on the host)
+    args = [(consts.psf_r + 1j * consts.psf_i).cpu().to(torch.complex128).numpy(),
+            (consts.var_r + 1j * consts.var_i).cpu().to(torch.complex128).numpy()] + [
+        t.cpu().numpy() for t in (consts.obs.double(), consts.obs_var.double(), consts.good)]
+    shared = CL.make_conv_lnl_consts(*args, cuda)
+    stack = CL.make_conv_lnl_consts_stack(
+        *args[:2], *(np.repeat(a[None], 4, 0) for a in args[2:]), cuda)
+    assert torch.equal(CL.batched_conv_lnl(raws, stack), CL.batched_conv_lnl(raws, shared))
+
+
+def _batch_counts():
+    return (SR.render_sersics.launches, CL.batched_conv_lnl.launches,
+            CL.batched_conv_lnl.route_launches["fft_targets"])
+
+
+@pytest.mark.parametrize("moves", ["stretch", "mixed"])
+def test_fit_batch_graphed_is_bit_identical_to_eager(cuda, moves):
+    """A chunked batch fit (5 targets in chunks of 2, the last padded):
+    three captures reused by every chunk, one replay a step, the render and
+    conv_lnl once a half-step and at each chunk's start; the eager fit
+    equal bit for bit; swapping two targets of different chunks changes
+    exactly their rows."""
+    from psfmc_tpu_torch import batchfit as BF
+    from psfmc_tpu_torch.models import MultiComponentModel
+
+    model = MultiComponentModel(flagship_components((64, 64), (32, 32)), device=cuda)
+    obs, ivm, _ = BF.simulate_stack(model, 5, seed=1)
+    kw = dict(nwalkers=40, burn=3, iterations=4, record_every=2, chunk=2, moves=moves,
+              seed=7)
+    fns = model.posterior_fns
+    before = _batch_counts()
+    res = BF.fit_batch(model, obs, ivm, **kw)
+    torch.cuda.synchronize()
+    _, program = fns.__dict__["_batch_program"]
+    assert program.captures == 3 and program.replays == 3 * 7
+    evals = 3 * (1 + 2 * 7)
+    assert _batch_counts() == (before[0] + evals, before[1] + evals, before[2] + evals)
+    swapped = obs.copy()
+    swapped[[0, 4]] = swapped[[4, 0]]
+    other = BF.fit_batch(model, swapped, ivm, **kw)
+    assert fns.__dict__["_batch_program"][1] is program and program.captures == 3
+    assert [not np.array_equal(other.mean[i], res.mean[i]) for i in range(5)] == [
+        True, False, False, False, True]
+    with BF._eager():
+        eager = BF.fit_batch(model, obs, ivm, **kw)
+    for name in ("mean", "std", "map_theta", "map_lnp", "acceptance", "chains", "lnprob"):
+        assert np.array_equal(getattr(res, name), getattr(eager, name), equal_nan=True), name
+
+
+def test_fit_batch_keeps_one_program_on_the_card(cuda):
+    """Two chunk shapes in turn leave one program cached: the first one,
+    its graphs and buffers, is freed when the second replaces it, with no
+    collection."""
+    import weakref
+
+    from psfmc_tpu_torch import batchfit as BF
+    from psfmc_tpu_torch.models import MultiComponentModel
+
+    model = MultiComponentModel(flagship_components((64, 64), (32, 32)), device=cuda)
+    obs, ivm, _ = BF.simulate_stack(model, 6, seed=1)
+    fns = model.posterior_fns
+    kw = dict(nwalkers=40, burn=2, iterations=2, record_every=2, seed=7)
+    BF.fit_batch(model, obs, ivm, chunk=3, **kw)
+    torch.cuda.synchronize()
+    first_key, first = fns.__dict__["_batch_program"]
+    assert first.captures == 3
+    gone = weakref.ref(first)
+    del first
+    BF.fit_batch(model, obs, ivm, chunk=2, **kw)
+    torch.cuda.synchronize()
+    key, program = fns.__dict__["_batch_program"]
+    assert gone() is None
+    assert key != first_key and program.captures == 3
+    assert program.state.positions.shape[0] == 2
+
+
+def test_batch_posterior_on_the_card_matches_the_cpu(cuda):
+    """log_posterior_obs on the card (float32; the kernel path, and the
+    general path of survey mode at 94x94) against the CPU's float64."""
+    from psfmc_tpu_torch import batchfit as BF
+    from psfmc_tpu_torch.models import MultiComponentModel
+
+    for shape, psf_shape in (((64, 64), (32, 32)), ((94, 94), (48, 48))):
+        comps = flagship_components(shape, psf_shape)
+        card = MultiComponentModel(comps, device=cuda)
+        cpu = MultiComponentModel(flagship_components(shape, psf_shape), device="cpu",
+                                  dtype=torch.float64)
+        obs, ivm, _ = BF.simulate_stack(cpu, 3, seed=2)
+        yy, xx = np.mgrid[0:psf_shape[0], 0:psf_shape[1]].astype(float)
+        stars = [np.exp(-((xx - psf_shape[1] / 2) ** 2 + (yy - psf_shape[0] / 2) ** 2)
+                        / (2 * s * s)) for s in (1.6, 2.0, 2.4)]
+        ivms = [np.full(psf_shape, 1e8)] * 3
+        th = prior_draws(card.spec, 12, seed=3)
+        for survey in (False, True):
+            stacks = []
+            for m, dt in ((card, np.float32), (cpu, np.float64)):
+                d = BF.prepare_obs_stack(m.spec, obs, ivm, dt)
+                if survey:
+                    d.update(BF.prepare_psf_stack(m.spec, stars, ivms, dtype=dt))
+                stacks.append(m.posterior_fns.prepare_obs(d))
+            want_mode = "general" if survey and CL.conv_route(shape) == "dft" else "batched"
+            assert stacks[0].mode == stacks[1].mode == want_mode
+            got = card.posterior_fns.log_posterior_obs(th, stacks[0]).double().cpu()
+            want = cpu.posterior_fns.log_posterior_obs(th, stacks[1])
+            assert _same_nonfinite(got, want)
+            fin = torch.isfinite(want)
+            assert ((got[fin] - want[fin]).abs() / want[fin].abs()).max().item() <= 1e-4

@@ -248,9 +248,21 @@ never ``jax`` nor ``psfmc_tpu``, and:
    at 608 walkers against its plain version, timed beside the
    shared-constants launch and a ``torch.fft`` composite; survey mode
    (a PSF star per target); the joint flagship's batch; ``run_sbc``;
-18. prints the tempered, evidence, NUTS, criticism and batch phases'
-   numbers and the kernel table as one JSON line each, then the result
-   line ``{"ok": true, "device": {...}}`` last.
+18. hierarchical fits (:func:`hierarchy_phase`): ``fit_hierarchical`` on
+   16 flagship mocks with a population on the first Sersic's index, NUTS
+   with 4 chains (64 walkers a leaf), depth 8, 20 + 20 steps, centred and
+   non-centred; survey mode at 8 targets; the joint flagship at 4
+   targets with band 1 on the mixed-radix, padded and matmul-DFT routes;
+   the ensemble path (graphed against eager); ``loo_targets``.  Every
+   NUTS piece a replay, the launches exact (conv_lnl's residual forwards
+   equal its backwards by route and shape on the ``_targets`` keys), the
+   chain's lnpost and the potential's gradient against the CPU's float64,
+   the kernels against their plain versions at each fit's own batch; then
+   the residual forward and the backward with the target axis on every
+   route at the leaf's batch and at 608 walkers (the ``*_targets`` rows);
+19. prints the tempered, evidence, NUTS, criticism, batch and hierarchy
+   phases' numbers and the kernel table as one JSON line each, then the
+   result line ``{"ok": true, "device": {...}}`` last.
 
 Each phase ends in a synchronize of the card (:func:`run_phase`), so an
 asynchronous CUDA error names the phase whose launches raised it.
@@ -269,7 +281,7 @@ under other launch geometries than the wrapper picks.  The breakdown
 also covers the priors flagship and the priors' stress variant.
 
 ``python3 chip_smoke.py --only nuts,nuts,criticism`` runs only the named
-phases after the build (``nuts``, ``criticism``, ``batch``, and
+phases after the build (``nuts``, ``criticism``, ``batch``, ``hierarchy``, and
 ``nuts-kernels``: the gradient path's four kernels at NUTS's
 batches, a short target for ``compute-sanitizer``), each as often as it
 is named, and prints their numbers.
@@ -3977,7 +3989,7 @@ def nuts_times(sampler, steps=NUTS_PROFILED):
            "nuts_leaf_launches": launched / leaves if all_us else None,
            "nuts_leaf_kernel_share": (kernel_ms / piece_ms["leaf"]
                                       if kernel_ms is not None else None)}
-    log(f"nuts: {steps} retained steps at {NUTS_CHAINS} chains: {wall * 1e3:.3f} ms wall "
+    log(f"nuts: {steps} retained steps at {sampler.nwalkers} chains: {wall * 1e3:.3f} ms wall "
         f"({wall * 1e3 / steps:.3f} ms a step, {ran['leaf'] / steps:.2f} leaves a step); "
         f"the potential and its gradient alone {potential_ms:.4f} ms, the leaf's "
         f"bookkeeping {piece_ms['leaf'] - potential_ms:.4f} ms; pieces "
@@ -3996,8 +4008,7 @@ def nuts_times(sampler, steps=NUTS_PROFILED):
             f"{out['nuts_leaf_launches']:.0f} kernels, of it the "
             f"render, conv_lnl and their backward kernels {kernel_ms:.4f} ms: "
             f"{out['nuts_leaf_kernel_share']:.3f} of the leaf's replay "
-            f"({piece_ms['leaf']:.4f} ms; {NUTS_CHAINS} chains: one block a walker "
-            f"fills {NUTS_CHAINS} of the card's SMs)")
+            f"({piece_ms['leaf']:.4f} ms; {sampler.nwalkers} chains)")
         for e in sorted(prof.key_averages(), key=lambda e: -getattr(
                 e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)))[:12]:
             us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
@@ -5254,6 +5265,707 @@ def batch_phase(shape=None, psf_shape=(64, 64), joint_shapes=None, device=None):
             "kernel_checks": checks}
 
 
+# the hierarchy phase (18): hierarchical fits over NUTS on the card
+HIER_TARGETS = 16  # the flagship catalog: 16 mocks, 18 parameters each
+HIER_POP = "2_Sersic_index"
+HIER_CHAINS, HIER_POOL, HIER_DEPTH = 4, 16, 8
+HIER_BURN, HIER_SAMPLE = 20, 20
+HIER_SURVEY_TARGETS, HIER_SURVEY_STEPS, HIER_SURVEY_DEPTH = 8, 10, 6
+HIER_JOINT_TARGETS, HIER_JOINT_STEPS, HIER_JOINT_DEPTH = 4, 5, 4
+HIER_JOINT_BAND1 = (MIXED_SHAPE, PADDED_SHAPE, DFT_SHAPE)  # band 1 on each route
+HIER_ENSEMBLE_TARGETS, HIER_ENSEMBLE_STEPS = 4, 4
+HIER_EQUAL, HIER_EQUAL_DEPTH = 2, 3  # graphed against eager: warmup and retained steps
+HIER_CPU_ROWS = 8  # chain rows whose lnpost the CPU's float64 replays
+HIER_ROW_WALKERS = 608  # the rows' second batch: the batch fit's half-step launch
+HIER_GRAD_PLAIN = 4  # the gradient's bound at a fit's end: or 4x the CPU float32's error
+
+
+def hier_population(noncentered=False):
+    """``NormalPopulation`` on the first Sersic's index: mu ~ Uniform(0.5,
+    5.5), sigma ~ Uniform(0.05, 3.05)."""
+    from psfmc_tpu_torch.distributions import Uniform
+    from psfmc_tpu_torch.hierarchy import NormalPopulation
+
+    return {HIER_POP: NormalPopulation(mu=Uniform(loc=0.5, scale=5.0),
+                                       sigma=Uniform(loc=0.05, scale=3.0))}
+
+
+def hier_kernel_check(setup, big, label):
+    """The kernels at a hierarchical batch (``big``: ``(C, K*d + h)`` rows,
+    as the likelihood reads them: target-major, reconstructed under the
+    non-centred form), each band on its own
+    stack, against their plain versions: the render and conv_lnl with the
+    stack's constants (:func:`batch_kernel_check`), and where the band is
+    on the kernel path conv_lnl's residual forward (FFT and padded routes,
+    :func:`residual_check`), its backward at the leaf's upstream
+    gradient, within :data:`CONV_BWD_TOL` of the float64 scheme, and the
+    render's backward at that image gradient (:func:`render_backward_check`)."""
+    import torch
+
+    from psfmc_tpu_torch.ops.kernels import conv_lnl as CL
+
+    hier = setup.hier
+    rows = hier.likelihood_rows(big).contiguous()
+    out = []
+    for i, band in enumerate(hier._bands):
+        f, stack = band["fns"], band["obs"]
+        check = batch_kernel_check(f, rows, f"{label}, band {i}", stack)
+        check.update(band=i, shape=list(f.shape), route=CL.conv_route(f.shape),
+                     target_spectra=stack.consts is not None and stack.consts.target_spectra)
+        if stack.mode == "batched":
+            consts = stack.consts
+            c64 = hier_consts64(consts)
+            raws = f.raw_and_ps(rows)[0].contiguous()
+            lnl = CL.batched_conv_lnl(raws, consts)
+            residuals, keep = None, torch.isfinite(lnl)
+            if CL.conv_route(f.shape) != "dft":
+                residuals, keep, check["conv_lnl_res"] = residual_check(
+                    raws, consts, c64, lnl,
+                    f"{label}, band {i}: conv_lnl's residual forward at B = {len(rows)}")
+            up = torch.full((len(rows),), -1.0, dtype=torch.float32, device=raws.device)
+            got = CL.batched_conv_lnl_backward(raws, consts, lnl, up, residuals)
+            same_nonfinite(got, CL.batched_conv_lnl_backward_plain(raws, consts, lnl, up))
+            want = CL.batched_conv_lnl_backward_plain(
+                raws.double().cpu(), c64, lnl.double().cpu(), up.double().cpu()
+            ).to(raws.device)
+            err = normalized_err(got[keep], want[keep], dims=(1, 2))
+            log(f"{label}, band {i}: conv_lnl's backward with {stack.targets} targets at "
+                f"B = {len(rows)}: max normalized err {err:.3e} (tol {CONV_BWD_TOL:g}), "
+                f"walkers compared {int(keep.sum())}")
+            if not (err <= CONV_BWD_TOL and keep.sum().item() >= len(rows) // 2):
+                raise AssertionError(f"{label}: conv_lnl's backward with targets disagrees "
+                                     "with its plain version")
+            check["conv_lnl_backward"] = dict(
+                max_abs_err=(got[keep].double() - want[keep]).abs().max().item(),
+                max_normalized_err=err)
+            params, sky = (t.contiguous() for t in f.render_inputs(rows))
+            check["render_backward"] = render_backward_check(
+                params, sky, f.render_shape, got.contiguous(),
+                f"{label}, band {i}: render backward at B = {len(rows)}")[2]
+        out.append(check)
+    return out
+
+
+def hier_consts64(consts):
+    """A stacked consts' float64 CPU twin, from its own float32 values
+    (the plain schemes the kernels are held to in float64)."""
+    import torch
+
+    from psfmc_tpu_torch.ops.kernels import conv_lnl as CL
+
+    def host(name):
+        return getattr(consts, name).double().cpu().numpy()
+
+    f_psf = host("psf_r") + 1j * host("psf_i")
+    f_var = host("var_r") + 1j * host("var_i")
+    return CL.make_conv_lnl_consts_stack(f_psf, f_var, host("obs"), host("obs_var"),
+                                         consts.good.cpu().numpy(), "cpu", torch.float64)
+
+
+def hier_grad_check(setup, cpu_setups, z, label, strict):
+    """The NUTS potential ``U(z)`` and its gradient on the card against the
+    CPU's float64 (``cpu_setups``: the float64 and the float32 CPU
+    bundles) at the same unconstrained points: per point ``||g - g_cpu||
+    / ||g_cpu||`` within :data:`GRAD_RTOL` (``strict``: at prior draws),
+    else within the larger of it and :data:`HIER_GRAD_PLAIN` times the
+    CPU's float32 gradient's largest error over the same points (where a
+    fit's model meets its data, float32 residuals cancel: the CPU's float32
+    gradient itself reads 1e-3 to 4e-3 from float64 there); U within
+    :data:`MAP_LNP_RTOL`."""
+    import torch
+
+    from psfmc_tpu_torch.models.posterior import value_and_grad
+
+    def potential(s, tr):
+        def u(zz):
+            th, ld = tr.to_constrained(zz)
+            return -(s.hier.differentiable_log_posterior(th) + ld)
+        return u
+
+    cpu64, cpu32 = cpu_setups
+    z = torch.as_tensor(np.asarray(z, np.float64))
+    u, g = value_and_grad(potential(setup, setup.transform()),
+                          z.to(setup.hier.device, torch.float32))
+    u64, g64 = value_and_grad(potential(cpu64, cpu64.transform()), z)
+    u32, g32 = value_and_grad(potential(cpu32, cpu32.transform()), z.float())
+    u, g = u.double().cpu(), g.double().cpu()
+    fin = torch.isfinite(u64) & torch.isfinite(u)
+    rel = ((g - g64).norm(dim=1) / g64.norm(dim=1))[fin]
+    plain = ((g32.double() - g64).norm(dim=1) / g64.norm(dim=1))[fin]
+    tol = GRAD_RTOL if strict else max(GRAD_RTOL, HIER_GRAD_PLAIN * plain.max().item())
+    u_rel = ((u - u64).abs() / u64.abs())[fin]
+    log(f"{label}: the potential's gradient at {len(z)} points ({int(fin.sum())} finite), "
+        f"card float32 against the CPU's float64: max ||g - g_cpu|| / ||g_cpu|| "
+        f"{rel.max().item():.3e} (tol {tol:.3e}" + ("" if strict else
+        f": max({GRAD_RTOL:g}, {HIER_GRAD_PLAIN}x the CPU's float32 error")
+        + f"; the CPU's float32 at most {plain.max().item():.3e}), U max rel err "
+        f"{u_rel.max().item():.3e} (tol {MAP_LNP_RTOL:g})")
+    if fin.sum().item() < 1 or not (rel.max().item() <= tol
+                                    and u_rel.max().item() <= MAP_LNP_RTOL):
+        raise AssertionError(f"{label}: the card's gradient disagrees with the CPU's")
+    return {"grad_rel_err": rel.max().item(), "grad_plain_rel_err": plain.max().item(),
+            "u_rel_err": u_rel.max().item()}
+
+
+def hier_res_equals_backward(label):
+    """Since the counts were set to 0: conv_lnl's residual forwards equal
+    its backwards by route and shape on the ``*_targets`` keys of the FFT
+    and padded routes.  Returns them by route and shape."""
+    from psfmc_tpu_torch.ops.kernels import conv_lnl as CL
+
+    fwd = {(r.replace("_res", ""), s): n
+           for (r, s), n in CL.batched_conv_lnl.shape_launches.items()
+           if r in ("fft_res_targets", "padded_res_targets")}
+    bwd = {(r, s): n for (r, s), n in CL.batched_conv_lnl_backward.shape_launches.items()
+           if r in ("fft_targets", "padded_targets")}
+    if fwd != bwd or not fwd:
+        raise AssertionError(f"{label}: residual forwards {fwd} and backwards {bwd} "
+                             "differ by route and shape")
+    return {f"{r}:{s[0]}x{s[1]}": n for (r, s), n in fwd.items()}
+
+
+def hier_fit(label, model, obs, ivm, counted, cpu_model=None, **kw):
+    """``fit_hierarchical`` with the counts set to 0 just before and read just
+    after, its NUTS or ensemble sampler kept (its replays, pieces, leaves);
+    the result's hyper chain and lnp finite; with ``cpu_model`` the chain's
+    lnpost at :data:`HIER_CPU_ROWS` rows against the CPU's float64 (with the
+    floor of the NUTS phase)."""
+    import torch
+
+    from psfmc_tpu_torch import hierarchy as H
+    from psfmc_tpu_torch.sampler import ensemble as E
+    from psfmc_tpu_torch.sampler import nuts as N
+
+    kept = []
+    inits = {cls: cls.__init__ for cls in (N.NUTSSampler, E.EnsembleSampler)}
+
+    def keeping(cls):
+        def init(self, *a, **k):
+            inits[cls](self, *a, **k)
+            kept.append(self)
+        return init
+
+    for cls in inits:
+        cls.__init__ = keeping(cls)
+    try:
+        torch.cuda.synchronize()
+        reset_counts(counted)
+        t0 = time.perf_counter()
+        res = H.fit_hierarchical(model, obs, ivm, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for cls, init in inits.items():
+            cls.__init__ = init
+    launches, routes = read_counts(counted)
+    (sm,) = kept
+    graphed = sm._graphed
+    replays = sm.graph_replays
+    pieces = sum(getattr(sm, "piece_counts", {}).values()) or None
+    log(f"{label}: fit_hierarchical {wall:.2f} s wall; " + (
+        f"{sm.steps_run} steps, {sm.leaves_run} leaves ({sm.leaves_run / sm.steps_run:.1f} a "
+        f"step), {replays} replays of {pieces} pieces, {sm.captures} captures, "
+        f"divergences {sm.n_divergent}" if pieces else f"{replays} replayed steps")
+        + f"; launched {launches}, conv_lnl's routes "
+        f"{ {k: v for k, v in routes.items() if k.startswith('batched') and v} }; "
+        f"hyper mean {np.array2string(res.hyper_mean, precision=4)}, std "
+        f"{np.array2string(res.hyper_std, precision=4)}")
+    if graphed and pieces is not None and (replays != pieces or sm.captures != len(
+            set(N.WARMUP_PIECES) | set(N.SAMPLE_PIECES))):
+        raise AssertionError(f"{label}: {replays} replays of {pieces} pieces, "
+                             f"{sm.captures} captures")
+    if not (np.all(np.isfinite(res.hyper_chain)) and np.all(np.isfinite(res.lnp))
+            and np.all(np.isfinite(res.target_mean))):
+        raise AssertionError(f"{label}: the result is not finite")
+    out = {"wall_s": wall, "launches": launches, "routes": {
+        k: v for k, v in routes.items() if v}, "hyper_mean": res.hyper_mean.tolist(),
+        "hyper_std": res.hyper_std.tolist(), "diagnostics": res.diagnostics}
+    if pieces is not None:
+        out.update(steps=sm.steps_run, leaves=sm.leaves_run, replays=replays,
+                   captures=sm.captures, leaves_per_step=sm.leaves_run / sm.steps_run)
+    if cpu_model is not None:
+        flat, lnp = sm.flatchain, sm.lnprobability.reshape(-1)
+        pick = np.linspace(0, len(flat) - 1, HIER_CPU_ROWS).astype(int)
+        cpu_setup = H._setup(cpu_model, obs, ivm, kw["population"],
+                             parametrization=kw.get("parametrization", "centered"),
+                             psf_stack=kw.get("psf_stack"),
+                             psfivm_stack=kw.get("psfivm_stack"))
+        lnp64 = cpu_setup.hier.log_posterior_batch(torch.as_tensor(flat[pick])).numpy()
+        scale = np.maximum(np.abs(lnp64),
+                           NUTS_LNP_FLOOR / NUTS_LNP_RTOL * np.abs(lnp64).max())
+        rel = float(np.max(np.abs(lnp[pick] - lnp64) / scale))
+        log(f"{label}: the chain's lnpost at {HIER_CPU_ROWS} rows against the CPU's "
+            f"float64: max rel diff with the floor {rel:.3e} (rtol {NUTS_LNP_RTOL:g})")
+        if not rel <= NUTS_LNP_RTOL:
+            raise AssertionError(f"{label}: the chain's lnpost disagrees with the CPU's")
+        out["lnpost_rel_err"] = rel
+    return res, sm, out
+
+
+def hier_want_launches(label, sm, launches, routes, bands_routes, pool=True):
+    """A NUTS fit's exact launches (``routes``: its launches by route): the
+    pool's lnpost, the start's gradient, one of each kernel and backward
+    kernel per leaf and band, the record's lnpost per retained step; each
+    band's conv_lnl on its route's ``_targets`` keys (residual forwards on
+    the FFT and padded routes)."""
+    n_leaf, n_keep = sm.leaves_run, sm.piece_counts.get("sample_end", 0)
+    nb = len(bands_routes)
+    grad_evals, plain_evals = 1 + n_leaf, int(pool) + n_keep
+    want = {"render_sersics": nb * (grad_evals + plain_evals),
+            "render_sersics_backward": nb * grad_evals,
+            "batched_conv_lnl": nb * (grad_evals + plain_evals),
+            "batched_conv_lnl_backward": nb * grad_evals}
+    want_routes = {}
+    for r in bands_routes:
+        fwd = f"batched_conv_lnl:{r}_targets"
+        if r == "dft":
+            want_routes[fwd] = want_routes.get(fwd, 0) + grad_evals + plain_evals
+        else:
+            want_routes[fwd] = want_routes.get(fwd, 0) + plain_evals
+            res = f"batched_conv_lnl:{r}_res_targets"
+            want_routes[res] = want_routes.get(res, 0) + grad_evals
+        bwd = f"batched_conv_lnl_backward:{r}_targets"
+        want_routes[bwd] = want_routes.get(bwd, 0) + grad_evals
+    got = {k: routes.get(k, 0) for k in want_routes}
+    if launches != want or got != want_routes:
+        raise AssertionError(f"{label}: launched {launches} on {got}, want {want} on "
+                             f"{want_routes}")
+    return dict(launches, **got)
+
+
+def hier_graphed_vs_eager(setup, big, counted, label):
+    """:data:`HIER_EQUAL` warmup and retained NUTS steps of depth
+    :data:`HIER_EQUAL_DEPTH` from the chains at ``big``, as graph replays
+    and eagerly: the states, chains and generators bit for bit, the same
+    launches and pieces."""
+    import torch
+
+    from psfmc_tpu_torch.sampler import nuts as N
+
+    pair = []
+    for eager in (False, True):
+        s = N.NUTSSampler(HIER_CHAINS, setup.hier.spec.num_params, setup.hier,
+                          seed=SEED + 11, max_depth=HIER_EQUAL_DEPTH,
+                          transform=setup.transform(), device=setup.hier.device)
+        reset_counts(counted)
+        with N._eager(s) if eager else contextlib.nullcontext():
+            s.init_state(big)
+            s.run_burn(HIER_EQUAL)
+            s.reset()
+            s.run_sampling(HIER_EQUAL)
+        torch.cuda.synchronize()
+        pair.append((s, read_counts(counted)))
+    (g, g_n), (e, e_n) = pair
+    differs = nuts_state_differs(g, e)
+    log(f"{label}: {HIER_EQUAL} + {HIER_EQUAL} steps graphed ({g.graph_replays} replays, "
+        f"{g.leaves_run} leaves) against eager ({e.graph_replays} replays): "
+        f"{'bit for bit' if not differs else 'differ in ' + str(differs)}; launches "
+        f"{g_n[0]} and {e_n[0]}")
+    if differs or g_n != e_n or g.piece_counts != e.piece_counts or e.graph_replays:
+        raise AssertionError(f"{label}: graphed and eager steps differ")
+    return {"leaves": g.leaves_run, "replays": g.graph_replays, "bit_for_bit": True}
+
+
+def target_grad_rows(nt, per, psf_shape, device, launches):
+    """The residual forward and the backward with the target axis at the
+    hierarchical leaf's batch (``nt`` targets x ``per`` chains) and at
+    :data:`HIER_ROW_WALKERS`: per-target planes on the radix-2 FFT route
+    (the flagship's shape), with per-target spectra there, on the
+    mixed-radix geometry, the padded route and (the backward) the
+    matmul-DFT route.  Each against its plain version (float64 scheme),
+    with its times at both batches, the plain version's, the ``torch.fft``
+    composite's (its lnL and weights; for the backward autograd through
+    it) and its bound at the leaf's batch; ``launches`` by row name."""
+    import torch
+
+    from psfmc_tpu_torch.batchfit import prepare_psf_stack
+    from psfmc_tpu_torch.flagship import flagship_components, prior_draws
+    from psfmc_tpu_torch.models import build_model_spec, build_posterior
+    from psfmc_tpu_torch.ops import convolve, gaussian_lnlike
+    from psfmc_tpu_torch.ops.kernels import _build
+    from psfmc_tpu_torch.ops.kernels import conv_lnl as CL
+
+    rows = []
+    cases = (("targets", FLAGSHIP_SHAPE, psf_shape, False),
+             ("targets_spectra", FLAGSHIP_SHAPE, psf_shape, True),
+             ("targets_mixed", MIXED_SHAPE, MIXED_PSF_SHAPE, False),
+             ("targets_padded", PADDED_SHAPE, PADDED_PSF_SHAPE, False),
+             ("targets_dft", DFT_SHAPE, DFT_PSF_SHAPE, False))
+    for i, (suffix, shape, pshape, spectra) in enumerate(cases):
+        route = CL.conv_route(shape)
+        spec = build_model_spec(flagship_components(shape, pshape))
+        post = build_posterior(spec, device=device, lnpost="batched")
+        big_n = max(HIER_ROW_WALKERS // nt, per) * nt
+        thetas = torch.as_tensor(prior_draws(spec, big_n, seed=3), dtype=torch.float32,
+                                 device=post.device)
+        raws_big = post.raw_and_ps(thetas)[0].contiguous()
+        rng = np.random.RandomState(SEED + 60 + i)
+        obs = np.asarray(spec.obs_data)[None] + rng.randn(nt, *shape) * 0.005
+        var = np.asarray(spec.obs_var)[None] * rng.uniform(0.5, 2.0, (nt, 1, 1))
+        good = rng.rand(nt, *shape) > 0.02
+        if spectra:
+            stars, ivms = psf_stars(nt, pshape, SEED + 61)
+            f = prepare_psf_stack(spec, stars, ivms, dtype=np.float64)
+            f_psf = (f["psf_f_re"] + 1j * f["psf_f_im"])[:, 0]
+            f_var = (f["var_f_re"] + 1j * f["var_f_im"])[:, 0]
+        else:
+            f_psf, f_var = spec.f_psf_stack[0], spec.f_var_stack[0]
+        stack = CL.make_conv_lnl_consts_stack(f_psf, f_var, obs, var, good, post.device)
+        c64 = CL.make_conv_lnl_consts_stack(f_psf, f_var, obs, var, good, "cpu",
+                                            torch.float64)
+        lib = tuple(torch.as_tensor(np.asarray(f)[:, None] if spectra else f,
+                                    dtype=torch.complex64, device=post.device)
+                    for f in (f_psf, f_var))
+        # the leaf's batch: each target's first ``per`` walkers of the big batch
+        leaf_idx = (torch.arange(nt)[:, None] * (big_n // nt) + torch.arange(per)).reshape(-1)
+        batches = {"leaf": raws_big[leaf_idx.to(post.device)].contiguous(), "big": raws_big}
+        b = nt * per
+        h, w = shape
+        n = b * h * w
+        spectra_bytes = 4 * sum(t.numel() for t in (stack.psf_r, stack.psf_i, stack.var_r,
+                                                     stack.var_i))
+        data_bytes = spectra_bytes + 4 * sum(t.numel() for t in (stack.obs, stack.obs_var,
+                                                                  stack.good_f))
+        raws = batches["leaf"]
+        lnl = CL.batched_conv_lnl(raws, stack)
+        grad = torch.as_tensor(rng.uniform(0.5, 2.0, b), dtype=torch.float32,
+                               device=post.device)
+
+        def library_fwd(x):  # the torch.fft formulation of the lnL and the weights
+            xs = x.reshape(nt, -1, h, w)
+            conv = convolve(xs, lib[0])
+            ivm = 1.0 / (convolve(xs * xs, lib[1]) + stack.obs_var[:, None])
+            r = stack.obs[:, None] - conv
+            zero = torch.zeros_like(r)
+            good_ = stack.good[:, None]
+            return (gaussian_lnlike(r, ivm, good_),
+                    torch.where(good_, r * ivm, zero),
+                    torch.where(good_, 0.5 * (r * r * ivm * ivm - ivm), zero))
+
+        residuals = {}
+        if route != "dft":
+            name = f"conv_lnl_res_{suffix}"
+            res, keep, errs = residual_check(raws, stack, c64, lnl,
+                                             f"{name}: at the leaf's B = {b}")
+            residuals["leaf"] = res
+            residuals["big"] = tuple(CL.batched_conv_lnl_residuals(raws_big, stack)[1:])
+            plain = (CL.padded_fft_conv_residuals_plain if route == "padded"
+                     else CL.packed_fft_conv_residuals_plain)
+            bms, by, term = bound(12 * n + data_bytes + 8 * b,
+                                  conv_lnl_ops(b, h, w) + RES_OPS_PER_PIXEL * n)
+            rows.append(dict(
+                name=name, route="cuda", source=_build.source_path("conv_lnl"),
+                replaces="psfmc_tpu/ops/pallas/lnpost_batched.py:191 (its gradient's "
+                         "residuals)", launches=launches.get(name, 0),
+                max_abs_err=errs["max_abs_err"],
+                max_normalized_err=errs["max_normalized_err"],
+                ms=time_ms(lambda: CL.batched_conv_lnl_residuals(raws, stack)),
+                plain_ms=time_ms(lambda: plain(raws, stack)),
+                bound_ms=bms, bound_by=by, bound_term=term,
+                library_ms=time_ms(lambda: library_fwd(raws)),
+                library="torch.fft convolutions, the lnL and the weights",
+                walkers=b, targets=nt, target_spectra=spectra, conv_route=route,
+                geometry=fft_geometry(shape),
+                ms_608=time_ms(lambda: CL.batched_conv_lnl_residuals(raws_big, stack)),
+                walkers_608=big_n))
+        name = f"conv_lnl_backward_{suffix}"
+        got = CL.batched_conv_lnl_backward(raws, stack, lnl, grad, residuals.get("leaf"))
+        same_nonfinite(got, CL.batched_conv_lnl_backward_plain(raws, stack, lnl, grad))
+        want = CL.batched_conv_lnl_backward_plain(
+            raws.double().cpu(), c64, lnl.double().cpu(), grad.double().cpu()
+        ).to(post.device)
+        keep = torch.isfinite(lnl)
+        err = normalized_err(got[keep], want[keep], dims=(1, 2))
+        log(f"{name}: {nt} targets x {per} at {h}x{w} ({route} route"
+            f"{', per-target spectra' if spectra else ''}): max normalized err {err:.3e} "
+            f"(tol {CONV_BWD_TOL:g}), walkers compared {int(keep.sum())}")
+        if not (err <= CONV_BWD_TOL and keep.sum().item() >= b // 2):
+            raise AssertionError(f"{name} disagrees with its plain version")
+        lnl_big = CL.batched_conv_lnl(raws_big, stack)
+        grad_big = torch.ones_like(lnl_big)
+
+        def library_bwd():  # autograd through the torch.fft formulation
+            x = raws.detach().requires_grad_(True)
+            with torch.enable_grad():
+                return torch.autograd.grad(library_fwd(x)[0].reshape(b), x, grad)[0]
+
+        if route != "dft":
+            bms, by, term = bound(16 * n + spectra_bytes + 12 * b,
+                                  b * 2 * fft_conv_ops(h, w) + BWD_COMBINE_OPS_PER_PIXEL * n)
+        else:
+            bms, by, term = bound(8 * raws.numel() + data_bytes + 8 * b,
+                                  2 * conv_lnl_ops(b, h, w) + 12 * n)
+        rows.append(dict(
+            name=name, route="cuda", source=_build.source_path("conv_lnl_backward"),
+            replaces="psfmc_tpu/ops/pallas/lnpost_batched.py:191 (its gradient)",
+            launches=launches.get(name, 0),
+            max_abs_err=(got[keep].double() - want[keep]).abs().max().item(),
+            max_normalized_err=err,
+            ms=time_ms(lambda: CL.batched_conv_lnl_backward(raws, stack, lnl, grad,
+                                                            residuals.get("leaf"))),
+            plain_ms=time_ms(lambda: CL.batched_conv_lnl_backward_plain(raws, stack, lnl,
+                                                                        grad)),
+            bound_ms=bms, bound_by=by, bound_term=term, library_ms=time_ms(library_bwd),
+            library="torch.autograd through torch.fft convolutions of the forward",
+            walkers=b, targets=nt, target_spectra=spectra, conv_route=route,
+            geometry=fft_geometry(shape),
+            ms_608=time_ms(lambda: CL.batched_conv_lnl_backward(
+                raws_big, stack, lnl_big, grad_big, residuals.get("big"))),
+            walkers_608=big_n))
+    for r in rows:
+        log(f"{r['name']}: {r['ms']:.4f} ms at {r['walkers']} walkers ({r['ms_608']:.4f} ms "
+            f"at {r['walkers_608']}), plain {r['plain_ms']:.4f} ms, {r['library']} "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms by {r['bound_by']} "
+            f"({r['bound_term']}), {r['ms'] / r['bound_ms']:.1f}x the bound ({CARD})")
+    return rows
+
+
+def hierarchy_phase(shape=None, psf_shape=(64, 64), device=None):
+    """Hierarchical fits on the card (the arguments shrink it for a
+    rehearsal on the CPU).  (a) ``fit_hierarchical`` on
+    :data:`HIER_TARGETS` flagship mocks (``simulate_stack``, seed 1) with a
+    ``NormalPopulation`` on the first Sersic's index, NUTS with
+    :data:`HIER_CHAINS` chains, a pool of :data:`HIER_POOL` a chain, depth
+    :data:`HIER_DEPTH`, 20 + 20 steps, centred and then non-centred; (b)
+    survey mode, :data:`HIER_SURVEY_TARGETS` targets each with its own
+    Gaussian PSF star; (c) the joint flagship at
+    :data:`HIER_JOINT_TARGETS` targets with band 1 at 96x96, 74x74 and
+    94x94 (the mixed-radix, padded and matmul-DFT routes); (d) the
+    ensemble path at :data:`HIER_ENSEMBLE_TARGETS` targets, graphed
+    against eager; (e) ``loo_targets`` on (a).  For the NUTS fits: every
+    piece a replay, the launches exact (residual forwards equal backwards
+    by route and shape on the ``_targets`` keys), the result finite, the
+    chain's lnpost against the CPU's float64, the kernels against their
+    plain versions at the leaf's batch, the potential's gradient against
+    the CPU's float64; (a) also graphed against eager over a few leaves.
+    Then the rows of the residual forward and the backward with the target
+    axis (:func:`target_grad_rows`).  Returns the rows, the render's
+    launches, the numbers and the checks."""
+    import torch
+
+    from psfmc_tpu_torch import batchfit as BF
+    from psfmc_tpu_torch import hierarchy as H
+    from psfmc_tpu_torch.flagship import joint_components, write_flagship_files
+    from psfmc_tpu_torch.models import JointModel, as_model
+    from psfmc_tpu_torch.ops.kernels.conv_lnl import conv_route
+
+    shape = FLAGSHIP_SHAPE if shape is None else shape
+    counted = grad_kernels()
+    t_phase = time.perf_counter()
+    out, checks = {}, {}
+    row_launches = {}
+    render_launches = {"render_sersics": 0, "render_sersics_backward": 0}
+    env = {k: os.environ.pop(k) for k in ("PSFMC_LNPOST", "PSFMC_RENDER", "PSFMC_KAPPA")
+           if k in os.environ}
+
+    def add_launches(fit_out, suffix_by_key):
+        for k in render_launches:
+            render_launches[k] += fit_out["launches"][k]
+        for key, row in suffix_by_key.items():
+            row_launches[row] = row_launches.get(row, 0) + fit_out["routes"].get(key, 0)
+
+    def nuts_checks(label, setup, cpu_setups, sm):
+        last = torch.as_tensor(sm.chain[:, -1])  # each chain's last retained row
+        drawn = setup.transform().to_unconstrained(
+            setup.draw(HIER_CHAINS, np.random.RandomState(SEED + 70)))
+        checks[label] = {
+            "kernels": hier_kernel_check(setup, last, label),
+            "at_prior_draws": hier_grad_check(setup, cpu_setups, drawn,
+                                              f"{label}, at prior draws", True),
+            "at_the_end": hier_grad_check(setup, cpu_setups, sm.state.z.double().cpu(),
+                                          f"{label}, where the fit ended", False)}
+
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            model = as_model(write_flagship_files(tmp, shape, psf_shape), device=device)
+            cpu = as_model(os.path.join(tmp, "model.py"), device="cpu", dtype=torch.float64)
+            cpu32 = as_model(os.path.join(tmp, "model.py"), device="cpu")
+        dev = model.posterior_fns.device
+        graphed = dev.type == "cuda"
+        obs, ivm, _ = BF.simulate_stack(model, HIER_TARGETS, seed=1)
+
+        # (a) the flagship catalog, centred then non-centred: the main path
+        fits = {}
+        for par in ("centered", "noncentered"):
+            label = f"hierarchy, {HIER_TARGETS} flagship targets, {par}"
+            kw = dict(population=hier_population(), sampler="nuts", chains=HIER_CHAINS,
+                      init_pool=HIER_POOL, max_depth=HIER_DEPTH, burn=HIER_BURN,
+                      iterations=HIER_SAMPLE, seed=SEED, parametrization=par)
+            res, sm, fit_out = hier_fit(label, model, obs, ivm, counted, cpu, **kw)
+            fit_out["launches_by_route"] = hier_want_launches(
+                label, sm, fit_out["launches"], fit_out["routes"], ["fft"])
+            fit_out["res_equals_backward"] = hier_res_equals_backward(label)
+            add_launches(fit_out, {"batched_conv_lnl:fft_res_targets": "conv_lnl_res_targets",
+                                   "batched_conv_lnl_backward:fft_targets":
+                                       "conv_lnl_backward_targets"})
+            setup = H._setup(model, obs, ivm, kw["population"], parametrization=par)
+            cpu_setups = [H._setup(m, obs, ivm, kw["population"], parametrization=par)
+                          for m in (cpu, cpu32)]
+            nuts_checks(label, setup, cpu_setups, sm)
+            if par == "centered":
+                checks[label]["graphed_vs_eager"] = hier_graphed_vs_eager(
+                    setup, sm.chain[:, -1], counted, label)
+                fits[par] = (res, sm)
+                if graphed:  # the leaf, the pieces, the idle share (CUDA events, profiler)
+                    log(f"{label}: the times below at {HIER_CHAINS} chains x {HIER_TARGETS} "
+                        f"targets = {HIER_CHAINS * HIER_TARGETS} walkers a leaf")
+                    fit_out.update(nuts_times(sm))
+            out[par] = fit_out
+
+        # (e) leave-one-target-out on (a)'s centred fit
+        res_a = fits["centered"][0]
+        reset_counts(counted)
+        t0 = time.perf_counter()
+        loo = H.loo_targets(model, obs, ivm, res_a)
+        ll = H.target_loglike(model, obs, ivm, res_a)
+        torch.cuda.synchronize()
+        loo_wall = time.perf_counter() - t0
+        launches, routes = read_counts(counted)
+        want = {"render_sersics": 2, "render_sersics_backward": 0, "batched_conv_lnl": 2,
+                "batched_conv_lnl_backward": 0}
+        if launches != want or routes["batched_conv_lnl:fft_targets"] != 2:
+            raise AssertionError(f"hierarchy, loo: launched {launches} {routes}")
+        cpu_ll = H.target_loglike(cpu, obs, ivm, res_a.flatchain[:2])
+        _, ll_rel, _ = compare(torch.as_tensor(ll[:2]), torch.as_tensor(cpu_ll))
+        log(f"hierarchy, loo_targets on (a): elpd {loo.elpd:.3f} +/- {loo.se:.3f}, p_eff "
+            f"{loo.p_eff:.3f}, Pareto k max {np.max(loo.pareto_k):.3f}; the replay "
+            f"{ll.shape} in {loo_wall:.2f} s (two calls), two draws against the CPU's "
+            f"float64: max rel err {ll_rel:.3e} (tol {SLICE_RTOL:g})")
+        if not (np.isfinite(loo.elpd) and loo.n_points == HIER_TARGETS
+                and ll_rel <= SLICE_RTOL and np.all(np.isfinite(ll))):
+            raise AssertionError("hierarchy, loo: not finite or disagrees with the CPU")
+        setup = H._setup(model, obs, ivm, hier_population())
+        per = res_a.flatchain[:, : setup.k * setup.d].reshape(-1, setup.k, setup.d)
+        rows_ll = H._target_major(per, torch.float32, dev)  # the replay's one batch
+        band = setup.hier._bands[0]
+        checks["loo"] = batch_kernel_check(band["fns"], rows_ll, "hierarchy, loo replay",
+                                           band["obs"])
+        out["loo"] = {"elpd": loo.elpd, "se": loo.se, "p_eff": loo.p_eff,
+                      "pareto_k_max": float(np.max(loo.pareto_k)), "wall_s": loo_wall}
+        render_launches["render_sersics"] += launches["render_sersics"]
+
+        # (b) survey mode: a Gaussian PSF star per target
+        stars, star_ivms = psf_stars(HIER_SURVEY_TARGETS, psf_shape, SEED + 43)
+        sobs, sivm = obs[:HIER_SURVEY_TARGETS], ivm[:HIER_SURVEY_TARGETS]
+        label = f"hierarchy, survey, {HIER_SURVEY_TARGETS} targets"
+        kw = dict(population=hier_population(), chains=HIER_CHAINS, init_pool=4,
+                  max_depth=HIER_SURVEY_DEPTH, burn=HIER_SURVEY_STEPS,
+                  iterations=HIER_SURVEY_STEPS, seed=SEED + 1, psf_stack=stars,
+                  psfivm_stack=star_ivms)
+        _, sm, fit_out = hier_fit(label, model, sobs, sivm, counted, cpu, **kw)
+        hier_want_launches(label, sm, fit_out["launches"], fit_out["routes"], ["fft"])
+        fit_out["res_equals_backward"] = hier_res_equals_backward(label)
+        add_launches(fit_out, {"batched_conv_lnl:fft_res_targets":
+                               "conv_lnl_res_targets_spectra",
+                               "batched_conv_lnl_backward:fft_targets":
+                                   "conv_lnl_backward_targets_spectra"})
+        setup = H._setup(model, sobs, sivm, kw["population"], psf_stack=stars,
+                         psfivm_stack=star_ivms)
+        if not setup.hier._bands[0]["obs"].consts.target_spectra:
+            raise AssertionError(f"{label}: the stack has no per-target spectra")
+        cpu_setups = [H._setup(m, sobs, sivm, kw["population"], psf_stack=stars,
+                               psfivm_stack=star_ivms) for m in (cpu, cpu32)]
+        nuts_checks(label, setup, cpu_setups, sm)
+        out["survey"] = fit_out
+
+        # (c) the joint flagship, band 1 on each route
+        for band1 in HIER_JOINT_BAND1:
+            shapes = (shape, band1)
+            joint = JointModel(joint_components(shapes, psf_shape), device=dev)
+            cpu_joint = JointModel(joint_components(shapes, psf_shape), device="cpu",
+                                   dtype=torch.float64)
+            cpu_joint32 = JointModel(joint_components(shapes, psf_shape), device="cpu")
+            jobs, jivm, _ = BF.simulate_stack(joint, HIER_JOINT_TARGETS, seed=4)
+            label = f"hierarchy, joint, band 1 at {band1[0]}x{band1[1]}"
+            kw = dict(population=hier_population(), chains=HIER_CHAINS, init_pool=4,
+                      max_depth=HIER_JOINT_DEPTH, burn=HIER_JOINT_STEPS,
+                      iterations=HIER_JOINT_STEPS, seed=SEED + 2)
+            _, sm, fit_out = hier_fit(label, joint, jobs, jivm, counted, cpu_joint, **kw)
+            band_routes = [conv_route(s) for s in shapes]
+            hier_want_launches(label, sm, fit_out["launches"], fit_out["routes"], band_routes)
+            fit_out["res_equals_backward"] = hier_res_equals_backward(label)
+            geo = fft_geometry(band1)
+            suffix = "mixed" if geo == "mixed" else band_routes[1]
+            r1 = band_routes[1]
+            key_geo = f":{geo}" if geo in MIXED_GEOMETRIES else ""
+            if r1 != "dft":
+                row_launches[f"conv_lnl_res_targets_{suffix}"] = row_launches.get(
+                    f"conv_lnl_res_targets_{suffix}", 0) + fit_out["routes"].get(
+                    f"batched_conv_lnl:{r1}_res_targets{key_geo}", 0)
+            row_launches[f"conv_lnl_backward_targets_{suffix}"] = row_launches.get(
+                f"conv_lnl_backward_targets_{suffix}", 0) + fit_out["routes"].get(
+                f"batched_conv_lnl_backward:{r1}_targets{key_geo}", 0)
+            # band 0 (the flagship's 128x128) on the radix-2 rows
+            for row, key in (("conv_lnl_res_targets", "batched_conv_lnl:fft_res_targets"),
+                             ("conv_lnl_backward_targets",
+                              "batched_conv_lnl_backward:fft_targets")):
+                n = fit_out["routes"].get(key, 0)
+                if r1 == "fft":
+                    n -= fit_out["routes"].get(f"{key}{key_geo}", 0)
+                row_launches[row] = row_launches.get(row, 0) + n
+            for k in render_launches:
+                render_launches[k] += fit_out["launches"][k]
+            setup = H._setup(joint, jobs, jivm, kw["population"])
+            cpu_setups = [H._setup(m, jobs, jivm, kw["population"])
+                          for m in (cpu_joint, cpu_joint32)]
+            nuts_checks(label, setup, cpu_setups, sm)
+            if band_routes[1] == "dft":  # the matmul-DFT backward inside the graphs
+                checks[label]["graphed_vs_eager"] = hier_graphed_vs_eager(
+                    setup, sm.chain[:, -1], counted, label)
+            out[f"joint_{band1[0]}"] = fit_out
+
+        # (d) the ensemble path, graphed against eager
+        from psfmc_tpu_torch.sampler import ensemble as E
+
+        eobs, eivm = obs[:HIER_ENSEMBLE_TARGETS], ivm[:HIER_ENSEMBLE_TARGETS]
+        kw = dict(population=hier_population(), sampler="ensemble",
+                  burn=HIER_ENSEMBLE_STEPS, iterations=HIER_ENSEMBLE_STEPS, seed=SEED + 3)
+        ens = []
+        for eager in (False, True):
+            init = E.EnsembleSampler.__init__
+
+            def eager_init(self, *a, **k):
+                init(self, *a, **k)
+                self._graphed = False
+
+            if eager:
+                E.EnsembleSampler.__init__ = eager_init
+            try:
+                ens.append(hier_fit(f"hierarchy, ensemble, {HIER_ENSEMBLE_TARGETS} targets"
+                                    + (", eager" if eager else ""), model, eobs, eivm,
+                                    counted, **kw))
+            finally:
+                E.EnsembleSampler.__init__ = init
+        (res_g, sm_g, fit_g), (res_e, sm_e, fit_e) = ens
+        same = [same_bits(torch.as_tensor(getattr(res_g, f)), torch.as_tensor(getattr(res_e, f)))
+                for f in ("flatchain", "lnp")]
+        nw = sm_g.nwalkers
+        evals = 1 + 2 * 2 * HIER_ENSEMBLE_STEPS
+        want = {"render_sersics": evals, "render_sersics_backward": 0,
+                "batched_conv_lnl": evals, "batched_conv_lnl_backward": 0}
+        log(f"hierarchy, ensemble: {nw} walkers ({nw // 2 * HIER_ENSEMBLE_TARGETS} a "
+            f"half-step launch), graphed against eager bit for bit {same}; launches "
+            f"{fit_g['launches']} and {fit_e['launches']}")
+        if not all(same) or fit_g["launches"] != want or fit_e["launches"] != want or (
+                graphed and sm_g.graph_replays != 2 * HIER_ENSEMBLE_STEPS):
+            raise AssertionError("hierarchy, ensemble: graphed and eager fits differ, or "
+                                 f"the launches are not {want}")
+        esetup = H._setup(model, eobs, eivm, kw["population"])
+        checks["ensemble"] = hier_kernel_check(
+            esetup, torch.as_tensor(sm_g.chain[: nw // 2, -1]), "hierarchy, ensemble")
+        render_launches["render_sersics"] += fit_g["launches"]["render_sersics"]
+        out["ensemble"] = dict(fit_g, eager_wall_s=fit_e["wall_s"])
+
+        # the rows: the residual forward and the backward with the target axis
+        rows = target_grad_rows(HIER_TARGETS, HIER_CHAINS, psf_shape, dev, row_launches)
+    finally:
+        os.environ.update(env)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"hierarchy: the phase took {out['wall_s']:.1f} s ({CARD})")
+    return {"rows": rows, "render_launches": render_launches, "out": out,
+            "kernel_checks": checks, "row_launches": row_launches}
+
+
 def run_phase(name, fn, *args, **kwargs):
     """Run one phase, then synchronize the card, so that an asynchronous
     CUDA error raised by the phase's launches names this phase before it
@@ -5304,7 +6016,7 @@ def nuts_kernel_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
 # the phases ``--only`` runs (after the build), each by its name
 ONLY_PHASES = {"nuts": lambda: nuts_phase(), "criticism": lambda: criticism_phase(),
                "nuts-kernels": lambda: nuts_kernel_phase(),
-               "batch": lambda: batch_phase()}
+               "batch": lambda: batch_phase(), "hierarchy": lambda: hierarchy_phase()}
 
 
 def main():
@@ -5378,8 +6090,10 @@ def main():
     nuts = run_phase("nuts", nuts_phase)
     crit = run_phase("criticism", criticism_phase)
     batch = run_phase("batch", batch_phase)
+    hier = run_phase("hierarchy", hierarchy_phase)
     rows += run_phase("backward rows", backward_rows, post, spec)
     rows += batch["rows"]
+    rows += hier["rows"]
     from psfmc_tpu_torch.sampler import EnsembleSampler
 
     fused = EnsembleSampler(NWALKERS, spec.num_params, mc.posterior_fns,
@@ -5504,6 +6218,12 @@ def main():
     # phase counts each row's launches on its own fits)
     by_name["sersic_render"] += batch["render_launches"]
     by_name.update({r["name"]: r["launches"] for r in batch["rows"]})
+    # the hierarchy phase (18): the render and its backward on every
+    # hierarchical fit and replay, conv_lnl's residual forward and backward
+    # with the target axis on each route (each row's launches on its fits)
+    by_name["sersic_render"] += hier["render_launches"]["render_sersics"]
+    by_name["sersic_render_backward"] += hier["render_launches"]["render_sersics_backward"]
+    by_name.update({r["name"]: r["launches"] for r in hier["rows"]})
     for r in rows:
         r["launches"] = by_name[r["name"]]
         if r["name"] in ("sersic_render", "fused_lnl", "conv_lnl", "conv_lnl_mixed"):
@@ -5540,6 +6260,8 @@ def main():
                                   for k in ("single", "joint")},
                     "card": identity}, default=float))
     log(json.dumps({"batch": batch["out"], "card": identity}, default=float))
+    log(json.dumps({"hierarchy": hier["out"], "checks": hier["kernel_checks"],
+                    "card": identity}, default=float))
     log(json.dumps({"kernels": rows, "card": identity}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

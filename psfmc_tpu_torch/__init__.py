@@ -11,10 +11,11 @@ host without CUDA they raise instead of falling back.  On the CPU every
 kernel wrapper uses its plain PyTorch version; on CUDA only the
 hand-written kernels in ``csrc/`` run (built with ``nvcc`` at first use).
 """
-from . import (analysis, batchfit, database, distributions, io, model_parser, models, ops,
-               optimize, sampler)
+from . import (analysis, batchfit, database, distributions, hierarchy, io, model_parser,
+               models, ops, optimize, sampler)
 from ._device import resolve_device
 from .batchfit import fit_batch, simulate_stack
+from .hierarchy import fit_hierarchical
 from .database import get_sampler_state, load_database
 from .fitting import model_galaxy_evidence, model_galaxy_map, model_galaxy_mcmc
 from .models import MultiComponentModel, UnconstrainingTransform, build_transform
@@ -30,6 +31,8 @@ __all__ = [
     "batchfit",
     "database",
     "fit_batch",
+    "fit_hierarchical",
+    "hierarchy",
     "simulate_stack",
     "model_parser",
     "model_galaxy_mcmc",

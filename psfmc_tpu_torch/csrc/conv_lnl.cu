@@ -32,8 +32,9 @@
 // runs fft_conv.cuh on it: both convolutions as one complex FFT pair, then
 // the lnL readout; radix-2 stages when both sides are powers of two,
 // radix-2, -3, -5 and -7 stages otherwise.  No global scratch; the only write
-// is the walker's lnL.  A second instantiation (conv_lnl_fft_residuals_
-// launch, taken only by the forward of conv_lnl's autograd Function) also
+// is the walker's lnL.  A second instantiation of the same kernel
+// (RESID; conv_lnl_fft_residuals_launch, taken only by the forward of
+// conv_lnl's autograd Function) also
 // writes what its backward (conv_lnl_backward.cu) reads instead of
 // recomputing the pair: the two likelihood weights per pixel (a float2,
 // 8 bytes a pixel) and the walker's scale exponent; the same lnL bits.
@@ -80,8 +81,9 @@
 // targets' half-spectrum planes and one variance gain per target.  On the
 // matmul-DFT route the spectra are GEMM operands and stay shared (the
 // wrapper sends a batch with per-target spectra there to the general
-// path).  The residual instantiations and the backward kernels are shared
-// only.  A stride costs one division per block.
+// path).  The residual instantiations take the same arguments, and the
+// backward kernels (conv_lnl_backward.cu) the target axis too.  A stride
+// costs one division per block.
 //
 // Numerics: no --use_fast_math and no __logf: logf and the division are
 // IEEE-accurate.
@@ -172,14 +174,16 @@ namespace fc = psfmc::fftconv;
 
 // FFT route: one block per walker, the whole likelihood in one launch, on
 // the power-of-two geometry or the mixed-radix one; walker b against the
-// spectra and data of target b / per_target.
-template <bool MIXED>
+// spectra and data of target b / per_target.  With RESID (the residual
+// instantiation) it also writes weights (B, H, W) float2 and scale_exp (B,).
+template <bool MIXED, bool RESID>
 __global__ void __launch_bounds__(fc::kThreads, 1)
 conv_lnl_fft_kernel(const float* __restrict__ raws, int h, int w,
                     const float2* __restrict__ twiddle, int tw_log2,
                     const int* __restrict__ layout, fc::Spectra ks, fc::Data ds,
                     int per_target, size_t data_stride, size_t spectra_stride,
-                    float* __restrict__ out) {
+                    float* __restrict__ out, float2* __restrict__ weights,
+                    int* __restrict__ scale_exp) {
   extern __shared__ __align__(16) unsigned char smem[];
   float2* z = reinterpret_cast<float2*>(smem);
   float2* tw = z + h * fc::pitch(w);
@@ -187,46 +191,22 @@ conv_lnl_fft_kernel(const float* __restrict__ raws, int h, int w,
   const int t = blockIdx.x / per_target;
   const fc::Spectra k = fc::target_spectra(ks, t, spectra_stride);
   const fc::Data d = fc::target_data(ds, t, data_stride);
+  float2* wts = RESID ? weights + (size_t)blockIdx.x * h * w : nullptr;
+  int* se = RESID ? scale_exp + blockIdx.x : nullptr;
   PSFMC_STAMP(0);
   if constexpr (MIXED) {
     const fc::MixedGeom g = fc::load_mixed(tw, twiddle, layout, h, w);
     const float mx = fc::load_image(z, g, raw);
     PSFMC_STAMP(1);
-    fc::convolve_and_reduce(z, g, mx, k, d, out + blockIdx.x);
+    fc::convolve_and_reduce<fc::MixedGeom, RESID>(z, g, mx, k, d, out + blockIdx.x,
+                                                  wts, se);
   } else {
     fc::load_twiddles(tw, twiddle, tw_log2);
     const fc::Pow2Geom g(h, w, tw, tw_log2);
     const float mx = fc::load_image(z, g, raw);
     PSFMC_STAMP(1);
-    fc::convolve_and_reduce(z, g, mx, k, d, out + blockIdx.x);
-  }
-}
-
-// The same with the residuals: weights (B, H, W) float2 and scale_exp (B,).
-template <bool MIXED>
-__global__ void __launch_bounds__(fc::kThreads, 1)
-conv_lnl_fft_residuals_kernel(const float* __restrict__ raws, int h, int w,
-                              const float2* __restrict__ twiddle, int tw_log2,
-                              const int* __restrict__ layout, fc::Spectra k,
-                              fc::Data d, float* __restrict__ out,
-                              float2* __restrict__ weights,
-                              int* __restrict__ scale_exp) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float2* z = reinterpret_cast<float2*>(smem);
-  float2* tw = z + h * fc::pitch(w);
-  const float* raw = raws + (size_t)blockIdx.x * h * w;
-  float2* wts = weights + (size_t)blockIdx.x * h * w;
-  if constexpr (MIXED) {
-    const fc::MixedGeom g = fc::load_mixed(tw, twiddle, layout, h, w);
-    const float mx = fc::load_image(z, g, raw);
-    fc::convolve_and_reduce<fc::MixedGeom, true>(z, g, mx, k, d, out + blockIdx.x,
-                                                 wts, scale_exp + blockIdx.x);
-  } else {
-    fc::load_twiddles(tw, twiddle, tw_log2);
-    const fc::Pow2Geom g(h, w, tw, tw_log2);
-    const float mx = fc::load_image(z, g, raw);
-    fc::convolve_and_reduce<fc::Pow2Geom, true>(z, g, mx, k, d, out + blockIdx.x,
-                                                wts, scale_exp + blockIdx.x);
+    fc::convolve_and_reduce<fc::Pow2Geom, RESID>(z, g, mx, k, d, out + blockIdx.x,
+                                                 wts, se);
   }
 }
 
@@ -303,16 +283,17 @@ extern "C" int conv_lnl_fft_launch(
   if (batch <= 0) return 0;
   if (per_target < 1 || data_stride < 0 || spectra_stride < 0)
     return (int)cudaErrorInvalidValue;
-  auto kernel = &conv_lnl_fft_kernel<false>;
+  auto kernel = &conv_lnl_fft_kernel<false, false>;
   size_t smem;
   int tw_log2;
-  if (int err = prepare_fft(&conv_lnl_fft_kernel<false>, &conv_lnl_fft_kernel<true>,
-                            h, w, &kernel, &smem, &tw_log2))
+  if (int err = prepare_fft(&conv_lnl_fft_kernel<false, false>,
+                            &conv_lnl_fft_kernel<true, false>, h, w, &kernel, &smem,
+                            &tw_log2))
     return err;
   kernel<<<batch, fc::kThreads, smem, (cudaStream_t)stream>>>(
       raws, h, w, reinterpret_cast<const float2*>(twiddle), tw_log2, layout,
       fc::Spectra{psf_r, psf_i, var_r, var_i, var_gain}, fc::Data{obs, obs_var, good},
-      per_target, (size_t)data_stride, (size_t)spectra_stride, out);
+      per_target, (size_t)data_stride, (size_t)spectra_stride, out, nullptr, nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -321,23 +302,27 @@ extern "C" int conv_lnl_fft_launch(
 // weights, (B, H, W, 2) float32 (a, c per pixel), and scale_exp, (B,)
 // int32.  Launches on `stream` and returns as conv_lnl_fft_launch.
 extern "C" int conv_lnl_fft_residuals_launch(
-    const float* raws, int batch, int h, int w, const float* twiddle,
+    const float* raws, int batch, int h, int w, int per_target,
+    int data_stride, int spectra_stride, const float* twiddle,
     const int* layout, const float* var_gain, const float* psf_r,
     const float* psf_i, const float* var_r, const float* var_i,
     const float* obs, const float* obs_var, const float* good,
     float* out, float* weights, int* scale_exp, void* stream) {
   if (batch <= 0) return 0;
-  auto kernel = &conv_lnl_fft_residuals_kernel<false>;
+  if (per_target < 1 || data_stride < 0 || spectra_stride < 0)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = &conv_lnl_fft_kernel<false, true>;
   size_t smem;
   int tw_log2;
-  if (int err = prepare_fft(&conv_lnl_fft_residuals_kernel<false>,
-                            &conv_lnl_fft_residuals_kernel<true>, h, w, &kernel,
-                            &smem, &tw_log2))
+  if (int err = prepare_fft(&conv_lnl_fft_kernel<false, true>,
+                            &conv_lnl_fft_kernel<true, true>, h, w, &kernel, &smem,
+                            &tw_log2))
     return err;
   kernel<<<batch, fc::kThreads, smem, (cudaStream_t)stream>>>(
       raws, h, w, reinterpret_cast<const float2*>(twiddle), tw_log2, layout,
       fc::Spectra{psf_r, psf_i, var_r, var_i, var_gain}, fc::Data{obs, obs_var, good},
-      out, reinterpret_cast<float2*>(weights), scale_exp);
+      per_target, (size_t)data_stride, (size_t)spectra_stride, out,
+      reinterpret_cast<float2*>(weights), scale_exp);
   return (int)cudaGetLastError();
 }
 
@@ -381,14 +366,16 @@ extern "C" int conv_lnl_padded_launch(
 // conv_lnl_padded_launch's arguments, then weights, (B, H, W, 2) float32,
 // and scale_exp, (B,) int32, as conv_lnl_fft_residuals_launch writes them.
 extern "C" int conv_lnl_padded_residuals_launch(
-    const float* raws, int batch, int h, int w, int mh, int mw,
-    const float* twiddle, const int* layout, const float* var_gain,
-    const float* psf_r, const float* psf_i, const float* var_r,
-    const float* var_i, const float* obs, const float* obs_var,
-    const float* good, float* out, float* weights, int* scale_exp,
-    void* stream) {
+    const float* raws, int batch, int h, int w, int mh, int mw, int per_target,
+    int data_stride, int spectra_stride, const float* twiddle,
+    const int* layout, const float* var_gain, const float* psf_r,
+    const float* psf_i, const float* var_r, const float* var_i,
+    const float* obs, const float* obs_var, const float* good, float* out,
+    float* weights, int* scale_exp, void* stream) {
   if (batch <= 0) return 0;
   if (!fc::padded_plan(h, w, mh, mw)) return (int)cudaErrorInvalidValue;
+  if (per_target < 1 || data_stride < 0 || spectra_stride < 0)
+    return (int)cudaErrorInvalidValue;
   auto kernel = &conv_lnl_padded_kernel<false, true>;
   size_t smem;
   int tw_log2;
@@ -399,7 +386,7 @@ extern "C" int conv_lnl_padded_residuals_launch(
   kernel<<<batch, fc::kThreads, smem, (cudaStream_t)stream>>>(
       raws, h, w, mh, mw, reinterpret_cast<const float2*>(twiddle), tw_log2,
       layout, fc::Spectra{psf_r, psf_i, var_r, var_i, var_gain},
-      fc::Data{obs, obs_var, good}, 1, 0, 0, out, reinterpret_cast<float2*>(weights),
-      scale_exp);
+      fc::Data{obs, obs_var, good}, per_target, (size_t)data_stride,
+      (size_t)spectra_stride, out, reinterpret_cast<float2*>(weights), scale_exp);
   return (int)cudaGetLastError();
 }

@@ -72,6 +72,13 @@
 // Numerics: true fp32, no --use_fast_math, no tensor cores; the divisions
 // and logf are IEEE-accurate.  No atomics: every launch gives the same
 // bits.
+//
+// Targets (the hierarchical fit, psfmc_tpu_torch/hierarchy.py): as in the
+// forward, walker b belongs to target b / per_target.  On the FFT and
+// padded routes the target's planes are already inside the forward's
+// weights, so the backward reads only that target's spectra and variance
+// gain (spectra_stride floats apart, 0: shared); on the matmul-DFT route the
+// weights kernel reads the target's obs, obs_var and good (data_stride).
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -150,7 +157,8 @@ template <bool MIXED>
 __global__ void __launch_bounds__(fc::kThreads, 1)
 conv_lnl_fft_backward_kernel(const float* __restrict__ raws, int h, int w,
                              const float2* __restrict__ twiddle, int tw_log2,
-                             const int* __restrict__ layout, fc::Spectra kc,
+                             const int* __restrict__ layout, fc::Spectra kcs,
+                             int per_target, size_t spectra_stride,
                              const float2* __restrict__ weights,
                              const int* __restrict__ scale_exp,
                              const float* __restrict__ lnl,
@@ -169,6 +177,8 @@ conv_lnl_fft_backward_kernel(const float* __restrict__ raws, int h, int w,
   }
   const float gb = __ldg(grad + blockIdx.x);
   const int se = __ldg(scale_exp + blockIdx.x);
+  const fc::Spectra kc =
+      fc::target_spectra(kcs, blockIdx.x / per_target, spectra_stride);
   if constexpr (MIXED) {
     copy_weights(z, fc::MixedGeom(h, w, tw, nullptr), wts);  // shifted() reads no table
     const fc::MixedGeom g = fc::load_mixed(tw, twiddle, layout, h, w);
@@ -191,7 +201,9 @@ __global__ void __launch_bounds__(fc::kThreads, 1)
 conv_lnl_padded_backward_kernel(const float* __restrict__ raws, int h, int w,
                                 int mh, int mw, const float2* __restrict__ twiddle,
                                 int tw_log2, const int* __restrict__ layout,
-                                fc::Spectra kc, const float2* __restrict__ weights,
+                                fc::Spectra kcs, int per_target,
+                                size_t spectra_stride,
+                                const float2* __restrict__ weights,
                                 const int* __restrict__ scale_exp,
                                 const float* __restrict__ lnl,
                                 const float* __restrict__ grad,
@@ -209,6 +221,8 @@ conv_lnl_padded_backward_kernel(const float* __restrict__ raws, int h, int w,
   }
   const float gb = __ldg(grad + blockIdx.x);
   const int se = __ldg(scale_exp + blockIdx.x);
+  const fc::Spectra kc =
+      fc::target_spectra(kcs, blockIdx.x / per_target, spectra_stride);
   if constexpr (MIXED) {
     using Geom = fc::PaddedGeom<fc::MixedGeom>;
     copy_weights(z, Geom(h, w, fc::MixedGeom(mh, mw, tw, nullptr)), wts);  // no table read
@@ -226,18 +240,21 @@ conv_lnl_padded_backward_kernel(const float* __restrict__ raws, int h, int w,
   }
 }
 
-// matmul-DFT route, in place: conv -> a and mvar -> c.
+// matmul-DFT route, in place: conv -> a and mvar -> c, walker b against
+// the planes of target b / per_target (data_stride floats apart, 0: shared).
 __global__ void weights_kernel(float* __restrict__ conv, float* __restrict__ mvar,
                                const float* __restrict__ obs,
                                const float* __restrict__ obs_var,
                                const float* __restrict__ good, int batch,
-                               int hw) {
+                               int hw, int per_target, size_t data_stride) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long long)batch * hw) return;
-  const int p = (int)(idx % hw);
-  const float ivm = 1.0f / (mvar[idx] + obs_var[p]);
-  const float r = obs[p] - conv[idx];
-  const bool g = good[p] > 0.0f;
+  const int b = (int)(idx / hw);
+  const size_t q =
+      data_stride * (size_t)(b / per_target) + (size_t)(idx - (long long)b * hw);
+  const float ivm = 1.0f / (mvar[idx] + obs_var[q]);
+  const float r = obs[q] - conv[idx];
+  const bool g = good[q] > 0.0f;
   conv[idx] = g ? r * ivm : 0.0f;
   mvar[idx] = g ? 0.5f * (r * r * ivm * ivm - ivm) : 0.0f;
 }
@@ -259,20 +276,25 @@ __global__ void combine_kernel(const float* __restrict__ raws,
 
 }  // namespace
 
-// C interface of the FFT route.  h, w, twiddle, layout and var_gain as
-// conv_lnl_fft_launch takes them; psf_ic and var_ic are the negated
+// C interface of the FFT route.  h, w, per_target, twiddle, layout and
+// var_gain as conv_lnl_fft_launch takes them, and walker b reads the
+// spectra and variance gain of target b / per_target, spectra_stride floats
+// apart (0: one PSF; the planes are already inside the weights); psf_ic
+// and var_ic are the negated
 // imaginary planes of the two half spectra; weights (B, H, W, 2) and
 // scale_exp (B,) int32 as conv_lnl_fft_residuals_launch wrote them; lnl
 // (B,) the forward's output, grad (B,) its gradient, out (B, H, W).
 // Launches on `stream` and returns the first nonzero cudaError of the
 // attribute call or the launch, or 0.
 extern "C" int conv_lnl_fft_backward_launch(
-    const float* raws, int batch, int h, int w, const float* twiddle,
+    const float* raws, int batch, int h, int w, int per_target,
+    int spectra_stride, const float* twiddle,
     const int* layout, const float* var_gain, const float* psf_r,
     const float* psf_ic, const float* var_r, const float* var_ic,
     const float* weights, const int* scale_exp, const float* lnl,
     const float* grad, float* out, void* stream) {
   if (batch <= 0) return 0;
+  if (per_target < 1 || spectra_stride < 0) return (int)cudaErrorInvalidValue;
   const bool pow2 = fc::power_of_two(h) && fc::power_of_two(w);
   if (!pow2 && !(fc::seven_smooth_even(h) && fc::seven_smooth_even(w)))
     return (int)cudaErrorInvalidValue;
@@ -285,26 +307,29 @@ extern "C" int conv_lnl_fft_backward_launch(
     return err;
   kernel<<<batch, fc::kThreads, smem, (cudaStream_t)stream>>>(
       raws, h, w, reinterpret_cast<const float2*>(twiddle), tw_log2, layout,
-      fc::Spectra{psf_r, psf_ic, var_r, var_ic, var_gain},
-      reinterpret_cast<const float2*>(weights), scale_exp, lnl, grad, out);
+      fc::Spectra{psf_r, psf_ic, var_r, var_ic, var_gain}, per_target,
+      (size_t)spectra_stride, reinterpret_cast<const float2*>(weights), scale_exp,
+      lnl, grad, out);
   return (int)cudaGetLastError();
 }
 
 // C interface of the padded route: conv_lnl_fft_backward_launch's arguments
-// with the transform's sides (mh, mw) after the image's, and twiddle,
+// with the transform's sides (mh, mw) after the image's (spectra_stride
+// counting the padded planes' floats), and twiddle,
 // layout and the four spectrum planes at the transform's sides
 // (conv_lnl.py's PADDED_BACKWARD_CONST_ARGS).  A shape the host would not
 // plan is refused with cudaErrorInvalidValue.  Launches on `stream` and
 // returns the first nonzero cudaError of the attribute call or the launch,
 // or 0.
 extern "C" int conv_lnl_padded_backward_launch(
-    const float* raws, int batch, int h, int w, int mh, int mw,
-    const float* twiddle, const int* layout, const float* var_gain,
-    const float* psf_r, const float* psf_ic, const float* var_r,
+    const float* raws, int batch, int h, int w, int mh, int mw, int per_target,
+    int spectra_stride, const float* twiddle, const int* layout,
+    const float* var_gain, const float* psf_r, const float* psf_ic, const float* var_r,
     const float* var_ic, const float* weights, const int* scale_exp,
     const float* lnl, const float* grad, float* out, void* stream) {
   if (batch <= 0) return 0;
   if (!fc::padded_plan(h, w, mh, mw)) return (int)cudaErrorInvalidValue;
+  if (per_target < 1 || spectra_stride < 0) return (int)cudaErrorInvalidValue;
   auto kernel = &conv_lnl_padded_backward_kernel<false>;
   size_t smem;
   int tw_log2;
@@ -314,19 +339,22 @@ extern "C" int conv_lnl_padded_backward_launch(
     return err;
   kernel<<<batch, fc::kThreads, smem, (cudaStream_t)stream>>>(
       raws, h, w, mh, mw, reinterpret_cast<const float2*>(twiddle), tw_log2,
-      layout, fc::Spectra{psf_r, psf_ic, var_r, var_ic, var_gain},
-      reinterpret_cast<const float2*>(weights), scale_exp, lnl, grad, out);
+      layout, fc::Spectra{psf_r, psf_ic, var_r, var_ic, var_gain}, per_target,
+      (size_t)spectra_stride, reinterpret_cast<const float2*>(weights), scale_exp,
+      lnl, grad, out);
   return (int)cudaGetLastError();
 }
 
 // C interface of the matmul-DFT route.  The forward's operators (cw, sw,
 // lf, li, ica, isa), the adjoint's (ica_t, isa_t, li_t, lf_t, cw_t, sw_t:
 // the transposes, in the order the adjoint applies them), the spectra
-// with the negated imaginary planes; t1 and t2 scratch of (B, 2, H, W/2+1)
+// with the negated imaginary planes (shared); walker b reads obs, obs_var
+// and good at target b / per_target, data_stride floats apart (0: one
+// observation); t1 and t2 scratch of (B, 2, H, W/2+1)
 // floats, conv, mvar, ga and gc of (B, H, W).  Launches on `stream` and
 // returns the first nonzero cudaGetLastError() of its launches, or 0.
 extern "C" int conv_lnl_dft_backward_launch(
-    const float* raws, int batch, int h, int w,
+    const float* raws, int batch, int h, int w, int per_target, int data_stride,
     const float* cw, const float* sw, const float* lf, const float* li,
     const float* ica, const float* isa, const float* ica_t, const float* isa_t,
     const float* li_t, const float* lf_t, const float* cw_t, const float* sw_t,
@@ -337,6 +365,7 @@ extern "C" int conv_lnl_dft_backward_launch(
     float* mvar, float* ga, float* gc, float* out, void* stream_ptr) {
   using psfmc::dftconv::convolve;
   if (batch <= 0) return 0;
+  if (per_target < 1 || data_stride < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const int hw = h * w;
   const unsigned blocks = (unsigned)(((long long)batch * hw + kThreads - 1) / kThreads);
@@ -348,7 +377,8 @@ extern "C" int conv_lnl_dft_backward_launch(
                       var_i, t1, t2, mvar, stream)))
     return err;
   weights_kernel<<<blocks, kThreads, 0, stream>>>(conv, mvar, obs, obs_var,
-                                                  good, batch, hw);
+                                                  good, batch, hw, per_target,
+                                                  (size_t)data_stride);
   if ((err = (int)cudaGetLastError())) return err;
   if ((err = convolve(conv, 0, batch, h, w, ica_t, isa_t, li_t, lf_t, cw_t,
                       sw_t, psf_r, psf_ic, t1, t2, ga, stream)))

@@ -754,7 +754,12 @@ class PosteriorFns(nn.Module):
     def log_likelihood_obs(self, thetas, obs):
         """lnL per walker against a stack of observations (an
         :class:`ObsStack` or the dict :meth:`prepare_obs` takes): walker
-        ``b`` of ``B`` fits target ``b // (B / K)``."""
+        ``b`` of ``B`` fits target ``b // (B / K)``.  Differentiable in
+        ``thetas`` (the hierarchical fit's gradient) on the stack's path,
+        which follows ``grad_mode``'s rule (:meth:`obs_mode`): the render
+        and conv_lnl with per-target planes and spectra through their
+        backward kernels where they cover the spec, else the general path
+        with autograd through ``torch.fft`` (each target's spectra too)."""
         return self._obs_likelihood(self.as_thetas(thetas), self._as_obs(obs))
 
     def log_posterior_obs(self, thetas, obs):

@@ -49,8 +49,12 @@ The planes run on every route, per-target spectra on the FFT and padded
 routes only: on the matmul-DFT route the spectra are GEMM operands, and
 the wrapper refuses them there (:func:`target_spectra_supported`; the
 posterior sends such a batch to its general path).  The plain versions
-take the same target axis.  The residual instantiation and the backward
-kernels hold one observation.
+take the same target axis, and so do the residual instantiation and the
+backward kernels (the hierarchical fit, :mod:`psfmc_tpu_torch.hierarchy`,
+differentiates a stack): on the FFT and padded routes the backward reads
+only each target's spectra and variance gain (its planes are inside the
+forward's weights), on the matmul-DFT route the weights kernel reads each
+target's planes.
 The Pallas kernel's emulated-precision dot modes (bf16x3) existed only
 because Mosaic lacks an fp32-accurate product; they are not ported:
 true fp32 is the contract.
@@ -909,8 +913,7 @@ PADDED_CONST_ARGS = ("pad_twiddle", "pad_layout", "var_gain", "pad_psf_r",
                      "good_f")
 # the routes that hold a walker in one block: the C symbols of the forward
 # and of its residual instantiation, and the constants they take (the
-# residual instantiation's outputs are out, weights, scale_exp; it takes no
-# per_target and strides)
+# residual instantiation's outputs are out, weights, scale_exp)
 _BLOCK_ROUTES = {
     "fft": (("conv_lnl_fft_launch", "conv_lnl_fft_residuals_launch"),
             CONV_FFT_CONST_ARGS),
@@ -948,7 +951,7 @@ def _dft_kernel():
 @functools.lru_cache(maxsize=None)
 def _block_kernel(route, residuals):
     (symbols, names) = _BLOCK_ROUTES[route]
-    ints = 1 + (4 if route == "padded" else 2) + (0 if residuals else 3)
+    ints = 1 + (4 if route == "padded" else 2) + 3
     return _build.function(
         "conv_lnl", symbols[residuals],
         [ctypes.c_void_p] + [ctypes.c_int] * ints
@@ -1002,7 +1005,7 @@ def _launch_block(raws, consts: ConvLnlConsts, route, residuals=False):
                  torch.empty((b,), dtype=torch.int32, device=dev)]
     tensors = [getattr(consts, n) for n in _BLOCK_ROUTES[route][1]] + outs
     sides = _sides(route, (h, w))
-    ints = sides if residuals else sides + _target_ints(b, consts, route)
+    ints = sides + _target_ints(b, consts, route)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = _block_kernel(route, residuals)(raws.data_ptr(), b, *ints,
@@ -1032,9 +1035,21 @@ def batched_conv_lnl(raws, consts: ConvLnlConsts):
     With a stacked consts of ``K`` targets, ``B`` is a multiple of ``K``
     and walker ``b`` fits target ``b // (B / K)``; launches count on the
     route's ``"<route>_targets"`` key (``"fft_targets"``,
-    ``"padded_targets"``, ``"dft_targets"``).  Per-target spectra off the
-    FFT and padded routes (:func:`target_spectra_supported`) and a stacked
-    consts under autograd raise ``ValueError``."""
+    ``"padded_targets"``, ``"dft_targets"``; under autograd on the FFT and
+    padded routes ``"fft_res_targets"``, ``"padded_res_targets"``, and its
+    backward on ``batched_conv_lnl_backward``'s ``"<route>_targets"``).
+    Per-target spectra off the FFT and padded routes
+    (:func:`target_spectra_supported`) raise ``ValueError``."""
+    _check_inputs(raws, consts)
+    if torch.is_grad_enabled() and raws.requires_grad:
+        return _ConvLnl.apply(raws, consts)
+    return _forward(raws, consts)
+
+
+def _check_inputs(raws, consts: ConvLnlConsts):
+    """Raise ``ValueError`` unless ``raws`` is ``(B, H, W)`` at the consts'
+    shape and, for a stacked consts, ``B`` splits evenly over its targets
+    and per-target spectra are on a route that reads them."""
     if raws.ndim != 3 or tuple(raws.shape[1:]) != consts.shape:
         raise ValueError(
             f"raws must be (B, {consts.shape[0]}, {consts.shape[1]}), "
@@ -1049,13 +1064,12 @@ def batched_conv_lnl(raws, consts: ConvLnlConsts):
                 f"per-target PSF spectra at {consts.shape} take the matmul-DFT "
                 "route, whose spectra are shared GEMM operands: such a batch "
                 "takes the posterior's general path")
-    grad = torch.is_grad_enabled() and raws.requires_grad
-    if grad and consts.targets:
-        raise ValueError("conv_lnl's backward holds one observation: a stacked "
-                         "consts has no gradient")
-    if grad:
-        return _ConvLnl.apply(raws, consts)
-    return _forward(raws, consts)
+
+
+def _counted(route, consts: ConvLnlConsts):
+    """The route key a launch counts on: ``route``, with ``"_targets"`` for
+    a stacked consts."""
+    return route + "_targets" if consts.targets else route
 
 
 def _forward(raws, consts):
@@ -1065,15 +1079,15 @@ def _forward(raws, consts):
         raise ValueError(f"unsupported device {raws.device}")
     route = conv_route(consts.shape)
     out = _launch(raws, consts, route)
-    counted = route + "_targets" if consts.targets else route
-    counts.count(batched_conv_lnl, counted, consts.shape)
+    counts.count(batched_conv_lnl, _counted(route, consts), consts.shape)
     return out
 
 
 batched_conv_lnl.launches = 0
 batched_conv_lnl.route_launches = {"fft": 0, "dft": 0, "fft_res": 0, "padded": 0,
                                    "padded_res": 0, "fft_targets": 0,
-                                   "padded_targets": 0, "dft_targets": 0}
+                                   "padded_targets": 0, "dft_targets": 0,
+                                   "fft_res_targets": 0, "padded_res_targets": 0}
 batched_conv_lnl.shape_launches = {}
 
 
@@ -1086,20 +1100,16 @@ def batched_conv_lnl_residuals(raws, consts: ConvLnlConsts):
     route's residual instantiation of the forward kernel (the same lnL
     bits as :func:`batched_conv_lnl`'s launch; counted in
     ``batched_conv_lnl.launches`` on the route ``"fft_res"`` or
-    ``"padded_res"`` and by shape), on the CPU
+    ``"padded_res"``, ``"fft_res_targets"`` or ``"padded_res_targets"``
+    for a stacked consts, and by shape), on the CPU
     :func:`packed_fft_conv_residuals_plain` or
     :func:`padded_fft_conv_residuals_plain`.  A shape on the matmul-DFT
     route raises ``ValueError``."""
-    if raws.ndim != 3 or tuple(raws.shape[1:]) != consts.shape:
-        raise ValueError(
-            f"raws must be (B, {consts.shape[0]}, {consts.shape[1]}), "
-            f"got {tuple(raws.shape)}")
+    _check_inputs(raws, consts)
     route = conv_route(consts.shape)
     if route not in _BLOCK_ROUTES:
         raise ValueError(f"{consts.shape} is off the FFT and padded routes: its "
                          "backward recomputes the forward and reads no residuals")
-    if consts.targets:
-        raise ValueError("the residual instantiation holds one observation")
     if raws.device.type == "cpu":
         plain = (padded_fft_conv_residuals_plain if route == "padded"
                  else packed_fft_conv_residuals_plain)
@@ -1110,7 +1120,7 @@ def batched_conv_lnl_residuals(raws, consts: ConvLnlConsts):
         raise TypeError(f"the CUDA conv_lnl takes float32, got {raws.dtype}")
     check_launch_consts(consts, raws.device)
     out = _launch_block(raws.contiguous(), consts, route, residuals=True)
-    counts.count(batched_conv_lnl, route + "_res", consts.shape)
+    counts.count(batched_conv_lnl, _counted(route + "_res", consts), consts.shape)
     return out
 
 
@@ -1167,21 +1177,23 @@ def _adjoint_weights(conv, mvar, consts: ConvLnlConsts):
 
 
 def _combine(raws, ga, gc, lnl, grad):
-    out = grad[:, None, None] * (ga + 2.0 * raws * gc)
-    return torch.where(torch.isfinite(lnl)[:, None, None], out, torch.zeros_like(out))
+    out = grad[..., None, None] * (ga + 2.0 * raws * gc)
+    return torch.where(torch.isfinite(lnl)[..., None, None], out, torch.zeros_like(out))
 
 
 def batched_conv_lnl_backward_plain(raws, consts: ConvLnlConsts, lnl, grad):
     """Plain PyTorch version of the backward (the version of record):
     ``grad_b [a (x) psf + 2 raw (c (x) var)]``, 0 for a walker whose
-    ``lnl`` is not finite (see the module doc)."""
-    c = consts
-    conv = convolve_rdft(raws, c.psf_r, c.psf_i, c.mats)
-    mvar = convolve_rdft(raws * raws, c.var_r, c.var_i, c.mats)
+    ``lnl`` is not finite (see the module doc).  A stacked consts takes
+    each walker's target's constants."""
+    x, c = _split_targets(raws, consts)
+    lnl, grad = lnl.reshape(x.shape[:-2]), grad.reshape(x.shape[:-2])
+    conv = convolve_rdft(x, c.psf_r, c.psf_i, c.mats)
+    mvar = convolve_rdft(x * x, c.var_r, c.var_i, c.mats)
     a, cc = _adjoint_weights(conv, mvar, c)
     ga = convolve_rdft_adjoint(a, c.psf_r, c.psf_i, c.mats)
     gc = convolve_rdft_adjoint(cc, c.var_r, c.var_i, c.mats)
-    return _combine(raws, ga, gc, lnl, grad)
+    return _combine(x, ga, gc, lnl, grad).reshape(raws.shape)
 
 
 def _peak_exponent(images):
@@ -1195,9 +1207,10 @@ def _peak_exponent(images):
     return exponent, usable
 
 
-def _residuals(conv, mvar, c):
+def _residuals(conv, mvar, c, b):
     """``(lnl, weights, scale_exp)`` of :func:`packed_fft_conv_residuals_plain`
-    from ``(conv, mvar)``."""
+    from ``(conv, mvar)`` (split by target as :func:`_split_targets` splits
+    them for the ``c`` it returned), each with the walker axis ``b`` again."""
     ivm = 1.0 / (mvar + c.obs_var)
     lnl = gaussian_lnlike(c.obs - conv, ivm, c.good)
     ri = (c.obs - conv) * ivm
@@ -1208,7 +1221,9 @@ def _residuals(conv, mvar, c):
     ec, okc = _peak_exponent(cc)
     exponent = torch.where(oka & okc, ea - ec, torch.zeros_like(ea))
     exponent = exponent.clamp(-_MAX_SCALE_EXP, _MAX_SCALE_EXP).to(torch.int32)
-    return lnl, torch.stack([a, cc], dim=-1), exponent
+    weights = torch.stack([a, cc], dim=-1)
+    return (lnl.reshape(b), weights.reshape(b, *weights.shape[-3:]),
+            exponent.reshape(b))
 
 
 def packed_fft_conv_residuals_plain(raws, consts: ConvLnlConsts):
@@ -1221,28 +1236,44 @@ def packed_fft_conv_residuals_plain(raws, consts: ConvLnlConsts):
     ``weights[..., 1]``, and the exponent ``e_a - e_c`` of the two parts' peaks (``e``
     the exponent of each part's peak; 0 where either peak is 0 or not
     finite; within ``+-96``): the power of two that gives the backward's
-    packed image ``a + i 2^(e_a - e_c) c`` one scale.
+    packed image ``a + i 2^(e_a - e_c) c`` one scale.  A stacked consts
+    takes each walker's target's constants.
     """
-    return _residuals(*packed_fft_conv_plain(raws, consts), consts)
+    x, c = _split_targets(raws, consts)
+    conv, mvar = _packed_pair(x, c, (c.psf_r, c.psf_i, c.var_r, c.var_i), c.shape)
+    return _residuals(conv, mvar, c, raws.shape[0])
 
 
 def padded_fft_conv_residuals_plain(raws, consts: ConvLnlConsts):
     """The padded route's forward with residuals in plain PyTorch: as
     :func:`packed_fft_conv_residuals_plain`, from
     :func:`padded_fft_conv_plain`'s ``(conv, mvar)``."""
-    return _residuals(*padded_fft_conv_plain(raws, consts), consts)
+    x, c = _split_targets(raws, consts)
+    conv, mvar = _packed_pair(x, c, (c.pad_psf_r, c.pad_psf_i, c.pad_var_r,
+                                     c.pad_var_i), c.padded_shape)
+    return _residuals(conv, mvar, c, raws.shape[0])
 
 
-def _backward_pair(raws, c, lnl, grad, weights, scale_exp, spectra, padded):
-    """The backward from residuals at the transform's ``padded`` sides
-    with the half spectra ``spectra`` there: the weights packed, unfolded
-    (:func:`_unfold`; on the FFT route only the shift undone), the pair
-    with the conjugate spectra, the crop, the combine."""
-    psf_r, psf_i, var_r, var_i = spectra
+def _backward_pair(raws, consts, lnl, grad, weights, scale_exp, padded_route):
+    """The backward from residuals (a stacked consts split by target) at
+    the transform's sides, with the half spectra there (``consts.pad_*`` on
+    the padded route): the weights packed, unfolded (:func:`_unfold`; on
+    the FFT route only the shift undone), the pair with the conjugate
+    spectra, the crop, the combine."""
+    x, c = _split_targets(raws, consts)
+    lead = x.shape[:-2]
+    lnl, grad, scale_exp = (t.reshape(lead) for t in (lnl, grad, scale_exp))
+    weights = weights.reshape(*lead, *weights.shape[-3:])
+    if padded_route:
+        padded = c.padded_shape
+        psf_r, psf_i, var_r, var_i = c.pad_psf_r, c.pad_psf_i, c.pad_var_r, c.pad_var_i
+    else:
+        padded = c.shape
+        psf_r, psf_i, var_r, var_i = c.psf_r, c.psf_i, c.var_r, c.var_i
     exponent = scale_exp.to(torch.int64)
     one = torch.ones_like(lnl)
-    s = torch.ldexp(one, exponent)[:, None, None]
-    inv_s = torch.ldexp(one, -exponent)[:, None, None]
+    s = torch.ldexp(one, exponent)[..., None, None]
+    inv_s = torch.ldexp(one, -exponent)[..., None, None]
     z = _unfold(torch.complex(weights[..., 0], weights[..., 1] * s), c.shape, padded)
     z = torch.fft.fft2(z)
     zm = _mirrored(z).conj()
@@ -1251,7 +1282,8 @@ def _backward_pair(raws, c, lnl, grad, weights, scale_exp, spectra, padded):
     y = za * _full_spectrum(psf_r, psf_i, padded[1]).conj() \
         + 1j * zb * (_full_spectrum(var_r, var_i, padded[1]).conj() * c.var_gain)
     y = _crop(torch.fft.ifft2(y), c.shape)
-    return _combine(raws, y.real, y.imag * (inv_s / c.var_gain), lnl, grad)
+    out = _combine(x, y.real, y.imag * (inv_s / c.var_gain), lnl, grad)
+    return out.reshape(raws.shape)
 
 
 def packed_fft_conv_backward_from_residuals_plain(raws, consts: ConvLnlConsts,
@@ -1264,11 +1296,10 @@ def packed_fft_conv_backward_from_residuals_plain(raws, consts: ConvLnlConsts,
     Hermitian split; ``Y = A conj Kpsf + i B (g conj Kvar)``; one
     ``ifft2``; ``a (x) psf`` is the real part and ``c (x) var`` the
     imaginary part over ``s g``; then ``grad_b [a (x) psf + 2 raw (c (x)
-    var)]``, 0 for a walker whose ``lnl`` is not finite.
+    var)]``, 0 for a walker whose ``lnl`` is not finite.  A stacked consts
+    takes each walker's target's spectra and variance gain.
     """
-    c = consts
-    return _backward_pair(raws, c, lnl, grad, weights, scale_exp,
-                          (c.psf_r, c.psf_i, c.var_r, c.var_i), c.shape)
+    return _backward_pair(raws, consts, lnl, grad, weights, scale_exp, False)
 
 
 def padded_fft_conv_backward_from_residuals_plain(raws, consts: ConvLnlConsts,
@@ -1279,10 +1310,7 @@ def padded_fft_conv_backward_from_residuals_plain(raws, consts: ConvLnlConsts,
     fold read (the adjoint of the fold) and zeros up to ``M``, the pair at
     :func:`padded_shape` with the padded kernels' conjugate spectra, and
     the ``[0, N)`` crop (the adjoint of the zero pad)."""
-    c = consts
-    return _backward_pair(raws, c, lnl, grad, weights, scale_exp,
-                          (c.pad_psf_r, c.pad_psf_i, c.pad_var_r, c.pad_var_i),
-                          c.padded_shape)
+    return _backward_pair(raws, consts, lnl, grad, weights, scale_exp, True)
 
 
 def packed_fft_conv_backward_plain(raws, consts: ConvLnlConsts, lnl, grad):
@@ -1299,7 +1327,7 @@ def packed_fft_conv_backward_plain(raws, consts: ConvLnlConsts, lnl, grad):
 def _block_backward_kernel(route):
     symbol = {"fft": "conv_lnl_fft_backward_launch",
               "padded": "conv_lnl_padded_backward_launch"}[route]
-    ints = 1 + (4 if route == "padded" else 2)
+    ints = 1 + (4 if route == "padded" else 2) + 2
     return _build.function(
         "conv_lnl_backward", symbol,
         [ctypes.c_void_p] + [ctypes.c_int] * ints
@@ -1311,21 +1339,22 @@ def _block_backward_kernel(route):
 def _dft_backward_kernel():
     return _build.function(
         "conv_lnl_backward", "conv_lnl_dft_backward_launch",
-        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        [ctypes.c_void_p] + [ctypes.c_int] * 5
         + [ctypes.c_void_p] * (len(DFT_BACKWARD_CONST_ARGS) + 9),
     )
 
 
-# conv_lnl_fft_backward_launch(raws, batch, h, w, <these>, weights,
-# scale_exp, lnl, grad, out, stream): the conjugate spectra
+# conv_lnl_fft_backward_launch(raws, batch, h, w, per_target, spectra_stride,
+# <these>, weights, scale_exp, lnl, grad, out, stream): the conjugate spectra
 FFT_BACKWARD_CONST_ARGS = ("twiddle", "fft_layout", "var_gain", "psf_r",
                            "psf_ic", "var_r", "var_ic")
-# conv_lnl_padded_backward_launch(raws, batch, h, w, mh, mw, <these>,
-# weights, scale_exp, lnl, grad, out, stream): the same at the transform's
-# sides
+# conv_lnl_padded_backward_launch(raws, batch, h, w, mh, mw, per_target,
+# spectra_stride, <these>, weights, scale_exp, lnl, grad, out, stream): the
+# same at the transform's sides
 PADDED_BACKWARD_CONST_ARGS = ("pad_twiddle", "pad_layout", "var_gain", "pad_psf_r",
                               "pad_psf_ic", "pad_var_r", "pad_var_ic")
-# conv_lnl_dft_backward_launch(raws, batch, h, w, <these>, lnl, grad, t1,
+# conv_lnl_dft_backward_launch(raws, batch, h, w, per_target, data_stride,
+# <these>, lnl, grad, t1,
 # t2, conv, mvar, ga, gc, out, stream): the forward's operators, the
 # adjoint's (the transposes, in the order the adjoint applies them)
 DFT_BACKWARD_CONST_ARGS = ("cw", "sw", "lf", "li", "ica", "isa", "ica_t",
@@ -1356,7 +1385,8 @@ def _launch_backward(raws, consts: ConvLnlConsts, lnl, grad, route, residuals=No
                              "(B,) int32 scale exponents on the raws' device")
         fn = _block_backward_kernel(route)
         names = PADDED_BACKWARD_CONST_ARGS if route == "padded" else FFT_BACKWARD_CONST_ARGS
-        sides = _sides(route, (h, w))
+        per, _, spectra = _target_ints(b, consts, route)
+        sides = _sides(route, (h, w)) + (per, spectra)
         scratch = [weights.contiguous(), scale_exp.contiguous()]
         tensors = [getattr(consts, n) for n in names] + scratch + [lnl, grad, out]
     else:
@@ -1364,6 +1394,7 @@ def _launch_backward(raws, consts: ConvLnlConsts, lnl, grad, route, residuals=No
         scratch = [t1, torch.empty_like(t1)] + [torch.empty_like(raws)
                                                for _ in range(4)]
         fn, names = _dft_backward_kernel(), DFT_BACKWARD_CONST_ARGS
+        sides += _target_ints(b, consts, route)
         tensors = [getattr(consts, n) for n in names] + [lnl, grad] + scratch + [out]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -1382,8 +1413,10 @@ def batched_conv_lnl_backward(raws, consts: ConvLnlConsts, lnl, grad, residuals=
     ``.route_launches`` and ``.shape_launches``); the FFT and the padded
     route's read ``residuals``, the ``(weights, scale_exp)`` of
     :func:`batched_conv_lnl_residuals` at the same ``raws``, and raise
-    ``ValueError`` without them.  On the CPU
+    ``ValueError`` without them.  A stacked consts counts on the route's
+    ``"<route>_targets"`` key.  On the CPU
     :func:`batched_conv_lnl_backward_plain` (``residuals`` unused)."""
+    _check_inputs(raws, consts)
     if raws.device.type == "cpu":
         return batched_conv_lnl_backward_plain(raws, consts, lnl, grad)
     if raws.device.type != "cuda":
@@ -1393,10 +1426,12 @@ def batched_conv_lnl_backward(raws, consts: ConvLnlConsts, lnl, grad, residuals=
         raise ValueError(f"the {route} route's backward reads the forward's "
                          "residuals (batched_conv_lnl_residuals)")
     out = _launch_backward(raws, consts, lnl, grad, route, residuals)
-    counts.count(batched_conv_lnl_backward, route, consts.shape)
+    counts.count(batched_conv_lnl_backward, _counted(route, consts), consts.shape)
     return out
 
 
 batched_conv_lnl_backward.launches = 0
-batched_conv_lnl_backward.route_launches = {"fft": 0, "dft": 0, "padded": 0}
+batched_conv_lnl_backward.route_launches = {"fft": 0, "dft": 0, "padded": 0,
+                                            "fft_targets": 0, "dft_targets": 0,
+                                            "padded_targets": 0}
 batched_conv_lnl_backward.shape_launches = {}

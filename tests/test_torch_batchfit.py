@@ -284,7 +284,8 @@ def test_stacked_plain_conv_lnl_matches_per_target_calls(shape, target_spectra):
     """The plain versions with a target axis (``batched_conv_lnl_plain``,
     ``packed_fft_conv_plain``, ``padded_fft_conv_plain``) against one call
     per target, on the radix-2, mixed-radix, radix-7, padded and matmul-DFT
-    routes: 1e-12."""
+    routes: 1e-12; and the gradient through the stacked consts against each
+    target's single-observation gradient: 1e-10."""
     rng = np.random.RandomState(sum(shape))
     nt, wpt = 3, 4
     spectra = [_kernel_spectra(shape, rng) for _ in range(nt)]
@@ -320,8 +321,21 @@ def test_stacked_plain_conv_lnl_matches_per_target_calls(shape, target_spectra):
                                            atol=1e-12)
     with pytest.raises(ValueError, match="split evenly"):
         CL.batched_conv_lnl(raws[:-1], stacked)
-    with pytest.raises(ValueError, match="one observation"):
-        CL.batched_conv_lnl(raws.clone().requires_grad_(True), stacked)
+    # the gradient through the stacked consts: each target's rows are the
+    # gradient of that target's single-observation call
+    weight = torch.arange(1.0, nt * wpt + 1.0, dtype=torch.float64)
+    leaf = raws.clone().requires_grad_(True)
+    (grad,) = torch.autograd.grad((CL.batched_conv_lnl(leaf, stacked) * weight).sum(), leaf)
+    for t in range(nt):
+        one = CL.make_conv_lnl_consts(f_psf[t if target_spectra else 0],
+                                      f_var[t if target_spectra else 0],
+                                      obs[t], var[t], good[t], "cpu", torch.float64)
+        rows = slice(t * wpt, (t + 1) * wpt)
+        leaf_t = raws[rows].clone().requires_grad_(True)
+        (want,) = torch.autograd.grad(
+            (CL.batched_conv_lnl(leaf_t, one) * weight[rows]).sum(), leaf_t)
+        np.testing.assert_allclose(grad[rows].numpy(), want.numpy(), rtol=1e-10,
+                                   atol=1e-10 * float(want.abs().max()))
 
 
 def test_copy_target_consts_writes_in_place():

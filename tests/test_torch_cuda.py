@@ -1054,8 +1054,10 @@ def test_log_posterior_and_grad_matches_cpu_float64(cuda, variant):
     assert rel[fin].max().item() <= 1e-3
 
 
-# a single fit's conv_lnl launches nothing on the stacked routes
-NO_TARGETS = {"fft_targets": 0, "padded_targets": 0, "dft_targets": 0}
+# a single fit's conv_lnl and backward launch nothing on the stacked routes
+NO_TARGETS = {"fft_targets": 0, "padded_targets": 0, "dft_targets": 0,
+              "fft_res_targets": 0, "padded_res_targets": 0}
+NO_BACKWARD_TARGETS = {"fft_targets": 0, "padded_targets": 0, "dft_targets": 0}
 
 
 def _map_counts():
@@ -1109,7 +1111,7 @@ def test_joint_map_runs_the_dft_backward_inside_the_graph(cuda):
     assert {r: after[4][r] - before[4][r] for r in after[4]} == \
         {"fft": 1, "fft_res": 4, "dft": 5, "padded": 0, "padded_res": 0, **NO_TARGETS}
     assert {r: after[5][r] - before[5][r] for r in after[5]} == \
-        {"fft": 4, "dft": 4, "padded": 0}
+        {"fft": 4, "dft": 4, "padded": 0, **NO_BACKWARD_TARGETS}
 
 
 def test_joint_map_runs_the_mixed_radix_band_inside_the_graph(cuda):
@@ -1153,7 +1155,7 @@ def _joint_map_on_the_fft_route(cuda, band1):
         assert {r: after[4][r] - before[4][r] for r in after[4]} == \
             {"fft": 2, "fft_res": 8, "dft": 0, "padded": 0, "padded_res": 0, **NO_TARGETS}
         assert {r: after[5][r] - before[5][r] for r in after[5]} == \
-            {"fft": 8, "dft": 0, "padded": 0}
+            {"fft": 8, "dft": 0, "padded": 0, **NO_BACKWARD_TARGETS}
         assert [fn.shape_launches.get((r, band1), 0) - b
                 for (fn, r), b in zip(keys, at_band1)] == [1, 4, 4]
         runs.append(res)
@@ -1189,7 +1191,7 @@ def test_joint_map_runs_the_padded_band_inside_the_graph(cuda):
         assert {r: after[4][r] - before[4][r] for r in after[4]} == \
             {"fft": 1, "fft_res": 4, "dft": 0, "padded": 1, "padded_res": 4, **NO_TARGETS}
         assert {r: after[5][r] - before[5][r] for r in after[5]} == \
-            {"fft": 4, "dft": 0, "padded": 4}
+            {"fft": 4, "dft": 0, "padded": 4, **NO_BACKWARD_TARGETS}
         assert [fn.shape_launches.get((r, band1), 0) - b
                 for (fn, r), b in zip(keys, at_band1)] == [1, 4, 4]
         runs.append(res)
@@ -1596,6 +1598,78 @@ def test_conv_lnl_stacked_copies_equal_the_shared_launch(cuda, shape):
     stack = CL.make_conv_lnl_consts_stack(
         *args[:2], *(np.repeat(a[None], 4, 0) for a in args[2:]), cuda)
     assert torch.equal(CL.batched_conv_lnl(raws, stack), CL.batched_conv_lnl(raws, shared))
+
+
+TARGET_GRAD_CASES = [((128, 128), False), ((128, 128), True), ((96, 96), False),
+                     ((74, 74), False), ((74, 74), True), ((94, 94), False)]
+
+
+@pytest.mark.parametrize("shape,spectra", TARGET_GRAD_CASES,
+                         ids=["128", "128-spectra", "96", "74", "74-spectra", "94"])
+def test_conv_lnl_residuals_and_backward_with_targets_match_plain(cuda, shape, spectra):
+    """The residual forward and the backward with the target axis (the
+    hierarchical fit's gradient): per-target planes on the radix-2,
+    mixed-radix, padded and matmul-DFT routes, per-target spectra on the
+    FFT and padded routes.  The residual instantiation's lnL bits are the
+    forward's, counted on ``"<route>_res_targets"``, its weights within
+    1e-6 of each walker's largest weight (or 4x the float32 plain
+    scheme's error) of the float64 plain scheme; the backward, counted on
+    ``batched_conv_lnl_backward``'s ``"<route>_targets"``, within 1e-3 of
+    each walker's largest pixel gradient of the float64 plain backward;
+    each target's rows the bits of a launch with that target's own
+    constants; autograd through ``batched_conv_lnl`` the same bits as the
+    explicit calls."""
+    nt = 4
+    consts, c64, raws = _target_stack(shape, cuda, nt, spectra, seed=11)
+    route = CL.conv_route(shape)
+    lnl, residuals = CL.batched_conv_lnl(raws, consts), None
+    if route in ("fft", "padded"):
+        routes = dict(CL.batched_conv_lnl.route_launches)
+        got, weights, scale_exp = CL.batched_conv_lnl_residuals(raws, consts)
+        torch.cuda.synchronize()
+        routes[route + "_res_targets"] += 1
+        assert CL.batched_conv_lnl.route_launches == routes
+        _same_bits(got, lnl)
+        plain = (CL.padded_fft_conv_residuals_plain if route == "padded"
+                 else CL.packed_fft_conv_residuals_plain)
+        _, w64, e64 = plain(raws.double().cpu(), c64)
+        _, w32, _ = plain(raws, consts)
+        want = w64.to(cuda)
+        scale = want.abs().amax(dim=(1, 2))
+        err = (weights.double() - want).abs().amax(dim=(1, 2)) / scale
+        plain_err = (w32.double() - want).abs().amax(dim=(1, 2)) / scale
+        assert torch.all(err <= (4 * plain_err).clamp(min=1e-6))
+        assert (scale_exp.cpu() - e64).abs().max().item() <= 1
+        residuals = (weights, scale_exp)
+    grad = torch.as_tensor(np.random.RandomState(4).uniform(0.5, 2.0, len(raws)),
+                           dtype=torch.float32, device=cuda)
+    routes = dict(CL.batched_conv_lnl_backward.route_launches)
+    back = CL.batched_conv_lnl_backward(raws, consts, lnl, grad, residuals)
+    torch.cuda.synchronize()
+    routes[route + "_targets"] += 1
+    assert CL.batched_conv_lnl_backward.route_launches == routes
+    want_back = CL.batched_conv_lnl_backward_plain(
+        raws.double().cpu(), c64, lnl.double().cpu(), grad.double().cpu()).to(cuda)
+    assert torch.isfinite(lnl).all()
+    assert _normalized_err(back, want_back, dims=(1, 2)) <= 1e-3
+    for t in range(nt):
+        rows = slice(t * 6, (t + 1) * 6)
+        one = CL.make_conv_lnl_consts(
+            (c64.psf_r[t] + 1j * c64.psf_i[t]).numpy() if spectra
+            else (c64.psf_r + 1j * c64.psf_i).numpy(),
+            (c64.var_r[t] + 1j * c64.var_i[t]).numpy() if spectra
+            else (c64.var_r + 1j * c64.var_i).numpy(),
+            c64.obs[t].numpy(), c64.obs_var[t].numpy(), c64.good[t].numpy(), cuda)
+        res_t = None
+        if residuals is not None:
+            _, *res_t = CL.batched_conv_lnl_residuals(raws[rows], one)
+            for x, y in zip(res_t, (r[rows] for r in residuals)):
+                _same_bits(x, y)
+        _same_bits(back[rows], CL.batched_conv_lnl_backward(raws[rows], one, lnl[rows],
+                                                            grad[rows], res_t))
+    leaf = raws.clone().requires_grad_(True)
+    (CL.batched_conv_lnl(leaf, consts) * grad).sum().backward()
+    _same_bits(leaf.grad, back)
 
 
 def _batch_counts():

@@ -37,7 +37,8 @@ never ``jax`` nor ``psfmc_tpu``, and:
    zero-padded to 150x150 (row ``conv_lnl_padded``, the matmul-DFT route
    timed beside it; 45x75, odd sides, held on the same route), and at
    94x94 (2 x 47, a transform of 192x192 that fits no block), where it
-   takes its matmul-DFT route (row ``conv_lnl_dft``).  Each
+   takes its cluster route, the transform across a cluster of 2 blocks
+   (row ``conv_lnl_cluster``, the matmul-DFT route timed beside it).  Each
    likelihood kernel, its plain version and the ``torch.fft`` yardstick
    are also held against a float64 ``torch.fft`` convolution on the card;
 4. slice phase (the posterior + sampler path, ``lnpost="batched"``): the
@@ -190,16 +191,16 @@ never ``jax`` nor ``psfmc_tpu``, and:
    band 1's conv_lnl and backward on the FFT route's mixed-radix geometry
    inside the captured step) and two joint MAPs of 50 steps, band 1 at
    98x98 (its conv_lnl and backward on the FFT route with radix-7 stages),
-   at 74x74 (both on the padded route) and at 94x94 (both on the
-   matmul-DFT route); then each backward kernel
+   at 74x74 (both on the padded route) and at 94x94 (both on the cluster
+   route); then each backward kernel
    against its plain version at 125 walkers with its times (rows
    ``sersic_render_backward``, ``conv_lnl_backward``,
    ``conv_lnl_backward_mixed``, ``conv_lnl_backward_radix7`` and
-   ``conv_lnl_backward_padded`` with the matmul-DFT route timed beside
-   them, ``conv_lnl_backward_dft`` at 94x94), and the forward's residual
-   instantiation that the FFT and padded routes' backward reads (rows
-   ``conv_lnl_res``, ``conv_lnl_res_mixed``, ``conv_lnl_res_radix7`` and
-   ``conv_lnl_res_padded``: the same lnL bits as conv_lnl, the weights
+   ``conv_lnl_backward_padded`` and ``conv_lnl_backward_cluster`` at
+   94x94, with the matmul-DFT route timed beside them), and the forward's
+   residual instantiation that their backward reads (rows
+   ``conv_lnl_res``, ``conv_lnl_res_mixed``, ``conv_lnl_res_radix7``,
+   ``conv_lnl_res_padded`` and ``conv_lnl_res_cluster``: the same lnL bits as conv_lnl, the weights
    against the float64 plain scheme, the forward without residuals timed
    beside it), with the forward + backward pair of an Adam step timed
    against its bound;
@@ -244,15 +245,19 @@ never ``jax`` nor ``psfmc_tpu``, and:
    device time beside one single fit's; chunking (one capture a step
    variant reused by three chunks, graphed equal to eager, each chunk
    fitting its own data); conv_lnl with per-target planes on the radix-2,
-   mixed-radix, padded and matmul-DFT routes and with per-target spectra
-   at 608 walkers against its plain version, timed beside the
-   shared-constants launch and a ``torch.fft`` composite; survey mode
-   (a PSF star per target); the joint flagship's batch; ``run_sbc``;
+   mixed-radix, padded and cluster routes and with per-target spectra
+   on the radix-2 and cluster routes at 608 walkers against its plain
+   version, timed beside the shared-constants launch, a ``torch.fft``
+   composite and (cluster route) the matmul-DFT route; survey mode (a PSF
+   star per target; also at 94x94, its per-target spectra on the cluster
+   route, no longer the general path); the joint flagship's batch;
+   ``run_sbc``;
 18. hierarchical fits (:func:`hierarchy_phase`): ``fit_hierarchical`` on
    16 flagship mocks with a population on the first Sersic's index, NUTS
    with 4 chains (64 walkers a leaf), depth 8, 20 + 20 steps, centred and
    non-centred; survey mode at 8 targets; the joint flagship at 4
-   targets with band 1 on the mixed-radix, padded and matmul-DFT routes;
+   targets with band 1 on the mixed-radix, padded and cluster routes
+   (graphed against eager on the cluster route);
    the ensemble path (graphed against eager); ``loo_targets``.  Every
    NUTS piece a replay, the launches exact (conv_lnl's residual forwards
    equal its backwards by route and shape on the ``_targets`` keys), the
@@ -260,9 +265,21 @@ never ``jax`` nor ``psfmc_tpu``, and:
    the kernels against their plain versions at each fit's own batch; then
    the residual forward and the backward with the target axis on every
    route at the leaf's batch and at 608 walkers (the ``*_targets`` rows);
-19. prints the tempered, evidence, NUTS, criticism, batch and hierarchy
-   phases' numbers and the kernel table as one JSON line each, then the
-   result line ``{"ok": true, "device": {...}}`` last.
+19. cluster phase (:func:`cluster_phase`, conv_lnl's cluster route on its
+   own paths): the flagship at a 256x256 observation (a 256x256 transform
+   across 4 blocks) through the driver on the default batched path (250
+   walkers, 20 + 20 steps, the driver phase's checks) and the MAP
+   flagship there through ``model_galaxy_map`` (launches exact, none on
+   the matmul-DFT route, the lnpost against the CPU's float64, the
+   replayed Adam step's time); then conv_lnl, its residual forward and
+   its backward at 101x101, 160x180 and 256x256 against their plain
+   versions, each timed beside the matmul-DFT route on the same inputs,
+   the ``torch.fft`` composite and its bounds (the ``by_shape`` entries of
+   the ``conv_lnl_cluster``, ``conv_lnl_res_cluster`` and
+   ``conv_lnl_backward_cluster`` rows);
+20. prints the tempered, evidence, NUTS, criticism, batch, hierarchy and
+   cluster phases' numbers and the kernel table as one JSON line each,
+   then the result line ``{"ok": true, "device": {...}}`` last.
 
 Each phase ends in a synchronize of the card (:func:`run_phase`), so an
 asynchronous CUDA error names the phase whose launches raised it.
@@ -281,14 +298,15 @@ under other launch geometries than the wrapper picks.  The breakdown
 also covers the priors flagship and the priors' stress variant.
 
 ``python3 chip_smoke.py --only nuts,nuts,criticism`` runs only the named
-phases after the build (``nuts``, ``criticism``, ``batch``, ``hierarchy``, and
+phases after the build (``nuts``, ``criticism``, ``batch``, ``hierarchy``,
+``cluster``, and
 ``nuts-kernels``: the gradient path's four kernels at NUTS's
 batches, a short target for ``compute-sanitizer``), each as often as it
 is named, and prints their numbers.
 
 ``python3 chip_smoke.py --step-times`` runs only :func:`step_times_phase`
 (the joint offset variant's retained step and the joint MAP's Adam step
-with band 1 at 74x74 and at 98x98, replayed back to back) and prints its times with a
+with band 1 at 74x74, 98x98 and 94x94, replayed back to back) and prints its times with a
 digest of every kernel's SASS, to set one tree of the port beside another.
 
 Any failure exits nonzero before the result line; so does a host
@@ -354,8 +372,14 @@ RADIX7_SHAPE, RADIX7_PSF_SHAPE = (98, 98), (48, 48)
 # padded to 90x150, is held on the same route
 PADDED_SHAPE, PADDED_PSF_SHAPE = (74, 74), (36, 36)
 ODD_SHAPE, ODD_PSF_SHAPE = (45, 75), (24, 36)
-# 2 x 47: its 192x192 transform fits no block, conv_lnl's matmul-DFT route
-DFT_SHAPE, DFT_PSF_SHAPE = (94, 94), (48, 48)
+# 2 x 47: its 192x192 transform fits no block but a cluster of 2 blocks:
+# conv_lnl's cluster route (its former matmul-DFT route timed beside it)
+CLUSTER_SHAPE, CLUSTER_PSF_SHAPE = (94, 94), (48, 48)
+# the cluster route's other shapes, each with its PSF, timed beside the
+# matmul-DFT route and torch.fft on the same inputs (cluster_phase): 101x101
+# (210x210 over 2 blocks), 160x180 (2 blocks), 256x256 (4 blocks)
+CLUSTER_TIMED = (((101, 101), (48, 48)), ((160, 180), (64, 64)), ((256, 256), (64, 64)))
+CLUSTER_FIT_SHAPE = (256, 256)  # the flagship's observation on the cluster route
 
 
 def log(msg):
@@ -489,13 +513,14 @@ def fft_geometry(shape):
     two), ``"mixed"`` (the mixed-radix geometry, stages of radix 2, 3 and
     5), ``"radix7"`` (the same geometry with radix-7 stages: a side with a
     factor of 7), ``"padded"`` (the padded route: the image zero-padded to
-    a transform on one of those geometries), or None on the matmul-DFT
-    route."""
+    a transform on one of those geometries), ``"cluster"`` (the cluster
+    route: such a transform over a cluster of blocks), or None on the
+    matmul-DFT route."""
     from psfmc_tpu_torch.ops.kernels.conv_lnl import conv_route
 
     route = conv_route(shape)
     if route != "fft":
-        return "padded" if route == "padded" else None
+        return route if route in ("padded", "cluster") else None
     if all(n & (n - 1) == 0 for n in shape):
         return "radix2"
     return "radix7" if any(n % 7 == 0 for n in shape) else "mixed"
@@ -606,7 +631,7 @@ def kernel_phase(post, spec):
              ("fused_lnl_dft", "dft")),
             (RADIX7_SHAPE, RADIX7_PSF_SHAPE, ("conv_lnl_radix7", "fft"), None),
             (PADDED_SHAPE, PADDED_PSF_SHAPE, ("conv_lnl_padded", "padded"), None),
-            (DFT_SHAPE, DFT_PSF_SHAPE, ("conv_lnl_dft", "dft"), None)):
+            (CLUSTER_SHAPE, CLUSTER_PSF_SHAPE, ("conv_lnl_cluster", "cluster"), None)):
         other_spec = build_model_spec(flagship_components(shape, psf_shape))
         other_post = build_posterior(other_spec, device=post.device,
                                      lnpost="batched")
@@ -782,11 +807,13 @@ def likelihood_rows(post, spec, thetas, conv, fused):
         conv_route=route, f64_rel_err=truth_err(got),
         plain_f64_rel_err=truth_err(want),
     ))
-    if route == "padded":  # the extra work of the transform: its own bound
+    if route in ("padded", "cluster"):  # the extra work of the transform: its own bound
         mh, mw = consts.padded_shape
         rows[-1].update(transform_shape=[mh, mw], transform_bound_ms=bound(
             0, conv_lnl_ops(b, mh, mw))[0])
-    if route in ("fft", "padded"):  # the matmul-DFT route on the same inputs
+    if route == "cluster":
+        rows[-1]["cluster_size"] = CL.cluster_size((h, w))
+    if route != "dft":  # the matmul-DFT route on the same inputs
         _, dft_rel, _ = compare(CL._launch(raws, consts, "dft"), want)
         if not dft_rel <= CONV_LNL_TOL:
             raise AssertionError("conv_lnl's matmul-DFT route disagrees "
@@ -1010,9 +1037,14 @@ def counted_kernels():
     return (render_sersics, render_sersics_tiled, batched_conv_lnl, fused_lnl)
 
 
-def driver_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
-    """The model-file driver at full width, on the fused kernel (the
-    arguments shrink it for a rehearsal on the CPU)."""
+def driver_phase(shape=(128, 128), psf_shape=(64, 64), device=None, lnpost="pallas"):
+    """The model-file driver at full width, on the fused kernel
+    (``lnpost="pallas"``, ``PSFMC_LNPOST``'s value) or, with ``lnpost=None``,
+    on the default batched path (the render and conv_lnl kernels: the
+    cluster phase's 256x256 flagship) (the arguments shrink it for a
+    rehearsal on the CPU).  Returns the launches (by wrapper, by route, and
+    the replayed retained step's device time), the model and the last
+    sample."""
     import torch
 
     from psfmc_tpu_torch import fitting
@@ -1021,6 +1053,11 @@ def driver_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
     from psfmc_tpu_torch.io import fits
     from psfmc_tpu_torch.models import as_model, build_posterior
     from psfmc_tpu_torch.ops.kernels.conv_lnl import conv_route
+    from psfmc_tpu_torch.ops.kernels.fused_lnl import fused_route
+
+    fused = lnpost == "pallas"
+    kernel, other_kernel = (("fused_lnl", "batched_conv_lnl") if fused
+                            else ("batched_conv_lnl", "fused_lnl"))
 
     counted = counted_kernels()
     steps = BURN + SAMPLE
@@ -1049,7 +1086,10 @@ def driver_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
         kwargs = dict(output_name=out, chains=NWALKERS, burn=BURN,
                       iterations=SAMPLE, seed=SEED, device=device,
                       checkpoint_interval=CHECKPOINT)
-        os.environ["PSFMC_LNPOST"] = "pallas"
+        if lnpost:
+            os.environ["PSFMC_LNPOST"] = lnpost
+        else:
+            os.environ.pop("PSFMC_LNPOST", None)
         fitting.save_database = counting_save
         fitting.EnsembleSampler.rejuvenate_stuck = counting_rejuvenate
         fitting.EnsembleSampler.__init__ = kept_init
@@ -1086,10 +1126,9 @@ def driver_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
         # init: one full-ensemble launch; every step: one per half-ensemble;
         # every rejuvenation that moved walkers: one full-ensemble launch
         want = 1 + 2 * steps + sum(n > 0 for n in moved)
-        if launches["fused_lnl"] != want or launches["batched_conv_lnl"] != 0:
+        if launches[kernel] != want or launches[other_kernel] != 0:
             raise AssertionError(
-                f"driver launches {launches}: want fused_lnl {want}, "
-                "batched_conv_lnl 0")
+                f"driver launches {launches}: want {kernel} {want}, {other_kernel} 0")
         if launches["render_sersics"] == 0:
             raise AssertionError("the render kernel never ran on the driver path")
         replays = [sm.graph_replays for sm in samplers]
@@ -1098,17 +1137,22 @@ def driver_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
                 raise AssertionError(f"driver: graph replays {replays}, want "
                                      f"[{steps}]")
             log(f"driver: every one of the {steps} steps was a CUDA graph replay")
-        route = conv_route(shape)
-        other = "dft" if route == "fft" else "fft"
-        if (by_route[f"fused_lnl:{route}"] != want
-                or by_route[f"fused_lnl:{other}"] != 0):
-            raise AssertionError(f"launches by route {by_route}: every fused_lnl "
+        route = (fused_route if fused else conv_route)(shape)
+        on_routes = sum(n for k, n in by_route.items()
+                        if k.startswith(f"{kernel}:") and k.count(":") == 1)
+        if by_route[f"{kernel}:{route}"] != want or on_routes != want:
+            raise AssertionError(f"launches by route {by_route}: every {kernel} "
                                  f"launch should take the {route} route")
         launches.update(by_route)
+        if device != "cpu":  # the retained step's graph, replayed back to back
+            launches["retain_step_ms"] = time_ms(
+                lambda: samplers[0]._step("retain"), reps=5, inner=5)
+            log(f"driver ({kernel}, {shape[0]}x{shape[1]}): a replayed retained step "
+                f"{launches['retain_step_ms']:.3f} ms ({CARD})")
 
         db_file = out + "_db.fits"
         db = load_database(db_file)
-        mc = as_model(model_file, device=device, lnpost="fused")
+        mc = as_model(model_file, device=device, lnpost="fused" if fused else "batched")
         names = mc.param_names
         if len(db) != NWALKERS * SAMPLE or db.colnames != names + [
                 "lnprobability", "walker", "sample"]:
@@ -1154,10 +1198,12 @@ def driver_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
                               lnpost="batched")
         want_lnp = ref.log_posterior_batch(last[:16]).numpy()
         rel = np.max(np.abs(got - want_lnp) / np.abs(want_lnp))
-        log(f"driver: fused lnpost vs CPU float64 plain lnpost, 16 walkers: "
+        log(f"driver: {kernel} lnpost vs CPU float64 plain lnpost, 16 walkers: "
             f"max rel diff {rel:.3e} (rtol {SLICE_RTOL:g})")
         if not (np.all(np.isfinite(got)) and rel <= SLICE_RTOL):
-            raise AssertionError("fused-path lnpost disagrees with the f64 plain path")
+            raise AssertionError(f"the {kernel} path's lnpost disagrees with the f64 "
+                                 "plain path")
+        launches["lnpost_rel_err"] = float(rel)
 
         for ftype in IMAGE_TYPES:
             os.remove(f"{out}_{ftype}.fits")
@@ -1206,7 +1252,7 @@ def driver_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
         log(f"driver: a fit stopped after its checkpoint at burn "
             f"{meta['MCBURNDN']}/{meta['MCBURN']} and resumed is bit-identical "
             f"to the uninterrupted fit (database and five images)")
-        del os.environ["PSFMC_LNPOST"]
+        os.environ.pop("PSFMC_LNPOST", None)
         return launches, mc, last
 
 
@@ -2966,9 +3012,7 @@ def backward_rows(post, spec):
 
     from psfmc_tpu_torch.flagship import flagship_components, prior_draws
     from psfmc_tpu_torch.models import build_model_spec, build_posterior
-    from psfmc_tpu_torch.ops import convolve, gaussian_lnlike
     from psfmc_tpu_torch.ops.kernels import _build
-    from psfmc_tpu_torch.ops.kernels import conv_lnl as CL
     from psfmc_tpu_torch.ops.kernels import sersic_render as SR
 
     rows = []
@@ -3020,115 +3064,19 @@ def backward_rows(post, spec):
         map_starts_normalized_err=at_starts["max_normalized_err"],
         ragged_normalized_err=timed["ragged"][0]))
 
-    # (b), (c) conv_lnl's backward on both routes; on the FFT route it reads
-    # what the forward's residual instantiation wrote (rows conv_lnl_res*)
+    # (b), (c) conv_lnl's backward on every route; off the matmul-DFT route
+    # it reads what the forward's residual instantiation wrote (rows
+    # conv_lnl_res*)
     mixed_spec = build_model_spec(flagship_components(MIXED_SHAPE, MIXED_PSF_SHAPE))
     radix7_spec = build_model_spec(flagship_components(RADIX7_SHAPE, RADIX7_PSF_SHAPE))
     padded_spec = build_model_spec(flagship_components(PADDED_SHAPE, PADDED_PSF_SHAPE))
-    dft_spec = build_model_spec(flagship_components(DFT_SHAPE, DFT_PSF_SHAPE))
+    cluster_spec = build_model_spec(flagship_components(CLUSTER_SHAPE, CLUSTER_PSF_SHAPE))
     for s_, route, name in ((spec, "fft", "conv_lnl_backward"),
                             (mixed_spec, "fft", "conv_lnl_backward_mixed"),
                             (radix7_spec, "fft", "conv_lnl_backward_radix7"),
                             (padded_spec, "padded", "conv_lnl_backward_padded"),
-                            (dft_spec, "dft", "conv_lnl_backward_dft")):
-        p, th = inputs(s_)
-        raws = p.raw_and_ps(th)[0].contiguous()
-        consts = p.consts
-        lnl = CL.batched_conv_lnl(raws, consts)
-        grad = torch.as_tensor(rng.uniform(0.5, 2.0, B_HALF), dtype=torch.float32,
-                               device=post.device)
-        if CL.conv_route(s_.shape) != route:
-            raise AssertionError(f"{s_.shape} does not take the {route} route")
-        c64 = build_posterior(s_, device="cpu", dtype=torch.float64,
-                              lnpost="batched").consts
-        hh, ww = s_.shape
-        n = B_HALF * hh * ww
-        spectra_bytes = 4 * sum(t.numel() for t in (
-            consts.psf_r, consts.psf_i, consts.var_r, consts.var_i))
-        data_bytes = spectra_bytes + 4 * sum(t.numel() for t in (
-            consts.obs, consts.obs_var, consts.good_f))
-        f_psf = torch.as_tensor(s_.f_psf_stack[0], device=post.device).to(torch.complex64)
-        f_var = torch.as_tensor(s_.f_var_stack[0], device=post.device).to(torch.complex64)
-        residuals = None
-        if route in ("fft", "padded"):
-            geometry = fft_geometry(s_.shape)
-            res_row, residuals = residual_row(
-                "conv_lnl_res" + ("" if geometry == "radix2" else f"_{geometry}"),
-                raws, consts, c64, lnl, f_psf, f_var, data_bytes)
-            rows.append(res_row)
-        routes = dict(CL.batched_conv_lnl_backward.route_launches)
-        got = CL.batched_conv_lnl_backward(raws, consts, lnl, grad, residuals)
-        routes[route] += 1
-        if CL.batched_conv_lnl_backward.route_launches != routes:
-            raise AssertionError(f"{name} did not launch on the {route} route")
-        plain = CL.batched_conv_lnl_backward_plain(raws, consts, lnl, grad)
-        same_nonfinite(got, plain)
-        want = CL.batched_conv_lnl_backward_plain(
-            raws.double().cpu(), c64, lnl.double().cpu(),
-            grad.double().cpu()).to(post.device)
-        keep = torch.isfinite(lnl)
-        abs_err = (got[keep].double() - want[keep]).abs().max().item()
-        err = normalized_err(got[keep], want[keep], dims=(1, 2))
-        plain_err = normalized_err(plain[keep], want[keep], dims=(1, 2))
-        log(f"{name}: max normalized err {err:.3e} (tol {CONV_BWD_TOL:g}; float32 "
-            f"plain {plain_err:.3e}), walkers compared {int(keep.sum())}")
-        if not (err <= CONV_BWD_TOL and keep.sum().item() >= B_HALF // 2):
-            raise AssertionError(f"{name} disagrees with its plain version")
-        if not same_bits(got, CL.batched_conv_lnl_backward(raws, consts, lnl, grad,
-                                                           residuals)):
-            raise AssertionError(f"{name}: two launches differ")
-
-        def library():  # autograd through the torch.fft formulation, a yardstick
-            x = raws.detach().requires_grad_(True)
-            with torch.enable_grad():
-                out = gaussian_lnlike(consts.obs - convolve(x, f_psf),
-                                      1.0 / (convolve(x * x, f_var) + consts.obs_var),
-                                      consts.good)
-                return torch.autograd.grad(out, x, grad)[0]
-
-        if route in ("fft", "padded"):  # one pair: the weights, the raw image,
-            # the gradient (the function's bound at the image's size)
-            bms, by, term = bound(16 * n + spectra_bytes + 12 * B_HALF,
-                                  B_HALF * 2 * fft_conv_ops(hh, ww)
-                                  + BWD_COMBINE_OPS_PER_PIXEL * n)
-        else:  # the forward pair again, the adjoint pair, the weights, the combine
-            bms, by, term = bound(8 * raws.numel() + data_bytes + 8 * B_HALF,
-                                  2 * conv_lnl_ops(B_HALF, hh, ww) + 12 * n)
-        rows.append(dict(
-            name=name, route="cuda", source=_build.source_path("conv_lnl_backward"),
-            replaces="psfmc_tpu/ops/pallas/lnpost_batched.py:191 (its gradient)",
-            launches=0, max_abs_err=abs_err, max_normalized_err=err,
-            ms=time_ms(lambda: CL.batched_conv_lnl_backward(raws, consts, lnl, grad,
-                                                            residuals)),
-            plain_ms=time_ms(lambda: CL.batched_conv_lnl_backward_plain(
-                raws, consts, lnl, grad)),
-            bound_ms=bms, bound_by=by, bound_term=term, library_ms=time_ms(library),
-            library="torch.autograd through torch.fft convolutions of the forward",
-            conv_route=route))
-        if route == "padded":  # the transform's own pair
-            mh, mw = consts.padded_shape
-            rows[-1].update(transform_shape=[mh, mw], transform_bound_ms=bound(
-                0, B_HALF * 2 * fft_conv_ops(mh, mw))[0])
-        if route in ("fft", "padded"):  # the Adam step's pair: the residual forward, the backward
-            def pair():
-                l_, *r_ = CL.batched_conv_lnl_residuals(raws, consts)
-                return CL.batched_conv_lnl_backward(raws, consts, l_, grad, r_)
-
-            if not same_bits(pair(), got):
-                raise AssertionError(f"{name}: the pair differs from the backward")
-            rows[-1]["pair_ms"] = time_ms(pair)
-            rows[-1]["pair_bound_ms"], _, rows[-1]["pair_bound_term"] = bound(
-                8 * n + data_bytes + 8 * B_HALF,
-                conv_lnl_ops(B_HALF, hh, ww) + RES_OPS_PER_PIXEL * n
-                + B_HALF * 2 * fft_conv_ops(hh, ww) + BWD_COMBINE_OPS_PER_PIXEL * n)
-            # the matmul-DFT route on the same inputs
-            dft = CL._launch_backward(raws, consts, lnl, grad, "dft")
-            dft_err = normalized_err(dft[keep], want[keep], dims=(1, 2))
-            if not dft_err <= CONV_BWD_TOL:
-                raise AssertionError(f"{name}: the matmul-DFT route disagrees "
-                                     f"({dft_err:.3e})")
-            rows[-1]["dft_route_ms"] = time_ms(
-                lambda: CL._launch_backward(raws, consts, lnl, grad, "dft"))
+                            (cluster_spec, "cluster", "conv_lnl_backward_cluster")):
+        rows += conv_backward_rows(s_, route, name, post.device, rng)
     for r in rows:
         log(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.5f} ms by {r['bound_by']} ({r['bound_term']}), "
@@ -3141,6 +3089,127 @@ def backward_rows(post, spec):
                if "pair_ms" in r else "")
             + (f"; the forward without residuals {r['forward_ms']:.4f} ms"
                if "forward_ms" in r else "") + ")")
+    return rows
+
+
+def conv_backward_rows(spec, route, name, device, rng):
+    """conv_lnl's backward at ``spec``'s shape on ``route`` at
+    :data:`B_HALF` walkers (the flagship at prior draws), against its
+    plain version (within :data:`CONV_BWD_TOL` of the float64 one, the same
+    non-finite entries, the same bits on a second launch), with its times
+    and bound and, off the matmul-DFT route, the matmul-DFT route's time on
+    the same inputs and the Adam step's pair; preceded there by the row of
+    the forward's residual instantiation that it reads
+    (:func:`residual_row`).  Returns those rows."""
+    import torch
+
+    from psfmc_tpu_torch.flagship import prior_draws
+    from psfmc_tpu_torch.models import build_posterior
+    from psfmc_tpu_torch.ops import convolve, gaussian_lnlike
+    from psfmc_tpu_torch.ops.kernels import _build
+    from psfmc_tpu_torch.ops.kernels import conv_lnl as CL
+
+    rows = []
+    p = build_posterior(spec, device=device, lnpost="batched")
+    th = torch.as_tensor(prior_draws(spec, B_HALF, seed=SEED + 6), dtype=torch.float32,
+                         device=device)
+    raws = p.raw_and_ps(th)[0].contiguous()
+    consts = p.consts
+    lnl = CL.batched_conv_lnl(raws, consts)
+    grad = torch.as_tensor(rng.uniform(0.5, 2.0, B_HALF), dtype=torch.float32,
+                           device=device)
+    if CL.conv_route(spec.shape) != route:
+        raise AssertionError(f"{spec.shape} does not take the {route} route")
+    c64 = build_posterior(spec, device="cpu", dtype=torch.float64,
+                          lnpost="batched").consts
+    hh, ww = spec.shape
+    n = B_HALF * hh * ww
+    spectra_bytes = 4 * sum(t.numel() for t in (
+        consts.psf_r, consts.psf_i, consts.var_r, consts.var_i))
+    data_bytes = spectra_bytes + 4 * sum(t.numel() for t in (
+        consts.obs, consts.obs_var, consts.good_f))
+    f_psf = torch.as_tensor(spec.f_psf_stack[0], device=device).to(torch.complex64)
+    f_var = torch.as_tensor(spec.f_var_stack[0], device=device).to(torch.complex64)
+    residuals = None
+    if route != "dft":
+        geometry = fft_geometry(spec.shape)
+        res_row, residuals = residual_row(
+            "conv_lnl_res" + ("" if geometry == "radix2" else f"_{geometry}"),
+            raws, consts, c64, lnl, f_psf, f_var, data_bytes)
+        rows.append(res_row)
+    routes = dict(CL.batched_conv_lnl_backward.route_launches)
+    got = CL.batched_conv_lnl_backward(raws, consts, lnl, grad, residuals)
+    routes[route] += 1
+    if CL.batched_conv_lnl_backward.route_launches != routes:
+        raise AssertionError(f"{name} did not launch on the {route} route")
+    plain = CL.batched_conv_lnl_backward_plain(raws, consts, lnl, grad)
+    same_nonfinite(got, plain)
+    want = CL.batched_conv_lnl_backward_plain(
+        raws.double().cpu(), c64, lnl.double().cpu(),
+        grad.double().cpu()).to(device)
+    keep = torch.isfinite(lnl)
+    abs_err = (got[keep].double() - want[keep]).abs().max().item()
+    err = normalized_err(got[keep], want[keep], dims=(1, 2))
+    plain_err = normalized_err(plain[keep], want[keep], dims=(1, 2))
+    log(f"{name}: max normalized err {err:.3e} (tol {CONV_BWD_TOL:g}; float32 "
+        f"plain {plain_err:.3e}), walkers compared {int(keep.sum())}")
+    if not (err <= CONV_BWD_TOL and keep.sum().item() >= B_HALF // 2):
+        raise AssertionError(f"{name} disagrees with its plain version")
+    if not same_bits(got, CL.batched_conv_lnl_backward(raws, consts, lnl, grad,
+                                                       residuals)):
+        raise AssertionError(f"{name}: two launches differ")
+
+    def library():  # autograd through the torch.fft formulation, a yardstick
+        x = raws.detach().requires_grad_(True)
+        with torch.enable_grad():
+            out = gaussian_lnlike(consts.obs - convolve(x, f_psf),
+                                  1.0 / (convolve(x * x, f_var) + consts.obs_var),
+                                  consts.good)
+            return torch.autograd.grad(out, x, grad)[0]
+
+    if route != "dft":  # one pair: the weights, the raw image,
+        # the gradient (the function's bound at the image's size)
+        bms, by, term = bound(16 * n + spectra_bytes + 12 * B_HALF,
+                              B_HALF * 2 * fft_conv_ops(hh, ww)
+                              + BWD_COMBINE_OPS_PER_PIXEL * n)
+    else:  # the forward pair again, the adjoint pair, the weights, the combine
+        bms, by, term = bound(8 * raws.numel() + data_bytes + 8 * B_HALF,
+                              2 * conv_lnl_ops(B_HALF, hh, ww) + 12 * n)
+    rows.append(dict(
+        name=name, route="cuda", source=_build.source_path("conv_lnl_backward"),
+        replaces="psfmc_tpu/ops/pallas/lnpost_batched.py:191 (its gradient)",
+        launches=0, max_abs_err=abs_err, max_normalized_err=err,
+        ms=time_ms(lambda: CL.batched_conv_lnl_backward(raws, consts, lnl, grad,
+                                                        residuals)),
+        plain_ms=time_ms(lambda: CL.batched_conv_lnl_backward_plain(
+            raws, consts, lnl, grad)),
+        bound_ms=bms, bound_by=by, bound_term=term, library_ms=time_ms(library),
+        library="torch.autograd through torch.fft convolutions of the forward",
+        conv_route=route))
+    if route in ("padded", "cluster"):  # the transform's own pair
+        mh, mw = consts.padded_shape
+        rows[-1].update(transform_shape=[mh, mw], transform_bound_ms=bound(
+            0, B_HALF * 2 * fft_conv_ops(mh, mw))[0])
+    if route != "dft":  # the Adam step's pair: the residual forward, the backward
+        def pair():
+            l_, *r_ = CL.batched_conv_lnl_residuals(raws, consts)
+            return CL.batched_conv_lnl_backward(raws, consts, l_, grad, r_)
+
+        if not same_bits(pair(), got):
+            raise AssertionError(f"{name}: the pair differs from the backward")
+        rows[-1]["pair_ms"] = time_ms(pair)
+        rows[-1]["pair_bound_ms"], _, rows[-1]["pair_bound_term"] = bound(
+            8 * n + data_bytes + 8 * B_HALF,
+            conv_lnl_ops(B_HALF, hh, ww) + RES_OPS_PER_PIXEL * n
+            + B_HALF * 2 * fft_conv_ops(hh, ww) + BWD_COMBINE_OPS_PER_PIXEL * n)
+        # the matmul-DFT route on the same inputs
+        dft = CL._launch_backward(raws, consts, lnl, grad, "dft")
+        dft_err = normalized_err(dft[keep], want[keep], dims=(1, 2))
+        if not dft_err <= CONV_BWD_TOL:
+            raise AssertionError(f"{name}: the matmul-DFT route disagrees "
+                                 f"({dft_err:.3e})")
+        rows[-1]["dft_route_ms"] = time_ms(
+            lambda: CL._launch_backward(raws, consts, lnl, grad, "dft"))
     return rows
 
 
@@ -3158,8 +3227,8 @@ def residual_check(raws, consts, c64, lnl, name):
     from psfmc_tpu_torch.ops.kernels import conv_lnl as CL
 
     b, h, w = raws.shape
-    plain = (CL.padded_fft_conv_residuals_plain if CL.conv_route((h, w)) == "padded"
-             else CL.packed_fft_conv_residuals_plain)
+    plain = (CL.packed_fft_conv_residuals_plain if CL.conv_route((h, w)) == "fft"
+             else CL.padded_fft_conv_residuals_plain)
     got, weights, scale_exp = CL.batched_conv_lnl_residuals(raws, consts)
     again = CL.batched_conv_lnl_residuals(raws, consts)
     # on the card one kernel's two instantiations; on the CPU (a rehearsal)
@@ -3205,8 +3274,8 @@ def residual_row(name, raws, consts, c64, lnl, f_psf, f_var, data_bytes):
 
     b, h, w = raws.shape
     route = CL.conv_route((h, w))
-    plain = (CL.padded_fft_conv_residuals_plain if route == "padded"
-             else CL.packed_fft_conv_residuals_plain)
+    plain = (CL.packed_fft_conv_residuals_plain if route == "fft"
+             else CL.padded_fft_conv_residuals_plain)
     routes = dict(CL.batched_conv_lnl.route_launches)
     residuals, _, errs = residual_check(raws, consts, c64, lnl, name)
     routes[route + "_res"] += 2
@@ -3289,7 +3358,7 @@ def check_step_tally(program, want, label):
 
 
 def map_phase(shape=(128, 128), psf_shape=(64, 64), joint_shapes=None, device=None,
-              radix7_band=None, dft_band=None, padded_band=None):
+              radix7_band=None, cluster_band=None, padded_band=None):
     """The gradient path at full width (the arguments shrink it for a
     rehearsal on the CPU): the MAP flagship through ``model_galaxy_map``
     (64 starts x 500 Adam steps, Laplace), ``model_galaxy_mcmc(init=
@@ -3298,7 +3367,7 @@ def map_phase(shape=(128, 128), psf_shape=(64, 64), joint_shapes=None, device=No
     route's mixed-radix geometry; then 50 steps with band 1 at
     ``radix7_band``, on the same geometry with radix-7 stages, 50 with
     band 1 at ``padded_band``, on the padded route, and 50 with band 1 at
-    ``dft_band``, on the matmul-DFT route).  Returns the backward rows'
+    ``cluster_band``, on the cluster route).  Returns the backward rows'
     launches and the timings."""
     import torch
 
@@ -3322,7 +3391,7 @@ def map_phase(shape=(128, 128), psf_shape=(64, 64), joint_shapes=None, device=No
 
     joint_shapes = joint_shapes or JOINT_SHAPES
     radix7_band = radix7_band or RADIX7_SHAPE
-    dft_band = dft_band or DFT_SHAPE
+    cluster_band = cluster_band or CLUSTER_SHAPE
     padded_band = padded_band or PADDED_SHAPE
     counted = grad_kernels()
     t_phase = time.perf_counter()
@@ -3529,16 +3598,16 @@ def map_phase(shape=(128, 128), psf_shape=(64, 64), joint_shapes=None, device=No
         # the joint MAP: band 1's conv_lnl and backward on the FFT route's
         # mixed-radix geometry; then shorter ones with band 1 on that
         # geometry's radix-7 stages, on the padded route and on the
-        # matmul-DFT route, so that each of their kernels runs inside a
+        # cluster route, so that each of their kernels runs inside a
         # captured step
         for key, jshapes, steps in (
                 ("joint", joint_shapes, MAP_STEPS),
                 ("joint_radix7", (joint_shapes[0], radix7_band), MAP_SHORT_STEPS),
                 ("joint_padded", (joint_shapes[0], padded_band), MAP_SHORT_STEPS),
-                ("joint_dft", (joint_shapes[0], dft_band), MAP_SHORT_STEPS)):
+                ("joint_cluster", (joint_shapes[0], cluster_band), MAP_SHORT_STEPS)):
             band1 = fft_geometry(jshapes[1]) or "dft"
             if band1 != {"joint": "mixed", "joint_radix7": "radix7",
-                         "joint_padded": "padded", "joint_dft": "dft"}[key]:
+                         "joint_padded": "padded", "joint_cluster": "cluster"}[key]:
                 raise AssertionError(f"map: the {key} MAP's band 1 {jshapes[1]} "
                                      f"takes conv_lnl's {band1}")
             bands, jtruth = joint_map_components(jshapes, psf_shape, seed=SEED)
@@ -3552,11 +3621,14 @@ def map_phase(shape=(128, 128), psf_shape=(64, 64), joint_shapes=None, device=No
             j_launches, j_routes = read_counts(counted)
             jprog = map_program(jm.posterior_fns)
             # band 0 on the FFT route, band 1 on its own; a forward under
-            # autograd on the FFT or padded route writes its residuals
+            # autograd off the matmul-DFT route writes its residuals, and no
+            # launch takes the matmul-DFT route
             tally = {("render_sersics", None): 2, ("render_sersics_backward", None): 2}
             jwant = dict.fromkeys(("batched_conv_lnl:fft_res", "batched_conv_lnl:padded_res",
+                                   "batched_conv_lnl:cluster_res", "batched_conv_lnl:dft",
                                    "batched_conv_lnl_backward:fft",
                                    "batched_conv_lnl_backward:padded",
+                                   "batched_conv_lnl_backward:cluster",
                                    "batched_conv_lnl_backward:dft"), 0)
             for route in ("fft", CL.conv_route(jshapes[1])):
                 forward = route if route == "dft" else f"{route}_res"
@@ -4622,8 +4694,9 @@ STEP_TIMES_STEPS = 5  # Adam steps that capture the joint MAP's step before it i
 
 
 def step_times_phase(psf_shape=(64, 64), bands=None):
-    """For each band 1 shape of ``bands`` (74x74, the padded route, and
-    98x98, the radix-7 geometry, unless given): the two captured steps
+    """For each band 1 shape of ``bands`` (74x74, the padded route, 98x98,
+    the radix-7 geometry, and 94x94, the cluster route (the matmul-DFT
+    route on a tree without it), unless given): the two captured steps
     that run conv_lnl at that shape inside the joint flagship, each
     replayed back to back and timed
     by CUDA events (:func:`time_ms`): the offset variant's retained sampler
@@ -4647,7 +4720,7 @@ def step_times_phase(psf_shape=(64, 64), bands=None):
     from psfmc_tpu_torch.sampler import EnsembleSampler
 
     result = {}
-    for band in bands or (PADDED_SHAPE, RADIX7_SHAPE):
+    for band in bands or (PADDED_SHAPE, RADIX7_SHAPE, CLUSTER_SHAPE):
         shapes = (JOINT_SHAPES[0], tuple(band))
         out = {"band": list(shapes[1]), "route": conv_route(shapes[1])}
         model = JointModel(joint_components(shapes, psf_shape, "offset"))
@@ -4824,7 +4897,7 @@ BATCH_CHUNK_TARGETS, BATCH_CHUNK, BATCH_CHUNK_STEPS = 10, 4, 4  # 3 chunks, the 
 BATCH_SURVEY_TARGETS, BATCH_SURVEY_STEPS = 8, 5  # survey mode: a PSF star per target
 BATCH_STAR_SIGMAS = (1.6, 2.4)  # px, the survey targets' Gaussian PSF stars
 BATCH_JOINT_TARGETS, BATCH_JOINT_STEPS = 4, 10  # the joint flagship's batch
-BATCH_ROUTE_STEPS = 2  # joint batches with band 1 on the padded and matmul-DFT routes
+BATCH_ROUTE_STEPS = 2  # joint batches with band 1 on the padded and cluster routes
 SBC_SIMS, SBC_BURN, SBC_SAMPLE, SBC_RECORD = 16, 10, 20, 5
 
 
@@ -4891,6 +4964,11 @@ def target_row(name, post, spec, stack, raws, library_spectra):
         shared_ms=time_ms(lambda: CL.batched_conv_lnl(raws, shared)),
         conv_route=route, geometry=fft_geometry((h, w)), targets=nt, walkers=b,
         target_spectra=stack.target_spectra, library_rel_diff=lib_rel)
+    if route == "cluster" and not stack.target_spectra:  # the former route, same inputs
+        _, dft_rel, _ = compare(CL._launch(raws, stack, "dft"), want)
+        if not dft_rel <= CONV_LNL_TOL:
+            raise AssertionError(f"{name}: the matmul-DFT route disagrees ({dft_rel:.3e})")
+        row["dft_route_ms"] = time_ms(lambda: CL._launch(raws, stack, "dft"))
     log(f"{name}: {row['ms']:.4f} ms (shared constants {row['shared_ms']:.4f} ms, plain "
         f"{row['plain_ms']:.4f} ms, torch.fft {row['library_ms']:.4f} ms), bound "
         f"{bms:.5f} ms by {by} ({term}), {row['ms'] / bms:.1f}x the bound ({CARD})")
@@ -4901,8 +4979,8 @@ def target_rows(nt, per, psf_shape, device):
     """The per-target rows at ``nt`` targets x ``per`` walkers (the flagship
     batch's half-step launch): conv_lnl with per-target planes on the
     radix-2 FFT route (the flagship's shape), the mixed-radix geometry,
-    the padded and the matmul-DFT route, and with per-target spectra on
-    the FFT route (:func:`target_row`)."""
+    the padded and the cluster route, and with per-target spectra on the
+    FFT and the cluster route (:func:`target_row`)."""
     import torch
 
     from psfmc_tpu_torch.batchfit import prepare_psf_stack
@@ -4915,7 +4993,9 @@ def target_rows(nt, per, psf_shape, device):
              ("conv_lnl_targets_spectra", FLAGSHIP_SHAPE, psf_shape, "fft", True),
              ("conv_lnl_targets_mixed", MIXED_SHAPE, MIXED_PSF_SHAPE, "fft", False),
              ("conv_lnl_targets_padded", PADDED_SHAPE, PADDED_PSF_SHAPE, "padded", False),
-             ("conv_lnl_targets_dft", DFT_SHAPE, DFT_PSF_SHAPE, "dft", False))
+             ("conv_lnl_targets_cluster", CLUSTER_SHAPE, CLUSTER_PSF_SHAPE, "cluster", False),
+             ("conv_lnl_targets_cluster_spectra", CLUSTER_SHAPE, CLUSTER_PSF_SHAPE, "cluster",
+              True))
     for i, (name, shape, pshape, route, spectra) in enumerate(cases):
         if CL.conv_route(shape) != route:
             raise AssertionError(f"{name}: {shape} takes {CL.conv_route(shape)}, not {route}")
@@ -4972,9 +5052,10 @@ def batch_phase(shape=None, psf_shape=(64, 64), joint_shapes=None, device=None):
     by every chunk, the graphed fit equal to the eager one bit for bit,
     and swapping two targets of different chunks changing exactly their
     rows), conv_lnl with per-target planes (and spectra) on every route at
-    608 walkers (:func:`target_rows`), survey mode (a PSF star per target),
+    608 walkers (:func:`target_rows`), survey mode (a PSF star per target;
+    again at 94x94, where the per-target spectra take the cluster route),
     the joint flagship's batch (and two short ones with band 1 on the
-    padded and the matmul-DFT route), and ``run_sbc``.  After each fit the
+    padded and the cluster route), and ``run_sbc``.  After each fit the
     render and conv_lnl are held against their plain versions at its
     half-step batch, each band on its own shape and stack (608 walkers on
     the flagship batch).  Returns the rows, each row's launches on these
@@ -5200,13 +5281,39 @@ def batch_phase(shape=None, psf_shape=(64, 64), joint_shapes=None, device=None):
             f"batched_conv_lnl:{route}_targets"]
         out["survey"] = {"targets": BATCH_SURVEY_TARGETS, "wall_s": swall}
 
-        # the joint flagship's batch, then band 1 on the padded and DFT routes
+        # survey mode at 94x94: the per-target spectra on the cluster route,
+        # the kernel path (before the cluster route, the general path)
+        with tempfile.TemporaryDirectory() as tmp:
+            cmodel = as_model(write_flagship_files(tmp, CLUSTER_SHAPE, CLUSTER_PSF_SHAPE),
+                              device=device)
+        croute = conv_route(CLUSTER_SHAPE)
+        cobs, civm, _ = BF.simulate_stack(cmodel, BATCH_SURVEY_TARGETS, seed=6)
+        cstars, cstar_ivms = psf_stars(BATCH_SURVEY_TARGETS, CLUSTER_PSF_SHAPE, SEED + 44)
+        cres, cwall, claunch, croutes = counted_fit(
+            "batch, survey at 94x94", cmodel, cobs, civm, burn=BATCH_SURVEY_STEPS,
+            iterations=BATCH_SURVEY_STEPS, psf_stack=cstars, psfivm_stack=cstar_ivms)
+        want_launches("batch, survey at 94x94", claunch, croutes, 1,
+                      2 * BATCH_SURVEY_STEPS, {f"{croute}_targets": 1, "dft_targets": 0})
+        batch_fit_checks("batch, survey at 94x94", cres, BATCH_SURVEY_TARGETS,
+                         cmodel.num_params, {})
+        cstack = cmodel.posterior_fns.__dict__["_batch_program"][1].stacks[0]
+        if cstack.mode != "batched" or not cstack.consts.target_spectra:
+            raise AssertionError("batch, survey at 94x94: not on the kernel path with "
+                                 f"per-target spectra ({cstack.mode})")
+        check_batch("batch, survey at 94x94", cmodel.posterior_fns)
+        render_launches += claunch["render_sersics"]
+        row_launches["conv_lnl_targets_cluster_spectra"] = croutes[
+            f"batched_conv_lnl:{croute}_targets"]
+        out["survey_cluster"] = {"targets": BATCH_SURVEY_TARGETS, "wall_s": cwall,
+                                 "shape": list(CLUSTER_SHAPE), "route": croute}
+
+        # the joint flagship's batch, then band 1 on the padded and cluster routes
         for label, shapes, steps_j, row in (
                 ("joint", joint_shapes, BATCH_JOINT_STEPS, "conv_lnl_targets_mixed"),
                 ("joint, padded band", (joint_shapes[0], PADDED_SHAPE), BATCH_ROUTE_STEPS,
                  "conv_lnl_targets_padded"),
-                ("joint, matmul-DFT band", (joint_shapes[0], DFT_SHAPE),
-                 BATCH_ROUTE_STEPS, "conv_lnl_targets_dft")):
+                ("joint, cluster band", (joint_shapes[0], CLUSTER_SHAPE),
+                 BATCH_ROUTE_STEPS, "conv_lnl_targets_cluster")):
             joint = JointModel(joint_components(shapes, psf_shape), device=dev)
             jobs, jivm, _ = BF.simulate_stack(joint, BATCH_JOINT_TARGETS, seed=4)
             jres, jwall, jl, jr = counted_fit(
@@ -5272,7 +5379,7 @@ HIER_CHAINS, HIER_POOL, HIER_DEPTH = 4, 16, 8
 HIER_BURN, HIER_SAMPLE = 20, 20
 HIER_SURVEY_TARGETS, HIER_SURVEY_STEPS, HIER_SURVEY_DEPTH = 8, 10, 6
 HIER_JOINT_TARGETS, HIER_JOINT_STEPS, HIER_JOINT_DEPTH = 4, 5, 4
-HIER_JOINT_BAND1 = (MIXED_SHAPE, PADDED_SHAPE, DFT_SHAPE)  # band 1 on each route
+HIER_JOINT_BAND1 = (MIXED_SHAPE, PADDED_SHAPE, CLUSTER_SHAPE)  # band 1 on each route
 HIER_ENSEMBLE_TARGETS, HIER_ENSEMBLE_STEPS = 4, 4
 HIER_EQUAL, HIER_EQUAL_DEPTH = 2, 3  # graphed against eager: warmup and retained steps
 HIER_CPU_ROWS = 8  # chain rows whose lnpost the CPU's float64 replays
@@ -5571,11 +5678,12 @@ def target_grad_rows(nt, per, psf_shape, device, launches):
     hierarchical leaf's batch (``nt`` targets x ``per`` chains) and at
     :data:`HIER_ROW_WALKERS`: per-target planes on the radix-2 FFT route
     (the flagship's shape), with per-target spectra there, on the
-    mixed-radix geometry, the padded route and (the backward) the
-    matmul-DFT route.  Each against its plain version (float64 scheme),
-    with its times at both batches, the plain version's, the ``torch.fft``
-    composite's (its lnL and weights; for the backward autograd through
-    it) and its bound at the leaf's batch; ``launches`` by row name."""
+    mixed-radix geometry, the padded route and the cluster route (94x94,
+    the matmul-DFT route's times on the same inputs beside it).  Each
+    against its plain version (float64 scheme), with its times at both
+    batches, the plain version's, the ``torch.fft`` composite's (its lnL
+    and weights; for the backward autograd through it) and its bound at
+    the leaf's batch; ``launches`` by row name."""
     import torch
 
     from psfmc_tpu_torch.batchfit import prepare_psf_stack
@@ -5590,7 +5698,7 @@ def target_grad_rows(nt, per, psf_shape, device, launches):
              ("targets_spectra", FLAGSHIP_SHAPE, psf_shape, True),
              ("targets_mixed", MIXED_SHAPE, MIXED_PSF_SHAPE, False),
              ("targets_padded", PADDED_SHAPE, PADDED_PSF_SHAPE, False),
-             ("targets_dft", DFT_SHAPE, DFT_PSF_SHAPE, False))
+             ("targets_cluster", CLUSTER_SHAPE, CLUSTER_PSF_SHAPE, False))
     for i, (suffix, shape, pshape, spectra) in enumerate(cases):
         route = CL.conv_route(shape)
         spec = build_model_spec(flagship_components(shape, pshape))
@@ -5649,8 +5757,8 @@ def target_grad_rows(nt, per, psf_shape, device, launches):
                                              f"{name}: at the leaf's B = {b}")
             residuals["leaf"] = res
             residuals["big"] = tuple(CL.batched_conv_lnl_residuals(raws_big, stack)[1:])
-            plain = (CL.padded_fft_conv_residuals_plain if route == "padded"
-                     else CL.packed_fft_conv_residuals_plain)
+            plain = (CL.packed_fft_conv_residuals_plain if route == "fft"
+                     else CL.padded_fft_conv_residuals_plain)
             bms, by, term = bound(12 * n + data_bytes + 8 * b,
                                   conv_lnl_ops(b, h, w) + RES_OPS_PER_PIXEL * n)
             rows.append(dict(
@@ -5712,6 +5820,13 @@ def target_grad_rows(nt, per, psf_shape, device, launches):
             ms_608=time_ms(lambda: CL.batched_conv_lnl_backward(
                 raws_big, stack, lnl_big, grad_big, residuals.get("big"))),
             walkers_608=big_n))
+        if route == "cluster":  # the former matmul-DFT route on the same inputs
+            dft = CL._launch_backward(raws, stack, lnl, grad, "dft")
+            dft_err = normalized_err(dft[keep], want[keep], dims=(1, 2))
+            if not dft_err <= CONV_BWD_TOL:
+                raise AssertionError(f"{name}: the matmul-DFT route disagrees ({dft_err:.3e})")
+            rows[-1]["dft_route_ms"] = time_ms(
+                lambda: CL._launch_backward(raws, stack, lnl, grad, "dft"))
     for r in rows:
         log(f"{r['name']}: {r['ms']:.4f} ms at {r['walkers']} walkers ({r['ms_608']:.4f} ms "
             f"at {r['walkers_608']}), plain {r['plain_ms']:.4f} ms, {r['library']} "
@@ -5730,7 +5845,7 @@ def hierarchy_phase(shape=None, psf_shape=(64, 64), device=None):
     survey mode, :data:`HIER_SURVEY_TARGETS` targets each with its own
     Gaussian PSF star; (c) the joint flagship at
     :data:`HIER_JOINT_TARGETS` targets with band 1 at 96x96, 74x74 and
-    94x94 (the mixed-radix, padded and matmul-DFT routes); (d) the
+    94x94 (the mixed-radix, padded and cluster routes); (d) the
     ensemble path at :data:`HIER_ENSEMBLE_TARGETS` targets, graphed
     against eager; (e) ``loo_targets`` on (a).  For the NUTS fits: every
     piece a replay, the launches exact (residual forwards equal backwards
@@ -5909,7 +6024,7 @@ def hierarchy_phase(shape=None, psf_shape=(64, 64), device=None):
             cpu_setups = [H._setup(m, jobs, jivm, kw["population"])
                           for m in (cpu_joint, cpu_joint32)]
             nuts_checks(label, setup, cpu_setups, sm)
-            if band_routes[1] == "dft":  # the matmul-DFT backward inside the graphs
+            if band_routes[1] == "cluster":  # the cluster route inside the graphs
                 checks[label]["graphed_vs_eager"] = hier_graphed_vs_eager(
                     setup, sm.chain[:, -1], counted, label)
             out[f"joint_{band1[0]}"] = fit_out
@@ -5966,6 +6081,118 @@ def hierarchy_phase(shape=None, psf_shape=(64, 64), device=None):
             "kernel_checks": checks, "row_launches": row_launches}
 
 
+
+def cluster_phase(shape=None, psf_shape=(64, 64), device=None):
+    """conv_lnl's cluster route on its own paths at full width (the
+    arguments shrink it for a rehearsal on the CPU): the flagship at a
+    256x256 observation (its transform over 4 blocks) through the driver
+    on the default batched path (:func:`driver_phase` with ``lnpost=None``:
+    250 walkers, 20 + 20 steps in segments, every step a graph replay, the
+    launches exact on the cluster route, the lnpost against the CPU's
+    float64, the resumed fit bit for bit) and the MAP flagship at that
+    observation through ``model_galaxy_map`` (:data:`MAP_STARTS` starts x
+    :data:`MAP_SHORT_STEPS` Adam steps and Laplace: the launches exact, no
+    launch on the matmul-DFT route, every step a replay of one captured
+    step, the lnpost at the MAP within :data:`MAP_LNP_RTOL` of the CPU's
+    float64, the replayed step's time); then the three kernels of the
+    route at :data:`CLUSTER_TIMED`, each row as the kernel and backward
+    rows make it at 94x94 (:func:`likelihood_rows`,
+    :func:`conv_backward_rows`).  Returns the two fits' launches and the
+    rows by shape."""
+    import torch
+
+    from psfmc_tpu_torch import fitting
+    from psfmc_tpu_torch.flagship import flagship_components, prior_draws, write_map_files
+    from psfmc_tpu_torch.models import MultiComponentModel, build_model_spec, build_posterior
+    from psfmc_tpu_torch.ops.kernels import conv_lnl as CL
+
+    shape = CLUSTER_FIT_SHAPE if shape is None else shape
+    if CL.conv_route(shape) != "cluster":
+        raise AssertionError(f"{shape} takes the {CL.conv_route(shape)} route")
+    t_phase = time.perf_counter()
+    out = {}
+    out["driver"], _, _ = driver_phase(shape, psf_shape, device, lnpost=None)
+
+    counted = grad_kernels()
+    with tempfile.TemporaryDirectory() as tmp:
+        path, _ = write_map_files(tmp, shape, psf_shape, seed=SEED)
+        models = []
+        as_model = fitting.as_model
+
+        def kept(*a, **k):
+            models.append(as_model(*a, **k))
+            return models[-1]
+
+        fitting.as_model = kept
+        try:
+            torch.cuda.synchronize()
+            reset_counts(counted)
+            t0 = time.perf_counter()
+            res = fitting.model_galaxy_map(path, output_name=os.path.join(tmp, "map"),
+                                           n_starts=MAP_STARTS, steps=MAP_SHORT_STEPS,
+                                           seed=SEED, laplace=True, device=device)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches, by_route = read_counts(counted)
+        finally:
+            fitting.as_model = as_model
+        (model,) = models
+        cpu = MultiComponentModel(path, device="cpu", dtype=torch.float64)
+    fns = model.posterior_fns
+    # the pool's evaluation, the steps and the final iterate, Laplace's two
+    # gradient calls, the images' render; every forward under autograd with
+    # residuals
+    evals = MAP_SHORT_STEPS + 1
+    want = {"render_sersics": 1 + evals + 2 + 1, "render_sersics_backward": evals + 2,
+            "batched_conv_lnl": 1 + evals + 2, "batched_conv_lnl_backward": evals + 2}
+    want_routes = {"batched_conv_lnl:cluster": 1, "batched_conv_lnl:cluster_res": evals + 2,
+                   "batched_conv_lnl_backward:cluster": evals + 2,
+                   "batched_conv_lnl:dft": 0, "batched_conv_lnl_backward:dft": 0}
+    got_routes = {k: by_route[k] for k in want_routes}
+    program = map_program(fns)
+    graphed = fns.device.type == "cuda"  # a CPU rehearsal has no graphs
+    lnp64 = float(cpu.posterior_fns.log_posterior_batch(res.theta[None])[0])
+    lnp_rel = abs(res.lnpost - lnp64) / abs(lnp64)
+    log(f"cluster: model_galaxy_map at {shape[0]}x{shape[1]}, {MAP_STARTS} starts x "
+        f"{MAP_SHORT_STEPS} steps in {wall:.2f} s; lnpost {res.lnpost:.4f} on the card, "
+        f"{lnp64:.4f} on the CPU in float64 (rel {lnp_rel:.2e}, tol {MAP_LNP_RTOL:g}); "
+        f"{program.replays} replays; launches {launches}, {got_routes}")
+    if launches != want or got_routes != want_routes:
+        raise AssertionError(f"cluster: the MAP launched {launches} {got_routes}, want "
+                             f"{want} {want_routes}")
+    if graphed and program.replays != MAP_SHORT_STEPS:
+        raise AssertionError(f"cluster: {program.replays} replays for {MAP_SHORT_STEPS} "
+                             "steps")
+    if graphed:
+        check_step_tally(program, {("render_sersics", None): 1,
+                                   ("render_sersics_backward", None): 1,
+                                   ("batched_conv_lnl", "cluster_res"): 1,
+                                   ("batched_conv_lnl_backward", "cluster"): 1}, "cluster map")
+        out["adam_step_ms"] = time_ms(program.graph.replay, reps=5, inner=5)
+        log(f"cluster: the MAP's Adam step ({MAP_STARTS} starts) replayed "
+            f"{out['adam_step_ms']:.3f} ms ({CARD})")
+    if not (np.isfinite(res.lnpost) and lnp_rel <= MAP_LNP_RTOL):
+        raise AssertionError("cluster: the MAP's lnpost disagrees with the CPU's float64")
+    out["map"] = dict(launches, **by_route)
+    out["map_lnpost_rel_err"] = lnp_rel
+    out["times"] = {}
+    rng = np.random.RandomState(SEED + 13)
+    for timed, timed_psf in CLUSTER_TIMED:
+        spec = build_model_spec(flagship_components(timed, timed_psf))
+        post = build_posterior(spec, device=device, lnpost="batched")
+        thetas = torch.as_tensor(prior_draws(spec, B_HALF, seed=1), dtype=torch.float32,
+                                 device=post.device)
+        (forward,) = likelihood_rows(post, spec, thetas, ("conv_lnl_cluster", "cluster"),
+                                     None)
+        residual, backward = conv_backward_rows(spec, "cluster", "conv_lnl_backward_cluster",
+                                                post.device, rng)
+        out["times"][f"{timed[0]}x{timed[1]}"] = {
+            "forward": forward, "residual": residual, "backward": backward}
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"cluster: the phase took {out['wall_s']:.1f} s ({CARD})")
+    return out
+
+
 def run_phase(name, fn, *args, **kwargs):
     """Run one phase, then synchronize the card, so that an asynchronous
     CUDA error raised by the phase's launches names this phase before it
@@ -6016,7 +6243,8 @@ def nuts_kernel_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
 # the phases ``--only`` runs (after the build), each by its name
 ONLY_PHASES = {"nuts": lambda: nuts_phase(), "criticism": lambda: criticism_phase(),
                "nuts-kernels": lambda: nuts_kernel_phase(),
-               "batch": lambda: batch_phase(), "hierarchy": lambda: hierarchy_phase()}
+               "batch": lambda: batch_phase(), "hierarchy": lambda: hierarchy_phase(),
+               "cluster": lambda: cluster_phase()}
 
 
 def main():
@@ -6091,6 +6319,7 @@ def main():
     crit = run_phase("criticism", criticism_phase)
     batch = run_phase("batch", batch_phase)
     hier = run_phase("hierarchy", hierarchy_phase)
+    cluster = run_phase("cluster", cluster_phase)
     rows += run_phase("backward rows", backward_rows, post, spec)
     rows += batch["rows"]
     rows += hier["rows"]
@@ -6142,8 +6371,8 @@ def main():
                + jnt_var["batched_conv_lnl:fft:mixed"],
                "conv_lnl_radix7": jnt["batched_conv_lnl:fft:radix7"]
                + jnt_var["batched_conv_lnl:fft:radix7"],
-               "conv_lnl_dft": launches["batched_conv_lnl:dft"]
-               + jnt["batched_conv_lnl:dft"] + jnt_var["batched_conv_lnl:dft"],
+               "conv_lnl_cluster": launches["batched_conv_lnl:cluster"]
+               + jnt["batched_conv_lnl:cluster"] + jnt_var["batched_conv_lnl:cluster"],
                "fused_lnl": driver_launches["fused_lnl:fft"] + fam_var["fused_lnl"],
                "fused_lnl_dft": driver_launches["fused_lnl:dft"]}
     by_name["fused_lnl"] += pri_var["fused_lnl"]
@@ -6167,17 +6396,21 @@ def main():
     # Every forward under autograd on the FFT route is the residual
     # instantiation and has its backward there, at its shape
     grads = [grad[k] for k in ("map", "init", "joint", "joint_radix7", "joint_padded",
-                               "joint_dft")]
+                               "joint_cluster")]
     # the NUTS phase (15): the fitting driver's fit and its resumed call, every leaf
     # on the render, conv_lnl's residual forward and both backward kernels;
     # the general flagship's marginalized run on the render and its backward
     grads += [nuts[k] for k in ("nuts_fit", "nuts_resume", "nuts_marginal")]
+    # the cluster phase (19): the 256x256 MAP on the cluster route
+    grads.append(cluster["map"])
     for g in grads:
         for geo in ("",) + tuple(f":{m}" for m in MIXED_GEOMETRIES):
             if g[f"batched_conv_lnl:fft_res{geo}"] != g[f"batched_conv_lnl_backward:fft{geo}"]:
                 raise AssertionError(f"residual forwards and FFT-route backwards differ: {g}")
-        if g["batched_conv_lnl:padded_res"] != g["batched_conv_lnl_backward:padded"]:
-            raise AssertionError(f"residual forwards and padded-route backwards differ: {g}")
+        for route in ("padded", "cluster"):
+            if g[f"batched_conv_lnl:{route}_res"] != g[f"batched_conv_lnl_backward:{route}"]:
+                raise AssertionError(f"residual forwards and {route}-route backwards "
+                                     f"differ: {g}")
     by_name["sersic_render"] += sum(g["render_sersics"] for g in grads)
     by_name["sersic_render_backward"] = sum(g["render_sersics_backward"] for g in grads)
     for fn, route, row in (("batched_conv_lnl", "fft_res", "conv_lnl_res"),
@@ -6188,17 +6421,21 @@ def main():
             n = sum(g[f"{fn}:{route}:{geo}"] for g in grads)
             by_name[row] -= n
             by_name[f"{row}_{geo}"] = by_name.get(f"{row}_{geo}", 0) + n
-    for fn, row in (("batched_conv_lnl", "conv_lnl"),
-                    ("batched_conv_lnl_backward", "conv_lnl_backward")):
-        by_name[f"{row}_dft"] = by_name.get(f"{row}_dft", 0) + sum(
-            g[f"{fn}:dft"] for g in grads)
-    # the padded route: the 74x74 joint MAP's pool (the forward without
-    # residuals), its steps' residual forwards and backwards
+    # the padded and the cluster route: the 74x74 and 94x94 joint MAPs' and
+    # the 256x256 MAP's pools (the forward without residuals), their steps'
+    # residual forwards and backwards
     for fn, route, row in (("batched_conv_lnl", "padded", "conv_lnl_padded"),
                            ("batched_conv_lnl", "padded_res", "conv_lnl_res_padded"),
                            ("batched_conv_lnl_backward", "padded",
-                            "conv_lnl_backward_padded")):
-        by_name[row] = sum(g[f"{fn}:{route}"] for g in grads)
+                            "conv_lnl_backward_padded"),
+                           ("batched_conv_lnl", "cluster", "conv_lnl_cluster"),
+                           ("batched_conv_lnl", "cluster_res", "conv_lnl_res_cluster"),
+                           ("batched_conv_lnl_backward", "cluster",
+                            "conv_lnl_backward_cluster")):
+        by_name[row] = by_name.get(row, 0) + sum(g[f"{fn}:{route}"] for g in grads)
+    # the cluster phase's 256x256 driver fit: the render and conv_lnl
+    by_name["sersic_render"] += cluster["driver"]["render_sersics"]
+    by_name["conv_lnl_cluster"] += cluster["driver"]["batched_conv_lnl:cluster"]
     # the criticism phase (16): the fused flagship fit and the joint fit with
     # criticism=True, whole calls (sampling, image writer, criticism block)
     for kind in ("single", "joint"):
@@ -6211,7 +6448,7 @@ def main():
         by_name["conv_lnl"] += c["batched_conv_lnl:fft"] - sum(geo.values())
         by_name["conv_lnl_mixed"] += geo["mixed"]
         by_name["conv_lnl_radix7"] += geo["radix7"]
-        by_name["conv_lnl_dft"] += c["batched_conv_lnl:dft"]
+        by_name["conv_lnl_cluster"] += c["batched_conv_lnl:cluster"]
     crit_checks = {k: crit[k]["kernel_checks"] for k in ("single", "joint")}
     # the batch phase (17): the render on every batch fit, conv_lnl with
     # per-target planes on each route and with per-target spectra (the
@@ -6237,6 +6474,13 @@ def main():
             r["nuts_checks"] = nuts["nuts_kernel_checks"]
         if r["name"] == "sersic_render" or r["name"].startswith("conv_lnl_targets"):
             r["batch_checks"] = batch["kernel_checks"]  # at the batch fits' batches
+        kind = {"conv_lnl_cluster": "forward", "conv_lnl_res_cluster": "residual",
+                "conv_lnl_backward_cluster": "backward"}.get(r["name"])
+        if kind:  # the route's other shapes (cluster_phase)
+            r["by_shape"] = {k: {f: x for f, x in v[kind].items()
+                                 if f not in ("name", "route", "source", "replaces",
+                                              "launches")}
+                             for k, v in cluster["times"].items()}
     for r in rows:
         if r["name"].startswith("conv_lnl") and not r["launches"]:
             raise AssertionError(f"{r['name']} was never launched on the main path")
@@ -6261,6 +6505,9 @@ def main():
                     "card": identity}, default=float))
     log(json.dumps({"batch": batch["out"], "card": identity}, default=float))
     log(json.dumps({"hierarchy": hier["out"], "checks": hier["kernel_checks"],
+                    "card": identity}, default=float))
+    log(json.dumps({"cluster": {k: cluster[k] for k in ("driver", "adam_step_ms",
+                                                        "map_lnpost_rel_err", "wall_s")},
                     "card": identity}, default=float))
     log(json.dumps({"kernels": rows, "card": identity}))
     print(json.dumps({"ok": True, "device": {

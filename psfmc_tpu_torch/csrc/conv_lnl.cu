@@ -23,7 +23,7 @@
 // at the 67 TFLOP/s fp32 (non-tensor-core) peak, against 8 MB of images
 // read (~2.5 us).
 //
-// Three routes, chosen by the wrapper from the shape alone (conv_route in
+// Four routes, chosen by the wrapper from the shape alone (conv_route in
 // psfmc_tpu_torch/ops/kernels/conv_lnl.py):
 //
 // FFT route (H and W even with no prime factor above 7, the walker fits
@@ -54,8 +54,17 @@
 // At 74x74 the transform is 150x150 ([5][5][3 2] per axis, 186,080 B of
 // shared memory), 4.1x the image's pixels.
 //
-// matmul-DFT route (every other shape: a side from 82 up that is off the
-// FFT route, a walker too large for a block, a side of 1; conv_lnl_launch): each convolution
+// Cluster route (the shapes whose FFT-route or padded transform fits no
+// block but fits a cluster of 2, 4 or 8 blocks: 88x88, 94x94, 101x101,
+// 160x180, 196x196, 200x200 on 2 blocks, 256x256 on 4;
+// conv_lnl_cluster_launch and its residual instantiation): the padded
+// route's scheme at the transform padded_shape (the image's own sides where
+// the FFT route takes them), held across the blocks' shared memory, one
+// cluster a walker (fft_cluster.cuh); the same arguments as the padded
+// route, the target axis included, and the cluster's size.
+//
+// matmul-DFT route (every other shape: a side of 1, a transform that fits
+// no cluster, from about 470 a side; conv_lnl_launch): each convolution
 // as the twelve real half-spectrum products above, 20x the FFT count of
 // operations at 128x128 (W2 = 65: 2 convolutions x 12 x 2*128*128*65 ~ 51
 // MFLOP per walker, ~6.4 GFLOP per half-ensemble, ~0.1 ms at peak for the
@@ -76,8 +85,8 @@
 // observation.  Walker b reads target t = b / per_target (the walkers of
 // a target are contiguous) and that target's observation, variance and
 // mask planes, data_stride floats apart (H * W; 0 shares one observation,
-// as every single-fit caller does).  On the FFT and padded routes each
-// target may also bring its own PSF: spectra_stride floats between two
+// as every single-fit caller does).  On the FFT, padded and cluster routes
+// each target may also bring its own PSF: spectra_stride floats between two
 // targets' half-spectrum planes and one variance gain per target.  On the
 // matmul-DFT route the spectra are GEMM operands and stay shared (the
 // wrapper sends a batch with per-target spectra there to the general
@@ -92,6 +101,7 @@
 #include <math.h>
 
 #include "dft_conv.cuh"
+#include "fft_cluster.cuh"
 #include "fft_conv.cuh"
 
 namespace {
@@ -389,4 +399,88 @@ extern "C" int conv_lnl_padded_residuals_launch(
       fc::Data{obs, obs_var, good}, per_target, (size_t)data_stride,
       (size_t)spectra_stride, out, reinterpret_cast<float2*>(weights), scale_exp);
   return (int)cudaGetLastError();
+}
+
+namespace {
+
+// The cluster route: one cluster of `ranks` blocks a walker (fft_cluster.cuh),
+// walker b against the spectra and data of target b / per_target.
+template <bool RESID>
+__global__ void __launch_bounds__(fc::kThreads, 1)
+conv_lnl_cluster_kernel(const float* __restrict__ raws, int h, int w, int mh, int mw,
+                        int ranks, const float2* __restrict__ twiddle,
+                        const int* __restrict__ layout, fc::Spectra ks, fc::Data ds,
+                        int per_target, size_t data_stride, size_t spectra_stride,
+                        float* __restrict__ out, float2* __restrict__ weights,
+                        int* __restrict__ scale_exp) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int walker = blockIdx.x / ranks;
+  const fc::ClusterGeom g = fc::load_cluster(smem, h, w, mh, mw, ranks, twiddle, layout);
+  const int t = walker / per_target;
+  fc::cluster_convolve_and_reduce<RESID>(
+      g, raws + (size_t)walker * h * w, fc::target_spectra(ks, t, spectra_stride),
+      fc::target_data(ds, t, data_stride), out + walker,
+      RESID ? weights + (size_t)walker * h * w : nullptr,
+      RESID ? scale_exp + walker : nullptr);
+}
+
+template <bool RESID>
+int launch_cluster_route(const float* raws, int batch, int h, int w, int mh, int mw,
+                         int ranks, int per_target, int data_stride, int spectra_stride,
+                         const float* twiddle, const int* layout, const float* var_gain,
+                         const float* psf_r, const float* psf_i, const float* var_r,
+                         const float* var_i, const float* obs, const float* obs_var,
+                         const float* good, float* out, float* weights, int* scale_exp,
+                         void* stream) {
+  if (batch <= 0) return 0;
+  if (h < 2 || w < 2 || mh != fc::transform_side(h) || mw != fc::transform_side(w))
+    return (int)cudaErrorInvalidValue;
+  if (per_target < 1 || data_stride < 0 || spectra_stride < 0)
+    return (int)cudaErrorInvalidValue;
+  return fc::launch_cluster(
+      &conv_lnl_cluster_kernel<RESID>, batch, ranks,
+      fc::cluster_image_bytes(mh, mw, ranks), (cudaStream_t)stream, raws, h, w, mh, mw,
+      ranks, reinterpret_cast<const float2*>(twiddle), layout,
+      fc::Spectra{psf_r, psf_i, var_r, var_i, var_gain}, fc::Data{obs, obs_var, good},
+      per_target, (size_t)data_stride, (size_t)spectra_stride, out,
+      reinterpret_cast<float2*>(weights), scale_exp);
+}
+
+}  // namespace
+
+// C interface of the cluster route: conv_lnl_padded_launch's arguments with
+// the cluster's size `ranks` (2, 4 or 8; conv_lnl.py's cluster_size) after
+// the transform's sides (mh, mw: padded_shape, the image's own sides where
+// they are even with no prime factor above 7), and twiddle and layout the
+// mixed-radix tables of the transform for both sides (conv_lnl.py's
+// cluster_tables; a power of two planned as radix-2 passes).  Launches
+// batch x ranks blocks on `stream` and returns 0, the cudaError of the
+// attribute call or the launch, cudaErrorInvalidValue for a shape the host
+// would not plan, or -1 where the launch was refused because no such
+// cluster can be scheduled on the card.
+extern "C" int conv_lnl_cluster_launch(
+    const float* raws, int batch, int h, int w, int mh, int mw, int ranks,
+    int per_target, int data_stride, int spectra_stride, const float* twiddle,
+    const int* layout, const float* var_gain, const float* psf_r, const float* psf_i,
+    const float* var_r, const float* var_i, const float* obs, const float* obs_var,
+    const float* good, float* out, void* stream) {
+  return launch_cluster_route<false>(raws, batch, h, w, mh, mw, ranks, per_target,
+                                     data_stride, spectra_stride, twiddle, layout,
+                                     var_gain, psf_r, psf_i, var_r, var_i, obs, obs_var,
+                                     good, out, nullptr, nullptr, stream);
+}
+
+// The cluster route with the residuals for the backward:
+// conv_lnl_cluster_launch's arguments, then weights, (B, H, W, 2) float32,
+// and scale_exp, (B,) int32, as conv_lnl_fft_residuals_launch writes them.
+extern "C" int conv_lnl_cluster_residuals_launch(
+    const float* raws, int batch, int h, int w, int mh, int mw, int ranks,
+    int per_target, int data_stride, int spectra_stride, const float* twiddle,
+    const int* layout, const float* var_gain, const float* psf_r, const float* psf_i,
+    const float* var_r, const float* var_i, const float* obs, const float* obs_var,
+    const float* good, float* out, float* weights, int* scale_exp, void* stream) {
+  return launch_cluster_route<true>(raws, batch, h, w, mh, mw, ranks, per_target,
+                                    data_stride, spectra_stride, twiddle, layout,
+                                    var_gain, psf_r, psf_i, var_r, var_i, obs, obs_var,
+                                    good, out, weights, scale_exp, stream);
 }

@@ -1,5 +1,5 @@
 // The conv+likelihood backward: dlnL/draw of the batched convolution +
-// masked Gaussian lnL, on both routes of the forward (Hopper, sm_90a).
+// masked Gaussian lnL, on every route of the forward (Hopper, sm_90a).
 //
 // Backward of conv_lnl.cu, which replaces the JAX package's Pallas TPU
 // kernel psfmc_tpu/ops/pallas/lnpost_batched.py::make_batched_conv_lnl.
@@ -53,6 +53,13 @@
 // pad).  psfmc_tpu_torch.ops.kernels.conv_lnl.padded_fft_conv_backward_
 // from_residuals_plain is this scheme in plain PyTorch.
 //
+// Cluster route (conv_lnl_cluster_backward_launch; the shapes of
+// conv_lnl.cu's cluster route): the padded route's launch on the cluster's
+// split of the transform (fft_cluster.cuh's cluster_backward): each rank copies
+// the weights into the slots of its own rows, the pair runs across the
+// cluster's shared memory, and each rank combines its share of the image's
+// rows.
+//
 // matmul-DFT route (conv_lnl_dft_backward_launch; every other shape): the
 // forward's products recompute conv and mvar (dft_conv.cuh, 14 launches),
 // one elementwise kernel forms a and c in place, the same products with
@@ -74,8 +81,8 @@
 // bits.
 //
 // Targets (the hierarchical fit, psfmc_tpu_torch/hierarchy.py): as in the
-// forward, walker b belongs to target b / per_target.  On the FFT and
-// padded routes the target's planes are already inside the forward's
+// forward, walker b belongs to target b / per_target.  On the FFT, padded
+// and cluster routes the target's planes are already inside the forward's
 // weights, so the backward reads only that target's spectra and variance
 // gain (spectra_stride floats apart, 0: shared); on the matmul-DFT route the
 // weights kernel reads the target's obs, obs_var and good (data_stride).
@@ -85,6 +92,7 @@
 #include <math.h>
 
 #include "dft_conv.cuh"
+#include "fft_cluster.cuh"
 #include "fft_conv.cuh"
 
 namespace {
@@ -240,6 +248,32 @@ conv_lnl_padded_backward_kernel(const float* __restrict__ raws, int h, int w,
   }
 }
 
+// The cluster route: one cluster of `ranks` blocks a walker.
+__global__ void __launch_bounds__(fc::kThreads, 1)
+conv_lnl_cluster_backward_kernel(const float* __restrict__ raws, int h, int w, int mh,
+                                 int mw, int ranks, const float2* __restrict__ twiddle,
+                                 const int* __restrict__ layout, fc::Spectra kcs,
+                                 int per_target, size_t spectra_stride,
+                                 const float2* __restrict__ weights,
+                                 const int* __restrict__ scale_exp,
+                                 const float* __restrict__ lnl,
+                                 const float* __restrict__ grad,
+                                 float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int walker = blockIdx.x / ranks;
+  const int hw = h * w;
+  const fc::ClusterGeom g = fc::load_cluster(smem, h, w, mh, mw, ranks, twiddle, layout);
+  float* o = out + (size_t)walker * hw;
+  if (!isfinite(__ldg(lnl + walker))) {  // the same for every rank of the cluster
+    for (int p = g.img0 * w + threadIdx.x; p < (g.img0 + g.nimg) * w; p += fc::kThreads)
+      o[p] = 0.0f;
+    return;
+  }
+  fc::cluster_backward(g, raws + (size_t)walker * hw, weights + (size_t)walker * hw,
+                       fc::target_spectra(kcs, walker / per_target, spectra_stride),
+                       __ldg(scale_exp + walker), __ldg(grad + walker), o);
+}
+
 // matmul-DFT route, in place: conv -> a and mvar -> c, walker b against
 // the planes of target b / per_target (data_stride floats apart, 0: shared).
 __global__ void weights_kernel(float* __restrict__ conv, float* __restrict__ mvar,
@@ -343,6 +377,30 @@ extern "C" int conv_lnl_padded_backward_launch(
       (size_t)spectra_stride, reinterpret_cast<const float2*>(weights), scale_exp,
       lnl, grad, out);
   return (int)cudaGetLastError();
+}
+
+// C interface of the cluster route: conv_lnl_padded_backward_launch's
+// arguments with the cluster's size `ranks` after the transform's sides,
+// and twiddle and layout the transform's mixed-radix tables
+// (conv_lnl_cluster_launch's).  Launches batch x ranks blocks on `stream`
+// and returns as conv_lnl_cluster_launch.
+extern "C" int conv_lnl_cluster_backward_launch(
+    const float* raws, int batch, int h, int w, int mh, int mw, int ranks,
+    int per_target, int spectra_stride, const float* twiddle, const int* layout,
+    const float* var_gain, const float* psf_r, const float* psf_ic, const float* var_r,
+    const float* var_ic, const float* weights, const int* scale_exp,
+    const float* lnl, const float* grad, float* out, void* stream) {
+  if (batch <= 0) return 0;
+  if (h < 2 || w < 2 || mh != fc::transform_side(h) || mw != fc::transform_side(w))
+    return (int)cudaErrorInvalidValue;
+  if (per_target < 1 || spectra_stride < 0) return (int)cudaErrorInvalidValue;
+  return fc::launch_cluster(
+      &conv_lnl_cluster_backward_kernel, batch, ranks,
+      fc::cluster_image_bytes(mh, mw, ranks), (cudaStream_t)stream, raws, h, w, mh, mw,
+      ranks, reinterpret_cast<const float2*>(twiddle), layout,
+      fc::Spectra{psf_r, psf_ic, var_r, var_ic, var_gain}, per_target,
+      (size_t)spectra_stride, reinterpret_cast<const float2*>(weights), scale_exp, lnl,
+      grad, out);
 }
 
 // C interface of the matmul-DFT route.  The forward's operators (cw, sw,

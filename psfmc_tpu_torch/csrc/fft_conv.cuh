@@ -271,21 +271,28 @@ __device__ void fft_lines(float2* z, int h, int w, const float2* tw,
   }
 }
 
-// Z -> Y for the pair of bins k and -k at the positions p1 and p2 of
-// the layout the forward passes leave, in place; e = ky * (W/2+1) + kx
-// indexes the half spectra.  K(-k) = conj K(k) gives the kernels' other
-// half, so Y(-k) = conj P + i conj Q where Y(k) = P + i Q.
-__device__ __forceinline__ void pair_at(float2* z, int p1, int p2, int e,
-                                        const Spectra& k, float gain) {
+// Z -> Y for the pair of bins k and -k held at q1 and q2 (the same slot
+// when `self`: a bin that is its own partner), in place; e = ky * (W/2+1)
+// + kx indexes the half spectra.  K(-k) = conj K(k) gives the kernels'
+// other half, so Y(-k) = conj P + i conj Q where Y(k) = P + i Q.
+__device__ __forceinline__ void pair_ptrs(float2* q1, float2* q2, bool self,
+                                          int e, const Spectra& k, float gain) {
   const float pr = __ldg(k.psf_r + e), pi = __ldg(k.psf_i + e);
   const float vr = gain * __ldg(k.var_r + e), vi = gain * __ldg(k.var_i + e);
-  const float2 z1 = z[p1], z2 = z[p2];
+  const float2 z1 = *q1, z2 = *q2;
   const float ar = 0.5f * (z1.x + z2.x), ai = 0.5f * (z1.y - z2.y);
   const float br = 0.5f * (z1.y + z2.y), bi = 0.5f * (z2.x - z1.x);
   const float Pr = ar * pr - ai * pi, Pi = ar * pi + ai * pr;
   const float Qr = br * vr - bi * vi, Qi = br * vi + bi * vr;
-  z[p1] = make_float2(Pr - Qi, Pi + Qr);                // P + i Q
-  if (p2 != p1) z[p2] = make_float2(Pr + Qi, Qr - Pi);  // conj P + i conj Q
+  *q1 = make_float2(Pr - Qi, Pi + Qr);                // P + i Q
+  if (!self) *q2 = make_float2(Pr + Qi, Qr - Pi);     // conj P + i conj Q
+}
+
+// pair_ptrs for the bins at the positions p1 and p2 of the layout the
+// forward passes leave in z.
+__device__ __forceinline__ void pair_at(float2* z, int p1, int p2, int e,
+                                        const Spectra& k, float gain) {
+  pair_ptrs(z + p1, z + p2, p2 == p1, e, k, gain);
 }
 
 // pair_at for the bins (ky, kx) and -k on the bit-reversed layout.

@@ -6,7 +6,7 @@ counts the launches executed (``<wrapper>.launches``, through
 and a plain PyTorch version of the same function that it uses for CPU
 tensors.  The two
 likelihood kernels have an FFT route and a matmul-DFT route, and conv_lnl
-a padded route too, picked from the image's shape alone
+a padded and a cluster route too, picked from the image's shape alone
 (:func:`conv_route`; the fused kernel's ``fused_lnl.fused_route``).  Sources are
 in ``psfmc_tpu_torch/csrc/`` and are built with ``nvcc`` on first use
 (:mod:`._build`).  The fused kernel's wrapper is reached through its

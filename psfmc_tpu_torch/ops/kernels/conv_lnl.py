@@ -9,7 +9,7 @@ map, then reduce the masked Gaussian lnL per walker:
     ivm_b = 1 / (mvar_b + obs_var)
 
 with non-finite results mapped to ``-inf``.  The CUDA source
-(``csrc/conv_lnl.cu``) has three routes, and the shape alone picks one
+(``csrc/conv_lnl.cu``) has four routes, and the shape alone picks one
 before the launch (:func:`conv_route`):
 
 * ``"fft"``, when ``H`` and ``W`` are even with no prime factor above
@@ -31,13 +31,25 @@ before the launch (:func:`conv_route`):
   one, and the readout folds it back, ``y[s] = z[s] + z[s + N]``: exactly
   the ``N``-point circular convolution.  :func:`padded_fft_conv_plain` is
   that scheme in plain PyTorch;
-* ``"dft"``, every other shape (a side from 82 up that is off the FFT
-  route, a walker too large for a block, a side of 1): each convolution
+* ``"cluster"``, when the FFT route's or the padded route's transform
+  (:func:`padded_shape`) fits no block but fits a thread-block cluster of
+  ``C = 2, 4`` or ``8`` blocks (:func:`cluster_size`: 88x88 -> 180x180,
+  94x94 -> 192x192, 101x101 -> 210x210, 160x180, 196x196 and 200x200 on
+  2 blocks, 256x256 on 4): the padded route's scheme at that transform,
+  its rows split over the blocks' shared memory and the column passes,
+  the pair step and the readout reaching the other blocks' rows through
+  Hopper's distributed shared memory (``csrc/fft_cluster.cuh``), one
+  cluster a walker.  Its plain scheme is :func:`padded_fft_conv_plain`'s
+  (at a transform that pads no side, the FFT route's);
+* ``"dft"``, every other shape (a side of 1, a transform that fits no
+  cluster: from about 470 a side, so an image side from about 236 up that
+  is off the FFT route's sides): each convolution
   as the twelve real half-spectrum products of
   :func:`psfmc_tpu_torch.ops.fourier.convolve_rdft`, run as fp32 FMA
   GEMMs of the kernel's own through global scratch (15 launches).
 
-Neither route is a fallback for the other: a launch that fails raises.
+No route is a fallback for another: a launch that fails raises (on the
+cluster route also where the card cannot schedule the cluster).
 
 Targets (the batch fit, :mod:`psfmc_tpu_torch.batchfit`): one launch may
 carry the walkers of ``K`` independent fits.  A stacked
@@ -45,13 +57,14 @@ carry the walkers of ``K`` independent fits.  A stacked
 target's observation, variance and mask planes ``(K, H, W)`` and, in
 survey mode, its own PSF's spectra ``(K, ...)`` and variance gain
 ``(K,)``; walker ``b`` of a batch of ``B`` reads target ``b // (B / K)``.
-The planes run on every route, per-target spectra on the FFT and padded
-routes only: on the matmul-DFT route the spectra are GEMM operands, and
+The planes run on every route, per-target spectra on the FFT, padded and
+cluster routes only: on the matmul-DFT route the spectra are GEMM operands, and
 the wrapper refuses them there (:func:`target_spectra_supported`; the
 posterior sends such a batch to its general path).  The plain versions
 take the same target axis, and so do the residual instantiation and the
 backward kernels (the hierarchical fit, :mod:`psfmc_tpu_torch.hierarchy`,
-differentiates a stack): on the FFT and padded routes the backward reads
+differentiates a stack): on the FFT, padded and cluster routes the
+backward reads
 only each target's spectra and variance gain (its planes are inside the
 forward's weights), on the matmul-DFT route the weights kernel reads each
 target's planes.
@@ -60,8 +73,8 @@ because Mosaic lacks an fp32-accurate product; they are not ported:
 true fp32 is the contract.
 
 On CPU tensors :func:`batched_conv_lnl` returns the plain version
-(:func:`batched_conv_lnl_plain`, the version of record that both routes
-are held to); on CUDA tensors it launches the kernel or raises.
+(:func:`batched_conv_lnl_plain`, the version of record that every route
+is held to); on CUDA tensors it launches the kernel or raises.
 
 The gradient: when the raw images require it, :func:`batched_conv_lnl`
 goes through a ``torch.autograd.Function`` whose backward maps ``dlnL
@@ -78,7 +91,8 @@ finite gets a zero gradient.  On CUDA the hand-written kernels of
 :func:`batched_conv_lnl_backward_plain`.  On the FFT route the forward
 under autograd is a second instantiation of the forward kernel
 (:func:`batched_conv_lnl_residuals`, counted on the route ``"fft_res"``,
-``"padded_res"`` on the padded route):
+``"padded_res"`` on the padded route, ``"cluster_res"`` on the cluster
+route):
 the same lnL bits, and it also writes ``(a, c)`` per pixel (8 bytes a
 pixel, kept for the backward: 16.4 MB at 125 walkers x 128x128) and
 each walker's scale exponent; the backward loads them and runs one
@@ -117,6 +131,9 @@ __all__ = [
     "batched_conv_lnl",
     "batched_conv_lnl_plain",
     "conv_route",
+    "cluster_size",
+    "cluster_smem_bytes",
+    "cluster_tables",
     "padded_size",
     "padded_shape",
     "fft_smem_bytes",
@@ -148,6 +165,13 @@ BLOCK_SMEM_LIMIT = 232448
 _FFT_STATIC_SMEM = 16 * 8 + 16 * 4
 # |log2| of the squared image's scale is clamped to this (kMaxScaleExp).
 _MAX_SCALE_EXP = 96
+# The cluster route's sizes (csrc/fft_cluster.cuh: at most kMaxCluster, the
+# portable cluster size) and its static shared memory as ptxas lays it out
+# for the residual instantiation, the larger: the FFT route's reductions
+# with the residual peaks (16 x 3 floats, 16 doubles), the rank's peak, and
+# rank 0's 8 sums and 16 peaks, 456 bytes, and 8 of alignment.
+CLUSTER_SIZES = (2, 4, 8)
+_CLUSTER_STATIC_SMEM = 464
 
 
 # The FFT route's radices, and the fused kernel's (powers of two only).
@@ -305,22 +329,64 @@ def _fits_a_block(shape):
     return fits and max(len(fft_plan(h)), len(fft_plan(w))) <= _MAX_PASSES
 
 
+def cluster_smem_bytes(transform, ranks):
+    """Dynamic shared memory of one block of the cluster route
+    (``csrc/fft_cluster.cuh``'s ``cluster_image_bytes``): its
+    ``ceil(M_h / C)`` rows of the ``M_h x M_w`` transform at the pitch
+    ``M_w + 1``, both axes' twiddle tables and the mixed-radix layout
+    (:func:`cluster_tables`)."""
+    h, w = (int(n) for n in transform)
+    rows = -(-h // int(ranks))
+    return (8 * (rows * (w + 1) + _twiddle_entries(h) + _twiddle_entries(w))
+            + 4 * (_LAYOUT_HEADER + 2 * (h + w)))
+
+
+def cluster_size(shape):
+    """The cluster route's number of blocks ``C`` for an ``(H, W)`` image:
+    the smallest of :data:`CLUSTER_SIZES` whose blocks each hold their
+    share of the transform :func:`padded_shape` (:func:`cluster_smem_bytes`
+    plus the static shared memory within ``BLOCK_SMEM_LIMIT``) while every
+    block holds at least one row and one column; 0 where none does, the
+    passes exceed the layout, or a side is 1."""
+    h, w = (int(n) for n in shape)
+    if min(h, w) < 2:
+        return 0
+    mh, mw = padded_shape((h, w))
+    if max(len(fft_plan(mh)), len(fft_plan(mw))) > _MAX_PASSES:
+        return 0
+    for ranks in CLUSTER_SIZES:
+        rows, cols = -(-mh // ranks), -(-mw // ranks)
+        if (ranks - 1) * rows >= mh or (ranks - 1) * cols >= mw:
+            continue
+        if cluster_smem_bytes((mh, mw), ranks) + _CLUSTER_STATIC_SMEM <= BLOCK_SMEM_LIMIT:
+            return ranks
+    return 0
+
+
 def conv_route(shape, radices=FFT_RADICES):
-    """``"fft"``, ``"padded"`` or ``"dft"``: the route of
+    """``"fft"``, ``"padded"``, ``"cluster"`` or ``"dft"``: the route of
     ``csrc/conv_lnl.cu`` (and of its backward) for an ``(H, W)`` image, a
     pure function of the shape.  ``"fft"`` needs both sides to be even
     with no prime factor outside ``radices`` and the walker's image to
     fit in one block's shared memory; ``"padded"`` takes the other shapes
     whose :func:`padded_shape` fits a block (every side from 2 to 81);
+    ``"cluster"`` the shapes whose transform (the FFT route's or the
+    padded one) fits no block but fits a cluster (:func:`cluster_size`);
     ``"dft"`` the rest.  The fused kernel (``csrc/fused_lnl.cu``) asks
     with ``radices=(2,)``: its FFT route takes powers of two only, and it
-    has no padded route, so it never hears ``"padded"``."""
+    has neither the padded nor the cluster route, so it hears ``"fft"`` or
+    ``"dft"`` only."""
     h, w = (int(n) for n in shape)
     if _smooth_even(h, radices) and _smooth_even(w, radices):
-        return "fft" if _fits_a_block((h, w)) else "dft"
-    if tuple(radices) != FFT_RADICES or min(h, w) < 2:
+        if _fits_a_block((h, w)):
+            return "fft"
+    elif tuple(radices) != FFT_RADICES or min(h, w) < 2:
         return "dft"
-    return "padded" if _fits_a_block(padded_shape((h, w))) else "dft"
+    elif _fits_a_block(padded_shape((h, w))):
+        return "padded"
+    if tuple(radices) == FFT_RADICES and cluster_size((h, w)):
+        return "cluster"
+    return "dft"
 
 
 def fft_twiddles(n, dtype=np.float32):
@@ -335,6 +401,15 @@ def fft_twiddles(n, dtype=np.float32):
                          f"factor above 7 (7-smooth), got {n}")
     ang = 2.0 * np.pi * np.arange(_twiddle_entries(n)) / n
     return np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(dtype)
+
+
+def cluster_tables(transform, dtype=np.float32):
+    """``(twiddle, layout)`` of the cluster route at its ``transform``:
+    :func:`fft_tables`' mixed-radix form for every side, powers of two
+    included (each axis's table, ``H``'s first, and :func:`fft_layout`)."""
+    h, w = (int(n) for n in transform)
+    return (np.concatenate([fft_twiddles(h, dtype), fft_twiddles(w, dtype)]),
+            fft_layout((h, w)))
 
 
 def fft_tables(shape, dtype=np.float32):
@@ -376,8 +451,9 @@ def batched_lnl_supported(spec):
 
 def target_spectra_supported(shape):
     """Whether conv_lnl takes per-target PSF spectra at ``shape``: on the
-    FFT and the padded route (each target's spectra are planes the block
-    reads), not on the matmul-DFT route (there they are GEMM operands)."""
+    FFT, the padded and the cluster route (each target's spectra are
+    planes the blocks read), not on the matmul-DFT route (there they are
+    GEMM operands)."""
     return conv_route(shape) != "dft"
 
 
@@ -403,13 +479,17 @@ class ConvLnlConsts:
     W)`` and, with per-target spectra, the spectrum planes (``psf_*``,
     ``var_*``, ``pad_*``) ``(K, ...)`` and ``var_gain`` ``(K,)``.
 
-    The padded route's (``pad_*``, empty unless :func:`conv_route` answers
-    ``"padded"``): the PSF and PSF-variance kernels' half spectra at the
-    transform's :func:`padded_shape` ``(M_h, M_w/2+1)`` (real, imaginary
-    and the backward's conjugate imaginary planes; ``_padded_spectrum``),
-    and the FFT route's twiddle table and layout at ``(M_h, M_w)``.  The
-    variance gain is the ``N``-point spectra's: the zero-frequency bin is
-    the kernel's sum at either size.
+    The padded and the cluster route's (``pad_*``, empty unless
+    :func:`conv_route` answers ``"padded"`` or ``"cluster"``): the PSF and
+    PSF-variance kernels' half spectra at the transform's
+    :func:`padded_shape` ``(M_h, M_w/2+1)`` (real, imaginary and the
+    backward's conjugate imaginary planes; ``_padded_spectrum``; on the
+    cluster route at a transform that pads no side, the kernels' own
+    spectra), and the twiddle table and layout at ``(M_h, M_w)``: the FFT
+    route's (:func:`fft_tables`) on the padded route, the mixed-radix form
+    (:func:`cluster_tables`) on the cluster route.  The variance gain is
+    the ``N``-point spectra's: the zero-frequency bin is the kernel's sum
+    at either size.
     """
 
     cw: torch.Tensor
@@ -482,7 +562,10 @@ def _padded_spectrum(f_half, shape, padded):
     """The half spectrum ``(M_h, M_w//2+1)`` of the kernel whose
     ``N``-point half spectrum is ``f_half``, placed at ``[0, N)`` of a
     zero ``(M_h, M_w)`` image (host numpy, float64): ``irfft2`` at
-    ``shape``, the pad, ``rfft2``."""
+    ``shape``, the pad, ``rfft2``; ``f_half`` itself where nothing is
+    padded."""
+    if tuple(shape) == tuple(padded):
+        return np.asarray(f_half)
     kernel = np.fft.irfft2(np.asarray(f_half, np.complex128), s=tuple(shape))
     out = np.zeros(tuple(padded))
     out[:shape[0], :shape[1]] = kernel
@@ -515,13 +598,14 @@ def make_conv_lnl_consts(f_psf, f_var, obs, obs_var, good, device,
     pad = dict.fromkeys(("pad_psf_r", "pad_psf_i", "pad_var_r", "pad_var_i",
                          "pad_psf_ic", "pad_var_ic"), np.zeros((0, 0)))
     pad_twiddle, pad_layout = empty
-    if route == "padded":
+    if route in ("padded", "cluster"):
         padded = padded_shape(shape)
         p_psf = _padded_spectrum(f_psf, shape, padded)
         p_var = _padded_spectrum(f_var, shape, padded)
         pad = dict(pad_psf_r=p_psf.real, pad_psf_i=p_psf.imag, pad_var_r=p_var.real,
                    pad_var_i=p_var.imag, pad_psf_ic=-p_psf.imag, pad_var_ic=-p_var.imag)
-        pad_twiddle, pad_layout = fft_tables(padded, np_dtype)
+        tables = fft_tables if route == "padded" else cluster_tables
+        pad_twiddle, pad_layout = tables(padded, np_dtype)
     arrays = dict(
         cw=cw, sw=sw, ch=ch, sh=sh, ich=ich, ish=ish, ica=ica, isa=isa,
         psf_r=f_psf.real, psf_i=f_psf.imag,
@@ -586,7 +670,7 @@ def make_conv_lnl_consts_stack(f_psf, f_var, obs, obs_var, good, device,
                     var_gain=tensor([var_spectrum_gain(p, v)
                                      for p, v in zip(f_psf, f_var)]))
         shape = obs.shape[1:]
-        if conv_route(shape) == "padded":
+        if conv_route(shape) in ("padded", "cluster"):
             padded = padded_shape(shape)
             p_psf = np.stack([_padded_spectrum(p, shape, padded) for p in f_psf])
             p_var = np.stack([_padded_spectrum(v, shape, padded) for v in f_var])
@@ -911,21 +995,49 @@ CONV_FFT_CONST_ARGS = ("twiddle", "fft_layout") + FFT_CONST_ARGS[1:]
 PADDED_CONST_ARGS = ("pad_twiddle", "pad_layout", "var_gain", "pad_psf_r",
                      "pad_psf_i", "pad_var_r", "pad_var_i", "obs", "obs_var",
                      "good_f")
-# the routes that hold a walker in one block: the C symbols of the forward
-# and of its residual instantiation, and the constants they take (the
-# residual instantiation's outputs are out, weights, scale_exp)
+# the routes that hold a walker's transform in shared memory, one block or
+# one cluster a walker: the C symbols of the forward and of its residual
+# instantiation, and the constants they take (the residual instantiation's
+# outputs are out, weights, scale_exp); conv_lnl_cluster_launch(raws, batch,
+# h, w, mh, mw, ranks, per_target, data_stride, spectra_stride, <the padded
+# route's constants>, out, stream)
 _BLOCK_ROUTES = {
     "fft": (("conv_lnl_fft_launch", "conv_lnl_fft_residuals_launch"),
             CONV_FFT_CONST_ARGS),
     "padded": (("conv_lnl_padded_launch", "conv_lnl_padded_residuals_launch"),
                PADDED_CONST_ARGS),
+    "cluster": (("conv_lnl_cluster_launch", "conv_lnl_cluster_residuals_launch"),
+                PADDED_CONST_ARGS),
 }
 
 
 def _sides(route, shape):
-    """The int arguments after the batch: ``h, w``, and on the padded
-    route the transform's ``mh, mw`` too."""
-    return tuple(shape) + (padded_shape(shape) if route == "padded" else ())
+    """The int arguments after the batch: ``h, w``; on the padded route
+    the transform's ``mh, mw`` too, on the cluster route also its size."""
+    if route == "padded":
+        return tuple(shape) + padded_shape(shape)
+    if route == "cluster":
+        return tuple(shape) + padded_shape(shape) + (cluster_size(shape),)
+    return tuple(shape)
+
+
+def _launch_error(what, route, shape, err):
+    """The message of a failed launch on ``route`` at the image ``shape``:
+    the cudaError (-1 on the cluster route: the card cannot schedule the
+    cluster) and the shared memory a block asked for."""
+    if route in ("fft", "padded"):
+        transform = shape if route == "fft" else padded_shape(shape)
+        return (f"{what} ({route} route) launch failed: cudaError {err} ({shape[0]}x"
+                f"{shape[1]} walker, {fft_smem_bytes(transform)} bytes of shared memory)")
+    if route == "cluster":
+        ranks, transform = cluster_size(shape), padded_shape(shape)
+        why = ("no cluster of that size can be scheduled on this card" if err == -1
+               else f"cudaError {err}")
+        return (f"{what} (cluster route) launch failed: {why} ({shape[0]}x{shape[1]} "
+                f"walker, a {transform[0]}x{transform[1]} transform over a cluster of "
+                f"{ranks} blocks of {cluster_smem_bytes(transform, ranks)} bytes of "
+                "shared memory each)")
+    return f"{what} ({route} route) launch failed: cudaError {err}"
 
 
 def _target_ints(batch, consts: ConvLnlConsts, route):
@@ -935,7 +1047,8 @@ def _target_ints(batch, consts: ConvLnlConsts, route):
     k = consts.targets
     per, data, spectra = (batch // k, consts.obs[0].numel(), 0) if k else (1, 0, 0)
     if k and consts.target_spectra:
-        spectra = (consts.pad_psf_r if route == "padded" else consts.psf_r)[0].numel()
+        spectra = (consts.pad_psf_r if route in ("padded", "cluster")
+                   else consts.psf_r)[0].numel()
     return (per, data) if route == "dft" else (per, data, spectra)
 
 
@@ -948,10 +1061,14 @@ def _dft_kernel():
     )
 
 
+# the int arguments after the batch: the sides (and the cluster's size)
+_SIDE_INTS = {"fft": 2, "padded": 4, "cluster": 5}
+
+
 @functools.lru_cache(maxsize=None)
 def _block_kernel(route, residuals):
     (symbols, names) = _BLOCK_ROUTES[route]
-    ints = 1 + (4 if route == "padded" else 2) + 3
+    ints = 1 + _SIDE_INTS[route] + 3
     return _build.function(
         "conv_lnl", symbols[residuals],
         [ctypes.c_void_p] + [ctypes.c_int] * ints
@@ -993,9 +1110,9 @@ def _launch_dft(raws, consts: ConvLnlConsts):
 
 
 def _launch_block(raws, consts: ConvLnlConsts, route, residuals=False):
-    """The FFT or the padded route: one launch, no allocation but the
-    outputs (radix-2 stages for powers of two, mixed radix otherwise: the
-    launch picks).  With ``residuals`` the residual instantiation, which
+    """The FFT, the padded or the cluster route: one launch, no allocation
+    but the outputs (on the FFT and padded routes radix-2 stages for powers
+    of two, mixed radix otherwise: the launch picks).  With ``residuals`` the residual instantiation, which
     also returns the weights and the scale exponents."""
     b, h, w = raws.shape
     dev = raws.device
@@ -1011,11 +1128,8 @@ def _launch_block(raws, consts: ConvLnlConsts, route, residuals=False):
         err = _block_kernel(route, residuals)(raws.data_ptr(), b, *ints,
                                               *(t.data_ptr() for t in tensors), stream)
     if err != 0:
-        transform = sides[2:] or sides
-        raise RuntimeError(
-            f"conv_lnl ({route} route{', residuals' if residuals else ''}) launch "
-            f"failed: cudaError {err} ({h}x{w} walker, {fft_smem_bytes(transform)} "
-            f"bytes of shared memory)")
+        raise RuntimeError(_launch_error(
+            "conv_lnl" + (" with residuals" if residuals else ""), route, (h, w), err))
     return tuple(outs) if residuals else outs[0]
 
 
@@ -1035,10 +1149,11 @@ def batched_conv_lnl(raws, consts: ConvLnlConsts):
     With a stacked consts of ``K`` targets, ``B`` is a multiple of ``K``
     and walker ``b`` fits target ``b // (B / K)``; launches count on the
     route's ``"<route>_targets"`` key (``"fft_targets"``,
-    ``"padded_targets"``, ``"dft_targets"``; under autograd on the FFT and
-    padded routes ``"fft_res_targets"``, ``"padded_res_targets"``, and its
-    backward on ``batched_conv_lnl_backward``'s ``"<route>_targets"``).
-    Per-target spectra off the FFT and padded routes
+    ``"padded_targets"``, ``"cluster_targets"``, ``"dft_targets"``; under
+    autograd on the FFT, padded and cluster routes ``"fft_res_targets"``,
+    ``"padded_res_targets"``, ``"cluster_res_targets"``, and its backward
+    on ``batched_conv_lnl_backward``'s ``"<route>_targets"``).
+    Per-target spectra off the FFT, padded and cluster routes
     (:func:`target_spectra_supported`) raise ``ValueError``."""
     _check_inputs(raws, consts)
     if torch.is_grad_enabled() and raws.requires_grad:
@@ -1085,34 +1200,36 @@ def _forward(raws, consts):
 
 batched_conv_lnl.launches = 0
 batched_conv_lnl.route_launches = {"fft": 0, "dft": 0, "fft_res": 0, "padded": 0,
-                                   "padded_res": 0, "fft_targets": 0,
-                                   "padded_targets": 0, "dft_targets": 0,
-                                   "fft_res_targets": 0, "padded_res_targets": 0}
+                                   "padded_res": 0, "cluster": 0, "cluster_res": 0,
+                                   "fft_targets": 0, "padded_targets": 0,
+                                   "cluster_targets": 0, "dft_targets": 0,
+                                   "fft_res_targets": 0, "padded_res_targets": 0,
+                                   "cluster_res_targets": 0}
 batched_conv_lnl.shape_launches = {}
 
 
 def batched_conv_lnl_residuals(raws, consts: ConvLnlConsts):
     """``(lnl (B,), weights (B, H, W, 2), scale_exp (B,) int32)``: the lnL
-    of :func:`batched_conv_lnl` with what its backward reads on the FFT
-    and the padded route, the weights ``(a, c)`` of every pixel (``a =
+    of :func:`batched_conv_lnl` with what its backward reads on the FFT,
+    the padded and the cluster route, the weights ``(a, c)`` of every pixel (``a =
     good r ivm``, ``c = good ((r ivm)^2 - ivm) / 2``) and each walker's
     scale exponent (:func:`packed_fft_conv_residuals_plain`).  On CUDA the
     route's residual instantiation of the forward kernel (the same lnL
     bits as :func:`batched_conv_lnl`'s launch; counted in
-    ``batched_conv_lnl.launches`` on the route ``"fft_res"`` or
-    ``"padded_res"``, ``"fft_res_targets"`` or ``"padded_res_targets"``
-    for a stacked consts, and by shape), on the CPU
-    :func:`packed_fft_conv_residuals_plain` or
-    :func:`padded_fft_conv_residuals_plain`.  A shape on the matmul-DFT
-    route raises ``ValueError``."""
+    ``batched_conv_lnl.launches`` on the route ``"fft_res"``,
+    ``"padded_res"`` or ``"cluster_res"``, with ``"_targets"`` for a
+    stacked consts, and by shape), on the CPU
+    :func:`packed_fft_conv_residuals_plain` or (the padded and the cluster
+    route) :func:`padded_fft_conv_residuals_plain`.  A shape on the
+    matmul-DFT route raises ``ValueError``."""
     _check_inputs(raws, consts)
     route = conv_route(consts.shape)
     if route not in _BLOCK_ROUTES:
-        raise ValueError(f"{consts.shape} is off the FFT and padded routes: its "
-                         "backward recomputes the forward and reads no residuals")
+        raise ValueError(f"{consts.shape} is off the FFT, padded and cluster routes: "
+                         "its backward recomputes the forward and reads no residuals")
     if raws.device.type == "cpu":
-        plain = (padded_fft_conv_residuals_plain if route == "padded"
-                 else packed_fft_conv_residuals_plain)
+        plain = (packed_fft_conv_residuals_plain if route == "fft"
+                 else padded_fft_conv_residuals_plain)
         return plain(raws, consts)
     if raws.device.type != "cuda":
         raise ValueError(f"unsupported device {raws.device}")
@@ -1126,8 +1243,8 @@ def batched_conv_lnl_residuals(raws, consts: ConvLnlConsts):
 
 class _ConvLnl(torch.autograd.Function):
     """conv_lnl with its vector-Jacobian product: the forward is the
-    wrapper's own launch (on CUDA and the FFT or the padded route, the
-    residual instantiation, whose weights and scale exponents it keeps for
+    wrapper's own launch (on CUDA and the FFT, the padded or the cluster
+    route, the residual instantiation, whose weights and scale exponents it keeps for
     the backward), the backward :func:`batched_conv_lnl_backward`."""
 
     @staticmethod
@@ -1326,8 +1443,9 @@ def packed_fft_conv_backward_plain(raws, consts: ConvLnlConsts, lnl, grad):
 @functools.lru_cache(maxsize=None)
 def _block_backward_kernel(route):
     symbol = {"fft": "conv_lnl_fft_backward_launch",
-              "padded": "conv_lnl_padded_backward_launch"}[route]
-    ints = 1 + (4 if route == "padded" else 2) + 2
+              "padded": "conv_lnl_padded_backward_launch",
+              "cluster": "conv_lnl_cluster_backward_launch"}[route]
+    ints = 1 + _SIDE_INTS[route] + 2
     return _build.function(
         "conv_lnl_backward", symbol,
         [ctypes.c_void_p] + [ctypes.c_int] * ints
@@ -1350,7 +1468,8 @@ FFT_BACKWARD_CONST_ARGS = ("twiddle", "fft_layout", "var_gain", "psf_r",
                            "psf_ic", "var_r", "var_ic")
 # conv_lnl_padded_backward_launch(raws, batch, h, w, mh, mw, per_target,
 # spectra_stride, <these>, weights, scale_exp, lnl, grad, out, stream): the
-# same at the transform's sides
+# same at the transform's sides (conv_lnl_cluster_backward_launch's, with
+# the cluster's size after mh, mw)
 PADDED_BACKWARD_CONST_ARGS = ("pad_twiddle", "pad_layout", "var_gain", "pad_psf_r",
                               "pad_psf_ic", "pad_var_r", "pad_var_ic")
 # conv_lnl_dft_backward_launch(raws, batch, h, w, per_target, data_stride,
@@ -1364,8 +1483,8 @@ DFT_BACKWARD_CONST_ARGS = ("cw", "sw", "lf", "li", "ica", "isa", "ica_t",
 
 
 def _launch_backward(raws, consts: ConvLnlConsts, lnl, grad, route, residuals=None):
-    """The backward kernel on ``route``: on the FFT and the padded route
-    from the forward's ``residuals`` ``(weights, scale_exp)``, on the
+    """The backward kernel on ``route``: on the FFT, the padded and the
+    cluster route from the forward's ``residuals`` ``(weights, scale_exp)``, on the
     matmul-DFT route recomputing the forward (``chip_smoke.py`` also times
     that route on the other routes' inputs)."""
     if raws.dtype != torch.float32 or grad.dtype != torch.float32:
@@ -1384,7 +1503,7 @@ def _launch_backward(raws, consts: ConvLnlConsts, lnl, grad, route, residuals=No
             raise ValueError("residuals must be (B, H, W, 2) float32 weights and "
                              "(B,) int32 scale exponents on the raws' device")
         fn = _block_backward_kernel(route)
-        names = PADDED_BACKWARD_CONST_ARGS if route == "padded" else FFT_BACKWARD_CONST_ARGS
+        names = FFT_BACKWARD_CONST_ARGS if route == "fft" else PADDED_BACKWARD_CONST_ARGS
         per, _, spectra = _target_ints(b, consts, route)
         sides = _sides(route, (h, w)) + (per, spectra)
         scratch = [weights.contiguous(), scale_exp.contiguous()]
@@ -1400,8 +1519,7 @@ def _launch_backward(raws, consts: ConvLnlConsts, lnl, grad, route, residuals=No
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(raws.data_ptr(), b, *sides, *(t.data_ptr() for t in tensors), stream)
     if err != 0:
-        raise RuntimeError(
-            f"conv_lnl backward ({route} route) launch failed: cudaError {err}")
+        raise RuntimeError(_launch_error("conv_lnl backward", route, (h, w), err))
     return out
 
 
@@ -1410,8 +1528,8 @@ def batched_conv_lnl_backward(raws, consts: ConvLnlConsts, lnl, grad, residuals=
     (whose lnL was ``lnl``) for the output gradient ``grad (B,)``.  On
     CUDA the backward kernel of the route :func:`conv_route` picks
     (counted in ``batched_conv_lnl_backward.launches``,
-    ``.route_launches`` and ``.shape_launches``); the FFT and the padded
-    route's read ``residuals``, the ``(weights, scale_exp)`` of
+    ``.route_launches`` and ``.shape_launches``); the FFT, the padded and
+    the cluster route's read ``residuals``, the ``(weights, scale_exp)`` of
     :func:`batched_conv_lnl_residuals` at the same ``raws``, and raise
     ``ValueError`` without them.  A stacked consts counts on the route's
     ``"<route>_targets"`` key.  On the CPU
@@ -1432,6 +1550,7 @@ def batched_conv_lnl_backward(raws, consts: ConvLnlConsts, lnl, grad, residuals=
 
 batched_conv_lnl_backward.launches = 0
 batched_conv_lnl_backward.route_launches = {"fft": 0, "dft": 0, "padded": 0,
-                                            "fft_targets": 0, "dft_targets": 0,
-                                            "padded_targets": 0}
+                                            "cluster": 0, "fft_targets": 0,
+                                            "dft_targets": 0, "padded_targets": 0,
+                                            "cluster_targets": 0}
 batched_conv_lnl_backward.shape_launches = {}

@@ -222,8 +222,8 @@ def test_residual_wrapper_on_the_cpu(fft_posts, padded_posts):
     """On the CPU ``batched_conv_lnl_residuals`` is the plain scheme of
     the route (the FFT route's at 24x20, the padded route's at 15x13) and
     ``batched_conv_lnl_backward`` the version of record whatever residuals
-    it is given; a shape on the matmul-DFT route (94x94: a factor of 47,
-    whose 192x192 transform fits no block) raises."""
+    it is given; a shape on the matmul-DFT route (1x64: a side of 1, which
+    neither a block nor a cluster of blocks takes) raises."""
     post = fft_posts[(24, 20)]
     raws = post.raw_and_ps(prior_draws(post.spec, 3, seed=4))[0].detach()
     out = CL.batched_conv_lnl_residuals(raws, post.consts)
@@ -240,9 +240,12 @@ def test_residual_wrapper_on_the_cpu(fft_posts, padded_posts):
     for x, y in zip(CL.batched_conv_lnl_residuals(raws, padded.consts),
                     CL.padded_fft_conv_residuals_plain(raws, padded.consts)):
         assert torch.equal(x, y)
-    spec = build_model_spec(flagship_components((94, 94), (8, 8)))
-    dft = build_posterior(spec, device="cpu", dtype=torch.float64, lnpost="batched")
-    assert CL.conv_route((94, 94)) == "dft"
-    with pytest.raises(ValueError, match="off the FFT and padded routes"):
-        CL.batched_conv_lnl_residuals(
-            dft.raw_and_ps(prior_draws(spec, 2, seed=1))[0].detach(), dft.consts)
+    rng = np.random.RandomState(5)
+    shape = (1, 64)
+    spectrum = np.fft.rfft2(rng.rand(*shape))
+    dft = CL.make_conv_lnl_consts(spectrum, spectrum * 1e-3, rng.randn(*shape),
+                                  rng.rand(*shape) + 1.0, np.ones(shape, bool), "cpu",
+                                  torch.float64)
+    assert CL.conv_route(shape) == "dft"
+    with pytest.raises(ValueError, match="off the FFT, padded and cluster routes"):
+        CL.batched_conv_lnl_residuals(torch.as_tensor(rng.rand(2, *shape)), dft)

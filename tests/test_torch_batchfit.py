@@ -283,8 +283,8 @@ def _kernel_spectra(shape, rng):
 def test_stacked_plain_conv_lnl_matches_per_target_calls(shape, target_spectra):
     """The plain versions with a target axis (``batched_conv_lnl_plain``,
     ``packed_fft_conv_plain``, ``padded_fft_conv_plain``) against one call
-    per target, on the radix-2, mixed-radix, radix-7, padded and matmul-DFT
-    routes: 1e-12; and the gradient through the stacked consts against each
+    per target, on the radix-2, mixed-radix, radix-7, padded and cluster
+    routes (94x94: a 192x192 transform over 2 blocks): 1e-12; and the gradient through the stacked consts against each
     target's single-observation gradient: 1e-10."""
     rng = np.random.RandomState(sum(shape))
     nt, wpt = 3, 4
@@ -306,7 +306,8 @@ def test_stacked_plain_conv_lnl_matches_per_target_calls(shape, target_spectra):
             CL.batched_conv_lnl(raws, stacked)
         return
     got = CL.batched_conv_lnl(raws, stacked)
-    scheme = {"fft": CL.packed_fft_conv_plain, "padded": CL.padded_fft_conv_plain}.get(route)
+    scheme = {"fft": CL.packed_fft_conv_plain, "padded": CL.padded_fft_conv_plain,
+              "cluster": CL.padded_fft_conv_plain}.get(route)
     for t in range(nt):
         one = CL.make_conv_lnl_consts(f_psf[t if target_spectra else 0],
                                       f_var[t if target_spectra else 0],
@@ -358,10 +359,11 @@ def test_copy_target_consts_writes_in_place():
 
 
 def test_survey_mode_on_the_dft_route_takes_the_general_path():
-    """At 94x94 (the matmul-DFT route) a stack with a PSF per target takes
-    the general path, a stack with the shared PSF the kernel path, and both
-    agree with the JAX package."""
-    shape = (94, 94)
+    """At 512x512 (the matmul-DFT route: no cluster of 8 blocks holds its
+    transform) a stack with a PSF per target takes the general path, a
+    stack with the shared PSF the kernel path, and both agree with the JAX
+    package."""
+    shape = (512, 512)
     tm = MultiComponentModel(_components("torch", "flagship", shape), device="cpu",
                              dtype=torch.float64)
     jm = JaxModel(_components("jax", "flagship", shape), dtype=jnp.float64)
@@ -707,7 +709,8 @@ def test_run_sbc_on_the_cpu(models):
 # -- chip_smoke's batch phase --------------------------------------------------------
 def test_chip_smoke_batch_phase_rehearses_on_the_cpu(monkeypatch):
     """``chip_smoke.batch_phase`` at 32x32 (joint 32x32 + 24x24, band 1 on
-    the padded route at 22x26 and on the matmul-DFT route at 94x94) with 4
+    the padded route at 22x26 and on the cluster route at 94x94; survey
+    mode also at 94x94, its per-target spectra on the cluster route) with 4
     targets on the CPU, where the kernel wrappers run their plain versions:
     the render and conv_lnl wrappers are counted as the card counts its
     kernels (conv_lnl on ``<route>_targets`` for a stacked consts, by route
@@ -744,12 +747,16 @@ def test_chip_smoke_batch_phase_rehearses_on_the_cpu(monkeypatch):
 
     for mod, name in ((CL, "batched_conv_lnl"), (SR, "render_sersics")):
         counting(mod, name)
+    # a forced route (the matmul-DFT route timed beside the cluster route) has
+    # no CPU mode
+    monkeypatch.setattr(CL, "_launch", lambda raws, consts, route:
+                        CL.batched_conv_lnl_plain(raws, consts))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(cs, "time_ms", lambda fn, **k: (fn(), 0.123)[1])
     monkeypatch.setattr(cs, "sfu_results_per_s", lambda: 4.0e12)
     for name, value in (("FLAGSHIP_SHAPE", (32, 32)), ("MIXED_SHAPE", (24, 24)),
                         ("MIXED_PSF_SHAPE", (12, 12)), ("PADDED_SHAPE", (22, 26)),
-                        ("PADDED_PSF_SHAPE", (12, 12)), ("DFT_PSF_SHAPE", (12, 12)),
+                        ("PADDED_PSF_SHAPE", (12, 12)), ("CLUSTER_PSF_SHAPE", (12, 12)),
                         ("BATCH_TARGETS", 4), ("BATCH_BURN", 3), ("BATCH_SAMPLE", 6),
                         ("BATCH_RECORD", 2),
                         ("BATCH_CHUNK_TARGETS", 5), ("BATCH_CHUNK", 2),
@@ -763,18 +770,21 @@ def test_chip_smoke_batch_phase_rehearses_on_the_cpu(monkeypatch):
                          device="cpu")
     names = [r["name"] for r in got["rows"]]
     assert names == ["conv_lnl_targets", "conv_lnl_targets_spectra", "conv_lnl_targets_mixed",
-                     "conv_lnl_targets_padded", "conv_lnl_targets_dft"]
+                     "conv_lnl_targets_padded", "conv_lnl_targets_cluster",
+                     "conv_lnl_targets_cluster_spectra"]
     launches = {r["name"]: r["launches"] for r in got["rows"]}
     # evaluations: the start, then two a step; the flagship batch, the three
-    # joint batches' band 0 and the SBC; the survey fit; each band 1
+    # joint batches' band 0 and the SBC; the survey fits (32x32, 94x94); each
+    # band 1
     evals = {"batch": 2 * (1 + 2 * 9), "survey": 1 + 2 * 4, "joint": 1 + 2 * 4,
              "route": 1 + 2 * 2, "sbc": 1 + 2 * 6}  # the flagship batch runs twice
     assert launches == {
         "conv_lnl_targets": evals["batch"] + evals["joint"] + 2 * evals["route"] + evals["sbc"],
         "conv_lnl_targets_spectra": evals["survey"], "conv_lnl_targets_mixed": evals["joint"],
-        "conv_lnl_targets_padded": evals["route"], "conv_lnl_targets_dft": evals["route"]}
+        "conv_lnl_targets_padded": evals["route"], "conv_lnl_targets_cluster": evals["route"],
+        "conv_lnl_targets_cluster_spectra": evals["survey"]}
     # the render: once a band and evaluation, and the SBC's mocks once
-    assert got["render_launches"] == (evals["batch"] + evals["survey"] + 2 * evals["joint"]
+    assert got["render_launches"] == (evals["batch"] + 2 * evals["survey"] + 2 * evals["joint"]
                                       + 2 * 2 * evals["route"] + 1 + evals["sbc"])
     for r in got["rows"]:
         assert r["max_rel_err"] <= cs.CONV_LNL_TOL and r["targets"] == 4
@@ -785,14 +795,16 @@ def test_chip_smoke_batch_phase_rehearses_on_the_cpu(monkeypatch):
     # half-step batch, each band of a joint fit on its own shape and stack
     checks = got["kernel_checks"]
     assert [(c["fit"], c["band"]) for c in checks] == [
-        ("batch", 0), ("batch, chunked", 0), ("batch, survey", 0), ("batch, joint", 0),
+        ("batch", 0), ("batch, chunked", 0), ("batch, survey", 0),
+        ("batch, survey at 94x94", 0), ("batch, joint", 0),
         ("batch, joint", 1), ("batch, joint, padded band", 0),
-        ("batch, joint, padded band", 1), ("batch, joint, matmul-DFT band", 0),
-        ("batch, joint, matmul-DFT band", 1), ("batch, sbc", 0)]
+        ("batch, joint, padded band", 1), ("batch, joint, cluster band", 0),
+        ("batch, joint, cluster band", 1), ("batch, sbc", 0)]
     assert checks[0]["batch"] == 4 * 19 and checks[0]["targets"] == 4
-    assert [c["render_shape"] for c in checks[3:9:2]] == [[32, 32]] * 3
-    assert [c["render_shape"] for c in checks[4:9:2]] == [[24, 24], [22, 26], [94, 94]]
-    assert [c["target_spectra"] for c in checks] == [False, False, True] + [False] * 7
+    assert checks[3]["render_shape"] == [94, 94]
+    assert [c["render_shape"] for c in checks[4:10:2]] == [[32, 32]] * 3
+    assert [c["render_shape"] for c in checks[5:10:2]] == [[24, 24], [22, 26], [94, 94]]
+    assert [c["target_spectra"] for c in checks] == [False, False, True, True] + [False] * 7
     for c in checks:
         assert c["render_max_rel_err"] <= cs.RENDER_TOL
         assert c["conv_lnl_max_rel_err"] <= cs.CONV_LNL_TOL

@@ -188,7 +188,8 @@ LIKELIHOOD_CASES = [
     ((100, 100), (50, 50), True, "fft", "dft"),  # 5^2 x 2^2
     ((98, 98), (48, 48), True, "fft", "dft"),  # 7^2 x 2: radix-7 stages
     ((74, 74), (36, 36), True, "padded", "dft"),  # 2 x 37: padded to 150x150
-    ((94, 94), (48, 48), True, "dft", "dft"),  # 2 x 47: 192x192 fits no block
+    # 2 x 47: 192x192 fits no block but a cluster of 2 blocks
+    ((94, 94), (48, 48), True, "cluster", "dft"),
 ]
 LIKELIHOOD_IDS = ["128", "64", "64-no-ps", "64x128", "45x37", "96", "100", "98",
                   "74", "94"]
@@ -808,7 +809,7 @@ def test_priors_graphed_phase_is_bit_identical_to_eager(cuda, variant):
 def _joint(device, variant="flagship", band1=(94, 94)):
     """The joint flagship at 64x64 and ``band1``: by default 94x94, a
     factor of 47 whose padded transform (192x192) fits no block, on
-    conv_lnl's matmul-DFT route."""
+    conv_lnl's cluster route (2 blocks)."""
     from psfmc_tpu_torch.flagship import joint_components
     from psfmc_tpu_torch.models import JointModel
 
@@ -820,7 +821,7 @@ def _joint(device, variant="flagship", band1=(94, 94)):
 @pytest.mark.parametrize("variant", ["flagship", "general", "offset"])
 def test_joint_graphed_phase_is_bit_identical_to_eager(cuda, variant):
     """The joint flagship's ten steps (band 0 at 64x64 on conv_lnl's FFT
-    route, band 1 at 94x94 on its matmul-DFT route, both in one captured
+    route, band 1 at 94x94 on its cluster route, both in one captured
     step) as graph replays and eagerly: the same state bit for bit, and
     each kernel's launches exact, per band and route."""
     spec, post = _joint(cuda, variant)
@@ -838,16 +839,17 @@ def test_joint_graphed_phase_is_bit_identical_to_eager(cuda, variant):
     assert g_launches == e_launches == [2 * (1 + 20 + 6), 2 * (1 + 20) * batched, 0]
     if batched:  # each band's conv_lnl on its route, in both runs
         assert CL.batched_conv_lnl.route_launches == dict(
-            routes, fft=routes["fft"] + 2 * 21, dft=routes["dft"] + 2 * 21)
+            routes, fft=routes["fft"] + 2 * 21, cluster=routes["cluster"] + 2 * 21)
 
 
 def test_dft_route_conv_lnl_inside_a_captured_graph(cuda):
-    """Band 1's conv_lnl on the matmul-DFT route (15 launches through
-    scratch) captured in a CUDA graph: the replay equals the eager launch
-    bit for bit and the plain version within 2e-5."""
+    """Band 1's conv_lnl at 94x94, formerly on the matmul-DFT route, now on
+    the cluster route (one cluster of 2 blocks a walker), captured in a
+    CUDA graph: the replay equals the eager launch bit for bit and the
+    plain version within 2e-5."""
     spec, post = _joint(cuda)
     band = post.band_fns[1]
-    assert CL.conv_route(band.shape) == "dft"
+    assert CL.conv_route(band.shape) == "cluster"
     th = torch.as_tensor(prior_draws(spec, 30, seed=5), dtype=torch.float32,
                          device=cuda)
     raws = band.raw_and_ps(th)[0].contiguous()
@@ -922,14 +924,18 @@ def test_render_backward_matches_plain(cuda, shape, count):
                           ((96, 128), (48, 64), "fft"), ((144, 144), (72, 72), "fft"),
                           ((98, 98), (48, 48), "fft"), ((74, 74), (36, 36), "padded"),
                           ((45, 75), (24, 36), "padded"), ((64, 74), (32, 36), "padded"),
-                          ((94, 94), (48, 48), "dft")],
+                          ((94, 94), (48, 48), "cluster"), ((101, 101), (48, 48), "cluster"),
+                          ((160, 180), (64, 64), "cluster"),
+                          ((256, 256), (64, 64), "cluster")],
                          ids=["128", "96", "45x37", "100", "96x128", "144", "98", "74",
-                              "45x75", "64x74", "94"])
+                              "45x75", "64x74", "94", "101", "160x180", "256"])
 def test_conv_lnl_backward_matches_plain(cuda, shape, psf_shape, route):
-    """conv_lnl's backward kernel on its three routes (the FFT route's
+    """conv_lnl's backward kernel on its routes (the FFT route's
     radix-2 and mixed-radix geometries, radix-7 stages at 98x98; the padded
     route at odd sides and at a factor of 37, 45x37, 74x74, 45x75 and 64x74,
-    one side padded; the matmul-DFT route at 94x94) at 125 walkers against
+    one side padded; the cluster route at 94x94 and 101x101, padded to
+    192x192 and 210x210 over 2 blocks, 160x180 over 2 and 256x256 over 4)
+    at 125 walkers against
     the float64 plain backward: per walker within 1e-3 of its largest
     pixel gradient (float32 residuals of a 0.005-noise image carry about
     2e-5 of themselves; the FFT's and GEMMs' rounding come on top); the
@@ -945,7 +951,7 @@ def test_conv_lnl_backward_matches_plain(cuda, shape, psf_shape, route):
     raws[2, 5, 7] = float("nan")
     raws[11, 20, 3] = float("inf")
     lnl, residuals = CL.batched_conv_lnl(raws, post.consts), None
-    if route in ("fft", "padded"):
+    if route != "dft":
         lnl_res, *residuals = CL.batched_conv_lnl_residuals(raws, post.consts)
         _same_bits(lnl_res, lnl)
     grad = torch.as_tensor(np.random.RandomState(4).uniform(0.5, 2.0, 125),
@@ -974,13 +980,16 @@ def test_conv_lnl_backward_matches_plain(cuda, shape, psf_shape, route):
                          [((128, 128), (64, 64)), ((96, 96), (48, 48)),
                           ((100, 100), (50, 50)), ((96, 128), (48, 64)),
                           ((98, 98), (48, 48)), ((74, 74), (36, 36)),
-                          ((45, 75), (24, 36)), ((64, 74), (32, 36))],
-                         ids=["128", "96", "100", "96x128", "98", "74", "45x75", "64x74"])
+                          ((45, 75), (24, 36)), ((64, 74), (32, 36)),
+                          ((94, 94), (48, 48)), ((101, 101), (48, 48)),
+                          ((160, 180), (64, 64)), ((256, 256), (64, 64))],
+                         ids=["128", "96", "100", "96x128", "98", "74", "45x75", "64x74",
+                              "94", "101", "160x180", "256"])
 def test_conv_lnl_residuals_match_plain(cuda, shape, psf_shape):
-    """The FFT and the padded route's residual instantiation of the
-    forward at 125 walkers: the same lnL bits as the forward kernel's
-    launch on the same inputs, counted on the route ``"fft_res"`` or
-    ``"padded_res"``; its weights ``(a, c)``
+    """The FFT, the padded and the cluster route's residual instantiation
+    of the forward at 125 walkers: the same lnL bits as the forward
+    kernel's launch on the same inputs, counted on the route ``"fft_res"``,
+    ``"padded_res"`` or ``"cluster_res"``; its weights ``(a, c)``
     against the float64 plain scheme within the larger of 1e-6 of each
     walker's largest weight and 4x the float32 plain scheme's own error
     there (float32 FFT rounding of ``conv`` moves the residual ``r = obs
@@ -995,8 +1004,8 @@ def test_conv_lnl_residuals_match_plain(cuda, shape, psf_shape):
     raws[2, 5, 7] = float("nan")
     lnl = CL.batched_conv_lnl(raws, post.consts)
     route = CL.conv_route(shape)
-    plain = (CL.padded_fft_conv_residuals_plain if route == "padded"
-             else CL.packed_fft_conv_residuals_plain)
+    plain = (CL.packed_fft_conv_residuals_plain if route == "fft"
+             else CL.padded_fft_conv_residuals_plain)
     before = CL.batched_conv_lnl.launches
     routes = dict(CL.batched_conv_lnl.route_launches)
     got, weights, scale_exp = CL.batched_conv_lnl_residuals(raws, post.consts)
@@ -1056,8 +1065,10 @@ def test_log_posterior_and_grad_matches_cpu_float64(cuda, variant):
 
 # a single fit's conv_lnl and backward launch nothing on the stacked routes
 NO_TARGETS = {"fft_targets": 0, "padded_targets": 0, "dft_targets": 0,
-              "fft_res_targets": 0, "padded_res_targets": 0}
-NO_BACKWARD_TARGETS = {"fft_targets": 0, "padded_targets": 0, "dft_targets": 0}
+              "fft_res_targets": 0, "padded_res_targets": 0, "cluster_targets": 0,
+              "cluster_res_targets": 0}
+NO_BACKWARD_TARGETS = {"fft_targets": 0, "padded_targets": 0, "dft_targets": 0,
+                       "cluster_targets": 0}
 
 
 def _map_counts():
@@ -1095,8 +1106,10 @@ def test_map_adam_steps_graphed_are_bit_identical_to_eager(flagship):
 
 def test_joint_map_runs_the_dft_backward_inside_the_graph(cuda):
     """fit_map on the joint flagship (band 0 at 64x64: FFT route; band 1
-    at 94x94: matmul-DFT route): each captured Adam step launches each
-    band's conv_lnl and its backward once on its route."""
+    at 94x94, formerly the matmul-DFT route: the cluster route): each
+    captured Adam step launches each band's conv_lnl and its backward once
+    on its route, band 1's forward under autograd writing its residuals;
+    nothing on the matmul-DFT route."""
     from psfmc_tpu_torch.optimize import fit_map
 
     spec, post = _joint(cuda)
@@ -1107,11 +1120,12 @@ def test_joint_map_runs_the_dft_backward_inside_the_graph(cuda):
     assert np.isfinite(res.lnpost)
     # the pool's evaluation, three replays and the final iterate's, per band
     assert [a - b for a, b in zip(after[:4], before[:4])] == [10, 8, 10, 8]
-    # by route: band 0's forward under autograd writes its residuals
+    # by route: each band's forward under autograd writes its residuals
     assert {r: after[4][r] - before[4][r] for r in after[4]} == \
-        {"fft": 1, "fft_res": 4, "dft": 5, "padded": 0, "padded_res": 0, **NO_TARGETS}
+        {"fft": 1, "fft_res": 4, "dft": 0, "padded": 0, "padded_res": 0, "cluster": 1,
+         "cluster_res": 4, **NO_TARGETS}
     assert {r: after[5][r] - before[5][r] for r in after[5]} == \
-        {"fft": 4, "dft": 4, "padded": 0, **NO_BACKWARD_TARGETS}
+        {"fft": 4, "dft": 0, "padded": 0, "cluster": 4, **NO_BACKWARD_TARGETS}
 
 
 def test_joint_map_runs_the_mixed_radix_band_inside_the_graph(cuda):
@@ -1153,9 +1167,10 @@ def _joint_map_on_the_fft_route(cuda, band1):
         # every launch on the FFT route, the forward under autograd writing
         # its residuals
         assert {r: after[4][r] - before[4][r] for r in after[4]} == \
-            {"fft": 2, "fft_res": 8, "dft": 0, "padded": 0, "padded_res": 0, **NO_TARGETS}
+            {"fft": 2, "fft_res": 8, "dft": 0, "padded": 0, "padded_res": 0, "cluster": 0,
+             "cluster_res": 0, **NO_TARGETS}
         assert {r: after[5][r] - before[5][r] for r in after[5]} == \
-            {"fft": 8, "dft": 0, "padded": 0, **NO_BACKWARD_TARGETS}
+            {"fft": 8, "dft": 0, "padded": 0, "cluster": 0, **NO_BACKWARD_TARGETS}
         assert [fn.shape_launches.get((r, band1), 0) - b
                 for (fn, r), b in zip(keys, at_band1)] == [1, 4, 4]
         runs.append(res)
@@ -1189,9 +1204,10 @@ def test_joint_map_runs_the_padded_band_inside_the_graph(cuda):
         assert np.isfinite(res.lnpost)
         assert [a - b for a, b in zip(after[:4], before[:4])] == [10, 8, 10, 8]
         assert {r: after[4][r] - before[4][r] for r in after[4]} == \
-            {"fft": 1, "fft_res": 4, "dft": 0, "padded": 1, "padded_res": 4, **NO_TARGETS}
+            {"fft": 1, "fft_res": 4, "dft": 0, "padded": 1, "padded_res": 4, "cluster": 0,
+             "cluster_res": 0, **NO_TARGETS}
         assert {r: after[5][r] - before[5][r] for r in after[5]} == \
-            {"fft": 4, "dft": 0, "padded": 4, **NO_BACKWARD_TARGETS}
+            {"fft": 4, "dft": 0, "padded": 4, "cluster": 0, **NO_BACKWARD_TARGETS}
         assert [fn.shape_launches.get((r, band1), 0) - b
                 for (fn, r), b in zip(keys, at_band1)] == [1, 4, 4]
         runs.append(res)
@@ -1233,6 +1249,92 @@ def test_conv_lnl_padded_route_at_every_transform(cuda, shape):
     assert _normalized_err(back, want_back, dims=(1, 2)) <= 1e-3
     assert torch.equal(back, CL.batched_conv_lnl_backward(raws, consts, got, grad,
                                                           residuals))
+
+
+@pytest.mark.parametrize("shape", [(88, 88), (94, 94), (101, 101), (160, 180), (196, 196),
+                                   (200, 200), (128, 256), (256, 256), (450, 450)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_conv_lnl_cluster_route_at_every_cluster_size(cuda, shape):
+    """The cluster route's forward, residual forward and backward on
+    clusters of 2 blocks (the padded 180x180, 192x192 and 210x210, and
+    160x180, 196x196, 200x200, 128x256), 4 (256x256) and 8 (450x450), at
+    8 walkers: one launch each on the routes ``"cluster"`` and
+    ``"cluster_res"`` and the backward's ``"cluster"``; the lnL within 2e-5
+    of the float64 plain version per walker, the residual instantiation's
+    lnL bits the forward's, the backward within 1e-3 of each walker's
+    largest gradient of the float64 plain backward, and the same bits on a
+    second launch of each."""
+    consts, c64, raws = _synthetic_consts(shape, cuda, shape[0] * 1000 + shape[1])
+    raws = raws[:8].contiguous()
+    assert CL.conv_route(shape) == "cluster"
+    assert CL.cluster_size(shape) == {(256, 256): 4, (450, 450): 8}.get(shape, 2)
+    routes = dict(CL.batched_conv_lnl.route_launches)
+    back_routes = dict(CL.batched_conv_lnl_backward.route_launches)
+    got = CL.batched_conv_lnl(raws, consts)
+    lnl, *residuals = CL.batched_conv_lnl_residuals(raws, consts)
+    grad = torch.as_tensor(np.random.RandomState(4).uniform(0.5, 2.0, len(raws)),
+                           dtype=torch.float32, device=cuda)
+    back = CL.batched_conv_lnl_backward(raws, consts, got, grad, residuals)
+    torch.cuda.synchronize()
+    routes["cluster"] += 1
+    routes["cluster_res"] += 1
+    back_routes["cluster"] += 1
+    assert CL.batched_conv_lnl.route_launches == routes
+    assert CL.batched_conv_lnl_backward.route_launches == back_routes
+    _same_bits(lnl, got)
+    want = CL.batched_conv_lnl_plain(raws.double().cpu(), c64).to(cuda)
+    assert torch.isfinite(want).all() and torch.isfinite(got).all()
+    torch.testing.assert_close(got.double(), want, rtol=2e-5, atol=0.0)
+    want_back = CL.batched_conv_lnl_backward_plain(
+        raws.double().cpu(), c64, want.cpu(), grad.double().cpu()).to(cuda)
+    assert _normalized_err(back, want_back, dims=(1, 2)) <= 1e-3
+    assert torch.equal(got, CL.batched_conv_lnl(raws, consts))
+    for x, y in zip(CL.batched_conv_lnl_residuals(raws, consts), [lnl] + residuals):
+        _same_bits(x, y)
+    assert torch.equal(back, CL.batched_conv_lnl_backward(raws, consts, got, grad,
+                                                          residuals))
+
+
+def test_cluster_route_keeps_the_non_finite_walkers_inside_a_graph(cuda):
+    """At 94x94 (192x192 over 2 blocks): a NaN pixel, an infinite pixel
+    and a pixel whose square overflows float32 give -inf on exactly those
+    walkers in the forward and the residual forward, as the plain version,
+    and a zero gradient; the three launches captured in one CUDA graph
+    replay the eager launches bit for bit."""
+    consts, _, raws = _synthetic_consts((94, 94), cuda, 94)
+    raws[2, 5, 7] = float("nan")
+    raws[11, 40, 3] = float("inf")
+    raws[17, 93, 93] = 1e30
+    raws[23] = 0.0  # the scale falls back to 1
+    grad = torch.ones(len(raws), dtype=torch.float32, device=cuda)
+
+    def launches():
+        lnl = CL.batched_conv_lnl(raws, consts)
+        res = CL.batched_conv_lnl_residuals(raws, consts)
+        return [lnl, *res, CL.batched_conv_lnl_backward(raws, consts, lnl, grad, res[1:])]
+
+    eager = launches()
+    want = CL.batched_conv_lnl_plain(raws, consts)
+    for got in eager[:2]:
+        assert _same_nonfinite(got, want)
+        assert {2, 11, 17} <= set(torch.isinf(got).nonzero().flatten().tolist())
+        fin = torch.isfinite(want)
+        torch.testing.assert_close(got[fin], want[fin], rtol=2e-5, atol=0.0)
+    assert torch.isfinite(eager[0][23])
+    for w in (2, 11, 17):
+        assert torch.equal(eager[4][w], torch.zeros_like(eager[4][w]))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        launches()  # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = launches()
+    graph.replay()
+    torch.cuda.synchronize()
+    for x, y in zip(out, eager):
+        _same_bits(x, y)
 
 
 def test_padded_launch_refuses_a_shape_the_host_did_not_plan(cuda):
@@ -1542,11 +1644,11 @@ def _target_stack(shape, device, nt, spectra, seed=3):
 
 
 @pytest.mark.parametrize("shape", [(128, 128), (96, 96), (98, 98), (74, 74), (45, 75),
-                                   (94, 94)])
+                                   (94, 94), (256, 256)])
 @pytest.mark.parametrize("spectra", [False, True], ids=["planes", "spectra"])
 def test_conv_lnl_with_targets_matches_plain(cuda, shape, spectra):
-    """Per-target planes on every route (and per-target spectra on the FFT
-    and padded routes) against the plain version: within 2e-5 of the
+    """Per-target planes on every route (and per-target spectra on the FFT,
+    padded and cluster routes: 94x94 and 256x256) against the plain version: within 2e-5 of the
     float32 plain version per walker, as close to the float64 one as four
     times the float32 plain version, the same non-finite entries, counted
     on the route's ``_targets`` key; per-target spectra on the matmul-DFT
@@ -1601,16 +1703,18 @@ def test_conv_lnl_stacked_copies_equal_the_shared_launch(cuda, shape):
 
 
 TARGET_GRAD_CASES = [((128, 128), False), ((128, 128), True), ((96, 96), False),
-                     ((74, 74), False), ((74, 74), True), ((94, 94), False)]
+                     ((74, 74), False), ((74, 74), True), ((94, 94), False),
+                     ((94, 94), True), ((160, 180), False)]
 
 
 @pytest.mark.parametrize("shape,spectra", TARGET_GRAD_CASES,
-                         ids=["128", "128-spectra", "96", "74", "74-spectra", "94"])
+                         ids=["128", "128-spectra", "96", "74", "74-spectra", "94",
+                              "94-spectra", "160x180"])
 def test_conv_lnl_residuals_and_backward_with_targets_match_plain(cuda, shape, spectra):
     """The residual forward and the backward with the target axis (the
     hierarchical fit's gradient): per-target planes on the radix-2,
-    mixed-radix, padded and matmul-DFT routes, per-target spectra on the
-    FFT and padded routes.  The residual instantiation's lnL bits are the
+    mixed-radix, padded and cluster routes, per-target spectra on the
+    FFT, padded and cluster routes.  The residual instantiation's lnL bits are the
     forward's, counted on ``"<route>_res_targets"``, its weights within
     1e-6 of each walker's largest weight (or 4x the float32 plain
     scheme's error) of the float64 plain scheme; the backward, counted on
@@ -1623,15 +1727,15 @@ def test_conv_lnl_residuals_and_backward_with_targets_match_plain(cuda, shape, s
     consts, c64, raws = _target_stack(shape, cuda, nt, spectra, seed=11)
     route = CL.conv_route(shape)
     lnl, residuals = CL.batched_conv_lnl(raws, consts), None
-    if route in ("fft", "padded"):
+    if route != "dft":
         routes = dict(CL.batched_conv_lnl.route_launches)
         got, weights, scale_exp = CL.batched_conv_lnl_residuals(raws, consts)
         torch.cuda.synchronize()
         routes[route + "_res_targets"] += 1
         assert CL.batched_conv_lnl.route_launches == routes
         _same_bits(got, lnl)
-        plain = (CL.padded_fft_conv_residuals_plain if route == "padded"
-                 else CL.packed_fft_conv_residuals_plain)
+        plain = (CL.packed_fft_conv_residuals_plain if route == "fft"
+                 else CL.padded_fft_conv_residuals_plain)
         _, w64, e64 = plain(raws.double().cpu(), c64)
         _, w32, _ = plain(raws, consts)
         want = w64.to(cuda)
@@ -1739,8 +1843,9 @@ def test_fit_batch_keeps_one_program_on_the_card(cuda):
 
 
 def test_batch_posterior_on_the_card_matches_the_cpu(cuda):
-    """log_posterior_obs on the card (float32; the kernel path, and the
-    general path of survey mode at 94x94) against the CPU's float64."""
+    """log_posterior_obs on the card (float32; the kernel path, at 94x94
+    on the cluster route with per-target spectra too) against the CPU's
+    float64."""
     from psfmc_tpu_torch import batchfit as BF
     from psfmc_tpu_torch.models import MultiComponentModel
 

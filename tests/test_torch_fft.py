@@ -427,6 +427,11 @@ MIXED_FFT = {(96, 96), (100, 100), (144, 144), (128, 96), (98, 98), (56, 56),
 # an odd side or a prime factor above 7, padded to a transform that fits a
 # block: conv_lnl's padded route (the radix-2 rule has none)
 PADDED = {(45, 37), (74, 74), (45, 75), (49, 98), (64, 74)}
+# a transform (the padded one, or the FFT route's own sides) too large for a
+# block that fits a cluster of blocks: conv_lnl's cluster route (the radix-2
+# rule has none)
+CLUSTER = {(128, 256), (256, 256), (88, 88), (160, 180), (196, 196), (94, 94),
+           (101, 101)}
 
 
 @pytest.mark.parametrize("shape,route", [
@@ -444,6 +449,9 @@ PADDED = {(45, 37), (74, 74), (45, 75), (49, 98), (64, 74)}
     ((160, 180), "dft"), ((196, 196), "dft"),
     # factors of 47 and 101: padded to 192 and 210, no block holds them
     ((94, 94), "dft"), ((101, 101), "dft"), ((64, 74), "dft"),
+    # on no route but the matmul-DFT one of either rule: a transform that no
+    # cluster of 8 blocks holds
+    ((512, 512), "dft"),
 ], ids=lambda v: v if isinstance(v, str) else f"{v[0]}x{v[1]}")
 def test_conv_route_is_a_function_of_the_shape(shape, route):
     """``route`` is the radix-2 rule's answer (``radices=(2,)``, the
@@ -451,12 +459,15 @@ def test_conv_route_is_a_function_of_the_shape(shape, route):
     answers ``"fft"`` also for the shapes of :data:`MIXED_FFT`,
     ``"padded"`` for those of :data:`PADDED` (74x74 -> 150x150, 45x75 ->
     90x150, 49x98 -> 98x98, 45x37 -> 90x80, 64x74 -> 64x150: one side
-    padded), and the same elsewhere: 88x88 (180x180), 94x94 (192x192) and
-    101x101 (210x210) need more shared memory than a block has, 160x180
-    and 196x196 are on the FFT route's sides but too large, and a side of
-    1 (1x64) stays on the matmul-DFT route."""
+    padded), ``"cluster"`` for those of :data:`CLUSTER`: 88x88 (180x180),
+    94x94 (192x192) and 101x101 (210x210) need more shared memory than a
+    block has, and so do 160x180, 196x196, 128x256 and 256x256 on the FFT
+    route's sides, but a cluster of 2 (256x256: 4) blocks holds each; and
+    the same elsewhere: a side of 1 (1x64) and 512x512 (no cluster of 8
+    holds it) stay on the matmul-DFT route."""
     assert CL.conv_route(shape, radices=(2,)) == route
-    want = "fft" if shape in MIXED_FFT else "padded" if shape in PADDED else route
+    want = ("fft" if shape in MIXED_FFT else "padded" if shape in PADDED
+            else "cluster" if shape in CLUSTER else route)
     assert CL.conv_route(shape) == want
     if want == "fft":
         assert CL.fft_smem_bytes(shape) <= CL.BLOCK_SMEM_LIMIT
@@ -465,6 +476,9 @@ def test_conv_route_is_a_function_of_the_shape(shape, route):
         assert padded != shape and all(m >= 2 * n - 1 or m == n
                                        for n, m in zip(shape, padded))
         assert CL.fft_smem_bytes(padded) <= CL.BLOCK_SMEM_LIMIT
+    if want == "cluster":
+        assert CL.cluster_size(shape) in CL.CLUSTER_SIZES
+        assert CL.fft_smem_bytes(CL.padded_shape(shape)) > CL.BLOCK_SMEM_LIMIT
 
 
 def test_fft_route_needs_less_shared_memory_than_the_three_buffers():

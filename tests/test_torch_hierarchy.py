@@ -720,7 +720,7 @@ def test_chip_smoke_hierarchy_phase_rehearses_on_the_cpu(monkeypatch):
 
     def forward_route(raws, consts):
         route = CL.conv_route(consts.shape)
-        if torch.is_grad_enabled() and raws.requires_grad and route in ("fft", "padded"):
+        if torch.is_grad_enabled() and raws.requires_grad and route != "dft":
             route += "_res"
         return route + targets(consts), consts.shape
 
@@ -729,6 +729,10 @@ def test_chip_smoke_hierarchy_phase_rehearses_on_the_cpu(monkeypatch):
     counting(CL, "batched_conv_lnl", forward_route)
     counting(CL, "batched_conv_lnl_backward", lambda raws, consts, *a: (
         CL.conv_route(consts.shape) + targets(consts), consts.shape))
+    # a forced route (the matmul-DFT route timed beside the cluster route) has
+    # no CPU mode
+    monkeypatch.setattr(CL, "_launch_backward", lambda r, c, l, g, route, residuals=None:
+                        CL.batched_conv_lnl_backward_plain(r, c, l, g))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(cs, "time_ms", lambda fn, *a, **k: (fn(), 1.0)[1])
     for name, value in (("HIER_TARGETS", 4), ("HIER_POOL", 2), ("HIER_DEPTH", 3),
@@ -749,7 +753,7 @@ def test_chip_smoke_hierarchy_phase_rehearses_on_the_cpu(monkeypatch):
                      "conv_lnl_res_targets_spectra", "conv_lnl_backward_targets_spectra",
                      "conv_lnl_res_targets_mixed", "conv_lnl_backward_targets_mixed",
                      "conv_lnl_res_targets_padded", "conv_lnl_backward_targets_padded",
-                     "conv_lnl_backward_targets_dft"]
+                     "conv_lnl_res_targets_cluster", "conv_lnl_backward_targets_cluster"]
     assert all(r["launches"] > 0 for r in out["rows"])
     launches = {r["name"]: r["launches"] for r in out["rows"]}
     assert launches["conv_lnl_res_targets"] == launches["conv_lnl_backward_targets"]

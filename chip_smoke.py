@@ -277,9 +277,31 @@ never ``jax`` nor ``psfmc_tpu``, and:
    the ``torch.fft`` composite and its bounds (the ``by_shape`` entries of
    the ``conv_lnl_cluster``, ``conv_lnl_res_cluster`` and
    ``conv_lnl_backward_cluster`` rows);
-20. prints the tempered, evidence, NUTS, criticism, batch, hierarchy and
-   cluster phases' numbers and the kernel table as one JSON line each,
-   then the result line ``{"ok": true, "device": {...}}`` last.
+20. GALFIT phase (:func:`galfit_phase`, a GALFIT user's path through the
+   command line): the GALFIT flagship (a feedme of the MAP flagship, a
+   sky with its gradients fixed at 0, a ``psf`` and two ``sersic``s, with
+   ``J)`` and ``K)``, and a ``G)`` constraint file coupling the host's
+   position to the point source's at zero offset) beside the MAP
+   flagship's FITS files; ``import_galfit_main`` to a model file with the
+   ``Configuration`` block appended (the batched path, the host ``Tied``);
+   ``quick_fit_main`` at 64 starts x 500 Adam steps (the launches exact by
+   wrapper and route, none on the matmul-DFT route, every step one
+   replay, the lnpost at the MAP against the CPU's float64, the five
+   products with their Laplace cards) and ``python -m
+   psfmc_tpu_torch.cli quick_fit`` once in a subprocess (rc 0, the five
+   products); ``model_galaxy_mcmc`` on the imported model (250 walkers,
+   20 + 20 steps; launches exact, every step a replay, the last draws'
+   lnpost against the CPU's float64); ``summary_main`` on its database,
+   plain and with ``--criticism`` (the replays' launches exact);
+   ``results_to_feedme`` parsed back, its values the posterior means
+   through the inverse conversions; the render, conv_lnl, its residual
+   forward and both backward kernels against their plain versions at the
+   phase's batches (the MAP's 64 starts, 125 walkers, the replay chunks:
+   the ``galfit_checks`` of the kernel rows); each step's wall seconds;
+21. prints the tempered, evidence, NUTS, criticism, batch, hierarchy,
+   cluster and GALFIT phases' numbers and the kernel table as one JSON
+   line each, then the result line ``{"ok": true, "device": {...}}``
+   last.
 
 Each phase ends in a synchronize of the card (:func:`run_phase`), so an
 asynchronous CUDA error names the phase whose launches raised it.
@@ -299,7 +321,7 @@ also covers the priors flagship and the priors' stress variant.
 
 ``python3 chip_smoke.py --only nuts,nuts,criticism`` runs only the named
 phases after the build (``nuts``, ``criticism``, ``batch``, ``hierarchy``,
-``cluster``, and
+``cluster``, ``galfit``, and
 ``nuts-kernels``: the gradient path's four kernels at NUTS's
 batches, a short target for ``compute-sanitizer``), each as often as it
 is named, and prints their numbers.
@@ -1279,12 +1301,19 @@ def pt_state_differs(a, b):
     return [k for k, (x, y) in pairs.items() if not same_bits(x, y)]
 
 
-def batch_kernel_check(post, thetas, label, stack=None):
+def batch_kernel_check(post, thetas, label, stack=None, norm_scale=False, c64=None):
     """The render and, on the batched path, the conv_lnl kernel at the
     batch ``thetas`` gives them (a tempered half-step's, a NUTS leaf's, a
     batch fit's), each against its plain version; with ``stack`` (a batch
     fit's :class:`~psfmc_tpu_torch.models.posterior.ObsStack`), conv_lnl
-    with the stack's per-target constants where it takes the kernel path."""
+    with the stack's per-target constants where it takes the kernel path.
+    With a stack, or with ``norm_scale``, conv_lnl's error is taken against
+    the larger of |lnL| and |normalization| a walker (see below).  With
+    ``c64`` (the float64 CPU posterior's constants), where the kernel
+    misses its float32 plain version, it passes if it is within the
+    tolerance of the float64 lnL and no further from it than the plain
+    version (far from the data the plain version's matmul DFT is the less
+    accurate of the two)."""
     import torch
 
     from psfmc_tpu_torch.ops.kernels.conv_lnl import (
@@ -1314,7 +1343,8 @@ def batch_kernel_check(post, thetas, label, stack=None):
         got, want = batched_conv_lnl(raws, consts), batched_conv_lnl_plain(raws, consts)
         abs_err, conv_rel, frac = compare(got, want)
         out["conv_lnl_max_rel_err"] = conv_rel
-        if stack is None:
+        scale = want.double().abs()
+        if stack is None and not norm_scale:
             msg += (f"; conv_lnl at B = {b}: max rel err {conv_rel:.3e} (tol "
                     f"{CONV_LNL_TOL:g}), finite share {frac:.4f}")
         else:
@@ -1322,11 +1352,12 @@ def batch_kernel_check(post, thetas, label, stack=None):
             # normalization (+0.5 log(1 / 2 pi var) a good pixel) cancels the
             # chi-square half there, so the error is taken against the sum's
             # own scale, the larger of |lnL| and |normalization| a walker
-            var = stack.obs_var.double()
-            norm = 0.5 * torch.where(stack.good, -torch.log(2 * math.pi * var),
-                                     torch.zeros_like(var)).sum((1, 2))
+            obs = post if stack is None else stack
+            var = obs.obs_var.double()
+            norm = 0.5 * torch.where(obs.good, -torch.log(2 * math.pi * var),
+                                     torch.zeros_like(var)).sum((-2, -1)).reshape(-1)
             scale = torch.maximum(want.double().abs(),
-                                  norm.abs().repeat_interleave(b // stack.targets))
+                                  norm.abs().repeat_interleave(b // norm.numel()))
             fin = torch.isfinite(want)
             err = (got.double() - want.double()).abs()[fin] / scale[fin]
             out["conv_lnl_per_walker_rel_err"] = conv_rel
@@ -1336,6 +1367,17 @@ def batch_kernel_check(post, thetas, label, stack=None):
                     f"|normalization|) (tol {CONV_LNL_TOL:g}), max abs err {abs_err:.3e}, "
                     f"of |lnL| {out['conv_lnl_per_walker_rel_err']:.3e} (smallest |lnL| "
                     f"{out['conv_lnl_min_abs_lnl']}), finite share {frac:.4f}")
+    if consts is not None and c64 is not None and conv_rel > CONV_LNL_TOL:
+        want64 = batched_conv_lnl_plain(raws.double().cpu(), c64).to(got.device)
+        fin = torch.isfinite(want64)
+        kernel64 = ((got.double() - want64).abs() / scale)[fin].max().item()
+        plain64 = ((want.double() - want64).abs() / scale)[fin].max().item()
+        out.update(conv_lnl_plain_rel_err=conv_rel, conv_lnl_f64_rel_err=kernel64,
+                   conv_lnl_plain_f64_rel_err=plain64)
+        msg += (f"; against the float64 lnL: the kernel {kernel64:.3e}, its float32 plain "
+                f"version {plain64:.3e} (tol {CONV_LNL_TOL:g})")
+        if kernel64 <= CONV_LNL_TOL and kernel64 <= plain64:
+            conv_rel = out["conv_lnl_max_rel_err"] = kernel64
     log(msg)
     if not (render_rel <= RENDER_TOL and conv_rel <= CONV_LNL_TOL):
         raise AssertionError(f"{label}: a kernel disagrees with its plain version "
@@ -2949,7 +2991,7 @@ def render_backward_check(params, sky, shape, grad, label):
                             strips=list(strips))
 
 
-def grad_batch_check(post, thetas, label, seed):
+def grad_batch_check(post, thetas, label, seed, norm_scale=False, f64=False):
     """The gradient path's kernels at the batch ``thetas`` gives them (a
     NUTS leaf's: 8 chains, or 16 rows of the marginalized potential), each
     against its plain version: the forwards (:func:`batch_kernel_check`;
@@ -2967,13 +3009,15 @@ def grad_batch_check(post, thetas, label, seed):
     b = thetas.shape[0]
     shape = post.render_shape
     params, sky = (t.contiguous() for t in post.render_inputs(thetas))
-    out = batch_kernel_check(post, thetas, label)
+    c64 = (build_posterior(post.spec, device="cpu", dtype=torch.float64,
+                           lnpost="batched").consts
+           if post.grad_mode == "batched" else None)
+    out = batch_kernel_check(post, thetas, label, norm_scale=norm_scale,
+                             c64=c64 if f64 else None)
     if post.grad_mode == "batched":
         raws = post.raw_and_ps(thetas)[0].contiguous()
         consts = post.consts
         lnl = CL.batched_conv_lnl(raws, consts)
-        c64 = build_posterior(post.spec, device="cpu", dtype=torch.float64,
-                              lnpost="batched").consts
         residuals, keep, out["conv_lnl_res"] = residual_check(
             raws, consts, c64, lnl, f"{label}: conv_lnl's residual forward at B = {b}")
         up = torch.full((b,), -1.0, dtype=torch.float32, device=raws.device)
@@ -6193,6 +6237,346 @@ def cluster_phase(shape=None, psf_shape=(64, 64), device=None):
     return out
 
 
+# the exported feedme prints 4 decimals: half a unit of the last, and the
+# parse's float64 representation error far below 1e-9
+GALFIT_ROUNDTRIP_TOL = 5e-5 + 1e-9
+GALFIT_CPU_ROWS = 16  # walkers of the fit's last draws whose lnpost the CPU replays
+LAPLACE_MARK = "+/-"  # a parameter card's value +/- its Laplace standard error
+
+
+def captured(fn, *args):
+    """``fn(*args)``'s return value and what it printed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(*args)
+    return rc, buf.getvalue()
+
+
+def galfit_products(base, model, shape, label):
+    """The five MAP products of ``base``: finite ``shape`` images, ``MAPLNP``
+    and each of ``model``'s parameters' cards with its Laplace error.
+    Returns ``MAPLNP``."""
+    from psfmc_tpu_torch.io import fits
+
+    hdr = None
+    for ftype in IMAGE_TYPES:
+        data = fits.getdata(f"{base}_{ftype}.fits")
+        if data.shape != shape or not np.all(np.isfinite(data)):
+            raise AssertionError(f"{label}: {ftype} is not a finite {shape} image")
+        hdr = fits.getheader(f"{base}_{ftype}.fits")
+    for abbr in model.param_fits_abbrs:
+        if LAPLACE_MARK not in str(hdr[abbr]):
+            raise AssertionError(f"{label}: card {abbr} = {hdr[abbr]!r} has no Laplace error")
+    return float(hdr["MAPLNP"])
+
+
+def galfit_roundtrip(text, db):
+    """The largest distance of the exported feedme's values from the
+    posterior means through the exact inverse conversions (positions + 1,
+    position angle = angle - 90, ``q = reff_b / reff`` of the means; the
+    tied host at its owner's position)."""
+    from psfmc_tpu_torch.analysis import summary
+    from psfmc_tpu_torch.io.galfit import parse_feedme
+
+    means = {k: v["mean"] for k, v in summary(db).items()}
+    objects = parse_feedme(text).objects
+    if [o.kind for o in objects] != ["sky", "psf", "sersic", "sersic"]:
+        raise AssertionError(f"galfit: exported objects {[o.kind for o in objects]}")
+    ps_xy = [means[f"1_PointSource_xy_{i}"] + 1.0 for i in (0, 1)]
+    want = [{"1": [means["0_Sky_adu"]]},
+            {"1": ps_xy, "3": [means["1_PointSource_mag"]]}]
+    for n, xy in ((2, ps_xy), (3, [means[f"3_Sersic_xy_{i}"] + 1.0 for i in (0, 1)])):
+        want.append({"1": xy, "3": [means[f"{n}_Sersic_mag"]], "4": [means[f"{n}_Sersic_reff"]],
+                     "5": [means[f"{n}_Sersic_index"]],
+                     "9": [means[f"{n}_Sersic_reff_b"] / means[f"{n}_Sersic_reff"]],
+                     "10": [means[f"{n}_Sersic_angle"] - 90.0]})
+    err = 0.0
+    for obj, w in zip(objects, want):
+        for key, values in w.items():
+            got = obj.params[key][0]
+            if obj.params[key][1] != [1] * len(values):
+                raise AssertionError(f"galfit: {obj.kind} {key}) toggles {obj.params[key][1]}")
+            err = max(err, max(abs(g - v) for g, v in zip(got, values)))
+    return err
+
+
+def galfit_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
+    """A GALFIT user's path on the card (the arguments shrink it for a
+    rehearsal on the CPU): the GALFIT flagship (a feedme of the MAP
+    flagship with a ``G)`` constraint file tying the host's position to
+    the point source's, beside the MAP flagship's FITS files) through
+    ``import_galfit_main`` and the ``Configuration`` block appended
+    (the batched path, the ``Tied`` host); ``quick_fit_main`` at
+    :data:`MAP_STARTS` x :data:`MAP_STEPS` (the launches exact by wrapper
+    and route, none on the matmul-DFT route, every Adam step one replay,
+    the lnpost at the MAP within :data:`MAP_LNP_RTOL` of the CPU's
+    float64, the five products with their Laplace cards) and once more
+    as ``python -m psfmc_tpu_torch.cli quick_fit`` in a subprocess;
+    ``model_galaxy_mcmc`` on the imported model (:data:`NWALKERS`
+    walkers, :data:`BURN` + :data:`SAMPLE` steps; the launches exact,
+    every step a replay, the last draws' lnpost against the CPU's
+    float64); ``summary_main`` on its database, plain and with
+    ``--criticism`` (the replays' launches exact); ``results_to_feedme``
+    and its parse, equal to the posterior means through the inverse
+    conversions.  The kernels against their plain versions at the
+    phase's batches: the MAP's starts (the four gradient-path kernels),
+    a half-ensemble of the fit, each replay chunk.  Returns the launches,
+    the checks and each step's wall seconds."""
+    import torch
+
+    from psfmc_tpu_torch import cli, fitting
+    from psfmc_tpu_torch.analysis import sensitivity
+    from psfmc_tpu_torch.analysis.model_comparison import REPLAY_CHUNK, _resolve_thetas
+    from psfmc_tpu_torch.database import load_database
+    from psfmc_tpu_torch.flagship import MAG_ZP, write_galfit_files
+    from psfmc_tpu_torch.io.galfit import results_to_feedme
+    from psfmc_tpu_torch.models import MultiComponentModel, Tied
+    from psfmc_tpu_torch.ops.kernels import conv_lnl as CL
+
+    route = CL.conv_route(shape)
+    seconds = {}
+    out = {"seconds": seconds}
+    t_phase = time.perf_counter()
+    env = {k: os.environ.pop(k) for k in ("PSFMC_LNPOST", "PSFMC_RENDER", "PSFMC_KAPPA",
+                                          "PSFMC_PLATFORM") if k in os.environ}
+    if device == "cpu":
+        os.environ["PSFMC_PLATFORM"] = "cpu"
+    models, results = [], []
+    as_model, model_galaxy_map = fitting.as_model, fitting.model_galaxy_map
+
+    def kept_model(*a, **k):
+        models.append(as_model(*a, **k))
+        return models[-1]
+
+    def kept_result(*a, **k):
+        results.append(model_galaxy_map(*a, **k))
+        return results[-1]
+
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            feedme = write_galfit_files(tmp, shape, psf_shape, seed=SEED)
+            seconds["inputs"] = time.perf_counter() - t0
+
+            # import: the feedme (its G) file autoloaded) -> a model file
+            t0 = time.perf_counter()
+            model_file = os.path.join(tmp, "model.py")
+            rc, printed = captured(cli.import_galfit_main, ["import_galfit", feedme, model_file])
+            if rc != 0 or "wrote" not in printed:
+                raise AssertionError(f"galfit: import_galfit returned {rc}: {printed}")
+            with open(model_file, "a") as fh:
+                fh.write('Configuration(obs_file="sci.fits", obsivm_file="ivm.fits", '
+                         'psf_files="psf.fits", psfivm_files="psf_ivm.fits", '
+                         f'mask_file="mask.reg", mag_zeropoint={MAG_ZP!r})\n')
+            model = fitting.as_model(model_file, device=device)
+            fns = model.posterior_fns
+            host = model.components[2]
+            tie = host._constants.get("xy")
+            tied = isinstance(tie, Tied) and tie.component is model.components[1]
+            out["import"] = {"lnpost": fns.lnpost, "grad_mode": fns.grad_mode,
+                             "params": model.num_params, "tied": tied}
+            seconds["import"] = time.perf_counter() - t0
+            log(f"galfit: imported {os.path.basename(feedme)} -> {model.num_params} "
+                f"parameters {model.param_names}; path {fns.lnpost}, gradient "
+                f"{fns.grad_mode}; the host's position tied to the point source: {tied}")
+            if fns.lnpost != "batched" or fns.grad_mode != "batched" or not tied:
+                raise AssertionError(f"galfit: the imported model {out['import']}")
+            cpu = MultiComponentModel(model_file, device="cpu", dtype=torch.float64)
+            c64 = cpu.posterior_fns.consts
+
+            # the MAP fit through the command
+            counted = grad_kernels()
+            fitting.as_model, fitting.model_galaxy_map = kept_model, kept_result
+            try:
+                torch.cuda.synchronize()
+                reset_counts(counted)
+                t0 = time.perf_counter()
+                rc, printed = captured(cli.quick_fit_main, [
+                    "quick_fit", model_file, os.path.join(tmp, "map"),
+                    f"n_starts={MAP_STARTS}", f"steps={MAP_STEPS}"])
+                torch.cuda.synchronize()
+                seconds["quick_fit"] = time.perf_counter() - t0
+                launches, by_route = read_counts(counted)
+            finally:
+                fitting.as_model, fitting.model_galaxy_map = as_model, model_galaxy_map
+            (res,), (map_model,) = results, models[-1:]
+            if rc != 0 or f"lnpost = {res.lnpost:.3f}" not in printed:
+                raise AssertionError(f"galfit: quick_fit returned {rc}: {printed}")
+            evals = MAP_STEPS + 1
+            want = {"render_sersics": 1 + evals + 2 + 1, "render_sersics_backward": evals + 2,
+                    "batched_conv_lnl": 1 + evals + 2, "batched_conv_lnl_backward": evals + 2}
+            want_routes = {f"batched_conv_lnl:{route}": 1,
+                           f"batched_conv_lnl:{route}_res": evals + 2,
+                           f"batched_conv_lnl_backward:{route}": evals + 2,
+                           "batched_conv_lnl:dft": 0, "batched_conv_lnl_backward:dft": 0}
+            got_routes = {k: by_route[k] for k in want_routes}
+            if launches != want or got_routes != want_routes:
+                raise AssertionError(f"galfit: quick_fit launched {launches} {got_routes}, "
+                                     f"want {want} {want_routes}")
+            program = map_program(map_model.posterior_fns)
+            if map_model.posterior_fns.device.type == "cuda":  # the CPU runs no graph
+                if program.replays != MAP_STEPS:
+                    raise AssertionError(f"galfit: {program.replays} replays for "
+                                         f"{MAP_STEPS} Adam steps")
+                check_step_tally(program, {("render_sersics", None): 1,
+                                           ("render_sersics_backward", None): 1,
+                                           ("batched_conv_lnl", f"{route}_res"): 1,
+                                           ("batched_conv_lnl_backward", route): 1},
+                                 "galfit quick_fit")
+            maplnp = galfit_products(os.path.join(tmp, "map"), map_model, shape,
+                                     "galfit quick_fit")
+            lnp64 = float(cpu.posterior_fns.log_posterior_batch(res.theta[None])[0])
+            map_rel = abs(res.lnpost - lnp64) / abs(lnp64)
+            out["map"] = dict(launches, **by_route)
+            out["map_lnpost"], out["map_lnpost_rel_err"] = res.lnpost, map_rel
+            log(f"galfit: quick_fit {MAP_STARTS} starts x {MAP_STEPS} steps in "
+                f"{seconds['quick_fit']:.2f} s; lnpost {res.lnpost:.4f} on the card, "
+                f"{lnp64:.4f} on the CPU in float64 (rel {map_rel:.2e}, tol "
+                f"{MAP_LNP_RTOL:g}); launches {launches}, {got_routes}; products with "
+                f"MAPLNP {maplnp:.4f} and Laplace cards ({CARD})")
+            if not (map_rel <= MAP_LNP_RTOL and math.isclose(maplnp, res.lnpost,
+                                                             rel_tol=1e-6)):
+                raise AssertionError("galfit: the MAP's lnpost disagrees with the CPU's "
+                                     "float64 or with MAPLNP")
+            # the Adam steps' batch: the MAP's starts, the best of its pool (at
+            # the optima the sky's gradient sums to about 0, where its relative
+            # error means nothing); far from the data (lnL down to -1e7)
+            pool = map_model.init_params_from_priors(max(4 * MAP_STARTS, 128),
+                                                     random_state=np.random.RandomState(SEED))
+            with torch.no_grad():
+                lnp_pool = fns.log_posterior_batch(pool).double().cpu().numpy()
+            order = np.argsort(np.where(np.isfinite(lnp_pool), lnp_pool, -np.inf))[::-1]
+            starts = torch.as_tensor(pool[order[:MAP_STARTS]], dtype=torch.float32,
+                                     device=fns.device)
+            checks = {"map": [grad_batch_check(map_model.posterior_fns, starts,
+                                               "galfit, the MAP's starts", SEED + 22,
+                                               norm_scale=True, f64=True)]}
+
+            # the same command as a user runs it, in its own process
+            t0 = time.perf_counter()
+            sub_env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+                [os.path.dirname(os.path.abspath(__file__))]
+                + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+            proc = subprocess.run(
+                [sys.executable, "-m", "psfmc_tpu_torch.cli", "quick_fit", model_file,
+                 os.path.join(tmp, "sub"), f"n_starts={MAP_STARTS}", f"steps={MAP_STEPS}"],
+                cwd=tmp, env=sub_env, capture_output=True, text=True, timeout=600)
+            seconds["quick_fit_subprocess"] = time.perf_counter() - t0
+            out["subprocess_rc"] = proc.returncode
+            if proc.returncode != 0:
+                raise AssertionError(f"galfit: python -m psfmc_tpu_torch.cli quick_fit "
+                                     f"returned {proc.returncode}:\n{proc.stdout}\n"
+                                     f"{proc.stderr[-4000:]}")
+            sub_lnp = galfit_products(os.path.join(tmp, "sub"), map_model, shape,
+                                      "galfit quick_fit subprocess")
+            log(f"galfit: python -m psfmc_tpu_torch.cli quick_fit: rc 0 in "
+                f"{seconds['quick_fit_subprocess']:.2f} s (the process's start "
+                f"included), {proc.stdout.strip()!r}, MAPLNP {sub_lnp:.4f}, five products "
+                f"with Laplace cards ({CARD})")
+
+            # the MCMC fit of the imported model
+            t0 = time.perf_counter()
+            db, sm, at_images, total, moved, wall = counted_fit(
+                model_file, os.path.join(tmp, "fit"), device)
+            seconds["mcmc"] = time.perf_counter() - t0
+            want = family_launches("batched", BURN, SAMPLE, moved=sum(n > 0 for n in moved))
+            got, got_r = at_images
+            if got != want or got_r[f"batched_conv_lnl:{route}"] != want["batched_conv_lnl"] \
+                    or got_r["batched_conv_lnl:dft"] or total[1]["batched_conv_lnl:dft"]:
+                raise AssertionError(f"galfit: the fit launched {got} {got_r}, want {want} "
+                                     f"on the {route} route")
+            if fns.device.type == "cuda" and sm.graph_replays != BURN + SAMPLE:
+                raise AssertionError(f"galfit: {sm.graph_replays} replays for "
+                                     f"{BURN + SAMPLE} steps")
+            names = model.param_names
+            last = np.stack([np.concatenate([np.atleast_1d(np.asarray(v, float)) for v in row])
+                             for row in db[names][SAMPLE - 1::SAMPLE]])
+            with torch.no_grad():
+                got_lnp = fns.log_posterior_batch(last[:GALFIT_CPU_ROWS]).double().cpu().numpy()
+            want_lnp = cpu.posterior_fns.log_posterior_batch(last[:GALFIT_CPU_ROWS]).numpy()
+            fit_rel = float(np.max(np.abs(got_lnp - want_lnp) / np.abs(want_lnp)))
+            acc = float(db.meta["MCACCEPT"])
+            out["mcmc"] = dict(total[0], **total[1])
+            out["mcmc_lnpost_rel_err"], out["mcmc_acceptance"] = fit_rel, acc
+            log(f"galfit: model_galaxy_mcmc {NWALKERS} walkers, {BURN} + {SAMPLE} steps in "
+                f"{wall:.2f} s; acceptance {acc:.4f}; sampling launched {got}; the last "
+                f"draws' lnpost against the CPU's float64, {GALFIT_CPU_ROWS} walkers: max rel "
+                f"{fit_rel:.2e} (tol {SLICE_RTOL:g}) ({CARD})")
+            if not (np.all(np.isfinite(got_lnp)) and fit_rel <= SLICE_RTOL and 0 < acc < 1):
+                raise AssertionError("galfit: the fit's lnpost disagrees with the CPU's "
+                                     "float64, or it accepted nothing")
+            half = torch.as_tensor(last[:B_HALF], dtype=torch.float32, device=fns.device)
+            checks["mcmc"] = [batch_kernel_check(fns, half, "galfit, a half-ensemble",
+                                                 norm_scale=True, c64=c64)]
+
+            # the summary, plain and with the criticism replays
+            db_file = os.path.join(tmp, "fit_db.fits")
+            t0 = time.perf_counter()
+            rc, printed = captured(cli.summary_main, ["summary", db_file])
+            seconds["summary"] = time.perf_counter() - t0
+            lines = printed.splitlines()
+            dashes = next(i for i, line in enumerate(lines) if line and set(line) == {"-"})
+            rows = [line.split()[0] for line in lines[dashes + 1:]]
+            want_rows = [f"{n}_{i}" if ln > 1 else n for n, ln in zip(names, model.param_lens)
+                         for i in range(ln)] + ["lnprobability"]
+            if rc not in (0, 1) or rows != want_rows:
+                raise AssertionError(f"galfit: summary returned {rc}, rows {rows}")
+            counted = counted_kernels()
+            torch.cuda.synchronize()
+            reset_counts(counted)
+            t0 = time.perf_counter()
+            rc_crit, crit = captured(cli.summary_main,
+                                     ["summary", "--criticism", model_file, db_file])
+            torch.cuda.synchronize()
+            seconds["summary_criticism"] = time.perf_counter() - t0
+            launches, by_route = read_counts(counted)
+            fit_db = load_database(db_file)
+            pointwise = _resolve_thetas(model, fit_db, None, 1000)
+            scaling = _resolve_thetas(model, fit_db, None, 4000)
+            sizes = ((pointwise, REPLAY_CHUNK), (scaling, sensitivity.REPLAY_CHUNK))
+            chunks = [-(-len(t) // size) for t, size in sizes]
+            want = {"render_sersics": 2 * chunks[0] + chunks[1], "render_sersics_tiled": 0,
+                    "batched_conv_lnl": chunks[1], "fused_lnl": 0}
+            out["summary"] = dict(launches, **by_route)
+            log(f"galfit: summary {seconds['summary']:.2f} s (rc {rc}); summary --criticism "
+                f"{seconds['summary_criticism']:.2f} s (rc {rc_crit}): {len(pointwise)} "
+                f"pointwise draws in chunks of {REPLAY_CHUNK} and {len(scaling)} "
+                f"power-scaling draws in chunks of {sensitivity.REPLAY_CHUNK}; launched "
+                f"{launches} (want {want}) ({CARD})")
+            if rc_crit not in (0, 1) or "unavailable" in crit or not all(
+                    s in crit for s in ("PSIS-LOO", "LOO-PIT", "power-scaling sensitivity")):
+                raise AssertionError(f"galfit: summary --criticism returned {rc_crit}:\n{crit}")
+            if launches != want or by_route[f"batched_conv_lnl:{route}"] != chunks[1]:
+                raise AssertionError(f"galfit: summary --criticism launched {launches} "
+                                     f"{by_route}, want {want}")
+            batches = sorted({min(size, len(t) - lo) for t, size in sizes
+                              for lo in range(0, len(t), size)}, reverse=True)
+            checks["summary"] = [batch_kernel_check(
+                fns, torch.as_tensor(scaling[:b], dtype=torch.float32, device=fns.device),
+                "galfit, summary replay chunk", norm_scale=True, c64=c64) for b in batches]
+
+            # the export and its round trip
+            t0 = time.perf_counter()
+            text = results_to_feedme(model, database=db_file)
+            err = galfit_roundtrip(text, fit_db)
+            seconds["export"] = time.perf_counter() - t0
+            out["roundtrip_max_err"] = err
+            log(f"galfit: results_to_feedme -> parse_feedme: the values within {err:.2e} of "
+                f"the posterior means through the inverse conversions (tol "
+                f"{GALFIT_ROUNDTRIP_TOL:g})")
+            if not err <= GALFIT_ROUNDTRIP_TOL:
+                raise AssertionError("galfit: the exported feedme misses the posterior means")
+            out["kernel_checks"] = checks
+    finally:
+        fitting.as_model, fitting.model_galaxy_map = as_model, model_galaxy_map
+        os.environ.pop("PSFMC_PLATFORM", None)
+        os.environ.update(env)
+    seconds["phase"] = time.perf_counter() - t_phase
+    log("galfit: wall seconds " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
+        + f" ({CARD})")
+    return out
+
+
 def run_phase(name, fn, *args, **kwargs):
     """Run one phase, then synchronize the card, so that an asynchronous
     CUDA error raised by the phase's launches names this phase before it
@@ -6244,7 +6628,7 @@ def nuts_kernel_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
 ONLY_PHASES = {"nuts": lambda: nuts_phase(), "criticism": lambda: criticism_phase(),
                "nuts-kernels": lambda: nuts_kernel_phase(),
                "batch": lambda: batch_phase(), "hierarchy": lambda: hierarchy_phase(),
-               "cluster": lambda: cluster_phase()}
+               "cluster": lambda: cluster_phase(), "galfit": lambda: galfit_phase()}
 
 
 def main():
@@ -6320,6 +6704,7 @@ def main():
     batch = run_phase("batch", batch_phase)
     hier = run_phase("hierarchy", hierarchy_phase)
     cluster = run_phase("cluster", cluster_phase)
+    galfit = run_phase("galfit", galfit_phase)
     rows += run_phase("backward rows", backward_rows, post, spec)
     rows += batch["rows"]
     rows += hier["rows"]
@@ -6461,6 +6846,17 @@ def main():
     by_name["sersic_render"] += hier["render_launches"]["render_sersics"]
     by_name["sersic_render_backward"] += hier["render_launches"]["render_sersics_backward"]
     by_name.update({r["name"]: r["launches"] for r in hier["rows"]})
+    # the GALFIT phase (20): quick_fit's MAP (the gradient path), the MCMC fit
+    # of the imported model (whole call) and summary --criticism's replays,
+    # every conv_lnl launch on the FFT route's radix-2 geometry at 128x128
+    g_map, g_fit, g_sum = galfit["map"], galfit["mcmc"], galfit["summary"]
+    by_name["sersic_render"] += (g_map["render_sersics"] + g_fit["render_sersics"]
+                                 + g_sum["render_sersics"])
+    by_name["sersic_render_backward"] += g_map["render_sersics_backward"]
+    by_name["conv_lnl"] += (g_map["batched_conv_lnl:fft"] + g_fit["batched_conv_lnl:fft"]
+                            + g_sum["batched_conv_lnl:fft"])
+    by_name["conv_lnl_res"] += g_map["batched_conv_lnl:fft_res"]
+    by_name["conv_lnl_backward"] += g_map["batched_conv_lnl_backward:fft"]
     for r in rows:
         r["launches"] = by_name[r["name"]]
         if r["name"] in ("sersic_render", "fused_lnl", "conv_lnl", "conv_lnl_mixed"):
@@ -6474,6 +6870,9 @@ def main():
             r["nuts_checks"] = nuts["nuts_kernel_checks"]
         if r["name"] == "sersic_render" or r["name"].startswith("conv_lnl_targets"):
             r["batch_checks"] = batch["kernel_checks"]  # at the batch fits' batches
+        if r["name"] in ("sersic_render", "sersic_render_backward", "conv_lnl",
+                         "conv_lnl_res", "conv_lnl_backward"):  # at the GALFIT path's
+            r["galfit_checks"] = galfit["kernel_checks"]
         kind = {"conv_lnl_cluster": "forward", "conv_lnl_res_cluster": "residual",
                 "conv_lnl_backward_cluster": "backward"}.get(r["name"])
         if kind:  # the route's other shapes (cluster_phase)
@@ -6509,6 +6908,10 @@ def main():
     log(json.dumps({"cluster": {k: cluster[k] for k in ("driver", "adam_step_ms",
                                                         "map_lnpost_rel_err", "wall_s")},
                     "card": identity}, default=float))
+    log(json.dumps({"galfit": {k: galfit[k] for k in (
+        "import", "seconds", "map_lnpost", "map_lnpost_rel_err", "mcmc_lnpost_rel_err",
+        "mcmc_acceptance", "roundtrip_max_err", "subprocess_rc")}, "card": identity},
+        default=float))
     log(json.dumps({"kernels": rows, "card": identity}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

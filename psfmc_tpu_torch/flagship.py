@@ -43,6 +43,15 @@ with an observation simulated from a truth inside the priors
 0.005 around a 0.01 sky): the flagship's own observation is pure noise,
 on which a MAP fit has nothing to find.
 
+The GALFIT flagship (:func:`galfit_feedme`, :func:`write_galfit_files`)
+is the MAP flagship as a GALFIT user hands it over: a ``.feedme`` with a
+sky (its gradients fixed at 0), a ``psf`` and two ``sersic`` objects at
+the MAP truth in GALFIT's conventions (1-based positions, position angle
+= angle - 90, axis ratio ``q``), the host started on the point source,
+the zeropoint ``J)`` and a plate scale ``K)``, and a ``G)`` constraint
+file coupling the host's position to the point source's at zero offset
+(the importer's ``Tied``), beside the MAP flagship's FITS files.
+
 The joint flagship (:func:`joint_components`, :func:`write_joint_files`)
 is a two-band quasar/host decomposition: band 0 is the flagship with a
 TAN WCS at 0.03"/px; band 1 a 96x96 observation with its own PSF star,
@@ -71,7 +80,8 @@ __all__ = ["flagship_arrays", "flagship_components", "write_flagship_files",
            "write_family_files", "PRIORS_VARIANTS", "priors_components",
            "write_priors_files", "JOINT_VARIANTS", "joint_headers",
            "joint_components", "write_joint_files", "enforce_axis_order",
-           "prior_draws", "map_truth", "write_map_files", "joint_map_components"]
+           "prior_draws", "map_truth", "write_map_files", "joint_map_components",
+           "GALFIT_PLATE_SCALE", "galfit_feedme", "write_galfit_files"]
 
 MAG_ZP = 25.9463
 TOTAL_MAG = 20.66
@@ -886,3 +896,47 @@ def joint_map_components(shapes=JOINT_SHAPES, psf_shape=(64, 64), seed=0):
                                 psf_files=a["psfs"], psfivm_files=a["psf_ivms"],
                                 mag_zeropoint=MAG_ZP)
     return bands, truth
+
+
+GALFIT_PLATE_SCALE = 0.03  # arcsec per pixel, the feedme's K)
+
+
+def galfit_feedme(shape=(128, 128), constraints="constraints.txt"):
+    """The GALFIT flagship's feedme text (see the module doc): every value
+    free but the sky's gradients, ``G)`` naming ``constraints``."""
+    v = _map_values(shape)
+
+    def num(x):
+        return repr(float(x))
+
+    def xy(name):  # GALFIT's positions are 1-based
+        return " ".join(num(c + 1.0) for c in v[name])
+
+    def sersic(n, position):
+        reff, reff_b = v[f"{n}_Sersic_reff"][0], v[f"{n}_Sersic_reff_b"][0]
+        return (f" 0) sersic\n 1) {position} 1 1\n 3) {num(v[f'{n}_Sersic_mag'][0])} 1\n"
+                f" 4) {num(reff)} 1\n 5) {num(v[f'{n}_Sersic_index'][0])} 1\n"
+                f" 9) {num(reff_b / reff)} 1\n10) {num(v[f'{n}_Sersic_angle'][0] - 90.0)} 1\n")
+
+    ps = xy("1_PointSource_xy")
+    return (f"A) sci.fits\nB) out.fits\nD) psf.fits\nG) {constraints}\n"
+            f"J) {MAG_ZP!r}\nK) {GALFIT_PLATE_SCALE!r} {GALFIT_PLATE_SCALE!r}\n"
+            f"P) 0\n\n 0) sky\n 1) {num(v['0_Sky_adu'][0])} 1\n 2) 0.0 0\n 3) 0.0 0\n\n"
+            f" 0) psf\n 1) {ps} 1 1\n 3) {num(v['1_PointSource_mag'][0])} 1\n\n"
+            + sersic(2, ps) + "\n" + sersic(3, xy("3_Sersic_xy")))
+
+
+def write_galfit_files(directory, shape=(128, 128), psf_shape=(64, 64), seed=0):
+    """Write the GALFIT flagship to ``directory``: the MAP flagship's FITS
+    files and ds9 mask (:func:`write_map_files`, without its model file),
+    ``galfit.feedme`` and its constraint file ``constraints.txt`` (the
+    point source, object 2, and the host, object 3, coupled in x and y at
+    zero offset).  Returns the feedme's path."""
+    write_map_files(directory, shape, psf_shape, seed)
+    os.remove(os.path.join(directory, "model.py"))
+    with open(os.path.join(directory, "constraints.txt"), "w") as fh:
+        fh.write("# comp  par  constraint\n 3_2  x  offset\n 3_2  y  offset\n")
+    path = os.path.join(directory, "galfit.feedme")
+    with open(path, "w") as fh:
+        fh.write(galfit_feedme(shape))
+    return path

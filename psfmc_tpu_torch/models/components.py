@@ -35,6 +35,7 @@ import warnings
 import numpy as np
 
 from ..distributions import DiscreteUniform, Distribution
+from ..ops.coords import array_coords
 from ..io.preprocess import (
     bin_psf,
     calculate_psf_variability,
@@ -819,3 +820,4 @@ class Configuration(ComponentBase):
         self.psf_selector = PSFSelector(
             psf_files, psfivm_files, obs_data.shape, oversample=psf_oversample
         )
+        self.coords = array_coords(obs_data.shape)

@@ -26,20 +26,12 @@ import numpy as np
 import torch
 
 from .components import ComponentBase, Configuration
-from .posterior import build_posterior
+from .posterior import IMAGE_TYPES, build_posterior
 from .spec import build_model_spec
 
 __all__ = ["MultiComponentModel", "as_model", "replicate_noise",
            "poisson_deviance", "trace_param_matrix", "slot_param_names",
            "IMAGE_TYPES"]
-
-IMAGE_TYPES = (
-    "raw_model",
-    "convolved_model",
-    "residual",
-    "composite_ivm",
-    "point_source_subtracted",
-)
 
 
 def replicate_noise(rng, conv, spec, sigma):

@@ -108,7 +108,16 @@ from ..ops.sersic import render_sersic_gen, sersic_profile_core, sersic_scalar_p
 from .spec import BASE_PARAMS, ROT_PARAMS, SHAPE_PARAMS, TRUNC_PARAMS, ModelSpec, check_in_slice
 
 __all__ = ["LogPrior", "ObsStack", "PosteriorFns", "build_posterior", "lnpost_mode",
-           "LNPOST_MODES", "value_and_grad"]
+           "LNPOST_MODES", "value_and_grad", "IMAGE_TYPES"]
+
+# the five image products of a fit, in the writers' order
+IMAGE_TYPES = (
+    "raw_model",
+    "convolved_model",
+    "residual",
+    "composite_ivm",
+    "point_source_subtracted",
+)
 
 LNPOST_MODES = ("batched", "fused", "general")
 # PSFMC_LNPOST values of the JAX package that name a kernel path; every

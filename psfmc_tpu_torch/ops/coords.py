@@ -7,11 +7,24 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
-__all__ = ["coord_grids", "mag_to_flux"]
+__all__ = ["array_coords", "coord_grids", "mag_to_flux"]
 
 _LN10 = math.log(10.0)
+
+
+def array_coords(shape):
+    """(H*W, 2) array of (x, y) pixel-center coordinates, row-major.
+
+    The reference's flat coordinate list (index ``i`` maps to ``(i % W,
+    i // W)``), kept for API compatibility; host float64 numpy, as in the
+    JAX package.
+    """
+    h, w = shape
+    idx = np.arange(h * w)
+    return np.stack([idx % w, idx // w], axis=1).astype(np.float64)
 
 
 def coord_grids(shape, dtype=torch.float32, device="cpu"):

@@ -21,6 +21,7 @@ import torch
 __all__ = [
     "pad_and_rfft_image",
     "convolve",
+    "fft_convolve_direct",
     "rdft_matrices",
     "convolve_rdft",
 ]
@@ -49,6 +50,12 @@ def convolve(img, fourier_kernel):
     spec = torch.fft.rfft2(img) * fourier_kernel
     out = torch.fft.irfft2(spec, s=(h, w))
     return torch.fft.ifftshift(out, dim=(-2, -1))
+
+
+def fft_convolve_direct(img, kernel_padded):
+    """Convolve with a spatial kernel already padded to the image's shape
+    (its spectrum taken here; for tests)."""
+    return convolve(img, torch.fft.rfft2(kernel_padded))
 
 
 def rdft_matrices(shape, dtype=np.float32):

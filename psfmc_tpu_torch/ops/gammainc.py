@@ -28,7 +28,7 @@ import os
 import numpy as np
 import torch
 
-__all__ = ["gammaincinv_half", "gammaincinv_half_table", "kappa_table"]
+__all__ = ["gammaincinv_half", "gammaincinv_half_table", "kappa_table", "sersic_kappa"]
 
 # Newton iterations, as the JAX package reads them (default 6: ~1e-12 in
 # float64); read once, at import.
@@ -132,3 +132,14 @@ def gammaincinv_half_table(a):
         + (-p0 + 3.0 * p1 - 3.0 * p2 + p3) * t * t * t
     )
     return torch.exp(log_k)
+
+
+def sersic_kappa(index, mode="table"):
+    """Sersic b_n: ``gammaincinv(2n, 1/2)`` by table or Newton (``"exact"``,
+    the JAX package's ``gammainc.sersic_kappa``)."""
+    a = 2.0 * index
+    if mode == "table":
+        return gammaincinv_half_table(a)
+    if mode == "exact":
+        return gammaincinv_half(a)
+    raise ValueError(f"unknown kappa mode {mode!r}: expected 'table' or 'exact'")

@@ -29,7 +29,7 @@ import math
 import torch
 
 from .coords import coord_grids, mag_to_flux
-from .gammainc import gammaincinv_half, gammaincinv_half_table
+from .gammainc import sersic_kappa
 from .isophote import (
     generalized_log_sq_radius,
     isophote_area_factor,
@@ -40,6 +40,7 @@ from .truncation import sersic_trunc_ratio, truncation_envelope
 __all__ = [
     "sersic_kappa",
     "sersic_sb_eff",
+    "sersic_sq_radii",
     "sersic_scalar_params",
     "sersic_profile_core",
     "render_sersic",
@@ -48,16 +49,6 @@ __all__ = [
 ]
 
 _TINY = 1e-30
-
-
-def sersic_kappa(index, mode="table"):
-    """Sersic b_n: ``gammaincinv(2n, 1/2)`` by table or Newton."""
-    a = 2.0 * index
-    if mode == "table":
-        return gammaincinv_half_table(a)
-    if mode == "exact":
-        return gammaincinv_half(a)
-    raise ValueError(f"unknown kappa mode {mode!r}: expected 'table' or 'exact'")
 
 
 def sersic_sb_eff(flux_tot, index, reff, reff_b, kappa):
@@ -72,6 +63,27 @@ def sersic_sb_eff(flux_tot, index, reff, reff_b, kappa):
         * torch.exp(kappa - torch.log(kappa) * two_n)
         * gamma_2n
     )
+
+
+def sersic_sq_radii(xg, yg, x, y, reff, reff_b, angle, angle_degrees=False):
+    """Generalized-ellipse square radii and normalized square offsets.
+
+    Returns ``(sq_radii, sq_delta_r)`` over the pixel grid, ``sq_delta_r
+    = sq_radii / (dx^2 + dy^2)``, with the reference's +90 degree
+    position-angle rotation; both square terms floored at ``1e-30`` as in
+    the JAX package.  Arguments broadcast against each other.
+    """
+    ang = torch.deg2rad(angle) if angle_degrees else angle
+    ang = ang + 0.5 * math.pi
+    sin_a, cos_a = torch.sin(ang), torch.cos(ang)
+    dx = xg - x
+    dy = yg - y
+    u = (cos_a * dx + sin_a * dy) / reff
+    v = (-sin_a * dx + cos_a * dy) / reff_b
+    sq_r = u * u + v * v
+    sq_off = dx * dx + dy * dy
+    sq_dr = sq_r / torch.clamp(sq_off, min=_TINY)
+    return torch.clamp(sq_r, min=_TINY), sq_dr
 
 
 def sersic_scalar_params(xy, mag, reff, reff_b, index, angle, mag_zp,

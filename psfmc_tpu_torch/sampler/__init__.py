@@ -2,7 +2,7 @@
 moves), its parallel-tempered counterpart with the evidence estimators,
 annealed importance sampling, and the No-U-Turn sampler."""
 from .ais import AISResult, ais_beta_schedule, ais_evidence
-from .autocorr import AutocorrError, integrated_time
+from .autocorr import AutocorrError, function, integrated_time
 from .ensemble import (
     MOVES,
     EnsembleSampler,
@@ -11,10 +11,11 @@ from .ensemble import (
     fresh_image_accumulators,
     merge_image_accumulators,
     mixed_update,
+    run_stretch_move,
     stretch_update,
     welford_batch_update,
 )
-from .nuts import NUTSSampler
+from .nuts import NUTSSampler, nuts_kernel
 from .tempered import (
     PTEnsembleSampler,
     default_beta_ladder,
@@ -23,12 +24,15 @@ from .tempered import (
 
 __all__ = [
     "AutocorrError",
+    "function",
     "integrated_time",
     "MOVES",
     "EnsembleSampler",
     "EnsembleState",
     "PTEnsembleSampler",
     "NUTSSampler",
+    "nuts_kernel",
+    "run_stretch_move",
     "default_beta_ladder",
     "evidence_beta_ladder",
     "AISResult",

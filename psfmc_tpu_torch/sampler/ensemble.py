@@ -87,6 +87,7 @@ __all__ = [
     "de_update",
     "mixed_update",
     "make_step_fn",
+    "run_stretch_move",
     "capture_step",
 ]
 
@@ -343,6 +344,64 @@ def make_step_fn(lnpost_batch, nwalkers, dim, generator, a=2.0,
             slot.add_(1)
 
     return step
+
+
+def _vmapped_image_means(images_fn, positions):
+    """Mean carry images over the walkers from the per-walker
+    ``images_fn``, with ``raw_m2`` (the batch's sum of squared deviations)
+    beside each raw image, as the JAX package's ``ensemble_image_means``
+    forms them for a posterior without ``ensemble_carry_means``."""
+    imgs = [images_fn(p) for p in positions]
+    stacked = {k: torch.stack([i[k] for i in imgs]) for k in imgs[0]}
+    out = {k: v.mean(dim=0) for k, v in stacked.items()}
+    for k, v in stacked.items():
+        if k == "raw" or k.endswith("_raw"):
+            out[k + "_m2"] = ((v - out[k][None]) ** 2).sum(dim=0)
+    return out
+
+
+def run_stretch_move(lnpost_batch, images_fn, state, nsteps, a=2.0,
+                     accumulate=False, record=True, unroll=1,
+                     ensemble_means_fn=None, thin=1, moves="stretch",
+                     de_gamma0=None, *, generator):
+    """``nsteps`` ensemble iterations of :func:`make_step_fn`, eagerly.
+
+    The JAX package's ``run_stretch_move`` with its arguments and returns:
+    ``(final_state, chain, lnprob)``, the chain ``(nsteps // thin,
+    nwalkers, dim)`` and lnprob ``(nsteps // thin, nwalkers)``, both None
+    when ``record=False``; ``thin > 1`` records every thin-th state (a
+    ``ValueError`` when it does not divide ``nsteps``) while the image
+    accumulation still sees every step.  Every draw comes from
+    ``generator`` (a ``torch.Generator`` on the state's device), in
+    :func:`make_step_fn`'s order.  ``state`` is left as it was: the steps
+    run on a copy, which is returned.  ``unroll`` (a ``lax.scan``
+    setting) has no effect here.  ``images_fn(theta) -> {name: image}``
+    serves the accumulation when ``ensemble_means_fn`` is not given.
+    """
+    if record and thin > 1 and nsteps % thin:
+        raise ValueError(f"nsteps={nsteps} not divisible by thin={thin}")
+    nwalkers, dim = state.positions.shape
+    means_fn = ensemble_means_fn
+    if accumulate and means_fn is None and images_fn is not None:
+        def means_fn(positions):
+            return _vmapped_image_means(images_fn, positions)
+    step = make_step_fn(lnpost_batch, nwalkers, dim, generator, a=a,
+                        accumulate=accumulate, ensemble_means_fn=means_fn,
+                        moves=moves, de_gamma0=de_gamma0)
+    final = state.clone()
+    if not record:
+        for _ in range(nsteps):
+            step(final)
+        return final, None, None
+    pos = final.positions
+    chain = torch.empty((nsteps // thin, nwalkers, dim), dtype=pos.dtype,
+                        device=pos.device)
+    lnprob = torch.empty((nsteps // thin, nwalkers), dtype=final.log_prob.dtype,
+                         device=pos.device)
+    rec = (chain, lnprob, torch.zeros(1, dtype=torch.int64, device=pos.device))
+    for i in range(nsteps):
+        step(final, rec if (i + 1) % thin == 0 else None)
+    return final, chain, lnprob
 
 
 def _host(t, dtype=torch.float64):

@@ -79,6 +79,7 @@ __all__ = [
     "NUTSDraws",
     "NUTSState",
     "NUTSSampler",
+    "nuts_kernel",
     "begin_step",
     "begin_doubling",
     "leaf",
@@ -442,6 +443,53 @@ def run_transition(run, flag, max_depth):
         run("end_doubling")
         if d + 1 < max_depth and not flag():
             break
+
+
+def nuts_kernel(u_vg, max_depth: int = 8):
+    """The NUTS transition ``step(generator, z, u, grad, eps, inv_mass) ->
+    (z', u', grad', stats)`` (the JAX package's ``nuts_kernel``), eagerly
+    through this module's pieces.
+
+    ``u_vg(z) -> (U, dU/dz)`` is the potential (-lnpost in the
+    unconstrained space).  ``z`` is one chain ``(m,)``, with ``u_vg``
+    taking ``(m,)``, or a batch of chains ``(B, m)``, with ``u_vg`` taking
+    ``(B, m)``: every chain runs its own tree in one call.  ``generator``
+    is a ``torch.Generator`` (draws as :class:`NUTSDraws` takes them) or a
+    draws object with :class:`NUTSDraws`' methods.  ``stats``: the mean
+    accept probability, leapfrog count, tree depth reached and divergence
+    flag, per chain.
+    """
+    def step(generator, z, u, grad, eps, inv_mass):
+        single = z.dim() == 1
+        vg = u_vg
+        if single:
+            z, grad = z[None], grad[None]
+
+            def vg(zb):
+                val, g = u_vg(zb[0])
+                return torch.as_tensor(val).reshape(1), g[None]
+
+        dev, dt = z.device, z.dtype
+        draws = (NUTSDraws(generator, dev) if isinstance(generator, torch.Generator)
+                 else generator)
+        s = NUTSState.allocate(z.shape[0], z.shape[1], max_depth, dt, dev)
+        for dst, src in ((s.z, z), (s.u, u), (s.grad, grad), (s.eps, eps),
+                         (s.inv_mass, inv_mass)):
+            dst.copy_(torch.as_tensor(src, dtype=dt, device=dev).reshape(dst.shape))
+        pieces = {"begin_step": lambda: begin_step(s, draws, max_depth),
+                  "begin_doubling": lambda: begin_doubling(s, draws),
+                  "leaf": lambda: leaf(s, vg, draws),
+                  "end_doubling": lambda: end_doubling(s, draws, max_depth)}
+        run_transition(lambda name: pieces[name](), lambda: bool(s.flag), max_depth)
+        stats = {"accept_prob": accept_statistic(s), "n_leapfrog": s.n_leapfrog,
+                 "depth": s.depth, "diverging": s.diverging}
+        _finish(s)
+        if single:
+            stats = {k: v[0] for k, v in stats.items()}
+            return s.z[0], s.u[0], s.grad[0], stats
+        return s.z, s.u, s.grad, stats
+
+    return step
 
 
 def warmup_windows(nsteps):

@@ -25,22 +25,24 @@ never ``jax`` nor ``psfmc_tpu``, and:
    from which they may be no further than the float32 plain version; for
    conv_lnl the ``torch.fft`` formulation as a yardstick, for
    fused_lnl the unfused pair render + conv_lnl.  Both likelihood
-   kernels have two routes picked by the shape: at 128x128 the FFT route
+   kernels take one route picked by the shape: at 128x128 the FFT route
    (asserted; the matmul-DFT route is timed beside it on the same
-   inputs); the same checks run once more at 96x96, where conv_lnl takes
-   its FFT route's mixed-radix geometry (row ``conv_lnl_mixed``, the
-   matmul-DFT route timed beside it) and the fused kernel its matmul-DFT
-   route (row ``fused_lnl_dft``), at 98x98 (7^2 x 2), where conv_lnl
-   takes the same geometry with radix-7 stages (row ``conv_lnl_radix7``,
-   the matmul-DFT route timed beside it), at 74x74 (2 x 37), where
-   conv_lnl takes its padded route, the FFT route's geometry on the image
-   zero-padded to 150x150 (row ``conv_lnl_padded``, the matmul-DFT route
-   timed beside it; 45x75, odd sides, held on the same route), and at
-   94x94 (2 x 47, a transform of 192x192 that fits no block), where it
-   takes its cluster route, the transform across a cluster of 2 blocks
-   (row ``conv_lnl_cluster``, the matmul-DFT route timed beside it).  Each
-   likelihood kernel, its plain version and the ``torch.fft`` yardstick
-   are also held against a float64 ``torch.fft`` convolution on the card;
+   inputs); the same checks run once more at 96x96, the FFT route's
+   mixed-radix geometry (rows ``conv_lnl_mixed``, ``fused_lnl_mixed``), at
+   98x98 (7^2 x 2), the same geometry with radix-7 stages (rows
+   ``conv_lnl_radix7``, ``fused_lnl_radix7``), at 74x74 (2 x 37), the
+   padded route, the FFT route's geometry on the image zero-padded to
+   150x150 (rows ``conv_lnl_padded``, ``fused_lnl_padded``; 45x75, odd
+   sides, held on conv_lnl's), and at 94x94 (2 x 47, a transform of
+   192x192 that fits no block), the cluster route, the transform across a
+   cluster of 2 blocks (rows ``conv_lnl_cluster``, ``fused_lnl_cluster``),
+   each with the matmul-DFT route timed beside it on the same inputs (the
+   fused kernel's where its three buffers fit a block); the fused kernel
+   also at 256x256, a cluster of 4 (row ``fused_lnl_cluster4``), and at
+   1x64, which only its matmul-DFT route holds (row ``fused_lnl_dft``).
+   Each likelihood kernel, its plain version and the ``torch.fft``
+   yardstick are also held against a float64 ``torch.fft`` convolution on
+   the card;
 4. slice phase (the posterior + sampler path, ``lnpost="batched"``): the
    flagship model (synthetic 128x128 observation, 64x64 PSF, 18 free
    parameters), 250 walkers drawn from the priors, ``init_state`` ->
@@ -298,9 +300,17 @@ never ``jax`` nor ``psfmc_tpu``, and:
    forward and both backward kernels against their plain versions at the
    phase's batches (the MAP's 64 starts, 125 walkers, the replay chunks:
    the ``galfit_checks`` of the kernel rows); each step's wall seconds;
-21. prints the tempered, evidence, NUTS, criticism, batch, hierarchy,
-   cluster and GALFIT phases' numbers and the kernel table as one JSON
-   line each, then the result line ``{"ok": true, "device": {...}}``
+21. fused routes phase (:func:`fused_routes_phase`): the fused kernel's
+   fitted paths off the radix-2 geometry (``PSFMC_LNPOST=pallas``): the
+   driver phase's fit and checks on the flagship at a 256x256 observation
+   (the cluster route over 4 blocks) and at 96x96 with a 48x48 PSF (the
+   mixed-radix geometry): launches exact on the fused kernel's route, none
+   on its matmul-DFT route nor on conv_lnl, the lnpost against the CPU's
+   float64, the resumed fit bit for bit, the replayed retained step's
+   time (256x256: beside the cluster phase's batched-path step);
+22. prints the tempered, evidence, NUTS, criticism, batch, hierarchy,
+   cluster, GALFIT and fused routes phases' numbers and the kernel table
+   as one JSON line each, then the result line ``{"ok": true, "device": {...}}``
    last.
 
 Each phase ends in a synchronize of the card (:func:`run_phase`), so an
@@ -321,7 +331,7 @@ also covers the priors flagship and the priors' stress variant.
 
 ``python3 chip_smoke.py --only nuts,nuts,criticism`` runs only the named
 phases after the build (``nuts``, ``criticism``, ``batch``, ``hierarchy``,
-``cluster``, ``galfit``, and
+``cluster``, ``galfit``, ``fused_routes``, and
 ``nuts-kernels``: the gradient path's four kernels at NUTS's
 batches, a short target for ``compute-sanitizer``), each as often as it
 is named, and prints their numbers.
@@ -384,24 +394,30 @@ RAGGED_SHAPE, RAGGED_PSF_SHAPE = (45, 37), (16, 16)  # width not a multiple of 4
 CHECKPOINT = 10  # driver segment: mid-phase checkpoints and rejuvenation
 CARD = "the card's name and power limit, read by main()"  # beside each time
 GRAPH_BURN, GRAPH_SAMPLE = 4, 6  # graph phase: graphed against eager
-# 3 x 2^5: conv_lnl's FFT route on its mixed-radix geometry, and the fused
-# kernel's matmul-DFT route (its FFT route takes powers of two only)
 FLAGSHIP_SHAPE = (128, 128)  # the flagship's observation (the batch phase's)
+# 3 x 2^5: the FFT route on its mixed-radix geometry (conv_lnl's and the
+# fused kernel's)
 MIXED_SHAPE, MIXED_PSF_SHAPE = (96, 96), (48, 48)
-# 7^2 x 2: conv_lnl's FFT route on its mixed-radix geometry with radix-7 stages
+# 7^2 x 2: the FFT route on its mixed-radix geometry with radix-7 stages
 RADIX7_SHAPE, RADIX7_PSF_SHAPE = (98, 98), (48, 48)
-# 2 x 37: conv_lnl's padded route (a 150x150 transform); 45x75, odd sides
-# padded to 90x150, is held on the same route
+# 2 x 37: the padded route (a 150x150 transform); 45x75, odd sides padded to
+# 90x150, is held on conv_lnl's
 PADDED_SHAPE, PADDED_PSF_SHAPE = (74, 74), (36, 36)
 ODD_SHAPE, ODD_PSF_SHAPE = (45, 75), (24, 36)
 # 2 x 47: its 192x192 transform fits no block but a cluster of 2 blocks:
-# conv_lnl's cluster route (its former matmul-DFT route timed beside it)
+# the cluster route (the former matmul-DFT route timed beside it)
 CLUSTER_SHAPE, CLUSTER_PSF_SHAPE = (94, 94), (48, 48)
+# a side of 1: what only the matmul-DFT route holds (the fused kernel's row)
+DFT_SHAPE, DFT_PSF_SHAPE = (1, 64), (1, 32)
 # the cluster route's other shapes, each with its PSF, timed beside the
 # matmul-DFT route and torch.fft on the same inputs (cluster_phase): 101x101
 # (210x210 over 2 blocks), 160x180 (2 blocks), 256x256 (4 blocks)
 CLUSTER_TIMED = (((101, 101), (48, 48)), ((160, 180), (64, 64)), ((256, 256), (64, 64)))
 CLUSTER_FIT_SHAPE = (256, 256)  # the flagship's observation on the cluster route
+CLUSTER_FIT_PSF_SHAPE = (64, 64)
+# the fused kernel's fitted paths off the radix-2 geometry (the
+# fused_routes phase): the cluster route over 4 blocks and the mixed radix
+FUSED_FITS = ((CLUSTER_FIT_SHAPE, CLUSTER_FIT_PSF_SHAPE), (MIXED_SHAPE, MIXED_PSF_SHAPE))
 
 
 def log(msg):
@@ -648,18 +664,29 @@ def kernel_phase(post, spec):
 
     rows += likelihood_rows(post, spec, thetas, ("conv_lnl", "fft"),
                             ("fused_lnl", "fft"))
-    for shape, psf_shape, conv, fused in (
+    # (shape, PSF, conv_lnl's row, the fused kernel's row, whether the fused
+    # row's error is taken against max(|lnL|, |normalization|) a walker: at
+    # 1x64 walkers reach lnL = -6 against a normalization of +280, where the
+    # float32 plain version itself is 6e-5 from the float64 lnL)
+    for shape, psf_shape, conv, fused, norm_scale in (
             (MIXED_SHAPE, MIXED_PSF_SHAPE, ("conv_lnl_mixed", "fft"),
-             ("fused_lnl_dft", "dft")),
-            (RADIX7_SHAPE, RADIX7_PSF_SHAPE, ("conv_lnl_radix7", "fft"), None),
-            (PADDED_SHAPE, PADDED_PSF_SHAPE, ("conv_lnl_padded", "padded"), None),
-            (CLUSTER_SHAPE, CLUSTER_PSF_SHAPE, ("conv_lnl_cluster", "cluster"), None)):
+             ("fused_lnl_mixed", "fft"), False),
+            (RADIX7_SHAPE, RADIX7_PSF_SHAPE, ("conv_lnl_radix7", "fft"),
+             ("fused_lnl_radix7", "fft"), False),
+            (PADDED_SHAPE, PADDED_PSF_SHAPE, ("conv_lnl_padded", "padded"),
+             ("fused_lnl_padded", "padded"), False),
+            (CLUSTER_SHAPE, CLUSTER_PSF_SHAPE, ("conv_lnl_cluster", "cluster"),
+             ("fused_lnl_cluster", "cluster"), False),
+            (CLUSTER_FIT_SHAPE, CLUSTER_FIT_PSF_SHAPE, None,
+             ("fused_lnl_cluster4", "cluster"), False),
+            (DFT_SHAPE, DFT_PSF_SHAPE, None, ("fused_lnl_dft", "dft"), True)):
         other_spec = build_model_spec(flagship_components(shape, psf_shape))
         other_post = build_posterior(other_spec, device=post.device,
                                      lnpost="batched")
         other_thetas = torch.as_tensor(prior_draws(other_spec, B_HALF, seed=1),
                                        dtype=torch.float32, device=post.device)
-        rows += likelihood_rows(other_post, other_spec, other_thetas, conv, fused)
+        rows += likelihood_rows(other_post, other_spec, other_thetas, conv, fused,
+                                norm_scale)
     padded_row = next(r for r in rows if r["name"] == "conv_lnl_padded")
     padded_row["odd_shape"] = odd_shape_check(post.device)
     for r in rows:
@@ -728,59 +755,28 @@ def odd_shape_check(device):
             back_err}
 
 
-def likelihood_rows(post, spec, thetas, conv, fused):
-    """The conv_lnl row and (unless ``fused`` is None) the fused_lnl row at
-    ``spec``'s shape, each ``(row name, the route the shape must take)``:
-    each kernel against its plain version, against the float64 truth, and
-    its times; on the FFT route, the matmul-DFT route on the same inputs
-    too."""
+def likelihood_rows(post, spec, thetas, conv, fused, norm_scale=False):
+    """The conv_lnl row (unless ``conv`` is None) and the fused_lnl row
+    (unless ``fused`` is None) at ``spec``'s shape, each ``(row name, the
+    route the shape must take)``: each kernel against its plain version,
+    against the float64 truth, and its times; off the matmul-DFT route,
+    that route on the same inputs too (the fused kernel's where its three
+    buffers fit a block).  With ``norm_scale`` the fused row's error is
+    taken against the larger of |lnL| and |normalization| a walker, as
+    :func:`batch_kernel_check` takes it."""
     import torch
 
     from psfmc_tpu_torch.ops import convolve, gaussian_lnlike
-    from psfmc_tpu_torch.ops.kernels import _build
-    from psfmc_tpu_torch.ops.kernels import conv_lnl as CL
-    from psfmc_tpu_torch.ops.kernels import fused_lnl as FL
-    from psfmc_tpu_torch.ops.kernels.conv_lnl import (
-        batched_conv_lnl,
-        batched_conv_lnl_plain,
-        conv_route,
-    )
-    from psfmc_tpu_torch.ops.kernels.fused_lnl import (
-        fused_lnl,
-        fused_lnl_plain,
-        fused_route,
-    )
-    from psfmc_tpu_torch.ops.kernels.sersic_render import render_sersics
-    from psfmc_tpu_torch.ops.pointsource import pointsource_image
+    from psfmc_tpu_torch.ops.kernels.conv_lnl import batched_conv_lnl_plain
 
     h, w = spec.shape
-    name, route = conv
-    if conv_route((h, w)) != route:
-        raise AssertionError(f"{h}x{w} takes the {conv_route((h, w))} route, "
-                             f"expected {route}")
-    geometry = fft_geometry((h, w))
-    log(f"{name}: {h}x{w} takes conv_lnl's {route} route"
-        + (f" ({geometry} geometry)" if geometry else ""))
     params, sky = post.render_inputs(thetas)
     params, sky = params.contiguous(), sky.contiguous()
     b, s, _ = params.shape
     rows = []
-
     raws = post.raw_and_ps(thetas)[0]
     consts = post.consts
     want = batched_conv_lnl_plain(raws, consts)
-    counts = dict(batched_conv_lnl.route_launches)
-    got = batched_conv_lnl(raws, consts)
-    counts[route] += 1
-    if batched_conv_lnl.route_launches != counts:
-        raise AssertionError(f"{name} did not launch on the {route} route")
-    abs_err, rel, frac = compare(got, want)
-    log(f"{name}: max rel err {rel:.3e} (tol {CONV_LNL_TOL:g}), "
-        f"max abs err {abs_err:.3e}, finite share {frac:.4f}")
-    if frac < 0.5:
-        raise AssertionError(f"{name} compared on too few finite walkers")
-    if not rel <= CONV_LNL_TOL:
-        raise AssertionError(f"{name} disagrees with its plain version")
 
     f_psf = torch.as_tensor(spec.f_psf_stack[0], device=post.device)
     f_var = torch.as_tensor(spec.f_var_stack[0], device=post.device)
@@ -793,7 +789,8 @@ def likelihood_rows(post, spec, thetas, conv, fused):
                                consts.good)
 
     _, lib_rel, _ = compare(library(), want)
-    log(f"{name}: torch.fft yardstick rel diff to plain {lib_rel:.3e}")
+    log(f"{h}x{w}: torch.fft yardstick rel diff to conv_lnl's plain version "
+        f"{lib_rel:.3e}")
 
     # the float64 truth of the same raw images, by torch.fft on the card
     raws64 = raws.double()
@@ -806,9 +803,6 @@ def likelihood_rows(post, spec, thetas, conv, fused):
         fin = torch.isfinite(truth) & torch.isfinite(v)
         return ((v.double() - truth)[fin].abs() / truth[fin].abs()).max().item()
 
-    log(f"{name}: max rel err against the float64 torch.fft convolution: "
-        f"kernel {truth_err(got):.3e}, plain {truth_err(want):.3e}, "
-        f"torch.fft (float32) {truth_err(library()):.3e}")
     # the bound counts what the function needs: FFT convolutions, and the
     # bytes of the data it reads (the DFT operators belong to the matmul-
     # DFT formulation, whose bound is recorded beside it as dft_bound_ms)
@@ -816,6 +810,49 @@ def likelihood_rows(post, spec, thetas, conv, fused):
     data_bytes = 4 * sum(t.numel() for t in (
         consts.psf_r, consts.psf_i, consts.var_r, consts.var_i, consts.obs,
         consts.obs_var, consts.good_f))
+    if conv is not None:
+        rows += conv_lnl_row(raws, consts, want, conv, library, truth_err, conv_ops,
+                             data_bytes)
+    if fused is None:
+        return rows
+    return rows + fused_lnl_row(post, thetas, params, sky, fused, library, truth_err,
+                                conv_ops, data_bytes, norm_scale)
+
+
+def conv_lnl_row(raws, consts, want, conv, library, truth_err, conv_ops, data_bytes):
+    """:func:`likelihood_rows`' conv_lnl row at ``raws``' shape."""
+    from psfmc_tpu_torch.ops.kernels import _build
+    from psfmc_tpu_torch.ops.kernels import conv_lnl as CL
+    from psfmc_tpu_torch.ops.kernels.conv_lnl import (
+        batched_conv_lnl,
+        batched_conv_lnl_plain,
+        conv_route,
+    )
+
+    b, h, w = raws.shape
+    rows = []
+    name, route = conv
+    if conv_route((h, w)) != route:
+        raise AssertionError(f"{h}x{w} takes the {conv_route((h, w))} route, "
+                             f"expected {route}")
+    geometry = fft_geometry((h, w))
+    log(f"{name}: {h}x{w} takes conv_lnl's {route} route"
+        + (f" ({geometry} geometry)" if geometry else ""))
+    counts = dict(batched_conv_lnl.route_launches)
+    got = batched_conv_lnl(raws, consts)
+    counts[route] += 1
+    if batched_conv_lnl.route_launches != counts:
+        raise AssertionError(f"{name} did not launch on the {route} route")
+    abs_err, rel, frac = compare(got, want)
+    log(f"{name}: max rel err {rel:.3e} (tol {CONV_LNL_TOL:g}), "
+        f"max abs err {abs_err:.3e}, finite share {frac:.4f}")
+    if frac < 0.5:
+        raise AssertionError(f"{name} compared on too few finite walkers")
+    if not rel <= CONV_LNL_TOL:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    log(f"{name}: max rel err against the float64 torch.fft convolution: "
+        f"kernel {truth_err(got):.3e}, plain {truth_err(want):.3e}, "
+        f"torch.fft (float32) {truth_err(library()):.3e}")
     bms, by, term = bound(4 * raws.numel() + data_bytes + 4 * b, conv_ops)
     rows.append(dict(
         name=name, route="cuda", source=_build.source_path("conv_lnl"),
@@ -842,10 +879,32 @@ def likelihood_rows(post, spec, thetas, conv, fused):
                                  "with the plain version")
         rows[-1]["dft_route_ms"] = time_ms(
             lambda: CL._launch(raws, consts, "dft"))
-    if fused is None:
-        return rows
+    return rows
 
-    # fused render + conv + lnL: the whole likelihood from the scalars
+
+def fused_lnl_row(post, thetas, params, sky, fused, library, truth_err, conv_ops,
+                  data_bytes, norm_scale=False):
+    """:func:`likelihood_rows`' fused_lnl row: the whole likelihood from the
+    scalars, held to its plain version (with ``norm_scale``, the error a
+    walker over the larger of |lnL| and |normalization|); beside it the
+    render and conv_lnl kernels on the same inputs and, where its three
+    buffers fit a block, its matmul-DFT route."""
+    import torch
+
+    from psfmc_tpu_torch.ops.kernels import _build
+    from psfmc_tpu_torch.ops.kernels import fused_lnl as FL
+    from psfmc_tpu_torch.ops.kernels.conv_lnl import batched_conv_lnl
+    from psfmc_tpu_torch.ops.kernels.fused_lnl import (
+        fused_lnl,
+        fused_lnl_plain,
+        fused_route,
+    )
+    from psfmc_tpu_torch.ops.kernels.sersic_render import render_sersics
+    from psfmc_tpu_torch.ops.pointsource import pointsource_image
+
+    consts = post.consts
+    h, w = consts.shape
+    b, s, _ = params.shape
     name, route = fused
     if fused_route((h, w)) != route:
         raise AssertionError(f"{h}x{w} takes the fused kernel's "
@@ -860,6 +919,19 @@ def likelihood_rows(post, spec, thetas, conv, fused):
     if fused_lnl.route_launches != counts:
         raise AssertionError(f"{name} did not launch on the {route} route")
     abs_err, rel, frac = compare(got, want)
+    scaled = {}
+    if norm_scale:  # the Gaussian's normalization, +0.5 log(1 / 2 pi var) a good pixel
+        var = consts.obs_var.double()
+        norm = 0.5 * torch.where(consts.good, -torch.log(2 * math.pi * var),
+                                 torch.zeros_like(var)).sum()
+        fin = torch.isfinite(want)
+        scale = torch.maximum(want.double().abs(), norm.abs())
+        scaled = dict(per_walker_rel_err=rel, min_abs_lnl=want[fin].abs().min().item(),
+                      normalization=norm.item())
+        rel = ((got.double() - want.double()).abs()[fin] / scale[fin]).max().item()
+        log(f"{name}: max err {rel:.3e} of max(|lnL|, |normalization| = "
+            f"{norm.abs().item():.1f}) (tol {FUSED_TOL:g}); of |lnL| "
+            f"{scaled['per_walker_rel_err']:.3e} (smallest |lnL| {scaled['min_abs_lnl']:.3f})")
     log(f"{name}: max rel err {rel:.3e} (tol {FUSED_TOL:g}), "
         f"max abs err {abs_err:.3e}, finite share {frac:.4f}")
     if frac < 0.5:
@@ -882,7 +954,7 @@ def likelihood_rows(post, spec, thetas, conv, fused):
     bms, by, term = bound(in_bytes + data_bytes + 4 * b,
                           conv_ops + ps_render_ops,
                           b * h * w * s * RENDER_SFU_PER_PIXEL)
-    rows.append(dict(
+    row = dict(
         name=name, route="cuda", source=_build.source_path("fused_lnl"),
         replaces="psfmc_tpu/ops/pallas/lnpost_pallas.py:183", launches=0,
         max_abs_err=abs_err, max_rel_err=rel,
@@ -891,15 +963,22 @@ def likelihood_rows(post, spec, thetas, conv, fused):
         bound_ms=bms, bound_by=by, bound_term=term, library_ms=None,
         dft_bound_ms=bound(0, dft_matmul_ops(b, h, w) + ps_render_ops)[0],
         unfused_ms=time_ms(unfused), conv_route=route,
-        f64_rel_err=truth_err(got), plain_f64_rel_err=truth_err(want),
-    ))
-    if route == "fft":
+        f64_rel_err=truth_err(got), plain_f64_rel_err=truth_err(want), **scaled,
+    )
+    if route in ("padded", "cluster"):  # the extra work of the transform: its own bound
+        mh, mw = consts.padded_shape
+        row.update(transform_shape=[mh, mw], transform_bound_ms=bound(
+            0, conv_lnl_ops(b, mh, mw) + ps_render_ops)[0])
+    if route == "cluster":
+        row["cluster_size"] = len(FL.cluster_rank_rows((h, w)))
+        row["rank_rows"] = FL.cluster_rank_rows((h, w))
+    if route != "dft" and FL.fused_lnl_smem_bytes((h, w), s, npt) <= FL.FUSED_SMEM_LIMIT:
         _, dft_rel, _ = compare(FL._launch(*args, "dft"), want)
         if not dft_rel <= FUSED_TOL:
             raise AssertionError("fused_lnl's matmul-DFT route disagrees "
                                  "with the plain version")
-        rows[-1]["dft_route_ms"] = time_ms(lambda: FL._launch(*args, "dft"))
-    return rows
+        row["dft_route_ms"] = time_ms(lambda: FL._launch(*args, "dft"))
+    return [row]
 
 
 def slice_phase(post, spec):
@@ -4868,7 +4947,7 @@ def phase_clocks_phase(post, spec):
     h, w = spec.shape
     b = scalars[0].shape[0]
     out = torch.empty((b,), dtype=torch.float32, device=post.device)
-    fused_ptrs = [getattr(consts, n).data_ptr() for n in CL.FFT_CONST_ARGS]
+    fused_ptrs = [getattr(consts, n).data_ptr() for n in CL.CONV_FFT_CONST_ARGS]
     calls = {"conv_lnl": conv_call(post, spec)}
     for key, shape, psf_shape in (("conv_lnl_mixed", MIXED_SHAPE, MIXED_PSF_SHAPE),
                                   ("conv_lnl_radix7", RADIX7_SHAPE, RADIX7_PSF_SHAPE),
@@ -6237,6 +6316,40 @@ def cluster_phase(shape=None, psf_shape=(64, 64), device=None):
     return out
 
 
+def fused_routes_phase(fits=FUSED_FITS, device=None):
+    """The fused kernel off the radix-2 geometry on fitted paths at full
+    width (``fits`` shrinks it for a rehearsal on the CPU): for each
+    ``(shape, psf_shape)`` of :data:`FUSED_FITS`, the flagship through the
+    driver on the fused path (:func:`driver_phase` with
+    ``lnpost="pallas"``: 250 walkers, 20 + 20 steps in segments, every step
+    a graph replay, every fused launch on the route the shape takes, the
+    lnpost against the CPU's float64, the resumed fit bit for bit, the
+    replayed retained step's time), and none of its launches on the
+    matmul-DFT route nor on conv_lnl.  Returns each fit's launches by
+    shape."""
+    from psfmc_tpu_torch.ops.kernels.fused_lnl import fused_route
+
+    t_phase = time.perf_counter()
+    out = {}
+    for shape, psf_shape in fits:
+        route = fused_route(shape)
+        if route == "dft":
+            raise AssertionError(f"{shape} takes the fused kernel's matmul-DFT route")
+        launches, _, _ = driver_phase(shape, psf_shape, device, lnpost="pallas")
+        if launches["fused_lnl:dft"] or launches["batched_conv_lnl"] \
+                or launches[f"fused_lnl:{route}"] != launches["fused_lnl"]:
+            raise AssertionError(f"fused routes: the {shape} fit launched {launches}")
+        key = f"{shape[0]}x{shape[1]}"
+        out[key] = launches
+        log(f"fused routes: {key} fit, {launches['fused_lnl']} fused launches on the "
+            f"{route} route, none on its matmul-DFT route nor on conv_lnl; lnpost rel "
+            f"err {launches['lnpost_rel_err']:.2e}; replayed retained step "
+            f"{launches.get('retain_step_ms', float('nan')):.3f} ms ({CARD})")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"fused routes: the phase took {out['wall_s']:.1f} s ({CARD})")
+    return out
+
+
 # the exported feedme prints 4 decimals: half a unit of the last, and the
 # parse's float64 representation error far below 1e-9
 GALFIT_ROUNDTRIP_TOL = 5e-5 + 1e-9
@@ -6628,7 +6741,8 @@ def nuts_kernel_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
 ONLY_PHASES = {"nuts": lambda: nuts_phase(), "criticism": lambda: criticism_phase(),
                "nuts-kernels": lambda: nuts_kernel_phase(),
                "batch": lambda: batch_phase(), "hierarchy": lambda: hierarchy_phase(),
-               "cluster": lambda: cluster_phase(), "galfit": lambda: galfit_phase()}
+               "cluster": lambda: cluster_phase(), "galfit": lambda: galfit_phase(),
+               "fused_routes": lambda: fused_routes_phase()}
 
 
 def main():
@@ -6705,6 +6819,7 @@ def main():
     hier = run_phase("hierarchy", hierarchy_phase)
     cluster = run_phase("cluster", cluster_phase)
     galfit = run_phase("galfit", galfit_phase)
+    fused_fits = run_phase("fused routes", fused_routes_phase)
     rows += run_phase("backward rows", backward_rows, post, spec)
     rows += batch["rows"]
     rows += hier["rows"]
@@ -6821,6 +6936,13 @@ def main():
     # the cluster phase's 256x256 driver fit: the render and conv_lnl
     by_name["sersic_render"] += cluster["driver"]["render_sersics"]
     by_name["conv_lnl_cluster"] += cluster["driver"]["batched_conv_lnl:cluster"]
+    # the fused routes phase (21): the fused kernel's 256x256 fit on its
+    # cluster route (4 blocks) and its 96x96 fit on the mixed-radix geometry
+    big, mixed = (f"{a}x{b}" for (a, b), _ in FUSED_FITS)
+    by_name["fused_lnl_cluster4"] = fused_fits[big]["fused_lnl:cluster"]
+    by_name["fused_lnl_mixed"] = fused_fits[mixed]["fused_lnl:fft"]
+    for row in ("fused_lnl_radix7", "fused_lnl_padded", "fused_lnl_cluster"):
+        by_name[row] = 0  # on no fitted path
     # the criticism phase (16): the fused flagship fit and the joint fit with
     # criticism=True, whole calls (sampling, image writer, criticism block)
     for kind in ("single", "joint"):
@@ -6881,7 +7003,8 @@ def main():
                                               "launches")}
                              for k, v in cluster["times"].items()}
     for r in rows:
-        if r["name"].startswith("conv_lnl") and not r["launches"]:
+        if (r["name"].startswith("conv_lnl") or r["name"] in (
+                "fused_lnl", "fused_lnl_mixed", "fused_lnl_cluster4")) and not r["launches"]:
             raise AssertionError(f"{r['name']} was never launched on the main path")
     for r in rows:
         for k, v in r.items():
@@ -6912,6 +7035,15 @@ def main():
         "import", "seconds", "map_lnpost", "map_lnpost_rel_err", "mcmc_lnpost_rel_err",
         "mcmc_acceptance", "roundtrip_max_err", "subprocess_rc")}, "card": identity},
         default=float))
+    log(json.dumps({"fused_routes": {
+        "fits": {k: {f: v[f] for f in ("fused_lnl", "fused_lnl:cluster", "fused_lnl:fft",
+                                       "fused_lnl:dft", "lnpost_rel_err", "retain_step_ms")}
+                 for k, v in fused_fits.items() if k != "wall_s"},
+        "batched_256_retain_step_ms": cluster["driver"]["retain_step_ms"],
+        "wall_s": fused_fits["wall_s"]}, "card": identity}, default=float))
+    log(f"fused routes: the 256x256 flagship's replayed retained step "
+        f"{fused_fits[big]['retain_step_ms']:.3f} ms on the fused path, "
+        f"{cluster['driver']['retain_step_ms']:.3f} ms on the batched path ({CARD})")
     log(json.dumps({"kernels": rows, "card": identity}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

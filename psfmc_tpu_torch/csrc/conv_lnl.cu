@@ -256,17 +256,6 @@ conv_lnl_padded_kernel(const float* __restrict__ raws, int h, int w, int mh,
   }
 }
 
-// The FFT route's launch at (h, w); returns 0 or the cudaError of the shape
-// check or the attribute call.
-template <class Kernel>
-int prepare_fft(Kernel pow2_kernel, Kernel mixed_kernel, int h, int w,
-                Kernel* kernel, size_t* smem, int* tw_log2) {
-  const bool pow2 = fc::power_of_two(h) && fc::power_of_two(w);
-  if (!pow2 && !(fc::seven_smooth_even(h) && fc::seven_smooth_even(w)))
-    return (int)cudaErrorInvalidValue;
-  return fc::prepare_geometry(pow2_kernel, mixed_kernel, h, w, kernel, smem, tw_log2);
-}
-
 }  // namespace
 
 
@@ -296,7 +285,7 @@ extern "C" int conv_lnl_fft_launch(
   auto kernel = &conv_lnl_fft_kernel<false, false>;
   size_t smem;
   int tw_log2;
-  if (int err = prepare_fft(&conv_lnl_fft_kernel<false, false>,
+  if (int err = fc::prepare_fft(&conv_lnl_fft_kernel<false, false>,
                             &conv_lnl_fft_kernel<true, false>, h, w, &kernel, &smem,
                             &tw_log2))
     return err;
@@ -324,7 +313,7 @@ extern "C" int conv_lnl_fft_residuals_launch(
   auto kernel = &conv_lnl_fft_kernel<false, true>;
   size_t smem;
   int tw_log2;
-  if (int err = prepare_fft(&conv_lnl_fft_kernel<false, true>,
+  if (int err = fc::prepare_fft(&conv_lnl_fft_kernel<false, true>,
                             &conv_lnl_fft_kernel<true, true>, h, w, &kernel, &smem,
                             &tw_log2))
     return err;
@@ -418,7 +407,8 @@ conv_lnl_cluster_kernel(const float* __restrict__ raws, int h, int w, int mh, in
   const fc::ClusterGeom g = fc::load_cluster(smem, h, w, mh, mw, ranks, twiddle, layout);
   const int t = walker / per_target;
   fc::cluster_convolve_and_reduce<RESID>(
-      g, raws + (size_t)walker * h * w, fc::target_spectra(ks, t, spectra_stride),
+      g, fc::cluster_load_rows(g, raws + (size_t)walker * h * w),
+      fc::target_spectra(ks, t, spectra_stride),
       fc::target_data(ds, t, data_stride), out + walker,
       RESID ? weights + (size_t)walker * h * w : nullptr,
       RESID ? scale_exp + walker : nullptr);

@@ -4,8 +4,8 @@
 // no single block (conv_lnl.py's cluster_size: 88x88 -> 180x180, 94x94 ->
 // 192x192, 101x101 -> 210x210, 160x180, 196x196 and 200x200 on 2 blocks,
 // 256x256 on 4; transforms up to about 470 a side on 8).  Shared by
-// conv_lnl.cu (the forward and its residual instantiation) and
-// conv_lnl_backward.cu.
+// conv_lnl.cu (the forward and its residual instantiation),
+// conv_lnl_backward.cu and fused_lnl.cu (its cluster route).
 //
 // What it computes is the padded route's scheme (fft_conv.cuh's
 // PaddedGeom; psfmc_tpu_torch.ops.kernels.conv_lnl.padded_fft_conv_plain)
@@ -20,9 +20,10 @@
 // pitch M_w + 1 in its own shared memory, then both axes' twiddle tables
 // and the layout, as MixedGeom keeps them.  Schedule (one cluster a
 // walker, 512 threads a block):
-//   1. each rank loads and pads its rows, the real parts; the peak |raw|
-//      of every rank, read through distributed shared memory after a
-//      cluster barrier, gives the squared image's scale; the pack;
+//   1. each rank loads and pads its rows, the real parts (conv_lnl;
+//      cluster_load_rows; the fused kernel renders there instead); the
+//      peak |raw| of every rank, read through distributed shared memory
+//      after a cluster barrier, gives the squared image's scale; the pack;
 //   2. the row passes on its own rows (mixed_lines, local shared memory);
 //      cluster barrier;
 //   3. the column passes: rank r owns columns [r Wc, r Wc + Wc) (Wc =
@@ -253,10 +254,31 @@ __device__ inline void cluster_pair_step(const ClusterGeom& g, const Spectra& k)
   }
 }
 
-// The forward from the walker's raw image to its lnL in *out (rank 0
-// writes it); RESID as convolve_and_reduce's.
+// Step 1's load (conv_lnl's): this rank's rows of the walker's raw image
+// from global memory, the image's pixels, zeros elsewhere; returns the
+// largest |raw| this thread read.
+__device__ inline float cluster_load_rows(const ClusterGeom& g, const float* raw) {
+  const int mw = g.mw, ld = g.ld;
+  const FastDiv by_mw(mw);
+  float mx = 0.0f;
+#pragma unroll 4
+  for (int q = threadIdx.x; q < g.nrows * mw; q += kThreads) {
+    const int ly = by_mw.div(q), x = q - ly * mw, y = g.row0 + ly;
+    const float v = (y < g.h && x < g.w) ? __ldg(raw + y * g.w + x) : 0.0f;
+    g.z[ly * ld + x] = make_float2(v, 0.0f);
+    mx = fmaxf(mx, fabsf(v));
+  }
+  return mx;
+}
+
+// The forward from the walker's raw image, in the real parts of the
+// transform's slots (zeros outside the image; written by this block's
+// threads before the call, or by a peer's before a cluster barrier that
+// both passed; `local_max` the largest |raw| this thread wrote), to its lnL
+// in *out (rank 0 writes it); RESID as convolve_and_reduce's.  The
+// imaginary parts need not be initialised: the pack writes them all.
 template <bool RESID>
-__device__ void cluster_convolve_and_reduce(const ClusterGeom& g, const float* raw,
+__device__ void cluster_convolve_and_reduce(const ClusterGeom& g, float local_max,
                                             const Spectra& k, const Data& d, float* out,
                                             float2* weights, int* scale_exp) {
   __shared__ float maxes[RESID ? 3 * kWarps : kWarps];
@@ -269,15 +291,7 @@ __device__ void cluster_convolve_and_reduce(const ClusterGeom& g, const float* r
   const int mw = g.mw, ld = g.ld;
   const FastDiv by_mw(mw);
 
-  // this rank's rows: the image's pixels, zeros elsewhere
-  float mx = 0.0f;
-#pragma unroll 4
-  for (int q = threadIdx.x; q < g.nrows * mw; q += kThreads) {
-    const int ly = by_mw.div(q), x = q - ly * mw, y = g.row0 + ly;
-    const float v = (y < g.h && x < g.w) ? __ldg(raw + y * g.w + x) : 0.0f;
-    g.z[ly * ld + x] = make_float2(v, 0.0f);
-    mx = fmaxf(mx, fabsf(v));
-  }
+  float mx = local_max;
   for (int off = 16; off > 0; off >>= 1)
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
   if (lane == 0) maxes[warp] = mx;

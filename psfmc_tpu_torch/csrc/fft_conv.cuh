@@ -1,8 +1,8 @@
 // The two circular convolutions of one walker as one complex 2-D FFT pair
 // held in the block's shared memory, and the masked Gaussian lnL read out
 // of it.  Shared by conv_lnl.cu and fused_lnl.cu (their FFT route, taken
-// when the walker fits in a block: conv_lnl's for sides that are even and
-// have no prime factor above 7, fused_lnl's for powers of two).
+// when the walker fits in a block and its sides are even with no prime
+// factor above 7, and their padded route).
 //
 // What it computes, from the walker's raw image x already in shared
 // memory (psfmc_tpu_torch.ops.kernels.conv_lnl.packed_fft_conv_plain is
@@ -790,6 +790,18 @@ int prepare_geometry(Kernel pow2_kernel, Kernel mixed_kernel, int mh, int mw,
   return 0;
 }
 
+// The FFT route's launch at (h, w): both sides powers of two, or both even
+// with no prime factor above 7; returns 0 or the cudaError of the shape
+// check or the attribute call.
+template <class Kernel>
+int prepare_fft(Kernel pow2_kernel, Kernel mixed_kernel, int h, int w,
+                Kernel* kernel, size_t* smem, int* tw_log2) {
+  const bool pow2 = power_of_two(h) && power_of_two(w);
+  if (!pow2 && !(seven_smooth_even(h) && seven_smooth_even(w)))
+    return (int)cudaErrorInvalidValue;
+  return prepare_geometry(pow2_kernel, mixed_kernel, h, w, kernel, smem, tw_log2);
+}
+
 // The raw image of one walker from global memory into the real parts of
 // z; returns the largest |raw| this thread read.
 template <class Geom>
@@ -939,15 +951,6 @@ __device__ void convolve_and_reduce(float2* z, const Geom& g, float local_max,
     }
   }
   PSFMC_STAMP(9);
-}
-
-// The power-of-two route's call (the fused kernel's): tw is the table in
-// shared memory.
-__device__ inline void convolve_and_reduce(float2* z, int h, int w,
-                                           const float2* tw, int tw_log2,
-                                           float local_max, const Spectra& k,
-                                           const Data& d, float* out) {
-  convolve_and_reduce(z, Pow2Geom(h, w, tw, tw_log2), local_max, k, d, out);
 }
 
 // The table's M/2 entries from global into shared memory; a barrier

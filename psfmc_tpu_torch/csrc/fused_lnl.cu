@@ -1,5 +1,5 @@
 // Fused render + PSF convolution + masked Gaussian log-likelihood, one
-// walker per block (Hopper, sm_90a).
+// walker per block or per cluster of blocks (Hopper, sm_90a).
 //
 // Replaces the JAX package's Pallas TPU kernel
 //   psfmc_tpu/ops/pallas/lnpost_pallas.py::make_fused_lnl_batch
@@ -12,8 +12,8 @@
 //   conv  = raw (*) psf            mvar = raw^2 (*) psf_var
 //   lnl_b = -1/2 sum_good [(obs - conv)^2 ivm - log(ivm / 2 pi)],
 //   ivm   = 1 / (mvar + obs_var)                 (-inf if not finite)
-// where (*) is the circular convolution with the trailing ifftshift,
-// written as the real half-spectrum products of
+// where (*) is the circular convolution with the trailing ifftshift; on the
+// matmul-DFT route written as the real half-spectrum products of
 // psfmc_tpu_torch.ops.fourier.convolve_rdft (as in conv_lnl.cu):
 //   S1 = x @ [cw | -sw]                        (H,W) @ (W,W2), twice
 //   S2 = [[ch, sh], [-sh, ch]] @ S1            (2H,2H) @ (2H,W2)
@@ -27,28 +27,50 @@
 // bytes are the walker's scalars in and one float out, plus the shared
 // spectra and data (~0.4 MB, resident in the 50 MB L2).
 //
-// Two routes, chosen by the wrapper from the shape alone (conv_route in
-// psfmc_tpu_torch/ops/kernels/conv_lnl.py), each one block of 512 threads
-// per walker, 125 walkers on 125 of the 132 SMs in one wave, the only
-// write to global memory the walker's lnL:
+// The routes of conv_lnl.cu, chosen by the wrapper from the shape alone
+// (conv_route in psfmc_tpu_torch/ops/kernels/conv_lnl.py; fused_route is
+// the same rule), each 512 threads a block, the only write to global
+// memory the walker's lnL.  On the first three the render goes into the
+// real parts of the walker's complex image in shared memory and the rest
+// is conv_lnl's, unchanged: fft_conv.cuh's convolve_and_reduce (both
+// convolutions as one complex FFT pair, then the lnL readout) or
+// fft_cluster.cuh's cluster_convolve_and_reduce:
 //
-// FFT route (H and W powers of two, the walker fits in a block;
-// fused_lnl_fft_launch): the render goes into the real parts of one
-// float2 image in shared memory, and fft_conv.cuh does the rest: both
-// convolutions as one complex FFT pair, then the lnL readout.
+// FFT route (H and W even with no prime factor above 7, the walker fits a
+// block; fused_lnl_fft_launch): one block a walker, radix-2 stages for
+// powers of two (Pow2Geom), radix 2, 3, 5 and 7 otherwise (MixedGeom,
+// whose image is in natural order until the forward passes run, so the
+// render writes pixel (y, x) at row y, column x of the pitch W + 1).
 //
-// The render phase of both routes (render_raw) is sersic_profile.cuh's
+// Padded route (a side that is odd or has a prime factor above 7, the
+// transform padded_shape fits a block; fused_lnl_padded_launch): the same
+// on PaddedGeom; the block writes zeros into both parts of every slot of
+// the transform outside the image (shared memory is not initialised).
+//
+// Cluster route (the transform fits no block but a cluster of C = 2, 4 or
+// 8; fused_lnl_cluster_launch): one cluster a walker.  Each rank zeroes
+// the slots of its rows of the transform outside the image, a cluster
+// barrier (every block has started), then renders the image rows its
+// readout owns, [r Hc, r Hc + Hc) with Hc = ceil(H / C), into whichever
+// rank holds each row: the ranks share the render evenly even where the
+// image lies in rank 0's rows (94x94 in a 192x192 transform).
+//
+// matmul-DFT route (what no other route holds: a side of 1;
+// fused_lnl_launch): the products above, 2 convolutions x 2 x
+// (2*128*128*65 + 2*256*256*65 + 2*128*65*128) ~ 51 MFLOP per walker at
+// 128x128 (W2 = 65), 20x the FFT count.
+//
+// The render phase of every route (render_raw) is sersic_profile.cuh's
 // SersicSet, the render kernel's code: the walker's and the row's constant
 // terms are hoisted, the threads lie over the image in two dimensions so
 // that no index is divided per pixel, and the chains of a walker's (one to
 // three) Sersics are unrolled side by side.  With one block of 16 warps on
 // an SM the phase is bound by the schedulers' rate, some 70 instructions
-// per profile evaluation, not by the chain's latency.
-//
-// matmul-DFT route (every other shape; fused_lnl_launch): the products
-// above, 2 convolutions x 2 x (2*128*128*65 + 2*256*256*65 + 2*128*65*128)
-// ~ 51 MFLOP per walker at 128x128 (W2 = 65), 20x the FFT count: ~0.1 ms
-// at peak for the formulation alone.
+// per profile evaluation, not by the chain's latency.  On the FFT, padded
+// and cluster routes the walker's scalars (packed Sersic rows, fky, kx)
+// are read through the read-only cache, so that the kernel's shared memory
+// is conv_lnl's and the two share their route rule; the matmul-DFT route
+// copies them into shared memory beside its buffers.
 //
 // Design of the matmul-DFT route.  The walker's whole working set stays
 // in dynamic shared memory: three buffers X, Y, Z of (2, H, W2) floats
@@ -78,6 +100,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "fft_cluster.cuh"
 #include "fft_conv.cuh"
 #include "sersic_profile.cuh"
 
@@ -233,25 +256,38 @@ __device__ void half_spectrum_conv(const float* x, float* t1, float* t2,
   __syncthreads();
 }
 
+// A float of the walker's scalars: through the read-only cache from global
+// memory (GLOBAL) or from shared memory.
+template <bool GLOBAL>
+__device__ __forceinline__ float scalar(const float* p) {
+  if constexpr (GLOBAL) {
+    return __ldg(p);
+  } else {
+    return *p;
+  }
+}
+
 // raw = sky + Sersics (SersicSet: the render kernel's bits) + point
 // sources, the latter summed among themselves first, as the plain version
-// adds its point-source image; each pixel is handed to put(y, x, value).
-// The block's threads lie over the image as `lanes` (a power of two, at
-// most a warp) along x and THREADS / lanes rows, so no index is divided; a
-// thread renders N pixels of a row side by side, `lanes` apart, so that a
-// warp reads kx and writes the image at consecutive addresses.
-template <int S, int N, int THREADS, class Put>
+// adds its point-source image, on the image rows [y0, y1); each pixel is
+// handed to put(y, x, value).  The block's threads lie over the rows as
+// `lanes` (a power of two, at most a warp) along x and THREADS / lanes
+// rows, so no index is divided; a thread renders N pixels of a row side by
+// side, `lanes` apart, so that a warp reads kx and writes the image at
+// consecutive addresses.  rows, fky and kx are in global memory (GLOBAL)
+// or in shared memory.
+template <int S, int N, int THREADS, bool GLOBAL, class Put>
 __device__ __forceinline__ void render_walker(const float* rows, int s_n,
                                               float sky, const float* fky,
                                               const float* kx, int p_n, int h,
-                                              int w, Put& put) {
+                                              int w, int y0, int y1, Put& put) {
   const int runs = (w + N - 1) / N;
   const int lanes_log2 = runs <= 1 ? 0 : min(5, 32 - __clz(runs - 1));
   const int tx = threadIdx.x & ((1 << lanes_log2) - 1);
   const int ty = threadIdx.x >> lanes_log2;
-  psfmc::SersicSet<S, false> sersics;
+  psfmc::SersicSet<S, GLOBAL> sersics;
   sersics.load(rows, s_n);
-  for (int yi = ty; yi < h; yi += THREADS >> lanes_log2) {
+  for (int yi = y0 + ty; yi < y1; yi += THREADS >> lanes_log2) {
     sersics.set_row((float)yi);
     for (int x0 = tx; x0 < w; x0 += N << lanes_log2) {
       float xg[N], acc[N];
@@ -265,7 +301,8 @@ __device__ __forceinline__ void render_walker(const float* rows, int s_n,
         if (p_n > 0) {
           float ps = 0.0f;
           for (int q = 0; q < p_n; ++q)
-            ps = __fadd_rn(ps, __fmul_rn(fky[q * h + yi], kx[q * w + xi]));
+            ps = __fadd_rn(ps, __fmul_rn(scalar<GLOBAL>(fky + q * h + yi),
+                                         scalar<GLOBAL>(kx + q * w + xi)));
           acc[i] = __fadd_rn(acc[i], ps);
         }
         put(yi, xi, acc[i]);
@@ -286,15 +323,16 @@ __device__ __forceinline__ void render_walker(const float* rows, int s_n,
 #endif
 constexpr int kFixedRun = PSFMC_FUSED_RUN;
 
-template <int THREADS, class Put>
+template <int THREADS, bool GLOBAL, class Put>
 __device__ __forceinline__ void render_raw(const float* rows, int s_n, float sky,
                                            const float* fky, const float* kx,
-                                           int p_n, int h, int w, Put& put) {
+                                           int p_n, int h, int w, int y0, int y1,
+                                           Put& put) {
   switch (s_n) {
-    case 1: render_walker<1, kFixedRun, THREADS>(rows, s_n, sky, fky, kx, p_n, h, w, put); break;
-    case 2: render_walker<2, kFixedRun, THREADS>(rows, s_n, sky, fky, kx, p_n, h, w, put); break;
-    case 3: render_walker<3, kFixedRun, THREADS>(rows, s_n, sky, fky, kx, p_n, h, w, put); break;
-    default: render_walker<0, 4, THREADS>(rows, s_n, sky, fky, kx, p_n, h, w, put); break;
+    case 1: render_walker<1, kFixedRun, THREADS, GLOBAL>(rows, s_n, sky, fky, kx, p_n, h, w, y0, y1, put); break;
+    case 2: render_walker<2, kFixedRun, THREADS, GLOBAL>(rows, s_n, sky, fky, kx, p_n, h, w, y0, y1, put); break;
+    case 3: render_walker<3, kFixedRun, THREADS, GLOBAL>(rows, s_n, sky, fky, kx, p_n, h, w, y0, y1, put); break;
+    default: render_walker<0, 4, THREADS, GLOBAL>(rows, s_n, sky, fky, kx, p_n, h, w, y0, y1, put); break;
   }
 }
 
@@ -322,7 +360,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_lnl_kernel(Args a) {
   __syncthreads();
 
   auto put = [X, w](int yi, int xi, float v) { X[yi * w + xi] = v; };
-  render_raw<kThreads>(rows, s_n, sky, fky, kx, p_n, h, w, put);
+  render_raw<kThreads, false>(rows, s_n, sky, fky, kx, p_n, h, w, 0, h, put);
   __syncthreads();
 
   // variance convolution: S4 in Y, then mvar = S4r @ ica - S4i @ isa -> Z
@@ -394,90 +432,220 @@ namespace {
 
 namespace fc = psfmc::fftconv;
 
-struct FftArgs {
+// The FFT, padded and cluster routes' arguments: the walkers' scalars, the
+// image (h, w) and its transform (mh, mw: the image's own sides on the FFT
+// route), the cluster's size (1 off the cluster route), and conv_lnl's
+// tables, spectra and data at those sides.
+struct FusedArgs {
   const float* packed;  // (B, S, 9)
   const float* sky;     // (B,)
   const float* fky;     // (B, P, H)
   const float* kx;      // (B, P, W)
-  int num_sersic, num_ps, h, w;
-  const float2* twiddle;  // (max(H, W) / 2,)
+  int num_sersic, num_ps, h, w, mh, mw, ranks;
+  const float2* twiddle;
   int tw_log2;
+  const int* layout;
   fc::Spectra k;
   fc::Data d;
   float* out;  // (B,)
 };
 
-// FFT route: render into the real parts of the float2 image, then
-// fft_conv.cuh.  The render is the matmul-DFT route's (render_raw); a
-// warp's 4-byte stores of consecutive real parts land on the 16 even banks,
-// two lanes each, which is the least such stores can do.
-__global__ void __launch_bounds__(fc::kThreads, 1) fused_lnl_fft_kernel(FftArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_fft[];
-  const int h = a.h, w = a.w, ld = fc::pitch(w);
+// Walker b's image rows [y0, y1) rendered into the real parts of the slots
+// slot(y, x) points at, its scalars read through the read-only cache;
+// returns the largest |raw| this thread wrote.
+template <class Slot>
+__device__ __forceinline__ float render_rows(const FusedArgs& a, int b, int y0, int y1,
+                                             Slot slot) {
   const int s_n = a.num_sersic, p_n = a.num_ps;
-  const int b = blockIdx.x;
-  float2* z = reinterpret_cast<float2*>(smem_fft);
-  float2* tw = z + h * ld;
-  float* rows = reinterpret_cast<float*>(tw + (1 << a.tw_log2) / 2);  // S x 9
-  float* fky = rows + s_n * psfmc::kParamsPerSersic;                  // P x H
-  float* kx = fky + p_n * h;                                          // P x W
-
-  PSFMC_STAMP(0);
-  fc::load_twiddles(tw, a.twiddle, a.tw_log2);
-  const int row_len = s_n * psfmc::kParamsPerSersic;
-  for (int t = threadIdx.x; t < row_len; t += fc::kThreads)
-    rows[t] = a.packed[(size_t)b * row_len + t];
-  for (int t = threadIdx.x; t < p_n * h; t += fc::kThreads)
-    fky[t] = a.fky[(size_t)b * p_n * h + t];
-  for (int t = threadIdx.x; t < p_n * w; t += fc::kThreads)
-    kx[t] = a.kx[(size_t)b * p_n * w + t];
-  const float sky = a.sky[b];
-  __syncthreads();
-
   float mx = 0.0f;
-  auto put = [z, ld, &mx](int yi, int xi, float v) {
-    z[yi * ld + xi].x = v;
+  auto put = [&slot, &mx](int yi, int xi, float v) {
+    slot(yi, xi)->x = v;
     mx = fmaxf(mx, fabsf(v));
   };
-  render_raw<fc::kThreads>(rows, s_n, sky, fky, kx, p_n, h, w, put);
+  render_raw<fc::kThreads, true>(a.packed + (size_t)b * s_n * psfmc::kParamsPerSersic,
+                                 s_n, __ldg(a.sky + b), a.fky + (size_t)b * p_n * a.h,
+                                 a.kx + (size_t)b * p_n * a.w, p_n, a.h, a.w, y0, y1,
+                                 put);
+  return mx;
+}
+
+// One block a walker on the geometry g, whose image rows lie ld float2
+// apart from z: the render (a warp's 4-byte stores of consecutive real
+// parts land on the 16 even banks, two lanes each, the least such stores
+// can do), then conv_lnl's convolutions and readout.
+template <class Geom>
+__device__ __forceinline__ void render_and_reduce(float2* z, const Geom& g, int ld,
+                                                  const FusedArgs& a) {
+  const int b = blockIdx.x;
+  const float mx = render_rows(a, b, 0, a.h, [z, ld](int y, int x) { return z + y * ld + x; });
   PSFMC_STAMP(1);
-  fc::convolve_and_reduce(z, h, w, tw, a.tw_log2, mx, a.k, a.d, a.out + b);
+  fc::convolve_and_reduce(z, g, mx, a.k, a.d, a.out + b);
+}
+
+// FFT route: the image's own sides, radix 2 (Pow2Geom) or mixed radix.
+template <bool MIXED>
+__global__ void __launch_bounds__(fc::kThreads, 1) fused_lnl_fft_kernel(FusedArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_fft[];
+  float2* z = reinterpret_cast<float2*>(smem_fft);
+  float2* tw = z + a.h * fc::pitch(a.w);
+  PSFMC_STAMP(0);
+  if constexpr (MIXED) {
+    const fc::MixedGeom g = fc::load_mixed(tw, a.twiddle, a.layout, a.h, a.w);
+    render_and_reduce(z, g, g.ld, a);
+  } else {
+    fc::load_twiddles(tw, a.twiddle, a.tw_log2);
+    const fc::Pow2Geom g(a.h, a.w, tw, a.tw_log2);
+    render_and_reduce(z, g, g.ld, a);
+  }
+}
+
+// Zeros into both parts of every slot of the transform outside the image
+// (load_image(PaddedGeom)'s), which the render does not write.
+template <class Inner>
+__device__ __forceinline__ void zero_pad(float2* z, const fc::PaddedGeom<Inner>& g) {
+  const int mw = g.t.w;
+  const fc::FastDiv by_mw(mw);
+  for (int q = threadIdx.x; q < g.t.h * mw; q += fc::kThreads) {
+    const int y = by_mw.div(q), x = q - y * mw;
+    if (y >= g.h || x >= g.w) z[y * g.t.ld + x] = make_float2(0.0f, 0.0f);
+  }
+}
+
+// Padded route: the image (h, w) in the corner of the transform (mh, mw).
+template <bool MIXED>
+__global__ void __launch_bounds__(fc::kThreads, 1) fused_lnl_padded_kernel(FusedArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_fft[];
+  float2* z = reinterpret_cast<float2*>(smem_fft);
+  float2* tw = z + a.mh * fc::pitch(a.mw);
+  PSFMC_STAMP(0);
+  if constexpr (MIXED) {
+    using Geom = fc::PaddedGeom<fc::MixedGeom>;
+    const Geom g(a.h, a.w, fc::load_mixed(tw, a.twiddle, a.layout, a.mh, a.mw));
+    zero_pad(z, g);
+    render_and_reduce(z, g, g.t.ld, a);
+  } else {
+    using Geom = fc::PaddedGeom<fc::Pow2Geom>;
+    fc::load_twiddles(tw, a.twiddle, a.tw_log2);
+    const Geom g(a.h, a.w, fc::Pow2Geom(a.mh, a.mw, tw, a.tw_log2));
+    zero_pad(z, g);
+    render_and_reduce(z, g, g.t.ld, a);
+  }
+}
+
+// Cluster route: one cluster of a.ranks blocks a walker (fft_cluster.cuh).
+// Each rank zeroes its rows' slots outside the image; after a cluster
+// barrier (every block has started, so a peer's shared memory may be
+// written) it renders the image rows its readout owns into whichever rank
+// holds each; cluster_convolve_and_reduce's first cluster barrier makes
+// those stores visible before the pack.
+__global__ void __launch_bounds__(fc::kThreads, 1) fused_lnl_cluster_kernel(FusedArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_fft[];
+  const int walker = blockIdx.x / a.ranks;
+  const fc::ClusterGeom g =
+      fc::load_cluster(smem_fft, a.h, a.w, a.mh, a.mw, a.ranks, a.twiddle, a.layout);
+  const fc::FastDiv by_mw(g.mw);
+  for (int q = threadIdx.x; q < g.nrows * g.mw; q += fc::kThreads) {
+    const int ly = by_mw.div(q), x = q - ly * g.mw;
+    if (g.row0 + ly >= g.h || x >= g.w) g.z[ly * g.ld + x] = make_float2(0.0f, 0.0f);
+  }
+  fc::cg::this_cluster().sync();
+  const float mx = render_rows(a, walker, g.img0, g.img0 + g.nimg,
+                               [&g](int y, int x) { return g.at(y, x); });
+  fc::cluster_convolve_and_reduce<false>(g, mx, a.k, a.d, a.out + walker, nullptr,
+                                         nullptr);
+}
+
+FusedArgs fused_args(const float* packed, const float* sky, const float* fky,
+                     const float* kx, int num_sersic, int num_ps, int h, int w, int mh,
+                     int mw, int ranks, const float* twiddle, const int* layout,
+                     int tw_log2, const float* var_gain, const float* psf_r,
+                     const float* psf_i, const float* var_r, const float* var_i,
+                     const float* obs, const float* obs_var, const float* good,
+                     float* out) {
+  return FusedArgs{packed, sky, fky, kx, num_sersic, num_ps, h, w, mh, mw, ranks,
+                   reinterpret_cast<const float2*>(twiddle), tw_log2, layout,
+                   fc::Spectra{psf_r, psf_i, var_r, var_i, var_gain},
+                   fc::Data{obs, obs_var, good}, out};
 }
 
 }  // namespace
 
-// C interface of the FFT route.  h and w are powers of two; twiddle is
-// the (max(h, w) / 2, 2) float32 table of exp(-2 pi i k / max(h, w)),
-// var_gain one float, the power of two applied to the variance spectrum.
-// Launches on `stream` and returns the first nonzero cudaError of the
-// attribute call or the launch, or 0.
+// C interface of the FFT route: h and w both powers of two, or both even
+// with no prime factor above 7; twiddle, layout, var_gain and the four
+// spectrum planes as conv_lnl_fft_launch takes them (conv_lnl.py's
+// CONV_FFT_CONST_ARGS: fft_tables(shape), the layout not read for powers of
+// two), one observation and one PSF.  Launches batch blocks on `stream` and
+// returns the first nonzero cudaError of the shape check, the attribute
+// call or the launch, or 0.
 extern "C" int fused_lnl_fft_launch(
     const float* packed, const float* sky, const float* fky, const float* kx,
     int batch, int num_sersic, int num_ps, int h, int w, const float* twiddle,
-    const float* var_gain, const float* psf_r, const float* psf_i,
-    const float* var_r, const float* var_i,
+    const int* layout, const float* var_gain, const float* psf_r,
+    const float* psf_i, const float* var_r, const float* var_i,
     const float* obs, const float* obs_var, const float* good,
     float* out, void* stream) {
   if (batch <= 0) return 0;
-  if (!fc::power_of_two(h) || !fc::power_of_two(w))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      fc::image_bytes(h, w) +
-      sizeof(float) * ((size_t)num_sersic * psfmc::kParamsPerSersic +
-                       (size_t)num_ps * (h + w));
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_lnl_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it, so that no later launch reports it
-    return (int)err;
-  }
-  int tw_log2 = 0;
-  while ((1 << tw_log2) < (h > w ? h : w)) ++tw_log2;
-  FftArgs a{packed, sky, fky, kx, num_sersic, num_ps, h, w,
-            reinterpret_cast<const float2*>(twiddle), tw_log2,
-            fc::Spectra{psf_r, psf_i, var_r, var_i, var_gain},
-            fc::Data{obs, obs_var, good}, out};
-  fused_lnl_fft_kernel<<<batch, fc::kThreads, smem, (cudaStream_t)stream>>>(a);
+  auto kernel = &fused_lnl_fft_kernel<false>;
+  size_t smem;
+  int tw_log2;
+  if (int err = fc::prepare_fft(&fused_lnl_fft_kernel<false>, &fused_lnl_fft_kernel<true>,
+                                h, w, &kernel, &smem, &tw_log2))
+    return err;
+  kernel<<<batch, fc::kThreads, smem, (cudaStream_t)stream>>>(
+      fused_args(packed, sky, fky, kx, num_sersic, num_ps, h, w, h, w, 1, twiddle, layout,
+                 tw_log2, var_gain, psf_r, psf_i, var_r, var_i, obs, obs_var, good, out));
   return (int)cudaGetLastError();
+}
+
+// C interface of the padded route: fused_lnl_fft_launch's arguments with the
+// transform's sides (mh, mw) after the image's, and the tables and spectra
+// at the transform's sides (conv_lnl.py's PADDED_CONST_ARGS).  A shape the
+// host would not plan (padded_plan) is refused with cudaErrorInvalidValue.
+extern "C" int fused_lnl_padded_launch(
+    const float* packed, const float* sky, const float* fky, const float* kx,
+    int batch, int num_sersic, int num_ps, int h, int w, int mh, int mw,
+    const float* twiddle, const int* layout, const float* var_gain,
+    const float* psf_r, const float* psf_i, const float* var_r, const float* var_i,
+    const float* obs, const float* obs_var, const float* good, float* out,
+    void* stream) {
+  if (batch <= 0) return 0;
+  if (!fc::padded_plan(h, w, mh, mw)) return (int)cudaErrorInvalidValue;
+  auto kernel = &fused_lnl_padded_kernel<false>;
+  size_t smem;
+  int tw_log2;
+  if (int err = fc::prepare_geometry(&fused_lnl_padded_kernel<false>,
+                                     &fused_lnl_padded_kernel<true>, mh, mw, &kernel,
+                                     &smem, &tw_log2))
+    return err;
+  kernel<<<batch, fc::kThreads, smem, (cudaStream_t)stream>>>(
+      fused_args(packed, sky, fky, kx, num_sersic, num_ps, h, w, mh, mw, 1, twiddle,
+                 layout, tw_log2, var_gain, psf_r, psf_i, var_r, var_i, obs, obs_var,
+                 good, out));
+  return (int)cudaGetLastError();
+}
+
+// C interface of the cluster route: fused_lnl_padded_launch's arguments with
+// the cluster's size `ranks` (2, 4 or 8; conv_lnl.py's cluster_size) after
+// the transform's sides (padded_shape), twiddle and layout the mixed-radix
+// tables of the transform (cluster_tables).  Launches batch x ranks blocks
+// on `stream` and returns 0, the cudaError of the attribute call or the
+// launch, cudaErrorInvalidValue for a shape the host would not plan, or -1
+// where the launch was refused because no such cluster can be scheduled on
+// the card.
+extern "C" int fused_lnl_cluster_launch(
+    const float* packed, const float* sky, const float* fky, const float* kx,
+    int batch, int num_sersic, int num_ps, int h, int w, int mh, int mw, int ranks,
+    const float* twiddle, const int* layout, const float* var_gain,
+    const float* psf_r, const float* psf_i, const float* var_r, const float* var_i,
+    const float* obs, const float* obs_var, const float* good, float* out,
+    void* stream) {
+  if (batch <= 0) return 0;
+  if (h < 2 || w < 2 || mh != fc::transform_side(h) || mw != fc::transform_side(w))
+    return (int)cudaErrorInvalidValue;
+  return fc::launch_cluster(
+      &fused_lnl_cluster_kernel, batch, ranks, fc::cluster_image_bytes(mh, mw, ranks),
+      (cudaStream_t)stream,
+      fused_args(packed, sky, fky, kx, num_sersic, num_ps, h, w, mh, mw, ranks, twiddle,
+                 layout, 0, var_gain, psf_r, psf_i, var_r, var_i, obs, obs_var, good,
+                 out));
 }

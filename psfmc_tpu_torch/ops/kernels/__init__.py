@@ -5,9 +5,9 @@ counts the launches executed (``<wrapper>.launches``, through
 :mod:`.counts`, which also counts the replays of a captured CUDA graph),
 and a plain PyTorch version of the same function that it uses for CPU
 tensors.  The two
-likelihood kernels have an FFT route and a matmul-DFT route, and conv_lnl
-a padded and a cluster route too, picked from the image's shape alone
-(:func:`conv_route`; the fused kernel's ``fused_lnl.fused_route``).  Sources are
+likelihood kernels have an FFT, a padded, a cluster and a matmul-DFT
+route, picked from the image's shape alone by one rule (:func:`conv_route`;
+the fused kernel's ``fused_lnl.fused_route`` is the same).  Sources are
 in ``psfmc_tpu_torch/csrc/`` and are built with ``nvcc`` on first use
 (:mod:`._build`).  The fused kernel's wrapper is reached through its
 module, ``psfmc_tpu_torch.ops.kernels.fused_lnl``, whose name it shares.

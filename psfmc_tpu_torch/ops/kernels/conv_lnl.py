@@ -174,7 +174,7 @@ CLUSTER_SIZES = (2, 4, 8)
 _CLUSTER_STATIC_SMEM = 464
 
 
-# The FFT route's radices, and the fused kernel's (powers of two only).
+# The FFT route's radices (conv_lnl's and the fused kernel's).
 FFT_RADICES = (2, 3, 5, 7)
 # The mixed-radix layout's int tables (csrc/fft_conv.cuh: kMaxPasses,
 # kLayoutHeader): passes per axis, and the header before the index tables.
@@ -189,11 +189,11 @@ def _power_of_two(n):
     return n >= 2 and n & (n - 1) == 0
 
 
-def _smooth_even(n, radices=FFT_RADICES):
-    """``n`` even, with no prime factor outside ``radices``."""
+def _smooth_even(n):
+    """``n`` even, with no prime factor above 7."""
     if n < 2 or n % 2:
         return False
-    for r in radices:
+    for r in FFT_RADICES:
         while n % r == 0:
             n //= r
     return n == 1
@@ -363,28 +363,25 @@ def cluster_size(shape):
     return 0
 
 
-def conv_route(shape, radices=FFT_RADICES):
+def conv_route(shape):
     """``"fft"``, ``"padded"``, ``"cluster"`` or ``"dft"``: the route of
-    ``csrc/conv_lnl.cu`` (and of its backward) for an ``(H, W)`` image, a
-    pure function of the shape.  ``"fft"`` needs both sides to be even
-    with no prime factor outside ``radices`` and the walker's image to
-    fit in one block's shared memory; ``"padded"`` takes the other shapes
-    whose :func:`padded_shape` fits a block (every side from 2 to 81);
-    ``"cluster"`` the shapes whose transform (the FFT route's or the
-    padded one) fits no block but fits a cluster (:func:`cluster_size`);
-    ``"dft"`` the rest.  The fused kernel (``csrc/fused_lnl.cu``) asks
-    with ``radices=(2,)``: its FFT route takes powers of two only, and it
-    has neither the padded nor the cluster route, so it hears ``"fft"`` or
-    ``"dft"`` only."""
+    ``csrc/conv_lnl.cu`` (and of its backward, and of the fused kernel
+    ``csrc/fused_lnl.cu``) for an ``(H, W)`` image, a pure function of the
+    shape.  ``"fft"`` needs both sides to be even with no prime factor
+    above 7 and the walker's image to fit in one block's shared memory;
+    ``"padded"`` takes the other shapes whose :func:`padded_shape` fits a
+    block (every side from 2 to 81); ``"cluster"`` the shapes whose
+    transform (the FFT route's or the padded one) fits no block but fits
+    a cluster (:func:`cluster_size`); ``"dft"`` the rest."""
     h, w = (int(n) for n in shape)
-    if _smooth_even(h, radices) and _smooth_even(w, radices):
+    if _smooth_even(h) and _smooth_even(w):
         if _fits_a_block((h, w)):
             return "fft"
-    elif tuple(radices) != FFT_RADICES or min(h, w) < 2:
+    elif min(h, w) < 2:
         return "dft"
     elif _fits_a_block(padded_shape((h, w))):
         return "padded"
-    if tuple(radices) == FFT_RADICES and cluster_size((h, w)):
+    if cluster_size((h, w)):
         return "cluster"
     return "dft"
 
@@ -983,12 +980,11 @@ def padded_fft_conv_plain(raws, consts: ConvLnlConsts):
 # constants>, t1, t2, conv, mvar, out, stream)
 _DFT_CONST_ARGS = ("cw", "sw", "lf", "li", "ica", "isa", "psf_r", "psf_i",
                    "var_r", "var_i", "obs", "obs_var", "good_f")
-# fused_lnl_fft_launch(..., <these constants>, out, stream)
-FFT_CONST_ARGS = ("twiddle", "var_gain", "psf_r", "psf_i", "var_r", "var_i",
-                  "obs", "obs_var", "good_f")
 # conv_lnl_fft_launch(raws, batch, h, w, per_target, data_stride,
-# spectra_stride, <these constants>, out, stream)
-CONV_FFT_CONST_ARGS = ("twiddle", "fft_layout") + FFT_CONST_ARGS[1:]
+# spectra_stride, <these constants>, out, stream); fused_lnl_fft_launch
+# takes them too
+CONV_FFT_CONST_ARGS = ("twiddle", "fft_layout", "var_gain", "psf_r", "psf_i", "var_r",
+                       "var_i", "obs", "obs_var", "good_f")
 # conv_lnl_padded_launch(raws, batch, h, w, mh, mw, per_target, data_stride,
 # spectra_stride, <these constants>, out, stream): the FFT route's
 # constants at the transform's sides

@@ -6,13 +6,19 @@ render ``raw = sky + sum of Sersics + sum of point sources``, convolve it
 with the PSF and its square with the PSF variance map, and reduce the
 masked Gaussian lnL, all in one kernel (``csrc/fused_lnl.cu``) that keeps
 the walker's images in shared memory and writes one float per walker.
-The source has the two routes of ``csrc/conv_lnl.cu``, picked from the
-shape alone by :func:`fused_route`: ``"fft"`` (both sizes powers of
-two; one complex FFT pair in shared memory, ``csrc/fft_conv.cuh``'s
-radix-2 geometry) or ``"dft"`` (the matmul-DFT products in three
-shared-memory buffers).  conv_lnl's FFT route also takes sides with
-factors 3, 5 and 7; the fused kernel's does not yet, so 96x96 stays on its
-matmul-DFT route.
+The source has the four routes of ``csrc/conv_lnl.cu``, and
+:func:`fused_route` is :func:`~psfmc_tpu_torch.ops.kernels.conv_lnl.conv_route`:
+``"fft"`` (one complex FFT pair in a block's shared memory on
+``csrc/fft_conv.cuh``'s radix-2 or mixed-radix geometry), ``"padded"``
+(its padded geometry), ``"cluster"`` (``csrc/fft_cluster.cuh``: the
+transform across a cluster of 2, 4 or 8 blocks) and ``"dft"`` (the
+matmul-DFT products in three shared-memory buffers, for what no other
+route holds: a side of 1).  On the first three the kernel reads the
+walker's scalars (Sersic rows, ``fky``, ``kx``) through the read-only
+cache instead of copying them into shared memory, so that its shared
+memory is conv_lnl's and the two share one route rule; the matmul-DFT
+route copies them beside its buffers.  The consts are conv_lnl's
+(:func:`~psfmc_tpu_torch.ops.kernels.conv_lnl.make_conv_lnl_consts`).
 
 The per-walker scalar preparation stays in torch, as in the JAX wrapper:
 the packed Sersic rows (:func:`~psfmc_tpu_torch.ops.sersic.sersic_scalar_params`),
@@ -38,24 +44,27 @@ import torch
 from ..pointsource import pointsource_image
 from . import _build, counts
 from .conv_lnl import (
-    _FFT_STATIC_SMEM,
+    _BLOCK_ROUTES,
+    _DFT_CONST_ARGS,
+    _SIDE_INTS,
     BLOCK_SMEM_LIMIT,
-    FFT_CONST_ARGS,
     ConvLnlConsts,
+    _launch_error,
+    _sides,
     batched_conv_lnl_plain,
     check_launch_consts,
+    cluster_size,
     conv_route,
-    fft_smem_bytes,
+    padded_shape,
 )
 from .sersic_render import PARAMS_PER_SERSIC, render_sersics_plain
 
 __all__ = [
     "FUSED_SMEM_LIMIT",
-    "FUSED_FFT_SMEM_LIMIT",
+    "cluster_rank_rows",
     "fused_lnl",
     "fused_lnl_plain",
     "fused_lnl_smem_bytes",
-    "fused_lnl_fft_smem_bytes",
     "fused_lnl_supported",
     "fused_route",
 ]
@@ -63,18 +72,34 @@ __all__ = [
 # Shared memory a block may use on Hopper, less the matmul-DFT route's
 # static reduction buffer (16 doubles).
 FUSED_SMEM_LIMIT = BLOCK_SMEM_LIMIT - 16 * 8
-# The same less the FFT route's static reduction buffers.
-FUSED_FFT_SMEM_LIMIT = BLOCK_SMEM_LIMIT - _FFT_STATIC_SMEM
 
 _SHAPE_ATTRS = {"c0", "f1", "f2", "f3", "f4", "b1", "b2", "b3",
                 "rtrunc", "rtrunc_in", "rot_ang"}
 
 
 def fused_route(shape):
-    """``"fft"`` or ``"dft"``: the fused kernel's route for an ``(H, W)``
-    image, :func:`~psfmc_tpu_torch.ops.kernels.conv_lnl.conv_route` with
-    radix 2 only (both sides powers of two)."""
-    return conv_route(shape, radices=(2,))
+    """``"fft"``, ``"padded"``, ``"cluster"`` or ``"dft"``: the fused
+    kernel's route for an ``(H, W)`` image, conv_lnl's
+    (:func:`~psfmc_tpu_torch.ops.kernels.conv_lnl.conv_route`)."""
+    return conv_route(shape)
+
+
+def cluster_rank_rows(shape):
+    """The cluster route's split of one walker over the ``C =
+    cluster_size(shape)`` ranks of its cluster (``csrc/fft_cluster.cuh``'s
+    ``ClusterGeom``): for rank ``r``, ``((row0, row1), (img0, img1))``,
+    the rows ``[row0, row1)`` of the transform :func:`padded_shape` it
+    holds (``R = ceil(M_h / C)`` each; it zeroes their slots outside the
+    image) and the image rows ``[img0, img1)`` it renders (``ceil(H / C)``
+    each, its readout's rows) into whichever rank holds them; ``[]`` off
+    the cluster route."""
+    if conv_route(shape) != "cluster":
+        return []
+    ranks = cluster_size(shape)
+    h, mh = int(shape[0]), padded_shape(shape)[0]
+    rows, hc = -(-mh // ranks), -(-h // ranks)
+    return [((r * rows, min(r * rows + rows, mh)), (min(r * hc, h), min(r * hc + hc, h)))
+            for r in range(ranks)]
 
 
 def fused_lnl_smem_bytes(shape, num_sersic, num_ps):
@@ -87,26 +112,19 @@ def fused_lnl_smem_bytes(shape, num_sersic, num_ps):
                 + num_ps * (h + w))
 
 
-def fused_lnl_fft_smem_bytes(shape, num_sersic, num_ps):
-    """Dynamic shared memory of one block on the FFT route: the
-    ``float2`` image and twiddles plus the walker's scalars; a block has
-    :data:`FUSED_FFT_SMEM_LIMIT` for them."""
-    h, w = shape
-    return fft_smem_bytes(shape) + 4 * (PARAMS_PER_SERSIC * num_sersic
-                                        + num_ps * (h + w))
-
-
 def fused_lnl_supported(spec):
     """``(ok, reason)``: whether the fused kernel computes ``spec``'s
     likelihood exactly.
 
     The JAX package's gate (component kinds whitelisted, flat sky,
     elliptical Sersics, one PSF, Gaussian likelihood, no padding, no
-    oversampling), plus the port's own limit: one walker must fit in a
-    block's shared memory on the route its shape takes (:func:`fused_route`):
-    the three image buffers of the matmul-DFT route (up to about
-    137x137), or the one complex image of the FFT route (128x128,
-    64x256, 2048x8, ...).
+    oversampling), plus the port's own limit: the route the shape takes
+    (:func:`fused_route`) must hold one walker.  The FFT, padded and
+    cluster routes hold every shape conv_lnl's rule sends them; the
+    matmul-DFT route's three buffers must fit a block's shared memory
+    (a side of 1 does; 512x512, a transform no cluster of 8 holds, does
+    not, and that is the one shape family the JAX gate takes and this
+    one refuses).
     """
     specs = getattr(spec, "comp_specs", ())
     known = {"sky", "pointsource", "sersic", "psfselector"}
@@ -130,12 +148,11 @@ def fused_lnl_supported(spec):
     nser = sum(cs.kind == "sersic" for cs in specs)
     nps = sum(cs.kind == "pointsource" for cs in specs)
     route = fused_route(spec.shape)
-    need = _ROUTES[route][2](tuple(spec.shape), nser, nps)
-    limit = FUSED_FFT_SMEM_LIMIT if route == "fft" else FUSED_SMEM_LIMIT
-    if need > limit:
+    need = fused_lnl_smem_bytes(tuple(spec.shape), nser, nps)
+    if route == "dft" and need > FUSED_SMEM_LIMIT:
         return False, (f"a {spec.shape[0]}x{spec.shape[1]} image: one walker "
-                       f"needs {need} bytes of shared memory on the {route} "
-                       f"route, a block has {limit}")
+                       f"needs {need} bytes of shared memory on the dft "
+                       f"route, a block has {FUSED_SMEM_LIMIT}")
     return True, ""
 
 
@@ -145,23 +162,21 @@ def fused_lnl_plain(packed, sky, fky, kx, consts: ConvLnlConsts):
     return batched_conv_lnl_plain(raw + pointsource_image(fky, kx), consts)
 
 
-# fused_lnl_launch(packed, sky, fky, kx, batch, num_sersic, num_ps, h, w,
-# <these constants>, out, stream); fused_lnl_fft_launch takes
-# conv_lnl.FFT_CONST_ARGS in their place
-_DFT_CONST_ARGS = ("cw", "sw", "lf", "li", "ica", "isa", "psf_r", "psf_i",
-                   "var_r", "var_i", "obs", "obs_var", "good_f")
-_ROUTES = {
-    "dft": ("fused_lnl_launch", _DFT_CONST_ARGS, fused_lnl_smem_bytes),
-    "fft": ("fused_lnl_fft_launch", FFT_CONST_ARGS, fused_lnl_fft_smem_bytes),
-}
+# fused_lnl_<route>_launch(packed, sky, fky, kx, batch, num_sersic, num_ps,
+# <the sides: conv_lnl's _sides>, <conv_lnl's constants of the route, one
+# observation and one PSF>, out, stream); the matmul-DFT route's symbol is
+# fused_lnl_launch
+_ROUTES = {"dft": ("fused_lnl_launch", _DFT_CONST_ARGS)}
+_ROUTES.update({route: (f"fused_lnl_{route}_launch", names)
+                for route, (_, names) in _BLOCK_ROUTES.items()})
 
 
-@functools.lru_cache(maxsize=2)
+@functools.lru_cache(maxsize=None)
 def _kernel(route):
-    symbol, const_args, _ = _ROUTES[route]
+    symbol, const_args = _ROUTES[route]
     return _build.function(
         "fused_lnl", symbol,
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * (3 + _SIDE_INTS.get(route, 2))
         + [ctypes.c_void_p] * (len(const_args) + 2),
     )
 
@@ -186,23 +201,27 @@ def _check(packed, sky, fky, kx, consts):
 def _launch(packed, sky, fky, kx, consts: ConvLnlConsts, route):
     if packed.dtype != torch.float32:
         raise TypeError(f"the CUDA fused_lnl takes float32, got {packed.dtype}")
+    if consts.targets:
+        raise ValueError("the fused kernel takes one observation, not a stacked consts")
     check_launch_consts(consts, packed.device)
     b, s, _ = packed.shape
     p = fky.shape[1]
     h, w = consts.shape
     packed, sky, fky, kx = (t.contiguous() for t in (packed, sky, fky, kx))
     out = torch.empty((b,), dtype=torch.float32, device=packed.device)
-    _, const_args, smem_bytes = _ROUTES[route]
-    tensors = [getattr(consts, n) for n in const_args] + [out]
+    tensors = [getattr(consts, n) for n in _ROUTES[route][1]] + [out]
+    sides = _sides(route, (h, w))
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel(route)(
             packed.data_ptr(), sky.data_ptr(), fky.data_ptr(), kx.data_ptr(),
-            b, s, p, h, w, *(t.data_ptr() for t in tensors), stream)
+            b, s, p, *sides, *(t.data_ptr() for t in tensors), stream)
     if err != 0:  # e.g. a walker too large for a block's shared memory
+        if route != "dft":
+            raise RuntimeError(_launch_error("fused_lnl", route, (h, w), err))
         raise RuntimeError(
             f"fused_lnl launch failed: cudaError {err} ({h}x{w} walker on the "
-            f"{route} route, {smem_bytes((h, w), s, p)} bytes of shared memory)")
+            f"dft route, {fused_lnl_smem_bytes((h, w), s, p)} bytes of shared memory)")
     return out
 
 
@@ -221,4 +240,4 @@ def fused_lnl(packed, sky, fky, kx, consts: ConvLnlConsts):
 
 
 fused_lnl.launches = 0
-fused_lnl.route_launches = {"fft": 0, "dft": 0}
+fused_lnl.route_launches = {"fft": 0, "padded": 0, "cluster": 0, "dft": 0}

@@ -43,11 +43,12 @@ def test_cluster_route_is_a_function_of_the_shape(shape, ranks):
     (:func:`padded_shape`: 88x88 -> 180x180, 94x94 -> 192x192, 101x101 ->
     210x210, the FFT route's own sides otherwise) fits no block, on the
     smallest cluster whose blocks each hold their rows; the rest stays on
-    the matmul-DFT route.  The radix-2 rule (the fused kernel's) has no
-    cluster route: it answers ``"dft"`` at all of them."""
+    the matmul-DFT route.  The fused kernel takes the same route."""
+    from psfmc_tpu_torch.ops.kernels import fused_lnl as FL
+
     assert CL.cluster_size(shape) == ranks
     assert CL.conv_route(shape) == ("cluster" if ranks else "dft")
-    assert CL.conv_route(shape, radices=(2,)) == "dft"
+    assert FL.fused_route(shape) == CL.conv_route(shape)
     assert CL.target_spectra_supported(shape) == bool(ranks)
     if not ranks:
         return

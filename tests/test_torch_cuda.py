@@ -175,24 +175,31 @@ def test_render_tiled_raises_on_the_card_too(cuda):
 
 
 # shape, PSF, point sources, conv_lnl's route, the fused kernel's route
+# (the same rule)
 LIKELIHOOD_CASES = [
     ((128, 128), (64, 64), True, "fft", "fft"),
     ((64, 64), (32, 32), True, "fft", "fft"),
     ((64, 64), (32, 32), False, "fft", "fft"),
     ((64, 128), (32, 32), True, "fft", "fft"),  # non-square: two line lengths
-    # odd sizes (W2 = 19, ragged warps): conv_lnl's padded route (90x80)
-    ((45, 37), (16, 16), True, "padded", "dft"),
-    # 3 x 2^5: conv_lnl's mixed-radix geometry; the fused kernel's FFT
-    # route takes powers of two only
-    ((96, 96), (48, 48), True, "fft", "dft"),
-    ((100, 100), (50, 50), True, "fft", "dft"),  # 5^2 x 2^2
-    ((98, 98), (48, 48), True, "fft", "dft"),  # 7^2 x 2: radix-7 stages
-    ((74, 74), (36, 36), True, "padded", "dft"),  # 2 x 37: padded to 150x150
+    # odd sizes (W2 = 19, ragged warps): the padded route (90x80)
+    ((45, 37), (16, 16), True, "padded", "padded"),
+    # 3 x 2^5: the FFT route's mixed-radix geometry
+    ((96, 96), (48, 48), True, "fft", "fft"),
+    ((100, 100), (50, 50), True, "fft", "fft"),  # 5^2 x 2^2
+    ((98, 98), (48, 48), True, "fft", "fft"),  # 7^2 x 2: radix-7 stages
+    ((74, 74), (36, 36), True, "padded", "padded"),  # 2 x 37: padded to 150x150
     # 2 x 47: 192x192 fits no block but a cluster of 2 blocks
-    ((94, 94), (48, 48), True, "cluster", "dft"),
+    ((94, 94), (48, 48), True, "cluster", "cluster"),
 ]
 LIKELIHOOD_IDS = ["128", "64", "64-no-ps", "64x128", "45x37", "96", "100", "98",
                   "74", "94"]
+# the fused kernel also on the cluster route's other sizes: 160x180 (2
+# blocks, no padded side) and 256x256 (4 blocks)
+FUSED_CASES = LIKELIHOOD_CASES + [
+    ((160, 180), (64, 64), True, "cluster", "cluster"),
+    ((256, 256), (64, 64), True, "cluster", "cluster"),
+]
+FUSED_IDS = LIKELIHOOD_IDS + ["160x180", "256"]
 
 
 def _likelihood_inputs(cuda, shape, psf_shape, point_sources, lnpost, seed):
@@ -353,7 +360,7 @@ def test_conv_lnl_fft_route_at_every_depth_of_pass(cuda, shape):
 
 
 @pytest.mark.parametrize("shape,psf_shape,point_sources,conv_route,route",
-                         LIKELIHOOD_CASES, ids=LIKELIHOOD_IDS)
+                         FUSED_CASES, ids=FUSED_IDS)
 def test_fused_lnl_kernel_matches_plain(cuda, shape, psf_shape, point_sources,
                                         conv_route, route):
     post, params, sky, fky, kx = _likelihood_inputs(
@@ -418,10 +425,12 @@ def test_kernel_wrappers_do_not_fall_back(cuda):
 
 
 def test_fused_lnl_refuses_a_walker_beyond_shared_memory(cuda):
-    """A 144x144 walker needs more shared memory than a block has: the
-    launch is refused, and the wrapper raises instead of returning an
-    unwritten output."""
-    spec = build_model_spec(flagship_components((144, 144), (32, 32)))
+    """A 512x512 walker takes the matmul-DFT route (no cluster of 8 blocks
+    holds its transform), whose three buffers need more shared memory than
+    a block has: the launch is refused, and the wrapper raises instead of
+    returning an unwritten output."""
+    assert FL.fused_route((512, 512)) == "dft"
+    spec = build_model_spec(flagship_components((512, 512), (32, 32)))
     post = build_posterior(spec, device=cuda, lnpost="batched")
     th = torch.as_tensor(prior_draws(spec, 4, seed=8), dtype=torch.float32,
                          device=post.device)

@@ -420,16 +420,15 @@ def test_mixed_radix_lnl_matches_pallas_batched(monkeypatch, shape):
         np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
-# even sides with factors 3, 5 and 7 that fit a block: the FFT route of
-# conv_lnl (and its backward), not of the radix-2 rule
+# even sides with factors 3, 5 and 7 that fit a block: the FFT route on the
+# mixed-radix geometry
 MIXED_FFT = {(96, 96), (100, 100), (144, 144), (128, 96), (98, 98), (56, 56),
              (98, 128)}
 # an odd side or a prime factor above 7, padded to a transform that fits a
-# block: conv_lnl's padded route (the radix-2 rule has none)
+# block: the padded route
 PADDED = {(45, 37), (74, 74), (45, 75), (49, 98), (64, 74)}
 # a transform (the padded one, or the FFT route's own sides) too large for a
-# block that fits a cluster of blocks: conv_lnl's cluster route (the radix-2
-# rule has none)
+# block that fits a cluster of blocks: the cluster route
 CLUSTER = {(128, 256), (256, 256), (88, 88), (160, 180), (196, 196), (94, 94),
            (101, 101)}
 
@@ -438,60 +437,64 @@ CLUSTER = {(128, 256), (256, 256), (88, 88), (160, 180), (196, 196), (94, 94),
     ((128, 128), "fft"), ((64, 64), "fft"), ((64, 128), "fft"),
     ((64, 256), "fft"), ((256, 64), "fft"), ((16, 16), "fft"),
     ((32, 512), "fft"), ((2, 2), "fft"),
-    ((45, 37), "dft"), ((96, 96), "dft"), ((100, 100), "dft"),
-    ((144, 144), "dft"), ((128, 96), "dft"), ((1, 64), "dft"),
+    ((45, 37), "padded"), ((96, 96), "fft"), ((100, 100), "fft"),
+    ((144, 144), "fft"), ((128, 96), "fft"), ((1, 64), "dft"),
     # powers of two, but one walker does not fit in a block
-    ((128, 256), "dft"), ((256, 256), "dft"), ((512, 512), "dft"),
-    # factors of 7: conv_lnl's mixed-radix geometry, not the radix-2 rule's
-    ((98, 98), "dft"), ((56, 56), "dft"), ((98, 128), "dft"),
+    ((128, 256), "cluster"), ((256, 256), "cluster"), ((512, 512), "dft"),
+    # factors of 7: the mixed-radix geometry's radix-7 stages
+    ((98, 98), "fft"), ((56, 56), "fft"), ((98, 128), "fft"),
     # a factor of 37 or 11, odd sides with factors 3, 5 and 7, too large
-    ((74, 74), "dft"), ((88, 88), "dft"), ((45, 75), "dft"), ((49, 98), "dft"),
-    ((160, 180), "dft"), ((196, 196), "dft"),
+    ((74, 74), "padded"), ((88, 88), "cluster"), ((45, 75), "padded"),
+    ((49, 98), "padded"), ((160, 180), "cluster"), ((196, 196), "cluster"),
     # factors of 47 and 101: padded to 192 and 210, no block holds them
-    ((94, 94), "dft"), ((101, 101), "dft"), ((64, 74), "dft"),
-    # on no route but the matmul-DFT one of either rule: a transform that no
-    # cluster of 8 blocks holds
+    ((94, 94), "cluster"), ((101, 101), "cluster"), ((64, 74), "padded"),
+    # on no route but the matmul-DFT one: a transform that no cluster of 8
+    # blocks holds
     ((512, 512), "dft"),
 ], ids=lambda v: v if isinstance(v, str) else f"{v[0]}x{v[1]}")
 def test_conv_route_is_a_function_of_the_shape(shape, route):
-    """``route`` is the radix-2 rule's answer (``radices=(2,)``, the
-    fused kernel's, which never answers ``"padded"``); conv_lnl's own rule
-    answers ``"fft"`` also for the shapes of :data:`MIXED_FFT`,
+    """conv_lnl's rule, which is also the fused kernel's
+    (:func:`fused_route`), answers ``"fft"`` for the shapes of
+    :data:`MIXED_FFT` and the powers of two that fit a block,
     ``"padded"`` for those of :data:`PADDED` (74x74 -> 150x150, 45x75 ->
     90x150, 49x98 -> 98x98, 45x37 -> 90x80, 64x74 -> 64x150: one side
     padded), ``"cluster"`` for those of :data:`CLUSTER`: 88x88 (180x180),
     94x94 (192x192) and 101x101 (210x210) need more shared memory than a
     block has, and so do 160x180, 196x196, 128x256 and 256x256 on the FFT
-    route's sides, but a cluster of 2 (256x256: 4) blocks holds each; and
-    the same elsewhere: a side of 1 (1x64) and 512x512 (no cluster of 8
-    holds it) stay on the matmul-DFT route."""
-    assert CL.conv_route(shape, radices=(2,)) == route
-    want = ("fft" if shape in MIXED_FFT else "padded" if shape in PADDED
-            else "cluster" if shape in CLUSTER else route)
-    assert CL.conv_route(shape) == want
-    if want == "fft":
+    route's sides, but a cluster of 2 (256x256: 4) blocks holds each; a
+    side of 1 (1x64) and 512x512 (no cluster of 8 holds it) stay on the
+    matmul-DFT route."""
+    from psfmc_tpu_torch.ops.kernels import fused_lnl as FL
+
+    assert CL.conv_route(shape) == route
+    assert FL.fused_route(shape) == route
+    assert (route == "padded") == (shape in PADDED)
+    assert (route == "cluster") == (shape in CLUSTER)
+    if shape in MIXED_FFT:
+        assert route == "fft"
+    if route == "fft":
         assert CL.fft_smem_bytes(shape) <= CL.BLOCK_SMEM_LIMIT
-    if want == "padded":
+    if route == "padded":
         padded = CL.padded_shape(shape)
         assert padded != shape and all(m >= 2 * n - 1 or m == n
                                        for n, m in zip(shape, padded))
         assert CL.fft_smem_bytes(padded) <= CL.BLOCK_SMEM_LIMIT
-    if want == "cluster":
+    if route == "cluster":
         assert CL.cluster_size(shape) in CL.CLUSTER_SIZES
         assert CL.fft_smem_bytes(CL.padded_shape(shape)) > CL.BLOCK_SMEM_LIMIT
 
 
 def test_fft_route_needs_less_shared_memory_than_the_three_buffers():
-    """At the square and moderately oblong shapes the fused kernel's FFT
-    route needs less than the matmul-DFT route's three buffers would, so
-    ``fused_lnl_supported`` keeps the answers it gave before the FFT
-    route."""
+    """At the square and moderately oblong shapes the FFT route (conv_lnl's
+    and the fused kernel's, which reads the walker's scalars through the
+    read-only cache) needs less than the matmul-DFT route's three buffers
+    would."""
     from psfmc_tpu_torch.ops.kernels import fused_lnl as FL
 
     assert CL.fft_smem_bytes((128, 128)) == 8 * (128 * 129 + 64)
     for shape in [(128, 128), (64, 64), (64, 256), (256, 64), (16, 16)]:
         assert CL.conv_route(shape) == "fft"
-        assert (FL.fused_lnl_fft_smem_bytes(shape, 2, 1)
+        assert (CL.fft_smem_bytes(shape) + CL._FFT_STATIC_SMEM
                 < FL.fused_lnl_smem_bytes(shape, 2, 1))
 
 
@@ -500,10 +503,15 @@ def test_fft_route_needs_less_shared_memory_than_the_three_buffers():
     # tall and narrow: the padded half spectra of the three buffers would
     # not fit (245,760 B), the one complex image does (155,648 B)
     ((2048, 8), "fft", True),
-    ((96, 96), "dft", True), ((136, 136), "dft", True),
-    ((144, 144), "dft", False), ((256, 256), "dft", False),
+    # off the radix-2 geometry: the mixed-radix one; 136 = 8 x 17 and
+    # 256x256 beyond a block: a cluster
+    ((96, 96), "fft", True), ((136, 136), "cluster", True),
+    ((144, 144), "fft", True), ((256, 256), "cluster", True),
 ], ids=lambda v: f"{v[0]}x{v[1]}" if isinstance(v, tuple) else str(v))
 def test_fused_gate_measures_the_route_the_shape_takes(shape, route, ok):
+    """The fused kernel takes conv_lnl's route, and its gate passes every
+    shape a route other than the matmul-DFT one holds; the three buffers
+    of that route would not hold 2048x8, 144x144 or 256x256."""
     from types import SimpleNamespace
 
     from psfmc_tpu_torch.ops.kernels import fused_lnl as FL
@@ -512,17 +520,15 @@ def test_fused_gate_measures_the_route_the_shape_takes(shape, route, ok):
     spec = SimpleNamespace(
         shape=shape,
         comp_specs=[SimpleNamespace(kind=k, params=()) for k in kinds])
-    # the fused kernel's own route: powers of two only
-    assert FL.fused_route(shape) == route
+    assert FL.fused_route(shape) == CL.conv_route(shape) == route
     got, why = FL.fused_lnl_supported(spec)
-    assert got == ok
-    if not ok:
-        assert "shared memory" in why and f"the {route} route" in why
-    measure = (FL.fused_lnl_fft_smem_bytes if route == "fft"
-               else FL.fused_lnl_smem_bytes)
-    limit = (FL.FUSED_FFT_SMEM_LIMIT if route == "fft"
-             else FL.FUSED_SMEM_LIMIT)
-    assert (measure(shape, 2, 1) <= limit) == ok
+    assert (got, why) == (ok, "")
+    three_buffers = FL.fused_lnl_smem_bytes(shape, 2, 1) <= FL.FUSED_SMEM_LIMIT
+    assert three_buffers == (shape in [(128, 128), (64, 256), (96, 96), (136, 136)])
+    if route == "fft":
+        assert CL.fft_smem_bytes(shape) + CL._FFT_STATIC_SMEM <= CL.BLOCK_SMEM_LIMIT
+    else:
+        assert CL.cluster_size(shape) in CL.CLUSTER_SIZES
 
 
 def test_consts_carry_the_twiddles_only_for_powers_of_two():

@@ -308,10 +308,25 @@ never ``jax`` nor ``psfmc_tpu``, and:
    on its matmul-DFT route nor on conv_lnl, the lnpost against the CPU's
    float64, the resumed fit bit for bit, the replayed retained step's
    time (256x256: beside the cluster phase's batched-path step);
-22. prints the tempered, evidence, NUTS, criticism, batch, hierarchy,
-   cluster, GALFIT and fused routes phases' numbers and the kernel table
-   as one JSON line each, then the result line ``{"ok": true, "device": {...}}``
-   last.
+22. mesh phase (:func:`mesh_phase`, multi-device fits through
+   ``psfmc_tpu_torch.parallel``, each rank a process of its own started by
+   this script with a ``file://`` store and a timeout): (a) one rank on
+   NCCL, the flagship fit at full width through ``model_galaxy_mcmc(mesh=
+   walker_mesh())`` beside the same fit without a mesh (chains bit for
+   bit, images, launches, every step a replay with the all-gathers
+   captured, the replayed retained step's time beside the unsharded
+   one's); (b) two ranks on the one card under gloo (NCCL refuses two
+   ranks on one device), eager steps: the batched and the fused fit bit for
+   bit against (a)'s unsharded fits on both ranks, files from rank 0
+   only, a second call resuming on both, each rank's kernels on its own
+   62 or 63 walkers a half-step (counted exactly, and held to their plain
+   versions at that batch), NUTS, ``ais_evidence`` (8 groups; 7 raise),
+   ``fit_batch`` (32 mocks) and ``fit_hierarchical`` (``shard="targets"``
+   and ``"chains"``) against their one-process runs;
+23. prints the tempered, evidence, NUTS, criticism, batch, hierarchy,
+   cluster, GALFIT, fused routes and mesh phases' numbers and the kernel
+   table as one JSON line each, then the result line ``{"ok": true,
+   "device": {...}}`` last.
 
 Each phase ends in a synchronize of the card (:func:`run_phase`), so an
 asynchronous CUDA error names the phase whose launches raised it.
@@ -331,7 +346,7 @@ also covers the priors flagship and the priors' stress variant.
 
 ``python3 chip_smoke.py --only nuts,nuts,criticism`` runs only the named
 phases after the build (``nuts``, ``criticism``, ``batch``, ``hierarchy``,
-``cluster``, ``galfit``, ``fused_routes``, and
+``cluster``, ``galfit``, ``fused_routes``, ``mesh``, and
 ``nuts-kernels``: the gradient path's four kernels at NUTS's
 batches, a short target for ``compute-sanitizer``), each as often as it
 is named, and prints their numbers.
@@ -6690,6 +6705,437 @@ def galfit_phase(shape=(128, 128), psf_shape=(64, 64), device=None):
     return out
 
 
+# -- the mesh phase: multi-device fits (psfmc_tpu_torch.parallel) ----------------------
+MESH_RANK_TIMEOUT = 420  # s: a rank's subprocess
+MESH_COLLECTIVE_TIMEOUT = 240  # s: every collective of a rank's process group
+MESH_IMAGE_RTOL = 1e-6  # the world-1 mesh fit's images against the unsharded fit's
+MESH_LNZ_RTOL = 1e-6  # the sharded anneal's lnZ against the one-process anneal's
+MESH_NUTS = {"chains": 8, "burn": 6, "sample": 4, "depth": 4}
+MESH_AIS = {"nwalkers": 256, "nsteps": 30, "sweeps": 1, "moves": "mixed"}
+MESH_AIS_GROUPS = 8  # 7 must raise over 2 ranks
+MESH_BATCH_TARGETS, MESH_BATCH_STEPS = 32, 3  # flagship mocks, burn and retained steps
+MESH_HIER = {"targets": 4, "chains": 2, "steps": 3, "depth": 3, "pool": 4}
+MESH_STEP_REPS = (5, 5)  # time_ms's reps and inner calls for a replayed (an eager) step
+MESH_RANK_COMMAND = None  # a rank's command before its arguments (None: this script)
+
+
+def mesh_kernels():
+    """The wrappers the mesh phase counts: every kernel of its paths."""
+    return counted_kernels() + grad_kernels()[1::2]
+
+
+def mesh_driver_fit(model_file, out, mesh, counted, lnpost, device, iterations=SAMPLE):
+    """``model_galaxy_mcmc`` on the flagship at full width (250 walkers,
+    20 burn + ``iterations`` retained steps in segments of 10), on
+    ``mesh`` (None: unsharded), the counts set to 0 just before and read
+    just after; returns the database as arrays, the sampler, the launches
+    and the wall seconds."""
+    import torch
+
+    from psfmc_tpu_torch import fitting
+
+    samplers = []
+    init = fitting.EnsembleSampler.__init__
+
+    def kept(self, *a, **k):
+        init(self, *a, **k)
+        samplers.append(self)
+
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    os.environ.pop("PSFMC_LNPOST", None)
+    if lnpost:
+        os.environ["PSFMC_LNPOST"] = lnpost
+    fitting.EnsembleSampler.__init__ = kept
+    try:
+        torch.cuda.synchronize()
+        reset_counts(counted)
+        t0 = time.perf_counter()
+        db = fitting.model_galaxy_mcmc(model_file, output_name=out, chains=NWALKERS,
+                                       burn=BURN, iterations=iterations, seed=SEED,
+                                       checkpoint_interval=CHECKPOINT, mesh=mesh,
+                                       device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, routes = read_counts(counted)
+    finally:
+        fitting.EnsembleSampler.__init__ = init
+        os.environ.pop("PSFMC_LNPOST", None)
+    (sm,) = samplers
+    launches.update(routes)
+    arrays = {name: np.asarray(db[name]) for name in db.colnames}
+    arrays["phases"] = np.array(sorted(db.phase_seconds))
+    return arrays, sm, launches, wall
+
+
+def mesh_more_fits(model, mesh, counted):
+    """The other sharded entry points at small depth on the flagship
+    (``mesh`` None: the one-process references): NUTS with 8 chains,
+    ``ais_evidence`` with 8 groups (and, over 2 ranks, 7, which must
+    raise), ``fit_batch`` with 32 mocks and ``fit_hierarchical`` with
+    ``shard="targets"`` and ``"chains"``.  Returns the results as arrays
+    and each entry point's launches."""
+    import torch
+
+    from psfmc_tpu_torch import batchfit as BF
+    from psfmc_tpu_torch import hierarchy as H
+    from psfmc_tpu_torch.flagship import prior_draws
+    from psfmc_tpu_torch.parallel import walker_sharding
+    from psfmc_tpu_torch.sampler import NUTSSampler, ais_evidence
+
+    fns = model.posterior_fns
+    sharding = None if mesh is None else walker_sharding(mesh)
+    res, launches = {}, {}
+
+    def counted_run(name, fn):
+        torch.cuda.synchronize()
+        reset_counts(counted)
+        out = fn()
+        torch.cuda.synchronize()
+        c, r = read_counts(counted)
+        c.update(r)
+        launches[name] = c
+        return out
+
+    n = MESH_NUTS
+
+    def nuts():
+        sm = NUTSSampler(n["chains"], model.num_params, fns, seed=SEED, max_depth=n["depth"],
+                         sharding=sharding)
+        sm.init_state(prior_draws(model.spec, 32 * n["chains"], seed=SEED + 80))
+        sm.run_burn(n["burn"])
+        sm.reset()
+        sm.run_sampling(n["sample"])
+        return sm
+
+    sm = counted_run("nuts", nuts)
+    res.update(nuts_chain=sm.chain, nuts_lnp=sm.lnprobability)
+    ais = counted_run("ais", lambda: ais_evidence(fns, groups=MESH_AIS_GROUPS, seed=SEED,
+                                                  mesh=mesh, **MESH_AIS))
+    res.update(ais_groups=ais.lnz_groups, ais_lnz=np.float64(ais.lnz))
+    if mesh is not None:
+        try:
+            ais_evidence(fns, groups=MESH_AIS_GROUPS - 1, seed=SEED, mesh=mesh, **MESH_AIS)
+        except ValueError as err:
+            res["ais_refusal"] = np.array(str(err))
+    obs, ivm, _ = BF.simulate_stack(model, MESH_BATCH_TARGETS, seed=1)
+    b = counted_run("batch", lambda: BF.fit_batch(model, obs, ivm, burn=MESH_BATCH_STEPS,
+                                                  iterations=MESH_BATCH_STEPS, seed=SEED,
+                                                  mesh=mesh))
+    res.update({f"batch_{f}": getattr(b, f) for f in ("mean", "std", "map_lnp",
+                                                      "acceptance")})
+    h = MESH_HIER
+    for shard in ("targets", "chains"):
+        fit = counted_run(f"hier_{shard}", lambda: H.fit_hierarchical(
+            model, obs[:h["targets"]], ivm[:h["targets"]], hier_population(),
+            sampler="nuts", chains=h["chains"], init_pool=h["pool"], max_depth=h["depth"],
+            burn=h["steps"], iterations=h["steps"], seed=SEED, mesh=mesh, shard=shard))
+        res.update({f"hier_{shard}_chain": fit.flatchain, f"hier_{shard}_lnp": fit.lnp})
+    return res, launches
+
+
+def mesh_rank(mode, rank, world, store, work, device="cuda:0"):
+    """One rank of the mesh phase, in its own process (``python3
+    chip_smoke.py --mesh-rank <mode> <rank> <world> <store> <work>
+    <device>``):
+    ``a``, one rank on NCCL (graphed steps), the flagship fit unsharded and
+    on the mesh and the one-process references of (b); ``b``, a rank of two
+    on the one card, gloo (eager steps), every sharded entry point.  Writes
+    its arrays to ``<work>/<mode><rank>.npz`` and its numbers to
+    ``<work>/<mode><rank>.json``."""
+    import datetime
+
+    import torch
+
+    import psfmc_tpu_torch.models.posterior as P
+    from psfmc_tpu_torch.io import fits
+    from psfmc_tpu_torch.models import as_model
+    from psfmc_tpu_torch.ops.kernels.fused_lnl import fused_lnl, fused_lnl_plain
+    from psfmc_tpu_torch.parallel import initialize, walker_mesh
+
+    global CARD
+    CARD = card_identity()
+    # NCCL refuses two ranks on one device ("Duplicate GPU detected"): two
+    # ranks on the one card run gloo, whose collectives go through the host
+    backend = "nccl" if mode == "a" and device.startswith("cuda") else "gloo"
+    initialize(backend, init_method=f"file://{store}", world_size=world, rank=rank,
+               timeout=datetime.timedelta(seconds=MESH_COLLECTIVE_TIMEOUT))
+    mesh = walker_mesh(device)
+    counted = mesh_kernels()
+    model_file = os.path.join(work, "inputs", "model.py")
+    res, info = {}, {"backend": mesh.backend, "graphed": mesh.graphed, "size": mesh.size,
+                     "rank": mesh.rank}
+    model = as_model(model_file, device=mesh.device, lnpost="batched")
+
+    def save(prefix, arrays):
+        res.update({f"{prefix}:{k}": v for k, v in arrays.items()})
+
+    if mode == "a":
+        plain, sm0, l0, w0 = mesh_driver_fit(model_file, os.path.join(work, "a_plain", "out"),
+                                             None, counted, None, mesh.device)
+        on_mesh, sm1, l1, w1 = mesh_driver_fit(model_file, os.path.join(work, "a_mesh", "out"),
+                                               mesh, counted, None, mesh.device)
+        differ = [k for k in plain if not np.array_equal(plain[k], on_mesh[k])]
+        img_err = 0.0
+        for ftype in IMAGE_TYPES:
+            a = fits.getdata(os.path.join(work, "a_plain", f"out_{ftype}.fits"))
+            b = fits.getdata(os.path.join(work, "a_mesh", f"out_{ftype}.fits"))
+            img_err = max(img_err, float(np.max(np.abs(a - b)) / max(np.max(np.abs(a)), 1e-30)))
+        replays = [sm0.graph_replays, sm1.graph_replays]  # before the timed replays
+        t = [time_ms(lambda s=s: s._step("retain"), *MESH_STEP_REPS)
+             for s in (sm0, sm1, sm1, sm0)]
+        info.update(plain_launches=l0, mesh_launches=l1, plain_wall_s=w0, mesh_wall_s=w1,
+                    differ=differ, image_rel_err=img_err, replays=replays,
+                    steps=BURN + SAMPLE, plain_step_ms=[t[0], t[3]],
+                    mesh_step_ms=[t[1], t[2]])
+        save("batched", plain)
+        fused, smf, lf, wf = mesh_driver_fit(model_file, os.path.join(work, "a_fused", "out"),
+                                             None, counted, "pallas", mesh.device)
+        save("fused", fused)
+        info.update(fused_launches=lf)
+    else:
+        sizes = {}
+        originals = {name: getattr(P, name) for name in ("batched_conv_lnl", "fused_lnl")}
+
+        def recording(name):
+            def rec(*a, **k):  # each evaluation's batch, as the kernel receives it
+                sizes.setdefault(name, []).append(int(a[0].shape[0]))
+                return originals[name](*a, **k)
+            return rec
+
+        for name in originals:
+            setattr(P, name, recording(name))
+        try:
+            mine = os.path.join(work, f"b{rank}")
+            batched, sm, lb, wb = mesh_driver_fit(model_file, os.path.join(mine, "out"), mesh,
+                                                  counted, None, mesh.device)
+            shared = os.path.join(work, "b_shared", "out_fused")
+            fused, smf, lf, wf = mesh_driver_fit(model_file, shared, mesh, counted, "pallas",
+                                                mesh.device)
+            resumed, smr, lr, wr = mesh_driver_fit(model_file, shared, mesh, counted, "pallas",
+                                                   mesh.device, iterations=2 * SAMPLE)
+        finally:
+            for name, fn in originals.items():
+                setattr(P, name, fn)
+        step_ms = time_ms(lambda: sm._step("retain"), *MESH_STEP_REPS)
+        save("batched", batched)
+        save("fused", fused)
+        save("resumed", resumed)
+        info.update(batched_launches=lb, fused_launches=lf, resumed_launches=lr,
+                    batched_wall_s=wb, fused_wall_s=wf, resumed_wall_s=wr, sizes=sizes,
+                    eager_step_ms=step_ms, files=sorted(os.listdir(mine)) if os.path.isdir(mine) else [])
+        # the kernels at this rank's own batch of the last half-step, against
+        # their plain versions (launches made to compare do not count)
+        half = NWALKERS // 2
+        lo, hi = mesh.rows(half)
+        thetas = sm.state.positions[half:][lo:hi].contiguous()
+        info["kernel_checks"] = {"batched": batch_kernel_check(
+            model.posterior_fns, thetas, f"mesh rank {rank}, the batched fit's half-step")}
+        fpost = smf.fns.base
+        ft = smf.state.positions[half:][lo:hi].contiguous()
+        params, sky = fpost.render_inputs(ft)
+        fky, kx = fpost.pointsource_inputs(ft)
+        args = [x.contiguous() for x in (params, sky, fky, kx)]
+        _, rel, _ = compare(fused_lnl(*args, fpost.consts), fused_lnl_plain(*args, fpost.consts))
+        log(f"mesh rank {rank}: fused_lnl at B = {hi - lo}: max rel err {rel:.3e} "
+            f"(tol {FUSED_TOL:g})")
+        if not rel <= FUSED_TOL:
+            raise AssertionError(f"mesh rank {rank}: fused_lnl disagrees with its plain "
+                                 "version")
+        info["kernel_checks"]["fused"] = {"batch": hi - lo, "fused_lnl_max_rel_err": rel}
+    more, more_launches = mesh_more_fits(model, mesh if mode == "b" else None, counted)
+    res.update(more)
+    info["more_launches"] = more_launches
+    np.savez(os.path.join(work, f"{mode}{rank}.npz"), **res)
+    with open(os.path.join(work, f"{mode}{rank}.json"), "w") as fh:
+        json.dump(info, fh, default=float)
+    torch.distributed.destroy_process_group()
+
+
+def mesh_launch(mode, world, work, device):
+    """Start ``world`` rank processes of ``mode``, each with a timeout,
+    and wait for them; their output goes to ``<work>/<mode><rank>.log``
+    and is printed after.  Returns each rank's (arrays, numbers)."""
+    store = os.path.join(work, f"store_{mode}")
+    procs, logs = [], []
+    for r in range(world):
+        logs.append(open(os.path.join(work, f"{mode}{r}.log"), "w"))
+        command = MESH_RANK_COMMAND or [sys.executable, os.path.abspath(__file__)]
+        procs.append(subprocess.Popen(
+            command + ["--mesh-rank", mode, str(r), str(world), store, work, device],
+            stdout=logs[-1], stderr=subprocess.STDOUT))
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, MESH_RANK_TIMEOUT - (time.perf_counter() - t0)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for fh in logs:
+            fh.close()
+    for r, p in enumerate(procs):
+        with open(os.path.join(work, f"{mode}{r}.log")) as fh:
+            for line in fh.read().splitlines():
+                log(f"  [mesh {mode}{r}] {line}")
+        if p.returncode != 0:
+            raise AssertionError(f"mesh: rank {r} of ({mode}) exited with {p.returncode}")
+    out = []
+    for r in range(world):
+        with open(os.path.join(work, f"{mode}{r}.json")) as fh:
+            out.append((dict(np.load(os.path.join(work, f"{mode}{r}.npz"))), json.load(fh)))
+    return out
+
+
+def mesh_phase(shape=None, psf_shape=(64, 64), device="cuda:0"):
+    """Multi-device fits (:mod:`psfmc_tpu_torch.parallel`) on the one card,
+    each rank a process of its own (the arguments shrink the flagship).
+
+    (a) One rank on NCCL: the flagship at full width (128x128, 64x64 PSF,
+    250 walkers, 20 + 20 steps in segments of 10, the batched path)
+    through ``model_galaxy_mcmc(mesh=walker_mesh())`` and without a mesh:
+    chains and lnprob equal bit for bit, the five images within
+    :data:`MESH_IMAGE_RTOL`, the launches equal, every step a replay (its
+    all-gather captured inside), the replayed retained step's time beside
+    the unsharded one's.  (b) Two ranks on cuda:0 (gloo: NCCL refuses two
+    ranks on one device; eager steps): the same fit on the batched path
+    and on the fused kernel, each rank's chain equal bit for bit to (a)'s
+    unsharded fit and to the other rank's, files in rank 0's directory
+    only, a second call with 40 iterations in a shared directory resuming
+    on both ranks (no burn-in left), each rank's kernel launches on its own
+    62 or 63 walkers a half-step, counted exactly; the render, conv_lnl and
+    fused_lnl at that batch against their plain versions; then NUTS with 8
+    chains, ``ais_evidence`` with 8 groups (7 must raise), ``fit_batch``
+    with 32 flagship mocks and ``fit_hierarchical`` with ``shard="targets"``
+    and ``"chains"``, each held to its one-process run in (a): bit for bit,
+    lnZ within :data:`MESH_LNZ_RTOL`.  Returns the launches (summed over
+    every rank and run), the numbers and the checks."""
+    import shutil
+
+    import torch
+
+    from psfmc_tpu_torch.flagship import write_flagship_files
+
+    shape = FLAGSHIP_SHAPE if shape is None else shape
+    cuda = device.startswith("cuda")
+    if cuda:
+        torch.cuda.empty_cache()  # the ranks share the card with this process
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="psfmc_mesh_")
+    try:
+        os.makedirs(os.path.join(work, "inputs"))
+        write_flagship_files(os.path.join(work, "inputs"), shape, psf_shape)
+        (a_res, a), = mesh_launch("a", 1, work, device)
+        b = mesh_launch("b", 2, work, device)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # (a): the world-1 mesh fit against the unsharded fit, in one process;
+    # every check's failure is collected, then all of them raised at once
+    problems = []
+
+    def check(ok, msg):
+        if not ok:
+            problems.append(msg)
+            log(f"mesh: FAILED: {msg}")
+
+    def nonzero(launches):
+        return {k: v for k, v in launches.items() if v}
+
+    check(a["backend"] == ("nccl" if cuda else "gloo") and a["graphed"] == cuda,
+          f"(a) backend {a['backend']}, graphed {a['graphed']}")
+    check(not a["differ"], f"(a) the mesh fit differs from the unsharded fit in {a['differ']}")
+    check(a["image_rel_err"] <= MESH_IMAGE_RTOL, f"(a) images differ by {a['image_rel_err']:.3e}")
+    check(a["replays"] == [a["steps"] if cuda else 0] * 2, f"(a) replays {a['replays']}")
+    check(a["plain_launches"] == a["mesh_launches"],
+          f"(a) launches {nonzero(a['plain_launches'])} unsharded, "
+          f"{nonzero(a['mesh_launches'])} on the mesh")
+    log(f"mesh (a): one rank on {a['backend']}: the flagship fit on the mesh against the "
+        f"unsharded fit ({NWALKERS} walkers, {a['steps']} steps, replays {a['replays']}, the "
+        f"mesh's all-gathers captured in its steps): columns that differ {a['differ']}; images "
+        f"within {a['image_rel_err']:.3e}; launches {nonzero(a['mesh_launches'])} on the mesh; "
+        f"a replayed retained step {a['mesh_step_ms'][0]:.4f}, {a['mesh_step_ms'][1]:.4f} ms "
+        f"on the mesh, {a['plain_step_ms'][0]:.4f}, {a['plain_step_ms'][1]:.4f} ms unsharded "
+        f"({CARD})")
+
+    # (b): two ranks on one card against each other and against (a)
+    (r0, b0), (r1, b1) = b
+    differ = [k for k in r0 if k != "ais_refusal" and not np.array_equal(r0[k], r1[k])]
+    check(not differ, f"(b) the two ranks differ in {differ}")
+    for key in ("batched", "fused"):
+        cols = [k for k in r0 if k.startswith(f"{key}:") and not k.endswith(":phases")]
+        differ = [k for k in cols if not np.array_equal(r0[k], a_res[k])]
+        check(cols and not differ, f"(b) the {key} fit differs from the unsharded fit in "
+                                   f"{differ}")
+    exact = ["nuts_chain", "nuts_lnp", "batch_mean", "batch_std", "batch_map_lnp",
+             "batch_acceptance", "hier_chains_chain", "hier_chains_lnp", "hier_targets_chain",
+             "hier_targets_lnp"]
+    differ = [k for k in exact if not np.array_equal(r0[k], a_res[k])]
+    check(not differ, f"(b) differs from the one-process runs in {differ}")
+    lnz_err = float(np.max(np.abs(r0["ais_groups"] - a_res["ais_groups"])
+                           / np.maximum(np.abs(a_res["ais_groups"]), 1.0)))
+    check(lnz_err <= MESH_LNZ_RTOL, f"(b) lnZ by group differs by {lnz_err:.3e}")
+    refusal = str(r0.get("ais_refusal", ""))
+    check("must be a multiple of the mesh size (2)" in refusal,
+          f"(b) groups={MESH_AIS_GROUPS - 1} did not raise: {refusal!r}")
+    check(b0["backend"] == "gloo" and not b0["graphed"] and b0["files"] and not b1["files"],
+          f"(b) backend {b0['backend']}, graphed {b0['graphed']}, files {b0['files']} / "
+          f"{b1['files']}")
+    phases = [str(p) for p in r0["resumed:phases"]]
+    check("burn" not in phases and len(r0["resumed:lnprobability"]) == NWALKERS * 2 * SAMPLE,
+          f"(b) the second call did not resume ({phases})")
+    half = NWALKERS // 2
+    steps = BURN + SAMPLE
+    for r, info in enumerate((b0, b1)):
+        # every half-step on the rank's own rows of the 125; the start and
+        # each rejuvenation that moved walkers on its half of the 250
+        own = (r + 1) * half // 2 - r * half // 2
+        sizes_b = info["sizes"]["batched_conv_lnl"]
+        check(sizes_b.count(own) == 2 * steps and set(sizes_b) == {own, half}
+              and info["batched_launches"]["batched_conv_lnl"] == len(sizes_b)
+              and info["batched_launches"]["batched_conv_lnl:fft"] == len(sizes_b),
+              f"(b) rank {r}: conv_lnl batches {sizes_b}, launches "
+              f"{nonzero(info['batched_launches'])}")
+        sizes_f = info["sizes"]["fused_lnl"]
+        nf = info["fused_launches"]["fused_lnl"] + info["resumed_launches"]["fused_lnl"]
+        check(sizes_f.count(own) == 2 * (steps + SAMPLE) and set(sizes_f) == {own, half}
+              and nf == len(sizes_f), f"(b) rank {r}: fused_lnl batches {sizes_f}, launches "
+                                      f"{nf}")
+    log(f"mesh (b): two ranks on {device}, {b0['backend']} (NCCL refuses two ranks on one "
+        f"device), steps graphed {b0['graphed']}: the batched and the fused fit against the "
+        f"unsharded fits on both ranks; files from rank 0 ({len(b0['files'])}) and rank 1 "
+        f"({len(b1['files'])}); the second call's phases {phases}; each rank's conv_lnl on "
+        f"its own {half // 2} / {half - half // 2} walkers a half-step "
+        f"({b0['sizes']['batched_conv_lnl'].count(half // 2)} and "
+        f"{b1['sizes']['batched_conv_lnl'].count(half - half // 2)} launches); an eager "
+        f"retained step {b0['eager_step_ms']:.3f} / {b1['eager_step_ms']:.3f} ms ({CARD}); "
+        f"NUTS, fit_batch and both hierarchical fits against the one-process runs, lnZ "
+        f"within {lnz_err:.1e}; groups={MESH_AIS_GROUPS - 1}: {refusal!r}")
+    if problems:
+        raise AssertionError("mesh: " + "; ".join(problems))
+
+    # every launch of the phase's runs, summed over ranks and runs
+    total = {}
+    runs = [a["plain_launches"], a["mesh_launches"], a["fused_launches"]]
+    runs += list(a["more_launches"].values())
+    for info in (b0, b1):
+        runs += [info["batched_launches"], info["fused_launches"], info["resumed_launches"]]
+        runs += list(info["more_launches"].values())
+    for run in runs:
+        for k, v in run.items():
+            total[k] = total.get(k, 0) + v
+    wall = time.perf_counter() - t_phase
+    out = {"a_step_ms": {"mesh": a["mesh_step_ms"], "unsharded": a["plain_step_ms"]},
+           "b_eager_step_ms": [b0["eager_step_ms"], b1["eager_step_ms"]],
+           "a_wall_s": {"mesh": a["mesh_wall_s"], "unsharded": a["plain_wall_s"]},
+           "b_wall_s": [b0["batched_wall_s"], b1["batched_wall_s"]],
+           "image_rel_err": a["image_rel_err"], "lnz_rel_err": lnz_err,
+           "ais_lnz": float(r0["ais_lnz"]), "wall_s": wall}
+    log(f"mesh: phase {wall:.1f} s")
+    return {"launches": total, "out": out,
+            "kernel_checks": [b0["kernel_checks"], b1["kernel_checks"]]}
+
+
 def run_phase(name, fn, *args, **kwargs):
     """Run one phase, then synchronize the card, so that an asynchronous
     CUDA error raised by the phase's launches names this phase before it
@@ -6742,7 +7188,7 @@ ONLY_PHASES = {"nuts": lambda: nuts_phase(), "criticism": lambda: criticism_phas
                "nuts-kernels": lambda: nuts_kernel_phase(),
                "batch": lambda: batch_phase(), "hierarchy": lambda: hierarchy_phase(),
                "cluster": lambda: cluster_phase(), "galfit": lambda: galfit_phase(),
-               "fused_routes": lambda: fused_routes_phase()}
+               "fused_routes": lambda: fused_routes_phase(), "mesh": lambda: mesh_phase()}
 
 
 def main():
@@ -6760,6 +7206,12 @@ def main():
     from psfmc_tpu_torch.flagship import flagship_components
     from psfmc_tpu_torch.models import build_model_spec, build_posterior
     from psfmc_tpu_torch.ops.kernels import _build
+
+    if "--mesh-rank" in sys.argv[1:]:  # one rank of the mesh phase (mesh_launch)
+        i = sys.argv.index("--mesh-rank")
+        mode, rank, world, store, work, device = sys.argv[i + 1:i + 7]
+        mesh_rank(mode, int(rank), int(world), store, work, device)
+        return 0
 
     global CARD
     identity = CARD = card_identity()
@@ -6820,6 +7272,7 @@ def main():
     cluster = run_phase("cluster", cluster_phase)
     galfit = run_phase("galfit", galfit_phase)
     fused_fits = run_phase("fused routes", fused_routes_phase)
+    mesh = run_phase("mesh", mesh_phase)
     rows += run_phase("backward rows", backward_rows, post, spec)
     rows += batch["rows"]
     rows += hier["rows"]
@@ -6979,8 +7432,24 @@ def main():
                             + g_sum["batched_conv_lnl:fft"])
     by_name["conv_lnl_res"] += g_map["batched_conv_lnl:fft_res"]
     by_name["conv_lnl_backward"] += g_map["batched_conv_lnl_backward:fft"]
+    # the mesh phase (23): every rank's runs, the flagship at 128x128 (the FFT
+    # route's radix-2 geometry): the driver fits (batched and fused), NUTS, the
+    # anneal, the batch fit and the hierarchical fits (per-target planes)
+    m = mesh["launches"]
+    for row, key in (("sersic_render", "render_sersics"),
+                     ("sersic_render_backward", "render_sersics_backward"),
+                     ("conv_lnl", "batched_conv_lnl:fft"),
+                     ("conv_lnl_res", "batched_conv_lnl:fft_res"),
+                     ("conv_lnl_backward", "batched_conv_lnl_backward:fft"),
+                     ("fused_lnl", "fused_lnl:fft"),
+                     ("conv_lnl_targets", "batched_conv_lnl:fft_targets"),
+                     ("conv_lnl_res_targets", "batched_conv_lnl:fft_res_targets"),
+                     ("conv_lnl_backward_targets", "batched_conv_lnl_backward:fft_targets")):
+        by_name[row] = by_name.get(row, 0) + m.get(key, 0)
     for r in rows:
         r["launches"] = by_name[r["name"]]
+        if r["name"] in ("sersic_render", "conv_lnl", "fused_lnl"):  # at the ranks' batches
+            r["mesh_checks"] = mesh["kernel_checks"]
         if r["name"] in ("sersic_render", "fused_lnl", "conv_lnl", "conv_lnl_mixed"):
             r["criticism_checks"] = crit_checks  # at the criticism's batches
         if r["name"] == "conv_lnl_mixed":  # timed on the joint fit's band 1 too
@@ -7044,6 +7513,7 @@ def main():
     log(f"fused routes: the 256x256 flagship's replayed retained step "
         f"{fused_fits[big]['retain_step_ms']:.3f} ms on the fused path, "
         f"{cluster['driver']['retain_step_ms']:.3f} ms on the batched path ({CARD})")
+    log(json.dumps({"mesh": mesh["out"], "card": identity}, default=float))
     log(json.dumps({"kernels": rows, "card": identity}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import os
 
 import torch
 
@@ -14,7 +15,9 @@ def resolve_device(device=None) -> torch.device:
 
     ``None`` means CUDA: on a host without CUDA this raises instead of
     quietly running on the CPU.  The CPU is used only when the caller
-    asks for it (``device="cpu"``), as the tests do.
+    asks for it (``device="cpu"``), as the tests do.  In a process of an
+    initialised ``torch.distributed`` group (one process a device, as
+    ``torchrun`` starts them) ``None`` is ``cuda:LOCAL_RANK``.
     """
     if device is None:
         if not torch.cuda.is_available():
@@ -23,6 +26,9 @@ def resolve_device(device=None) -> torch.device:
                 "no CUDA device; pass device='cpu' to run the plain "
                 "PyTorch path explicitly"
             )
+        if "LOCAL_RANK" in os.environ and torch.distributed.is_available() \
+                and torch.distributed.is_initialized():
+            return torch.device("cuda", int(os.environ["LOCAL_RANK"]))
         return torch.device("cuda", torch.cuda.current_device())
     device = torch.device(device)
     if device.type == "cpu":

@@ -37,6 +37,7 @@ import numpy as np
 from ..database import annotate_metadata, filter_lowp_walkers, row_to_param_vector
 from ..io import fits
 from ..models.multicomponent import IMAGE_TYPES, poisson_deviance
+from ..parallel.multihost import barrier, is_primary
 
 __all__ = ["save_posterior_images", "write_image_products", "default_filetypes"]
 
@@ -81,7 +82,8 @@ def save_posterior_images(model, database, output_name="out_{}",
                 model, database, criticism_draws).items():
             header.set(key, value, comment)
 
-    print("Saving posterior models")
+    if is_primary():
+        print("Saving posterior models")
     unknown = set(filetypes) - _KNOWN_TYPES
     if unknown:
         warn(f"Unknown filetypes requested: {unknown} Output images will "
@@ -121,7 +123,12 @@ def save_posterior_images(model, database, output_name="out_{}",
 def write_image_products(output_name, images, header,
                          filetypes=default_filetypes, bad_px_value=0):
     """Write a dict of (H, W) images as the standard FITS products:
-    non-finite pixels replaced, float32, an OBJECT card per type."""
+    non-finite pixels replaced, float32, an OBJECT card per type.  In a
+    multi-process run the primary process writes them, and every process
+    waits for it."""
+    if not is_primary():
+        barrier("write_image_products")
+        return
     if "{}" not in output_name:
         output_name += "_{}"
     known = [f for f in filetypes if f in images]
@@ -135,6 +142,7 @@ def write_image_products(output_name, images, header,
         header.set("OBJECT", ftype)
         fits.writeto(output_name.format(ftype) + ".fits",
                      data.astype(np.float32), header=header, overwrite=True)
+    barrier("write_image_products")
 
 
 def _add_stats_to_header(header, model, database, ppc_draws=100):

@@ -153,8 +153,10 @@ def run_sbc(
     One :func:`~psfmc_tpu_torch.batchfit.fit_batch` call does all
     ``n_sims`` fits as one ensemble on the card; only the thinned chains
     (needed for the rank statistics) come back to the host.  ``mesh=``
-    raises, as :func:`~psfmc_tpu_torch.batchfit.fit_batch` does; a model
-    file or component list builds on ``device`` (CUDA unless ``"cpu"``).
+    splits the fits over its processes, as :func:`~psfmc_tpu_torch.
+    batchfit.fit_batch` does; a model file or component list builds on
+    ``device`` (CUDA unless ``"cpu"``; the mesh's device when a mesh is
+    given).
 
     :param record_every: thinning interval of the retained chain used
         for ranks — set to a few autocorrelation times of the target
@@ -165,7 +167,10 @@ def run_sbc(
                          "computed from the thinned retained chain)")
     from ..batchfit import _as_model, fit_batch, simulate_stack
     from .._device import resolve_device
+    from ..parallel.mesh import check_mesh
 
+    if check_mesh(mesh) is not None and device is None:
+        device = mesh.device
     model = _as_model(model, device=None if device is None else resolve_device(device))
     obs, ivm, injected = simulate_stack(model, n_sims, seed=seed)
     res = fit_batch(

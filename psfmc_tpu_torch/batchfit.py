@@ -33,9 +33,17 @@ Differences from the JAX package, deliberate:
   takes its draws as arguments, so the tests feed it the JAX package's;
 * the Welford moments accumulate in float64 on the device, as the port's
   single-fit sampler's do (the JAX package accumulates in the fit's
-  dtype, float32 on the accelerator);
-* ``mesh=`` (the target axis sharded over several devices) raises
-  ``NotImplementedError``: that is ROADMAP Queue 1 item 18.
+  dtype, float32 on the accelerator).
+
+``mesh=`` (:func:`~psfmc_tpu_torch.parallel.walker_mesh`) splits the
+target axis over one process a device: each chunk's target count is
+padded to a multiple of the mesh's size (the last target repeated, the
+results trimmed), every process holds the whole ensemble's state, and
+each evaluates its own targets' walkers against a stack of its own
+targets' observations (conv_lnl sees only those planes and spectra);
+one all-gather a half-step gives every process every target's lnpost
+(:mod:`psfmc_tpu_torch.parallel.mesh`).  The catalog is written by the
+primary process.
 
 Typical completeness loop::
 
@@ -56,6 +64,8 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
+from .parallel.mesh import check_mesh, shard_rows, steps_graphed, walker_sharding
+from .parallel.multihost import barrier, is_primary
 from .sampler.ensemble import (
     MOVES,
     _de_proposal,
@@ -451,10 +461,13 @@ class _BatchProgram:
     observation stacks, the generator and, on CUDA, one captured graph per
     step variant (``burn``, ``retain``, ``record``), reused by every
     chunk: :meth:`run` copies a chunk's stacks and start into the
-    captured buffers in place."""
+    captured buffers in place.  Under a ``sharding`` the stacks hold this
+    process's targets of the chunk (:meth:`~psfmc_tpu_torch.parallel.
+    WalkerMesh.rows` of ``targets``) and each evaluation gathers every
+    target's lnpost."""
 
     def __init__(self, fns, stacks, targets, nwalkers, dim, a, moves, de_gamma0,
-                 nrec, draws=None):
+                 nrec, draws=None, sharding=None):
         self.device = torch.device(fns.device)
         self.dtype = fns.dtype
         self.dim = dim
@@ -481,13 +494,14 @@ class _BatchProgram:
 
         lnpost = self.lnpost
 
-        def batch(thetas):  # no reference to self: a dropped program is freed at once
+        def local(thetas):  # no reference to self: a dropped program is freed at once
             return lnpost(thetas, stacks)
 
+        self.batch = batch = shard_rows(local, sharding, blocks=targets)
         self.steps = {variant: make_batch_step_fn(
             batch, nwalkers, dim, draws, a=a, moves=moves, de_gamma0=de_gamma0,
             track=variant != "burn") for variant in ("burn", "retain", "record")}
-        self._graphed = self.device.type == "cuda" and not _EAGER
+        self._graphed = not _EAGER and steps_graphed(self.device, sharding)
         self.graphs = {}
         self.captures = 0  # graphs captured
         self.replays = 0  # steps run as a replay
@@ -522,8 +536,7 @@ class _BatchProgram:
         s = self.state
         s.positions.copy_(torch.as_tensor(p0, dtype=self.dtype))
         k, w, dim = s.positions.shape
-        s.log_prob.copy_(self.lnpost(s.positions.reshape(k * w, dim),
-                                     self.stacks).reshape(k, w))
+        s.log_prob.copy_(self.batch(s.positions.reshape(k * w, dim)).reshape(k, w))
         s.naccept.zero_()
         for v in s.moments.values():
             v.zero_()
@@ -603,7 +616,10 @@ def fit_batch(
     :param record_every: if > 0, also return chains thinned by this
         factor (must divide ``iterations``); default records nothing
         and ships only O(dim) summaries per target.
-    :param mesh: not in the port yet (ROADMAP Queue 1 item 18); raises.
+    :param mesh: optional :func:`~psfmc_tpu_torch.parallel.walker_mesh`:
+        the target axis is split over its processes (K padded to a mesh
+        multiple a chunk, results trimmed; see the module doc); the fit
+        runs on the mesh's device unless ``device`` is given.
     :param chunk: targets per ensemble.  Every chunk reuses one captured
         graph per step variant and device memory stays bounded; the last
         chunk is padded by repeating its last target and trimmed.
@@ -618,11 +634,8 @@ def fit_batch(
     :param psf_oversample: per-target PSF oversampling factor.
     :returns: :class:`BatchFitResult`.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "fit_batch(mesh=...) is not in this slice of psfmc_tpu_torch: the "
-            "target axis sharded over several devices comes with ROADMAP "
-            "Queue 1 item 18")
+    if check_mesh(mesh) is not None and device is None:
+        device = mesh.device
     model = _as_model(model, device=None if device is None else resolve_device(device))
     fns = model.posterior_fns
     spec = model.spec
@@ -701,7 +714,12 @@ def fit_batch(
             for key, v in d.items():
                 obs[f"b{i}_{key}"] = v
 
+    # every chunk's target count a mesh multiple: each process takes whole fits
+    quantum = 1 if mesh is None else mesh.size
     per_chunk = k_real if chunk is None else max(1, min(int(chunk), k_real))
+    per_chunk = max(quantum, -(-per_chunk // quantum) * quantum)
+    sharding = None if mesh is None else walker_sharding(mesh)
+    lo_t, hi_t = (0, per_chunk) if mesh is None else mesh.rows(per_chunk)
     nrec = int(iterations) // record_every if record_every else 0
     rng = np.random.RandomState(seed)
     outs = []
@@ -715,9 +733,9 @@ def fit_batch(
         p0 = model.init_params_from_priors(
             per_chunk * nwalkers, random_state=rng
         ).reshape(per_chunk, nwalkers, dim)
-        stacks = prepare_obs_for(fns, chunk_obs)
+        stacks = prepare_obs_for(fns, {key: v[lo_t:hi_t] for key, v in chunk_obs.items()})
         key = ("batchfit", _EAGER, per_chunk, nwalkers, dim, float(a), moves, de_gamma0,
-               nrec,
+               nrec, None if mesh is None else (id(mesh), mesh.size, mesh.rank),
                tuple((s.mode, s.f_stack is not None,
                       s.consts is not None and s.consts.target_spectra) for s in stacks))
         cached = fns.__dict__.get("_batch_program")
@@ -726,7 +744,8 @@ def fit_batch(
             # one's buffers and graphs before the new one is made
             fns.__dict__.pop("_batch_program", None)
             cached = fns.__dict__["_batch_program"] = (key, _BatchProgram(
-                fns, stacks, per_chunk, nwalkers, dim, a, moves, de_gamma0, nrec))
+                fns, stacks, per_chunk, nwalkers, dim, a, moves, de_gamma0, nrec,
+                sharding=sharding))
         program = cached[1]
         out = program.run(p0, stacks, _chunk_seed(seed, start), burn, iterations,
                           record_every)
@@ -818,7 +837,8 @@ def save_batch_results(res: BatchFitResult, path, injected=None):
     2-wide columns), plus ``lnp_map`` and ``acceptance``.  With
     ``injected`` given, ``<name>_true`` and ``<name>_pull`` columns
     record the completeness-simulation truth and recovery z-scores.
-    Header cards ``NTARGETS`` and ``MCINJECT``.
+    Header cards ``NTARGETS`` and ``MCINJECT``.  In a multi-process run
+    the primary process writes the file, and every process waits for it.
     """
     from .io.table import Table
 
@@ -857,7 +877,9 @@ def save_batch_results(res: BatchFitResult, path, injected=None):
         ("NTARGETS", (res.num_targets, "batch-fit targets")),
         ("MCINJECT", (injected is not None, "injected truth recorded")),
     ])
-    Table(cols, meta=meta).write(path, extname="BATCHFIT")
+    if is_primary():
+        Table(cols, meta=meta).write(path, extname="BATCHFIT")
+    barrier("save_batch_results")  # the file exists before any process returns
 
 
 def load_batch_results(path):

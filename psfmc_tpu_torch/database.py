@@ -25,7 +25,10 @@ draws a fresh stream).  :func:`load_checkpoint` reports a JAX
 checkpoint's generator as ``rng_kind = 'jax'``, which the port's sampler
 cannot restore.
 
-The port runs in one process: there is no primary-host barrier.
+In a multi-process run (:mod:`psfmc_tpu_torch.parallel`) every process
+assembles the same table from its replicated sampler state, the primary
+alone writes the file, and a barrier after the write keeps every process
+from looking for the file before it exists.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ import numpy as np
 
 from .io import fits
 from .io.table import Table
+from .parallel.multihost import barrier, is_primary
 
 __all__ = [
     "save_database",
@@ -92,6 +96,9 @@ def save_database(sampler, model, db_name, meta_dict=None):
 
     A sampler with no recorded chain yet (mid-burn checkpoint) writes a
     zero-row trace table whose CHECKPOINT extension still enables resume.
+    In a multi-process run only the primary process writes; the others
+    return the same table from memory (its cards' values without their
+    comments, as a read gives them), after the primary's write.
     """
     if sampler.chain is None:
         chain = np.zeros((sampler.nwalkers, 0, sum(model.param_lens)))
@@ -121,7 +128,13 @@ def save_database(sampler, model, db_name, meta_dict=None):
         payload = sampler.checkpoint_payload()
         payload["sampler_kind"] = sampler.checkpoint_kind
         extra_hdus = _checkpoint_hdus(payload)
+    if not is_primary():
+        tbl.meta = OrderedDict((k, v[0] if isinstance(v, tuple) else v)
+                               for k, v in tbl.meta.items())
+        barrier("save_database")  # pairs with the primary's, after its write
+        return tbl
     tbl.write(db_name, format="fits", extname="TRACE", extra_hdus=extra_hdus)
+    barrier("save_database")  # the file exists before any process goes on
     return load_database(db_name)
 
 

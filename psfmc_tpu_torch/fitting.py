@@ -31,8 +31,10 @@ warn and are ignored; 8 chains by default, from the best of a pool of
 gradient MAP fit of a pool of prior draws, then a z-space cloud around
 it), ``criticism`` (the criticism block of every image product's header
 from 500 replayed draws: PSIS-LOO, LOO-PIT and prior power-scaling) and
-``mesh=None``; a mesh raises ``NotImplementedError`` naming the ROADMAP
-item that brings it.  On CUDA
+``mesh`` (:func:`~psfmc_tpu_torch.parallel.walker_mesh`: every sampler's
+posterior evaluations split over one process a device, the state held by
+every process, files and console lines from the primary process alone;
+:mod:`psfmc_tpu_torch.parallel.mesh`).  On CUDA
 every sampler step (for NUTS every piece of a step) and every Adam step
 is a replay of a captured CUDA graph (:class:`~psfmc_tpu_torch.sampler.
 ensemble.EnsembleSampler`, :func:`~psfmc_tpu_torch.optimize.fit_map`).
@@ -48,7 +50,6 @@ from __future__ import annotations
 
 import contextlib
 import os
-import time
 import zlib
 from collections import OrderedDict
 from types import SimpleNamespace
@@ -66,6 +67,9 @@ from .database import (
     save_database,
 )
 from .models.multicomponent import as_model
+from .parallel.mesh import check_mesh, walker_sharding
+from .parallel.multihost import is_primary
+from .profiling import PhaseTimer, trace
 from .sampler.ensemble import EnsembleSampler
 from .sampler.nuts import NUTSSampler
 from .sampler.tempered import PTEnsembleSampler
@@ -76,25 +80,20 @@ __all__ = ["model_galaxy_mcmc", "model_galaxy_map", "model_galaxy_evidence"]
 CRITICISM_DRAWS = 500  # draws the criticism block replays (criticism=True)
 
 
-def _not_in_slice(what, item):
-    raise NotImplementedError(
-        f"{what} is not in this slice of psfmc_tpu_torch's fitting driver; it comes "
-        f"with ROADMAP Queue 1 item {item}"
-    )
+def _print(*args, **kwargs):
+    """Console output from the primary process only (multi-process runs)."""
+    if is_primary():
+        print(*args, **kwargs)
 
 
 @contextlib.contextmanager
 def _phase(name, device, timings):
-    """Time a phase on the host clock into ``timings[name]``, ending in a
-    device synchronize, under a ``torch.profiler`` range of that name."""
-    t0 = time.perf_counter()
-    with torch.profiler.record_function(name):
+    """Time a phase on the host clock into ``timings[name]``
+    (:class:`~psfmc_tpu_torch.profiling.PhaseTimer`), ending in a device
+    synchronize, under a ``torch.profiler`` range of that name."""
+    with PhaseTimer(phases=timings).phase(name, sync_result=device), \
+            torch.profiler.record_function(name):
         yield
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    dt = time.perf_counter() - t0
-    timings[name] = timings.get(name, 0.0) + dt
-    print(f"[psfmc] {name}: {dt:.2f}s")
 
 
 def _data_fingerprint(mc_model):
@@ -210,14 +209,22 @@ def model_galaxy_mcmc(
         model's block covers every band's pixels.
     :param rejuvenate: move stranded walkers onto healthy ones between
         burn segments.
-    :param device: the posterior's device, CUDA unless ``"cpu"``.
+    :param mesh: optional :func:`~psfmc_tpu_torch.parallel.walker_mesh`:
+        each posterior evaluation's walkers (NUTS's chains) are split over
+        its processes, the sampler state held by every process; the
+        database, checkpoints, images and console lines come from the
+        primary process, with a barrier after each write.  ``chains`` is
+        kept as given (a half-ensemble of 125 splits 62 + 63 over 2).
+    :param device: the posterior's device, CUDA unless ``"cpu"`` (the
+        mesh's device by default when a mesh is given).
     :returns: the trace table as ``load_database`` reads it; its
         ``phase_seconds`` attribute holds the host-clock seconds of each
         phase of this call (init, burn, sampling, images), each ending
         in a device synchronize.
 
-    ``mesh`` keeps the JAX driver's name; a mesh raises
-    ``NotImplementedError``.  The likelihood
+    With ``PSFMC_TRACE_DIR`` set, burn-in and sampling each write a
+    ``torch.profiler`` trace (:func:`~psfmc_tpu_torch.profiling.trace`).
+    The likelihood
     path follows ``PSFMC_LNPOST`` and the model (``pallas`` runs the
     fused kernel; unset, a model the conv+likelihood kernel covers runs
     it and any other the general path; each band of a joint model takes
@@ -232,8 +239,9 @@ def model_galaxy_mcmc(
     if sampler not in ("ensemble", "nuts"):
         raise ValueError(
             f"Unknown sampler {sampler!r}: expected 'ensemble' or 'nuts'")
-    if mesh is not None:
-        _not_in_slice("a device mesh", "18 (multi-device)")
+    sharding = None if check_mesh(mesh) is None else walker_sharding(mesh)
+    if mesh is not None and device is None:
+        device = mesh.device
 
     if output_name is None:
         name = model_file if isinstance(model_file, str) else "model"
@@ -256,14 +264,14 @@ def model_galaxy_mcmc(
         if moves != "stretch":
             warn("moves= is ignored with sampler='nuts'")
         ens = NUTSSampler(chains, mc_model.num_params, fns, seed=seed,
-                          max_depth=max_depth, device=fns.device)
+                          max_depth=max_depth, device=fns.device, sharding=sharding)
     elif ntemps > 1:
         ens = PTEnsembleSampler(chains, mc_model.num_params, fns, ntemps=ntemps,
                                 betas=betas, seed=seed, device=fns.device,
-                                moves=moves)
+                                moves=moves, sharding=sharding)
     else:
         ens = EnsembleSampler(chains, mc_model.num_params, fns, seed=seed,
-                              device=fns.device, moves=moves)
+                              device=fns.device, moves=moves, sharding=sharding)
     db_name = output_name.format("db") + ".fits"
     common = dict(max_iterations=max_iterations,
                   convergence_check=convergence_check, db_name=db_name,
@@ -282,12 +290,12 @@ def model_galaxy_mcmc(
             warn(f"{refusal}; re-running sampling from scratch")
             database = None
         elif skip:
-            print("Database already contains sampled chains, skipping sampling")
+            _print("Database already contains sampled chains, skipping sampling")
         else:
             burn_total = max(burn, int(database.meta.get("MCBURN", 0)))
             burn_done = int(database.meta.get("MCBURNDN", burn_total))
-            print(f"Resuming from checkpoint: {burn_done}/{burn_total} "
-                  f"burn-in + {existing_iter} retained iterations done")
+            _print(f"Resuming from checkpoint: {burn_done}/{burn_total} "
+                   f"burn-in + {existing_iter} retained iterations done")
             database = _run_sampling(
                 ens, mc_model, None, burn=max(0, burn_total - burn_done),
                 iterations=iterations - existing_iter, burn_total=burn_total,
@@ -306,7 +314,7 @@ def model_galaxy_mcmc(
                 pool = mc_model.init_params_from_priors(max(n_init, 256),
                                                         random_state=rng)
                 map_res = fit_map(fns, p0=pool, seed=seed)
-                print(f"MAP fit: lnpost = {map_res.lnpost:.2f}")
+                _print(f"MAP fit: lnpost = {map_res.lnpost:.2f}")
                 p0 = scatter_around(fns, map_res.theta, n_init, seed=seed)
         else:
             p0 = mc_model.init_params_from_priors(n_init, random_state=rng)
@@ -374,7 +382,7 @@ def model_galaxy_map(model_file, output_name=None, write_fits=default_filetypes,
     if laplace:
         with _phase("laplace", fns.device, timings):
             res.cov, res.theta_std = laplace_covariance(fns, res.theta)
-    print(f"MAP fit: lnpost = {res.lnpost:.2f}")
+    _print(f"MAP fit: lnpost = {res.lnpost:.2f}")
 
     with _phase("images", fns.device, timings):
         header = (mc_model.obs_header.copy() if mc_model.obs_header
@@ -400,7 +408,7 @@ def model_galaxy_map(model_file, output_name=None, write_fits=default_filetypes,
         for key, value in annotate_metadata(stats).items():
             header.set(key, value[0], value[1])
         imgs = mc_model.render_images_batch(res.theta[None, :])
-        print("Saving MAP models")
+        _print("Saving MAP models")
         write_image_products(output_name, {k: v[0] for k, v in imgs.items()},
                              header, write_fits)
     res.phase_seconds = timings
@@ -428,22 +436,23 @@ def model_galaxy_evidence(model_file, nwalkers=512, nsteps=3000, groups=4,
         draws: keep 64 or more for imaging models.
     :param nsteps: annealing steps (many more than std(lnL), about
         ``sqrt(n_good_pixels / 2)``).
-    :param device: the posterior's device, CUDA unless ``"cpu"``.
+    :param mesh: optional :func:`~psfmc_tpu_torch.parallel.walker_mesh`;
+        the group axis is split over it (``groups`` a multiple of its
+        size).
+    :param device: the posterior's device, CUDA unless ``"cpu"`` (the
+        mesh's device by default when a mesh is given).
     :returns: :class:`~psfmc_tpu_torch.sampler.ais.AISResult`.
-
-    ``mesh`` keeps the JAX function's name; a mesh raises
-    ``NotImplementedError``.
     """
     from .sampler.ais import ais_evidence
 
-    if mesh is not None:
-        _not_in_slice("a device mesh", "18 (multi-device)")
+    if check_mesh(mesh) is not None and device is None:
+        device = mesh.device
     mc_model = as_model(model_file, device=device)
     rng = np.random.RandomState(seed)
     p0 = mc_model.init_params_from_priors(nwalkers, random_state=rng)
     return ais_evidence(mc_model.posterior_fns, nwalkers=nwalkers, nsteps=nsteps,
                         groups=groups, sweeps=sweeps, seed=seed, p0=p0,
-                        moves=moves, **ais_kwargs)
+                        moves=moves, mesh=mesh, **ais_kwargs)
 
 
 def _save_joint_images(mc_model, sampler, db_name, database, output_name,
@@ -517,7 +526,7 @@ def _run_sampling(sampler, mc_model, initial_positions, burn, iterations,
         return meta
 
     if burn > 0:
-        print(f"Burning: {burn} iterations x {sampler.nwalkers} walkers")
+        _print(f"Burning: {burn} iterations x {sampler.nwalkers} walkers")
         rejuv_rng = np.random.RandomState(np.uint32(seed) ^ 0x5EED)
 
         def burn_cb(done, total):
@@ -525,13 +534,13 @@ def _run_sampling(sampler, mc_model, initial_positions, burn, iterations,
                 # NUTS's chains are independent and never teleported
                 n_fix = sampler.rejuvenate_stuck(random_state=rejuv_rng)
                 if n_fix:
-                    print(f"  rejuvenated {n_fix} stuck walkers")
+                    _print(f"  rejuvenated {n_fix} stuck walkers")
             print_progress(burn_done + done - 1, burn_total, "Burning")
             if done < total:  # the final state is saved by save_round
                 save_database(sampler, mc_model, db_name,
                               meta_dict=checkpoint_meta())
 
-        with _phase("burn", device, timings):
+        with _phase("burn", device, timings), trace("burn"):
             sampler.run_burn(burn, segment=_auto_segment(burn, checkpoint_interval),
                              callback=burn_cb)
 
@@ -557,8 +566,8 @@ def _run_sampling(sampler, mc_model, initial_positions, burn, iterations,
 
     database = None
     for sampling_iter in range(max_iterations):
-        print(f"Sampling: {iterations} iterations x {sampler.nwalkers} walkers")
-        with _phase("sampling", device, timings):
+        _print(f"Sampling: {iterations} iterations x {sampler.nwalkers} walkers")
+        with _phase("sampling", device, timings), trace("sampling"):
             sampler.run_sampling(
                 iterations, segment=_auto_segment(iterations, checkpoint_interval),
                 callback=sample_cb)

@@ -51,9 +51,16 @@ Semantics, as in the JAX package:
   one obs/ivm stack per band.
 * survey mode: ``psf_stack=`` gives every target its own PSF star(s)
   (:func:`psfmc_tpu_torch.batchfit.prepare_psf_stack`).
-* scalar governed slots only.  ``mesh=`` and ``shard='targets'`` (the
-  target axis over several devices) raise ``NotImplementedError``: that is
-  ROADMAP Queue 1 item 18.
+* scalar governed slots only.
+* ``mesh=`` (:func:`~psfmc_tpu_torch.parallel.walker_mesh`) with
+  ``shard='chains'`` splits the samplers' chain (walker) axis over one
+  process a device; with ``shard='targets'`` every process evaluates its
+  own targets' likelihood rows against a stack of its own targets'
+  observations, and every chain's per-target lnL and gradient rows are
+  gathered and summed in target order (the port's form of the JAX
+  package's scalar psum).  The state is held by every process
+  (:mod:`psfmc_tpu_torch.parallel.mesh`).  Without a mesh ``shard`` has
+  no effect, as in the JAX package.
 
 Populations evaluate their density on tensors (``torch_logp(x, phi)``,
 the JAX package's ``jax_logp``): ``x`` is ``(..., K)`` and ``phi`` the
@@ -76,7 +83,10 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
+from .models.posterior import value_and_grad
 from .optimize import psf_fan_out
+from .parallel.mesh import check_mesh, shard_rows, walker_sharding
+from .parallel.multihost import barrier, is_primary
 
 __all__ = [
     "NormalPopulation",
@@ -528,7 +538,8 @@ class HierarchicalResult:
         per-target columns ``T{t}_<slot>`` in layout order, then the hyper
         columns under their ``<param>:<hyper>`` names.  Governed names ride
         one ``GOVERN{i}`` card each.  The JAX package reads the file, and
-        this package reads the JAX package's.
+        this package reads the JAX package's.  In a multi-process run the
+        primary process writes it, and every process waits for it.
         """
         from .database import annotate_metadata
         from .io.table import Table
@@ -587,7 +598,9 @@ class HierarchicalResult:
                 "mean acceptance",
             )
         tbl = Table(cols, meta=annotate_metadata(m))
-        tbl.write(db_name, format="fits", extname="TRACE")
+        if is_primary():
+            tbl.write(db_name, format="fits", extname="TRACE")
+        barrier("save_hierarchical")  # the file exists before any process returns
         return tbl
 
 
@@ -811,7 +824,7 @@ class _HierarchicalFns:
 
     def __init__(self, bands, d, k, governed_cols, bounds,
                  populations, hyper_offsets, hyper_prior, base_prior,
-                 noncentered=False, cov_cols=None):
+                 noncentered=False, cov_cols=None, target_mesh=None, local_bands=None):
         if cov_cols is None:
             cov_cols = [None] * len(populations)
         self._bands = bands  # [{"fns", "obs": ObsStack, "psf": (col, npsf) | None}]
@@ -825,7 +838,11 @@ class _HierarchicalFns:
         self._hyper_prior = hyper_prior
         self._base_prior = base_prior
         self.noncentered = bool(noncentered)
-        self._lnl_one = _make_lnl_one(bands)
+        # shard='targets': the mesh the likelihood gathers over (the samplers
+        # graph their steps where its steps are graphed)
+        self.mesh = target_mesh
+        self._lnl_one = (_make_lnl_one(bands) if target_mesh is None else
+                         _target_sharded(_make_lnl_one(local_bands), target_mesh, self.k))
         # discrete PSF-index columns being marginalized (reporting Gibbs
         # pass + init pinning read this)
         self.psf_margs = [b["psf"] for b in bands if b["psf"]]
@@ -934,6 +951,39 @@ class _HierarchicalFns:
                 out[lo: lo + m] = np.argmax(lnls.numpy() + g, axis=-1)
             result[col] = out
         return result
+
+
+class _GatheredRows(torch.autograd.Function):
+    """``value`` as a function of ``rows`` whose per-row gradient is
+    ``grad`` (each row's value depends on that row alone)."""
+
+    @staticmethod
+    def forward(ctx, rows, value, grad):
+        ctx.save_for_backward(grad)
+        return value.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        (grad,) = ctx.saved_tensors
+        return g[:, None] * grad, None, None
+
+
+def _target_sharded(lnl_local, mesh, k):
+    """The per-target data term over ``mesh`` (``shard='targets'``): this
+    process's targets' rows of a target-major batch evaluated by
+    ``lnl_local`` (its own targets' stacks), every row's value (and,
+    where the rows carry a gradient, every row's gradient) gathered in
+    target order."""
+    sharding = walker_sharding(mesh)
+    lnl = shard_rows(lnl_local, sharding, blocks=k)
+    lnl_and_grad = shard_rows(lambda r: value_and_grad(lnl_local, r), sharding, blocks=k)
+
+    def lnl_one(rows):
+        if not (rows.requires_grad and torch.is_grad_enabled()):
+            return lnl(rows)
+        return _GatheredRows.apply(rows, *lnl_and_grad(rows.detach()))
+
+    return lnl_one
 
 
 def _make_lnl_one(bands):
@@ -1361,17 +1411,32 @@ def _setup(model, obs_stack, ivm_stack, population, mesh=None, shard="chains",
         raise ValueError(
             f"unknown shard {shard!r}: expected 'chains' or 'targets'"
         )
-    if mesh is not None or shard == "targets":
-        raise NotImplementedError(
-            "fit_hierarchical(mesh=..., shard='targets') is not in this slice of "
-            "psfmc_tpu_torch: the chain or target axis sharded over several "
-            "devices comes with ROADMAP Queue 1 item 18")
+    target_mesh = local_bands = None
+    if mesh is not None and shard == "targets":
+        if k < mesh.size:
+            raise ValueError(f"shard='targets' needs at least one target a process: "
+                             f"{k} targets over {mesh.size}")
+        target_mesh = mesh
+        lo, hi = mesh.rows(k)
+        joint = hasattr(spec, "band_specs")
+
+        def mine(stack):
+            if stack is None:
+                return None
+            if joint:
+                return [None if b is None else list(b)[lo:hi] for b in stack]
+            return list(stack)[lo:hi]
+
+        local_bands, _ = _build_bands(
+            fns, spec, mine(obs_stack), mine(ivm_stack), psf_stack=mine(psf_stack),
+            psfivm_stack=mine(psfivm_stack), psf_oversample=psf_oversample)
     hyper_prior = LogPrior(_hyper_slots(hyper_names, hyper_dists), [],
                            dev, dtype)
     hier = _HierarchicalFns(
         bands, d, k, governed_cols, bounds, populations,
         hyper_offsets, hyper_prior, base_prior,
         noncentered=noncentered, cov_cols=cov_cols,
+        target_mesh=target_mesh, local_bands=local_bands,
     )
     return _Setup(model, hier, k, d, governed_cols, bounds, populations, hyper_offsets,
                   cov_cols, hyper_names, hyper_dists, noncentered)
@@ -1420,9 +1485,14 @@ def fit_hierarchical(
     :param chains: NUTS chains (one batch).
     :param init_pool: NUTS starts from the best ``chains`` of ``chains *
         init_pool`` prior draws.
-    :param mesh / shard: ``mesh=`` and ``shard='targets'`` are not in the
-        port yet (ROADMAP Queue 1 item 18) and raise; ``shard='chains'``
-        without a mesh is the one-device fit.
+    :param mesh: optional :func:`~psfmc_tpu_torch.parallel.walker_mesh`;
+        ``shard`` says which axis it splits (the fit runs on the mesh's
+        device unless ``device`` is given).
+    :param shard: ``'chains'`` (default) splits the NUTS chain / ensemble
+        walker axis over the mesh; ``'targets'`` splits the K targets of
+        the likelihood instead (every chain on every process, each process
+        rendering its own targets).  Without a mesh both are the
+        one-device fit.
     :param parametrization: ``'centered'`` (default) or
         ``'noncentered'`` (standardized residuals sampled).  Results are
         reported in constrained theta space either way.
@@ -1435,6 +1505,8 @@ def fit_hierarchical(
     """
     from .models.multicomponent import slot_param_names
 
+    if check_mesh(mesh) is not None and device is None:
+        device = mesh.device
     setup = _setup(model, obs_stack, ivm_stack, population, mesh=mesh, shard=shard,
                    parametrization=parametrization, psf_stack=psf_stack,
                    psfivm_stack=psfivm_stack, psf_oversample=psf_oversample,
@@ -1444,12 +1516,14 @@ def fit_hierarchical(
     dim = hier.spec.num_params
     # initial positions: per-target prior draws + hyper prior draws
     rng = np.random.RandomState(seed)
+    sharding = (walker_sharding(mesh) if mesh is not None and shard == "chains"
+                else None)
     if sampler == "nuts":
         from .sampler.nuts import NUTSSampler
 
         smp = NUTSSampler(
             int(chains), dim, hier, seed=seed, max_depth=max_depth,
-            transform=setup.transform(), device=hier.device,
+            transform=setup.transform(), device=hier.device, sharding=sharding,
         )
         smp.init_state(setup.draw(int(chains) * int(init_pool), rng))
         smp.run_burn(int(burn))
@@ -1465,7 +1539,8 @@ def fit_hierarchical(
         nw = nwalkers or 2 * dim + 2
         if nw % 2:
             nw += 1
-        smp = EnsembleSampler(nw, dim, hier, seed=seed, device=hier.device)
+        smp = EnsembleSampler(nw, dim, hier, seed=seed, device=hier.device,
+                              sharding=sharding)
         smp.init_state(setup.draw(nw, rng))
         smp.run_burn(int(burn))
         smp.reset()

@@ -12,6 +12,9 @@ uniform per group; Douc et al. 2005).  Walkers are split into
 independent groups, the rung axis of :func:`~.tempered.pt_update` taking
 the part of the group axis; the group-to-group scatter is the error bar.
 
+Under a mesh (``mesh=``) the group axis is split over the processes, the
+state held by every one (:mod:`psfmc_tpu_torch.parallel.mesh`).
+
 On CUDA each anneal step is one replay of a captured graph: the schedule
 is a device tensor indexed by a device step counter the graph advances,
 the resampling is a ``torch.where`` on the groups' ``need`` mask, and
@@ -35,6 +38,8 @@ from warnings import warn
 import numpy as np
 import torch
 
+from ..parallel.mesh import check_mesh, walker_sharding
+from ..parallel.posterior import shard_posterior
 from .ensemble import MOVES, _host, capture_step
 from .tempered import GeneratorDraws, batched_like_prior, pt_update
 
@@ -205,7 +210,7 @@ def ais_evidence(posterior_fns, nwalkers: int = 256, nsteps: int = 2000,
                  groups: int = 4, sweeps: int = 1, power: float = 4.0,
                  schedule=None, seed: int = 0, p0: Optional[np.ndarray] = None,
                  a: float = 2.0, resample_threshold: float = 0.5,
-                 moves: str = "mixed"):
+                 moves: str = "mixed", mesh=None):
     """Marginal likelihood by annealed importance sampling (SMC).
 
     :param posterior_fns: a posterior with a ``log_prior_batch``
@@ -224,11 +229,17 @@ def ais_evidence(posterior_fns, nwalkers: int = 256, nsteps: int = 2000,
         outside the prior's support raise.
     :param moves: ``"mixed"`` (the default: stretch and differential
         evolution), ``"stretch"`` or ``"de"``.
+    :param mesh: optional :func:`~psfmc_tpu_torch.parallel.walker_mesh`:
+        the GROUP axis is split over it (each rank evaluates its
+        ``groups / size`` groups' walkers; the state is held by every
+        rank); ``groups`` must be a multiple of its size.  The anneal runs
+        on the mesh's device, graphed where the mesh's steps are.
     :returns: :class:`AISResult`; warns when the groups disagree or the
         weights degenerate (acceptance below 5% or a group's ESS below 5%
         of its walkers), as the JAX package does.
     """
     fns = posterior_fns
+    check_mesh(mesh)
     if getattr(fns, "log_prior_batch", None) is None:
         raise ValueError(
             "ais_evidence needs a posterior with a log_prior "
@@ -284,12 +295,25 @@ def ais_evidence(posterior_fns, nwalkers: int = 256, nsteps: int = 2000,
                 "to let ais_evidence rejection-sample one)")
     p0 = np.asarray(p0, np.float64)[:nwalkers].reshape(groups, m, -1)
 
+    graphed = None
+    if mesh is not None:
+        if groups % mesh.size != 0:
+            raise ValueError(
+                f"groups={groups} must be a multiple of the mesh size "
+                f"({mesh.size}) to shard the group axis")
+        if torch.device(fns.device) != mesh.device:
+            raise ValueError(f"posterior is on {fns.device}, the mesh on {mesh.device}")
+        # every half-step's batch is group-major: a split of its rows into
+        # whole groups is a split of the group axis
+        fns = shard_posterior(fns, walker_sharding(mesh))
+        graphed = mesh.graphed
     generator = torch.Generator(device=fns.device)
     generator.manual_seed(int(seed))
     state, replays = run_ais(batched_like_prior(fns),
-                       torch.as_tensor(p0, dtype=fns.dtype, device=fns.device),
-                       schedule, generator, a=a, sweeps=sweeps,
-                       resample_threshold=resample_threshold, moves=moves)
+                             torch.as_tensor(p0, dtype=fns.dtype, device=fns.device),
+                             schedule, generator, a=a, sweeps=sweeps,
+                             resample_threshold=resample_threshold, moves=moves,
+                             graphed=graphed)
     lnz_g = _host(state.lnz)
     ess_min = _host(state.ess_min)
     nacc = int(state.naccept)

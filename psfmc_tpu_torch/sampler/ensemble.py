@@ -53,6 +53,12 @@ Differences of form from the JAX package:
   element :meth:`~EnsembleSampler.sample` yields is the generator's
   state where the JAX package yields its key.
 
+Under a walker mesh (``sharding=``, :mod:`psfmc_tpu_torch.parallel.mesh`)
+every process holds the whole state and draws the same proposals; each
+half-step's posterior call evaluates the process's rows and gathers the
+rest (the JAX package's walker sharding, its partner gather made
+unnecessary by the replicated state).
+
 For the fitting driver, as in the JAX package: ``run_burn`` and
 ``run_sampling`` take ``segment=``/``callback=`` (progress and mid-phase
 checkpoints), :meth:`EnsembleSampler.rejuvenate_stuck` repairs stranded
@@ -73,6 +79,8 @@ import torch
 
 from .._device import gc_paused, resolve_device
 from ..ops.kernels import counts
+from ..parallel.mesh import check_sharding, steps_graphed
+from ..parallel.posterior import shard_posterior
 from .autocorr import integrated_time
 
 __all__ = [
@@ -475,6 +483,12 @@ class EnsembleSampler:
     accumulation and acceptance still cover every step);
     ``track_moments`` keeps float64 Welford moments of every retained
     step on the device (:attr:`posterior_moments`).
+
+    ``sharding`` (:func:`~psfmc_tpu_torch.parallel.walker_sharding`)
+    splits every posterior evaluation's walkers over a mesh, the state
+    replicated on every rank (:mod:`psfmc_tpu_torch.parallel.mesh`); the
+    device defaults to the mesh's, and steps are graphed where the mesh's
+    are (:attr:`~psfmc_tpu_torch.parallel.WalkerMesh.graphed`).
     """
 
     checkpoint_kind = "ensemble"
@@ -482,7 +496,7 @@ class EnsembleSampler:
     def __init__(self, nwalkers: int, dim: int, posterior_fns, a: float = 2.0,
                  seed: int = 0, device=None, thin: int = 1,
                  track_moments: bool = False, moves: str = "stretch",
-                 de_gamma0: Optional[float] = None):
+                 de_gamma0: Optional[float] = None, sharding=None):
         if nwalkers % 2 != 0:
             raise ValueError("nwalkers must be even for half-ensemble moves")
         if moves not in MOVES:
@@ -495,12 +509,17 @@ class EnsembleSampler:
                 f"nwalkers={nwalkers} is fewer than the recommended "
                 f"2*dim+2={2 * dim + 2}"
             )
+        check_sharding(sharding)
+        if device is None and sharding is not None:
+            device = sharding.mesh.device
         self.device = resolve_device(device)
         if torch.device(posterior_fns.device) != self.device:
             raise ValueError(
                 f"posterior is on {posterior_fns.device}, sampler on "
                 f"{self.device}"
             )
+        self.sharding = sharding
+        posterior_fns = shard_posterior(posterior_fns, sharding)
         self.nwalkers = nwalkers
         self.dim = dim
         self.a = float(a)
@@ -519,7 +538,7 @@ class EnsembleSampler:
         self._graphs = {}  # variant -> _StepGraph
         self._pool = None
         self._stream = None
-        self._graphed = self.device.type == "cuda"
+        self._graphed = steps_graphed(self.device, sharding, posterior_fns)
         self.graph_replays = 0  # steps run as a replay of a captured graph
         self._chain = None  # numpy (nwalkers, nsteps, dim), emcee layout
         self._lnprob = None  # numpy (nwalkers, nsteps)

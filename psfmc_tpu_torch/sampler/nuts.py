@@ -63,6 +63,8 @@ from .._device import resolve_device
 from ..models.posterior import value_and_grad
 from ..models.transforms import build_transform
 from ..optimize import _lnpost_batch, marginal_lnpost_theta, psf_fan_out
+from ..parallel.mesh import check_sharding, shard_rows, steps_graphed
+from ..parallel.posterior import shard_posterior
 from .autocorr import integrated_time
 from .ensemble import _eager  # noqa: F401  (the eager yardstick, see the module doc)
 from .ensemble import (
@@ -546,6 +548,12 @@ class NUTSSampler:
     posterior-mean images.  ``transform`` defaults to the spec's
     :func:`~psfmc_tpu_torch.models.transforms.build_transform`.
 
+    ``sharding`` (:func:`~psfmc_tpu_torch.parallel.walker_sharding`)
+    splits the chain axis of every gradient and lnpost evaluation over a
+    mesh, the state replicated on every rank (the host's read of the
+    tree's flag stays each rank's own: every rank holds the same flag);
+    the device defaults to the mesh's.
+
     Counters: ``piece_counts`` (the pieces run, by name), of them
     ``graph_replays`` as replays of a captured graph, ``captures`` (graphs
     captured), ``leaves_run`` (leaf pieces: the batch's leapfrogs) and
@@ -555,17 +563,20 @@ class NUTSSampler:
     checkpoint_kind = "nuts"
 
     def __init__(self, nwalkers: int, dim: int, posterior_fns, seed: int = 0,
-                 max_depth: int = 8, transform=None, device=None):
+                 max_depth: int = 8, transform=None, device=None, sharding=None):
         if max_depth < 1:
             raise ValueError("max_depth must be >= 1")
-        self.device = resolve_device(device if device is not None
-                                     else posterior_fns.device)
+        check_sharding(sharding)
+        if device is None:
+            device = posterior_fns.device if sharding is None else sharding.mesh.device
+        self.device = resolve_device(device)
         if resolve_device(posterior_fns.device) != self.device:
             raise ValueError(f"posterior is on {posterior_fns.device}, sampler on "
                              f"{self.device}")
         self.nwalkers = int(nwalkers)
         self.dim = int(dim)
-        self.fns = posterior_fns
+        self.sharding = sharding
+        self.fns = shard_posterior(posterior_fns, sharding)
         self.dtype = posterior_fns.dtype
         self.max_depth = int(max_depth)
         self.transform = transform or build_transform(posterior_fns.spec,
@@ -575,7 +586,8 @@ class NUTSSampler:
         offsets = self.transform.discrete_offsets
         self._offset = int(offsets[0]) if len(offsets) else None
         self._marginal = marginal_lnpost_theta(posterior_fns, self.transform)
-        self._means_fn = getattr(posterior_fns, "ensemble_carry_means", None)
+        self._means_fn = getattr(self.fns, "ensemble_carry_means", None)
+        self._vg = shard_rows(lambda z: value_and_grad(self._potential, z), sharding)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(seed))
         self.draws = NUTSDraws(self.generator, self.device)
@@ -584,7 +596,7 @@ class NUTSSampler:
         self._graphs = {}
         self._pool = None
         self._stream = None
-        self._graphed = self.device.type == "cuda"
+        self._graphed = steps_graphed(self.device, sharding, posterior_fns)
         self._flag_host = self._flag_event = None
         self.piece_counts = {}
         self.graph_replays = 0
@@ -602,8 +614,9 @@ class NUTSSampler:
         return -(self._marginal(theta) + ld)
 
     def _u_vg(self, z):
-        """``(U (B,), dU/dz (B, m))``: the potential and its gradient."""
-        return value_and_grad(self._potential, z)
+        """``(U (B,), dU/dz (B, m))``: the potential and its gradient (under
+        a mesh, this rank's chains evaluated and every chain's gathered)."""
+        return self._vg(z)
 
     # -- state -----------------------------------------------------------
     def init_state(self, p0):

@@ -413,7 +413,10 @@ class PTEnsembleSampler(EnsembleSampler):
     Diagnostics: :attr:`swap_acceptance_fraction` per rung pair,
     :attr:`tempered_acceptance_fraction` per rung, and the evidence
     (:meth:`log_evidence`).  ``a``, ``seed``, ``device``,
-    ``track_moments`` and ``moves`` as the ensemble sampler's.
+    ``track_moments``, ``moves`` and ``sharding`` as the ensemble
+    sampler's: under a mesh every rung's walkers, flattened rung-major
+    into one batch, are split over the ranks and the ladder is held by
+    every rank.
     """
 
     # stretch-family state: interchangeable with plain ensemble checkpoints
@@ -422,7 +425,8 @@ class PTEnsembleSampler(EnsembleSampler):
     def __init__(self, nwalkers: int, dim: int, posterior_fns, ntemps: int = 4,
                  betas=None, a: float = 2.0, seed: int = 0, device=None,
                  track_moments: bool = False, adapt_ladder=None,
-                 target_swap_accept: float = 0.3, moves: str = "stretch"):
+                 target_swap_accept: float = 0.3, moves: str = "stretch",
+                 sharding=None):
         self.ntemps = int(ntemps)
         self.adapt_ladder = ((betas is None) if adapt_ladder is None
                              else bool(adapt_ladder))
@@ -437,8 +441,9 @@ class PTEnsembleSampler(EnsembleSampler):
         self._adapt_t = 0  # adaptation windows completed
         self._u_ema = None  # EMA of sigma(lnL) * beta per rung
         super().__init__(nwalkers, dim, posterior_fns, a=a, seed=seed,
-                         device=device, track_moments=track_moments, moves=moves)
-        self._like_prior = batched_like_prior(posterior_fns)
+                         device=device, track_moments=track_moments, moves=moves,
+                         sharding=sharding)
+        self._like_prior = batched_like_prior(self.fns)
         self._draws = GeneratorDraws(self.generator, self.device)
 
     @property

@@ -36,7 +36,12 @@ __all__ = [
 
 
 def print_progress(sample, max_samples, stage="Burning"):
-    """Percent progress printer (reference utils.py:167-171)."""
+    """Percent progress printer (reference utils.py:167-171); in a
+    multi-process run, the primary process's alone."""
+    from .parallel.multihost import is_primary
+
+    if not is_primary():
+        return
     next_pct = 100 * (sample + 1) // max_samples
     curr_pct = 100 * sample // max_samples
     if next_pct - curr_pct > 0:

@@ -609,9 +609,9 @@ def test_catalog_round_trips_between_packages(tmp_path, with_injected):
 def test_fit_batch_refusals_match_jax(models):
     tm, jm = models("flagship")
     obs, ivm, _ = tbf.simulate_stack(tm, 2, seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 18"):
+    with pytest.raises(TypeError, match="mesh must be a psfmc_tpu_torch.parallel.WalkerMesh"):
         tbf.fit_batch(tm, obs, ivm, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 18"):
+    with pytest.raises(TypeError, match="mesh must be a psfmc_tpu_torch.parallel.WalkerMesh"):
         tsbc.run_sbc(tm, n_sims=2, mesh=object())
     for kwargs in (dict(nwalkers=7), dict(moves="walk"), dict(iterations=10, record_every=3),
                    dict(psf_stack=[np.ones(PSF_SHAPE)] * 2),

@@ -265,9 +265,11 @@ def test_jax_checkpoint_generator_is_refused(model_dir):
     dict(mesh=object()),
 ])
 def test_driver_raises_outside_the_slice(kw):
-    """A mesh is refused with every sampler, with or without criticism
-    (``criticism=True`` itself runs: tests/test_torch_criticism.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+    """A mesh that is not a :class:`~psfmc_tpu_torch.parallel.WalkerMesh`
+    is refused with every sampler, with or without criticism, before the
+    model file is read (a mesh itself runs:
+    tests/test_torch_parallel.py, tests/test_torch_multiprocess.py)."""
+    with pytest.raises(TypeError, match="mesh must be a psfmc_tpu_torch.parallel.WalkerMesh"):
         model_galaxy_mcmc("no_such_model.py", device="cpu", **kw)
 
 

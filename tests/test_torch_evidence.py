@@ -180,7 +180,7 @@ def test_model_galaxy_evidence_runs_a_model_file(tmp_path):
                                     nsteps=12, groups=2, sweeps=1, device="cpu")
     assert np.isfinite(res.lnz) and np.isfinite(res.err)
     assert res.nwalkers == 32 and res.nsteps == 12 and res.lnz_groups.shape == (2,)
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(TypeError, match="mesh must be a psfmc_tpu_torch.parallel.WalkerMesh"):
         model_galaxy_evidence(str(tmp_path / "model.py"), mesh=object(), device="cpu")
 
 

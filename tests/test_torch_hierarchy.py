@@ -615,17 +615,21 @@ def test_validation_matches_jax(name):
 
 def test_placeholder_families_and_the_mesh_are_refused():
     """A family loaded from a saved result is predict-only (the JAX
-    package's message), and ``mesh=`` / ``shard='targets'`` raise
-    ``NotImplementedError`` naming ROADMAP item 18."""
+    package's message); a ``mesh=`` that is not a ``WalkerMesh`` raises a
+    ``TypeError`` naming the type it takes; ``shard='targets'`` without a
+    mesh runs the fit ``'chains'`` runs, as in the JAX package."""
     obs, ivm = _sky_data(3, 12, 0.5, 9)
     loaded = {"0_Sky_adu": TH._pop_from_spec("NormalPopulation", {})}
     jloaded = {"0_Sky_adu": JH._pop_from_spec("NormalPopulation", {})}
     _same_refusal(lambda p: _fit(p, sky_model(p), obs, ivm,
                                  loaded if p == "torch" else jloaded))
-    for kw in (dict(mesh=object()), dict(shard="targets")):
-        with pytest.raises(NotImplementedError, match="item 18"):
-            _fit("torch", sky_model("torch"), obs, ivm, {"0_Sky_adu": normal_pop("torch")},
-                 **kw)
+    with pytest.raises(TypeError, match="mesh must be a psfmc_tpu_torch.parallel.WalkerMesh"):
+        _fit("torch", sky_model("torch"), obs, ivm, {"0_Sky_adu": normal_pop("torch")},
+             mesh=object())
+    fits = [_fit("torch", sky_model("torch"), obs, ivm, {"0_Sky_adu": normal_pop("torch")},
+                 shard=shard) for shard in ("targets", "chains")]
+    np.testing.assert_array_equal(fits[0].flatchain, fits[1].flatchain)
+    np.testing.assert_array_equal(fits[0].lnp, fits[1].lnp)
     with pytest.raises(ValueError, match="one obs/ivm stack per"):
         _fit("torch", joint_model("torch"), [obs], [ivm], {"0_Sky_adu": normal_pop("torch")})
 

@@ -3,8 +3,7 @@
 Every name in the ``__all__`` of each JAX module that has a counterpart in
 the port is present there, with one stated exception
 (``utils.apply_platform_env``, which selects a JAX platform); the JAX
-modules without a counterpart are each listed with the reason (among
-them ``profiling``, ROADMAP item 9, and ``parallel``, item 18).  The
+modules without a counterpart are each listed with the reason.  The
 names this slice added are held to JAX: ``array_coords``,
 ``add_pointsource`` / ``render_pointsource`` (lanczos3 and bilinear,
 inside the image and clipped at its edges), ``sersic_sq_radii``,
@@ -59,11 +58,6 @@ def _one_thread():
 
 # JAX modules with no counterpart in the port, and why
 NO_PORT = {
-    "psfmc_tpu.profiling": "waits for the port's first benchmark (ROADMAP item 9)",
-    "psfmc_tpu.parallel": "multi-device meshes come last; the target is one H100 "
-                          "(ROADMAP item 18)",
-    "psfmc_tpu.parallel.mesh": "ROADMAP item 18",
-    "psfmc_tpu.parallel.multihost": "ROADMAP item 18",
     "psfmc_tpu.cachelog": "the XLA compile cache's log: no XLA here (ROADMAP Queue 1)",
     "psfmc_tpu.compat": "JAX version shims (ROADMAP Queue 1)",
     "psfmc_tpu.ops.fastmath": "the TPU's software exp/log; torch's are accurate "

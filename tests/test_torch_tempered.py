@@ -643,8 +643,9 @@ def test_driver_writes_the_evidence_cards(tmp_path):
 
 def test_driver_nuts_still_raises_naming_item_19(tmp_path):
     """Item 19 brought NUTS: ``sampler="nuts"`` with ``ntemps`` now warns
-    that the rungs are ignored and runs NUTS (its checkpoint's kind); an
-    option outside the slice still raises naming its item."""
+    that the rungs are ignored and runs NUTS (its checkpoint's kind); a
+    mesh that is not a ``WalkerMesh`` raises a ``TypeError`` naming the
+    type it takes."""
     _write_inputs(str(tmp_path), shape=(16, 16), psf_shape=(8, 8))
     (tmp_path / "model.py").write_text(MODEL)
     with pytest.warns(UserWarning, match="ntemps is ignored with sampler='nuts'"):
@@ -653,7 +654,7 @@ def test_driver_nuts_still_raises_naming_item_19(tmp_path):
                                sampler="nuts", ntemps=4, max_depth=2)
     assert len(db) == 4 * 6
     assert tdb.load_checkpoint(str(tmp_path / "out_db.fits"))["sampler_kind"] == "nuts"
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(TypeError, match="mesh must be a psfmc_tpu_torch.parallel.WalkerMesh"):
         model_galaxy_mcmc("no_such_model.py", device="cpu", sampler="nuts", ntemps=4,
                           mesh=object())
 

@@ -23,7 +23,7 @@
 // at the 67 TFLOP/s fp32 (non-tensor-core) peak, against 8 MB of images
 // read (~2.5 us).
 //
-// Four routes, chosen by the wrapper from the shape alone (conv_route in
+// Five routes, chosen by the wrapper from the shape alone (conv_route in
 // psfmc_tpu_torch/ops/kernels/conv_lnl.py):
 //
 // FFT route (H and W even with no prime factor above 7, the walker fits
@@ -63,8 +63,18 @@
 // cluster a walker (fft_cluster.cuh); the same arguments as the padded
 // route, the target axis included, and the cluster's size.
 //
-// matmul-DFT route (every other shape: a side of 1, a transform that fits
-// no cluster, from about 470 a side; conv_lnl_launch): each convolution
+// Global route (the transforms no cluster of 8 holds: 512x512, 640x640,
+// 235x235 -> 480x480, 251x251 -> 504x504; conv_lnl_global_launch and its
+// residual instantiation): the padded route's scheme at the transform, its
+// rows in a global-memory scratch the wrapper allocates, five launches
+// (fft_global.cuh: peaks, row passes by tiles of rows, column passes and
+// the pair step by groups of bins with their partners, the inverse row
+// passes and the readout by tiles, the tiles' partial sums reduced in
+// order); the same arguments as the cluster route with the tiles in place
+// of the cluster's size, then the scratch.
+//
+// matmul-DFT route (what no other route takes: a side of 1;
+// conv_lnl_launch): each convolution
 // as the twelve real half-spectrum products above, 20x the FFT count of
 // operations at 128x128 (W2 = 65: 2 convolutions x 12 x 2*128*128*65 ~ 51
 // MFLOP per walker, ~6.4 GFLOP per half-ensemble, ~0.1 ms at peak for the
@@ -85,7 +95,7 @@
 // observation.  Walker b reads target t = b / per_target (the walkers of
 // a target are contiguous) and that target's observation, variance and
 // mask planes, data_stride floats apart (H * W; 0 shares one observation,
-// as every single-fit caller does).  On the FFT, padded and cluster routes
+// as every single-fit caller does).  Off the matmul-DFT route
 // each target may also bring its own PSF: spectra_stride floats between two
 // targets' half-spectrum planes and one variance gain per target.  On the
 // matmul-DFT route the spectra are GEMM operands and stay shared (the
@@ -103,6 +113,7 @@
 #include "dft_conv.cuh"
 #include "fft_cluster.cuh"
 #include "fft_conv.cuh"
+#include "fft_global.cuh"
 
 namespace {
 
@@ -473,4 +484,58 @@ extern "C" int conv_lnl_cluster_residuals_launch(
                                     data_stride, spectra_stride, twiddle, layout,
                                     var_gain, psf_r, psf_i, var_r, var_i, obs, obs_var,
                                     good, out, weights, scale_exp, stream);
+}
+
+// C interface of the global route (the transforms no cluster of 8 holds;
+// fft_global.cuh): conv_lnl_padded_launch's arguments with a tile's rows and
+// a column group's bins (rows, cols: conv_lnl.py's global_tiles) after the
+// transform's sides, twiddle and layout the transform's mixed-radix tables
+// (cluster_tables), then the scratch the wrapper allocates: S (B, H, mw, 2)
+// float32, peaks (B, ceil(H / rows)) float32 and partials (B, ceil(H /
+// rows)) float64.  Launches five kernels on `stream` and returns 0, the
+// first cudaError of the attribute calls or the launches, or
+// cudaErrorInvalidValue for a plan the host would not make.
+extern "C" int conv_lnl_global_launch(
+    const float* raws, int batch, int h, int w, int mh, int mw, int rows, int cols,
+    int per_target, int data_stride, int spectra_stride, const float* twiddle,
+    const int* layout, const float* var_gain, const float* psf_r, const float* psf_i,
+    const float* var_r, const float* var_i, const float* obs, const float* obs_var,
+    const float* good, float* scratch, float* peaks, double* partials, float* out,
+    void* stream) {
+  namespace fg = psfmc::fftglobal;
+  if (batch <= 0) return 0;
+  const fg::Plan p{h, w, mh, mw, rows, cols};
+  if (!fg::plan_ok(p) || per_target < 1 || data_stride < 0 || spectra_stride < 0)
+    return (int)cudaErrorInvalidValue;
+  return fg::launch_forward<false>(
+      raws, false, batch, p, reinterpret_cast<const float2*>(twiddle), layout,
+      fc::Spectra{psf_r, psf_i, var_r, var_i, var_gain}, fc::Data{obs, obs_var, good},
+      per_target, (size_t)data_stride, (size_t)spectra_stride,
+      reinterpret_cast<float2*>(scratch), peaks, partials, nullptr, out, nullptr, nullptr,
+      (cudaStream_t)stream);
+}
+
+// The global route with the residuals for the backward:
+// conv_lnl_global_launch's arguments with maxes (B, ceil(H / rows), 2)
+// float32 scratch after the partials, then out, weights (B, H, W, 2)
+// float32 and scale_exp (B,) int32, as conv_lnl_fft_residuals_launch
+// writes them.
+extern "C" int conv_lnl_global_residuals_launch(
+    const float* raws, int batch, int h, int w, int mh, int mw, int rows, int cols,
+    int per_target, int data_stride, int spectra_stride, const float* twiddle,
+    const int* layout, const float* var_gain, const float* psf_r, const float* psf_i,
+    const float* var_r, const float* var_i, const float* obs, const float* obs_var,
+    const float* good, float* scratch, float* peaks, double* partials, float* maxes,
+    float* out, float* weights, int* scale_exp, void* stream) {
+  namespace fg = psfmc::fftglobal;
+  if (batch <= 0) return 0;
+  const fg::Plan p{h, w, mh, mw, rows, cols};
+  if (!fg::plan_ok(p) || per_target < 1 || data_stride < 0 || spectra_stride < 0)
+    return (int)cudaErrorInvalidValue;
+  return fg::launch_forward<true>(
+      raws, false, batch, p, reinterpret_cast<const float2*>(twiddle), layout,
+      fc::Spectra{psf_r, psf_i, var_r, var_i, var_gain}, fc::Data{obs, obs_var, good},
+      per_target, (size_t)data_stride, (size_t)spectra_stride,
+      reinterpret_cast<float2*>(scratch), peaks, partials, maxes, out,
+      reinterpret_cast<float2*>(weights), scale_exp, (cudaStream_t)stream);
 }

@@ -60,7 +60,14 @@
 // cluster's shared memory, and each rank combines its share of the image's
 // rows.
 //
-// matmul-DFT route (conv_lnl_dft_backward_launch; every other shape): the
+// Global route (conv_lnl_global_backward_launch; the shapes of conv_lnl.cu's
+// global route): fft_global.cuh's launch_backward, three launches through
+// the scratch S: the row passes of the weights at the slots the forward's
+// readout read them from (a transform row H + s repeats row s: the
+// adjoint of the fold), the column passes with the conjugate spectra and
+// the crop, and the inverse row passes with the combine.
+//
+// matmul-DFT route (conv_lnl_dft_backward_launch; a side of 1): the
 // forward's products recompute conv and mvar (dft_conv.cuh, 14 launches),
 // one elementwise kernel forms a and c in place, the same products with
 // the transposed operators, in reverse order, and the conjugate spectra
@@ -81,8 +88,8 @@
 // bits.
 //
 // Targets (the hierarchical fit, psfmc_tpu_torch/hierarchy.py): as in the
-// forward, walker b belongs to target b / per_target.  On the FFT, padded
-// and cluster routes the target's planes are already inside the forward's
+// forward, walker b belongs to target b / per_target.  Off the matmul-DFT
+// route the target's planes are already inside the forward's
 // weights, so the backward reads only that target's spectra and variance
 // gain (spectra_stride floats apart, 0: shared); on the matmul-DFT route the
 // weights kernel reads the target's obs, obs_var and good (data_stride).
@@ -94,6 +101,7 @@
 #include "dft_conv.cuh"
 #include "fft_cluster.cuh"
 #include "fft_conv.cuh"
+#include "fft_global.cuh"
 
 namespace {
 
@@ -401,6 +409,30 @@ extern "C" int conv_lnl_cluster_backward_launch(
       fc::Spectra{psf_r, psf_ic, var_r, var_ic, var_gain}, per_target,
       (size_t)spectra_stride, reinterpret_cast<const float2*>(weights), scale_exp, lnl,
       grad, out);
+}
+
+// C interface of the global route: conv_lnl_cluster_backward_launch's
+// arguments with a tile's rows and a column group's bins (rows, cols) in
+// place of the cluster's size, then S, (B, H, mw, 2) float32 scratch, before
+// out (fft_global.cuh's launch_backward: three launches).  Launches on
+// `stream` and returns 0, the first cudaError of the attribute calls or the
+// launches, or cudaErrorInvalidValue for a plan the host would not make.
+extern "C" int conv_lnl_global_backward_launch(
+    const float* raws, int batch, int h, int w, int mh, int mw, int rows, int cols,
+    int per_target, int spectra_stride, const float* twiddle, const int* layout,
+    const float* var_gain, const float* psf_r, const float* psf_ic, const float* var_r,
+    const float* var_ic, const float* weights, const int* scale_exp, const float* lnl,
+    const float* grad, float* scratch, float* out, void* stream) {
+  namespace fg = psfmc::fftglobal;
+  if (batch <= 0) return 0;
+  const fg::Plan p{h, w, mh, mw, rows, cols};
+  if (!fg::plan_ok(p) || per_target < 1 || spectra_stride < 0)
+    return (int)cudaErrorInvalidValue;
+  return fg::launch_backward(raws, batch, p, reinterpret_cast<const float2*>(twiddle), layout,
+                             fc::Spectra{psf_r, psf_ic, var_r, var_ic, var_gain}, per_target,
+                             (size_t)spectra_stride, reinterpret_cast<const float2*>(weights),
+                             scale_exp, lnl, grad, reinterpret_cast<float2*>(scratch), out,
+                             (cudaStream_t)stream);
 }
 
 // C interface of the matmul-DFT route.  The forward's operators (cw, sw,

@@ -30,9 +30,10 @@
 // The routes of conv_lnl.cu, chosen by the wrapper from the shape alone
 // (conv_route in psfmc_tpu_torch/ops/kernels/conv_lnl.py; fused_route is
 // the same rule), each 512 threads a block, the only write to global
-// memory the walker's lnL.  On the first three the render goes into the
-// real parts of the walker's complex image in shared memory and the rest
-// is conv_lnl's, unchanged: fft_conv.cuh's convolve_and_reduce (both
+// memory the walker's lnL but on the global route.  On the first three
+// the render goes into the real parts of the walker's complex image in
+// shared memory and the rest is conv_lnl's, unchanged:
+// fft_conv.cuh's convolve_and_reduce (both
 // convolutions as one complex FFT pair, then the lnL readout) or
 // fft_cluster.cuh's cluster_convolve_and_reduce:
 //
@@ -54,6 +55,14 @@
 // readout owns, [r Hc, r Hc + Hc) with Hc = ceil(H / C), into whichever
 // rank holds each row: the ranks share the render evenly even where the
 // image lies in rank 0's rows (94x94 in a 192x192 transform).
+//
+// Global route (the transforms no cluster of 8 holds: 512x512, 640x640,
+// 251x251 -> 504x504; fused_lnl_global_launch): a render pass, a block a
+// tile of the row passes' rows (fft_global.cuh's rows), writes the raw
+// rows to a scratch the wrapper allocates and each tile's peak; then
+// conv_lnl's global launches 2-5 from them.  The render runs once: a
+// render inside the row pass would need the walker's peak first, so a
+// second render or a pass of its own.
 //
 // matmul-DFT route (what no other route holds: a side of 1;
 // fused_lnl_launch): the products above, 2 convolutions x 2 x
@@ -102,6 +111,7 @@
 
 #include "fft_cluster.cuh"
 #include "fft_conv.cuh"
+#include "fft_global.cuh"
 #include "sersic_profile.cuh"
 
 namespace {
@@ -555,6 +565,32 @@ __global__ void __launch_bounds__(fc::kThreads, 1) fused_lnl_cluster_kernel(Fuse
                                          nullptr);
 }
 
+// Global route, its render pass: the block of tile t renders walker b's
+// image rows [t R, t R + R) (R = rows, the row passes' tile) into the raw
+// scratch raws (B, H, W), which the global route's row passes read, and the
+// tile's largest |raw| into peaks (B, ceil(H / R)), from which every block
+// of the walker takes the squared image's scale.  The render is
+// sersic_profile.cuh's, as on the other routes (the same bits as the render
+// kernel's).
+__global__ void __launch_bounds__(fc::kThreads)
+fused_lnl_global_render_kernel(FusedArgs a, psfmc::fftglobal::Plan p, float* __restrict__ raws,
+                               float* __restrict__ peaks) {
+  const int b = blockIdx.x, t = blockIdx.y, w = a.w;
+  const int y0 = t * p.rows, y1 = min(y0 + p.rows, a.h);
+  float* raw = raws + (size_t)b * a.h * w;
+  float mx = 0.0f;
+  auto put = [raw, w, &mx](int yi, int xi, float v) {
+    raw[yi * w + xi] = v;
+    mx = fmaxf(mx, fabsf(v));
+  };
+  const int s_n = a.num_sersic, p_n = a.num_ps;
+  render_raw<fc::kThreads, true>(a.packed + (size_t)b * s_n * psfmc::kParamsPerSersic, s_n,
+                                 __ldg(a.sky + b), a.fky + (size_t)b * p_n * a.h,
+                                 a.kx + (size_t)b * p_n * w, p_n, a.h, w, y0, y1, put);
+  mx = psfmc::fftglobal::block_max(mx);
+  if (threadIdx.x == 0) peaks[(size_t)b * p.row_tiles() + t] = mx;
+}
+
 FusedArgs fused_args(const float* packed, const float* sky, const float* fky,
                      const float* kx, int num_sersic, int num_ps, int h, int w, int mh,
                      int mw, int ranks, const float* twiddle, const int* layout,
@@ -648,4 +684,36 @@ extern "C" int fused_lnl_cluster_launch(
       fused_args(packed, sky, fky, kx, num_sersic, num_ps, h, w, mh, mw, ranks, twiddle,
                  layout, 0, var_gain, psf_r, psf_i, var_r, var_i, obs, obs_var, good,
                  out));
+}
+
+// C interface of the global route (the transforms no cluster of 8 holds):
+// fused_lnl_padded_launch's arguments with a tile's rows and a column
+// group's bins (rows, cols: conv_lnl.py's global_tiles) after the
+// transform's sides, twiddle and layout the transform's mixed-radix tables
+// (cluster_tables), then the scratch the wrapper allocates: raws (B, H, W)
+// float32, S (B, H, mw, 2) float32, peaks (B, ceil(H / rows)) float32 and
+// partials (B, ceil(H / rows)) float64.  The render pass, then conv_lnl's
+// global launches 2-5 (fft_global.cuh).  Returns 0, the first cudaError of
+// the attribute calls or the launches, or cudaErrorInvalidValue for a plan
+// the host would not make.
+extern "C" int fused_lnl_global_launch(
+    const float* packed, const float* sky, const float* fky, const float* kx,
+    int batch, int num_sersic, int num_ps, int h, int w, int mh, int mw, int rows, int cols,
+    const float* twiddle, const int* layout, const float* var_gain,
+    const float* psf_r, const float* psf_i, const float* var_r, const float* var_i,
+    const float* obs, const float* obs_var, const float* good, float* raws, float* scratch,
+    float* peaks, double* partials, float* out, void* stream) {
+  namespace fg = psfmc::fftglobal;
+  if (batch <= 0) return 0;
+  const fg::Plan p{h, w, mh, mw, rows, cols};
+  if (!fg::plan_ok(p)) return (int)cudaErrorInvalidValue;
+  const FusedArgs a = fused_args(packed, sky, fky, kx, num_sersic, num_ps, h, w, mh, mw, 1,
+                                 twiddle, layout, 0, var_gain, psf_r, psf_i, var_r, var_i,
+                                 obs, obs_var, good, out);
+  fused_lnl_global_render_kernel<<<dim3((unsigned)batch, (unsigned)p.row_tiles()), fc::kThreads,
+                                   0, (cudaStream_t)stream>>>(a, p, raws, peaks);
+  if (int err = (int)cudaGetLastError()) return err;
+  return fg::launch_forward<false>(raws, true, batch, p, a.twiddle, layout, a.k, a.d, 1, 0, 0,
+                                   reinterpret_cast<float2*>(scratch), peaks, partials, nullptr,
+                                   out, nullptr, nullptr, (cudaStream_t)stream);
 }

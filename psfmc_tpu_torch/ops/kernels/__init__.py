@@ -5,8 +5,8 @@ counts the launches executed (``<wrapper>.launches``, through
 :mod:`.counts`, which also counts the replays of a captured CUDA graph),
 and a plain PyTorch version of the same function that it uses for CPU
 tensors.  The two
-likelihood kernels have an FFT, a padded, a cluster and a matmul-DFT
-route, picked from the image's shape alone by one rule (:func:`conv_route`;
+likelihood kernels have an FFT, a padded, a cluster, a global and a
+matmul-DFT route, picked from the image's shape alone by one rule (:func:`conv_route`;
 the fused kernel's ``fused_lnl.fused_route`` is the same).  Sources are
 in ``psfmc_tpu_torch/csrc/`` and are built with ``nvcc`` on first use
 (:mod:`._build`).  The fused kernel's wrapper is reached through its

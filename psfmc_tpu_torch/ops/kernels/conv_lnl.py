@@ -9,7 +9,7 @@ map, then reduce the masked Gaussian lnL per walker:
     ivm_b = 1 / (mvar_b + obs_var)
 
 with non-finite results mapped to ``-inf``.  The CUDA source
-(``csrc/conv_lnl.cu``) has four routes, and the shape alone picks one
+(``csrc/conv_lnl.cu``) has five routes, and the shape alone picks one
 before the launch (:func:`conv_route`):
 
 * ``"fft"``, when ``H`` and ``W`` are even with no prime factor above
@@ -41,10 +41,18 @@ before the launch (:func:`conv_route`):
   Hopper's distributed shared memory (``csrc/fft_cluster.cuh``), one
   cluster a walker.  Its plain scheme is :func:`padded_fft_conv_plain`'s
   (at a transform that pads no side, the FFT route's);
-* ``"dft"``, every other shape (a side of 1, a transform that fits no
-  cluster: from about 470 a side, so an image side from about 236 up that
-  is off the FFT route's sides): each convolution
-  as the twelve real half-spectrum products of
+* ``"global"``, when the transform fits no cluster of 8 (from about 470
+  a side, so 512x512, 640x640 and every image side from about 226 up that
+  is off the FFT route's sides: 235x235 -> 480x480, 251x251 -> 504x504):
+  the padded route's scheme at that transform with the cluster route's
+  tables, the transform's rows in a global-memory scratch ``(B, H, M_w)``
+  complex64 (``csrc/fft_global.cuh``: a peak pass, the row passes by
+  tiles of rows, the column passes and the pair step by groups of bins
+  with their Hermitian partners, the inverse row passes with the readout
+  by tiles, each walker's partial sums reduced in tile order; five
+  launches, :func:`global_tiles` sizing the tiles);
+* ``"dft"``, a side of 1: each convolution as the twelve real
+  half-spectrum products of
   :func:`psfmc_tpu_torch.ops.fourier.convolve_rdft`, run as fp32 FMA
   GEMMs of the kernel's own through global scratch (15 launches).
 
@@ -57,17 +65,15 @@ carry the walkers of ``K`` independent fits.  A stacked
 target's observation, variance and mask planes ``(K, H, W)`` and, in
 survey mode, its own PSF's spectra ``(K, ...)`` and variance gain
 ``(K,)``; walker ``b`` of a batch of ``B`` reads target ``b // (B / K)``.
-The planes run on every route, per-target spectra on the FFT, padded and
-cluster routes only: on the matmul-DFT route the spectra are GEMM operands, and
-the wrapper refuses them there (:func:`target_spectra_supported`; the
-posterior sends such a batch to its general path).  The plain versions
-take the same target axis, and so do the residual instantiation and the
-backward kernels (the hierarchical fit, :mod:`psfmc_tpu_torch.hierarchy`,
-differentiates a stack): on the FFT, padded and cluster routes the
-backward reads
-only each target's spectra and variance gain (its planes are inside the
-forward's weights), on the matmul-DFT route the weights kernel reads each
-target's planes.
+The planes run on every route, per-target spectra on every route but the
+matmul-DFT one: there the spectra are GEMM operands, and the wrapper
+refuses them (:func:`target_spectra_supported`; the posterior sends such a
+batch to its general path).  The plain versions take the same target
+axis, and so do the residual instantiation and the backward kernels (the
+hierarchical fit, :mod:`psfmc_tpu_torch.hierarchy`, differentiates a
+stack): off the matmul-DFT route the backward reads only each target's
+spectra and variance gain (its planes are inside the forward's weights),
+on it the weights kernel reads each target's planes.
 The Pallas kernel's emulated-precision dot modes (bf16x3) existed only
 because Mosaic lacks an fp32-accurate product; they are not ported:
 true fp32 is the contract.
@@ -88,11 +94,11 @@ where ``(x)`` is the adjoint of the forward convolution (a correlation:
 the conjugate spectrum, the shift undone); a walker whose lnL is not
 finite gets a zero gradient.  On CUDA the hand-written kernels of
 ``csrc/conv_lnl_backward.cu`` on the route the shape takes, on the CPU
-:func:`batched_conv_lnl_backward_plain`.  On the FFT route the forward
-under autograd is a second instantiation of the forward kernel
+:func:`batched_conv_lnl_backward_plain`.  Off the matmul-DFT route the
+forward under autograd is a second instantiation of the forward kernel
 (:func:`batched_conv_lnl_residuals`, counted on the route ``"fft_res"``,
 ``"padded_res"`` on the padded route, ``"cluster_res"`` on the cluster
-route):
+route, ``"global_res"`` on the global route):
 the same lnL bits, and it also writes ``(a, c)`` per pixel (8 bytes a
 pixel, kept for the backward: 16.4 MB at 125 walkers x 128x128) and
 each walker's scale exponent; the backward loads them and runs one
@@ -134,6 +140,9 @@ __all__ = [
     "cluster_size",
     "cluster_smem_bytes",
     "cluster_tables",
+    "global_column_smem",
+    "global_row_smem",
+    "global_tiles",
     "padded_size",
     "padded_shape",
     "fft_smem_bytes",
@@ -172,6 +181,18 @@ _MAX_SCALE_EXP = 96
 # rank 0's 8 sums and 16 peaks, 456 bytes, and 8 of alignment.
 CLUSTER_SIZES = (2, 4, 8)
 _CLUSTER_STATIC_SMEM = 464
+# The global route's tiles (csrc/fft_global.cuh: at most kMaxTile): the
+# rows of a row tile and the bins of a column group, the largest that fit a
+# block, and its static shared memory (the readout's 16 doubles and 32
+# floats, block_max's 17 floats), with room to spare.
+GLOBAL_ROWS = (16, 8, 4, 2, 1)
+GLOBAL_COLS = (8, 4, 2, 1)
+_GLOBAL_STATIC_SMEM = 512
+
+# the routes that run the padded route's scheme at padded_shape with the
+# consts' pad_* fields (the cluster and the global route at a transform that
+# pads no side too)
+_PADDED_SCHEME = ("padded", "cluster", "global")
 
 
 # The FFT route's radices (conv_lnl's and the fused kernel's).
@@ -363,16 +384,61 @@ def cluster_size(shape):
     return 0
 
 
+def _global_tables_bytes(transform):
+    h, w = transform
+    return 8 * (_twiddle_entries(h) + _twiddle_entries(w)) + 4 * (_LAYOUT_HEADER + 2 * (h + w))
+
+
+def global_row_smem(transform, rows):
+    """Dynamic shared memory of one block of the global route's row passes
+    (``csrc/fft_global.cuh``'s ``row_smem``): ``rows`` rows of the ``M_h x
+    M_w`` transform at the pitch ``M_w + 1``, both axes' twiddle tables and
+    the mixed-radix layout."""
+    return 8 * rows * (int(transform[1]) + 1) + _global_tables_bytes(transform)
+
+
+def global_column_smem(transform, cols):
+    """Dynamic shared memory of one block of the global route's column
+    passes (``column_smem``): every row of ``2 cols`` columns (a group of
+    bins and their Hermitian partners) at the pitch ``2 cols + 1``, and the
+    tables."""
+    return 8 * int(transform[0]) * (2 * cols + 1) + _global_tables_bytes(transform)
+
+
+def global_tiles(shape):
+    """``(rows, cols)`` of the global route for an ``(H, W)`` image: the
+    largest of :data:`GLOBAL_ROWS` rows of the transform :func:`padded_shape`
+    and of :data:`GLOBAL_COLS` column bins (with their partners) whose block
+    fits ``BLOCK_SMEM_LIMIT`` and whose loops stay below 2^16 items
+    (``csrc/fft_global.cuh``'s ``plan_ok``); None where none does, the
+    passes exceed the layout, or a side is 1."""
+    h, w = (int(n) for n in shape)
+    if min(h, w) < 2:
+        return None
+    mh, mw = padded_shape((h, w))
+    if max(len(fft_plan(mh)), len(fft_plan(mw))) > _MAX_PASSES:
+        return None
+    limit = BLOCK_SMEM_LIMIT - _GLOBAL_STATIC_SMEM
+    rows = next((r for r in GLOBAL_ROWS if r * mw < 65536
+                 and global_row_smem((mh, mw), r) <= limit), None)
+    cols = next((c for c in GLOBAL_COLS if 2 * c * mh < 65536
+                 and global_column_smem((mh, mw), c) <= limit), None)
+    return (rows, cols) if rows and cols else None
+
+
 def conv_route(shape):
-    """``"fft"``, ``"padded"``, ``"cluster"`` or ``"dft"``: the route of
-    ``csrc/conv_lnl.cu`` (and of its backward, and of the fused kernel
-    ``csrc/fused_lnl.cu``) for an ``(H, W)`` image, a pure function of the
-    shape.  ``"fft"`` needs both sides to be even with no prime factor
-    above 7 and the walker's image to fit in one block's shared memory;
-    ``"padded"`` takes the other shapes whose :func:`padded_shape` fits a
-    block (every side from 2 to 81); ``"cluster"`` the shapes whose
-    transform (the FFT route's or the padded one) fits no block but fits
-    a cluster (:func:`cluster_size`); ``"dft"`` the rest."""
+    """``"fft"``, ``"padded"``, ``"cluster"``, ``"global"`` or ``"dft"``:
+    the route of ``csrc/conv_lnl.cu`` (and of its backward, and of the
+    fused kernel ``csrc/fused_lnl.cu``) for an ``(H, W)`` image, a pure
+    function of the shape.  ``"fft"`` needs both sides to be even with no
+    prime factor above 7 and the walker's image to fit in one block's
+    shared memory; ``"padded"`` takes the other shapes whose
+    :func:`padded_shape` fits a block (every side from 2 to 81);
+    ``"cluster"`` the shapes whose transform (the FFT route's or the padded
+    one) fits no block but fits a cluster (:func:`cluster_size`);
+    ``"global"`` the rest whose transform the global route's tiles take
+    (:func:`global_tiles`: every shape with both sides from 2 to 1024);
+    ``"dft"`` what is left, a side of 1."""
     h, w = (int(n) for n in shape)
     if _smooth_even(h) and _smooth_even(w):
         if _fits_a_block((h, w)):
@@ -383,6 +449,8 @@ def conv_route(shape):
         return "padded"
     if cluster_size((h, w)):
         return "cluster"
+    if global_tiles((h, w)):
+        return "global"
     return "dft"
 
 
@@ -447,10 +515,9 @@ def batched_lnl_supported(spec):
 
 
 def target_spectra_supported(shape):
-    """Whether conv_lnl takes per-target PSF spectra at ``shape``: on the
-    FFT, the padded and the cluster route (each target's spectra are
-    planes the blocks read), not on the matmul-DFT route (there they are
-    GEMM operands)."""
+    """Whether conv_lnl takes per-target PSF spectra at ``shape``: on every
+    route but the matmul-DFT one (each target's spectra are planes the
+    blocks read; on the matmul-DFT route they are GEMM operands)."""
     return conv_route(shape) != "dft"
 
 
@@ -476,15 +543,16 @@ class ConvLnlConsts:
     W)`` and, with per-target spectra, the spectrum planes (``psf_*``,
     ``var_*``, ``pad_*``) ``(K, ...)`` and ``var_gain`` ``(K,)``.
 
-    The padded and the cluster route's (``pad_*``, empty unless
-    :func:`conv_route` answers ``"padded"`` or ``"cluster"``): the PSF and
+    The padded, the cluster and the global route's (``pad_*``, empty
+    unless :func:`conv_route` answers ``"padded"``, ``"cluster"`` or
+    ``"global"``): the PSF and
     PSF-variance kernels' half spectra at the transform's
     :func:`padded_shape` ``(M_h, M_w/2+1)`` (real, imaginary and the
     backward's conjugate imaginary planes; ``_padded_spectrum``; on the
     cluster route at a transform that pads no side, the kernels' own
     spectra), and the twiddle table and layout at ``(M_h, M_w)``: the FFT
     route's (:func:`fft_tables`) on the padded route, the mixed-radix form
-    (:func:`cluster_tables`) on the cluster route.  The variance gain is
+    (:func:`cluster_tables`) on the cluster and the global route.  The variance gain is
     the ``N``-point spectra's: the zero-frequency bin is the kernel's sum
     at either size.
     """
@@ -595,7 +663,7 @@ def make_conv_lnl_consts(f_psf, f_var, obs, obs_var, good, device,
     pad = dict.fromkeys(("pad_psf_r", "pad_psf_i", "pad_var_r", "pad_var_i",
                          "pad_psf_ic", "pad_var_ic"), np.zeros((0, 0)))
     pad_twiddle, pad_layout = empty
-    if route in ("padded", "cluster"):
+    if route in _PADDED_SCHEME:
         padded = padded_shape(shape)
         p_psf = _padded_spectrum(f_psf, shape, padded)
         p_var = _padded_spectrum(f_var, shape, padded)
@@ -667,7 +735,7 @@ def make_conv_lnl_consts_stack(f_psf, f_var, obs, obs_var, good, device,
                     var_gain=tensor([var_spectrum_gain(p, v)
                                      for p, v in zip(f_psf, f_var)]))
         shape = obs.shape[1:]
-        if conv_route(shape) in ("padded", "cluster"):
+        if conv_route(shape) in _PADDED_SCHEME:
             padded = padded_shape(shape)
             p_psf = np.stack([_padded_spectrum(p, shape, padded) for p in f_psf])
             p_var = np.stack([_padded_spectrum(v, shape, padded) for v in f_var])
@@ -991,30 +1059,61 @@ CONV_FFT_CONST_ARGS = ("twiddle", "fft_layout", "var_gain", "psf_r", "psf_i", "v
 PADDED_CONST_ARGS = ("pad_twiddle", "pad_layout", "var_gain", "pad_psf_r",
                      "pad_psf_i", "pad_var_r", "pad_var_i", "obs", "obs_var",
                      "good_f")
-# the routes that hold a walker's transform in shared memory, one block or
-# one cluster a walker: the C symbols of the forward and of its residual
-# instantiation, and the constants they take (the residual instantiation's
-# outputs are out, weights, scale_exp); conv_lnl_cluster_launch(raws, batch,
-# h, w, mh, mw, ranks, per_target, data_stride, spectra_stride, <the padded
-# route's constants>, out, stream)
-_BLOCK_ROUTES = {
+# the routes of the packed FFT pair, a walker's transform in one block's or
+# one cluster's shared memory or in the global route's scratch: the C
+# symbols of the forward and of its residual instantiation, and the
+# constants they take (the residual instantiation's outputs are out,
+# weights, scale_exp); conv_lnl_cluster_launch(raws, batch, h, w, mh, mw,
+# ranks, per_target, data_stride, spectra_stride, <the padded route's
+# constants>, out, stream); conv_lnl_global_launch(raws, batch, h, w, mh, mw,
+# rows, cols, per_target, data_stride, spectra_stride, <the padded route's
+# constants>, <its scratch, _global_scratch>, out, stream)
+_FFT_ROUTES = {
     "fft": (("conv_lnl_fft_launch", "conv_lnl_fft_residuals_launch"),
             CONV_FFT_CONST_ARGS),
     "padded": (("conv_lnl_padded_launch", "conv_lnl_padded_residuals_launch"),
                PADDED_CONST_ARGS),
     "cluster": (("conv_lnl_cluster_launch", "conv_lnl_cluster_residuals_launch"),
                 PADDED_CONST_ARGS),
+    "global": (("conv_lnl_global_launch", "conv_lnl_global_residuals_launch"),
+               PADDED_CONST_ARGS),
 }
 
 
 def _sides(route, shape):
     """The int arguments after the batch: ``h, w``; on the padded route
-    the transform's ``mh, mw`` too, on the cluster route also its size."""
+    the transform's ``mh, mw`` too, on the cluster route also its size, on
+    the global route its tiles (:func:`global_tiles`)."""
     if route == "padded":
         return tuple(shape) + padded_shape(shape)
     if route == "cluster":
         return tuple(shape) + padded_shape(shape) + (cluster_size(shape),)
+    if route == "global":
+        return tuple(shape) + padded_shape(shape) + global_tiles(shape)
     return tuple(shape)
+
+
+def _transform_rows(b, shape, device):
+    """The global route's scratch S: the transform's rows in natural order,
+    ``(B, H, M_w, 2)`` float32, from PyTorch's allocator (a captured step
+    draws on its graph's pool)."""
+    return torch.empty((b, int(shape[0]), padded_shape(shape)[1], 2), dtype=torch.float32,
+                       device=device)
+
+
+def _global_scratch(b, shape, device, residuals=False):
+    """The global route's forward scratch for ``b`` walkers at the image
+    ``shape``: S (:func:`_transform_rows`), the row tiles' peaks ``(B, T)``
+    float32 and lnL partial sums ``(B, T)`` float64, and with
+    ``residuals`` the tiles' weight peaks ``(B, T, 2)`` float32 (``T =
+    ceil(H / rows)``)."""
+    tiles = -(-int(shape[0]) // global_tiles(shape)[0])
+    out = [_transform_rows(b, shape, device),
+           torch.empty((b, tiles), dtype=torch.float32, device=device),
+           torch.empty((b, tiles), dtype=torch.float64, device=device)]
+    if residuals:
+        out.append(torch.empty((b, tiles, 2), dtype=torch.float32, device=device))
+    return out
 
 
 def _launch_error(what, route, shape, err):
@@ -1033,6 +1132,13 @@ def _launch_error(what, route, shape, err):
                 f"walker, a {transform[0]}x{transform[1]} transform over a cluster of "
                 f"{ranks} blocks of {cluster_smem_bytes(transform, ranks)} bytes of "
                 "shared memory each)")
+    if route == "global":
+        (rows, cols), transform = global_tiles(shape), padded_shape(shape)
+        return (f"{what} (global route) launch failed: cudaError {err} ({shape[0]}x"
+                f"{shape[1]} walker, a {transform[0]}x{transform[1]} transform in tiles "
+                f"of {rows} rows ({global_row_smem(transform, rows)} bytes of shared "
+                f"memory) and groups of {cols} columns "
+                f"({global_column_smem(transform, cols)} bytes))")
     return f"{what} ({route} route) launch failed: cudaError {err}"
 
 
@@ -1043,7 +1149,7 @@ def _target_ints(batch, consts: ConvLnlConsts, route):
     k = consts.targets
     per, data, spectra = (batch // k, consts.obs[0].numel(), 0) if k else (1, 0, 0)
     if k and consts.target_spectra:
-        spectra = (consts.pad_psf_r if route in ("padded", "cluster")
+        spectra = (consts.pad_psf_r if route in _PADDED_SCHEME
                    else consts.psf_r)[0].numel()
     return (per, data) if route == "dft" else (per, data, spectra)
 
@@ -1057,18 +1163,20 @@ def _dft_kernel():
     )
 
 
-# the int arguments after the batch: the sides (and the cluster's size)
-_SIDE_INTS = {"fft": 2, "padded": 4, "cluster": 5}
+# the int arguments after the batch: the sides (and the cluster's size, or
+# the global route's tiles)
+_SIDE_INTS = {"fft": 2, "padded": 4, "cluster": 5, "global": 6}
 
 
 @functools.lru_cache(maxsize=None)
 def _block_kernel(route, residuals):
-    (symbols, names) = _BLOCK_ROUTES[route]
+    (symbols, names) = _FFT_ROUTES[route]
     ints = 1 + _SIDE_INTS[route] + 3
+    scratch = (4 if residuals else 3) if route == "global" else 0
     return _build.function(
         "conv_lnl", symbols[residuals],
         [ctypes.c_void_p] + [ctypes.c_int] * ints
-        + [ctypes.c_void_p] * (len(names) + (4 if residuals else 2)),
+        + [ctypes.c_void_p] * (len(names) + scratch + (4 if residuals else 2)),
     )
 
 
@@ -1106,17 +1214,20 @@ def _launch_dft(raws, consts: ConvLnlConsts):
 
 
 def _launch_block(raws, consts: ConvLnlConsts, route, residuals=False):
-    """The FFT, the padded or the cluster route: one launch, no allocation
-    but the outputs (on the FFT and padded routes radix-2 stages for powers
-    of two, mixed radix otherwise: the launch picks).  With ``residuals`` the residual instantiation, which
-    also returns the weights and the scale exponents."""
+    """The FFT, the padded, the cluster or the global route: one call, no
+    allocation but the outputs and, on the global route, its scratch (on
+    the FFT and padded routes radix-2 stages for powers of two, mixed radix
+    otherwise: the launch picks).  With ``residuals`` the residual
+    instantiation, which also returns the weights and the scale
+    exponents."""
     b, h, w = raws.shape
     dev = raws.device
     outs = [torch.empty((b,), dtype=torch.float32, device=dev)]
     if residuals:
         outs += [torch.empty((b, h, w, 2), dtype=torch.float32, device=dev),
                  torch.empty((b,), dtype=torch.int32, device=dev)]
-    tensors = [getattr(consts, n) for n in _BLOCK_ROUTES[route][1]] + outs
+    scratch = _global_scratch(b, (h, w), dev, residuals) if route == "global" else []
+    tensors = [getattr(consts, n) for n in _FFT_ROUTES[route][1]] + scratch + outs
     sides = _sides(route, (h, w))
     ints = sides + _target_ints(b, consts, route)
     with torch.cuda.device(dev):
@@ -1134,7 +1245,7 @@ def _launch(raws, consts: ConvLnlConsts, route):
         raise TypeError(f"the CUDA conv_lnl takes float32, got {raws.dtype}")
     check_launch_consts(consts, raws.device)
     raws = raws.contiguous()
-    if route in _BLOCK_ROUTES:
+    if route in _FFT_ROUTES:
         return _launch_block(raws, consts, route)
     return _launch_dft(raws, consts)
 
@@ -1145,11 +1256,12 @@ def batched_conv_lnl(raws, consts: ConvLnlConsts):
     With a stacked consts of ``K`` targets, ``B`` is a multiple of ``K``
     and walker ``b`` fits target ``b // (B / K)``; launches count on the
     route's ``"<route>_targets"`` key (``"fft_targets"``,
-    ``"padded_targets"``, ``"cluster_targets"``, ``"dft_targets"``; under
-    autograd on the FFT, padded and cluster routes ``"fft_res_targets"``,
-    ``"padded_res_targets"``, ``"cluster_res_targets"``, and its backward
+    ``"padded_targets"``, ``"cluster_targets"``, ``"global_targets"``,
+    ``"dft_targets"``; under autograd off the matmul-DFT route
+    ``"fft_res_targets"``, ``"padded_res_targets"``,
+    ``"cluster_res_targets"``, ``"global_res_targets"``, and its backward
     on ``batched_conv_lnl_backward``'s ``"<route>_targets"``).
-    Per-target spectra off the FFT, padded and cluster routes
+    Per-target spectra on the matmul-DFT route
     (:func:`target_spectra_supported`) raise ``ValueError``."""
     _check_inputs(raws, consts)
     if torch.is_grad_enabled() and raws.requires_grad:
@@ -1197,32 +1309,34 @@ def _forward(raws, consts):
 batched_conv_lnl.launches = 0
 batched_conv_lnl.route_launches = {"fft": 0, "dft": 0, "fft_res": 0, "padded": 0,
                                    "padded_res": 0, "cluster": 0, "cluster_res": 0,
+                                   "global": 0, "global_res": 0,
                                    "fft_targets": 0, "padded_targets": 0,
-                                   "cluster_targets": 0, "dft_targets": 0,
-                                   "fft_res_targets": 0, "padded_res_targets": 0,
-                                   "cluster_res_targets": 0}
+                                   "cluster_targets": 0, "global_targets": 0,
+                                   "dft_targets": 0, "fft_res_targets": 0,
+                                   "padded_res_targets": 0, "cluster_res_targets": 0,
+                                   "global_res_targets": 0}
 batched_conv_lnl.shape_launches = {}
 
 
 def batched_conv_lnl_residuals(raws, consts: ConvLnlConsts):
     """``(lnl (B,), weights (B, H, W, 2), scale_exp (B,) int32)``: the lnL
     of :func:`batched_conv_lnl` with what its backward reads on the FFT,
-    the padded and the cluster route, the weights ``(a, c)`` of every pixel (``a =
-    good r ivm``, ``c = good ((r ivm)^2 - ivm) / 2``) and each walker's
-    scale exponent (:func:`packed_fft_conv_residuals_plain`).  On CUDA the
-    route's residual instantiation of the forward kernel (the same lnL
-    bits as :func:`batched_conv_lnl`'s launch; counted in
+    the padded, the cluster and the global route, the weights ``(a, c)`` of
+    every pixel (``a = good r ivm``, ``c = good ((r ivm)^2 - ivm) / 2``) and
+    each walker's scale exponent (:func:`packed_fft_conv_residuals_plain`).
+    On CUDA the route's residual instantiation of the forward kernel (the
+    same lnL bits as :func:`batched_conv_lnl`'s launch; counted in
     ``batched_conv_lnl.launches`` on the route ``"fft_res"``,
-    ``"padded_res"`` or ``"cluster_res"``, with ``"_targets"`` for a
-    stacked consts, and by shape), on the CPU
-    :func:`packed_fft_conv_residuals_plain` or (the padded and the cluster
-    route) :func:`padded_fft_conv_residuals_plain`.  A shape on the
-    matmul-DFT route raises ``ValueError``."""
+    ``"padded_res"``, ``"cluster_res"`` or ``"global_res"``, with
+    ``"_targets"`` for a stacked consts, and by shape), on the CPU
+    :func:`packed_fft_conv_residuals_plain` or (the padded, the cluster and
+    the global route) :func:`padded_fft_conv_residuals_plain`.  A shape on
+    the matmul-DFT route raises ``ValueError``."""
     _check_inputs(raws, consts)
     route = conv_route(consts.shape)
-    if route not in _BLOCK_ROUTES:
-        raise ValueError(f"{consts.shape} is off the FFT, padded and cluster routes: "
-                         "its backward recomputes the forward and reads no residuals")
+    if route not in _FFT_ROUTES:
+        raise ValueError(f"{consts.shape} is on the matmul-DFT route: its backward "
+                         "recomputes the forward and reads no residuals")
     if raws.device.type == "cpu":
         plain = (packed_fft_conv_residuals_plain if route == "fft"
                  else padded_fft_conv_residuals_plain)
@@ -1239,14 +1353,14 @@ def batched_conv_lnl_residuals(raws, consts: ConvLnlConsts):
 
 class _ConvLnl(torch.autograd.Function):
     """conv_lnl with its vector-Jacobian product: the forward is the
-    wrapper's own launch (on CUDA and the FFT, the padded or the cluster
-    route, the residual instantiation, whose weights and scale exponents it keeps for
-    the backward), the backward :func:`batched_conv_lnl_backward`."""
+    wrapper's own launch (on CUDA off the matmul-DFT route, the residual
+    instantiation, whose weights and scale exponents it keeps for the
+    backward), the backward :func:`batched_conv_lnl_backward`."""
 
     @staticmethod
     def forward(ctx, raws, consts):
         ctx.consts = consts
-        if raws.device.type == "cuda" and conv_route(consts.shape) in _BLOCK_ROUTES:
+        if raws.device.type == "cuda" and conv_route(consts.shape) in _FFT_ROUTES:
             lnl, weights, scale_exp = batched_conv_lnl_residuals(raws, consts)
             ctx.save_for_backward(raws, lnl, weights, scale_exp)
         else:
@@ -1440,12 +1554,13 @@ def packed_fft_conv_backward_plain(raws, consts: ConvLnlConsts, lnl, grad):
 def _block_backward_kernel(route):
     symbol = {"fft": "conv_lnl_fft_backward_launch",
               "padded": "conv_lnl_padded_backward_launch",
-              "cluster": "conv_lnl_cluster_backward_launch"}[route]
+              "cluster": "conv_lnl_cluster_backward_launch",
+              "global": "conv_lnl_global_backward_launch"}[route]
     ints = 1 + _SIDE_INTS[route] + 2
     return _build.function(
         "conv_lnl_backward", symbol,
         [ctypes.c_void_p] + [ctypes.c_int] * ints
-        + [ctypes.c_void_p] * (len(FFT_BACKWARD_CONST_ARGS) + 6),
+        + [ctypes.c_void_p] * (len(FFT_BACKWARD_CONST_ARGS) + 6 + (route == "global")),
     )
 
 
@@ -1465,7 +1580,8 @@ FFT_BACKWARD_CONST_ARGS = ("twiddle", "fft_layout", "var_gain", "psf_r",
 # conv_lnl_padded_backward_launch(raws, batch, h, w, mh, mw, per_target,
 # spectra_stride, <these>, weights, scale_exp, lnl, grad, out, stream): the
 # same at the transform's sides (conv_lnl_cluster_backward_launch's, with
-# the cluster's size after mh, mw)
+# the cluster's size after mh, mw; conv_lnl_global_backward_launch's with the
+# tiles there and its scratch S before out)
 PADDED_BACKWARD_CONST_ARGS = ("pad_twiddle", "pad_layout", "var_gain", "pad_psf_r",
                               "pad_psf_ic", "pad_var_r", "pad_var_ic")
 # conv_lnl_dft_backward_launch(raws, batch, h, w, per_target, data_stride,
@@ -1479,10 +1595,10 @@ DFT_BACKWARD_CONST_ARGS = ("cw", "sw", "lf", "li", "ica", "isa", "ica_t",
 
 
 def _launch_backward(raws, consts: ConvLnlConsts, lnl, grad, route, residuals=None):
-    """The backward kernel on ``route``: on the FFT, the padded and the
-    cluster route from the forward's ``residuals`` ``(weights, scale_exp)``, on the
-    matmul-DFT route recomputing the forward (``chip_smoke.py`` also times
-    that route on the other routes' inputs)."""
+    """The backward kernel on ``route``: off the matmul-DFT route from the
+    forward's ``residuals`` ``(weights, scale_exp)``, on it recomputing the
+    forward (``chip_smoke.py`` also times that route on the other routes'
+    inputs)."""
     if raws.dtype != torch.float32 or grad.dtype != torch.float32:
         raise TypeError("the CUDA conv_lnl backward takes float32")
     check_launch_consts(consts, raws.device)
@@ -1491,7 +1607,7 @@ def _launch_backward(raws, consts: ConvLnlConsts, lnl, grad, route, residuals=No
     dev = raws.device
     out = torch.empty_like(raws)
     sides = (h, w)
-    if route in _BLOCK_ROUTES:
+    if route in _FFT_ROUTES:
         weights, scale_exp = residuals
         if weights.shape != (b, h, w, 2) or weights.dtype != torch.float32 \
                 or scale_exp.shape != (b,) or scale_exp.dtype != torch.int32 \
@@ -1502,8 +1618,10 @@ def _launch_backward(raws, consts: ConvLnlConsts, lnl, grad, route, residuals=No
         names = FFT_BACKWARD_CONST_ARGS if route == "fft" else PADDED_BACKWARD_CONST_ARGS
         per, _, spectra = _target_ints(b, consts, route)
         sides = _sides(route, (h, w)) + (per, spectra)
-        scratch = [weights.contiguous(), scale_exp.contiguous()]
-        tensors = [getattr(consts, n) for n in names] + scratch + [lnl, grad, out]
+        scratch = [weights.contiguous(), scale_exp.contiguous(), lnl, grad]
+        if route == "global":  # the transform's rows, S
+            scratch.append(_transform_rows(b, (h, w), dev))
+        tensors = [getattr(consts, n) for n in names] + scratch + [out]
     else:
         t1 = torch.empty((b, 2, h, w // 2 + 1), dtype=torch.float32, device=dev)
         scratch = [t1, torch.empty_like(t1)] + [torch.empty_like(raws)
@@ -1524,8 +1642,8 @@ def batched_conv_lnl_backward(raws, consts: ConvLnlConsts, lnl, grad, residuals=
     (whose lnL was ``lnl``) for the output gradient ``grad (B,)``.  On
     CUDA the backward kernel of the route :func:`conv_route` picks
     (counted in ``batched_conv_lnl_backward.launches``,
-    ``.route_launches`` and ``.shape_launches``); the FFT, the padded and
-    the cluster route's read ``residuals``, the ``(weights, scale_exp)`` of
+    ``.route_launches`` and ``.shape_launches``); every route but the
+    matmul-DFT one reads ``residuals``, the ``(weights, scale_exp)`` of
     :func:`batched_conv_lnl_residuals` at the same ``raws``, and raise
     ``ValueError`` without them.  A stacked consts counts on the route's
     ``"<route>_targets"`` key.  On the CPU
@@ -1536,7 +1654,7 @@ def batched_conv_lnl_backward(raws, consts: ConvLnlConsts, lnl, grad, residuals=
     if raws.device.type != "cuda":
         raise ValueError(f"unsupported device {raws.device}")
     route = conv_route(consts.shape)
-    if route in _BLOCK_ROUTES and residuals is None:
+    if route in _FFT_ROUTES and residuals is None:
         raise ValueError(f"the {route} route's backward reads the forward's "
                          "residuals (batched_conv_lnl_residuals)")
     out = _launch_backward(raws, consts, lnl, grad, route, residuals)
@@ -1546,7 +1664,7 @@ def batched_conv_lnl_backward(raws, consts: ConvLnlConsts, lnl, grad, residuals=
 
 batched_conv_lnl_backward.launches = 0
 batched_conv_lnl_backward.route_launches = {"fft": 0, "dft": 0, "padded": 0,
-                                            "cluster": 0, "fft_targets": 0,
+                                            "cluster": 0, "global": 0, "fft_targets": 0,
                                             "dft_targets": 0, "padded_targets": 0,
-                                            "cluster_targets": 0}
+                                            "cluster_targets": 0, "global_targets": 0}
 batched_conv_lnl_backward.shape_launches = {}

@@ -6,18 +6,20 @@ render ``raw = sky + sum of Sersics + sum of point sources``, convolve it
 with the PSF and its square with the PSF variance map, and reduce the
 masked Gaussian lnL, all in one kernel (``csrc/fused_lnl.cu``) that keeps
 the walker's images in shared memory and writes one float per walker.
-The source has the four routes of ``csrc/conv_lnl.cu``, and
+The source has the five routes of ``csrc/conv_lnl.cu``, and
 :func:`fused_route` is :func:`~psfmc_tpu_torch.ops.kernels.conv_lnl.conv_route`:
 ``"fft"`` (one complex FFT pair in a block's shared memory on
 ``csrc/fft_conv.cuh``'s radix-2 or mixed-radix geometry), ``"padded"``
 (its padded geometry), ``"cluster"`` (``csrc/fft_cluster.cuh``: the
-transform across a cluster of 2, 4 or 8 blocks) and ``"dft"`` (the
-matmul-DFT products in three shared-memory buffers, for what no other
-route holds: a side of 1).  On the first three the kernel reads the
-walker's scalars (Sersic rows, ``fky``, ``kx``) through the read-only
-cache instead of copying them into shared memory, so that its shared
-memory is conv_lnl's and the two share one route rule; the matmul-DFT
-route copies them beside its buffers.  The consts are conv_lnl's
+transform across a cluster of 2, 4 or 8 blocks), ``"global"``
+(``csrc/fft_global.cuh``: the transform in a global-memory scratch, a
+render pass writing the walker's rows and their peaks before conv_lnl's
+row, column and readout passes) and ``"dft"`` (the matmul-DFT products in
+three shared-memory buffers, for what no other route holds: a side of 1).
+On the first four the kernel reads the walker's scalars (Sersic rows,
+``fky``, ``kx``) through the read-only cache instead of copying them into
+shared memory, so that its shared memory is conv_lnl's and the two share
+one route rule; the matmul-DFT route copies them beside its buffers.  The consts are conv_lnl's
 (:func:`~psfmc_tpu_torch.ops.kernels.conv_lnl.make_conv_lnl_consts`).
 
 The per-walker scalar preparation stays in torch, as in the JAX wrapper:
@@ -44,17 +46,19 @@ import torch
 from ..pointsource import pointsource_image
 from . import _build, counts
 from .conv_lnl import (
-    _BLOCK_ROUTES,
     _DFT_CONST_ARGS,
+    _FFT_ROUTES,
     _SIDE_INTS,
     BLOCK_SMEM_LIMIT,
     ConvLnlConsts,
+    _global_scratch,
     _launch_error,
     _sides,
     batched_conv_lnl_plain,
     check_launch_consts,
     cluster_size,
     conv_route,
+    global_tiles,
     padded_shape,
 )
 from .sersic_render import PARAMS_PER_SERSIC, render_sersics_plain
@@ -67,6 +71,7 @@ __all__ = [
     "fused_lnl_smem_bytes",
     "fused_lnl_supported",
     "fused_route",
+    "global_render_rows",
 ]
 
 # Shared memory a block may use on Hopper, less the matmul-DFT route's
@@ -78,7 +83,7 @@ _SHAPE_ATTRS = {"c0", "f1", "f2", "f3", "f4", "b1", "b2", "b3",
 
 
 def fused_route(shape):
-    """``"fft"``, ``"padded"``, ``"cluster"`` or ``"dft"``: the fused
+    """``"fft"``, ``"padded"``, ``"cluster"``, ``"global"`` or ``"dft"``: the fused
     kernel's route for an ``(H, W)`` image, conv_lnl's
     (:func:`~psfmc_tpu_torch.ops.kernels.conv_lnl.conv_route`)."""
     return conv_route(shape)
@@ -102,6 +107,20 @@ def cluster_rank_rows(shape):
             for r in range(ranks)]
 
 
+def global_render_rows(shape):
+    """The global route's render pass (``csrc/fused_lnl.cu``'s
+    ``fused_lnl_global_render_kernel``): the image rows ``[y0, y1)`` that
+    each block renders, the row tiles of conv_lnl's row passes
+    (:func:`~psfmc_tpu_torch.ops.kernels.conv_lnl.global_tiles`), so that
+    each tile's peak is ready for the pack; the pad's zeros are the row
+    passes' (columns ``W .. M_w``) and the column passes' (rows ``H ..
+    M_h``); ``[]`` off the global route."""
+    if conv_route(shape) != "global":
+        return []
+    h, rows = int(shape[0]), global_tiles(shape)[0]
+    return [(y0, min(y0 + rows, h)) for y0 in range(0, h, rows)]
+
+
 def fused_lnl_smem_bytes(shape, num_sersic, num_ps):
     """Dynamic shared memory of one block on the matmul-DFT route: three
     ``(2, H, W//2+1)`` float buffers plus the walker's scalars
@@ -119,12 +138,10 @@ def fused_lnl_supported(spec):
     The JAX package's gate (component kinds whitelisted, flat sky,
     elliptical Sersics, one PSF, Gaussian likelihood, no padding, no
     oversampling), plus the port's own limit: the route the shape takes
-    (:func:`fused_route`) must hold one walker.  The FFT, padded and
-    cluster routes hold every shape conv_lnl's rule sends them; the
-    matmul-DFT route's three buffers must fit a block's shared memory
-    (a side of 1 does; 512x512, a transform no cluster of 8 holds, does
-    not, and that is the one shape family the JAX gate takes and this
-    one refuses).
+    (:func:`fused_route`) must hold one walker.  The FFT, padded, cluster
+    and global routes hold every shape conv_lnl's rule sends them (every
+    shape with both sides from 2 to 1024); the matmul-DFT route, left for
+    a side of 1, needs its three buffers in a block's shared memory.
     """
     specs = getattr(spec, "comp_specs", ())
     known = {"sky", "pointsource", "sersic", "psfselector"}
@@ -164,11 +181,21 @@ def fused_lnl_plain(packed, sky, fky, kx, consts: ConvLnlConsts):
 
 # fused_lnl_<route>_launch(packed, sky, fky, kx, batch, num_sersic, num_ps,
 # <the sides: conv_lnl's _sides>, <conv_lnl's constants of the route, one
-# observation and one PSF>, out, stream); the matmul-DFT route's symbol is
-# fused_lnl_launch
+# observation and one PSF>, <on the global route: the raw images' scratch
+# and conv_lnl's global scratch>, out, stream); the matmul-DFT route's
+# symbol is fused_lnl_launch
 _ROUTES = {"dft": ("fused_lnl_launch", _DFT_CONST_ARGS)}
 _ROUTES.update({route: (f"fused_lnl_{route}_launch", names)
-                for route, (_, names) in _BLOCK_ROUTES.items()})
+                for route, (_, names) in _FFT_ROUTES.items()})
+
+
+def _scratch(route, b, shape, device):
+    """The global route's scratch (the raw images ``(B, H, W)`` float32,
+    then conv_lnl's: ``_global_scratch``); none on the other routes."""
+    if route != "global":
+        return []
+    return [torch.empty((b, *shape), dtype=torch.float32, device=device)] + \
+        _global_scratch(b, shape, device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -177,7 +204,7 @@ def _kernel(route):
     return _build.function(
         "fused_lnl", symbol,
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * (3 + _SIDE_INTS.get(route, 2))
-        + [ctypes.c_void_p] * (len(const_args) + 2),
+        + [ctypes.c_void_p] * (len(const_args) + 4 * (route == "global") + 2),
     )
 
 
@@ -209,7 +236,8 @@ def _launch(packed, sky, fky, kx, consts: ConvLnlConsts, route):
     h, w = consts.shape
     packed, sky, fky, kx = (t.contiguous() for t in (packed, sky, fky, kx))
     out = torch.empty((b,), dtype=torch.float32, device=packed.device)
-    tensors = [getattr(consts, n) for n in _ROUTES[route][1]] + [out]
+    tensors = [getattr(consts, n) for n in _ROUTES[route][1]] \
+        + _scratch(route, b, (h, w), packed.device) + [out]
     sides = _sides(route, (h, w))
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -240,4 +268,4 @@ def fused_lnl(packed, sky, fky, kx, consts: ConvLnlConsts):
 
 
 fused_lnl.launches = 0
-fused_lnl.route_launches = {"fft": 0, "padded": 0, "cluster": 0, "dft": 0}
+fused_lnl.route_launches = {"fft": 0, "padded": 0, "cluster": 0, "global": 0, "dft": 0}

@@ -223,7 +223,7 @@ def test_residual_wrapper_on_the_cpu(fft_posts, padded_posts):
     the route (the FFT route's at 24x20, the padded route's at 15x13) and
     ``batched_conv_lnl_backward`` the version of record whatever residuals
     it is given; a shape on the matmul-DFT route (1x64: a side of 1, which
-    neither a block nor a cluster of blocks takes) raises."""
+    no other route takes) raises."""
     post = fft_posts[(24, 20)]
     raws = post.raw_and_ps(prior_draws(post.spec, 3, seed=4))[0].detach()
     out = CL.batched_conv_lnl_residuals(raws, post.consts)
@@ -247,5 +247,5 @@ def test_residual_wrapper_on_the_cpu(fft_posts, padded_posts):
                                   rng.rand(*shape) + 1.0, np.ones(shape, bool), "cpu",
                                   torch.float64)
     assert CL.conv_route(shape) == "dft"
-    with pytest.raises(ValueError, match="off the FFT, padded and cluster routes"):
+    with pytest.raises(ValueError, match="is on the matmul-DFT route"):
         CL.batched_conv_lnl_residuals(torch.as_tensor(rng.rand(2, *shape)), dft)

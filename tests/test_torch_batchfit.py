@@ -50,6 +50,17 @@ from psfmc_tpu_torch.models.spec import build_model_spec
 from psfmc_tpu_torch.ops.kernels import conv_lnl as CL
 from test_torch_tempered import ScriptedDraws, half_draws
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One torch thread a test (the suite's workers share the host's cores;
+    more threads a worker oversubscribe them), restored after it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SHAPE, PSF_SHAPE = (32, 32), (16, 16)
 JOINT_SHAPES = ((32, 32), (24, 24))
 K, W = 3, 4  # targets and walkers a target of the lnpost parity cases
@@ -359,14 +370,19 @@ def test_copy_target_consts_writes_in_place():
 
 
 def test_survey_mode_on_the_dft_route_takes_the_general_path():
-    """At 512x512 (the matmul-DFT route: no cluster of 8 blocks holds its
-    transform) a stack with a PSF per target takes the general path, a
-    stack with the shared PSF the kernel path, and both agree with the JAX
-    package."""
-    shape = (512, 512)
-    tm = MultiComponentModel(_components("torch", "flagship", shape), device="cpu",
-                             dtype=torch.float64)
-    jm = JaxModel(_components("jax", "flagship", shape), dtype=jnp.float64)
+    """At 1x64 (a side of 1: the matmul-DFT route, the one shape family left
+    there since the global route took 512x512) a stack with a PSF per
+    target takes the general path, a stack with the shared PSF the kernel
+    path, and both agree with the JAX package."""
+    shape, psf_shape = (1, 64), (1, 16)
+
+    def components(package):
+        C, D = PACKAGES[package]
+        return general_components(shape, psf_shape, components=C, distributions=D,
+                                  **FLAGSHIP)
+
+    tm = MultiComponentModel(components("torch"), device="cpu", dtype=torch.float64)
+    jm = JaxModel(components("jax"), dtype=jnp.float64)
     assert CL.conv_route(shape) == "dft"
     assert CL.batched_lnl_supported(tm.spec) == (True, "")
     assert not CL.target_spectra_supported(shape)
@@ -374,7 +390,7 @@ def test_survey_mode_on_the_dft_route_takes_the_general_path():
     assert fns.obs_mode() == "batched" and fns.obs_mode(True) == "general"
     nt, wpt = 2, 2
     obs, ivm, _ = tbf.simulate_stack(tm, nt, seed=4)
-    psfs, ivms = psf_stars(nt)
+    psfs, ivms = psf_stars(nt, psf_shape)
     th = prior_draws(tm.spec, nt * wpt, seed=6)
     jfun = jax.jit(jax.vmap(jm.posterior_fns.log_posterior_obs, in_axes=(0, None)))
     for survey in (False, True):

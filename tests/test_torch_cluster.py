@@ -27,6 +27,16 @@ from psfmc_tpu_torch.ops.likelihood import gaussian_lnlike
 from test_torch_kernels import _jax_flagship_spec
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One torch thread a test (the suite's workers share the host's cores;
+    more threads a worker oversubscribe them), restored after it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _ids(v):
     return f"{v[0]}x{v[1]}" if isinstance(v, tuple) else str(v)
 
@@ -42,14 +52,17 @@ def test_cluster_route_is_a_function_of_the_shape(shape, ranks):
     """The cluster route takes the shapes whose transform
     (:func:`padded_shape`: 88x88 -> 180x180, 94x94 -> 192x192, 101x101 ->
     210x210, the FFT route's own sides otherwise) fits no block, on the
-    smallest cluster whose blocks each hold their rows; the rest stays on
-    the matmul-DFT route.  The fused kernel takes the same route."""
+    smallest cluster whose blocks each hold their rows; the transforms no
+    cluster holds take the global route, a side of 1 the matmul-DFT route.
+    The fused kernel takes the same route; per-target spectra are read
+    off the matmul-DFT route."""
     from psfmc_tpu_torch.ops.kernels import fused_lnl as FL
 
     assert CL.cluster_size(shape) == ranks
-    assert CL.conv_route(shape) == ("cluster" if ranks else "dft")
+    rest = "global" if min(shape) > 1 else "dft"
+    assert CL.conv_route(shape) == ("cluster" if ranks else rest)
     assert FL.fused_route(shape) == CL.conv_route(shape)
-    assert CL.target_spectra_supported(shape) == bool(ranks)
+    assert CL.target_spectra_supported(shape) == (min(shape) > 1)
     if not ranks:
         return
     limit = CL.BLOCK_SMEM_LIMIT

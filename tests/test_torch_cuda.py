@@ -425,12 +425,14 @@ def test_kernel_wrappers_do_not_fall_back(cuda):
 
 
 def test_fused_lnl_refuses_a_walker_beyond_shared_memory(cuda):
-    """A 512x512 walker takes the matmul-DFT route (no cluster of 8 blocks
-    holds its transform), whose three buffers need more shared memory than
-    a block has: the launch is refused, and the wrapper raises instead of
-    returning an unwritten output."""
-    assert FL.fused_route((512, 512)) == "dft"
-    spec = build_model_spec(flagship_components((512, 512), (32, 32)))
+    """A 1x20000 walker takes the matmul-DFT route (a side of 1: the one
+    shape left there since 512x512 took the global route), whose three
+    buffers need more shared memory than a block has: the launch is
+    refused, and the wrapper raises instead of returning an unwritten
+    output."""
+    assert FL.fused_route((1, 20000)) == "dft"
+    assert FL.fused_lnl_smem_bytes((1, 20000), 2, 1) > FL.FUSED_SMEM_LIMIT
+    spec = build_model_spec(flagship_components((1, 20000), (1, 32)))
     post = build_posterior(spec, device=cuda, lnpost="batched")
     th = torch.as_tensor(prior_draws(spec, 4, seed=8), dtype=torch.float32,
                          device=post.device)
@@ -1072,12 +1074,14 @@ def test_log_posterior_and_grad_matches_cpu_float64(cuda, variant):
     assert rel[fin].max().item() <= 1e-3
 
 
-# a single fit's conv_lnl and backward launch nothing on the stacked routes
+# a single fit's conv_lnl and backward launch nothing on the stacked routes,
+# and (at these shapes) nothing on the global route
 NO_TARGETS = {"fft_targets": 0, "padded_targets": 0, "dft_targets": 0,
               "fft_res_targets": 0, "padded_res_targets": 0, "cluster_targets": 0,
-              "cluster_res_targets": 0}
+              "cluster_res_targets": 0, "global": 0, "global_res": 0,
+              "global_targets": 0, "global_res_targets": 0}
 NO_BACKWARD_TARGETS = {"fft_targets": 0, "padded_targets": 0, "dft_targets": 0,
-                       "cluster_targets": 0}
+                       "cluster_targets": 0, "global": 0, "global_targets": 0}
 
 
 def _map_counts():
@@ -1344,6 +1348,145 @@ def test_cluster_route_keeps_the_non_finite_walkers_inside_a_graph(cuda):
     torch.cuda.synchronize()
     for x, y in zip(out, eager):
         _same_bits(x, y)
+
+
+GLOBAL_SHAPES = [(235, 235), (251, 251), (512, 512), (640, 640), (235, 512), (1023, 1023)]
+
+
+@pytest.mark.parametrize("shape", GLOBAL_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_conv_lnl_global_route_matches_float64(cuda, shape):
+    """The global route's forward, residual forward and backward (the
+    padded 480x480, 504x504, 480x512 and 2048x2048 transforms, and 512x512
+    and 640x640 unpadded) at 8 walkers: one launch each on the routes
+    ``"global"`` and ``"global_res"`` and the backward's ``"global"``; the
+    lnL within 2e-5 of the float64 plain version per walker, the residual
+    instantiation's lnL bits the forward's, the backward within 1e-3 of
+    each walker's largest gradient of the float64 plain backward, the same
+    bits on a second launch of each, and each walker's bits independent of
+    the batch it is launched in."""
+    consts, c64, raws = _synthetic_consts(shape, cuda, shape[0] * 1000 + shape[1])
+    raws = raws[:8].contiguous()
+    assert CL.conv_route(shape) == "global" and CL.global_tiles(shape)
+    routes = dict(CL.batched_conv_lnl.route_launches)
+    back_routes = dict(CL.batched_conv_lnl_backward.route_launches)
+    got = CL.batched_conv_lnl(raws, consts)
+    lnl, *residuals = CL.batched_conv_lnl_residuals(raws, consts)
+    grad = torch.as_tensor(np.random.RandomState(4).uniform(0.5, 2.0, len(raws)),
+                           dtype=torch.float32, device=cuda)
+    back = CL.batched_conv_lnl_backward(raws, consts, got, grad, residuals)
+    torch.cuda.synchronize()
+    routes["global"] += 1
+    routes["global_res"] += 1
+    back_routes["global"] += 1
+    assert CL.batched_conv_lnl.route_launches == routes
+    assert CL.batched_conv_lnl_backward.route_launches == back_routes
+    _same_bits(lnl, got)
+    want = CL.batched_conv_lnl_plain(raws.double().cpu(), c64).to(cuda)
+    assert torch.isfinite(want).all() and torch.isfinite(got).all()
+    torch.testing.assert_close(got.double(), want, rtol=2e-5, atol=0.0)
+    want_back = CL.batched_conv_lnl_backward_plain(
+        raws.double().cpu(), c64, want.cpu(), grad.double().cpu()).to(cuda)
+    assert _normalized_err(back, want_back, dims=(1, 2)) <= 1e-3
+    assert torch.equal(got, CL.batched_conv_lnl(raws, consts))
+    for x, y in zip(CL.batched_conv_lnl_residuals(raws, consts), [lnl] + residuals):
+        _same_bits(x, y)
+    assert torch.equal(back, CL.batched_conv_lnl_backward(raws, consts, got, grad,
+                                                          residuals))
+    _same_bits(CL.batched_conv_lnl(raws[3:6].contiguous(), consts), got[3:6])
+
+
+@pytest.mark.parametrize("shape", [(251, 251), (512, 512)], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_fused_lnl_global_route_matches_float64(cuda, shape):
+    """The fused kernel on the global route (its render pass, then
+    conv_lnl's passes) at 30 walkers of the flagship: one launch on the
+    route ``"global"``, the non-finite walkers of the float32 plain
+    version, within 2e-5 of the float64 plain version per walker (at these
+    widths the float32 plain version's matrix products are themselves
+    further than that from it), the same bits on a second launch."""
+    post, params, sky, fky, kx = _likelihood_inputs(cuda, shape, (64, 64), True, "fused", 7)
+    assert FL.fused_route(shape) == "global" and FL.fused_lnl_supported(post.spec)[0]
+    ref = build_posterior(post.spec, device="cpu", dtype=torch.float64, lnpost="fused")
+    c64 = CL.ConvLnlConsts(**{f: getattr(ref.consts, f).to(cuda)
+                              for f in CL.ConvLnlConsts.__dataclass_fields__})
+    args = (params.contiguous(), sky.contiguous(), fky.contiguous(), kx.contiguous())
+    before = FL.fused_lnl.launches
+    routes_before = dict(FL.fused_lnl.route_launches)
+    got = FL.fused_lnl(*args, post.consts)
+    torch.cuda.synchronize()
+    _assert_launched_on(FL.fused_lnl, "global", before, routes_before)
+    assert _same_nonfinite(got, FL.fused_lnl_plain(*args, post.consts))
+    want = FL.fused_lnl_plain(*(t.double() for t in args), c64)
+    fin = torch.isfinite(want) & torch.isfinite(got)
+    assert fin.sum().item() >= 15
+    torch.testing.assert_close(got[fin].double(), want[fin], rtol=2e-5, atol=0.0)
+    assert torch.equal(got, FL.fused_lnl(*args, post.consts))
+
+
+def test_global_route_keeps_the_non_finite_walkers_inside_a_graph(cuda):
+    """At 251x251 (a 504x504 transform in global memory): a NaN pixel, an
+    infinite pixel and a pixel whose square overflows float32 give -inf on
+    exactly those walkers in the forward and the residual forward, as the
+    plain version, and a zero gradient; the three calls (eleven launches
+    and their scratch from the graph's pool) captured in one CUDA graph
+    replay the eager launches bit for bit."""
+    consts, _, raws = _synthetic_consts((251, 251), cuda, 251)
+    raws = raws[:24].contiguous()
+    raws[2, 5, 7] = float("nan")
+    raws[11, 40, 3] = float("inf")
+    raws[17, 250, 250] = 1e30
+    raws[23] = 0.0  # the scale falls back to 1
+    grad = torch.ones(len(raws), dtype=torch.float32, device=cuda)
+
+    def launches():
+        lnl = CL.batched_conv_lnl(raws, consts)
+        res = CL.batched_conv_lnl_residuals(raws, consts)
+        return [lnl, *res, CL.batched_conv_lnl_backward(raws, consts, lnl, grad, res[1:])]
+
+    eager = launches()
+    want = CL.batched_conv_lnl_plain(raws, consts)
+    for got in eager[:2]:
+        assert _same_nonfinite(got, want)
+        assert {2, 11, 17} <= set(torch.isinf(got).nonzero().flatten().tolist())
+        fin = torch.isfinite(want)
+        torch.testing.assert_close(got[fin], want[fin], rtol=2e-5, atol=0.0)
+    assert torch.isfinite(eager[0][23])
+    for w in (2, 11, 17):
+        assert torch.equal(eager[4][w], torch.zeros_like(eager[4][w]))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        launches()  # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = launches()
+    graph.replay()
+    torch.cuda.synchronize()
+    for x, y in zip(out, eager):
+        _same_bits(x, y)
+
+
+def test_global_launch_refuses_a_plan_the_host_did_not_make(cuda):
+    """The global launch checks the transform's sides and the tiles
+    against the plan: a transform or a tile the host would not make is
+    refused (nothing launched) and the right plan launches."""
+    consts, _, raws = _synthetic_consts((251, 251), cuda, 5)
+    raws = raws[:4].contiguous()
+    fn = CL._block_kernel("global", False)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [getattr(consts, n).data_ptr() for n in CL.PADDED_CONST_ARGS]
+    scratch = [t.data_ptr() for t in CL._global_scratch(4, (251, 251), cuda)]
+    out = torch.empty(4, device=cuda)
+    one = (1, 0, 0)
+    for plan in ((251, 251, 502, 504, 16, 8), (251, 251, 504, 504, 17, 8),
+                 (251, 251, 504, 504, 16, 0)):
+        assert fn(raws.data_ptr(), 4, *plan, *one, *ptrs, *scratch, out.data_ptr(),
+                  stream) != 0
+    assert fn(raws.data_ptr(), 4, 251, 251, 504, 504, 16, 8, *one, *ptrs, *scratch,
+              out.data_ptr(), stream) == 0
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, CL.batched_conv_lnl_plain(raws, consts), rtol=2e-5,
+                               atol=0.0)
 
 
 def test_padded_launch_refuses_a_shape_the_host_did_not_plan(cuda):
@@ -1653,11 +1796,12 @@ def _target_stack(shape, device, nt, spectra, seed=3):
 
 
 @pytest.mark.parametrize("shape", [(128, 128), (96, 96), (98, 98), (74, 74), (45, 75),
-                                   (94, 94), (256, 256)])
+                                   (94, 94), (256, 256), (251, 251)])
 @pytest.mark.parametrize("spectra", [False, True], ids=["planes", "spectra"])
 def test_conv_lnl_with_targets_matches_plain(cuda, shape, spectra):
-    """Per-target planes on every route (and per-target spectra on the FFT,
-    padded and cluster routes: 94x94 and 256x256) against the plain version: within 2e-5 of the
+    """Per-target planes on every route (and per-target spectra off the
+    matmul-DFT route: 94x94 and 256x256 on the cluster route, 251x251 on the
+    global route) against the plain version: within 2e-5 of the
     float32 plain version per walker, as close to the float64 one as four
     times the float32 plain version, the same non-finite entries, counted
     on the route's ``_targets`` key; per-target spectra on the matmul-DFT
@@ -1713,12 +1857,13 @@ def test_conv_lnl_stacked_copies_equal_the_shared_launch(cuda, shape):
 
 TARGET_GRAD_CASES = [((128, 128), False), ((128, 128), True), ((96, 96), False),
                      ((74, 74), False), ((74, 74), True), ((94, 94), False),
-                     ((94, 94), True), ((160, 180), False)]
+                     ((94, 94), True), ((160, 180), False), ((251, 251), False),
+                     ((251, 251), True)]
 
 
 @pytest.mark.parametrize("shape,spectra", TARGET_GRAD_CASES,
                          ids=["128", "128-spectra", "96", "74", "74-spectra", "94",
-                              "94-spectra", "160x180"])
+                              "94-spectra", "160x180", "251", "251-spectra"])
 def test_conv_lnl_residuals_and_backward_with_targets_match_plain(cuda, shape, spectra):
     """The residual forward and the backward with the target axis (the
     hierarchical fit's gradient): per-target planes on the radix-2,

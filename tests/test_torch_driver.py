@@ -28,6 +28,17 @@ from psfmc_tpu_torch.models import as_model
 from psfmc_tpu_torch.sampler import EnsembleSampler
 from test_torch_io import MODEL, _write_inputs
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One torch thread a test (the suite's workers share the host's cores;
+    more threads a worker oversubscribe them), restored after it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 NAMES = ["0_Sky_adu", "1_PointSource_mag", "1_PointSource_xy"]
 LENS = [1, 1, 2]
 NW, NITER = 6, 5

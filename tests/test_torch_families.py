@@ -60,6 +60,17 @@ from psfmc_tpu_torch.ops.kernels import batched_lnl_supported
 from psfmc_tpu_torch.ops.kernels.fused_lnl import fused_lnl_supported
 from test_torch_general import numpy_fields
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One torch thread a test (the suite's workers share the host's cores;
+    more threads a worker oversubscribe them), restored after it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SHAPE, PSF_SHAPE = (32, 32), (16, 16)
 NWALKERS = 8
 

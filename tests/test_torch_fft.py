@@ -440,7 +440,7 @@ CLUSTER = {(128, 256), (256, 256), (88, 88), (160, 180), (196, 196), (94, 94),
     ((45, 37), "padded"), ((96, 96), "fft"), ((100, 100), "fft"),
     ((144, 144), "fft"), ((128, 96), "fft"), ((1, 64), "dft"),
     # powers of two, but one walker does not fit in a block
-    ((128, 256), "cluster"), ((256, 256), "cluster"), ((512, 512), "dft"),
+    ((128, 256), "cluster"), ((256, 256), "cluster"), ((512, 512), "global"),
     # factors of 7: the mixed-radix geometry's radix-7 stages
     ((98, 98), "fft"), ((56, 56), "fft"), ((98, 128), "fft"),
     # a factor of 37 or 11, odd sides with factors 3, 5 and 7, too large
@@ -448,9 +448,8 @@ CLUSTER = {(128, 256), (256, 256), (88, 88), (160, 180), (196, 196), (94, 94),
     ((49, 98), "padded"), ((160, 180), "cluster"), ((196, 196), "cluster"),
     # factors of 47 and 101: padded to 192 and 210, no block holds them
     ((94, 94), "cluster"), ((101, 101), "cluster"), ((64, 74), "padded"),
-    # on no route but the matmul-DFT one: a transform that no cluster of 8
-    # blocks holds
-    ((512, 512), "dft"),
+    # on the global route: a transform that no cluster of 8 blocks holds
+    ((512, 512), "global"),
 ], ids=lambda v: v if isinstance(v, str) else f"{v[0]}x{v[1]}")
 def test_conv_route_is_a_function_of_the_shape(shape, route):
     """conv_lnl's rule, which is also the fused kernel's
@@ -461,9 +460,9 @@ def test_conv_route_is_a_function_of_the_shape(shape, route):
     padded), ``"cluster"`` for those of :data:`CLUSTER`: 88x88 (180x180),
     94x94 (192x192) and 101x101 (210x210) need more shared memory than a
     block has, and so do 160x180, 196x196, 128x256 and 256x256 on the FFT
-    route's sides, but a cluster of 2 (256x256: 4) blocks holds each; a
-    side of 1 (1x64) and 512x512 (no cluster of 8 holds it) stay on the
-    matmul-DFT route."""
+    route's sides, but a cluster of 2 (256x256: 4) blocks holds each;
+    512x512 (no cluster of 8 holds it) takes the global route, and a side
+    of 1 (1x64) stays on the matmul-DFT route."""
     from psfmc_tpu_torch.ops.kernels import fused_lnl as FL
 
     assert CL.conv_route(shape) == route

@@ -128,12 +128,13 @@ def test_lnpost_mode_rejects_unknown_values(monkeypatch):
     (dict(likelihood="student"), "non-Gaussian"),
     (dict(conv_pad=4), "conv_pad"),
     (dict(num_psfs=2), "several PSFs"),
-    (dict(shape=(512, 512)), "shared memory"),
+    (dict(shape=(1, 20000)), "shared memory"),
 ])
 def test_fused_mode_raises_for_a_rejected_spec(specs, change, match):
     """The JAX package warns and falls back; the port raises ValueError
-    (at 512x512, which only the matmul-DFT route takes, for its three
-    buffers in shared memory)."""
+    (at 1x20000, a side of 1, which only the matmul-DFT route takes, for
+    its three buffers in shared memory; 512x512 took that route, and this
+    case, until the global route took it)."""
     spec = replace(specs[1], **change)
     with pytest.raises(ValueError, match=match):
         build_posterior(spec, device="cpu", lnpost="fused")

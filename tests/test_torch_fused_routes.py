@@ -11,6 +11,8 @@ kernel in interpret mode with true-f32 products, one small shape per new
 route, from the same ``ModelSpec`` and seeded numpy thetas.  Every
 tolerance is stated where it is asserted.
 """
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -63,16 +65,21 @@ def test_fused_gate_agrees_with_jax_at_the_flagship(shape, psf_shape, route):
 
 
 def test_fused_gate_refuses_512_naming_shared_memory():
-    """512x512 takes no route but the matmul-DFT one, whose three buffers
-    no block holds: the port refuses it (the one divergence from the JAX
-    gate, which takes it)."""
+    """512x512 took no route but the matmul-DFT one, whose three buffers no
+    block holds, and the port refused it; it now takes the global route
+    and both gates take it, as the fused posterior does.  What the port
+    still refuses, naming shared memory, is a side of 1 whose three
+    buffers no block holds (1x20000), the one shape left on the matmul-DFT
+    route."""
     jspec, carried = _specs((512, 512), (32, 32))
     assert jax_fused_gate(jspec, "dft")
-    assert FL.fused_route((512, 512)) == "dft"
-    ok, why = FL.fused_lnl_supported(carried)
+    assert FL.fused_route((512, 512)) == "global"
+    assert FL.fused_lnl_supported(carried) == (True, "")
+    assert build_posterior(carried, device="cpu", lnpost="fused").lnpost == "fused"
+    thin = types.SimpleNamespace(shape=(1, 20000), comp_specs=carried.comp_specs)
+    assert FL.fused_route(thin.shape) == "dft"
+    ok, why = FL.fused_lnl_supported(thin)
     assert not ok and "shared memory" in why and "dft route" in why
-    with pytest.raises(ValueError, match="shared memory"):
-        build_posterior(carried, device="cpu", lnpost="fused")
 
 
 # the cluster route's shapes (tests/test_torch_cluster.py's) and their sizes

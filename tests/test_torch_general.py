@@ -42,6 +42,17 @@ from psfmc_tpu_torch.models import build_model_spec, build_posterior, spec_from_
 from psfmc_tpu_torch.models.posterior import lnpost_mode
 from psfmc_tpu_torch.ops.kernels import batched_lnl_supported
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One torch thread a test (the suite's workers share the host's cores;
+    more threads a worker oversubscribe them), restored after it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SHAPE, PSF_SHAPE = (64, 64), (32, 32)
 
 VARIANTS = {

@@ -39,6 +39,17 @@ from psfmc_tpu_torch.models import JointModel, MultiComponentModel, as_model
 from psfmc_tpu_torch.models import components as TC
 from psfmc_tpu_torch.models.spec import build_param_slots, comp_spec_for
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One torch thread a test (the suite's workers share the host's cores;
+    more threads a worker oversubscribe them), restored after it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SHAPES, PSF_SHAPE = ((24, 24), (18, 18)), (12, 12)
 PACKAGES = {"torch": (TC, TD), "jax": (JC, JD)}
 

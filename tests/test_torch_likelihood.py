@@ -30,6 +30,17 @@ from psfmc_tpu_torch.models import build_posterior
 from psfmc_tpu_torch.ops import likelihood as TL
 from test_torch_general import jax_posterior, specs, thetas
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One torch thread a test (the suite's workers share the host's cores;
+    more threads a worker oversubscribe them), restored after it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 FAMILIES = [("gaussian", {}), ("student", dict(df=3.0)), ("student", dict(df=30.0)),
             ("poisson", dict(gain=1.0)), ("poisson", dict(gain=2.5))]
 IDS = ["gaussian", "student-3", "student-30", "poisson-1", "poisson-2.5"]

@@ -35,6 +35,17 @@ from psfmc_tpu_torch.flagship import (
 )
 from psfmc_tpu_torch.models import MultiComponentModel, build_model_spec, build_posterior
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One torch thread a test (the suite's workers share the host's cores;
+    more threads a worker oversubscribe them), restored after it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SHAPE, PSF_SHAPE = (32, 32), (16, 16)
 IMAGES = ("raw_model", "convolved_model", "composite_ivm", "residual",
           "point_source_subtracted")

@@ -41,6 +41,17 @@ from psfmc_tpu_torch.ops import oversample as TO
 from psfmc_tpu_torch.ops.sersic import sersic_profile_core, sersic_scalar_params
 from test_torch_general import jax_posterior, specs, thetas
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One torch thread a test (the suite's workers share the host's cores;
+    more threads a worker oversubscribe them), restored after it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 IMAGES = ("raw_model", "convolved_model", "composite_ivm", "residual",
           "point_source_subtracted")
 

@@ -28,6 +28,17 @@ from psfmc_tpu_torch.ops import likelihood as tlike
 from psfmc_tpu_torch.ops import pointsource as tps
 from psfmc_tpu_torch.ops import sersic as tsersic
 
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One torch thread a test (the suite's workers share the host's cores;
+    more threads a worker oversubscribe them), restored after it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 DTYPES = {"f64": (np.float64, torch.float64, jnp.float64),
           "f32": (np.float32, torch.float32, jnp.float32)}
 

@@ -38,6 +38,7 @@ from ..database import annotate_metadata, filter_lowp_walkers, row_to_param_vect
 from ..io import fits
 from ..models.multicomponent import IMAGE_TYPES, poisson_deviance
 from ..parallel.multihost import barrier, is_primary
+from ..profiling import span
 
 __all__ = ["save_posterior_images", "write_image_products", "default_filetypes"]
 
@@ -69,18 +70,25 @@ def save_posterior_images(model, database, output_name="out_{}",
     :param ppc_draws: posterior draws for the MCPPCP card; 0 disables it.
     :param criticism_draws: posterior draws replayed for the criticism
         block (PSIS-LOO, LOO-PIT, prior power-scaling); 0 disables it.
+
+    Spans: ``psfmc.images.filter``, ``.stats`` (the MAP render and the
+    predictive check's draws), ``.criticism``, ``.replay`` (the chain
+    replayed where the filter dropped walkers) and ``.write``.
     """
     header = model.obs_header.copy() if model.obs_header else fits.Header()
     if "{}" not in output_name:
         output_name += "_{}"
-    database = filter_lowp_walkers(database, percentile=walker_min_percentile)
-    _add_stats_to_header(header, model, database, ppc_draws=ppc_draws)
+    with span("psfmc.images.filter"):
+        database = filter_lowp_walkers(database, percentile=walker_min_percentile)
+    with span("psfmc.images.stats"):
+        _add_stats_to_header(header, model, database, ppc_draws=ppc_draws)
     if criticism_draws:
         from .model_comparison import criticism_cards_or_warn
 
-        for key, (value, comment) in criticism_cards_or_warn(
-                model, database, criticism_draws).items():
-            header.set(key, value, comment)
+        with span("psfmc.images.criticism"):
+            for key, (value, comment) in criticism_cards_or_warn(
+                    model, database, criticism_draws).items():
+                header.set(key, value, comment)
 
     if is_primary():
         print("Saving posterior models")
@@ -103,10 +111,11 @@ def save_posterior_images(model, database, output_name="out_{}",
             output_data[ftype] = imgs[ftype][0]
     elif mode == "weighted":
         if len(database) != model.accumulated_samples:
-            thetas = np.stack([row_to_param_vector(r)
-                               for r in database[stochastic_cols]])
-            model.reset_images()
-            model.replay_posterior_means(thetas, chunk=_REPLAY_CHUNK)
+            with span("psfmc.images.replay"):
+                thetas = np.stack([row_to_param_vector(r)
+                                   for r in database[stochastic_cols]])
+                model.reset_images()
+                model.replay_posterior_means(thetas, chunk=_REPLAY_CHUNK)
         for ftype in filetypes:
             if ftype not in model.posterior_images:
                 warn(f"{ftype} was not accumulated for this run; skipping")
@@ -116,8 +125,9 @@ def save_posterior_images(model, database, output_name="out_{}",
         warn(f"Unknown posterior output mode ({mode}). Posterior model "
              "images will not be saved.")
         return
-    write_image_products(output_name, output_data, header, filetypes,
-                         bad_px_value)
+    with span("psfmc.images.write"):
+        write_image_products(output_name, output_data, header, filetypes,
+                             bad_px_value)
 
 
 def write_image_products(output_name, images, header,

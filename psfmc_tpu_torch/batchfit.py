@@ -66,6 +66,7 @@ import torch
 from ._device import resolve_device
 from .parallel.mesh import check_mesh, shard_rows, steps_graphed, walker_sharding
 from .parallel.multihost import barrier, is_primary
+from .profiling import span, traced
 from .sampler.ensemble import (
     MOVES,
     _de_proposal,
@@ -529,42 +530,48 @@ class _BatchProgram:
         """One chunk: its stacks and start into the buffers, the generator
         seeded, the start evaluated, ``burn`` steps, the accept counts
         zeroed, ``iterations`` retained steps (every ``record_every``-th
-        recorded); returns the chunk's results as host numpy."""
-        for live, new in zip(self.stacks, stacks):
-            if live is not new:
-                live.copy_(new)
+        recorded); returns the chunk's results as host numpy.  Spans:
+        ``psfmc.batch.start`` (the copies in, the start's evaluation),
+        ``psfmc.batch.steps`` (ending in the read of the moments' count,
+        which waits for the steps), ``psfmc.batch.readout``."""
         s = self.state
-        s.positions.copy_(torch.as_tensor(p0, dtype=self.dtype))
-        k, w, dim = s.positions.shape
-        s.log_prob.copy_(self.batch(s.positions.reshape(k * w, dim)).reshape(k, w))
-        s.naccept.zero_()
-        for v in s.moments.values():
-            v.zero_()
-        s.best_lnp.fill_(-math.inf)
-        s.best_theta.zero_()
-        self.generator.manual_seed(int(seed))
-        for _ in range(int(burn)):
-            self._step("burn")
-        # the retained phase's acceptance covers retained steps only
-        s.naccept.zero_()
-        if self.record is not None:
-            self.record[2].zero_()
-        for i in range(int(iterations)):
-            rec = record_every and (i + 1) % record_every == 0
-            self._step("record" if rec else "retain")
+        with span("psfmc.batch.start"):
+            for live, new in zip(self.stacks, stacks):
+                if live is not new:
+                    live.copy_(new)
+            s.positions.copy_(torch.as_tensor(p0, dtype=self.dtype))
+            k, w, dim = s.positions.shape
+            s.log_prob.copy_(self.batch(s.positions.reshape(k * w, dim)).reshape(k, w))
+            s.naccept.zero_()
+            for v in s.moments.values():
+                v.zero_()
+            s.best_lnp.fill_(-math.inf)
+            s.best_theta.zero_()
+            self.generator.manual_seed(int(seed))
+        with span("psfmc.batch.steps"):
+            for _ in range(int(burn)):
+                self._step("burn")
+            # the retained phase's acceptance covers retained steps only
+            s.naccept.zero_()
+            if self.record is not None:
+                self.record[2].zero_()
+            for i in range(int(iterations)):
+                rec = record_every and (i + 1) % record_every == 0
+                self._step("record" if rec else "retain")
+            n = max(int(s.moments["n"]), 1)
 
         def host(t):
             return t.to("cpu", torch.float64, copy=True).numpy()
 
-        n = max(int(s.moments["n"]), 1)
-        out = {"mean": host(s.moments["mean"]),
-               "std": np.sqrt(host(s.moments["m2"]) / max(n - 1, 1)),
-               "map_theta": host(s.best_theta), "map_lnp": host(s.best_lnp),
-               "naccept": host(s.naccept)}
-        if record_every:
-            nrec = int(iterations) // record_every
-            out["chain"] = np.ascontiguousarray(host(self.record[0][:nrec]).swapaxes(0, 1))
-            out["lnprob"] = np.ascontiguousarray(host(self.record[1][:nrec]).swapaxes(0, 1))
+        with span("psfmc.batch.readout"):
+            out = {"mean": host(s.moments["mean"]),
+                   "std": np.sqrt(host(s.moments["m2"]) / max(n - 1, 1)),
+                   "map_theta": host(s.best_theta), "map_lnp": host(s.best_lnp),
+                   "naccept": host(s.naccept)}
+            if record_every:
+                nrec = int(iterations) // record_every
+                out["chain"] = np.ascontiguousarray(host(self.record[0][:nrec]).swapaxes(0, 1))
+                out["lnprob"] = np.ascontiguousarray(host(self.record[1][:nrec]).swapaxes(0, 1))
         return out
 
 
@@ -575,6 +582,67 @@ def _chunk_seed(seed, start):
         1, np.uint64)[0])
 
 
+def _stack_inputs(spec, obs_stack, ivm_stack, psf_stack, psfivm_stack, psf_oversample,
+                  np_dtype):
+    """:func:`fit_batch`'s stacks as one dict of ``(K, ...)`` arrays (a
+    joint model's keys prefixed ``b{i}_``), and K."""
+    band_specs = getattr(spec, "band_specs", None)
+    if band_specs is None:
+        obs = prepare_obs_stack(spec, obs_stack, ivm_stack, np_dtype)
+        k_real = obs["obs_data"].shape[0]
+        if psf_stack is not None:
+            psf = prepare_psf_stack(spec, psf_stack, psfivm_stack, psf_oversample,
+                                    np_dtype)
+            if psf["psf_f_re"].shape[0] != k_real:
+                raise ValueError(
+                    f"psf_stack target count {psf['psf_f_re'].shape[0]} "
+                    f"!= obs target count {k_real}"
+                )
+            obs.update(psf)
+    else:
+        # joint model: one (K, H_b, W_b) stack per band, flattened into
+        # b{i}_-prefixed keys so the chunk plumbing is the single band's
+        if len(obs_stack) != len(band_specs) or len(ivm_stack) != len(band_specs):
+            raise ValueError(
+                f"joint fit_batch needs one obs/ivm stack per band "
+                f"({len(band_specs)}), got {len(obs_stack)}/{len(ivm_stack)}"
+            )
+        if psf_stack is not None and len(psf_stack) != len(band_specs):
+            raise ValueError(
+                f"joint fit_batch needs one psf_stack per band "
+                f"({len(band_specs)}; None keeps that band's template "
+                f"PSF), got {len(psf_stack)}"
+            )
+        obs = {}
+        k_real = None
+        for i, (bs, ob, iv) in enumerate(zip(band_specs, obs_stack, ivm_stack)):
+            d = prepare_obs_stack(bs, ob, iv, np_dtype)
+            if psf_stack is not None and psf_stack[i] is not None:
+                if psfivm_stack[i] is None:
+                    raise ValueError(
+                        f"band {i}: psf_stack entry needs a matching "
+                        "psfivm_stack entry"
+                    )
+                p = prepare_psf_stack(bs, psf_stack[i], psfivm_stack[i],
+                                      psf_oversample, np_dtype)
+                if p["psf_f_re"].shape[0] != d["obs_data"].shape[0]:
+                    raise ValueError(
+                        f"band {i}: psf_stack target count "
+                        f"{p['psf_f_re'].shape[0]} != obs target count "
+                        f"{d['obs_data'].shape[0]}"
+                    )
+                d.update(p)
+            k = d["obs_data"].shape[0]
+            if k_real is None:
+                k_real = k
+            elif k != k_real:
+                raise ValueError(f"bands disagree on target count: {k_real} vs {k}")
+            for key, v in d.items():
+                obs[f"b{i}_{key}"] = v
+    return obs, k_real
+
+
+@traced("fit_batch")
 def fit_batch(
     model,
     obs_stack,
@@ -633,10 +701,16 @@ def fit_batch(
         required with ``psf_stack``.
     :param psf_oversample: per-target PSF oversampling factor.
     :returns: :class:`BatchFitResult`.
+
+    With ``PSFMC_TRACE_DIR`` set, the call writes one ``torch.profiler``
+    trace, ``<dir>/fit_batch/rank<r>.pt.trace.json``
+    (:func:`~psfmc_tpu_torch.profiling.trace`), its spans under
+    ``psfmc.fit_batch``.
     """
     if check_mesh(mesh) is not None and device is None:
         device = mesh.device
-    model = _as_model(model, device=None if device is None else resolve_device(device))
+    with span("psfmc.model"):
+        model = _as_model(model, device=None if device is None else resolve_device(device))
     fns = model.posterior_fns
     spec = model.spec
     dim = spec.num_params
@@ -659,60 +733,9 @@ def fit_batch(
             "psf_stack and psfivm_stack must be given together"
         )
     np_dtype = np.float32 if fns.dtype == torch.float32 else np.float64
-
-    band_specs = getattr(spec, "band_specs", None)
-    if band_specs is None:
-        obs = prepare_obs_stack(spec, obs_stack, ivm_stack, np_dtype)
-        k_real = obs["obs_data"].shape[0]
-        if psf_stack is not None:
-            psf = prepare_psf_stack(spec, psf_stack, psfivm_stack, psf_oversample,
-                                    np_dtype)
-            if psf["psf_f_re"].shape[0] != k_real:
-                raise ValueError(
-                    f"psf_stack target count {psf['psf_f_re'].shape[0]} "
-                    f"!= obs target count {k_real}"
-                )
-            obs.update(psf)
-    else:
-        # joint model: one (K, H_b, W_b) stack per band, flattened into
-        # b{i}_-prefixed keys so the chunk plumbing is the single band's
-        if len(obs_stack) != len(band_specs) or len(ivm_stack) != len(band_specs):
-            raise ValueError(
-                f"joint fit_batch needs one obs/ivm stack per band "
-                f"({len(band_specs)}), got {len(obs_stack)}/{len(ivm_stack)}"
-            )
-        if psf_stack is not None and len(psf_stack) != len(band_specs):
-            raise ValueError(
-                f"joint fit_batch needs one psf_stack per band "
-                f"({len(band_specs)}; None keeps that band's template "
-                f"PSF), got {len(psf_stack)}"
-            )
-        obs = {}
-        k_real = None
-        for i, (bs, ob, iv) in enumerate(zip(band_specs, obs_stack, ivm_stack)):
-            d = prepare_obs_stack(bs, ob, iv, np_dtype)
-            if psf_stack is not None and psf_stack[i] is not None:
-                if psfivm_stack[i] is None:
-                    raise ValueError(
-                        f"band {i}: psf_stack entry needs a matching "
-                        "psfivm_stack entry"
-                    )
-                p = prepare_psf_stack(bs, psf_stack[i], psfivm_stack[i],
-                                      psf_oversample, np_dtype)
-                if p["psf_f_re"].shape[0] != d["obs_data"].shape[0]:
-                    raise ValueError(
-                        f"band {i}: psf_stack target count "
-                        f"{p['psf_f_re'].shape[0]} != obs target count "
-                        f"{d['obs_data'].shape[0]}"
-                    )
-                d.update(p)
-            k = d["obs_data"].shape[0]
-            if k_real is None:
-                k_real = k
-            elif k != k_real:
-                raise ValueError(f"bands disagree on target count: {k_real} vs {k}")
-            for key, v in d.items():
-                obs[f"b{i}_{key}"] = v
+    with span("psfmc.batch.prepare"):
+        obs, k_real = _stack_inputs(spec, obs_stack, ivm_stack, psf_stack, psfivm_stack,
+                                    psf_oversample, np_dtype)
 
     # every chunk's target count a mesh multiple: each process takes whole fits
     quantum = 1 if mesh is None else mesh.size
@@ -724,16 +747,17 @@ def fit_batch(
     rng = np.random.RandomState(seed)
     outs = []
     for start in range(0, k_real, per_chunk):
-        sl = slice(start, min(start + per_chunk, k_real))
-        chunk_obs = {key: v[sl] for key, v in obs.items()}
-        pad = per_chunk - (sl.stop - sl.start)
-        if pad:
-            chunk_obs = {key: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)])
-                         for key, v in chunk_obs.items()}
-        p0 = model.init_params_from_priors(
-            per_chunk * nwalkers, random_state=rng
-        ).reshape(per_chunk, nwalkers, dim)
-        stacks = prepare_obs_for(fns, {key: v[lo_t:hi_t] for key, v in chunk_obs.items()})
+        with span("psfmc.batch.prepare"):
+            sl = slice(start, min(start + per_chunk, k_real))
+            chunk_obs = {key: v[sl] for key, v in obs.items()}
+            pad = per_chunk - (sl.stop - sl.start)
+            if pad:
+                chunk_obs = {key: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)])
+                             for key, v in chunk_obs.items()}
+            p0 = model.init_params_from_priors(
+                per_chunk * nwalkers, random_state=rng
+            ).reshape(per_chunk, nwalkers, dim)
+            stacks = prepare_obs_for(fns, {key: v[lo_t:hi_t] for key, v in chunk_obs.items()})
         key = ("batchfit", _EAGER, per_chunk, nwalkers, dim, float(a), moves, de_gamma0,
                nrec, None if mesh is None else (id(mesh), mesh.size, mesh.rank),
                tuple((s.mode, s.f_stack is not None,
@@ -742,28 +766,30 @@ def fit_batch(
         if cached is None or cached[0] != key:
             # one program a posterior: another chunk shape frees the last
             # one's buffers and graphs before the new one is made
-            fns.__dict__.pop("_batch_program", None)
-            cached = fns.__dict__["_batch_program"] = (key, _BatchProgram(
-                fns, stacks, per_chunk, nwalkers, dim, a, moves, de_gamma0, nrec,
-                sharding=sharding))
+            with span("psfmc.batch.program"):
+                fns.__dict__.pop("_batch_program", None)
+                cached = fns.__dict__["_batch_program"] = (key, _BatchProgram(
+                    fns, stacks, per_chunk, nwalkers, dim, a, moves, de_gamma0, nrec,
+                    sharding=sharding))
         program = cached[1]
         out = program.run(p0, stacks, _chunk_seed(seed, start), burn, iterations,
                           record_every)
         outs.append({k: v[: per_chunk - pad] for k, v in out.items()})
 
-    merged = {k: np.concatenate([o[k] for o in outs], axis=0) for k in outs[0]}
-    res = BatchFitResult(
-        param_names=list(spec.param_names),
-        mean=merged["mean"],
-        std=merged["std"],
-        map_theta=merged["map_theta"],
-        map_lnp=merged["map_lnp"],
-        acceptance=merged["naccept"] / float(int(iterations) * nwalkers),
-        param_lens=list(spec.param_lens),
-    )
-    if record_every:
-        res.chains = merged["chain"]
-        res.lnprob = merged["lnprob"]
+    with span("psfmc.batch.merge"):
+        merged = {k: np.concatenate([o[k] for o in outs], axis=0) for k in outs[0]}
+        res = BatchFitResult(
+            param_names=list(spec.param_names),
+            mean=merged["mean"],
+            std=merged["std"],
+            map_theta=merged["map_theta"],
+            map_lnp=merged["map_lnp"],
+            acceptance=merged["naccept"] / float(int(iterations) * nwalkers),
+            param_lens=list(spec.param_lens),
+        )
+        if record_every:
+            res.chains = merged["chain"]
+            res.lnprob = merged["lnprob"]
     return res
 
 

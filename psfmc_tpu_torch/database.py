@@ -40,6 +40,7 @@ import numpy as np
 from .io import fits
 from .io.table import Table
 from .parallel.multihost import barrier, is_primary
+from .profiling import span
 
 __all__ = [
     "save_database",
@@ -100,6 +101,29 @@ def save_database(sampler, model, db_name, meta_dict=None):
     return the same table from memory (its cards' values without their
     comments, as a read gives them), after the primary's write.
     """
+    with span("psfmc.checkpoint.table"):
+        tbl = _trace_table(sampler, model, meta_dict)
+
+    extra_hdus = []
+    if sampler.state is not None:
+        with span("psfmc.checkpoint.payload"):
+            payload = sampler.checkpoint_payload()
+            payload["sampler_kind"] = sampler.checkpoint_kind
+            extra_hdus = _checkpoint_hdus(payload)
+    if not is_primary():
+        tbl.meta = OrderedDict((k, v[0] if isinstance(v, tuple) else v)
+                               for k, v in tbl.meta.items())
+        barrier("save_database")  # pairs with the primary's, after its write
+        return tbl
+    with span("psfmc.checkpoint.write"):
+        tbl.write(db_name, format="fits", extname="TRACE", extra_hdus=extra_hdus)
+        barrier("save_database")  # the file exists before any process goes on
+    with span("psfmc.checkpoint.reload"):
+        return load_database(db_name)
+
+
+def _trace_table(sampler, model, meta_dict):
+    """The trace table: one row a walker and recorded step, its cards."""
     if sampler.chain is None:
         chain = np.zeros((sampler.nwalkers, 0, sum(model.param_lens)))
         lnprobability = np.zeros(chain.shape[:2])
@@ -121,21 +145,7 @@ def save_database(sampler, model, db_name, meta_dict=None):
         map_row = int(np.argmax(columns["lnprobability"]))
         meta["MAPWLKR"] = int(walker_col[map_row])
         meta["MAPSAMP"] = int(sample_col[map_row])
-    tbl = Table(columns, meta=annotate_metadata(meta))
-
-    extra_hdus = []
-    if sampler.state is not None:
-        payload = sampler.checkpoint_payload()
-        payload["sampler_kind"] = sampler.checkpoint_kind
-        extra_hdus = _checkpoint_hdus(payload)
-    if not is_primary():
-        tbl.meta = OrderedDict((k, v[0] if isinstance(v, tuple) else v)
-                               for k, v in tbl.meta.items())
-        barrier("save_database")  # pairs with the primary's, after its write
-        return tbl
-    tbl.write(db_name, format="fits", extname="TRACE", extra_hdus=extra_hdus)
-    barrier("save_database")  # the file exists before any process goes on
-    return load_database(db_name)
+    return Table(columns, meta=annotate_metadata(meta))
 
 
 def _rng_key_words(rng_state):

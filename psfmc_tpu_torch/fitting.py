@@ -69,7 +69,7 @@ from .database import (
 from .models.multicomponent import as_model
 from .parallel.mesh import check_mesh, walker_sharding
 from .parallel.multihost import is_primary
-from .profiling import PhaseTimer, trace
+from .profiling import PhaseTimer, span, traced
 from .sampler.ensemble import EnsembleSampler
 from .sampler.nuts import NUTSSampler
 from .sampler.tempered import PTEnsembleSampler
@@ -145,6 +145,7 @@ def _resume_refusal(database, ckpt, sampler, mc_model, restoring):
     return None
 
 
+@traced("fit")
 def model_galaxy_mcmc(
     model_file,
     output_name=None,
@@ -222,8 +223,10 @@ def model_galaxy_mcmc(
         phase of this call (init, burn, sampling, images), each ending
         in a device synchronize.
 
-    With ``PSFMC_TRACE_DIR`` set, burn-in and sampling each write a
-    ``torch.profiler`` trace (:func:`~psfmc_tpu_torch.profiling.trace`).
+    With ``PSFMC_TRACE_DIR`` set, the call writes one ``torch.profiler``
+    trace of the whole fit, ``<dir>/fit/rank<r>.pt.trace.json``
+    (:func:`~psfmc_tpu_torch.profiling.trace`), its spans under
+    ``psfmc.fit``.
     The likelihood
     path follows ``PSFMC_LNPOST`` and the model (``pallas`` runs the
     fused kernel; unset, a model the conv+likelihood kernel covers runs
@@ -250,28 +253,29 @@ def model_galaxy_mcmc(
     timings = OrderedDict()
     criticism_draws = CRITICISM_DRAWS if criticism else 0
 
-    mc_model = as_model(model_file, device=device)
-    fns = mc_model.posterior_fns
-    nuts = sampler == "nuts"
-    if chains is None:
-        # NUTS's chains are independent: a handful suffices
-        chains = 8 if nuts else 2 * mc_model.num_params + 2
-    if not nuts and chains % 2:
-        chains += 1  # half-ensemble moves need an even walker count
-    if nuts:
-        if ntemps > 1:
-            warn("ntemps is ignored with sampler='nuts'")
-        if moves != "stretch":
-            warn("moves= is ignored with sampler='nuts'")
-        ens = NUTSSampler(chains, mc_model.num_params, fns, seed=seed,
-                          max_depth=max_depth, device=fns.device, sharding=sharding)
-    elif ntemps > 1:
-        ens = PTEnsembleSampler(chains, mc_model.num_params, fns, ntemps=ntemps,
-                                betas=betas, seed=seed, device=fns.device,
-                                moves=moves, sharding=sharding)
-    else:
-        ens = EnsembleSampler(chains, mc_model.num_params, fns, seed=seed,
-                              device=fns.device, moves=moves, sharding=sharding)
+    with span("psfmc.model"):
+        mc_model = as_model(model_file, device=device)
+        fns = mc_model.posterior_fns
+        nuts = sampler == "nuts"
+        if chains is None:
+            # NUTS's chains are independent: a handful suffices
+            chains = 8 if nuts else 2 * mc_model.num_params + 2
+        if not nuts and chains % 2:
+            chains += 1  # half-ensemble moves need an even walker count
+        if nuts:
+            if ntemps > 1:
+                warn("ntemps is ignored with sampler='nuts'")
+            if moves != "stretch":
+                warn("moves= is ignored with sampler='nuts'")
+            ens = NUTSSampler(chains, mc_model.num_params, fns, seed=seed,
+                              max_depth=max_depth, device=fns.device, sharding=sharding)
+        elif ntemps > 1:
+            ens = PTEnsembleSampler(chains, mc_model.num_params, fns, ntemps=ntemps,
+                                    betas=betas, seed=seed, device=fns.device,
+                                    moves=moves, sharding=sharding)
+        else:
+            ens = EnsembleSampler(chains, mc_model.num_params, fns, seed=seed,
+                                  device=fns.device, moves=moves, sharding=sharding)
     db_name = output_name.format("db") + ".fits"
     common = dict(max_iterations=max_iterations,
                   convergence_check=convergence_check, db_name=db_name,
@@ -280,12 +284,13 @@ def model_galaxy_mcmc(
 
     database = None
     if os.path.exists(db_name):
-        database = load_database(db_name)
-        existing_iter = int(database.meta.get("MCITER", 0))
-        ckpt = load_checkpoint(db_name)
-        skip = existing_iter >= iterations and iterations > 0
-        refusal = _resume_refusal(database, ckpt, ens, mc_model,
-                                  restoring=not skip)
+        with span("psfmc.resume"):
+            database = load_database(db_name)
+            existing_iter = int(database.meta.get("MCITER", 0))
+            ckpt = load_checkpoint(db_name)
+            skip = existing_iter >= iterations and iterations > 0
+            refusal = _resume_refusal(database, ckpt, ens, mc_model,
+                                      restoring=not skip)
         if refusal is not None:
             warn(f"{refusal}; re-running sampling from scratch")
             database = None
@@ -311,13 +316,15 @@ def model_galaxy_mcmc(
             from .optimize import fit_map, scatter_around
 
             with _phase("map", fns.device, timings):
-                pool = mc_model.init_params_from_priors(max(n_init, 256),
-                                                        random_state=rng)
+                with span("psfmc.prior_draws"):
+                    pool = mc_model.init_params_from_priors(max(n_init, 256),
+                                                            random_state=rng)
                 map_res = fit_map(fns, p0=pool, seed=seed)
                 _print(f"MAP fit: lnpost = {map_res.lnpost:.2f}")
                 p0 = scatter_around(fns, map_res.theta, n_init, seed=seed)
         else:
-            p0 = mc_model.init_params_from_priors(n_init, random_state=rng)
+            with span("psfmc.prior_draws"):
+                p0 = mc_model.init_params_from_priors(n_init, random_state=rng)
         database = _run_sampling(ens, mc_model, p0, burn=burn,
                                  iterations=iterations, burn_total=burn,
                                  **common)
@@ -525,6 +532,11 @@ def _run_sampling(sampler, mc_model, initial_positions, burn, iterations,
                 meta["MCLNZERR"] = float(dlnz)
         return meta
 
+    def checkpoint(converged=False):
+        with span("psfmc.checkpoint"):
+            return save_database(sampler, mc_model, db_name,
+                                 meta_dict=checkpoint_meta(converged))
+
     if burn > 0:
         _print(f"Burning: {burn} iterations x {sampler.nwalkers} walkers")
         rejuv_rng = np.random.RandomState(np.uint32(seed) ^ 0x5EED)
@@ -532,15 +544,15 @@ def _run_sampling(sampler, mc_model, initial_positions, burn, iterations,
         def burn_cb(done, total):
             if rejuvenate and done < total and hasattr(sampler, "rejuvenate_stuck"):
                 # NUTS's chains are independent and never teleported
-                n_fix = sampler.rejuvenate_stuck(random_state=rejuv_rng)
+                with span("psfmc.rejuvenate"):
+                    n_fix = sampler.rejuvenate_stuck(random_state=rejuv_rng)
                 if n_fix:
                     _print(f"  rejuvenated {n_fix} stuck walkers")
             print_progress(burn_done + done - 1, burn_total, "Burning")
             if done < total:  # the final state is saved by save_round
-                save_database(sampler, mc_model, db_name,
-                              meta_dict=checkpoint_meta())
+                checkpoint()
 
-        with _phase("burn", device, timings), trace("burn"):
+        with _phase("burn", device, timings):
             sampler.run_burn(burn, segment=_auto_segment(burn, checkpoint_interval),
                              callback=burn_cb)
 
@@ -562,22 +574,23 @@ def _run_sampling(sampler, mc_model, initial_positions, burn, iterations,
     def sample_cb(done, total):
         print_progress(done - 1, total, "Sampling")
         if done < total:
-            save_database(sampler, mc_model, db_name, meta_dict=checkpoint_meta())
+            checkpoint()
 
     database = None
     for sampling_iter in range(max_iterations):
         _print(f"Sampling: {iterations} iterations x {sampler.nwalkers} walkers")
-        with _phase("sampling", device, timings), trace("sampling"):
+        with _phase("sampling", device, timings):
             sampler.run_sampling(
                 iterations, segment=_auto_segment(iterations, checkpoint_interval),
                 callback=sample_cb)
-        converged = bool(convergence_check(sampler))
-        mc_model.set_accumulated_from_sampler(sampler)
-        database = save_database(sampler, mc_model, db_name,
-                                 meta_dict=checkpoint_meta(converged))
+        with span("psfmc.convergence"):
+            converged = bool(convergence_check(sampler))
+            mc_model.set_accumulated_from_sampler(sampler)
+        database = checkpoint(converged)
         if converged:
             break
         warn(f"Not yet converged after {(sampling_iter + 1) * iterations:d} "
              "iterations:")
-        convergence_check(sampler, verbose=1)
+        with span("psfmc.convergence"):
+            convergence_check(sampler, verbose=1)
     return database

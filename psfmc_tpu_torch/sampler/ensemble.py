@@ -81,6 +81,7 @@ from .._device import gc_paused, resolve_device
 from ..ops.kernels import counts
 from ..parallel.mesh import check_sharding, steps_graphed
 from ..parallel.posterior import shard_posterior
+from ..profiling import span
 from .autocorr import integrated_time
 
 __all__ = [
@@ -438,19 +439,21 @@ def capture_step(step, live, scratch, generator, stream, pool):
     and ``generator``'s state restored after it: the buffers, the
     generator and the counts move only by replays.  Python's collector is
     paused over the capture (:func:`~psfmc_tpu_torch._device.gc_paused`).
+    Both run under one ``psfmc.capture`` span.
     """
-    current = torch.cuda.current_stream(stream.device)
-    rng_state = generator.get_state()
-    stream.wait_stream(current)
-    with torch.cuda.stream(stream), counts.tally():
-        step(*scratch)
-    current.wait_stream(stream)
-    generator.set_state(rng_state)
-    graph = torch.cuda.CUDAGraph()
-    graph.register_generator_state(generator)
-    with counts.tally() as launches, gc_paused():
-        with torch.cuda.graph(graph, pool=pool, stream=stream):
-            step(*live)
+    with span("psfmc.capture"):
+        current = torch.cuda.current_stream(stream.device)
+        rng_state = generator.get_state()
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream), counts.tally():
+            step(*scratch)
+        current.wait_stream(stream)
+        generator.set_state(rng_state)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(generator)
+        with counts.tally() as launches, gc_paused():
+            with torch.cuda.graph(graph, pool=pool, stream=stream):
+                step(*live)
     return _StepGraph(graph, launches)
 
 
@@ -540,6 +543,7 @@ class EnsembleSampler:
         self._stream = None
         self._graphed = steps_graphed(self.device, sharding, posterior_fns)
         self.graph_replays = 0  # steps run as a replay of a captured graph
+        self.graph_captures = 0  # graphs captured
         self._chain = None  # numpy (nwalkers, nsteps, dim), emcee layout
         self._lnprob = None  # numpy (nwalkers, nsteps)
         self._naccept = np.zeros(nwalkers, dtype=np.int64)
@@ -664,6 +668,7 @@ class EnsembleSampler:
         graph = self._graphs.get(variant)
         if graph is None:
             graph = self._graphs[variant] = self._capture(variant)
+            self.graph_captures += 1
         graph.replay()
         self.graph_replays += 1
 
@@ -715,32 +720,39 @@ class EnsembleSampler:
         """``n`` steps and all the bookkeeping, for ``run_burn``,
         ``run_sampling`` and ``sample()`` alike.  Returns the segment's
         recorded (chain, lnprob) in emcee layout, ``(None, None)`` for a
-        burn segment."""
+        burn segment.
+
+        The steps run under a ``psfmc.steps`` span that ends in the accept
+        counts' copy to the host, which waits for them; the bookkeeping
+        and the chain's copy to the host under ``psfmc.readout``."""
         if self.state is None:
             raise RuntimeError("call init_state(p0) first")
         thin = 1 if burn else self.thin
         nrec = 0 if burn else n // thin
-        if nrec:
-            self._use_record(nrec)
-        start_accept = self._cold_naccept().clone()
-        for i in range(int(n)):
-            if burn:
-                self._step("burn")
-            else:
-                self._step("record" if (i + 1) % thin == 0 else "retain")
-        self._naccept += (self._cold_naccept() - start_accept).cpu().numpy()
-        self._nsteps_total += int(n)
-        if not nrec:
-            return None, None
-        # one device -> host transfer per segment; emcee layout
-        chain, lnprob = (np.ascontiguousarray(_host(t[:nrec]).swapaxes(0, 1))
-                         for t in self._record[:2])
-        if storechain:
-            if self._chain is None:
-                self._chain, self._lnprob = chain, lnprob
-            else:
-                self._chain = np.concatenate([self._chain, chain], axis=1)
-                self._lnprob = np.concatenate([self._lnprob, lnprob], axis=1)
+        with span("psfmc.steps"):
+            if nrec:
+                self._use_record(nrec)
+            start_accept = self._cold_naccept().clone()
+            for i in range(int(n)):
+                if burn:
+                    self._step("burn")
+                else:
+                    self._step("record" if (i + 1) % thin == 0 else "retain")
+            accepted = (self._cold_naccept() - start_accept).cpu()
+        with span("psfmc.readout"):
+            self._naccept += accepted.numpy()
+            self._nsteps_total += int(n)
+            if not nrec:
+                return None, None
+            # one device -> host transfer per segment; emcee layout
+            chain, lnprob = (np.ascontiguousarray(_host(t[:nrec]).swapaxes(0, 1))
+                             for t in self._record[:2])
+            if storechain:
+                if self._chain is None:
+                    self._chain, self._lnprob = chain, lnprob
+                else:
+                    self._chain = np.concatenate([self._chain, chain], axis=1)
+                    self._lnprob = np.concatenate([self._lnprob, lnprob], axis=1)
         return chain, lnprob
 
     def run_burn(self, nsteps: int, segment=None, callback=None):
